@@ -1,0 +1,592 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch / CUDA port.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (``nvcc``); builds every kernel
+under ``neuronx_distributed_inference_tpu_torch/csrc/`` from source, then:
+
+  1. environment: the card's name and power limit (nvidia-smi), torch and
+     CUDA versions, kernel build seconds;
+  2. each kernel against its plain-PyTorch twin on the card, over the case
+     matrix of the TPU kernel's tests, at the serving path's shapes;
+  3. the main path, bf16, Llama-3.2-1B geometry at full depth with random
+     weights from seed 0: ``PagedCausalLMApplication.generate`` of 64 new
+     tokens for 4 prompts; the kernel's launches must equal layers x
+     all-decode steps, and every decode step's logits must agree with the
+     same app and weights built with ``attn_block_tkg_kernel_enabled=False``
+     (the gather path) fed the same tokens;
+  4. serving, fp32 (TF32 off), same geometry: 6 requests with staggered
+     admission through ``PagedEngineAdapter``; each stream must equal that
+     prompt's single-request ``generate`` (a first difference is accepted
+     only at a near-tie of the reference's top-2 logits, and printed);
+  5. timings: kernel, plain twin and the SDPA yardstick as device time
+     (CUDA-graph replay between CUDA events), prefill and decode steps on
+     the host clock, and a torch.profiler trace of the decode steps
+     (device time by kernel, device idle share).
+
+Every line before the last is one JSON object; the last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
+exits non-zero and prints no last line. Without a CUDA card it exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+# Llama-3.2-1B (HF config.json of meta-llama/Llama-3.2-1B)
+LLAMA_3_2_1B = dict(
+    model_type="llama", hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, vocab_size=128256, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192},
+    max_position_embeddings=131072, hidden_act="silu",
+    tie_word_embeddings=True)
+
+PROMPT_LENS = (37, 300, 900, 1500)      # phase 3 prompts (batch 4)
+NEW_TOKENS = 64
+SERVE_LENS = (23, 57, 101, 150, 77, 190)  # phase 4 requests
+SERVE_TOKENS = 32
+
+# Tolerances, with their reasons:
+# kernel vs twin, bf16 out: both accumulate in fp32 and round the output
+#   to bf16 once; one bf16 ulp at |o| < 2 is <= 7.8e-3.
+TOL_KERNEL_BF16 = 1e-2
+# kernel vs twin, fp32 out: fp32 sums in another order (split-K online
+#   softmax vs one softmax) differ by ~1e-6 relative.
+TOL_KERNEL_FP32 = 1e-4
+# decode logits, kernel app vs gather app, bf16: the gather path rounds
+#   the softmax probabilities to bf16 before the value product (the
+#   kernel keeps them fp32) and every layer's output is rounded to bf16;
+#   logits have std ~0.9 here and bf16 spacing 1.6e-2 at |x| in [2, 4).
+TOL_LOGITS_BF16 = 0.25
+# fp32 serving: batched and single-row matmuls may take different kernels;
+#   a stream may first differ only where the reference's top-2 logits are
+#   closer than this.
+NEAR_TIE = 1e-3
+
+HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def build_kernels():
+    """One nvcc per csrc/*.cu source, all started together."""
+    import os
+    from neuronx_distributed_inference_tpu_torch import _build
+    names = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR)
+                   if f.endswith(".cu"))
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        list(ex.map(_build.build, names))
+    return {n: round(_build.BUILD_SECONDS[n], 2) for n in names}
+
+
+def time_cuda(fn, calls: int = 100, reps: int = 7) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events (median). The graph
+    takes the host out of the measurement: eager calls of a small kernel
+    wait on Python and launch latency, not on the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):                   # lazy init off the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def time_eager(fn, calls: int = 200) -> float:
+    """Host ms per call of ``fn`` called back to back, ending in a sync:
+    what a caller pays, Python and launch overhead included."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def time_host(fn, reps: int = 5) -> float:
+    """Median ms of ``fn`` on the host clock; ``fn`` ends in a sync."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernel against twin
+# ---------------------------------------------------------------------------
+
+def paged_inputs(gen, device, *, b, hq, hkv, d, bs, mb, lens, layers=1,
+                 act_dtype, page_dtype, kv_scale=None):
+    """Random q / new_k / new_v and a stacked page cache with each row's
+    live pages scattered through a random block table (block 0 = null)."""
+    import torch
+    n = 1 + b * mb
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    pages = []
+    for _ in range(2):
+        p = rnd(layers, n, bs, hkv, d)
+        if kv_scale is not None:
+            p = p / kv_scale
+        pages.append(p.to(page_dtype))
+    perm = torch.randperm(n - 1, generator=gen, device=device)[:b * mb] + 1
+    table = torch.zeros((b, mb), dtype=torch.int32, device=device)
+    for i, ln in enumerate(lens):
+        live = -(-(int(ln) + 1) // bs)
+        table[i, :live] = perm[i * mb:i * mb + live].to(torch.int32)
+    return dict(q=rnd(b, hq, d).to(act_dtype), k_pages=pages[0],
+                v_pages=pages[1], new_k=rnd(b, hkv, d).to(act_dtype),
+                new_v=rnd(b, hkv, d).to(act_dtype),
+                lens=torch.tensor(lens, dtype=torch.int32, device=device),
+                block_table=table)
+
+
+def kernel_cases(device):
+    """(name, inputs, kwargs, tolerance) over the TPU kernel's test matrix
+    at the serving path's shapes."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(1)
+    slice_lens = [0, 1, 31, 32, 333, 1000, 1777, 2047]
+    cases = []
+    for dt, tol in ((torch.bfloat16, TOL_KERNEL_BF16),
+                    (torch.float32, TOL_KERNEL_FP32)):
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        cases.append((f"llama3.2-1b_{tag}", paged_inputs(
+            gen, device, b=8, hq=32, hkv=8, d=64, bs=32, mb=64,
+            lens=slice_lens, act_dtype=dt, page_dtype=dt),
+            dict(scale=64 ** -0.5), tol))
+        cases.append((f"llama3.1-8b_{tag}", paged_inputs(
+            gen, device, b=8, hq=32, hkv=8, d=128, bs=32, mb=64,
+            lens=slice_lens, act_dtype=dt, page_dtype=dt),
+            dict(scale=128 ** -0.5), tol))
+    sink = torch.randn((32,), generator=gen, device=device)
+    cases.append(("window_sink_softcap_bf16", paged_inputs(
+        gen, device, b=8, hq=32, hkv=8, d=64, bs=32, mb=64, lens=slice_lens,
+        act_dtype=torch.bfloat16, page_dtype=torch.bfloat16),
+        dict(scale=64 ** -0.5, window=100, sink=sink, soft_cap=5.0),
+        TOL_KERNEL_BF16))
+    cases.append(("stacked_layers_bf16", paged_inputs(
+        gen, device, b=8, hq=32, hkv=8, d=64, bs=32, mb=64, lens=slice_lens,
+        layers=3, act_dtype=torch.bfloat16, page_dtype=torch.bfloat16),
+        dict(scale=64 ** -0.5, layer=2), TOL_KERNEL_BF16))
+    cases.append(("fp8_e4m3_pages_kv_scale", paged_inputs(
+        gen, device, b=8, hq=32, hkv=8, d=64, bs=32, mb=64, lens=slice_lens,
+        act_dtype=torch.bfloat16, page_dtype=torch.float8_e4m3fn,
+        kv_scale=0.5), dict(scale=64 ** -0.5, kv_scale=0.5),
+        TOL_KERNEL_BF16))
+    return cases
+
+
+def check_kernel_against_twin(inputs, kw):
+    """max |kernel - twin| for one input set (both on the card)."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    kw = dict(kw)
+    layer = kw.pop("layer", 0)
+    args = (inputs["q"], inputs["k_pages"], inputs["v_pages"],
+            inputs["new_k"], inputs["new_v"], layer, inputs["lens"],
+            inputs["block_table"])
+    got = decode_attention.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention.paged_decode_attention_plain(*args, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("kernel output is not finite")
+    return err
+
+
+def phase_kernels(device):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    results = {}
+    for name, inputs, kw, tol in kernel_cases(device):
+        err = check_kernel_against_twin(inputs, kw)
+        results[name] = err
+        emit({"phase": "kernel_vs_twin", "kernel": "paged_decode_attention",
+              "case": name, "max_abs_err": err, "tol": tol})
+        if not err <= tol:
+            raise AssertionError(f"paged_decode_attention {name}: max abs "
+                                 f"err {err} > {tol}")
+    # comparison launches are not main-path launches
+    decode_attention.paged_decode_attention.launches = 0
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: main path
+# ---------------------------------------------------------------------------
+
+def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
+             prefix_caching=True, output_logits=False):
+    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+    from neuronx_distributed_inference_tpu_torch.models.application import \
+        PagedCausalLMApplication
+    from neuronx_distributed_inference_tpu_torch.models.llama import (
+        LlamaFamily, LlamaInferenceConfig)
+    tcfg = TpuConfig(batch_size=batch, seq_len=seq_len, dtype=dtype,
+                     is_block_kv_layout=True, pa_block_size=32,
+                     is_prefix_caching=prefix_caching,
+                     output_logits=output_logits,
+                     attn_block_tkg_kernel_enabled=kernel)
+    app = PagedCausalLMApplication(None, LlamaInferenceConfig(tcfg, **hf),
+                                   LlamaFamily, device=device)
+    return app.init_cache()
+
+
+def prompts_of(lens, vocab, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    width = max(lens)
+    ids = np.zeros((len(lens), width), np.int64)
+    mask = np.zeros((len(lens), width), np.int64)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(1, vocab, size=n)
+        mask[i, :n] = 1
+    return ids, mask
+
+
+def phase_main_path(hf, device, on_card=True):
+    import numpy as np
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    app = make_app(hf, device, "bfloat16", batch=len(PROMPT_LENS),
+                   seq_len=2048, output_logits=True)
+    app.init_random_weights(0)
+    ids, mask = prompts_of(PROMPT_LENS, hf["vocab_size"], seed=0)
+    decode_attention.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
+                       return_logits=True)
+    gen_s = time.perf_counter() - t0
+    launches = decode_attention.paged_decode_attention.launches
+    decode_steps = NEW_TOKENS - 1
+    want = hf["num_hidden_layers"] * decode_steps if on_card else 0
+    emit({"phase": "main_path", "generate_s": gen_s, "launches": launches,
+          "expected_launches": want, "decode_steps": decode_steps,
+          "generated_shape": list(out["generated"].shape)})
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != layers x "
+                             f"decode steps {want}")
+    gen = out["generated"]
+    if gen.shape != (len(PROMPT_LENS), NEW_TOKENS) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"bad generated tokens {gen.shape}")
+
+    # the gather path, same weights, fed the kernel app's tokens
+    ref = make_app(hf, device, "bfloat16", batch=len(PROMPT_LENS),
+                   seq_len=2048, kernel=False, output_logits=True)
+    ref.params = app.params
+    ref_out = ref.generate(ids, attention_mask=mask,
+                           max_new_tokens=NEW_TOKENS, return_logits=True,
+                           teacher_tokens=gen[:, :decode_steps])
+    errs = []
+    for step in range(1, NEW_TOKENS):
+        a, b = out["logits"][step], ref_out["logits"][step]
+        if not np.isfinite(a).all():
+            raise AssertionError(f"non-finite logits at decode step {step}")
+        errs.append(float(np.abs(a - b).max()))
+    worst = max(errs)
+    emit({"phase": "main_path_vs_gather", "decode_steps_compared":
+          len(errs), "max_abs_logit_diff": worst,
+          "mean_step_max_diff": float(np.mean(errs)),
+          "ref_logit_std": float(np.std(ref_out["logits"][1])),
+          "tol": TOL_LOGITS_BF16})
+    if not worst <= TOL_LOGITS_BF16:
+        raise AssertionError(f"decode logits differ from the gather path "
+                             f"by {worst} > {TOL_LOGITS_BF16}")
+    return app, ids, mask, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serving through the adapter, fp32
+# ---------------------------------------------------------------------------
+
+def phase_serving(hf, device):
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    app = make_app(hf, device, "float32", batch=8, seq_len=512)
+    app.init_random_weights(0)
+    ref = make_app(hf, device, "float32", batch=1, seq_len=512,
+                   output_logits=True)
+    ref.params = app.params
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in SERVE_LENS]
+    eng = PagedEngineAdapter(app)
+    streams = {i: [] for i in range(len(prompts))}
+    admit_at = {0: (0, 1), 8: (2, 3), 16: (4, 5)}
+    step = 0
+    while True:
+        if step in admit_at:
+            sids = list(admit_at[step])
+            first = eng.add_requests(sids, [prompts[s] for s in sids])
+            for s, t in first.items():
+                streams[s].append(t)
+        done = [s for s in eng.running_ids
+                if len(streams[s]) >= SERVE_TOKENS]
+        if done:
+            eng.release(done)
+        if not eng.running_ids and step > max(admit_at):
+            break
+        for s, t in eng.step().items():
+            streams[s].append(t)
+        step += 1
+    near_ties = []
+    for s, prompt in enumerate(prompts):
+        want = ref.generate(np.asarray([prompt]),
+                            max_new_tokens=SERVE_TOKENS, return_logits=True)
+        ref.reset()
+        got = np.asarray(streams[s][:SERVE_TOKENS])
+        exp = want["generated"][0]
+        diff = np.nonzero(got != exp)[0]
+        if diff.size:
+            i = int(diff[0])
+            # step 0 is the prefill: its logits cover the whole window
+            lg = want["logits"][i][0, len(prompt) - 1 if i == 0 else 0]
+            top2 = np.sort(lg)[-2:]
+            margin = float(top2[1] - top2[0])
+            case = {"seq_id": s, "first_diff_step": i, "margin": margin}
+            near_ties.append(case)
+            emit({"phase": "serving_near_tie", **case, "bound": NEAR_TIE})
+            if not margin < NEAR_TIE:
+                raise AssertionError(f"stream {s} differs from generate at "
+                                     f"step {i} with top-2 margin {margin}")
+    emit({"phase": "serving", "requests": len(prompts),
+          "tokens_per_stream": SERVE_TOKENS, "engine_steps": step,
+          "streams_identical": len(prompts) - len(near_ties),
+          "near_ties": len(near_ties), "host_stats": eng.host_stats})
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: timings
+# ---------------------------------------------------------------------------
+
+def kernel_bounds(inputs):
+    """Least time for the kernel's work on the H100: bytes (live K/V rows,
+    q, new_k/new_v, out, lens, the live table entries) over the HBM rate,
+    and operations (QK and PV over the live keys plus the active token)
+    over the peak rate of the page type; returns (ms, "bytes"|"operations")."""
+    q, kp = inputs["q"], inputs["k_pages"]
+    b, hq, d = q.shape
+    bs, hkv = kp.shape[2], kp.shape[3]
+    lens = [int(x) for x in inputs["lens"].tolist()]
+    keys = sum(lens)
+    kv_bytes = 2 * keys * hkv * d * kp.element_size()
+    act_bytes = (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
+    meta_bytes = 4 * b + 4 * sum(-(-n // bs) for n in lens)
+    bytes_ms = (kv_bytes + act_bytes + meta_bytes) / HBM_BYTES_PER_S * 1e3
+    flops = 4 * (keys + b) * hq * d
+    rate = PEAK_FLOPS.get(str(kp.dtype).replace("torch.", ""),
+                          PEAK_FLOPS["bfloat16"])
+    ops_ms = flops / rate * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def sdpa_inputs(inputs, layer):
+    """The same attention pre-gathered contiguously for
+    ``scaled_dot_product_attention`` (the active token at slot lens[b])."""
+    import torch
+    kp, vp, table = inputs["k_pages"], inputs["v_pages"], inputs[
+        "block_table"]
+    b, hq, d = inputs["q"].shape
+    mb, bs, hkv = table.shape[1], kp.shape[2], kp.shape[3]
+    k = kp[layer][table.long()].reshape(b, mb * bs, hkv, d).clone()
+    v = vp[layer][table.long()].reshape(b, mb * bs, hkv, d).clone()
+    rows = torch.arange(b, device=k.device)
+    lens = inputs["lens"].long()
+    k[rows, lens] = inputs["new_k"]
+    v[rows, lens] = inputs["new_v"]
+    pos = torch.arange(mb * bs, device=k.device)[None, :]
+    mask = (pos <= lens[:, None])[:, None, None, :]
+    return (inputs["q"][:, :, None, :], k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), mask)
+
+
+def device_kernels(fn):
+    """(host ms, {kernel name: device ms}) of one ``fn()`` traced with
+    ``torch.profiler`` (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0:
+            per[ev.key] = per.get(ev.key, 0.0) + us / 1e3
+    return wall, per
+
+
+def profile_decode(prefill_only, prefill_and_decode, steps: int):
+    """Device time by kernel and the device's idle share over ``steps``
+    decode steps: the trace of prefill + decode minus the trace of the
+    prefill alone."""
+    try:
+        w0, p0 = device_kernels(prefill_only)
+        w1, p1 = device_kernels(prefill_and_decode)
+    except RuntimeError as e:        # the profiler is optional equipment
+        emit({"phase": "decode_profile", "measured": False,
+              "reason": str(e)[:200]})
+        return
+    busy = sum(p1.values()) - sum(p0.values())
+    wall = w1 - w0
+    per_step = {n: (p1[n] - p0.get(n, 0.0)) / steps for n in p1}
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "decode_profile", "measured": busy > 0,
+          "steps": steps, "host_ms_per_step": wall / steps,
+          "device_busy_ms_per_step": busy / steps,
+          "device_idle_share": (1 - busy / wall) if busy > 0 else None,
+          "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top]})
+
+
+def phase_timings(hf, device, app, ids, mask, launches):
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    spec = app.spec
+    b = len(PROMPT_LENS)
+    timing_app = make_app(hf, device, "bfloat16", batch=b, seq_len=2048,
+                          prefix_caching=False)
+    timing_app.params = app.params
+
+    def gen(n):
+        timing_app.generate(ids, attention_mask=mask, max_new_tokens=n)
+        timing_app.reset()
+    prefill_ms = time_host(lambda: gen(1))
+    k = 32
+    decode_ms = (time_host(lambda: gen(1 + k)) - prefill_ms) / k
+    profile_decode(lambda: gen(1), lambda: gen(1 + k), k)
+
+    # the kernel at the main path's decode shapes, over the main path's
+    # own cache and tables (positions after its last decode step)
+    gen_t = torch.Generator(device=device).manual_seed(2)
+    pos = [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
+    table = app.kv_mgr.block_table_array(range(b), app._bt_width(b))
+    inputs = dict(
+        q=torch.randn((b, spec.num_q_heads, spec.head_dim), generator=gen_t,
+                      device=device).to(torch.bfloat16),
+        new_k=torch.randn((b, spec.num_kv_heads, spec.head_dim),
+                          generator=gen_t, device=device).to(torch.bfloat16),
+        new_v=torch.randn((b, spec.num_kv_heads, spec.head_dim),
+                          generator=gen_t, device=device).to(torch.bfloat16),
+        k_pages=app.cache["k"], v_pages=app.cache["v"],
+        lens=torch.tensor(pos, dtype=torch.int32, device=device),
+        block_table=torch.as_tensor(table, device=device))
+    layer = spec.num_layers - 1
+    kw = dict(scale=spec.scale)
+    err = check_kernel_against_twin(dict(inputs), dict(kw, layer=layer))
+    if not err <= TOL_KERNEL_BF16:
+        raise AssertionError(f"kernel at main-path shapes: {err}")
+    args = (inputs["q"], inputs["k_pages"], inputs["v_pages"],
+            inputs["new_k"], inputs["new_v"], layer, inputs["lens"],
+            inputs["block_table"])
+    kernel_ms = time_cuda(
+        lambda: decode_attention.paged_decode_attention(*args, **kw))
+    kernel_eager_ms = time_eager(
+        lambda: decode_attention.paged_decode_attention(*args, **kw))
+    plain_ms = time_cuda(
+        lambda: decode_attention.paged_decode_attention_plain(*args, **kw),
+        calls=20)
+    q4, k4, v4, m4 = sdpa_inputs(inputs, layer)
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4, scale=spec.scale, enable_gqa=True))
+    bound_ms, bound_by = kernel_bounds(inputs)
+    emit({"phase": "timings", "prefill_ms_per_prompt": prefill_ms / b,
+          "prefill_ms_batch": prefill_ms, "prompt_lens": list(PROMPT_LENS),
+          "decode_ms_per_step_batch4": decode_ms,
+          "kernel_us": kernel_ms * 1e3, "bound_us": bound_ms * 1e3,
+          "kernel_eager_us": kernel_eager_ms * 1e3,
+          "splits": decode_attention.num_splits(
+              b, spec.num_kv_heads, int(table.shape[1]), 32, spec.head_dim),
+          "plain_us": plain_ms * 1e3, "library_us": library_ms * 1e3,
+          "launches": launches,
+          "max_abs_err": err, "kernel_shape": {
+              "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
+              "D": spec.head_dim, "Bs": 32, "lens": pos,
+              "table_width": int(table.shape[1])}})
+    return [{"name": "paged_decode_attention", "route": "cuda",
+             "source": "neuronx_distributed_inference_tpu_torch/csrc/"
+                       "paged_decode_attention.cu",
+             "replaces": "neuronx_distributed_inference_tpu/ops/"
+                         "decode_attention.py:336",
+             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    gpu = nvidia_smi()
+    build_s = build_kernels()
+    emit({"phase": "env", "gpu": gpu, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": build_s})
+    phase_kernels(device)
+    app, ids, mask, launches = phase_main_path(LLAMA_3_2_1B, device)
+    phase_serving(LLAMA_3_2_1B, device)
+    kernels = phase_timings(LLAMA_3_2_1B, device, app, ids, mask, launches)
+    emit({"kernels": kernels})
+    emit({"gpu": gpu})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

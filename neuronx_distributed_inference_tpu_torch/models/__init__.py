@@ -1,0 +1,1 @@
+"""Models of the port (counterpart: ``neuronx_distributed_inference_tpu/models/``)."""

@@ -1,0 +1,116 @@
+"""Model-family protocol (counterpart:
+``neuronx_distributed_inference_tpu/models/family.py:26-206``).
+
+A family is a class with ``config_cls``, ``build_spec(config)`` and
+``convert_hf_state_dict(sd, spec)`` (HF numpy state dict -> the stacked
+host parameter tree). This slice carries the dense Llama-shaped decoder;
+the per-family hooks for biases, q/k norms and MoE come with the families
+that need them."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Type
+
+import numpy as np
+
+from ..config import InferenceConfig
+from ..parallel.layers import place_q_weight, replicate_kv_weight
+from .model_base import DecoderSpec, spec_from_config
+
+_REGISTRY: Dict[str, Type["DecoderFamily"]] = {}
+
+
+def register_family(*names: str):
+    def deco(cls):
+        for n in names:
+            _REGISTRY[n] = cls
+        cls.family_names = names
+        return cls
+    return deco
+
+
+def get_family(name: str) -> Type["DecoderFamily"]:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model family {name!r}; known: "
+                       f"{sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def family_for_config(config) -> Type["DecoderFamily"]:
+    return get_family(getattr(config, "model_type", None))
+
+
+class DecoderFamily:
+    """The standard Llama-shaped decoder."""
+
+    family_names = ()
+    config_cls: Type[InferenceConfig] = InferenceConfig
+    hf_prefix = "model"
+
+    @classmethod
+    def build_spec(cls, config: InferenceConfig,
+                   tp_degree: Optional[int] = None) -> DecoderSpec:
+        return spec_from_config(config, tp_degree)
+
+    @classmethod
+    def convert_hf_state_dict(cls, sd: Dict[str, np.ndarray],
+                              spec: DecoderSpec) -> Dict[str, Any]:
+        """HF names/layouts -> stacked host tree. torch Linear stores
+        (out, in); the tree stores (in, out) so matmuls read x @ w. q/k/v
+        stay separate here (fused by ``model_base.fuse_qkv_host``)."""
+        p = cls.hf_prefix
+        g = spec.gqa
+        D = spec.head_dim
+
+        def get(name):
+            if name in sd:
+                return np.asarray(sd[name])
+            raise KeyError(f"missing checkpoint tensor {name}; have "
+                           f"{sorted(sd)[:8]}...")
+
+        def layer_stack(fmt, transform):
+            return np.stack([transform(get(fmt.format(i=i)))
+                             for i in range(spec.num_layers)])
+
+        def t(w):
+            return np.ascontiguousarray(w.T)
+
+        def q_t(w):
+            return place_q_weight(t(w), g, D, axis=-1)
+
+        def kv_t(w):
+            return replicate_kv_weight(t(w), g, D, axis=-1)
+
+        def o_t(w):
+            return place_q_weight(t(w), g, D, axis=0)
+
+        def ident(w):
+            return np.asarray(w)
+
+        lp = p + ".layers.{i}."
+        layers = {
+            "input_norm": layer_stack(lp + "input_layernorm.weight", ident),
+            "q_proj": layer_stack(lp + "self_attn.q_proj.weight", q_t),
+            "k_proj": layer_stack(lp + "self_attn.k_proj.weight", kv_t),
+            "v_proj": layer_stack(lp + "self_attn.v_proj.weight", kv_t),
+            "o_proj": layer_stack(lp + "self_attn.o_proj.weight", o_t),
+            "post_norm": layer_stack(lp + "post_attention_layernorm.weight",
+                                     ident),
+            "gate_proj": layer_stack(lp + "mlp.gate_proj.weight", t),
+            "up_proj": layer_stack(lp + "mlp.up_proj.weight", t),
+            "down_proj": layer_stack(lp + "mlp.down_proj.weight", t),
+        }
+
+        def vpad(w):
+            if w.shape[0] < spec.padded_vocab:
+                w = np.pad(w, [(0, spec.padded_vocab - w.shape[0])]
+                           + [(0, 0)] * (w.ndim - 1))
+            return w
+
+        out = {"embed": vpad(get(p + ".embed_tokens.weight")),
+               "layers": layers,
+               "final_norm": get(p + ".norm.weight")}
+        if not spec.tie_word_embeddings:
+            out["lm_head"] = np.ascontiguousarray(
+                vpad(get("lm_head.weight")).T)
+        return out

@@ -1,0 +1,1 @@
+"""Tensor ops of the port (counterpart: ``neuronx_distributed_inference_tpu/ops/``)."""

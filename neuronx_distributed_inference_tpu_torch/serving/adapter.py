@@ -1,0 +1,720 @@
+"""Paged serving adapter — the continuous-batching contract an engine
+drives (counterpart: ``neuronx_distributed_inference_tpu/serving/
+adapter.py`` — ``_SeqState``/``_ChunkState`` :137-180, the helpers
+:459-560, ``_PagedScratch`` :606, the eager path of ``_EngineAdapterBase``
+:682-903 and ``PagedEngineAdapter`` :1277 with its preemption :2022-2165
+and chunked prefill :2174-2400).
+
+The engine owns scheduling; the adapter owns device state:
+
+  * ``add_requests(seq_ids, prompts)`` — transactional admission; the
+    uncached prompt suffixes run as chunked, packed prefill rows of
+    ctx-bucket ``_run_paged`` dispatches (or, with
+    ``prefill_budget_tokens``, one budgeted chunk dispatch per step);
+  * ``step(seq_ids=None)`` — one decode step for the running rows;
+  * ``step_many(k, seq_ids=None)`` — k decode steps in one call of the
+    device loop (slots advance on the device);
+  * ``release(seq_ids)`` — free rows and their blocks.
+
+When the block pool runs dry the ``preemption_policy`` ("lifo" /
+"fewest_generated") evicts a running or pending sequence and queues a
+:class:`Preempted` record for :meth:`PagedEngineAdapter.take_preempted`.
+
+This slice ports the eager path (``pipeline_depth=0``). The constructor
+refuses what waits for later slices: ``ragged=True``, ``speculation``,
+``lora_pool``, ``kv_spill_tier``, ``pipeline_depth > 0`` and a
+``telemetry`` registry; fault points are left out.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from ..modules import autobucketing
+from ..modules.block_kv_cache import (cut_cached_at_unwritten,
+                                      slots_from_table,
+                                      slots_from_table_into)
+from ..resilience.errors import (AdmissionError, CapacityError,
+                                 ConfigurationError, DeadlineExceeded,
+                                 SequenceStateError, ServingError,
+                                 StepFailure)
+from ..resilience.preemption import (PREEMPTION_POLICIES, Preempted,
+                                     pick_victim)
+
+
+@dataclass
+class _SeqState:
+    position: int                 # position of last_token
+    last_token: int
+    running: bool = True
+    tokens: List[int] = field(default_factory=list)  # prompt + generated
+    prompt_len: int = 0
+    admit_idx: int = 0            # adapter-wide admission counter (LIFO)
+    deadline: Optional[float] = None   # absolute perf_counter() deadline
+    meta: Any = None              # opaque engine passthrough
+
+
+@dataclass
+class _ChunkState:
+    """Chunked-prefill progress of one PENDING admission: KV for
+    ``prompt[:done]`` is written (or prefix-cached); ``[done:]`` still has
+    chunks to run."""
+    prompt: List[int]
+    done: int
+    admit_idx: int
+    deadline: Optional[float] = None
+    meta: Any = None
+
+
+def _live_rows(seqs: Dict[int, _SeqState],
+               seq_ids: Optional[Sequence[int]],
+               pending=()) -> List[int]:
+    """Running rows for a step call; ``pending`` ids (mid-prefill) are
+    known but carry no decodable row yet."""
+    ids = sorted(seqs) if seq_ids is None else list(seq_ids)
+    if seq_ids is not None:
+        for sid in ids:
+            if sid not in seqs and sid not in pending:
+                raise SequenceStateError(f"seq_id {sid} is not running "
+                                         "(released or never added)")
+    return [sid for sid in ids if sid in seqs and seqs[sid].running]
+
+
+def _validate_admission(seq_ids: Sequence[int],
+                        prompts: Sequence[Sequence[int]], seq_len: int):
+    if len(seq_ids) == 0:
+        raise AdmissionError("add_requests called with empty seq_ids")
+    if len(seq_ids) != len(prompts):
+        raise AdmissionError("seq_ids and prompts length mismatch "
+                             f"({len(seq_ids)} vs {len(prompts)})")
+    if len(set(seq_ids)) != len(seq_ids):
+        raise AdmissionError("duplicate seq_ids in one add_requests call")
+    for sid, p in zip(seq_ids, prompts):
+        if len(p) == 0:
+            raise AdmissionError(f"zero-length prompt for seq_id {sid}")
+        if len(p) > seq_len:
+            raise AdmissionError(
+                f"prompt for seq_id {sid} is {len(p)} tokens — beyond the "
+                f"configured seq_len {seq_len}")
+
+
+def _resolve_deadlines(deadline_s, n: int,
+                       t0: float) -> List[Optional[float]]:
+    if deadline_s is None:
+        return [None] * n
+    if isinstance(deadline_s, (int, float)):
+        return [t0 + float(deadline_s)] * n
+    if len(deadline_s) != n:
+        raise AdmissionError("deadline_s and seq_ids length mismatch")
+    return [None if d is None else t0 + float(d) for d in deadline_s]
+
+
+def _pre_step_checks(seqs: Dict[int, _SeqState], live: Sequence[int],
+                     seq_len: int, horizon: int = 1):
+    """Wall-clock deadlines, then the decode-past-seq_len guard, for the
+    whole ``horizon`` of fused steps, BEFORE any device work."""
+    now = time.perf_counter()
+    expired = [s for s in live
+               if seqs[s].deadline is not None and now >= seqs[s].deadline]
+    if expired:
+        raise DeadlineExceeded(
+            f"seq_ids {expired} exceeded their wall-clock deadline; "
+            "release() them (or re-queue with a fresh budget) and step "
+            "again", seq_ids=expired)
+    over = [s for s in live if seqs[s].position + horizon > seq_len]
+    if over:
+        raise CapacityError(
+            f"decode step (horizon {horizon}) for seq_ids {over} would "
+            f"write KV past the configured seq_len {seq_len}; release them "
+            "or rebuild with a larger seq_len", seq_ids=over)
+
+
+def _repeat_row0(x: np.ndarray, pad_to: int) -> np.ndarray:
+    """Pad a batch axis to ``pad_to`` by repeating row 0 (pad rows
+    recompute row 0 and rewrite its slots with the same values)."""
+    return np.concatenate([x, np.repeat(x[:1], pad_to - x.shape[0],
+                                        axis=0)])
+
+
+def _pad_paged_rows(pad_to, ids, pos, slots, bt, last):
+    if ids.shape[0] == pad_to:
+        return ids, pos, slots, bt, last
+    return tuple(_repeat_row0(x, pad_to) for x in (ids, pos, slots, bt,
+                                                   last))
+
+
+class _PagedScratch:
+    """Reusable decode-step input buffers for one (live set, batch bucket,
+    table-width bucket) composition: the block-table array is refreshed
+    only for rows whose block list grew; slots are recomputed in place."""
+
+    def __init__(self, live: Sequence[int], pad_to: int, width: int,
+                 block_size: int):
+        b = len(live)
+        self.live = tuple(live)
+        self.b = b
+        self.pad_to = pad_to
+        self.width = width
+        self.last = np.zeros((pad_to,), np.int32)
+        self.ids = np.empty((pad_to, 1), np.int32)
+        self.pos = np.empty((pad_to, 1), np.int32)
+        self.slots = np.empty((pad_to, 1), np.int32)
+        self.bt = np.zeros((pad_to, width), np.int32)
+        self.counts = [0] * b
+        self._block_size = block_size
+
+    def fill(self, adapter):
+        seqs = adapter.seqs
+        for i, s in enumerate(self.live):
+            st = seqs[s]
+            self.pos[i, 0] = st.position
+            self.ids[i, 0] = st.last_token
+        prev0 = self.counts[0]
+        adapter.app.kv_mgr.fill_block_table(self.bt[:self.b], self.live,
+                                            self.counts)
+        if self.pad_to > self.b:
+            self.pos[self.b:] = self.pos[0, 0]
+            self.ids[self.b:] = self.ids[0, 0]
+            if self.counts[0] != prev0:
+                self.bt[self.b:] = self.bt[0]
+        slots_from_table_into(self.slots, self.bt, self.pos,
+                              self._block_size)
+
+
+class PagedEngineAdapter:
+    """Continuous-batching adapter over the paged application: block
+    tables keyed by seq_id, slot mappings computed from the tables.
+
+    ``prefill_chunk_tokens`` bounds one sequence's per-dispatch prefill
+    chunk (default: the largest ctx bucket); ``prefill_budget_tokens``
+    defers prefill to ``step()`` (``add_requests`` returns ``{}``, each
+    step runs at most one packed chunk dispatch of at most that many
+    prompt tokens before its decode work)."""
+
+    engine_name = "paged"
+
+    def __init__(self, app, telemetry=None,
+                 preemption_policy: Optional[str] = "lifo",
+                 pipeline_depth: int = 0,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 prefill_budget_tokens: Optional[int] = None,
+                 speculation=None, kv_spill_tier=None,
+                 ragged: bool = False, lora_pool=None):
+        waiting = [name for name, v in (
+            ("telemetry", telemetry is not None),
+            ("pipeline_depth > 0", pipeline_depth),
+            ("speculation", speculation is not None),
+            ("kv_spill_tier", kv_spill_tier is not None),
+            ("ragged=True", ragged),
+            ("lora_pool", lora_pool is not None)) if v]
+        if waiting:
+            raise ConfigurationError(
+                "the PyTorch port's adapter does not run these yet: "
+                + ", ".join(waiting))
+        cfg = app.tpu_config
+        if not cfg.is_block_kv_layout:
+            raise ConfigurationError("app must be built with "
+                                     "is_block_kv_layout=True")
+        if (preemption_policy is not None
+                and preemption_policy not in PREEMPTION_POLICIES):
+            raise ConfigurationError(
+                f"unknown preemption_policy {preemption_policy!r}; expected "
+                f"one of {PREEMPTION_POLICIES} or None")
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
+            raise ConfigurationError("prefill_chunk_tokens must be >= 1")
+        if prefill_budget_tokens is not None and prefill_budget_tokens < 1:
+            raise ConfigurationError("prefill_budget_tokens must be >= 1")
+        if app.cache is None:
+            app.init_cache()
+        self.app = app
+        self.batch = cfg.batch_size
+        self.seqs: Dict[int, _SeqState] = {}
+        self.preemption_policy = preemption_policy
+        self.preempted: List[Preempted] = []
+        self._admit_counter = 0
+        self._pos_limit = cfg.seq_len
+        self._chunk_widths = autobucketing.prefill_chunk_buckets(
+            app.ctx_buckets, prefill_chunk_tokens)
+        self.prefill_chunk_tokens = (
+            min(prefill_chunk_tokens, self._chunk_widths[-1])
+            if prefill_chunk_tokens is not None else self._chunk_widths[-1])
+        self.prefill_budget_tokens = prefill_budget_tokens
+        self._chunks: Dict[int, _ChunkState] = {}   # pending admissions
+        self._unwritten: set = set()   # allocated blocks not fully written
+        self._ready: Dict[int, int] = {}   # first tokens not yet delivered
+        self._scratch: Optional[_PagedScratch] = None
+        self.host_stats: Dict[str, int] = {
+            "dispatches": 0, "device_steps": 0, "prefill_dispatches": 0}
+
+    # -- admission ---------------------------------------------------------
+    def add_requests(self, seq_ids: Sequence[int],
+                     prompts: Sequence[Sequence[int]],
+                     deadline_s: Union[None, float,
+                                       Sequence[Optional[float]]] = None,
+                     meta: Optional[Sequence[Any]] = None
+                     ) -> Dict[int, int]:
+        """Transactional admission: either every sequence is admitted, or
+        every allocation from this call is rolled back (pool pressure may
+        still preempt RUNNING sequences first; that eviction survives a
+        rollback). Returns {seq_id: first token}, or ``{}`` when prefill
+        is deferred to ``step()`` (``prefill_budget_tokens``)."""
+        _validate_admission(seq_ids, prompts, self.app.tpu_config.seq_len)
+        for sid in seq_ids:
+            if sid in self.seqs or sid in self._chunks:
+                raise AdmissionError(f"seq_id {sid} already running")
+        live_now = len(self.seqs) + len(self._chunks)
+        if live_now + len(seq_ids) > self.batch:
+            raise AdmissionError(
+                f"admitting {len(seq_ids)} sequences would put "
+                f"{live_now + len(seq_ids)} live/pending rows on a "
+                f"batch of {self.batch}")
+        t0 = time.perf_counter()
+        deadlines = _resolve_deadlines(deadline_s, len(seq_ids), t0)
+        if meta is not None and len(meta) != len(seq_ids):
+            raise AdmissionError("meta and seq_ids length mismatch")
+        metas = list(meta) if meta is not None else [None] * len(seq_ids)
+        mgr = self.app.kv_mgr
+        bs = mgr.spec.block_size
+        protect = frozenset(seq_ids)
+        begun: List[int] = []
+        try:
+            for i, sid in enumerate(seq_ids):
+                prompt = list(prompts[i])
+                while True:
+                    try:
+                        blocks, c = mgr.begin_sequence(sid, prompt)
+                        begun.append(sid)
+                        break
+                    except CapacityError:
+                        # never evict a sibling of this very call
+                        victim = self._choose_victim(exclude=protect)
+                        if victim is None:
+                            raise
+                        self._preempt(victim, reason="admission")
+                # a hit on a block another pending sequence has not fully
+                # written yet must be recomputed, not trusted
+                n_hit = int(c) // bs
+                c = cut_cached_at_unwritten(blocks, int(c), bs,
+                                            self._unwritten)
+                c = min(c, len(prompt) - 1)
+                self._unwritten.update(blocks[n_hit:])
+                self._admit_counter += 1
+                self._chunks[sid] = _ChunkState(
+                    prompt=prompt, done=int(c),
+                    admit_idx=self._admit_counter,
+                    deadline=deadlines[i], meta=metas[i])
+        except ServingError:
+            self._rollback_admission(begun)
+            raise
+        except Exception as e:
+            self._rollback_admission(begun)
+            raise StepFailure(
+                "paged admission failed; all allocations from this call "
+                "were rolled back", phase="prefill", seq_ids=seq_ids,
+                retry_safe=True) from e
+        if self.prefill_budget_tokens is not None:
+            return {}
+        try:
+            while any(s in self._chunks for s in seq_ids):
+                self._prefill_step(only=protect)
+        except ServingError:
+            self._rollback_admission(begun)
+            raise
+        except Exception as e:
+            self._rollback_admission(begun)
+            raise StepFailure(
+                "paged prefill failed; all allocations from this call were "
+                "rolled back", phase="prefill", seq_ids=seq_ids,
+                retry_safe=False) from e
+        return {s: self._ready.pop(s) for s in seq_ids}
+
+    def release(self, seq_ids: Sequence[int]):
+        for sid in seq_ids:
+            self._ready.pop(sid, None)
+            if sid in self._chunks:
+                self._abort_prefill_rows([sid])
+                continue
+            if sid in self.seqs:
+                self.seqs.pop(sid)
+                self._scratch = None
+                if sid in self.app.kv_mgr.tables:
+                    self.app.kv_mgr.end_sequence(sid)
+
+    # -- decode ------------------------------------------------------------
+    def step(self, seq_ids: Optional[Sequence[int]] = None) -> Dict[int, int]:
+        """One decode step for ``seq_ids`` (default: every running row):
+        {seq_id: next token}, plus the first tokens of prefills that
+        completed in this call. Raises :class:`DeadlineExceeded` /
+        :class:`CapacityError` before any device work when a row is over
+        budget, and :class:`StepFailure` when the device step fails (KV
+        growth is rolled back, positions are not advanced)."""
+        pending = self._chunks.keys()
+        live = _live_rows(self.seqs, seq_ids, pending)
+        if not live and not pending:
+            return self._drain_ready()
+        if live:
+            _pre_step_checks(self.seqs, live, self._pos_limit)
+        self._advance_prefill(seq_ids)
+        if not live:
+            return self._drain_ready()
+        live = self._grow_with_preemption(live)
+        if not live:
+            return self._drain_ready()
+        scr = self._scratch_for(live)
+        scr.fill(self)
+        try:
+            out = self._dispatch_decode(scr)
+            new = self._fetch_rows(out, len(live))
+        except ServingError:
+            self._rollback_grow(live)
+            self._scratch = None
+            raise
+        except Exception as e:
+            self._rollback_grow(live)
+            self._scratch = None
+            raise StepFailure(
+                "paged decode step failed; KV growth was rolled back; "
+                "positions were not advanced", phase="decode",
+                seq_ids=tuple(live), retry_safe=False) from e
+        res = self._drain_ready()
+        for i, s in enumerate(live):
+            st = self.seqs[s]
+            st.position += 1
+            tok = int(new[i, 0])
+            self._append_token(st, tok)
+            res[s] = tok
+        return res
+
+    def step_many(self, num_steps: int,
+                  seq_ids: Optional[Sequence[int]] = None
+                  ) -> Dict[int, List[int]]:
+        """``num_steps`` decode steps in one call of the device loop and
+        one host fetch: {seq_id: [tokens]} in stream order. Deadlines and
+        the seq_len guard are enforced once for the whole horizon."""
+        if num_steps < 1:
+            raise ConfigurationError("step_many requires num_steps >= 1")
+        pending = self._chunks.keys()
+        live = _live_rows(self.seqs, seq_ids, pending)
+        if not live and not pending:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        if live:
+            _pre_step_checks(self.seqs, live, self._pos_limit,
+                             horizon=num_steps)
+        self._advance_prefill(seq_ids)
+        if not live:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        live = self._grow_with_preemption(live, num_steps)
+        if not live:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        toks = self._run_many(live, num_steps)
+        res = {s: [t] for s, t in self._drain_ready().items()}
+        for i, s in enumerate(live):
+            st = self.seqs[s]
+            st.position += num_steps
+            row = [int(t) for t in toks[i]]
+            for t in row:
+                self._append_token(st, t)
+            res.setdefault(s, []).extend(row)
+        return res
+
+    def _drain_ready(self) -> Dict[int, int]:
+        out, self._ready = self._ready, {}
+        return out
+
+    def _append_token(self, st: _SeqState, tok: int):
+        st.last_token = tok
+        st.tokens.append(tok)
+
+    def _fetch_rows(self, out, b: int) -> np.ndarray:
+        toks = out["tokens"].cpu().numpy()
+        return toks.reshape(toks.shape[0], -1)[:b]
+
+    def _scratch_for(self, live: Sequence[int]) -> _PagedScratch:
+        app = self.app
+        pad_to = autobucketing.get_target_bucket(app.batch_buckets,
+                                                 len(live))
+        width = app._bt_width_for(live)
+        scr = self._scratch
+        if (scr is None or scr.live != tuple(live) or scr.pad_to != pad_to
+                or scr.width != width):
+            scr = self._scratch = _PagedScratch(
+                live, pad_to, width, app.kv_mgr.spec.block_size)
+        return scr
+
+    def _dispatch_decode(self, scr: _PagedScratch):
+        out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
+                                  scr.last)
+        self.host_stats["dispatches"] += 1
+        self.host_stats["device_steps"] += 1
+        return out
+
+    def _run_many(self, live: List[int], num_steps: int) -> np.ndarray:
+        """Fused k-step decode (``paged_decode_loop``): blocks for the whole
+        horizon are allocated already; slots advance on the device."""
+        app = self.app
+        b = len(live)
+        pad_to = autobucketing.get_target_bucket(app.batch_buckets, b)
+        bt = app.kv_mgr.block_table_array(live, app._bt_width_for(live))
+        first = np.asarray([self.seqs[s].last_token for s in live],
+                           np.int32)
+        pos = np.asarray([self.seqs[s].position for s in live], np.int32)
+        if pad_to > b:
+            first = _repeat_row0(first, pad_to)
+            pos = _repeat_row0(pos, pad_to)
+            bt = _repeat_row0(bt, pad_to)
+        try:
+            out = app._run_paged_loop(first, pos, bt, num_steps)
+            self.host_stats["dispatches"] += 1
+            self.host_stats["device_steps"] += num_steps
+            return self._fetch_rows(out, b)
+        except ServingError:
+            self._rollback_grow(live, num_steps)
+            raise
+        except Exception as e:
+            self._rollback_grow(live, num_steps)
+            raise StepFailure(
+                "fused paged decode loop failed; KV growth was rolled back "
+                "and positions were not advanced", phase="decode",
+                seq_ids=tuple(live), retry_safe=False) from e
+
+    # -- scheduler hooks ---------------------------------------------------
+    @property
+    def running_ids(self) -> Tuple[int, ...]:
+        return tuple(sorted(self.seqs))
+
+    @property
+    def pending_prefill_ids(self) -> Tuple[int, ...]:
+        return tuple(sorted(self._chunks,
+                            key=lambda s: self._chunks[s].admit_idx))
+
+    @property
+    def free_capacity(self) -> int:
+        return self.batch - len(self.seqs) - len(self._chunks)
+
+    # -- preemption --------------------------------------------------------
+    def preempt(self, seq_id: int, reason: str = "scheduler") -> Preempted:
+        """Scheduler-driven eviction of one running or pending sequence;
+        the record is returned AND queued for :meth:`take_preempted`."""
+        if seq_id not in self.seqs and seq_id not in self._chunks:
+            raise SequenceStateError(
+                f"cannot preempt seq_id {seq_id}: not running or pending")
+        self._preempt(seq_id, reason)
+        return self.preempted[-1]
+
+    def take_preempted(self) -> List[Preempted]:
+        out, self.preempted = self.preempted, []
+        return out
+
+    def _choose_victim(self, exclude=frozenset()) -> Optional[int]:
+        if self.preemption_policy is None:
+            return None
+        cands = [(sid, st.admit_idx, len(st.tokens) - st.prompt_len)
+                 for sid, st in self.seqs.items()
+                 if st.running and sid not in exclude]
+        cands += [(sid, cst.admit_idx, 0)
+                  for sid, cst in self._chunks.items()
+                  if sid not in exclude]
+        return pick_victim(self.preemption_policy, cands)
+
+    def _preempt(self, victim: int, reason: str):
+        self._ready.pop(victim, None)      # the replay regenerates it
+        cst = self._chunks.pop(victim, None)
+        if cst is not None:
+            self._abort_pending(victim)
+            self.preempted.append(Preempted(
+                seq_id=victim, tokens=tuple(cst.prompt),
+                prompt_len=len(cst.prompt), n_generated=0, reason=reason,
+                deadline=cst.deadline, meta=cst.meta))
+            return
+        st = self.seqs.pop(victim)
+        self._scratch = None
+        if victim in self.app.kv_mgr.tables:
+            self.app.kv_mgr.end_sequence(victim)
+        self.preempted.append(Preempted(
+            seq_id=victim, tokens=tuple(st.tokens),
+            prompt_len=st.prompt_len,
+            n_generated=len(st.tokens) - st.prompt_len, reason=reason,
+            deadline=st.deadline, meta=st.meta))
+
+    def _grow_with_preemption(self, live: Sequence[int],
+                              n: int = 1) -> List[int]:
+        """Grow every live row by ``n`` tokens, evicting victims when the
+        pool is dry; returns the rows still live. If eviction cannot free
+        enough, this call's growth is rolled back and the
+        :class:`CapacityError` propagates."""
+        mgr = self.app.kv_mgr
+        live = list(live)
+        queue = list(live)
+        grown: List[int] = []
+        while queue:
+            s = queue[0]
+            try:
+                mgr.grow(s, n)
+            except CapacityError:
+                victim = self._choose_victim()
+                if victim is None:
+                    for g in grown:
+                        mgr.shrink(g, n)
+                    raise
+                self._preempt(victim, reason="grow")
+                for lst in (queue, live, grown):
+                    if victim in lst:
+                        lst.remove(victim)
+                continue
+            queue.pop(0)
+            grown.append(s)
+        return live
+
+    def _rollback_grow(self, live: Sequence[int], n: int = 1):
+        for s in live:
+            self.app.kv_mgr.shrink(s, n)
+
+    def _rollback_admission(self, seq_ids: Sequence[int]):
+        """Abort every sequence begun by a failing ``add_requests``, in
+        REVERSE admission order (the originating sequence's invalidate must
+        be the last dereference of an intra-call shared-prefix hash)."""
+        for sid in reversed(list(seq_ids)):
+            self._chunks.pop(sid, None)
+            self._ready.pop(sid, None)
+            if self.seqs.pop(sid, None) is not None:
+                self._scratch = None
+            self._abort_pending(sid)
+
+    # -- chunked, packed prefill -------------------------------------------
+    def _advance_prefill(self, seq_ids=None):
+        if self._chunks:
+            self._prefill_step(budget=self.prefill_budget_tokens,
+                               target=seq_ids)
+
+    def _prefill_step(self, budget: Optional[int] = None, only=None,
+                      target=None):
+        """ONE packed chunk dispatch: pending sequences (admission order)
+        each contribute their next uncached-suffix chunk as a row of one
+        ctx-bucket ``_run_paged`` call, bounded by ``budget`` real prompt
+        tokens. Sequences whose FINAL chunk lands become running rows with
+        their first token in ``_ready``; intermediate samples are
+        discarded. A failure rolls back every sequence of the dispatch.
+        ``target`` is the step call's explicit seq_ids (None = all): an
+        expired pending admission raises only when targeted."""
+        chunks = self._chunks
+        order = sorted(chunks, key=lambda s: chunks[s].admit_idx)
+        if only is not None:
+            order = [s for s in order if s in only]
+        now = time.perf_counter()
+        expired = [s for s in order if chunks[s].deadline is not None
+                   and now >= chunks[s].deadline]
+        if expired:
+            hit = (expired if target is None
+                   else [s for s in expired if s in set(target)])
+            if hit:
+                raise DeadlineExceeded(
+                    f"seq_ids {hit} exceeded their wall-clock deadline "
+                    "mid-prefill; release() them (or re-queue with a fresh "
+                    "budget) and step again", seq_ids=hit)
+            # expired but not targeted by this step: skip them without
+            # stalling the targeted rows
+            order = [s for s in order if s not in expired]
+        rows: List[Tuple[int, int, int, bool]] = []
+        left = float("inf") if budget is None else int(budget)
+        for s in order:
+            if len(rows) == self.batch or left < 1:
+                break
+            st = chunks[s]
+            n = int(min(len(st.prompt) - st.done,
+                        self.prefill_chunk_tokens, left))
+            rows.append((s, st.done, n, st.done + n == len(st.prompt)))
+            left -= n
+        if not rows:
+            return
+        seq_list = tuple(s for s, *_ in rows)
+        final_rows = [(i, s) for i, (s, _, _, fin) in enumerate(rows)
+                      if fin]
+        try:
+            packed = self._pack_prefill_rows(rows)
+            out = self.app._run_paged(*packed)
+            self.host_stats["prefill_dispatches"] += 1
+            new = (out["tokens"].cpu().numpy().reshape(-1, 1)
+                   if final_rows else None)
+        except ServingError:
+            self._abort_prefill_rows(seq_list)
+            raise
+        except Exception as e:
+            self._abort_prefill_rows(seq_list)
+            raise StepFailure(
+                "chunked prefill dispatch failed; every partially-"
+                "prefilled sequence packed in it was rolled back",
+                phase="prefill", seq_ids=seq_list, retry_safe=False) from e
+        bs = self.app.kv_mgr.spec.block_size
+        for s, _, n, _ in rows:
+            chunks[s].done += n
+        if final_rows:
+            # the fetched tokens order this dispatch (and every earlier one
+            # on the stream) before now: the covered blocks are written
+            for s2, cst in chunks.items():
+                self._unwritten.difference_update(
+                    self.app.kv_mgr.tables[s2][:cst.done // bs])
+        for i, s in final_rows:
+            st = chunks.pop(s)
+            self._unwritten.difference_update(self.app.kv_mgr.tables[s])
+            tok = int(new[i, 0])
+            self.seqs[s] = _SeqState(
+                position=len(st.prompt), last_token=tok,
+                tokens=list(st.prompt) + [tok],
+                prompt_len=len(st.prompt), admit_idx=st.admit_idx,
+                deadline=st.deadline, meta=st.meta)
+            self._scratch = None
+            self._ready[s] = tok
+
+    def _pack_prefill_rows(self, rows):
+        """Packed-chunk inputs: one row per sequence at its own suffix
+        offset over its own block table; width = smallest ctx bucket
+        covering the longest chunk; batch padded by repeating row 0."""
+        app = self.app
+        b = len(rows)
+        width = autobucketing.get_target_bucket(
+            self._chunk_widths, max(n for _, _, n, _ in rows))
+        sids = [s for s, *_ in rows]
+        bt = app.kv_mgr.block_table_array(sids, app._bt_width_for(sids))
+        ids_w = np.zeros((b, width), np.int32)
+        pos_w = np.zeros((b, width), np.int32)
+        slot_pos = np.full((b, width), -1, np.int32)
+        last = np.zeros((b,), np.int32)
+        for i, (s, lo, n, fin) in enumerate(rows):
+            st = self._chunks[s]
+            ids_w[i, :n] = st.prompt[lo:lo + n]
+            pos_w[i] = lo + np.arange(width, dtype=np.int32)
+            slot_pos[i, :n] = pos_w[i, :n]
+            if fin:
+                last[i] = n - 1
+        slots = slots_from_table(bt, slot_pos, app.kv_mgr.spec.block_size)
+        pad_to = autobucketing.get_target_bucket(app.batch_buckets, b)
+        return _pad_paged_rows(pad_to, ids_w, pos_w, slots, bt, last)
+
+    def _drop_unwritten(self, sid):
+        """Retire ``sid``'s EXCLUSIVE blocks from the unwritten set (a
+        block another pending sequence shares stays tracked)."""
+        tbl = set(self.app.kv_mgr.tables.get(sid, ()))
+        if not tbl:
+            return
+        for other in self._chunks:
+            if other != sid:
+                tbl.difference_update(self.app.kv_mgr.tables.get(other, ()))
+        self._unwritten -= tbl
+
+    def _abort_pending(self, sid):
+        """Tear down one pending/rolled-back sequence: blocks whose content
+        never fully landed are invalidated, written ones freed."""
+        if sid not in self.app.kv_mgr.tables:
+            return
+        unwritten = set(self.app.kv_mgr.tables[sid]) & self._unwritten
+        self._drop_unwritten(sid)
+        self.app.kv_mgr.abort_sequence(sid, unwritten=unwritten)
+
+    def _abort_prefill_rows(self, sids):
+        for s in reversed(list(sids)):
+            self._chunks.pop(s, None)
+            self._abort_pending(s)

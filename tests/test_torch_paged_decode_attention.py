@@ -1,0 +1,155 @@
+"""The paged decode attention of the port against the JAX package's Pallas
+kernel (run in interpret mode, as tests/test_decode_attention.py runs it).
+
+On the CPU the port's wrapper runs its plain twin
+(``paged_decode_attention_plain``); fp32 at rtol=atol=2e-5, the JAX
+kernel tests' own tolerance. The CUDA kernel itself is compared with the
+twin by the ``cuda``-marked test below, which runs only on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuronx_distributed_inference_tpu.modules import kv_cache as jkv
+from neuronx_distributed_inference_tpu.ops import decode_attention as jda
+from neuronx_distributed_inference_tpu_torch.ops import decode_attention as tda
+from neuronx_distributed_inference_tpu_torch.utils.jax_params import \
+    tensor_from_numpy
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _case(rng, *, hq=4, hkv=2, d=64, bs=32, mb=8, lens=(5, 100, 255),
+          layers=1, page_dtype=None, kv_scale=None):
+    """Numpy inputs: random pages scattered through a scrambled block
+    table (block 0 = null, never live), q/new_k/new_v, lens."""
+    b = len(lens)
+    n = 1 + b * mb
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)   # noqa: E731
+    kp, vp = f(layers, n, bs, hkv, d), f(layers, n, bs, hkv, d)
+    if page_dtype is not None:
+        kp = np.asarray(jkv.quantize_kv(jnp.asarray(kp), page_dtype,
+                                        kv_scale))
+        vp = np.asarray(jkv.quantize_kv(jnp.asarray(vp), page_dtype,
+                                        kv_scale))
+    perm = rng.permutation(n - 1)[:b * mb] + 1
+    table = np.zeros((b, mb), np.int32)
+    for i, ln in enumerate(lens):
+        live = -(-int(ln + 1) // bs)
+        table[i, :live] = perm[i * mb:i * mb + live]
+    return dict(q=f(b, hq, d), k_pages=kp, v_pages=vp, new_k=f(b, hkv, d),
+                new_v=f(b, hkv, d), lens=np.asarray(lens, np.int32),
+                block_table=table)
+
+
+ARGS = ("q", "k_pages", "v_pages", "new_k", "new_v")
+
+
+def _jax(inp, layer=0, **kw):
+    if "window" in kw:
+        kw["window"] = jnp.asarray(kw["window"], jnp.int32)
+    if "sink" in kw:
+        kw["sink"] = jnp.asarray(kw["sink"])
+    out = jda.paged_decode_attention(
+        *(jnp.asarray(inp[k]) for k in ARGS), jnp.asarray(layer, jnp.int32),
+        jnp.asarray(inp["lens"]), jnp.asarray(inp["block_table"]),
+        interpret=True, **kw)
+    return np.asarray(out)
+
+
+def _port(inp, layer=0, device="cpu", **kw):
+    dev = torch.device(device)
+    t = {k: tensor_from_numpy(v, dev) for k, v in inp.items()}
+    if "sink" in kw:
+        kw["sink"] = torch.from_numpy(kw["sink"]).to(dev)
+    return tda.paged_decode_attention(
+        *(t[k] for k in ARGS), layer, t["lens"], t["block_table"], **kw)
+
+
+CASES = {
+    "gqa_4_4_d64": dict(hq=4, hkv=4),
+    "gqa_8_2_d64": dict(hq=8, hkv=2),
+    "gqa_4_4_d128": dict(hq=4, hkv=4, d=128),
+    "gqa_8_2_d128": dict(hq=8, hkv=2, d=128),
+    "zero_len_row": dict(lens=(0, 60), mb=4),
+    "window64_sink": dict(lens=(200, 90), extra="window_sink"),
+    "soft_cap": dict(lens=(7, 130, 31), extra="soft_cap"),
+    "stacked_layers_L3": dict(lens=(40, 100), mb=4, layers=3),
+    "fp8_e4m3_kv_scale": dict(lens=(70, 130), bs=64, mb=4,
+                              page_dtype="float8_e4m3fn", kv_scale=0.5),
+}
+
+
+def _kwargs(name, spec, rng, d):
+    kw = dict(scale=d ** -0.5)
+    extra = spec.get("extra")
+    if extra == "window_sink":
+        kw.update(window=64, sink=rng.standard_normal(
+            spec.get("hq", 4)).astype(np.float32))
+    elif extra == "soft_cap":
+        kw.update(soft_cap=2.0)
+    if spec.get("kv_scale") is not None:
+        kw.update(kv_scale=spec["kv_scale"])
+    return kw
+
+
+def _build(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    spec = dict(CASES[name])
+    spec.pop("extra", None)
+    if "page_dtype" in spec:
+        spec["page_dtype"] = jnp.dtype(spec["page_dtype"])
+    inp = _case(rng, **spec)
+    kw = _kwargs(name, CASES[name], rng, inp["q"].shape[-1])
+    layers = range(inp["k_pages"].shape[0])
+    return inp, kw, layers
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_twin_matches_pallas_kernel(name):
+    inp, kw, layers = _build(name)
+    for layer in layers:
+        want = _jax(inp, layer, **dict(kw))
+        got = _port(inp, layer, **dict(kw))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, err_msg=f"layer "
+                                   f"{layer}", **TOL)
+
+
+def test_plain_twin_ignores_dead_slots():
+    """Values past lens[b] (including the active token's own slot, which
+    the model writes before attending) must not change the result: the
+    mask is kpos < lens strictly and the active token comes from
+    new_k/new_v."""
+    inp, kw, _ = _build("gqa_8_2_d64")
+    base = _port(inp, **dict(kw))
+    poisoned = {k: v.copy() for k, v in inp.items()}
+    bs = inp["k_pages"].shape[2]
+    for i, ln in enumerate(inp["lens"]):
+        page = inp["block_table"][i, ln // bs]
+        poisoned["k_pages"][0, page, ln % bs:] = 1e4
+        poisoned["v_pages"][0, page, ln % bs:] = -1e4
+    poisoned["k_pages"][:, 0] = 1e4          # the null page
+    np.testing.assert_array_equal(_port(poisoned, **dict(kw)).numpy(),
+                                  base.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_kernel_matches_plain_twin(name):
+    """On the card: the hand-written kernel against the twin on the same
+    inputs (fp32 sums in another order: 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m cuda)")
+    inp, kw, layers = _build(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = tda.paged_decode_attention.launches
+    for layer in layers:
+        got = _port(inp, layer, device="cuda", **dict(kw))
+        torch.cuda.synchronize()
+        want = _port(inp, layer, device="cpu", **dict(kw))
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    assert tda.paged_decode_attention.launches == before + len(layers)
