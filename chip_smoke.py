@@ -4,26 +4,44 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds every kernel
-under ``neuronx_distributed_inference_tpu_torch/csrc/`` from source, then:
+under ``neuronx_distributed_inference_tpu_torch/csrc/`` from source (one
+nvcc per source, all started together), then:
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, kernel build seconds;
   2. each kernel against its plain-PyTorch twin on the card, over the case
-     matrix of the TPU kernel's tests, at the serving path's shapes;
-  3. the main path, bf16, Llama-3.2-1B geometry at full depth with random
+     matrix of the TPU kernel's tests, at the serving paths' shapes: the
+     paged decode kernel, the contiguous decode kernel and the flash
+     prefill kernel;
+  3. the paged path, bf16, Llama-3.2-1B geometry at full depth with random
      weights from seed 0: ``PagedCausalLMApplication.generate`` of 64 new
-     tokens for 4 prompts; the kernel's launches must equal layers x
+     tokens for 4 prompts; the paged kernel's launches must equal layers x
      all-decode steps, and every decode step's logits must agree with the
      same app and weights built with ``attn_block_tkg_kernel_enabled=False``
      (the gather path) fed the same tokens;
-  4. serving, fp32 (TF32 off), same geometry: 6 requests with staggered
-     admission through ``PagedEngineAdapter``; each stream must equal that
-     prompt's single-request ``generate`` (a first difference is accepted
-     only at a near-tie of the reference's top-2 logits, and printed);
-  5. timings: kernel, plain twin and the SDPA yardstick as device time
-     (CUDA-graph replay between CUDA events), prefill and decode steps on
-     the host clock, and a torch.profiler trace of the decode steps
-     (device time by kernel, device idle share).
+  4. paged serving, fp32 (TF32 off), same geometry: 6 requests with
+     staggered admission through ``PagedEngineAdapter``; each stream must
+     equal that prompt's single-request ``generate`` (a first difference is
+     accepted only at a near-tie of the reference's top-2 logits, and
+     printed);
+  5. paged timings: kernel, plain twin and the SDPA yardstick as device
+     time (CUDA-graph replay between CUDA events), prefill and decode steps
+     on the host clock, and a torch.profiler trace of the decode steps
+     (device time by kernel, device idle share);
+  6. the contiguous path (the README's entry point), bf16, Mistral-7B-v0.1
+     geometry at full width and depth with random weights from seed 0:
+     ``CausalLMApplication.generate`` of 64 new tokens for 4 prompts with
+     ``attn_kernel_enabled=True``; the flash kernel's launches must equal
+     layers x prefill calls and the contiguous decode kernel's layers x
+     decode steps, and the prefill and every decode step's logits must
+     agree with the same app and weights built with both kernels off, fed
+     the same tokens; then its timings as in 5;
+  7. the window bites: full width, 4 layers, ``sliding_window=512``, the
+     same prompts and checks as 6;
+  8. contiguous serving, fp32 (TF32 off), full width, 8 layers: 6 requests
+     with staggered admission through ``ContinuousBatchingAdapter``
+     (decode on the gather path), each stream held to the single-request
+     static ``generate`` (decode on the kernel) as in 4.
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -33,6 +51,7 @@ exits non-zero and prints no last line. Without a CUDA card it exits 2.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,10 +69,20 @@ LLAMA_3_2_1B = dict(
     max_position_embeddings=131072, hidden_act="silu",
     tie_word_embeddings=True)
 
+# Mistral-7B-v0.1 (HF config.json of mistralai/Mistral-7B-v0.1)
+MISTRAL_7B = dict(
+    model_type="mistral", hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    vocab_size=32000, rms_norm_eps=1e-5, rope_theta=10000.0,
+    sliding_window=4096, max_position_embeddings=32768, hidden_act="silu",
+    tie_word_embeddings=False)
+
 PROMPT_LENS = (37, 300, 900, 1500)      # phase 3 prompts (batch 4)
 NEW_TOKENS = 64
-SERVE_LENS = (23, 57, 101, 150, 77, 190)  # phase 4 requests
+SERVE_LENS = (23, 57, 101, 150, 77, 190)  # phases 4 and 8 requests
 SERVE_TOKENS = 32
+MISTRAL_LENS = (37, 300, 900, 1900)     # phases 6-7 prompts (ctx bucket 2048)
+MISTRAL_SEQ = 4096
 
 # Tolerances, with their reasons:
 # kernel vs twin, bf16 out: both accumulate in fp32 and round the output
@@ -62,11 +91,29 @@ TOL_KERNEL_BF16 = 1e-2
 # kernel vs twin, fp32 out: fp32 sums in another order (split-K online
 #   softmax vs one softmax) differ by ~1e-6 relative.
 TOL_KERNEL_FP32 = 1e-4
+
+
+def tol_flash_bf16(inputs) -> float:
+    """Flash kernel vs twin, bf16 out: both compute in fp32 and round the
+    output to bf16 once, so they differ by at most one bf16 ulp of the
+    output; each output is a convex combination of value rows, so |o| <=
+    max |v|, and the ulp there is 2^(floor(log2 max|v|) - 7)."""
+    vmax = inputs["v"].float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(vmax)) - 7)
 # decode logits, kernel app vs gather app, bf16: the gather path rounds
 #   the softmax probabilities to bf16 before the value product (the
 #   kernel keeps them fp32) and every layer's output is rounded to bf16;
 #   logits have std ~0.9 here and bf16 spacing 1.6e-2 at |x| in [2, 4).
 TOL_LOGITS_BF16 = 0.25
+# the contiguous path (prefill and decode logits): the same two roundings
+#   differ between the kernel app and the kernels-off app, and over 32
+#   layers at 4096 width they move the logits by ~0.4 at a logit std of
+#   ~1.3 (measured), so a fixed bound says little. Both bf16 apps are
+#   held to an fp32 app on the same (upcast) weights and tokens instead:
+#   the kernels keep the probabilities in fp32, so the kernel app's mean
+#   |logit error| must be no larger than the kernels-off app's, up to
+#   this factor for rounding noise between the two.
+TOL_CONTIG_VS_FP32 = 1.25
 # fp32 serving: batched and single-row matmuls may take different kernels;
 #   a stream may first differ only where the reference's top-2 logits are
 #   closer than this.
@@ -236,22 +283,145 @@ def check_kernel_against_twin(inputs, kw):
     return err
 
 
+def contiguous_inputs(gen, device, *, b, hq, hkv, d, s, lens, layers=1,
+                      act_dtype, cache_dtype, kv_scale=None):
+    """Random q / new_k / new_v and a stacked contiguous cache, K
+    transposed (L, B, Hkv, D, S) and V (L, B, Hkv, S, D)."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    caches = []
+    for shape in ((layers, b, hkv, d, s), (layers, b, hkv, s, d)):
+        c = rnd(*shape)
+        if kv_scale is not None:
+            c = c / kv_scale
+        caches.append(c.to(cache_dtype))
+    return dict(q=rnd(b, hq, d).to(act_dtype), k_cache=caches[0],
+                v_cache=caches[1], new_k=rnd(b, hkv, d).to(act_dtype),
+                new_v=rnd(b, hkv, d).to(act_dtype),
+                lens=torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+def decode_cases(device):
+    """(name, inputs, kwargs, tolerance) for the contiguous decode kernel
+    at Mistral-7B shapes (Hq 32, Hkv 8, D 128, S 4096, batch 4)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(3)
+    lens = [0, 517, 2048, 4095]
+    mk = dict(b=4, hq=32, hkv=8, s=MISTRAL_SEQ, lens=lens)
+    cases = []
+    for dt, tol in ((torch.bfloat16, TOL_KERNEL_BF16),
+                    (torch.float32, TOL_KERNEL_FP32)):
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        cases.append((f"mistral-7b_L2_{tag}", contiguous_inputs(
+            gen, device, d=128, layers=2, act_dtype=dt, cache_dtype=dt,
+            **mk), dict(scale=128 ** -0.5, layer=1), tol))
+    cases.append(("d64_bf16", contiguous_inputs(
+        gen, device, d=64, act_dtype=torch.bfloat16,
+        cache_dtype=torch.bfloat16, **mk), dict(scale=64 ** -0.5),
+        TOL_KERNEL_BF16))
+    sink = torch.randn((32,), generator=gen, device=device)
+    cases.append(("window1024_sink_softcap_bf16", contiguous_inputs(
+        gen, device, d=128, act_dtype=torch.bfloat16,
+        cache_dtype=torch.bfloat16, **mk),
+        dict(scale=128 ** -0.5, window=1024, sink=sink, soft_cap=5.0),
+        TOL_KERNEL_BF16))
+    cases.append(("fp8_e4m3_cache_kv_scale", contiguous_inputs(
+        gen, device, d=128, act_dtype=torch.bfloat16,
+        cache_dtype=torch.float8_e4m3fn, kv_scale=0.5, **mk),
+        dict(scale=128 ** -0.5, kv_scale=0.5), TOL_KERNEL_BF16))
+    return cases
+
+
+def decode_args(inputs, kw):
+    kw = dict(kw)
+    layer = kw.pop("layer", 0)
+    return (inputs["q"], inputs["k_cache"], inputs["v_cache"],
+            inputs["new_k"], inputs["new_v"], layer, inputs["lens"]), kw
+
+
+def check_decode_against_twin(inputs, kw):
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    args, kw = decode_args(inputs, kw)
+    got = decode_attention.decode_attention_stacked(*args, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention.decode_attention_stacked_plain(*args, **kw)
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("kernel output is not finite")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def flash_cases(device):
+    """(name, inputs, kwargs, tolerance) for the flash prefill kernel at
+    Mistral-7B shapes (Hq 32, Hkv 8)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def qkv(b, s, d, dt):
+        return {n: torch.randn((b, s, h, d), generator=gen,
+                               device=device).to(dt)
+                for n, h in (("q", 32), ("k", 8), ("v", 8))}
+    bf = torch.bfloat16
+    return [
+        ("b2_s2048_d128_bf16", qkv(2, 2048, 128, bf),
+         dict(scale=128 ** -0.5), tol_flash_bf16),
+        ("window512_bf16", qkv(2, 2048, 128, bf),
+         dict(scale=128 ** -0.5, window=512), tol_flash_bf16),
+        ("softcap30_bf16", qkv(2, 2048, 128, bf),
+         dict(scale=128 ** -0.5, soft_cap=30.0), tol_flash_bf16),
+        ("d64_bf16", qkv(2, 2048, 64, bf), dict(scale=64 ** -0.5),
+         tol_flash_bf16),
+        ("s512_fp32", qkv(2, 512, 128, torch.float32),
+         dict(scale=128 ** -0.5), TOL_KERNEL_FP32),
+    ]
+
+
+def check_flash_against_twin(inputs, kw):
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import flash_attention
+    args = (inputs["q"], inputs["k"], inputs["v"])
+    got = flash_attention.flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_plain(*args, **kw)
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("kernel output is not finite")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    decode_attention.paged_decode_attention.launches = 0
+    decode_attention.decode_attention_stacked.launches = 0
+    flash_attention.flash_attention.launches = 0
+
+
 def phase_kernels(device):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
     results = {}
-    for name, inputs, kw, tol in kernel_cases(device):
-        err = check_kernel_against_twin(inputs, kw)
-        results[name] = err
-        emit({"phase": "kernel_vs_twin", "kernel": "paged_decode_attention",
-              "case": name, "max_abs_err": err, "tol": tol})
-        if not err <= tol:
-            raise AssertionError(f"paged_decode_attention {name}: max abs "
-                                 f"err {err} > {tol}")
+    for kernel, cases, check in (
+            ("paged_decode_attention", kernel_cases, check_kernel_against_twin),
+            ("decode_attention_stacked", decode_cases,
+             check_decode_against_twin),
+            ("flash_attention", flash_cases, check_flash_against_twin)):
+        for name, inputs, kw, tol in cases(device):
+            if callable(tol):
+                tol = tol(inputs)
+            err = check(inputs, kw)
+            results[(kernel, name)] = err
+            emit({"phase": "kernel_vs_twin", "kernel": kernel, "case": name,
+                  "max_abs_err": err, "tol": tol})
+            if not err <= tol:
+                raise AssertionError(f"{kernel} {name}: max abs err {err} "
+                                     f"> {tol}")
+        torch.cuda.empty_cache()
     # comparison launches are not main-path launches
-    decode_attention.paged_decode_attention.launches = 0
+    reset_launches()
     return results
 
 
@@ -295,7 +465,7 @@ def phase_main_path(hf, device, on_card=True):
                    seq_len=2048, output_logits=True)
     app.init_random_weights(0)
     ids, mask = prompts_of(PROMPT_LENS, hf["vocab_size"], seed=0)
-    decode_attention.paged_decode_attention.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
                        return_logits=True)
@@ -343,6 +513,53 @@ def phase_main_path(hf, device, on_card=True):
 # Phase 4: serving through the adapter, fp32
 # ---------------------------------------------------------------------------
 
+def near_tie_check(phase, s, got, want, prompt_len):
+    """The first difference of a served stream from the reference
+    ``generate`` (``want`` with per-step logits) is accepted only where the
+    reference's top-2 logits are closer than NEAR_TIE; returns the case
+    or None."""
+    import numpy as np
+    exp = want["generated"][0]
+    diff = np.nonzero(got != exp)[0]
+    if not diff.size:
+        return None
+    i = int(diff[0])
+    # step 0 is the prefill: its logits cover the whole window
+    lg = want["logits"][i][0, prompt_len - 1 if i == 0 else 0]
+    top2 = np.sort(lg)[-2:]
+    margin = float(top2[1] - top2[0])
+    case = {"seq_id": s, "first_diff_step": i, "margin": margin}
+    emit({"phase": phase, **case, "bound": NEAR_TIE})
+    if not margin < NEAR_TIE:
+        raise AssertionError(f"stream {s} differs from generate at step {i} "
+                             f"with top-2 margin {margin}")
+    return case
+
+
+def serve_staggered(eng, prompts):
+    """Admit prompts 0-1 at step 0, 2-3 at step 8, 4-5 at step 16; release
+    each stream once it holds SERVE_TOKENS tokens. Returns (streams,
+    engine steps)."""
+    streams = {i: [] for i in range(len(prompts))}
+    admit_at = {0: (0, 1), 8: (2, 3), 16: (4, 5)}
+    step = 0
+    while True:
+        if step in admit_at:
+            sids = list(admit_at[step])
+            first = eng.add_requests(sids, [prompts[s] for s in sids])
+            for s, t in first.items():
+                streams[s].append(t)
+        done = [s for s in eng.seqs if len(streams[s]) >= SERVE_TOKENS]
+        if done:
+            eng.release(done)
+        if not eng.seqs and step > max(admit_at):
+            break
+        for s, t in eng.step().items():
+            streams[s].append(t)
+        step += 1
+    return streams, step
+
+
 def phase_serving(hf, device):
     import numpy as np
     import torch
@@ -359,44 +576,17 @@ def phase_serving(hf, device):
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in SERVE_LENS]
     eng = PagedEngineAdapter(app)
-    streams = {i: [] for i in range(len(prompts))}
-    admit_at = {0: (0, 1), 8: (2, 3), 16: (4, 5)}
-    step = 0
-    while True:
-        if step in admit_at:
-            sids = list(admit_at[step])
-            first = eng.add_requests(sids, [prompts[s] for s in sids])
-            for s, t in first.items():
-                streams[s].append(t)
-        done = [s for s in eng.running_ids
-                if len(streams[s]) >= SERVE_TOKENS]
-        if done:
-            eng.release(done)
-        if not eng.running_ids and step > max(admit_at):
-            break
-        for s, t in eng.step().items():
-            streams[s].append(t)
-        step += 1
+    streams, step = serve_staggered(eng, prompts)
     near_ties = []
     for s, prompt in enumerate(prompts):
         want = ref.generate(np.asarray([prompt]),
                             max_new_tokens=SERVE_TOKENS, return_logits=True)
         ref.reset()
-        got = np.asarray(streams[s][:SERVE_TOKENS])
-        exp = want["generated"][0]
-        diff = np.nonzero(got != exp)[0]
-        if diff.size:
-            i = int(diff[0])
-            # step 0 is the prefill: its logits cover the whole window
-            lg = want["logits"][i][0, len(prompt) - 1 if i == 0 else 0]
-            top2 = np.sort(lg)[-2:]
-            margin = float(top2[1] - top2[0])
-            case = {"seq_id": s, "first_diff_step": i, "margin": margin}
+        case = near_tie_check("serving_near_tie", s,
+                              np.asarray(streams[s][:SERVE_TOKENS]), want,
+                              len(prompt))
+        if case:
             near_ties.append(case)
-            emit({"phase": "serving_near_tie", **case, "bound": NEAR_TIE})
-            if not margin < NEAR_TIE:
-                raise AssertionError(f"stream {s} differs from generate at "
-                                     f"step {i} with top-2 margin {margin}")
     emit({"phase": "serving", "requests": len(prompts),
           "tokens_per_stream": SERVE_TOKENS, "engine_steps": step,
           "streams_identical": len(prompts) - len(near_ties),
@@ -565,6 +755,330 @@ def phase_timings(hf, device, app, ids, mask, launches):
              "bound_by": bound_by, "library_ms": library_ms}]
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-8: the contiguous path
+# ---------------------------------------------------------------------------
+
+def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
+                        output_logits=False, cb=False):
+    """``CausalLMApplication`` over the Mistral family. kernels=True: the
+    flash prefill kernel (``attn_kernel_enabled``) and the decode kernel by
+    default admission; False: both off (mha prefill, gather decode)."""
+    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+    from neuronx_distributed_inference_tpu_torch.models.application import \
+        CausalLMApplication
+    from neuronx_distributed_inference_tpu_torch.models.mistral import (
+        MistralFamily, MistralInferenceConfig)
+    tcfg = TpuConfig(batch_size=batch, seq_len=seq_len, dtype=dtype,
+                     attn_kernel_enabled=kernels,
+                     attn_block_tkg_kernel_enabled=None if kernels else False,
+                     rolling_kv_cache=False, output_logits=output_logits,
+                     is_continuous_batching=cb)
+    app = CausalLMApplication(None, MistralInferenceConfig(tcfg, **hf),
+                              MistralFamily, device=device)
+    return app.init_cache()
+
+
+def kernel_counts():
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    return {"paged_decode_attention":
+            decode_attention.paged_decode_attention.launches,
+            "decode_attention_stacked":
+            decode_attention.decode_attention_stacked.launches,
+            "flash_attention": flash_attention.flash_attention.launches}
+
+
+def _upcast(params):
+    """The parameter tree in fp32 (same values as the bf16 tree)."""
+    if isinstance(params, dict):
+        return {k: _upcast(v) for k, v in params.items()}
+    return params.float()
+
+
+def phase_contiguous(hf, device, phase: str):
+    """Generate with both kernels, check their launch counts, then hold
+    the prefill and every decode step's logits against the kernels-off app
+    on the same weights and tokens. Returns (app, ids, mask, counts)."""
+    import numpy as np
+    import torch
+    layers = hf["num_hidden_layers"]
+    app = make_contiguous_app(hf, device, "bfloat16",
+                              batch=len(MISTRAL_LENS), seq_len=MISTRAL_SEQ,
+                              output_logits=True)
+    app.init_random_weights(0)
+    ids, mask = prompts_of(MISTRAL_LENS, hf["vocab_size"], seed=0)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
+                       return_logits=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    decode_steps = NEW_TOKENS - 1
+    want = {"paged_decode_attention": 0,
+            "decode_attention_stacked": layers * decode_steps,
+            "flash_attention": layers * 1}
+    gen = out["generated"]
+    emit({"phase": phase, "generate_s": gen_s, "launches": counts,
+          "expected_launches": want, "decode_steps": decode_steps,
+          "prefill_calls": 1, "sliding_window": hf["sliding_window"],
+          "layers": layers, "generated_shape": list(gen.shape)})
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != {want}")
+    if gen.shape != (len(MISTRAL_LENS), NEW_TOKENS) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"bad generated tokens {gen.shape}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logits = {"kernels": out["logits"]}
+    for name, dtype in (("kernels_off", "bfloat16"),
+                        ("fp32_reference", "float32")):
+        ref = make_contiguous_app(hf, device, dtype,
+                                  batch=len(MISTRAL_LENS),
+                                  seq_len=MISTRAL_SEQ, kernels=False,
+                                  output_logits=True)
+        ref.params = (app.params if dtype == "bfloat16"
+                      else _upcast(app.params))
+        logits[name] = ref.generate(
+            ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
+            return_logits=True, teacher_tokens=gen[:, :decode_steps])[
+                "logits"]
+        del ref
+        torch.cuda.empty_cache()
+    real = np.arange(out["logits"][0].shape[1])[None, :] < np.asarray(
+        MISTRAL_LENS)[:, None]                      # (B, bucket)
+
+    def diffs(a_name, b_name):
+        """(prefill max, decode max, mean over every compared logit) of
+        |a - b|: prefill at the real positions, decode steps 1..63."""
+        a, b = logits[a_name], logits[b_name]
+        pre = np.abs(a[0] - b[0])[real]
+        dec = np.stack([np.abs(a[i] - b[i]) for i in range(1, NEW_TOKENS)])
+        n = pre.size + dec.size
+        return (float(pre.max()), float(dec.max()),
+                float((pre.sum(dtype=np.float64)
+                       + dec.sum(dtype=np.float64)) / n))
+    for name in logits:
+        if not all(np.isfinite(x).all() for x in logits[name]):
+            raise AssertionError(f"{phase}: non-finite {name} logits")
+    direct = diffs("kernels", "kernels_off")
+    k32 = diffs("kernels", "fp32_reference")
+    o32 = diffs("kernels_off", "fp32_reference")
+    emit({"phase": phase + "_logits",
+          "kernels_vs_kernels_off": {"prefill_max": direct[0],
+                                     "decode_max": direct[1],
+                                     "mean": direct[2]},
+          "kernels_vs_fp32": {"prefill_max": k32[0], "decode_max": k32[1],
+                              "mean": k32[2]},
+          "kernels_off_vs_fp32": {"prefill_max": o32[0],
+                                  "decode_max": o32[1], "mean": o32[2]},
+          "fp32_logit_std": float(np.std(logits["fp32_reference"][1])),
+          "decode_steps_compared": decode_steps,
+          "factor": TOL_CONTIG_VS_FP32})
+    if not k32[2] <= TOL_CONTIG_VS_FP32 * o32[2]:
+        raise AssertionError(
+            f"{phase}: the kernel app's mean |logit error| vs fp32 {k32[2]} "
+            f"exceeds {TOL_CONTIG_VS_FP32} x the kernels-off app's {o32[2]}")
+    return app, ids, mask, counts
+
+
+def phase_contiguous_serving(hf, device):
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    app = make_contiguous_app(hf, device, "float32", batch=8, seq_len=512,
+                              cb=True)
+    app.init_random_weights(0)
+    ref = make_contiguous_app(hf, device, "float32", batch=1, seq_len=512,
+                              output_logits=True)
+    ref.params = app.params
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in SERVE_LENS]
+    reset_launches()
+    eng = ContinuousBatchingAdapter(app)
+    streams, step = serve_staggered(eng, prompts)
+    served = kernel_counts()
+    near_ties = []
+    for s, prompt in enumerate(prompts):
+        want = ref.generate(np.asarray([prompt]),
+                            max_new_tokens=SERVE_TOKENS, return_logits=True)
+        ref.reset()
+        case = near_tie_check("cb_serving_near_tie", s,
+                              np.asarray(streams[s][:SERVE_TOKENS]), want,
+                              len(prompt))
+        if case:
+            near_ties.append(case)
+    emit({"phase": "cb_serving", "layers": hf["num_hidden_layers"],
+          "requests": len(prompts), "tokens_per_stream": SERVE_TOKENS,
+          "engine_steps": step, "launches_while_serving": served,
+          "streams_identical": len(prompts) - len(near_ties),
+          "near_ties": len(near_ties), "host_stats": eng.host_stats})
+    if served["flash_attention"] == 0:
+        raise AssertionError("continuous-batching prefill never ran the "
+                             "flash kernel")
+
+
+def decode_bounds(inputs):
+    """Least time for the contiguous decode kernel's work on the H100:
+    bytes (each live K/V row once, q, new_k/new_v, out, lens) over the HBM
+    rate and operations (QK and PV over the live keys plus the active
+    token) over the bf16 peak; returns (ms, "bytes"|"operations")."""
+    q, kc = inputs["q"], inputs["k_cache"]
+    b, hq, d = q.shape
+    hkv = kc.shape[2]
+    keys = sum(int(x) for x in inputs["lens"].tolist())
+    nbytes = (2 * keys * hkv * d * kc.element_size()
+              + (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
+              + 4 * b)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * (keys + b) * hq * d / PEAK_FLOPS["bfloat16"] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def flash_bounds(q, k):
+    """Least time for the flash kernel's causal work: tensor-core
+    operations 4 * B * Hq * D * sum_q (q + 1 keys) over the bf16 peak, and
+    bytes (q, k, v read once, out written once) over the HBM rate."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    ops_ms = (4 * b * hq * d * (s * (s + 1) // 2)
+              / PEAK_FLOPS["bfloat16"] * 1e3)
+    bytes_ms = ((2 * b * s * hq * d + 2 * b * s * hkv * d)
+                * q.element_size() / HBM_BYTES_PER_S * 1e3)
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def phase_contiguous_timings(hf, device, app, ids, mask, counts):
+    """Prefill and decode step times of the Mistral app, the decode
+    profile, and each kernel at the main path's shapes: device time,
+    bound, plain twin, and the PyTorch yardstick (SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    spec = app.spec
+    b = len(MISTRAL_LENS)
+    timing_app = make_contiguous_app(hf, device, "bfloat16", batch=b,
+                                     seq_len=MISTRAL_SEQ)
+    timing_app.params = app.params
+
+    def gen(n):
+        timing_app.generate(ids, attention_mask=mask, max_new_tokens=n)
+        torch.cuda.synchronize()
+    prefill_ms = time_host(lambda: gen(1), reps=3)
+    k = 32
+    decode_ms = (time_host(lambda: gen(1 + k), reps=3) - prefill_ms) / k
+    emit({"phase": "contiguous_steps", "prefill_ms_per_prompt":
+          prefill_ms / b, "prefill_ms_batch": prefill_ms,
+          "prompt_lens": list(MISTRAL_LENS), "ctx_bucket": 2048,
+          "decode_ms_per_step_batch4": decode_ms})
+    profile_decode(lambda: gen(1), lambda: gen(1 + k), k)
+    del timing_app
+    torch.cuda.empty_cache()
+
+    # contiguous decode kernel over the main path's own cache (positions
+    # after its last decode step), last layer
+    gen_t = torch.Generator(device=device).manual_seed(5)
+    hq, hkv, d = spec.num_q_heads, spec.num_kv_heads, spec.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen_t,
+                           device=device).to(torch.bfloat16)
+    pos = [n + NEW_TOKENS - 1 for n in MISTRAL_LENS]
+    dec = dict(q=rnd(b, hq, d), k_cache=app.cache["k"],
+               v_cache=app.cache["v"], new_k=rnd(b, hkv, d),
+               new_v=rnd(b, hkv, d),
+               lens=torch.tensor(pos, dtype=torch.int32, device=device))
+    layer = spec.num_layers - 1
+    dkw = dict(scale=spec.scale, window=spec.sliding_window, layer=layer)
+    dec_err = check_decode_against_twin(dec, dkw)
+    if not dec_err <= TOL_KERNEL_BF16:
+        raise AssertionError(f"decode kernel at main-path shapes: {dec_err}")
+    args, kw = decode_args(dec, dkw)
+    dec_ms = time_cuda(
+        lambda: decode_attention.decode_attention_stacked(*args, **kw))
+    dec_plain_ms = time_cuda(
+        lambda: decode_attention.decode_attention_stacked_plain(*args, **kw),
+        calls=10)
+    # SDPA over the contiguous cache with the active token at slot lens[b]
+    kk = app.cache["k"][layer].transpose(2, 3).clone()     # (B, H, S, D)
+    vv = app.cache["v"][layer].clone()
+    rows = torch.arange(b, device=device)
+    lens_l = dec["lens"].long()
+    kk[rows, :, lens_l] = dec["new_k"]
+    vv[rows, :, lens_l] = dec["new_v"]
+    smask = (torch.arange(MISTRAL_SEQ, device=device)[None, :]
+             <= lens_l[:, None])[:, None, None, :]
+    q4 = dec["q"][:, :, None, :]
+    dec_lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, kk, vv, attn_mask=smask, scale=spec.scale, enable_gqa=True))
+    del kk, vv
+    dec_bound, dec_by = decode_bounds(dec)
+
+    # flash kernel at the main path's prefill shapes (batch 4, bucket 2048)
+    s = 2048
+    fq = torch.randn((b, s, hq, d), generator=gen_t,
+                     device=device).to(torch.bfloat16)
+    fk = torch.randn((b, s, hkv, d), generator=gen_t,
+                     device=device).to(torch.bfloat16)
+    fv = torch.randn((b, s, hkv, d), generator=gen_t,
+                     device=device).to(torch.bfloat16)
+    fkw = dict(scale=spec.scale, window=spec.sliding_window)
+    fl_err = check_flash_against_twin(dict(q=fq, k=fk, v=fv), fkw)
+    if not fl_err <= tol_flash_bf16(dict(v=fv)):
+        raise AssertionError(f"flash kernel at main-path shapes: {fl_err}")
+    fl_ms = time_cuda(lambda: flash_attention.flash_attention(fq, fk, fv,
+                                                              **fkw),
+                      calls=5, reps=5)
+    fl_plain_ms = time_cuda(lambda: flash_attention.flash_attention_plain(
+        fq, fk, fv, **fkw), calls=2, reps=3)
+    tq, tk, tv = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
+    fl_lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        tq, tk, tv, is_causal=True, scale=spec.scale, enable_gqa=True),
+        calls=5, reps=5)
+    fl_bound, fl_by = flash_bounds(fq, fk)
+    emit({"phase": "contiguous_timings",
+          "decode": {"kernel_us": dec_ms * 1e3, "bound_us": dec_bound * 1e3,
+                     "plain_us": dec_plain_ms * 1e3,
+                     "library_us": dec_lib_ms * 1e3,
+                     "splits": decode_attention.contiguous_num_splits(
+                         b, hkv, MISTRAL_SEQ, d),
+                     "launches_per_step": spec.num_layers,
+                     "max_abs_err": dec_err, "shape": {
+                         "B": b, "Hq": hq, "Hkv": hkv, "D": d,
+                         "S": MISTRAL_SEQ, "lens": pos}},
+          "flash": {"kernel_us": fl_ms * 1e3, "bound_us": fl_bound * 1e3,
+                    "plain_us": fl_plain_ms * 1e3,
+                    "library_us": fl_lib_ms * 1e3,
+                    "launches_per_prefill": spec.num_layers,
+                    "max_abs_err": fl_err, "shape": {
+                        "B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d}}})
+    src = "neuronx_distributed_inference_tpu_torch/csrc/"
+    jax_ops = "neuronx_distributed_inference_tpu/ops/"
+    return [
+        {"name": "decode_attention_stacked", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": jax_ops + "decode_attention.py:41",
+         "launches": counts["decode_attention_stacked"],
+         "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain_ms,
+         "bound_ms": dec_bound, "bound_by": dec_by,
+         "library_ms": dec_lib_ms},
+        {"name": "flash_attention", "route": "cuda",
+         "source": src + "flash_attention.cu",
+         "replaces": jax_ops + "flash_attention.py:28",
+         "launches": counts["flash_attention"], "max_abs_err": fl_err,
+         "ms": fl_ms, "plain_ms": fl_plain_ms, "bound_ms": fl_bound,
+         "bound_by": fl_by, "library_ms": fl_lib_ms}]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -580,6 +1094,18 @@ def main() -> int:
     app, ids, mask, launches = phase_main_path(LLAMA_3_2_1B, device)
     phase_serving(LLAMA_3_2_1B, device)
     kernels = phase_timings(LLAMA_3_2_1B, device, app, ids, mask, launches)
+    del app
+    torch.cuda.empty_cache()
+    app, ids, mask, counts = phase_contiguous(MISTRAL_7B, device,
+                                              "contiguous_main_path")
+    kernels += phase_contiguous_timings(MISTRAL_7B, device, app, ids, mask,
+                                        counts)
+    del app
+    torch.cuda.empty_cache()
+    phase_contiguous(dict(MISTRAL_7B, num_hidden_layers=4,
+                          sliding_window=512), device, "window_bites")
+    torch.cuda.empty_cache()
+    phase_contiguous_serving(dict(MISTRAL_7B, num_hidden_layers=8), device)
     emit({"kernels": kernels})
     emit({"gpu": gpu})
     emit({"ok": True, "device": {"platform": "gpu",

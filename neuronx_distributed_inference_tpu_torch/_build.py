@@ -3,7 +3,8 @@ the JAX package, whose Pallas kernels compile inside ``jax.jit``).
 
 Each ``csrc/<name>.cu`` exposes a plain C interface; it is compiled with
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` at first use
-(the hash covers the source and the flags, so an edited source rebuilds)
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds)
 and loaded with ``ctypes``. Nothing is built when the package is imported:
 the CPU tests import every module on a machine with no ``nvcc``."""
 
@@ -44,9 +45,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    the ``csrc/*.cuh`` headers it may include, and the flags)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -244,8 +244,9 @@ class TpuConfig:
     qkv_kernel_enabled: bool = False
     mlp_kernel_enabled: bool = False
     attn_block_tkg_nki_kernel_enabled: bool = False
-    # hand-written paged decode-attention kernel (ops/decode_attention.py);
-    # None = on where supports() holds, False = never (gather path)
+    # hand-written decode-attention kernels (ops/decode_attention.py);
+    # None = the default admission, True = on where supports() holds,
+    # False = never (gather path)
     attn_block_tkg_kernel_enabled: Optional[bool] = None
 
     async_mode: bool = False

@@ -3,9 +3,9 @@
 
 A family is a class with ``config_cls``, ``build_spec(config)`` and
 ``convert_hf_state_dict(sd, spec)`` (HF numpy state dict -> the stacked
-host parameter tree). This slice carries the dense Llama-shaped decoder;
-the per-family hooks for biases, q/k norms and MoE come with the families
-that need them."""
+host parameter tree). The port carries the dense Llama-shaped decoder
+(the Llama and Mistral families); the per-family hooks for biases, q/k
+norms and MoE come with the families that need them."""
 
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ def register_family(*names: str):
 
 
 def get_family(name: str) -> Type["DecoderFamily"]:
+    from . import llama, mistral  # noqa: F401  (their imports register them)
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; known: "
                        f"{sorted(_REGISTRY)}")

@@ -1,5 +1,5 @@
 """Llama family, 2 and 3.x (counterpart:
-``neuronx_distributed_inference_tpu/models/llama/modeling_llama.py:16-29``).
+``neuronx_distributed_inference_tpu/models/llama/modeling_llama.py:16-31``).
 Llama-3.1 scaled RoPE is the generic "llama3" scaling of ops/rope.py,
 selected from the HF ``rope_scaling`` dict."""
 
@@ -25,9 +25,9 @@ class LlamaFamily(DecoderFamily):
 
 def TpuLlamaForCausalLM(model_path: str, config: InferenceConfig,
                         device=None):
-    """The paged application over the Llama family (the JAX package's
-    entry of this name builds its contiguous app, which this slice does
-    not port yet; the paged one needs ``is_block_kv_layout=True``)."""
-    from ..application import PagedCausalLMApplication
-    return PagedCausalLMApplication(model_path, config, LlamaFamily,
-                                    device=device)
+    """The contiguous-cache application over the Llama family, as the JAX
+    entry of this name builds it (the README's Quick start). Paged serving
+    builds ``PagedCausalLMApplication`` directly."""
+    from ..application import CausalLMApplication
+    return CausalLMApplication(model_path, config, LlamaFamily,
+                               device=device)

@@ -1,22 +1,30 @@
-"""Ragged paged decode attention (counterpart:
+"""One-token decode attention over the KV cache (counterpart:
 ``neuronx_distributed_inference_tpu/ops/decode_attention.py`` — the Pallas
-kernel ``_paged_kernel`` and its wrapper ``paged_decode_attention``
-:336-518, ``supports`` :588, ``quantized_cache_ok`` :599).
+kernels ``_decode_kernel`` with its wrappers ``decode_attention`` :135 and
+``decode_attention_stacked`` :162-261, and ``_paged_kernel`` with its
+wrapper ``paged_decode_attention`` :336-518; ``supports`` :588,
+``quantized_cache_ok`` :599).
 
 One query token per row: each KV head's GQA group attends over the row's
-prior tokens ``[0, lens[b])``, read from the stacked page cache
-``(L, N, Bs, Hkv, D)`` through ``block_table[b, j]``, plus the active token
-(``new_k``/``new_v``, never read from the cache — the caller has already
-written it there, and the strict ``kpos < lens`` mask keeps it out).
+prior tokens ``[0, lens[b])`` plus the active token (``new_k``/``new_v``,
+never read from the cache — the caller has already written it there, and
+the strict ``kpos < lens`` mask keeps it out). Two cache layouts:
+
+  * the contiguous cache, K transposed ``(L, B, Hkv, D, S)`` and V
+    ``(L, B, Hkv, S, D)``: :func:`decode_attention_stacked`;
+  * the stacked page cache ``(L, N, Bs, Hkv, D)`` read through
+    ``block_table[b, j]``: :func:`paged_decode_attention`.
+
 Options: a dynamic sliding ``window`` (0 = none), tanh ``soft_cap``, a
 per-head ``sink`` entering the softmax denominator only, and ``kv_scale``
-dequantisation of the pages on load.
+dequantisation of the cache on load.
 
-On a CUDA tensor :func:`paged_decode_attention` launches the hand-written
-Hopper kernel ``csrc/paged_decode_attention.cu`` (its header says what
-bounds it on the H100 and what the design does about that); on a CPU
-tensor it runs :func:`paged_decode_attention_plain`, the plain-PyTorch
-twin of the same math. There is no fall back from one to the other.
+On CUDA tensors each wrapper launches its hand-written Hopper kernel
+(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``; each
+header says what bounds it on the H100 and what the design does about
+that); on CPU tensors it runs its plain-PyTorch twin
+(``decode_attention_stacked_plain``, ``paged_decode_attention_plain``).
+There is no fall back from one to the other.
 """
 
 from __future__ import annotations
@@ -30,7 +38,6 @@ from .. import _build
 
 NEG_INF = -2.3819763e38      # finite: the online softmax never sees inf-inf
 
-KERNEL_NAME = "paged_decode_attention"
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -39,36 +46,30 @@ _TARGET_BLOCKS = 8 * 132     # split-K blocks: eight per H100 SM
 _MAX_SPLITS = 64             # the combine kernel's shared-memory bound
 
 
-def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
-                                 v_pages: torch.Tensor, new_k: torch.Tensor,
-                                 new_v: torch.Tensor, layer: int,
-                                 lens: torch.Tensor,
-                                 block_table: torch.Tensor, *, scale: float,
-                                 window: int = 0,
-                                 soft_cap: Optional[float] = None,
-                                 sink: Optional[torch.Tensor] = None,
-                                 kv_scale: Optional[float] = None
-                                 ) -> torch.Tensor:
-    """Plain-PyTorch twin: gather the row's pages, mask ``kpos < lens[b]``
-    (and ``lens[b] - kpos < window`` when ``window > 0``), fold in the
-    active token, soft-cap and sink, softmax in fp32."""
+# ---------------------------------------------------------------------------
+# Shared by both layouts
+# ---------------------------------------------------------------------------
+
+def _plain(q, k, v, new_k, new_v, lens, *, scale, window, soft_cap, sink,
+           kv_scale):
+    """The twins' math over one layer's prior keys k/v (B, Hkv, S, D) (any
+    strides): mask ``kpos < lens[b]`` and ``lens[b] - kpos < window``
+    (window > 0), fold in the active token, soft-cap and sink, softmax in
+    fp32."""
     b, hq, d = q.shape
-    _, _, bs, hkv, _ = k_pages.shape
-    mb = block_table.shape[1]
+    hkv, n = k.shape[1], k.shape[2]
     g = hq // hkv
-    tbl = block_table.long()
-    k = k_pages[layer][tbl].reshape(b, mb * bs, hkv, d).float()
-    v = v_pages[layer][tbl].reshape(b, mb * bs, hkv, d).float()
+    k, v = k.float(), v.float()
     if kv_scale is not None:
         k = k * kv_scale
         v = v * kv_scale
     qf = q.float().reshape(b, hkv, g, d)
-    s = torch.einsum("bhgd,bshd->bhgs", qf, k) * scale
+    s = torch.einsum("bhgd,bhsd->bhgs", qf, k) * scale
     sa = torch.einsum("bhgd,bhd->bhg", qf, new_k.float())[..., None] * scale
     if soft_cap is not None:
         s = soft_cap * torch.tanh(s / soft_cap)
         sa = soft_cap * torch.tanh(sa / soft_cap)
-    kpos = torch.arange(mb * bs, device=q.device)[None, :]
+    kpos = torch.arange(n, device=q.device)[None, :]
     pos = lens.long()[:, None]
     valid = kpos < pos
     if window > 0:
@@ -80,32 +81,26 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     scores = torch.cat(cols, dim=-1)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
-    n = mb * bs
-    out = torch.einsum("bhgs,bshd->bhgd", p[..., :n], v)
+    out = torch.einsum("bhgs,bhsd->bhgd", p[..., :n], v)
     out = out + p[..., n:n + 1] * new_v.float()[:, :, None, :]
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def _check_inputs(q, k_pages, v_pages, new_k, new_v, layer, lens,
-                  block_table, sink):
-    """Raise on anything the kernel (and so the twin's contract) does not
-    take: wrong rank, dtype, shape, device or layout."""
-    if q.dim() != 3 or k_pages.dim() != 5:
-        raise ValueError("q must be (B, Hq, D) and pages (L, N, Bs, Hkv, D)")
+def _check_common(q, hkv, cache_d, cache_dtype, n_layers, new_k, new_v,
+                  layer, lens, sink, tensors):
+    """Raise on anything either kernel (and so its twin's contract) does
+    not take: dtype, shape, device or layout of the inputs both share."""
     b, hq, d = q.shape
-    L, _, _, hkv, dp = k_pages.shape
-    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
-        raise ValueError("k_pages and v_pages must match in shape and dtype")
-    if dp != d or d not in _HEAD_DIMS:
+    if cache_d != d or d not in _HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {_HEAD_DIMS} and match "
-                         f"the pages (q {d}, pages {dp})")
+                         f"the cache (q {d}, cache {cache_d})")
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv} with at "
                          f"most {MAX_GROUP} query heads per KV head")
     if q.dtype not in _ACT_DTYPES:
         raise ValueError(f"q dtype {q.dtype} not in {_ACT_DTYPES}")
-    if k_pages.dtype not in _PAGE_DTYPES:
-        raise ValueError(f"page dtype {k_pages.dtype} not in "
+    if cache_dtype not in _PAGE_DTYPES:
+        raise ValueError(f"cache dtype {cache_dtype} not in "
                          f"{tuple(_PAGE_DTYPES)}")
     for name, t in (("new_k", new_k), ("new_v", new_v)):
         if t.shape != (b, hkv, d) or t.dtype != q.dtype:
@@ -113,15 +108,13 @@ def _check_inputs(q, k_pages, v_pages, new_k, new_v, layer, lens,
                              f"in q's dtype {q.dtype}")
     if lens.shape != (b,) or lens.dtype != torch.int32:
         raise ValueError("lens must be (B,) int32")
-    if (block_table.dim() != 2 or block_table.shape[0] != b
-            or block_table.dtype != torch.int32):
-        raise ValueError("block_table must be (B, max_blocks) int32")
     if sink is not None and (sink.shape != (hq,)
                              or sink.dtype != torch.float32):
         raise ValueError("sink must be (Hq,) float32")
-    if not 0 <= int(layer) < L:
-        raise ValueError(f"layer {layer} outside the {L} cached layers")
-    tensors = [q, k_pages, v_pages, new_k, new_v, lens, block_table]
+    if not 0 <= int(layer) < n_layers:
+        raise ValueError(f"layer {layer} outside the {n_layers} cached "
+                         "layers")
+    tensors = [q, new_k, new_v, lens, *tensors]
     if sink is not None:
         tensors.append(sink)
     if any(t.device != q.device for t in tensors):
@@ -130,25 +123,95 @@ def _check_inputs(q, k_pages, v_pages, new_k, new_v, layer, lens,
         raise ValueError("all inputs must be contiguous")
 
 
-def _kernel_fn():
-    fn = _build.load(KERNEL_NAME).nxdi_paged_decode_attention
+def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(_build.load(name), "nxdi_" + name)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 11 + [i] * 10 + [f] * 3 + [i, i, p]
+        fn.argtypes = [p] * n_ptrs + [i] * n_ints + [f] * 3 + [i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
-               head_dim: int) -> int:
-    """Blocks per (row, KV head) of the split-K kernel: enough for about
+def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
+             *, scale, soft_cap, kv_scale):
+    """Allocate the output and the split-K scratch (acc (B, Hkv, splits,
+    G, D), then (m, l) per head), launch on the current stream, raise on a
+    non-zero return, count the launch on ``wrapper``."""
+    if cache[0].data_ptr() % 16 or cache[1].data_ptr() % 16:
+        raise ValueError("the kernel reads the cache in 16-byte vectors: "
+                         "the K and V caches must be 16-byte aligned")
+    b, hq, d = q.shape
+    out = torch.empty_like(q)
+    n_acc = b * hkv * splits * (hq // hkv) * d
+    scratch = torch.empty(n_acc + 2 * n_acc // d, dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), *cache_ptrs,
+                sink.data_ptr() if sink is not None else None,
+                scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc,
+                out.data_ptr(), *ints, float(scale),
+                float(soft_cap) if soft_cap is not None else 0.0,
+                float(kv_scale) if kv_scale is not None else 1.0,
+                _PAGE_DTYPES[cache[0].dtype], int(q.dtype == torch.bfloat16),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed "
+                           f"(cudaError {rc})")
+    wrapper.launches += 1
+    return out
+
+
+def _splits(batch: int, hkv: int, keys: int, head_dim: int) -> int:
+    """Blocks per (row, KV head) of a split-K kernel: enough for about
     eight blocks on each of the H100's 132 SMs (a long row then gives each
-    block about one tile), and no more than the table has key tiles
-    (4096 / head_dim keys each), nor than 64. From shapes only, so the
-    wrapper never waits on the device for ``lens``."""
-    tiles = -(-max_blocks * block_size // (4096 // head_dim))
+    block about one tile), and no more than a row has key tiles (4096 /
+    head_dim keys each), nor than 64. From shapes only, so a wrapper never
+    waits on the device for ``lens``."""
+    tiles = -(-keys // (4096 // head_dim))
     want = -(-_TARGET_BLOCKS // (batch * hkv))
     return max(1, min(want, tiles, _MAX_SPLITS))
+
+
+def _device_check(q):
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# Paged cache
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, new_k: torch.Tensor,
+                                 new_v: torch.Tensor, layer: int,
+                                 lens: torch.Tensor,
+                                 block_table: torch.Tensor, *, scale: float,
+                                 window: int = 0,
+                                 soft_cap: Optional[float] = None,
+                                 sink: Optional[torch.Tensor] = None,
+                                 kv_scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """Plain-PyTorch twin of the paged kernel: gather the row's pages, then
+    the shared math (mask ``kpos < lens[b]`` and the window, fold in the
+    active token, soft-cap and sink, softmax in fp32)."""
+    b = q.shape[0]
+    _, _, bs, hkv, d = k_pages.shape
+    mb = block_table.shape[1]
+    tbl = block_table.long()
+
+    def rows(pages):                    # (B, Hkv, mb * Bs, D)
+        return pages[layer][tbl].reshape(b, mb * bs, hkv, d).transpose(1, 2)
+    return _plain(q, rows(k_pages), rows(v_pages), new_k, new_v, lens,
+                  scale=scale, window=window, soft_cap=soft_cap, sink=sink,
+                  kv_scale=kv_scale)
+
+
+def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
+               head_dim: int) -> int:
+    """Blocks per (row, KV head) of the paged kernel, over the table's
+    ``max_blocks * block_size`` keys (see :func:`_splits`)."""
+    return _splits(batch, hkv, max_blocks * block_size, head_dim)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -164,65 +227,142 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     block_table (B, max_blocks) int32 (entry 0 = null page). Returns
     (B, Hq, D) in q's dtype.
 
-    CUDA tensors launch the Hopper kernel on the current stream and add one
-    to ``paged_decode_attention.launches``; CPU tensors run the plain twin.
-    The caller keeps ``lens[b]`` within the row's table (the kernel indexes
-    ``block_table[b, kpos // Bs]`` for every live ``kpos``)."""
-    _check_inputs(q, k_pages, v_pages, new_k, new_v, layer, lens,
-                  block_table, sink)
-    kw = dict(scale=scale, window=int(window), soft_cap=soft_cap, sink=sink,
-              kv_scale=kv_scale)
+    CUDA tensors launch ``csrc/paged_decode_attention.cu`` on the current
+    stream and add one to ``paged_decode_attention.launches``; CPU tensors
+    run the plain twin. The caller keeps ``lens[b]`` within the row's table
+    (the kernel indexes ``block_table[b, kpos // Bs]`` for every live
+    ``kpos``)."""
+    if q.dim() != 3 or k_pages.dim() != 5:
+        raise ValueError("q must be (B, Hq, D) and pages (L, N, Bs, Hkv, D)")
+    b = q.shape[0]
+    L, n_pages, bs, hkv, d = k_pages.shape
+    if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
+        raise ValueError("k_pages and v_pages must match in shape and dtype")
+    if (block_table.dim() != 2 or block_table.shape[0] != b
+            or block_table.dtype != torch.int32):
+        raise ValueError("block_table must be (B, max_blocks) int32")
+    _check_common(q, hkv, d, k_pages.dtype, L, new_k, new_v, layer, lens,
+                  sink, [k_pages, v_pages, block_table])
+    kw = dict(scale=scale, soft_cap=soft_cap, kv_scale=kv_scale)
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pages, v_pages, new_k,
-                                            new_v, int(layer), lens,
-                                            block_table, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the kernel reads pages in 16-byte vectors: "
-                         "k_pages/v_pages must be 16-byte aligned")
-    b, hq, d = q.shape
-    _, n_pages, bs, hkv, _ = k_pages.shape
-    g, mb = hq // hkv, block_table.shape[1]
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, new_k, new_v, int(layer), lens, block_table,
+            window=int(window), sink=sink, **kw)
+    _device_check(q)
+    g, mb = q.shape[1] // hkv, block_table.shape[1]
     splits = num_splits(b, hkv, mb, bs, d)
-    out = torch.empty_like(q)
-    # split-K scratch: acc (B, Hkv, splits, G, D), then (m, l) per head
-    n_acc = b * hkv * splits * g * d
-    scratch = torch.empty(n_acc + 2 * n_acc // d, dtype=torch.float32,
-                          device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel_fn()(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            new_k.data_ptr(), new_v.data_ptr(), lens.data_ptr(),
-            block_table.data_ptr(),
-            sink.data_ptr() if sink is not None else None,
-            scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc,
-            out.data_ptr(),
-            b, int(layer), n_pages, bs, hkv, g, d, mb, splits, int(window),
-            float(scale), float(soft_cap) if soft_cap is not None else 0.0,
-            float(kv_scale) if kv_scale is not None else 1.0,
-            _PAGE_DTYPES[k_pages.dtype], int(q.dtype == torch.bfloat16),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed "
-                           f"(cudaError {rc})")
-    paged_decode_attention.launches += 1
-    return out
+    return _split_k(
+        paged_decode_attention, _kernel_fn("paged_decode_attention", 11, 10),
+        q, hkv, splits,
+        [k_pages.data_ptr(), v_pages.data_ptr(), new_k.data_ptr(),
+         new_v.data_ptr(), lens.data_ptr(), block_table.data_ptr()],
+        [b, int(layer), n_pages, bs, hkv, g, d, mb, splits, int(window)],
+        sink, (k_pages, v_pages), **kw)
 
 
 paged_decode_attention.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Contiguous cache
+# ---------------------------------------------------------------------------
+
+def decode_attention_stacked_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor, new_k: torch.Tensor,
+                                   new_v: torch.Tensor, layer: int,
+                                   lens: torch.Tensor, *, scale: float,
+                                   window: int = 0,
+                                   soft_cap: Optional[float] = None,
+                                   sink: Optional[torch.Tensor] = None,
+                                   kv_scale: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """Plain-PyTorch twin of the contiguous kernel: the shared math over
+    layer ``layer`` of the cache (K read through a transposed view)."""
+    return _plain(q, k_cache[layer].transpose(2, 3), v_cache[layer], new_k,
+                  new_v, lens, scale=scale, window=window, soft_cap=soft_cap,
+                  sink=sink, kv_scale=kv_scale)
+
+
+def contiguous_num_splits(batch: int, hkv: int, seq_len: int,
+                          head_dim: int) -> int:
+    """Blocks per (row, KV head) of the contiguous kernel, over a cache
+    row's ``seq_len`` keys (see :func:`_splits`)."""
+    return _splits(batch, hkv, seq_len, head_dim)
+
+
+def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, new_k: torch.Tensor,
+                             new_v: torch.Tensor, layer: int,
+                             lens: torch.Tensor, *, scale: float,
+                             window: int = 0,
+                             soft_cap: Optional[float] = None,
+                             sink: Optional[torch.Tensor] = None,
+                             kv_scale: Optional[float] = None
+                             ) -> torch.Tensor:
+    """q (B, Hq, D); k_cache (L, B, Hkv, D, S) transposed, v_cache (L, B,
+    Hkv, S, D); new_k/new_v (B, Hkv, D); ``layer`` python int; lens (B,)
+    int32 prior lengths, each at most S. Returns (B, Hq, D) in q's dtype.
+
+    CUDA tensors launch ``csrc/decode_attention.cu`` on the current stream
+    and add one to ``decode_attention_stacked.launches``; CPU tensors run
+    :func:`decode_attention_stacked_plain`."""
+    if q.dim() != 3 or k_cache.dim() != 5:
+        raise ValueError("q must be (B, Hq, D) and k_cache (L, B, Hkv, D, S)")
+    b = q.shape[0]
+    L, bc, hkv, d, s_len = k_cache.shape
+    if bc != b:
+        raise ValueError(f"the query batch {b} must equal the cache batch "
+                         f"{bc} (rows are addressed by index)")
+    if (v_cache.shape != (L, b, hkv, s_len, d)
+            or v_cache.dtype != k_cache.dtype):
+        raise ValueError("v_cache must be (L, B, Hkv, S, D) in k_cache's "
+                         "dtype")
+    _check_common(q, hkv, d, k_cache.dtype, L, new_k, new_v, layer, lens,
+                  sink, [k_cache, v_cache])
+    kw = dict(scale=scale, soft_cap=soft_cap, kv_scale=kv_scale)
+    if q.device.type == "cpu":
+        return decode_attention_stacked_plain(
+            q, k_cache, v_cache, new_k, new_v, int(layer), lens,
+            window=int(window), sink=sink, **kw)
+    _device_check(q)
+    splits = contiguous_num_splits(b, hkv, s_len, d)
+    return _split_k(
+        decode_attention_stacked, _kernel_fn("decode_attention", 10, 8),
+        q, hkv, splits,
+        [k_cache.data_ptr(), v_cache.data_ptr(), new_k.data_ptr(),
+         new_v.data_ptr(), lens.data_ptr()],
+        [b, int(layer), hkv, q.shape[1] // hkv, d, s_len, splits,
+         int(window)],
+        sink, (k_cache, v_cache), **kw)
+
+
+decode_attention_stacked.launches = 0
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, new_k: torch.Tensor,
+                     new_v: torch.Tensor, lens: torch.Tensor, *,
+                     scale: float, window: int = 0,
+                     soft_cap: Optional[float] = None,
+                     sink: Optional[torch.Tensor] = None,
+                     kv_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-layer entry: k_cache (B, Hkv, D, S) transposed, v_cache (B,
+    Hkv, S, D); otherwise as :func:`decode_attention_stacked`."""
+    return decode_attention_stacked(
+        q, k_cache[None], v_cache[None], new_k, new_v, 0, lens, scale=scale,
+        window=window, soft_cap=soft_cap, sink=sink, kv_scale=kv_scale)
+
+
 def supports(spec, phase_t: int) -> bool:
-    """Kernel admission (counterpart: decode_attention.py:588): a single
-    active token, head_dim 64 or 128, and at most ``MAX_GROUP`` query heads
-    per KV head (the kernel keeps a group's accumulators in registers)."""
+    """Kernel admission for both kernels (counterpart:
+    decode_attention.py:588): a single active token, head_dim 64 or 128,
+    and at most ``MAX_GROUP`` query heads per KV head (the kernels keep a
+    group's accumulators in registers)."""
     return (phase_t == 1 and spec.head_dim in _HEAD_DIMS
             and spec.gqa.q_per_kv <= MAX_GROUP)
 
 
 def quantized_cache_ok(cache_dtype: torch.dtype) -> bool:
-    """Page dtypes the kernel streams (counterpart: the Mosaic probe at
+    """Cache dtypes the kernels stream (counterpart: the Mosaic probe at
     decode_attention.py:599; on sm_90 it is a plain dtype check)."""
     return cache_dtype in _PAGE_DTYPES

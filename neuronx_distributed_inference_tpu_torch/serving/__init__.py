@@ -1,6 +1,7 @@
 """Serving surface of the port (counterpart:
-``neuronx_distributed_inference_tpu/serving/``): the paged engine adapter."""
+``neuronx_distributed_inference_tpu/serving/``): the continuous-batching
+adapter over the contiguous app and the paged engine adapter."""
 
-from .adapter import PagedEngineAdapter
+from .adapter import ContinuousBatchingAdapter, PagedEngineAdapter
 
-__all__ = ["PagedEngineAdapter"]
+__all__ = ["ContinuousBatchingAdapter", "PagedEngineAdapter"]

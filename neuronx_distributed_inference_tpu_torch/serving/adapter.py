@@ -1,11 +1,15 @@
-"""Paged serving adapter — the continuous-batching contract an engine
-drives (counterpart: ``neuronx_distributed_inference_tpu/serving/
-adapter.py`` — ``_SeqState``/``_ChunkState`` :137-180, the helpers
-:459-560, ``_PagedScratch`` :606, the eager path of ``_EngineAdapterBase``
-:682-903 and ``PagedEngineAdapter`` :1277 with its preemption :2022-2165
-and chunked prefill :2174-2400).
+"""Serving adapters — the continuous-batching contract an engine drives
+(counterpart: ``neuronx_distributed_inference_tpu/serving/adapter.py`` —
+``_SeqState``/``_ChunkState`` :137-180, the helpers :459-560,
+``_CbScratch`` :563, ``_PagedScratch`` :606, the eager path of
+``_EngineAdapterBase`` :682-903, ``ContinuousBatchingAdapter`` :1090-1275
+and ``PagedEngineAdapter`` :1277 with its preemption :2022-2165 and
+chunked prefill :2174-2400).
 
-The engine owns scheduling; the adapter owns device state:
+``ContinuousBatchingAdapter`` drives the contiguous app: a request owns one
+cache row (its ``seq_id``) from ``add_requests`` to ``release``; prefill
+and decode address rows by ``seq_id``. ``PagedEngineAdapter`` drives the
+paged app. The engine owns scheduling; the adapter owns device state:
 
   * ``add_requests(seq_ids, prompts)`` — transactional admission; the
     uncached prompt suffixes run as chunked, packed prefill rows of
@@ -28,6 +32,7 @@ refuses what waits for later slices: ``ragged=True``, ``speculation``,
 
 from __future__ import annotations
 
+import bisect
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -147,6 +152,32 @@ def _pad_paged_rows(pad_to, ids, pos, slots, bt, last):
                                                    last))
 
 
+class _CbScratch:
+    """Reusable decode-step input buffers for one (live set, batch
+    bucket) composition of the contiguous adapter."""
+
+    def __init__(self, live: Sequence[int], pad_to: int):
+        b = len(live)
+        self.live = tuple(live)
+        self.b = b
+        self.pad_to = pad_to
+        self.sid_p = np.empty((pad_to,), np.int32)
+        self.sid_p[:b] = live
+        self.sid_p[b:] = live[0]
+        self.toks_p = np.empty((pad_to, 1), np.int32)
+        self.pos_p = np.empty((pad_to, 1), np.int32)
+
+    def fill(self, adapter):
+        seqs = adapter.seqs
+        for i, s in enumerate(self.live):
+            st = seqs[s]
+            self.pos_p[i, 0] = st.position
+            self.toks_p[i, 0] = st.last_token
+        if self.pad_to > self.b:
+            self.pos_p[self.b:] = self.pos_p[0, 0]
+            self.toks_p[self.b:] = self.toks_p[0, 0]
+
+
 class _PagedScratch:
     """Reusable decode-step input buffers for one (live set, batch bucket,
     table-width bucket) composition: the block-table array is refreshed
@@ -185,7 +216,263 @@ class _PagedScratch:
                               self._block_size)
 
 
-class PagedEngineAdapter:
+class _EngineAdapterBase:
+    """The eager decode template both adapters share (``step``,
+    ``step_many``); subclasses provide dispatch, scratch construction, KV
+    growth and token bookkeeping."""
+
+    _decode_failure_msg = "decode device step failed"
+
+    # -- subclass hooks ----------------------------------------------------
+    def _pending_ids(self):
+        """seq_ids admitted but still mid-prefill (paged chunked
+        admissions); () on adapters without a deferred prefill path."""
+        return ()
+
+    def _advance_prefill(self, seq_ids=None):
+        """Run at most one packed prefill-chunk dispatch (no-op on adapters
+        without a deferred prefill path)."""
+
+    def _grow_for_step(self, live: List[int], n: int = 1) -> List[int]:
+        return live
+
+    def _rollback_step_growth(self, live: Sequence[int], n: int = 1):
+        pass
+
+    def _append_token(self, st: _SeqState, tok: int):
+        st.last_token = tok
+
+    # -- decode ------------------------------------------------------------
+    def step(self, seq_ids: Optional[Sequence[int]] = None) -> Dict[int, int]:
+        """One decode step for ``seq_ids`` (default: every running row):
+        {seq_id: next token}, plus the first tokens of prefills that
+        completed in this call. Raises :class:`DeadlineExceeded` /
+        :class:`CapacityError` before any device work when a row is over
+        budget, and :class:`StepFailure` when the device step fails (KV
+        growth is rolled back, positions are not advanced)."""
+        pending = self._pending_ids()
+        live = _live_rows(self.seqs, seq_ids, pending)
+        if not live and not pending:
+            return self._drain_ready()
+        if live:
+            _pre_step_checks(self.seqs, live, self._pos_limit)
+        self._advance_prefill(seq_ids)
+        if not live:
+            return self._drain_ready()
+        live = self._grow_for_step(live)
+        if not live:
+            return self._drain_ready()
+        scr = self._scratch_for(live)
+        scr.fill(self)
+        try:
+            out = self._dispatch_decode(scr)
+            new = self._fetch_rows(out, len(live))
+        except ServingError:
+            self._rollback_step_growth(live)
+            self._scratch = None
+            raise
+        except Exception as e:
+            self._rollback_step_growth(live)
+            self._scratch = None
+            raise StepFailure(
+                self._decode_failure_msg + "; positions were not advanced",
+                phase="decode", seq_ids=tuple(live),
+                retry_safe=False) from e
+        res = self._drain_ready()
+        for i, s in enumerate(live):
+            st = self.seqs[s]
+            st.position += 1
+            tok = int(new[i, 0])
+            self._append_token(st, tok)
+            res[s] = tok
+        return res
+
+    def step_many(self, num_steps: int,
+                  seq_ids: Optional[Sequence[int]] = None
+                  ) -> Dict[int, List[int]]:
+        """``num_steps`` decode steps in one call of the device loop and
+        one host fetch: {seq_id: [tokens]} in stream order. Deadlines and
+        the seq_len guard are enforced once for the whole horizon."""
+        if num_steps < 1:
+            raise ConfigurationError("step_many requires num_steps >= 1")
+        pending = self._pending_ids()
+        live = _live_rows(self.seqs, seq_ids, pending)
+        if not live and not pending:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        if live:
+            _pre_step_checks(self.seqs, live, self._pos_limit,
+                             horizon=num_steps)
+        self._advance_prefill(seq_ids)
+        if not live:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        live = self._grow_for_step(live, num_steps)
+        if not live:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        toks = self._run_many(live, num_steps)
+        res = {s: [t] for s, t in self._drain_ready().items()}
+        for i, s in enumerate(live):
+            st = self.seqs[s]
+            st.position += num_steps
+            row = [int(t) for t in toks[i]]
+            for t in row:
+                self._append_token(st, t)
+            res.setdefault(s, []).extend(row)
+        return res
+
+    def _drain_ready(self) -> Dict[int, int]:
+        out, self._ready = self._ready, {}
+        return out
+
+    def _fetch_rows(self, out, b: int) -> np.ndarray:
+        toks = out["tokens"].cpu().numpy()
+        return toks.reshape(toks.shape[0], -1)[:b]
+
+
+def _refuse_waiting(**knobs):
+    waiting = [name for name, v in knobs.items() if v]
+    if waiting:
+        raise ConfigurationError(
+            "the PyTorch port's adapter does not run these yet: "
+            + ", ".join(waiting))
+
+
+class ContinuousBatchingAdapter(_EngineAdapterBase):
+    """Engine adapter over the contiguous app (built with
+    ``is_continuous_batching=True``): each request owns cache row
+    ``seq_id`` in ``[0, batch_size)``."""
+
+    engine_name = "cb"
+
+    def __init__(self, app, telemetry=None, pipeline_depth: int = 0):
+        _refuse_waiting(telemetry=telemetry is not None,
+                        pipeline_depth=pipeline_depth)
+        cfg = app.tpu_config
+        if not cfg.is_continuous_batching:
+            raise ConfigurationError("app must be built with "
+                                     "is_continuous_batching=True")
+        if app.cache is None:
+            app.init_cache()
+        self.app = app
+        self.batch = cfg.batch_size
+        self.seqs: Dict[int, _SeqState] = {}
+        self._pos_limit = cfg.seq_len
+        # free rows, ascending — maintained incrementally on add/release
+        self._free: List[int] = list(range(self.batch))
+        self._ready: Dict[int, int] = {}
+        self._scratch: Optional[_CbScratch] = None
+        self.host_stats: Dict[str, int] = {"dispatches": 0,
+                                           "device_steps": 0}
+
+    @property
+    def free_slots(self) -> List[int]:
+        return list(self._free)
+
+    def add_requests(self, seq_ids: Sequence[int],
+                     prompts: Sequence[Sequence[int]],
+                     deadline_s: Union[None, float,
+                                       Sequence[Optional[float]]] = None
+                     ) -> Dict[int, int]:
+        """Prefill ``prompts`` into cache rows ``seq_ids``: {seq_id: first
+        generated token}. Rows are padded to the ctx bucket, the batch to a
+        batch bucket by repeating row 0. A failure admits nothing (the rows
+        written hold garbage only for seq_ids no live row reads)."""
+        _validate_admission(seq_ids, prompts, self.app.tpu_config.seq_len)
+        for sid in seq_ids:
+            if not 0 <= sid < self.batch:
+                raise AdmissionError(f"seq_id {sid} out of range "
+                                     f"[0,{self.batch})")
+            if sid in self.seqs:
+                raise AdmissionError(f"seq_id {sid} already running")
+        deadlines = _resolve_deadlines(deadline_s, len(seq_ids),
+                                       time.perf_counter())
+        b = len(seq_ids)
+        lens = np.asarray([len(p) for p in prompts], np.int32)
+        try:
+            width = autobucketing.get_target_bucket(self.app.ctx_buckets,
+                                                    int(lens.max()))
+        except ValueError as e:
+            raise AdmissionError(f"prompt does not fit any context-encoding "
+                                 f"bucket: {e}") from e
+        ids = np.zeros((b, width), np.int32)
+        for i, p in enumerate(prompts):
+            ids[i, :len(p)] = p
+        pad_to = self._batch_bucket(b)
+        sid = np.asarray(seq_ids, np.int32)
+        if pad_to > b:
+            ids, sid, lens_p = (_repeat_row0(x, pad_to)
+                                for x in (ids, sid, lens))
+        else:
+            lens_p = lens
+        try:
+            out = self.app._run_prefill(ids, lens_p, seq_ids=sid)
+            toks = out["tokens"].cpu().numpy()[:b]
+        except ServingError:
+            raise
+        except Exception as e:
+            raise StepFailure(
+                "prefill device step failed; no sequences were admitted",
+                phase="prefill", seq_ids=seq_ids, retry_safe=False) from e
+        res = {}
+        for i, s in enumerate(seq_ids):
+            self.seqs[s] = _SeqState(
+                position=int(lens[i]), last_token=int(toks[i]),
+                prompt_len=int(lens[i]), deadline=deadlines[i])
+            del self._free[bisect.bisect_left(self._free, s)]
+            res[s] = int(toks[i])
+        return res
+
+    def release(self, seq_ids: Sequence[int]):
+        for sid in seq_ids:
+            self._ready.pop(sid, None)
+            if self.seqs.pop(sid, None) is not None:
+                bisect.insort(self._free, sid)
+                self._scratch = None
+
+    def _scratch_for(self, live: Sequence[int]) -> _CbScratch:
+        pad_to = self._batch_bucket(len(live))
+        scr = self._scratch
+        if scr is None or scr.live != tuple(live) or scr.pad_to != pad_to:
+            scr = self._scratch = _CbScratch(live, pad_to)
+        return scr
+
+    def _dispatch_decode(self, scr: _CbScratch):
+        out = self.app._run_decode(scr.toks_p, scr.pos_p, seq_ids=scr.sid_p)
+        self.host_stats["dispatches"] += 1
+        self.host_stats["device_steps"] += 1
+        return out
+
+    def _run_many(self, live: List[int], num_steps: int) -> np.ndarray:
+        """Fused k-step decode through ``decode_loop``: one dispatch, one
+        fetch."""
+        b = len(live)
+        pad_to = self._batch_bucket(b)
+        first = np.asarray([self.seqs[s].last_token for s in live], np.int32)
+        pos = np.asarray([self.seqs[s].position for s in live], np.int32)
+        sid = np.asarray(live, np.int32)
+        if pad_to > b:
+            first, pos, sid = (_repeat_row0(x, pad_to)
+                               for x in (first, pos, sid))
+        try:
+            out = self.app._run_decode_loop(first, pos, num_steps,
+                                            seq_ids=sid)
+            self.host_stats["dispatches"] += 1
+            self.host_stats["device_steps"] += num_steps
+            return self._fetch_rows(out, b)
+        except ServingError:
+            raise
+        except Exception as e:
+            raise StepFailure(
+                "fused decode loop failed; positions were not advanced",
+                phase="decode", seq_ids=tuple(live), retry_safe=False) from e
+
+    def _batch_bucket(self, b: int) -> int:
+        if b > self.batch:
+            raise CapacityError(f"live batch {b} exceeds compiled batch "
+                                f"{self.batch}")
+        return autobucketing.get_target_bucket(self.app.batch_buckets, b)
+
+
+class PagedEngineAdapter(_EngineAdapterBase):
     """Continuous-batching adapter over the paged application: block
     tables keyed by seq_id, slot mappings computed from the tables.
 
@@ -204,17 +491,13 @@ class PagedEngineAdapter:
                  prefill_budget_tokens: Optional[int] = None,
                  speculation=None, kv_spill_tier=None,
                  ragged: bool = False, lora_pool=None):
-        waiting = [name for name, v in (
-            ("telemetry", telemetry is not None),
-            ("pipeline_depth > 0", pipeline_depth),
-            ("speculation", speculation is not None),
-            ("kv_spill_tier", kv_spill_tier is not None),
-            ("ragged=True", ragged),
-            ("lora_pool", lora_pool is not None)) if v]
-        if waiting:
-            raise ConfigurationError(
-                "the PyTorch port's adapter does not run these yet: "
-                + ", ".join(waiting))
+        _refuse_waiting(**{
+            "telemetry": telemetry is not None,
+            "pipeline_depth > 0": pipeline_depth,
+            "speculation": speculation is not None,
+            "kv_spill_tier": kv_spill_tier is not None,
+            "ragged=True": ragged,
+            "lora_pool": lora_pool is not None})
         cfg = app.tpu_config
         if not cfg.is_block_kv_layout:
             raise ConfigurationError("app must be built with "
@@ -344,94 +627,22 @@ class PagedEngineAdapter:
                 if sid in self.app.kv_mgr.tables:
                     self.app.kv_mgr.end_sequence(sid)
 
-    # -- decode ------------------------------------------------------------
-    def step(self, seq_ids: Optional[Sequence[int]] = None) -> Dict[int, int]:
-        """One decode step for ``seq_ids`` (default: every running row):
-        {seq_id: next token}, plus the first tokens of prefills that
-        completed in this call. Raises :class:`DeadlineExceeded` /
-        :class:`CapacityError` before any device work when a row is over
-        budget, and :class:`StepFailure` when the device step fails (KV
-        growth is rolled back, positions are not advanced)."""
-        pending = self._chunks.keys()
-        live = _live_rows(self.seqs, seq_ids, pending)
-        if not live and not pending:
-            return self._drain_ready()
-        if live:
-            _pre_step_checks(self.seqs, live, self._pos_limit)
-        self._advance_prefill(seq_ids)
-        if not live:
-            return self._drain_ready()
-        live = self._grow_with_preemption(live)
-        if not live:
-            return self._drain_ready()
-        scr = self._scratch_for(live)
-        scr.fill(self)
-        try:
-            out = self._dispatch_decode(scr)
-            new = self._fetch_rows(out, len(live))
-        except ServingError:
-            self._rollback_grow(live)
-            self._scratch = None
-            raise
-        except Exception as e:
-            self._rollback_grow(live)
-            self._scratch = None
-            raise StepFailure(
-                "paged decode step failed; KV growth was rolled back; "
-                "positions were not advanced", phase="decode",
-                seq_ids=tuple(live), retry_safe=False) from e
-        res = self._drain_ready()
-        for i, s in enumerate(live):
-            st = self.seqs[s]
-            st.position += 1
-            tok = int(new[i, 0])
-            self._append_token(st, tok)
-            res[s] = tok
-        return res
+    # -- decode hooks ------------------------------------------------------
+    _decode_failure_msg = ("paged decode step failed; KV growth was rolled "
+                           "back")
 
-    def step_many(self, num_steps: int,
-                  seq_ids: Optional[Sequence[int]] = None
-                  ) -> Dict[int, List[int]]:
-        """``num_steps`` decode steps in one call of the device loop and
-        one host fetch: {seq_id: [tokens]} in stream order. Deadlines and
-        the seq_len guard are enforced once for the whole horizon."""
-        if num_steps < 1:
-            raise ConfigurationError("step_many requires num_steps >= 1")
-        pending = self._chunks.keys()
-        live = _live_rows(self.seqs, seq_ids, pending)
-        if not live and not pending:
-            return {s: [t] for s, t in self._drain_ready().items()}
-        if live:
-            _pre_step_checks(self.seqs, live, self._pos_limit,
-                             horizon=num_steps)
-        self._advance_prefill(seq_ids)
-        if not live:
-            return {s: [t] for s, t in self._drain_ready().items()}
-        live = self._grow_with_preemption(live, num_steps)
-        if not live:
-            return {s: [t] for s, t in self._drain_ready().items()}
-        toks = self._run_many(live, num_steps)
-        res = {s: [t] for s, t in self._drain_ready().items()}
-        for i, s in enumerate(live):
-            st = self.seqs[s]
-            st.position += num_steps
-            row = [int(t) for t in toks[i]]
-            for t in row:
-                self._append_token(st, t)
-            res.setdefault(s, []).extend(row)
-        return res
+    def _pending_ids(self):
+        return self._chunks.keys()
 
-    def _drain_ready(self) -> Dict[int, int]:
-        out, self._ready = self._ready, {}
-        return out
+    def _grow_for_step(self, live: List[int], n: int = 1) -> List[int]:
+        return self._grow_with_preemption(live, n)
+
+    def _rollback_step_growth(self, live: Sequence[int], n: int = 1):
+        self._rollback_grow(live, n)
 
     def _append_token(self, st: _SeqState, tok: int):
         st.last_token = tok
         st.tokens.append(tok)
-
-    def _fetch_rows(self, out, b: int) -> np.ndarray:
-        toks = out["tokens"].cpu().numpy()
-        return toks.reshape(toks.shape[0], -1)[:b]
 
     def _scratch_for(self, live: Sequence[int]) -> _PagedScratch:
         app = self.app

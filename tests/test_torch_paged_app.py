@@ -20,6 +20,8 @@ from neuronx_distributed_inference_tpu.models.application import \
     PagedCausalLMApplication as JPagedApp
 from neuronx_distributed_inference_tpu.models.llama import (
     LlamaFamily as JLlamaFamily, LlamaInferenceConfig as JLlamaConfig)
+from neuronx_distributed_inference_tpu.models.mistral import (
+    MistralFamily as JMistralFamily, MistralInferenceConfig as JMistralConfig)
 from neuronx_distributed_inference_tpu.serving import \
     PagedEngineAdapter as JPagedEngineAdapter
 from neuronx_distributed_inference_tpu_torch.config import TpuConfig
@@ -28,6 +30,8 @@ from neuronx_distributed_inference_tpu_torch.models.application import \
     PagedCausalLMApplication
 from neuronx_distributed_inference_tpu_torch.models.llama import (
     LlamaFamily, LlamaInferenceConfig)
+from neuronx_distributed_inference_tpu_torch.models.mistral import (
+    MistralFamily, MistralInferenceConfig)
 from neuronx_distributed_inference_tpu_torch.ops import decode_attention
 from neuronx_distributed_inference_tpu_torch.serving import \
     PagedEngineAdapter
@@ -53,15 +57,22 @@ def _tcfg(**over):
     return kw
 
 
+FAMILIES = {"llama": (JLlamaFamily, JLlamaConfig, LlamaFamily,
+                      LlamaInferenceConfig),
+            "mistral": (JMistralFamily, JMistralConfig, MistralFamily,
+                        MistralInferenceConfig)}
+
+
 def _pair(hf_over, **tcfg_over):
     """(JAX app, port app) on the same config and the same weights."""
     hf = tiny_llama_hf_config(**hf_over)
-    japp = JPagedApp(None, JLlamaConfig(JTpuConfig(**_tcfg(**tcfg_over)),
-                                        **hf), JLlamaFamily)
+    jfam, jcfg, tfam, tcfg_cls = FAMILIES[hf["model_type"]]
+    japp = JPagedApp(None, jcfg(JTpuConfig(**_tcfg(**tcfg_over)), **hf),
+                     jfam)
     japp.init_random_weights(7).init_cache()
     tapp = PagedCausalLMApplication(
-        None, LlamaInferenceConfig(TpuConfig(**_tcfg(**tcfg_over)), **hf),
-        LlamaFamily, device="cpu")
+        None, tcfg_cls(TpuConfig(**_tcfg(**tcfg_over)), **hf), tfam,
+        device="cpu")
     tapp.params = params_from_numpy(jax.tree.map(np.asarray, japp.params),
                                     device="cpu")
     tapp.init_cache()
@@ -110,6 +121,31 @@ def test_paged_logits_match_jax(monkeypatch, variant):
                                    **LOGIT_TOL)
     assert got["logits"][0].shape[-1] == tapp.spec.vocab_size
     assert calls.n == tapp.spec.num_layers * 5
+
+
+@pytest.mark.parametrize("kernel", [None, False])
+def test_paged_mistral_honours_the_window(monkeypatch, kernel):
+    """A paged Mistral app (window 64, prompts longer than it): the
+    prefill gather path masks with the window, and decode passes it to the
+    paged kernel (or masks with it on the gather path). Logits and greedy
+    tokens match the JAX paged app, which never rolls a paged cache."""
+    hf = dict(HD64, model_type="mistral", sliding_window=64)
+    japp, tapp = _pair(hf, output_logits=True, seq_len=256,
+                       context_encoding_buckets=[128],
+                       attn_block_tkg_kernel_enabled=kernel)
+    assert tapp.spec.sliding_window == 64
+    calls = _CountCalls(monkeypatch, decode_attention,
+                        "paged_decode_attention")
+    ids, mask = _prompts(2, [120, 75], seed=6)
+    want = japp.generate(ids, attention_mask=mask, max_new_tokens=5,
+                         return_logits=True)
+    got = tapp.generate(ids, attention_mask=mask, max_new_tokens=5,
+                        return_logits=True)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    for step, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        np.testing.assert_allclose(a, np.asarray(b), err_msg=f"step {step}",
+                                   **LOGIT_TOL)
+    assert calls.n == (0 if kernel is False else tapp.spec.num_layers * 4)
 
 
 def test_gather_path_when_kernel_disabled(monkeypatch):
