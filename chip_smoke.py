@@ -375,6 +375,15 @@ def flash_cases(device):
          tol_flash_bf16),
         ("s512_fp32", qkv(2, 512, 128, torch.float32),
          dict(scale=128 ** -0.5), TOL_KERNEL_FP32),
+        ("s128_one_tile_bf16", qkv(4, 128, 128, bf),
+         dict(scale=128 ** -0.5), tol_flash_bf16),
+        ("window200_bf16", qkv(2, 2048, 128, bf),
+         dict(scale=128 ** -0.5, window=200), tol_flash_bf16),
+        ("softcap30_window200_bf16", qkv(2, 2048, 128, bf),
+         dict(scale=128 ** -0.5, window=200, soft_cap=30.0),
+         tol_flash_bf16),
+        ("d64_window200_bf16", qkv(2, 1024, 64, bf),
+         dict(scale=64 ** -0.5, window=200), tol_flash_bf16),
     ]
 
 
@@ -388,6 +397,57 @@ def check_flash_against_twin(inputs, kw):
     if not torch.isfinite(got.float()).all():
         raise AssertionError("kernel output is not finite")
     return (got.float() - want.float()).abs().max().item()
+
+
+def check_paged_fused_merge(device):
+    """The fused paged kernel's merge, at the paged path's decode shapes:
+    the same call 3 times eagerly and 10 times in one CUDA graph replayed
+    twice give the first output bit for bit (the merging block puts its
+    counter back to 0), the counters end at 0, and every split count 1 to
+    64 agrees with the twin."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = paged_inputs(gen, device, b=4, hq=32, hkv=8, d=64, bs=32, mb=64,
+                     lens=[100, 363, 963, 1563], act_dtype=torch.bfloat16,
+                     page_dtype=torch.bfloat16)
+    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+            x["lens"], x["block_table"])
+
+    def call():
+        return decode_attention.paged_decode_attention(*args, scale=0.125)
+    first = call()
+    same = [torch.equal(call(), first) for _ in range(2)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(10)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same += [torch.equal(o, first) for o in outs]
+    zero = int(decode_attention.merge_counters(device, 32).abs().sum()) == 0
+    want = decode_attention.paged_decode_attention_plain(*args, scale=0.125)
+    num_splits = decode_attention.num_splits
+    errs = []
+    try:
+        for n in range(1, 65):
+            decode_attention.num_splits = lambda *a, n=n: n
+            errs.append((call().float() - want.float()).abs().max().item())
+    finally:
+        decode_attention.num_splits = num_splits
+    emit({"phase": "paged_fused_merge", "calls_identical": sum(same),
+          "calls": len(same), "counters_zero": zero,
+          "splits_checked": len(errs), "max_abs_err_over_splits": max(errs),
+          "tol": TOL_KERNEL_BF16})
+    if not (all(same) and zero and max(errs) <= TOL_KERNEL_BF16):
+        raise AssertionError("paged fused merge: eager / graph outputs "
+                             "differ, counters not reset, or a split "
+                             "count disagrees with the twin")
 
 
 def reset_launches():
@@ -420,6 +480,7 @@ def phase_kernels(device):
                 raise AssertionError(f"{kernel} {name}: max abs err {err} "
                                      f"> {tol}")
         torch.cuda.empty_cache()
+    check_paged_fused_merge(device)
     # comparison launches are not main-path launches
     reset_launches()
     return results
@@ -942,14 +1003,18 @@ def decode_bounds(inputs):
                                                            "operations")
 
 
-def flash_bounds(q, k):
+def flash_bounds(q, k, window: int = 0):
     """Least time for the flash kernel's causal work: tensor-core
-    operations 4 * B * Hq * D * sum_q (q + 1 keys) over the bf16 peak, and
-    bytes (q, k, v read once, out written once) over the HBM rate."""
+    operations 4 * B * Hq * D * sum_q min(q + 1, window) keys (the keys
+    each query attends) over the bf16 peak, and bytes (q, k, v read once,
+    out written once) over the HBM rate."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    ops_ms = (4 * b * hq * d * (s * (s + 1) // 2)
-              / PEAK_FLOPS["bfloat16"] * 1e3)
+    if 0 < window < s:
+        keys = window * (window + 1) // 2 + (s - window) * window
+    else:
+        keys = s * (s + 1) // 2
+    ops_ms = (4 * b * hq * d * keys / PEAK_FLOPS["bfloat16"] * 1e3)
     bytes_ms = ((2 * b * s * hq * d + 2 * b * s * hkv * d)
                 * q.element_size() / HBM_BYTES_PER_S * 1e3)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
@@ -1044,7 +1109,7 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
     fl_lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         tq, tk, tv, is_causal=True, scale=spec.scale, enable_gqa=True),
         calls=5, reps=5)
-    fl_bound, fl_by = flash_bounds(fq, fk)
+    fl_bound, fl_by = flash_bounds(fq, fk, spec.sliding_window)
     emit({"phase": "contiguous_timings",
           "decode": {"kernel_us": dec_ms * 1e3, "bound_us": dec_bound * 1e3,
                      "plain_us": dec_plain_ms * 1e3,

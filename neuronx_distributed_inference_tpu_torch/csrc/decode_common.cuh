@@ -1,8 +1,10 @@
-// The split-K one-token decode attention shared by the paged
-// (paged_decode_attention.cu) and the contiguous (decode_attention.cu)
-// kernels: each defines its own partial kernel, which stages a tile of K/V
-// rows in shared memory from its own cache layout and then calls the pieces
-// here; the combine kernel is the same for both.
+// The split-K one-token decode attention of the contiguous kernel
+// (decode_attention.cu), and the helpers the paged kernel
+// (paged_decode_attention.cu, which has its own fused design) shares with
+// it: dtype conversion, 16-byte vectors, warp reductions, the soft-cap.
+// The contiguous kernel defines its own partial kernel, which stages a tile
+// of K/V rows in shared memory from its cache layout and then calls the
+// pieces here; its combine kernel is the one below.
 //
 // A partial block owns one (row, KV head, split): its G = Hq/Hkv query heads
 // share every key it loads. Tiles hold T = 4096/D keys, staged as fp32 rows

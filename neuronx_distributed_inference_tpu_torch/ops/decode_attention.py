@@ -42,8 +42,15 @@ _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
 MAX_GROUP = 16               # query heads per KV head the kernel takes
-_TARGET_BLOCKS = 8 * 132     # split-K blocks: eight per H100 SM
-_MAX_SPLITS = 64             # the combine kernel's shared-memory bound
+_TARGET_BLOCKS = 8 * 132     # contiguous split-K blocks: eight per H100 SM
+# paged split-K blocks: four per SM, rounded down. On the H100 at the
+# paged path's decode shapes the fused kernel took 10.7-11.0 us at 16
+# splits, 11.2-11.3 at 12, 12.6-12.8 at 20 and 13.5-13.6 at 32
+# (scripts/torch_kernel_times.py --paged-splits, PERF.md): fewer, longer
+# shares keep their tiles in flight and leave the merge fewer splits.
+_PAGED_TARGET_BLOCKS = 4 * 132
+_MAX_SPLITS = 64             # the merges' bound: the contiguous combine's
+                             # shared memory, two splits a lane in the paged
 
 
 # ---------------------------------------------------------------------------
@@ -132,24 +139,54 @@ def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def scratch_layout(batch: int, hkv: int, g: int, head_dim: int,
+                   splits: int):
+    """Sizes, in fp32 elements, of the split-K scratch of both kernels: the
+    accumulators (B, Hkv, splits, G, D), then (m, l) per head (B, Hkv,
+    splits, G, 2). Returns (n_acc, n_ml)."""
+    n_acc = batch * hkv * splits * g * head_dim
+    return n_acc, 2 * n_acc // head_dim
+
+
+_COUNTERS = {}
+_MIN_COUNTERS = 4096         # (row, KV head) pairs: batch 512 at Hkv 8
+
+
+def merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The fused paged kernel's arrival counters, one int32 per (row, KV
+    head): a zeroed buffer cached per device, at least ``n`` long. The
+    kernel's merging block puts each counter back to 0, so the buffer stays
+    zeroed from launch to launch (CUDA-graph replays included) and a call
+    launches no memset. Allocated once at the first call (before any graph
+    capture, which has warm-up calls) and grown only for a larger batch;
+    one stream at a time may run the kernel on a device."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
-             *, scale, soft_cap, kv_scale):
-    """Allocate the output and the split-K scratch (acc (B, Hkv, splits,
-    G, D), then (m, l) per head), launch on the current stream, raise on a
-    non-zero return, count the launch on ``wrapper``."""
+             *, scale, soft_cap, kv_scale, counters=None):
+    """Allocate the output and the split-K scratch (:func:`scratch_layout`),
+    launch on the current stream, raise on a non-zero return, count the
+    launch on ``wrapper``. ``counters`` (the fused paged kernel's) go to
+    the kernel right after the scratch."""
     if cache[0].data_ptr() % 16 or cache[1].data_ptr() % 16:
         raise ValueError("the kernel reads the cache in 16-byte vectors: "
                          "the K and V caches must be 16-byte aligned")
     b, hq, d = q.shape
     out = torch.empty_like(q)
-    n_acc = b * hkv * splits * (hq // hkv) * d
-    scratch = torch.empty(n_acc + 2 * n_acc // d, dtype=torch.float32,
-                          device=q.device)
+    n_acc, n_ml = scratch_layout(b, hkv, hq // hkv, d, splits)
+    scratch = torch.empty(n_acc + n_ml, dtype=torch.float32, device=q.device)
+    extra = [] if counters is None else [counters.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), *cache_ptrs,
                 sink.data_ptr() if sink is not None else None,
-                scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc,
+                scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc, *extra,
                 out.data_ptr(), *ints, float(scale),
                 float(soft_cap) if soft_cap is not None else 0.0,
                 float(kv_scale) if kv_scale is not None else 1.0,
@@ -162,14 +199,12 @@ def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
     return out
 
 
-def _splits(batch: int, hkv: int, keys: int, head_dim: int) -> int:
-    """Blocks per (row, KV head) of a split-K kernel: enough for about
-    eight blocks on each of the H100's 132 SMs (a long row then gives each
-    block about one tile), and no more than a row has key tiles (4096 /
-    head_dim keys each), nor than 64. From shapes only, so a wrapper never
-    waits on the device for ``lens``."""
+def _splits(want: int, keys: int, head_dim: int) -> int:
+    """Blocks per (row, KV head) of a split-K kernel: ``want``, but no more
+    than a row of ``keys`` has key tiles (4096 / head_dim keys each), nor
+    than 64, nor fewer than 1. From shapes only, so a wrapper never waits
+    on the device for ``lens``."""
     tiles = -(-keys // (4096 // head_dim))
-    want = -(-_TARGET_BLOCKS // (batch * hkv))
     return max(1, min(want, tiles, _MAX_SPLITS))
 
 
@@ -209,9 +244,11 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
                head_dim: int) -> int:
-    """Blocks per (row, KV head) of the paged kernel, over the table's
-    ``max_blocks * block_size`` keys (see :func:`_splits`)."""
-    return _splits(batch, hkv, max_blocks * block_size, head_dim)
+    """Blocks per (row, KV head) of the paged kernel: about four blocks on
+    each of the H100's 132 SMs (rounded down), within :func:`_splits`'s
+    bounds over the table's ``max_blocks * block_size`` keys."""
+    return _splits(_PAGED_TARGET_BLOCKS // (batch * hkv),
+                   max_blocks * block_size, head_dim)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -227,8 +264,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     block_table (B, max_blocks) int32 (entry 0 = null page). Returns
     (B, Hq, D) in q's dtype.
 
-    CUDA tensors launch ``csrc/paged_decode_attention.cu`` on the current
-    stream and add one to ``paged_decode_attention.launches``; CPU tensors
+    CUDA tensors launch ``csrc/paged_decode_attention.cu`` (one launch:
+    the split-K partials and their merge, through the counters of
+    :func:`merge_counters`) on the current stream and add one to
+    ``paged_decode_attention.launches``; CPU tensors
     run the plain twin. The caller keeps ``lens[b]`` within the row's table
     (the kernel indexes ``block_table[b, kpos // Bs]`` for every live
     ``kpos``)."""
@@ -252,12 +291,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g, mb = q.shape[1] // hkv, block_table.shape[1]
     splits = num_splits(b, hkv, mb, bs, d)
     return _split_k(
-        paged_decode_attention, _kernel_fn("paged_decode_attention", 11, 10),
+        paged_decode_attention, _kernel_fn("paged_decode_attention", 12, 10),
         q, hkv, splits,
         [k_pages.data_ptr(), v_pages.data_ptr(), new_k.data_ptr(),
          new_v.data_ptr(), lens.data_ptr(), block_table.data_ptr()],
         [b, int(layer), n_pages, bs, hkv, g, d, mb, splits, int(window)],
-        sink, (k_pages, v_pages), **kw)
+        sink, (k_pages, v_pages), counters=merge_counters(q.device, b * hkv),
+        **kw)
 
 
 paged_decode_attention.launches = 0
@@ -285,9 +325,11 @@ def decode_attention_stacked_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def contiguous_num_splits(batch: int, hkv: int, seq_len: int,
                           head_dim: int) -> int:
-    """Blocks per (row, KV head) of the contiguous kernel, over a cache
-    row's ``seq_len`` keys (see :func:`_splits`)."""
-    return _splits(batch, hkv, seq_len, head_dim)
+    """Blocks per (row, KV head) of the contiguous kernel: enough for about
+    eight blocks on each of the H100's 132 SMs (a long row then gives each
+    block about one tile), within :func:`_splits`'s bounds over a cache
+    row's ``seq_len`` keys."""
+    return _splits(-(-_TARGET_BLOCKS // (batch * hkv)), seq_len, head_dim)
 
 
 def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,

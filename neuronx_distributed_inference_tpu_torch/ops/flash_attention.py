@@ -9,9 +9,10 @@ reading KV head h // (Hq/Hkv), with an optional static sliding window
 output in q's dtype. Positions are the array indices (the caller admits
 the kernel only for arange positions).
 
-On CUDA tensors :func:`flash_attention` launches the hand-written Hopper
-kernel ``csrc/flash_attention.cu`` (its header says what bounds it on the
-H100 and what the design does about that); on CPU tensors it runs
+On CUDA tensors :func:`flash_attention` launches a hand-written Hopper
+kernel of ``csrc/flash_attention.cu``: for bf16 the tensor-core kernel
+(TMA, wgmma), for fp32 the CUDA-core kernel (its header says what bounds
+them on the H100 and what the designs do about that); on CPU tensors it runs
 :func:`flash_attention_plain`. There is no fall back from one to the
 other."""
 
@@ -28,7 +29,9 @@ from . import attention as attn_ops
 KERNEL_NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_TILE = 64                   # the kernel's query and key tile
+# S must be a multiple of the kernel's query tile: 128 for bf16 (the
+# tensor-core kernel), 64 for fp32 (the CUDA-core kernel)
+_SEQ_TILE = {torch.bfloat16: 128, torch.float32: 64}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,6 +63,28 @@ def _check_inputs(q, k, v):
         raise ValueError("all inputs must be on one device")
 
 
+def check_kernel_shapes(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> None:
+    """Raise on what the kernels do not take (the wrapper checks this before
+    a launch; q/k/v already passed ``_check_inputs``): S a multiple of the
+    dtype's query tile (``_SEQ_TILE``), head_dim 64 or 128, the head dim
+    contiguous, and every row and stride a multiple of 16 bytes (the bf16
+    kernel's TMA boxes and the fp32 kernel's 16-byte loads)."""
+    s, d = q.shape[1], q.shape[3]
+    tile = _SEQ_TILE[q.dtype]
+    if s % tile or d not in _HEAD_DIMS:
+        raise ValueError(f"the kernel takes S a multiple of {tile} for "
+                         f"{q.dtype} and head_dim in {_HEAD_DIMS} (got "
+                         f"S={s}, D={d})")
+    epv = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or any(st % epv for st in t.stride()[:3])):
+            raise ValueError(f"{name}: the kernel reads rows as 16-byte "
+                             "vectors; the head dim must be contiguous and "
+                             "every row 16-byte aligned")
+
+
 def _kernel_fn():
     fn = _build.load(KERNEL_NAME).nxdi_flash_attention
     if fn.argtypes is None:
@@ -78,25 +103,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors launch the kernel on the current stream and add one to
     ``flash_attention.launches``; they must meet the kernel's shape gate
-    (S a multiple of 64, D 64 or 128, 16-byte aligned rows). CPU tensors
-    run :func:`flash_attention_plain`."""
+    (:func:`check_kernel_shapes`). CPU tensors run
+    :func:`flash_attention_plain`."""
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, window=window,
                                      soft_cap=soft_cap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    check_kernel_shapes(q, k, v)
     b, s, hq, d = q.shape
-    if s % _TILE or d not in _HEAD_DIMS:
-        raise ValueError(f"the kernel takes S a multiple of {_TILE} and "
-                         f"head_dim in {_HEAD_DIMS} (got S={s}, D={d})")
-    epv = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(3) != 1 or t.data_ptr() % 16
-                or any(st % epv for st in t.stride()[:3])):
-            raise ValueError(f"{name}: the kernel reads rows as 16-byte "
-                             "vectors; the head dim must be contiguous and "
-                             "every row 16-byte aligned")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, out)
                                       for st in t.stride()[:3]))
@@ -108,8 +124,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             float(scale), float(soft_cap) if soft_cap is not None else 0.0,
             _DTYPES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed "
-                           f"(cudaError {rc})")
+        why = {-2: "the driver offers no cuTensorMapEncodeTiled",
+               -3: "the driver refused a TMA tensor map"}.get(
+                   rc, f"cudaError {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({why})")
     flash_attention.launches += 1
     return out
 

@@ -4,7 +4,11 @@ kernel (run in interpret mode, as tests/test_decode_attention.py runs it).
 On the CPU the port's wrapper runs its plain twin
 (``paged_decode_attention_plain``); fp32 at rtol=atol=2e-5, the JAX
 kernel tests' own tolerance. The CUDA kernel itself is compared with the
-twin by the ``cuda``-marked test below, which runs only on the card."""
+twin by the ``cuda``-marked tests below, which run only on the card: the
+case matrix, then the fused kernel's own risks (its merge counters under
+repeated calls and CUDA-graph replay, every split count, a zero-length row
+beside a long one, fp8 pages, window + sink at serving shapes). On the CPU
+the wrapper's host logic is pinned: the scratch layout and the counters."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +157,139 @@ def test_cuda_kernel_matches_plain_twin(name):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
     assert tda.paged_decode_attention.launches == before + len(layers)
+
+
+def test_scratch_layout():
+    """acc (B, Hkv, splits, G, D) then (m, l) per head, in fp32 elements."""
+    assert tda.scratch_layout(4, 8, 4, 64, 32) == (4 * 8 * 32 * 4 * 64,
+                                                   4 * 8 * 32 * 4 * 2)
+    assert tda.scratch_layout(1, 1, 1, 128, 1) == (128, 2)
+
+
+@pytest.mark.parametrize("batch,hkv,max_blocks,block_size,d,want", [
+    (4, 8, 64, 32, 64, 16),     # the paged path's decode shapes
+    (1, 8, 64, 32, 64, 32),     # capped by the table's 32 tiles of 64 keys
+    (1, 1, 512, 32, 128, 64),   # capped at 64
+    (64, 8, 64, 32, 64, 1),     # a large batch: one block per (row, head)
+    (8, 8, 4, 32, 128, 4),      # a short table: 128 keys, tiles of 32
+])
+def test_num_splits_from_shapes(batch, hkv, max_blocks, block_size, d, want):
+    """Splits of the paged kernel: about four blocks per SM of 132, at most
+    one per tile of 4096 / D keys, at most 64; shapes only (no sync)."""
+    assert tda.num_splits(batch, hkv, max_blocks, block_size, d) == want
+
+
+def test_merge_counters_cached_zeroed_and_grown():
+    """One zeroed int32 counter per (row, KV head), cached per device (a
+    call launches no memset), grown only past its size."""
+    dev = torch.device("cpu")
+    tda._COUNTERS.pop(dev, None)
+    a = tda.merge_counters(dev, 32)
+    assert a.dtype == torch.int32 and a.numel() >= 32
+    assert int(a.abs().sum()) == 0
+    assert tda.merge_counters(dev, 32) is a
+    assert tda.merge_counters(dev, a.numel()) is a
+    big = tda.merge_counters(dev, a.numel() + 1)
+    assert big is not a and big.numel() == a.numel() + 1
+    assert int(big.abs().sum()) == 0
+    tda._COUNTERS.pop(dev, None)
+
+
+def _cuda_inputs(name, lens, *, d=64, page_dtype=None, kv_scale=None):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    inp = _case(rng, hq=32, hkv=8, d=d, bs=32, mb=64, lens=lens,
+                page_dtype=page_dtype, kv_scale=kv_scale)
+    return {k: tensor_from_numpy(v, torch.device("cuda"))
+            for k, v in inp.items()}, rng
+
+
+def _call(t, **kw):
+    return tda.paged_decode_attention(
+        *(t[k] for k in ARGS), 0, t["lens"], t["block_table"], **kw)
+
+
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m cuda)")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_merge_resets_its_counters():
+    """The same call 3 times eagerly, then 10 times inside one CUDA graph
+    replayed twice: every output equals the first (the merging block puts
+    its counter back to 0, so no call sees a stale count), and each call
+    is one launch."""
+    _skip_without_card()
+    t, _ = _cuda_inputs("repeat", (100, 363, 963, 1563))
+    kw = dict(scale=0.125)
+    before = tda.paged_decode_attention.launches
+    first = _call(t, **kw)
+    for _ in range(2):
+        assert torch.equal(_call(t, **kw), first)
+    assert tda.paged_decode_attention.launches == before + 3
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _call(t, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [_call(t, **kw) for _ in range(10)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            assert torch.equal(o, first)
+    assert int(tda._COUNTERS[first.device].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_every_split_count(monkeypatch):
+    """Splits 1 .. 64 (the wrapper's bound) over rows of 0 to 2047 keys:
+    the kernel against the twin each time (fp32: 1e-4)."""
+    _skip_without_card()
+    t, _ = _cuda_inputs("splits", (0, 31, 777, 2047))
+    want = tda.paged_decode_attention_plain(
+        *(t[k] for k in ARGS), 0, t["lens"], t["block_table"], scale=0.125)
+    for n in range(1, 65):
+        monkeypatch.setattr(tda, "num_splits", lambda *a, n=n: n)
+        got = _call(t, scale=0.125)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-4, (n, err)
+
+
+CUDA_CASES = {
+    "zero_len_beside_long": dict(lens=(0, 2000)),
+    "fp8_e4m3_kv_scale": dict(lens=(70, 1300), page_dtype="float8_e4m3fn",
+                              kv_scale=0.5),
+    "window100_sink": dict(lens=(50, 1500), window=100, sink=True),
+    "d128_window_sink_softcap": dict(lens=(5, 999), d=128, window=300,
+                                     sink=True, soft_cap=5.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
+def test_cuda_serving_shapes_match_plain_twin(name):
+    """Llama-3.2-1B / 3.1-8B heads (32 q, 8 kv) over a 64-page table: the
+    kernel against the twin on the card (fp32: 1e-4)."""
+    _skip_without_card()
+    spec = dict(CUDA_CASES[name])
+    page_dtype = spec.pop("page_dtype", None)
+    t, rng = _cuda_inputs(name, spec.pop("lens"), d=spec.pop("d", 64),
+                          page_dtype=(None if page_dtype is None
+                                      else jnp.dtype(page_dtype)),
+                          kv_scale=spec.get("kv_scale"))
+    d = t["q"].shape[-1]
+    kw = dict(scale=d ** -0.5, window=spec.get("window", 0),
+              soft_cap=spec.get("soft_cap"), kv_scale=spec.get("kv_scale"))
+    if spec.get("sink"):
+        kw["sink"] = torch.from_numpy(
+            rng.standard_normal(32).astype(np.float32)).cuda()
+    got = _call(t, **kw)
+    torch.cuda.synchronize()
+    want = tda.paged_decode_attention_plain(
+        *(t[k] for k in ARGS), 0, t["lens"], t["block_table"], **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
