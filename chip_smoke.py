@@ -12,7 +12,10 @@ nvcc per source, all started together), then:
   2. each kernel against its plain-PyTorch twin on the card, over the case
      matrix of the TPU kernel's tests, at the serving paths' shapes: the
      paged decode kernel, the contiguous decode kernel and the flash
-     prefill kernel;
+     prefill kernel; then each decode kernel's fused merge: 23 calls,
+     eager and under CUDA-graph replay, give one output bit for bit, the
+     merge counters end at 0, and every split count 1-64 agrees with the
+     twin;
   3. the paged path, bf16, Llama-3.2-1B geometry at full depth with random
      weights from seed 0: ``PagedCausalLMApplication.generate`` of 64 new
      tokens for 4 prompts; the paged kernel's launches must equal layers x
@@ -331,6 +334,11 @@ def decode_cases(device):
         gen, device, d=128, act_dtype=torch.bfloat16,
         cache_dtype=torch.float8_e4m3fn, kv_scale=0.5, **mk),
         dict(scale=128 ** -0.5, kv_scale=0.5), TOL_KERNEL_BF16))
+    # S not a multiple of a 16-byte piece's keys: K loaded key by key
+    cases.append(("s4095_bf16", contiguous_inputs(
+        gen, device, d=128, act_dtype=torch.bfloat16,
+        cache_dtype=torch.bfloat16, **dict(mk, s=MISTRAL_SEQ - 1)),
+        dict(scale=128 ** -0.5, window=1024), TOL_KERNEL_BF16))
     return cases
 
 
@@ -399,23 +407,14 @@ def check_flash_against_twin(inputs, kw):
     return (got.float() - want.float()).abs().max().item()
 
 
-def check_paged_fused_merge(device):
-    """The fused paged kernel's merge, at the paged path's decode shapes:
-    the same call 3 times eagerly and 10 times in one CUDA graph replayed
-    twice give the first output bit for bit (the merging block puts its
-    counter back to 0), the counters end at 0, and every split count 1 to
-    64 agrees with the twin."""
+def check_fused_merge(phase, call, plain, splits_attr):
+    """A fused decode kernel's merge: ``call()`` 3 times eagerly and 10
+    times in one CUDA graph replayed twice gives the first output bit for
+    bit (the merging block puts its counter back to 0), the counters end
+    at 0, and every split count 1 to 64 (the wrapper's ``splits_attr``
+    overridden) agrees with ``plain()``, the twin."""
     import torch
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention
-    gen = torch.Generator(device=device).manual_seed(6)
-    x = paged_inputs(gen, device, b=4, hq=32, hkv=8, d=64, bs=32, mb=64,
-                     lens=[100, 363, 963, 1563], act_dtype=torch.bfloat16,
-                     page_dtype=torch.bfloat16)
-    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
-            x["lens"], x["block_table"])
-
-    def call():
-        return decode_attention.paged_decode_attention(*args, scale=0.125)
     first = call()
     same = [torch.equal(call(), first) for _ in range(2)]
     side = torch.cuda.Stream()
@@ -430,24 +429,58 @@ def check_paged_fused_merge(device):
         graph.replay()
         torch.cuda.synchronize()
         same += [torch.equal(o, first) for o in outs]
-    zero = int(decode_attention.merge_counters(device, 32).abs().sum()) == 0
-    want = decode_attention.paged_decode_attention_plain(*args, scale=0.125)
-    num_splits = decode_attention.num_splits
+    zero = int(decode_attention.merge_counters(first.device, 32).abs()
+               .sum()) == 0
+    want = plain()
+    num_splits = getattr(decode_attention, splits_attr)
     errs = []
     try:
         for n in range(1, 65):
-            decode_attention.num_splits = lambda *a, n=n: n
+            setattr(decode_attention, splits_attr, lambda *a, n=n: n)
             errs.append((call().float() - want.float()).abs().max().item())
     finally:
-        decode_attention.num_splits = num_splits
-    emit({"phase": "paged_fused_merge", "calls_identical": sum(same),
+        setattr(decode_attention, splits_attr, num_splits)
+    emit({"phase": phase, "calls_identical": sum(same),
           "calls": len(same), "counters_zero": zero,
           "splits_checked": len(errs), "max_abs_err_over_splits": max(errs),
           "tol": TOL_KERNEL_BF16})
     if not (all(same) and zero and max(errs) <= TOL_KERNEL_BF16):
-        raise AssertionError("paged fused merge: eager / graph outputs "
-                             "differ, counters not reset, or a split "
-                             "count disagrees with the twin")
+        raise AssertionError(f"{phase}: eager / graph outputs differ, "
+                             "counters not reset, or a split count "
+                             "disagrees with the twin")
+
+
+def check_fused_merges(device):
+    """Both decode kernels' fused merges (:func:`check_fused_merge`), each
+    at its main path's decode shapes: paged B 4, Hq 32, Hkv 8, D 64, lens
+    100/363/963/1563; contiguous B 4, Hq 32, Hkv 8, D 128, S 4096, lens
+    100/363/963/1963; bf16."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = paged_inputs(gen, device, b=4, hq=32, hkv=8, d=64, bs=32, mb=64,
+                     lens=[100, 363, 963, 1563], act_dtype=torch.bfloat16,
+                     page_dtype=torch.bfloat16)
+    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+            x["lens"], x["block_table"])
+    check_fused_merge(
+        "paged_fused_merge",
+        lambda: decode_attention.paged_decode_attention(*args, scale=0.125),
+        lambda: decode_attention.paged_decode_attention_plain(*args,
+                                                              scale=0.125),
+        "num_splits")
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = contiguous_inputs(gen, device, b=4, hq=32, hkv=8, d=128,
+                          s=MISTRAL_SEQ, lens=[100, 363, 963, 1963],
+                          act_dtype=torch.bfloat16,
+                          cache_dtype=torch.bfloat16)
+    cargs, kw = decode_args(x, dict(scale=128 ** -0.5))
+    check_fused_merge(
+        "contiguous_fused_merge",
+        lambda: decode_attention.decode_attention_stacked(*cargs, **kw),
+        lambda: decode_attention.decode_attention_stacked_plain(*cargs,
+                                                                **kw),
+        "contiguous_num_splits")
 
 
 def reset_launches():
@@ -480,7 +513,7 @@ def phase_kernels(device):
                 raise AssertionError(f"{kernel} {name}: max abs err {err} "
                                      f"> {tol}")
         torch.cuda.empty_cache()
-    check_paged_fused_merge(device)
+    check_fused_merges(device)
     # comparison launches are not main-path launches
     reset_launches()
     return results
@@ -698,6 +731,28 @@ def sdpa_inputs(inputs, layer):
     mask = (pos <= lens[:, None])[:, None, None, :]
     return (inputs["q"][:, :, None, :], k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), mask)
+
+
+def contiguous_sdpa_inputs(inputs, layer, window=0):
+    """The contiguous decode attention for ``scaled_dot_product_attention``
+    (no sink, soft-cap or kv_scale; each lens[b] < S): K and V of layer
+    ``layer`` as (B, Hkv, S, D) copies with the last dimension contiguous
+    (SDPA's fused backends need stride(-1) == 1; the cache holds K
+    transposed), the active token at slot lens[b], and a boolean mask of
+    the keys at or before it (within ``window`` when it is > 0)."""
+    import torch
+    k = inputs["k_cache"][layer].transpose(2, 3).contiguous()
+    v = inputs["v_cache"][layer].clone()
+    b, s = k.shape[0], k.shape[2]
+    rows = torch.arange(b, device=k.device)
+    lens = inputs["lens"].long()
+    k[rows, :, lens] = inputs["new_k"].to(k.dtype)
+    v[rows, :, lens] = inputs["new_v"].to(v.dtype)
+    pos = torch.arange(s, device=k.device)[None, :]
+    live = pos <= lens[:, None]
+    if window > 0:
+        live &= lens[:, None] - pos < window
+    return inputs["q"][:, :, None, :], k, v, live[:, None, None, :]
 
 
 def device_kernels(fn):
@@ -1073,16 +1128,9 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
     dec_plain_ms = time_cuda(
         lambda: decode_attention.decode_attention_stacked_plain(*args, **kw),
         calls=10)
-    # SDPA over the contiguous cache with the active token at slot lens[b]
-    kk = app.cache["k"][layer].transpose(2, 3).clone()     # (B, H, S, D)
-    vv = app.cache["v"][layer].clone()
-    rows = torch.arange(b, device=device)
-    lens_l = dec["lens"].long()
-    kk[rows, :, lens_l] = dec["new_k"]
-    vv[rows, :, lens_l] = dec["new_v"]
-    smask = (torch.arange(MISTRAL_SEQ, device=device)[None, :]
-             <= lens_l[:, None])[:, None, None, :]
-    q4 = dec["q"][:, :, None, :]
+    # SDPA over D-contiguous copies of the layer, active token at lens[b]
+    q4, kk, vv, smask = contiguous_sdpa_inputs(dec, layer,
+                                               spec.sliding_window)
     dec_lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q4, kk, vv, attn_mask=smask, scale=spec.scale, enable_gqa=True))
     del kk, vv

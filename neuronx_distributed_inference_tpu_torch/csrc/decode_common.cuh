@@ -1,20 +1,27 @@
-// The split-K one-token decode attention of the contiguous kernel
-// (decode_attention.cu), and the helpers the paged kernel
-// (paged_decode_attention.cu, which has its own fused design) shares with
-// it: dtype conversion, 16-byte vectors, warp reductions, the soft-cap.
-// The contiguous kernel defines its own partial kernel, which stages a tile
-// of K/V rows in shared memory from its cache layout and then calls the
-// pieces here; its combine kernel is the one below.
+// What the two one-token decode kernels share: the paged kernel
+// (paged_decode_attention.cu) and the contiguous kernel
+// (decode_attention.cu) have one design and differ in how a tile's K and V
+// rows are addressed and laid out in shared memory, and in the tile size
+// of their tensor-core path.
 //
-// A partial block owns one (row, KV head, split): its G = Hq/Hkv query heads
-// share every key it loads. Tiles hold T = 4096/D keys, staged as fp32 rows
-// of D + 1 floats (padded against bank conflicts), dead keys as 0. Per tile
-// a block computes the G x T scores, updates a per-head online max / sum and
-// the G x D accumulator; at the end it writes (m, l, acc) to scratch. The
-// combine kernel, one block per (KV head, row), turns each split's (m, l)
-// into one weight per head, merges the splits' accumulators with them,
-// folds in the active token (new_k/new_v, never read from the cache) and
-// the sink, and stores in q's dtype.
+// The design: one launch, grid (splits, Hkv, B). A block owns one (row, KV
+// head, split): its G = Hq/Hkv query heads share every key it loads. Each
+// block takes an equal share of its row's live keys (share_of); a block
+// whose share is empty exits at once. It walks its share in tiles, copied
+// with cp.async into a ring in the cache's own dtype (16-byte pieces,
+// XOR-swizzled by row: SwzRows), two tiles in flight while one is used, one
+// block barrier a tile. The tile math runs on the tensor cores for bf16
+// caches with bf16 queries (load_q_frags, each kernel's tile update,
+// mma_write_split) and on the CUDA cores otherwise (simt_update,
+// simt_write_split). The combine is fused (merge_tail): a block writes its
+// split's (m, l, acc) and counts itself on its (row, KV head)'s counter;
+// the last block with keys merges the splits with the active token and the
+// sink and resets the counter to 0.
+//
+// Here: dtype conversion, 16-byte vectors, warp reductions, the soft-cap,
+// the cp.async / ldmatrix / mma.sync wrappers, the swizzled row layout,
+// the share rule, the CUDA-core tile update, the split write-outs, the
+// fused merge and the launch helpers.
 
 #pragma once
 
@@ -32,6 +39,7 @@ constexpr int NT = 128;                     // threads per block
 constexpr int NW = NT / 32;
 constexpr int MAX_G = 16;
 constexpr int MAX_SPLITS = 64;
+constexpr int PT = 32;   // keys a tile (paged; contiguous CUDA cores)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -71,215 +79,450 @@ __device__ __forceinline__ float cap(float s, float soft_cap) {
   return soft_cap > 0.f ? soft_cap * tanhf(s / soft_cap) : s;
 }
 
-// Shared memory and accumulators of one partial block.
-template <int D, int GMAX>
-struct Partial {
-  static constexpr int T = 4096 / D;              // keys per tile
-  static constexpr int DP = D + 1;                // padded row
-  static constexpr int OPT = (GMAX * D + NT - 1) / NT;   // outputs/thread
-  float* sK;                                      // T x DP
-  float* sV;                                      // T x DP
-  float* sQ;                                      // GMAX x D
-  float* sP;                                      // GMAX x T
-  float* sM;
-  float* sL;
-  float* sA;
-  float acc[OPT];
+// ---------------------------------------------------------------------------
+// cp.async, ldmatrix, mma.sync
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the newest N groups have landed (for this thread)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+// the rounding error of pack_bf16(lo, hi), itself packed
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi,
+                                                   uint32_t packed) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&packed);
+  return pack_bf16(lo - __low2float(x), hi - __high2float(x));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c (16 x 8, fp32) += a (16 x 16) b (16 x 8), bf16
+__device__ __forceinline__ void mma_16816(float (&c)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c (16 x 8, fp32) += a (16 x 8) b (8 x 8), bf16
+__device__ __forceinline__ void mma_1688(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+      "%3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// ---------------------------------------------------------------------------
+// Tile layout and shares
+// ---------------------------------------------------------------------------
+
+// Rows of ROW bytes in shared memory, cut in 16-byte pieces. Piece c of
+// row r sits at piece c ^ swz(r) of the row: any 8 consecutive rows' piece
+// c then fall in 8 distinct 16-byte bank groups (conflict-free ldmatrix
+// and 16-byte reads with no padding). A 128-byte bank line holds RPL rows.
+template <int ROW>
+struct SwzRows {
+  static_assert(ROW % 16 == 0, "rows of 16-byte pieces");
+  static constexpr int ROW_BYTES = ROW;
+  static constexpr int CPR = ROW / 16;                   // pieces per row
+  static constexpr int RPL = ROW < 128 ? 128 / ROW : 1;  // rows per line
+  static constexpr int MASK = (CPR < 8 ? CPR : 8) - 1;
+  // byte offset of piece c of row r
+  static __device__ __forceinline__ int at(int r, int c) {
+    return r * ROW + ((c ^ ((r / RPL) & MASK)) << 4);
+  }
+  // at(r0 + j STEP, c) for r0 >= 0: a step of whole swizzle periods only
+  // moves the row
+  template <int STEP>
+  static __device__ __forceinline__ int at_step(int r0, int c, int j) {
+    if constexpr (STEP % (RPL * (MASK + 1)) == 0)
+      return at(r0, c) + j * STEP * ROW;
+    else
+      return at(r0 + j * STEP, c);
+  }
 };
 
-// The group's query rows (zero-padded to GMAX heads) into sQ; (m, l, acc)
-// = (NEG_INF, 0, 0), which an empty share keeps: weight 0 in the combine.
-// Ends before a barrier the caller places.
-template <int D, int GMAX>
-__device__ __forceinline__ void begin_partial(Partial<D, GMAX>& st,
-                                              const void* q, int64_t q_off,
-                                              int g, int q_bf16) {
-  for (int i = threadIdx.x; i < GMAX * D; i += NT)
-    st.sQ[i] = i / D < g ? load_act(q, q_off + i, q_bf16) : 0.f;
-  if (threadIdx.x < GMAX) {
-    st.sM[threadIdx.x] = NEG_INF;
-    st.sL[threadIdx.x] = 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < Partial<D, GMAX>::OPT; ++k) st.acc[k] = 0.f;
+// What every block of a (row, KV head, split) works out first.
+struct Share {
+  int lo, hi;        // its live keys [lo, hi)
+  int t0;            // the first key of its first tile (t0 <= lo)
+  int n_part;        // the row's blocks with keys (at least 1)
+  int n_tiles;
+};
+
+// Live keys: kpos < pos strictly (the active token is not read from the
+// cache) and, with a window, pos - kpos < window. The keys from `base`
+// (the first live key rounded down to a multiple of `align`) to pos are
+// cut in equal shares of at least `min_share` keys, each a multiple of
+// `align` (so a tile's K pieces start aligned); a short row leaves its
+// surplus blocks empty. The blocks with keys are the first n_part (a row
+// with none keeps block 0, for its merge). Tiles of TK keys.
+template <int TK = PT>
+__device__ __forceinline__ Share share_of(int pos, int window, int split,
+                                          int nsplit, int min_share,
+                                          int align) {
+  Share sh;
+  const int kstart = window > 0 ? max(pos - window + 1, 0) : 0;
+  const int base = kstart - kstart % align;
+  const int n = max(pos - base, 0);
+  int per = max((n + nsplit - 1) / nsplit, min_share);
+  per = (per + align - 1) / align * align;
+  sh.t0 = base + split * per;
+  sh.lo = max(sh.t0, kstart);
+  sh.hi = min(sh.t0 + per, pos);
+  sh.n_part = max((n + per - 1) / per, 1);
+  sh.n_tiles = sh.hi > sh.lo ? (sh.hi - sh.t0 + TK - 1) / TK : 0;
+  return sh;
 }
 
-// One staged tile (after a barrier): keys [t_lo, t_hi) of its T are live
-// (at least one), the rest were staged as 0. Scores, online softmax, and
-// acc = acc * alpha + P V. Ends with a barrier, so the caller may stage
-// the next tile.
-template <int D, int GMAX>
-__device__ __forceinline__ void tile_update(Partial<D, GMAX>& st, int g,
-                                            int t_lo, int t_hi, float scale,
-                                            float soft_cap) {
-  constexpr int T = Partial<D, GMAX>::T;
-  constexpr int DP = Partial<D, GMAX>::DP;
-  constexpr int GSTEP = NT / T;             // heads one score pass covers
-  static_assert(NT % T == 0, "tile shape");
+// ---------------------------------------------------------------------------
+// Tile math
+// ---------------------------------------------------------------------------
+
+// Q as m16n8k16 A fragments: rows = query heads (0 past g); lane holds rows
+// lane / 4 and lane / 4 + 8
+template <int D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4],
+                                             const __nv_bfloat16* qh,
+                                             int g) {
+  const int gr = (threadIdx.x % 32) / 4;
+  const int tq = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = gr + 8 * (r & 1);
+      const int col = 16 * kk + 2 * tq + 8 * (r >> 1);
+      qa[kk][r] = row < g ? *reinterpret_cast<const uint32_t*>(
+                                qh + (int64_t)row * D + col)
+                          : 0u;
+    }
+}
+
+// The four warps' (m, l, O) into the block's split `part` of the scratch
+// (acc times kv_scale), through shared memory: `ring` (the ring, free once
+// the caller's loop is done) must hold NW x 16 x D floats.
+template <int D>
+__device__ __forceinline__ void mma_write_split(
+    float (&m)[2], float (&l)[2], const float (&o)[D / 8][4], char* ring,
+    float (&sM)[NW][16], float (&sL)[NW][16], float* part_acc,
+    float* part_ml, int64_t part, int g, float kv_scale) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-
-  // 1. scores of (head, key) pairs: a warp holds one head, 32 keys
-  {
-    const int t = tid % T;
-    const bool live = t >= t_lo && t < t_hi;
-    for (int gg = tid / T; gg < g; gg += GSTEP) {
-      float s = NEG_INF;
-      if (live) {
-        const float* qr = st.sQ + gg * D;
-        const float* kk = st.sK + t * DP;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot += qr[d] * kk[d];
-        s = cap(dot * scale, soft_cap);
-      }
-      st.sP[gg * T + t] = s;
-    }
-  }
-  __syncthreads();
-
-  // 2. online softmax: warp w owns heads w, w + NW, ... (the tile max is
-  //    finite, so dead keys get p = 0)
-  for (int gg = warp; gg < g; gg += NW) {
-    float* pr = st.sP + gg * T;
-    float mx = NEG_INF;
-    for (int t = lane; t < T; t += 32) mx = fmaxf(mx, pr[t]);
-    mx = warp_max(mx);
-    const float m_old = st.sM[gg];
-    const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-    for (int t = lane; t < T; t += 32) {
-      const float p = expf(pr[t] - m_new);
-      pr[t] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float alpha = expf(m_old - m_new);
-      st.sA[gg] = alpha;
-      st.sL[gg] = st.sL[gg] * alpha + sum;
-      st.sM[gg] = m_new;
-    }
-  }
-  __syncthreads();
-
-  // 3. acc = acc * alpha + P V: a thread owns (head, d) outputs
+  const int gr = lane / 4;
+  const int tq = lane % 4;
 #pragma unroll
-  for (int k = 0; k < Partial<D, GMAX>::OPT; ++k) {
-    const int idx = tid + k * NT;
-    const int gg = idx / D;
-    if (gg < g) {
-      const int d = idx % D;
-      const float* pr = st.sP + gg * T;
-      float a = st.acc[k] * st.sA[gg];
-      for (int t = t_lo; t < t_hi; ++t) a += pr[t] * st.sV[t * DP + d];
-      st.acc[k] = a;
-    }
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  __syncthreads();
-}
-
-// (m, l, acc) of split `part` = ((b * hkv + h) * nsplit + split).
-template <int D, int GMAX>
-__device__ __forceinline__ void end_partial(const Partial<D, GMAX>& st,
-                                            float* part_acc, float* part_ml,
-                                            int64_t part, int g) {
-  float* pa = part_acc + part * g * D;
+  __syncthreads();                             // the ring is free
+  float* sO = reinterpret_cast<float*>(ring);  // [NW][16][D]
+  if (tq == 0) {
+    sM[warp][gr] = m[0];
+    sM[warp][gr + 8] = m[1];
+    sL[warp][gr] = l[0];
+    sL[warp][gr + 8] = l[1];
+  }
 #pragma unroll
-  for (int k = 0; k < Partial<D, GMAX>::OPT; ++k) {
-    const int idx = threadIdx.x + k * NT;
-    if (idx < g * D) pa[idx] = st.acc[k];
-  }
-  if (threadIdx.x < g) {
-    part_ml[(part * g + threadIdx.x) * 2] = st.sM[threadIdx.x];
-    part_ml[(part * g + threadIdx.x) * 2 + 1] = st.sL[threadIdx.x];
-  }
-}
-
-// grid (Hkv, B). q/out (B, Hq, D) and new_k/new_v (B, Hkv, D) in q's dtype
-// (q_bf16); sink (Hq,) fp32 or null; part_acc (B, Hkv, splits, G, D) and
-// part_ml (B, Hkv, splits, G, 2) from the partial kernel.
-__global__ void __launch_bounds__(NT)
-decode_combine(const void* __restrict__ q, const void* __restrict__ new_k,
-               const void* __restrict__ new_v, const float* __restrict__ sink,
-               const float* __restrict__ part_acc,
-               const float* __restrict__ part_ml, void* __restrict__ out,
-               int hkv, int g, int head_dim, int nsplit, float scale,
-               float soft_cap, int q_bf16) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int D = head_dim;
-  const int hq = hkv * g;
-  const int ns = nsplit * g;
-  __shared__ float sSa[MAX_G], sMt[MAX_G], sDen[MAX_G];
-  __shared__ float sW[MAX_SPLITS * MAX_G];   // split max, then its weight
-  __shared__ float sL[MAX_SPLITS * MAX_G];
-
-  const int64_t part0 = ((int64_t)b * hkv + h) * nsplit;
-  const float* pm = part_ml + part0 * g * 2;
-  const float* pa = part_acc + part0 * g * D;
-  for (int i = tid; i < ns; i += NT) {
-    sW[i] = pm[2 * i];
-    sL[i] = pm[2 * i + 1];
-  }
-  // active-token scores (new_k in q's dtype, no kv_scale)
-  const int64_t kv_row = ((int64_t)b * hkv + h) * D;
-  for (int gg = warp; gg < g; gg += NW) {
-    const int64_t q_row = ((int64_t)b * hq + h * g + gg) * D;
-    float part = 0.f;
-    for (int d = lane; d < D; d += 32)
-      part += load_act(q, q_row + d, q_bf16) *
-              load_act(new_k, kv_row + d, q_bf16);
-    const float sc = cap(warp_sum(part) * scale, soft_cap);
-    if (lane == 0) sSa[gg] = sc;
-  }
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sO[(warp * 16 + gr + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] =
+          o[n][e];
   __syncthreads();
-
-  if (tid < g) {
-    // the sink raises the running max before the final rescale
-    float mt = sSa[tid];
-    for (int s = 0; s < nsplit; ++s) mt = fmaxf(mt, sW[s * g + tid]);
-    float sk = 0.f;
-    if (sink != nullptr) {
-      sk = sink[h * g + tid];
-      mt = fmaxf(mt, sk);
-    }
-    float den = expf(sSa[tid] - mt);
-    for (int s = 0; s < nsplit; ++s)
-      den += sL[s * g + tid] * expf(sW[s * g + tid] - mt);
-    if (sink != nullptr) den += expf(sk - mt);
-    sMt[tid] = mt;
-    sDen[tid] = den;
-  }
-  __syncthreads();
-  for (int i = tid; i < ns; i += NT) {
-    const int gg = i % g;
-    sW[i] = expf(sW[i] - sMt[gg]) / sDen[gg];
-  }
-  __syncthreads();
-
   for (int idx = tid; idx < g * D; idx += NT) {
     const int gg = idx / D;
-    const int d = idx % D;
-    float a = expf(sSa[gg] - sMt[gg]) / sDen[gg] *
-              load_act(new_v, kv_row + d, q_bf16);
-#pragma unroll 8
-    for (int s = 0; s < nsplit; ++s)
-      a += sW[s * g + gg] * pa[(int64_t)s * g * D + idx];
-    const int64_t oi = ((int64_t)b * hq + h * g) * D + idx;
-    if (q_bf16)
-      reinterpret_cast<__nv_bfloat16*>(out)[oi] = __float2bfloat16(a);
-    else
-      reinterpret_cast<float*>(out)[oi] = a;
+    float mm = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, sM[w][gg]);
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      a += sO[(w * 16 + gg) * D + idx % D] * expf(sM[w][gg] - mm);
+    part_acc[part * g * D + idx] = a * kv_scale;
+  }
+  if (tid < g) {
+    float mm = NEG_INF, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, sM[w][tid]);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) ll += sL[w][tid] * expf(sM[w][tid] - mm);
+    part_ml[(part * g + tid) * 2] = mm;
+    part_ml[(part * g + tid) * 2 + 1] = ll;
   }
 }
 
+// One query head of a warp, on the CUDA cores: `s` is the score of the
+// tile's key `lane` (NEG_INF when dead), the head's online softmax (m, l)
+// moves on and acc += p V over the tile's live keys [tlo, thi), lane owning
+// output columns lane * D/32 ..; V: PT rows of D TKV at vt, laid out as
+// SwzRows<D * sizeof(TKV)>.
+template <typename TKV, int D>
+__device__ __forceinline__ void simt_update(float s, float& m, float& l,
+                                            float (&acc)[D / 32],
+                                            const char* vt, int tlo,
+                                            int thi) {
+  using VT = SwzRows<D * (int)sizeof(TKV)>;
+  constexpr int DPL = D / 32;
+  const int lane = threadIdx.x % 32;
+  const float m_new = fmaxf(m, warp_max(s));
+  const float alpha = expf(m - m_new);
+  const float p = expf(s - m_new);             // dead keys: 0
+  l = l * alpha + warp_sum(p);
+  m = m_new;
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) acc[e] *= alpha;
+  constexpr int LB = DPL * (int)sizeof(TKV);   // bytes per lane
+  const int vc = lane * LB / 16;               // its piece, byte
+  const int vb = lane * LB % 16;
+#pragma unroll 8
+  for (int t = tlo; t < thi; ++t) {
+    const float pt = __shfl_sync(0xffffffffu, p, t);
+    const TKV* vr = reinterpret_cast<const TKV*>(vt + VT::at(t, vc) + vb);
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[e] += pt * to_f(vr[e]);
+  }
+}
+
+// The split's (m, l) and acc (times kv_scale) of each head a warp owns
+// (heads warp, warp + NW, ...; acc = 0, l = 0 for an empty share).
+template <int D, int HPW>
+__device__ __forceinline__ void simt_write_split(
+    const float (&m)[HPW], const float (&l)[HPW],
+    const float (&acc)[HPW][D / 32], float* part_acc, float* part_ml,
+    int64_t part, int g, float kv_scale) {
+  constexpr int DPL = D / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    const int gg = warp + j * NW;
+    if (gg >= g) break;
+    if (lane == 0) {
+      part_ml[(part * g + gg) * 2] = m[j];
+      part_ml[(part * g + gg) * 2 + 1] = l[j];
+    }
+    float* pa = part_acc + (part * g + gg) * D + lane * DPL;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) pa[e] = acc[j][e] * kv_scale;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused merge
+// ---------------------------------------------------------------------------
+
+// DPL consecutive fp32 of the scratch, past L1 (written by other blocks)
+template <int DPL>
+__device__ __forceinline__ void ldcg_cols(float (&r)[DPL], const float* p) {
+  static_assert(DPL == 2 || DPL == 4, "D / 32 columns a lane");
+  if constexpr (DPL == 2) {
+    const float2 x = __ldcg(reinterpret_cast<const float2*>(p));
+    r[0] = x.x;
+    r[1] = x.y;
+  } else {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+    r[0] = x.x;
+    r[1] = x.y;
+    r[2] = x.z;
+    r[3] = x.w;
+  }
+}
+
+// The active token's query, key and value columns for the merge, loaded
+// when a block starts (they need no other block, so the loads are in
+// flight with its tiles; the dot products wait for the merge): warp w
+// holds heads w, w + NW, ...; lane holds columns lane * D/32 ..
+template <int D, int GMAX>
+struct Active {
+  float q[(GMAX + NW - 1) / NW][D / 32];
+  float k[D / 32];
+  float v[D / 32];
+};
+
+template <int D, int GMAX>
+__device__ __forceinline__ Active<D, GMAX> active_token(
+    const void* q, const void* new_k, const void* new_v, int b, int h,
+    int hkv, int g, int q_bf16) {
+  constexpr int HPW = (GMAX + NW - 1) / NW;
+  constexpr int DPL = D / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t kv_row = ((int64_t)b * hkv + h) * D + lane * DPL;
+  Active<D, GMAX> a;
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) {
+    a.k[e] = load_act(new_k, kv_row + e, q_bf16);
+    a.v[e] = load_act(new_v, kv_row + e, q_bf16);
+  }
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    const int gg = min(warp + j * NW, g - 1);
+    const int64_t q_row =
+        ((int64_t)b * hkv * g + (int64_t)h * g + gg) * D + lane * DPL;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) a.q[j][e] = load_act(q, q_row + e, q_bf16);
+  }
+  return a;
+}
+
+// The fused merge, after a block has written its split's (m, l, acc): the
+// block counts itself on its (row, KV head)'s counter (a release atomic
+// after a block barrier, as a semaphore: the writes of every thread are
+// visible before the count); the last of the n_part blocks (an acquire
+// atomic) merges their splits with the active token and the sink (warp w:
+// heads w, w + NW, ...; lane: columns lane * D/32 ..; lane s holds splits
+// s and s + 32), stores the output in q's dtype and puts the counter back
+// to 0 for the next launch (so CUDA-graph replays see 0).
+template <int D, int GMAX>
+__device__ __forceinline__ void merge_tail(
+    const Active<D, GMAX>& act, const float* sink, const float* part_acc,
+    const float* part_ml, int* counters, void* out, int b, int h, int hkv,
+    int g, int nsplit, int n_part, float scale, float soft_cap, int q_bf16,
+    int* s_last) {
+  constexpr int HPW = (GMAX + NW - 1) / NW;
+  constexpr int DPL = D / 32;
+  constexpr int SB = D == 64 ? 32 : 16;        // splits loaded at a time
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int hq = hkv * g;
+  __syncthreads();
+  int* counter = counters + (int64_t)b * hkv + h;
+  if (threadIdx.x == 0) {
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(counter)
+                 : "memory");
+    *s_last = prev == n_part - 1;
+  }
+  __syncthreads();
+  if (!*s_last) return;
+
+  const int64_t part0 = ((int64_t)b * hkv + h) * nsplit;
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    const int gg = warp + j * NW;
+    if (gg >= g) break;
+    const float* pa0 = part_acc + (part0 * g + gg) * D + lane * DPL;
+    float ms[2], ls[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = lane + 32 * k;
+      ms[k] = NEG_INF;
+      ls[k] = 0.f;
+      if (s < n_part) {
+        ms[k] = __ldcg(part_ml + ((part0 + s) * g + gg) * 2);
+        ls[k] = __ldcg(part_ml + ((part0 + s) * g + gg) * 2 + 1);
+      }
+    }
+    // the first SB splits' accumulators load beside (m, l)
+    float a[SB][DPL];
+#pragma unroll
+    for (int u = 0; u < SB; ++u) {
+      if (u < n_part) ldcg_cols(a[u], pa0 + (int64_t)u * g * D);
+      else
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) a[u][e] = 0.f;
+    }
+    float dot = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) dot += act.q[j][e] * act.k[e];
+    const float sa = cap(warp_sum(dot) * scale, soft_cap);
+    float mt = fmaxf(sa, warp_max(fmaxf(ms[0], ms[1])));
+    float sk = 0.f;
+    if (sink != nullptr) {
+      sk = sink[h * g + gg];
+      mt = fmaxf(mt, sk);
+    }
+    float den =
+        warp_sum(ls[0] * expf(ms[0] - mt) + ls[1] * expf(ms[1] - mt));
+    const float ea = expf(sa - mt);
+    den += ea;
+    if (sink != nullptr) den += expf(sk - mt);
+    const float inv = 1.f / den;
+    float w[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) w[k] = expf(ms[k] - mt) * inv;
+    float o[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[e] = ea * inv * act.v[e];
+    for (int s0 = 0; s0 < n_part; s0 += SB) {
+      if (s0 > 0) {
+#pragma unroll
+        for (int u = 0; u < SB; ++u) {
+          if (s0 + u < n_part) ldcg_cols(a[u], pa0 + (int64_t)(s0 + u) * g * D);
+          else
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) a[u][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int s = s0 + u;
+        const float ws =
+            __shfl_sync(0xffffffffu, s < 32 ? w[0] : w[1], s & 31);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[e] += ws * a[u][e];
+      }
+    }
+    const int64_t oi = ((int64_t)b * hq + (int64_t)h * g + gg) * D +
+                       lane * DPL;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      if (q_bf16)
+        reinterpret_cast<__nv_bfloat16*>(out)[oi + e] =
+            __float2bfloat16(o[e]);
+      else
+        reinterpret_cast<float*>(out)[oi + e] = o[e];
+    }
+  }
+  if (threadIdx.x == 0) *counter = 0;          // ready for the next launch
+}
+
+// ---------------------------------------------------------------------------
+// Launch helpers
+// ---------------------------------------------------------------------------
+
 // Calls launch(std::integral_constant<int, GMAX>) for the smallest of the
-// partial kernel's instantiations GMAX >= g; -1 when g exceeds MAX_G.
+// CUDA-core kernel's instantiations GMAX >= g; -1 when g exceeds MAX_G.
 template <typename F>
 int for_group(int g, F&& launch) {
   if (g < 1) return -1;
@@ -292,17 +535,21 @@ int for_group(int g, F&& launch) {
   return 0;
 }
 
-// The combine launch after a partial launch; returns cudaGetLastError().
-inline int launch_combine(const void* q, const void* new_k, const void* new_v,
-                          const void* sink, const float* part_acc,
-                          const float* part_ml, void* out, int batch,
-                          int hkv, int g, int head_dim, int nsplit,
-                          float scale, float soft_cap, int q_bf16,
-                          cudaStream_t stream) {
-  decode_combine<<<dim3(hkv, batch), NT, 0, stream>>>(
-      q, new_k, new_v, static_cast<const float*>(sink), part_acc, part_ml,
-      out, hkv, g, head_dim, nsplit, scale, soft_cap, q_bf16);
-  return static_cast<int>(cudaGetLastError());
+// Launches kern<<<grid, NT, bytes, stream>>>(args...), its dynamic shared
+// memory opted in once per instantiation (`opted_in`, a static of the
+// caller's; the first launch comes before any CUDA-graph capture, whose
+// warm-up calls launch eagerly). Returns 0 or the opt-in's cudaError.
+template <typename K, typename... A>
+int launch_opted_in(K* kern, bool& opted_in, dim3 grid, int bytes,
+                    cudaStream_t stream, A... args) {
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  kern<<<grid, NT, bytes, stream>>>(args...);
+  return 0;
 }
 
 }  // namespace

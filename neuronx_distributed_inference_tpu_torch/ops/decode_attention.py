@@ -42,15 +42,18 @@ _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
 MAX_GROUP = 16               # query heads per KV head the kernel takes
-_TARGET_BLOCKS = 8 * 132     # contiguous split-K blocks: eight per H100 SM
-# paged split-K blocks: four per SM, rounded down. On the H100 at the
+# paged split-K blocks: four per H100 SM, rounded down. On the H100 at the
 # paged path's decode shapes the fused kernel took 10.7-11.0 us at 16
 # splits, 11.2-11.3 at 12, 12.6-12.8 at 20 and 13.5-13.6 at 32
 # (scripts/torch_kernel_times.py --paged-splits, PERF.md): fewer, longer
 # shares keep their tiles in flight and leave the merge fewer splits.
 _PAGED_TARGET_BLOCKS = 4 * 132
-_MAX_SPLITS = 64             # the merges' bound: the contiguous combine's
-                             # shared memory, two splits a lane in the paged
+# contiguous split-K blocks: two per H100 SM, rounded down, the most its
+# tensor-core kernel keeps resident (202 registers a thread, a 96 KB ring):
+# one wave. The sweep at the Mistral-7B path's decode shapes is in PERF.md
+# (scripts/torch_kernel_times.py --contig-splits).
+_CONTIG_TARGET_BLOCKS = 2 * 132
+_MAX_SPLITS = 64             # the fused merge's bound: two splits a lane
 
 
 # ---------------------------------------------------------------------------
@@ -153,13 +156,16 @@ _MIN_COUNTERS = 4096         # (row, KV head) pairs: batch 512 at Hkv 8
 
 
 def merge_counters(device: torch.device, n: int) -> torch.Tensor:
-    """The fused paged kernel's arrival counters, one int32 per (row, KV
-    head): a zeroed buffer cached per device, at least ``n`` long. The
-    kernel's merging block puts each counter back to 0, so the buffer stays
-    zeroed from launch to launch (CUDA-graph replays included) and a call
-    launches no memset. Allocated once at the first call (before any graph
-    capture, which has warm-up calls) and grown only for a larger batch;
-    one stream at a time may run the kernel on a device."""
+    """The fused decode kernels' arrival counters, one int32 per (row, KV
+    head): a zeroed buffer cached per device, at least ``n`` long, shared
+    by the paged and the contiguous kernel. A kernel's merging block puts
+    each counter back to 0, so the buffer stays zeroed from launch to
+    launch (CUDA-graph replays included) and a call launches no memset.
+    Both kernels run on one stream, one launch after the other, and each
+    leaves the buffer zeroed, so sharing it is safe; one stream at a time
+    may run them on a device. Allocated once at the first call (before any
+    graph capture, which has warm-up calls) and grown only for a larger
+    batch."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
@@ -169,11 +175,11 @@ def merge_counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
-             *, scale, soft_cap, kv_scale, counters=None):
+             *, scale, soft_cap, kv_scale):
     """Allocate the output and the split-K scratch (:func:`scratch_layout`),
     launch on the current stream, raise on a non-zero return, count the
-    launch on ``wrapper``. ``counters`` (the fused paged kernel's) go to
-    the kernel right after the scratch."""
+    launch on ``wrapper``. The merge counters (:func:`merge_counters`) go
+    to the kernel right after the scratch."""
     if cache[0].data_ptr() % 16 or cache[1].data_ptr() % 16:
         raise ValueError("the kernel reads the cache in 16-byte vectors: "
                          "the K and V caches must be 16-byte aligned")
@@ -181,12 +187,13 @@ def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
     out = torch.empty_like(q)
     n_acc, n_ml = scratch_layout(b, hkv, hq // hkv, d, splits)
     scratch = torch.empty(n_acc + n_ml, dtype=torch.float32, device=q.device)
-    extra = [] if counters is None else [counters.data_ptr()]
+    counters = merge_counters(q.device, b * hkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), *cache_ptrs,
                 sink.data_ptr() if sink is not None else None,
-                scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc, *extra,
+                scratch.data_ptr(), scratch.data_ptr() + 4 * n_acc,
+                counters.data_ptr(),
                 out.data_ptr(), *ints, float(scale),
                 float(soft_cap) if soft_cap is not None else 0.0,
                 float(kv_scale) if kv_scale is not None else 1.0,
@@ -296,8 +303,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         [k_pages.data_ptr(), v_pages.data_ptr(), new_k.data_ptr(),
          new_v.data_ptr(), lens.data_ptr(), block_table.data_ptr()],
         [b, int(layer), n_pages, bs, hkv, g, d, mb, splits, int(window)],
-        sink, (k_pages, v_pages), counters=merge_counters(q.device, b * hkv),
-        **kw)
+        sink, (k_pages, v_pages), **kw)
 
 
 paged_decode_attention.launches = 0
@@ -325,11 +331,11 @@ def decode_attention_stacked_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def contiguous_num_splits(batch: int, hkv: int, seq_len: int,
                           head_dim: int) -> int:
-    """Blocks per (row, KV head) of the contiguous kernel: enough for about
-    eight blocks on each of the H100's 132 SMs (a long row then gives each
-    block about one tile), within :func:`_splits`'s bounds over a cache
-    row's ``seq_len`` keys."""
-    return _splits(-(-_TARGET_BLOCKS // (batch * hkv)), seq_len, head_dim)
+    """Blocks per (row, KV head) of the contiguous kernel: about two blocks
+    on each of the H100's 132 SMs (rounded down, one resident wave), within
+    :func:`_splits`'s bounds over a cache row's ``seq_len`` keys."""
+    return _splits(_CONTIG_TARGET_BLOCKS // (batch * hkv), seq_len,
+                   head_dim)
 
 
 def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
@@ -345,8 +351,10 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
     Hkv, S, D); new_k/new_v (B, Hkv, D); ``layer`` python int; lens (B,)
     int32 prior lengths, each at most S. Returns (B, Hq, D) in q's dtype.
 
-    CUDA tensors launch ``csrc/decode_attention.cu`` on the current stream
-    and add one to ``decode_attention_stacked.launches``; CPU tensors run
+    CUDA tensors launch ``csrc/decode_attention.cu`` (one launch: the
+    split-K partials and their merge, through the counters of
+    :func:`merge_counters`) on the current stream and add one to
+    ``decode_attention_stacked.launches``; CPU tensors run
     :func:`decode_attention_stacked_plain`."""
     if q.dim() != 3 or k_cache.dim() != 5:
         raise ValueError("q must be (B, Hq, D) and k_cache (L, B, Hkv, D, S)")
@@ -369,7 +377,7 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
     _device_check(q)
     splits = contiguous_num_splits(b, hkv, s_len, d)
     return _split_k(
-        decode_attention_stacked, _kernel_fn("decode_attention", 10, 8),
+        decode_attention_stacked, _kernel_fn("decode_attention", 11, 8),
         q, hkv, splits,
         [k_cache.data_ptr(), v_cache.data_ptr(), new_k.data_ptr(),
          new_v.data_ptr(), lens.data_ptr()],

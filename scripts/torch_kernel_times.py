@@ -4,6 +4,7 @@ for comparing two trees of the port on one card in one session.
 
     python3 scripts/torch_kernel_times.py [--repo DIR] [--label NAME]
                                           [--paged-splits 8,12,16,...]
+                                          [--contig-splits 8,12,16,...]
 
 ``--repo`` names the checkout whose ``neuronx_distributed_inference_tpu_torch``
 package is timed (default: this one); the timing helpers and input makers
@@ -15,8 +16,11 @@ seeds): paged decode B 4, Hq 32, Hkv 8, D 64, block 32, lens
 128, S 4096, lens 100/363/963/1963, window 4096; flash prefill B 4, S 2048,
 Hq 32, Hkv 8, D 128, window 4096. ``--paged-splits`` also times the paged
 kernel at each of the given split counts (the wrapper's ``num_splits``
-overridden). Prints one JSON line per kernel (and split count), then the
-card's name and power limit. Needs a CUDA card."""
+overridden), ``--contig-splits`` the contiguous kernel (its
+``contiguous_num_splits`` overridden). The contiguous SDPA yardstick runs
+over D-contiguous copies of K and V (``chip_smoke.contiguous_sdpa_inputs``).
+Prints one JSON line per kernel (and split count), then the card's name
+and power limit. Needs a CUDA card."""
 
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ def main() -> int:
     ap.add_argument("--paged-splits", default="",
                     help="comma-separated split counts to time the paged "
                          "kernel at")
+    ap.add_argument("--contig-splits", default="",
+                    help="comma-separated split counts to time the "
+                         "contiguous decode kernel at")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as cs           # this checkout's helpers
@@ -57,6 +64,18 @@ def main() -> int:
                           "bound_us": bound[0] * 1e3, "bound_by": bound[1],
                           "max_abs_err": err, **extra}), flush=True)
 
+    def sweep(attr, counts, name, check, call, lib, bound):
+        """``name``'s kernel timed at each of the comma-separated split
+        ``counts`` (the wrapper's ``attr`` overridden)."""
+        chosen = getattr(da, attr)
+        try:
+            for n in [int(v) for v in counts.split(",") if v]:
+                setattr(da, attr, lambda *_, n=n: n)
+                err = check()
+                emit(name, cs.time_cuda(call), lib, bound, err, splits=n)
+        finally:
+            setattr(da, attr, chosen)
+
     g = torch.Generator(device=dev).manual_seed(2)
     x = cs.paged_inputs(g, dev, b=4, hq=32, hkv=8, d=64, bs=32, mb=64,
                         lens=[100, 363, 963, 1563], act_dtype=bf,
@@ -71,16 +90,10 @@ def main() -> int:
         q4, k4, v4, attn_mask=m4, scale=0.125, enable_gqa=True))
     emit("paged_decode_attention", ms, lib, cs.kernel_bounds(x), err,
          splits=da.num_splits(4, 8, 64, 32, 64))
-    num_splits = da.num_splits
-    try:
-        for n in [int(v) for v in args.paged_splits.split(",") if v]:
-            da.num_splits = lambda *_, n=n: n
-            err = cs.check_kernel_against_twin(x, kw)
-            ms = cs.time_cuda(lambda: da.paged_decode_attention(*a, **kw))
-            emit("paged_decode_attention", ms, lib, cs.kernel_bounds(x), err,
-                 splits=n)
-    finally:
-        da.num_splits = num_splits
+    sweep("num_splits", args.paged_splits, "paged_decode_attention",
+          lambda: cs.check_kernel_against_twin(x, kw),
+          lambda: da.paged_decode_attention(*a, **kw), lib,
+          cs.kernel_bounds(x))
 
     g = torch.Generator(device=dev).manual_seed(3)
     x = cs.contiguous_inputs(g, dev, b=4, hq=32, hkv=8, d=128,
@@ -90,18 +103,16 @@ def main() -> int:
     err = cs.check_decode_against_twin(x, kw)
     a, kw2 = cs.decode_args(x, kw)
     ms = cs.time_cuda(lambda: da.decode_attention_stacked(*a, **kw2))
-    kk = x["k_cache"][0].transpose(2, 3).clone()
-    vv = x["v_cache"][0].clone()
-    rows = torch.arange(4, device=dev)
-    ln = x["lens"].long()
-    kk[rows, :, ln] = x["new_k"]
-    vv[rows, :, ln] = x["new_v"]
-    mask = (torch.arange(cs.MISTRAL_SEQ, device=dev)[None, :]
-            <= ln[:, None])[:, None, None, :]
+    q4, kk, vv, mask = cs.contiguous_sdpa_inputs(x, 0, kw["window"])
     lib = cs.time_cuda(lambda: F.scaled_dot_product_attention(
-        x["q"][:, :, None, :], kk, vv, attn_mask=mask, scale=kw["scale"],
-        enable_gqa=True))
-    emit("decode_attention_stacked", ms, lib, cs.decode_bounds(x), err)
+        q4, kk, vv, attn_mask=mask, scale=kw["scale"], enable_gqa=True))
+    emit("decode_attention_stacked", ms, lib, cs.decode_bounds(x), err,
+         splits=da.contiguous_num_splits(4, 8, cs.MISTRAL_SEQ, 128))
+    sweep("contiguous_num_splits", args.contig_splits,
+          "decode_attention_stacked",
+          lambda: cs.check_decode_against_twin(x, kw),
+          lambda: da.decode_attention_stacked(*a, **kw2), lib,
+          cs.decode_bounds(x))
     del kk, vv, x
 
     g = torch.Generator(device=dev).manual_seed(5)

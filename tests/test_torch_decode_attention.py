@@ -173,3 +173,182 @@ def test_cuda_kernel_matches_plain_twin(name):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().numpy(), rtol=tol, atol=tol)
     assert tda.decode_attention_stacked.launches == before + len(windows)
+
+
+@pytest.mark.parametrize("batch,hkv,seq_len,d,want", [
+    (4, 8, 4096, 128, 8),       # the Mistral-7B path's decode shapes
+    (4, 8, 4096, 64, 8),
+    (1, 8, 4096, 128, 33),
+    (1, 1, 4096, 128, 64),      # 264 wanted, capped at 64
+    (64, 8, 4096, 128, 1),      # a large batch: one block per (row, head)
+    (2, 8, 256, 64, 4),         # a short cache: 256 keys, tiles of 64
+    (2, 2, 128, 128, 4),        # 66 wanted; 128 keys, tiles of 32
+])
+def test_contiguous_num_splits_from_shapes(batch, hkv, seq_len, d, want):
+    """Splits of the contiguous kernel: about two blocks per SM of 132 (one
+    resident wave), at most one per tile of 4096 / D keys, at most 64;
+    shapes only (no sync on lens)."""
+    assert tda.contiguous_num_splits(batch, hkv, seq_len, d) == want
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (it imports torch lazily and
+    nothing of JAX)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("layer,window", [(0, 0), (1, 0), (1, 40)])
+def test_contiguous_sdpa_yardstick_inputs(layer, window):
+    """The SDPA yardstick of the contiguous kernel (chip_smoke) is built
+    from D-contiguous K and V (stride(-1) == 1, so SDPA may take a fused
+    backend, not the math one), and SDPA over it computes the kernel's
+    function: it equals the plain twin on the same inputs (fp32, CPU)."""
+    import torch.nn.functional as F
+    cs = _chip_smoke()
+    rng = np.random.default_rng(11 + layer + window)
+    b, hq, hkv, d, s = 3, 8, 2, 64, 96
+    f = lambda *sh: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(sh).astype(np.float32))
+    x = dict(q=f(b, hq, d), k_cache=f(2, b, hkv, d, s),
+             v_cache=f(2, b, hkv, s, d), new_k=f(b, hkv, d),
+             new_v=f(b, hkv, d),
+             lens=torch.tensor([0, 37, 95], dtype=torch.int32))
+    q4, k, v, mask = cs.contiguous_sdpa_inputs(x, layer, window)
+    assert k.shape == v.shape == (b, hkv, s, d)
+    assert k.stride(-1) == 1 and v.stride(-1) == 1
+    got = F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                         scale=d ** -0.5, enable_gqa=True)
+    want = tda.decode_attention_stacked_plain(
+        x["q"], x["k_cache"], x["v_cache"], x["new_k"], x["new_v"], layer,
+        x["lens"], scale=d ** -0.5, window=window)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# the Mistral-7B path's decode shapes (B 4, Hq 32, Hkv 8, D 128, S 4096)
+MISTRAL_LENS = (100, 363, 963, 1963)
+
+
+def _cuda_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m cuda)")
+
+
+def _cuda_inputs(name, lens, *, s=4096, cache=torch.bfloat16,
+                 act=torch.bfloat16, kv_scale=None):
+    """Inputs from a numpy seed on the card: q/new_k/new_v in ``act``,
+    the (1, B, 8, 128, S) / (1, B, 8, S, 128) cache in ``cache`` (divided
+    by ``kv_scale`` before the cast, as the model's write path does)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    b, d = len(lens), 128
+    dev = torch.device("cuda")
+
+    def f(*sh, dt=act, div=1.0):
+        x = rng.standard_normal(sh).astype(np.float32) / div
+        return torch.from_numpy(x).to(dev).to(dt)
+    div = kv_scale or 1.0
+    return dict(q=f(b, 32, d), k_cache=f(1, b, 8, d, s, dt=cache, div=div),
+                v_cache=f(1, b, 8, s, d, dt=cache, div=div),
+                new_k=f(b, 8, d), new_v=f(b, 8, d),
+                lens=torch.tensor(lens, dtype=torch.int32, device=dev)), rng
+
+
+def _cuda_call(t, plain=False, **kw):
+    fn = (tda.decode_attention_stacked_plain if plain
+          else tda.decode_attention_stacked)
+    return fn(*(t[k] for k in ARGS), 0, t["lens"], **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_merge_resets_its_counters():
+    """The same call 3 times eagerly, then 10 times inside one CUDA graph
+    replayed twice: every output equals the first (the merging block puts
+    its counter back to 0, so no call sees a stale count), each call is
+    one launch, and the counters end at 0."""
+    _cuda_skip()
+    t, _ = _cuda_inputs("repeat", MISTRAL_LENS)
+    kw = dict(scale=128 ** -0.5)
+    before = tda.decode_attention_stacked.launches
+    first = _cuda_call(t, **kw)
+    for _ in range(2):
+        assert torch.equal(_cuda_call(t, **kw), first)
+    assert tda.decode_attention_stacked.launches == before + 3
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _cuda_call(t, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [_cuda_call(t, **kw) for _ in range(10)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            assert torch.equal(o, first)
+    assert int(tda._COUNTERS[first.device].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_every_split_count(monkeypatch):
+    """Splits 1 .. 64 (the wrapper's bound) over rows of 0 to 4095 keys,
+    with a window: the kernel against the twin each time (bf16 out: one
+    ulp, 1e-2)."""
+    _cuda_skip()
+    t, _ = _cuda_inputs("splits", (0, 31, 2777, 4095))
+    kw = dict(scale=128 ** -0.5, window=3000)
+    want = _cuda_call(t, plain=True, **kw)
+    for n in range(1, 65):
+        monkeypatch.setattr(tda, "contiguous_num_splits", lambda *a, n=n: n)
+        got = _cuda_call(t, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2, (n, err)
+
+
+CUDA_CASES = {
+    "mistral_bf16": dict(),
+    "mistral_bf16_window512_sink_softcap": dict(window=512, sink=True,
+                                                soft_cap=5.0),
+    "mistral_fp8_kv_scale": dict(cache=torch.float8_e4m3fn, kv_scale=0.5),
+    "mistral_fp8_kv_scale_window512": dict(cache=torch.float8_e4m3fn,
+                                           kv_scale=0.5, window=512),
+    "fp32": dict(cache=torch.float32, act=torch.float32, window=700),
+    "s4093_bf16_scalar_k": dict(s=4093, window=1000),
+    "s4093_fp8_scalar_k": dict(s=4093, cache=torch.float8_e4m3fn),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
+def test_cuda_serving_shapes_match_plain_twin(name):
+    """Mistral-7B heads (32 q, 8 kv, D 128) over a 4096-slot cache at the
+    path's decode lens: the kernel (tensor cores for bf16, CUDA cores for
+    fp8 and fp32, key-by-key K loads for an S that is not a multiple of a
+    16-byte piece's keys) against the twin on the card (bf16 out: 1e-2,
+    fp32: 1e-4)."""
+    _cuda_skip()
+    spec = dict(CUDA_CASES[name])
+    t, rng = _cuda_inputs(name, MISTRAL_LENS, s=spec.get("s", 4096),
+                          cache=spec.get("cache", torch.bfloat16),
+                          act=spec.get("act", torch.bfloat16),
+                          kv_scale=spec.get("kv_scale"))
+    kw = dict(scale=128 ** -0.5, window=spec.get("window", 0),
+              soft_cap=spec.get("soft_cap"), kv_scale=spec.get("kv_scale"))
+    if spec.get("sink"):
+        kw["sink"] = torch.from_numpy(
+            rng.standard_normal(32).astype(np.float32)).cuda()
+    got = _cuda_call(t, **kw)
+    torch.cuda.synchronize()
+    want = _cuda_call(t, plain=True, **kw)
+    tol = 1e-4 if t["q"].dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
