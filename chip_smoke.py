@@ -44,7 +44,28 @@ nvcc per source, all started together), then:
   8. contiguous serving, fp32 (TF32 off), full width, 8 layers: 6 requests
      with staggered admission through ``ContinuousBatchingAdapter``
      (decode on the gather path), each stream held to the single-request
-     static ``generate`` (decode on the kernel) as in 4.
+     static ``generate`` (decode on the kernel) as in 4;
+  9. ragged serving, bf16, Llama-3.1-8B geometry at full width and depth
+     with random weights from seed 0:
+     ``ServingEngine(PagedEngineAdapter(app, ragged=True,
+     prefill_chunk_tokens=512))`` over a paged app (batch 8, seq_len 4096,
+     block 32, prefix caching) serves 8 requests (37-1900 prompt tokens,
+     48 new tokens each), four submitted at once and one more every 4
+     passes, so mixed passes (decode rows plus prefill chunks) and
+     all-decode passes both occur. Gates: every pass makes at most one
+     ragged dispatch and one blocking fetch and no standalone prefill
+     dispatch; the paged kernel's launches equal 32 x the all-decode
+     ragged steps (head_dim 128); every stream holds 48 in-vocab tokens
+     and finished on length. Prints the passes by kind, host ms per pass
+     of each kind, time to first token, the pad waste, a torch.profiler
+     trace of 8 all-decode and 4 mixed passes (device ms by kernel, device
+     idle share), and the paged kernel at the served cache's shapes;
+ 10. ragged serving, fp32 (TF32 off), Llama-3.1-8B width, 4 layers: the
+     same submissions with 24 new tokens through the ragged engine, the
+     two-phase (non-ragged) engine and single-request ``generate`` on the
+     same weights; the ragged streams must equal both (a first difference
+     only at a near-tie of the reference's top-2 logits, printed), and the
+     launch gate of 9 holds (fp32 pages: the kernel's CUDA-core route).
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
@@ -86,6 +107,22 @@ SERVE_LENS = (23, 57, 101, 150, 77, 190)  # phases 4 and 8 requests
 SERVE_TOKENS = 32
 MISTRAL_LENS = (37, 300, 900, 1900)     # phases 6-7 prompts (ctx bucket 2048)
 MISTRAL_SEQ = 4096
+
+# Llama-3.1-8B (HF config.json of meta-llama/Llama-3.1-8B)
+LLAMA_3_1_8B = dict(
+    model_type="llama", hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, vocab_size=128256, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192},
+    max_position_embeddings=131072, hidden_act="silu",
+    tie_word_embeddings=False)
+# phases 9-10: the ragged engine (batch 8, one spare block per row)
+RAGGED = dict(lens=(37, 300, 900, 1900, 123, 640, 1500, 64), seq_len=4096,
+              chunk=512, block=32)
+RAGGED_TOKENS = 48                      # phase 9
+RAGGED_CHECK_TOKENS = 24                # phase 10
 
 # Tolerances, with their reasons:
 # kernel vs twin, bf16 out: both accumulate in fp32 and round the output
@@ -524,7 +561,7 @@ def phase_kernels(device):
 # ---------------------------------------------------------------------------
 
 def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
-             prefix_caching=True, output_logits=False):
+             prefix_caching=True, output_logits=False, num_blocks=None):
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         PagedCausalLMApplication
@@ -532,6 +569,7 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
         LlamaFamily, LlamaInferenceConfig)
     tcfg = TpuConfig(batch_size=batch, seq_len=seq_len, dtype=dtype,
                      is_block_kv_layout=True, pa_block_size=32,
+                     pa_num_blocks=num_blocks,
                      is_prefix_caching=prefix_caching,
                      output_logits=output_logits,
                      attn_block_tkg_kernel_enabled=kernel)
@@ -797,10 +835,6 @@ def profile_decode(prefill_only, prefill_and_decode, steps: int):
 
 
 def phase_timings(hf, device, app, ids, mask, launches):
-    import torch
-    import torch.nn.functional as F
-    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
-    spec = app.spec
     b = len(PROMPT_LENS)
     timing_app = make_app(hf, device, "bfloat16", batch=b, seq_len=2048,
                           prefix_caching=False)
@@ -816,16 +850,35 @@ def phase_timings(hf, device, app, ids, mask, launches):
 
     # the kernel at the main path's decode shapes, over the main path's
     # own cache and tables (positions after its last decode step)
-    gen_t = torch.Generator(device=device).manual_seed(2)
     pos = [n + NEW_TOKENS - 1 for n in PROMPT_LENS]
     table = app.kv_mgr.block_table_array(range(b), app._bt_width(b))
+    t = time_paged_kernel(app, table, pos, device, seed=2)
+    emit({"phase": "timings", "prefill_ms_per_prompt": prefill_ms / b,
+          "prefill_ms_batch": prefill_ms, "prompt_lens": list(PROMPT_LENS),
+          "decode_ms_per_step_batch4": decode_ms, **t["report"],
+          "launches": launches})
+    return [paged_kernel_entry(t, launches, "paged_generate")]
+
+
+def time_paged_kernel(app, table, pos, device, seed: int):
+    """The paged kernel over ``app``'s own cache and block ``table`` at
+    lens ``pos`` (last layer, random q and active token): held to its
+    twin, then timed by CUDA-graph replay beside the twin, SDPA over the
+    pre-gathered KV and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    spec = app.spec
+    b = len(pos)
+    gen_t = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen_t,
+                           device=device).to(torch.bfloat16)
     inputs = dict(
-        q=torch.randn((b, spec.num_q_heads, spec.head_dim), generator=gen_t,
-                      device=device).to(torch.bfloat16),
-        new_k=torch.randn((b, spec.num_kv_heads, spec.head_dim),
-                          generator=gen_t, device=device).to(torch.bfloat16),
-        new_v=torch.randn((b, spec.num_kv_heads, spec.head_dim),
-                          generator=gen_t, device=device).to(torch.bfloat16),
+        q=rnd(b, spec.num_q_heads, spec.head_dim),
+        new_k=rnd(b, spec.num_kv_heads, spec.head_dim),
+        new_v=rnd(b, spec.num_kv_heads, spec.head_dim),
         k_pages=app.cache["k"], v_pages=app.cache["v"],
         lens=torch.tensor(pos, dtype=torch.int32, device=device),
         block_table=torch.as_tensor(table, device=device))
@@ -848,27 +901,34 @@ def phase_timings(hf, device, app, ids, mask, launches):
     library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=m4, scale=spec.scale, enable_gqa=True))
     bound_ms, bound_by = kernel_bounds(inputs)
-    emit({"phase": "timings", "prefill_ms_per_prompt": prefill_ms / b,
-          "prefill_ms_batch": prefill_ms, "prompt_lens": list(PROMPT_LENS),
-          "decode_ms_per_step_batch4": decode_ms,
-          "kernel_us": kernel_ms * 1e3, "bound_us": bound_ms * 1e3,
-          "kernel_eager_us": kernel_eager_ms * 1e3,
-          "splits": decode_attention.num_splits(
-              b, spec.num_kv_heads, int(table.shape[1]), 32, spec.head_dim),
-          "plain_us": plain_ms * 1e3, "library_us": library_ms * 1e3,
-          "launches": launches,
-          "max_abs_err": err, "kernel_shape": {
-              "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
-              "D": spec.head_dim, "Bs": 32, "lens": pos,
-              "table_width": int(table.shape[1])}})
-    return [{"name": "paged_decode_attention", "route": "cuda",
-             "source": "neuronx_distributed_inference_tpu_torch/csrc/"
-                       "paged_decode_attention.cu",
-             "replaces": "neuronx_distributed_inference_tpu/ops/"
-                         "decode_attention.py:336",
-             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms}]
+    bs = app.kv_mgr.spec.block_size
+    return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "report": {
+                "kernel_us": kernel_ms * 1e3, "bound_us": bound_ms * 1e3,
+                "kernel_eager_us": kernel_eager_ms * 1e3,
+                "splits": decode_attention.num_splits(
+                    b, spec.num_kv_heads, int(table.shape[1]), bs,
+                    spec.head_dim),
+                "plain_us": plain_ms * 1e3, "library_us": library_ms * 1e3,
+                "max_abs_err": err, "kernel_shape": {
+                    "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
+                    "D": spec.head_dim, "Bs": bs, "lens": list(pos),
+                    "table_width": int(table.shape[1])}}}
+
+
+def paged_kernel_entry(t, launches, path):
+    """The paged kernel's object of the ``{"kernels": [...]}`` line;
+    ``path`` names the run whose launches it counts."""
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "neuronx_distributed_inference_tpu_torch/csrc/"
+                      "paged_decode_attention.cu",
+            "replaces": "neuronx_distributed_inference_tpu/ops/"
+                        "decode_attention.py:336",
+            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": path, "shape": t["report"]["kernel_shape"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1192,6 +1252,276 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
          "bound_by": fl_by, "library_ms": fl_lib_ms}]
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-10: the ragged engine
+# ---------------------------------------------------------------------------
+
+def make_ragged_app(hf, device, dtype, cfg, *, batch=8,
+                    output_logits=False):
+    """The paged app of phases 9-10: seq_len ``cfg["seq_len"]``, block
+    ``cfg["block"]`` and a pool of every row's blocks plus one spare per
+    row."""
+    per_row = cfg["seq_len"] // cfg["block"] + 1
+    return make_app(hf, device, dtype, batch=batch, seq_len=cfg["seq_len"],
+                    output_logits=output_logits, num_blocks=batch * per_row)
+
+
+def ragged_engine(app, ragged, cfg):
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingEngine
+    return ServingEngine(PagedEngineAdapter(
+        app, ragged=ragged, prefill_chunk_tokens=cfg["chunk"]))
+
+
+def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
+                   snapshot=None):
+    """Submit prompts 0-3 at pass 0, then one more every 4 passes, and run
+    passes until the engine drains. ``profile(p, expect_mixed)`` returns
+    True to run pass ``p`` under ``device_kernels``; ``snapshot()`` runs
+    before each pass. Returns (streams, per-pass records, seconds from
+    submit to first token per request). The profiler's own start-up and
+    trace processing around a traced pass are taken off the clock that
+    times to first token are read on."""
+    ad = eng.adapter
+    streams, t_sub, ttft, recs = [], [], {}, []
+    excluded = 0.0                  # seconds of profiler overhead so far
+    p = 0
+    while len(streams) < len(prompts) or eng.has_work:
+        due = 4 if p == 0 else (1 if p % 4 == 0 else 0)
+        for _ in range(min(due, len(prompts) - len(streams))):
+            t_sub.append(time.perf_counter() - excluded)
+            streams.append(eng.submit(prompts[len(streams)], new_tokens))
+        expect_mixed = bool(ad.pending_prefill_ids) or eng.queue.depth > 0
+        if snapshot is not None:
+            snapshot()
+        before = dict(ad.host_stats)
+        traced = profile is not None and profile(p, expect_mixed)
+        t0 = time.perf_counter()
+        per = None
+        if traced:
+            wall, per = device_kernels(eng.run_pass)
+            end = time.perf_counter()
+            # the pass took ``wall``; the rest of the call was profiler
+            overhead = (end - t0) - wall / 1e3
+            now = end - excluded - overhead
+            excluded += overhead
+        else:
+            eng.run_pass()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            now = time.perf_counter() - excluded
+        d = {k: ad.host_stats[k] - before.get(k, 0)
+             for k in ad.host_stats if isinstance(ad.host_stats[k], int)}
+        if d.get("ragged_dispatches", d["dispatches"]) == 0:
+            kind = "idle"
+        elif d.get("ragged_rows_prefill", d["prefill_dispatches"]) > 0:
+            kind = "mixed"
+        else:
+            kind = "decode"
+        recs.append({"pass": p, "kind": kind, "ms": wall, "traced": traced,
+                     "device": per, "delta": d})
+        for i, st in enumerate(streams):
+            if i not in ttft and st.n_tokens:
+                ttft[i] = now - t_sub[i]
+        p += 1
+        if p > 100 * len(prompts):
+            raise AssertionError("the engine made no progress")
+    return streams, recs, ttft
+
+
+def check_streams(phase, streams, new_tokens, vocab):
+    """Gate: every stream holds exactly ``new_tokens`` in-vocab tokens and
+    finished on length."""
+    for i, st in enumerate(streams):
+        toks = st.tokens
+        if (len(toks) != new_tokens or st.finish_reason != "length"
+                or not all(0 <= t < vocab for t in toks)):
+            raise AssertionError(
+                f"{phase}: stream {i} has {len(toks)} tokens, finish "
+                f"{st.finish_reason!r}")
+
+
+def check_ragged_passes(phase, recs, launches, layers):
+    """Gates (a) and (b): at most one ragged dispatch and one blocking
+    fetch a pass, no standalone prefill dispatch, and the paged kernel
+    launched ``layers`` times per all-decode ragged step."""
+    for r in recs:
+        d = r["delta"]
+        if (d["ragged_dispatches"] > 1 or d["blocking_fetches"] > 1
+                or d["prefill_dispatches"] != 0):
+            raise AssertionError(f"{phase}: pass {r['pass']} made {d}")
+    decode_steps = sum(1 for r in recs if r["kind"] == "decode")
+    return decode_steps, layers * decode_steps
+
+
+def pass_summary(recs, kind):
+    ms = [r["ms"] for r in recs if r["kind"] == kind and not r["traced"]]
+    return {"passes": sum(1 for r in recs if r["kind"] == kind),
+            "timed": len(ms),
+            "median_ms": statistics.median(ms) if ms else None,
+            "mean_ms": statistics.fmean(ms) if ms else None,
+            "min_ms": min(ms) if ms else None,
+            "max_ms": max(ms) if ms else None}
+
+
+def profile_summary(recs, kind):
+    """Device ms by kernel per pass and the device idle share over the
+    traced passes of one kind."""
+    traced = [r for r in recs if r["traced"] and r["kind"] == kind]
+    if not traced:
+        return {"passes": 0}
+    per, wall = {}, 0.0
+    for r in traced:
+        wall += r["ms"]
+        for n, ms in r["device"].items():
+            per[n] = per.get(n, 0.0) + ms
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    n = len(traced)
+    return {"passes": n, "measured": busy > 0,
+            "host_ms_per_pass": wall / n,
+            "device_busy_ms_per_pass": busy / n,
+            "device_idle_share": (1 - busy / wall) if busy > 0 else None,
+            "top_kernels_ms_per_pass": [[k[:80], ms / n] for k, ms in top]}
+
+
+def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
+                         on_card=True):
+    """Phase 9: the ragged engine at full width and depth, bf16."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    app = make_ragged_app(hf, device, "bfloat16", cfg)
+    app.init_random_weights(0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    eng = ragged_engine(app, True, cfg)
+    ad = eng.adapter
+    snap = {}
+
+    def snapshot():
+        # the served cache's decode shapes, while all 8 rows are live
+        if len(ad.seqs) == len(prompts) and not ad.pending_prefill_ids:
+            live = sorted(ad.seqs)
+            snap["table"] = app.kv_mgr.block_table_array(
+                live, app._bt_width_for(live))
+            snap["pos"] = [ad.seqs[s].position for s in live]
+    traced = {"mixed": 0, "decode": 0}
+
+    def profile(p, expect_mixed):
+        kind, cap, start = (("mixed", 4, 8) if expect_mixed
+                            else ("decode", 8, 24))
+        if not on_card or p < start or traced[kind] >= cap:
+            return False
+        traced[kind] += 1
+        return True
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reset_launches()
+    streams, recs, ttft = serve_schedule(eng, prompts, new_tokens, sync,
+                                         profile, snapshot)
+    launches = decode_attention.paged_decode_attention.launches
+    layers = hf["num_hidden_layers"]
+    decode_steps, want = check_ragged_passes("ragged_serving", recs,
+                                             launches, layers)
+    want = want if on_card else 0
+    st = ad.host_stats
+    emit({"phase": "ragged_serving", "layers": layers,
+          "requests": len(prompts), "prompt_lens": list(cfg["lens"]),
+          "new_tokens": new_tokens, "passes": len(recs),
+          "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
+                             for k in ("mixed", "decode", "idle")},
+          "ragged_steps": st["ragged_steps"],
+          "launches": launches, "expected_launches": want,
+          "host_ms_mixed": pass_summary(recs, "mixed"),
+          "host_ms_decode": pass_summary(recs, "decode"),
+          "pass_log": [[r["pass"], r["kind"], round(r["ms"], 3),
+                        r["traced"]] for r in recs],
+          "ttft_s": [ttft.get(i) for i in range(len(prompts))],
+          "ragged_pad_waste": 1 - st["ragged_real_tokens"]
+          / max(st["ragged_padded_tokens"], 1),
+          "host_stats": st})
+    emit({"phase": "ragged_profile_decode", **profile_summary(recs,
+                                                              "decode")})
+    emit({"phase": "ragged_profile_mixed", **profile_summary(recs,
+                                                             "mixed")})
+    if launches != want:
+        raise AssertionError(f"ragged_serving: paged kernel launches "
+                             f"{launches} != {layers} x {decode_steps} "
+                             "all-decode ragged steps")
+    check_streams("ragged_serving", streams, new_tokens, hf["vocab_size"])
+    if not on_card:
+        return []
+    t = time_paged_kernel(app, snap["table"], snap["pos"], device, seed=9)
+    emit({"phase": "ragged_kernel_timings", **t["report"],
+          "launches": launches})
+    return [paged_kernel_entry(t, launches, "ragged_serving")]
+
+
+def phase_ragged_fp32(hf, device, cfg=RAGGED,
+                      new_tokens=RAGGED_CHECK_TOKENS, on_card=True):
+    """Phase 10: ragged vs two-phase engine vs ``generate``, fp32."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    app = make_ragged_app(hf, device, "float32", cfg)
+    app.init_random_weights(0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reset_launches()
+    streams, recs, _ = serve_schedule(ragged_engine(app, True, cfg),
+                                      prompts, new_tokens, sync)
+    launches = decode_attention.paged_decode_attention.launches
+    layers = hf["num_hidden_layers"]
+    decode_steps, want = check_ragged_passes("ragged_fp32", recs, launches,
+                                             layers)
+    want = want if on_card else 0
+    check_streams("ragged_fp32", streams, new_tokens, hf["vocab_size"])
+    ragged = [np.asarray(s.tokens) for s in streams]
+    two = make_ragged_app(hf, device, "float32", cfg)
+    two.params = app.params
+    two_streams, _, _ = serve_schedule(ragged_engine(two, False, cfg),
+                                       prompts, new_tokens, sync)
+    check_streams("ragged_fp32_two_phase", two_streams, new_tokens,
+                  hf["vocab_size"])
+    del two
+    ref = make_ragged_app(hf, device, "float32", cfg, batch=1,
+                          output_logits=True)
+    ref.params = app.params
+    near_ties = []
+    for i, prompt in enumerate(prompts):
+        want_i = ref.generate(np.asarray([prompt]),
+                              max_new_tokens=new_tokens, return_logits=True)
+        ref.reset()
+        cases = [near_tie_check(f"ragged_fp32_{name}_near_tie", i, got,
+                                want_i, len(prompt))
+                 for name, got in (("ragged", ragged[i]), (
+                     "two_phase", np.asarray(two_streams[i].tokens)))]
+        # ragged vs two-phase: equal up to where one of them leaves
+        # generate at a near-tie
+        diff = np.nonzero(ragged[i] != np.asarray(two_streams[i].tokens))[0]
+        first = [c["first_diff_step"] for c in cases if c]
+        if diff.size and (not first or int(diff[0]) < min(first)):
+            raise AssertionError(f"ragged_fp32: stream {i} ragged and "
+                                 f"two-phase differ at step {int(diff[0])}")
+        near_ties += [c for c in cases if c]
+    emit({"phase": "ragged_fp32", "layers": layers,
+          "requests": len(prompts), "new_tokens": new_tokens,
+          "passes": len(recs), "launches": launches,
+          "expected_launches": want, "all_decode_ragged_steps": decode_steps,
+          "streams_identical_to_generate": 2 * len(prompts) - len(near_ties),
+          "near_ties": near_ties})
+    if launches != want:
+        raise AssertionError(f"ragged_fp32: paged kernel launches "
+                             f"{launches} != {layers} x {decode_steps}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1219,6 +1549,10 @@ def main() -> int:
                           sliding_window=512), device, "window_bites")
     torch.cuda.empty_cache()
     phase_contiguous_serving(dict(MISTRAL_7B, num_hidden_layers=8), device)
+    torch.cuda.empty_cache()
+    kernels += phase_ragged_serving(LLAMA_3_1_8B, device)
+    torch.cuda.empty_cache()
+    phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
     emit({"kernels": kernels})
     emit({"gpu": gpu})
     emit({"ok": True, "device": {"platform": "gpu",

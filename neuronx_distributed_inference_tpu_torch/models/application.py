@@ -7,12 +7,13 @@ paged ``PagedCausalLMApplication`` built on it (counterpart:
 ``_default_sampling_params`` :508, ``_run_prefill`` :515, ``_run_decode``
 :613, ``_run_decode_loop`` :649, ``_generate_repadded`` :687,
 ``generate`` :780, ``reset`` :967; ``_finalize_generation`` :1105;
-``PagedCausalLMApplication`` :1120-1626).
+``PagedCausalLMApplication`` :1120-1626, its ``_run_ragged`` :1330).
 
 Same host contract as the JAX applications. The contiguous app:
 ``init_cache``, ``_run_prefill``, ``_run_decode``, ``_run_decode_loop``,
 ``generate``, ``reset``; the paged app: ``_run_paged``,
-``_run_paged_loop``, ``generate``, ``release``, ``reset``, with the host
+``_run_paged_loop``, ``_run_ragged``, ``generate``, ``release``,
+``reset``, with the host
 owning the block allocator and tables. Step results are torch tensors
 (read them with ``np.asarray(t.cpu())``). Windowed context encoding,
 images, LoRA adapters and M-RoPE positions of the JAX ``generate`` are not
@@ -470,6 +471,27 @@ class PagedCausalLMApplication(CausalLMApplication):
             self._t(input_ids), self._t(position_ids),
             self._t(slot_mapping), self._t(block_table), self._t(last_idx),
             sampling_params, self.generator, self._inv_freq)
+
+    def _run_ragged(self, input_ids, position_ids, slot_mapping,
+                    block_table, widths, emit_modes, sampling_params=None):
+        """ONE ragged mixed step (``model_base.paged_ragged_step``): rows
+        mix decode steps, prefill chunks and verify windows, each at its
+        own offset over its own block table. The host arrays are numpy:
+        the capacity check and the verify test read them without touching
+        the device. The cache is written in place. Returns {"tokens",
+        "num_emitted"} on the device."""
+        pos = np.asarray(position_ids)
+        wid = np.asarray(widths)
+        emit = np.asarray(emit_modes)
+        self._check_decode_fits(int(np.max(pos[:, 0] + wid)))
+        if sampling_params is None:
+            sampling_params = self._default_sampling_params(pos.shape[0])
+        return model_base.paged_ragged_step(
+            self.spec, self.tpu_config, self.params, self.cache,
+            self._t(input_ids), self._t(pos), self._t(slot_mapping),
+            self._t(block_table), self._t(wid), self._t(emit),
+            sampling_params, self.generator, self._inv_freq,
+            verify=bool((emit == model_base.EMIT_VERIFY).any()))
 
     def _run_paged_loop(self, first_tokens, positions, block_table,
                         num_steps: int, sampling_params=None):

@@ -6,8 +6,8 @@
 decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
 ``_embed`` :1656, ``_lm_head`` :1671, ``context_encoding_step`` :1686,
 ``token_generation_step`` :1789, ``paged_forward_step`` :1883,
-``decode_loop`` :1939, ``paged_decode_loop`` :2058, ``spec_from_config``
-:2346).
+``decode_loop`` :1939, ``paged_decode_loop`` :2058, ``paged_ragged_step``
+:2222, ``spec_from_config`` :2346).
 
 The model is a set of plain functions over a dict of parameter tensors
 laid out as the JAX package's tree (stacked ``(L, …)`` layer leaves, fused
@@ -521,18 +521,11 @@ def use_decode_kernel(spec: DecoderSpec, phase_t: int,
             and _cache_ok(spec, cache_dtype))
 
 
-def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
-                       input_ids, position_ids, slot_mapping, block_table,
-                       last_idx, sampling_params=None, generator=None,
-                       inv_freq: Optional[torch.Tensor] = None):
-    """One paged step: paged prefill, prefix-cached or chunked prefill
-    (T = window at arbitrary positions) and paged decode (T = 1).
-
-    input_ids, position_ids, slot_mapping (B, T) (negative slot = no
-    write); block_table (B, max_blocks); last_idx (B,) index into T of the
-    token whose logits are sampled — all tensors on the cache's device.
-    Writes the cache in place; returns {"tokens": (B,) int32} plus
-    {"logits": (B, T, vocab)} when ``tpu_cfg.output_logits``."""
+def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
+                  slot_mapping, block_table, inv_freq):
+    """The layer stack over the paged cache: the step's K/V land at
+    ``slot_mapping``; a T = 1 step runs the paged kernel, a wider one the
+    block-table gather + ``mha`` (model_base.py:1071-1077)."""
     t = input_ids.shape[1]
     ai = attn_inputs(spec, position_ids, inv_freq)
     ai["use_kernel"] = use_decode_kernel(spec, t, cache["k"].dtype)
@@ -545,12 +538,94 @@ def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
         kv_len = block_table.shape[1] * cache["k"].shape[2]
         ai["mask"] = attn_ops.decode_mask(position_ids, kv_len,
                                           spec.sliding_window)
-    hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
-                        "paged")
-    idx = last_idx.long()[:, None, None].expand(-1, 1, hidden.shape[-1])
+    return run_layers(spec, params, cache, _embed(params, input_ids), ai,
+                      "paged")
+
+
+def _gather_cols(hidden, cols):
+    """hidden (B, T, H), cols (B,) -> (B, 1, H) at each row's column."""
+    idx = cols.long()[:, None, None].expand(-1, 1, hidden.shape[-1])
+    return torch.gather(hidden, 1, idx)
+
+
+def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
+                       input_ids, position_ids, slot_mapping, block_table,
+                       last_idx, sampling_params=None, generator=None,
+                       inv_freq: Optional[torch.Tensor] = None):
+    """One paged step: paged prefill, prefix-cached or chunked prefill
+    (T = window at arbitrary positions) and paged decode (T = 1).
+
+    input_ids, position_ids, slot_mapping (B, T) (negative slot = no
+    write); block_table (B, max_blocks); last_idx (B,) index into T of the
+    token whose logits are sampled — all tensors on the cache's device.
+    Writes the cache in place; returns {"tokens": (B,) int32} plus
+    {"logits": (B, T, vocab)} when ``tpu_cfg.output_logits``."""
+    hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
+                           slot_mapping, block_table, inv_freq)
     return _sample_out(spec, tpu_cfg, params, hidden,
-                       torch.gather(hidden, 1, idx), sampling_params,
+                       _gather_cols(hidden, last_idx), sampling_params,
                        generator)
+
+
+EMIT_NONE, EMIT_LAST, EMIT_VERIFY = 0, 1, 2
+
+
+def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
+                      input_ids, position_ids, slot_mapping, block_table,
+                      widths, emit_modes, sampling_params=None,
+                      generator=None, inv_freq: Optional[torch.Tensor] = None,
+                      verify: bool = False):
+    """The ragged unified step (model_base.py:2222-2328): one paged
+    forward whose rows mix decode steps (width 1), prefill chunks (width
+    n at the row's own offset) and verify windows (width k+1).
+
+    input_ids, position_ids, slot_mapping (B, W) (columns at or past a
+    row's width carry slot -1: no write; their positions still feed RoPE
+    and the mask, as in the reference); block_table (B, max_blocks);
+    widths, emit_modes (B,) — all tensors on the cache's device. Per row,
+    ``emit_modes`` selects what is emitted:
+
+      * 0 — nothing (an intermediate prefill chunk, a frozen row);
+      * 1 — the sample at column ``widths - 1``, through the sampling
+        call :func:`paged_forward_step` makes;
+      * 2 — greedy exact-match acceptance over the window: draft j
+        (column j + 1) is accepted while it equals the argmax at column
+        j, columns past the width are forced mismatches, and ``n_acc + 1``
+        tokens (the accepted drafts and the bonus) are emitted.
+
+    ``verify`` must be True when any row has mode 2: the caller decides it
+    on the host from its numpy ``emit_modes``. Only then are the logits
+    of every column computed (at W = 512 and a 128K vocabulary they are
+    ~1 GB of fp32 that the other modes do not need). Writes the cache in
+    place; returns {"tokens": (B, W) int32 (0 past ``num_emitted``),
+    "num_emitted": (B,) int32}."""
+    b, w = input_ids.shape
+    hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
+                           slot_mapping, block_table, inv_freq)
+    emit = emit_modes.to(torch.int32)
+    last = (widths.long() - 1).clamp(min=0)
+    sampled = sampling_ops.sample(
+        _lm_head(spec, params, _gather_cols(hidden, last))[:, 0, :],
+        tpu_cfg.on_device_sampling_config, sampling_params, generator)
+    zero = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    col = torch.arange(w, device=hidden.device)[None, :]
+    tokens = torch.where((col == 0) & (emit == EMIT_LAST)[:, None],
+                         sampled[:, None], zero)
+    n_emit = (emit == EMIT_LAST).to(torch.int32)
+    if verify:
+        target = sampling_ops.greedy_sample(_lm_head(spec, params, hidden))
+        if w > 1:
+            mismatch = ((input_ids[:, 1:] != target[:, :-1])
+                        | (col[:, 1:] >= widths[:, None])).to(torch.int32)
+            n_acc = (torch.cumsum(mismatch, dim=1) == 0).sum(dim=1)
+        else:
+            n_acc = torch.zeros((b,), dtype=torch.long, device=hidden.device)
+        rows = (emit == EMIT_VERIFY)
+        tokens = torch.where(rows[:, None],
+                             torch.where(col <= n_acc[:, None], target, zero),
+                             tokens)
+        n_emit = torch.where(rows, (n_acc + 1).to(torch.int32), n_emit)
+    return {"tokens": tokens, "num_emitted": n_emit}
 
 
 def paged_decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,

@@ -1,12 +1,13 @@
 """Serving resilience layer of the port (counterpart:
 ``neuronx_distributed_inference_tpu/resilience/``): the typed failure
-taxonomy and the recompute-preemption policies. Fault injection and the
-degradation controller are not ported yet."""
+taxonomy, deterministic fault injection and the recompute-preemption
+policies. The degradation controller is not ported yet."""
 
 from .errors import (AdmissionError, Cancelled, CapacityError,
                      ConfigurationError, DeadlineExceeded, HandoffError,
                      KVCacheStateError, QueueOverflow, ReplicaUnavailable,
                      SequenceStateError, ServingError, StepFailure)
+from .faults import FAULT_POINTS, FAULTS, FaultInjector, InjectedFault
 from .preemption import PREEMPTION_POLICIES, Preempted, pick_victim
 
 __all__ = [
@@ -14,5 +15,6 @@ __all__ = [
     "DeadlineExceeded", "KVCacheStateError", "SequenceStateError",
     "StepFailure", "QueueOverflow", "Cancelled",
     "ReplicaUnavailable", "HandoffError",
+    "FAULTS", "FAULT_POINTS", "FaultInjector", "InjectedFault",
     "Preempted", "PREEMPTION_POLICIES", "pick_victim",
 ]

@@ -1,10 +1,12 @@
 """Serving adapters — the continuous-batching contract an engine drives
 (counterpart: ``neuronx_distributed_inference_tpu/serving/adapter.py`` —
-``_SeqState``/``_ChunkState`` :137-180, the helpers :459-560,
-``_CbScratch`` :563, ``_PagedScratch`` :606, the eager path of
-``_EngineAdapterBase`` :682-903, ``ContinuousBatchingAdapter`` :1090-1275
-and ``PagedEngineAdapter`` :1277 with its preemption :2022-2165 and
-chunked prefill :2174-2400).
+``_SeqState``/``_ChunkState`` :137-180, the helpers :182-243,
+``_AdapterTelemetry`` :245-456, the helpers :459-560, ``_CbScratch`` :563,
+``_PagedScratch`` :606, the eager path of ``_EngineAdapterBase``
+:682-903 with ``flush`` :837 and ``debug_state`` :1071,
+``ContinuousBatchingAdapter`` :1090-1275 and ``PagedEngineAdapter`` :1277
+with its ragged routing :1541-1649, scheduler hooks :1794-1878,
+preemption :2022-2165 and chunked prefill :2174-2400).
 
 ``ContinuousBatchingAdapter`` drives the contiguous app: a request owns one
 cache row (its ``seq_id``) from ``add_requests`` to ``release``; prefill
@@ -15,7 +17,9 @@ paged app. The engine owns scheduling; the adapter owns device state:
     uncached prompt suffixes run as chunked, packed prefill rows of
     ctx-bucket ``_run_paged`` dispatches (or, with
     ``prefill_budget_tokens``, one budgeted chunk dispatch per step);
-  * ``step(seq_ids=None)`` — one decode step for the running rows;
+  * ``step(seq_ids=None)`` — one decode step for the running rows (with
+    ``ragged=True``: ONE mixed dispatch of decode rows and pending
+    prefill chunks, ``serving/ragged/``);
   * ``step_many(k, seq_ids=None)`` — k decode steps in one call of the
     device loop (slots advance on the device);
   * ``release(seq_ids)`` — free rows and their blocks.
@@ -24,10 +28,16 @@ When the block pool runs dry the ``preemption_policy`` ("lifo" /
 "fewest_generated") evicts a running or pending sequence and queues a
 :class:`Preempted` record for :meth:`PagedEngineAdapter.take_preempted`.
 
-This slice ports the eager path (``pipeline_depth=0``). The constructor
-refuses what waits for later slices: ``ragged=True``, ``speculation``,
-``lora_pool``, ``kv_spill_tier``, ``pipeline_depth > 0`` and a
-``telemetry`` registry; fault points are left out.
+Telemetry (``telemetry=`` registry, else the process-global one) and the
+fault points ``slow_step``, ``decode_step``, ``prefill_chunk`` and
+``ragged_step`` are those of the counterpart. The eager path
+(``pipeline_depth=0``) is ported; the constructor refuses what waits for
+later slices: ``speculation``, ``lora_pool``, ``kv_spill_tier`` and
+``pipeline_depth > 0``.
+
+A step that fails before its dispatch began (an injected fault, a host
+error) raises a ``retry_safe`` :class:`StepFailure`; one that fails inside
+the dispatch does not, since the cache is updated in place.
 """
 
 from __future__ import annotations
@@ -47,8 +57,13 @@ from ..resilience.errors import (AdmissionError, CapacityError,
                                  ConfigurationError, DeadlineExceeded,
                                  SequenceStateError, ServingError,
                                  StepFailure)
+from ..resilience.faults import FAULTS as _FAULTS
 from ..resilience.preemption import (PREEMPTION_POLICIES, Preempted,
                                      pick_victim)
+from ..telemetry import get_registry
+from ..telemetry import metrics as tmetrics
+from ..telemetry.request_trace import trace_of as _trace_of
+from ..telemetry.trace import get_recorder as _get_recorder
 
 
 @dataclass
@@ -60,6 +75,7 @@ class _SeqState:
     prompt_len: int = 0
     admit_idx: int = 0            # adapter-wide admission counter (LIFO)
     deadline: Optional[float] = None   # absolute perf_counter() deadline
+    expired_reported: bool = False     # deadline metric counted once
     meta: Any = None              # opaque engine passthrough
 
 
@@ -71,8 +87,193 @@ class _ChunkState:
     prompt: List[int]
     done: int
     admit_idx: int
+    t0: float = 0.0               # admission wall time (TTFT anchor)
     deadline: Optional[float] = None
+    expired_reported: bool = False
     meta: Any = None
+
+
+def _meta_tenant(meta: Any) -> str:
+    """Tenant label value from an opaque per-request ``meta`` payload (the
+    engine passes mappings with a "tenant" key; anything else is "")."""
+    try:
+        return str(meta.get("tenant", ""))
+    except AttributeError:
+        return ""
+
+
+def _common_tenant(tenants) -> str:
+    """The single tenant shared by every affected row, or "" when the set
+    is empty or mixed."""
+    ts = set(tenants)
+    return ts.pop() if len(ts) == 1 else ""
+
+
+def _trace_error(err):
+    """Record ``err`` on the flight recorder when tracing is live; returns
+    ``err`` so raise sites stay one-liners."""
+    rec = _get_recorder()
+    if rec.enabled and getattr(err, "trace_id", None) is None:
+        rec.error(err)
+    return err
+
+
+class _AdapterTelemetry:
+    """Engine-adapter instrumentation (a copy of the counterpart's, less
+    the pipeline and speculation hooks the port does not run): TTFT /
+    per-step decode latency histograms, live-batch and pad-waste
+    accounting, one request span per seq_id. Host-side only; every method
+    is a cheap no-op while telemetry is disabled."""
+
+    def __init__(self, engine: str, telemetry=None):
+        self.engine = engine
+        self._telemetry = telemetry
+        self._requests: Dict[int, Dict[str, Any]] = {}
+
+    @property
+    def registry(self):
+        return self._telemetry if self._telemetry is not None \
+            else get_registry()
+
+    def on_add(self, seq_ids: Sequence[int], prompts, t0: float,
+               live: int, padded: int, count_rows: bool = True,
+               tenants: Optional[Sequence[str]] = None):
+        reg = self.registry
+        if not reg.enabled:
+            return
+        if tenants is None:
+            tenants = [""] * len(seq_ids)
+        ttft = time.perf_counter() - t0
+        hist = tmetrics.ttft_histogram(reg)
+        for sid, prompt, tenant in zip(seq_ids, prompts, tenants):
+            span = reg.start_span("request", engine=self.engine, seq_id=sid,
+                                  tenant=tenant)
+            span.t_start = t0
+            span.event("first_token", ttft_s=ttft, prompt_len=len(prompt))
+            self._requests[sid] = {"span": span, "steps": 0,
+                                   "t_first": t0 + ttft, "t_last": t0 + ttft,
+                                   "tenant": tenant}
+            hist.observe(ttft, engine=self.engine, tenant=tenant)
+        tmetrics.requests_counter(reg).inc(len(seq_ids), engine=self.engine,
+                                           event="added")
+        tmetrics.generated_tokens_counter(reg).inc(live, engine=self.engine)
+        if count_rows:
+            self._rows(reg, "prefill", live, padded)
+
+    def on_prefill_chunk(self, rows: int, padded_rows: int,
+                         real_tokens: int, padded_tokens: int):
+        reg = self.registry
+        if not reg.enabled:
+            return
+        tmetrics.prefill_chunks_counter(reg).inc(rows, engine=self.engine)
+        if padded_tokens:
+            tmetrics.prefill_pad_waste_histogram(reg).observe(
+                1.0 - real_tokens / padded_tokens, engine=self.engine)
+        self._rows(reg, "prefill", rows, padded_rows)
+
+    def on_step(self, live_ids: Sequence[int], t0: float, padded: int,
+                steps: int = 1):
+        reg = self.registry
+        if not reg.enabled:
+            return
+        now = time.perf_counter()
+        n = len(live_ids)
+        tmetrics.decode_step_histogram(reg).observe((now - t0) / steps,
+                                                    engine=self.engine)
+        tmetrics.generated_tokens_counter(reg).inc(n * steps,
+                                                   engine=self.engine)
+        for sid in live_ids:
+            info = self._requests.get(sid)
+            if info is not None:
+                info["steps"] += steps
+                info["t_last"] = now
+        self._rows(reg, "decode", n, padded, steps=steps)
+
+    def on_ragged_step(self, kind_rows: Dict[str, int], real_tokens: int,
+                       padded_tokens: int):
+        """One ragged unified dispatch: ``kind_rows`` maps row kind
+        (decode/prefill/verify/pad) to rows packed; the pad-waste gauge
+        tracks the last dispatch's (padded - real) / padded."""
+        reg = self.registry
+        if not reg.enabled:
+            return
+        counter = tmetrics.ragged_rows_counter(reg)
+        for kind, n in kind_rows.items():
+            if n:
+                counter.inc(n, engine=self.engine, kind=kind)
+        if padded_tokens:
+            tmetrics.ragged_pad_waste_gauge(reg).set(
+                1.0 - real_tokens / padded_tokens, engine=self.engine)
+
+    def on_fetch(self, steps: int):
+        reg = self.registry
+        if reg.enabled:
+            tmetrics.steps_per_fetch_histogram(reg).observe(
+                steps, engine=self.engine)
+
+    def on_release(self, seq_ids: Sequence[int]):
+        reg = self.registry
+        released = 0
+        for sid in seq_ids:
+            info = self._requests.pop(sid, None)
+            if info is None:
+                continue
+            released += 1
+            span, steps = info["span"], info["steps"]
+            span.event("released", decode_steps=steps)
+            if reg.enabled and steps > 0:
+                # first token -> LAST decode step, not -> release
+                tmetrics.tpot_histogram(reg).observe(
+                    (info["t_last"] - info["t_first"]) / steps,
+                    engine=self.engine, tenant=info.get("tenant", ""))
+            span.end()
+        if released and reg.enabled:
+            tmetrics.requests_counter(reg).inc(released, engine=self.engine,
+                                               event="released")
+
+    def on_preempt(self, seq_id: int, reason: str, tenant: str = ""):
+        info = self._requests.pop(seq_id, None)
+        if info is not None:
+            info["span"].event("preempted", reason=reason)
+            info["span"].end()
+        reg = self.registry
+        if reg.enabled:
+            tmetrics.preemptions_counter(reg).inc(engine=self.engine,
+                                                  reason=reason,
+                                                  tenant=tenant)
+
+    def on_deadline(self, seq_ids: Sequence[int],
+                    tenants: Optional[Sequence[str]] = None):
+        reg = self.registry
+        if not seq_ids or not reg.enabled:
+            return
+        if tenants is None:
+            tenants = [""] * len(seq_ids)
+        counter = tmetrics.deadline_expired_counter(reg)
+        for tenant in tenants:
+            counter.inc(engine=self.engine, tenant=tenant)
+
+    def on_step_failure(self, phase: str, tenant: str = ""):
+        reg = self.registry
+        if reg.enabled:
+            tmetrics.step_failures_counter(reg).inc(engine=self.engine,
+                                                    phase=phase,
+                                                    tenant=tenant)
+
+    def on_admission_rollback(self):
+        reg = self.registry
+        if reg.enabled:
+            tmetrics.admission_rollbacks_counter(reg).inc(engine=self.engine)
+
+    def _rows(self, reg, phase: str, live: int, padded: int,
+              steps: int = 1):
+        tmetrics.live_batch_gauge(reg).set(live, engine=self.engine)
+        tmetrics.live_rows_counter(reg).inc(live * steps, engine=self.engine,
+                                            phase=phase)
+        if padded > live:
+            tmetrics.pad_rows_counter(reg).inc((padded - live) * steps,
+                                               engine=self.engine,
+                                               phase=phase)
 
 
 def _live_rows(seqs: Dict[int, _SeqState],
@@ -119,23 +320,29 @@ def _resolve_deadlines(deadline_s, n: int,
 
 
 def _pre_step_checks(seqs: Dict[int, _SeqState], live: Sequence[int],
-                     seq_len: int, horizon: int = 1):
+                     seq_len: int, telemetry: _AdapterTelemetry,
+                     horizon: int = 1):
     """Wall-clock deadlines, then the decode-past-seq_len guard, for the
     whole ``horizon`` of fused steps, BEFORE any device work."""
     now = time.perf_counter()
     expired = [s for s in live
                if seqs[s].deadline is not None and now >= seqs[s].deadline]
     if expired:
-        raise DeadlineExceeded(
+        fresh = [s for s in expired if not seqs[s].expired_reported]
+        for s in fresh:
+            seqs[s].expired_reported = True
+        telemetry.on_deadline(fresh, [_meta_tenant(seqs[s].meta)
+                                      for s in fresh])
+        raise _trace_error(DeadlineExceeded(
             f"seq_ids {expired} exceeded their wall-clock deadline; "
             "release() them (or re-queue with a fresh budget) and step "
-            "again", seq_ids=expired)
+            "again", seq_ids=expired))
     over = [s for s in live if seqs[s].position + horizon > seq_len]
     if over:
-        raise CapacityError(
+        raise _trace_error(CapacityError(
             f"decode step (horizon {horizon}) for seq_ids {over} would "
             f"write KV past the configured seq_len {seq_len}; release them "
-            "or rebuild with a larger seq_len", seq_ids=over)
+            "or rebuild with a larger seq_len", seq_ids=over))
 
 
 def _repeat_row0(x: np.ndarray, pad_to: int) -> np.ndarray:
@@ -218,10 +425,23 @@ class _PagedScratch:
 
 class _EngineAdapterBase:
     """The eager decode template both adapters share (``step``,
-    ``step_many``); subclasses provide dispatch, scratch construction, KV
-    growth and token bookkeeping."""
+    ``step_many``, ``flush``); subclasses provide dispatch, scratch
+    construction, KV growth and token bookkeeping."""
 
+    engine_name = ""
     _decode_failure_msg = "decode device step failed"
+
+    def _init_host_stats(self):
+        # plain-int host counters (always on). The decode counters count
+        # ONLY decode work; chunked prefill keeps its own prefill_* set
+        self._ready: Dict[int, int] = {}
+        self._scratch = None
+        self.host_stats: Dict[str, Any] = {
+            "dispatches": 0, "device_steps": 0,
+            "blocking_fetches": 0, "blocked_s": 0.0,
+            "prefill_dispatches": 0, "prefill_blocking_fetches": 0,
+            "prefill_blocked_s": 0.0, "prefill_real_tokens": 0,
+            "prefill_padded_tokens": 0}
 
     # -- subclass hooks ----------------------------------------------------
     def _pending_ids(self):
@@ -242,6 +462,25 @@ class _EngineAdapterBase:
     def _append_token(self, st: _SeqState, tok: int):
         st.last_token = tok
 
+    def _tenant_of(self, seq_ids) -> str:
+        """Common tenant label of ``seq_ids`` (running rows), "" when
+        mixed or unknown."""
+        return _common_tenant(_meta_tenant(self.seqs[s].meta)
+                              for s in seq_ids if s in self.seqs)
+
+    # -- the ONLY places that block on device output -----------------------
+    def _fetch_rows(self, out, b: int) -> np.ndarray:
+        t0 = time.perf_counter()
+        toks = out["tokens"].cpu().numpy()
+        t1 = time.perf_counter()
+        self.host_stats["blocking_fetches"] += 1
+        self.host_stats["blocked_s"] += t1 - t0
+        rec = _get_recorder()
+        if rec.enabled:
+            rec.complete("fetch.tokens", t0, cat="adapter", t1=t1,
+                         engine=self.engine_name, rows=b)
+        return toks.reshape(toks.shape[0], -1)[:b]
+
     # -- decode ------------------------------------------------------------
     def step(self, seq_ids: Optional[Sequence[int]] = None) -> Dict[int, int]:
         """One decode step for ``seq_ids`` (default: every running row):
@@ -254,17 +493,25 @@ class _EngineAdapterBase:
         live = _live_rows(self.seqs, seq_ids, pending)
         if not live and not pending:
             return self._drain_ready()
+        if _FAULTS.active:
+            _FAULTS.fire("slow_step")
         if live:
-            _pre_step_checks(self.seqs, live, self._pos_limit)
+            _pre_step_checks(self.seqs, live, self._pos_limit,
+                             self.telemetry)
         self._advance_prefill(seq_ids)
         if not live:
             return self._drain_ready()
+        t0 = time.perf_counter()
         live = self._grow_for_step(live)
         if not live:
             return self._drain_ready()
         scr = self._scratch_for(live)
         scr.fill(self)
+        dispatched = False
         try:
+            if _FAULTS.active:
+                _FAULTS.fire("decode_step")
+            dispatched = True
             out = self._dispatch_decode(scr)
             new = self._fetch_rows(out, len(live))
         except ServingError:
@@ -274,10 +521,11 @@ class _EngineAdapterBase:
         except Exception as e:
             self._rollback_step_growth(live)
             self._scratch = None
-            raise StepFailure(
+            self.telemetry.on_step_failure("decode", self._tenant_of(live))
+            raise _trace_error(StepFailure(
                 self._decode_failure_msg + "; positions were not advanced",
                 phase="decode", seq_ids=tuple(live),
-                retry_safe=False) from e
+                retry_safe=not dispatched)) from e
         res = self._drain_ready()
         for i, s in enumerate(live):
             st = self.seqs[s]
@@ -285,6 +533,8 @@ class _EngineAdapterBase:
             tok = int(new[i, 0])
             self._append_token(st, tok)
             res[s] = tok
+        self.telemetry.on_step(live, t0, padded=scr.pad_to)
+        self.telemetry.on_fetch(1)
         return res
 
     def step_many(self, num_steps: int,
@@ -299,16 +549,19 @@ class _EngineAdapterBase:
         live = _live_rows(self.seqs, seq_ids, pending)
         if not live and not pending:
             return {s: [t] for s, t in self._drain_ready().items()}
+        if _FAULTS.active:
+            _FAULTS.fire("slow_step")
         if live:
             _pre_step_checks(self.seqs, live, self._pos_limit,
-                             horizon=num_steps)
+                             self.telemetry, horizon=num_steps)
         self._advance_prefill(seq_ids)
         if not live:
             return {s: [t] for s, t in self._drain_ready().items()}
+        t0 = time.perf_counter()
         live = self._grow_for_step(live, num_steps)
         if not live:
             return {s: [t] for s, t in self._drain_ready().items()}
-        toks = self._run_many(live, num_steps)
+        toks, pad_to = self._run_many(live, num_steps)
         res = {s: [t] for s, t in self._drain_ready().items()}
         for i, s in enumerate(live):
             st = self.seqs[s]
@@ -317,15 +570,56 @@ class _EngineAdapterBase:
             for t in row:
                 self._append_token(st, t)
             res.setdefault(s, []).extend(row)
+        self.telemetry.on_step(live, t0, padded=pad_to, steps=num_steps)
+        self.telemetry.on_fetch(num_steps)
         return res
+
+    def flush(self) -> Dict[int, int]:
+        """Hand back every token not yet delivered: {seq_id: token}. The
+        eager path keeps nothing in flight, so this only drains first
+        tokens a failed call left behind."""
+        return self._drain_ready()
 
     def _drain_ready(self) -> Dict[int, int]:
         out, self._ready = self._ready, {}
         return out
 
-    def _fetch_rows(self, out, b: int) -> np.ndarray:
-        toks = out["tokens"].cpu().numpy()
-        return toks.reshape(toks.shape[0], -1)[:b]
+    def _run_guarded(self, live, n: int, run):
+        """Run the fused loop ``run()`` (which fetches its tokens) under
+        the ``decode_step`` fault point; any failure rolls back the
+        horizon's KV growth and raises a typed :class:`StepFailure`."""
+        dispatched = False
+        try:
+            if _FAULTS.active:
+                _FAULTS.fire("decode_step")
+            dispatched = True
+            return run()
+        except ServingError:
+            self._rollback_step_growth(live, n)
+            raise
+        except Exception as e:
+            self._rollback_step_growth(live, n)
+            self.telemetry.on_step_failure("decode", self._tenant_of(live))
+            raise _trace_error(StepFailure(
+                "fused decode loop failed; positions were not advanced",
+                phase="decode", seq_ids=tuple(live),
+                retry_safe=not dispatched)) from e
+
+    # -- post-mortem snapshot ----------------------------------------------
+    def debug_state(self) -> Dict[str, Any]:
+        """Read-only host-side snapshot for post-mortems; JSON-able, never
+        touches device state."""
+        return {
+            "engine": self.engine_name,
+            "running_ids": [int(s) for s in sorted(self.seqs)],
+            "positions": {int(s): int(st.position)
+                          for s, st in self.seqs.items()},
+            "tenants": {int(s): _meta_tenant(st.meta)
+                        for s, st in self.seqs.items()},
+            "pipeline_inflight": 0,
+            "ready_undelivered": [int(s) for s in sorted(self._ready)],
+            "host_stats": dict(self.host_stats),
+        }
 
 
 def _refuse_waiting(**knobs):
@@ -344,8 +638,7 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
     engine_name = "cb"
 
     def __init__(self, app, telemetry=None, pipeline_depth: int = 0):
-        _refuse_waiting(telemetry=telemetry is not None,
-                        pipeline_depth=pipeline_depth)
+        _refuse_waiting(pipeline_depth=pipeline_depth)
         cfg = app.tpu_config
         if not cfg.is_continuous_batching:
             raise ConfigurationError("app must be built with "
@@ -355,13 +648,11 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         self.app = app
         self.batch = cfg.batch_size
         self.seqs: Dict[int, _SeqState] = {}
+        self.telemetry = _AdapterTelemetry("cb", telemetry)
         self._pos_limit = cfg.seq_len
         # free rows, ascending — maintained incrementally on add/release
         self._free: List[int] = list(range(self.batch))
-        self._ready: Dict[int, int] = {}
-        self._scratch: Optional[_CbScratch] = None
-        self.host_stats: Dict[str, int] = {"dispatches": 0,
-                                           "device_steps": 0}
+        self._init_host_stats()
 
     @property
     def free_slots(self) -> List[int]:
@@ -383,8 +674,8 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
                                      f"[0,{self.batch})")
             if sid in self.seqs:
                 raise AdmissionError(f"seq_id {sid} already running")
-        deadlines = _resolve_deadlines(deadline_s, len(seq_ids),
-                                       time.perf_counter())
+        t0 = time.perf_counter()
+        deadlines = _resolve_deadlines(deadline_s, len(seq_ids), t0)
         b = len(seq_ids)
         lens = np.asarray([len(p) for p in prompts], np.int32)
         try:
@@ -409,9 +700,10 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         except ServingError:
             raise
         except Exception as e:
-            raise StepFailure(
+            self.telemetry.on_step_failure("prefill")
+            raise _trace_error(StepFailure(
                 "prefill device step failed; no sequences were admitted",
-                phase="prefill", seq_ids=seq_ids, retry_safe=False) from e
+                phase="prefill", seq_ids=seq_ids, retry_safe=False)) from e
         res = {}
         for i, s in enumerate(seq_ids):
             self.seqs[s] = _SeqState(
@@ -419,6 +711,7 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
                 prompt_len=int(lens[i]), deadline=deadlines[i])
             del self._free[bisect.bisect_left(self._free, s)]
             res[s] = int(toks[i])
+        self.telemetry.on_add(seq_ids, prompts, t0, live=b, padded=pad_to)
         return res
 
     def release(self, seq_ids: Sequence[int]):
@@ -427,6 +720,7 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
             if self.seqs.pop(sid, None) is not None:
                 bisect.insort(self._free, sid)
                 self._scratch = None
+        self.telemetry.on_release(seq_ids)
 
     def _scratch_for(self, live: Sequence[int]) -> _CbScratch:
         pad_to = self._batch_bucket(len(live))
@@ -441,9 +735,9 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         self.host_stats["device_steps"] += 1
         return out
 
-    def _run_many(self, live: List[int], num_steps: int) -> np.ndarray:
+    def _run_many(self, live: List[int], num_steps: int):
         """Fused k-step decode through ``decode_loop``: one dispatch, one
-        fetch."""
+        fetch. Returns (tokens (b, k), batch bucket)."""
         b = len(live)
         pad_to = self._batch_bucket(b)
         first = np.asarray([self.seqs[s].last_token for s in live], np.int32)
@@ -452,18 +746,14 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         if pad_to > b:
             first, pos, sid = (_repeat_row0(x, pad_to)
                                for x in (first, pos, sid))
-        try:
+
+        def run():
             out = self.app._run_decode_loop(first, pos, num_steps,
                                             seq_ids=sid)
             self.host_stats["dispatches"] += 1
             self.host_stats["device_steps"] += num_steps
             return self._fetch_rows(out, b)
-        except ServingError:
-            raise
-        except Exception as e:
-            raise StepFailure(
-                "fused decode loop failed; positions were not advanced",
-                phase="decode", seq_ids=tuple(live), retry_safe=False) from e
+        return self._run_guarded(live, num_steps, run), pad_to
 
     def _batch_bucket(self, b: int) -> int:
         if b > self.batch:
@@ -480,7 +770,13 @@ class PagedEngineAdapter(_EngineAdapterBase):
     chunk (default: the largest ctx bucket); ``prefill_budget_tokens``
     defers prefill to ``step()`` (``add_requests`` returns ``{}``, each
     step runs at most one packed chunk dispatch of at most that many
-    prompt tokens before its decode work)."""
+    prompt tokens before its decode work).
+
+    ``ragged=True`` routes every step through ONE mixed dispatch of the
+    live decode rows and the pending prefill chunks
+    (:class:`~.ragged.RaggedDispatchPath`); admission then always defers
+    and ``prefill_budget_tokens`` caps the prompt tokens packed per
+    step."""
 
     engine_name = "paged"
 
@@ -492,11 +788,9 @@ class PagedEngineAdapter(_EngineAdapterBase):
                  speculation=None, kv_spill_tier=None,
                  ragged: bool = False, lora_pool=None):
         _refuse_waiting(**{
-            "telemetry": telemetry is not None,
             "pipeline_depth > 0": pipeline_depth,
             "speculation": speculation is not None,
             "kv_spill_tier": kv_spill_tier is not None,
-            "ragged=True": ragged,
             "lora_pool": lora_pool is not None})
         cfg = app.tpu_config
         if not cfg.is_block_kv_layout:
@@ -516,6 +810,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self.app = app
         self.batch = cfg.batch_size
         self.seqs: Dict[int, _SeqState] = {}
+        self.telemetry = _AdapterTelemetry("paged", telemetry)
         self.preemption_policy = preemption_policy
         self.preempted: List[Preempted] = []
         self._admit_counter = 0
@@ -528,10 +823,14 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self.prefill_budget_tokens = prefill_budget_tokens
         self._chunks: Dict[int, _ChunkState] = {}   # pending admissions
         self._unwritten: set = set()   # allocated blocks not fully written
-        self._ready: Dict[int, int] = {}   # first tokens not yet delivered
-        self._scratch: Optional[_PagedScratch] = None
-        self.host_stats: Dict[str, int] = {
-            "dispatches": 0, "device_steps": 0, "prefill_dispatches": 0}
+        self._init_host_stats()
+        # degradation actuator (set_ragged_shed): route steps through the
+        # two-phase template instead of the unified dispatch
+        self._ragged_shed = False
+        self._ragged = None
+        if ragged:
+            from .ragged import RaggedDispatchPath
+            self._ragged = RaggedDispatchPath(self)
 
     # -- admission ---------------------------------------------------------
     def add_requests(self, seq_ids: Sequence[int],
@@ -544,7 +843,8 @@ class PagedEngineAdapter(_EngineAdapterBase):
         every allocation from this call is rolled back (pool pressure may
         still preempt RUNNING sequences first; that eviction survives a
         rollback). Returns {seq_id: first token}, or ``{}`` when prefill
-        is deferred to ``step()`` (``prefill_budget_tokens``)."""
+        is deferred to ``step()`` (``prefill_budget_tokens`` or
+        ``ragged=True``)."""
         _validate_admission(seq_ids, prompts, self.app.tpu_config.seq_len)
         for sid in seq_ids:
             if sid in self.seqs or sid in self._chunks:
@@ -588,31 +888,42 @@ class PagedEngineAdapter(_EngineAdapterBase):
                 self._admit_counter += 1
                 self._chunks[sid] = _ChunkState(
                     prompt=prompt, done=int(c),
-                    admit_idx=self._admit_counter,
+                    admit_idx=self._admit_counter, t0=t0,
                     deadline=deadlines[i], meta=metas[i])
         except ServingError:
             self._rollback_admission(begun)
             raise
         except Exception as e:
             self._rollback_admission(begun)
-            raise StepFailure(
+            self.telemetry.on_step_failure(
+                "prefill", _common_tenant(map(_meta_tenant, metas)))
+            raise _trace_error(StepFailure(
                 "paged admission failed; all allocations from this call "
                 "were rolled back", phase="prefill", seq_ids=seq_ids,
-                retry_safe=True) from e
-        if self.prefill_budget_tokens is not None:
+                retry_safe=True)) from e
+        if self.prefill_budget_tokens is not None or self._ragged is not None:
+            # deferred: step() drives the chunks (ragged mode always
+            # defers — the unified dispatch packs chunk rows WITH decode
+            # rows, so admission never serializes its own device work)
             return {}
         try:
             while any(s in self._chunks for s in seq_ids):
-                self._prefill_step(only=protect)
+                self._prefill_step(only=protect, defer_telemetry=True)
         except ServingError:
             self._rollback_admission(begun)
             raise
         except Exception as e:
             self._rollback_admission(begun)
-            raise StepFailure(
+            self.telemetry.on_step_failure(
+                "prefill", _common_tenant(map(_meta_tenant, metas)))
+            raise _trace_error(StepFailure(
                 "paged prefill failed; all allocations from this call were "
                 "rolled back", phase="prefill", seq_ids=seq_ids,
-                retry_safe=False) from e
+                retry_safe=False)) from e
+        # telemetry only once the WHOLE call is past rollback
+        self.telemetry.on_add(seq_ids, prompts, t0, live=len(seq_ids),
+                              padded=len(seq_ids), count_rows=False,
+                              tenants=[_meta_tenant(m) for m in metas])
         return {s: self._ready.pop(s) for s in seq_ids}
 
     def release(self, seq_ids: Sequence[int]):
@@ -626,6 +937,73 @@ class PagedEngineAdapter(_EngineAdapterBase):
                 self._scratch = None
                 if sid in self.app.kv_mgr.tables:
                     self.app.kv_mgr.end_sequence(sid)
+        self.telemetry.on_release(seq_ids)
+
+    # -- step routing (ragged unified dispatch, serving/ragged/) ------------
+    def step(self, seq_ids: Optional[Sequence[int]] = None,
+             token_room: Optional[Dict[int, int]] = None):
+        """One decode step, {seq_id: token} (see the base class). With
+        ``ragged=True`` every step is ONE unified mixed dispatch through
+        serving/ragged/ and returns {seq_id: [tokens]}; ``token_room``
+        (scheduler hook) caps each row's tokens for the step. With the
+        ragged path SHED (:meth:`set_ragged_shed`) the step falls back to
+        the two-phase chunk-then-decode template; greedy tokens are the
+        same either way, only the dispatch count changes."""
+        if self._ragged is not None:
+            if not self._ragged_shed:
+                return self._ragged.step(seq_ids, token_room)
+            return super().step(seq_ids)   # 1 token/row: room is honored
+        if token_room is not None:
+            raise ConfigurationError(
+                "token_room is a speculative-decode hook; build the "
+                "adapter with ragged=True to use it")
+        return super().step(seq_ids)
+
+    def step_many(self, num_steps: int,
+                  seq_ids: Optional[Sequence[int]] = None
+                  ) -> Dict[int, List[int]]:
+        """Fused multi-step decode (base class). With ``ragged=True``
+        ``num_steps`` is a per-row TOKEN budget: unified engine steps run
+        (each one materialized dispatch) until every row has delivered
+        it."""
+        if self._ragged is None:
+            return super().step_many(num_steps, seq_ids)
+        if num_steps < 1:
+            raise ConfigurationError("step_many requires num_steps >= 1")
+        out: Dict[int, List[int]] = {}
+        remaining: Dict[int, int] = {}
+        targets = seq_ids                  # validated on the first pass only
+        for _ in range(num_steps):
+            live = _live_rows(self.seqs, targets, self._pending_ids())
+            if seq_ids is not None:
+                # rows preempted mid-loop must not fail later passes
+                targets = [s for s in seq_ids
+                           if s in self.seqs or s in self._chunks]
+            ids = [s for s in live if remaining.get(s, num_steps) > 0]
+            if not ids and not self._pending_ids():
+                break
+            room = {s: remaining.get(s, num_steps) for s in ids}
+            # through step() so the shed flag applies here too (a shed
+            # plain step returns {seq_id: token})
+            res = self.step(ids, token_room=room)
+            if not res and not ids:
+                break                  # pending-only pass made no tokens
+            for s, toks in res.items():
+                toks = toks if isinstance(toks, list) else [toks]
+                out.setdefault(s, []).extend(toks)
+                remaining[s] = remaining.get(s, num_steps) - len(toks)
+        return out
+
+    @property
+    def ragged_shed(self) -> bool:
+        return self._ragged_shed
+
+    def set_ragged_shed(self, shed: bool) -> None:
+        """Degradation actuator: route steps through the two-phase (chunk
+        dispatch + decode dispatch) template instead of the unified ragged
+        dispatch — see :meth:`step`. Reversible; a no-op without
+        ``ragged=True``."""
+        self._ragged_shed = bool(shed)
 
     # -- decode hooks ------------------------------------------------------
     _decode_failure_msg = ("paged decode step failed; KV growth was rolled "
@@ -657,15 +1035,24 @@ class PagedEngineAdapter(_EngineAdapterBase):
         return scr
 
     def _dispatch_decode(self, scr: _PagedScratch):
+        """Issue ONE paged decode step without reading any device value
+        (the fetch is the caller's)."""
         out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
                                   scr.last)
         self.host_stats["dispatches"] += 1
         self.host_stats["device_steps"] += 1
+        rec = _get_recorder()
+        if rec.enabled:
+            rec.instant("dispatch.decode", cat="adapter",
+                        engine=self.engine_name, rows=scr.b,
+                        pad_to=scr.pad_to, seq_ids=list(scr.live),
+                        pipelined=False)
         return out
 
-    def _run_many(self, live: List[int], num_steps: int) -> np.ndarray:
+    def _run_many(self, live: List[int], num_steps: int):
         """Fused k-step decode (``paged_decode_loop``): blocks for the whole
-        horizon are allocated already; slots advance on the device."""
+        horizon are allocated already; slots advance on the device.
+        Returns (tokens (b, k), batch bucket)."""
         app = self.app
         b = len(live)
         pad_to = autobucketing.get_target_bucket(app.batch_buckets, b)
@@ -677,20 +1064,13 @@ class PagedEngineAdapter(_EngineAdapterBase):
             first = _repeat_row0(first, pad_to)
             pos = _repeat_row0(pos, pad_to)
             bt = _repeat_row0(bt, pad_to)
-        try:
+
+        def run():
             out = app._run_paged_loop(first, pos, bt, num_steps)
             self.host_stats["dispatches"] += 1
             self.host_stats["device_steps"] += num_steps
             return self._fetch_rows(out, b)
-        except ServingError:
-            self._rollback_grow(live, num_steps)
-            raise
-        except Exception as e:
-            self._rollback_grow(live, num_steps)
-            raise StepFailure(
-                "fused paged decode loop failed; KV growth was rolled back "
-                "and positions were not advanced", phase="decode",
-                seq_ids=tuple(live), retry_safe=False) from e
+        return self._run_guarded(live, num_steps, run), pad_to
 
     # -- scheduler hooks ---------------------------------------------------
     @property
@@ -705,6 +1085,39 @@ class PagedEngineAdapter(_EngineAdapterBase):
     @property
     def free_capacity(self) -> int:
         return self.batch - len(self.seqs) - len(self._chunks)
+
+    def prefix_warmth(self, prompt: Sequence[int]) -> int:
+        """READ-ONLY probe: how many leading tokens of ``prompt`` an
+        admission right now would serve from the prefix cache (cut at the
+        first block a pending admission has not written yet, capped at
+        ``len(prompt) - 1``). The engine orders admissions warm-first."""
+        cached, blocks = self.app.kv_mgr.probe_cached_tokens(prompt)
+        if cached and self._unwritten:
+            cached = cut_cached_at_unwritten(
+                blocks, cached, self.app.kv_mgr.spec.block_size,
+                self._unwritten)
+        return min(cached, len(prompt) - 1)
+
+    def debug_state(self) -> Dict[str, Any]:
+        """Base snapshot plus pending chunked admissions, batch headroom,
+        block-pool occupancy and uncollected preemption records."""
+        state = super().debug_state()
+        mgr = self.app.kv_mgr
+        usable = mgr.spec.num_blocks - 1          # block 0 is the null block
+        free = int(mgr.allocator.num_free)
+        state.update({
+            "pending_prefill": {
+                int(s): {"done": int(c.done), "total": len(c.prompt),
+                         "tenant": _meta_tenant(c.meta)}
+                for s, c in self._chunks.items()},
+            "free_capacity": self.free_capacity,
+            "blocks": {"usable": usable, "free": free,
+                       "in_use": usable - free,
+                       "unwritten": len(self._unwritten)},
+            "preempted_uncollected": [int(r.seq_id) for r in self.preempted],
+            "ragged": self._ragged is not None,
+        })
+        return state
 
     # -- preemption --------------------------------------------------------
     def preempt(self, seq_id: int, reason: str = "scheduler") -> Preempted:
@@ -735,21 +1148,43 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self._ready.pop(victim, None)      # the replay regenerates it
         cst = self._chunks.pop(victim, None)
         if cst is not None:
+            # half-prefilled victim: blocks not fully written leave the
+            # prefix cache; the record's tokens are the bare prompt
             self._abort_pending(victim)
+            tenant = _meta_tenant(cst.meta)
             self.preempted.append(Preempted(
                 seq_id=victim, tokens=tuple(cst.prompt),
                 prompt_len=len(cst.prompt), n_generated=0, reason=reason,
-                deadline=cst.deadline, meta=cst.meta))
+                deadline=cst.deadline, meta=cst.meta,
+                trace_id=self._trace_preempt(victim, reason, tenant,
+                                             pending=True,
+                                             trace=_trace_of(cst.meta))))
+            self.telemetry.on_preempt(victim, reason, tenant)
             return
         st = self.seqs.pop(victim)
         self._scratch = None
         if victim in self.app.kv_mgr.tables:
             self.app.kv_mgr.end_sequence(victim)
+        tenant = _meta_tenant(st.meta)
         self.preempted.append(Preempted(
             seq_id=victim, tokens=tuple(st.tokens),
             prompt_len=st.prompt_len,
             n_generated=len(st.tokens) - st.prompt_len, reason=reason,
-            deadline=st.deadline, meta=st.meta))
+            deadline=st.deadline, meta=st.meta,
+            trace_id=self._trace_preempt(victim, reason, tenant,
+                                         trace=_trace_of(st.meta))))
+        self.telemetry.on_preempt(victim, reason, tenant)
+
+    def _trace_preempt(self, victim: int, reason: str, tenant: str,
+                       pending: bool = False,
+                       trace: Optional[str] = None) -> Optional[str]:
+        rec = _get_recorder()
+        if not rec.enabled:
+            return None
+        return rec.instant("preempt", cat="adapter",
+                           engine=self.engine_name, seq_id=victim,
+                           reason=reason, tenant=tenant, pending=pending,
+                           trace=trace)
 
     def _grow_with_preemption(self, live: Sequence[int],
                               n: int = 1) -> List[int]:
@@ -794,6 +1229,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
             if self.seqs.pop(sid, None) is not None:
                 self._scratch = None
             self._abort_pending(sid)
+        self.telemetry.on_admission_rollback()
 
     # -- chunked, packed prefill -------------------------------------------
     def _advance_prefill(self, seq_ids=None):
@@ -802,7 +1238,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
                                target=seq_ids)
 
     def _prefill_step(self, budget: Optional[int] = None, only=None,
-                      target=None):
+                      target=None, defer_telemetry: bool = False):
         """ONE packed chunk dispatch: pending sequences (admission order)
         each contribute their next uncached-suffix chunk as a row of one
         ctx-bucket ``_run_paged`` call, bounded by ``budget`` real prompt
@@ -810,7 +1246,9 @@ class PagedEngineAdapter(_EngineAdapterBase):
         their first token in ``_ready``; intermediate samples are
         discarded. A failure rolls back every sequence of the dispatch.
         ``target`` is the step call's explicit seq_ids (None = all): an
-        expired pending admission raises only when targeted."""
+        expired pending admission raises only when targeted.
+        ``defer_telemetry`` (the transactional ``add_requests`` path)
+        leaves the admission telemetry to the caller."""
         chunks = self._chunks
         order = sorted(chunks, key=lambda s: chunks[s].admit_idx)
         if only is not None:
@@ -822,10 +1260,15 @@ class PagedEngineAdapter(_EngineAdapterBase):
             hit = (expired if target is None
                    else [s for s in expired if s in set(target)])
             if hit:
-                raise DeadlineExceeded(
+                fresh = [s for s in hit if not chunks[s].expired_reported]
+                for s in fresh:
+                    chunks[s].expired_reported = True
+                self.telemetry.on_deadline(
+                    fresh, [_meta_tenant(chunks[s].meta) for s in fresh])
+                raise _trace_error(DeadlineExceeded(
                     f"seq_ids {hit} exceeded their wall-clock deadline "
                     "mid-prefill; release() them (or re-queue with a fresh "
-                    "budget) and step again", seq_ids=hit)
+                    "budget) and step again", seq_ids=hit))
             # expired but not targeted by this step: skip them without
             # stalling the targeted rows
             order = [s for s in order if s not in expired]
@@ -844,21 +1287,29 @@ class PagedEngineAdapter(_EngineAdapterBase):
         seq_list = tuple(s for s, *_ in rows)
         final_rows = [(i, s) for i, (s, _, _, fin) in enumerate(rows)
                       if fin]
+        row_tenant = _common_tenant(_meta_tenant(chunks[s].meta)
+                                    for s in seq_list)
+        dispatched = False
         try:
+            if _FAULTS.active:
+                _FAULTS.fire("prefill_chunk")
             packed = self._pack_prefill_rows(rows)
+            dispatched = True
             out = self.app._run_paged(*packed)
             self.host_stats["prefill_dispatches"] += 1
-            new = (out["tokens"].cpu().numpy().reshape(-1, 1)
-                   if final_rows else None)
-        except ServingError:
+            new = (self._fetch_prefill_tokens(out) if final_rows else None)
+        except ServingError as e:
             self._abort_prefill_rows(seq_list)
+            _trace_error(e)
             raise
         except Exception as e:
             self._abort_prefill_rows(seq_list)
-            raise StepFailure(
+            self.telemetry.on_step_failure("prefill", row_tenant)
+            raise _trace_error(StepFailure(
                 "chunked prefill dispatch failed; every partially-"
                 "prefilled sequence packed in it was rolled back",
-                phase="prefill", seq_ids=seq_list, retry_safe=False) from e
+                phase="prefill", seq_ids=seq_list,
+                retry_safe=not dispatched)) from e
         bs = self.app.kv_mgr.spec.block_size
         for s, _, n, _ in rows:
             chunks[s].done += n
@@ -868,6 +1319,12 @@ class PagedEngineAdapter(_EngineAdapterBase):
             for s2, cst in chunks.items():
                 self._unwritten.difference_update(
                     self.app.kv_mgr.tables[s2][:cst.done // bs])
+        pad_rows, width = packed[0].shape
+        real = sum(n for _, _, n, _ in rows)
+        self.host_stats["prefill_real_tokens"] += real
+        self.host_stats["prefill_padded_tokens"] += pad_rows * width
+        self.telemetry.on_prefill_chunk(len(rows), pad_rows, real,
+                                        pad_rows * width)
         for i, s in final_rows:
             st = chunks.pop(s)
             self._unwritten.difference_update(self.app.kv_mgr.tables[s])
@@ -879,6 +1336,24 @@ class PagedEngineAdapter(_EngineAdapterBase):
                 deadline=st.deadline, meta=st.meta)
             self._scratch = None
             self._ready[s] = tok
+            if not defer_telemetry:
+                self.telemetry.on_add([s], [st.prompt], st.t0, live=1,
+                                      padded=1, count_rows=False,
+                                      tenants=[_meta_tenant(st.meta)])
+
+    def _fetch_prefill_tokens(self, out) -> np.ndarray:
+        """Materialize a final-chunk dispatch's sampled tokens (the one
+        blocking copy of a packed admission)."""
+        t0 = time.perf_counter()
+        toks = out["tokens"].cpu().numpy()
+        t1 = time.perf_counter()
+        self.host_stats["prefill_blocking_fetches"] += 1
+        self.host_stats["prefill_blocked_s"] += t1 - t0
+        rec = _get_recorder()
+        if rec.enabled:
+            rec.complete("fetch.tokens", t0, cat="adapter", t1=t1,
+                         engine=self.engine_name, phase="prefill")
+        return toks.reshape(toks.shape[0], -1)
 
     def _pack_prefill_rows(self, rows):
         """Packed-chunk inputs: one row per sequence at its own suffix

@@ -242,8 +242,10 @@ def test_continuous_batching_streams_match_jax():
     p1 = rng.integers(1, 500, size=9).tolist()
     p2 = rng.integers(1, 500, size=12).tolist()
     assert _staggered(teng, p1, p2) == _staggered(jeng, p1, p2)
-    assert teng.host_stats == {k: jeng.host_stats[k]
-                               for k in teng.host_stats}
+    # the integer counters (the *_blocked_s timings differ per run)
+    counters = {k: v for k, v in teng.host_stats.items()
+                if isinstance(v, int)}
+    assert counters == {k: jeng.host_stats[k] for k in counters}
 
 
 def test_continuous_adapter_rejects_misuse():

@@ -263,8 +263,10 @@ def test_adapter_staggered_streams_match_jax():
     p2 = rng.integers(1, 500, size=12).tolist()
     assert _staggered(teng, p1, p2) == _staggered(jeng, p1, p2)
     assert teng.app.kv_mgr.tables == {} and jeng.app.kv_mgr.tables == {}
-    assert teng.host_stats == {k: jeng.host_stats[k]
-                               for k in teng.host_stats}
+    # the integer counters (the *_blocked_s timings differ per run)
+    counters = {k: v for k, v in teng.host_stats.items()
+                if isinstance(v, int)}
+    assert counters == {k: jeng.host_stats[k] for k in counters}
 
 
 def test_adapter_chunked_prefill_and_preemption_match_jax():

@@ -17,6 +17,15 @@ FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|neuronx_distributed_inference_tpu)\b")
 
 
+SERVING_MODULES = [port.__name__ + "." + m for m in (
+    "serving.adapter", "serving.ragged", "serving.ragged.planner",
+    "serving.ragged.path", "serving.engine", "serving.engine.scheduler",
+    "serving.engine.queue", "serving.engine.streams",
+    "serving.speculation.verifier", "telemetry", "telemetry.registry",
+    "telemetry.metrics", "telemetry.spans", "telemetry.trace",
+    "telemetry.request_trace", "resilience.faults")]
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         [PORT_DIR], prefix=port.__name__ + "."))
@@ -26,7 +35,7 @@ def test_import_pulls_in_no_jax():
     """A fresh interpreter imports every module of the port; afterwards
     neither jax nor the JAX package is in sys.modules."""
     mods = _port_modules()
-    assert "neuronx_distributed_inference_tpu_torch.serving.adapter" in mods
+    assert set(SERVING_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -41,6 +50,21 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_module_imports_only_port_code(module):
+    """Each module of the serving path imports, and every module it pulls
+    in is the port's own, the standard library's or a dependency's —
+    never the JAX package's (jax itself may already be loaded by this
+    test process)."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+    src = open(mod.__file__).read()
+    assert "neuronx_distributed_inference_tpu." not in "".join(
+        line for line in src.splitlines(True)
+        if line.lstrip().startswith(("import ", "from ")))
 
 
 @pytest.mark.parametrize("root", ["package", "chip_smoke"])
