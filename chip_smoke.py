@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --only paged,ragged    # a subset of the groups
+
 Needs one CUDA card and the CUDA toolkit (``nvcc``); builds every kernel
 under ``neuronx_distributed_inference_tpu_torch/csrc/`` from source (one
 nvcc per source, all started together), then:
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
-     CUDA versions, kernel build seconds;
+     CUDA versions, whether ``torch.bmm`` takes ``out_dtype`` (the bf16
+     attention cores' fp32-output product), kernel build seconds;
   2. each kernel against its plain-PyTorch twin on the card, over the case
      matrix of the TPU kernel's tests, at the serving paths' shapes: the
      paged decode kernel, the contiguous decode kernel and the flash
@@ -17,31 +20,40 @@ nvcc per source, all started together), then:
      merge counters end at 0, and every split count 1-64 agrees with the
      twin;
   3. the paged path, bf16, Llama-3.2-1B geometry at full depth with random
-     weights from seed 0: ``PagedCausalLMApplication.generate`` of 64 new
-     tokens for 4 prompts; the paged kernel's launches must equal layers x
-     all-decode steps, and every decode step's logits must agree with the
+     weights from seed 0, after ``serving.warmup.precompile`` captured its
+     T = 1 step into a CUDA graph: ``PagedCausalLMApplication.generate`` of
+     64 new tokens for 4 prompts; no steady-state incident; the paged
+     kernel's launches (eager launches plus graph replays x the launches
+     each graph holds) must equal layers x decode steps, and every decode
+     step's logits must agree with the
      same app and weights built with ``attn_block_tkg_kernel_enabled=False``
      (the gather path) fed the same tokens;
-  4. paged serving, fp32 (TF32 off), same geometry: 6 requests with
+  4. paged serving, fp32 (TF32 off inside the phase), same geometry: 6
+     requests with
      staggered admission through ``PagedEngineAdapter``; each stream must
      equal that prompt's single-request ``generate`` (a first difference is
      accepted only at a near-tie of the reference's top-2 logits, and
      printed);
   5. paged timings: kernel, plain twin and the SDPA yardstick as device
      time (CUDA-graph replay between CUDA events), prefill and decode steps
-     on the host clock, and a torch.profiler trace of the decode steps
-     (device time by kernel, device idle share);
+     on the host clock of a precompiled app (decode replays its graph), and
+     a torch.profiler trace of the decode steps (device time by kernel,
+     device idle share);
   6. the contiguous path (the README's entry point), bf16, Mistral-7B-v0.1
      geometry at full width and depth with random weights from seed 0:
      ``CausalLMApplication.generate`` of 64 new tokens for 4 prompts with
-     ``attn_kernel_enabled=True``; the flash kernel's launches must equal
-     layers x prefill calls and the contiguous decode kernel's layers x
-     decode steps, and the prefill and every decode step's logits must
-     agree with the same app and weights built with both kernels off, fed
-     the same tokens; then its timings as in 5;
+     ``attn_kernel_enabled=True``, after ``precompile`` (decode replays a
+     graph); the flash kernel's launches must equal layers x prefill calls
+     and the contiguous decode kernel's (replays counted) layers x decode
+     steps, and the prefill and every decode step's logits must agree with
+     the same app and weights built with both kernels off, fed the same
+     tokens (both bf16 apps held to an fp32 app, TF32 off for it); then its
+     timings as in 5, the decode step timed with the decode kernel on and
+     off (the port's default for window-less models);
   7. the window bites: full width, 4 layers, ``sliding_window=512``, the
      same prompts and checks as 6;
-  8. contiguous serving, fp32 (TF32 off), full width, 8 layers: 6 requests
+  8. contiguous serving, fp32 (TF32 off inside the phase), full width, 8
+     layers: 6 requests
      with staggered admission through ``ContinuousBatchingAdapter``
      (decode on the gather path), each stream held to the single-request
      static ``generate`` (decode on the kernel) as in 4;
@@ -67,13 +79,21 @@ nvcc per source, all started together), then:
      only at a near-tie of the reference's top-2 logits, printed), and the
      launch gate of 9 holds (fp32 pages: the kernel's CUDA-core route).
 
+The fp32 comparisons (phases 2, 4, 8, 10 and the fp32 app of 6) turn TF32
+off inside :func:`fp32_exact`, which restores the previous flags.
+
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
+``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
+contig: 6-8; ragged: 9, 11, 10) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
 
+import argparse
+import asyncio
+import contextlib
 import json
 import math
 import statistics
@@ -165,6 +185,35 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """TF32 off for an fp32 comparison; the previous flags come back
+    after it."""
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def bmm_out_dtype_available() -> bool:
+    """Whether this torch multiplies bf16 into fp32 output on the card
+    (``torch.bmm(..., out_dtype=torch.float32)``, the route of the bf16
+    attention cores)."""
+    import torch
+    a = torch.ones((1, 2, 2), dtype=torch.bfloat16, device="cuda")
+    try:
+        out = torch.bmm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return False
+    return out.dtype == torch.float32 and float(out[0, 0, 0]) == 2.0
 
 
 def nvidia_smi() -> str:
@@ -520,19 +569,74 @@ def check_fused_merges(device):
         "contiguous_num_splits")
 
 
-def reset_launches():
-    """Set every kernel's launch count to 0."""
-    from neuronx_distributed_inference_tpu_torch.ops import (
-        decode_attention, flash_attention)
-    decode_attention.paged_decode_attention.launches = 0
-    decode_attention.decode_attention_stacked.launches = 0
-    flash_attention.flash_attention.launches = 0
+KERNEL_NAMES = ("paged_decode_attention", "decode_attention_stacked",
+                "flash_attention")
+
+
+def reset_launches(apps=()):
+    """Set every kernel's launch count to 0, and the graph replay counts
+    of ``apps``."""
+    from neuronx_distributed_inference_tpu_torch.models.cuda_graphs import \
+        KERNELS
+    for w in KERNELS.values():
+        w.launches = 0
+    for app in apps:
+        if app.graphs is not None:
+            app.graphs.reset_counts()
+
+
+def kernel_counts(apps=()):
+    """Each kernel's launches since :func:`reset_launches`: the eager
+    launches its wrapper counted plus, for each app, its graphs' replays
+    times the launches each graph holds."""
+    from neuronx_distributed_inference_tpu_torch.models.cuda_graphs import \
+        KERNELS
+    return {name: KERNELS[name].launches + sum(
+        app.graphs.replayed_launches(name) for app in apps
+        if app.graphs is not None) for name in KERNEL_NAMES}
+
+
+def graph_report(app):
+    """The app's captured graphs: replays by signature and the kernel
+    launches each holds, and its steady-state incidents."""
+    g = app.graphs
+    return {"captured": len(g),
+            "replays": {str(k): n for k, n in g.replays.items()},
+            "launches_per_replay": {str(k): g.kernel_launches(k)
+                                    for k in g.signatures()},
+            "incidents": app.warmup_state()["incidents"]}
+
+
+def warm(app, phase, **kw):
+    """``precompile`` the app (graphs for every T = 1 signature); emits
+    the report's summary."""
+    from neuronx_distributed_inference_tpu_torch.serving.warmup import \
+        precompile
+    rep = precompile(app, **kw)
+    emit({"phase": phase + "_precompile", "n_graphs": rep["n_graphs"],
+          "n_captured": rep["n_compiles"], "n_eager": rep["n_cache_loads"],
+          "seconds": rep["total_seconds"],
+          "captured": [[g["kind"], g["bucket"], round(g["seconds"], 3)]
+                       for g in rep["graphs"] if g["outcome"] == "capture"]})
+    if app.device.type == "cuda" and rep["n_compiles"] == 0:
+        raise AssertionError(f"{phase}: precompile captured no graph")
+    return rep
+
+
+def check_no_incidents(phase, app):
+    inc = app.warmup_state()["incidents"]
+    if inc:
+        raise AssertionError(f"{phase}: {len(inc)} steady-state incidents: "
+                             f"{inc[:3]}")
 
 
 def phase_kernels(device):
+    with fp32_exact():
+        return _phase_kernels(device)
+
+
+def _phase_kernels(device):
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     results = {}
     for kernel, cases, check in (
             ("paged_decode_attention", kernel_cases, check_kernel_against_twin),
@@ -561,7 +665,8 @@ def phase_kernels(device):
 # ---------------------------------------------------------------------------
 
 def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
-             prefix_caching=True, output_logits=False, num_blocks=None):
+             prefix_caching=True, output_logits=False, num_blocks=None,
+             graphs=True):
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         PagedCausalLMApplication
@@ -574,7 +679,8 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      output_logits=output_logits,
                      attn_block_tkg_kernel_enabled=kernel)
     app = PagedCausalLMApplication(None, LlamaInferenceConfig(tcfg, **hf),
-                                   LlamaFamily, device=device)
+                                   LlamaFamily, device=device,
+                                   cuda_graphs=graphs)
     return app.init_cache()
 
 
@@ -592,22 +698,24 @@ def prompts_of(lens, vocab, seed):
 
 def phase_main_path(hf, device, on_card=True):
     import numpy as np
-    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
     app = make_app(hf, device, "bfloat16", batch=len(PROMPT_LENS),
                    seq_len=2048, output_logits=True)
     app.init_random_weights(0)
     ids, mask = prompts_of(PROMPT_LENS, hf["vocab_size"], seed=0)
-    reset_launches()
+    warm(app, "main_path")
+    reset_launches([app])
     t0 = time.perf_counter()
     out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
                        return_logits=True)
     gen_s = time.perf_counter() - t0
-    launches = decode_attention.paged_decode_attention.launches
+    launches = kernel_counts([app])["paged_decode_attention"]
     decode_steps = NEW_TOKENS - 1
     want = hf["num_hidden_layers"] * decode_steps if on_card else 0
     emit({"phase": "main_path", "generate_s": gen_s, "launches": launches,
           "expected_launches": want, "decode_steps": decode_steps,
+          "graphs": graph_report(app),
           "generated_shape": list(out["generated"].shape)})
+    check_no_incidents("main_path", app)
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != layers x "
                              f"decode steps {want}")
@@ -693,12 +801,14 @@ def serve_staggered(eng, prompts):
 
 
 def phase_serving(hf, device):
+    with fp32_exact():
+        _phase_serving(hf, device)
+
+
+def _phase_serving(hf, device):
     import numpy as np
-    import torch
     from neuronx_distributed_inference_tpu_torch.serving import \
         PagedEngineAdapter
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     app = make_app(hf, device, "float32", batch=8, seq_len=512)
     app.init_random_weights(0)
     ref = make_app(hf, device, "float32", batch=1, seq_len=512,
@@ -839,6 +949,7 @@ def phase_timings(hf, device, app, ids, mask, launches):
     timing_app = make_app(hf, device, "bfloat16", batch=b, seq_len=2048,
                           prefix_caching=False)
     timing_app.params = app.params
+    warm(timing_app, "timings")
 
     def gen(n):
         timing_app.generate(ids, attention_mask=mask, max_new_tokens=n)
@@ -847,6 +958,7 @@ def phase_timings(hf, device, app, ids, mask, launches):
     k = 32
     decode_ms = (time_host(lambda: gen(1 + k)) - prefill_ms) / k
     profile_decode(lambda: gen(1), lambda: gen(1 + k), k)
+    check_no_incidents("timings", timing_app)
 
     # the kernel at the main path's decode shapes, over the main path's
     # own cache and tables (positions after its last decode step)
@@ -936,10 +1048,11 @@ def paged_kernel_entry(t, launches, path):
 # ---------------------------------------------------------------------------
 
 def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
-                        output_logits=False, cb=False):
+                        output_logits=False, cb=False, decode_kernel=None):
     """``CausalLMApplication`` over the Mistral family. kernels=True: the
     flash prefill kernel (``attn_kernel_enabled``) and the decode kernel by
-    default admission; False: both off (mha prefill, gather decode)."""
+    default admission (``decode_kernel`` False: the decode kernel off);
+    False: both off (mha prefill, gather decode)."""
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         CausalLMApplication
@@ -947,22 +1060,13 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
         MistralFamily, MistralInferenceConfig)
     tcfg = TpuConfig(batch_size=batch, seq_len=seq_len, dtype=dtype,
                      attn_kernel_enabled=kernels,
-                     attn_block_tkg_kernel_enabled=None if kernels else False,
+                     attn_block_tkg_kernel_enabled=(decode_kernel if kernels
+                                                    else False),
                      rolling_kv_cache=False, output_logits=output_logits,
                      is_continuous_batching=cb)
     app = CausalLMApplication(None, MistralInferenceConfig(tcfg, **hf),
                               MistralFamily, device=device)
     return app.init_cache()
-
-
-def kernel_counts():
-    from neuronx_distributed_inference_tpu_torch.ops import (
-        decode_attention, flash_attention)
-    return {"paged_decode_attention":
-            decode_attention.paged_decode_attention.launches,
-            "decode_attention_stacked":
-            decode_attention.decode_attention_stacked.launches,
-            "flash_attention": flash_attention.flash_attention.launches}
 
 
 def _upcast(params):
@@ -984,13 +1088,14 @@ def phase_contiguous(hf, device, phase: str):
                               output_logits=True)
     app.init_random_weights(0)
     ids, mask = prompts_of(MISTRAL_LENS, hf["vocab_size"], seed=0)
-    reset_launches()
+    warm(app, phase)
+    reset_launches([app])
     t0 = time.perf_counter()
     out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
                        return_logits=True)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    counts = kernel_counts()
+    counts = kernel_counts([app])
     decode_steps = NEW_TOKENS - 1
     want = {"paged_decode_attention": 0,
             "decode_attention_stacked": layers * decode_steps,
@@ -999,15 +1104,15 @@ def phase_contiguous(hf, device, phase: str):
     emit({"phase": phase, "generate_s": gen_s, "launches": counts,
           "expected_launches": want, "decode_steps": decode_steps,
           "prefill_calls": 1, "sliding_window": hf["sliding_window"],
-          "layers": layers, "generated_shape": list(gen.shape)})
+          "layers": layers, "graphs": graph_report(app),
+          "generated_shape": list(gen.shape)})
+    check_no_incidents(phase, app)
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != {want}")
     if gen.shape != (len(MISTRAL_LENS), NEW_TOKENS) or not (
             (gen >= 0) & (gen < hf["vocab_size"])).all():
         raise AssertionError(f"bad generated tokens {gen.shape}")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     logits = {"kernels": out["logits"]}
     for name, dtype in (("kernels_off", "bfloat16"),
                         ("fp32_reference", "float32")):
@@ -1017,10 +1122,12 @@ def phase_contiguous(hf, device, phase: str):
                                   output_logits=True)
         ref.params = (app.params if dtype == "bfloat16"
                       else _upcast(app.params))
-        logits[name] = ref.generate(
-            ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
-            return_logits=True, teacher_tokens=gen[:, :decode_steps])[
-                "logits"]
+        with (fp32_exact() if dtype == "float32"
+              else contextlib.nullcontext()):
+            logits[name] = ref.generate(
+                ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
+                return_logits=True, teacher_tokens=gen[:, :decode_steps])[
+                    "logits"]
         del ref
         torch.cuda.empty_cache()
     real = np.arange(out["logits"][0].shape[1])[None, :] < np.asarray(
@@ -1061,12 +1168,14 @@ def phase_contiguous(hf, device, phase: str):
 
 
 def phase_contiguous_serving(hf, device):
+    with fp32_exact():
+        _phase_contiguous_serving(hf, device)
+
+
+def _phase_contiguous_serving(hf, device):
     import numpy as np
-    import torch
     from neuronx_distributed_inference_tpu_torch.serving import \
         ContinuousBatchingAdapter
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     app = make_contiguous_app(hf, device, "float32", batch=8, seq_len=512,
                               cb=True)
     app.init_random_weights(0)
@@ -1076,10 +1185,10 @@ def phase_contiguous_serving(hf, device):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in SERVE_LENS]
-    reset_launches()
+    reset_launches([app])
     eng = ContinuousBatchingAdapter(app)
     streams, step = serve_staggered(eng, prompts)
-    served = kernel_counts()
+    served = kernel_counts([app])
     near_ties = []
     for s, prompt in enumerate(prompts):
         want = ref.generate(np.asarray([prompt]),
@@ -1146,22 +1255,39 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
         decode_attention, flash_attention)
     spec = app.spec
     b = len(MISTRAL_LENS)
-    timing_app = make_contiguous_app(hf, device, "bfloat16", batch=b,
-                                     seq_len=MISTRAL_SEQ)
-    timing_app.params = app.params
-
-    def gen(n):
-        timing_app.generate(ids, attention_mask=mask, max_new_tokens=n)
-        torch.cuda.synchronize()
-    prefill_ms = time_host(lambda: gen(1), reps=3)
     k = 32
-    decode_ms = (time_host(lambda: gen(1 + k), reps=3) - prefill_ms) / k
-    emit({"phase": "contiguous_steps", "prefill_ms_per_prompt":
-          prefill_ms / b, "prefill_ms_batch": prefill_ms,
-          "prompt_lens": list(MISTRAL_LENS), "ctx_bucket": 2048,
-          "decode_ms_per_step_batch4": decode_ms})
-    profile_decode(lambda: gen(1), lambda: gen(1 + k), k)
-    del timing_app
+    # the decode step with the decode kernel (default admission) and
+    # without it (the gather + mha_hl), on the same weights, timed in turns
+    # (on, off, off, on): the number the port's default for window-less
+    # models is chosen from
+    apps = {}
+    for tag, dk in (("kernel_on", None), ("kernel_off", False)):
+        apps[tag] = make_contiguous_app(hf, device, "bfloat16", batch=b,
+                                        seq_len=MISTRAL_SEQ,
+                                        decode_kernel=dk)
+        apps[tag].params = app.params
+        warm(apps[tag], "contiguous_steps_" + tag)
+
+    def gen(tag, n):
+        apps[tag].generate(ids, attention_mask=mask, max_new_tokens=n)
+        torch.cuda.synchronize()
+    steps = {tag: [] for tag in apps}
+    prefill = {tag: [] for tag in apps}
+    for tag in ("kernel_on", "kernel_off", "kernel_off", "kernel_on"):
+        pre = time_host(lambda: gen(tag, 1), reps=3)
+        prefill[tag].append(pre)
+        steps[tag].append((time_host(lambda: gen(tag, 1 + k), reps=3)
+                           - pre) / k)
+    for tag in apps:
+        emit({"phase": "contiguous_steps", "decode_kernel": tag,
+              "prefill_ms_per_prompt": statistics.mean(prefill[tag]) / b,
+              "prefill_ms_batch": statistics.mean(prefill[tag]),
+              "prompt_lens": list(MISTRAL_LENS), "ctx_bucket": 2048,
+              "decode_ms_per_step_batch4": statistics.mean(steps[tag]),
+              "decode_ms_per_turn": steps[tag]})
+        profile_decode(lambda: gen(tag, 1), lambda: gen(tag, 1 + k), k)
+        check_no_incidents("contiguous_steps_" + tag, apps[tag])
+    del apps
     torch.cuda.empty_cache()
 
     # contiguous decode kernel over the main path's own cache (positions
@@ -1257,13 +1383,14 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
 # ---------------------------------------------------------------------------
 
 def make_ragged_app(hf, device, dtype, cfg, *, batch=8,
-                    output_logits=False):
-    """The paged app of phases 9-10: seq_len ``cfg["seq_len"]``, block
+                    output_logits=False, graphs=True):
+    """The paged app of phases 9-11: seq_len ``cfg["seq_len"]``, block
     ``cfg["block"]`` and a pool of every row's blocks plus one spare per
     row."""
     per_row = cfg["seq_len"] // cfg["block"] + 1
     return make_app(hf, device, dtype, batch=batch, seq_len=cfg["seq_len"],
-                    output_logits=output_logits, num_blocks=batch * per_row)
+                    output_logits=output_logits, num_blocks=batch * per_row,
+                    graphs=graphs)
 
 
 def ragged_engine(app, ragged, cfg):
@@ -1273,6 +1400,22 @@ def ragged_engine(app, ragged, cfg):
         ServingEngine
     return ServingEngine(PagedEngineAdapter(
         app, ragged=ragged, prefill_chunk_tokens=cfg["chunk"]))
+
+
+def stats_delta(ad, before):
+    """The adapter's integer host counters since ``before``."""
+    return {k: ad.host_stats[k] - before.get(k, 0)
+            for k in ad.host_stats if isinstance(ad.host_stats[k], int)}
+
+
+def pass_kind(d) -> str:
+    """idle (no dispatch), mixed (prefill rows or a prefill dispatch) or
+    decode (an all-decode pass)."""
+    if d.get("ragged_dispatches", d["dispatches"]) == 0:
+        return "idle"
+    if d.get("ragged_rows_prefill", d["prefill_dispatches"]) > 0:
+        return "mixed"
+    return "decode"
 
 
 def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
@@ -1312,16 +1455,9 @@ def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
             sync()
             wall = (time.perf_counter() - t0) * 1e3
             now = time.perf_counter() - excluded
-        d = {k: ad.host_stats[k] - before.get(k, 0)
-             for k in ad.host_stats if isinstance(ad.host_stats[k], int)}
-        if d.get("ragged_dispatches", d["dispatches"]) == 0:
-            kind = "idle"
-        elif d.get("ragged_rows_prefill", d["prefill_dispatches"]) > 0:
-            kind = "mixed"
-        else:
-            kind = "decode"
-        recs.append({"pass": p, "kind": kind, "ms": wall, "traced": traced,
-                     "device": per, "delta": d})
+        d = stats_delta(ad, before)
+        recs.append({"pass": p, "kind": pass_kind(d), "ms": wall,
+                     "traced": traced, "device": per, "delta": d})
         for i, st in enumerate(streams):
             if i not in ttft and st.n_tokens:
                 ttft[i] = now - t_sub[i]
@@ -1389,15 +1525,16 @@ def profile_summary(recs, kind):
 
 def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                          on_card=True):
-    """Phase 9: the ragged engine at full width and depth, bf16."""
+    """Phase 9: the ragged engine at full width and depth, bf16. Returns
+    (app, prompts, kernel entries) for phase 11."""
     import numpy as np
     import torch
-    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
     app = make_ragged_app(hf, device, "bfloat16", cfg)
     app.init_random_weights(0)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in cfg["lens"]]
+    warm(app, "ragged_serving", chunk_tokens=cfg["chunk"])
     eng = ragged_engine(app, True, cfg)
     ad = eng.adapter
     snap = {}
@@ -1409,6 +1546,7 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
             snap["table"] = app.kv_mgr.block_table_array(
                 live, app._bt_width_for(live))
             snap["pos"] = [ad.seqs[s].position for s in live]
+            snap["ids"] = [ad.seqs[s].last_token for s in live]
     traced = {"mixed": 0, "decode": 0}
 
     def profile(p, expect_mixed):
@@ -1419,10 +1557,10 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
         traced[kind] += 1
         return True
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    reset_launches()
+    reset_launches([app])
     streams, recs, ttft = serve_schedule(eng, prompts, new_tokens, sync,
                                          profile, snapshot)
-    launches = decode_attention.paged_decode_attention.launches
+    launches = kernel_counts([app])["paged_decode_attention"]
     layers = hf["num_hidden_layers"]
     decode_steps, want = check_ragged_passes("ragged_serving", recs,
                                              launches, layers)
@@ -1442,48 +1580,268 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
           "ttft_s": [ttft.get(i) for i in range(len(prompts))],
           "ragged_pad_waste": 1 - st["ragged_real_tokens"]
           / max(st["ragged_padded_tokens"], 1),
+          "graphs": graph_report(app) if app.graphs is not None else None,
           "host_stats": st})
     emit({"phase": "ragged_profile_decode", **profile_summary(recs,
                                                               "decode")})
-    emit({"phase": "ragged_profile_mixed", **profile_summary(recs,
-                                                             "mixed")})
+    mixed = profile_summary(recs, "mixed")
+    emit({"phase": "ragged_profile_mixed", **mixed})
+    check_no_incidents("ragged_serving", app)
     if launches != want:
         raise AssertionError(f"ragged_serving: paged kernel launches "
                              f"{launches} != {layers} x {decode_steps} "
                              "all-decode ragged steps")
     check_streams("ragged_serving", streams, new_tokens, hf["vocab_size"])
+    fp32_gemms = [k for k, _ in mixed.get("top_kernels_ms_per_pass", ())
+                  if "f32f32" in k]
+    if fp32_gemms:
+        raise AssertionError(f"ragged_serving: the mixed pass still runs "
+                             f"fp32 x fp32 GEMMs {fp32_gemms}")
     if not on_card:
-        return []
+        return app, prompts, []
     t = time_paged_kernel(app, snap["table"], snap["pos"], device, seed=9)
     emit({"phase": "ragged_kernel_timings", **t["report"],
           "launches": launches})
-    return [paged_kernel_entry(t, launches, "ragged_serving")]
+    return app, prompts, [paged_kernel_entry(t, launches, "ragged_serving")]
+
+
+async def _sse_generate(host, port, i, prompt, new_tokens):
+    """One ``POST /v1/generate`` SSE request: (tokens, seconds from the
+    request's write to its first token event, the done event)."""
+    r, w = await asyncio.open_connection(host, port)
+    body = json.dumps({"prompt": prompt, "max_new_tokens": new_tokens,
+                       "request_id": f"q{i}"}).encode()
+    t0 = time.perf_counter()
+    w.write(b"POST /v1/generate HTTP/1.1\r\nContent-Length: "
+            + str(len(body)).encode() + b"\r\n\r\n" + body)
+    await w.drain()
+    toks, first, done = [], None, None
+    while True:
+        line = await r.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            ev = json.loads(line[6:])
+            if "token" in ev:
+                if first is None:
+                    first = time.perf_counter() - t0
+                toks.append(ev["token"])
+            else:
+                done = ev
+    w.close()
+    return toks, first, done
+
+
+async def _http_get(host, port, path):
+    r, w = await asyncio.open_connection(host, port)
+    w.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+    await w.drain()
+    data = (await r.read()).decode()
+    w.close()
+    return data.split("\r\n\r\n", 1)[1]
+
+
+def front_door_engine(app, cfg):
+    """The engine of phase 11: the ragged adapter under an SLO tracker
+    whose targets (TTFT 30 s, TPOT 1 s) this run keeps, and a degradation
+    controller that may drop the ragged dispatch (it does not act while
+    the targets hold)."""
+    from neuronx_distributed_inference_tpu_torch.resilience import \
+        DegradationController
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingEngine
+    from neuronx_distributed_inference_tpu_torch.telemetry.slo import (
+        SLOPolicy, SLOTracker)
+    return ServingEngine(
+        PagedEngineAdapter(app, ragged=True,
+                           prefill_chunk_tokens=cfg["chunk"]),
+        slo=SLOTracker(SLOPolicy(targets={"ttft": 30.0, "tpot": 1.0})),
+        degradation=DegradationController(drop_ragged=True))
+
+
+def phase_front_door(hf, device, app, prompts, cfg=RAGGED,
+                     new_tokens=RAGGED_TOKENS, on_card=True):
+    """Phase 11: the prompts as concurrent SSE requests through
+    ``ServingFrontend`` on phase 9's precompiled app; the streams held to
+    an in-process ``run_pass`` replay of the same submissions."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch import telemetry
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingFrontend
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    eng = front_door_engine(app, cfg)
+    ad = eng.adapter
+    recs, sched = [], []
+    submit, run_pass = eng.submit, eng.run_pass
+
+    def logged_submit(*a, **kw):
+        stream = submit(*a, **kw)
+        sched.append((stream.request_id, len(recs)))
+        return stream
+
+    def logged_pass():
+        before = dict(ad.host_stats)
+        t0 = time.perf_counter()
+        n = run_pass()
+        sync()
+        d = stats_delta(ad, before)
+        recs.append({"pass": len(recs), "kind": pass_kind(d),
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "traced": False, "delta": d})
+        return n
+    eng.submit, eng.run_pass = logged_submit, logged_pass
+
+    async def serve():
+        fe = ServingFrontend(eng)
+        host, port = await fe.start()
+        got = await asyncio.gather(*[
+            _sse_generate(host, port, i, p, new_tokens)
+            for i, p in enumerate(prompts)])
+        routes = {path: await _http_get(host, port, path)
+                  for path in ("/metrics", "/v1/debug/memory",
+                               "/v1/debug/state")}
+        blocks = ad.debug_state()["blocks"]
+        await fe.stop()
+        return got, routes, blocks
+    telemetry.enable()
+    try:
+        reset_launches([app])
+        got, routes, blocks = asyncio.run(serve())
+        launches = kernel_counts([app])["paged_decode_attention"]
+    finally:
+        telemetry.disable()
+    layers = hf["num_hidden_layers"]
+    decode_steps, want = check_ragged_passes("front_door", recs, launches,
+                                             layers)
+    want = want if on_card else 0
+
+    # the same submissions, at the same passes, served in-process
+    ref = front_door_engine(app, cfg)
+    at = {}
+    for rid, p in sched:
+        at.setdefault(p, []).append(rid)
+    ref_streams = {}
+    p = 0
+    while p <= max(at) or ref.has_work:
+        for rid in at.get(p, ()):
+            ref_streams[rid] = ref.submit(prompts[int(rid[1:])], new_tokens,
+                                          request_id=rid)
+        ref.run_pass()
+        p += 1
+        if p > 100 * len(prompts):
+            raise AssertionError("front_door: the replay made no progress")
+    sse = {f"q{i}": g[0] for i, g in enumerate(got)}
+    same = [rid for rid in sse if sse[rid] == ref_streams[rid].tokens]
+    metrics = routes["/metrics"]
+    recompiles = [line for line in metrics.splitlines()
+                  if line.startswith("nxdi_steady_state_recompiles_total")]
+    state = json.loads(routes["/v1/debug/state"])["engine"]
+    memory = json.loads(routes["/v1/debug/memory"])
+    emit({"phase": "front_door", "requests": len(prompts),
+          "new_tokens": new_tokens, "passes": len(recs),
+          "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
+                             for k in ("mixed", "decode", "idle")},
+          "streams_equal_in_process": len(same),
+          "ttft_s_client": [g[1] for g in got],
+          "finish": [g[2] and g[2].get("reason") for g in got],
+          "host_ms_mixed": pass_summary(recs, "mixed"),
+          "host_ms_decode": pass_summary(recs, "decode"),
+          "launches": launches, "expected_launches": want,
+          "steady_state_recompiles_lines": recompiles,
+          "memory_blocks": memory["kv"]["blocks"], "adapter_blocks": blocks,
+          "warmup": state.get("warmup"),
+          "slo_ttft": state["slo"]["tenants"].get("default", {}).get("ttft"),
+          "degradation": state["degradation"],
+          "submitted_at_pass": sched})
+    if len(same) != len(prompts):
+        raise AssertionError(f"front_door: {len(prompts) - len(same)} SSE "
+                             "streams differ from the in-process replay")
+    if ("# TYPE nxdi_steady_state_recompiles_total counter" not in metrics
+            or any(float(x.rsplit(" ", 1)[1]) != 0.0 for x in recompiles)):
+        raise AssertionError("front_door: /metrics does not show "
+                             "nxdi_steady_state_recompiles_total at 0")
+    if memory["kv"]["blocks"] != blocks:
+        raise AssertionError("front_door: /v1/debug/memory does not "
+                             "reconcile with the adapter's blocks")
+    warm_state = state.get("warmup") or {}
+    if (warm_state.get("incidents") or not warm_state.get("precompile")
+            or on_card and not warm_state.get("cuda_graphs", {}).get(
+                "captured")):
+        raise AssertionError(f"front_door: /v1/debug/state warmup "
+                             f"{warm_state}")
+    if launches != want:
+        raise AssertionError(f"front_door: paged kernel launches "
+                             f"{launches} != {layers} x {decode_steps}")
 
 
 def phase_ragged_fp32(hf, device, cfg=RAGGED,
                       new_tokens=RAGGED_CHECK_TOKENS, on_card=True):
-    """Phase 10: ragged vs two-phase engine vs ``generate``, fp32."""
+    """Phase 10: eager ragged vs graph ragged vs two-phase engine vs
+    ``generate``, fp32, TF32 off."""
+    with fp32_exact():
+        _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card)
+
+
+def _ragged_run(phase, app, prompts, new_tokens, cfg, sync, layers,
+                on_card, snapshot_of=None):
+    """Serve the phase-9 schedule on ``app``'s ragged engine
+    (``snapshot_of(adapter)`` makes the per-pass snapshot callback); gates
+    (a), (b) with replays counted. Returns (streams, passes, launches,
+    all-decode steps)."""
+    reset_launches([app])
+    eng = ragged_engine(app, True, cfg)
+    snapshot = snapshot_of(eng.adapter) if snapshot_of else None
+    streams, recs, _ = serve_schedule(eng, prompts, new_tokens, sync,
+                                      snapshot=snapshot)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    decode_steps, want = check_ragged_passes(phase, recs, launches, layers)
+    want = want if on_card else 0
+    check_streams(phase, streams, new_tokens, app.spec.vocab_size)
+    if launches != want:
+        raise AssertionError(f"{phase}: paged kernel launches {launches} "
+                             f"!= {layers} x {decode_steps}")
+    return streams, recs, launches, decode_steps
+
+
+def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card):
     import numpy as np
     import torch
-    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    app = make_ragged_app(hf, device, "float32", cfg)
+    app = make_ragged_app(hf, device, "float32", cfg, graphs=False)
     app.init_random_weights(0)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in cfg["lens"]]
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    reset_launches()
-    streams, recs, _ = serve_schedule(ragged_engine(app, True, cfg),
-                                      prompts, new_tokens, sync)
-    launches = decode_attention.paged_decode_attention.launches
     layers = hf["num_hidden_layers"]
-    decode_steps, want = check_ragged_passes("ragged_fp32", recs, launches,
-                                             layers)
-    want = want if on_card else 0
-    check_streams("ragged_fp32", streams, new_tokens, hf["vocab_size"])
+    streams, recs, launches, decode_steps = _ragged_run(
+        "ragged_fp32", app, prompts, new_tokens, cfg, sync, layers, on_card)
     ragged = [np.asarray(s.tokens) for s in streams]
+    # the same schedule on a precompiled app: all-decode passes replay
+    gapp = make_ragged_app(hf, device, "float32", cfg)
+    gapp.params = app.params
+    warm(gapp, "ragged_fp32_graphs", chunk_tokens=cfg["chunk"])
+    snap = {}
+
+    def snapshot_of(ad):
+        def snapshot():
+            # the last all-decode state with the most live rows
+            if (not ad.seqs or ad.pending_prefill_ids
+                    or len(ad.seqs) < len(snap.get("rows", ((), ()))[1])):
+                return
+            live = sorted(ad.seqs)
+            snap["rows"] = (
+                gapp.kv_mgr.block_table_array(live,
+                                              gapp._bt_width_for(live)),
+                [ad.seqs[s].position for s in live],
+                [ad.seqs[s].last_token for s in live])
+        return snapshot
+    g_streams, g_recs, g_launches, g_steps = _ragged_run(
+        "ragged_fp32_graphs", gapp, prompts, new_tokens, cfg, sync, layers,
+        on_card, snapshot_of)
+    check_no_incidents("ragged_fp32_graphs", gapp)
+    graphs = [np.asarray(s.tokens) for s in g_streams]
     two = make_ragged_app(hf, device, "float32", cfg)
     two.params = app.params
     two_streams, _, _ = serve_schedule(ragged_engine(two, False, cfg),
@@ -1499,62 +1857,127 @@ def phase_ragged_fp32(hf, device, cfg=RAGGED,
         want_i = ref.generate(np.asarray([prompt]),
                               max_new_tokens=new_tokens, return_logits=True)
         ref.reset()
+        runs = (("ragged", ragged[i]), ("graphs", graphs[i]),
+                ("two_phase", np.asarray(two_streams[i].tokens)))
         cases = [near_tie_check(f"ragged_fp32_{name}_near_tie", i, got,
                                 want_i, len(prompt))
-                 for name, got in (("ragged", ragged[i]), (
-                     "two_phase", np.asarray(two_streams[i].tokens)))]
-        # ragged vs two-phase: equal up to where one of them leaves
+                 for name, got in runs]
+        # the runs agree with each other up to where one of them leaves
         # generate at a near-tie
-        diff = np.nonzero(ragged[i] != np.asarray(two_streams[i].tokens))[0]
         first = [c["first_diff_step"] for c in cases if c]
-        if diff.size and (not first or int(diff[0]) < min(first)):
-            raise AssertionError(f"ragged_fp32: stream {i} ragged and "
-                                 f"two-phase differ at step {int(diff[0])}")
+        for name, got in runs[1:]:
+            diff = np.nonzero(ragged[i] != got)[0]
+            if diff.size and (not first or int(diff[0]) < min(first)):
+                raise AssertionError(f"ragged_fp32: stream {i} ragged and "
+                                     f"{name} differ at step "
+                                     f"{int(diff[0])}")
         near_ties += [c for c in cases if c]
+    step = check_captured_step(hf, device, cfg, app, gapp, snap["rows"],
+                               on_card)
     emit({"phase": "ragged_fp32", "layers": layers,
           "requests": len(prompts), "new_tokens": new_tokens,
           "passes": len(recs), "launches": launches,
-          "expected_launches": want, "all_decode_ragged_steps": decode_steps,
-          "streams_identical_to_generate": 2 * len(prompts) - len(near_ties),
-          "near_ties": near_ties})
-    if launches != want:
-        raise AssertionError(f"ragged_fp32: paged kernel launches "
-                             f"{launches} != {layers} x {decode_steps}")
+          "expected_launches": layers * decode_steps if on_card else 0,
+          "all_decode_ragged_steps": decode_steps,
+          "graph_run": {"passes": len(g_recs), "launches": g_launches,
+                        "all_decode_ragged_steps": g_steps,
+                        "graphs": graph_report(gapp)
+                        if gapp.graphs is not None else None},
+          "streams_identical_to_generate": 3 * len(prompts) - len(near_ties),
+          "near_ties": near_ties, "captured_vs_eager_step": step})
 
 
-def main() -> int:
+def check_captured_step(hf, device, cfg, app, gapp, snap, on_card):
+    """A T = 1 paged step replayed from its graph against the same step
+    run eagerly, on the same weights, cache and inputs (the live rows of
+    the graph run's last all-decode state; slots -1, so nothing is
+    written): identical tokens; returns the max |logit| difference."""
+    import numpy as np
+    table, pos, ids = snap
+    b = len(pos)
+    apps = []
+    for graphs in (True, False):
+        a = make_ragged_app(hf, device, "float32", cfg, output_logits=True,
+                            graphs=graphs)
+        a.params = app.params
+        a.cache = gapp.cache
+        apps.append(a)
+    args = (np.asarray(ids, np.int32)[:, None],
+            np.asarray(pos, np.int32)[:, None],
+            np.full((b, 1), -1, np.int32), table, np.zeros((b,), np.int32))
+    outs = [apps[0]._run_paged(*args) for _ in range(2)]  # capture, replay
+    want = apps[1]._run_paged(*args)
+    same = all(np.array_equal(o["tokens"].cpu().numpy(),
+                              want["tokens"].cpu().numpy()) for o in outs)
+    diff = max(float((o["logits"] - want["logits"]).abs().max())
+               for o in outs)
+    res = {"tokens_identical": same, "max_abs_logit_diff": diff,
+           "captured": len(apps[0].graphs) if apps[0].graphs is not None
+           else 0}
+    if not same or (on_card and not res["captured"]):
+        raise AssertionError(f"captured T = 1 step vs eager: {res}")
+    return res
+
+
+GROUPS = ("kernels", "paged", "contig", "ragged")
+
+
+def main(argv=None) -> int:
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default=",".join(GROUPS),
+                        help="comma-separated phase groups: "
+                             + ", ".join(GROUPS))
+    args = parser.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        parser.error(f"unknown groups {sorted(only - set(GROUPS))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     gpu = nvidia_smi()
     build_s = build_kernels()
     emit({"phase": "env", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s})
-    phase_kernels(device)
-    app, ids, mask, launches = phase_main_path(LLAMA_3_2_1B, device)
-    phase_serving(LLAMA_3_2_1B, device)
-    kernels = phase_timings(LLAMA_3_2_1B, device, app, ids, mask, launches)
-    del app
-    torch.cuda.empty_cache()
-    app, ids, mask, counts = phase_contiguous(MISTRAL_7B, device,
-                                              "contiguous_main_path")
-    kernels += phase_contiguous_timings(MISTRAL_7B, device, app, ids, mask,
-                                        counts)
-    del app
-    torch.cuda.empty_cache()
-    phase_contiguous(dict(MISTRAL_7B, num_hidden_layers=4,
-                          sliding_window=512), device, "window_bites")
-    torch.cuda.empty_cache()
-    phase_contiguous_serving(dict(MISTRAL_7B, num_hidden_layers=8), device)
-    torch.cuda.empty_cache()
-    kernels += phase_ragged_serving(LLAMA_3_1_8B, device)
-    torch.cuda.empty_cache()
-    phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+          "cuda": torch.version.cuda,
+          "bmm_out_dtype": bmm_out_dtype_available(), "build_s": build_s})
+    kernels = []
+    if "kernels" in only:
+        phase_kernels(device)
+    if "paged" in only:
+        app, ids, mask, launches = phase_main_path(LLAMA_3_2_1B, device)
+        phase_serving(LLAMA_3_2_1B, device)
+        kernels += phase_timings(LLAMA_3_2_1B, device, app, ids, mask,
+                                 launches)
+        del app
+        torch.cuda.empty_cache()
+    if "contig" in only:
+        app, ids, mask, counts = phase_contiguous(MISTRAL_7B, device,
+                                                  "contiguous_main_path")
+        kernels += phase_contiguous_timings(MISTRAL_7B, device, app, ids,
+                                            mask, counts)
+        del app
+        torch.cuda.empty_cache()
+        phase_contiguous(dict(MISTRAL_7B, num_hidden_layers=4,
+                              sliding_window=512), device, "window_bites")
+        torch.cuda.empty_cache()
+        phase_contiguous_serving(dict(MISTRAL_7B, num_hidden_layers=8),
+                                 device)
+        torch.cuda.empty_cache()
+    if "ragged" in only:
+        app, prompts, entries = phase_ragged_serving(LLAMA_3_1_8B, device)
+        kernels += entries
+        phase_front_door(LLAMA_3_1_8B, device, app, prompts)
+        del app
+        torch.cuda.empty_cache()
+        phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"gpu": gpu})
+    if only != set(GROUPS):
+        return 0
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

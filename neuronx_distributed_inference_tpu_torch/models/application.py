@@ -7,7 +7,9 @@ paged ``PagedCausalLMApplication`` built on it (counterpart:
 ``_default_sampling_params`` :508, ``_run_prefill`` :515, ``_run_decode``
 :613, ``_run_decode_loop`` :649, ``_generate_repadded`` :687,
 ``generate`` :780, ``reset`` :967; ``_finalize_generation`` :1105;
-``PagedCausalLMApplication`` :1120-1626, its ``_run_ragged`` :1330).
+``PagedCausalLMApplication`` :1120-1626, its ``_run_ragged`` :1330; the
+jit-cache accounting ``_note_jit`` / ``declare_steady_state`` /
+``request_context`` / ``warmup_state`` :78-82, 373-381, 413-494).
 
 Same host contract as the JAX applications. The contiguous app:
 ``init_cache``, ``_run_prefill``, ``_run_decode``, ``_run_decode_loop``,
@@ -23,14 +25,30 @@ The KV cache is updated IN PLACE by every step. The JAX application
 donated the cache buffers to each step, which made every step a
 destructive update already; the port just does it without the copy.
 
+Every ``_run_*`` builds a signature — the kind, its bucket, the batch, the
+table or KV-view width and every host-side decision that changes the op
+sequence — and notes it (``_note_jit``). On the card a T = 1 step that
+samples greedily is captured once per signature into a CUDA graph and
+replayed afterwards (``models/cuda_graphs.py``, the counterpart of the
+JAX jit cache); every other step runs eagerly. After
+:meth:`~CausalLMApplication.declare_steady_state` (``serving/warmup.py``'s
+``precompile``), a first-seen graph signature is an incident: the
+``nxdi_steady_state_recompiles_total`` counter, a ``compile.unexpected``
+flight-recorder event with the request traces of the dispatch
+(:meth:`~CausalLMApplication.request_context`), and an entry in
+:meth:`~CausalLMApplication.warmup_state`. Eager signatures are never
+incidents. Replacing ``params`` or ``cache`` drops the graphs, which read
+the old tensors.
+
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed; a missing
 card raises (``device.resolve_device``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Dict, List, Optional, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -44,9 +62,13 @@ from ..modules.block_kv_cache import (BlockKVCacheManager, BlockKVSpec,
                                       slots_from_table)
 from ..ops.sampling import prepare_sampling_params
 from ..resilience.errors import CapacityError, ConfigurationError
+from ..telemetry import get_registry
+from ..telemetry import metrics as tmetrics
+from ..telemetry import trace as trace_mod
 from ..utils import checkpoint as ckpt
 from ..utils.jax_params import tensor_from_numpy
 from . import model_base
+from .cuda_graphs import StepGraphs
 from .family import DecoderFamily, family_for_config
 
 
@@ -72,15 +94,30 @@ class CausalLMApplication:
 
     def __init__(self, model_path: Optional[str], config: InferenceConfig,
                  family: Optional[Type[DecoderFamily]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, cuda_graphs: bool = True):
         self.device = resolve_device(device)
         self.model_path = model_path
         self.config = config
         self.tpu_config: TpuConfig = config.tpu_config
         self.family = family or family_for_config(config)
         self.spec = self.family.build_spec(config, tp_degree=1)
+        # T = 1 steps replay captured CUDA graphs on the card
+        # (``cuda_graphs=False``: every step eager)
+        self.graphs: Optional[StepGraphs] = (
+            StepGraphs(self.device)
+            if cuda_graphs and self.device.type == "cuda" else None)
         self.params = None
         self.cache = None
+        # telemetry: None = follow the process-global registry; assign
+        # app.telemetry = reg to pin one. _jit_seen tracks (kind, bucket,
+        # sig) signatures; after declare_steady_state() a first-seen graph
+        # signature is an incident, attributed to _trace_ctx
+        self._telemetry_override = None
+        self._jit_seen: set = set()
+        self._steady_state = False
+        self._steady_incidents: List[Dict[str, Any]] = []
+        self._trace_ctx: Tuple[str, ...] = ()
+        self._warmup_report: Optional[Dict[str, Any]] = None
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.tpu_config.seed)
         self.ctx_buckets = autobucketing.context_encoding_buckets(
@@ -89,6 +126,156 @@ class CausalLMApplication:
             self.tpu_config)
         self.batch_buckets = autobucketing.batch_buckets(self.tpu_config)
         self._inv_freq = model_base.rope_inv_freq(self.spec, self.device)
+
+    # -- tensors the captured graphs read ------------------------------------
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        self._drop_graphs()
+        self._params = value
+
+    @property
+    def cache(self):
+        return self._cache
+
+    @cache.setter
+    def cache(self, value):
+        self._drop_graphs()
+        self._cache = value
+
+    def _drop_graphs(self):
+        if self.graphs is not None:
+            self.graphs.clear()
+
+    # -- telemetry and the steady-state sentinel --------------------------
+    @property
+    def telemetry(self):
+        return (self._telemetry_override
+                if self._telemetry_override is not None else get_registry())
+
+    @telemetry.setter
+    def telemetry(self, reg):
+        self._telemetry_override = reg
+
+    def _note_jit(self, kind: str, bucket, sig, graph: bool) -> None:
+        """Signature accounting (reference ``_note_jit``): the first time a
+        (kind, bucket, sig) runs it is a build — here a CUDA-graph capture
+        when ``graph`` and the app captures — afterwards a cache hit. A
+        first-seen ``graph`` signature after steady state is an incident;
+        an eager one never is."""
+        key = (kind, bucket, sig)
+        new = key not in self._jit_seen
+        if new:
+            self._jit_seen.add(key)
+            rec = trace_mod.get_recorder()
+            if rec.enabled:
+                rec.instant("compile", cat="app", kind=kind,
+                            bucket=str(bucket), sig=str(sig))
+            if self._steady_state and graph:
+                self._note_steady_recompile(kind, bucket, sig, rec)
+        tel = self.telemetry
+        if tel.enabled:
+            if self._steady_state:
+                # a steady-state app serves its incident counter, at 0
+                # until an incident
+                tmetrics.steady_state_recompiles_counter(tel)
+            if new and graph and self.graphs is not None:
+                tmetrics.jit_compiles_counter(tel).inc(kind=kind,
+                                                       bucket=str(bucket))
+            else:
+                tmetrics.jit_cache_hits_counter(tel).inc(kind=kind)
+
+    _MAX_STEADY_INCIDENTS = 256
+
+    def _note_steady_recompile(self, kind: str, bucket, sig, rec) -> None:
+        """A first-seen graph signature after steady state: the counter,
+        a ``compile.unexpected`` event and the request traces of the
+        dispatch (reference ``_note_steady_recompile``)."""
+        traces = [t for t in self._trace_ctx if t]
+        incident = {"kind": kind, "bucket": str(bucket), "sig": str(sig),
+                    "traces": traces}
+        self._steady_incidents.append(incident)
+        if len(self._steady_incidents) > self._MAX_STEADY_INCIDENTS:
+            del self._steady_incidents[0]
+        if rec.enabled:
+            rec.instant("compile.unexpected", cat="app", kind=kind,
+                        bucket=str(bucket), sig=str(sig), traces=traces)
+        tel = self.telemetry
+        if tel.enabled:
+            tmetrics.steady_state_recompiles_counter(tel).inc(
+                kind=kind, bucket=str(bucket))
+
+    def declare_steady_state(self, on: bool = True):
+        """After ``precompile()`` walked the ladder: every first-seen graph
+        signature from now on is a tracked incident."""
+        self._steady_state = bool(on)
+        return self
+
+    def request_context(self, traces):
+        """Context manager attributing an incident inside the body to
+        ``traces`` (the request trace ids of the dispatch)."""
+        @contextlib.contextmanager
+        def _ctx():
+            prev = self._trace_ctx
+            self._trace_ctx = tuple(traces)
+            try:
+                yield
+            finally:
+                self._trace_ctx = prev
+        return _ctx()
+
+    def warmup_state(self) -> Dict[str, Any]:
+        """JSON-able cold-start account (``/v1/debug/state["warmup"]``):
+        the precompile summary, the steady-state flag, every incident, and
+        the captured graphs with their replays."""
+        out: Dict[str, Any] = {
+            "steady_state": self._steady_state,
+            "graphs_seen": len(self._jit_seen),
+            "incidents": list(self._steady_incidents),
+        }
+        if self._warmup_report is not None:
+            out["precompile"] = {
+                k: self._warmup_report[k]
+                for k in ("n_graphs", "n_compiles", "n_cache_loads",
+                          "n_warm_hits", "total_seconds")
+                if k in self._warmup_report}
+        if self.graphs is not None:
+            out["cuda_graphs"] = {
+                "captured": len(self.graphs),
+                "replays": {str(k): n
+                            for k, n in self.graphs.replays.items()}}
+        return out
+
+    def _greedy(self, sampling_params) -> bool:
+        sc = self.tpu_config.on_device_sampling_config
+        return sampling_params is None and (sc is None or not sc.do_sample)
+
+    def _step(self, kind: str, bucket, sig, graph: bool, fn, inputs,
+              sampling_params=None):
+        """Run one step: ``fn(tensors, sampling_params)`` over ``inputs``
+        (numpy arrays or device tensors, all int32). A ``graph`` signature
+        (T = 1, greedy) replays its captured CUDA graph on the card;
+        everything else runs eagerly."""
+        self._note_jit(kind, bucket, sig, graph)
+        if graph and self.graphs is not None:
+            if not len(self.graphs):
+                self._reserve_graphs()
+            return self.graphs.run((kind, bucket, sig),
+                                   lambda t: fn(t, None), inputs)
+        return fn({k: self._t(v) for k, v in inputs.items()},
+                  sampling_params)
+
+    def _reserve_graphs(self):
+        """Pin the decode kernels' merge counters at the largest batch
+        bucket before the first capture."""
+        if self.graphs is not None:
+            self.graphs.reserve(
+                max(self.batch_buckets
+                    + [self.tpu_config.kv_cache_batch_size or 0]),
+                self.spec.gqa.num_kv_heads)
 
     # -- weights -----------------------------------------------------------
     def load_weights(self, model_path: Optional[str] = None):
@@ -155,28 +342,35 @@ class CausalLMApplication:
                                device=self.device)
 
     def _seq_ids(self, b: int, seq_ids) -> torch.Tensor:
-        """Cache rows of a step; non-identity rows need continuous
-        batching (the static graphs skip the row gather)."""
+        """Cache rows of a step on the device."""
         if seq_ids is None:
             return torch.arange(b, dtype=torch.int32, device=self.device)
+        return self._t(self._host_seq_ids(b, seq_ids))
+
+    def _host_seq_ids(self, b: int, seq_ids) -> np.ndarray:
+        """Cache rows of a step on the host; non-identity rows need
+        continuous batching (the static steps skip the row gather)."""
+        if seq_ids is None:
+            return np.arange(b, dtype=np.int32)
         if (not self.tpu_config.is_continuous_batching
                 and not np.array_equal(np.asarray(seq_ids), np.arange(b))):
             raise ValueError("non-identity seq_ids require "
                              "is_continuous_batching=True")
-        return self._t(seq_ids)
+        return np.asarray(seq_ids, np.int32)
 
     # -- device steps ------------------------------------------------------
     def _run_prefill(self, input_ids, seq_lens, seq_ids=None,
                      sampling_params=None):
         """Prefill of a (B, bucket) right-padded window
-        (``model_base.context_encoding_step``); the cache is written in
-        place. Returns {"tokens", ["logits"]} on the device."""
+        (``model_base.context_encoding_step``, eager); the cache is
+        written in place. Returns {"tokens", ["logits"]} on the device."""
         b, s = np.shape(input_ids)
         sid = self._seq_ids(b, seq_ids)
         pos = torch.arange(s, dtype=torch.int32,
                            device=self.device)[None, :].expand(b, s)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
+        self._note_jit("prefill", s, (b, s), graph=False)
         return model_base.context_encoding_step(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(input_ids), pos, sid, self._t(seq_lens),
@@ -184,28 +378,53 @@ class CausalLMApplication:
 
     def _run_decode(self, input_ids, position_ids, seq_ids=None,
                     sampling_params=None):
-        """One decode step (``model_base.token_generation_step``)."""
-        b, t = np.shape(input_ids)
-        sid = self._seq_ids(b, seq_ids)
+        """One decode step (``model_base.token_generation_step``):
+        ``input_ids`` numpy or a device tensor, ``position_ids`` numpy."""
+        b, t = tuple(input_ids.shape)
         needed = int(np.max(np.asarray(position_ids))) + t
         self._check_decode_fits(needed)
+        return self._decode_call(input_ids, position_ids, seq_ids,
+                                 self._kv_bucket(needed), sampling_params)
+
+    def _decode_call(self, input_ids, position_ids, seq_ids, kv_view,
+                     sampling_params=None):
+        """The decode step at an explicit ``kv_view`` bucket (the warm-up
+        plane reaches every bucket with positions past the cache, which
+        write nothing). Its signature: batch, width, identity rows,
+        kernel or gather path (the view only matters to the gather),
+        greedy, logits."""
+        b, t = tuple(input_ids.shape)
+        sid = self._host_seq_ids(b, seq_ids)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        return model_base.token_generation_step(
-            self.spec, self.tpu_config, self.params, self.cache,
-            self._t(input_ids), self._t(position_ids), sid, sampling_params,
-            self.generator, self._kv_bucket(needed), self._inv_freq)
+        identity = not self.tpu_config.is_continuous_batching
+        kernel = model_base.use_contiguous_decode_kernel(
+            self.spec, t, b, self.cache, identity)
+        view = None if kernel else kv_view
+        greedy = self._greedy(sampling_params)
+        sig = (b, t, identity, kernel, greedy,
+               bool(self.tpu_config.output_logits))
+
+        def fn(x, sp):
+            return model_base.token_generation_step(
+                self.spec, self.tpu_config, self.params, self.cache,
+                x["ids"], x["pos"], x["sid"], sp, self.generator, view,
+                self._inv_freq)
+        return self._step("decode", view, sig, t == 1 and greedy, fn,
+                          {"ids": input_ids, "pos": position_ids,
+                           "sid": sid}, sampling_params)
 
     def _run_decode_loop(self, first_tokens, positions, num_steps: int,
                          seq_ids=None, sampling_params=None):
         """``num_steps`` decode steps with the tokens on the device
-        (``model_base.decode_loop``)."""
+        (``model_base.decode_loop``, eager)."""
         b = np.shape(first_tokens)[0]
         sid = self._seq_ids(b, seq_ids)
         needed = int(np.max(np.asarray(positions))) + num_steps
         self._check_decode_fits(needed)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
+        self._note_jit("decode_loop", num_steps, (b,), graph=False)
         return model_base.decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions), sid, sampling_params,
@@ -213,29 +432,11 @@ class CausalLMApplication:
             kv_view=self._kv_bucket(needed), inv_freq=self._inv_freq)
 
     def warmup(self):
-        """Run every bucket once (the shapes ``generate`` will run)."""
-        if self.params is None:
-            self.init_random_weights()
-        if self.cache is None:
-            self.init_cache()
-        cfg = self.tpu_config
-        b = cfg.ctx_batch_size
-        for s in self.ctx_buckets:
-            self._run_prefill(np.zeros((b, s), np.int32),
-                              np.ones((b,), np.int32))
-        chunk = max(cfg.decode_chunk_tokens, 1)
-        starts = [1] if len(self.tkg_buckets) <= 1 else [
-            max(bk - chunk, 1) for bk in self.tkg_buckets]
-        warm_batches = sorted(set(self.batch_buckets)
-                              | {cfg.tkg_batch_size or cfg.batch_size})
-        for start in starts:
-            for bb in warm_batches:
-                if chunk > 1:
-                    self._run_decode_loop(np.zeros((bb,), np.int32),
-                                          np.full((bb,), start, np.int32),
-                                          chunk)
-                self._run_decode(np.zeros((bb, 1), np.int32),
-                                 np.full((bb, 1), start, np.int32))
+        """Walk the warm-up plan of ``serving/warmup.py`` (every graph
+        signature the app serves is captured; eager steps need no warm-up)
+        without declaring steady state."""
+        from ..serving.warmup import precompile
+        precompile(self, declare_steady=False)
         return self
 
     # -- generation --------------------------------------------------------
@@ -407,8 +608,12 @@ class CausalLMApplication:
         return result
 
     def reset(self):
-        """Clear the KV cache between requests."""
-        self.init_cache()
+        """Clear the KV cache between requests (zeroed in place, so the
+        captured graphs stay valid)."""
+        if self.cache is None:
+            return self.init_cache()
+        for t in self.cache.values():
+            t.zero_()
         return self
 
 
@@ -419,11 +624,11 @@ class PagedCausalLMApplication(CausalLMApplication):
 
     def __init__(self, model_path: Optional[str], config: InferenceConfig,
                  family: Optional[Type[DecoderFamily]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, cuda_graphs: bool = True):
         if not config.tpu_config.is_block_kv_layout:
             raise ConfigurationError("the paged application needs "
                                      "is_block_kv_layout=True")
-        super().__init__(model_path, config, family, device)
+        super().__init__(model_path, config, family, device, cuda_graphs)
 
     # -- cache -------------------------------------------------------------
     def init_cache(self):
@@ -462,79 +667,75 @@ class PagedCausalLMApplication(CausalLMApplication):
     def _run_paged(self, input_ids, position_ids, slot_mapping, block_table,
                    last_idx, sampling_params=None):
         """One paged step (``model_base.paged_forward_step``); the cache is
-        written in place. Returns {"tokens", ["logits"]} on the device."""
+        written in place. Signature: width, batch, table width, greedy,
+        logits; a greedy T = 1 step replays its graph. Returns {"tokens",
+        ["logits"]} on the device."""
+        b, t = np.shape(input_ids)
         if sampling_params is None:
-            sampling_params = self._default_sampling_params(
-                np.shape(input_ids)[0])
-        return model_base.paged_forward_step(
-            self.spec, self.tpu_config, self.params, self.cache,
-            self._t(input_ids), self._t(position_ids),
-            self._t(slot_mapping), self._t(block_table), self._t(last_idx),
-            sampling_params, self.generator, self._inv_freq)
+            sampling_params = self._default_sampling_params(b)
+        greedy = self._greedy(sampling_params)
+        sig = (b, int(np.shape(block_table)[1]), greedy,
+               bool(self.tpu_config.output_logits))
+
+        def fn(x, sp):
+            return model_base.paged_forward_step(
+                self.spec, self.tpu_config, self.params, self.cache,
+                x["ids"], x["pos"], x["slots"], x["bt"], x["last"], sp,
+                self.generator, self._inv_freq)
+        return self._step("paged", t, sig, t == 1 and greedy, fn,
+                          {"ids": input_ids, "pos": position_ids,
+                           "slots": slot_mapping, "bt": block_table,
+                           "last": last_idx}, sampling_params)
 
     def _run_ragged(self, input_ids, position_ids, slot_mapping,
                     block_table, widths, emit_modes, sampling_params=None):
         """ONE ragged mixed step (``model_base.paged_ragged_step``): rows
         mix decode steps, prefill chunks and verify windows, each at its
         own offset over its own block table. The host arrays are numpy:
-        the capacity check and the verify test read them without touching
-        the device. The cache is written in place. Returns {"tokens",
+        the capacity check, the verify test and the signature (grid width,
+        batch, table width, verify, greedy) read them without touching the
+        device. A greedy all-decode step (W = 1, no verify row) replays its
+        graph. The cache is written in place. Returns {"tokens",
         "num_emitted"} on the device."""
         pos = np.asarray(position_ids)
         wid = np.asarray(widths)
         emit = np.asarray(emit_modes)
         self._check_decode_fits(int(np.max(pos[:, 0] + wid)))
+        b, w = pos.shape
         if sampling_params is None:
-            sampling_params = self._default_sampling_params(pos.shape[0])
-        return model_base.paged_ragged_step(
-            self.spec, self.tpu_config, self.params, self.cache,
-            self._t(input_ids), self._t(pos), self._t(slot_mapping),
-            self._t(block_table), self._t(wid), self._t(emit),
-            sampling_params, self.generator, self._inv_freq,
-            verify=bool((emit == model_base.EMIT_VERIFY).any()))
+            sampling_params = self._default_sampling_params(b)
+        verify = bool((emit == model_base.EMIT_VERIFY).any())
+        greedy = self._greedy(sampling_params)
+        sig = (b, int(np.shape(block_table)[1]), verify, greedy)
+
+        def fn(x, sp):
+            return model_base.paged_ragged_step(
+                self.spec, self.tpu_config, self.params, self.cache,
+                x["ids"], x["pos"], x["slots"], x["bt"], x["wid"],
+                x["emit"], sp, self.generator, self._inv_freq,
+                verify=verify)
+        return self._step("ragged", w, sig, w == 1 and not verify and greedy,
+                          fn, {"ids": input_ids, "pos": pos,
+                               "slots": slot_mapping, "bt": block_table,
+                               "wid": wid, "emit": emit}, sampling_params)
 
     def _run_paged_loop(self, first_tokens, positions, block_table,
                         num_steps: int, sampling_params=None):
         """``num_steps`` decode steps with in-device slot advance
-        (``model_base.paged_decode_loop``); blocks for the horizon must be
-        allocated already."""
+        (``model_base.paged_decode_loop``, eager); blocks for the horizon
+        must be allocated already."""
         self._check_decode_fits(
             int(np.max(np.asarray(positions))) + num_steps)
+        b = np.shape(first_tokens)[0]
         if sampling_params is None:
-            sampling_params = self._default_sampling_params(
-                np.shape(first_tokens)[0])
+            sampling_params = self._default_sampling_params(b)
+        self._note_jit("paged_loop", num_steps,
+                       (b, int(np.shape(block_table)[1])), graph=False)
         return model_base.paged_decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions),
             self._t(block_table), sampling_params, self.generator,
             num_steps=num_steps, inv_freq=self._inv_freq)
-
-    def warmup(self):
-        """Run the paged step once at each shape it will run (the prefill
-        widths and the T=1 decode step). Every slot is negative, so nothing
-        is written."""
-        if self.params is None:
-            self.init_random_weights()
-        if self.cache is None:
-            self.init_cache()
-        cfg = self.tpu_config
-        b = cfg.batch_size
-        widths = {1}
-        if cfg.is_chunked_prefill and cfg.chunked_prefill_config is not None:
-            widths.add(cfg.chunked_prefill_config.kernel_q_tile_size)
-        widths.update(self.ctx_buckets)
-        chunk = max(cfg.decode_chunk_tokens, 1)
-        for tw in self._bt_buckets:
-            bt = np.zeros((b, tw), np.int32)   # null block only
-            for w in sorted(widths):
-                self._run_paged(np.zeros((b, w), np.int32),
-                                np.zeros((b, w), np.int32),
-                                np.full((b, w), -1, np.int32), bt,
-                                np.zeros((b,), np.int32))
-            if chunk > 1:
-                self._run_paged_loop(np.zeros((b,), np.int32),
-                                     np.zeros((b,), np.int32), bt, chunk)
-        return self
 
     # -- generation --------------------------------------------------------
     def generate(self, input_ids: np.ndarray,

@@ -1,0 +1,191 @@
+"""One captured CUDA graph per T = 1 step signature (port-only: the
+counterpart of the JAX application's jit cache — ``_compiled`` /
+``_jit_seen`` and ``_note_jit``, ``neuronx_distributed_inference_tpu/
+models/application.py:70-82, 413-440``, where every new (kind, bucket,
+shape) signature is a trace + XLA compile and every later call replays the
+executable).
+
+PyTorch runs eagerly, so a decode step pays the host for every one of its
+hundreds of small launches; on the card that leaves the device idle most
+of the step. :class:`StepGraphs` captures a step once per signature into a
+``torch.cuda.CUDAGraph`` (all of an application's graphs share one memory
+pool) and afterwards replays it:
+
+  * inputs live in static device buffers, all int32, packed into one
+    buffer that one pinned host staging buffer fills with one
+    host-to-device copy per replay (tensors already on the card are copied
+    into their views on the device);
+  * the outputs are the graph's static tensors, copied out on the device
+    at each replay, so a caller may keep them across replays (the
+    contiguous ``generate`` keeps its tokens on the card);
+  * a capture first runs the step twice eagerly on a side stream with the
+    same inputs (kernel builds, library handles and lazy allocations happen
+    there, never inside the capture), then captures it; a step's cache
+    writes depend only on its inputs, so the repeats write the same values.
+    A failed capture raises (there is no eager fall back).
+
+Kernel launches inside a capture are recorded into the graph, not made:
+the kernel wrappers count them as ``<wrapper>.captured``
+(``ops.decode_attention.count_launch``), each graph keeps its per-kernel
+count, and :meth:`StepGraphs.replayed_launches` adds them up over the
+replays. ``replays`` counts replays per signature.
+
+Only T = 1 steps are captured (``paged_ragged_step`` at W = 1,
+``paged_forward_step`` at T = 1, ``token_generation_step``), and only when
+they sample greedily: wider grids run eagerly by design (PyTorch eager has
+no per-shape build to save), and a ``torch.Generator`` draw stays eager
+until the threefry sampler is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..ops import decode_attention, flash_attention
+
+#: kernel wrappers whose launches a graph may hold (name -> wrapper)
+KERNELS = {
+    "paged_decode_attention": decode_attention.paged_decode_attention,
+    "decode_attention_stacked": decode_attention.decode_attention_stacked,
+    "flash_attention": flash_attention.flash_attention,
+}
+
+_WARMUP_CALLS = 2
+
+
+class _Graph:
+    """One captured step: its static input views (one int32 device buffer
+    filled from one pinned host buffer), the graph, its static outputs and
+    the kernel launches it holds."""
+
+    def __init__(self, device: torch.device,
+                 shapes: Mapping[str, tuple]):
+        self.shapes = dict(shapes)
+        self._offsets: Dict[str, tuple] = {}
+        n = 0
+        for name, shape in self.shapes.items():
+            size = int(np.prod(shape, dtype=np.int64))
+            self._offsets[name] = (n, size)
+            n += size
+        self.host = torch.empty(max(n, 1), dtype=torch.int32,
+                                pin_memory=True)
+        self._host_np = self.host.numpy()
+        self.dev = torch.empty(max(n, 1), dtype=torch.int32, device=device)
+        self.static = {name: self.dev[o:o + size].view(self.shapes[name])
+                       for name, (o, size) in self._offsets.items()}
+        self._copied: Optional[torch.cuda.Event] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Dict[str, torch.Tensor] = {}
+        self.kernel_launches: Dict[str, int] = {}
+
+    def load(self, inputs: Mapping[str, Any]) -> None:
+        """Fill the static inputs: numpy arrays through the pinned buffer
+        (one copy), device tensors by a copy on the card."""
+        if self._copied is not None:
+            # the previous copy out of the pinned buffer must be done
+            # before the host overwrites it
+            self._copied.synchronize()
+        on_card = []
+        for name, x in inputs.items():
+            if isinstance(x, torch.Tensor):
+                on_card.append((name, x))
+                continue
+            o, size = self._offsets[name]
+            self._host_np[o:o + size] = np.asarray(x).reshape(-1)
+        self.dev.copy_(self.host, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record()
+        for name, x in on_card:
+            self.static[name].copy_(x.reshape(self.shapes[name]))
+
+
+class StepGraphs:
+    """The per-application graph cache: ``run(sig, fn, inputs)`` captures
+    ``fn`` at the first sight of ``sig`` and replays it afterwards.
+
+    ``fn(static)`` takes the dict of static int32 input tensors (shaped as
+    ``inputs``) and returns a dict of output tensors. The caller drops the
+    cache (:meth:`clear`) whenever a tensor the graphs read is replaced
+    (the parameters, the KV cache)."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self._graphs: Dict[Any, _Graph] = {}
+        self._pool = None
+        self.replays: Dict[Any, int] = {}
+        self._replayed: Dict[str, int] = {k: 0 for k in KERNELS}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def signatures(self):
+        return list(self._graphs)
+
+    def kernel_launches(self, sig) -> Dict[str, int]:
+        """Kernel launches one replay of ``sig``'s graph makes."""
+        return dict(self._graphs[sig].kernel_launches)
+
+    def replayed_launches(self, name: str) -> int:
+        """Launches of kernel ``name`` made by replays since the last
+        :meth:`reset_counts` (graphs dropped since included)."""
+        return self._replayed[name]
+
+    def reset_counts(self) -> None:
+        self.replays = {}
+        self._replayed = {k: 0 for k in KERNELS}
+
+    def clear(self) -> None:
+        """Drop every graph (their inputs, outputs and pool memory go with
+        the last reference)."""
+        self._graphs = {}
+        self._pool = None
+
+    def reserve(self, max_rows: int, num_kv_heads: int) -> None:
+        """Pin the decode kernels' merge counters for ``max_rows`` rows
+        (the largest batch bucket) before the first capture."""
+        decode_attention.pin_merge_counters(self.device,
+                                            max_rows * num_kv_heads)
+
+    def run(self, sig, fn: Callable[[Dict[str, torch.Tensor]],
+                                    Dict[str, torch.Tensor]],
+            inputs: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        g = self._graphs.get(sig)
+        if g is None:
+            g = self._capture(fn, inputs)
+            self._graphs[sig] = g
+        else:
+            g.load(inputs)
+        g.graph.replay()
+        self.replays[sig] = self.replays.get(sig, 0) + 1
+        for name, n in g.kernel_launches.items():
+            self._replayed[name] += n
+        return {k: v.clone() for k, v in g.outputs.items()}
+
+    def _capture(self, fn, inputs: Mapping[str, Any]) -> _Graph:
+        shapes = {k: tuple(np.shape(v)) if not isinstance(v, torch.Tensor)
+                  else tuple(v.shape) for k, v in inputs.items()}
+        g = _Graph(self.device, shapes)
+        g.load(inputs)
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP_CALLS):
+                fn(g.static)
+        cur.wait_stream(side)
+        before = {k: w.captured for k, w in KERNELS.items()}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            out = fn(g.static)
+        g.graph = graph
+        g.outputs = dict(out)
+        g.kernel_launches = {k: w.captured - before[k]
+                             for k, w in KERNELS.items()
+                             if w.captured != before[k]}
+        return g

@@ -24,8 +24,9 @@ Attention, by phase:
     into the cache;
   * ``decode`` (contiguous): the step's K/V are written first; the
     contiguous decode kernel runs under the rule of model_base.py:1175-1197
-    (static batch over the whole cache, no side buffer, on by default only
-    for sliding-window models), else the layer is read in its native
+    (static batch over the whole cache, no side buffer; on by default for
+    every model it admits, where the reference's auto rule admits only
+    sliding-window models), else the layer is read in its native
     layout (``read_layer_hl``, cut to ``kv_view``; rows gathered under
     continuous batching) into ``mha_hl``, or ``mha_decode_merged`` with the
     chunked side buffer of :func:`decode_loop`;
@@ -354,15 +355,19 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
                                  side: bool = False) -> bool:
     """The decode branch's kernel admission, model_base.py:1175-1197: no
     side buffer, not disabled, supported geometry, static batch over the
-    whole cache, a cache dtype the kernel streams; by default on only for
-    sliding-window models (the port runs no sink or layer pattern)."""
-    use = (not side and spec.decode_kernel is not False
-           and decode_attention.supports(spec, phase_t)
-           and identity_seq_ids and batch == cache["k"].shape[1]
-           and _cache_ok(spec, cache["k"].dtype))
-    if use and spec.decode_kernel is None:
-        use = spec.sliding_window > 0
-    return use
+    whole cache, a cache dtype the kernel streams.
+
+    By default (``decode_kernel`` None) the port takes the kernel wherever
+    it is admitted, full attention included: a deliberate difference from
+    the reference, whose auto rule (:1187-1197) keeps plain full attention
+    on the XLA path from a TPU measurement. On the H100 the Mistral-7B
+    geometry's decode step (32/8 heads, D 128, batch 4, window = seq_len,
+    so full attention) took 10.95 ms with the kernel and 11.74 ms on the
+    gather + ``mha_hl`` path, both replaying CUDA graphs (PERF.md)."""
+    return (not side and spec.decode_kernel is not False
+            and decode_attention.supports(spec, phase_t)
+            and identity_seq_ids and batch == cache["k"].shape[1]
+            and _cache_ok(spec, cache["k"].dtype))
 
 
 def _sample_out(spec: DecoderSpec, tpu_cfg: TpuConfig, params, hidden,

@@ -6,9 +6,12 @@ them).
 
 Layouts as in the JAX package: q (B, T, Hq, D); k/v (B, S, Hkv, D), or the
 contiguous cache's native layouts for ``mha_hl`` (K transposed (B, Hkv, D,
-S), V (B, Hkv, S, D)); mask (B, T, S) boolean, True = attend. Scores and softmax in fp32; the value
-product takes the probabilities in v's dtype and accumulates in fp32, as
-the JAX einsums with ``preferred_element_type=float32`` do.
+S), V (B, Hkv, S, D)); mask (B, T, S) boolean, True = attend. As the
+JAX einsums with ``preferred_element_type=float32`` do, both products take
+their operands in the storage dtype (the probabilities rounded to v's
+dtype) and accumulate into fp32; scores and softmax are fp32. On the card
+the bf16 products run on the tensor cores with an fp32 result and no fp32
+copy of K or V; the CPU multiplies fp32 copies (:func:`_bmm_f32`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,76 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, h * n_rep, d)
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor,
+             alpha: Optional[float] = None) -> torch.Tensor:
+    """Batched product with fp32 output, (N, M, K) x (N, K, P), times
+    ``alpha`` when given (the scores' scale, applied in the product's fp32
+    epilogue: one rounding of alpha * sum, as a separate fp32 multiply
+    gives, without another pass over the output). On CUDA a bf16 / fp16
+    pair multiplies on the tensor cores in its storage dtype with fp32
+    accumulation and an fp32 result (``aten::baddbmm.dtype`` /
+    ``aten::bmm.dtype``, the counterpart of
+    ``preferred_element_type=float32``); nothing is copied to fp32. Every
+    other pair, and every pair on the CPU (which has no ``.dtype`` kernel),
+    multiplies fp32 copies: a product of two bf16 values is exact in fp32,
+    so the two routes differ only in the order of the fp32 sums."""
+    low = (a.device.type == "cuda" and a.dtype == b.dtype
+           and a.dtype in (torch.bfloat16, torch.float16))
+    if alpha is None:
+        if low:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+    out = torch.empty((a.shape[0], a.shape[1], b.shape[2]),
+                      dtype=torch.float32, device=a.device)
+    # beta = 0: the uninitialised ``out`` is not read
+    if low:
+        return torch.baddbmm(out, a, b, beta=0.0, alpha=alpha,
+                             out_dtype=torch.float32, out=out)
+    return torch.baddbmm(out, a.float(), b.float(), beta=0.0, alpha=alpha,
+                         out=out)
+
+
+def _softcap_(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is not None:
+        scores.div_(cap).tanh_().mul_(cap)
+    return scores
+
+
+def _core(q: torch.Tensor, kt: torch.Tensor, vv: torch.Tensor,
+          mask: Optional[torch.Tensor], scale: float,
+          logits_soft_cap: Optional[float], sink: Optional[torch.Tensor],
+          out_dtype: torch.dtype) -> torch.Tensor:
+    """The attention core over GQA groups flattened into the batch: q (B,
+    T, Hq, D), kt (B * Hkv, D, S) and vv (B * Hkv, S, Dv) -> (B, T, Hq,
+    Dv). Besides the products the fp32 scores take the mask in place and
+    one softmax (over the sink column too, where there is one); the scale
+    rides the score product's epilogue."""
+    b, t, hq, d = q.shape
+    n, _, s = kt.shape
+    hkv = n // b
+    g = hq // hkv
+    qg = (q.reshape(b, t, hkv, g, d).permute(0, 2, 3, 1, 4)
+          .reshape(n, g * t, d))
+    scores = _bmm_f32(qg, kt, scale)                    # (B*Hkv, G*T, S)
+    _softcap_(scores, logits_soft_cap)
+    s5 = scores.view(b, hkv, g, t, s)
+    if mask is not None:
+        s5.masked_fill_(~mask[:, None, None, :, :], NEG_INF)
+    if sink is not None:
+        # a virtual sink column joins the softmax denominator only
+        sink_col = sink.float().reshape(1, hkv, g, 1, 1).expand(
+            b, hkv, g, t, 1)
+        probs = torch.softmax(torch.cat([s5, sink_col], dim=-1),
+                              dim=-1)[..., :-1]
+    else:
+        probs = torch.softmax(s5, dim=-1)
+    probs = probs.to(vv.dtype).reshape(n, g * t, s)
+    out = _bmm_f32(probs, vv)                           # (B*Hkv, G*T, Dv)
+    dv = vv.shape[-1]
+    return (out.view(b, hkv, g, t, dv).permute(0, 3, 1, 2, 4)
+            .reshape(b, t, hq, dv).to(out_dtype))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor], scale: float,
         logits_soft_cap: Optional[float] = None,
@@ -36,30 +109,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked multi-head attention with GQA grouping (q head i reads KV
     head i // (Hq/Hkv)). q (B,T,Hq,D), k/v (B,S,Hkv,D) -> (B,T,Hq,D).
     ``sink``: per-head learned softmax sink logits (Hq,), entering the
-    denominator only."""
-    b, t, hq, d = q.shape
-    hkv = k.shape[2]
-    g = hq // hkv
-    qk = q.reshape(b, t, hkv, g, d).float()
-    scores = torch.einsum("bthgd,bshd->bhgts", qk, k.float()) * scale
-    if logits_soft_cap is not None:
-        scores = logits_soft_cap * torch.tanh(scores / logits_soft_cap)
-    if mask is not None:
-        scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
-    if sink is not None:
-        sink_col = sink.float().reshape(1, hkv, g, 1, 1).expand(
-            b, hkv, g, t, 1)
-        scores_all = torch.cat([scores, sink_col], dim=-1)
-        m = scores_all.amax(dim=-1, keepdim=True)
-        e = torch.exp(scores_all - m)
-        probs = (e / e.sum(dim=-1, keepdim=True))[..., :-1]
-    else:
-        m = scores.amax(dim=-1, keepdim=True)
-        e = torch.exp(scores - m)
-        probs = e / e.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype).float(),
-                       v.float())
-    return out.reshape(b, t, hq, v.shape[-1]).to(q.dtype)
+    denominator only. K and V are relaid out per KV head in their own
+    dtype (one copy each, as the products need a batch of matrices)."""
+    b, s, hkv, d = k.shape
+    kt = k.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
+    vv = v.permute(0, 2, 1, 3).reshape(b * hkv, s, v.shape[-1])
+    return _core(q, kt, vv, mask, scale, logits_soft_cap, sink, q.dtype)
 
 
 def mha_hl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,9 +122,12 @@ def mha_hl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            logits_soft_cap: Optional[float] = None,
            sink: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`mha` over the cache's native layouts: k TRANSPOSED (B, Hkv,
-    D, S), v (B, Hkv, S, D) (read through views)."""
-    return mha(q, k.permute(0, 3, 1, 2), v.transpose(1, 2), mask, scale,
-               logits_soft_cap=logits_soft_cap, sink=sink)
+    D, S), v (B, Hkv, S, D). A layer read of the cache (cut at the view)
+    flattens to the products' batches without a copy."""
+    b, hkv, d, s = k.shape
+    return _core(q, k.reshape(b * hkv, d, s),
+                 v.reshape(b * hkv, s, v.shape[-1]), mask, scale,
+                 logits_soft_cap, sink, q.dtype)
 
 
 def mha_decode_merged(q: torch.Tensor, k_prior: torch.Tensor,
@@ -85,38 +143,48 @@ def mha_decode_merged(q: torch.Tensor, k_prior: torch.Tensor,
     q (B,1,Hq,D); k_prior (B,Hkv,D,S) transposed; v_prior (B,Hkv,S,D);
     k_side (B,Hkv,D,C); v_side (B,Hkv,C,D); mask_prior (B,1,S) excludes
     every slot the side buffer covers; mask_side (B,1,C) selects the side
-    entries written so far; k_new/v_new (B,1,Hkv,D) the active token."""
+    entries written so far; k_new/v_new (B,1,Hkv,D) the active token.
+    The prior and side scores are products in the storage dtype with fp32
+    output (:func:`_bmm_f32`); only the one active token is upcast."""
     b, t, hq, d = q.shape
     hkv = k_prior.shape[1]
     g = hq // hkv
-    qk = q.reshape(b, t, hkv, g, d).float()
-    sp = torch.einsum("bthgd,bhds->bhgts", qk, k_prior.float()) * scale
-    ss = torch.einsum("bthgd,bhdc->bhgtc", qk, k_side.float()) * scale
-    sa = torch.einsum("bthgd,bthd->bhgt", qk,
+    s, c = k_prior.shape[3], k_side.shape[3]
+    n = b * hkv
+    qg = (q.reshape(b, t, hkv, g, d).permute(0, 2, 3, 1, 4)
+          .reshape(n, g * t, d))
+    sp = _bmm_f32(qg, k_prior.reshape(n, d, s), scale)
+    ss = _bmm_f32(qg, k_side.reshape(n, d, c), scale)
+    sa = torch.einsum("bthgd,bthd->bhgt", q.reshape(b, t, hkv, g, d).float(),
                       k_new.float())[..., None] * scale
+    _softcap_(sp, logits_soft_cap)
+    _softcap_(ss, logits_soft_cap)
     if logits_soft_cap is not None:
-        sp = logits_soft_cap * torch.tanh(sp / logits_soft_cap)
-        ss = logits_soft_cap * torch.tanh(ss / logits_soft_cap)
         sa = logits_soft_cap * torch.tanh(sa / logits_soft_cap)
-    sp = sp.masked_fill(~mask_prior[:, None, None, :, :], NEG_INF)
-    ss = ss.masked_fill(~mask_side[:, None, None, :, :], NEG_INF)
+    sp = sp.view(b, hkv, g, t, s).masked_fill_(
+        ~mask_prior[:, None, None, :, :], NEG_INF)
+    ss = ss.view(b, hkv, g, t, c).masked_fill_(
+        ~mask_side[:, None, None, :, :], NEG_INF)
     m = torch.maximum(torch.maximum(sp.amax(dim=-1, keepdim=True),
                                     ss.amax(dim=-1, keepdim=True)), sa)
     if sink is not None:
         sink_b = sink.float().reshape(1, hkv, g, 1, 1)
         m = torch.maximum(m, sink_b)
-    ep, es, ea = torch.exp(sp - m), torch.exp(ss - m), torch.exp(sa - m)
+    ep = sp.sub_(m).exp_()
+    es = ss.sub_(m).exp_()
+    ea = torch.exp(sa - m)
     den = ep.sum(dim=-1, keepdim=True) + es.sum(dim=-1, keepdim=True) + ea
     if sink is not None:
         den = den + torch.exp(sink_b - m)
-    out = torch.einsum("bhgts,bhsd->bthgd",
-                       (ep / den).to(v_prior.dtype).float(), v_prior.float())
-    out = out + torch.einsum("bhgtc,bhcd->bthgd",
-                             (es / den).to(v_side.dtype).float(),
-                             v_side.float())
+    dv = v_new.shape[-1]
+    pp = ep.div_(den).to(v_prior.dtype).reshape(n, g * t, s)
+    ps = es.div_(den).to(v_side.dtype).reshape(n, g * t, c)
+    out = (_bmm_f32(pp, v_prior.reshape(n, s, dv))
+           + _bmm_f32(ps, v_side.reshape(n, c, dv)))
+    out = out.view(b, hkv, g, t, dv).permute(0, 3, 1, 2, 4)  # (B,T,Hkv,G,Dv)
     coeff = (ea / den).permute(0, 3, 1, 2, 4)             # (B,T,Hkv,G,1)
     out = out + coeff * v_new[:, :, :, None, :].float()
-    return out.reshape(b, t, hq, v_new.shape[-1]).to(q.dtype)
+    return out.reshape(b, t, hq, dv).to(q.dtype)
 
 
 def causal_mask(position_ids: torch.Tensor, kv_positions: torch.Tensor,

@@ -25,6 +25,11 @@ header says what bounds it on the H100 and what the design does about
 that); on CPU tensors it runs its plain-PyTorch twin
 (``decode_attention_stacked_plain``, ``paged_decode_attention_plain``).
 There is no fall back from one to the other.
+
+A wrapper called while its stream is being captured into a CUDA graph
+(``models/cuda_graphs.py``) records the launch into the graph: it adds one
+to ``<wrapper>.captured`` instead of ``<wrapper>.launches``, and the graph
+cache counts the launches of its replays.
 """
 
 from __future__ import annotations
@@ -153,6 +158,33 @@ def scratch_layout(batch: int, hkv: int, g: int, head_dim: int,
 
 _COUNTERS = {}
 _MIN_COUNTERS = 4096         # (row, KV head) pairs: batch 512 at Hkv 8
+_PINNED = set()              # devices whose buffer a captured graph holds
+
+
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches``, or
+    ``wrapper.captured`` while the current stream is being captured into
+    a CUDA graph (the graph launches it at each replay)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
+def pin_merge_counters(device, n: int) -> None:
+    """Allocate the merge counters for ``n`` (row, KV head) pairs and pin
+    them: a captured CUDA graph keeps the buffer's address, so a later
+    call that needs a larger buffer raises instead of moving it. The graph
+    cache pins at the largest batch bucket before its first capture."""
+    merge_counters(_device_key(device), n)
+    _PINNED.add(_device_key(device))
 
 
 def merge_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -168,6 +200,13 @@ def merge_counters(device: torch.device, n: int) -> torch.Tensor:
     batch."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if device in _PINNED or (device.type == "cuda" and
+                                 torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"the decode kernels' merge counters on {device} would grow "
+                f"to {n} entries after a CUDA-graph capture pinned them at "
+                f"{0 if buf is None else buf.numel()}: capture after a call "
+                "at the largest batch (pin_merge_counters)")
         buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
                           device=device)
         _COUNTERS[device] = buf
@@ -202,7 +241,7 @@ def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
     if rc != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed "
                            f"(cudaError {rc})")
-    wrapper.launches += 1
+    count_launch(wrapper)
     return out
 
 
@@ -274,7 +313,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     CUDA tensors launch ``csrc/paged_decode_attention.cu`` (one launch:
     the split-K partials and their merge, through the counters of
     :func:`merge_counters`) on the current stream and add one to
-    ``paged_decode_attention.launches``; CPU tensors
+    ``paged_decode_attention.launches`` (``.captured`` inside a CUDA-graph
+    capture); CPU tensors
     run the plain twin. The caller keeps ``lens[b]`` within the row's table
     (the kernel indexes ``block_table[b, kpos // Bs]`` for every live
     ``kpos``)."""
@@ -307,6 +347,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.captured = 0
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +428,7 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention_stacked.launches = 0
+decode_attention_stacked.captured = 0
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -25,6 +25,7 @@ import torch
 
 from .. import _build
 from . import attention as attn_ops
+from . import decode_attention
 
 KERNEL_NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,7 +103,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype, contiguous.
 
     CUDA tensors launch the kernel on the current stream and add one to
-    ``flash_attention.launches``; they must meet the kernel's shape gate
+    ``flash_attention.launches`` (``.captured`` inside a CUDA-graph
+    capture); they must meet the kernel's shape gate
     (:func:`check_kernel_shapes`). CPU tensors run
     :func:`flash_attention_plain`."""
     _check_inputs(q, k, v)
@@ -128,11 +130,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                -3: "the driver refused a TMA tensor map"}.get(
                    rc, f"cudaError {rc}")
         raise RuntimeError(f"flash_attention kernel launch failed ({why})")
-    flash_attention.launches += 1
+    decode_attention.count_launch(flash_attention)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.captured = 0
 
 
 def supports(seq_len: int, head_dim: int, has_sink: bool, chunk: int,

@@ -1,8 +1,9 @@
 """Serving resilience layer of the port (counterpart:
 ``neuronx_distributed_inference_tpu/resilience/``): the typed failure
-taxonomy, deterministic fault injection and the recompute-preemption
-policies. The degradation controller is not ported yet."""
+taxonomy, deterministic fault injection, the recompute-preemption
+policies and the SLO-driven degradation controller."""
 
+from .controller import DEGRADE_ACTIONS, DegradationController
 from .errors import (AdmissionError, Cancelled, CapacityError,
                      ConfigurationError, DeadlineExceeded, HandoffError,
                      KVCacheStateError, QueueOverflow, ReplicaUnavailable,
@@ -17,4 +18,5 @@ __all__ = [
     "ReplicaUnavailable", "HandoffError",
     "FAULTS", "FAULT_POINTS", "FaultInjector", "InjectedFault",
     "Preempted", "PREEMPTION_POLICIES", "pick_victim",
+    "DEGRADE_ACTIONS", "DegradationController",
 ]

@@ -43,6 +43,7 @@ the dispatch does not, since the cache is updated in place.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -462,6 +463,19 @@ class _EngineAdapterBase:
     def _append_token(self, st: _SeqState, tok: int):
         st.last_token = tok
 
+    def _traces_of(self, seq_ids):
+        """Request trace ids of ``seq_ids`` (running rows): the
+        attribution of a steady-state incident (serving/warmup.py)."""
+        return [_trace_of(self.seqs[s].meta)
+                for s in seq_ids if s in self.seqs]
+
+    def _request_context(self, seq_ids):
+        """In declared steady state, the app's ``request_context`` over
+        the rows' trace ids; a no-op context otherwise."""
+        if getattr(self.app, "_steady_state", False):
+            return self.app.request_context(self._traces_of(seq_ids))
+        return contextlib.nullcontext()
+
     def _tenant_of(self, seq_ids) -> str:
         """Common tenant label of ``seq_ids`` (running rows), "" when
         mixed or unknown."""
@@ -730,7 +744,9 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         return scr
 
     def _dispatch_decode(self, scr: _CbScratch):
-        out = self.app._run_decode(scr.toks_p, scr.pos_p, seq_ids=scr.sid_p)
+        with self._request_context(scr.live):
+            out = self.app._run_decode(scr.toks_p, scr.pos_p,
+                                       seq_ids=scr.sid_p)
         self.host_stats["dispatches"] += 1
         self.host_stats["device_steps"] += 1
         return out
@@ -1036,9 +1052,11 @@ class PagedEngineAdapter(_EngineAdapterBase):
 
     def _dispatch_decode(self, scr: _PagedScratch):
         """Issue ONE paged decode step without reading any device value
-        (the fetch is the caller's)."""
-        out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
-                                  scr.last)
+        (the fetch is the caller's); in steady state an unexpected graph
+        signature is attributed to the batched requests' traces."""
+        with self._request_context(scr.live):
+            out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
+                                      scr.last)
         self.host_stats["dispatches"] += 1
         self.host_stats["device_steps"] += 1
         rec = _get_recorder()
@@ -1066,7 +1084,8 @@ class PagedEngineAdapter(_EngineAdapterBase):
             bt = _repeat_row0(bt, pad_to)
 
         def run():
-            out = app._run_paged_loop(first, pos, bt, num_steps)
+            with self._request_context(live):
+                out = app._run_paged_loop(first, pos, bt, num_steps)
             self.host_stats["dispatches"] += 1
             self.host_stats["device_steps"] += num_steps
             return self._fetch_rows(out, b)

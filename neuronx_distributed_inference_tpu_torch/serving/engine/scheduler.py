@@ -1,6 +1,8 @@
 """The closed-loop multi-tenant serving engine over the paged adapter
 (counterpart: ``neuronx_distributed_inference_tpu/serving/engine/
-scheduler.py``; ``run_pass`` :292).
+scheduler.py``; the ``slo=`` / ``degradation=`` checks :107-126,
+``run_pass`` :292, ``run_forever`` :333, ``_slo_note_delivery`` :679,
+``debug_state`` :787).
 
 :class:`ServingEngine` composes the adapter's serving primitives — typed
 transactional admission, recompute preemption, per-request deadlines,
@@ -30,14 +32,16 @@ One :meth:`ServingEngine.run_pass` is the whole closed loop:
      bound — and route tokens to per-request streams.
 
 The engine is synchronous at its core (drive it with :meth:`run_pass` /
-:meth:`run_until_drained` from tests and benches); its asyncio loop
-``run_forever`` waits with the HTTP front door. The per-tenant SLO
-tracker (``slo=``) and the degradation controller (``degradation=``) are
-not ported yet: the constructor refuses them.
+:meth:`run_until_drained` from tests and benches); :meth:`run_forever`
+is the asyncio wrapper the SSE front door (``frontend.py``) uses. ``slo=``
+attaches the per-tenant SLO tracker (``telemetry/slo.py``);
+``degradation=`` the controller that acts on its burn rates once per pass
+(``resilience/controller.py``).
 """
 
 from __future__ import annotations
 
+import asyncio
 import itertools
 import json
 import os
@@ -54,21 +58,7 @@ from ...telemetry.trace import get_recorder as _get_recorder
 from .queue import MultiTenantQueue, QueuedRequest
 from .streams import TokenStream
 
-__all__ = ["ServingEngine", "admission_headroom"]
-
-
-def admission_headroom(adapter) -> Dict[str, int]:
-    """The scheduler's capacity-reject log line: free batch slots, free
-    KV blocks, and the token headroom they represent (a copy of
-    ``neuronx_distributed_inference_tpu/serving/warmup.py``
-    ``admission_headroom`` :367-376; the warm-up plane is not ported)."""
-    out = {"free_slots": int(getattr(adapter, "free_capacity", 0))}
-    mgr = getattr(getattr(adapter, "app", None), "kv_mgr", None)
-    if mgr is not None:
-        free = int(mgr.allocator.num_free)
-        out["free_blocks"] = free
-        out["headroom_tokens"] = free * int(mgr.spec.block_size)
-    return out
+__all__ = ["ServingEngine"]
 
 
 class ServingEngine:
@@ -84,7 +74,13 @@ class ServingEngine:
     ``max_unread_tokens`` bounds how far a stream may run ahead of its
     consumer before the engine stops stepping that sequence (None = no
     backpressure). ``priority_preemption=False`` disables scheduler-driven
-    eviction (the adapter's own KV-pressure preemption still applies)."""
+    eviction (the adapter's own KV-pressure preemption still applies).
+    ``slo`` attaches a :class:`~...telemetry.slo.SLOTracker`: the engine
+    feeds it TTFT (submit → first token), per-request mean TPOT and queue
+    wait per tenant, host-side only (``debug_state()["slo"]``).
+    ``degradation`` (needs ``slo``) attaches a
+    :class:`~...resilience.controller.DegradationController`, consulted
+    once per pass."""
 
     def __init__(self, adapter, *,
                  tenant_weights: Optional[Dict[str, float]] = None,
@@ -105,14 +101,20 @@ class ServingEngine:
                     "PagedEngineAdapter")
         if decode_steps_per_pass < 1:
             raise ConfigurationError("decode_steps_per_pass must be >= 1")
-        waiting = [name for name, v in (("slo=", slo),
-                                        ("degradation=", degradation))
-                   if v is not None]
-        if waiting:
-            raise ConfigurationError(
-                "the PyTorch port's engine does not run these yet: "
-                + ", ".join(waiting) + " (ROADMAP queue item 1: "
-                "telemetry/slo.py and resilience/controller.py)")
+        if degradation is not None:
+            if slo is None:
+                raise ConfigurationError(
+                    "degradation= needs slo= — the controller acts on "
+                    "the SLO tracker's burn index (telemetry/slo.py)")
+            if not hasattr(degradation, "update"):
+                raise ConfigurationError(
+                    "degradation= takes a DegradationController "
+                    "(resilience/controller.py) or a compatible "
+                    "update(engine) surface")
+            if hasattr(degradation, "check_policy"):
+                # loud at construction: a defaulted enter threshold that
+                # lands at or below exit_burn would flap per pass
+                degradation.check_policy(slo.policy)
         self.adapter = adapter
         self.queue = MultiTenantQueue(tenant_weights, default_weight,
                                       max_queue_depth, starvation_bound_s)
@@ -122,8 +124,12 @@ class ServingEngine:
         # post-mortem artifacts: when set, an unrecoverable StepFailure
         # writes dump_debug_state() here before the engine closes
         self.debug_dump_dir = debug_dump_dir
+        # None = no tracking cost at all (every hook is one attribute check)
+        self.slo = slo
+        self.degradation = degradation
         self._active: Dict[int, QueuedRequest] = {}     # seq_id -> request
         self._sid_of: Dict[str, int] = {}               # request_id -> seq
+        self._trace_ids: Dict[str, str] = {}   # request_id -> trace (bounded)
         self._seq_ids = itertools.count()
         self._rid_counter = itertools.count()
         self._reserved: List[str] = []   # rids owed the next freed slots
@@ -198,6 +204,7 @@ class ServingEngine:
         if adapter is not None:
             req.meta["adapter"] = str(adapter)
         self.queue.push(req)         # may raise QueueOverflow
+        self._remember_trace(rid, tid)
         stream._cancel_cb = lambda: self.cancel(rid)
         self.stats["submitted"] += 1
         rec = _get_recorder()
@@ -242,13 +249,28 @@ class ServingEngine:
         token budget (the caller already delivered the rest)."""
         kw = rec.admission_kwargs()
         meta = kw["meta"][0] if isinstance(kw["meta"][0], dict) else {}
-        return self.submit(
+        stream = self.submit(
             kw["prompts"][0], max_new_tokens,
             tenant=str(meta.get("tenant", "default")),
             priority=int(meta.get("priority", 0)),
             deadline_s=kw["deadline_s"][0], stop_tokens=stop_tokens,
             request_id=request_id, trace_id=trace_of(meta),
             adapter=meta.get("adapter"))
+        if self.slo is not None and rec.n_generated > 0:
+            # a continuation: the client saw its first token long ago, so
+            # this engine's first delivery is no fresh TTFT sample
+            now = time.perf_counter()
+            for r in self._queued():
+                if r.request_id == stream.request_id:
+                    r.t_first = r.t_last = now
+                    break
+        return stream
+
+    @property
+    def closed(self) -> bool:
+        """True once the engine stopped serving (explicit :meth:`close`
+        or an unrecoverable device failure)."""
+        return self._closed
 
     @property
     def has_work(self) -> bool:
@@ -263,6 +285,10 @@ class ServingEngine:
         adds ``dispatch.*``/``fetch.*`` inside the dispatch slice)."""
         now = time.perf_counter()
         rec = _get_recorder()            # disabled: span() is a no-op CM
+        if self.degradation is not None:
+            # close the loop BEFORE this pass's admission so a tightened
+            # weight or shed applies to the work it is about to schedule
+            self.degradation.update(self, now=now)
         with rec.span("pass.expire", cat="engine"):
             self._expire_queue(now)
         with rec.span("pass.preempt", cat="engine"):
@@ -291,9 +317,34 @@ class ServingEngine:
                     "passes — scheduler wedged (file a bug with the "
                     "engine stats)", seq_ids=tuple(self._active))
 
+    async def run_forever(self, idle_sleep_s: float = 0.001) -> None:
+        """Asyncio loop: run scheduling passes until :meth:`close`,
+        yielding to the event loop between passes (and napping while idle)
+        so SSE writers and new submits interleave. An exception outside
+        the :class:`ServingError` taxonomy is wrapped into an unrecoverable
+        :class:`StepFailure` after every stream finished typed ("error"),
+        so no client stream is left hanging."""
+        while not self._closed:
+            try:
+                delivered = self.run_pass() if self.has_work else 0
+            except StepFailure:
+                raise          # _fatal already ran at the raise site
+            except Exception as e:
+                err = StepFailure(
+                    f"unexpected {type(e).__name__} in the serving loop "
+                    "— engine state was dumped and every stream failed "
+                    "typed; rebuild the engine before serving",
+                    phase="engine", retry_safe=False)
+                self._fatal(err)
+                raise err from e
+            if delivered or self.has_work:
+                await asyncio.sleep(0)
+            else:
+                await asyncio.sleep(idle_sleep_s)
+
     def close(self) -> None:
-        """Stop serving and fail over remaining work: queued and running
-        requests finish with reason "cancelled"."""
+        """Stop :meth:`run_forever` and fail over remaining work: queued
+        and running requests finish with reason "cancelled"."""
         self._closed = True
         for req in list(self._queued()):
             self.queue.remove(req.request_id)
@@ -344,11 +395,14 @@ class ServingEngine:
         generated = list(rec.tokens[req.orig_prompt_len:])
         already = req.stream.n_tokens
         done = False
+        delivered = 0
         for tok in generated[already:]:
             req.stream.put(tok)
+            delivered += 1
             done = self._hit_limit(req, tok)
             if done:
                 break
+        self._slo_note_delivery(req, delivered)
         if done:
             self._finalize(req)
             self.stats["completed"] += 1
@@ -581,9 +635,23 @@ class ServingEngine:
                 self.stats["completed"] += 1
                 done = True
                 break
+        self._slo_note_delivery(req, n)
         if done:
             self._finalize(req)
         return n
+
+    def _slo_note_delivery(self, req: QueuedRequest, n: int) -> None:
+        """SLO timestamps shared by every path that puts tokens on a
+        stream: the first delivery anchors TTFT (submit -> first token,
+        queue wait included), every delivery advances t_last."""
+        if n == 0 or self.slo is None:
+            return
+        now = time.perf_counter()
+        if req.t_first is None:
+            req.t_first = now
+            self.slo.observe(req.tenant, "ttft", now - req.enqueue_t,
+                             now=now)
+        req.t_last = now
 
     def _hit_limit(self, req: QueuedRequest, tok: int) -> bool:
         if tok in req.stop_tokens:
@@ -668,6 +736,7 @@ class ServingEngine:
         if not rec.enabled:
             return
         try:
+            from ..warmup import admission_headroom
             rec.instant("admission.headroom", cat="engine", where=where,
                         **admission_headroom(self.adapter))
         except Exception:
@@ -701,6 +770,15 @@ class ServingEngine:
             "reserved": list(self._reserved),
             "adapter": adapter,
         }
+        app = getattr(self.adapter, "app", None)
+        if app is not None and hasattr(app, "warmup_state"):
+            # the warm-up plane: precompile summary, captured graphs and
+            # every steady-state incident (serving/warmup.py)
+            out["warmup"] = app.warmup_state()
+        if self.slo is not None:
+            out["slo"] = self.slo.report()
+        if self.degradation is not None:
+            out["degradation"] = self.degradation.state()
         return out
 
     def dump_debug_state(self, path: Optional[str] = None,
@@ -747,15 +825,45 @@ class ServingEngine:
 
     def _observe_wait(self, req: QueuedRequest, outcome: str) -> None:
         now = time.perf_counter()
+        if self.slo is not None and outcome == "admitted":
+            # a re-admission measures from its requeue time: time spent
+            # running is not queue wait
+            since = (req.last_enqueue_t if req.last_enqueue_t is not None
+                     else req.enqueue_t)
+            self.slo.observe(req.tenant, "queue_wait", now - since,
+                             now=now)
         reg = get_registry()
         if reg.enabled:
             tmetrics.queue_wait_histogram(reg).observe(
                 now - req.enqueue_t,
                 tenant=req.tenant, outcome=outcome)
 
+    def _remember_trace(self, request_id: str, trace_id: str,
+                        bound: int = 1024) -> None:
+        """Bounded request_id -> trace_id map behind
+        ``GET /v1/debug/trace/<id>`` (oldest entries evicted)."""
+        self._trace_ids[request_id] = trace_id
+        while len(self._trace_ids) > bound:
+            del self._trace_ids[next(iter(self._trace_ids))]
+
+    def trace_id_of(self, request_id: str) -> Optional[str]:
+        """The trace id of a request submitted to this engine, None for
+        unknown (or aged-out) ids."""
+        return self._trace_ids.get(request_id)
+
     def _finalize(self, req: QueuedRequest) -> None:
         """Terminal request bookkeeping shared by every finish path: the
-        ``trace.emit`` lifecycle event."""
+        ``trace.emit`` lifecycle event and — with an SLO tracker and >= 2
+        tokens delivered over >= 2 delivery passes — the per-request mean
+        TPOT (a request whose tokens all landed in one pass has no
+        interval to measure)."""
+        if (self.slo is not None and req.t_first is not None
+                and req.t_last is not None and req.stream.n_tokens > 1
+                and req.t_last > req.t_first):
+            self.slo.observe(
+                req.tenant, "tpot",
+                (req.t_last - req.t_first) / (req.stream.n_tokens - 1),
+                now=req.t_last)
         rec = _get_recorder()
         if rec.enabled:
             rec.instant("trace.emit", cat="request",

@@ -310,9 +310,16 @@ class RaggedDispatchPath:
     # -- dispatch region: no device value is read here ---------------------
     def _dispatch_ragged(self, ids, pos, slots, bt, wid, emit, rows):
         """Issue THE unified dispatch (one per engine step) from the
-        numpy plan, without reading any output."""
+        numpy plan, without reading any output. In declared steady state
+        an unexpected graph signature is attributed to the packed rows'
+        request traces (reference path.py:479-488)."""
         ad = self.adapter
-        out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit)
+        if ad.app._steady_state:
+            with ad.app.request_context(
+                    self._row_trace(r.seq_id) for r in rows):
+                out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit)
+        else:
+            out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["ragged_dispatches"] += 1
         ad.host_stats["device_steps"] += 1

@@ -11,9 +11,9 @@ Quick start::
     ... serve ...
     print(reg.render_prometheus())    # Prometheus text exposition
 
-Disabled (the default) every instrument is a shared no-op. The per-tenant
-SLO tracker (``slo.py``) and the compiled-graph observatory
-(``observatory.py``) are not ported yet.
+Disabled (the default) every instrument is a shared no-op. ``slo.py`` is
+the per-tenant SLO tracker; the compiled-graph observatory
+(``observatory.py``) is not ported yet.
 """
 
 from . import metrics
@@ -22,6 +22,7 @@ from .registry import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge, Histogram,
                        enable, get_registry, set_registry)
 from .request_trace import (chrome_by_trace, new_trace_id, trace_events,
                             trace_of)
+from .slo import RollingWindow, SLOPolicy, SLOTracker
 from .spans import NULL_SPAN, NullSpan, Span
 from .trace import (FlightRecorder, NULL_RECORDER, NullFlightRecorder,
                     disable_recorder, enable_recorder, get_recorder,
@@ -36,4 +37,5 @@ __all__ = [
     "FlightRecorder", "NullFlightRecorder", "NULL_RECORDER",
     "enable_recorder", "disable_recorder", "get_recorder", "set_recorder",
     "new_trace_id", "trace_of", "trace_events", "chrome_by_trace",
+    "RollingWindow", "SLOPolicy", "SLOTracker",
 ]

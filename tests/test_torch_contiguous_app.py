@@ -150,13 +150,16 @@ def _llama_tcfg(**over):
 
 @pytest.mark.parametrize("chunk", [1, 4])
 def test_llama_gather_path_and_side_buffer_match_jax(monkeypatch, chunk):
-    """A plain Llama runs neither kernel: prefill ``mha``, decode
-    ``mha_hl`` over ``kv_view``-cut reads (buckets 32/64/128 are crossed),
-    and with ``decode_chunk_tokens=4`` the chunked side-buffer branch
-    (``mha_decode_merged`` + ``commit_chunk``). Logits (per step) and
-    greedy streams (fused loop) match JAX."""
+    """A plain Llama with the decode kernel off runs neither kernel:
+    prefill ``mha``, decode ``mha_hl`` over ``kv_view``-cut reads (buckets
+    32/64/128 are crossed), and with ``decode_chunk_tokens=4`` the chunked
+    side-buffer branch (``mha_decode_merged`` + ``commit_chunk``). Logits
+    (per step) and greedy streams (fused loop) match JAX. (By default the
+    port takes the decode kernel here:
+    ``test_llama_default_takes_the_decode_kernel``.)"""
     japp, tapp = _pair(LLAMA, _llama_tcfg(output_logits=chunk == 1,
-                                          decode_chunk_tokens=chunk))
+                                          decode_chunk_tokens=chunk,
+                                          attn_block_tkg_kernel_enabled=False))
     flash = _CountCalls(monkeypatch, flash_attention, "flash_attention")
     dec = _CountCalls(monkeypatch, decode_attention,
                       "decode_attention_stacked")
@@ -182,6 +185,24 @@ def test_llama_gather_path_and_side_buffer_match_jax(monkeypatch, chunk):
                       max_new_tokens=7)["generated"],
         japp.generate(ids2, attention_mask=mask2,
                       max_new_tokens=7)["generated"])
+
+
+def test_llama_default_takes_the_decode_kernel(monkeypatch):
+    """The port's default for a window-less model (a deliberate difference
+    from the reference's TPU-measured rule, ROADMAP §C): every decode step
+    runs the contiguous decode kernel (its plain twin on the CPU), and the
+    logits still match JAX's gather path at the suite's tolerance."""
+    japp, tapp = _pair(LLAMA, _llama_tcfg(output_logits=True))
+    dec = _CountCalls(monkeypatch, decode_attention,
+                      "decode_attention_stacked")
+    ids, mask = _prompts([25, 9], seed=2)
+    kw = dict(attention_mask=mask, max_new_tokens=12, return_logits=True)
+    want = japp.generate(ids, **kw)
+    got = tapp.generate(ids, **kw)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    for a, b in zip(got["logits"], want["logits"]):
+        np.testing.assert_allclose(a, np.asarray(b), **LOGIT_TOL)
+    assert dec.n == 11 * tapp.spec.num_layers
 
 
 def test_warmup_repad_shim_and_eos_match_jax():

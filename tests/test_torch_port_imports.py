@@ -23,7 +23,9 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "serving.engine.queue", "serving.engine.streams",
     "serving.speculation.verifier", "telemetry", "telemetry.registry",
     "telemetry.metrics", "telemetry.spans", "telemetry.trace",
-    "telemetry.request_trace", "resilience.faults")]
+    "telemetry.request_trace", "resilience.faults", "serving.warmup",
+    "telemetry.slo", "resilience.controller", "serving.engine.frontend",
+    "models.cuda_graphs")]
 
 
 def _port_modules():

@@ -476,7 +476,9 @@ def test_ragged_step_many_is_a_token_budget(pair):
 def test_cuda_ragged_step_launches_the_kernel_only_at_w1():
     """On the card: an all-decode ragged call (W = 1) launches the paged
     kernel once per layer and matches the CPU run; a mixed call (W = 8)
-    launches none (the gather path)."""
+    launches none (the gather path). The W = 1 call replays the CUDA graph
+    its first call captured (the capture's two eager warm-up calls write
+    the same values), so its launches are the replay's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the card with -m cuda)")
     _, cpu = make_pair(HF_HD64, seed=9)
@@ -500,10 +502,15 @@ def test_cuda_ragged_step_launches_the_kernel_only_at_w1():
             (8, [(13, 1, [1, 2], 1, [7]), (8, 5, [3, 4], 1, [1, 2, 3, 4, 5])],
              0)):
         args = _ragged_inputs(rows, width, 8, 4)
+        card._run_ragged(*args)            # W = 1: the capture
         before = kernel.launches
+        replayed = card.graphs.replayed_launches("paged_decode_attention")
         got = card._run_ragged(*args)
         torch.cuda.synchronize()
-        assert kernel.launches - before == want
+        replayed = (card.graphs.replayed_launches("paged_decode_attention")
+                    - replayed)
+        assert kernel.launches - before + replayed == want
+        assert replayed == (want if width == 1 else 0)
         ref = cpu._run_ragged(*args)
         np.testing.assert_array_equal(got["tokens"].cpu().numpy(),
                                       ref["tokens"].numpy())

@@ -16,11 +16,13 @@ from neuronx_distributed_inference_tpu.serving import \
 from neuronx_distributed_inference_tpu.serving.engine import \
     ServingEngine as JServingEngine
 from neuronx_distributed_inference_tpu_torch.resilience import (
-    FAULTS, ConfigurationError)
+    FAULTS, ConfigurationError, DegradationController)
 from neuronx_distributed_inference_tpu_torch.serving import \
     PagedEngineAdapter
 from neuronx_distributed_inference_tpu_torch.serving.engine import \
     ServingEngine
+from neuronx_distributed_inference_tpu_torch.telemetry.slo import (
+    SLOPolicy, SLOTracker)
 from test_torch_ragged import P_A, P_B, P_LONG, make_pair
 
 SIDES = {"jax": (JPagedEngineAdapter, JServingEngine, JFAULTS),
@@ -123,9 +125,19 @@ def test_engine_weighted_fair_admission_matches_jax(pair):
 
 
 def test_engine_refuses_unported_planes(pair):
-    """slo= and degradation= wait for a later slice of the port."""
+    """slo= and degradation= are ported: the engine applies the
+    reference's checks (scheduler.py:107-126) — degradation= needs slo=,
+    needs an ``update`` surface, and its hysteresis band must sit below
+    the policy's burn threshold — and accepts a valid pair."""
     _, tapp = pair
     ad = PagedEngineAdapter(tapp, ragged=True)
-    for kw in ({"slo": object()}, {"degradation": object()}):
-        with pytest.raises(ConfigurationError, match="ROADMAP"):
-            ServingEngine(ad, **kw)
+    slo = SLOTracker(SLOPolicy(targets={"ttft": 1.0}))
+    with pytest.raises(ConfigurationError, match="needs slo="):
+        ServingEngine(ad, degradation=DegradationController())
+    with pytest.raises(ConfigurationError, match="update"):
+        ServingEngine(ad, slo=slo, degradation=object())
+    with pytest.raises(ConfigurationError, match="exit_burn"):
+        ServingEngine(ad, slo=slo,
+                      degradation=DegradationController(exit_burn=5.0))
+    eng = ServingEngine(ad, slo=slo, degradation=DegradationController())
+    assert eng.slo is slo and "slo" in eng.debug_state()
