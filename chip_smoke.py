@@ -77,16 +77,50 @@ nvcc per source, all started together), then:
      two-phase (non-ragged) engine and single-request ``generate`` on the
      same weights; the ragged streams must equal both (a first difference
      only at a near-tie of the reference's top-2 logits, printed), and the
-     launch gate of 9 holds (fp32 pages: the kernel's CUDA-core route).
+     launch gate of 9 holds (fp32 pages: the kernel's CUDA-core route);
+ 11. the front door: phase 9's prompts as concurrent SSE requests through
+     ``ServingFrontend``, held to an in-process replay;
+ 12. speculative and seeded sampled serving, bf16, Llama-3.1-8B at full
+     width and depth, phase 9's geometry, prompts and schedule: (a) greedy
+     ``SelfDraftProposer(3)`` on the ragged path over phase 9's app; (b) a
+     fresh app with seeded sampling (top_k 50, top_p 0.9, temperature
+     0.7, stream_seed 1234) served without speculation, with
+     ``SelfDraftProposer(3)`` on the ragged path and on the two-phase
+     path. Gates: at most one ragged dispatch, one verify dispatch and one
+     blocking fetch a pass; the paged kernel's launches equal 32 x the
+     T = 1 steps (the draft loop's steps and every width-1 pass, replays
+     counted); ``precompile`` captured the coupled T = 1 step and the
+     draft loop, and no steady-state incident; the sampled run without
+     speculation replays a graph on every all-decode pass; every stream
+     holds 48 in-vocab tokens and finished on length; a stream with
+     speculation may first part from its twin without speculation (served
+     on the same prefix-warm cache) only at a near-tie: two tokens, or two
+     neighbours in the candidate order the coupled draw hangs its noise
+     on, within twice the card's logit spread between two paths at that
+     position (``check_twins``, printed).
+     Prints the accept rate, tokens per row per pass, host ms per pass,
+     TTFT, a torch.profiler trace of 4 speculative passes (device ms by
+     kernel, idle share) with the coupled sampler's device time, and the
+     paged kernel at the served cache's shapes;
+ 13. fp32 identity (TF32 off), Llama-3.1-8B width, 4 layers: phase 10's
+     submissions (24 new tokens), greedy and seeded sampled, each served
+     eagerly on the two-phase path without speculation (the reference),
+     two-phase with ``SelfDraftProposer(3)``, ragged with it, ragged with
+     ``PerturbedSelfDraftProposer(3, corrupt_at=1)`` and ragged with
+     ``set_speculation_shed`` toggled mid-run: every stream equals the
+     reference (a first difference only at a near-tie, printed); the
+     perturbed proposer accepts exactly 1 draft per row of every
+     full-width step; shed passes make no draft dispatch.
 
-The fp32 comparisons (phases 2, 4, 8, 10 and the fp32 app of 6) turn TF32
-off inside :func:`fp32_exact`, which restores the previous flags.
+The fp32 comparisons (phases 2, 4, 8, 10, 13 and the fp32 app of 6) turn
+TF32 off inside :func:`fp32_exact`, which restores the previous flags.
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
-contig: 6-8; ragged: 9, 11, 10) and then prints no ``ok`` line.
+contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
+own app) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -141,8 +175,11 @@ LLAMA_3_1_8B = dict(
 # phases 9-10: the ragged engine (batch 8, one spare block per row)
 RAGGED = dict(lens=(37, 300, 900, 1900, 123, 640, 1500, 64), seq_len=4096,
               chunk=512, block=32)
-RAGGED_TOKENS = 48                      # phase 9
-RAGGED_CHECK_TOKENS = 24                # phase 10
+RAGGED_TOKENS = 48                      # phases 9 and 12
+RAGGED_CHECK_TOKENS = 24                # phases 10 and 13
+SPEC_K = 3                              # phases 12-13: drafts per step
+SPEC_SAMPLING = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.7,
+                     stream_seed=1234)
 
 # Tolerances, with their reasons:
 # kernel vs twin, bf16 out: both accumulate in fp32 and round the output
@@ -666,8 +703,9 @@ def _phase_kernels(device):
 
 def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
              prefix_caching=True, output_logits=False, num_blocks=None,
-             graphs=True):
-    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+             graphs=True, sampling=None):
+    from neuronx_distributed_inference_tpu_torch.config import (
+        OnDeviceSamplingConfig, TpuConfig)
     from neuronx_distributed_inference_tpu_torch.models.application import \
         PagedCausalLMApplication
     from neuronx_distributed_inference_tpu_torch.models.llama import (
@@ -677,7 +715,10 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      pa_num_blocks=num_blocks,
                      is_prefix_caching=prefix_caching,
                      output_logits=output_logits,
-                     attn_block_tkg_kernel_enabled=kernel)
+                     attn_block_tkg_kernel_enabled=kernel,
+                     on_device_sampling_config=(
+                         OnDeviceSamplingConfig(**sampling) if sampling
+                         else None))
     app = PagedCausalLMApplication(None, LlamaInferenceConfig(tcfg, **hf),
                                    LlamaFamily, device=device,
                                    cuda_graphs=graphs)
@@ -1383,14 +1424,16 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
 # ---------------------------------------------------------------------------
 
 def make_ragged_app(hf, device, dtype, cfg, *, batch=8,
-                    output_logits=False, graphs=True):
-    """The paged app of phases 9-11: seq_len ``cfg["seq_len"]``, block
+                    output_logits=False, graphs=True, sampling=None,
+                    prefix_caching=True):
+    """The paged app of phases 9-13: seq_len ``cfg["seq_len"]``, block
     ``cfg["block"]`` and a pool of every row's blocks plus one spare per
     row."""
     per_row = cfg["seq_len"] // cfg["block"] + 1
     return make_app(hf, device, dtype, batch=batch, seq_len=cfg["seq_len"],
                     output_logits=output_logits, num_blocks=batch * per_row,
-                    graphs=graphs)
+                    graphs=graphs, sampling=sampling,
+                    prefix_caching=prefix_caching)
 
 
 def ragged_engine(app, ragged, cfg):
@@ -1919,7 +1962,447 @@ def check_captured_step(hf, device, cfg, app, gapp, snap, on_card):
     return res
 
 
-GROUPS = ("kernels", "paged", "contig", "ragged")
+# ---------------------------------------------------------------------------
+# Phases 12-13: speculative and seeded sampled serving
+# ---------------------------------------------------------------------------
+
+def spec_engine(app, path, cfg, proposer=None):
+    """A ServingEngine over ``app`` on the ragged or the two-phase path,
+    with ``proposer`` as its speculation (None: none)."""
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingEngine
+    return ServingEngine(PagedEngineAdapter(
+        app, ragged=path == "ragged", speculation=proposer,
+        prefill_chunk_tokens=cfg["chunk"]))
+
+
+@contextlib.contextmanager
+def counting_t1_steps(app):
+    """Count the T = 1 forwards ``app`` runs inside the block (each runs
+    the paged kernel once a layer): every ``_run_*`` call whose grid is
+    one token wide, and every step of the draft loop. The wrappers read
+    only the host arrays' shapes."""
+    import numpy as np
+    counts = {"t1_steps": 0, "draft_steps": 0}
+    width = {"_run_paged": lambda a: np.shape(a[0])[1],
+             "_run_ragged": lambda a: np.shape(a[1])[1],
+             "_run_spec_verify": lambda a: np.shape(a[1])[1]}
+
+    def wrap(name):
+        fn = getattr(app, name)
+
+        def wrapped(*a, **kw):
+            if name == "_run_spec_draft":
+                counts["draft_steps"] += a[4]
+                counts["t1_steps"] += a[4]
+            elif width[name](a) == 1:
+                counts["t1_steps"] += 1
+            return fn(*a, **kw)
+        setattr(app, name, wrapped)
+    names = list(width) + ["_run_spec_draft"]
+    for name in names:
+        wrap(name)
+    try:
+        yield counts
+    finally:
+        for name in names:
+            del app.__dict__[name]
+
+
+def spec_widths():
+    from neuronx_distributed_inference_tpu_torch.modules import autobucketing
+    return autobucketing.spec_width_buckets(SPEC_K + 1)
+
+
+def serve_spec(phase, app, prompts, path, proposer, cfg, new_tokens, sync,
+               on_card, profile=None, snapshot_of=None, shed_at=None):
+    """Serve the phase-9 schedule on ``app`` through ``path`` with
+    ``proposer``; gates: at most one ragged dispatch, one verify dispatch
+    and one blocking fetch a pass (the ragged path: no standalone prefill
+    dispatch), the paged kernel launched once a layer per T = 1 step
+    (replays counted), every stream full and in vocab. ``shed_at(p)``
+    returns the speculation shed flag for pass ``p``;
+    ``snapshot_of(adapter)`` makes the per-pass snapshot callback. Returns
+    a summary
+    with the streams, the pass records and the adapter."""
+    layers = app.spec.num_layers
+    reset_launches([app])
+    eng = spec_engine(app, path, cfg, proposer)
+    ad = eng.adapter
+    if shed_at is not None:
+        run_pass = eng.run_pass
+        n = [0]
+
+        def shed_pass():
+            ad.set_speculation_shed(shed_at(n[0]))
+            n[0] += 1
+            return run_pass()
+        eng.run_pass = shed_pass
+    snapshot = snapshot_of(ad) if snapshot_of else None
+    with counting_t1_steps(app) as counts:
+        streams, recs, ttft = serve_schedule(eng, prompts, new_tokens, sync,
+                                             profile, snapshot)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    for r in recs:
+        d = r["delta"]
+        if (d.get("ragged_dispatches", 0) > 1 or d["blocking_fetches"] > 1
+                or d.get("spec_verify_dispatches", 0) > 1
+                or path == "ragged" and d["prefill_dispatches"] != 0):
+            raise AssertionError(f"{phase}: pass {r['pass']} made {d}")
+    want = layers * counts["t1_steps"] if on_card else 0
+    check_streams(phase, streams, new_tokens, app.spec.vocab_size)
+    if launches != want:
+        raise AssertionError(f"{phase}: paged kernel launches {launches} "
+                             f"!= {layers} x {counts['t1_steps']} T = 1 "
+                             "steps")
+    st = ad.host_stats
+    out = {"phase": phase, "path": path,
+           "proposer": getattr(proposer, "name", None),
+           "requests": len(prompts), "new_tokens": new_tokens,
+           "passes": len(recs),
+           "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
+                              for k in ("mixed", "decode", "idle")},
+           "launches": launches, "expected_launches": want,
+           "t1_steps": counts["t1_steps"],
+           "draft_steps": counts["draft_steps"],
+           "host_ms_mixed": pass_summary(recs, "mixed"),
+           "host_ms_decode": pass_summary(recs, "decode"),
+           "ttft_s": [ttft.get(i) for i in range(len(prompts))]}
+    if proposer is not None:
+        drafted = st["spec_drafted_tokens"]
+        rows = sum(r["delta"].get("ragged_rows_verify", 0) for r in recs)
+        out.update({
+            "spec_steps": st["spec_steps"],
+            "draft_dispatches": st["spec_draft_dispatches"],
+            "drafted": drafted, "accepted": st["spec_accepted_tokens"],
+            "accept_rate": (st["spec_accepted_tokens"] / drafted
+                            if drafted else None),
+            "tokens_per_row_per_pass": ((st["spec_accepted_tokens"] + rows)
+                                        / rows if rows else None)})
+    return {"summary": out, "streams": [list(s.tokens) for s in streams],
+            "recs": recs, "adapter": ad}
+
+
+def _scores(logits, sampling, position, seed=0):
+    """Per-token scores of the choice at ``position``: the logits
+    (greedy), or the coupled draw's perturbed scores log p + g (-inf off
+    the truncated distribution), over the vocabulary."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.config import \
+        OnDeviceSamplingConfig
+    from neuronx_distributed_inference_tpu_torch.ops import sampling as so
+    lg = torch.as_tensor(logits, dtype=torch.float32)[None]
+    if not sampling:
+        return lg[0]
+    sc = OnDeviceSamplingConfig(**sampling)
+    probs, idx = so.truncated_probs(lg, so._config_params(sc, 1, "cpu"),
+                                    sc.global_topk)
+    keys = so.stream_keys(sc.stream_seed, torch.tensor([seed]),
+                          torch.tensor([position]))
+    score = torch.where(probs > 0,
+                        torch.log(probs) + so.gumbel(keys, probs.shape[-1]),
+                        torch.full_like(probs, float("-inf")))
+    out = torch.full_like(lg[0], float("-inf"))
+    out[idx[0]] = score[0]
+    return out
+
+
+def first_difference(lapp, prompt, want, got, j, sampling):
+    """The choice at token ``j`` where a stream (``got``) first leaves its
+    twin (``want``), recomputed on ``lapp`` (``output_logits``, no prefix
+    cache) by two paths: a prefill of the L = len(prompt) + j tokens
+    before it (logits at position L - 1), and a prefill of L - 1 tokens
+    plus one decode step (the paged kernel) fed token L - 1. Returns the
+    two paths' max |logit| difference (the spread of the card's
+    arithmetic there) and, on the prefill path, the two chosen tokens'
+    score gap and the least logit gap between neighbours in the order the
+    draw depends on: the two tokens (greedy), or every candidate the
+    truncation keeps and the first one it drops (the coupled draw hangs
+    its gumbel noise on the candidates' RANKS, so two neighbours that
+    swap move the noise between tokens)."""
+    import numpy as np
+    import torch
+    ids = list(prompt) + list(want[:j])
+    n = len(ids)
+    full = lapp.generate(np.asarray([ids]), max_new_tokens=1,
+                         return_logits=True)["logits"][0][0, n - 1]
+    lapp.reset()
+    step = lapp.generate(np.asarray([ids[:-1]]), max_new_tokens=2,
+                         return_logits=True,
+                         teacher_tokens=np.asarray([[ids[-1]]]))
+    lapp.reset()
+    spread = float(np.abs(step["logits"][1][0, 0] - full).max())
+    sc = _scores(full, sampling, n - 1)
+    order = torch.as_tensor(full).argsort(descending=True)
+    rank = {int(t): int((order == t).nonzero()[0, 0])
+            for t in (want[j], got[j])}
+    logits = torch.as_tensor(full)[order]
+    if sampling:
+        kept = int(torch.isfinite(sc).sum())
+        top = max(kept, *rank.values()) + 1
+        neighbour = float((logits[:top - 1] - logits[1:top]).min())
+    else:
+        neighbour = abs(float(full[want[j]] - full[got[j]]))
+    return {"gap": float(sc[want[j]] - sc[got[j]]),
+            "neighbour_logit_gap": neighbour, "logit_spread": spread,
+            "tokens": [int(want[j]), int(got[j])],
+            "ranks": [rank[int(want[j])], rank[int(got[j])]],
+            "finite": bool(torch.isfinite(sc[got[j]]))}
+
+
+def check_twins(phase, want, got, prompts, lapp, sampling, bound=None):
+    """Each stream of ``got`` against its twin in ``want``. A first
+    difference is printed with its recomputed gaps and accepted only at a
+    near-tie: the chosen token is on the truncated distribution, and
+    either the two tokens' score gap or the least neighbour logit gap of
+    :func:`first_difference` is below ``bound`` — or, with ``bound`` None
+    (the bf16 runs), below twice the two recompute paths' logit spread at
+    that position (divided by the temperature for the score gap): each
+    run's logits sit within about one spread of the others', so only a
+    pair closer than two spreads can swap."""
+    cases = []
+    temp = sampling["temperature"] if sampling else 1.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        j = next((k for k, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if j is None:
+            continue
+        case = {"stream": i, "first_diff_token": j,
+                **first_difference(lapp, prompts[i], w, g, j, sampling)}
+        tol = bound if bound is not None else 2 * case["logit_spread"]
+        case["bound_logits"] = tol
+        emit({"phase": phase + "_first_difference", **case})
+        cases.append(case)
+        near = (abs(case["gap"]) < tol / temp
+                or case["neighbour_logit_gap"] < tol)
+        if not (case["finite"] and near):
+            raise AssertionError(f"{phase}: stream {i} first differs at "
+                                 f"token {j}: {case}")
+    return cases
+
+
+def coupled_sampler_ms(app, rows, width):
+    """Device ms of one coupled draw over (rows, width) logits of the
+    app's vocabulary (CUDA-graph replay)."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops import sampling as so
+    dev = app.device
+    gen = torch.Generator(device=dev).manual_seed(4)
+    logits = 3 * torch.randn((rows, width, app.spec.vocab_size),
+                             generator=gen, device=dev)
+    seeds = torch.arange(rows, dtype=torch.int32, device=dev)
+    pos = torch.arange(rows * width, dtype=torch.int32,
+                       device=dev).view(rows, width) + 100
+    sc = app.tpu_config.on_device_sampling_config
+    return time_cuda(lambda: so.coupled_sample(logits, sc, None, seeds, pos),
+                     calls=20)
+
+
+def phase_spec_greedy(hf, device, app=None, cfg=RAGGED,
+                      new_tokens=RAGGED_TOKENS, on_card=True):
+    """Phase 12 (a): greedy self-draft on the ragged path over phase 9's
+    app (its prefix cache holds the prompts), or over a fresh one."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving.speculation import \
+        SelfDraftProposer
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    if app is None:
+        app = make_ragged_app(hf, device, "bfloat16", cfg)
+        app.init_random_weights(0)
+    # phase 9 declared steady state: an operator re-warming for the draft
+    # loops leaves it first, or the new captures count as incidents
+    app.declare_steady_state(False)
+    warm(app, "spec_greedy", chunk_tokens=cfg["chunk"],
+         spec_widths=spec_widths())
+    greedy = serve_spec("spec_greedy", app, prompts, "ragged",
+                        SelfDraftProposer(SPEC_K), cfg, new_tokens, sync,
+                        on_card)
+    check_no_incidents("spec_greedy", app)
+    emit(greedy["summary"])
+
+
+def phase_spec_sampled(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
+                       on_card=True):
+    """Phase 12 (b): a fresh seeded sampled app served without
+    speculation, with self-draft on the ragged path and on the two-phase
+    path. Returns the paged kernel's entry of the kernels line (its
+    launches those of the ragged speculative run)."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving.speculation import \
+        SelfDraftProposer
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    app = make_ragged_app(hf, device, "bfloat16", cfg,
+                          sampling=SPEC_SAMPLING)
+    app.init_random_weights(0)
+    rep = warm(app, "spec_sampled", chunk_tokens=cfg["chunk"],
+               spec_widths=spec_widths())
+    captured = {(g["kind"], g["bucket"]) for g in rep["graphs"]
+                if g["outcome"] == "capture"}
+    if on_card and not {("ragged", 1), ("paged", 1),
+                        ("spec_draft", SPEC_K)} <= captured:
+        raise AssertionError(f"spec_sampled: precompile captured "
+                             f"{sorted(captured)}")
+    plain = serve_spec("spec_sampled_plain", app, prompts, "ragged", None,
+                       cfg, new_tokens, sync, on_card)
+    decode_passes = plain["summary"]["passes_by_kind"]["decode"]
+    coupled_replays = sum(
+        n for sig, n in (app.graphs.replays.items()
+                         if app.graphs is not None else ())
+        if sig[0] == "ragged" and sig[1] == 1 and "coupled" in sig[2])
+    plain["summary"]["coupled_graph_replays"] = coupled_replays
+    emit(plain["summary"])
+    if on_card and coupled_replays != decode_passes:
+        raise AssertionError(f"spec_sampled_plain: {coupled_replays} "
+                             f"coupled graph replays for {decode_passes} "
+                             "all-decode passes")
+    # the twin of the speculative runs: the same prefix-warm cache state
+    twin = serve_spec("spec_sampled_plain_warm", app, prompts, "ragged",
+                      None, cfg, new_tokens, sync, on_card)
+    emit(twin["summary"])
+    traced = [0]
+    snap = {}
+
+    def profile(p, expect_mixed):
+        if not on_card or expect_mixed or p < 8 or traced[0] >= 4:
+            return False
+        traced[0] += 1
+        return True
+    def snapshot_of(ad):
+        def snapshot():
+            # the served cache's decode shapes, while all rows are live
+            if len(ad.seqs) == len(prompts) and not ad.pending_prefill_ids:
+                live = sorted(ad.seqs)
+                snap["table"] = app.kv_mgr.block_table_array(
+                    live, app._bt_width_for(live))
+                snap["pos"] = [ad.seqs[s].position for s in live]
+        return snapshot
+    ragged = serve_spec("spec_sampled_ragged", app, prompts, "ragged",
+                        SelfDraftProposer(SPEC_K), cfg, new_tokens, sync,
+                        on_card, profile, snapshot_of)
+    launches = ragged["summary"]["launches"]
+    prof = profile_summary(ragged["recs"], "decode")
+    two = serve_spec("spec_sampled_two_phase", app, prompts, "two_phase",
+                     SelfDraftProposer(SPEC_K), cfg, new_tokens, sync,
+                     on_card)
+    check_no_incidents("spec_sampled", app)
+    lapp = make_ragged_app(hf, device, "bfloat16", cfg, batch=1,
+                           output_logits=True, graphs=False,
+                           sampling=SPEC_SAMPLING, prefix_caching=False)
+    lapp.params = app.params
+    for run in (ragged, two):
+        run["summary"]["first_differences"] = check_twins(
+            run["summary"]["phase"], twin["streams"], run["streams"],
+            prompts, lapp, SPEC_SAMPLING)
+        emit(run["summary"])
+    del lapp
+    sampler = {}
+    if on_card:
+        sampler = {"verify_rows_x4_ms": coupled_sampler_ms(app, 8, SPEC_K
+                                                           + 1),
+                   "decode_rows_ms": coupled_sampler_ms(app, 8, 1)}
+    busy = prof.get("device_busy_ms_per_pass")
+    emit({"phase": "spec_profile", **prof, "coupled_sampler": sampler,
+          "coupled_sampler_share": (sampler["verify_rows_x4_ms"] / busy
+                                    if busy and sampler else None)})
+    if not on_card:
+        return []
+    t = time_paged_kernel(app, snap["table"], snap["pos"], device, seed=12)
+    emit({"phase": "spec_kernel_timings", **t["report"],
+          "launches": launches})
+    return [paged_kernel_entry(t, launches, "spec_sampled_ragged")]
+
+
+def phase_spec_fp32(hf, device, cfg=RAGGED, new_tokens=RAGGED_CHECK_TOKENS,
+                    on_card=True):
+    """Phase 13: fp32 identity across five serving modes, TF32 off."""
+    with fp32_exact():
+        _phase_spec_fp32(hf, device, cfg, new_tokens, on_card)
+
+
+def _phase_spec_fp32(hf, device, cfg, new_tokens, on_card):
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving.speculation import (
+        PerturbedSelfDraftProposer, SelfDraftProposer)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    params = None
+    for sampling in (None, SPEC_SAMPLING):
+        tag = "spec_fp32_" + ("sampled" if sampling else "greedy")
+        ref_app = make_ragged_app(hf, device, "float32", cfg, graphs=False,
+                                  sampling=sampling)
+        if params is None:
+            ref_app.init_random_weights(0)
+            params = ref_app.params
+        ref_app.params = params
+        ref = serve_spec(tag + "_eager", ref_app, prompts, "two_phase",
+                         None, cfg, new_tokens, sync, on_card)
+        emit(ref["summary"])
+        del ref_app
+        app = make_ragged_app(hf, device, "float32", cfg, sampling=sampling)
+        app.params = params
+        warm(app, tag, chunk_tokens=cfg["chunk"], spec_widths=spec_widths())
+        lapp = make_ragged_app(hf, device, "float32", cfg, batch=1,
+                               output_logits=True, graphs=False,
+                               sampling=sampling, prefix_caching=False)
+        lapp.params = params
+        modes = (("two_phase_self", "two_phase", SelfDraftProposer(SPEC_K),
+                  None),
+                 ("ragged_self", "ragged", SelfDraftProposer(SPEC_K), None),
+                 ("ragged_perturbed", "ragged",
+                  PerturbedSelfDraftProposer(SPEC_K, corrupt_at=1), None),
+                 ("ragged_shed", "ragged", SelfDraftProposer(SPEC_K),
+                  lambda p: 6 <= p < 14))
+        results = {}
+        for name, path, proposer, shed_at in modes:
+            run = serve_spec(f"{tag}_{name}", app, prompts, path, proposer,
+                             cfg, new_tokens, sync, on_card,
+                             shed_at=shed_at)
+            run["summary"]["first_differences"] = check_twins(
+                f"{tag}_{name}", ref["streams"], run["streams"], prompts,
+                lapp, sampling, NEAR_TIE)
+            results[name] = run
+            emit(run["summary"])
+        check_no_incidents(tag, app)
+        full = [r["delta"] for r in results["ragged_perturbed"]["recs"]
+                if r["delta"].get("ragged_rows_verify")
+                and r["delta"]["spec_drafted_tokens"]
+                == SPEC_K * r["delta"]["ragged_rows_verify"]]
+        bad = [d for d in full if d["spec_accepted_tokens"]
+               != d["ragged_rows_verify"]]
+        if not full or bad:
+            raise AssertionError(f"{tag}: the perturbed proposer accepted "
+                                 f"{bad[:2]} on full-width steps "
+                                 f"({len(full)} of them)")
+        shed = [r["delta"] for r in results["ragged_shed"]["recs"]
+                if 6 <= r["pass"] < 14]
+        if any(d.get("spec_draft_dispatches", 0) for d in shed):
+            raise AssertionError(f"{tag}: a shed pass made a draft "
+                                 "dispatch")
+        emit({"phase": tag, "reference_passes": len(ref["recs"]),
+              "full_width_perturbed_steps": len(full),
+              "shed_passes": len(shed),
+              "streams_equal_reference": {
+                  n: sum(a == b for a, b in zip(ref["streams"],
+                                                r["streams"]))
+                  for n, r in results.items()}})
+        del app, lapp, results
+        if on_card:
+            torch.cuda.empty_cache()
+
+
+GROUPS = ("kernels", "paged", "contig", "ragged", "spec")
 
 
 def main(argv=None) -> int:
@@ -1966,13 +2449,23 @@ def main(argv=None) -> int:
         phase_contiguous_serving(dict(MISTRAL_7B, num_hidden_layers=8),
                                  device)
         torch.cuda.empty_cache()
+    app = None
     if "ragged" in only:
         app, prompts, entries = phase_ragged_serving(LLAMA_3_1_8B, device)
         kernels += entries
         phase_front_door(LLAMA_3_1_8B, device, app, prompts)
+        if "spec" not in only:
+            del app
+            app = None
+            torch.cuda.empty_cache()
+        phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+    if "spec" in only:
+        phase_spec_greedy(LLAMA_3_1_8B, device, app)
         del app
         torch.cuda.empty_cache()
-        phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+        kernels += phase_spec_sampled(LLAMA_3_1_8B, device)
+        torch.cuda.empty_cache()
+        phase_spec_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"gpu": gpu})

@@ -58,8 +58,8 @@ class OnDeviceSamplingConfig:
     deterministic: bool = False
     global_topk: int = 256
     on_device: bool = True
-    # positionally coupled streams (JAX: ops/sampling.coupled_sample) are
-    # not ported yet; a set value is refused by spec_from_config
+    # positionally coupled streams (ops/sampling.coupled_sample): every
+    # draw keyed by (stream_seed, request seed, position); an int32 value
     stream_seed: Optional[int] = None
 
     def to_dict(self) -> Dict[str, Any]:

@@ -7,14 +7,17 @@ paged ``PagedCausalLMApplication`` built on it (counterpart:
 ``_default_sampling_params`` :508, ``_run_prefill`` :515, ``_run_decode``
 :613, ``_run_decode_loop`` :649, ``_generate_repadded`` :687,
 ``generate`` :780, ``reset`` :967; ``_finalize_generation`` :1105;
-``PagedCausalLMApplication`` :1120-1626, its ``_run_ragged`` :1330; the
+``PagedCausalLMApplication`` :1120-1626, its ``_coupled_sampling`` /
+``_stream_seeds`` :1163-1178, ``_run_spec_draft`` :1251,
+``_run_spec_verify`` :1286, ``_run_ragged`` :1330; the
 jit-cache accounting ``_note_jit`` / ``declare_steady_state`` /
 ``request_context`` / ``warmup_state`` :78-82, 373-381, 413-494).
 
 Same host contract as the JAX applications. The contiguous app:
 ``init_cache``, ``_run_prefill``, ``_run_decode``, ``_run_decode_loop``,
 ``generate``, ``reset``; the paged app: ``_run_paged``,
-``_run_paged_loop``, ``_run_ragged``, ``generate``, ``release``,
+``_run_paged_loop``, ``_run_ragged``, ``_run_spec_draft``,
+``_run_spec_verify``, ``generate``, ``release``,
 ``reset``, with the host
 owning the block allocator and tables. Step results are torch tensors
 (read them with ``np.asarray(t.cpu())``). Windowed context encoding,
@@ -28,9 +31,13 @@ destructive update already; the port just does it without the copy.
 Every ``_run_*`` builds a signature — the kind, its bucket, the batch, the
 table or KV-view width and every host-side decision that changes the op
 sequence — and notes it (``_note_jit``). On the card a T = 1 step that
-samples greedily is captured once per signature into a CUDA graph and
-replayed afterwards (``models/cuda_graphs.py``, the counterpart of the
-JAX jit cache); every other step runs eagerly. After
+samples greedily, or with the seeded coupled draw of a ``stream_seed``
+config at the config's sampling params, is captured once per signature
+into a CUDA graph and replayed afterwards (``models/cuda_graphs.py``, the
+counterpart of the JAX jit cache), and so is the self-draft loop; every
+other step runs eagerly. A paged app with a ``stream_seed`` config samples
+with the coupled draw (row seeds 0 unless the caller threads them), as
+the reference's does; the contiguous app draws from its generator. After
 :meth:`~CausalLMApplication.declare_steady_state` (``serving/warmup.py``'s
 ``precompile``), a first-seen graph signature is an incident: the
 ``nxdi_steady_state_recompiles_total`` counter, a ``compile.unexpected``
@@ -257,8 +264,9 @@ class CausalLMApplication:
               sampling_params=None):
         """Run one step: ``fn(tensors, sampling_params)`` over ``inputs``
         (numpy arrays or device tensors, all int32). A ``graph`` signature
-        (T = 1, greedy) replays its captured CUDA graph on the card;
-        everything else runs eagerly."""
+        (a T = 1 step or the draft loop, greedy or coupled) replays its
+        captured CUDA graph on the card, with the config's sampling params
+        (``fn(tensors, None)``); everything else runs eagerly."""
         self._note_jit(kind, bucket, sig, graph)
         if graph and self.graphs is not None:
             if not len(self.graphs):
@@ -663,64 +671,105 @@ class PagedCausalLMApplication(CausalLMApplication):
         return autobucketing.get_target_bucket(self._bt_buckets,
                                                max(live, 1))
 
+    # -- positionally coupled sampling (ops/sampling.coupled_sample) -------
+    def _coupled_sampling(self) -> bool:
+        sc = self.tpu_config.on_device_sampling_config
+        return (sc is not None and sc.do_sample
+                and sc.stream_seed is not None)
+
+    def _stream_seeds(self, row_seeds, batch: int) -> Optional[np.ndarray]:
+        """The per-row seed input of the paged steps (reference
+        application.py:1168): None unless the coupled stream is on; zeros
+        when the caller threads none."""
+        if not self._coupled_sampling():
+            return None
+        if row_seeds is None:
+            return np.zeros((batch,), np.int32)
+        return np.asarray(row_seeds, np.int32)
+
+    def _sampling_mode(self, sampling_params):
+        """(mode, graphable) of a step from the caller's sampling params:
+        ``greedy``; ``coupled`` (the seeded draw, a pure function of the
+        step's inputs, so a T = 1 step with the config's params replays a
+        graph); or ``sampled`` (a ``torch.Generator`` draw, always eager)."""
+        if self._greedy(sampling_params):
+            return "greedy", True
+        if self._coupled_sampling():
+            return "coupled", sampling_params is None
+        return "sampled", False
+
+    def _paged_inputs(self, inputs, seeds):
+        if seeds is not None:
+            inputs["seeds"] = seeds
+        return inputs
+
     # -- device steps ------------------------------------------------------
     def _run_paged(self, input_ids, position_ids, slot_mapping, block_table,
-                   last_idx, sampling_params=None):
+                   last_idx, sampling_params=None, row_seeds=None):
         """One paged step (``model_base.paged_forward_step``); the cache is
-        written in place. Signature: width, batch, table width, greedy,
-        logits; a greedy T = 1 step replays its graph. Returns {"tokens",
-        ["logits"]} on the device."""
+        written in place. Signature: width, batch, table width, sampling
+        mode, logits; a greedy or coupled T = 1 step replays its graph.
+        Returns {"tokens", ["logits"]} on the device."""
         b, t = np.shape(input_ids)
+        mode, graphable = self._sampling_mode(sampling_params)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        greedy = self._greedy(sampling_params)
-        sig = (b, int(np.shape(block_table)[1]), greedy,
+        seeds = self._stream_seeds(row_seeds, b)
+        sig = (b, int(np.shape(block_table)[1]), mode,
                bool(self.tpu_config.output_logits))
 
         def fn(x, sp):
             return model_base.paged_forward_step(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["slots"], x["bt"], x["last"], sp,
-                self.generator, self._inv_freq)
-        return self._step("paged", t, sig, t == 1 and greedy, fn,
-                          {"ids": input_ids, "pos": position_ids,
-                           "slots": slot_mapping, "bt": block_table,
-                           "last": last_idx}, sampling_params)
+                self.generator, self._inv_freq, x.get("seeds"))
+        return self._step("paged", t, sig, t == 1 and graphable, fn,
+                          self._paged_inputs(
+                              {"ids": input_ids, "pos": position_ids,
+                               "slots": slot_mapping, "bt": block_table,
+                               "last": last_idx}, seeds), sampling_params)
 
     def _run_ragged(self, input_ids, position_ids, slot_mapping,
-                    block_table, widths, emit_modes, sampling_params=None):
+                    block_table, widths, emit_modes, sampling_params=None,
+                    row_seeds=None):
         """ONE ragged mixed step (``model_base.paged_ragged_step``): rows
         mix decode steps, prefill chunks and verify windows, each at its
-        own offset over its own block table. The host arrays are numpy:
-        the capacity check, the verify test and the signature (grid width,
-        batch, table width, verify, greedy) read them without touching the
-        device. A greedy all-decode step (W = 1, no verify row) replays its
-        graph. The cache is written in place. Returns {"tokens",
-        "num_emitted"} on the device."""
+        own offset over its own block table. ``input_ids`` may be a device
+        tensor (verify rows' drafts); the other host arrays are numpy: the
+        capacity check, the verify test and the signature (grid width,
+        batch, table width, verify, sampling mode) read them without
+        touching the device. A greedy or coupled all-decode step (W = 1,
+        no verify row) replays its graph. The cache is written in place.
+        Returns {"tokens", "num_emitted"} on the device."""
         pos = np.asarray(position_ids)
         wid = np.asarray(widths)
         emit = np.asarray(emit_modes)
         self._check_decode_fits(int(np.max(pos[:, 0] + wid)))
         b, w = pos.shape
+        mode, graphable = self._sampling_mode(sampling_params)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
+        seeds = self._stream_seeds(row_seeds, b)
         verify = bool((emit == model_base.EMIT_VERIFY).any())
-        greedy = self._greedy(sampling_params)
-        sig = (b, int(np.shape(block_table)[1]), verify, greedy)
+        sig = (b, int(np.shape(block_table)[1]), verify, mode)
 
         def fn(x, sp):
             return model_base.paged_ragged_step(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["slots"], x["bt"], x["wid"],
                 x["emit"], sp, self.generator, self._inv_freq,
-                verify=verify)
-        return self._step("ragged", w, sig, w == 1 and not verify and greedy,
-                          fn, {"ids": input_ids, "pos": pos,
+                verify=verify, row_seeds=x.get("seeds"))
+        return self._step("ragged", w, sig,
+                          w == 1 and not verify and graphable, fn,
+                          self._paged_inputs(
+                              {"ids": input_ids, "pos": pos,
                                "slots": slot_mapping, "bt": block_table,
-                               "wid": wid, "emit": emit}, sampling_params)
+                               "wid": wid, "emit": emit}, seeds),
+                          sampling_params)
 
     def _run_paged_loop(self, first_tokens, positions, block_table,
-                        num_steps: int, sampling_params=None):
+                        num_steps: int, sampling_params=None,
+                        row_seeds=None):
         """``num_steps`` decode steps with in-device slot advance
         (``model_base.paged_decode_loop``, eager); blocks for the horizon
         must be allocated already."""
@@ -729,13 +778,76 @@ class PagedCausalLMApplication(CausalLMApplication):
         b = np.shape(first_tokens)[0]
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
+        seeds = self._stream_seeds(row_seeds, b)
         self._note_jit("paged_loop", num_steps,
                        (b, int(np.shape(block_table)[1])), graph=False)
         return model_base.paged_decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions),
             self._t(block_table), sampling_params, self.generator,
-            num_steps=num_steps, inv_freq=self._inv_freq)
+            num_steps=num_steps, inv_freq=self._inv_freq,
+            row_seeds=None if seeds is None else self._t(seeds))
+
+    # -- speculative serving steps (serving/speculation/) ------------------
+    def _run_spec_draft(self, first_tokens, positions, block_table, widths,
+                        num_steps: int, sampling_params=None,
+                        row_seeds=None):
+        """The masked self-draft pass (``model_base.paged_spec_draft_loop``:
+        ``num_steps`` T = 1 steps on the paged kernel). Frozen rows write
+        nothing, so the per-row ``widths`` bound every KV write. The loop
+        is one captured graph per (draft count, batch, table width,
+        sampling mode) — the counterpart of the reference's one scan
+        dispatch. Returns {"tokens": (B, num_steps)} on the device."""
+        pos = np.asarray(positions)
+        wid = np.asarray(widths)
+        self._check_decode_fits(int(np.max(pos + wid - 1)))
+        b = pos.shape[0]
+        mode, graphable = self._sampling_mode(sampling_params)
+        if sampling_params is None:
+            sampling_params = self._default_sampling_params(b)
+        seeds = self._stream_seeds(row_seeds, b)
+        sig = (b, int(np.shape(block_table)[1]), mode)
+
+        def fn(x, sp):
+            return model_base.paged_spec_draft_loop(
+                self.spec, self.tpu_config, self.params, self.cache,
+                x["first"], x["pos"], x["bt"], x["wid"], sp, self.generator,
+                num_steps=num_steps, inv_freq=self._inv_freq,
+                row_seeds=x.get("seeds"))
+        return self._step("spec_draft", num_steps, sig, graphable, fn,
+                          self._paged_inputs(
+                              {"first": first_tokens, "pos": pos,
+                               "bt": block_table, "wid": wid}, seeds),
+                          sampling_params)
+
+    def _run_spec_verify(self, input_ids, position_ids, slot_mapping,
+                         block_table, widths, sampling_params=None,
+                         row_seeds=None):
+        """The speculative verify step (``model_base.paged_spec_verify``):
+        one W-wide paged forward with exact-match acceptance, greedy or
+        coupled. ``input_ids`` may be a device tensor (the drafts never
+        visit the host). Wide grids run eagerly. Returns {"tokens",
+        "num_emitted"} on the device."""
+        pos = np.asarray(position_ids)
+        wid = np.asarray(widths)
+        self._check_decode_fits(int(np.max(pos[:, 0] + wid)))
+        b, w = pos.shape
+        mode, _ = self._sampling_mode(sampling_params)
+        seeds = self._stream_seeds(row_seeds, b)
+        if seeds is not None and sampling_params is None:
+            sampling_params = self._default_sampling_params(b)
+        sig = (b, int(np.shape(block_table)[1]), mode)
+
+        def fn(x, sp):
+            return model_base.paged_spec_verify(
+                self.spec, self.tpu_config, self.params, self.cache,
+                x["ids"], x["pos"], x["slots"], x["bt"], x["wid"], sp,
+                x.get("seeds"), self._inv_freq)
+        return self._step("spec_verify", w, sig, False, fn,
+                          self._paged_inputs(
+                              {"ids": input_ids, "pos": pos,
+                               "slots": slot_mapping, "bt": block_table,
+                               "wid": wid}, seeds), sampling_params)
 
     # -- generation --------------------------------------------------------
     def generate(self, input_ids: np.ndarray,

@@ -31,10 +31,16 @@ count, and :meth:`StepGraphs.replayed_launches` adds them up over the
 replays. ``replays`` counts replays per signature.
 
 Only T = 1 steps are captured (``paged_ragged_step`` at W = 1,
-``paged_forward_step`` at T = 1, ``token_generation_step``), and only when
-they sample greedily: wider grids run eagerly by design (PyTorch eager has
-no per-shape build to save), and a ``torch.Generator`` draw stays eager
-until the threefry sampler is ported.
+``paged_forward_step`` at T = 1, ``token_generation_step``), plus the
+self-draft loop (``paged_spec_draft_loop``: k T = 1 steps in one graph per
+(k, batch, table width), the counterpart of the reference's one scan
+dispatch), and only when they sample greedily or with the seeded coupled
+draw (``ops/sampling.coupled_sample``): that draw is a pure function of
+the step's inputs, and its row seeds ride the int32 staging buffer with
+the other inputs. Wider grids (prefill, mixed and verify passes) run
+eagerly by design (PyTorch eager has no per-shape build to save), and a
+``torch.Generator`` draw (do_sample without a ``stream_seed``) stays eager:
+a replay would repeat the captured draw.
 """
 
 from __future__ import annotations

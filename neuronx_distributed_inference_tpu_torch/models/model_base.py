@@ -6,8 +6,9 @@
 decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
 ``_embed`` :1656, ``_lm_head`` :1671, ``context_encoding_step`` :1686,
 ``token_generation_step`` :1789, ``paged_forward_step`` :1883,
-``decode_loop`` :1939, ``paged_decode_loop`` :2058, ``paged_ragged_step``
-:2222, ``spec_from_config`` :2346).
+``decode_loop`` :1939, ``paged_decode_loop`` :2058,
+``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
+``paged_ragged_step`` :2222, ``spec_from_config`` :2346).
 
 The model is a set of plain functions over a dict of parameter tensors
 laid out as the JAX package's tree (stacked ``(L, …)`` layer leaves, fused
@@ -371,14 +372,23 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
 
 
 def _sample_out(spec: DecoderSpec, tpu_cfg: TpuConfig, params, hidden,
-                last_h, sampling_params, generator):
+                last_h, sampling_params, generator, coupled=None):
+    """The step's outputs: the sampled token of ``last_h`` (B, 1, H) and,
+    with ``output_logits``, the logits of every column of ``hidden``.
+    ``coupled`` = (row seeds, sampled positions) switches to the
+    positionally coupled draw."""
     out = {}
     if tpu_cfg.output_logits:
         out["logits"] = _lm_head(spec, params, hidden)[..., :spec.vocab_size]
     logits = _lm_head(spec, params, last_h)[:, 0, :]
-    out["tokens"] = sampling_ops.sample(
-        logits, tpu_cfg.on_device_sampling_config, sampling_params,
-        generator)
+    if coupled is not None:
+        out["tokens"] = sampling_ops.coupled_sample(
+            logits, tpu_cfg.on_device_sampling_config, sampling_params,
+            *coupled)
+    else:
+        out["tokens"] = sampling_ops.sample(
+            logits, tpu_cfg.on_device_sampling_config, sampling_params,
+            generator)
     return out
 
 
@@ -553,33 +563,101 @@ def _gather_cols(hidden, cols):
     return torch.gather(hidden, 1, idx)
 
 
+def _coupled_mode(tpu_cfg: TpuConfig, row_seeds) -> bool:
+    """True when the positionally coupled stream is active
+    (model_base.py:1873): the config opts in (``do_sample`` +
+    ``stream_seed``) AND the caller threaded per-row seeds."""
+    sc = tpu_cfg.on_device_sampling_config
+    return (row_seeds is not None and sc is not None and sc.do_sample
+            and sc.stream_seed is not None)
+
+
 def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                        input_ids, position_ids, slot_mapping, block_table,
                        last_idx, sampling_params=None, generator=None,
-                       inv_freq: Optional[torch.Tensor] = None):
+                       inv_freq: Optional[torch.Tensor] = None,
+                       row_seeds=None):
     """One paged step: paged prefill, prefix-cached or chunked prefill
     (T = window at arbitrary positions) and paged decode (T = 1).
 
     input_ids, position_ids, slot_mapping (B, T) (negative slot = no
     write); block_table (B, max_blocks); last_idx (B,) index into T of the
     token whose logits are sampled — all tensors on the cache's device.
-    Writes the cache in place; returns {"tokens": (B,) int32} plus
-    {"logits": (B, T, vocab)} when ``tpu_cfg.output_logits``."""
+    row_seeds (B,) per-request seeds: with a ``stream_seed`` config the
+    token is the coupled draw keyed by the ABSOLUTE position of the
+    sampled token. Writes the cache in place; returns {"tokens": (B,)
+    int32} plus {"logits": (B, T, vocab)} when ``tpu_cfg.output_logits``."""
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
                            slot_mapping, block_table, inv_freq)
+    coupled = None
+    if _coupled_mode(tpu_cfg, row_seeds):
+        pos_last = torch.gather(position_ids, 1,
+                                last_idx.long()[:, None])[:, 0]
+        coupled = (row_seeds, pos_last)
     return _sample_out(spec, tpu_cfg, params, hidden,
                        _gather_cols(hidden, last_idx), sampling_params,
-                       generator)
+                       generator, coupled)
 
 
 EMIT_NONE, EMIT_LAST, EMIT_VERIFY = 0, 1, 2
+
+
+def _verify_target(spec: DecoderSpec, tpu_cfg: TpuConfig, params, hidden,
+                   position_ids, sampling_params, row_seeds):
+    """The target's choice at every column of a verify window: the
+    coupled draw under a seeded sampled config, else the argmax — the
+    same choice the eager paged step makes at each position."""
+    logits = _lm_head(spec, params, hidden)
+    if _coupled_mode(tpu_cfg, row_seeds):
+        return sampling_ops.coupled_sample(
+            logits, tpu_cfg.on_device_sampling_config, sampling_params,
+            row_seeds, position_ids)
+    return sampling_ops.greedy_sample(logits)
+
+
+def _accepted(input_ids, target, widths):
+    """Exact-match acceptance (model_base.py:2199-2208): draft j (column
+    j + 1) is accepted while it equals the target at column j; columns
+    past a row's width are forced mismatches. Returns n_acc (B,)."""
+    b, w = input_ids.shape
+    if w == 1:
+        return torch.zeros((b,), dtype=torch.long, device=input_ids.device)
+    col = torch.arange(1, w, device=input_ids.device)[None, :]
+    mismatch = ((input_ids[:, 1:] != target[:, :-1])
+                | (col >= widths[:, None])).to(torch.int32)
+    return (torch.cumsum(mismatch, dim=1) == 0).sum(dim=1)
+
+
+def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
+                      input_ids, position_ids, slot_mapping, block_table,
+                      widths, sampling_params=None, row_seeds=None,
+                      inv_freq: Optional[torch.Tensor] = None):
+    """The speculative verify step (model_base.py:2141-2220): every
+    candidate of a (B, W) window in one paged forward, then exact-match
+    acceptance. input_ids (B, W): column 0 each row's last accepted token,
+    columns 1.. its drafts (a device tensor: drafts never visit the host);
+    position_ids, slot_mapping (B, W), columns at or past a row's width at
+    slot -1; widths (B,) in [1, W]. One bonus token is always emitted, so
+    the emitted tokens are the target's own choices at consecutive
+    positions, whatever was drafted. Writes the cache in place; returns
+    {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
+    (B,) int32}."""
+    hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
+                           slot_mapping, block_table, inv_freq)
+    target = _verify_target(spec, tpu_cfg, params, hidden, position_ids,
+                            sampling_params, row_seeds)
+    n_acc = _accepted(input_ids, target, widths)
+    col = torch.arange(input_ids.shape[1], device=hidden.device)[None, :]
+    tokens = torch.where(col <= n_acc[:, None], target,
+                         torch.zeros_like(target))
+    return {"tokens": tokens, "num_emitted": (n_acc + 1).to(torch.int32)}
 
 
 def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       input_ids, position_ids, slot_mapping, block_table,
                       widths, emit_modes, sampling_params=None,
                       generator=None, inv_freq: Optional[torch.Tensor] = None,
-                      verify: bool = False):
+                      verify: bool = False, row_seeds=None):
     """The ragged unified step (model_base.py:2222-2328): one paged
     forward whose rows mix decode steps (width 1), prefill chunks (width
     n at the row's own offset) and verify windows (width k+1).
@@ -593,38 +671,45 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
       * 0 — nothing (an intermediate prefill chunk, a frozen row);
       * 1 — the sample at column ``widths - 1``, through the sampling
         call :func:`paged_forward_step` makes;
-      * 2 — greedy exact-match acceptance over the window: draft j
-        (column j + 1) is accepted while it equals the argmax at column
-        j, columns past the width are forced mismatches, and ``n_acc + 1``
-        tokens (the accepted drafts and the bonus) are emitted.
+      * 2 — exact-match acceptance over the window (as
+        :func:`paged_spec_verify`): ``n_acc + 1`` tokens (the accepted
+        drafts and the bonus) are emitted.
 
-    ``verify`` must be True when any row has mode 2: the caller decides it
-    on the host from its numpy ``emit_modes``. Only then are the logits
-    of every column computed (at W = 512 and a 128K vocabulary they are
-    ~1 GB of fp32 that the other modes do not need). Writes the cache in
-    place; returns {"tokens": (B, W) int32 (0 past ``num_emitted``),
-    "num_emitted": (B,) int32}."""
+    row_seeds (B,) switches both the emit-1 sample and the verify target
+    to the coupled draw under a ``stream_seed`` config. ``verify`` must
+    be True when any row has mode 2: the caller decides it on the host
+    from its numpy ``emit_modes``. Only then are the logits of every
+    column computed (at W = 512 and a 128K vocabulary they are ~1 GB of
+    fp32 that the other modes do not need), and the emit-1 rows take
+    their sample from the same target. Writes the cache in place; returns
+    {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
+    (B,) int32}."""
     b, w = input_ids.shape
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
                            slot_mapping, block_table, inv_freq)
     emit = emit_modes.to(torch.int32)
     last = (widths.long() - 1).clamp(min=0)
-    sampled = sampling_ops.sample(
-        _lm_head(spec, params, _gather_cols(hidden, last))[:, 0, :],
-        tpu_cfg.on_device_sampling_config, sampling_params, generator)
+    coupled = _coupled_mode(tpu_cfg, row_seeds)
+    sc = tpu_cfg.on_device_sampling_config
+    if not (verify and coupled):
+        logits = _lm_head(spec, params, _gather_cols(hidden, last))[:, 0, :]
+        sampled = (sampling_ops.coupled_sample(
+            logits, sc, sampling_params, row_seeds,
+            torch.gather(position_ids, 1, last[:, None])[:, 0])
+            if coupled else sampling_ops.sample(logits, sc, sampling_params,
+                                                generator))
+    if verify:
+        target = _verify_target(spec, tpu_cfg, params, hidden, position_ids,
+                                sampling_params, row_seeds)
+        if coupled:
+            sampled = torch.gather(target, 1, last[:, None])[:, 0]
     zero = torch.zeros((), dtype=torch.int32, device=hidden.device)
     col = torch.arange(w, device=hidden.device)[None, :]
     tokens = torch.where((col == 0) & (emit == EMIT_LAST)[:, None],
                          sampled[:, None], zero)
     n_emit = (emit == EMIT_LAST).to(torch.int32)
     if verify:
-        target = sampling_ops.greedy_sample(_lm_head(spec, params, hidden))
-        if w > 1:
-            mismatch = ((input_ids[:, 1:] != target[:, :-1])
-                        | (col[:, 1:] >= widths[:, None])).to(torch.int32)
-            n_acc = (torch.cumsum(mismatch, dim=1) == 0).sum(dim=1)
-        else:
-            n_acc = torch.zeros((b,), dtype=torch.long, device=hidden.device)
+        n_acc = _accepted(input_ids, target, widths)
         rows = (emit == EMIT_VERIFY)
         tokens = torch.where(rows[:, None],
                              torch.where(col <= n_acc[:, None], target, zero),
@@ -633,11 +718,16 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     return {"tokens": tokens, "num_emitted": n_emit}
 
 
+def _slot_of(block_table, rows, pos, bs):
+    return block_table.long()[rows, pos // bs] * bs + pos % bs
+
+
 def paged_decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       first_tokens, position_ids, block_table,
                       sampling_params=None, generator=None,
                       num_steps: int = 1,
-                      inv_freq: Optional[torch.Tensor] = None):
+                      inv_freq: Optional[torch.Tensor] = None,
+                      row_seeds=None):
     """``num_steps`` paged decode steps with no host round trip between
     them: each step's slot comes from the (pre-extended) block table on the
     device, and each sampled token feeds the next step on the device. The
@@ -654,14 +744,56 @@ def paged_decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     tok, pos = first_tokens, position_ids.long()
     toks = []
     for _ in range(num_steps):
-        slot = block_table.long()[rows, pos // bs] * bs + pos % bs
+        slot = _slot_of(block_table, rows, pos, bs)
         out = paged_forward_step(
             spec, no_logits, params, cache, tok[:, None], pos[:, None],
             slot[:, None], block_table, last, sampling_params, generator,
-            inv_freq)
+            inv_freq, row_seeds)
         tok = out["tokens"]
         toks.append(tok)
         pos = pos + 1
+    return {"tokens": torch.stack(toks, dim=1)}
+
+
+def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
+                          cache, first_tokens, position_ids, block_table,
+                          widths, sampling_params=None, generator=None,
+                          num_steps: int = 1,
+                          inv_freq: Optional[torch.Tensor] = None,
+                          row_seeds=None):
+    """The masked greedy-k self-draft loop (model_base.py:2091-2139):
+    :func:`paged_decode_loop`, except that row i stops drafting once it
+    has ``widths[i] - 1`` drafts. A frozen row's step writes nothing (slot
+    -1) and keeps its token and position, so a short row never writes past
+    its grown block table. The draft's KV lands at [p, p + width - 2]; the
+    verify rewrites those slots. A Python loop of T = 1 steps stands in
+    for the reference's ``lax.scan``; each step runs the paged decode
+    kernel.
+
+    first_tokens, position_ids, widths (B,); block_table (B, max_blocks).
+    Returns {"tokens": (B, num_steps) int32} (a frozen row repeats its
+    last draft)."""
+    bs = cache["k"].shape[2]
+    b = first_tokens.shape[0]
+    dev = first_tokens.device
+    rows = torch.arange(b, device=dev)
+    no_logits = dataclasses.replace(tpu_cfg, output_logits=False)
+    last = torch.zeros((b,), dtype=torch.int32, device=dev)
+    drafts = widths.long() - 1
+    tok, pos = first_tokens, position_ids.long()
+    toks = []
+    for j in range(num_steps):
+        valid = drafts > j
+        safe = torch.where(valid, pos, torch.zeros_like(pos))
+        slot = torch.where(valid, _slot_of(block_table, rows, safe, bs),
+                           torch.full_like(pos, -1))
+        out = paged_forward_step(
+            spec, no_logits, params, cache, tok[:, None], pos[:, None],
+            slot[:, None], block_table, last, sampling_params, generator,
+            inv_freq, row_seeds)
+        tok = torch.where(valid, out["tokens"], tok)
+        pos = torch.where(valid, pos + 1, pos)
+        toks.append(tok)
     return {"tokens": torch.stack(toks, dim=1)}
 
 
@@ -690,9 +822,6 @@ def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
         (tcfg.tensor_capture_config is not None
          or tcfg.tensor_replacement_config is not None,
          "tensor capture/replacement"),
-        (tcfg.on_device_sampling_config is not None
-         and tcfg.on_device_sampling_config.stream_seed is not None,
-         "coupled sampling streams (stream_seed)"),
         (getattr(config, "hidden_act", "silu") != "silu",
          f"hidden_act {getattr(config, 'hidden_act', None)!r}"),
     ]

@@ -1,12 +1,27 @@
 """On-device sampling (counterpart:
-``neuronx_distributed_inference_tpu/ops/sampling.py:24-100`` and ``sample``
-:169): greedy argmax, or per-request top-k / top-p / temperature sampling
-over a (B, 3) ``[top_k, top_p, temperature]`` parameter tensor.
+``neuronx_distributed_inference_tpu/ops/sampling.py:24-100``, ``stream_keys``
+:102, ``coupled_sample`` :116 and ``sample`` :169): greedy argmax, or
+per-request top-k / top-p / temperature sampling over a (B, 3)
+``[top_k, top_p, temperature]`` parameter tensor.
 
-Random draws come from an explicit ``torch.Generator``; they are not the
-JAX package's threefry bits, so sampled streams of the two packages differ
-(tests compare greedy streams and the truncated distributions). The
-positionally coupled draw (``coupled_sample``) is not ported yet.
+Two sources of noise:
+
+  * :func:`sample` draws from an explicit ``torch.Generator``; those draws
+    are not the JAX package's, so such sampled streams of the two packages
+    differ (and a generator draw cannot be replayed by a captured graph);
+  * :func:`coupled_sample` keys every draw by (stream seed, request seed,
+    absolute position) through a bit-exact copy of JAX's threefry2x32 PRNG
+    (``jax._src.prng`` of jax 0.9 with ``jax_threefry_partitionable``:
+    ``threefry_seed``, ``fold_in``, the partitionable random bits; and
+    ``jax._src.random``'s ``uniform`` and ``gumbel``). Keys and random bits
+    equal JAX's exactly. The gumbel noise agrees to about one ULP of the
+    logarithm (torch's ``log`` is not XLA's), so a sampled token differs
+    from the JAX package's only where two perturbed scores lie within
+    ~1e-6 of each other.
+
+The PRNG holds its uint32 words in int64 tensors masked to 32 bits
+(torch's uint32 lacks add and shift on some devices); everything runs on
+the logits' device, with no host read, so a captured graph can hold it.
 """
 
 from __future__ import annotations
@@ -54,12 +69,18 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
 def truncated_probs(logits: torch.Tensor, sampling_params: torch.Tensor,
                     global_topk: int = 256):
     """logits (B, V) + sampling_params (B, 3) -> (probs, top_idx), both
-    (B, k) with k = min(global_topk, V), probs renormalized over the kept
-    prefix. top_k <= 0 means no k truncation beyond ``global_topk``."""
+    (B, k) with k = min(global_topk, V) in ``jax.lax.top_k``'s order,
+    probs renormalized over the kept prefix. top_k <= 0 means no k
+    truncation beyond ``global_topk``."""
     b, v = logits.shape
     k = min(global_topk, v)
     lf = logits.float()
-    top_vals, top_idx = torch.topk(lf, k, dim=-1)     # sorted descending
+    # ``jax.lax.top_k`` puts the lower index first among equal values; a
+    # stable descending sort does too (``torch.topk`` leaves ties in no
+    # set order). Ties are common: bf16 logits share few distinct values,
+    # and the coupled draw hangs its noise on the ranks
+    top_vals, top_idx = torch.sort(lf, dim=-1, descending=True, stable=True)
+    top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
     sp = sampling_params.to(device=lf.device, dtype=torch.float32)
     req_k, req_p = sp[:, 0], sp[:, 1]
     temp = torch.clamp(sp[:, 2], min=1e-6)
@@ -93,6 +114,143 @@ def topk_topp_sample(logits: torch.Tensor, sampling_params: torch.Tensor,
                             torch.full_like(probs, float("-inf")))
         choice = torch.argmax(score, dim=-1)
     return torch.gather(top_idx, 1, choice[:, None])[:, 0].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32, as jax 0.9 defines it (jax_threefry_partitionable=True)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 block cipher (``jax._src.prng.threefry2x32``, 20
+    rounds, 5 key injections) over uint32 words held in int64 tensors;
+    ``k0, k1`` (the key) and ``x0, x1`` (the counter) broadcast. Returns
+    the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def prng_key(seed: int):
+    """``jax.random.PRNGKey(seed)`` for an int32 seed: the key words
+    (0, seed mod 2**32), as Python ints (they enter the cipher as
+    scalars, so no tensor is copied to the device)."""
+    return 0, int(seed) & _M32
+
+
+def fold_in(keys, data: torch.Tensor) -> torch.Tensor:
+    """``jax.random.fold_in`` over a batch: keys a (..., 2) tensor or one
+    (k0, k1) pair of ints, data (...) int32 values (a negative one folds
+    in its two's complement) -> (..., 2)."""
+    k0, k1 = ((keys[..., 0], keys[..., 1])
+              if isinstance(keys, torch.Tensor) else keys)
+    d = data.long() & _M32
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` per key: keys (..., 2) ->
+    (..., n) int64 holding uint32 values. The partitionable counters of a
+    1-D shape are (0, i); the 32 bits are the XOR of the two words."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
+                          torch.zeros_like(i), i)
+    return b0 ^ b1
+
+
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32, minval, maxval)`` per key:
+    23 mantissa bits under the exponent of 1.0, minus 1, scaled, then
+    clamped below at ``minval``."""
+    mant = ((random_bits(keys, n) >> 9) | 0x3F800000).to(torch.int32)
+    f = mant.view(torch.float32) - 1.0
+    return torch.clamp(f * (maxval - minval) + minval, min=minval)
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,), float32)`` (mode "low") per key:
+    ``-log(-log(u))`` with u uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(keys, n, _TINY, 1.0)))
+
+
+def stream_keys(stream_seed: int, seeds: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Per-draw keys of the positionally coupled stream: row i's key is
+    ``fold_in(fold_in(PRNGKey(stream_seed), seeds[i]), positions[i])``,
+    a pure function of (engine stream seed, request seed, absolute
+    position of the sampled token). seeds, positions (N,) -> (N, 2)."""
+    return fold_in(fold_in(prng_key(stream_seed), seeds), positions)
+
+
+def _config_params(config: OnDeviceSamplingConfig, n: int,
+                   device) -> torch.Tensor:
+    """(n, 3) fp32 [top_k, top_p, temperature] from the config, built by
+    fills (no host-to-device copy, so a captured graph can hold it)."""
+    return torch.stack([torch.full((n,), float(v), dtype=torch.float32,
+                                   device=device)
+                        for v in (config.top_k, config.top_p,
+                                  config.temperature)], dim=1)
+
+
+def coupled_sample(logits: torch.Tensor, config: OnDeviceSamplingConfig,
+                   sampling_params: Optional[torch.Tensor],
+                   seeds: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Positionally coupled top-k/top-p/temperature sampling: the gumbel
+    noise of each row has the fixed shape (k,) and the key of
+    :func:`stream_keys`, so the sampled token is a pure function of
+    (stream_seed, request seed, position, logits) and any graph that
+    samples that position (eager decode, the draft loop, a verify column,
+    a ragged row) draws the same token. That is what makes exact-match
+    acceptance of sampled drafts preserve the stream.
+
+    logits (B, V) with seeds (B,) / positions (B,), or (B, T, V) with
+    seeds (B,) broadcast over columns and positions (B, T);
+    sampling_params (B, 3) (repeated per column) or None (the config's).
+    Returns int32 tokens of shape logits.shape[:-1]."""
+    shape = logits.shape[:-1]
+    if logits.dim() == 3:
+        b, t, v = logits.shape
+        logits = logits.reshape(b * t, v)
+        seeds = seeds.reshape(b, 1).expand(b, t).reshape(-1)
+        positions = positions.reshape(-1)
+        if sampling_params is not None and sampling_params.shape[0] == b:
+            sampling_params = torch.repeat_interleave(sampling_params, t,
+                                                      dim=0)
+    if sampling_params is None:
+        sampling_params = _config_params(config, logits.shape[0],
+                                         logits.device)
+    probs, top_idx = truncated_probs(logits, sampling_params,
+                                     config.global_topk)
+    if config.deterministic:
+        choice = torch.argmax(probs, dim=-1)
+    else:
+        keys = stream_keys(config.stream_seed or 0, seeds.to(logits.device),
+                           positions.to(logits.device))
+        g = gumbel(keys, probs.shape[-1])
+        score = torch.where(probs > 0, torch.log(probs) + g,
+                            torch.full_like(probs, float("-inf")))
+        choice = torch.argmax(score, dim=-1)
+    toks = torch.gather(top_idx, 1, choice[:, None])[:, 0].to(torch.int32)
+    return toks.reshape(shape)
 
 
 def sample(logits: torch.Tensor, config: Optional[OnDeviceSamplingConfig],

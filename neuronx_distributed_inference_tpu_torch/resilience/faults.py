@@ -1,7 +1,8 @@
 """Deterministic fault-injection harness for the serving surface — a copy
 of ``neuronx_distributed_inference_tpu/resilience/faults.py``. The port's
-adapters traverse ``slow_step``, ``decode_step``, ``prefill_chunk`` and
-``ragged_step``; the other points keep their names and never fire here.
+adapters traverse ``slow_step``, ``decode_step``, ``prefill_chunk``,
+``spec_draft``, ``spec_verify`` and ``ragged_step``; the other points keep
+their names and never fire here.
 
 Named fault points are compiled into the adapters and the paged cache
 manager; arming one makes the Nth traversal of that point fail (or stall)

@@ -1,11 +1,13 @@
 """Serving adapters — the continuous-batching contract an engine drives
 (counterpart: ``neuronx_distributed_inference_tpu/serving/adapter.py`` —
-``_SeqState``/``_ChunkState`` :137-180, the helpers :182-243,
-``_AdapterTelemetry`` :245-456, the helpers :459-560, ``_CbScratch`` :563,
+``_SeqState``/``_ChunkState`` :137-180, the helpers :182-243
+(``_meta_seed`` :192), ``_AdapterTelemetry`` :245-456 (``on_spec_step``
+:320), the helpers :459-560, ``_CbScratch`` :563,
 ``_PagedScratch`` :606, the eager path of ``_EngineAdapterBase``
 :682-903 with ``flush`` :837 and ``debug_state`` :1071,
 ``ContinuousBatchingAdapter`` :1090-1275 and ``PagedEngineAdapter`` :1277
-with its ragged routing :1541-1649, scheduler hooks :1794-1878,
+with its speculation and ragged routing :1371-1385 and :1540-1670,
+scheduler hooks :1794-1878,
 preemption :2022-2165 and chunked prefill :2174-2400).
 
 ``ContinuousBatchingAdapter`` drives the contiguous app: a request owns one
@@ -18,8 +20,9 @@ paged app. The engine owns scheduling; the adapter owns device state:
     ctx-bucket ``_run_paged`` dispatches (or, with
     ``prefill_budget_tokens``, one budgeted chunk dispatch per step);
   * ``step(seq_ids=None)`` — one decode step for the running rows (with
-    ``ragged=True``: ONE mixed dispatch of decode rows and pending
-    prefill chunks, ``serving/ragged/``);
+    ``speculation=``: draft and verify, 1..k+1 tokens a row,
+    ``serving/speculation/``; with ``ragged=True``: ONE mixed dispatch of
+    decode or verify rows and pending prefill chunks, ``serving/ragged/``);
   * ``step_many(k, seq_ids=None)`` — k decode steps in one call of the
     device loop (slots advance on the device);
   * ``release(seq_ids)`` — free rows and their blocks.
@@ -28,12 +31,17 @@ When the block pool runs dry the ``preemption_policy`` ("lifo" /
 "fewest_generated") evicts a running or pending sequence and queues a
 :class:`Preempted` record for :meth:`PagedEngineAdapter.take_preempted`.
 
+Every paged dispatch carries the per-request sampling seeds
+(``meta["sampling_seed"]``, else 0) as ``row_seeds``: under a
+``stream_seed`` config every sampled token is the coupled draw of its
+(request seed, position), whatever path or batch produced it.
+
 Telemetry (``telemetry=`` registry, else the process-global one) and the
-fault points ``slow_step``, ``decode_step``, ``prefill_chunk`` and
-``ragged_step`` are those of the counterpart. The eager path
-(``pipeline_depth=0``) is ported; the constructor refuses what waits for
-later slices: ``speculation``, ``lora_pool``, ``kv_spill_tier`` and
-``pipeline_depth > 0``.
+fault points ``slow_step``, ``decode_step``, ``prefill_chunk``,
+``spec_draft``, ``spec_verify`` and ``ragged_step`` are those of the
+counterpart. The eager path (``pipeline_depth=0``) is ported; the
+constructor refuses what waits for later slices: ``lora_pool``,
+``kv_spill_tier`` and ``pipeline_depth > 0``.
 
 A step that fails before its dispatch began (an injected fault, a host
 error) raises a ``retry_safe`` :class:`StepFailure`; one that fails inside
@@ -103,6 +111,16 @@ def _meta_tenant(meta: Any) -> str:
         return ""
 
 
+def _meta_seed(meta: Any) -> int:
+    """Per-request sampling seed from an opaque ``meta`` payload (the
+    engine passes mappings with a "sampling_seed" key; anything else seeds
+    as 0). Feeds the coupled sampling stream (ops/sampling.stream_keys)."""
+    try:
+        return int(meta.get("sampling_seed", 0))
+    except (AttributeError, TypeError, ValueError):
+        return 0
+
+
 def _common_tenant(tenants) -> str:
     """The single tenant shared by every affected row, or "" when the set
     is empty or mixed."""
@@ -121,7 +139,7 @@ def _trace_error(err):
 
 class _AdapterTelemetry:
     """Engine-adapter instrumentation (a copy of the counterpart's, less
-    the pipeline and speculation hooks the port does not run): TTFT /
+    the pipeline hooks the port does not run): TTFT /
     per-step decode latency histograms, live-batch and pad-waste
     accounting, one request span per seq_id. Host-side only; every method
     is a cheap no-op while telemetry is disabled."""
@@ -189,6 +207,41 @@ class _AdapterTelemetry:
                 info["steps"] += steps
                 info["t_last"] = now
         self._rows(reg, "decode", n, padded, steps=steps)
+
+    def on_spec_step(self, rows: Sequence[Tuple[int, int]], t0: float,
+                     padded: int, width: int, drafted: int, accepted: int,
+                     mode: str = "greedy"):
+        """One speculative engine step: ``rows`` is (seq_id, tokens
+        delivered) per live row; ``mode`` labels the verify discipline
+        (greedy | sampled) so the two acceptance regimes never share a
+        series."""
+        reg = self.registry
+        now = time.perf_counter()
+        delivered = 0
+        for sid, n in rows:
+            delivered += n
+            info = self._requests.get(sid)
+            if info is not None:
+                info["steps"] += n
+                info["t_last"] = now
+        if not reg.enabled:
+            return
+        tmetrics.decode_step_histogram(reg).observe(now - t0,
+                                                    engine=self.engine)
+        tmetrics.generated_tokens_counter(reg).inc(delivered,
+                                                   engine=self.engine)
+        tmetrics.spec_drafted_counter(reg).inc(drafted, engine=self.engine,
+                                               mode=mode)
+        tmetrics.spec_accepted_counter(reg).inc(accepted,
+                                                engine=self.engine,
+                                                mode=mode)
+        if drafted:
+            tmetrics.spec_accept_rate_gauge(reg).set(accepted / drafted,
+                                                     engine=self.engine,
+                                                     mode=mode)
+        tmetrics.spec_verify_width_histogram(reg).observe(
+            width, engine=self.engine)
+        self._rows(reg, "decode", len(rows), padded)
 
     def on_ragged_step(self, kind_rows: Dict[str, int], real_tokens: int,
                        padded_tokens: int):
@@ -353,11 +406,10 @@ def _repeat_row0(x: np.ndarray, pad_to: int) -> np.ndarray:
                                         axis=0)])
 
 
-def _pad_paged_rows(pad_to, ids, pos, slots, bt, last):
-    if ids.shape[0] == pad_to:
-        return ids, pos, slots, bt, last
-    return tuple(_repeat_row0(x, pad_to) for x in (ids, pos, slots, bt,
-                                                   last))
+def _pad_paged_rows(pad_to, *rows):
+    if rows[0].shape[0] == pad_to:
+        return rows
+    return tuple(_repeat_row0(x, pad_to) for x in rows)
 
 
 class _CbScratch:
@@ -392,12 +444,13 @@ class _PagedScratch:
     only for rows whose block list grew; slots are recomputed in place."""
 
     def __init__(self, live: Sequence[int], pad_to: int, width: int,
-                 block_size: int):
+                 block_size: int, seeds: Sequence[int]):
         b = len(live)
         self.live = tuple(live)
         self.b = b
         self.pad_to = pad_to
         self.width = width
+        self.seeds = _repeat_row0(np.asarray(seeds, np.int32), pad_to)
         self.last = np.zeros((pad_to,), np.int32)
         self.ids = np.empty((pad_to, 1), np.int32)
         self.pos = np.empty((pad_to, 1), np.int32)
@@ -805,7 +858,6 @@ class PagedEngineAdapter(_EngineAdapterBase):
                  ragged: bool = False, lora_pool=None):
         _refuse_waiting(**{
             "pipeline_depth > 0": pipeline_depth,
-            "speculation": speculation is not None,
             "kv_spill_tier": kv_spill_tier is not None,
             "lora_pool": lora_pool is not None})
         cfg = app.tpu_config
@@ -840,13 +892,23 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self._chunks: Dict[int, _ChunkState] = {}   # pending admissions
         self._unwritten: set = set()   # allocated blocks not fully written
         self._init_host_stats()
-        # degradation actuator (set_ragged_shed): route steps through the
-        # two-phase template instead of the unified dispatch
+        # degradation actuators: set_ragged_shed routes steps through the
+        # two-phase template; set_speculation_shed clamps windows to 1
         self._ragged_shed = False
+        self._spec_shed = False
         self._ragged = None
+        self._spec = None
+        if speculation is not None:
+            # deferred import: speculation/ imports this module
+            from .speculation import SelfDraftProposer
+            if isinstance(speculation, int):
+                speculation = SelfDraftProposer(speculation)
         if ragged:
             from .ragged import RaggedDispatchPath
-            self._ragged = RaggedDispatchPath(self)
+            self._ragged = RaggedDispatchPath(self, speculation)
+        elif speculation is not None:
+            from .speculation import SpeculativeDecodePath
+            self._spec = SpeculativeDecodePath(self, speculation)
 
     # -- admission ---------------------------------------------------------
     def add_requests(self, seq_ids: Sequence[int],
@@ -943,6 +1005,9 @@ class PagedEngineAdapter(_EngineAdapterBase):
         return {s: self._ready.pop(s) for s in seq_ids}
 
     def release(self, seq_ids: Sequence[int]):
+        proposer = self._active_proposer
+        if proposer is not None:
+            proposer.forget(seq_ids)
         for sid in seq_ids:
             self._ready.pop(sid, None)
             if sid in self._chunks:
@@ -955,34 +1020,41 @@ class PagedEngineAdapter(_EngineAdapterBase):
                     self.app.kv_mgr.end_sequence(sid)
         self.telemetry.on_release(seq_ids)
 
-    # -- step routing (ragged unified dispatch, serving/ragged/) ------------
+    # -- step routing (speculation, the ragged unified dispatch) ------------
     def step(self, seq_ids: Optional[Sequence[int]] = None,
              token_room: Optional[Dict[int, int]] = None):
         """One decode step, {seq_id: token} (see the base class). With
-        ``ragged=True`` every step is ONE unified mixed dispatch through
-        serving/ragged/ and returns {seq_id: [tokens]}; ``token_room``
-        (scheduler hook) caps each row's tokens for the step. With the
-        ragged path SHED (:meth:`set_ragged_shed`) the step falls back to
-        the two-phase chunk-then-decode template; greedy tokens are the
-        same either way, only the dispatch count changes."""
+        ``speculation=`` the step is draft-and-verify and returns {seq_id:
+        [tokens]} with 1..k+1 tokens a row; with ``ragged=True`` every
+        step is ONE unified mixed dispatch through serving/ragged/ and
+        returns {seq_id: [tokens]}; ``token_room`` (scheduler hook) caps
+        each row's tokens for the step. With the ragged path SHED
+        (:meth:`set_ragged_shed`) the step falls back to two-phase
+        dispatching: through the speculative path when a proposer is
+        attached, else the plain chunk-then-decode template. Tokens are
+        the same either way, only the dispatch count changes."""
         if self._ragged is not None:
             if not self._ragged_shed:
                 return self._ragged.step(seq_ids, token_room)
+            if self._ragged.spec_path is not None:
+                return self._ragged.spec_path.step(seq_ids, token_room)
             return super().step(seq_ids)   # 1 token/row: room is honored
+        if self._spec is not None:
+            return self._spec.step(seq_ids, token_room)
         if token_room is not None:
             raise ConfigurationError(
                 "token_room is a speculative-decode hook; build the "
-                "adapter with ragged=True to use it")
+                "adapter with speculation= or ragged=True to use it")
         return super().step(seq_ids)
 
     def step_many(self, num_steps: int,
                   seq_ids: Optional[Sequence[int]] = None
                   ) -> Dict[int, List[int]]:
-        """Fused multi-step decode (base class). With ``ragged=True``
-        ``num_steps`` is a per-row TOKEN budget: unified engine steps run
-        (each one materialized dispatch) until every row has delivered
-        it."""
-        if self._ragged is None:
+        """Fused multi-step decode (base class). With ``speculation=`` or
+        ``ragged=True`` ``num_steps`` is a per-row TOKEN budget: engine
+        steps run (each one materialized dispatch) until every row has
+        delivered it, and no row overshoots."""
+        if self._ragged is None and self._spec is None:
             return super().step_many(num_steps, seq_ids)
         if num_steps < 1:
             raise ConfigurationError("step_many requires num_steps >= 1")
@@ -999,7 +1071,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
             if not ids and not self._pending_ids():
                 break
             room = {s: remaining.get(s, num_steps) for s in ids}
-            # through step() so the shed flag applies here too (a shed
+            # through step() so the shed flags apply here too (a shed
             # plain step returns {seq_id: token})
             res = self.step(ids, token_room=room)
             if not res and not ids:
@@ -1011,14 +1083,41 @@ class PagedEngineAdapter(_EngineAdapterBase):
         return out
 
     @property
+    def _active_proposer(self):
+        """The draft proposer of whichever path is engaged (the speculative
+        path or the ragged path), None without speculation."""
+        if self._spec is not None:
+            return self._spec.proposer
+        if self._ragged is not None:
+            return self._ragged.proposer
+        return None
+
+    @property
+    def speculation_shed(self) -> bool:
+        return self._spec_shed
+
+    @property
     def ragged_shed(self) -> bool:
         return self._ragged_shed
 
+    def set_speculation_shed(self, shed: bool) -> None:
+        """Degradation actuator: clamp every draft window to width 1, so
+        steps run the width-1 verify — no draft dispatches, tokens
+        unchanged. Engaging it drops the proposer's per-sequence state.
+        Reversible; a no-op without a proposer."""
+        shed = bool(shed)
+        if shed == self._spec_shed:
+            return
+        self._spec_shed = shed
+        proposer = self._active_proposer
+        if shed and proposer is not None and self.seqs:
+            proposer.forget(list(self.seqs))
+
     def set_ragged_shed(self, shed: bool) -> None:
         """Degradation actuator: route steps through the two-phase (chunk
-        dispatch + decode dispatch) template instead of the unified ragged
-        dispatch — see :meth:`step`. Reversible; a no-op without
-        ``ragged=True``."""
+        dispatch + decode or verify dispatch) template instead of the
+        unified ragged dispatch — see :meth:`step`. Reversible; a no-op
+        without ``ragged=True``."""
         self._ragged_shed = bool(shed)
 
     # -- decode hooks ------------------------------------------------------
@@ -1047,7 +1146,8 @@ class PagedEngineAdapter(_EngineAdapterBase):
         if (scr is None or scr.live != tuple(live) or scr.pad_to != pad_to
                 or scr.width != width):
             scr = self._scratch = _PagedScratch(
-                live, pad_to, width, app.kv_mgr.spec.block_size)
+                live, pad_to, width, app.kv_mgr.spec.block_size,
+                [_meta_seed(self.seqs[s].meta) for s in live])
         return scr
 
     def _dispatch_decode(self, scr: _PagedScratch):
@@ -1056,7 +1156,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
         signature is attributed to the batched requests' traces."""
         with self._request_context(scr.live):
             out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
-                                      scr.last)
+                                      scr.last, row_seeds=scr.seeds)
         self.host_stats["dispatches"] += 1
         self.host_stats["device_steps"] += 1
         rec = _get_recorder()
@@ -1078,14 +1178,16 @@ class PagedEngineAdapter(_EngineAdapterBase):
         first = np.asarray([self.seqs[s].last_token for s in live],
                            np.int32)
         pos = np.asarray([self.seqs[s].position for s in live], np.int32)
+        seeds = np.asarray([_meta_seed(self.seqs[s].meta) for s in live],
+                           np.int32)
         if pad_to > b:
-            first = _repeat_row0(first, pad_to)
-            pos = _repeat_row0(pos, pad_to)
-            bt = _repeat_row0(bt, pad_to)
+            first, pos, bt, seeds = (_repeat_row0(x, pad_to)
+                                     for x in (first, pos, bt, seeds))
 
         def run():
             with self._request_context(live):
-                out = app._run_paged_loop(first, pos, bt, num_steps)
+                out = app._run_paged_loop(first, pos, bt, num_steps,
+                                          row_seeds=seeds)
             self.host_stats["dispatches"] += 1
             self.host_stats["device_steps"] += num_steps
             return self._fetch_rows(out, b)
@@ -1165,6 +1267,11 @@ class PagedEngineAdapter(_EngineAdapterBase):
 
     def _preempt(self, victim: int, reason: str):
         self._ready.pop(victim, None)      # the replay regenerates it
+        proposer = self._active_proposer
+        if proposer is not None:
+            # a stateful proposer must not carry the victim's state into a
+            # re-admission under the same id
+            proposer.forget((victim,))
         cst = self._chunks.pop(victim, None)
         if cst is not None:
             # half-prefilled victim: blocks not fully written leave the
@@ -1312,9 +1419,9 @@ class PagedEngineAdapter(_EngineAdapterBase):
         try:
             if _FAULTS.active:
                 _FAULTS.fire("prefill_chunk")
-            packed = self._pack_prefill_rows(rows)
+            *packed, seeds = self._pack_prefill_rows(rows)
             dispatched = True
-            out = self.app._run_paged(*packed)
+            out = self.app._run_paged(*packed, row_seeds=seeds)
             self.host_stats["prefill_dispatches"] += 1
             new = (self._fetch_prefill_tokens(out) if final_rows else None)
         except ServingError as e:
@@ -1396,8 +1503,11 @@ class PagedEngineAdapter(_EngineAdapterBase):
             if fin:
                 last[i] = n - 1
         slots = slots_from_table(bt, slot_pos, app.kv_mgr.spec.block_size)
+        seeds = np.asarray([_meta_seed(self._chunks[s].meta) for s in sids],
+                           np.int32)
         pad_to = autobucketing.get_target_bucket(app.batch_buckets, b)
-        return _pad_paged_rows(pad_to, ids_w, pos_w, slots, bt, last)
+        return _pad_paged_rows(pad_to, ids_w, pos_w, slots, bt, last,
+                               seeds)
 
     def _drop_unwritten(self, sid):
         """Retire ``sid``'s EXCLUSIVE blocks from the unwritten set (a

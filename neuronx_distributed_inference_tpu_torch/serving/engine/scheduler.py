@@ -554,12 +554,14 @@ class ServingEngine:
         alive = self.adapter.seqs
         eligible: List[int] = []
         horizon = self.decode_steps_per_pass
-        # ragged adapter: the pass budgets by TOKENS-DELIVERED, not steps
-        # — each row gets its remaining token budget as a per-row width
-        # clamp (decode_steps_per_pass > 1 caps it), and the pass stays
-        # one engine step: ONE materialized mixed prefill+decode dispatch
-        # planned by the RaggedBatchPlanner (serving/ragged/)
-        ragged = getattr(self.adapter, "_ragged", None)
+        # speculative / ragged adapter: the pass budgets by TOKENS
+        # DELIVERED, not steps — each row gets its remaining token budget
+        # as a per-row width clamp (decode_steps_per_pass > 1 caps it), so
+        # a verify row of k + 1 tokens never overshoots, and the pass
+        # stays one engine step (a ragged adapter: ONE materialized mixed
+        # prefill+decode+verify dispatch, serving/ragged/)
+        spec = (getattr(self.adapter, "_spec", None)
+                or getattr(self.adapter, "_ragged", None))
         room: Dict[int, int] = {}
         for sid, req in self._active.items():
             if sid not in alive and sid not in pending:
@@ -571,7 +573,7 @@ class ServingEngine:
                     and req.stream.unread >= self.max_unread_tokens):
                 continue               # backpressure: consumer is behind
             r = self._room(sid, req)
-            if ragged is not None:
+            if spec is not None:
                 room[sid] = (min(r, self.decode_steps_per_pass)
                              if self.decode_steps_per_pass > 1 else r)
             else:
@@ -582,7 +584,7 @@ class ServingEngine:
             # adapters keep no dispatch in flight)
             return self._route(self.adapter.flush())
         try:
-            if ragged is not None:
+            if spec is not None:
                 res = self.adapter.step(eligible, token_room=room)
             elif horizon > 1:
                 res = self.adapter.step_many(horizon, eligible)

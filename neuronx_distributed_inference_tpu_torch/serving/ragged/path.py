@@ -5,34 +5,39 @@
 :class:`~..adapter.PagedEngineAdapter`:
 
   1. the :class:`~.planner.RaggedBatchPlanner` lays out ALL runnable work
-     — live decode rows (width 1) and pending prefill chunks (width n at
-     each row's own suffix offset) — as ragged rows of ONE dispatch,
-     padded to the ``autobucketing.ragged_row_buckets`` ladder;
-  2. per-row KV growth for the live rows (preemption-aware, exactly like
-     the non-ragged grow);
-  3. THE ragged dispatch (``model_base.paged_ragged_step``): per-row
-     sampling for decode rows and final prefill chunks, nothing emitted
-     for intermediate chunks and pad rows. An all-decode step has a row
-     grid 1 wide and runs the paged decode kernel;
-  4. the ONE blocking copy of the step to the host, then host
+     — live decode rows (width 1), speculative verify windows (width
+     k + 1, clamped like the speculative path's) and pending prefill
+     chunks (width n at each row's own suffix offset) — as ragged rows of
+     ONE dispatch, padded to the ``autobucketing.ragged_row_buckets``
+     ladder;
+  2. per-row KV growth for the live rows' windows (preemption-aware,
+     exactly like the non-ragged grow);
+  3. with speculation attached, the proposer's draft pass (k T = 1 steps
+     on the paged decode kernel); its tokens are merged into the packed
+     input on the device, never through the host;
+  4. THE ragged dispatch (``model_base.paged_ragged_step``): per-row
+     sampling for decode rows and final prefill chunks, acceptance for
+     verify windows (greedy exact match, or the coupled draw under a
+     seeded sampled config), nothing emitted for intermediate chunks and
+     pad rows. An all-decode step has a row grid 1 wide and runs the
+     paged decode kernel;
+  5. the ONE blocking copy of the step to the host, then host
      bookkeeping: chunk cursors advance (final chunks graduate to running
      rows), ``_unwritten`` blocks covered by the now-materialized writes
-     are confirmed, positions advance.
+     are confirmed, accept cursors advance and KV shrinks to each verify
+     row's accepted prefix.
 
 Failure contract: the ``ragged_step`` fault point fires between growth
 and the dispatch; any dispatch/fetch failure rolls EVERY packed row back
 to its last delivered token — live rows' KV growth shrunk, positions
 untouched, prefill rows evicted as :class:`Preempted` records
 (``reason="ragged_rollback"``) so the engine replays them — and raises a
-typed :class:`StepFailure` with ``phase="ragged"``. ``_dispatch_ragged``
-never reads a device value: every shape-deciding number comes from the
-numpy plan. :meth:`RaggedDispatchPath._fetch_ragged` is the step's single
-blocking copy.
-
-Speculation (verify rows, the proposer's draft pass) waits with the
-speculative path: the adapter refuses ``speculation=``, so every live row
-is a decode row of width 1 here. The warm-up plane's steady-state request
-context is not ported either.
+typed :class:`StepFailure` with ``phase="ragged"``. A draft failure rolls
+back only the live rows' growth (``phase="spec_draft"``). The dispatch
+helpers (``_dispatch_ragged``, the speculative path's
+``_dispatch_spec_draft``) never read a device value: every shape-deciding
+number comes from the numpy plan. :meth:`RaggedDispatchPath._fetch_ragged`
+is the step's single blocking copy.
 """
 
 from __future__ import annotations
@@ -43,16 +48,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ...models.model_base import EMIT_LAST, EMIT_NONE
+from ...models.model_base import EMIT_LAST, EMIT_NONE, EMIT_VERIFY
 from ...modules import autobucketing
 from ...modules.block_kv_cache import slots_from_table
 from ...resilience.errors import CapacityError, ServingError, StepFailure
 from ...resilience.faults import FAULTS as _FAULTS
 from ...telemetry.request_trace import trace_of as _trace_of
 from ...telemetry.trace import get_recorder as _get_recorder
-from ..adapter import (_SeqState, _common_tenant, _live_rows, _meta_tenant,
-                       _pre_step_checks, _repeat_row0, _trace_error)
-from ..speculation.verifier import validate_spec_sampling
+from ..adapter import (_SeqState, _common_tenant, _live_rows, _meta_seed,
+                       _meta_tenant, _pre_step_checks, _repeat_row0,
+                       _trace_error)
+from ..speculation.verifier import (SpeculativeDecodePath,
+                                    validate_spec_sampling)
 from .planner import (KIND_DECODE, KIND_PREFILL, KIND_VERIFY,
                       RaggedBatchPlanner, RaggedPlan)
 
@@ -60,18 +67,29 @@ __all__ = ["RaggedDispatchPath"]
 
 
 class RaggedDispatchPath:
-    """One mixed prefill+decode dispatch per engine step."""
+    """One mixed prefill+decode+verify dispatch per engine step."""
 
-    def __init__(self, adapter):
-        # unseeded sampling is refused, as on the speculative paths
+    def __init__(self, adapter, proposer=None):
+        # unseeded sampling is refused, as on the speculative path
         cfg = adapter.app.tpu_config
-        validate_spec_sampling(cfg.on_device_sampling_config,
-                               where="ragged unified dispatch")
+        self.mode = validate_spec_sampling(cfg.on_device_sampling_config,
+                                           where="ragged unified dispatch")
         self.adapter = adapter
         self.planner = RaggedBatchPlanner(adapter)
-        # ONE warm-shape ladder for every row kind (decode / prefill chunk)
+        # ONE warm-shape ladder for every row kind (decode / verify /
+        # prefill chunk)
         self.row_buckets = autobucketing.ragged_row_buckets(
             adapter.app.ctx_buckets, adapter.prefill_chunk_tokens)
+        self.proposer = proposer
+        self.spec_path = None
+        self.max_width = 1
+        if proposer is not None:
+            # the speculative path's validation, proposer binding and
+            # draft dispatch, reused; only its verify is replaced by the
+            # unified dispatch
+            self.spec_path = SpeculativeDecodePath(adapter, proposer)
+            self.max_width = min(self.spec_path.max_width,
+                                 self.row_buckets[-1])
         stats = adapter.host_stats
         for key in ("ragged_steps", "ragged_dispatches",
                     "ragged_rows_decode", "ragged_rows_prefill",
@@ -83,11 +101,12 @@ class RaggedDispatchPath:
     def step(self, seq_ids: Optional[Sequence[int]] = None,
              token_room: Optional[Dict[int, int]] = None
              ) -> Dict[int, List[int]]:
-        """ONE unified engine step: every runnable row — decode, prefill
-        chunk — rides a single materialized dispatch. Returns ``{seq_id:
-        [tokens]}`` (one token per decode row; first tokens of prompts
-        whose final chunk landed this step). ``token_room`` (scheduler
-        hook) clamps a verify row's width; decode rows take one token."""
+        """ONE unified engine step: every runnable row — decode, verify,
+        prefill chunk — rides a single materialized dispatch. Returns
+        ``{seq_id: [tokens]}`` (1..k+1 tokens per decode or verify row;
+        first tokens of prompts whose final chunk landed this step).
+        ``token_room`` (scheduler hook) clamps a verify row's width so a
+        step never overshoots its remaining token budget."""
         ad = self.adapter
         pending = ad._pending_ids()
         live = _live_rows(ad.seqs, seq_ids, pending)
@@ -103,8 +122,10 @@ class RaggedDispatchPath:
             _pre_step_checks(ad.seqs, live, ad._pos_limit, ad.telemetry,
                              horizon=1)
         t0 = time.perf_counter()
-        # candidate width 1: every live row is a decode row (no proposer)
-        plan = self.planner.plan(live, seq_ids, token_room, 1)
+        # the degradation shed clamps verify windows to width 1 (decode
+        # rows, no draft dispatch); the tokens are the same either way
+        max_width = 1 if ad._spec_shed else self.max_width
+        plan = self.planner.plan(live, seq_ids, token_room, max_width)
         if plan.live_ids:
             self._grow_plan(plan)
             plan.prune(ad)             # rows preempted mid-grow drop out
@@ -150,20 +171,47 @@ class RaggedDispatchPath:
             queue.pop(0)
             grown.append(s)
 
-    def _rollback_plan(self, plan: RaggedPlan) -> None:
-        """Dispatch-failure rollback: live rows shrink to their last
-        delivered token (positions untouched — a retry continues the
-        exact stream), and every prefill row packed in the failed dispatch
-        is evicted as a PREEMPTION in reverse admission order (its
-        never-written blocks leave the prefix cache; the record lets the
-        scheduler replay the admission)."""
+    def _rollback_live(self, plan: RaggedPlan) -> None:
+        """Shrink every live row's window growth back to its last
+        accepted or delivered token (positions untouched — a retry
+        continues the exact stream)."""
         ad = self.adapter
         for s in plan.live_ids:
             if s in ad.seqs and s in ad.app.kv_mgr.tables:
                 ad.app.kv_mgr.shrink(s, plan.widths[s])
+
+    def _rollback_plan(self, plan: RaggedPlan) -> None:
+        """Dispatch-failure rollback: live rows shrink to their last
+        accepted or delivered token, and every prefill row packed in the
+        failed dispatch is evicted as a PREEMPTION in reverse admission
+        order (its never-written blocks leave the prefix cache; the record
+        lets the scheduler replay the admission)."""
+        ad = self.adapter
+        self._rollback_live(plan)
         for s in reversed(plan.prefill_ids):
             if s in ad._chunks:
                 ad._preempt(s, reason="ragged_rollback")
+
+    def _draft(self, plan: RaggedPlan, live_rows):
+        """The proposer's draft pass over the live (verify) rows through
+        the speculative path's shared preamble. A draft failure rolls back
+        ONLY the live rows' growth (the prefill rows saw no device work);
+        a sat-out proposer releases the unused window. Returns (drafts
+        device tensor or None, bucketed spec width, ctx)."""
+        app = self.adapter.app
+        live = [r.seq_id for r in live_rows]
+        drafts, W, ctx = self.spec_path.run_draft(
+            live, plan.widths, lambda: self._rollback_live(plan))
+        if drafts is None and W > 1:
+            for r in live_rows:
+                if r.width > 1:
+                    app.kv_mgr.shrink(r.seq_id, r.width - 1)
+                    r.width = 1
+                    plan.widths[r.seq_id] = 1
+            W = 1
+            ctx.num_drafts = 0
+            ctx.widths = np.ones_like(ctx.widths)
+        return drafts, W, ctx
 
     def _execute_plan(self, plan: RaggedPlan,
                       t0: float) -> Dict[int, List[int]]:
@@ -173,6 +221,12 @@ class RaggedDispatchPath:
         rows = plan.rows
         live_rows = [(i, r) for i, r in enumerate(rows)
                      if r.kind != KIND_PREFILL]
+        # draft BEFORE packing: verify widths fall to 1 when the proposer
+        # sits the step out
+        drafts, spec_W, ctx = None, 1, None
+        if self.spec_path is not None and live_rows:
+            drafts, spec_W, ctx = self._draft(plan,
+                                              [r for _, r in live_rows])
         prefill_rows = [(i, r) for i, r in enumerate(rows)
                         if r.kind == KIND_PREFILL]
         b = len(rows)
@@ -200,16 +254,31 @@ class RaggedDispatchPath:
                 emit[i] = EMIT_LAST if r.final else EMIT_NONE
             else:
                 ids[i, 0] = ad.seqs[r.seq_id].last_token
-                emit[i] = EMIT_LAST
+                emit[i] = (EMIT_VERIFY if r.kind == KIND_VERIFY
+                           else EMIT_LAST)
         slots = slots_from_table(bt, slot_pos, bs)
+        seeds = np.asarray(
+            [_meta_seed(ad.seqs[r.seq_id].meta if r.seq_id in ad.seqs
+                        else chunks[r.seq_id].meta) for r in rows],
+            np.int32)
         if pad_to > b:
             # batch-pad rows clone row 0 and write its slots with the same
-            # values, so the duplicate writes are order-free. A verify row
-            # 0 would need its drafts cloned too (reference path.py:314-320);
-            # that waits with speculation
-            ids, pos, slots, bt, wid, emit = (
+            # values, so the duplicate writes are order-free
+            ids, pos, slots, bt, wid, emit, seeds = (
                 _repeat_row0(x, pad_to)
-                for x in (ids, pos, slots, bt, wid, emit))
+                for x in (ids, pos, slots, bt, wid, emit, seeds))
+        if drafts is not None and spec_W > 1:
+            # merge the device-resident drafts into the packed input: the
+            # verify rows are the plan's live prefix. Batch-pad rows clone
+            # row 0 and share its slots, so they carry row 0's DRAFTS too,
+            # or their duplicate KV writes would race row 0's with other
+            # values
+            n_live = len(live_rows)
+            ids = torch.as_tensor(ids, device=app.device)
+            ids[:n_live, 1:spec_W] = drafts[:n_live, :spec_W - 1].to(
+                torch.int32)
+            if pad_to > b:
+                ids[b:, 1:spec_W] = drafts[0, :spec_W - 1].to(torch.int32)
         tenant = _common_tenant(
             [_meta_tenant(ad.seqs[s].meta) for s in sids if s in ad.seqs]
             + [_meta_tenant(chunks[s].meta) for s in sids if s in chunks])
@@ -219,7 +288,7 @@ class RaggedDispatchPath:
                 _FAULTS.fire("ragged_step")
             dispatched = True
             out = self._dispatch_ragged(ids, pos, slots, bt, wid, emit,
-                                        rows)
+                                        seeds, rows)
             toks, n_emit = self._fetch_ragged(out, b)
         except ServingError as e:
             self._rollback_plan(plan)
@@ -236,10 +305,10 @@ class RaggedDispatchPath:
                 phase="ragged", seq_ids=tuple(sids),
                 retry_safe=not dispatched)) from e
         return self._accept(plan, live_rows, prefill_rows, toks, n_emit,
-                            t0, b, W, pad_to)
+                            ctx, spec_W, t0, b, W, pad_to)
 
-    def _accept(self, plan, live_rows, prefill_rows, toks, n_emit, t0, b,
-                W, pad_to) -> Dict[int, List[int]]:
+    def _accept(self, plan, live_rows, prefill_rows, toks, n_emit, ctx,
+                spec_W, t0, b, W, pad_to) -> Dict[int, List[int]]:
         """Post-fetch host bookkeeping (the dispatch is materialized)."""
         ad = self.adapter
         app = ad.app
@@ -269,8 +338,11 @@ class RaggedDispatchPath:
             ad.telemetry.on_add([r.seq_id], [st.prompt], st.t0, live=1,
                                 padded=1, count_rows=False,
                                 tenants=[_meta_tenant(st.meta)])
-        # 3. live rows: positions advance by the emitted tokens
+        # 3. live rows: accept cursors advance, KV shrinks to the accepted
+        # prefix
         res: Dict[int, List[int]] = {}
+        drafted = accepted = 0
+        spec_rows = []
         for i, r in live_rows:
             st = ad.seqs[r.seq_id]
             n = int(n_emit[i])
@@ -278,7 +350,12 @@ class RaggedDispatchPath:
             st.position += n
             for t in row:
                 ad._append_token(st, t)
+            if r.width > n:
+                app.kv_mgr.shrink(r.seq_id, r.width - n)
             res[r.seq_id] = row
+            drafted += r.width - 1
+            accepted += n - 1
+            spec_rows.append((r.seq_id, n))
         # 4. telemetry + always-on host counters
         stats = ad.host_stats
         n_decode = sum(1 for _, r in live_rows if r.kind == KIND_DECODE)
@@ -302,24 +379,38 @@ class RaggedDispatchPath:
             {KIND_DECODE: n_decode, KIND_VERIFY: n_verify,
              KIND_PREFILL: len(prefill_rows), "pad": pad_to - b},
             real, pad_to * W)
-        if live_rows:
-            ad.telemetry.on_step([r.seq_id for _, r in live_rows], t0,
+        if self.spec_path is not None and spec_rows:
+            stats["spec_steps"] += 1
+            stats["spec_drafted_tokens"] += drafted
+            stats["spec_accepted_tokens"] += accepted
+            ad.telemetry.on_spec_step(spec_rows, t0, padded=pad_to,
+                                      width=spec_W, drafted=drafted,
+                                      accepted=accepted, mode=self.mode)
+        elif spec_rows:
+            ad.telemetry.on_step([s for s, _ in spec_rows], t0,
                                  padded=pad_to)
+        if ctx is not None:
+            n_live = len(live_rows)
+            self.spec_path.feedback(ctx, toks[:n_live, :spec_W],
+                                    n_emit[:n_live])
         return res
 
     # -- dispatch region: no device value is read here ---------------------
-    def _dispatch_ragged(self, ids, pos, slots, bt, wid, emit, rows):
+    def _dispatch_ragged(self, ids, pos, slots, bt, wid, emit, seeds, rows):
         """Issue THE unified dispatch (one per engine step) from the
-        numpy plan, without reading any output. In declared steady state
-        an unexpected graph signature is attributed to the packed rows'
-        request traces (reference path.py:479-488)."""
+        numpy plan (``ids`` a device tensor when drafts were merged),
+        without reading any output. In declared steady state an unexpected
+        graph signature is attributed to the packed rows' request traces
+        (reference path.py:479-488)."""
         ad = self.adapter
         if ad.app._steady_state:
             with ad.app.request_context(
                     self._row_trace(r.seq_id) for r in rows):
-                out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit)
+                out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit,
+                                         row_seeds=seeds)
         else:
-            out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit)
+            out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit,
+                                     row_seeds=seeds)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["ragged_dispatches"] += 1
         ad.host_stats["device_steps"] += 1

@@ -1,8 +1,32 @@
-"""Speculative decoding of the port (counterpart:
-``neuronx_distributed_inference_tpu/serving/speculation/``). Only the
-sampling-mode check the ragged path shares is ported; the proposers and
-the speculative decode path wait (the adapters refuse ``speculation=``)."""
+"""Speculative continuous batching on the paged engine (counterpart:
+``neuronx_distributed_inference_tpu/serving/speculation/``).
 
-from .verifier import validate_spec_sampling
+* :mod:`.proposer` — the draft side: :class:`SelfDraftProposer` (the
+  target model drafts its own continuation through the masked draft loop)
+  and :class:`PerturbedSelfDraftProposer` (a corrupted draft column: a
+  fixed partial accept rate). ``MedusaProposer`` and ``EagleProposer``
+  wait for ``models/speculation.py``.
+* :mod:`.verifier` — :class:`SpeculativeDecodePath`, the engine step:
+  per-row widths on the ``autobucketing.spec_width_buckets`` ladder, one
+  draft pass, ONE verify dispatch with acceptance on the device, KV grown
+  for the window and shrunk to the accepted prefix.
 
-__all__ = ["validate_spec_sampling"]
+Attach by constructing the adapter with ``speculation=``::
+
+    eng = PagedEngineAdapter(app, speculation=SelfDraftProposer(k=3))
+    eng.add_requests([0], [prompt])
+    eng.step()        # -> {0: [t1, t2, t3, t4]} (accepted + bonus)
+
+The delivered tokens are the target's own choices (greedy argmax, or the
+seeded coupled draw), whatever the proposer drafts, so the streams equal
+non-speculative decode; a bad proposer costs acceptance rate only.
+"""
+
+from .proposer import (DraftProposer, PerturbedSelfDraftProposer,
+                       SelfDraftProposer)
+from .verifier import SpeculativeDecodePath, validate_spec_sampling
+
+__all__ = [
+    "DraftProposer", "SelfDraftProposer", "PerturbedSelfDraftProposer",
+    "SpeculativeDecodePath", "validate_spec_sampling",
+]

@@ -10,17 +10,20 @@ a T = 1 step (``models/cuda_graphs.py``), at every batch bucket (both
 ragged paths pad to ``app.batch_buckets``, not only to ``batch_size``) and
 every block-table or KV-view bucket:
 
-  * paged app: the ragged step at W = 1 and the paged step at T = 1 —
-    dummy dispatches that write nothing: every slot is -1 and the table
-    holds only the null block;
+  * paged app: the ragged step at W = 1 and the paged step at T = 1
+    (greedy, or the coupled draw of a ``stream_seed`` config), and with
+    ``spec_widths`` the self-draft loop at every draft count — dummy
+    dispatches that write nothing: every slot is -1 (a draft row of width
+    1 is frozen) and the table holds only the null block;
   * contiguous app: the decode step at each batch bucket (and each KV-view
     bucket where the gather path reads the cache) at positions past the
     cache, which write nothing.
 
-Wider grids (prefill windows and chunks, mixed ragged passes, the fused
-decode loops) run eagerly by design: PyTorch has no per-shape build to
-save there. The plan lists them with the outcome ``eager`` and does not run
-them, and they are never steady-state incidents.
+Wider grids (prefill windows and chunks, mixed ragged passes, speculative
+verify windows, the fused decode loops) run eagerly by design: PyTorch has
+no per-shape build to save there. The plan lists them with the outcome
+``eager`` and does not run them, and they are never steady-state
+incidents.
 
 Each graph's outcome maps onto the reference's three:
 
@@ -48,6 +51,7 @@ the admission headroom; served as ``GET /v1/debug/memory``.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -56,7 +60,6 @@ import torch
 
 from ..models import model_base
 from ..modules import autobucketing
-from ..resilience.errors import ConfigurationError
 from ..telemetry import metrics as tmetrics
 from ..telemetry.registry import NULL_REGISTRY
 from ..telemetry.trace import get_recorder as _get_recorder
@@ -71,11 +74,14 @@ LEDGER_SCHEMA = "nxdi-memory-ledger-v1"
 # ---------------------------------------------------------------------------
 # the warm-up plan
 # ---------------------------------------------------------------------------
-def _paged_plan(app, widths, bt_widths, chunk_tokens) -> List[tuple]:
+def _paged_plan(app, widths, bt_widths, chunk_tokens,
+                spec_widths) -> List[tuple]:
     """(kind, bucket, thunk or None) over every table-width bucket and
     batch bucket: the ragged row ladder (W = 1 captured, wider eager), the
-    paged T = 1 step (two-phase decode, ``generate``) and the eager fused
-    decode loop."""
+    paged T = 1 step (two-phase decode, ``generate``), the eager fused
+    decode loop and, per speculative width w (reference
+    serving/warmup.py:146-160), the draft loop of w - 1 steps (captured)
+    and the verify window (eager)."""
     cfg = app.tpu_config
     if widths is None:
         widths = autobucketing.ragged_row_buckets(app.ctx_buckets,
@@ -101,6 +107,13 @@ def _paged_plan(app, widths, bt_widths, chunk_tokens) -> List[tuple]:
             plan.append(("paged", 1, paged))
             if chunk > 1:
                 plan.append(("paged_loop", chunk, None))
+            for sw in sorted(spec_widths):
+                if sw > 1:
+                    plan.append(("spec_draft", sw - 1, functools.partial(
+                        app._run_spec_draft, np.zeros((b,), np.int32),
+                        np.zeros((b,), np.int32), bt,
+                        np.ones((b,), np.int32), sw - 1)))
+                plan.append(("spec_verify", sw, None))
     return plan
 
 
@@ -142,22 +155,21 @@ def precompile(app, *, registry=None, widths: Optional[Sequence[int]] = None,
     ``registry``: the replica's metrics registry (default: the app's).
     ``widths`` / ``bt_widths`` override the ragged and table-width ladders;
     ``chunk_tokens`` caps the ragged row ladder as the adapter's
-    ``prefill_chunk_tokens`` does. ``spec_widths`` must be empty
-    (speculation is not ported). With ``declare_steady`` the app enters
-    declared steady state afterwards.
+    ``prefill_chunk_tokens`` does. ``spec_widths``: the speculative verify
+    widths (``autobucketing.spec_width_buckets(k + 1)`` for a proposer of
+    k drafts) whose draft loops to capture. With ``declare_steady`` the
+    app enters declared steady state afterwards.
 
     Returns the ``nxdi-warmup-report-v1`` dict (also kept on the app for
     ``/v1/debug/state["warmup"]``)."""
-    if spec_widths:
-        raise ConfigurationError("spec_widths: speculation is not ported "
-                                 "yet (ROADMAP queue item 6)")
     if app.params is None:
         app.init_random_weights()
     if app.cache is None:
         app.init_cache()
     reg = registry if registry is not None else app.telemetry
     if hasattr(app, "_run_ragged"):
-        plan = _paged_plan(app, widths, bt_widths, chunk_tokens)
+        plan = _paged_plan(app, widths, bt_widths, chunk_tokens,
+                           spec_widths)
     else:
         plan = _cb_plan(app)
     on_card = app.device.type == "cuda"

@@ -21,7 +21,9 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "serving.adapter", "serving.ragged", "serving.ragged.planner",
     "serving.ragged.path", "serving.engine", "serving.engine.scheduler",
     "serving.engine.queue", "serving.engine.streams",
-    "serving.speculation.verifier", "telemetry", "telemetry.registry",
+    "serving.speculation", "serving.speculation.verifier",
+    "serving.speculation.proposer", "ops.sampling", "telemetry",
+    "telemetry.registry",
     "telemetry.metrics", "telemetry.spans", "telemetry.trace",
     "telemetry.request_trace", "resilience.faults", "serving.warmup",
     "telemetry.slo", "resilience.controller", "serving.engine.frontend",

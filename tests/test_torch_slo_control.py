@@ -209,10 +209,10 @@ def test_drop_ragged_keeps_greedy_streams_equal_to_jax_engine():
     got = serve(eng)
     assert got == want
     assert ctl.is_active("drop_ragged", "default") and ad.ragged_shed
-    # decode-side burn also enters shed_speculation, which finds no hook
-    # on the port's adapter (speculation is not ported) and does nothing
+    # decode-side burn also enters shed_speculation, which now finds its
+    # hook on the port's adapter (a flag only: no proposer is attached)
     assert ctl.is_active("shed_speculation", "default")
-    assert not hasattr(ad, "set_speculation_shed")
+    assert ad.speculation_shed
     state = eng.debug_state()
     assert state["degradation"]["degraded"] is True
     assert state["slo"]["tenants"]["default"]["ttft"]["n"] == len(subs)
