@@ -11,7 +11,9 @@ nvcc per source, all started together), then:
 
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, whether ``torch.bmm`` takes ``out_dtype`` (the bf16
-     attention cores' fp32-output product), kernel build seconds;
+     attention cores' fp32-output product), whether ``torch._grouped_mm``
+     (the MoE block's ragged product) runs in bf16 and in fp32, kernel
+     build seconds;
   2. each kernel against its plain-PyTorch twin on the card, over the case
      matrix of the TPU kernel's tests, at the serving paths' shapes: the
      paged decode kernel, the contiguous decode kernel and the flash
@@ -112,15 +114,41 @@ nvcc per source, all started together), then:
      perturbed proposer accepts exactly 1 draft per row of every
      full-width step; shed passes make no draft dispatch.
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13 and the fp32 app of 6) turn
-TF32 off inside :func:`fp32_exact`, which restores the previous flags.
+ 14. the MoE group, Qwen3-30B-A3B (48 layers, hidden 2048, 32 q / 4 kv
+     heads: GQA group 8, head_dim 128, 128 experts of which 8 per token,
+     expert width 768, vocab 151936) with random weights from seed 0:
+     (a) the three kernels at that geometry against their twins (the
+     paged kernel at batch 8 over bf16 and fp32 pages, the contiguous
+     decode kernel at batch 4 over S 4096, flash at batch 4, S 2048), each
+     timed beside its twin, SDPA and its bound; (b) ``moe_block`` at full
+     width on 64 tokens (dense path, and ragged forced) and 4096 tokens
+     (ragged), fp32 (TF32 off) and bf16, held to a straightforward fp32
+     loop over each token's selected experts with its own routing, dense
+     and ragged held to each other, and the device time of each path;
+     (c) phase 9's engine, schedule and prompts at full width and depth
+     (61 GB of bf16 weights, built only once earlier groups freed the
+     card) with phase 9's gates (one dispatch and one fetch a pass, paged
+     launches = 48 x all-decode steps, no incident, full streams) and the
+     MoE blocks' share of the traced passes; (d) phase 10 at 4 layers
+     (fp32, TF32 off: ragged == graphs == two-phase == ``generate``) and
+     the bf16 4-layer app's prefill and decode logits against the fp32
+     app; (e) ``TpuQwen3MoeForCausalLM`` at full depth with
+     ``attn_kernel_enabled=True`` after ``precompile`` (64 new tokens, 4
+     prompts): flash launches = 48 x 1 prefill, contiguous-decode
+     launches = 48 x 63 steps, logits against the kernels-off app; then
+     phase 6's checks (against an fp32 app) at an 8-layer cut. Each part
+     prints its peak device memory.
+
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14 and the fp32 app of 6)
+turn TF32 off inside :func:`fp32_exact`, which restores the previous
+flags.
 
 Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app) and then prints no ``ok`` line.
+own app; moe: 14) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -172,6 +200,19 @@ LLAMA_3_1_8B = dict(
                   "original_max_position_embeddings": 8192},
     max_position_embeddings=131072, hidden_act="silu",
     tie_word_embeddings=False)
+# Qwen3-30B-A3B (HF config.json of Qwen/Qwen3-30B-A3B): 48 layers, 128
+# experts of which 8 route per token, every layer MoE
+QWEN3_30B_A3B = dict(
+    model_type="qwen3_moe", hidden_size=2048, intermediate_size=6144,
+    moe_intermediate_size=768, num_hidden_layers=48, num_attention_heads=32,
+    num_key_value_heads=4, head_dim=128, vocab_size=151936,
+    num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+    decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
+    rope_theta=1000000.0, max_position_embeddings=40960, hidden_act="silu",
+    sliding_window=None, tie_word_embeddings=False)
+MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
+#                                and of a mixed pass (8 rows x 512)
+MOE_CONTIG_CHECK_LAYERS = 8    # 14 (e): the cut whose fp32 twin fits
 # phases 9-10: the ragged engine (batch 8, one spare block per row)
 RAGGED = dict(lens=(37, 300, 900, 1900, 123, 640, 1500, 64), seq_len=4096,
               chunk=512, block=32)
@@ -216,6 +257,34 @@ TOL_CONTIG_VS_FP32 = 1.25
 #   closer than this.
 NEAR_TIE = 1e-3
 
+# 14 (b) the MoE layer vs the fp32 loop reference, fp32 with TF32 off:
+#   sums of 2048- and 768-long products taken in another order; their
+#   rounding is ~1e-6 of outputs of |y| < 1 (1e-4 leaves a wide margin and
+#   still catches a wrong affinity, ~1e-2).
+TOL_MOE_FP32 = 1e-4
+# bf16: each product output, the GLU and y round at 2^-9 relative (about
+#   four roundings: relative RMS ~sqrt(4) x 2^-9 = 4e-3); 2e-2 is 5x that,
+#   while one of a token's 8 experts dropped or misweighted moves it by
+#   more than 0.2.
+TOL_MOE_BF16_REL = 2e-2
+# the loop reference routes on its own (torch.topk); a token whose 8th and
+#   9th expert probabilities are closer than this may pick either.
+NEAR_TIE_ROUTER = 1e-6
+# 14 (d) the bf16 4-layer app vs the fp32 app on the same weights: the
+#   residual stream and every product round at 2^-9 over 4 layers (~1-2%
+#   relative RMS of the logits); an expert near-tie flipped by that
+#   rounding moves one token; 5e-2 bounds both, a wrong expert or head
+#   leaves the logits uncorrelated (relative RMS ~1.4).
+TOL_MOE_LOGITS_REL = 5e-2
+# 14 (e) at full depth, the kernel app vs the kernels-off app, both bf16:
+#   they round attention differently (probabilities bf16 vs fp32), the
+#   router flips near-tie experts on those differences, and both compound
+#   over 48 layers: relative RMS 0.0165 measured (NVIDIA H100 80GB HBM3,
+#   700 W); 0.1 leaves 6x, while uncorrelated logits (a wrong head, a
+#   wrong key) sit near 1.4. Phase 6's rule against an fp32 app runs at
+#   the 8-layer cut.
+TOL_MOE_CONTIG_DIRECT = 0.1
+
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -251,6 +320,26 @@ def bmm_out_dtype_available() -> bool:
     except (TypeError, RuntimeError, NotImplementedError):
         return False
     return out.dtype == torch.float32 and float(out[0, 0, 0]) == 2.0
+
+
+def grouped_mm_available():
+    """Whether this torch runs ``torch._grouped_mm`` (the MoE block's
+    ragged product) on the card, per dtype, with a per-group loop's
+    answer on two groups (one empty)."""
+    import torch
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.ones((4, 16), dtype=dt, device="cuda")
+        w = torch.ones((3, 16, 8), dtype=dt, device="cuda")
+        ends = torch.tensor([1, 1, 4], dtype=torch.int32, device="cuda")
+        try:
+            y = torch._grouped_mm(a, w, offs=ends)
+        except (AttributeError, TypeError, RuntimeError,
+                NotImplementedError):
+            out[str(dt).replace("torch.", "")] = False
+            continue
+        out[str(dt).replace("torch.", "")] = bool((y.float() == 16).all())
+    return out
 
 
 def nvidia_smi() -> str:
@@ -708,8 +797,9 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
         OnDeviceSamplingConfig, TpuConfig)
     from neuronx_distributed_inference_tpu_torch.models.application import \
         PagedCausalLMApplication
-    from neuronx_distributed_inference_tpu_torch.models.llama import (
-        LlamaFamily, LlamaInferenceConfig)
+    from neuronx_distributed_inference_tpu_torch.models.family import \
+        get_family
+    family = get_family(hf["model_type"])
     tcfg = TpuConfig(batch_size=batch, seq_len=seq_len, dtype=dtype,
                      is_block_kv_layout=True, pa_block_size=32,
                      pa_num_blocks=num_blocks,
@@ -719,9 +809,8 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      on_device_sampling_config=(
                          OnDeviceSamplingConfig(**sampling) if sampling
                          else None))
-    app = PagedCausalLMApplication(None, LlamaInferenceConfig(tcfg, **hf),
-                                   LlamaFamily, device=device,
-                                   cuda_graphs=graphs)
+    app = PagedCausalLMApplication(None, family.config_cls(tcfg, **hf),
+                                   family, device=device, cuda_graphs=graphs)
     return app.init_cache()
 
 
@@ -1090,23 +1179,25 @@ def paged_kernel_entry(t, launches, path):
 
 def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                         output_logits=False, cb=False, decode_kernel=None):
-    """``CausalLMApplication`` over the Mistral family. kernels=True: the
-    flash prefill kernel (``attn_kernel_enabled``) and the decode kernel by
-    default admission (``decode_kernel`` False: the decode kernel off);
-    False: both off (mha prefill, gather decode)."""
+    """``CausalLMApplication`` over the family of ``hf["model_type"]``
+    (what the family's ``Tpu*ForCausalLM`` entry builds). kernels=True:
+    the flash prefill kernel (``attn_kernel_enabled``) and the decode
+    kernel by default admission (``decode_kernel`` False: the decode
+    kernel off); False: both off (mha prefill, gather decode)."""
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         CausalLMApplication
-    from neuronx_distributed_inference_tpu_torch.models.mistral import (
-        MistralFamily, MistralInferenceConfig)
+    from neuronx_distributed_inference_tpu_torch.models.family import \
+        get_family
+    family = get_family(hf["model_type"])
     tcfg = TpuConfig(batch_size=batch, seq_len=seq_len, dtype=dtype,
                      attn_kernel_enabled=kernels,
                      attn_block_tkg_kernel_enabled=(decode_kernel if kernels
                                                     else False),
                      rolling_kv_cache=False, output_logits=output_logits,
                      is_continuous_batching=cb)
-    app = CausalLMApplication(None, MistralInferenceConfig(tcfg, **hf),
-                              MistralFamily, device=device)
+    app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
+                              device=device)
     return app.init_cache()
 
 
@@ -1144,7 +1235,7 @@ def phase_contiguous(hf, device, phase: str):
     gen = out["generated"]
     emit({"phase": phase, "generate_s": gen_s, "launches": counts,
           "expected_launches": want, "decode_steps": decode_steps,
-          "prefill_calls": 1, "sliding_window": hf["sliding_window"],
+          "prefill_calls": 1, "sliding_window": hf.get("sliding_window"),
           "layers": layers, "graphs": graph_report(app),
           "generated_shape": list(gen.shape)})
     check_no_incidents(phase, app)
@@ -1567,9 +1658,13 @@ def profile_summary(recs, kind):
 
 
 def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
-                         on_card=True):
-    """Phase 9: the ragged engine at full width and depth, bf16. Returns
-    (app, prompts, kernel entries) for phase 11."""
+                         on_card=True, phase="ragged_serving",
+                         fp32_gemm_ms=0.0, before_pass=None):
+    """Phase 9 (and 14 (c) as ``phase="moe_serving"``): the ragged engine
+    at full width and depth, bf16. ``fp32_gemm_ms``: the fp32 GEMM time a
+    traced mixed pass may take (0 for a dense model; the MoE router is
+    fp32 by design); ``before_pass(p)`` runs before pass ``p``. Returns
+    (app, prompts, kernel entries, per-pass records)."""
     import numpy as np
     import torch
     app = make_ragged_app(hf, device, "bfloat16", cfg)
@@ -1577,12 +1672,16 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in cfg["lens"]]
-    warm(app, "ragged_serving", chunk_tokens=cfg["chunk"])
+    warm(app, phase, chunk_tokens=cfg["chunk"])
     eng = ragged_engine(app, True, cfg)
     ad = eng.adapter
     snap = {}
 
+    passes = iter(range(1 << 30))
+
     def snapshot():
+        if before_pass is not None:
+            before_pass(next(passes))
         # the served cache's decode shapes, while all 8 rows are live
         if len(ad.seqs) == len(prompts) and not ad.pending_prefill_ids:
             live = sorted(ad.seqs)
@@ -1605,11 +1704,11 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                                          profile, snapshot)
     launches = kernel_counts([app])["paged_decode_attention"]
     layers = hf["num_hidden_layers"]
-    decode_steps, want = check_ragged_passes("ragged_serving", recs,
-                                             launches, layers)
+    decode_steps, want = check_ragged_passes(phase, recs, launches,
+                                             layers)
     want = want if on_card else 0
     st = ad.host_stats
-    emit({"phase": "ragged_serving", "layers": layers,
+    emit({"phase": phase, "layers": layers,
           "requests": len(prompts), "prompt_lens": list(cfg["lens"]),
           "new_tokens": new_tokens, "passes": len(recs),
           "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
@@ -1625,27 +1724,28 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
           / max(st["ragged_padded_tokens"], 1),
           "graphs": graph_report(app) if app.graphs is not None else None,
           "host_stats": st})
-    emit({"phase": "ragged_profile_decode", **profile_summary(recs,
-                                                              "decode")})
+    emit({"phase": phase + "_profile_decode",
+          **profile_summary(recs, "decode")})
     mixed = profile_summary(recs, "mixed")
-    emit({"phase": "ragged_profile_mixed", **mixed})
-    check_no_incidents("ragged_serving", app)
+    emit({"phase": phase + "_profile_mixed", **mixed})
+    check_no_incidents(phase, app)
     if launches != want:
-        raise AssertionError(f"ragged_serving: paged kernel launches "
+        raise AssertionError(f"{phase}: paged kernel launches "
                              f"{launches} != {layers} x {decode_steps} "
                              "all-decode ragged steps")
-    check_streams("ragged_serving", streams, new_tokens, hf["vocab_size"])
-    fp32_gemms = [k for k, _ in mixed.get("top_kernels_ms_per_pass", ())
-                  if "f32f32" in k]
-    if fp32_gemms:
-        raise AssertionError(f"ragged_serving: the mixed pass still runs "
-                             f"fp32 x fp32 GEMMs {fp32_gemms}")
+    check_streams(phase, streams, new_tokens, hf["vocab_size"])
+    fp32_gemms = [(k, ms) for k, ms in mixed.get("top_kernels_ms_per_pass",
+                                                 ()) if "f32f32" in k]
+    if sum(ms for _, ms in fp32_gemms) > fp32_gemm_ms:
+        raise AssertionError(f"{phase}: the mixed pass runs fp32 x fp32 "
+                             f"GEMMs {fp32_gemms} (allowed: {fp32_gemm_ms} "
+                             "ms)")
     if not on_card:
-        return app, prompts, []
+        return app, prompts, [], recs
     t = time_paged_kernel(app, snap["table"], snap["pos"], device, seed=9)
-    emit({"phase": "ragged_kernel_timings", **t["report"],
+    emit({"phase": phase + "_kernel_timings", **t["report"],
           "launches": launches})
-    return app, prompts, [paged_kernel_entry(t, launches, "ragged_serving")]
+    return app, prompts, [paged_kernel_entry(t, launches, phase)], recs
 
 
 async def _sse_generate(host, port, i, prompt, new_tokens):
@@ -1820,11 +1920,12 @@ def phase_front_door(hf, device, app, prompts, cfg=RAGGED,
 
 
 def phase_ragged_fp32(hf, device, cfg=RAGGED,
-                      new_tokens=RAGGED_CHECK_TOKENS, on_card=True):
-    """Phase 10: eager ragged vs graph ragged vs two-phase engine vs
-    ``generate``, fp32, TF32 off."""
+                      new_tokens=RAGGED_CHECK_TOKENS, on_card=True,
+                      phase="ragged_fp32"):
+    """Phase 10 (and 14 (d) as ``phase="moe_fp32"``): eager ragged vs
+    graph ragged vs two-phase engine vs ``generate``, fp32, TF32 off."""
     with fp32_exact():
-        _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card)
+        _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card, phase)
 
 
 def _ragged_run(phase, app, prompts, new_tokens, cfg, sync, layers,
@@ -1848,7 +1949,7 @@ def _ragged_run(phase, app, prompts, new_tokens, cfg, sync, layers,
     return streams, recs, launches, decode_steps
 
 
-def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card):
+def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card, phase):
     import numpy as np
     import torch
     app = make_ragged_app(hf, device, "float32", cfg, graphs=False)
@@ -1859,12 +1960,12 @@ def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     layers = hf["num_hidden_layers"]
     streams, recs, launches, decode_steps = _ragged_run(
-        "ragged_fp32", app, prompts, new_tokens, cfg, sync, layers, on_card)
+        phase, app, prompts, new_tokens, cfg, sync, layers, on_card)
     ragged = [np.asarray(s.tokens) for s in streams]
     # the same schedule on a precompiled app: all-decode passes replay
     gapp = make_ragged_app(hf, device, "float32", cfg)
     gapp.params = app.params
-    warm(gapp, "ragged_fp32_graphs", chunk_tokens=cfg["chunk"])
+    warm(gapp, phase + "_graphs", chunk_tokens=cfg["chunk"])
     snap = {}
 
     def snapshot_of(ad):
@@ -1881,15 +1982,15 @@ def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card):
                 [ad.seqs[s].last_token for s in live])
         return snapshot
     g_streams, g_recs, g_launches, g_steps = _ragged_run(
-        "ragged_fp32_graphs", gapp, prompts, new_tokens, cfg, sync, layers,
+        phase + "_graphs", gapp, prompts, new_tokens, cfg, sync, layers,
         on_card, snapshot_of)
-    check_no_incidents("ragged_fp32_graphs", gapp)
+    check_no_incidents(phase + "_graphs", gapp)
     graphs = [np.asarray(s.tokens) for s in g_streams]
     two = make_ragged_app(hf, device, "float32", cfg)
     two.params = app.params
     two_streams, _, _ = serve_schedule(ragged_engine(two, False, cfg),
                                        prompts, new_tokens, sync)
-    check_streams("ragged_fp32_two_phase", two_streams, new_tokens,
+    check_streams(phase + "_two_phase", two_streams, new_tokens,
                   hf["vocab_size"])
     del two
     ref = make_ragged_app(hf, device, "float32", cfg, batch=1,
@@ -1902,7 +2003,7 @@ def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card):
         ref.reset()
         runs = (("ragged", ragged[i]), ("graphs", graphs[i]),
                 ("two_phase", np.asarray(two_streams[i].tokens)))
-        cases = [near_tie_check(f"ragged_fp32_{name}_near_tie", i, got,
+        cases = [near_tie_check(f"{phase}_{name}_near_tie", i, got,
                                 want_i, len(prompt))
                  for name, got in runs]
         # the runs agree with each other up to where one of them leaves
@@ -1911,13 +2012,13 @@ def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card):
         for name, got in runs[1:]:
             diff = np.nonzero(ragged[i] != got)[0]
             if diff.size and (not first or int(diff[0]) < min(first)):
-                raise AssertionError(f"ragged_fp32: stream {i} ragged and "
+                raise AssertionError(f"{phase}: stream {i} ragged and "
                                      f"{name} differ at step "
                                      f"{int(diff[0])}")
         near_ties += [c for c in cases if c]
     step = check_captured_step(hf, device, cfg, app, gapp, snap["rows"],
                                on_card)
-    emit({"phase": "ragged_fp32", "layers": layers,
+    emit({"phase": phase, "layers": layers,
           "requests": len(prompts), "new_tokens": new_tokens,
           "passes": len(recs), "launches": launches,
           "expected_launches": layers * decode_steps if on_card else 0,
@@ -2402,7 +2503,609 @@ def _phase_spec_fp32(hf, device, cfg, new_tokens, on_card):
             torch.cuda.empty_cache()
 
 
-GROUPS = ("kernels", "paged", "contig", "ragged", "spec")
+# ---------------------------------------------------------------------------
+# Phase 14: the MoE group, Qwen3-30B-A3B
+# ---------------------------------------------------------------------------
+
+def free_card():
+    """Collect the apps an earlier part dropped (an app and its graphs
+    hold reference cycles, so ``del`` alone may leave their tensors
+    allocated), drop cuBLAS's per-stream workspaces (every timing and
+    capture stream got one) and return the cached blocks to the card."""
+    import gc
+
+    import torch
+    gc.collect()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def memory_note(phase):
+    """The phase's peak device memory since the last reset, then reset."""
+    import torch
+    emit({"phase": phase + "_memory",
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    torch.cuda.reset_peak_memory_stats()
+
+
+def time_events(fn, calls: int = 10, reps: int = 5) -> float:
+    """ms per call of ``fn`` called eagerly ``calls`` times between two
+    CUDA events (median of ``reps``): device time while the host keeps
+    ahead of the card, host time when it does not."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def timed_kernel(call, plain, sdpa, bounds, err, shape, plain_calls=20,
+                 calls=100, reps=7):
+    """One kernel's numbers at one shape: CUDA-graph replay time of the
+    kernel, its twin and the SDPA yardstick, and the bound."""
+    bound_ms, bound_by = bounds
+    ms = time_cuda(call, calls=calls, reps=reps)
+    return {"ms": ms, "plain_ms": time_cuda(plain, calls=plain_calls,
+                                            reps=min(reps, 3)),
+            "library_ms": time_cuda(sdpa, calls=calls, reps=reps),
+            "bound_ms": bound_ms, "bound_by": bound_by, "err": err,
+            "shape": shape}
+
+
+def phase_moe_kernels(device):
+    with fp32_exact():
+        return _phase_moe_kernels(device)
+
+
+def _phase_moe_kernels(device):
+    """14 (a): the three kernels at the Qwen3-30B-A3B geometry (Hq 32 over
+    Hkv 4: GQA group 8, D 128), each against its twin at the tolerances
+    of phase 2, then timed (bf16) beside its twin, SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    spec = QWEN3_30B_A3B
+    hq, hkv = spec["num_attention_heads"], spec["num_key_value_heads"]
+    d = spec["head_dim"]
+    scale = d ** -0.5
+    gen = torch.Generator(device=device).manual_seed(11)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def gate(kernel, case, err, tol):
+        emit({"phase": "moe_kernel_vs_twin", "kernel": kernel, "case": case,
+              "geometry": {"Hq": hq, "Hkv": hkv, "D": d},
+              "max_abs_err": err, "tol": tol})
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {case} at G = {hq // hkv}: "
+                                 f"max abs err {err} > {tol}")
+
+    # the paged kernel: batch 8 at phase 9's lens mid-run (prompt + 24)
+    lens = [n + RAGGED_TOKENS // 2 for n in RAGGED["lens"]]
+    for tag, dt, tol in (("bf16", bf16, TOL_KERNEL_BF16),
+                         ("fp32", fp32, TOL_KERNEL_FP32)):
+        x = paged_inputs(gen, device, b=8, hq=hq, hkv=hkv, d=d, bs=32,
+                         mb=64, lens=lens, act_dtype=dt, page_dtype=dt)
+        err = check_kernel_against_twin(x, dict(scale=scale))
+        gate("paged_decode_attention", "qwen3_30b_a3b_" + tag, err, tol)
+        args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"],
+                0, x["lens"], x["block_table"])
+        q4, k4, v4, m4 = sdpa_inputs(x, 0)
+        out["paged_" + tag] = timed_kernel(
+            lambda: decode_attention.paged_decode_attention(*args,
+                                                            scale=scale),
+            lambda: decode_attention.paged_decode_attention_plain(
+                *args, scale=scale),
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+            kernel_bounds(x), err, {"B": 8, "Hq": hq, "Hkv": hkv, "D": d,
+                                    "Bs": 32, "lens": lens,
+                                    "page_dtype": tag})
+        del x, q4, k4, v4
+    # the contiguous decode kernel: batch 4 over S 4096 at phase 6's lens
+    # after its last decode step (14 (e)), and the edge lens in fp32
+    for tag, dt, tol, lens_c in (
+            ("bf16", bf16, TOL_KERNEL_BF16,
+             [n + NEW_TOKENS - 1 for n in MISTRAL_LENS]),
+            ("fp32", fp32, TOL_KERNEL_FP32, [0, 517, 2048, 4095])):
+        x = contiguous_inputs(gen, device, b=4, hq=hq, hkv=hkv, d=d,
+                              s=MISTRAL_SEQ, lens=lens_c, act_dtype=dt,
+                              cache_dtype=dt)
+        kw = dict(scale=scale)
+        err = check_decode_against_twin(x, kw)
+        gate("decode_attention_stacked", "qwen3_30b_a3b_" + tag, err, tol)
+        if tag == "bf16":
+            args, kw = decode_args(x, kw)
+            q4, kk, vv, m4 = contiguous_sdpa_inputs(x, 0)
+            out["decode"] = timed_kernel(
+                lambda: decode_attention.decode_attention_stacked(*args,
+                                                                  **kw),
+                lambda: decode_attention.decode_attention_stacked_plain(
+                    *args, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q4, kk, vv, attn_mask=m4, scale=scale,
+                    enable_gqa=True),
+                decode_bounds(x), err, {"B": 4, "Hq": hq, "Hkv": hkv,
+                                        "D": d, "S": MISTRAL_SEQ,
+                                        "lens": lens_c}, plain_calls=10)
+            del q4, kk, vv
+        del x
+    # the flash kernel: batch 4 at the 2048 bucket (14 (e)'s prefill)
+    for tag, dt, s, tol in (("bf16", bf16, 2048, tol_flash_bf16),
+                            ("fp32", fp32, 512, TOL_KERNEL_FP32)):
+        fq, fk, fv = (torch.randn((4, s, h, d), generator=gen,
+                                  device=device).to(dt)
+                      for h in (hq, hkv, hkv))
+        kw = dict(scale=scale)
+        err = check_flash_against_twin(dict(q=fq, k=fk, v=fv), kw)
+        gate("flash_attention", f"qwen3_30b_a3b_s{s}_{tag}", err,
+             tol(dict(v=fv)) if callable(tol) else tol)
+        if tag == "bf16":
+            tq, tk, tv = (t.transpose(1, 2).contiguous()
+                          for t in (fq, fk, fv))
+            out["flash"] = timed_kernel(
+                lambda: flash_attention.flash_attention(fq, fk, fv, **kw),
+                lambda: flash_attention.flash_attention_plain(fq, fk, fv,
+                                                              **kw),
+                lambda: F.scaled_dot_product_attention(
+                    tq, tk, tv, is_causal=True, scale=scale,
+                    enable_gqa=True),
+                flash_bounds(fq, fk), err, {"B": 4, "S": s, "Hq": hq,
+                                            "Hkv": hkv, "D": d},
+                plain_calls=2, calls=5, reps=5)
+            del tq, tk, tv
+        del fq, fk, fv
+    for name, t in out.items():
+        emit({"phase": "moe_kernel_timings", "kernel": name,
+              "kernel_us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
+              "bound_by": t["bound_by"], "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3,
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    # comparison launches are not main-path launches
+    reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_weights(device, dtype, seed):
+    """One Qwen3-30B-A3B MoE layer at full width: an fp32 router (H, E)
+    and bf16 experts (E, H, I) / (E, I, H), normal(0, 0.02), from
+    ``seed``; ``dtype`` fp32 upcasts the same experts."""
+    import torch
+    h, e = QWEN3_30B_A3B["hidden_size"], QWEN3_30B_A3B["num_experts"]
+    i = QWEN3_30B_A3B["moe_intermediate_size"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, dt=torch.bfloat16):
+        return torch.empty(shape, dtype=dt, device=device).normal_(
+            0.0, 0.02, generator=gen)
+    w = {"router": draw(h, e, dt=torch.float32),
+         "expert_gate": draw(e, h, i), "expert_up": draw(e, h, i),
+         "expert_down": draw(e, i, h)}
+    return {k: (v if k == "router" else v.to(dtype)) for k, v in w.items()}
+
+
+def moe_loop_reference(moe, x, w):
+    """A straightforward fp32 MoE of every token, independent of
+    ``modules/moe.py``: its own routing (softmax over the fp32 logits,
+    ``torch.topk``, renormalised), then each token's selected experts'
+    GLUs summed with its affinities, walked expert by expert (each over
+    the tokens that chose it). Returns (y (N, H) fp32, the (N, k) expert
+    ids, the sorted probabilities)."""
+    import torch
+    import torch.nn.functional as F
+    xf = x.reshape(-1, x.shape[-1]).float()
+    probs = torch.softmax(xf @ w["router"].float(), dim=-1)
+    vals, idx = torch.topk(probs, moe.top_k, dim=-1)
+    vals = vals / vals.sum(dim=-1, keepdim=True)
+    y = torch.zeros_like(xf)
+    for e in range(moe.num_experts):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        h = xf[tok]
+        o = (F.silu(h @ w["expert_gate"][e].float())
+             * (h @ w["expert_up"][e].float())) @ w["expert_down"][e].float()
+        y.index_add_(0, tok, o * vals[tok, slot, None])
+    return y, idx, torch.sort(probs, dim=-1, descending=True).values
+
+
+def rel_rms(a, b) -> float:
+    """||a - b|| / ||b|| over all elements, in fp64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_moe_layer(device):
+    """14 (b): ``moe_block`` at full width (E 128, k 8, I 768, H 2048) on
+    64 tokens (the dense path, and the ragged path forced) and 4096
+    tokens (the ragged path), in fp32 (TF32 off) and bf16, held to
+    :func:`moe_loop_reference`; dense and ragged held to each other on the
+    same 64 tokens; device times of each path. Returns the times."""
+    import dataclasses
+
+    import torch
+    from neuronx_distributed_inference_tpu_torch.modules import moe as tmoe
+    cfg = QWEN3_30B_A3B
+    moe = tmoe.MoESpec(num_experts=cfg["num_experts"],
+                       top_k=cfg["num_experts_per_tok"],
+                       intermediate_size=cfg["moe_intermediate_size"])
+    ragged = dataclasses.replace(moe, dense_max_tokens=0)
+    h = cfg["hidden_size"]
+    gen = torch.Generator(device=device).manual_seed(12)
+    xs = {n: torch.randn((n // 8, 8, h), generator=gen, device=device)
+          for n in MOE_TOKENS}
+    times = {}
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        w = moe_layer_weights(device, dt, seed=13)
+        with (fp32_exact() if dt == torch.float32
+              else contextlib.nullcontext()):
+            for n, x in xs.items():
+                x = x.to(dt)
+                ref, ref_idx, sorted_p = moe_loop_reference(moe, x, w)
+                _, idx = tmoe.route(moe, x, w["router"])
+                idx = idx.reshape(-1, moe.top_k)
+                same = (torch.sort(idx, -1).values
+                        == torch.sort(ref_idx, -1).values).all(-1)
+                gap = sorted_p[:, moe.top_k - 1] - sorted_p[:, moe.top_k]
+                flips = ~same
+                if bool((gap[flips] > NEAR_TIE_ROUTER).any()):
+                    raise AssertionError(f"moe_layer {tag} {n}: routing "
+                                         "differs from the reference away "
+                                         "from a near-tie")
+                runs = {"ragged": ragged} if n > moe.dense_max_tokens else {
+                    "dense": moe, "ragged": ragged}
+                got = {}
+                for path, spec in runs.items():
+                    y = tmoe.moe_block(spec, x, w).reshape(-1, h).float()
+                    if not torch.isfinite(y).all():
+                        raise AssertionError(f"moe_layer: non-finite {path}")
+                    got[path] = y
+                    errs = {"max_abs_err": float(
+                        (y - ref)[same].abs().max()),
+                        "rel_rms": rel_rms(y[same], ref[same])}
+                    emit({"phase": "moe_layer", "dtype": tag, "tokens": n,
+                          "path": path, **errs,
+                          "routing_near_ties": int(flips.sum()),
+                          "ref_abs_max": float(ref.abs().max())})
+                    bad = (errs["max_abs_err"] > TOL_MOE_FP32 if tag == "fp32"
+                           else errs["rel_rms"] > TOL_MOE_BF16_REL)
+                    if bad:
+                        raise AssertionError(
+                            f"moe_layer {tag} {n} {path}: {errs} (tol "
+                            f"{TOL_MOE_FP32} abs fp32, {TOL_MOE_BF16_REL} "
+                            "relative RMS bf16)")
+                if len(got) == 2:
+                    d = {"max_abs_diff": float((got["dense"]
+                                                - got["ragged"]).abs().max()),
+                         "rel_rms": rel_rms(got["dense"], got["ragged"])}
+                    emit({"phase": "moe_layer_dense_vs_ragged", "dtype": tag,
+                          "tokens": n, **d})
+                    bad = (d["max_abs_diff"] > TOL_MOE_FP32 if tag == "fp32"
+                           else d["rel_rms"] > TOL_MOE_BF16_REL)
+                    if bad:
+                        raise AssertionError(f"moe_layer {tag}: dense and "
+                                             f"ragged paths differ: {d}")
+        if tag == "bf16":
+            small, big = MOE_TOKENS
+            x8 = xs[small][:, :1].to(dt).contiguous()   # (8, 1, H): decode
+            xs_dt = {n: x.to(dt) for n, x in xs.items()}
+            times = {
+                "dense_8_tokens_ms": time_cuda(
+                    lambda: tmoe.moe_block(moe, x8, w), calls=20),
+                f"dense_{small}_tokens_ms": time_cuda(
+                    lambda: tmoe.moe_block(moe, xs_dt[small], w), calls=20),
+                f"ragged_{small}_tokens_eager_ms": time_events(
+                    lambda: tmoe.moe_block(ragged, xs_dt[small], w)),
+                f"ragged_{big}_tokens_eager_ms": time_events(
+                    lambda: tmoe.moe_block(moe, xs_dt[big], w)),
+            }
+            e, i = moe.num_experts, moe.intermediate_size
+            emit({"phase": "moe_layer_timings", **times,
+                  "dense_bytes_bound_ms": 3 * e * h * i * 2
+                  / HBM_BYTES_PER_S * 1e3,
+                  f"ragged_{big}_ops_bound_ms": 3 * 2 * big * moe.top_k
+                  * h * i / PEAK_FLOPS["bfloat16"] * 1e3})
+        del w
+        torch.cuda.empty_cache()
+    return times
+
+
+class MoETimer:
+    """CUDA events around every eager ``moe_block`` call (router, experts
+    and combine of one layer), grouped by engine pass. Graph replays run
+    no Python and record nothing; nothing is recorded while a graph is
+    being captured."""
+
+    def __init__(self):
+        self.spans = {}
+        self.current = None
+
+    def __enter__(self):
+        import torch
+        from neuronx_distributed_inference_tpu_torch.modules import moe
+        self._moe, self._orig = moe, moe.moe_block
+
+        def timed(*a, **k):
+            if (self.current is None
+                    or torch.cuda.is_current_stream_capturing()):
+                return self._orig(*a, **k)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*a, **k)
+            end.record()
+            self.spans.setdefault(self.current, []).append((start, end))
+            return out
+        moe.moe_block = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_block = self._orig
+
+    def before_pass(self, p):
+        self.current = p
+
+    def ms(self, p) -> float:
+        spans = self.spans.get(p, ())
+        for _, end in spans:
+            end.synchronize()
+        return sum(s.elapsed_time(e) for s, e in spans)
+
+
+def phase_moe_serving(device, layer_times):
+    """14 (c): the ragged engine serving Qwen3-30B-A3B at full width and
+    depth, bf16, phase 9's schedule; the MoE blocks' share of each traced
+    mixed pass (CUDA events around each eager block) and, for the
+    all-decode passes (graph replays), 14 (b)'s dense 8-token block x
+    layers over the pass's device time. Returns the paged kernel's
+    entry."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.warmup import \
+        memory_ledger
+    cfg = QWEN3_30B_A3B
+    check_card_empty("moe_serving")
+    layers = cfg["num_hidden_layers"]
+    # the fp32 router's GEMM per mixed pass (8 x 512 rows x H x E x
+    # layers) at the fp32 peak, times 4 for a CUDA-core kernel's reach;
+    # an fp32 attention or expert product is 100x that
+    router_ms = (4 * 2 * 8 * RAGGED["chunk"] * cfg["hidden_size"]
+                 * cfg["num_experts"] * layers / PEAK_FLOPS["float32"] * 1e3)
+    with MoETimer() as timer:
+        app, _, entries, recs = phase_ragged_serving(
+            cfg, device, cfg=RAGGED, on_card=device.type == "cuda",
+            phase="moe_serving", fp32_gemm_ms=router_ms,
+            before_pass=timer.before_pass)
+        timer.current = None
+        mixed = []
+        for r in recs:
+            if r["traced"] and r["kind"] == "mixed":
+                busy = sum(r["device"].values())
+                moe_ms = timer.ms(r["pass"])
+                mixed.append({"pass": r["pass"], "moe_ms": moe_ms,
+                              "device_busy_ms": busy,
+                              "moe_share": moe_ms / busy if busy else None})
+    decode = [sum(r["device"].values()) for r in recs
+              if r["traced"] and r["kind"] == "decode"]
+    per_decode = statistics.fmean(decode) if decode else None
+    dense = layer_times.get("dense_8_tokens_ms")
+    ledger = memory_ledger(PagedEngineAdapter(app, ragged=True))
+    emit({"phase": "moe_serving_moe_share", "mixed_passes": mixed,
+          "decode_device_ms_per_pass": per_decode,
+          "decode_moe_ms_est": dense * layers if dense else None,
+          "decode_moe_share_est": (dense * layers / per_decode
+                                   if dense and per_decode else None),
+          "ledger_model_gb": ledger["model_bytes"] / 1e9,
+          "ledger_kv_pool_gb": ledger["kv"]["pool_bytes"] / 1e9})
+    memory_note("moe_serving")
+    del app
+    free_card()
+    return entries
+
+
+def check_card_empty(phase):
+    """Before a 61 GB app: what earlier parts left on the card must be
+    below 2 GiB, less than the smallest app of the script (Llama-3.2-1B,
+    2.5 GB of weights), so no earlier app is still alive."""
+    import torch
+    free_card()
+    base = torch.cuda.memory_allocated()
+    emit({"phase": phase + "_start", "memory_allocated_gb": base / 1e9})
+    if base > 2 ** 31:
+        raise AssertionError(f"{phase}: {base / 1e9:.2f} GB still "
+                             "allocated before the 61 GB app is built")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_moe_bf16_vs_fp32(hf, device):
+    """14 (d), second half: the bf16 4-layer paged app's prefill and
+    decode logits against an fp32 app on the same (upcast) weights, fed
+    the bf16 app's tokens: relative RMS error within TOL_MOE_LOGITS_REL."""
+    import numpy as np
+    import torch
+    lens = RAGGED["lens"][:4]
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=3)
+    app = make_ragged_app(hf, device, "bfloat16", RAGGED, batch=len(lens),
+                          output_logits=True, graphs=False)
+    app.init_random_weights(0)
+    out = app.generate(ids, attention_mask=mask,
+                       max_new_tokens=RAGGED_CHECK_TOKENS, return_logits=True)
+    ref = make_ragged_app(hf, device, "float32", RAGGED, batch=len(lens),
+                          output_logits=True, graphs=False)
+    ref.params = _upcast(app.params)
+    del app
+    torch.cuda.empty_cache()
+    with fp32_exact():
+        want = ref.generate(ids, attention_mask=mask,
+                            max_new_tokens=RAGGED_CHECK_TOKENS,
+                            return_logits=True,
+                            teacher_tokens=out["generated"][:, :-1])
+    del ref
+    torch.cuda.empty_cache()
+    real = np.arange(out["logits"][0].shape[1])[None, :] < np.asarray(
+        lens)[:, None]
+    got = [out["logits"][0][real]] + out["logits"][1:]
+    ref_l = [want["logits"][0][real]] + want["logits"][1:]
+    if not all(np.isfinite(a).all() for a in got):
+        raise AssertionError("moe_bf16_vs_fp32: non-finite bf16 logits")
+    num = sum(float(np.square(a.astype(np.float64) - b).sum())
+              for a, b in zip(got, ref_l))
+    den = sum(float(np.square(b.astype(np.float64)).sum()) for b in ref_l)
+    rel = (num / den) ** 0.5
+    pre = float(np.abs(got[0] - ref_l[0]).max())
+    dec = max(float(np.abs(a - b).max()) for a, b in zip(got[1:], ref_l[1:]))
+    emit({"phase": "moe_bf16_vs_fp32", "layers": hf["num_hidden_layers"],
+          "prompt_lens": list(lens), "decode_steps": len(got) - 1,
+          "rel_rms": rel, "prefill_max_abs": pre, "decode_max_abs": dec,
+          "fp32_logit_std": float(np.std(ref_l[1])),
+          "tol_rel_rms": TOL_MOE_LOGITS_REL})
+    if not rel <= TOL_MOE_LOGITS_REL:
+        raise AssertionError(f"moe_bf16_vs_fp32: relative RMS {rel} > "
+                             f"{TOL_MOE_LOGITS_REL}")
+
+
+def phase_moe_contiguous(hf, device, kernel_times):
+    """14 (e): ``TpuQwen3MoeForCausalLM`` at full width and depth, bf16,
+    ``attn_kernel_enabled=True``, after ``precompile``: 64 new tokens for
+    phase 6's 4 prompts; flash launches = layers x 1 prefill and
+    contiguous-decode launches (replays counted) = layers x 63 steps; the
+    logits against the same app with both kernels off fed the same tokens
+    (relative RMS within TOL_MOE_CONTIG_DIRECT). Phase 6's rule against
+    an fp32 app runs at MOE_CONTIG_CHECK_LAYERS layers, the deepest cut
+    whose fp32 copy fits beside the bf16 app. Returns the decode and flash
+    entries of the kernels line (14 (a)'s times, this run's launches)."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+    from neuronx_distributed_inference_tpu_torch.models.qwen3_moe import (
+        Qwen3MoeInferenceConfig, TpuQwen3MoeForCausalLM)
+    layers = hf["num_hidden_layers"]
+    b = len(MISTRAL_LENS)
+    check_card_empty("moe_contiguous")
+    tcfg = TpuConfig(batch_size=b, seq_len=MISTRAL_SEQ, dtype="bfloat16",
+                     attn_kernel_enabled=True, output_logits=True)
+    app = TpuQwen3MoeForCausalLM(None, Qwen3MoeInferenceConfig(tcfg, **hf),
+                                 device=device)
+    app.init_random_weights(0).init_cache()
+    ids, mask = prompts_of(MISTRAL_LENS, hf["vocab_size"], seed=0)
+    warm(app, "moe_contiguous")
+    reset_launches([app])
+    t0 = time.perf_counter()
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
+                       return_logits=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = kernel_counts([app])
+    steps = NEW_TOKENS - 1
+    on_card = device.type == "cuda"
+    want = {"paged_decode_attention": 0,
+            "decode_attention_stacked": layers * steps if on_card else 0,
+            "flash_attention": layers if on_card else 0}
+    gen = out["generated"]
+    emit({"phase": "moe_contiguous", "entry": "TpuQwen3MoeForCausalLM",
+          "layers": layers, "generate_s": gen_s, "launches": counts,
+          "expected_launches": want,
+          "graphs": graph_report(app) if app.graphs is not None else None,
+          "generated_shape": list(gen.shape)})
+    check_no_incidents("moe_contiguous", app)
+    if counts != want:
+        raise AssertionError(f"moe_contiguous: launches {counts} != {want}")
+    if gen.shape != (b, NEW_TOKENS) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"moe_contiguous: bad tokens {gen.shape}")
+    # the kernels-off app on the same weights; the kernel app's cache and
+    # graphs go first (full-vocabulary prefill logits are 7.5 GB a call)
+    app.cache = None
+    free_card()
+    off = make_contiguous_app(hf, device, "bfloat16", batch=b,
+                              seq_len=MISTRAL_SEQ, kernels=False,
+                              output_logits=True)
+    off.params = app.params
+    ref = off.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS,
+                       return_logits=True, teacher_tokens=gen[:, :steps])
+    del off
+    real = np.arange(out["logits"][0].shape[1])[None, :] < np.asarray(
+        MISTRAL_LENS)[:, None]
+    a = [out["logits"][0][real]] + out["logits"][1:]
+    r = [ref["logits"][0][real]] + ref["logits"][1:]
+    if not all(np.isfinite(x).all() for x in a + r):
+        raise AssertionError("moe_contiguous: non-finite logits")
+    num = sum(float(np.square(x.astype(np.float64) - y).sum())
+              for x, y in zip(a, r))
+    den = sum(float(np.square(y.astype(np.float64)).sum()) for y in r)
+    rel = (num / den) ** 0.5
+    emit({"phase": "moe_contiguous_vs_kernels_off", "layers": layers,
+          "rel_rms": rel, "prefill_max_abs": float(np.abs(a[0] - r[0]).max()),
+          "decode_max_abs": max(float(np.abs(x - y).max())
+                                for x, y in zip(a[1:], r[1:])),
+          "logit_std": float(np.std(r[1])), "tol": TOL_MOE_CONTIG_DIRECT})
+    if not rel <= TOL_MOE_CONTIG_DIRECT:
+        raise AssertionError(f"moe_contiguous: kernel and kernels-off "
+                             f"logits part by relative RMS {rel}")
+    memory_note("moe_contiguous")
+    del app, out, ref
+    free_card()
+    phase_contiguous(dict(hf, num_hidden_layers=MOE_CONTIG_CHECK_LAYERS),
+                     device, "moe_contiguous_cut")
+    memory_note("moe_contiguous_cut")
+    free_card()
+    src = "neuronx_distributed_inference_tpu_torch/csrc/"
+    jax_ops = "neuronx_distributed_inference_tpu/ops/"
+    entries = []
+    for name, key, fn in (("decode_attention_stacked", "decode",
+                           "decode_attention.py:41"),
+                          ("flash_attention", "flash",
+                           "flash_attention.py:28")):
+        t = kernel_times[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": src + ("decode_attention.cu" if key == "decode"
+                             else "flash_attention.cu"),
+            "replaces": jax_ops + fn, "launches": counts[name],
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": "moe_contiguous", "shape": t["shape"]})
+    return entries
+
+
+def phase_moe(device):
+    """Group ``moe`` (phase 14 (a)-(e)); returns its kernels-line
+    entries."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    kernel_times = phase_moe_kernels(device)
+    memory_note("moe_kernels")
+    layer_times = phase_moe_layer(device)
+    memory_note("moe_layer")
+    entries = phase_moe_serving(device, layer_times)
+    phase_ragged_fp32(dict(QWEN3_30B_A3B, num_hidden_layers=4), device,
+                      cfg=RAGGED, on_card=device.type == "cuda",
+                      phase="moe_fp32")
+    free_card()
+    phase_moe_bf16_vs_fp32(dict(QWEN3_30B_A3B, num_hidden_layers=4), device)
+    memory_note("moe_fp32")
+    free_card()
+    entries += phase_moe_contiguous(QWEN3_30B_A3B, device, kernel_times)
+    return entries
+
+
+
+GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe")
 
 
 def main(argv=None) -> int:
@@ -2425,7 +3128,8 @@ def main(argv=None) -> int:
     build_s = build_kernels()
     emit({"phase": "env", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
-          "bmm_out_dtype": bmm_out_dtype_available(), "build_s": build_s})
+          "bmm_out_dtype": bmm_out_dtype_available(),
+          "grouped_mm": grouped_mm_available(), "build_s": build_s})
     kernels = []
     if "kernels" in only:
         phase_kernels(device)
@@ -2451,7 +3155,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     app = None
     if "ragged" in only:
-        app, prompts, entries = phase_ragged_serving(LLAMA_3_1_8B, device)
+        app, prompts, entries, _ = phase_ragged_serving(LLAMA_3_1_8B,
+                                                        device)
         kernels += entries
         phase_front_door(LLAMA_3_1_8B, device, app, prompts)
         if "spec" not in only:
@@ -2466,6 +3171,9 @@ def main(argv=None) -> int:
         kernels += phase_spec_sampled(LLAMA_3_1_8B, device)
         torch.cuda.empty_cache()
         phase_spec_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+    if "moe" in only:
+        free_card()
+        kernels += phase_moe(device)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"gpu": gpu})

@@ -293,19 +293,25 @@ class CausalLMApplication:
         return self
 
     def init_random_weights(self, seed: int = 0):
-        """Synthetic weights made on the device from ``seed``."""
+        """Synthetic weights made on the device from ``seed``, each leaf in
+        its spec's dtype (an MoE router in fp32)."""
         self.params = model_base.init_params(self.spec, seed, self.device)
         return self
 
     def _put_params(self, host: Dict[str, Any]):
+        """A host tree onto the device, each leaf cast to its spec's dtype:
+        the model dtype, fp32 for an MoE router (the reference casts every
+        loaded leaf to the model dtype; ROADMAP C)."""
         host = model_base.fuse_qkv_host(host)
-        dt = self.spec.dtype
+        specs = model_base.decoder_param_specs(self.spec)
 
-        def put(node):
+        def put(node, spec):
             if isinstance(node, dict):
-                return {k: put(v) for k, v in node.items()}
+                return {k: put(v, (spec or {}).get(k))
+                        for k, v in node.items()}
+            dt = getattr(spec, "dtype", self.spec.dtype)
             return tensor_from_numpy(np.asarray(node), self.device).to(dt)
-        self.params = put(host)
+        self.params = put(host, specs)
 
     # -- cache -------------------------------------------------------------
     def init_cache(self):

@@ -3,9 +3,12 @@
 
 A family is a class with ``config_cls``, ``build_spec(config)`` and
 ``convert_hf_state_dict(sd, spec)`` (HF numpy state dict -> the stacked
-host parameter tree). The port carries the dense Llama-shaped decoder
-(the Llama and Mistral families); the per-family hooks for biases, q/k
-norms and MoE come with the families that need them."""
+host parameter tree). The port carries the Llama-shaped decoder: the
+Llama, Mistral and Qwen3 families (dense) and the Qwen3-MoE and Mixtral
+families (MoE). Families override the reference's hooks
+``convert_mlp_weights`` (the MoE families, through
+``convert_moe_weights``) and ``convert_extra_layer_weights``; the per-head
+q/k norms convert when the spec has them."""
 
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ def register_family(*names: str):
 
 
 def get_family(name: str) -> Type["DecoderFamily"]:
-    from . import llama, mistral  # noqa: F401  (their imports register them)
+    # their imports register them
+    from . import llama, mistral, mixtral, qwen3, qwen3_moe  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; known: "
                        f"{sorted(_REGISTRY)}")
@@ -97,10 +101,15 @@ class DecoderFamily:
             "o_proj": layer_stack(lp + "self_attn.o_proj.weight", o_t),
             "post_norm": layer_stack(lp + "post_attention_layernorm.weight",
                                      ident),
-            "gate_proj": layer_stack(lp + "mlp.gate_proj.weight", t),
-            "up_proj": layer_stack(lp + "mlp.up_proj.weight", t),
-            "down_proj": layer_stack(lp + "mlp.down_proj.weight", t),
         }
+        layers.update(cls.convert_mlp_weights(get, layer_stack, spec))
+        layers.update(cls.convert_extra_layer_weights(get, layer_stack,
+                                                      spec))
+        if spec.qk_norm:
+            layers["q_norm"] = layer_stack(lp + "self_attn.q_norm.weight",
+                                           ident)
+            layers["k_norm"] = layer_stack(lp + "self_attn.k_norm.weight",
+                                           ident)
 
         def vpad(w):
             if w.shape[0] < spec.padded_vocab:
@@ -115,3 +124,45 @@ class DecoderFamily:
             out["lm_head"] = np.ascontiguousarray(
                 vpad(get("lm_head.weight")).T)
         return out
+
+    @classmethod
+    def convert_extra_layer_weights(cls, get, layer_stack, spec: DecoderSpec
+                                    ) -> Dict[str, np.ndarray]:
+        """Per-layer weights beyond the standard block (none here)."""
+        return {}
+
+    @classmethod
+    def convert_mlp_weights(cls, get, layer_stack, spec: DecoderSpec
+                            ) -> Dict[str, np.ndarray]:
+        """The dense gate / up / down projections; MoE families override
+        this with :meth:`convert_moe_weights`."""
+        lp = cls.hf_prefix + ".layers.{i}.mlp."
+
+        def t(w):
+            return np.ascontiguousarray(w.T)
+        return {name: layer_stack(lp + name + ".weight", t)
+                for name in ("gate_proj", "up_proj", "down_proj")}
+
+    @classmethod
+    def convert_moe_weights(cls, get, spec: DecoderSpec, router_name: str,
+                            expert_fmt: str, gate: str, up: str, down: str
+                            ) -> Dict[str, np.ndarray]:
+        """Per-layer routers, fp32 and transposed to (H, E), and the
+        per-layer, per-expert projections stacked to (L, E, in, out). Name
+        templates use {i} (layer), {e} (expert) and {name} (projection)."""
+        L, E = spec.num_layers, spec.moe.num_experts
+
+        def experts(name):
+            return np.stack([
+                np.stack([np.ascontiguousarray(np.asarray(get(
+                    expert_fmt.format(i=i, e=e, name=name))).T)
+                    for e in range(E)]) for i in range(L)])
+
+        return {
+            "router": np.stack([np.ascontiguousarray(np.asarray(get(
+                router_name.format(i=i))).T.astype(np.float32))
+                for i in range(L)]),
+            "expert_gate": experts(gate),
+            "expert_up": experts(up),
+            "expert_down": experts(down),
+        }

@@ -1,14 +1,20 @@
-"""Dense decoder over the contiguous and the paged KV cache (counterpart:
-``neuronx_distributed_inference_tpu/models/model_base.py`` — ``DecoderSpec``
-:98, ``pad_vocab`` :350, the parameter specs :360-590, ``fuse_qkv_host``
-:618, ``attn_inputs`` :720, ``_layer_body`` :753, the dense ``_mlp_block``
-:889, ``_attn_block`` :943-1280 (paged :1058-1103, prefill :1104-1156,
-decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
+"""Decoder over the contiguous and the paged KV cache (counterpart:
+``neuronx_distributed_inference_tpu/models/model_base.py`` — ``ACT_FNS``
+:66, ``DecoderSpec`` :98, ``pad_vocab`` :350, the parameter specs :360-590
+(``_moe_param_specs`` :478), ``fuse_qkv_host`` :618, ``attn_inputs`` :720,
+``_layer_body`` :753, ``_mlp_block`` :889 (dense GLU or the MoE block),
+``_attn_block`` :943-1280 (the per-head q/k RMSNorm :1014-1024, paged
+:1058-1103, prefill :1104-1156, decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
 ``_embed`` :1656, ``_lm_head`` :1671, ``context_encoding_step`` :1686,
 ``token_generation_step`` :1789, ``paged_forward_step`` :1883,
 ``decode_loop`` :1939, ``paged_decode_loop`` :2058,
 ``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
 ``paged_ragged_step`` :2222, ``spec_from_config`` :2346).
+
+The layer stack is uniform: every layer has a dense GLU MLP, or every
+layer a routed mixture of experts (``spec.moe``, ``modules/moe.py``).
+Mixed dense / MoE stacks (the reference's ``first_dense`` and
+``moe_pattern``) are refused at spec time (ROADMAP A14).
 
 The model is a set of plain functions over a dict of parameter tensors
 laid out as the JAX package's tree (stacked ``(L, …)`` layer leaves, fused
@@ -40,8 +46,9 @@ Attention, by phase:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -50,6 +57,7 @@ import torch.nn.functional as F
 from ..config import InferenceConfig, TpuConfig
 from ..modules import block_kv_cache as bkv
 from ..modules import kv_cache as kv
+from ..modules import moe as moe_mod
 from ..ops import attention as attn_ops
 from ..ops import decode_attention, flash_attention
 from ..ops import sampling as sampling_ops
@@ -59,11 +67,21 @@ from ..ops.rope import (SUPPORTED_SCALING, RopeConfig, apply_rope,
 from ..parallel.layers import GQASharding, ParamSpec, resolve_gqa_sharding
 from ..resilience.errors import ConfigurationError
 
+ACT_FNS = {
+    "silu": F.silu,
+    "gelu": functools.partial(F.gelu, approximate="none"),
+    "gelu_new": functools.partial(F.gelu, approximate="tanh"),
+    "gelu_pytorch_tanh": functools.partial(F.gelu, approximate="tanh"),
+    "relu": F.relu,
+    # squared ReLU (nemotron / arcee plain MLPs)
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
 
 @dataclass(frozen=True)
 class DecoderSpec:
-    """Static architecture of the dense Llama-shaped decoder, resolved
-    from an InferenceConfig (the fields of the counterpart that this path
+    """Static architecture of the Llama-shaped decoder, resolved from an
+    InferenceConfig (the fields of the counterpart that this path
     reads)."""
 
     num_layers: int
@@ -89,6 +107,11 @@ class DecoderSpec:
     kv_dtype: torch.dtype = torch.bfloat16
     # scaled KV quantisation: values stored as x / kv_scale
     kv_scale: Optional[float] = None
+    # qwen3-style per-head q/k RMSNorm (after the head split, before RoPE)
+    qk_norm: bool = False
+    # routed mixture of experts in every layer's MLP slot; then
+    # ``intermediate_size`` is the per-expert intermediate
+    moe: Optional[moe_mod.MoESpec] = None
 
     @property
     def scale(self) -> float:
@@ -113,24 +136,61 @@ def pad_vocab(vocab: int, tp: int = 1, multiple: int = 128) -> int:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _moe_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
+    """The MoE MLP slot (model_base.py:478-505): an fp32 router (L, H, E),
+    expert stacks (L, E, H, I) / (L, E, I, H) in the model dtype, and the
+    optional biases and shared experts."""
+    m = spec.moe
+    H, dt = spec.hidden_size, spec.dtype
+    E, Ie = m.num_experts, m.intermediate_size
+    layers: Dict[str, ParamSpec] = {
+        "router": ParamSpec((L, H, E), torch.float32),
+        "expert_gate": ParamSpec((L, E, H, Ie), dt),
+        "expert_up": ParamSpec((L, E, H, Ie), dt),
+        "expert_down": ParamSpec((L, E, Ie, H), dt),
+    }
+    if m.has_router_bias:
+        layers["router_bias"] = ParamSpec((L, E), torch.float32, "zeros")
+    if m.expert_bias:
+        layers["expert_gate_bias"] = ParamSpec((L, E, Ie), dt, "zeros")
+        layers["expert_up_bias"] = ParamSpec((L, E, Ie), dt, "zeros")
+        layers["expert_down_bias"] = ParamSpec((L, E, H), dt, "zeros")
+    if m.shared_intermediate > 0:
+        Is = m.shared_intermediate
+        layers.update({
+            "shared_gate": ParamSpec((L, H, Is), dt),
+            "shared_up": ParamSpec((L, H, Is), dt),
+            "shared_down": ParamSpec((L, Is, H), dt),
+        })
+    return layers
+
+
 def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
-    """Shapes of the parameter tree: the counterpart's tree for a dense
-    model with fused qkv."""
+    """Shapes of the parameter tree: the counterpart's tree for a uniform
+    stack with fused qkv."""
     L, H, I = spec.num_layers, spec.hidden_size, spec.intermediate_size
     dt = spec.dtype
-    out: Dict[str, Any] = {
-        "embed": ParamSpec((spec.padded_vocab, H), dt),
-        "final_norm": ParamSpec((H,), dt, "ones"),
-        "layers": {
-            "input_norm": ParamSpec((L, H), dt, "ones"),
-            "post_norm": ParamSpec((L, H), dt, "ones"),
-            "qkv_proj": ParamSpec((L, H, spec.q_size + 2 * spec.kv_size),
-                                  dt),
-            "o_proj": ParamSpec((L, spec.q_size, H), dt),
+    layers: Dict[str, Any] = {
+        "input_norm": ParamSpec((L, H), dt, "ones"),
+        "post_norm": ParamSpec((L, H), dt, "ones"),
+        "qkv_proj": ParamSpec((L, H, spec.q_size + 2 * spec.kv_size), dt),
+        "o_proj": ParamSpec((L, spec.q_size, H), dt),
+    }
+    if spec.qk_norm:
+        layers["q_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+        layers["k_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+    if spec.moe is None:
+        layers.update({
             "gate_proj": ParamSpec((L, H, I), dt),
             "up_proj": ParamSpec((L, H, I), dt),
             "down_proj": ParamSpec((L, I, H), dt),
-        },
+        })
+    else:
+        layers.update(_moe_param_specs(spec, L))
+    out: Dict[str, Any] = {
+        "embed": ParamSpec((spec.padded_vocab, H), dt),
+        "final_norm": ParamSpec((H,), dt, "ones"),
+        "layers": layers,
     }
     if not spec.tie_word_embeddings:
         out["lm_head"] = ParamSpec((H, spec.padded_vocab), dt)
@@ -182,10 +242,14 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai):
     qkv = h @ layer_w["qkv_proj"]
     q, k, v = torch.split(qkv, [spec.q_size, spec.kv_size, spec.kv_size],
                           dim=-1)
-    q = apply_rope(q.reshape(b, t, g.num_q_heads, spec.head_dim),
-                   ai["cos"], ai["sin"])
-    k = apply_rope(k.reshape(b, t, g.num_kv_heads, spec.head_dim),
-                   ai["cos"], ai["sin"])
+    q = q.reshape(b, t, g.num_q_heads, spec.head_dim)
+    k = k.reshape(b, t, g.num_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        # per-head RMSNorm before RoPE (model_base.py:1014-1024)
+        q = rms_norm(q, layer_w["q_norm"], spec.rms_eps)
+        k = rms_norm(k, layer_w["k_norm"], spec.rms_eps)
+    q = apply_rope(q, ai["cos"], ai["sin"])
+    k = apply_rope(k, ai["cos"], ai["sin"])
     return q, k, v.reshape(b, t, g.num_kv_heads, spec.head_dim)
 
 
@@ -271,8 +335,12 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
     return attn_ops.mha_hl(q, k_all, v_all, ai["mask"], spec.scale), None
 
 
-def _mlp_block(x, layer_w):
-    """Dense GLU MLP: silu(x @ gate) * (x @ up) @ down."""
+def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str):
+    """The MLP half of a layer (model_base.py:889-893): the MoE block when
+    the spec has one, else the dense GLU silu(x @ gate) * (x @ up) @
+    down."""
+    if spec.moe is not None:
+        return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
     inter = F.silu(x @ layer_w["gate_proj"]) * (x @ layer_w["up_proj"])
     return inter @ layer_w["down_proj"]
 
@@ -293,7 +361,7 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     b, t = h.shape[:2]
     hidden = hidden + attn.reshape(b, t, -1) @ layer_w["o_proj"]
     h = rms_norm(hidden, layer_w["post_norm"], spec.rms_eps)
-    return hidden + _mlp_block(h, layer_w), pending
+    return hidden + _mlp_block(spec, h, layer_w, phase), pending
 
 
 def run_layers(spec: DecoderSpec, params, cache, hidden, ai, phase: str):
@@ -813,7 +881,6 @@ def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
         (tcfg.quantized, "quantized weights"),
         (tcfg.mlp_low_rank is not None, "low-rank MLP"),
         (tcfg.lora_config is not None, "LoRA"),
-        (tcfg.moe_config is not None, "MoE"),
         (bool(sc and (sc.speculation_length
                       or sc.medusa_speculation_length)), "speculation"),
         (tcfg.collective_config is not None
@@ -825,7 +892,34 @@ def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
         (getattr(config, "hidden_act", "silu") != "silu",
          f"hidden_act {getattr(config, 'hidden_act', None)!r}"),
     ]
-    return [name for bad, name in checks if bad]
+    return [name for bad, name in checks if bad] + _moe_degree_refusals(
+        tcfg.moe_config)
+
+
+MOE_DEGREES = ("moe_tp_degree", "moe_ep_degree", "moe_cte_tp_degree",
+               "moe_cte_ep_degree", "moe_tkg_tp_degree", "moe_tkg_ep_degree")
+
+
+def _moe_degree_refusals(mc) -> List[str]:
+    """An MoEConfig runs on one card when each of its degrees is None or 1
+    (the reference's ``MoETpuConfig`` at tp = 1); a degree above 1 needs
+    the mesh (ROADMAP A13)."""
+    if mc is None:
+        return []
+    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13)"
+            for knob in MOE_DEGREES if (getattr(mc, knob, None) or 1) > 1]
+
+
+def _moe_layout_refusals(tcfg: TpuConfig) -> List[str]:
+    """The expert-layout knobs the reference reads once the model has an
+    MoE block (model_base.py:2455-2487): it refuses every CTE / TKG degree
+    but ``moe_tkg_ep_degree=1``, which turns on ``tkg_experts_local``, a
+    re-layout across a mesh (ROADMAP A13)."""
+    mc = tcfg.moe_config
+    if mc is None:
+        return []
+    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13)"
+            for knob in MOE_DEGREES[2:] if getattr(mc, knob, None) is not None]
 
 
 def _rolling_refusal(tcfg: TpuConfig, window: int) -> Optional[str]:
@@ -846,13 +940,19 @@ def _rolling_refusal(tcfg: TpuConfig, window: int) -> Optional[str]:
 def spec_from_config(config: InferenceConfig,
                      tp_degree: Optional[int] = None,
                      sliding_window: int = 0,
-                     layer_pattern=None, attn_chunk: int = 0
+                     layer_pattern=None, attn_chunk: int = 0,
+                     moe: Optional[moe_mod.MoESpec] = None,
+                     qk_norm: bool = False,
+                     intermediate_size: Optional[int] = None,
+                     first_dense: int = 0, moe_pattern=None
                      ) -> DecoderSpec:
     """DecoderSpec from the HF-style attributes of an InferenceConfig
-    (families pass ``sliding_window`` / ``layer_pattern`` / ``attn_chunk``
-    as the counterpart's overrides). Raises :class:`ConfigurationError`
-    for what the port does not run yet, including every config for which
-    the JAX package would pick the rolling or mixed cache."""
+    (families pass ``sliding_window`` / ``layer_pattern`` /
+    ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
+    ``first_dense`` / ``moe_pattern`` as the counterpart's overrides).
+    Raises :class:`ConfigurationError` for what the port does not run yet,
+    including every config for which the JAX package would pick the
+    rolling or mixed cache."""
     tcfg = config.tpu_config
     tp = tp_degree if tp_degree is not None else tcfg.tp_degree
     bad = _unported_knobs(tcfg, config)
@@ -862,6 +962,11 @@ def spec_from_config(config: InferenceConfig,
         bad.append("a per-layer attention pattern (layer_types)")
     if attn_chunk:
         bad.append("chunked attention")
+    if moe is not None:
+        bad += [b for b in _moe_layout_refusals(tcfg) if b not in bad]
+        if first_dense or moe_pattern is not None:
+            bad.append("a mixed dense / MoE layer stack (first_dense, "
+                       "moe_pattern; ROADMAP A14)")
     roll = _rolling_refusal(tcfg, sliding_window)
     if roll:
         bad.append("the rolling KV cache: " + roll)
@@ -900,7 +1005,8 @@ def spec_from_config(config: InferenceConfig,
         num_q_heads=n_q,
         num_kv_heads=n_kv,
         head_dim=head_dim,
-        intermediate_size=config.intermediate_size,
+        intermediate_size=(intermediate_size if intermediate_size is not None
+                           else config.intermediate_size),
         vocab_size=vocab,
         padded_vocab=pad_vocab(vocab, tp),
         rms_eps=float(getattr(config, "rms_norm_eps", 1e-6)),
@@ -914,6 +1020,8 @@ def spec_from_config(config: InferenceConfig,
         dtype=tcfg.torch_dtype,
         kv_dtype=tcfg.torch_kv_dtype,
         kv_scale=(tcfg.kv_cache_scale if tcfg.kv_cache_quant else None),
+        qk_norm=bool(qk_norm),
+        moe=moe,
     )
 
 

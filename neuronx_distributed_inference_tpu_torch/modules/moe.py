@@ -1,0 +1,306 @@
+"""Mixture-of-Experts block (counterpart:
+``neuronx_distributed_inference_tpu/modules/moe.py`` — ``MoESpec`` :42,
+``route`` :101, ``_sparsemixer_route`` :150, ``combine_matrix`` :187,
+``_glu`` :196, ``experts_dense`` :204, ``experts_ragged`` :244,
+``moe_block`` :293, ``_shared_experts`` :342).
+
+The reference's design, on one card:
+
+  * Router: an fp32 (H, E) product, softmax / sigmoid / top-k over raw
+    logits, the router bias in its two modes, group-limited selection,
+    renormalisation and routed scaling. Top-k keeps ``jax.lax.top_k``'s
+    order (descending, the lower index first among equal scores) through a
+    stable descending sort: ``torch.topk`` does not promise an order for
+    ties.
+  * Dense path (B·T of the padded grid at most ``dense_max_tokens``):
+    every expert runs on every token, combined with the (B, T, E) routing
+    weights in fp32. The products are ``(1, BT, H) @ (E, H, I)`` batched
+    matmuls that read each expert's weight in place (``torch.einsum`` of
+    the reference's subscripts copies the whole weight first).
+  * Ragged path: token copies sorted by expert (stable), one grouped
+    product per projection (``torch._grouped_mm`` with the group ends
+    left on the device, the counterpart of ``jax.lax.ragged_dot``),
+    unsorted and combined in fp32. No device value is read on the host.
+  * Shared experts: a dense GLU MLP added to the routed output.
+
+The reference's mesh constraints (``shard_constraint``) have no
+counterpart on one card. ``tkg_experts_local`` (an expert re-layout for
+decode across a mesh, ROADMAP A13) and quantized expert leaves (A11) raise
+:class:`ConfigurationError`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..resilience.errors import ConfigurationError
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    """Static MoE architecture (the counterpart's fields and defaults)."""
+
+    num_experts: int
+    top_k: int
+    intermediate_size: int           # per-expert intermediate
+    normalize_topk: bool = True      # renormalize top-k affinities
+    routed_scaling: Optional[float] = None
+    # "softmax" | "sigmoid" | "sparsemixer" (phimoe inference routing)
+    router_act: str = "softmax"
+    sparsemixer_eps: float = 0.01
+    pre_softmax_topk: bool = False   # top-k on raw logits, then act over k
+    shared_intermediate: int = 0     # 0 = no shared experts
+    act: str = "silu"
+    # bias added to router scores: "select" = for selection only
+    # (DeepSeek-V3), "logits" = part of the logits (gpt-oss)
+    has_router_bias: bool = False
+    router_bias_mode: str = "select"
+    expert_bias: bool = False        # per-expert projection biases
+    # "gated" = act(gate) * up; "oss_clamp" = gpt-oss clamped swiglu
+    glu_style: str = "gated"
+    glu_alpha: float = 1.702
+    glu_limit: float = 7.0
+    # group-limited routing (DeepSeek-V3)
+    n_group: int = 1
+    topk_group: int = 1
+    # llama4: the routing weight scales the expert INPUT
+    input_scaled: bool = False
+    # B*T threshold at or below which the dense all-experts path runs
+    dense_max_tokens: int = 64
+    # decode re-layout of the experts across a mesh (not ported: A13)
+    tkg_experts_local: bool = False
+
+
+def _act_fn(name: str):
+    from ..models.model_base import ACT_FNS
+    return ACT_FNS[name]
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: values descending, the lower
+    index first among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(moe: MoESpec, h: torch.Tensor, router_w: torch.Tensor,
+          router_bias: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h (B, T, H), router_w (H, E) -> (top_vals (B, T, k) fp32
+    affinities, top_idx (B, T, k) int64 expert ids)."""
+    logits = h.float() @ router_w.float()                        # (B,T,E)
+    if moe.router_act == "sparsemixer":
+        return _sparsemixer_route(moe, logits)
+    if router_bias is not None and moe.router_bias_mode == "logits":
+        logits = logits + router_bias
+        router_bias = None
+    if moe.router_act == "sigmoid":
+        scores = torch.sigmoid(logits)
+    elif moe.pre_softmax_topk:
+        scores = logits
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    select = scores + router_bias if router_bias is not None else scores
+    if moe.n_group > 1:
+        # group-limited greedy: rank groups by the sum of their top-2
+        # biased scores, zero out the losing groups
+        b, t, e = select.shape
+        g = moe.n_group
+        grouped = select.reshape(b, t, g, e // g)
+        top2, _ = _top_k(grouped, 2)
+        _, group_idx = _top_k(top2.sum(dim=-1), moe.topk_group)
+        group_mask = torch.zeros((b, t, g), dtype=torch.bool,
+                                 device=select.device).scatter_(
+            -1, group_idx, True)
+        mask = group_mask[..., None].expand(grouped.shape).reshape(b, t, e)
+        select = torch.where(mask, select, torch.zeros_like(select))
+    _, top_idx = _top_k(select, moe.top_k)
+    top_vals = torch.gather(scores, -1, top_idx)
+    if moe.pre_softmax_topk and moe.router_act != "sigmoid":
+        top_vals = torch.softmax(top_vals, dim=-1)
+    if moe.normalize_topk:
+        top_vals = top_vals / torch.clamp(
+            top_vals.sum(dim=-1, keepdim=True), min=1e-20)
+    if moe.routed_scaling is not None:
+        top_vals = top_vals * moe.routed_scaling
+    return top_vals, top_idx
+
+
+def _sparsemixer_pick(scores: torch.Tensor, ref: torch.Tensor, eps: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sparsemixer selection over ``scores``: the jitter threshold and
+    the |.| stabiliser come from ``ref`` (the original logits), the max,
+    argmax and softmax from ``scores``."""
+    mx = scores.max(dim=-1, keepdim=True).values
+    factor = torch.maximum(ref.abs(), mx)
+    masked = torch.where((mx - ref) / factor > 2 * eps,
+                         torch.full_like(scores, float("-inf")), scores)
+    idx = scores.argmax(dim=-1)
+    gates = torch.softmax(masked, dim=-1)
+    return torch.gather(gates, -1, idx[..., None])[..., 0], idx
+
+
+def _sparsemixer_route(moe: MoESpec, logits: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phi-3.5-MoE sparsemixer routing, inference path: expert i is the
+    argmax of the remaining scores; its affinity a softmax over the scores
+    with entries masked where (max - s) / max(|s|, max) > 2 * eps. top_k
+    must be 2."""
+    if moe.top_k != 2:
+        raise NotImplementedError(
+            f"sparsemixer routing is defined for top_k=2 (got {moe.top_k})")
+    eps = moe.sparsemixer_eps
+    v1, i1 = _sparsemixer_pick(logits, logits, eps)
+    # second pass: the winner masked out, threshold against the remaining
+    # max, stabiliser still |original logits|
+    winner = torch.nn.functional.one_hot(i1, logits.shape[-1]).bool()
+    rest = torch.where(winner, torch.full_like(logits, float("-inf")),
+                       logits)
+    v2, i2 = _sparsemixer_pick(rest, logits, eps)
+    return torch.stack([v1, v2], dim=-1), torch.stack([i1, i2], dim=-1)
+
+
+def combine_matrix(num_experts: int, top_vals: torch.Tensor,
+                   top_idx: torch.Tensor) -> torch.Tensor:
+    """Scatter (B, T, k) affinities into a dense (B, T, E) fp32 matrix."""
+    b, t, _ = top_vals.shape
+    out = torch.zeros((b, t, num_experts), dtype=torch.float32,
+                      device=top_vals.device)
+    return out.scatter_add_(-1, top_idx, top_vals.float())
+
+
+def _glu(moe: MoESpec, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    if moe.glu_style == "oss_clamp":
+        gate = torch.clamp(gate, max=moe.glu_limit)
+        up = torch.clamp(up, -moe.glu_limit, moe.glu_limit)
+        return (up + 1.0) * (gate * torch.sigmoid(gate * moe.glu_alpha))
+    return _act_fn(moe.act)(gate) * up
+
+
+def _check_leaves(*ws) -> None:
+    for w in ws:
+        if not isinstance(w, torch.Tensor):
+            raise ConfigurationError(
+                "quantized expert weights are not ported yet (ROADMAP A11)")
+
+
+def experts_dense(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
+                  top_idx: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                  wd: torch.Tensor, bg=None, bu=None, bd=None
+                  ) -> torch.Tensor:
+    """All-experts dense compute. x (B, T, H); wg / wu (E, H, I); wd
+    (E, I, H); b* optional (E, ·) biases. Intermediates are laid out
+    (E, B·T, ·), the reference's (B, T, E, ·) transposed."""
+    _check_leaves(wg, wu, wd)
+    b, t, h = x.shape
+    dt = x.dtype
+    combine = combine_matrix(moe.num_experts, top_vals, top_idx)
+    combine = combine.reshape(b * t, moe.num_experts)            # (BT,E)
+    if moe.input_scaled:
+        # llama4: scale the expert INPUT by the affinity, combine with 1s
+        xe = (x.reshape(b * t, 1, h).float()
+              * combine[..., None]).to(dt).transpose(0, 1)       # (E,BT,H)
+        gate = torch.bmm(xe, wg)
+        up = torch.bmm(xe, wu)
+        combine = (combine > 0).float()
+    else:
+        xf = x.reshape(1, b * t, h)
+        gate = torch.matmul(xf, wg)                               # (E,BT,I)
+        up = torch.matmul(xf, wu)
+    if bg is not None:
+        gate = gate + bg[:, None, :]
+        up = up + bu[:, None, :]
+    outs = torch.bmm(_glu(moe, gate, up), wd)                     # (E,BT,H)
+    if bd is not None:
+        outs = outs + bd[:, None, :]
+    y = torch.einsum("ebh,be->bh", outs.float(), combine)
+    return y.reshape(b, t, h).to(dt)
+
+
+def group_ends(sorted_expert: torch.Tensor, num_experts: int
+               ) -> torch.Tensor:
+    """(E,) int32 end offsets of each expert's group in the ascending
+    ``sorted_expert``, computed on the device (no host read)."""
+    experts = torch.arange(num_experts, device=sorted_expert.device,
+                           dtype=sorted_expert.dtype)
+    return torch.searchsorted(sorted_expert, experts, right=True,
+                              out_int32=True)
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """Rows [ends[e-1], ends[e]) of ``a`` (N, K) times ``w[e]`` (K, M):
+    the counterpart of ``jax.lax.ragged_dot``. Rows past ``ends[-1]`` are
+    not computed."""
+    return torch._grouped_mm(a, w, offs=ends)
+
+
+def experts_ragged(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
+                   top_idx: torch.Tensor, wg: torch.Tensor,
+                   wu: torch.Tensor, wd: torch.Tensor, bg=None, bu=None,
+                   bd=None) -> torch.Tensor:
+    """Dropless grouped-product path: sort the B·T·k token copies by
+    expert (stable), one grouped product per projection, unsort and
+    combine in fp32. Shapes are static: N = B·T·k rows."""
+    _check_leaves(wg, wu, wd)
+    b, t, h = x.shape
+    k = moe.top_k
+    dt = x.dtype
+    flat_x = x.reshape(b * t, h)
+    flat_expert = top_idx.reshape(-1)                         # (N,)
+    flat_weight = top_vals.reshape(-1)                        # (N,) fp32
+    order = torch.argsort(flat_expert, stable=True)
+    inv = torch.argsort(order)
+    sorted_expert = flat_expert[order]
+    sorted_tokens = flat_x[order // k]                        # (N, H)
+    ends = group_ends(sorted_expert, moe.num_experts)
+    if moe.input_scaled:
+        sorted_tokens = (sorted_tokens.float()
+                         * flat_weight[order][:, None]).to(dt)
+        flat_weight = torch.ones_like(flat_weight)
+    gate = grouped_mm(sorted_tokens, wg, ends)
+    up = grouped_mm(sorted_tokens, wu, ends)
+    if bg is not None:
+        gate = gate + bg[sorted_expert]
+        up = up + bu[sorted_expert]
+    outs = grouped_mm(_glu(moe, gate, up), wd, ends)          # (N, H)
+    if bd is not None:
+        outs = outs + bd[sorted_expert]
+    outs = outs[inv].float() * flat_weight[:, None]
+    y = outs.reshape(b * t, k, h).sum(dim=1).reshape(b, t, h)
+    return y.to(dt)
+
+
+def moe_block(moe: MoESpec, x: torch.Tensor, layer_w: Dict[str, Any],
+              phase: str = "prefill") -> torch.Tensor:
+    """Route + experts (+ shared experts). x (B, T, H). The dense path
+    runs when B·T is at most ``dense_max_tokens``, else the ragged one.
+    ``phase`` is the reference's; it mattered only for
+    ``tkg_experts_local``."""
+    if moe.tkg_experts_local:
+        raise ConfigurationError(
+            "tkg_experts_local (moe_tkg_ep_degree=1) re-lays the experts "
+            "across a mesh; the port runs on one card (ROADMAP A13)")
+    router_bias = layer_w.get("router_bias") if moe.has_router_bias else None
+    top_vals, top_idx = route(moe, x, layer_w["router"], router_bias)
+    experts = (experts_dense if x.shape[0] * x.shape[1] <= moe.dense_max_tokens
+               else experts_ragged)
+    biases = ((layer_w["expert_gate_bias"], layer_w["expert_up_bias"],
+               layer_w["expert_down_bias"]) if moe.expert_bias
+              else (None, None, None))
+    y = experts(moe, x, top_vals, top_idx, layer_w["expert_gate"],
+                layer_w["expert_up"], layer_w["expert_down"], *biases)
+    return _shared_experts(moe, x, y, layer_w)
+
+
+def _shared_experts(moe: MoESpec, x: torch.Tensor, y: torch.Tensor,
+                    layer_w: Dict[str, Any]) -> torch.Tensor:
+    """Add the always-on shared-expert branch (DeepSeek / GLM style)."""
+    if moe.shared_intermediate > 0:
+        act = _act_fn(moe.act)
+        s = act(x @ layer_w["shared_gate"]) * (x @ layer_w["shared_up"])
+        y = y + s @ layer_w["shared_down"]
+    return y

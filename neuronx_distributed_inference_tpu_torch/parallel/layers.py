@@ -28,13 +28,15 @@ class ParamSpec:
     def initializer(self, generator: Optional[torch.Generator],
                     device: torch.device, scale: float = 0.02
                     ) -> torch.Tensor:
+        """The leaf, drawn in place in its own dtype: the draw makes no
+        temporary, so a bf16 expert stack of 29 B parameters needs its
+        58 GB and nothing beside it."""
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
-        x = torch.randn(self.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * scale).to(self.dtype)
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        return out.normal_(0.0, scale, generator=generator)
 
 
 @dataclass(frozen=True)

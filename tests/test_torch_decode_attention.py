@@ -32,6 +32,7 @@ CASES = {
     "gqa_8_2": dict(hq=8, hkv=2),
     "gqa_4_1": dict(hq=4, hkv=1),
     "gqa_8_2_d128": dict(hq=8, hkv=2, d=128),
+    "gqa_8_1_d128": dict(hq=8, hkv=1, d=128),
     "zero_len_row": dict(s=128, lens=(0, 64)),
     "window32": dict(lens=(200, 255), window=32),
     "window100": dict(lens=(200, 255), window=100),
@@ -242,10 +243,11 @@ def _cuda_skip():
 
 
 def _cuda_inputs(name, lens, *, s=4096, cache=torch.bfloat16,
-                 act=torch.bfloat16, kv_scale=None):
+                 act=torch.bfloat16, kv_scale=None, hkv=8):
     """Inputs from a numpy seed on the card: q/new_k/new_v in ``act``,
-    the (1, B, 8, 128, S) / (1, B, 8, S, 128) cache in ``cache`` (divided
-    by ``kv_scale`` before the cast, as the model's write path does)."""
+    the (1, B, hkv, 128, S) / (1, B, hkv, S, 128) cache in ``cache``
+    (divided by ``kv_scale`` before the cast, as the model's write path
+    does)."""
     rng = np.random.default_rng(sum(map(ord, name)))
     b, d = len(lens), 128
     dev = torch.device("cuda")
@@ -254,9 +256,10 @@ def _cuda_inputs(name, lens, *, s=4096, cache=torch.bfloat16,
         x = rng.standard_normal(sh).astype(np.float32) / div
         return torch.from_numpy(x).to(dev).to(dt)
     div = kv_scale or 1.0
-    return dict(q=f(b, 32, d), k_cache=f(1, b, 8, d, s, dt=cache, div=div),
-                v_cache=f(1, b, 8, s, d, dt=cache, div=div),
-                new_k=f(b, 8, d), new_v=f(b, 8, d),
+    return dict(q=f(b, 32, d), k_cache=f(1, b, hkv, d, s, dt=cache,
+                                         div=div),
+                v_cache=f(1, b, hkv, s, d, dt=cache, div=div),
+                new_k=f(b, hkv, d), new_v=f(b, hkv, d),
                 lens=torch.tensor(lens, dtype=torch.int32, device=dev)), rng
 
 
@@ -323,14 +326,18 @@ CUDA_CASES = {
     "fp32": dict(cache=torch.float32, act=torch.float32, window=700),
     "s4093_bf16_scalar_k": dict(s=4093, window=1000),
     "s4093_fp8_scalar_k": dict(s=4093, cache=torch.float8_e4m3fn),
+    # Qwen3-30B-A3B heads: 32 q over 4 kv (GQA group 8)
+    "qwen3_g8_bf16": dict(hkv=4),
+    "qwen3_g8_bf16_window512": dict(hkv=4, window=512),
+    "qwen3_g8_fp32": dict(hkv=4, cache=torch.float32, act=torch.float32),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CUDA_CASES))
 def test_cuda_serving_shapes_match_plain_twin(name):
-    """Mistral-7B heads (32 q, 8 kv, D 128) over a 4096-slot cache at the
-    path's decode lens: the kernel (tensor cores for bf16, CUDA cores for
+    """Mistral-7B heads (32 q, 8 kv, D 128) and Qwen3-30B-A3B heads (32 q,
+    4 kv) over a 4096-slot cache at the path's decode lens: the kernel (tensor cores for bf16, CUDA cores for
     fp8 and fp32, key-by-key K loads for an S that is not a multiple of a
     16-byte piece's keys) against the twin on the card (bf16 out: 1e-2,
     fp32: 1e-4)."""
@@ -339,7 +346,8 @@ def test_cuda_serving_shapes_match_plain_twin(name):
     t, rng = _cuda_inputs(name, MISTRAL_LENS, s=spec.get("s", 4096),
                           cache=spec.get("cache", torch.bfloat16),
                           act=spec.get("act", torch.bfloat16),
-                          kv_scale=spec.get("kv_scale"))
+                          kv_scale=spec.get("kv_scale"),
+                          hkv=spec.get("hkv", 8))
     kw = dict(scale=128 ** -0.5, window=spec.get("window", 0),
               soft_cap=spec.get("soft_cap"), kv_scale=spec.get("kv_scale"))
     if spec.get("sink"):

@@ -24,6 +24,7 @@ CASES = {
     "causal_4_4": dict(hq=4, hkv=4),
     "causal_8_2": dict(hq=8, hkv=2),
     "causal_8_2_d128": dict(hq=8, hkv=2, d=128),
+    "causal_8_1_d128": dict(b=1, hq=8, hkv=1, d=128),
     "window100": dict(b=1, hq=4, hkv=2, window=100),
     "soft_cap30": dict(b=1, s=128, hq=4, hkv=4, soft_cap=30.0),
     "s512": dict(b=1, s=512, hq=2, hkv=2),
@@ -149,6 +150,10 @@ CUDA_BF16_CASES = {
     "soft_cap30_window200": dict(b=1, s=512, hq=4, hkv=4, d=128,
                                  window=200, soft_cap=30.0),
     "d64": dict(b=2, s=256, hq=8, hkv=2, d=64),
+    # Qwen3-30B-A3B heads (32 q over 4 kv: GQA group 8) at the 2048 bucket
+    "qwen3_g8_s2048": dict(b=4, s=2048, hq=32, hkv=4, d=128),
+    "qwen3_g8_window200": dict(b=1, s=512, hq=32, hkv=4, d=128,
+                               window=200),
 }
 
 

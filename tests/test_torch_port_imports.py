@@ -27,7 +27,10 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "telemetry.metrics", "telemetry.spans", "telemetry.trace",
     "telemetry.request_trace", "resilience.faults", "serving.warmup",
     "telemetry.slo", "resilience.controller", "serving.engine.frontend",
-    "models.cuda_graphs")]
+    "models.cuda_graphs", "modules.moe", "models.model_base",
+    "models.family", "models.qwen3", "models.qwen3.modeling_qwen3",
+    "models.qwen3_moe", "models.qwen3_moe.modeling_qwen3_moe",
+    "models.mixtral", "models.mixtral.modeling_mixtral")]
 
 
 def _port_modules():

@@ -35,11 +35,12 @@ def pair():
 
 
 def _serve(app, side, ragged, submissions, tenant_weights=None,
-           fault=None, max_passes=200):
-    """Drive one engine to drained; returns (streams, finish reasons,
-    stats, per-pass admitted request ids, per-pass dispatch deltas)."""
+           fault=None, max_passes=200, chunk=16):
+    """Drive one engine to drained (prefill chunks of ``chunk`` tokens);
+    returns (streams, finish reasons, stats, per-pass admitted request
+    ids, per-pass dispatch deltas)."""
     adapter_cls, engine_cls, faults = SIDES[side]
-    ad = adapter_cls(app, ragged=ragged, prefill_chunk_tokens=16)
+    ad = adapter_cls(app, ragged=ragged, prefill_chunk_tokens=chunk)
     eng = engine_cls(ad, tenant_weights=tenant_weights)
     streams = [eng.submit(p, n, tenant=t) for p, n, t in submissions]
     admitted, deltas = [], []

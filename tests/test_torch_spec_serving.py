@@ -591,16 +591,15 @@ def test_precompile_plans_the_draft_loop_and_verify_widths(sampled):
             if g["kind"] == "spec_draft"} == {"warm"}
 
 
-def test_dispatch_helpers_read_no_device_value(sampled, monkeypatch):
-    """The dispatch regions (``_dispatch_decode``, ``_dispatch_ragged``,
-    ``_dispatch_spec_draft``, ``_dispatch_spec_verify``) never read a
-    device value: every read of a tensor's data raises inside them, and
-    the streams still equal the eager sampled ones."""
+def guard_dispatch_reads(monkeypatch):
+    """Make every read of a tensor's data (``cpu``, ``item``, ``numpy``,
+    ``tolist``, ``__array__``) raise inside the dispatch regions
+    (``_dispatch_decode``, ``_dispatch_ragged``, ``_dispatch_spec_draft``,
+    ``_dispatch_spec_verify``); outside them reads work as before."""
     from neuronx_distributed_inference_tpu_torch.serving import adapter
     from neuronx_distributed_inference_tpu_torch.serving.ragged import path
     from neuronx_distributed_inference_tpu_torch.serving.speculation import \
         verifier
-    _, tapp = sampled
     inside = []
 
     def guard(owner, name):
@@ -628,6 +627,14 @@ def test_dispatch_helpers_read_no_device_value(sampled, monkeypatch):
     guard(path.RaggedDispatchPath, "_dispatch_ragged")
     guard(verifier.SpeculativeDecodePath, "_dispatch_spec_draft")
     guard(verifier.SpeculativeDecodePath, "_dispatch_spec_verify")
+
+
+def test_dispatch_helpers_read_no_device_value(sampled, monkeypatch):
+    """The dispatch regions never read a device value: every read of a
+    tensor's data raises inside them (:func:`guard_dispatch_reads`), and
+    the streams still equal the eager sampled ones."""
+    _, tapp = sampled
+    guard_dispatch_reads(monkeypatch)
     want = None
     for path_kind, prop in (("two_phase", None), ("two_phase", 3),
                             ("ragged", 3)):
