@@ -138,8 +138,29 @@ nvcc per source, all started together), then:
      launches = 48 x 63 steps, logits against the kernels-off app; then
      phase 6's checks (against an fp32 app) at an 8-layer cut. Each part
      prints its peak device memory.
+ 15. the GPT-OSS group, gpt-oss-20b (24 layers alternating sliding,
+     window 128, and full attention; hidden 2880, 64 q / 8 kv heads of
+     head_dim 64: GQA group 8; learned sinks, q/k/v and o biases, YaRN
+     RoPE; 32 experts of width 2880, 4 per token, clamped swiglu with
+     biases; vocab 201088) with random weights from seed 0, the sinks
+     N(0, 1) and every bias N(0, 0.02) from the seed too: (a) the paged
+     kernel at its heads (batch 8, phase 9's lens) with a sink at window
+     128 and window 0, over bf16 and fp32 pages, against its twin, timed
+     beside the twin, SDPA over the pre-gathered window with the sink as
+     one extra zero key whose additive mask is its logit, and the bound
+     of the keys inside each row's window; (b) phase 9's engine, schedule
+     and prompts at full width and depth (42 GB of bf16 weights) with
+     phase 9's gates (one dispatch and one fetch a pass, paged launches
+     = 24 x all-decode steps, every local layer's launch at window 128
+     and every global one's at 0, both with the layer's sink; no
+     incident, full streams), the MoE blocks' share and the kernel over
+     the served cache at a local and a global layer; (c) at an 8-layer
+     cut, the kernel app and the gather app
+     (``attn_block_tkg_kernel_enabled=False``), both bf16, held to an
+     fp32 app (TF32 off) over phase 10's decode steps; (d) phase 10 at 4
+     layers (fp32: ragged == graphs == two-phase == ``generate``).
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13, 14 and the fp32 app of 6)
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -148,7 +169,7 @@ Every line before the last is one JSON object; the last line is
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14) and then prints no ``ok`` line.
+own app; moe: 14; oss: 15) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -210,6 +231,23 @@ QWEN3_30B_A3B = dict(
     decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
     rope_theta=1000000.0, max_position_embeddings=40960, hidden_act="silu",
     sliding_window=None, tie_word_embeddings=False)
+# gpt-oss-20b (HF config.json of openai/gpt-oss-20b): 24 layers
+# alternating sliding (window 128) / full attention, learned sinks, q/k/v
+# and o biases, YaRN, 32 experts of which 4 per token, clamped swiglu
+GPT_OSS_20B = dict(
+    model_type="gpt_oss", hidden_size=2880, intermediate_size=2880,
+    num_hidden_layers=24, num_attention_heads=64, num_key_value_heads=8,
+    head_dim=64, vocab_size=201088, rms_norm_eps=1e-5, rope_theta=150000.0,
+    rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                  "beta_slow": 1.0, "truncate": False,
+                  "original_max_position_embeddings": 4096},
+    max_position_embeddings=131072, initial_context_length=4096,
+    sliding_window=128,
+    layer_types=["sliding_attention", "full_attention"] * 12,
+    num_local_experts=32, num_experts_per_tok=4, experts_per_token=4,
+    swiglu_limit=7.0, attention_bias=True, hidden_act="silu",
+    tie_word_embeddings=False)
+OSS_CHECK_LAYERS = 8           # 15 (c): the cut whose fp32 twin fits
 MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
 #                                and of a mixed pass (8 rows x 512)
 MOE_CONTIG_CHECK_LAYERS = 8    # 14 (e): the cut whose fp32 twin fits
@@ -284,6 +322,12 @@ TOL_MOE_LOGITS_REL = 5e-2
 #   wrong key) sit near 1.4. Phase 6's rule against an fp32 app runs at
 #   the 8-layer cut.
 TOL_MOE_CONTIG_DIRECT = 0.1
+# 15 (a) the SDPA yardstick (the window pre-gathered, the sink as a zero
+#   key whose additive mask is its logit) against the twin: the bf16 mask
+#   rounds the sink logit (2^-9 relative) and SDPA rounds its output;
+#   outputs are below ~4, so a few 1e-2 at most, while a sink left out or
+#   put in the numerator moves outputs by 0.1-1 (sinks are N(0, 1)).
+TOL_SDPA_YARDSTICK = 5e-2
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -826,6 +870,23 @@ def prompts_of(lens, vocab, seed):
     return ids, mask
 
 
+def init_weights(app, seed):
+    """``init_random_weights(seed)``, then the leaves it leaves at zero
+    drawn from the seed too, so their paths carry values: learned sinks
+    N(0, 1), every bias (q/k/v, o, router, experts) N(0, 0.02). A model
+    without such leaves keeps ``init_random_weights``' values."""
+    import torch
+    app.init_random_weights(seed)
+    layers = app.params["layers"]
+    gen = torch.Generator(device=app.device).manual_seed(seed + 1)
+    for name in sorted(layers):
+        if name == "sink":
+            layers[name].normal_(0.0, 1.0, generator=gen)
+        elif name.endswith("bias"):
+            layers[name].normal_(0.0, 0.02, generator=gen)
+    return app
+
+
 def phase_main_path(hf, device, on_card=True):
     import numpy as np
     app = make_app(hf, device, "bfloat16", batch=len(PROMPT_LENS),
@@ -969,19 +1030,25 @@ def _phase_serving(hf, device):
 # Phase 5: timings
 # ---------------------------------------------------------------------------
 
-def kernel_bounds(inputs):
-    """Least time for the kernel's work on the H100: bytes (live K/V rows,
-    q, new_k/new_v, out, lens, the live table entries) over the HBM rate,
-    and operations (QK and PV over the live keys plus the active token)
-    over the peak rate of the page type; returns (ms, "bytes"|"operations")."""
+def kernel_bounds(inputs, window=0, sink=False):
+    """Least time for the kernel's work on the H100: bytes (the live K/V
+    rows, those inside each row's window when ``window`` > 0, q,
+    new_k/new_v, out, lens, the table entries of the live pages, the
+    sinks) over the HBM rate, and operations (QK and PV over the live keys
+    plus the active token) over the peak rate of the page type; returns
+    (ms, "bytes"|"operations")."""
     q, kp = inputs["q"], inputs["k_pages"]
     b, hq, d = q.shape
     bs, hkv = kp.shape[2], kp.shape[3]
     lens = [int(x) for x in inputs["lens"].tolist()]
-    keys = sum(lens)
+    # the kernel reads prior keys kpos < lens with lens - kpos < window
+    live = [min(n, window - 1) if window > 0 else n for n in lens]
+    keys = sum(live)
     kv_bytes = 2 * keys * hkv * d * kp.element_size()
     act_bytes = (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
-    meta_bytes = 4 * b + 4 * sum(-(-n // bs) for n in lens)
+    pages = sum((n - 1) // bs - (n - k) // bs + 1
+                for n, k in zip(lens, live) if k > 0)
+    meta_bytes = 4 * b + 4 * pages + (4 * hq if sink else 0)
     bytes_ms = (kv_bytes + act_bytes + meta_bytes) / HBM_BYTES_PER_S * 1e3
     flops = 4 * (keys + b) * hq * d
     rate = PEAK_FLOPS.get(str(kp.dtype).replace("torch.", ""),
@@ -1009,6 +1076,43 @@ def sdpa_inputs(inputs, layer):
     mask = (pos <= lens[:, None])[:, None, None, :]
     return (inputs["q"][:, :, None, :], k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), mask)
+
+
+def sdpa_window_inputs(inputs, layer, window, sink):
+    """The paged attention with a window and a sink for
+    ``scaled_dot_product_attention``: each row's keys inside its window
+    (all of them when ``window`` is 0) pre-gathered from the pages, the
+    active token last, left-padded to the longest row, then one zero key
+    and zero value column whose additive float mask is the head's sink
+    logit (it joins the denominator only). Returns (q (B, Hq, 1, D), k, v
+    (B, Hkv, n + 1, D), mask (B, Hq, 1, n + 1))."""
+    import torch
+    kp, vp, table = inputs["k_pages"], inputs["v_pages"], inputs[
+        "block_table"]
+    q = inputs["q"]
+    b, hq, d = q.shape
+    bs, hkv = kp.shape[2], kp.shape[3]
+    lens = inputs["lens"].long()
+    longest = int(lens.max()) + 1
+    n = min(window, longest) if window > 0 else longest
+    pos = lens[:, None] - (n - 1) + torch.arange(n, device=q.device)[None]
+    valid = pos >= 0
+    if window > 0:
+        valid &= lens[:, None] - pos < window
+    rows = torch.arange(b, device=q.device)[:, None]
+    slot = pos.clamp(min=0)
+    page = table.long()[rows, slot // bs]
+    k = kp[layer][page, slot % bs].to(q.dtype)           # (B, n, Hkv, D)
+    v = vp[layer][page, slot % bs].to(q.dtype)
+    k[:, -1] = inputs["new_k"]
+    v[:, -1] = inputs["new_v"]
+    zero = torch.zeros((b, 1, hkv, d), dtype=q.dtype, device=q.device)
+    k = torch.cat([k, zero], 1).transpose(1, 2).contiguous()
+    v = torch.cat([v, zero], 1).transpose(1, 2).contiguous()
+    mask = torch.zeros((b, hq, 1, n + 1), dtype=q.dtype, device=q.device)
+    mask[..., :n].masked_fill_(~valid[:, None, None, :], float("-inf"))
+    mask[..., n] = sink.to(q.dtype)[None, :, None]
+    return q[:, :, None, :], k, v, mask
 
 
 def contiguous_sdpa_inputs(inputs, layer, window=0):
@@ -1102,11 +1206,13 @@ def phase_timings(hf, device, app, ids, mask, launches):
     return [paged_kernel_entry(t, launches, "paged_generate")]
 
 
-def time_paged_kernel(app, table, pos, device, seed: int):
+def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
     """The paged kernel over ``app``'s own cache and block ``table`` at
-    lens ``pos`` (last layer, random q and active token): held to its
-    twin, then timed by CUDA-graph replay beside the twin, SDPA over the
-    pre-gathered KV and the bound."""
+    lens ``pos`` (``layer``, default the last, with that layer's window
+    and sink; random q and active token): held to its twin, then timed by
+    CUDA-graph replay beside the twin, SDPA over the pre-gathered KV (with
+    the window and the sink column where the layer has them) and the
+    bound."""
     import torch
     import torch.nn.functional as F
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention
@@ -1124,8 +1230,12 @@ def time_paged_kernel(app, table, pos, device, seed: int):
         k_pages=app.cache["k"], v_pages=app.cache["v"],
         lens=torch.tensor(pos, dtype=torch.int32, device=device),
         block_table=torch.as_tensor(table, device=device))
-    layer = spec.num_layers - 1
+    layer = spec.num_layers - 1 if layer is None else layer
+    window = spec.window(spec.is_local(layer))
+    sink = app.params["layers"]["sink"][layer] if spec.attn_sink else None
     kw = dict(scale=spec.scale)
+    if window or sink is not None:
+        kw.update(window=window, sink=sink)
     err = check_kernel_against_twin(dict(inputs), dict(kw, layer=layer))
     if not err <= TOL_KERNEL_BF16:
         raise AssertionError(f"kernel at main-path shapes: {err}")
@@ -1139,10 +1249,13 @@ def time_paged_kernel(app, table, pos, device, seed: int):
     plain_ms = time_cuda(
         lambda: decode_attention.paged_decode_attention_plain(*args, **kw),
         calls=20)
-    q4, k4, v4, m4 = sdpa_inputs(inputs, layer)
+    if sink is not None:
+        q4, k4, v4, m4 = sdpa_window_inputs(inputs, layer, window, sink)
+    else:
+        q4, k4, v4, m4 = sdpa_inputs(inputs, layer)
     library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=m4, scale=spec.scale, enable_gqa=True))
-    bound_ms, bound_by = kernel_bounds(inputs)
+    bound_ms, bound_by = kernel_bounds(inputs, window, sink is not None)
     bs = app.kv_mgr.spec.block_size
     return {"err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -1156,7 +1269,8 @@ def time_paged_kernel(app, table, pos, device, seed: int):
                 "max_abs_err": err, "kernel_shape": {
                     "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
                     "D": spec.head_dim, "Bs": bs, "lens": list(pos),
-                    "table_width": int(table.shape[1])}}}
+                    "table_width": int(table.shape[1]), "layer": layer,
+                    "window": window, "sink": sink is not None}}}
 
 
 def paged_kernel_entry(t, launches, path):
@@ -1516,15 +1630,15 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
 
 def make_ragged_app(hf, device, dtype, cfg, *, batch=8,
                     output_logits=False, graphs=True, sampling=None,
-                    prefix_caching=True):
-    """The paged app of phases 9-13: seq_len ``cfg["seq_len"]``, block
+                    prefix_caching=True, kernel=None):
+    """The paged app of phases 9-15: seq_len ``cfg["seq_len"]``, block
     ``cfg["block"]`` and a pool of every row's blocks plus one spare per
     row."""
     per_row = cfg["seq_len"] // cfg["block"] + 1
     return make_app(hf, device, dtype, batch=batch, seq_len=cfg["seq_len"],
                     output_logits=output_logits, num_blocks=batch * per_row,
                     graphs=graphs, sampling=sampling,
-                    prefix_caching=prefix_caching)
+                    prefix_caching=prefix_caching, kernel=kernel)
 
 
 def ragged_engine(app, ragged, cfg):
@@ -1659,16 +1773,20 @@ def profile_summary(recs, kind):
 
 def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                          on_card=True, phase="ragged_serving",
-                         fp32_gemm_ms=0.0, before_pass=None):
-    """Phase 9 (and 14 (c) as ``phase="moe_serving"``): the ragged engine
-    at full width and depth, bf16. ``fp32_gemm_ms``: the fp32 GEMM time a
-    traced mixed pass may take (0 for a dense model; the MoE router is
-    fp32 by design); ``before_pass(p)`` runs before pass ``p``. Returns
-    (app, prompts, kernel entries, per-pass records)."""
+                         fp32_gemm_ms=0.0, before_pass=None,
+                         kernel_layers=(-1,)):
+    """Phase 9 (and 14 (c) as ``phase="moe_serving"``, 15 (b) as
+    ``"oss_serving"``): the ragged engine at full width and depth, bf16.
+    ``fp32_gemm_ms``: the fp32 GEMM time a traced mixed pass may take (0
+    for a dense model; the MoE router is fp32 by design);
+    ``before_pass(p)`` runs before pass ``p``; ``kernel_layers``: the
+    layers at which the paged kernel is timed over the served cache (one
+    kernel entry each). Returns (app, prompts, kernel entries, per-pass
+    records)."""
     import numpy as np
     import torch
     app = make_ragged_app(hf, device, "bfloat16", cfg)
-    app.init_random_weights(0)
+    init_weights(app, 0)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in cfg["lens"]]
@@ -1742,10 +1860,14 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                              "ms)")
     if not on_card:
         return app, prompts, [], recs
-    t = time_paged_kernel(app, snap["table"], snap["pos"], device, seed=9)
-    emit({"phase": phase + "_kernel_timings", **t["report"],
-          "launches": launches})
-    return app, prompts, [paged_kernel_entry(t, launches, phase)], recs
+    entries = []
+    for layer in kernel_layers:
+        t = time_paged_kernel(app, snap["table"], snap["pos"], device,
+                              seed=9, layer=layer % layers)
+        emit({"phase": phase + "_kernel_timings", **t["report"],
+              "launches": launches})
+        entries.append(paged_kernel_entry(t, launches, phase))
+    return app, prompts, entries, recs
 
 
 async def _sse_generate(host, port, i, prompt, new_tokens):
@@ -1953,7 +2075,7 @@ def _phase_ragged_fp32(hf, device, cfg, new_tokens, on_card, phase):
     import numpy as np
     import torch
     app = make_ragged_app(hf, device, "float32", cfg, graphs=False)
-    app.init_random_weights(0)
+    init_weights(app, 0)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in cfg["lens"]]
@@ -2867,29 +2989,40 @@ class MoETimer:
 
 def phase_moe_serving(device, layer_times):
     """14 (c): the ragged engine serving Qwen3-30B-A3B at full width and
-    depth, bf16, phase 9's schedule; the MoE blocks' share of each traced
-    mixed pass (CUDA events around each eager block) and, for the
-    all-decode passes (graph replays), 14 (b)'s dense 8-token block x
+    depth, bf16, phase 9's schedule, with the MoE blocks' share
+    (:func:`serve_with_moe_share`, all-decode passes estimated from 14
+    (b)'s dense 8-token block). Returns the paged kernel's entry."""
+    dense = layer_times.get("dense_8_tokens_ms")
+    return serve_with_moe_share(QWEN3_30B_A3B, device, "moe_serving",
+                                lambda app: dense)
+
+
+def serve_with_moe_share(hf, device, phase, dense_ms_of, kernel_layers=(-1,)):
+    """:func:`phase_ragged_serving` of an MoE model at full width and
+    depth, bf16, phase 9's schedule, on a card with nothing else on it;
+    the MoE blocks' share of each traced mixed pass (CUDA events around
+    each eager block) and, for the all-decode passes (graph replays),
+    ``dense_ms_of(app)`` (the device ms of one dense 8-token block) x
     layers over the pass's device time. Returns the paged kernel's
-    entry."""
+    entries."""
     import torch
     from neuronx_distributed_inference_tpu_torch.serving import \
         PagedEngineAdapter
     from neuronx_distributed_inference_tpu_torch.serving.warmup import \
         memory_ledger
-    cfg = QWEN3_30B_A3B
-    check_card_empty("moe_serving")
-    layers = cfg["num_hidden_layers"]
+    check_card_empty(phase)
+    layers = hf["num_hidden_layers"]
+    experts = hf.get("num_experts") or hf["num_local_experts"]
     # the fp32 router's GEMM per mixed pass (8 x 512 rows x H x E x
     # layers) at the fp32 peak, times 4 for a CUDA-core kernel's reach;
     # an fp32 attention or expert product is 100x that
-    router_ms = (4 * 2 * 8 * RAGGED["chunk"] * cfg["hidden_size"]
-                 * cfg["num_experts"] * layers / PEAK_FLOPS["float32"] * 1e3)
+    router_ms = (4 * 2 * 8 * RAGGED["chunk"] * hf["hidden_size"]
+                 * experts * layers / PEAK_FLOPS["float32"] * 1e3)
     with MoETimer() as timer:
         app, _, entries, recs = phase_ragged_serving(
-            cfg, device, cfg=RAGGED, on_card=device.type == "cuda",
-            phase="moe_serving", fp32_gemm_ms=router_ms,
-            before_pass=timer.before_pass)
+            hf, device, cfg=RAGGED, on_card=device.type == "cuda",
+            phase=phase, fp32_gemm_ms=router_ms,
+            before_pass=timer.before_pass, kernel_layers=kernel_layers)
         timer.current = None
         mixed = []
         for r in recs:
@@ -2902,16 +3035,17 @@ def phase_moe_serving(device, layer_times):
     decode = [sum(r["device"].values()) for r in recs
               if r["traced"] and r["kind"] == "decode"]
     per_decode = statistics.fmean(decode) if decode else None
-    dense = layer_times.get("dense_8_tokens_ms")
+    dense = dense_ms_of(app)
     ledger = memory_ledger(PagedEngineAdapter(app, ragged=True))
-    emit({"phase": "moe_serving_moe_share", "mixed_passes": mixed,
+    emit({"phase": phase + "_moe_share", "mixed_passes": mixed,
           "decode_device_ms_per_pass": per_decode,
+          "dense_8_tokens_ms": dense,
           "decode_moe_ms_est": dense * layers if dense else None,
           "decode_moe_share_est": (dense * layers / per_decode
                                    if dense and per_decode else None),
           "ledger_model_gb": ledger["model_bytes"] / 1e9,
           "ledger_kv_pool_gb": ledger["kv"]["pool_bytes"] / 1e9})
-    memory_note("moe_serving")
+    memory_note(phase)
     del app
     free_card()
     return entries
@@ -3104,8 +3238,261 @@ def phase_moe(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the GPT-OSS group, gpt-oss-20b
+# ---------------------------------------------------------------------------
 
-GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe")
+def oss_cut(layers):
+    """gpt-oss-20b cut to its first ``layers`` layers (their layer types
+    with them)."""
+    return dict(GPT_OSS_20B, num_hidden_layers=layers,
+                layer_types=GPT_OSS_20B["layer_types"][:layers])
+
+
+def phase_oss_kernels(device):
+    with fp32_exact():
+        return _phase_oss_kernels(device)
+
+
+def _phase_oss_kernels(device):
+    """15 (a): the paged kernel at gpt-oss-20b's heads (Hq 64 over Hkv 8,
+    D 64), batch 8 at phase 9's lens mid-run, with a sink, at window 128
+    (a local layer) and 0 (a global one), over bf16 and fp32 pages:
+    against its twin at phase 2's tolerances, then timed beside the twin,
+    SDPA over the pre-gathered window with the sink column (itself held
+    to the twin) and the bound of the keys inside each row's window."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    cfg = GPT_OSS_20B
+    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    d = cfg["head_dim"]
+    scale = d ** -0.5
+    gen = torch.Generator(device=device).manual_seed(15)
+    sink = torch.randn((hq,), generator=gen, device=device)
+    lens = [n + RAGGED_TOKENS // 2 for n in RAGGED["lens"]]
+    out = {}
+    for tag, dt, tol in (("bf16", torch.bfloat16, TOL_KERNEL_BF16),
+                         ("fp32", torch.float32, TOL_KERNEL_FP32)):
+        x = paged_inputs(gen, device, b=8, hq=hq, hkv=hkv, d=d, bs=32,
+                         mb=64, lens=lens, act_dtype=dt, page_dtype=dt)
+        args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"],
+                0, x["lens"], x["block_table"])
+        for window in (cfg["sliding_window"], 0):
+            kw = dict(scale=scale, window=window, sink=sink)
+            err = check_kernel_against_twin(x, kw)
+            twin = decode_attention.paged_decode_attention_plain(*args, **kw)
+            q4, k4, v4, m4 = sdpa_window_inputs(x, 0, window, sink)
+            sdpa = F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True)
+            sdpa_err = float((sdpa[:, :, 0].float()
+                              - twin.float()).abs().max())
+            case = f"gpt_oss_20b_window{window}_sink_{tag}"
+            emit({"phase": "oss_kernel_vs_twin",
+                  "kernel": "paged_decode_attention", "case": case,
+                  "geometry": {"Hq": hq, "Hkv": hkv, "D": d},
+                  "max_abs_err": err, "tol": tol,
+                  "sdpa_vs_twin_max_abs": sdpa_err,
+                  "sdpa_tol": TOL_SDPA_YARDSTICK})
+            if not err <= tol:
+                raise AssertionError(f"paged kernel {case}: max abs err "
+                                     f"{err} > {tol}")
+            if not sdpa_err <= TOL_SDPA_YARDSTICK:
+                raise AssertionError(f"SDPA yardstick {case} computes "
+                                     f"another function: {sdpa_err}")
+            out[(tag, window)] = timed_kernel(
+                lambda: decode_attention.paged_decode_attention(*args, **kw),
+                lambda: decode_attention.paged_decode_attention_plain(
+                    *args, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+                kernel_bounds(x, window, sink=True), err,
+                {"B": 8, "Hq": hq, "Hkv": hkv, "D": d, "Bs": 32,
+                 "lens": lens, "window": window, "sink": True,
+                 "page_dtype": tag})
+            del twin, q4, k4, v4, m4, sdpa
+        del x, args
+    for (tag, window), t in out.items():
+        emit({"phase": "oss_kernel_timings",
+              "kernel": "paged_decode_attention", "page_dtype": tag, "window": window,
+              "kernel_us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
+              "bound_by": t["bound_by"], "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3,
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    # comparison launches are not main-path launches
+    reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def oss_dense_block_ms(app):
+    """Device ms of one dense ``moe_block`` of ``app`` (layer 0's experts)
+    on 8 tokens, as an all-decode pass runs it in each layer."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.modules import moe
+    if app.device.type != "cuda":
+        return None
+    w = {k: v[0] for k, v in app.params["layers"].items()}
+    gen = torch.Generator(device=app.device).manual_seed(16)
+    x8 = torch.randn((8, 1, app.spec.hidden_size), generator=gen,
+                     device=app.device).to(app.spec.dtype)
+    return time_cuda(lambda: moe.moe_block(app.spec.moe, x8, w), calls=20)
+
+
+def phase_oss_kernel_vs_gather(hf, device):
+    """15 (c): the kernel path against the gather path at a cut of
+    gpt-oss-20b, bf16: paged ``generate`` of phase 10's new tokens for 4
+    of phase 9's prompts (the window of 128 bites on the local layers);
+    the paged kernel's launches = layers x decode steps; then the same app
+    with ``attn_block_tkg_kernel_enabled=False`` and an fp32 app (TF32
+    off) on the same (upcast) weights are fed the kernel app's tokens.
+    Over the decode steps, the kernel app's mean |logit error| against
+    the fp32 app must be within TOL_CONTIG_VS_FP32 of the gather app's."""
+    import numpy as np
+    import torch
+    lens = RAGGED["lens"][:4]
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=4)
+    new = RAGGED_CHECK_TOKENS
+    steps = new - 1
+    layers = hf["num_hidden_layers"]
+    on_card = device.type == "cuda"
+    app = make_ragged_app(hf, device, "bfloat16", RAGGED, batch=len(lens),
+                          output_logits=True, graphs=False)
+    init_weights(app, 0)
+    reset_launches([app])
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=new,
+                       return_logits=True)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    want = layers * steps if on_card else 0
+    gen = out["generated"]
+    logits = {"kernel": out["logits"][1:]}
+    del out
+    if launches != want:
+        raise AssertionError(f"oss_kernel_vs_gather: paged kernel launches "
+                             f"{launches} != {layers} x {steps}")
+    if gen.shape != (len(lens), new) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"oss_kernel_vs_gather: bad tokens {gen.shape}")
+    params = app.params
+    del app
+    for name, dtype in (("gather", "bfloat16"), ("fp32_reference",
+                                                 "float32")):
+        ref = make_ragged_app(hf, device, dtype, RAGGED, batch=len(lens),
+                              output_logits=True, graphs=False, kernel=False)
+        if dtype == "float32":
+            ref.params = _upcast(params)
+            del params
+            if on_card:
+                free_card()
+        else:
+            ref.params = params
+        with (fp32_exact() if dtype == "float32"
+              else contextlib.nullcontext()):
+            logits[name] = ref.generate(
+                ids, attention_mask=mask, max_new_tokens=new,
+                return_logits=True, teacher_tokens=gen[:, :steps])[
+                    "logits"][1:]
+        del ref
+    for name, steps_logits in logits.items():
+        if not all(np.isfinite(x).all() for x in steps_logits):
+            raise AssertionError(f"oss_kernel_vs_gather: non-finite {name}")
+
+    def mean_abs(a, b):
+        return float(sum(np.abs(x - y).sum(dtype=np.float64)
+                         for x, y in zip(logits[a], logits[b]))
+                     / sum(x.size for x in logits[a]))
+    k32 = mean_abs("kernel", "fp32_reference")
+    g32 = mean_abs("gather", "fp32_reference")
+    emit({"phase": "oss_kernel_vs_gather", "layers": layers,
+          "prompt_lens": list(lens), "decode_steps": steps,
+          "launches": launches, "expected_launches": want,
+          "kernel_vs_gather_max": max(float(np.abs(x - y).max()) for x, y
+                                      in zip(logits["kernel"],
+                                             logits["gather"])),
+          "kernel_vs_fp32_mean": k32, "gather_vs_fp32_mean": g32,
+          "fp32_logit_std": float(np.std(logits["fp32_reference"][0])),
+          "factor": TOL_CONTIG_VS_FP32})
+    if not k32 <= TOL_CONTIG_VS_FP32 * g32:
+        raise AssertionError(
+            f"oss_kernel_vs_gather: the kernel app's mean |logit error| vs "
+            f"fp32 {k32} exceeds {TOL_CONTIG_VS_FP32} x the gather app's "
+            f"{g32}")
+
+
+class PagedArgsSpy:
+    """The distinct (layer, window, sink given) of the paged kernel's
+    launches while it is active, eager launches and launches recorded into
+    a CUDA graph alike (a replay repeats what its capture recorded); on
+    the CPU, of its plain twin's calls. It listens where the wrapper hands
+    its arguments to the launch, so the wrapper and its counts stay as
+    they are."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.ops import \
+            decode_attention as da
+        self._da = da
+        self._split_k = da._split_k
+        self._plain = da.paged_decode_attention_plain
+        self.calls = set()
+
+        def split_k(wrapper, fn, q, hkv, splits, ptrs, ints, sink, *a, **k):
+            if wrapper is da.paged_decode_attention:
+                # ints: [b, layer, pages, bs, hkv, g, d, mb, splits, window]
+                self.calls.add((ints[1], ints[9], sink is not None))
+            return self._split_k(wrapper, fn, q, hkv, splits, ptrs, ints,
+                                 sink, *a, **k)
+
+        def plain(*a, **k):
+            self.calls.add((int(a[5]), int(k.get("window", 0)),
+                            k.get("sink") is not None))
+            return self._plain(*a, **k)
+        da._split_k, da.paged_decode_attention_plain = split_k, plain
+        return self
+
+    def __exit__(self, *exc):
+        self._da._split_k = self._split_k
+        self._da.paged_decode_attention_plain = self._plain
+
+
+def check_layer_args(phase, calls, hf):
+    """Gate: every layer's paged-kernel calls took that layer's window
+    (the sliding window on local layers, 0 on global ones) and its
+    sink."""
+    window = hf["sliding_window"]
+    want = {(i, window if t == "sliding_attention" else 0, True)
+            for i, t in enumerate(hf["layer_types"])}
+    emit({"phase": phase + "_kernel_args",
+          "calls": sorted(calls), "expected": sorted(want)})
+    if calls != want:
+        raise AssertionError(f"{phase}: paged kernel calls by (layer, "
+                             f"window, sink) {sorted(calls - want)[:4]} "
+                             f"beside {sorted(want - calls)[:4]}")
+
+
+def phase_oss(device):
+    """Group ``oss`` (phase 15 (a)-(d)); returns its kernels-line
+    entries: the paged kernel over the served cache at a local and a
+    global layer, with this run's launches."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    phase_oss_kernels(device)
+    memory_note("oss_kernels")
+    with PagedArgsSpy() as spy:
+        entries = serve_with_moe_share(GPT_OSS_20B, device, "oss_serving",
+                                       oss_dense_block_ms,
+                                       kernel_layers=(-2, -1))
+    check_layer_args("oss_serving", spy.calls, GPT_OSS_20B)
+    phase_oss_kernel_vs_gather(oss_cut(OSS_CHECK_LAYERS), device)
+    memory_note("oss_kernel_vs_gather")
+    free_card()
+    phase_ragged_fp32(oss_cut(4), device, cfg=RAGGED,
+                      on_card=device.type == "cuda", phase="oss_fp32")
+    memory_note("oss_fp32")
+    free_card()
+    return entries
+
+
+GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss")
 
 
 def main(argv=None) -> int:
@@ -3174,6 +3561,9 @@ def main(argv=None) -> int:
     if "moe" in only:
         free_card()
         kernels += phase_moe(device)
+    if "oss" in only:
+        free_card()
+        kernels += phase_oss(device)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"gpu": gpu})

@@ -4,11 +4,13 @@
 A family is a class with ``config_cls``, ``build_spec(config)`` and
 ``convert_hf_state_dict(sd, spec)`` (HF numpy state dict -> the stacked
 host parameter tree). The port carries the Llama-shaped decoder: the
-Llama, Mistral and Qwen3 families (dense) and the Qwen3-MoE and Mixtral
-families (MoE). Families override the reference's hooks
+Llama, Mistral and Qwen3 families (dense) and the Qwen3-MoE, Mixtral and
+GPT-OSS families (MoE). Families override the reference's hooks
 ``convert_mlp_weights`` (the MoE families, through
-``convert_moe_weights``) and ``convert_extra_layer_weights``; the per-head
-q/k norms convert when the spec has them."""
+``convert_moe_weights`` or their own layout) and
+``convert_extra_layer_weights`` (GPT-OSS: sinks); the per-head q/k norms
+and the q/k/v and o biases (family.py:120-132) convert when the spec has
+them."""
 
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ def register_family(*names: str):
 
 def get_family(name: str) -> Type["DecoderFamily"]:
     # their imports register them
-    from . import llama, mistral, mixtral, qwen3, qwen3_moe  # noqa: F401
+    from . import (gpt_oss, llama, mistral, mixtral, qwen3,  # noqa: F401
+                   qwen3_moe)
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; known: "
                        f"{sorted(_REGISTRY)}")
@@ -105,6 +108,18 @@ class DecoderFamily:
         layers.update(cls.convert_mlp_weights(get, layer_stack, spec))
         layers.update(cls.convert_extra_layer_weights(get, layer_stack,
                                                       spec))
+        if spec.qkv_bias:
+            # fused into qkv_bias by model_base.fuse_qkv_host
+            layers["q_bias"] = layer_stack(
+                lp + "self_attn.q_proj.bias",
+                lambda b: place_q_weight(np.asarray(b), g, D))
+            for name in ("k", "v"):
+                layers[name + "_bias"] = layer_stack(
+                    lp + f"self_attn.{name}_proj.bias",
+                    lambda b: replicate_kv_weight(np.asarray(b), g, D))
+        if spec.o_bias:
+            layers["o_bias"] = layer_stack(lp + "self_attn.o_proj.bias",
+                                           ident)
         if spec.qk_norm:
             layers["q_norm"] = layer_stack(lp + "self_attn.q_norm.weight",
                                            ident)

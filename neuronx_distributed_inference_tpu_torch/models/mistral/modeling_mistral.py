@@ -1,9 +1,10 @@
 """Mistral family (counterpart:
 ``neuronx_distributed_inference_tpu/models/mistral/modeling_mistral.py:14-36``).
 Llama-shaped with an optional uniform sliding window (Mistral-7B-v0.1:
-window 4096). A non-uniform ``layer_types`` (alternating local and global
-layers) needs the mixed cache, which the port does not run yet:
-``spec_from_config`` refuses it."""
+window 4096). A non-uniform ``layer_types`` becomes a layer pattern
+(alternating local and global layers); on the contiguous cache with
+``seq_len`` above the window it needs the mixed cache, which the port
+does not run yet: ``spec_from_config`` refuses it (ROADMAP A10)."""
 
 from __future__ import annotations
 

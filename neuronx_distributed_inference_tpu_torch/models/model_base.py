@@ -1,7 +1,8 @@
 """Decoder over the contiguous and the paged KV cache (counterpart:
 ``neuronx_distributed_inference_tpu/models/model_base.py`` — ``ACT_FNS``
 :66, ``DecoderSpec`` :98, ``pad_vocab`` :350, the parameter specs :360-590
-(``_moe_param_specs`` :478), ``fuse_qkv_host`` :618, ``attn_inputs`` :720,
+(``_attn_param_specs`` :360, ``_moe_param_specs`` :478), ``fuse_qkv_host``
+:618, ``attn_inputs`` :720,
 ``_layer_body`` :753, ``_mlp_block`` :889 (dense GLU or the MoE block),
 ``_attn_block`` :943-1280 (the per-head q/k RMSNorm :1014-1024, paged
 :1058-1103, prefill :1104-1156, decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
@@ -11,10 +12,16 @@
 ``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
 ``paged_ragged_step`` :2222, ``spec_from_config`` :2346).
 
-The layer stack is uniform: every layer has a dense GLU MLP, or every
-layer a routed mixture of experts (``spec.moe``, ``modules/moe.py``).
-Mixed dense / MoE stacks (the reference's ``first_dense`` and
-``moe_pattern``) are refused at spec time (ROADMAP A14).
+The layer stack is uniform in its MLP: every layer has a dense GLU MLP,
+or every layer a routed mixture of experts (``spec.moe``,
+``modules/moe.py``). Mixed dense / MoE stacks (the reference's
+``first_dense`` and ``moe_pattern``) are refused at spec time (ROADMAP
+A14). Attention may alternate: with a ``layer_pattern`` (GPT-OSS) a local
+layer attends within ``sliding_window`` and a global layer over the whole
+context, each over the same cache (the reference's mixed per-layer cache,
+picked by the contiguous app for ``seq_len > sliding_window``, is refused
+until ROADMAP A10). Learned per-head sinks join every softmax denominator
+(``attn_sink``), and q/k/v and o projections may carry biases.
 
 The model is a set of plain functions over a dict of parameter tensors
 laid out as the JAX package's tree (stacked ``(L, …)`` layer leaves, fused
@@ -48,7 +55,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +119,17 @@ class DecoderSpec:
     # routed mixture of experts in every layer's MLP slot; then
     # ``intermediate_size`` is the per-expert intermediate
     moe: Optional[moe_mod.MoESpec] = None
+    # per-layer attention (gpt-oss alternating sliding / full layers):
+    # layer_pattern[i] True = layer i is LOCAL (attends within
+    # sliding_window), False = global (whole context); None = uniform
+    # (sliding_window, if set, applies to every layer)
+    layer_pattern: Optional[Tuple[bool, ...]] = None
+    # learned per-head softmax sinks: a (L, Hq) fp32 "sink" leaf whose
+    # logit joins the softmax denominator only
+    attn_sink: bool = False
+    # biases of the fused q/k/v projection and of o_proj
+    qkv_bias: bool = False
+    o_bias: bool = False
 
     @property
     def scale(self) -> float:
@@ -125,6 +143,18 @@ class DecoderSpec:
     @property
     def kv_size(self) -> int:
         return self.gqa.num_kv_heads * self.head_dim
+
+    def is_local(self, layer: int) -> bool:
+        """Whether ``layer`` is a local layer of the ``layer_pattern``."""
+        return self.layer_pattern is not None and self.layer_pattern[layer]
+
+    def window(self, is_local: bool) -> int:
+        """The sliding window of a layer (0 = none): ``sliding_window`` on
+        every layer of a uniform stack; with a ``layer_pattern`` on local
+        layers only (model_base.py:1071-1092)."""
+        if self.layer_pattern is None or is_local:
+            return self.sliding_window
+        return 0
 
 
 def pad_vocab(vocab: int, tp: int = 1, multiple: int = 128) -> int:
@@ -165,20 +195,37 @@ def _moe_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     return layers
 
 
+def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
+    """The attention half of a layer (model_base.py:360-432): norms, the
+    fused q/k/v and o projections, and the optional q/k norms, biases
+    (zeros) and fp32 sinks (zeros)."""
+    H, dt = spec.hidden_size, spec.dtype
+    qkv = spec.q_size + 2 * spec.kv_size
+    layers = {
+        "input_norm": ParamSpec((L, H), dt, "ones"),
+        "post_norm": ParamSpec((L, H), dt, "ones"),
+        "qkv_proj": ParamSpec((L, H, qkv), dt),
+        "o_proj": ParamSpec((L, spec.q_size, H), dt),
+    }
+    if spec.qkv_bias:
+        layers["qkv_bias"] = ParamSpec((L, qkv), dt, "zeros")
+    if spec.qk_norm:
+        layers["q_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+        layers["k_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+    if spec.o_bias:
+        layers["o_bias"] = ParamSpec((L, H), dt, "zeros")
+    if spec.attn_sink:
+        layers["sink"] = ParamSpec((L, spec.gqa.num_q_heads), torch.float32,
+                                   "zeros")
+    return layers
+
+
 def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     """Shapes of the parameter tree: the counterpart's tree for a uniform
     stack with fused qkv."""
     L, H, I = spec.num_layers, spec.hidden_size, spec.intermediate_size
     dt = spec.dtype
-    layers: Dict[str, Any] = {
-        "input_norm": ParamSpec((L, H), dt, "ones"),
-        "post_norm": ParamSpec((L, H), dt, "ones"),
-        "qkv_proj": ParamSpec((L, H, spec.q_size + 2 * spec.kv_size), dt),
-        "o_proj": ParamSpec((L, spec.q_size, H), dt),
-    }
-    if spec.qk_norm:
-        layers["q_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
-        layers["k_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+    layers: Dict[str, Any] = _attn_param_specs(spec, L)
     if spec.moe is None:
         layers.update({
             "gate_proj": ParamSpec((L, H, I), dt),
@@ -213,12 +260,17 @@ def init_params(spec: DecoderSpec, seed: int,
 
 def fuse_qkv_host(host: Dict[str, Any]) -> Dict[str, Any]:
     """Fuse per-projection q/k/v host weights (as the family converter
-    emits them, matching the checkpoint) into the stacked ``qkv_proj``."""
+    emits them, matching the checkpoint) into the stacked ``qkv_proj``, and
+    their biases into ``qkv_bias`` in the same order."""
     d = host.get("layers")
     if isinstance(d, dict) and {"q_proj", "k_proj", "v_proj"} <= set(d):
         d["qkv_proj"] = np.concatenate(
             [np.asarray(d.pop("q_proj")), np.asarray(d.pop("k_proj")),
              np.asarray(d.pop("v_proj"))], axis=-1)
+        if "q_bias" in d:
+            d["qkv_bias"] = np.concatenate(
+                [np.asarray(d.pop("q_bias")), np.asarray(d.pop("k_bias")),
+                 np.asarray(d.pop("v_bias"))], axis=-1)
     return host
 
 
@@ -228,10 +280,32 @@ def fuse_qkv_host(host: Dict[str, Any]) -> Dict[str, Any]:
 
 def attn_inputs(spec: DecoderSpec, position_ids: torch.Tensor,
                 inv_freq: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-    """RoPE cos/sin for the step; each phase adds its mask or kernel
-    inputs."""
+    """RoPE cos/sin for the step; each phase adds its mask
+    (:func:`_add_masks`) or kernel inputs. Local and global layers share
+    one rotation (the reference's ``local_rope`` waits for the families
+    that set it)."""
     cos, sin = rope_cos_sin(position_ids, spec.rope, inv_freq)
     return {"cos": cos, "sin": sin}
+
+
+def _add_masks(spec: DecoderSpec, ai, make_mask) -> None:
+    """``ai["mask"] = make_mask(window)`` at the uniform window; with a
+    ``layer_pattern`` the global mask ``make_mask(0)`` and the local
+    ``ai["mask_l"] = make_mask(sliding_window)`` (model_base.py:720-750).
+    Each layer picks its own (:func:`_layer_mask`)."""
+    if spec.layer_pattern is None:
+        ai["mask"] = make_mask(spec.sliding_window)
+    else:
+        ai["mask"] = make_mask(0)
+        ai["mask_l"] = make_mask(spec.sliding_window)
+
+
+def _layer_mask(ai, is_local: bool):
+    return ai["mask_l"] if is_local else ai["mask"]
+
+
+def _sink(spec: DecoderSpec, layer_w):
+    return layer_w["sink"] if spec.attn_sink else None
 
 
 def _qkv(spec: DecoderSpec, h, layer_w, ai):
@@ -240,6 +314,8 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai):
     b, t, _ = h.shape
     g = spec.gqa
     qkv = h @ layer_w["qkv_proj"]
+    if spec.qkv_bias:
+        qkv = qkv + layer_w["qkv_bias"]
     q, k, v = torch.split(qkv, [spec.q_size, spec.kv_size, spec.kv_size],
                           dim=-1)
     q = q.reshape(b, t, g.num_q_heads, spec.head_dim)
@@ -253,9 +329,11 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai):
     return q, k, v.reshape(b, t, g.num_kv_heads, spec.head_dim)
 
 
-def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
+def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
+                is_local: bool):
     """Paged branch (model_base.py:1058-1103): write at ``slot_mapping``,
-    then the paged kernel or the block-table gather + ``mha``."""
+    then the paged kernel (the layer's window as a Python int, the sink)
+    or the block-table gather + ``mha``."""
     kc, vc = cache["k"], cache["v"]
     bkv.write_slots_at_layer(kc, kv.quantize_kv(k, kc.dtype, spec.kv_scale),
                              li, ai["slot_mapping"])
@@ -267,17 +345,19 @@ def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
         return decode_attention.paged_decode_attention(
             q[:, 0].contiguous(), kc, vc, k[:, 0].contiguous(),
             v[:, 0].contiguous(), li, ai["lens"], ai["block_table"],
-            scale=spec.scale, window=spec.sliding_window,
+            scale=spec.scale, window=spec.window(is_local), sink=sink,
             kv_scale=spec.kv_scale)[:, None]
     bt = ai["block_table"]
     k_all = kv.dequantize_kv(bkv.gather_block_kv(bkv.read_layer(kc, li), bt),
                              q.dtype, spec.kv_scale)
     v_all = kv.dequantize_kv(bkv.gather_block_kv(bkv.read_layer(vc, li), bt),
                              q.dtype, spec.kv_scale)
-    return attn_ops.mha(q, k_all, v_all, ai["mask"], spec.scale)
+    return attn_ops.mha(q, k_all, v_all, _layer_mask(ai, is_local),
+                        spec.scale, sink=sink)
 
 
-def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
+def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
+                  is_local: bool):
     """Contiguous prefill branch (model_base.py:1104-1156): attend within
     the window (flash kernel or masked ``mha``), then write the window
     into the cache rows ``seq_ids``."""
@@ -285,7 +365,8 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
         out = flash_attention.flash_attention(q, k, v, scale=spec.scale,
                                               window=spec.sliding_window)
     else:
-        out = attn_ops.mha(q, k, v, ai["mask"], spec.scale)
+        out = attn_ops.mha(q, k, v, _layer_mask(ai, is_local), spec.scale,
+                           sink=sink)
     for name, x, kt in (("k", k, True), ("v", v, False)):
         c = cache[name]
         kv.write_prefill_at_layer(
@@ -294,7 +375,8 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
     return out
 
 
-def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
+def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
+                 is_local: bool):
     """Contiguous decode branch (model_base.py:1157-1272). Returns the
     attention output and, under the chunked side buffer, the step's
     (k, v) for the end-of-step side write."""
@@ -314,7 +396,8 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
         out = decode_attention.decode_attention_stacked(
             q[:, 0].contiguous(), kc, vc, k[:, 0].contiguous(),
             v[:, 0].contiguous(), li, ai["lens"], scale=spec.scale,
-            window=spec.sliding_window, kv_scale=spec.kv_scale)[:, None]
+            window=spec.window(is_local), sink=sink,
+            kv_scale=spec.kv_scale)[:, None]
         return out, None
     view = ai.get("kv_view")
     k_layer = kv.read_layer_hl(kc, li)                 # (B, H, D, S)
@@ -330,9 +413,11 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai):
     if side is not None:
         out = attn_ops.mha_decode_merged(
             q, k_all, v_all, ai["mask"], side[0][li], side[1][li],
-            ai["mask_side"], k.to(q.dtype), v.to(q.dtype), spec.scale)
+            ai["mask_side"], k.to(q.dtype), v.to(q.dtype), spec.scale,
+            sink=sink)
         return out, (k, v)
-    return attn_ops.mha_hl(q, k_all, v_all, ai["mask"], spec.scale), None
+    return attn_ops.mha_hl(q, k_all, v_all, _layer_mask(ai, is_local),
+                           spec.scale, sink=sink), None
 
 
 def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str):
@@ -348,18 +433,24 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str):
 def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
                 phase: str):
     """One pre-norm transformer layer; returns (hidden, pending side
-    write or None)."""
+    write or None). Layer ``li`` takes its own window and mask (local or
+    global, model_base.py:1327) and its sink."""
     h = rms_norm(hidden, layer_w["input_norm"], spec.rms_eps)
     q, k, v = _qkv(spec, h, layer_w, ai)
     pending = None
+    args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w),
+            spec.is_local(li))
     if phase == "decode":
-        attn, pending = _decode_attn(spec, q, k, v, cache, li, ai)
+        attn, pending = _decode_attn(*args)
     elif phase == "prefill":
-        attn = _prefill_attn(spec, q, k, v, cache, li, ai)
+        attn = _prefill_attn(*args)
     else:
-        attn = _paged_attn(spec, q, k, v, cache, li, ai)
+        attn = _paged_attn(*args)
     b, t = h.shape[:2]
-    hidden = hidden + attn.reshape(b, t, -1) @ layer_w["o_proj"]
+    o = attn.reshape(b, t, -1) @ layer_w["o_proj"]
+    if spec.o_bias:
+        o = o + layer_w["o_bias"]
+    hidden = hidden + o
     h = rms_norm(hidden, layer_w["post_norm"], spec.rms_eps)
     return hidden + _mlp_block(spec, h, layer_w, phase), pending
 
@@ -410,12 +501,14 @@ def _cache_ok(spec: DecoderSpec, cache_dtype: torch.dtype) -> bool:
 # ---------------------------------------------------------------------------
 
 def use_flash_prefill(spec: DecoderSpec, bucket: int) -> bool:
-    """The prefill branch's kernel gate (model_base.py:1111-1118; the
-    layer-pattern, sink, alibi, MLA, CP and SP conditions are refused at
-    spec time, and the contiguous prefill always feeds arange
-    positions)."""
-    return spec.flash_prefill and flash_attention.supports(
-        bucket, spec.head_dim, has_sink=False, chunk=0)
+    """The prefill branch's kernel gate (model_base.py:1110-1118): no
+    layer pattern and no sink (the kernel takes one static window and no
+    sink); the alibi, MLA, CP and SP conditions are refused at spec time,
+    and the contiguous prefill always feeds arange positions."""
+    return (spec.flash_prefill and spec.layer_pattern is None
+            and not spec.attn_sink
+            and flash_attention.supports(bucket, spec.head_dim,
+                                         has_sink=False, chunk=0))
 
 
 def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
@@ -474,8 +567,8 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     if not ai["flash"]:
         # padded positions attend causally to themselves: harmless, their
         # outputs are discarded
-        ai["mask"] = attn_ops.prefill_causal_mask(position_ids,
-                                                  spec.sliding_window)
+        _add_masks(spec, ai, lambda w: attn_ops.prefill_causal_mask(
+            position_ids, w))
     ai["seq_ids"] = seq_ids
     ai["identity"] = not tpu_cfg.is_continuous_batching
     hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
@@ -499,9 +592,9 @@ def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
     if ai["use_kernel"]:
         ai["lens"] = position_ids[:, 0].to(torch.int32).contiguous()
     else:
-        ai["mask"] = attn_ops.decode_mask(
-            position_ids, kv_view or kv.cache_len_of(cache),
-            spec.sliding_window)
+        cache_len = kv_view or kv.cache_len_of(cache)
+        _add_masks(spec, ai, lambda w: attn_ops.decode_mask(
+            position_ids, cache_len, w))
     return ai
 
 
@@ -531,17 +624,18 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     (model_base.py:1939). first_tokens/position_ids (B,). Returns
     {"tokens": (B, num_steps)}.
 
-    Full-attention models under a static batch over the whole cache take
-    the chunked side-buffer branch (:1964-2038): the big cache is only
-    read during the chunk; each step's K/V go to small side buffers,
-    committed with ``commit_chunk`` once at the end. Everything else steps
-    through :func:`token_generation_step`."""
+    Full-attention models without sinks under a static batch over the
+    whole cache take the chunked side-buffer branch (:1964-2038): the big
+    cache is only read during the chunk; each step's K/V go to small side
+    buffers, committed with ``commit_chunk`` once at the end. Everything
+    else steps through :func:`token_generation_step`."""
     b = first_tokens.shape[0]
     no_logits = dataclasses.replace(tpu_cfg, output_logits=False)
     chunkable = (num_steps > 1 and not tpu_cfg.is_continuous_batching
                  and b == cache["k"].shape[1]
                  and spec.decode_kernel is not True
-                 and not spec.sliding_window > 0)
+                 and not (spec.attn_sink or spec.sliding_window > 0
+                          or spec.layer_pattern is not None))
     tok, pos = first_tokens, position_ids.long()
     toks = []
     if not chunkable:
@@ -619,8 +713,8 @@ def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
         ai["block_table"] = block_table.to(torch.int32).contiguous()
     else:
         kv_len = block_table.shape[1] * cache["k"].shape[2]
-        ai["mask"] = attn_ops.decode_mask(position_ids, kv_len,
-                                          spec.sliding_window)
+        _add_masks(spec, ai, lambda w: attn_ops.decode_mask(
+            position_ids, kv_len, w))
     return run_layers(spec, params, cache, _embed(params, input_ids), ai,
                       "paged")
 
@@ -922,18 +1016,34 @@ def _moe_layout_refusals(tcfg: TpuConfig) -> List[str]:
             for knob in MOE_DEGREES[2:] if getattr(mc, knob, None) is not None]
 
 
-def _rolling_refusal(tcfg: TpuConfig, window: int) -> Optional[str]:
+def _rolling_refusal(tcfg: TpuConfig, window: int,
+                     uniform: bool) -> Optional[str]:
     """The rolling-cache decision of model_base.py:2513-2538: the reason
     the port refuses a config for which the JAX package would keep only
-    ``window`` cache slots, else None."""
+    ``window`` cache slots, else None (``uniform``: no layer pattern)."""
     if tcfg.rolling_kv_cache:
         return "rolling_kv_cache=True"
-    blocked = (window <= 0 or tcfg.is_block_kv_layout
+    blocked = (window <= 0 or not uniform or tcfg.is_block_kv_layout
                or tcfg.flash_decoding_enabled)
     if tcfg.rolling_kv_cache is None and not blocked \
             and tcfg.seq_len > window:
         return (f"sliding_window {window} < seq_len {tcfg.seq_len} "
                 "(set rolling_kv_cache=False to keep the full cache)")
+    return None
+
+
+def _mixed_refusal(tcfg: TpuConfig, window: int,
+                   layer_pattern) -> Optional[str]:
+    """The mixed per-layer cache decision of model_base.py:2539-2552 (its
+    speculation, windowed-encoding, flash-decoding and tensor-capture
+    conditions are refused before this): the reason the port refuses a
+    config for which the JAX package would give local layers rolling
+    window-sized rows, else None."""
+    if (layer_pattern is not None and window > 0
+            and tcfg.seq_len > window and not tcfg.is_block_kv_layout):
+        return (f"the mixed per-layer KV cache (a layer pattern with "
+                f"sliding_window {window} < seq_len {tcfg.seq_len} on the "
+                "contiguous cache; ROADMAP A10)")
     return None
 
 
@@ -944,13 +1054,15 @@ def spec_from_config(config: InferenceConfig,
                      moe: Optional[moe_mod.MoESpec] = None,
                      qk_norm: bool = False,
                      intermediate_size: Optional[int] = None,
-                     first_dense: int = 0, moe_pattern=None
-                     ) -> DecoderSpec:
+                     first_dense: int = 0, moe_pattern=None,
+                     attn_sink: bool = False, qkv_bias: bool = False,
+                     o_bias: bool = False) -> DecoderSpec:
     """DecoderSpec from the HF-style attributes of an InferenceConfig
     (families pass ``sliding_window`` / ``layer_pattern`` /
     ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
-    ``first_dense`` / ``moe_pattern`` as the counterpart's overrides).
-    Raises :class:`ConfigurationError` for what the port does not run yet,
+    ``first_dense`` / ``moe_pattern`` / ``attn_sink`` / ``qkv_bias`` /
+    ``o_bias`` as the counterpart's overrides). Raises
+    :class:`ConfigurationError` for what the port does not run yet,
     including every config for which the JAX package would pick the
     rolling or mixed cache."""
     tcfg = config.tpu_config
@@ -959,7 +1071,7 @@ def spec_from_config(config: InferenceConfig,
     if tp != 1:
         bad.append(f"tp_degree={tp}")
     if layer_pattern is not None:
-        bad.append("a per-layer attention pattern (layer_types)")
+        layer_pattern = tuple(bool(x) for x in layer_pattern)
     if attn_chunk:
         bad.append("chunked attention")
     if moe is not None:
@@ -967,9 +1079,12 @@ def spec_from_config(config: InferenceConfig,
         if first_dense or moe_pattern is not None:
             bad.append("a mixed dense / MoE layer stack (first_dense, "
                        "moe_pattern; ROADMAP A14)")
-    roll = _rolling_refusal(tcfg, sliding_window)
+    roll = _rolling_refusal(tcfg, sliding_window, layer_pattern is None)
     if roll:
         bad.append("the rolling KV cache: " + roll)
+    mixed = _mixed_refusal(tcfg, sliding_window, layer_pattern)
+    if mixed:
+        bad.append(mixed)
     if bad:
         raise ConfigurationError(
             "the PyTorch port does not run these yet: " + ", ".join(bad))
@@ -985,6 +1100,7 @@ def spec_from_config(config: InferenceConfig,
         raise ConfigurationError(
             f"rope scaling {rope_type!r} is not ported yet "
             f"(supported: {SUPPORTED_SCALING})")
+    attention_factor = rope_scaling.get("attention_factor")
     rope = RopeConfig(
         head_dim=head_dim,
         rope_theta=float(getattr(config, "rope_theta", 10000.0)),
@@ -997,6 +1113,13 @@ def spec_from_config(config: InferenceConfig,
             rope_scaling.get("original_max_position_embeddings")
             or getattr(config, "original_max_position_embeddings", None)
             or getattr(config, "max_position_embeddings", 8192)),
+        beta_fast=float(rope_scaling.get("beta_fast") or 32.0),
+        beta_slow=float(rope_scaling.get("beta_slow") or 1.0),
+        mscale=float(rope_scaling.get("mscale") or 0.0),
+        mscale_all_dim=float(rope_scaling.get("mscale_all_dim") or 0.0),
+        attention_factor=(float(attention_factor)
+                          if attention_factor is not None else None),
+        truncate=bool(rope_scaling.get("truncate", True)),
     )
     vocab = config.vocab_size
     return DecoderSpec(
@@ -1022,6 +1145,10 @@ def spec_from_config(config: InferenceConfig,
         kv_scale=(tcfg.kv_cache_scale if tcfg.kv_cache_quant else None),
         qk_norm=bool(qk_norm),
         moe=moe,
+        layer_pattern=layer_pattern,
+        attn_sink=bool(attn_sink),
+        qkv_bias=bool(qkv_bias),
+        o_bias=bool(o_bias),
     )
 
 

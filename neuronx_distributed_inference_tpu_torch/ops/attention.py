@@ -33,7 +33,8 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor,
-             alpha: Optional[float] = None) -> torch.Tensor:
+             alpha: Optional[float] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched product with fp32 output, (N, M, K) x (N, K, P), times
     ``alpha`` when given (the scores' scale, applied in the product's fp32
     epilogue: one rounding of alpha * sum, as a separate fp32 multiply
@@ -44,15 +45,18 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor,
     ``preferred_element_type=float32``); nothing is copied to fp32. Every
     other pair, and every pair on the CPU (which has no ``.dtype`` kernel),
     multiplies fp32 copies: a product of two bf16 values is exact in fp32,
-    so the two routes differ only in the order of the fp32 sums."""
+    so the two routes differ only in the order of the fp32 sums. With
+    ``alpha``, ``out`` may be given: an fp32 (N, M, P) view whose rows may
+    be strided (a product writes rows of a wider buffer in place)."""
     low = (a.device.type == "cuda" and a.dtype == b.dtype
            and a.dtype in (torch.bfloat16, torch.float16))
     if alpha is None:
         if low:
             return torch.bmm(a, b, out_dtype=torch.float32)
         return torch.bmm(a.float(), b.float())
-    out = torch.empty((a.shape[0], a.shape[1], b.shape[2]),
-                      dtype=torch.float32, device=a.device)
+    if out is None:
+        out = torch.empty((a.shape[0], a.shape[1], b.shape[2]),
+                          dtype=torch.float32, device=a.device)
     # beta = 0: the uninitialised ``out`` is not read
     if low:
         return torch.baddbmm(out, a, b, beta=0.0, alpha=alpha,
@@ -74,28 +78,42 @@ def _core(q: torch.Tensor, kt: torch.Tensor, vv: torch.Tensor,
     """The attention core over GQA groups flattened into the batch: q (B,
     T, Hq, D), kt (B * Hkv, D, S) and vv (B * Hkv, S, Dv) -> (B, T, Hq,
     Dv). Besides the products the fp32 scores take the mask in place and
-    one softmax (over the sink column too, where there is one); the scale
-    rides the score product's epilogue."""
+    one softmax; the scale rides the score product's epilogue. A sink
+    joins the softmax as one more column of the scores' buffer: the score
+    product writes the rows of a buffer ``s + 1`` wide (rounded up to 32
+    bytes, so its fp32 and bf16 rows stay 16-byte aligned for the
+    products; the padding at NEG_INF) whose column ``s`` holds the head's
+    sink logit, so the same three contiguous passes (mask, softmax, cast)
+    run with or without it; the products read only the first ``s``
+    columns of the probabilities."""
     b, t, hq, d = q.shape
     n, _, s = kt.shape
     hkv = n // b
     g = hq // hkv
     qg = (q.reshape(b, t, hkv, g, d).permute(0, 2, 3, 1, 4)
           .reshape(n, g * t, d))
-    scores = _bmm_f32(qg, kt, scale)                    # (B*Hkv, G*T, S)
-    _softcap_(scores, logits_soft_cap)
-    s5 = scores.view(b, hkv, g, t, s)
-    if mask is not None:
-        s5.masked_fill_(~mask[:, None, None, :, :], NEG_INF)
-    if sink is not None:
-        # a virtual sink column joins the softmax denominator only
-        sink_col = sink.float().reshape(1, hkv, g, 1, 1).expand(
-            b, hkv, g, t, 1)
-        probs = torch.softmax(torch.cat([s5, sink_col], dim=-1),
-                              dim=-1)[..., :-1]
+    width = s
+    if sink is None:
+        full = scores = _bmm_f32(qg, kt, scale)         # (B*Hkv, G*T, S)
     else:
-        probs = torch.softmax(s5, dim=-1)
-    probs = probs.to(vv.dtype).reshape(n, g * t, s)
+        width = -(-(s + 1) // 8) * 8
+        full = torch.empty((n, g * t, width), dtype=torch.float32,
+                           device=q.device)
+        scores = _bmm_f32(qg, kt, scale, out=full[..., :s])
+        full[..., s + 1:] = NEG_INF
+        full.view(b, hkv, g, t, width)[..., s] = sink.float().reshape(
+            1, hkv, g, 1)
+        if mask is not None:
+            wide = mask.new_ones((b, t, width))
+            wide[..., :s] = mask
+            mask = wide
+    _softcap_(scores, logits_soft_cap)
+    if mask is not None:
+        full.view(b, hkv, g, t, width).masked_fill_(
+            ~mask[:, None, None, :, :], NEG_INF)
+    probs = torch.softmax(full, dim=-1)
+    del full, scores            # the scores' memory serves the cast
+    probs = probs.to(vv.dtype)[..., :s].reshape(n, g * t, s)
     out = _bmm_f32(probs, vv)                           # (B*Hkv, G*T, Dv)
     dv = vv.shape[-1]
     return (out.view(b, hkv, g, t, dv).permute(0, 3, 1, 2, 4)

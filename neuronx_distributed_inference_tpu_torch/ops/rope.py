@@ -1,10 +1,12 @@
 """Rotary position embeddings (counterpart:
 ``neuronx_distributed_inference_tpu/ops/rope.py:27-215``).
 
-cos/sin are computed from the position ids in fp32. This slice carries the
-default (unscaled), linear and llama3 frequency schemes — Llama-3.2-1B uses
-llama3. yarn, longrope and M-RoPE wait for the families that need them;
-:func:`compute_inv_freq` refuses them by name."""
+cos/sin are computed from the position ids in fp32. The port carries the
+default (unscaled), linear, llama3 and yarn frequency schemes — Llama-3.x
+uses llama3, GPT-OSS (and later DeepSeek) yarn, whose attention factor
+scales cos and sin (``_yarn_inv_freq`` :72-92, ``yarn_attention_factor``
+:56-69, ``rope_cos_sin`` :174-176). longrope and M-RoPE wait for the
+families that need them; :func:`compute_inv_freq` refuses them by name."""
 
 from __future__ import annotations
 
@@ -20,24 +22,80 @@ class RopeConfig:
     head_dim: int
     rope_theta: float = 10000.0
     rotary_dim: Optional[int] = None
-    scaling_type: Optional[str] = None   # None | "linear" | "llama3"
+    scaling_type: Optional[str] = None   # None | "linear" | "llama3" | "yarn"
     scaling_factor: float = 1.0
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position: int = 8192
+    # yarn (gpt-oss, deepseek; HF _compute_yarn_parameters semantics)
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    # cos/sin multiplier; None = derived from the factor and mscales
+    attention_factor: Optional[float] = None
+    truncate: bool = True
 
     @property
     def dim(self) -> int:
         return self.rotary_dim or self.head_dim
 
 
-SUPPORTED_SCALING = (None, "default", "linear", "llama3")
+SUPPORTED_SCALING = (None, "default", "linear", "llama3", "yarn")
+
+
+def _pos_freqs(cfg: RopeConfig) -> torch.Tensor:
+    """theta ** (2i / dim) in fp32. The power is taken in fp64 and rounded
+    once, which gives XLA's fp32 ``pow`` bit for bit; torch's fp32 ``pow``
+    is an ulp off for some thetas (150000 at dim 64), which moves cos/sin
+    by ~1e-3 at position 1e5."""
+    d = cfg.dim
+    x = torch.arange(0, d, 2, dtype=torch.float32) / d
+    return (cfg.rope_theta ** x.double()).float()
 
 
 def _base_inv_freq(cfg: RopeConfig) -> torch.Tensor:
+    return 1.0 / _pos_freqs(cfg)
+
+
+def yarn_attention_factor(cfg: RopeConfig) -> float:
+    """The YaRN attention temperature that multiplies cos and sin."""
+    if cfg.attention_factor is not None:
+        return float(cfg.attention_factor)
+
+    def get_mscale(scale: float, m: float = 1.0) -> float:
+        return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+    if cfg.mscale and cfg.mscale_all_dim:
+        return get_mscale(cfg.scaling_factor, cfg.mscale) / get_mscale(
+            cfg.scaling_factor, cfg.mscale_all_dim)
+    return get_mscale(cfg.scaling_factor)
+
+
+def _yarn_inv_freq(cfg: RopeConfig) -> torch.Tensor:
+    """Interpolated frequencies below the ``beta_slow`` rotation count,
+    extrapolated ones above ``beta_fast``, a linear ramp between (bounds
+    rounded outward when ``truncate``)."""
     d = cfg.dim
-    return 1.0 / (cfg.rope_theta
-                  ** (torch.arange(0, d, 2, dtype=torch.float32) / d))
+    pos_freqs = _pos_freqs(cfg)
+    inv_extrap = 1.0 / pos_freqs
+    inv_interp = 1.0 / (cfg.scaling_factor * pos_freqs)
+
+    def corr_dim(n_rot: float) -> float:
+        return (d * math.log(cfg.original_max_position
+                             / (n_rot * 2 * math.pi))
+                ) / (2 * math.log(cfg.rope_theta))
+
+    low, high = corr_dim(cfg.beta_fast), corr_dim(cfg.beta_slow)
+    if cfg.truncate:
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, d - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(d // 2, dtype=torch.float32) - low)
+                       / (high - low), 0, 1)
+    extrap_factor = 1.0 - ramp
+    return inv_interp * (1 - extrap_factor) + inv_extrap * extrap_factor
 
 
 def compute_inv_freq(cfg: RopeConfig) -> torch.Tensor:
@@ -46,6 +104,8 @@ def compute_inv_freq(cfg: RopeConfig) -> torch.Tensor:
         raise NotImplementedError(
             f"rope scaling type {cfg.scaling_type!r} is not ported yet "
             f"(supported: {SUPPORTED_SCALING})")
+    if cfg.scaling_type == "yarn":
+        return _yarn_inv_freq(cfg)
     inv_freq = _base_inv_freq(cfg)
     if cfg.scaling_type == "linear":
         inv_freq = inv_freq / cfg.scaling_factor
@@ -73,7 +133,11 @@ def rope_cos_sin(position_ids: torch.Tensor, cfg: RopeConfig,
     if inv_freq is None:
         inv_freq = compute_inv_freq(cfg).to(position_ids.device)
     angles = position_ids.float()[..., None] * inv_freq
-    return torch.cos(angles), torch.sin(angles)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if cfg.scaling_type == "yarn":
+        f = yarn_attention_factor(cfg)
+        cos, sin = cos * f, sin * f
+    return cos, sin
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

@@ -64,6 +64,20 @@ ROPE_CASES = {
 }
 
 
+@pytest.mark.parametrize("theta,dim", [(10000.0, 128), (150000.0, 64),
+                                       (500000.0, 64), (1000000.0, 128),
+                                       (50000.0, 128)])
+def test_rope_inv_freq_bit_exact(theta, dim):
+    """The inverse frequencies equal JAX's bit for bit (an ulp off moves
+    cos/sin by ~1e-3 at position 1e5): torch's fp32 ``pow`` is an ulp off
+    XLA's for some thetas (150000 at dim 64, 1e6 at dim 128), so the port
+    takes the power in fp64 and rounds once."""
+    jcfg = jrope.RopeConfig(head_dim=dim, rope_theta=theta)
+    tcfg = trope.RopeConfig(head_dim=dim, rope_theta=theta)
+    np.testing.assert_array_equal(trope.compute_inv_freq(tcfg).numpy(),
+                                  np.asarray(jrope.compute_inv_freq(jcfg)))
+
+
 @pytest.mark.parametrize("case", sorted(ROPE_CASES))
 def test_rope_inv_freq_cos_sin_apply(rng, case):
     kw = ROPE_CASES[case]

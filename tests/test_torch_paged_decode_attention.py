@@ -7,7 +7,8 @@ kernel tests' own tolerance. The CUDA kernel itself is compared with the
 twin by the ``cuda``-marked tests below, which run only on the card: the
 case matrix, then the fused kernel's own risks (its merge counters under
 repeated calls and CUDA-graph replay, every split count, a zero-length row
-beside a long one, fp8 pages, window + sink at serving shapes). On the CPU
+beside a long one, fp8 pages, window + sink at serving shapes, GPT-OSS's
+local and global layers). On the CPU
 the wrapper's host logic is pinned: the scratch layout and the counters."""
 
 import jax.numpy as jnp
@@ -83,14 +84,22 @@ CASES = {
     "stacked_layers_L3": dict(lens=(40, 100), mb=4, layers=3),
     "fp8_e4m3_kv_scale": dict(lens=(70, 130), bs=64, mb=4,
                               page_dtype="float8_e4m3fn", kv_scale=0.5),
+    # gpt-oss-20b's heads (64 q over 8 kv, D 64) with its sinks: a local
+    # layer (window 128, shorter than two rows) and a global one
+    "gpt_oss_local_window128_sink": dict(hq=64, hkv=8, lens=(300, 37, 129),
+                                         mb=12, extra="gpt_oss_local"),
+    "gpt_oss_global_window0_sink": dict(hq=64, hkv=8, lens=(300, 37, 129),
+                                        mb=12, extra="gpt_oss_global"),
 }
+# the window of each case that takes a window and a sink
+WINDOW_SINK = {"window_sink": 64, "gpt_oss_local": 128, "gpt_oss_global": 0}
 
 
 def _kwargs(name, spec, rng, d):
     kw = dict(scale=d ** -0.5)
     extra = spec.get("extra")
-    if extra == "window_sink":
-        kw.update(window=64, sink=rng.standard_normal(
+    if extra in WINDOW_SINK:
+        kw.update(window=WINDOW_SINK[extra], sink=rng.standard_normal(
             spec.get("hq", 4)).astype(np.float32))
     elif extra == "soft_cap":
         kw.update(soft_cap=2.0)
@@ -314,3 +323,38 @@ def test_cuda_serving_shapes_match_plain_twin(name):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("window", [0, 40, 128])
+def test_paged_sdpa_window_sink_yardstick(window):
+    """The SDPA yardstick of the paged kernel with a window and a sink
+    (chip_smoke): each row's keys inside its window pre-gathered from the
+    pages, the active token last, and a zero key whose additive mask is the
+    head's sink logit; SDPA over it equals the plain twin (fp32, CPU). The
+    bound counts only the keys inside each row's window."""
+    import torch.nn.functional as F
+
+    from test_torch_decode_attention import _chip_smoke
+    cs = _chip_smoke()
+    rng = np.random.default_rng(31 + window)
+    inp = _case(rng, hq=16, hkv=2, lens=(0, 37, 200), mb=8)
+    x = {k: torch.from_numpy(v) for k, v in inp.items()}
+    sink = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    q4, k, v, mask = cs.sdpa_window_inputs(x, 0, window, sink)
+    n = min(window, 201) if window else 201
+    assert k.shape == v.shape == (3, 2, n + 1, 64)
+    assert mask.shape == (3, 16, 1, n + 1)
+    got = F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                         scale=64 ** -0.5, enable_gqa=True)
+    want = tda.paged_decode_attention_plain(
+        x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+        x["lens"], x["block_table"], scale=64 ** -0.5, window=window,
+        sink=sink)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    keys = sum(min(n_, window - 1) if window else n_ for n_ in (0, 37, 200))
+    ms, by = cs.kernel_bounds(x, window, sink=True)
+    assert by == "bytes"
+    kv_bytes = 2 * keys * 2 * 64 * 4
+    assert kv_bytes / cs.HBM_BYTES_PER_S * 1e3 < ms < (
+        kv_bytes + 10 ** 5) / cs.HBM_BYTES_PER_S * 1e3

@@ -30,7 +30,8 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.cuda_graphs", "modules.moe", "models.model_base",
     "models.family", "models.qwen3", "models.qwen3.modeling_qwen3",
     "models.qwen3_moe", "models.qwen3_moe.modeling_qwen3_moe",
-    "models.mixtral", "models.mixtral.modeling_mixtral")]
+    "models.mixtral", "models.mixtral.modeling_mixtral", "models.gpt_oss",
+    "models.gpt_oss.modeling_gpt_oss", "modules.quantization", "ops.rope")]
 
 
 def _port_modules():
