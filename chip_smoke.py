@@ -159,8 +159,41 @@ nvcc per source, all started together), then:
      (``attn_block_tkg_kernel_enabled=False``), both bf16, held to an
      fp32 app (TF32 off) over phase 10's decode steps; (d) phase 10 at 4
      layers (fp32: ragged == graphs == two-phase == ``generate``).
+ 16. the long-context group (the mixed and rolling caches, windowed
+     context encoding), random weights from seed 0: (a) the contiguous
+     decode kernel over gpt-oss-20b's global stack (12 layers, B 4, S
+     32768, Hq 64 over Hkv 8, D 64, a sink, window 0, lens 300-2100) and
+     the flash kernel at Mistral-7B-v0.1's heads at window 4096 over S
+     8192, B 2, each against its twin, timed beside the twin, SDPA and its
+     bound; (b) gpt-oss-20b through ``TpuGptOssForCausalLM`` (the
+     contiguous app) at full width and depth, ``seq_len`` 32768, so the
+     mixed per-layer cache (global rows of 32768 slots, local rows rolling
+     at 128), batch 4, prompts of 200-2000 tokens, 128 new tokens, after
+     ``precompile``: decode-kernel launches = 12 x decode steps, each at a
+     global layer's stack index with window 0 and its sink, no incident;
+     prefill and decode step times, peak memory, the cache's bytes beside
+     the uniform cache's, the stream agreement with the uniform cache (a
+     count); (c) (b)'s weights behind ``ContinuousBatchingAdapter`` (phase
+     9's 8 requests over batch 4 through the adapter's own add / step /
+     release loop; ``ServingEngine`` takes the paged adapter surface
+     only): no decode-kernel launch (the gather path), full streams, TTFT,
+     the agreement with each request's ``generate`` (a count); (d)
+     Mistral-7B-v0.1 at full width and depth with the rolling cache
+     (``seq_len`` 16384, 4096 slots), batch 2, prompts of 5000 and 6000
+     tokens, 64 new: flash launches = 32 x 1 prefill at window 4096, no
+     decode-kernel launch (the gather path over the rolling slots), step
+     times, cache bytes beside the full cache's, agreement with
+     ``rolling_kv_cache=False`` (a count); (e) windowed context encoding
+     (``windowed_context_encoding=2048``, full rows): one 12000-token
+     prompt in 6 windows, 32 new tokens, prefill time, peak memory and
+     window count, agreement with the one-shot prefill on a 4000-token
+     cut (a count); (f) fp32 4-layer cuts (TF32 off), each pair equal
+     token for token (a first difference only at a near-tie): mixed
+     against uniform cache, continuous batching against ``generate``,
+     rolling against full rows, windowed against one-shot.
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15 and the fp32 app of 6)
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16 and the fp32 app
+of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -169,7 +202,7 @@ Every line before the last is one JSON object; the last line is
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14; oss: 15) and then prints no ``ok`` line.
+own app; moe: 14; oss: 15; long: 16) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -257,6 +290,16 @@ RAGGED = dict(lens=(37, 300, 900, 1900, 123, 640, 1500, 64), seq_len=4096,
 RAGGED_TOKENS = 48                      # phases 9 and 12
 RAGGED_CHECK_TOKENS = 24                # phases 10 and 13
 SPEC_K = 3                              # phases 12-13: drafts per step
+# phase 16: gpt-oss-20b on the contiguous app past its 128-token window
+# (the mixed per-layer cache), Mistral-7B-v0.1 past its 4096-token window
+# (the rolling cache) and windowed context encoding
+OSS_LONG = dict(seq_len=32768, lens=(200, 700, 1300, 2000), new_tokens=128)
+MISTRAL_ROLL = dict(seq_len=16384, lens=(5000, 6000), new_tokens=64)
+MISTRAL_WCTE = dict(seq_len=16384, window=2048, len=12000, new_tokens=32,
+                    one_shot_len=4000)
+LONG_DECODE_LENS = (300, 900, 1500, 2100)   # 16 (a): B2's rows
+LONG_CHECK_LAYERS = 4                       # 16 (f): the fp32 cuts
+LONG_CHECK_TOKENS = 32
 SPEC_SAMPLING = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.7,
                      stream_seed=1234)
 
@@ -276,6 +319,15 @@ def tol_flash_bf16(inputs) -> float:
     max |v|, and the ulp there is 2^(floor(log2 max|v|) - 7)."""
     vmax = inputs["v"].float().abs().max().item()
     return 2.0 ** (math.floor(math.log2(vmax)) - 7)
+
+
+def tol_decode_bf16(out) -> float:
+    """Decode kernel vs twin, bf16 out, bounded by the output itself: both
+    accumulate in fp32 and round the output to bf16 once, so they differ
+    by at most one bf16 ulp of the largest output, 2^(floor(log2
+    max|o|) - 7)."""
+    omax = out.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(omax)) - 7)
 # decode logits, kernel app vs gather app, bf16: the gather path rounds
 #   the softmax probabilities to bf16 before the value product (the
 #   kernel keeps them fp32) and every layer's output is rounded to bf16;
@@ -328,6 +380,18 @@ TOL_MOE_CONTIG_DIRECT = 0.1
 #   outputs are below ~4, so a few 1e-2 at most, while a sink left out or
 #   put in the numerator moves outputs by 0.1-1 (sinks are N(0, 1)).
 TOL_SDPA_YARDSTICK = 5e-2
+# 16 (b), (d) at full depth, the mixed or rolling cache's decode logits vs
+#   full rows' on the same weights and tokens, bf16, all on the gather
+#   path: the layouts read the same keys in another slot order, and the
+#   random-weight stack magnifies that rounding at every step (no growth
+#   over the steps), gpt-oss's near-tie expert flips most. Measured
+#   (NVIDIA H100 80GB HBM3, 700 W): relative RMS 0.190 (gpt-oss-20b, 127
+#   steps) and 0.0386 (Mistral-7B-v0.1, 63 steps); the controls (full
+#   rows with the window dropped, so keys outside it are read, as a
+#   misplaced slot reads them) 0.891 and 1.283. Each limit sits near the
+#   geometric mean of its two readings, a factor 2.2 and 5.7 from each.
+TOL_LAYOUT_REL = {"long_oss_logits_vs_uniform": 0.4,
+                  "long_rolling_logits_vs_full": 0.2}
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1175,7 +1239,18 @@ def profile_decode(prefill_only, prefill_and_decode, steps: int):
           "steps": steps, "host_ms_per_step": wall / steps,
           "device_busy_ms_per_step": busy / steps,
           "device_idle_share": (1 - busy / wall) if busy > 0 else None,
-          "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top]})
+          "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top],
+          "prefill": profile_summary_of(w0, p0)})
+
+
+def profile_summary_of(wall, per, n=8):
+    """Host ms, device busy ms, idle share and the top ``n`` kernels of
+    one :func:`device_kernels` trace."""
+    busy = sum(per.values())
+    return {"host_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": (1 - busy / wall) if busy > 0 else None,
+            "top_kernels_ms": [[k[:80], ms] for k, ms in sorted(
+                per.items(), key=lambda kv: -kv[1])[:n]]}
 
 
 def phase_timings(hf, device, app, ids, mask, launches):
@@ -1292,12 +1367,16 @@ def paged_kernel_entry(t, launches, path):
 # ---------------------------------------------------------------------------
 
 def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
-                        output_logits=False, cb=False, decode_kernel=None):
+                        output_logits=False, cb=False, decode_kernel=None,
+                        rolling=False, wcte=None):
     """``CausalLMApplication`` over the family of ``hf["model_type"]``
     (what the family's ``Tpu*ForCausalLM`` entry builds). kernels=True:
     the flash prefill kernel (``attn_kernel_enabled``) and the decode
     kernel by default admission (``decode_kernel`` False: the decode
-    kernel off); False: both off (mha prefill, gather decode)."""
+    kernel off); False: both off (mha prefill, gather decode).
+    ``rolling``: ``rolling_kv_cache`` (False: full rows; None: the rolling
+    cache where the window is below ``seq_len``); ``wcte``:
+    ``windowed_context_encoding``."""
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         CausalLMApplication
@@ -1308,8 +1387,9 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                      attn_kernel_enabled=kernels,
                      attn_block_tkg_kernel_enabled=(decode_kernel if kernels
                                                     else False),
-                     rolling_kv_cache=False, output_logits=output_logits,
-                     is_continuous_batching=cb)
+                     rolling_kv_cache=rolling, output_logits=output_logits,
+                     is_continuous_batching=cb,
+                     windowed_context_encoding=wcte)
     app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
                               device=device)
     return app.init_cache()
@@ -1455,18 +1535,19 @@ def _phase_contiguous_serving(hf, device):
                              "flash kernel")
 
 
-def decode_bounds(inputs):
+def decode_bounds(inputs, sink=False):
     """Least time for the contiguous decode kernel's work on the H100:
-    bytes (each live K/V row once, q, new_k/new_v, out, lens) over the HBM
-    rate and operations (QK and PV over the live keys plus the active
-    token) over the bf16 peak; returns (ms, "bytes"|"operations")."""
+    bytes (each live K/V row once, q, new_k/new_v, out, lens, the fp32
+    sinks) over the HBM rate and operations (QK and PV over the live keys
+    plus the active token) over the bf16 peak; returns (ms,
+    "bytes"|"operations")."""
     q, kc = inputs["q"], inputs["k_cache"]
     b, hq, d = q.shape
     hkv = kc.shape[2]
     keys = sum(int(x) for x in inputs["lens"].tolist())
     nbytes = (2 * keys * hkv * d * kc.element_size()
               + (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
-              + 4 * b)
+              + 4 * b + (4 * hq if sink else 0))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * (keys + b) * hq * d / PEAK_FLOPS["bfloat16"] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
@@ -3178,10 +3259,7 @@ def phase_moe_contiguous(hf, device, kernel_times):
     r = [ref["logits"][0][real]] + ref["logits"][1:]
     if not all(np.isfinite(x).all() for x in a + r):
         raise AssertionError("moe_contiguous: non-finite logits")
-    num = sum(float(np.square(x.astype(np.float64) - y).sum())
-              for x, y in zip(a, r))
-    den = sum(float(np.square(y.astype(np.float64)).sum()) for y in r)
-    rel = (num / den) ** 0.5
+    rel = logits_rel_rms(a, r)
     emit({"phase": "moe_contiguous_vs_kernels_off", "layers": layers,
           "rel_rms": rel, "prefill_max_abs": float(np.abs(a[0] - r[0]).max()),
           "decode_max_abs": max(float(np.abs(x - y).max())
@@ -3427,31 +3505,48 @@ class PagedArgsSpy:
     its arguments to the launch, so the wrapper and its counts stay as
     they are."""
 
+    WRAPPER = "paged_decode_attention"
+    # the launch's int arguments: [b, layer, pages, bs, hkv, g, d, mb,
+    # splits, window]
+    LAYER, WINDOW = 1, 9
+
     def __enter__(self):
         from neuronx_distributed_inference_tpu_torch.ops import \
             decode_attention as da
         self._da = da
         self._split_k = da._split_k
-        self._plain = da.paged_decode_attention_plain
+        self._plain_name = self.WRAPPER + "_plain"
+        self._plain = getattr(da, self._plain_name)
+        wrapper = getattr(da, self.WRAPPER)
         self.calls = set()
 
-        def split_k(wrapper, fn, q, hkv, splits, ptrs, ints, sink, *a, **k):
-            if wrapper is da.paged_decode_attention:
-                # ints: [b, layer, pages, bs, hkv, g, d, mb, splits, window]
-                self.calls.add((ints[1], ints[9], sink is not None))
-            return self._split_k(wrapper, fn, q, hkv, splits, ptrs, ints,
+        def split_k(wrapper_, fn, q, hkv, splits, ptrs, ints, sink, *a, **k):
+            if wrapper_ is wrapper:
+                self.calls.add((ints[self.LAYER], ints[self.WINDOW],
+                                sink is not None))
+            return self._split_k(wrapper_, fn, q, hkv, splits, ptrs, ints,
                                  sink, *a, **k)
 
         def plain(*a, **k):
             self.calls.add((int(a[5]), int(k.get("window", 0)),
                             k.get("sink") is not None))
             return self._plain(*a, **k)
-        da._split_k, da.paged_decode_attention_plain = split_k, plain
+        da._split_k = split_k
+        setattr(da, self._plain_name, plain)
         return self
 
     def __exit__(self, *exc):
         self._da._split_k = self._split_k
-        self._da.paged_decode_attention_plain = self._plain
+        setattr(self._da, self._plain_name, self._plain)
+
+
+class ContiguousArgsSpy(PagedArgsSpy):
+    """The same over the contiguous decode kernel (layer = the index in
+    the stack it reads)."""
+
+    WRAPPER = "decode_attention_stacked"
+    # [b, layer, hkv, g, d, s_len, splits, window]
+    LAYER, WINDOW = 1, 7
 
 
 def check_layer_args(phase, calls, hf):
@@ -3492,7 +3587,837 @@ def phase_oss(device):
     return entries
 
 
-GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss")
+# ---------------------------------------------------------------------------
+# Phase 16: the long-context group (the mixed and rolling caches, windowed
+# context encoding)
+# ---------------------------------------------------------------------------
+
+def n_global_layers(hf):
+    return sum(t == "full_attention" for t in hf["layer_types"])
+
+
+def contiguous_sdpa_sink_inputs(inputs, layer, sink):
+    """The contiguous decode attention with a sink and no window for
+    ``scaled_dot_product_attention``: each row's live keys (slots up to
+    the longest row's active token, the active token at slot lens[b])
+    copied out with the last dimension contiguous, then one zero key and
+    zero value whose additive float mask is the head's sink logit (it
+    joins the denominator only). Returns (q (B, Hq, 1, D), k, v (B, Hkv,
+    n + 1, D), mask (B, Hq, 1, n + 1))."""
+    import torch
+    q = inputs["q"]
+    b, hq, d = q.shape
+    lens = inputs["lens"].long()
+    n = int(lens.max()) + 1
+    k = inputs["k_cache"][layer][..., :n].transpose(2, 3).contiguous()
+    v = inputs["v_cache"][layer][:, :, :n].clone()
+    rows = torch.arange(b, device=q.device)
+    k[rows, :, lens] = inputs["new_k"].to(k.dtype)
+    v[rows, :, lens] = inputs["new_v"].to(v.dtype)
+    zero = torch.zeros((b, k.shape[1], 1, d), dtype=k.dtype,
+                       device=q.device)
+    k = torch.cat([k, zero], 2)
+    v = torch.cat([v, zero], 2)
+    live = torch.arange(n, device=q.device)[None, :] <= lens[:, None]
+    mask = torch.zeros((b, hq, 1, n + 1), dtype=q.dtype, device=q.device)
+    mask[..., :n].masked_fill_(~live[:, None, None, :], float("-inf"))
+    mask[..., n] = sink.to(q.dtype)[None, :, None]
+    return q[:, :, None, :], k, v, mask
+
+
+def phase_long_kernels(device):
+    with fp32_exact():
+        return _phase_long_kernels(device)
+
+
+def _phase_long_kernels(device):
+    """16 (a): the contiguous decode kernel (B2) over gpt-oss-20b's
+    global stack (12 layers, B 4, S 32768, Hq 64 over Hkv 8, D 64, a sink,
+    window 0, lens 300-2100) and the flash kernel (B3) at Mistral-7B-v0.1's
+    heads (Hq 32 over Hkv 8, D 128) at window 4096 over S 8192, B 2, each
+    against its twin, then timed beside the twin, SDPA at the same shapes
+    (the decode's live keys with the sink as a zero key whose additive
+    mask is its logit; flash's window as a boolean mask) and its bound
+    (bytes for B2, operations for B3)."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    out = {}
+    hf = GPT_OSS_20B
+    hq, hkv, d = (hf["num_attention_heads"], hf["num_key_value_heads"],
+                  hf["head_dim"])
+    layers = n_global_layers(hf)
+    b = len(LONG_DECODE_LENS)
+    gen = torch.Generator(device=device).manual_seed(16)
+    x = contiguous_inputs(gen, device, b=b, hq=hq, hkv=hkv, d=d,
+                          s=OSS_LONG["seq_len"], lens=list(LONG_DECODE_LENS),
+                          layers=layers, act_dtype=torch.bfloat16,
+                          cache_dtype=torch.bfloat16)
+    # sinks at 7 +- 1: with these rows' denominators (~N e^0.5, 500-3500)
+    # each sink holds a tenth to two thirds of its row's softmax mass, so
+    # a sink dropped (the control below), or added once a split, moves
+    # the output by far more than the tolerance
+    sink = 7.0 + torch.randn((hq,), generator=gen, device=device)
+    scale = d ** -0.5
+    args, dkw = decode_args(x, dict(scale=scale, window=0, sink=sink,
+                                    layer=layers - 1))
+    got = decode_attention.decode_attention_stacked(*args, **dkw)
+    torch.cuda.synchronize()
+    twin = decode_attention.decode_attention_stacked_plain(*args, **dkw)
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("decode kernel output is not finite")
+    err = float((got.float() - twin.float()).abs().max())
+    tol = tol_decode_bf16(twin)
+    no_sink = decode_attention.decode_attention_stacked(
+        *args, **dict(dkw, sink=None))
+    control = float((no_sink.float() - twin.float()).abs().max())
+    q4, k4, v4, m4 = contiguous_sdpa_sink_inputs(x, layers - 1, sink)
+    sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                          scale=scale, enable_gqa=True)
+    sdpa_err = float((sdpa[:, :, 0].float() - twin.float()).abs().max())
+    emit({"phase": "long_kernel_vs_twin",
+          "kernel": "decode_attention_stacked",
+          "case": "gpt_oss_20b_global_stack_sink",
+          "max_abs_err": err, "tol": tol,
+          "max_abs_out": float(twin.float().abs().max()),
+          "control_no_sink_max_abs": control,
+          "sdpa_vs_twin_max_abs": sdpa_err, "sdpa_tol": TOL_SDPA_YARDSTICK})
+    del got, no_sink
+    if not err <= tol:
+        raise AssertionError(f"decode kernel over the mixed global stack: "
+                             f"max abs err {err} > {tol}")
+    if not control > tol:
+        raise AssertionError(f"the sink moves the output by {control}, "
+                             f"within the tolerance {tol}: the check "
+                             "cannot see it")
+    if not sdpa_err <= TOL_SDPA_YARDSTICK:
+        raise AssertionError(f"decode SDPA yardstick computes another "
+                             f"function: {sdpa_err}")
+    out["decode"] = timed_kernel(
+        lambda: decode_attention.decode_attention_stacked(*args, **dkw),
+        lambda: decode_attention.decode_attention_stacked_plain(*args,
+                                                                **dkw),
+        lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+        decode_bounds(x, sink=True), err,
+        {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "S": OSS_LONG["seq_len"],
+         "layers": layers, "lens": list(LONG_DECODE_LENS), "window": 0,
+         "sink": True, "splits": decode_attention.contiguous_num_splits(
+             b, hkv, OSS_LONG["seq_len"], d)})
+    del x, args, twin, q4, k4, v4, m4, sdpa
+    torch.cuda.empty_cache()
+
+    mc = MISTRAL_7B
+    hq, hkv = mc["num_attention_heads"], mc["num_key_value_heads"]
+    d = mc["hidden_size"] // hq
+    window = mc["sliding_window"]
+    b, s = 2, 8192
+    qkv = [torch.randn((b, s, h, d), generator=gen, device=device).to(
+        torch.bfloat16) for h in (hq, hkv, hkv)]
+    fkw = dict(scale=d ** -0.5, window=window)
+
+    def plain():
+        # row by row: one row's fp32 scores are 8.6 GB
+        return [flash_attention.flash_attention_plain(
+            *(t[i:i + 1] for t in qkv), **fkw) for i in range(b)]
+    got = flash_attention.flash_attention(*qkv, **fkw)
+    torch.cuda.synchronize()
+    want = torch.cat(plain())
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("flash kernel output is not finite")
+    ferr = float((got.float() - want.float()).abs().max())
+    ftol = tol_flash_bf16(dict(v=qkv[2]))
+    tq, tk, tv = (t.transpose(1, 2).contiguous() for t in qkv)
+    pos = torch.arange(s, device=device)
+    wmask = ((pos[None, :] <= pos[:, None])
+             & (pos[:, None] - pos[None, :] < window))
+    sdpa = F.scaled_dot_product_attention(tq, tk, tv, attn_mask=wmask,
+                                          scale=fkw["scale"],
+                                          enable_gqa=True)
+    sdpa_err = float((sdpa.transpose(1, 2).float() - want.float()).abs()
+                     .max())
+    emit({"phase": "long_kernel_vs_twin", "kernel": "flash_attention",
+          "case": "mistral_7b_window4096_s8192", "max_abs_err": ferr,
+          "tol": ftol, "sdpa_vs_twin_max_abs": sdpa_err,
+          "sdpa_tol": TOL_SDPA_YARDSTICK})
+    if not ferr <= ftol:
+        raise AssertionError(f"flash kernel at window {window}: max abs "
+                             f"err {ferr} > {ftol}")
+    if not sdpa_err <= TOL_SDPA_YARDSTICK:
+        raise AssertionError(f"flash SDPA yardstick computes another "
+                             f"function: {sdpa_err}")
+    del got, want, sdpa
+    out["flash"] = timed_kernel(
+        lambda: flash_attention.flash_attention(*qkv, **fkw), plain,
+        lambda: F.scaled_dot_product_attention(
+            tq, tk, tv, attn_mask=wmask, scale=fkw["scale"],
+            enable_gqa=True),
+        flash_bounds(qkv[0], qkv[1], window), ferr,
+        {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d, "window": window},
+        plain_calls=1, calls=5, reps=5)
+    for key, t in out.items():
+        emit({"phase": "long_kernel_timings", "kernel": key,
+              "kernel_us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
+              "bound_by": t["bound_by"], "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3,
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    del qkv, tq, tk, tv, wmask
+    # comparison launches are not main-path launches
+    reset_launches()
+    free_card()
+    return out
+
+
+def kv_cache_bytes(spec, tcfg, layers=None):
+    """Bytes of full K and V rows of ``layers`` (default: every layer) at
+    ``tcfg.seq_len`` slots: the uniform cache the rolling or mixed one
+    replaces."""
+    layers = spec.num_layers if layers is None else layers
+    item = {"bfloat16": 2, "float32": 4}[tcfg.dtype]
+    return (2 * layers * tcfg.kv_cache_batch_size * spec.gqa.num_kv_heads
+            * spec.head_dim * tcfg.seq_len * item)
+
+
+def cache_bytes(app):
+    return sum(t.numel() * t.element_size() for t in app.cache.values())
+
+
+def make_oss_app(hf, device, dtype, *, batch, seq_len, cb=False,
+                 output_logits=False, **spec):
+    """``TpuGptOssForCausalLM`` (the contiguous app; the mixed per-layer
+    cache above ``sliding_window``), its cache made after ``spec``'s
+    fields replace the spec's (``mixed_kv=False``: the uniform cache)."""
+    import dataclasses
+    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+    from neuronx_distributed_inference_tpu_torch.models.family import \
+        get_family
+    from neuronx_distributed_inference_tpu_torch.models.gpt_oss import \
+        TpuGptOssForCausalLM
+    cls = get_family("gpt_oss").config_cls
+    app = TpuGptOssForCausalLM(None, cls(TpuConfig(
+        batch_size=batch, seq_len=seq_len, dtype=dtype,
+        is_continuous_batching=cb, output_logits=output_logits), **hf),
+        device=device)
+    app.spec = dataclasses.replace(app.spec, **spec)
+    return app.init_cache()
+
+
+def step_times(app, ids, mask, k=32):
+    """(prefill ms, decode ms per step) of ``app.generate`` on the host
+    clock (decode replays its graph), and the decode steps' device
+    profile."""
+    import torch
+
+    def gen(n):
+        app.generate(ids, attention_mask=mask, max_new_tokens=n)
+        torch.cuda.synchronize()
+    pre = time_host(lambda: gen(1), reps=3)
+    step = (time_host(lambda: gen(1 + k), reps=3) - pre) / k
+    profile_decode(lambda: gen(1), lambda: gen(1 + k), k)
+    return pre, step
+
+
+def agreement(a, b):
+    """(streams equal, tokens equal before each row's first difference)
+    of two (B, T) token arrays."""
+    import numpy as np
+    same = [int(np.argmin(x == y)) if (x != y).any() else len(x)
+            for x, y in zip(a, b)]
+    return sum(n == a.shape[1] for n in same), same
+
+
+def decode_logits(app, ids, mask, tokens):
+    """The decode steps' logits (a list of (B, 1, V) arrays) of ``app``
+    fed ``tokens`` (B, T) after the prompt: T - 1 teacher-forced steps."""
+    return app.generate(ids, attention_mask=mask,
+                        max_new_tokens=tokens.shape[1], return_logits=True,
+                        teacher_tokens=tokens[:, :-1])["logits"][1:]
+
+
+def logits_rel_rms(got, ref):
+    """Relative RMS of two lists of arrays, over all their elements."""
+    import numpy as np
+    num = sum(float(np.square(x.astype(np.float64) - y).sum())
+              for x, y in zip(got, ref))
+    den = sum(float(np.square(y.astype(np.float64)).sum()) for y in ref)
+    return (num / den) ** 0.5
+
+
+def layout_gate(phase, build, ids, mask, tokens):
+    """Gate: the decode-step logits of ``build("layout")`` (the rolling or
+    mixed cache) against ``build("full")`` (full rows) on the same weights
+    fed the same ``tokens``, within TOL_LAYOUT_REL[phase] relative RMS; the
+    control ``build("control")`` (full rows, window dropped) must part
+    from full rows by more than the limit. Each app is built, read and
+    dropped in turn."""
+    import numpy as np
+    lg = {}
+    for kind in ("full", "layout", "control"):
+        app = build(kind)
+        lg[kind] = decode_logits(app, ids, mask, tokens)
+        del app
+        free_card()
+    if not all(np.isfinite(x).all() for v in lg.values() for x in v):
+        raise AssertionError(f"{phase}: non-finite logits")
+    rel = logits_rel_rms(lg["layout"], lg["full"])
+    control = logits_rel_rms(lg["control"], lg["full"])
+    by_step = [logits_rel_rms([x], [y])
+               for x, y in zip(lg["layout"], lg["full"])]
+    tol = TOL_LAYOUT_REL[phase]
+    emit({"phase": phase, "steps": len(lg["full"]), "rel_rms": rel,
+          "control_rel_rms": control, "rel_rms_first_step": by_step[0],
+          "rel_rms_step_max": max(by_step),
+          "decode_max_abs": max(float(np.abs(x - y).max())
+                                for x, y in zip(lg["layout"], lg["full"])),
+          "logit_std": float(np.std(lg["full"][0])), "tol": tol})
+    if not rel <= tol:
+        raise AssertionError(f"{phase}: the layout's logits part from full "
+                             f"rows' by relative RMS {rel}")
+    if not control > tol:
+        raise AssertionError(f"{phase}: the control parts by only {control}"
+                             ": the gate cannot see a layout fault")
+
+
+def phase_long_oss(hf, device):
+    """16 (b): gpt-oss-20b through ``TpuGptOssForCausalLM`` at full width
+    and depth, bf16, ``seq_len`` 32768: the mixed per-layer cache (12
+    global layers of 32768 slots, 12 local ones rolling at 128), batch 4,
+    prompts of 200-2000 tokens, 128 new tokens each, after
+    ``precompile``. Gates: the contiguous decode kernel launched 12 x the
+    decode steps (replays counted), every launch at a global layer's
+    stack index with window 0 and its sink; no flash launch (a layer
+    pattern); no incident; full in-vocab streams. Prints prefill and
+    decode step times (host clock and device), peak memory, the cache's
+    bytes beside the uniform cache's, and the stream agreement with the
+    uniform cache on the same weights (a count: bf16 rounds the two
+    layouts' attention differently); then holds the mixed cache's logits
+    to the uniform cache's at full depth (``layout_gate``; all on the
+    gather path, so the two differ only in the order of the local layers'
+    keys). Returns (app, launches)."""
+    import torch
+    cfg = OSS_LONG
+    lens, new = cfg["lens"], cfg["new_tokens"]
+    n_global = n_global_layers(hf)
+    app = make_oss_app(hf, device, "bfloat16", batch=len(lens),
+                       seq_len=cfg["seq_len"])
+    if not (app.spec.mixed_kv and set(app.cache) == {"k", "v", "k_l",
+                                                       "v_l"}):
+        raise AssertionError("long_oss: the app did not take the mixed "
+                             "per-layer cache")
+    init_weights(app, 0)
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=16)
+    # the spy sees the launches the capture records, and eager ones
+    with ContiguousArgsSpy() as spy:
+        warm(app, "long_oss")
+        reset_launches([app])
+        t0 = time.perf_counter()
+        out = app.generate(ids, attention_mask=mask, max_new_tokens=new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    counts = kernel_counts([app])
+    steps = new - 1
+    want = {"paged_decode_attention": 0,
+            "decode_attention_stacked": n_global * steps,
+            "flash_attention": 0}
+    gen = out["generated"]
+    calls = {(g, 0, True) for g in range(n_global)}
+    emit({"phase": "long_oss", "entry": "TpuGptOssForCausalLM",
+          "seq_len": cfg["seq_len"], "prompt_lens": list(lens),
+          "new_tokens": new, "generate_s": gen_s, "launches": counts,
+          "expected_launches": want,
+          "kernel_args": sorted(spy.calls),
+          "cache_bytes": cache_bytes(app),
+          "uniform_cache_bytes": kv_cache_bytes(app.spec, app.tpu_config),
+          "local_stack_bytes": sum(
+              app.cache[k].numel() * app.cache[k].element_size()
+              for k in ("k_l", "v_l")),
+          "graphs": graph_report(app) if app.graphs is not None else None})
+    check_no_incidents("long_oss", app)
+    if counts != want:
+        raise AssertionError(f"long_oss: launches {counts} != {want}")
+    if spy.calls != calls:
+        raise AssertionError(f"long_oss: decode kernel calls by (stack "
+                             f"layer, window, sink) {sorted(spy.calls)}")
+    if gen.shape != (len(lens), new) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"long_oss: bad tokens {gen.shape}")
+    pre, step = step_times(app, ids, mask)
+    emit({"phase": "long_oss_steps", "prefill_ms_batch": pre,
+          "decode_ms_per_step_batch4": step,
+          "prompt_lens": list(lens), "ctx_bucket": 2048})
+    memory_note("long_oss")
+    uni = make_oss_app(hf, device, "bfloat16", batch=len(lens),
+                       seq_len=cfg["seq_len"], mixed_kv=False)
+    uni.params = app.params
+    ref = uni.generate(ids, attention_mask=mask,
+                       max_new_tokens=new)["generated"]
+    equal, prefix = agreement(gen, ref)
+    emit({"phase": "long_oss_vs_uniform_bf16", "streams_equal": equal,
+          "streams": len(lens), "equal_prefix_tokens": prefix,
+          "new_tokens": new, "gate": False})
+    del uni, ref
+    free_card()
+
+    def build(kind):
+        spec = {"layout": {}, "full": dict(mixed_kv=False),
+                "control": dict(mixed_kv=False, sliding_window=0)}[kind]
+        a = make_oss_app(hf, device, "bfloat16", batch=len(lens),
+                         seq_len=cfg["seq_len"], output_logits=True,
+                         decode_kernel=False, **spec)
+        a.params = app.params
+        return a
+    layout_gate("long_oss_logits_vs_uniform", build, ids, mask, gen)
+    return app, counts
+
+
+def serve_cb(ad, prompts, new_tokens, sync):
+    """Phase 9's submission schedule over a ``ContinuousBatchingAdapter``
+    driven through its own ``add_requests`` / ``step`` / ``release``
+    (``ServingEngine`` takes the paged adapter surface only, in both
+    packages): four requests at pass 0, one more every 4 passes, each
+    admitted into the lowest free row as rows free up; a stream is
+    released once it holds ``new_tokens``. Returns (streams, per-pass
+    records, seconds from submit to first token per request)."""
+    streams = [[] for _ in prompts]
+    queue, t_sub, ttft, recs, owner = [], {}, {}, [], {}
+    nxt, p = 0, 0
+    while nxt < len(prompts) or queue or ad.seqs:
+        due = 4 if p == 0 else (1 if p % 4 == 0 else 0)
+        for _ in range(min(due, len(prompts) - nxt)):
+            t_sub[nxt] = time.perf_counter()
+            queue.append(nxt)
+            nxt += 1
+        t0 = time.perf_counter()
+        admit = []
+        while queue and len(admit) < len(ad.free_slots):
+            admit.append(queue.pop(0))
+        if admit:
+            rows = ad.free_slots[:len(admit)]
+            first = ad.add_requests(rows, [prompts[i] for i in admit])
+            now = time.perf_counter()
+            for row, i in zip(rows, admit):
+                owner[row] = i
+                streams[i].append(first[row])
+                ttft[i] = now - t_sub[i]
+        done = [r for r in ad.seqs if len(streams[owner[r]]) >= new_tokens]
+        if done:
+            ad.release(done)
+        if ad.seqs:
+            for row, tok in ad.step().items():
+                streams[owner[row]].append(tok)
+        sync()
+        recs.append({"pass": p, "kind": "admit" if admit else "decode",
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "traced": False})
+        p += 1
+        if p > 100 * len(prompts):
+            raise AssertionError("the adapter made no progress")
+    return [s[:new_tokens] for s in streams], recs, ttft
+
+
+def phase_long_oss_serving(hf, device, app):
+    """16 (c): (b)'s weights behind ``ContinuousBatchingAdapter`` (the app
+    built with ``is_continuous_batching=True``, after ``precompile``):
+    phase 9's 8 requests of 37-1900 tokens over batch 4, 48 new tokens
+    each. Decode takes the gather path (rows by seq_id, as the
+    reference's kernel gate requires identity rows): no decode kernel
+    launch while serving. Gates: full in-vocab streams, no incident.
+    Prints passes by kind, host ms per pass, TTFT, and how many streams
+    equal each request's single-request ``generate`` on (b)'s app (a
+    count: bf16 rounds the gather and kernel paths differently)."""
+    import numpy as np
+    import torch
+    lens, new = RAGGED["lens"], RAGGED_TOKENS
+    cb = make_oss_app(hf, device, "bfloat16", batch=len(OSS_LONG["lens"]),
+                      seq_len=OSS_LONG["seq_len"], cb=True)
+    cb.params = app.params
+    warm(cb, "long_oss_cb")
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    ad = ContinuousBatchingAdapter(cb)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in lens]
+    reset_launches([cb])
+    streams, recs, ttft = serve_cb(ad, prompts, new, torch.cuda.synchronize)
+    counts = kernel_counts([cb])
+    check_no_incidents("long_oss_cb", cb)
+    for i, st in enumerate(streams):
+        if len(st) != new or not all(0 <= t < hf["vocab_size"] for t in st):
+            raise AssertionError(f"long_oss_cb: stream {i} has {len(st)} "
+                                 "tokens")
+    if counts["decode_attention_stacked"] != 0:
+        raise AssertionError(f"long_oss_cb: decode kernel launched "
+                             f"{counts} under continuous batching")
+    want = np.stack([app.generate(np.asarray([p]), max_new_tokens=new)[
+        "generated"][0] for p in prompts])
+    equal, prefix = agreement(np.asarray(streams), want)
+    emit({"phase": "long_oss_cb", "requests": len(prompts),
+          "prompt_lens": list(lens), "new_tokens": new,
+          "passes": {k: pass_summary(recs, k) for k in ("admit", "decode")},
+          "ttft_s": [ttft[i] for i in range(len(prompts))],
+          "launches": counts, "host_stats": {
+              k: v for k, v in ad.host_stats.items() if isinstance(v, int)},
+          "streams_equal_generate_bf16": equal,
+          "equal_prefix_tokens": prefix, "gate": False})
+    del ad, cb
+
+
+def phase_long_rolling(hf, device):
+    """16 (d): Mistral-7B-v0.1 at full width and depth, bf16, ``seq_len``
+    16384 with the rolling cache (4096 slots a row),
+    ``attn_kernel_enabled=True``, batch 2, prompts of 5000 and 6000
+    tokens, 64 new tokens, after ``precompile``. Gates: flash launched
+    once a layer (the prefill at window 4096 over the 8192 bucket; only
+    each row's last 4096 positions land), no decode kernel launch (the
+    rolling cache takes the gather path, as the reference's gate says);
+    no incident; full streams. Prints prefill and decode step times, the
+    cache's bytes beside the full cache's, and the stream agreement with
+    ``rolling_kv_cache=False`` (a count); then holds the rolling cache's
+    logits to full rows' at full depth (``layout_gate``; the full-row
+    apps take the gather path too, so the two differ only in the order
+    of the keys). Returns the flash launches."""
+    import dataclasses
+
+    import torch
+    cfg = MISTRAL_ROLL
+    lens, new = cfg["lens"], cfg["new_tokens"]
+    layers = hf["num_hidden_layers"]
+    app = make_contiguous_app(hf, device, "bfloat16", batch=len(lens),
+                              seq_len=cfg["seq_len"], rolling=None)
+    if not (app.spec.rolling_window
+            and app.cache["v"].shape[3] == hf["sliding_window"]):
+        raise AssertionError("long_rolling: no rolling cache")
+    app.init_random_weights(0)
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=17)
+    warm(app, "long_rolling")
+    reset_launches([app])
+    t0 = time.perf_counter()
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = kernel_counts([app])
+    want = {"paged_decode_attention": 0, "decode_attention_stacked": 0,
+            "flash_attention": layers}
+    gen = out["generated"]
+    emit({"phase": "long_rolling", "seq_len": cfg["seq_len"],
+          "slots": hf["sliding_window"], "prompt_lens": list(lens),
+          "new_tokens": new, "generate_s": gen_s, "launches": counts,
+          "expected_launches": want, "cache_bytes": cache_bytes(app),
+          "full_cache_bytes": kv_cache_bytes(app.spec, app.tpu_config),
+          "graphs": graph_report(app) if app.graphs is not None else None})
+    check_no_incidents("long_rolling", app)
+    if counts != want:
+        raise AssertionError(f"long_rolling: launches {counts} != {want}")
+    if gen.shape != (len(lens), new) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"long_rolling: bad tokens {gen.shape}")
+    pre, step = step_times(app, ids, mask)
+    emit({"phase": "long_rolling_steps", "prefill_ms_batch": pre,
+          "decode_ms_per_step_batch2": step,
+          "prompt_lens": list(lens), "ctx_bucket": 8192})
+    memory_note("long_rolling")
+    full = make_contiguous_app(hf, device, "bfloat16", batch=len(lens),
+                               seq_len=cfg["seq_len"])
+    full.params = app.params
+    ref = full.generate(ids, attention_mask=mask,
+                        max_new_tokens=new)["generated"]
+    equal, prefix = agreement(gen, ref)
+    emit({"phase": "long_rolling_vs_full_bf16", "streams_equal": equal,
+          "streams": len(lens), "equal_prefix_tokens": prefix,
+          "new_tokens": new, "gate": False})
+    del full, ref
+    free_card()
+
+    def build(kind):
+        a = make_contiguous_app(
+            hf, device, "bfloat16", batch=len(lens), seq_len=cfg["seq_len"],
+            rolling=None if kind == "layout" else False,
+            decode_kernel=None if kind == "layout" else False,
+            output_logits=True)
+        if kind == "control":
+            a.spec = dataclasses.replace(a.spec, sliding_window=0)
+        a.params = app.params
+        return a
+    layout_gate("long_rolling_logits_vs_full", build, ids, mask, gen)
+    del app
+    free_card()
+    return counts["flash_attention"]
+
+
+class CountCalls:
+    """Counts the calls of ``owner.name`` while active."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.n = owner, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.owner, self.name)
+
+        def wrapped(*a, **k):
+            self.n += 1
+            return self.fn(*a, **k)
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def phase_long_windowed(hf, device):
+    """16 (e): windowed context encoding at Mistral-7B-v0.1 width and
+    depth, bf16, ``seq_len`` 16384 with full rows
+    (``rolling_kv_cache=False``), ``windowed_context_encoding=2048``: one
+    prompt of 12000 tokens prefilled in 6 windows of 2048 (each a
+    2048-token decode step over the cache, eager), then 32 new tokens.
+    Prints the prefill time, the peak memory and the window count, and
+    how many tokens a 4000-token cut of the prompt generates alike
+    windowed and one-shot (a count)."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    cfg = MISTRAL_WCTE
+    app = make_contiguous_app(hf, device, "bfloat16", batch=1,
+                              seq_len=cfg["seq_len"], wcte=cfg["window"])
+    app.init_random_weights(0)
+    ids, mask = prompts_of((cfg["len"],), hf["vocab_size"], seed=18)
+    torch.cuda.reset_peak_memory_stats()
+    with CountCalls(model_base, "token_generation_multi") as calls:
+        t0 = time.perf_counter()
+        first = app.generate(ids, attention_mask=mask, max_new_tokens=1)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+    windows = calls.n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    app.reset()
+    emit({"phase": "long_windowed_profile",
+          **profile_summary_of(*device_kernels(lambda: app.generate(
+              ids, attention_mask=mask, max_new_tokens=1)))})
+    app.reset()
+    out = app.generate(ids, attention_mask=mask,
+                       max_new_tokens=cfg["new_tokens"])
+    gen = out["generated"]
+    want_windows = -(-cfg["len"] // cfg["window"])
+    emit({"phase": "long_windowed", "prompt_len": cfg["len"],
+          "window": cfg["window"], "windows": windows,
+          "prefill_ms": pre_s * 1e3, "peak_memory_gb": peak,
+          "new_tokens": cfg["new_tokens"],
+          "first_token_equal": bool(first["generated"][0, 0] == gen[0, 0])})
+    if windows != want_windows:
+        raise AssertionError(f"long_windowed: {windows} windows, expected "
+                             f"{want_windows}")
+    if gen.shape != (1, cfg["new_tokens"]) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"long_windowed: bad tokens {gen.shape}")
+    cut = ids[:, :cfg["one_shot_len"]]
+    cut_mask = mask[:, :cfg["one_shot_len"]]
+    app.reset()
+    win = app.generate(cut, attention_mask=cut_mask,
+                       max_new_tokens=cfg["new_tokens"])["generated"]
+    one = make_contiguous_app(hf, device, "bfloat16", batch=1,
+                              seq_len=cfg["seq_len"])
+    one.params = app.params
+    ref = one.generate(cut, attention_mask=cut_mask,
+                       max_new_tokens=cfg["new_tokens"])["generated"]
+    equal, prefix = agreement(win, ref)
+    emit({"phase": "long_windowed_vs_one_shot_bf16",
+          "prompt_len": cfg["one_shot_len"], "streams_equal": equal,
+          "equal_prefix_tokens": prefix, "gate": False})
+    del one, app
+    memory_note("long_windowed")
+    free_card()
+
+
+def check_equal_streams(phase, got, want, logit_at):
+    """Gate: ``got`` (B, T) equals ``want`` token for token; a row may
+    first differ only where the reference's top-2 logits at that step are
+    closer than NEAR_TIE (``logit_at(row, step)``, asked for only when a
+    row differs). Returns the near ties."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    ties = []
+    for i in range(len(want)):
+        if not (got[i] != want[i]).any():
+            continue
+        j = int(np.argmax(got[i] != want[i]))
+        top2 = np.sort(np.asarray(logit_at(i, j), np.float64))[-2:]
+        margin = float(top2[1] - top2[0])
+        ties.append({"row": i, "first_diff_step": j, "margin": margin})
+        if not margin < NEAR_TIE:
+            raise AssertionError(f"{phase}: row {i} differs at step {j} "
+                                 f"with top-2 margin {margin}")
+    emit({"phase": phase, "streams": len(want), "tokens": want.shape[1],
+          "streams_equal": len(want) - len(ties), "near_ties": ties,
+          "near_tie_bound": NEAR_TIE})
+    return ties
+
+
+def batch_logit_at(make_ref, ids, mask, want):
+    """``logit_at`` over one batch ``generate`` of a reference app with
+    logits output, fed the reference's own tokens (built on first use)."""
+    import numpy as np
+    memo = {}
+    lens = np.asarray(mask).sum(axis=1)
+
+    def at(i, j):
+        if "logits" not in memo:
+            memo["logits"] = make_ref().generate(
+                ids, attention_mask=mask, max_new_tokens=want.shape[1],
+                return_logits=True, teacher_tokens=want[:, :-1])["logits"]
+        lg = memo["logits"]
+        return lg[0][i, lens[i] - 1] if j == 0 else lg[j][i, 0]
+    return at
+
+
+def prompt_logit_at(make_ref, prompts, want):
+    """``logit_at`` over single-request ``generate`` calls (one per row,
+    built on first use)."""
+    import numpy as np
+    memo = {}
+
+    def at(i, j):
+        if i not in memo:
+            ref = memo.setdefault("app", make_ref())
+            memo[i] = ref.generate(
+                np.asarray([prompts[i]]), max_new_tokens=want.shape[1],
+                return_logits=True, teacher_tokens=want[i:i + 1, :-1])[
+                    "logits"]
+            ref.reset()
+        lg = memo[i]
+        return lg[0][0, len(prompts[i]) - 1] if j == 0 else lg[j][0, 0]
+    return at
+
+
+def phase_long_fp32(device):
+    with fp32_exact():
+        _phase_long_fp32(device)
+
+
+def _phase_long_fp32(device):
+    """16 (f): fp32 cuts at LONG_CHECK_LAYERS layers (TF32 off), each
+    pair equal token for token over LONG_CHECK_TOKENS new tokens (a first
+    difference only at a near-tie of the reference's top-2 logits,
+    printed): gpt-oss-20b's mixed cache against the uniform cache on (b)'s
+    prompts; ``ContinuousBatchingAdapter`` on the mixed cache against
+    each request's ``generate`` on (c)'s schedule; Mistral-7B-v0.1's
+    rolling cache against ``rolling_kv_cache=False`` on (d)'s prompts;
+    windowed context encoding against the one-shot prefill on (e)'s
+    prompt cut to MISTRAL_WCTE["one_shot_len"] tokens."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    n, new = LONG_CHECK_LAYERS, LONG_CHECK_TOKENS
+    hf = oss_cut(n)
+    lens, seq = OSS_LONG["lens"], OSS_LONG["seq_len"]
+    b = len(lens)
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=16)
+    mix = make_oss_app(hf, device, "float32", batch=b, seq_len=seq)
+    init_weights(mix, 0)
+    got = mix.generate(ids, attention_mask=mask,
+                       max_new_tokens=new)["generated"]
+
+    def oss_ref(**kw):
+        ref = make_oss_app(hf, device, "float32", batch=b, seq_len=seq,
+                           **kw)
+        ref.params = mix.params
+        return ref
+    want = oss_ref(mixed_kv=False).generate(
+        ids, attention_mask=mask, max_new_tokens=new)["generated"]
+    check_equal_streams("long_fp32_mixed_vs_uniform", got, want,
+                        batch_logit_at(lambda: oss_ref(
+                            mixed_kv=False, output_logits=True), ids, mask,
+                            want))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, hf["vocab_size"], size=k).tolist()
+               for k in RAGGED["lens"]]
+    ad = ContinuousBatchingAdapter(oss_ref(cb=True))
+    streams, _, _ = serve_cb(ad, prompts, new, torch.cuda.synchronize)
+    del ad
+    want = np.stack([mix.generate(np.asarray([p]), max_new_tokens=new)[
+        "generated"][0] for p in prompts])
+    check_equal_streams("long_fp32_cb_vs_generate", np.asarray(streams),
+                        want, prompt_logit_at(
+                            lambda: oss_ref(output_logits=True), prompts,
+                            want))
+    del mix
+    free_card()
+
+    hf = dict(MISTRAL_7B, num_hidden_layers=n)
+    lens, seq = MISTRAL_ROLL["lens"], MISTRAL_ROLL["seq_len"]
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=17)
+    roll = make_contiguous_app(hf, device, "float32", batch=len(lens),
+                               seq_len=seq, rolling=None)
+    roll.init_random_weights(0)
+    got = roll.generate(ids, attention_mask=mask,
+                        max_new_tokens=new)["generated"]
+
+    def mistral_ref(batch, **kw):
+        ref = make_contiguous_app(hf, device, "float32", batch=batch,
+                                  seq_len=seq, **kw)
+        ref.params = roll.params
+        return ref
+    want = mistral_ref(len(lens)).generate(
+        ids, attention_mask=mask, max_new_tokens=new)["generated"]
+    check_equal_streams("long_fp32_rolling_vs_full", got, want,
+                        batch_logit_at(lambda: mistral_ref(
+                            len(lens), output_logits=True), ids, mask, want))
+    cfg = MISTRAL_WCTE
+    ids, mask = prompts_of((cfg["len"],), hf["vocab_size"], seed=18)
+    ids = ids[:, :cfg["one_shot_len"]]
+    mask = mask[:, :cfg["one_shot_len"]]
+    got = mistral_ref(1, wcte=cfg["window"]).generate(
+        ids, attention_mask=mask, max_new_tokens=new)["generated"]
+    want = mistral_ref(1).generate(ids, attention_mask=mask,
+                                   max_new_tokens=new)["generated"]
+    check_equal_streams("long_fp32_windowed_vs_one_shot", got, want,
+                        batch_logit_at(lambda: mistral_ref(
+                            1, output_logits=True), ids, mask, want))
+    del roll
+    free_card()
+
+
+def phase_long(device):
+    """Group ``long`` (phase 16 (a)-(f)); returns its kernels-line
+    entries: the contiguous decode kernel at (a)'s times with (b)'s
+    launches, flash at (a)'s times with (d)'s launches."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    times = phase_long_kernels(device)
+    memory_note("long_kernels")
+    check_card_empty("long_oss")
+    app, counts = phase_long_oss(GPT_OSS_20B, device)
+    phase_long_oss_serving(GPT_OSS_20B, device, app)
+    memory_note("long_oss_cb")
+    del app
+    free_card()
+    flash_launches = phase_long_rolling(MISTRAL_7B, device)
+    phase_long_windowed(MISTRAL_7B, device)
+    phase_long_fp32(device)
+    memory_note("long_fp32")
+    src = "neuronx_distributed_inference_tpu_torch/csrc/"
+    jax_ops = "neuronx_distributed_inference_tpu/ops/"
+    entries = []
+    for name, key, fn, launches, path in (
+            ("decode_attention_stacked", "decode", "decode_attention.py:41",
+             counts["decode_attention_stacked"], "long_oss"),
+            ("flash_attention", "flash", "flash_attention.py:28",
+             flash_launches, "long_rolling")):
+        t = times[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": src + ("decode_attention.cu" if key == "decode"
+                             else "flash_attention.cu"),
+            "replaces": jax_ops + fn, "launches": launches,
+            "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": path, "shape": t["shape"]})
+    return entries
+
+
+GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
+          "long")
 
 
 def main(argv=None) -> int:
@@ -3564,6 +4489,9 @@ def main(argv=None) -> int:
     if "oss" in only:
         free_card()
         kernels += phase_oss(device)
+    if "long" in only:
+        free_card()
+        kernels += phase_long(device)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"gpu": gpu})

@@ -4,8 +4,9 @@ paged ``PagedCausalLMApplication`` built on it (counterpart:
 ``CausalLMApplication`` :52-1080: ``__init__`` :55, ``load_weights``
 :106, ``init_random_weights`` :115, ``_put_params`` :127, ``init_cache``
 :203, ``_check_decode_fits`` :263, ``_kv_bucket`` :277, ``warmup`` :323,
-``_default_sampling_params`` :508, ``_run_prefill`` :515, ``_run_decode``
-:613, ``_run_decode_loop`` :649, ``_generate_repadded`` :687,
+``_default_sampling_params`` :508, ``_run_prefill`` :515,
+``_run_prefill_windowed`` :557, ``_run_decode`` :613, ``_run_decode_loop``
+:649, ``_generate_repadded`` :687,
 ``generate`` :780, ``reset`` :967; ``_finalize_generation`` :1105;
 ``PagedCausalLMApplication`` :1120-1626, its ``_coupled_sampling`` /
 ``_stream_seeds`` :1163-1178, ``_run_spec_draft`` :1251,
@@ -15,14 +16,23 @@ jit-cache accounting ``_note_jit`` / ``declare_steady_state`` /
 
 Same host contract as the JAX applications. The contiguous app:
 ``init_cache``, ``_run_prefill``, ``_run_decode``, ``_run_decode_loop``,
-``generate``, ``reset``; the paged app: ``_run_paged``,
-``_run_paged_loop``, ``_run_ragged``, ``_run_spec_draft``,
+``generate``, ``reset`` and ``_run_prefill_windowed`` (windowed context
+encoding, reference :557-599: a prompt longer than
+``windowed_context_encoding`` is prefilled window by window through
+``model_base.token_generation_multi``, eagerly); the paged app:
+``_run_paged``, ``_run_paged_loop``, ``_run_ragged``, ``_run_spec_draft``,
 ``_run_spec_verify``, ``generate``, ``release``,
 ``reset``, with the host
 owning the block allocator and tables. Step results are torch tensors
-(read them with ``np.asarray(t.cpu())``). Windowed context encoding,
-images, LoRA adapters and M-RoPE positions of the JAX ``generate`` are not
-ported (the spec refuses their configs).
+(read them with ``np.asarray(t.cpu())``). Images, LoRA adapters and
+M-RoPE positions of the JAX ``generate`` are not ported (the spec refuses
+their configs).
+
+The contiguous cache is full rows, the rolling cache or the mixed
+per-layer cache, as ``model_base.cache_layout`` decides (``init_cache``,
+reference :203-241). A rolling cache never overflows (slot = pos % w):
+decode may run past ``seq_len`` there, and its gather path reads every
+slot (no KV-view bucket).
 
 The KV cache is updated IN PLACE by every step. The JAX application
 donated the cache buffers to each step, which made every step a
@@ -67,7 +77,7 @@ from ..modules import kv_cache as kvc
 from ..modules.block_kv_cache import (BlockKVCacheManager, BlockKVSpec,
                                       cut_cached_at_unwritten,
                                       slots_from_table)
-from ..ops.sampling import prepare_sampling_params
+from ..ops.sampling import prepare_sampling_params, sample
 from ..resilience.errors import CapacityError, ConfigurationError
 from ..telemetry import get_registry
 from ..telemetry import metrics as tmetrics
@@ -315,20 +325,34 @@ class CausalLMApplication:
 
     # -- cache -------------------------------------------------------------
     def init_cache(self):
+        """Zeroed KV cache: full rows, the rolling cache (``sliding_window``
+        slots a row) or the mixed per-layer cache (``k``/``v`` for the
+        global layers, ``k_l``/``v_l`` for the local ones)."""
         cfg = self.tpu_config
-        self.cache = kvc.init_cache(kvc.KVCacheSpec(
-            num_layers=self.spec.num_layers,
+        spec = self.spec
+        kspec = kvc.KVCacheSpec(
+            num_layers=spec.num_layers,
             batch_size=cfg.kv_cache_batch_size,
             max_seq_len=cfg.seq_len,
-            num_kv_heads=self.spec.gqa.num_kv_heads,
-            head_dim=self.spec.head_dim,
-            dtype=self.spec.kv_dtype), self.device)
+            num_kv_heads=spec.gqa.num_kv_heads,
+            head_dim=spec.head_dim,
+            dtype=spec.kv_dtype,
+            window=spec.sliding_window if spec.rolling_window else 0)
+        if spec.mixed_kv:
+            self.cache = kvc.init_mixed_cache(kspec, spec.layer_pattern,
+                                              spec.sliding_window,
+                                              self.device)
+        else:
+            self.cache = kvc.init_cache(kspec, self.device)
         return self
 
     # -- helpers -----------------------------------------------------------
     def _check_decode_fits(self, needed: int):
         """Decode writing KV slots up to ``needed - 1`` must stay inside
-        the configured seq_len."""
+        the configured seq_len; a rolling cache (slot = pos % w) never
+        overflows."""
+        if self.spec.rolling_window:
+            return
         limit = self.tpu_config.seq_len
         if needed > limit:
             raise CapacityError(
@@ -337,8 +361,9 @@ class CausalLMApplication:
 
     def _kv_bucket(self, needed: int) -> Optional[int]:
         """Smallest decode bucket covering ``needed`` cache slots: the
-        gather path reads cache[:bucket] only. None = the whole cache."""
-        if len(self.tkg_buckets) <= 1:
+        gather path reads cache[:bucket] only. None = the whole cache (and
+        always on a rolling cache, whose slots are not positions)."""
+        if self.spec.rolling_window or len(self.tkg_buckets) <= 1:
             return None
         return autobucketing.get_target_bucket(self.tkg_buckets, needed)
 
@@ -389,6 +414,44 @@ class CausalLMApplication:
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(input_ids), pos, sid, self._t(seq_lens),
             sampling_params, self.generator, self._inv_freq)
+
+    def _run_prefill_windowed(self, input_ids, seq_lens, window: int,
+                              sampling_params=None):
+        """Windowed context encoding (reference application.py:557-599): a
+        (B, n x window) right-padded prompt walks the cache in fixed
+        windows through ``model_base.token_generation_multi`` (eager), so
+        attention holds (window, seq_len) scores instead of (S, S). Padded
+        positions are pushed to ``seq_len`` (their writes drop). Each row
+        keeps the logits of its last real position, sampled once at the
+        end. Returns {"tokens"} on the device."""
+        if self.spec.rolling_window or self.spec.mixed_kv:
+            raise NotImplementedError(
+                "windowed_context_encoding is incompatible with rolling / "
+                "mixed per-layer KV caches (slot != position)")
+        b, s = np.shape(input_ids)
+        lens = np.asarray(seq_lens, np.int64)
+        sid = self._seq_ids(b, None)
+        if sampling_params is None:
+            sampling_params = self._default_sampling_params(b)
+        last = torch.zeros((b, self.spec.vocab_size), dtype=torch.float32,
+                           device=self.device)
+        limit = self.tpu_config.seq_len
+        for off in range(0, s, window):
+            pos = off + np.arange(window)[None, :]
+            pos = np.where(pos < lens[:, None], pos, limit)
+            self._note_jit("windowed_cte", window, (b,), graph=False)
+            lg = model_base.token_generation_multi(
+                self.spec, self.tpu_config, self.params, self.cache,
+                self._t(input_ids[:, off:off + window]), self._t(pos), sid,
+                self._inv_freq)["logits_all"]
+            idx = self._t(np.clip(lens - 1 - off, 0, window - 1), torch.long)
+            lg = torch.gather(lg, 1, idx[:, None, None].expand(
+                -1, 1, lg.shape[-1]))[:, 0]
+            hit = (lens - 1 >= off) & (lens - 1 < off + window)
+            last = torch.where(self._t(hit, torch.bool)[:, None],
+                               lg.float(), last)
+        sc = self.tpu_config.on_device_sampling_config
+        return {"tokens": sample(last, sc, sampling_params, self.generator)}
 
     def _run_decode(self, input_ids, position_ids, seq_ids=None,
                     sampling_params=None):
@@ -556,7 +619,13 @@ class CausalLMApplication:
             teacher_tokens = np.asarray(teacher_tokens)
             max_new_tokens = min(max_new_tokens,
                                  teacher_tokens.shape[1] + 1)
-        bucket = autobucketing.get_target_bucket(self.ctx_buckets, s)
+        wcte = self.tpu_config.windowed_context_encoding
+        if wcte and s > wcte:
+            # windowed context encoding pads to a window multiple
+            bucket = -(-s // wcte) * wcte
+        else:
+            wcte = None
+            bucket = autobucketing.get_target_bucket(self.ctx_buckets, s)
         padded = np.zeros((b, bucket), input_ids.dtype)
         padded[:, :s] = input_ids
         if int(seq_lens.max()) + max_new_tokens > self.tpu_config.seq_len:
@@ -565,8 +634,16 @@ class CausalLMApplication:
                 raise ValueError("prompt exceeds seq_len")
 
         t0 = time.perf_counter()
-        out = self._run_prefill(padded, seq_lens,
-                                sampling_params=sampling_params)
+        if wcte:
+            if return_logits:
+                raise NotImplementedError(
+                    "windowed context encoding supports plain text prompts "
+                    "without logits output")
+            out = self._run_prefill_windowed(padded, seq_lens, wcte,
+                                             sampling_params=sampling_params)
+        else:
+            out = self._run_prefill(padded, seq_lens,
+                                    sampling_params=sampling_params)
         first = out["tokens"]
         logits_trace: List[np.ndarray] = (
             [out["logits"].cpu().numpy()]

@@ -37,7 +37,12 @@ self-draft loop (``paged_spec_draft_loop``: k T = 1 steps in one graph per
 dispatch), and only when they sample greedily or with the seeded coupled
 draw (``ops/sampling.coupled_sample``): that draw is a pure function of
 the step's inputs, and its row seeds ride the int32 staging buffer with
-the other inputs. Wider grids (prefill, mixed and verify passes) run
+the other inputs. A step reads every tensor of the app's cache, so the
+decode graph of a rolling or mixed-cache app holds all of its stacks
+(``k``/``v`` and ``k_l``/``v_l``); the rolling write slot (``pos % w``)
+and the masks are computed on the device from the static position input,
+so each replay takes its own positions. Wider grids (prefill, windowed
+context encoding, mixed and verify passes) run
 eagerly by design (PyTorch eager has no per-shape build to save), and a
 ``torch.Generator`` draw (do_sample without a ``stream_seed``) stays eager:
 a replay would repeat the captured draw.

@@ -18,10 +18,11 @@ checkpoint's native MXFP4 ``*_blocks`` / ``*_scales``
 experts (``quantized=True``) wait for ROADMAP A11.
 
 ``TpuGptOssForCausalLM`` builds the contiguous app as the reference's
-does; where the reference would give that app its mixed per-layer cache
-(``seq_len > sliding_window``) the port raises ``ConfigurationError``
-(ROADMAP A10). The paged app (``PagedCausalLMApplication``) serves every
-``seq_len`` over the ordinary block cache, as the reference's does."""
+does; above ``seq_len = sliding_window`` that app keeps the mixed
+per-layer cache (the local layers' rows roll at the window,
+``modules/kv_cache.init_mixed_cache``). The paged app
+(``PagedCausalLMApplication``) serves every ``seq_len`` over the ordinary
+block cache, as the reference's does."""
 
 from __future__ import annotations
 

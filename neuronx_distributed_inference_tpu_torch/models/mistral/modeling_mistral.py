@@ -1,10 +1,11 @@
 """Mistral family (counterpart:
 ``neuronx_distributed_inference_tpu/models/mistral/modeling_mistral.py:14-36``).
 Llama-shaped with an optional uniform sliding window (Mistral-7B-v0.1:
-window 4096). A non-uniform ``layer_types`` becomes a layer pattern
-(alternating local and global layers); on the contiguous cache with
-``seq_len`` above the window it needs the mixed cache, which the port
-does not run yet: ``spec_from_config`` refuses it (ROADMAP A10)."""
+window 4096). Above the window the contiguous app keeps the rolling
+cache of ``sliding_window`` slots a row unless ``rolling_kv_cache=False``
+keeps full rows. A non-uniform ``layer_types`` becomes a layer pattern
+(alternating local and global layers), which takes the mixed per-layer
+cache there (``model_base.cache_layout``)."""
 
 from __future__ import annotations
 

@@ -3,9 +3,8 @@
 
 Routing as HF Mixtral: softmax over all experts, top-k, the selected
 affinities renormalised. The config's ``sliding_window`` reaches the spec;
-a window shorter than ``seq_len`` is refused by ``spec_from_config``'s
-rolling-cache rule unless ``rolling_kv_cache=False`` keeps the full
-cache."""
+a window shorter than ``seq_len`` takes the rolling cache on the
+contiguous app unless ``rolling_kv_cache=False`` keeps the full cache."""
 
 from __future__ import annotations
 

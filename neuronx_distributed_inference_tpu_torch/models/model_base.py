@@ -6,11 +6,14 @@
 ``_layer_body`` :753, ``_mlp_block`` :889 (dense GLU or the MoE block),
 ``_attn_block`` :943-1280 (the per-head q/k RMSNorm :1014-1024, paged
 :1058-1103, prefill :1104-1156, decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
+``run_layers_mixed_decode`` :1577, ``fold_mixed_prefill`` :1611,
 ``_embed`` :1656, ``_lm_head`` :1671, ``context_encoding_step`` :1686,
-``token_generation_step`` :1789, ``paged_forward_step`` :1883,
+``token_generation_step`` :1789, ``token_generation_multi`` :1846,
+``paged_forward_step`` :1883,
 ``decode_loop`` :1939, ``paged_decode_loop`` :2058,
 ``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
-``paged_ragged_step`` :2222, ``spec_from_config`` :2346).
+``paged_ragged_step`` :2222, ``spec_from_config`` :2346, its cache-layout
+decisions :2513-2554).
 
 The layer stack is uniform in its MLP: every layer has a dense GLU MLP,
 or every layer a routed mixture of experts (``spec.moe``,
@@ -18,10 +21,25 @@ or every layer a routed mixture of experts (``spec.moe``,
 ``first_dense`` and ``moe_pattern``) are refused at spec time (ROADMAP
 A14). Attention may alternate: with a ``layer_pattern`` (GPT-OSS) a local
 layer attends within ``sliding_window`` and a global layer over the whole
-context, each over the same cache (the reference's mixed per-layer cache,
-picked by the contiguous app for ``seq_len > sliding_window``, is refused
-until ROADMAP A10). Learned per-head sinks join every softmax denominator
+context. Learned per-head sinks join every softmax denominator
 (``attn_sink``), and q/k/v and o projections may carry biases.
+
+The contiguous cache takes one of three layouts (:func:`cache_layout`,
+the reference's decisions):
+
+  * full rows of ``seq_len`` slots, slot = position;
+  * ``rolling_window``: a uniform sliding-window model above its window
+    keeps ``sliding_window`` slots a row, written at ``pos % w``; the
+    prefill writes only each row's last ``w`` positions, decode reads all
+    slots through ``ops.attention.rolling_decode_mask`` on the gather
+    path (the decode kernel addresses slot = position, so it is off);
+  * ``mixed_kv``: a layer pattern above its window keeps the global
+    layers' full rows in ``{"k", "v"}`` and the local layers' rolling
+    rows in ``{"k_l", "v_l"}``; the prefill runs every layer on a
+    full-length scratch and folds it (:func:`fold_mixed_prefill`), decode
+    walks the two stacks (:func:`run_layers_mixed_decode`), the global
+    layers through the decode kernel at their index within the global
+    stack.
 
 The model is a set of plain functions over a dict of parameter tensors
 laid out as the JAX package's tree (stacked ``(L, …)`` layer leaves, fused
@@ -130,6 +148,11 @@ class DecoderSpec:
     # biases of the fused q/k/v projection and of o_proj
     qkv_bias: bool = False
     o_bias: bool = False
+    # the rolling cache: ``sliding_window`` slots a row, written pos % w
+    rolling_window: bool = False
+    # the mixed per-layer cache: local layers' rolling rows in
+    # {"k_l", "v_l"}, global layers' full rows in {"k", "v"}
+    mixed_kv: bool = False
 
     @property
     def scale(self) -> float:
@@ -360,18 +383,32 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                   is_local: bool):
     """Contiguous prefill branch (model_base.py:1104-1156): attend within
     the window (flash kernel or masked ``mha``), then write the window
-    into the cache rows ``seq_ids``."""
+    into the cache rows ``seq_ids``. On the rolling cache only each row's
+    last ``w`` positions land, at ``pos % w``; padded positions past the
+    row's length are dropped (:1132-1146)."""
     if ai["flash"]:
         out = flash_attention.flash_attention(q, k, v, scale=spec.scale,
                                               window=spec.sliding_window)
     else:
         out = attn_ops.mha(q, k, v, _layer_mask(ai, is_local), spec.scale,
                            sink=sink)
+    if spec.rolling_window:
+        w = cache["k"].shape[4]
+        pos = ai["positions"].long()
+        lens = ai["prefill_lens"].long()[:, None]
+        keep = (pos >= lens - w) & (pos < lens)
+        eff = torch.where(keep, torch.remainder(pos, w),
+                          torch.full_like(pos, w + 1))
     for name, x, kt in (("k", k, True), ("v", v, False)):
         c = cache[name]
-        kv.write_prefill_at_layer(
-            c, kv.quantize_kv(x, c.dtype, spec.kv_scale), li, ai["seq_ids"],
-            identity_seq_ids=ai["identity"], k_transposed=kt)
+        x = kv.quantize_kv(x, c.dtype, spec.kv_scale)
+        if spec.rolling_window:
+            kv.write_tokens_at_layer(c, x, li, ai["seq_ids"], eff,
+                                     k_transposed=kt)
+        else:
+            kv.write_prefill_at_layer(c, x, li, ai["seq_ids"],
+                                      identity_seq_ids=ai["identity"],
+                                      k_transposed=kt)
     return out
 
 
@@ -379,18 +416,25 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                  is_local: bool):
     """Contiguous decode branch (model_base.py:1157-1272). Returns the
     attention output and, under the chunked side buffer, the step's
-    (k, v) for the end-of-step side write."""
+    (k, v) for the end-of-step side write. On the rolling cache and a
+    local layer of the mixed cache (whose ``cache`` is the local stack)
+    the writes go to ``pos % w`` and the gather path reads every slot (the
+    decode kernel addresses slot = position); a global layer of the mixed
+    cache is a layer of the global stack ``li``."""
+    mixed_local = spec.mixed_kv and is_local
     kc, vc = cache["k"], cache["v"]
     side = ai.get("side")
     if side is None:
+        roll_w = kc.shape[4] if (spec.rolling_window or mixed_local) else 0
         kv.write_tokens_at_layer(kc, kv.quantize_kv(k, kc.dtype,
                                                     spec.kv_scale),
                                  li, ai["seq_ids"], ai["positions"],
-                                 k_transposed=True)
+                                 window=roll_w, k_transposed=True)
         kv.write_tokens_at_layer(vc, kv.quantize_kv(v, vc.dtype,
                                                     spec.kv_scale),
-                                 li, ai["seq_ids"], ai["positions"])
-    if ai["use_kernel"]:
+                                 li, ai["seq_ids"], ai["positions"],
+                                 window=roll_w)
+    if ai["use_kernel"] and not mixed_local:
         # the cache row just written is masked out (kpos < pos); the
         # active token is folded in from registers
         out = decode_attention.decode_attention_stacked(
@@ -399,7 +443,7 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
             window=spec.window(is_local), sink=sink,
             kv_scale=spec.kv_scale)[:, None]
         return out, None
-    view = ai.get("kv_view")
+    view = None if mixed_local else ai.get("kv_view")
     k_layer = kv.read_layer_hl(kc, li)                 # (B, H, D, S)
     v_layer = kv.read_layer_hl(vc, li)                 # (B, H, S, D)
     if view is not None and view < vc.shape[3]:
@@ -431,15 +475,17 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str):
 
 
 def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
-                phase: str):
+                phase: str, layer: Optional[int] = None):
     """One pre-norm transformer layer; returns (hidden, pending side
-    write or None). Layer ``li`` takes its own window and mask (local or
-    global, model_base.py:1327) and its sink."""
+    write or None). Layer ``layer`` (default ``li``) takes its own window
+    and mask (local or global, model_base.py:1327) and its sink; ``li``
+    addresses its rows in ``cache`` (on the mixed cache, its index within
+    its own stack)."""
     h = rms_norm(hidden, layer_w["input_norm"], spec.rms_eps)
     q, k, v = _qkv(spec, h, layer_w, ai)
     pending = None
     args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w),
-            spec.is_local(li))
+            spec.is_local(li if layer is None else layer))
     if phase == "decode":
         attn, pending = _decode_attn(*args)
     elif phase == "prefill":
@@ -476,6 +522,47 @@ def run_layers(spec: DecoderSpec, params, cache, hidden, ai, phase: str):
         sv[:, :, :, idx] = torch.stack([p[1][:, 0] for p in pend]).to(
             sv.dtype)
     return hidden
+
+
+def run_layers_mixed_decode(spec: DecoderSpec, params, cache, hidden, ai):
+    """The decode layer loop over the mixed cache (model_base.py:1577):
+    local layers read and write the rolling ``{"k_l", "v_l"}`` stacks
+    with ``mask_l``, global layers the full ``{"k", "v"}`` stacks with
+    ``kv_view`` (and the decode kernel where admitted), each at its index
+    within its own stack. Non-identity ``seq_ids`` (continuous batching)
+    gather the reads and scatter the writes on both kinds."""
+    lmap = kv.mixed_layer_map(spec.layer_pattern)
+    local = {"k": cache["k_l"], "v": cache["v_l"]}
+    stacks = params["layers"]
+    for i in range(spec.num_layers):
+        layer_w = {k: w[i] for k, w in stacks.items()}
+        hidden, _ = _layer_body(spec, hidden, layer_w,
+                                local if spec.is_local(i) else cache,
+                                lmap[i], ai, "decode", layer=i)
+    return hidden
+
+
+def fold_mixed_prefill(spec: DecoderSpec, scratch, cache, seq_lens,
+                       seq_ids=None) -> None:
+    """The mixed-cache prefill epilogue (model_base.py:1611), in place:
+    the global layers' scratch rows land in the full stacks at slots
+    [0, sb), the local layers' rows are folded into the rolling stacks.
+    ``seq_ids`` (b,): the continuous-batching target rows; None = rows
+    [0, b)."""
+    pat = spec.layer_pattern
+    dev = scratch["k"].device
+    gi = torch.tensor([i for i, x in enumerate(pat) if not x], device=dev)
+    li = torch.tensor([i for i, x in enumerate(pat) if x], device=dev)
+    w = cache["k_l"].shape[4]
+    kl = kv.fold_rolling_prefill(scratch["k"][li], seq_lens, w,
+                                 k_transposed=True)
+    vl = kv.fold_rolling_prefill(scratch["v"][li], seq_lens, w)
+    b, sb = scratch["k"].shape[1], scratch["k"].shape[4]
+    rows = slice(0, b) if seq_ids is None else seq_ids.long()
+    cache["k"][:, rows, :, :, :sb] = scratch["k"][gi].to(cache["k"].dtype)
+    cache["v"][:, rows, :, :sb] = scratch["v"][gi].to(cache["v"].dtype)
+    cache["k_l"][:, rows] = kl.to(cache["k_l"].dtype)
+    cache["v_l"][:, rows] = vl.to(cache["v_l"].dtype)
 
 
 def _embed(params, input_ids):
@@ -516,8 +603,10 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
                                  identity_seq_ids: bool,
                                  side: bool = False) -> bool:
     """The decode branch's kernel admission, model_base.py:1175-1197: no
-    side buffer, not disabled, supported geometry, static batch over the
-    whole cache, a cache dtype the kernel streams.
+    side buffer, not disabled, supported geometry, not the rolling cache,
+    static batch over the whole cache, a cache dtype the kernel streams.
+    On the mixed cache it admits the global stack's layers (``cache["k"]``);
+    the rolling local layers keep the gather path.
 
     By default (``decode_kernel`` None) the port takes the kernel wherever
     it is admitted, full attention included: a deliberate difference from
@@ -528,6 +617,7 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
     gather + ``mha_hl`` path, both replaying CUDA graphs (PERF.md)."""
     return (not side and spec.decode_kernel is not False
             and decode_attention.supports(spec, phase_t)
+            and not spec.rolling_window
             and identity_seq_ids and batch == cache["k"].shape[1]
             and _cache_ok(spec, cache["k"].dtype))
 
@@ -560,8 +650,12 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     """Prefill (model_base.py:1686). input_ids/position_ids (B, S_bucket)
     right-padded with arange positions; seq_ids (B,) cache rows; seq_lens
     (B,) true lengths. Writes the cache in place; returns {"tokens": (B,)}
-    plus {"logits": (B, S_bucket, vocab)} when ``output_logits``."""
-    s = input_ids.shape[1]
+    plus {"logits": (B, S_bucket, vocab)} when ``output_logits``.
+
+    On the mixed cache every layer prefills into a full-length scratch
+    (identity rows), which :func:`fold_mixed_prefill` then folds into the
+    two stacks at the real rows (:1747-1769)."""
+    b, s = input_ids.shape
     ai = attn_inputs(spec, position_ids, inv_freq)
     ai["flash"] = use_flash_prefill(spec, s)
     if not ai["flash"]:
@@ -569,10 +663,26 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
         # outputs are discarded
         _add_masks(spec, ai, lambda w: attn_ops.prefill_causal_mask(
             position_ids, w))
-    ai["seq_ids"] = seq_ids
-    ai["identity"] = not tpu_cfg.is_continuous_batching
+    ai.update(seq_ids=seq_ids, positions=position_ids, prefill_lens=seq_lens,
+              identity=not tpu_cfg.is_continuous_batching)
+    persistent = cache
+    if spec.mixed_kv:
+        g = spec.gqa
+        kdt = cache["k"].dtype
+        cache = {"k": torch.zeros((spec.num_layers, b, g.num_kv_heads,
+                                   spec.head_dim, s), dtype=kdt,
+                                  device=input_ids.device),
+                 "v": torch.zeros((spec.num_layers, b, g.num_kv_heads, s,
+                                   spec.head_dim), dtype=kdt,
+                                  device=input_ids.device)}
+        ai["identity"] = True
     hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
                         "prefill")
+    if spec.mixed_kv:
+        fold_mixed_prefill(spec, cache, persistent, seq_lens,
+                           seq_ids if tpu_cfg.is_continuous_batching
+                           else None)
+        del cache           # the scratch goes before the lm_head's logits
     idx = (seq_lens.long() - 1).clamp(min=0)[:, None, None].expand(
         -1, 1, hidden.shape[-1])
     return _sample_out(spec, tpu_cfg, params, hidden,
@@ -582,6 +692,11 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 
 def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
                    position_ids, seq_ids, kv_view, inv_freq, side=None):
+    """Inputs of a decode step: RoPE, rows, the kernel decision and its
+    lengths, the masks. The rolling cache's mask maps slots back to the
+    positions they hold; the mixed cache adds the local stack's rolling
+    ``mask_l`` (model_base.py:1806-1830). Every mask is built on the
+    device from ``position_ids``."""
     identity = not tpu_cfg.is_continuous_batching
     ai = attn_inputs(spec, position_ids, inv_freq)
     ai.update(seq_ids=seq_ids, positions=position_ids, identity=identity,
@@ -589,12 +704,19 @@ def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
     ai["use_kernel"] = use_contiguous_decode_kernel(
         spec, position_ids.shape[1], position_ids.shape[0], cache, identity,
         side is not None)
+    cache_len = kv_view or kv.cache_len_of(cache)
     if ai["use_kernel"]:
         ai["lens"] = position_ids[:, 0].to(torch.int32).contiguous()
+    elif spec.rolling_window:
+        ai["mask"] = attn_ops.rolling_decode_mask(position_ids, cache_len)
+    elif spec.mixed_kv:
+        ai["mask"] = attn_ops.decode_mask(position_ids, cache_len, 0)
     else:
-        cache_len = kv_view or kv.cache_len_of(cache)
         _add_masks(spec, ai, lambda w: attn_ops.decode_mask(
             position_ids, cache_len, w))
+    if spec.mixed_kv:
+        ai["mask_l"] = attn_ops.rolling_decode_mask(position_ids,
+                                                    cache["k_l"].shape[4])
     return ai
 
 
@@ -605,14 +727,40 @@ def token_generation_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                           inv_freq: Optional[torch.Tensor] = None):
     """Decode (model_base.py:1789). input_ids/position_ids (B, T); seq_ids
     (B,) cache rows. ``kv_view``: the gather path reads only cache slots
-    [0, kv_view); writes address the whole cache. Writes the cache in
-    place; returns {"tokens": (B,)} plus {"logits": (B, T, vocab)}."""
+    [0, kv_view) (of the global stack on the mixed cache); writes address
+    the whole cache. Writes the cache in place; returns {"tokens": (B,)}
+    plus {"logits": (B, T, vocab)}."""
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids,
                         kv_view, inv_freq)
-    hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
-                        "decode")
+    hidden = _embed(params, input_ids)
+    if spec.mixed_kv:
+        hidden = run_layers_mixed_decode(spec, params, cache, hidden, ai)
+    else:
+        hidden = run_layers(spec, params, cache, hidden, ai, "decode")
     return _sample_out(spec, tpu_cfg, params, hidden, hidden[:, -1:],
                        sampling_params, generator)
+
+
+def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
+                           cache, input_ids, position_ids, seq_ids,
+                           inv_freq: Optional[torch.Tensor] = None):
+    """A T-token decode step that returns the logits of every position
+    (model_base.py:1846-1874): the step of windowed context encoding (and
+    of the fused speculation's verify, not ported). input_ids /
+    position_ids (B, T); positions at or past the cache write nothing.
+    The step's K/V are written first, then every query attends the cache
+    through the position mask (the gather path: T > 1 takes no kernel).
+    Returns {"logits_all": (B, T, vocab)}."""
+    if spec.mixed_kv:
+        raise NotImplementedError(
+            "multi-token decode over the mixed per-layer cache is not "
+            "supported; disable speculation or set mixed_kv=False")
+    ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids, None,
+                        inv_freq)
+    hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
+                        "decode")
+    return {"logits_all": _lm_head(spec, params, hidden)[
+        ..., :spec.vocab_size]}
 
 
 def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
@@ -633,6 +781,7 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     no_logits = dataclasses.replace(tpu_cfg, output_logits=False)
     chunkable = (num_steps > 1 and not tpu_cfg.is_continuous_batching
                  and b == cache["k"].shape[1]
+                 and not spec.rolling_window
                  and spec.decode_kernel is not True
                  and not (spec.attn_sink or spec.sliding_window > 0
                           or spec.layer_pattern is not None))
@@ -964,19 +1113,15 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 # ---------------------------------------------------------------------------
 
 def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
-    sc = tcfg.speculation_config
     checks = [
         (tcfg.tp_degree > 1 or tcfg.cp_degree > 1 or tcfg.ep_degree > 1
          or tcfg.attention_dp_degree > 1, "parallelism degrees > 1"),
         (tcfg.sequence_parallel_enabled, "sequence parallelism"),
         (tcfg.flash_decoding_enabled, "flash decoding"),
-        (bool(tcfg.windowed_context_encoding),
-         "windowed context encoding"),
         (tcfg.quantized, "quantized weights"),
         (tcfg.mlp_low_rank is not None, "low-rank MLP"),
         (tcfg.lora_config is not None, "LoRA"),
-        (bool(sc and (sc.speculation_length
-                      or sc.medusa_speculation_length)), "speculation"),
+        (_has_speculation(tcfg), "speculation"),
         (tcfg.collective_config is not None
          and tcfg.collective_config.dtype is not None,
          "quantized collectives"),
@@ -1016,35 +1161,48 @@ def _moe_layout_refusals(tcfg: TpuConfig) -> List[str]:
             for knob in MOE_DEGREES[2:] if getattr(mc, knob, None) is not None]
 
 
-def _rolling_refusal(tcfg: TpuConfig, window: int,
-                     uniform: bool) -> Optional[str]:
-    """The rolling-cache decision of model_base.py:2513-2538: the reason
-    the port refuses a config for which the JAX package would keep only
-    ``window`` cache slots, else None (``uniform``: no layer pattern)."""
-    if tcfg.rolling_kv_cache:
-        return "rolling_kv_cache=True"
-    blocked = (window <= 0 or not uniform or tcfg.is_block_kv_layout
-               or tcfg.flash_decoding_enabled)
-    if tcfg.rolling_kv_cache is None and not blocked \
-            and tcfg.seq_len > window:
-        return (f"sliding_window {window} < seq_len {tcfg.seq_len} "
-                "(set rolling_kv_cache=False to keep the full cache)")
-    return None
+def _has_speculation(tcfg: TpuConfig) -> bool:
+    sc = tcfg.speculation_config
+    return bool(sc and (sc.speculation_length or sc.medusa_speculation_length))
 
 
-def _mixed_refusal(tcfg: TpuConfig, window: int,
-                   layer_pattern) -> Optional[str]:
-    """The mixed per-layer cache decision of model_base.py:2539-2552 (its
-    speculation, windowed-encoding, flash-decoding and tensor-capture
-    conditions are refused before this): the reason the port refuses a
-    config for which the JAX package would give local layers rolling
-    window-sized rows, else None."""
-    if (layer_pattern is not None and window > 0
-            and tcfg.seq_len > window and not tcfg.is_block_kv_layout):
-        return (f"the mixed per-layer KV cache (a layer pattern with "
-                f"sliding_window {window} < seq_len {tcfg.seq_len} on the "
-                "contiguous cache; ROADMAP A10)")
-    return None
+def cache_layout(tcfg: TpuConfig, sliding_window: int, layer_pattern=None,
+                 attn_chunk: int = 0) -> Tuple[bool, bool]:
+    """(rolling_window, mixed_kv): the contiguous cache's layout as the
+    reference decides it (model_base.py:2513-2552).
+
+    The rolling cache needs a uniform sliding-window model, no paged
+    layout, no flash decoding and no speculation; ``rolling_kv_cache``
+    None takes it wherever it is allowed and ``seq_len`` exceeds the
+    window, True asks for it (a blocker raises, a window that covers
+    ``seq_len`` never rolls), False keeps full rows. The mixed cache is
+    taken for a layer pattern above its window on the contiguous layout,
+    without windowed context encoding, flash decoding, speculation or
+    tensor capture."""
+    spec_on = _has_speculation(tcfg)
+    uniform = layer_pattern is None and attn_chunk == 0
+    blockers = [why for bad, why in (
+        (not (sliding_window > 0 and uniform),
+         "needs a uniform sliding_window model"),
+        (tcfg.is_block_kv_layout, "incompatible with the paged KV layout"),
+        (tcfg.flash_decoding_enabled, "incompatible with flash decoding"),
+        (spec_on, "incompatible with speculation")) if bad]
+    worth_it = tcfg.seq_len > sliding_window
+    roll = tcfg.rolling_kv_cache
+    if roll is None:
+        roll = not blockers and worth_it
+    elif roll and blockers:
+        raise ConfigurationError("rolling_kv_cache: " + "; ".join(blockers))
+    elif roll and not worth_it:
+        roll = False
+    mixed = (layer_pattern is not None and sliding_window > 0
+             and attn_chunk == 0 and tcfg.seq_len > sliding_window
+             and not tcfg.windowed_context_encoding
+             and not tcfg.is_block_kv_layout
+             and not tcfg.flash_decoding_enabled and not spec_on
+             and not (tcfg.tensor_capture_config
+                      or tcfg.tensor_replacement_config))
+    return bool(roll), bool(mixed)
 
 
 def spec_from_config(config: InferenceConfig,
@@ -1061,17 +1219,20 @@ def spec_from_config(config: InferenceConfig,
     (families pass ``sliding_window`` / ``layer_pattern`` /
     ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
     ``first_dense`` / ``moe_pattern`` / ``attn_sink`` / ``qkv_bias`` /
-    ``o_bias`` as the counterpart's overrides). Raises
-    :class:`ConfigurationError` for what the port does not run yet,
-    including every config for which the JAX package would pick the
-    rolling or mixed cache."""
+    ``o_bias`` as the counterpart's overrides). The cache layout (rolling,
+    mixed or full rows) is :func:`cache_layout`'s. Raises
+    :class:`ConfigurationError` for what the port does not run yet, and
+    (a ``ValueError``, as the reference raises) for ``rolling_kv_cache=True``
+    on a config that cannot roll."""
     tcfg = config.tpu_config
     tp = tp_degree if tp_degree is not None else tcfg.tp_degree
+    if layer_pattern is not None:
+        layer_pattern = tuple(bool(x) for x in layer_pattern)
+    rolling, mixed = cache_layout(tcfg, int(sliding_window), layer_pattern,
+                                  attn_chunk)
     bad = _unported_knobs(tcfg, config)
     if tp != 1:
         bad.append(f"tp_degree={tp}")
-    if layer_pattern is not None:
-        layer_pattern = tuple(bool(x) for x in layer_pattern)
     if attn_chunk:
         bad.append("chunked attention")
     if moe is not None:
@@ -1079,12 +1240,6 @@ def spec_from_config(config: InferenceConfig,
         if first_dense or moe_pattern is not None:
             bad.append("a mixed dense / MoE layer stack (first_dense, "
                        "moe_pattern; ROADMAP A14)")
-    roll = _rolling_refusal(tcfg, sliding_window, layer_pattern is None)
-    if roll:
-        bad.append("the rolling KV cache: " + roll)
-    mixed = _mixed_refusal(tcfg, sliding_window, layer_pattern)
-    if mixed:
-        bad.append(mixed)
     if bad:
         raise ConfigurationError(
             "the PyTorch port does not run these yet: " + ", ".join(bad))
@@ -1149,6 +1304,8 @@ def spec_from_config(config: InferenceConfig,
         attn_sink=bool(attn_sink),
         qkv_bias=bool(qkv_bias),
         o_bias=bool(o_bias),
+        rolling_window=rolling,
+        mixed_kv=mixed,
     )
 
 

@@ -1,6 +1,7 @@
 """Contiguous KV cache and KV quantisation (counterpart:
 ``neuronx_distributed_inference_tpu/modules/kv_cache.py`` — ``KVCacheSpec``
-:46, ``cache_len_of`` :85, ``init_cache`` :109, ``quantize_kv`` /
+:46, ``cache_len_of`` :85, ``init_cache`` :109, ``init_mixed_cache`` :122,
+``mixed_layer_map`` :142, ``fold_rolling_prefill`` :156, ``quantize_kv`` /
 ``dequantize_kv`` :183-197, ``write_tokens_at_layer`` :230,
 ``commit_chunk`` :284, ``write_prefill_at_layer`` :321, ``read_layer_hl``
 :349, ``read_layer`` :357, ``gather_cache_rows`` :366, ``KVCacheManager``
@@ -23,13 +24,26 @@ Dropped positions are written as no-ops (a slot's own value, or the value
 a live token of the same row writes there), so no write waits on the host
 to filter them. The rows of one call are written at once: rows that share
 a ``seq_id`` must carry the same values (the repad shim's copies of row 0
-do). The rolling and mixed-cache helpers (``fold_rolling_prefill``,
-``init_mixed_cache``) wait for the families that need them."""
+do).
+
+Two layouts keep fewer slots than ``seq_len``:
+
+  * the ROLLING cache (``KVCacheSpec.window`` > 0): ``window`` slots, a
+    token at position p written at slot ``p % window``
+    (``write_tokens_at_layer(window=)``); slot j then holds the latest
+    position congruent to j (``ops.attention.rolling_decode_mask``);
+  * the MIXED per-layer cache (:func:`init_mixed_cache`, alternating
+    local / global stacks): ``{"k", "v"}`` hold the global layers' full
+    rows, ``{"k_l", "v_l"}`` the local layers' rolling rows of
+    ``window`` slots; :func:`mixed_layer_map` gives each layer its index
+    within its own stack, and :func:`fold_rolling_prefill` turns a
+    full-length prefill scratch into rolling rows."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,22 +56,29 @@ class KVCacheSpec:
     num_kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.bfloat16
+    window: int = 0       # > 0: a rolling cache of this many slots
+
+    @property
+    def cache_len(self) -> int:
+        return (min(self.max_seq_len, self.window) if self.window > 0
+                else self.max_seq_len)
 
     @property
     def k_shape(self) -> Tuple[int, ...]:
         # K stored transposed (L, B, H, D, S): adjacent keys are adjacent
         # in memory, so a warp reading one D-row over 32 keys is coalesced
         return (self.num_layers, self.batch_size, self.num_kv_heads,
-                self.head_dim, self.max_seq_len)
+                self.head_dim, self.cache_len)
 
     @property
     def v_shape(self) -> Tuple[int, ...]:
         return (self.num_layers, self.batch_size, self.num_kv_heads,
-                self.max_seq_len, self.head_dim)
+                self.cache_len, self.head_dim)
 
 
 def cache_len_of(cache: Dict[str, torch.Tensor]) -> int:
-    """Cache sequence capacity (V layout (L, B, H, S, D))."""
+    """Cache sequence capacity (V layout (L, B, H, S, D)); of the global
+    stack in a mixed cache."""
     return cache["v"].shape[3]
 
 
@@ -66,6 +87,62 @@ def init_cache(spec: KVCacheSpec,
     """Zero-initialised {'k', 'v'} cache on ``device``."""
     return {"k": torch.zeros(spec.k_shape, dtype=spec.dtype, device=device),
             "v": torch.zeros(spec.v_shape, dtype=spec.dtype, device=device)}
+
+
+def init_mixed_cache(spec: KVCacheSpec, layer_pattern, window: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """The mixed per-layer cache: the global layers (``layer_pattern[i]``
+    False) keep full rows in ``{"k", "v"}``, the local ones rolling rows
+    of ``window`` slots in ``{"k_l", "v_l"}`` (each stack at least one
+    layer deep, as the reference's)."""
+    n_local = sum(bool(x) for x in layer_pattern)
+    n_global = spec.num_layers - n_local
+    cache = init_cache(dataclasses.replace(
+        spec, num_layers=max(n_global, 1), window=0), device)
+    local = init_cache(dataclasses.replace(
+        spec, num_layers=max(n_local, 1), window=window), device)
+    cache["k_l"], cache["v_l"] = local["k"], local["v"]
+    return cache
+
+
+def mixed_layer_map(layer_pattern) -> List[int]:
+    """Absolute layer index -> index within its own (local / global)
+    stack."""
+    idx, n_l, n_g = [], 0, 0
+    for is_local in layer_pattern:
+        if is_local:
+            idx.append(n_l)
+            n_l += 1
+        else:
+            idx.append(n_g)
+            n_g += 1
+    return idx
+
+
+def fold_rolling_prefill(scratch: torch.Tensor, seq_lens: torch.Tensor,
+                         window: int,
+                         k_transposed: bool = False) -> torch.Tensor:
+    """A full-length prefill scratch (L', B, H, D, S) transposed-K or
+    (L', B, H, S, D) in the rolling layout of ``window`` slots: slot j
+    holds the latest position p <= seq_len - 1 with p % window == j;
+    slots no position reaches are zero. Returns a new tensor."""
+    s_axis = 4 if k_transposed else 3
+    last = seq_lens.long() - 1                                   # (B,)
+    j = torch.arange(window, device=scratch.device)
+    q = last[:, None] - torch.remainder(last[:, None] - j[None, :],
+                                        window)                  # (B, W)
+    valid = q >= 0
+    qc = q.clamp(0, scratch.shape[s_axis] - 1)
+    if k_transposed:
+        shape = scratch.shape[:4] + (window,)
+        idx = qc[None, :, None, None, :].expand(shape)
+        keep = valid[None, :, None, None, :]
+    else:
+        shape = scratch.shape[:3] + (window, scratch.shape[4])
+        idx = qc[None, :, None, :, None].expand(shape)
+        keep = valid[None, :, None, :, None]
+    gathered = torch.gather(scratch, s_axis, idx)
+    return torch.where(keep, gathered, torch.zeros_like(gathered))
 
 
 def quantize_kv(x: torch.Tensor, dtype: torch.dtype,
@@ -116,13 +193,18 @@ def _put_tokens(layer_view: torch.Tensor, new: torch.Tensor,
 
 def write_tokens_at_layer(cache: torch.Tensor, new: torch.Tensor, layer: int,
                           seq_ids: torch.Tensor, positions: torch.Tensor,
+                          window: int = 0,
                           k_transposed: bool = False) -> torch.Tensor:
     """In-place token write into the stacked cache at ``layer``. new
     (b, t, H, D) in the projection layout; seq_ids (b,); positions (b, t).
-    Drop semantics as the module docstring says."""
+    ``window`` > 0: the rolling write at ``positions % window`` (taken on
+    the device, the modulo of the reference: a negative position wraps
+    too). Drop semantics as the module docstring says."""
     b, t = new.shape[:2]
     s_max = cache.shape[4] if k_transposed else cache.shape[3]
     pos = positions.long()
+    if window > 0:
+        pos = torch.remainder(pos, window)
     if not (t == 1 and b <= 16):
         pos = torch.where(pos < 0, pos + s_max, pos)
     valid = (pos >= 0) & (pos < s_max)

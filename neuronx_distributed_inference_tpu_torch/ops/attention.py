@@ -1,8 +1,8 @@
 """Attention cores and masks of the XLA-equivalent paths (counterpart:
 ``neuronx_distributed_inference_tpu/ops/attention.py`` — ``repeat_kv``
 :29, ``mha`` :77, ``mha_hl`` :128, ``mha_decode_merged`` :168, masks
-:232-283; the chunked-attention masks wait for the families that use
-them).
+:232-283 with ``rolling_decode_mask`` :261; the chunked-attention masks
+wait for the families that use them).
 
 Layouts as in the JAX package: q (B, T, Hq, D); k/v (B, S, Hkv, D), or the
 contiguous cache's native layouts for ``mha_hl`` (K transposed (B, Hkv, D,
@@ -223,6 +223,19 @@ def prefill_causal_mask(position_ids: torch.Tensor,
     """In-context causal mask: query and key positions are both
     ``position_ids`` (B, S)."""
     return causal_mask(position_ids, position_ids, window)
+
+
+def rolling_decode_mask(position_ids: torch.Tensor,
+                        window: int) -> torch.Tensor:
+    """(B, T, window) mask over a ROLLING cache of ``window`` slots, where
+    slot j holds position p_j = P - ((P - j) mod window) for the current
+    position P: attend iff p_j >= 0 (the window is inherent to the
+    layout). Built from the position tensor on its device, so a captured
+    graph recomputes it from each replay's positions."""
+    qp = position_ids[:, :, None]
+    j = torch.arange(window, dtype=position_ids.dtype,
+                     device=position_ids.device)[None, None, :]
+    return (qp - torch.remainder(qp - j, window)) >= 0
 
 
 def decode_mask(position_ids: torch.Tensor, cache_len: int,

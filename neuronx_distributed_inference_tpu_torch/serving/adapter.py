@@ -374,10 +374,11 @@ def _resolve_deadlines(deadline_s, n: int,
 
 
 def _pre_step_checks(seqs: Dict[int, _SeqState], live: Sequence[int],
-                     seq_len: int, telemetry: _AdapterTelemetry,
+                     seq_len: Optional[int], telemetry: _AdapterTelemetry,
                      horizon: int = 1):
     """Wall-clock deadlines, then the decode-past-seq_len guard, for the
-    whole ``horizon`` of fused steps, BEFORE any device work."""
+    whole ``horizon`` of fused steps, BEFORE any device work. ``seq_len``
+    is None for a rolling cache, which never overflows."""
     now = time.perf_counter()
     expired = [s for s in live
                if seqs[s].deadline is not None and now >= seqs[s].deadline]
@@ -391,7 +392,8 @@ def _pre_step_checks(seqs: Dict[int, _SeqState], live: Sequence[int],
             f"seq_ids {expired} exceeded their wall-clock deadline; "
             "release() them (or re-queue with a fresh budget) and step "
             "again", seq_ids=expired))
-    over = [s for s in live if seqs[s].position + horizon > seq_len]
+    over = ([] if seq_len is None else
+            [s for s in live if seqs[s].position + horizon > seq_len])
     if over:
         raise _trace_error(CapacityError(
             f"decode step (horizon {horizon}) for seq_ids {over} would "
@@ -716,7 +718,9 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         self.batch = cfg.batch_size
         self.seqs: Dict[int, _SeqState] = {}
         self.telemetry = _AdapterTelemetry("cb", telemetry)
-        self._pos_limit = cfg.seq_len
+        # a rolling cache (slot = pos % w) decodes past seq_len
+        self._pos_limit = (None if app.spec.rolling_window
+                           else cfg.seq_len)
         # free rows, ascending — maintained incrementally on add/release
         self._free: List[int] = list(range(self.batch))
         self._init_host_stats()

@@ -17,10 +17,17 @@ every block-table or KV-view bucket:
     1 is frozen) and the table holds only the null block;
   * contiguous app: the decode step at each batch bucket (and each KV-view
     bucket where the gather path reads the cache) at positions past the
-    cache, which write nothing.
+    cache, which write nothing to full rows. A rolling stack (the rolling
+    cache, the local layers of the mixed cache) writes such a position at
+    ``pos % w`` like any other: one slot of each row, which a request's
+    prefill and decode rewrite before the rolling mask lets a query read
+    it. The graph of a rolling or mixed app holds every stack of the
+    cache, and computes its write slots and masks on the device from the
+    replay's positions.
 
-Wider grids (prefill windows and chunks, mixed ragged passes, speculative
-verify windows, the fused decode loops) run eagerly by design: PyTorch has
+Wider grids (prefill windows and chunks, windowed context encoding, mixed
+ragged passes, speculative verify windows, the fused decode loops) run
+eagerly by design: PyTorch has
 no per-shape build to save there. The plan lists them with the outcome
 ``eager`` and does not run them, and they are never steady-state
 incidents.
@@ -118,13 +125,16 @@ def _paged_plan(app, widths, bt_widths, chunk_tokens,
 
 
 def _cb_plan(app) -> List[tuple]:
-    """The contiguous app: every prefill bucket (eager), and the decode
-    step per batch bucket — per KV-view bucket too where the gather path
-    reads the cache — at positions past the cache (no write)."""
+    """The contiguous app: every prefill bucket and the windowed context
+    encoding step (eager), and the decode step per batch bucket — per
+    KV-view bucket too where the gather path reads the cache — at
+    positions past the cache (no write to full rows)."""
     cfg = app.tpu_config
     chunk = max(cfg.decode_chunk_tokens, 1)
     identity = not cfg.is_continuous_batching
     plan: List[tuple] = [("prefill", s, None) for s in app.ctx_buckets]
+    if cfg.windowed_context_encoding:
+        plan.append(("windowed_cte", cfg.windowed_context_encoding, None))
     warm_batches = sorted(set(app.batch_buckets)
                           | {cfg.tkg_batch_size or cfg.batch_size})
     for bb in warm_batches:
@@ -132,7 +142,7 @@ def _cb_plan(app) -> List[tuple]:
             plan.append(("decode_loop", chunk, None))
         kernel = model_base.use_contiguous_decode_kernel(
             app.spec, 1, bb, app.cache, identity)
-        views = ([None] if kernel or len(app.tkg_buckets) <= 1
+        views = ([None] if kernel or app._kv_bucket(1) is None
                  else list(app.tkg_buckets))
         for v in views:
             plan.append(("decode", v, lambda bb=bb, v=v: app._decode_call(
@@ -269,10 +279,13 @@ def memory_ledger(adapter, *, registry=None) -> Dict[str, Any]:
     app = adapter.app
     mgr = getattr(app, "kv_mgr", None)
     if mgr is None:
-        # contiguous-layout adapter: no block accounting to reconcile
+        # contiguous-layout adapter: no block accounting to reconcile;
+        # each stack's bytes (the mixed cache's local k_l / v_l too)
         return {"schema": LEDGER_SCHEMA,
                 "model_bytes": _tensor_bytes(app.params),
-                "kv": {"pool_bytes": _tensor_bytes(app.cache)},
+                "kv": {"pool_bytes": _tensor_bytes(app.cache),
+                       "stacks": {k: _tensor_bytes(v)
+                                  for k, v in app.cache.items()}},
                 "spill": None,
                 "headroom": admission_headroom(adapter)}
     spec = mgr.spec

@@ -310,11 +310,17 @@ def test_tpu_llama_for_causal_lm_builds_the_contiguous_app():
 
 @pytest.mark.parametrize("case", ["auto_rolling", "rolling_true",
                                   "layer_types", "windowed_cte"])
-def test_unported_mistral_configs_raise(case):
-    """The port refuses what the JAX package would run on a cache or path
-    it does not have: the rolling cache (picked automatically for a window
-    below seq_len, or asked for), a per-layer pattern (the mixed cache)
-    and windowed context encoding."""
+def test_unported_mistral_configs_raise(monkeypatch, case):
+    """The configs for which the JAX package takes a cache or a path the
+    port once refused now build the reference's layout and match JAX
+    (prompts of 190 and 153 tokens over a window of 64): the rolling cache
+    (picked automatically for a window below seq_len, or asked for; flash
+    prefill, then the gather path over 64 slots), a per-layer pattern (the
+    mixed cache; the decode kernel on the global layer only) and windowed
+    context encoding (3 windows of 64). ``rolling_kv_cache=True`` with a
+    blocker (a layer pattern) still raises, as in JAX; a window that
+    covers seq_len never rolls. (The name is the one the test had while
+    it checked the refusals.)"""
     hf = tiny_llama_hf_config(**GEOMETRIES["hd64"])
     tcfg = _mistral_tcfg()
     if case == "auto_rolling":
@@ -325,14 +331,46 @@ def test_unported_mistral_configs_raise(case):
         hf["layer_types"] = ["sliding_attention", "full_attention"]
     else:
         tcfg["windowed_context_encoding"] = 64
-    with pytest.raises(ConfigurationError):
-        CausalLMApplication(None, MistralInferenceConfig(TpuConfig(**tcfg),
-                                                         **hf),
-                            MistralFamily, device="cpu")
+    over = {k: hf[k] for k in ("layer_types",) if k in hf}
+    japp, tapp = _pair(dict(GEOMETRIES["hd64"], **over), tcfg)
+    layout = (japp.spec.rolling_window, japp.spec.mixed_kv)
+    assert (tapp.spec.rolling_window, tapp.spec.mixed_kv) == layout
+    assert layout == {"auto_rolling": (True, False),
+                      "rolling_true": (True, False),
+                      "layer_types": (False, True),
+                      "windowed_cte": (False, False)}[case]
+    assert {k: tuple(v.shape) for k, v in tapp.cache.items()} == {
+        k: tuple(v.shape) for k, v in japp.cache.items()}
+    flash = _CountCalls(monkeypatch, flash_attention, "flash_attention")
+    dec = _CountCalls(monkeypatch, decode_attention,
+                      "decode_attention_stacked")
+    ids, mask = _prompts([190, 153])
+    logits = case != "windowed_cte"
+    kw = dict(attention_mask=mask, max_new_tokens=6, return_logits=logits)
+    want = japp.generate(ids, **kw)
+    got = tapp.generate(ids, **kw)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    if logits:
+        for step, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+            np.testing.assert_allclose(a, np.asarray(b),
+                                       err_msg=f"step {step}", **LOGIT_TOL)
+    layers = tapp.spec.num_layers
+    assert (flash.n, dec.n) == {"auto_rolling": (layers, 0),
+                                "rolling_true": (layers, 0),
+                                "layer_types": (0, 5),
+                                "windowed_cte": (0, layers * 5)}[case]
+    if case == "rolling_true":
+        blocked = dict(hf, layer_types=["sliding_attention",
+                                        "full_attention"])
+        for cls, fam, cfg in ((JMistralConfig, JMistralFamily, JTpuConfig),
+                              (MistralInferenceConfig, MistralFamily,
+                               TpuConfig)):
+            with pytest.raises(ValueError, match="rolling_kv_cache"):
+                fam.build_spec(cls(cfg(**tcfg), **blocked))
     # a window that covers seq_len never rolls, as in JAX
     tcfg = _mistral_tcfg(seq_len=64)
     tcfg.pop("rolling_kv_cache")
     app = CausalLMApplication(None, MistralInferenceConfig(
         TpuConfig(**tcfg), **dict(hf, layer_types=None)), MistralFamily,
         device="cpu")
-    assert app.spec.sliding_window == 64
+    assert app.spec.sliding_window == 64 and not app.spec.rolling_window

@@ -1,7 +1,7 @@
 """The GPT-OSS family of the port against the JAX package's, end to end:
 YaRN RoPE, the spec, the converter (bf16 and MXFP4 checkpoint layouts),
 the paged app's logits, the ragged and two-phase engines' streams, the
-contiguous app, and the mixed-cache refusal.
+contiguous app, and its mixed per-layer cache above the window.
 
 The tiny GPT-OSS of tests/test_gpt_oss.py:17-37 (hidden 64, 4 layers
 alternating sliding / full, window 8, 4 q / 2 kv heads, 4 experts of
@@ -49,8 +49,6 @@ from neuronx_distributed_inference_tpu_torch.modules.quantization import \
     dequant_oai_mxfp4_blocks
 from neuronx_distributed_inference_tpu_torch.ops import decode_attention
 from neuronx_distributed_inference_tpu_torch.ops import rope as trope
-from neuronx_distributed_inference_tpu_torch.resilience import \
-    ConfigurationError
 from neuronx_distributed_inference_tpu_torch.utils.checkpoint import \
     load_state_dict
 from neuronx_distributed_inference_tpu_torch.utils.jax_params import \
@@ -412,20 +410,50 @@ def test_contiguous_app_matches_jax(ckpts, hd):
                                    **LOGIT_TOL)
 
 
-def test_mixed_cache_is_refused_where_the_reference_picks_it(ckpts):
-    """At seq_len 48 > sliding_window 8 the reference's contiguous app
-    takes its mixed per-layer cache; ``TpuGptOssForCausalLM`` raises
-    ConfigurationError naming ROADMAP A10. The paged layout serves the
-    same config."""
-    kw = dict(batch_size=2, seq_len=48, dtype="float32")
-    jcfg, tcfg = _configs(ckpts["hd16"], **kw)
-    assert JApp(ckpts["hd16"], jcfg, JGptOssFamily).spec.mixed_kv
-    with pytest.raises(ConfigurationError, match="A10"):
-        TpuGptOssForCausalLM(ckpts["hd16"], tcfg, device="cpu")
+def test_mixed_cache_is_refused_where_the_reference_picks_it(ckpts,
+                                                            monkeypatch):
+    """At seq_len 48 > sliding_window 8 ``TpuGptOssForCausalLM`` takes the
+    mixed per-layer cache where the reference's contiguous app does (the
+    port refused it before it had the cache): the same stacks (global
+    rows of 48 slots, local rows of 8), and at head_dim 64 every step's
+    logits and the greedy tokens equal JAX's, with the decode kernel (its
+    plain twin here) on the two global layers at their index in the
+    global stack and the local layers on the gather path over their
+    rolling rows. The paged layout serves the same config over the
+    uniform block cache. (The name is the one the test had while it
+    checked the refusal.)"""
+    kw = dict(batch_size=2, seq_len=48, dtype="float32", output_logits=True,
+              enable_bucketing=False)
+    jcfg, tcfg = _configs(ckpts["hd64"], **kw)
+    japp = JApp(ckpts["hd64"], jcfg, JGptOssFamily).load_weights()
+    tapp = TpuGptOssForCausalLM(ckpts["hd64"], tcfg, device="cpu")
+    assert japp.spec.mixed_kv and tapp.spec.mixed_kv
+    japp.init_cache()
+    tapp.load_weights().init_cache()
+    assert {k: tuple(v.shape) for k, v in tapp.cache.items()} == {
+        k: tuple(v.shape) for k, v in japp.cache.items()}
+    assert tapp.cache["k_l"].shape[-1] == WINDOW
+    layers = []
+    kernel = decode_attention.decode_attention_stacked
+
+    def spy(*a, **k):
+        layers.append((a[5], k["window"], k["sink"] is not None))
+        return kernel(*a, **k)
+    monkeypatch.setattr(decode_attention, "decode_attention_stacked", spy)
+    ids = np.random.default_rng(8).integers(1, 256, size=(2, 21)).astype(
+        np.int32)
+    want = japp.generate(ids, max_new_tokens=6, return_logits=True)
+    got = tapp.generate(ids, max_new_tokens=6, return_logits=True)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    for step, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        np.testing.assert_allclose(a, np.asarray(b), err_msg=f"step {step}",
+                                   **LOGIT_TOL)
+    assert layers == [(0, 0, True), (1, 0, True)] * 5
     _, pcfg = _configs(ckpts["hd16"], **dict(kw, is_block_kv_layout=True,
                                              pa_block_size=16))
     app = PagedCausalLMApplication(None, pcfg, GptOssFamily, device="cpu")
     assert app.spec.layer_pattern == (True, False, True, False)
+    assert not app.spec.mixed_kv
 
 
 @pytest.mark.cuda

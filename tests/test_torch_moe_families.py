@@ -344,7 +344,8 @@ def test_port_only_refusals_and_accepted_moe_configs():
     (``tkg_experts_local``, a mesh re-layout), a degree above 1 (the
     reference ignores ``moe_ep_degree`` at tp = 1; the port has no mesh to
     honour it) and mixed dense / MoE stacks raise ConfigurationError
-    naming ROADMAP A13 / A14."""
+    naming ROADMAP A13 / A14. Mixtral's window below ``seq_len`` takes
+    the rolling cache and matches JAX."""
     cls = get_family("qwen3_moe").config_cls
     ok = TpuQwen3MoeForCausalLM(None, cls(TpuConfig(
         batch_size=1, seq_len=32, moe_config=MoEConfig(moe_tp_degree=1)),
@@ -361,17 +362,35 @@ def test_port_only_refusals_and_accepted_moe_configs():
     for over in (dict(first_dense=1), dict(moe_pattern=(True, False))):
         with pytest.raises(ConfigurationError, match="A14"):
             model_base.spec_from_config(cfg, moe=moe, **over)
-    # Mixtral's window goes through the rolling-cache rule
+    # Mixtral's window goes through the rolling-cache rule: a window of 16
+    # below seq_len 32 takes the rolling cache (16 slots a row) as in JAX,
+    # and a prompt longer than the window decodes past it with JAX's
+    # logits and tokens
     mix = dict(QWEN3_MOE, model_type="mixtral", num_local_experts=4,
                sliding_window=16)
     mcls = get_family("mixtral").config_cls
-    with pytest.raises(ConfigurationError, match="rolling"):
-        TpuMixtralForCausalLM(None, mcls(TpuConfig(batch_size=1, seq_len=32),
-                                         **mix), device="cpu")
+    kw = dict(batch_size=1, seq_len=32, dtype="float32", output_logits=True,
+              enable_bucketing=False)
+    japp = JApp(None, JMixtralFamily.config_cls(JTpuConfig(**kw), **mix),
+                JMixtralFamily).init_random_weights(0).init_cache()
+    app = TpuMixtralForCausalLM(None, mcls(TpuConfig(**kw), **mix),
+                                device="cpu")
+    assert app.spec.rolling_window and japp.spec.rolling_window
+    app.params = params_from_numpy(jax.tree.map(np.asarray, japp.params),
+                                   device="cpu")
+    app.init_cache()
+    assert app.cache["v"].shape[3] == japp.cache["v"].shape[3] == 16
+    ids = _ids([20], seed=9)
+    want = japp.generate(ids, max_new_tokens=8, return_logits=True)
+    got = app.generate(ids, max_new_tokens=8, return_logits=True)
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    for a, b in zip(got["logits"], want["logits"]):
+        np.testing.assert_allclose(a, np.asarray(b), **LOGIT_TOL)
     app = TpuMixtralForCausalLM(None, mcls(TpuConfig(
         batch_size=1, seq_len=32, rolling_kv_cache=False), **mix),
         device="cpu")
     assert app.spec.sliding_window == 16 and app.spec.moe.top_k == 2
+    assert not app.spec.rolling_window
 
 
 @pytest.mark.cuda
