@@ -191,9 +191,31 @@ nvcc per source, all started together), then:
      token for token (a first difference only at a near-tie): mixed
      against uniform cache, continuous batching against ``generate``,
      rolling against full rows, windowed against one-shot.
+ 17. the MLA group, Moonlight-16B-A3B (DeepSeek-V3 architecture: 27
+     layers, the first dense, 26 MoE of 64 experts of width 1408, 6 per
+     token, 2 shared; hidden 2048, 16 heads of multi-head latent
+     attention, K heads 128 + 64 (rope) wide, V heads 128, latent 512;
+     vocab 163840) with random weights from seed 0 (router biases N(0,
+     0.02)): (a) one full-width layer (the dense one), fp32, prefill and 8
+     decode steps held to a plain fp32 MLA written from the published
+     equations in HF's rope convention, with a control (the rope head
+     unrotated) that must part; (b) ``TpuDeepseekForCausalLM`` at full
+     width and depth, bf16, batch 4, ``seq_len`` 4096, phase 3's prompts,
+     64 new tokens, ``attn_kernel_enabled=True``, after ``precompile``:
+     both kernel gates refuse MLA and none of the three kernels launches,
+     no incident, cache K (27, 4, 16, 192, 4096) and V (27, 4, 16, 4096,
+     128); weight and cache bytes, peak memory, prefill and decode times,
+     the decode steps' device profile and a breakdown by part; (c) (b)'s
+     weights behind ``ContinuousBatchingAdapter`` with phase 9's 8
+     requests over batch 4: host ms per pass, admission and TTFT, the
+     streams; (d) fp32 (TF32 off) at 4 layers (1 dense + 3 MoE): graphs ==
+     eager == the chunked side-buffer loop == the adapter's streams
+     against ``generate``, token for token; and the bf16 8-layer cut held
+     to the fp32 cut by the relative RMS of teacher-forced decode logits,
+     with a control (the rope pairing flipped) that must part.
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16 and the fp32 app
-of 6)
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17 and the fp32
+app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -202,7 +224,8 @@ Every line before the last is one JSON object; the last line is
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14; oss: 15; long: 16) and then prints no ``ok`` line.
+own app; moe: 14; oss: 15; long: 16; mla: 17) and then prints no ``ok``
+line.
 """
 
 from __future__ import annotations
@@ -297,6 +320,27 @@ OSS_LONG = dict(seq_len=32768, lens=(200, 700, 1300, 2000), new_tokens=128)
 MISTRAL_ROLL = dict(seq_len=16384, lens=(5000, 6000), new_tokens=64)
 MISTRAL_WCTE = dict(seq_len=16384, window=2048, len=12000, new_tokens=32,
                     one_shot_len=4000)
+# Moonlight-16B-A3B (HF config.json of moonshotai/Moonlight-16B-A3B,
+# model_type deepseek_v3): 27 layers, the first dense (intermediate 11264),
+# 26 MoE (64 experts of 1408, 6 per token, 2 shared); MLA with kv_lora_rank
+# 512, no q-LoRA, K heads 128 + 64 (rope) wide, V heads 128; sigmoid
+# routing, routed scaling 2.446; no rope scaling
+MOONLIGHT_16B = dict(
+    model_type="deepseek_v3", hidden_size=2048, intermediate_size=11264,
+    moe_intermediate_size=1408, num_hidden_layers=27, num_attention_heads=16,
+    num_key_value_heads=16, n_routed_experts=64, n_shared_experts=2,
+    num_experts_per_tok=6, first_k_dense_replace=1, moe_layer_freq=1,
+    n_group=1, topk_group=1, norm_topk_prob=True, routed_scaling_factor=2.446,
+    scoring_func="sigmoid", topk_method="noaux_tc", kv_lora_rank=512,
+    q_lora_rank=None, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128, vocab_size=163840, rms_norm_eps=1e-5, rope_theta=50000.0,
+    rope_scaling=None, max_position_embeddings=8192, hidden_act="silu",
+    attention_bias=False, tie_word_embeddings=False)
+MLA_SEQ = 4096                          # 17 (b), (c): the cache's rows
+MLA_PLAIN_LENS = (37, 300)              # 17 (a): batch 2
+MLA_PLAIN_STEPS = 8                     # 17 (a): decode steps compared
+MLA_CHECK_LAYERS = (4, 8)               # 17 (d): fp32 identity, bf16 vs fp32
+MLA_CHECK_TOKENS = 32
 LONG_DECODE_LENS = (300, 900, 1500, 2100)   # 16 (a): B2's rows
 LONG_CHECK_LAYERS = 4                       # 16 (f): the fp32 cuts
 LONG_CHECK_TOKENS = 32
@@ -392,6 +436,26 @@ TOL_SDPA_YARDSTICK = 5e-2
 #   geometric mean of its two readings, a factor 2.2 and 5.7 from each.
 TOL_LAYOUT_REL = {"long_oss_logits_vs_uniform": 0.4,
                   "long_rolling_logits_vs_full": 0.2}
+# 17 (a) one Moonlight-width MLA layer (fp32, TF32 off) against a plain
+#   fp32 MLA written from the published equations with HF's
+#   permute-then-rotate_half rope (scores are invariant to the pairing, so
+#   it checks the port's interleaved rope independently): the two sum in
+#   other orders and take RoPE angles an fp32 ulp apart (~1e-6 of the
+#   largest logit); 1e-4 of the largest logit leaves 100x, while the rope
+#   head left unrotated (the control) or rotated at the wrong positions
+#   moves the logits by whole percents.
+TOL_MLA_PLAIN_REL = 1e-4
+# 17 (d) the bf16 8-layer cut's teacher-forced decode logits against the
+#   fp32 cut's on the same weights: relative RMS over every step; bf16
+#   rounds every product (2^-9) and the sigmoid router over 64 experts
+#   flips near-tie experts, compounding over the layers. Measured (NVIDIA
+#   H100 80GB HBM3, 700 W): 0.161 over 31 steps (at most 0.310 in one
+#   step); the control, the bf16 cut with the rope head's pairing flipped
+#   (half instead of interleaved, the HF / reference convention mix-up),
+#   0.929, and the rope head unrotated 0.872. The limit sits near the
+#   geometric mean of reading and control, a factor 2.2 and 2.7 from
+#   each.
+TOL_MLA_BF16_REL = 0.35
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -937,17 +1001,19 @@ def prompts_of(lens, vocab, seed):
 def init_weights(app, seed):
     """``init_random_weights(seed)``, then the leaves it leaves at zero
     drawn from the seed too, so their paths carry values: learned sinks
-    N(0, 1), every bias (q/k/v, o, router, experts) N(0, 0.02). A model
+    N(0, 1), every bias (q/k/v, o, router, experts) N(0, 0.02), in each
+    layer stack (a mixed stack's ``moe_layers`` after ``layers``). A model
     without such leaves keeps ``init_random_weights``' values."""
     import torch
     app.init_random_weights(seed)
-    layers = app.params["layers"]
     gen = torch.Generator(device=app.device).manual_seed(seed + 1)
-    for name in sorted(layers):
-        if name == "sink":
-            layers[name].normal_(0.0, 1.0, generator=gen)
-        elif name.endswith("bias"):
-            layers[name].normal_(0.0, 0.02, generator=gen)
+    for stack in ("layers", "moe_layers"):
+        layers = app.params.get(stack, {})
+        for name in sorted(layers):
+            if name == "sink":
+                layers[name].normal_(0.0, 1.0, generator=gen)
+            elif name.endswith("bias"):
+                layers[name].normal_(0.0, 0.02, generator=gen)
     return app
 
 
@@ -4416,8 +4482,505 @@ def phase_long(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: DeepSeek's multi-head latent attention and mixed stack
+# ---------------------------------------------------------------------------
+
+def make_mla_app(hf, device, dtype, *, batch, seq_len, cb=False,
+                 output_logits=False, graphs=True, chunk=1):
+    """``TpuDeepseekForCausalLM`` (the contiguous app) with
+    ``attn_kernel_enabled=True``: the kernel gates, not the config, keep
+    MLA off the kernels. ``graphs=False``: the same app with every step
+    eager."""
+    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+    from neuronx_distributed_inference_tpu_torch.models.application import \
+        CausalLMApplication
+    from neuronx_distributed_inference_tpu_torch.models.deepseek import (
+        DeepseekFamily, DeepseekInferenceConfig, TpuDeepseekForCausalLM)
+    cfg = DeepseekInferenceConfig(TpuConfig(
+        batch_size=batch, seq_len=seq_len, dtype=dtype,
+        attn_kernel_enabled=True, is_continuous_batching=cb,
+        output_logits=output_logits, decode_chunk_tokens=chunk), **hf)
+    app = (TpuDeepseekForCausalLM(None, cfg, device=device) if graphs
+           else CausalLMApplication(None, cfg, DeepseekFamily,
+                                    device=device, cuda_graphs=False))
+    return app.init_cache()
+
+
+def mla_plain_logits(hf, params, ids, rotate=True):
+    """fp32 logits (T, V) of a 1-layer DeepSeek model (its one dense
+    layer) on one row of token ids at positions 0..T-1, written from the
+    published MLA equations with no port module: q = h Wq split into nope
+    and rope parts; the latent c and the shared rope key from h Wkv_a;
+    per-head nope keys and values from RMSNorm(c) Wkv_b; the rope parts
+    rotated in HF's convention (each head's pairs permuted to halves,
+    then rotate_half with cos/sin of cat(freqs, freqs)); causal softmax at
+    scale 1/sqrt(nope + rope); o_proj, residual, dense GLU, residual,
+    final RMSNorm, lm_head. ``rotate=False`` leaves the rope parts
+    unrotated (the control). Weights are read from the parameter tree in
+    its (in, out) layout."""
+    import torch
+    w = {k: v[0].float() for k, v in params["layers"].items()}
+    nh, eps = hf["num_attention_heads"], hf["rms_norm_eps"]
+    dn, dr, dv = (hf["qk_nope_head_dim"], hf["qk_rope_head_dim"],
+                  hf["v_head_dim"])
+    r = hf["kv_lora_rank"]
+
+    def rms(x, g):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * g
+
+    def rope(x, cos, sin):                  # x (T, heads, dr)
+        x = x.reshape(*x.shape[:-1], dr // 2, 2).transpose(-1, -2).reshape(
+            x.shape)
+        rot = torch.cat([-x[..., dr // 2:], x[..., :dr // 2]], dim=-1)
+        return x * cos[:, None] + rot * sin[:, None]
+    t = ids.shape[0]
+    x = params["embed"][ids].float()
+    h = rms(x, w["input_norm"])
+    q = (h @ w["q_proj"]).reshape(t, nh, dn + dr)
+    ckv = h @ w["kv_a_proj"]
+    kv = (rms(ckv[:, :r], w["kv_a_norm"]) @ w["kv_b_proj"]).reshape(
+        t, nh, dn + dv)
+    inv = 1.0 / (hf["rope_theta"] ** (torch.arange(
+        0, dr, 2, device=x.device).float() / dr))
+    freqs = torch.arange(t, device=x.device).float()[:, None] * inv[None]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    cos, sin = ((emb.cos(), emb.sin()) if rotate
+                else (torch.ones_like(emb), torch.zeros_like(emb)))
+    q = torch.cat([q[..., :dn], rope(q[..., dn:], cos, sin)], dim=-1)
+    k_pe = rope(ckv[:, None, r:], cos, sin).expand(t, nh, dr)
+    k = torch.cat([kv[..., :dn], k_pe], dim=-1)
+    scores = torch.einsum("thd,shd->hts", q, k) * (dn + dr) ** -0.5
+    causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    p = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+    attn = torch.einsum("hts,shd->thd", p, kv[..., dn:]).reshape(t, nh * dv)
+    x = x + attn @ w["o_proj"]
+    h = rms(x, w["post_norm"])
+    x = x + (torch.nn.functional.silu(h @ w["gate_proj"])
+             * (h @ w["up_proj"])) @ w["down_proj"]
+    return rms(x, params["final_norm"].float()) @ params["lm_head"].float()
+
+
+def phase_mla_plain(device):
+    with fp32_exact():
+        _phase_mla_plain(device)
+
+
+def _phase_mla_plain(device):
+    """17 (a): one Moonlight-width layer (the dense layer 0, MLA) in fp32
+    (TF32 off): the prefill's logits at every real position and
+    MLA_PLAIN_STEPS decode steps' logits, each within TOL_MLA_PLAIN_REL of
+    the largest logit of :func:`mla_plain_logits` on the same weights and
+    tokens; the control (the reference's rope head unrotated) must part by
+    more."""
+    import numpy as np
+    import torch
+    hf = dict(MOONLIGHT_16B, num_hidden_layers=1)
+    lens, steps = MLA_PLAIN_LENS, MLA_PLAIN_STEPS
+    app = make_mla_app(hf, device, "float32", batch=len(lens), seq_len=512,
+                       output_logits=True)
+    init_weights(app, 0)
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=17)
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=steps + 1,
+                       return_logits=True)
+    gen = out["generated"]
+    errs, control, peak = [], [], 0.0
+    for i, n in enumerate(lens):
+        seq = torch.as_tensor(np.concatenate([ids[i, :n], gen[i, :steps]]),
+                              device=device)
+        with torch.no_grad():
+            ref = mla_plain_logits(hf, app.params, seq).cpu().numpy()
+            ctl = mla_plain_logits(hf, app.params, seq,
+                                   rotate=False).cpu().numpy()
+        got = np.concatenate([out["logits"][0][i, :n]]
+                             + [out["logits"][j][i] for j in
+                                range(1, steps + 1)])
+        want = ref[:n + steps]
+        peak = max(peak, float(np.abs(want).max()))
+        errs.append(float(np.abs(got - want).max()))
+        control.append(float(np.abs(ctl[:n + steps] - want).max()))
+    rel, ctl_rel = max(errs) / peak, min(control) / peak
+    emit({"phase": "mla_plain", "layers": 1, "prompt_lens": list(lens),
+          "decode_steps": steps, "max_abs_err": max(errs),
+          "max_abs_logit": peak, "rel_err": rel,
+          "control_rel_err": ctl_rel, "tol_rel": TOL_MLA_PLAIN_REL,
+          "gates": {"decode_kernel": decode_gate(app.spec),
+                    "flash_prefill": flash_gate(app.spec, 512)}})
+    if not rel <= TOL_MLA_PLAIN_REL:
+        raise AssertionError(f"mla_plain: the MLA layer parts from the plain "
+                             f"equations by {rel} of the largest logit")
+    if not ctl_rel > TOL_MLA_PLAIN_REL:
+        raise AssertionError(f"mla_plain: the control parts by only "
+                             f"{ctl_rel}: the gate cannot see a rope fault")
+    del app
+    free_card()
+
+
+def decode_gate(spec) -> bool:
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    return decode_attention.supports(spec, 1)
+
+
+def flash_gate(spec, bucket) -> bool:
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    return model_base.use_flash_prefill(spec, bucket)
+
+
+def param_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+def mla_bytes_predicted(hf, batch, seq_len, item=2):
+    """(weight bytes, cache bytes) from the geometry: the parameter count
+    of the spec's tree, and K (nope + rope) plus V per token, layer and
+    head."""
+    h, v, nh = hf["hidden_size"], hf["vocab_size"], hf["num_attention_heads"]
+    dn, dr, dv = (hf["qk_nope_head_dim"], hf["qk_rope_head_dim"],
+                  hf["v_head_dim"])
+    r = hf["kv_lora_rank"]
+    layers, nd = hf["num_hidden_layers"], hf["first_k_dense_replace"]
+    attn = (2 * h + h * nh * (dn + dr) + h * (r + dr) + r
+            + r * nh * (dn + dv) + nh * dv * h)
+    dense = 3 * h * hf["intermediate_size"]
+    ie, e = hf["moe_intermediate_size"], hf["n_routed_experts"]
+    moe = (h * e + e + 3 * e * h * ie
+           + 3 * h * ie * hf["n_shared_experts"])
+    n = (2 * v * h + h + layers * attn + nd * dense
+         + (layers - nd) * moe)
+    cache = layers * batch * nh * (dn + dr + dv) * seq_len * item
+    # the router and its bias are fp32
+    return n * item + (layers - nd) * (h * e + e) * (4 - item), cache
+
+
+class RangeTimer:
+    """``torch.profiler.record_function`` ranges around named functions
+    (module, attribute, range) while it is entered, so a trace can sum the
+    device time of the kernels each range launched."""
+
+    def __init__(self, targets):
+        self.targets = targets
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        self._orig = []
+        for owner, name, label in self.targets:
+            fn = getattr(owner, name)
+            self._orig.append((owner, name, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with record_function(_label):
+                    return _fn(*a, **k)
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+
+
+def mla_decode_breakdown(app, ids, mask, steps):
+    """Device ms per decode step by part, from a trace of ``steps`` eager
+    decode steps (``app`` without graphs; the kernels of each part summed
+    under a range): the MoE blocks (router, expert products, shared
+    experts, combine), the dense layer's MLP, the MLA projections and
+    rope, the attention cores (score and value products, mask, softmax:
+    the gather path reads the cache's layer views in place), the cache
+    writes, the lm_head and the rest (norms, o_proj, residuals, the
+    sampler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.modules import kv_cache
+    from neuronx_distributed_inference_tpu_torch.modules import moe
+    from neuronx_distributed_inference_tpu_torch.ops import attention
+    labels = ("mlp", "moe_block", "mla_projections", "attention_core",
+              "cache_write", "lm_head")
+    targets = [(model_base, "_mlp_block", "mlp"),
+               (moe, "moe_block", "moe_block"),
+               (model_base, "_mla_qkv", "mla_projections"),
+               (attention, "mha_hl", "attention_core"),
+               (attention, "mha_decode_merged", "attention_core"),
+               (kv_cache, "write_tokens_at_layer", "cache_write"),
+               (model_base, "_lm_head", "lm_head")]
+
+    def trace(n):
+        app.generate(ids, attention_mask=mask, max_new_tokens=1)
+        torch.cuda.synchronize()
+        with RangeTimer(targets), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            app.generate(ids, attention_mask=mask, max_new_tokens=n)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # host-side events only: a range's device time is the kernels it
+        # and its children launched (its device-side annotation of the
+        # same name spans the gaps between them too)
+        by = dict.fromkeys(labels, 0.0)
+        busy = 0.0
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CPU:
+                continue
+            if ev.name in by:
+                by[ev.name] += ev.device_time_total / 1e3
+            if ev.cpu_parent is None:
+                busy += ev.device_time_total / 1e3
+        return wall, busy, by
+    try:
+        w0, b0, p0 = trace(1)
+        w1, b1, p1 = trace(1 + steps)
+    except RuntimeError as e:           # the profiler is optional equipment
+        emit({"phase": "mla_decode_breakdown", "measured": False,
+              "reason": str(e)[:200]})
+        return
+    per = {k: (p1[k] - p0[k]) / steps for k in labels}
+    # the "mlp" range holds the MoE blocks: what is left is the dense
+    # layer's MLP
+    per["dense_mlp"] = per.pop("mlp") - per["moe_block"]
+    busy = (b1 - b0) / steps
+    per["rest"] = busy - sum(per.values())
+    emit({"phase": "mla_decode_breakdown", "measured": busy > 0,
+          "steps": steps, "eager_host_ms_per_step": (w1 - w0) / steps,
+          "device_busy_ms_per_step": busy, "device_ms_per_step": per})
+
+
+def phase_mla_generate(hf, device):
+    """17 (b): Moonlight-16B-A3B through ``TpuDeepseekForCausalLM`` at
+    full width and depth, bf16, ``seq_len`` MLA_SEQ, batch 4, prompts
+    PROMPT_LENS, NEW_TOKENS new tokens, ``attn_kernel_enabled=True``,
+    after ``precompile`` (decode replays graphs). Gates: both kernel
+    gates say no and none of the three kernels launches; no incident;
+    cache K (27, 4, 16, 192, S) and V (27, 4, 16, S, 128); full in-vocab
+    streams. Prints weight and cache bytes beside the geometry's, peak
+    memory, prefill and decode step times, the decode steps' device
+    profile (graph replays) and a breakdown by part (eager steps).
+    Returns the app."""
+    import torch
+    check_card_empty("mla_generate")
+    torch.cuda.reset_peak_memory_stats()
+    lens, new = PROMPT_LENS, NEW_TOKENS
+    app = make_mla_app(hf, device, "bfloat16", batch=len(lens),
+                       seq_len=MLA_SEQ)
+    init_weights(app, 0)
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=0)
+    warm(app, "mla_generate")
+    reset_launches([app])
+    t0 = time.perf_counter()
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = kernel_counts([app])
+    gen = out["generated"]
+    shapes = {k: list(app.cache[k].shape) for k in ("k", "v")}
+    layers, nh = hf["num_hidden_layers"], hf["num_attention_heads"]
+    dk = hf["qk_nope_head_dim"] + hf["qk_rope_head_dim"]
+    want_shapes = {"k": [layers, len(lens), nh, dk, MLA_SEQ],
+                   "v": [layers, len(lens), nh, MLA_SEQ, hf["v_head_dim"]]}
+    w_pred, c_pred = mla_bytes_predicted(hf, len(lens), MLA_SEQ)
+    emit({"phase": "mla_generate", "entry": "TpuDeepseekForCausalLM",
+          "seq_len": MLA_SEQ, "prompt_lens": list(lens), "new_tokens": new,
+          "generate_s": gen_s, "launches": counts,
+          "gates": {"decode_kernel": decode_gate(app.spec),
+                    "flash_prefill": flash_gate(app.spec, 2048)},
+          "cache_shapes": shapes, "weight_bytes": param_bytes(app.params),
+          "weight_bytes_geometry": w_pred, "cache_bytes": cache_bytes(app),
+          "cache_bytes_geometry": c_pred,
+          "graphs": graph_report(app) if app.graphs is not None else None})
+    check_no_incidents("mla_generate", app)
+    if any(counts.values()):
+        raise AssertionError(f"mla_generate: kernel launches {counts} on "
+                             "the MLA path")
+    if decode_gate(app.spec) or flash_gate(app.spec, 2048):
+        raise AssertionError("mla_generate: a kernel gate admits MLA")
+    if shapes != want_shapes:
+        raise AssertionError(f"mla_generate: cache shapes {shapes}")
+    if gen.shape != (len(lens), new) or not (
+            (gen >= 0) & (gen < hf["vocab_size"])).all():
+        raise AssertionError(f"mla_generate: bad tokens {gen.shape}")
+    pre, step = step_times(app, ids, mask)
+    emit({"phase": "mla_generate_steps", "prefill_ms_batch": pre,
+          "decode_ms_per_step_batch4": step, "prompt_lens": list(lens),
+          "ctx_bucket": 2048})
+    eager = make_mla_app(hf, device, "bfloat16", batch=len(lens),
+                         seq_len=MLA_SEQ, graphs=False)
+    eager.params = app.params
+    mla_decode_breakdown(eager, ids, mask, 8)
+    del eager
+    free_card()
+    memory_note("mla_generate")
+    return app
+
+
+def phase_mla_serving(hf, device, app):
+    """17 (c): (b)'s weights behind ``ContinuousBatchingAdapter`` (an app
+    built with ``is_continuous_batching=True``, after ``precompile``):
+    phase 9's 8 requests of 37-1900 tokens over batch 4, RAGGED_TOKENS new
+    tokens each, through the adapter's add / step / release loop. Gates:
+    no kernel launch, full in-vocab streams, no incident. Prints host ms
+    per decode pass and per admission, TTFT per request and the streams
+    (bf16 equality with ``generate`` is not gated: the admission prefill
+    runs at other buckets, so other GEMMs and other expert flips; 17 (d)
+    holds the streams in fp32)."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    lens, new = RAGGED["lens"], RAGGED_TOKENS
+    cb = make_mla_app(hf, device, "bfloat16", batch=len(PROMPT_LENS),
+                      seq_len=MLA_SEQ, cb=True)
+    cb.params = app.params
+    warm(cb, "mla_cb")
+    ad = ContinuousBatchingAdapter(cb)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in lens]
+    reset_launches([cb])
+    streams, recs, ttft = serve_cb(ad, prompts, new, torch.cuda.synchronize)
+    counts = kernel_counts([cb])
+    check_no_incidents("mla_cb", cb)
+    emit({"phase": "mla_cb", "requests": len(prompts),
+          "prompt_lens": list(lens), "new_tokens": new,
+          "passes": {k: pass_summary(recs, k) for k in ("admit", "decode")},
+          "ttft_s": [ttft[i] for i in range(len(prompts))],
+          "launches": counts, "streams": streams, "host_stats": {
+              k: v for k, v in ad.host_stats.items() if isinstance(v, int)}})
+    for i, st in enumerate(streams):
+        if len(st) != new or not all(0 <= t < hf["vocab_size"] for t in st):
+            raise AssertionError(f"mla_cb: stream {i} has {len(st)} tokens")
+    if any(counts.values()):
+        raise AssertionError(f"mla_cb: kernel launches {counts}")
+    del ad, cb
+    memory_note("mla_cb")
+
+
+def phase_mla_fp32(device):
+    with fp32_exact():
+        _phase_mla_fp32(device)
+
+
+def _phase_mla_fp32(device):
+    """17 (d), TF32 off: (1) a MLA_CHECK_LAYERS[0]-layer cut (1 dense + 3
+    MoE), fp32: ``generate`` replaying graphs (after ``precompile``),
+    eager ``generate``, the chunked side-buffer decode loop
+    (``decode_chunk_tokens`` 4) and ``ContinuousBatchingAdapter`` streams
+    of phase 9's requests against each request's ``generate``, all equal
+    token for token (a first difference only at a near-tie of the
+    reference's top-2 logits, printed); (2) the MLA_CHECK_LAYERS[1]-layer
+    cut in bf16 held to the same cut in fp32 by the relative RMS of
+    teacher-forced decode logits (TOL_MLA_BF16_REL), with the control (the
+    bf16 cut with the rope pairing flipped) parting by more; the bf16 cut
+    with the rope head unrotated is printed beside it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    n, new = MLA_CHECK_LAYERS[0], MLA_CHECK_TOKENS
+    hf = dict(MOONLIGHT_16B, num_hidden_layers=n)
+    lens = PROMPT_LENS
+    b = len(lens)
+    ids, mask = prompts_of(lens, hf["vocab_size"], seed=0)
+    g = make_mla_app(hf, device, "float32", batch=b, seq_len=MLA_SEQ)
+    init_weights(g, 0)
+    warm(g, "mla_fp32", declare_steady=False)
+    got = g.generate(ids, attention_mask=mask,
+                     max_new_tokens=new)["generated"]
+
+    def ref(**kw):
+        a = make_mla_app(hf, device, "float32", batch=b, seq_len=MLA_SEQ,
+                         **kw)
+        a.params = g.params
+        return a
+    want = ref(graphs=False).generate(ids, attention_mask=mask,
+                                      max_new_tokens=new)["generated"]
+    logit_at = batch_logit_at(lambda: ref(graphs=False, output_logits=True),
+                              ids, mask, want)
+    check_equal_streams("mla_fp32_graphs_vs_eager", got, want, logit_at)
+    chunked = ref(chunk=4).generate(ids, attention_mask=mask,
+                                    max_new_tokens=new)["generated"]
+    check_equal_streams("mla_fp32_chunked_vs_eager", chunked, want,
+                        logit_at)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, hf["vocab_size"], size=k).tolist()
+               for k in RAGGED["lens"]]
+    ad = ContinuousBatchingAdapter(ref(cb=True))
+    streams, _, _ = serve_cb(ad, prompts, new, torch.cuda.synchronize)
+    del ad
+    single = np.stack([g.generate(np.asarray([p]), max_new_tokens=new)[
+        "generated"][0] for p in prompts])
+    check_equal_streams("mla_fp32_cb_vs_generate", np.asarray(streams),
+                        single, prompt_logit_at(
+                            lambda: ref(output_logits=True), prompts,
+                            single))
+    del g
+    free_card()
+
+    n = MLA_CHECK_LAYERS[1]
+    hf = dict(MOONLIGHT_16B, num_hidden_layers=n)
+    bf = make_mla_app(hf, device, "bfloat16", batch=b, seq_len=MLA_SEQ,
+                      output_logits=True)
+    init_weights(bf, 0)
+    tokens = bf.generate(ids, attention_mask=mask,
+                         max_new_tokens=new)["generated"]
+    lg = {"bf16": decode_logits(bf, ids, mask, tokens)}
+    for kind in ("control", "unrotated"):
+        ctl = make_mla_app(hf, device, "bfloat16", batch=b, seq_len=MLA_SEQ,
+                           output_logits=True)
+        if kind == "control":
+            ctl.spec = dataclasses.replace(ctl.spec, rope_interleaved=False)
+        else:
+            ctl._inv_freq.zero_()
+        ctl.params = bf.params
+        lg[kind] = decode_logits(ctl, ids, mask, tokens)
+        del ctl
+    fp = make_mla_app(hf, device, "float32", batch=b, seq_len=MLA_SEQ,
+                      output_logits=True)
+    fp.params = _upcast(bf.params)
+    del bf
+    free_card()
+    lg["fp32"] = decode_logits(fp, ids, mask, tokens)
+    del fp
+    free_card()
+    if not all(np.isfinite(x).all() for v in lg.values() for x in v):
+        raise AssertionError("mla_bf16_vs_fp32: non-finite logits")
+    rel = logits_rel_rms(lg["bf16"], lg["fp32"])
+    control = logits_rel_rms(lg["control"], lg["fp32"])
+    emit({"phase": "mla_bf16_vs_fp32", "layers": n,
+          "steps": len(lg["fp32"]), "rel_rms": rel,
+          "control_rel_rms": control,
+          "unrotated_rel_rms": logits_rel_rms(lg["unrotated"], lg["fp32"]),
+          "rel_rms_by_step_max": max(logits_rel_rms([x], [y]) for x, y in
+                                     zip(lg["bf16"], lg["fp32"])),
+          "logit_std": float(np.std(lg["fp32"][0])),
+          "tol": TOL_MLA_BF16_REL})
+    if not rel <= TOL_MLA_BF16_REL:
+        raise AssertionError(f"mla_bf16_vs_fp32: relative RMS {rel}")
+    if not control > TOL_MLA_BF16_REL:
+        raise AssertionError(f"mla_bf16_vs_fp32: the control parts by only "
+                             f"{control}: the gate cannot see a rope fault")
+
+
+def phase_mla(device):
+    """Group ``mla`` (phase 17 (a)-(d)). Its path launches none of the
+    three kernels (both gates turn MLA away, as the reference's do), so it
+    adds no kernels-line entry."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    phase_mla_plain(device)
+    memory_note("mla_plain")
+    app = phase_mla_generate(MOONLIGHT_16B, device)
+    phase_mla_serving(MOONLIGHT_16B, device, app)
+    del app
+    free_card()
+    phase_mla_fp32(device)
+    memory_note("mla_fp32")
+
+
 GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
-          "long")
+          "long", "mla")
 
 
 def main(argv=None) -> int:
@@ -4492,6 +5055,9 @@ def main(argv=None) -> int:
     if "long" in only:
         free_card()
         kernels += phase_long(device)
+    if "mla" in only:
+        free_card()
+        phase_mla(device)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"gpu": gpu})

@@ -337,7 +337,9 @@ class CausalLMApplication:
             num_kv_heads=spec.gqa.num_kv_heads,
             head_dim=spec.head_dim,
             dtype=spec.kv_dtype,
-            window=spec.sliding_window if spec.rolling_window else 0)
+            window=spec.sliding_window if spec.rolling_window else 0,
+            # MLA: V heads narrower than K (reference application.py:217)
+            v_head_dim=spec.v_head_dim)
         if spec.mixed_kv:
             self.cache = kvc.init_mixed_cache(kspec, spec.layer_pattern,
                                               spec.sliding_window,
@@ -720,6 +722,13 @@ class PagedCausalLMApplication(CausalLMApplication):
             raise ConfigurationError("the paged application needs "
                                      "is_block_kv_layout=True")
         super().__init__(model_path, config, family, device, cuda_graphs)
+        if self.spec.mla is not None:
+            # the block cache holds one head width; MLA's K and V differ
+            # (the reference would fail inside its first write)
+            raise ConfigurationError(
+                "multi-head latent attention runs on the contiguous "
+                "CausalLMApplication only: the paged block cache holds one "
+                "head width for K and V")
 
     # -- cache -------------------------------------------------------------
     def init_cache(self):

@@ -4,8 +4,9 @@
 A family is a class with ``config_cls``, ``build_spec(config)`` and
 ``convert_hf_state_dict(sd, spec)`` (HF numpy state dict -> the stacked
 host parameter tree). The port carries the Llama-shaped decoder: the
-Llama, Mistral and Qwen3 families (dense) and the Qwen3-MoE, Mixtral and
-GPT-OSS families (MoE). Families override the reference's hooks
+Llama, Mistral and Qwen3 families (dense), the Qwen3-MoE, Mixtral and
+GPT-OSS families (MoE) and DeepSeek (MLA, a mixed dense / MoE stack, its
+own converter). Families override the reference's hooks
 ``convert_mlp_weights`` (the MoE families, through
 ``convert_moe_weights`` or their own layout) and
 ``convert_extra_layer_weights`` (GPT-OSS: sinks); the per-head q/k norms
@@ -36,8 +37,8 @@ def register_family(*names: str):
 
 def get_family(name: str) -> Type["DecoderFamily"]:
     # their imports register them
-    from . import (gpt_oss, llama, mistral, mixtral, qwen3,  # noqa: F401
-                   qwen3_moe)
+    from . import (deepseek, gpt_oss, llama, mistral,  # noqa: F401
+                   mixtral, qwen3, qwen3_moe)
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; known: "
                        f"{sorted(_REGISTRY)}")

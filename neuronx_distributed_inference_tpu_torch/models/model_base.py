@@ -13,16 +13,23 @@
 ``decode_loop`` :1939, ``paged_decode_loop`` :2058,
 ``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
 ``paged_ragged_step`` :2222, ``spec_from_config`` :2346, its cache-layout
-decisions :2513-2554).
+decisions :2513-2554; ``MLASpec`` :78, ``_mla_qkv`` :686).
 
-The layer stack is uniform in its MLP: every layer has a dense GLU MLP,
-or every layer a routed mixture of experts (``spec.moe``,
-``modules/moe.py``). Mixed dense / MoE stacks (the reference's
-``first_dense`` and ``moe_pattern``) are refused at spec time (ROADMAP
-A14). Attention may alternate: with a ``layer_pattern`` (GPT-OSS) a local
-layer attends within ``sliding_window`` and a global layer over the whole
-context. Learned per-head sinks join every softmax denominator
-(``attn_sink``), and q/k/v and o projections may carry biases.
+The MLP slot is a dense GLU MLP or a routed mixture of experts
+(``spec.moe``, ``modules/moe.py``). A mixed stack (DeepSeek's
+``first_dense``) keeps its leading dense layers in ``params["layers"]``
+and its MoE layers in ``params["moe_layers"]``; the layer loop walks the
+two stacks in order, with the cache's layer index running on from
+``first_dense`` (:func:`layer_stacks`). Llama4's interleaved
+``moe_pattern`` is refused at spec time (ROADMAP A14c). Attention may
+alternate: with a ``layer_pattern`` (GPT-OSS) a local layer attends within
+``sliding_window`` and a global layer over the whole context. Learned
+per-head sinks join every softmax denominator (``attn_sink``), and q/k/v
+and o projections may carry biases. Multi-head latent attention
+(``spec.mla``, DeepSeek) projects q through an optional q-LoRA and K/V
+from a compressed latent plus one shared rope head; its K heads are
+``head_dim`` wide and its V heads ``v_head_dim``, so the cache's V is
+narrower than its K and neither kernel takes it (the gather path).
 
 The contiguous cache takes one of three layouts (:func:`cache_layout`,
 the reference's decisions):
@@ -104,6 +111,24 @@ ACT_FNS = {
 
 
 @dataclass(frozen=True)
+class MLASpec:
+    """Multi-head latent attention geometry (counterpart: model_base.py:78):
+    K/V compressed to ``kv_lora_rank`` plus a shared rope head of
+    ``qk_rope_head_dim``, Q optionally through ``q_lora_rank``. K heads are
+    [nope | rope], V heads ``v_head_dim`` wide."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    q_lora_rank: Optional[int] = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
 class DecoderSpec:
     """Static architecture of the Llama-shaped decoder, resolved from an
     InferenceConfig (the fields of the counterpart that this path
@@ -134,9 +159,17 @@ class DecoderSpec:
     kv_scale: Optional[float] = None
     # qwen3-style per-head q/k RMSNorm (after the head split, before RoPE)
     qk_norm: bool = False
-    # routed mixture of experts in every layer's MLP slot; then
-    # ``intermediate_size`` is the per-expert intermediate
+    # routed mixture of experts in the MLP slot (``moe.intermediate_size``
+    # is the per-expert width); with ``first_dense`` > 0 the first
+    # ``first_dense`` layers keep a dense MLP of ``intermediate_size``
     moe: Optional[moe_mod.MoESpec] = None
+    first_dense: int = 0
+    # multi-head latent attention (DeepSeek); head_dim is then
+    # mla.qk_head_dim and V heads are mla.v_head_dim wide
+    mla: Optional[MLASpec] = None
+    # the interleaved (GPT-NeoX pair) RoPE convention (DeepSeek's
+    # rope_interleave)
+    rope_interleaved: bool = False
     # per-layer attention (gpt-oss alternating sliding / full layers):
     # layer_pattern[i] True = layer i is LOCAL (attends within
     # sliding_window), False = global (whole context); None = uniform
@@ -166,6 +199,10 @@ class DecoderSpec:
     @property
     def kv_size(self) -> int:
         return self.gqa.num_kv_heads * self.head_dim
+
+    @property
+    def v_head_dim(self) -> int:
+        return self.mla.v_head_dim if self.mla is not None else self.head_dim
 
     def is_local(self, layer: int) -> bool:
         """Whether ``layer`` is a local layer of the ``layer_pattern``."""
@@ -218,18 +255,48 @@ def _moe_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     return layers
 
 
+def _mla_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
+    """The MLA projections (model_base.py:370-385): ``q_proj``, or
+    ``q_a_proj`` / ``q_a_norm`` / ``q_b_proj`` through the q-LoRA, then
+    ``kv_a_proj`` (latent + rope head), ``kv_a_norm``, ``kv_b_proj`` (every
+    head's nope K and V) and ``o_proj`` from the V heads."""
+    m, H, dt = spec.mla, spec.hidden_size, spec.dtype
+    nh = spec.gqa.num_q_heads
+    layers: Dict[str, ParamSpec] = {}
+    if m.q_lora_rank:
+        layers["q_a_proj"] = ParamSpec((L, H, m.q_lora_rank), dt)
+        layers["q_a_norm"] = ParamSpec((L, m.q_lora_rank), dt, "ones")
+        layers["q_b_proj"] = ParamSpec(
+            (L, m.q_lora_rank, nh * m.qk_head_dim), dt)
+    else:
+        layers["q_proj"] = ParamSpec((L, H, nh * m.qk_head_dim), dt)
+    layers.update({
+        "kv_a_proj": ParamSpec(
+            (L, H, m.kv_lora_rank + m.qk_rope_head_dim), dt),
+        "kv_a_norm": ParamSpec((L, m.kv_lora_rank), dt, "ones"),
+        "kv_b_proj": ParamSpec(
+            (L, m.kv_lora_rank, nh * (m.qk_nope_head_dim + m.v_head_dim)),
+            dt),
+        "o_proj": ParamSpec((L, nh * m.v_head_dim, H), dt),
+    })
+    return layers
+
+
 def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     """The attention half of a layer (model_base.py:360-432): norms, the
-    fused q/k/v and o projections, and the optional q/k norms, biases
-    (zeros) and fp32 sinks (zeros)."""
+    fused q/k/v and o projections (or the MLA projections), and the
+    optional q/k norms, biases (zeros) and fp32 sinks (zeros)."""
     H, dt = spec.hidden_size, spec.dtype
-    qkv = spec.q_size + 2 * spec.kv_size
     layers = {
         "input_norm": ParamSpec((L, H), dt, "ones"),
         "post_norm": ParamSpec((L, H), dt, "ones"),
-        "qkv_proj": ParamSpec((L, H, qkv), dt),
-        "o_proj": ParamSpec((L, spec.q_size, H), dt),
     }
+    if spec.mla is not None:
+        layers.update(_mla_param_specs(spec, L))
+    else:
+        qkv = spec.q_size + 2 * spec.kv_size
+        layers["qkv_proj"] = ParamSpec((L, H, qkv), dt)
+        layers["o_proj"] = ParamSpec((L, spec.q_size, H), dt)
     if spec.qkv_bias:
         layers["qkv_bias"] = ParamSpec((L, qkv), dt, "zeros")
     if spec.qk_norm:
@@ -243,25 +310,30 @@ def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     return layers
 
 
-def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
-    """Shapes of the parameter tree: the counterpart's tree for a uniform
-    stack with fused qkv."""
-    L, H, I = spec.num_layers, spec.hidden_size, spec.intermediate_size
-    dt = spec.dtype
-    layers: Dict[str, Any] = _attn_param_specs(spec, L)
-    if spec.moe is None:
-        layers.update({
-            "gate_proj": ParamSpec((L, H, I), dt),
+def _dense_mlp_param_specs(spec: DecoderSpec,
+                           L: int) -> Dict[str, ParamSpec]:
+    """The dense GLU MLP slot (model_base.py:452): gate / up / down of
+    ``intermediate_size``."""
+    H, I, dt = spec.hidden_size, spec.intermediate_size, spec.dtype
+    return {"gate_proj": ParamSpec((L, H, I), dt),
             "up_proj": ParamSpec((L, H, I), dt),
-            "down_proj": ParamSpec((L, I, H), dt),
-        })
-    else:
-        layers.update(_moe_param_specs(spec, L))
+            "down_proj": ParamSpec((L, I, H), dt)}
+
+
+def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
+    """Shapes of the parameter tree, the counterpart's (model_base.py:
+    520-537): one ``"layers"`` stack, or for a mixed stack the
+    ``first_dense`` dense layers in ``"layers"`` and the MoE layers in
+    ``"moe_layers"``."""
+    H, dt = spec.hidden_size, spec.dtype
     out: Dict[str, Any] = {
         "embed": ParamSpec((spec.padded_vocab, H), dt),
         "final_norm": ParamSpec((H,), dt, "ones"),
-        "layers": layers,
     }
+    for key, _, count, kind in layer_stacks(spec):
+        out[key] = _attn_param_specs(spec, count)
+        out[key].update(_dense_mlp_param_specs(spec, count) if kind == "dense"
+                        else _moe_param_specs(spec, count))
     if not spec.tie_word_embeddings:
         out["lm_head"] = ParamSpec((H, spec.padded_vocab), dt)
     return out
@@ -284,9 +356,14 @@ def init_params(spec: DecoderSpec, seed: int,
 def fuse_qkv_host(host: Dict[str, Any]) -> Dict[str, Any]:
     """Fuse per-projection q/k/v host weights (as the family converter
     emits them, matching the checkpoint) into the stacked ``qkv_proj``, and
-    their biases into ``qkv_bias`` in the same order."""
-    d = host.get("layers")
-    if isinstance(d, dict) and {"q_proj", "k_proj", "v_proj"} <= set(d):
+    their biases into ``qkv_bias`` in the same order, in each layer stack
+    (model_base.py:618-637). MLA layers (a bare ``q_proj`` beside the
+    compressed K/V projections) are left alone."""
+    for key in ("layers", "moe_layers"):
+        d = host.get(key)
+        if not (isinstance(d, dict) and {"q_proj", "k_proj", "v_proj"}
+                <= set(d)):
+            continue
         d["qkv_proj"] = np.concatenate(
             [np.asarray(d.pop("q_proj")), np.asarray(d.pop("k_proj")),
              np.asarray(d.pop("v_proj"))], axis=-1)
@@ -347,9 +424,43 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai):
         # per-head RMSNorm before RoPE (model_base.py:1014-1024)
         q = rms_norm(q, layer_w["q_norm"], spec.rms_eps)
         k = rms_norm(k, layer_w["k_norm"], spec.rms_eps)
-    q = apply_rope(q, ai["cos"], ai["sin"])
-    k = apply_rope(k, ai["cos"], ai["sin"])
+    q = apply_rope(q, ai["cos"], ai["sin"], spec.rope_interleaved)
+    k = apply_rope(k, ai["cos"], ai["sin"], spec.rope_interleaved)
     return q, k, v.reshape(b, t, g.num_kv_heads, spec.head_dim)
+
+
+def _mla_qkv(spec: DecoderSpec, h, layer_w, ai):
+    """Multi-head latent attention projections (model_base.py:686-717): q
+    through the optional q-LoRA, K/V from the compressed latent through
+    ``kv_b_proj``, and one rope head per token rotated once and broadcast
+    over the heads. q/k (B,T,Hq,qk_head_dim), v (B,T,Hq,v_head_dim)."""
+    m = spec.mla
+    nh = spec.gqa.num_q_heads
+    b, t, _ = h.shape
+    if m.q_lora_rank:
+        qa = rms_norm(h @ layer_w["q_a_proj"], layer_w["q_a_norm"],
+                      spec.rms_eps)
+        q = qa @ layer_w["q_b_proj"]
+    else:
+        q = h @ layer_w["q_proj"]
+    q = q.reshape(b, t, nh, m.qk_head_dim)
+    q_nope, q_rot = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                dim=-1)
+    ckv = h @ layer_w["kv_a_proj"]                          # (B,T,r+rope)
+    k_pass, k_rot = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                                dim=-1)
+    kv_heads = (rms_norm(k_pass, layer_w["kv_a_norm"], spec.rms_eps)
+                @ layer_w["kv_b_proj"]).reshape(
+                    b, t, nh, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv_heads, [m.qk_nope_head_dim, m.v_head_dim],
+                            dim=-1)
+    q_rot = apply_rope(q_rot, ai["cos"], ai["sin"], spec.rope_interleaved)
+    k_rot = apply_rope(k_rot[:, :, None, :], ai["cos"], ai["sin"],
+                       spec.rope_interleaved)               # (B,T,1,rope)
+    q = torch.cat([q_nope, q_rot], dim=-1)
+    k = torch.cat([k_nope, k_rot.expand(b, t, nh, m.qk_rope_head_dim)],
+                  dim=-1)
+    return q, k, v
 
 
 def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
@@ -464,25 +575,30 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                            spec.scale, sink=sink), None
 
 
-def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str):
-    """The MLP half of a layer (model_base.py:889-893): the MoE block when
-    the spec has one, else the dense GLU silu(x @ gate) * (x @ up) @
-    down."""
-    if spec.moe is not None:
+def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
+    """The MLP half of a layer (model_base.py:889-893): the MoE block in a
+    layer of the ``"moe"`` stack, else the dense GLU silu(x @ gate) *
+    (x @ up) @ down. ``kind`` is the stack's (:func:`layer_stacks`), a
+    Python value, so a captured graph holds each layer's own branch."""
+    if kind == "moe":
         return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
     inter = F.silu(x @ layer_w["gate_proj"]) * (x @ layer_w["up_proj"])
     return inter @ layer_w["down_proj"]
 
 
 def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
-                phase: str, layer: Optional[int] = None):
+                phase: str, kind: str, layer: Optional[int] = None):
     """One pre-norm transformer layer; returns (hidden, pending side
     write or None). Layer ``layer`` (default ``li``) takes its own window
     and mask (local or global, model_base.py:1327) and its sink; ``li``
     addresses its rows in ``cache`` (on the mixed cache, its index within
-    its own stack)."""
+    its own stack). ``kind`` ("dense" / "moe") picks its MLP; MLA or the
+    fused q/k/v picks its projections (model_base.py:987-988)."""
     h = rms_norm(hidden, layer_w["input_norm"], spec.rms_eps)
-    q, k, v = _qkv(spec, h, layer_w, ai)
+    if spec.mla is not None:
+        q, k, v = _mla_qkv(spec, h, layer_w, ai)
+    else:
+        q, k, v = _qkv(spec, h, layer_w, ai)
     pending = None
     args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w),
             spec.is_local(li if layer is None else layer))
@@ -498,21 +614,41 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
         o = o + layer_w["o_bias"]
     hidden = hidden + o
     h = rms_norm(hidden, layer_w["post_norm"], spec.rms_eps)
-    return hidden + _mlp_block(spec, h, layer_w, phase), pending
+    return hidden + _mlp_block(spec, h, layer_w, phase, kind), pending
+
+
+def layer_stacks(spec: DecoderSpec) -> List[Tuple[str, int, int, str]]:
+    """The parameter stacks in layer order, as (tree key, first layer,
+    layer count, MLP kind): one ``"layers"`` stack, or a mixed stack's
+    ``first_dense`` dense layers then its ``"moe_layers"``
+    (model_base.py:1347-1366)."""
+    L = spec.num_layers
+    if spec.moe is not None and spec.first_dense > 0:
+        nd = spec.first_dense
+        return [("layers", 0, nd, "dense"), ("moe_layers", nd, L - nd, "moe")]
+    return [("layers", 0, L, "dense" if spec.moe is None else "moe")]
+
+
+def iter_layers(spec: DecoderSpec, params):
+    """(absolute layer index, its weights as views into its stack, MLP
+    kind) for every layer in order."""
+    for key, first, count, kind in layer_stacks(spec):
+        stack = params[key]
+        for j in range(count):
+            yield first + j, {k: w[j] for k, w in stack.items()}, kind
 
 
 def run_layers(spec: DecoderSpec, params, cache, hidden, ai, phase: str):
     """The layer loop (the counterpart scans stacked weights with
-    ``lax.scan``; here each layer's weights are views into the stacks).
+    ``lax.scan``; here each layer's weights are views into the stacks, and
+    a mixed stack's cache layer index runs on from ``first_dense``).
     Under the chunked side buffer (``ai["side"]``), every layer's step
     K/V land in the side buffers at ``ai["chunk_idx"]`` once the whole
     step has read them (model_base.py:1459-1472)."""
-    stacks = params["layers"]
     pend = []
-    for i in range(spec.num_layers):
-        layer_w = {k: w[i] for k, w in stacks.items()}
+    for i, layer_w, kind in iter_layers(spec, params):
         hidden, pending = _layer_body(spec, hidden, layer_w, cache, i, ai,
-                                      phase)
+                                      phase, kind)
         pend.append(pending)
     side = ai.get("side")
     if side is not None:
@@ -533,12 +669,10 @@ def run_layers_mixed_decode(spec: DecoderSpec, params, cache, hidden, ai):
     gather the reads and scatter the writes on both kinds."""
     lmap = kv.mixed_layer_map(spec.layer_pattern)
     local = {"k": cache["k_l"], "v": cache["v_l"]}
-    stacks = params["layers"]
-    for i in range(spec.num_layers):
-        layer_w = {k: w[i] for k, w in stacks.items()}
+    for i, layer_w, kind in iter_layers(spec, params):
         hidden, _ = _layer_body(spec, hidden, layer_w,
                                 local if spec.is_local(i) else cache,
-                                lmap[i], ai, "decode", layer=i)
+                                lmap[i], ai, "decode", kind, layer=i)
     return hidden
 
 
@@ -589,11 +723,12 @@ def _cache_ok(spec: DecoderSpec, cache_dtype: torch.dtype) -> bool:
 
 def use_flash_prefill(spec: DecoderSpec, bucket: int) -> bool:
     """The prefill branch's kernel gate (model_base.py:1110-1118): no
-    layer pattern and no sink (the kernel takes one static window and no
-    sink); the alibi, MLA, CP and SP conditions are refused at spec time,
-    and the contiguous prefill always feeds arange positions."""
+    layer pattern, no sink (the kernel takes one static window and no
+    sink) and no MLA (its K and V differ in width); the alibi, CP and SP
+    conditions are refused at spec time, and the contiguous prefill always
+    feeds arange positions."""
     return (spec.flash_prefill and spec.layer_pattern is None
-            and not spec.attn_sink
+            and not spec.attn_sink and spec.mla is None
             and flash_attention.supports(bucket, spec.head_dim,
                                          has_sink=False, chunk=0))
 
@@ -673,7 +808,7 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                                    spec.head_dim, s), dtype=kdt,
                                   device=input_ids.device),
                  "v": torch.zeros((spec.num_layers, b, g.num_kv_heads, s,
-                                   spec.head_dim), dtype=kdt,
+                                   spec.v_head_dim), dtype=kdt,
                                   device=input_ids.device)}
         ai["identity"] = True
     hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
@@ -802,8 +937,8 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     dev = first_tokens.device
     sk = torch.zeros((spec.num_layers, b, g.num_kv_heads, spec.head_dim, c),
                      dtype=spec.dtype, device=dev)
-    sv = torch.zeros((spec.num_layers, b, g.num_kv_heads, c, spec.head_dim),
-                     dtype=spec.dtype, device=dev)
+    sv = torch.zeros((spec.num_layers, b, g.num_kv_heads, c,
+                      spec.v_head_dim), dtype=spec.dtype, device=dev)
     start = pos
     cache_len = kv_view or kv.cache_len_of(cache)
     slots = torch.arange(cache_len, device=dev)[None, None, :]
@@ -1214,16 +1349,21 @@ def spec_from_config(config: InferenceConfig,
                      intermediate_size: Optional[int] = None,
                      first_dense: int = 0, moe_pattern=None,
                      attn_sink: bool = False, qkv_bias: bool = False,
-                     o_bias: bool = False) -> DecoderSpec:
+                     o_bias: bool = False, mla: Optional[MLASpec] = None,
+                     head_dim: Optional[int] = None,
+                     attn_scale: Optional[float] = None,
+                     rope_interleaved: bool = False) -> DecoderSpec:
     """DecoderSpec from the HF-style attributes of an InferenceConfig
     (families pass ``sliding_window`` / ``layer_pattern`` /
     ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
     ``first_dense`` / ``moe_pattern`` / ``attn_sink`` / ``qkv_bias`` /
-    ``o_bias`` as the counterpart's overrides). The cache layout (rolling,
-    mixed or full rows) is :func:`cache_layout`'s. Raises
-    :class:`ConfigurationError` for what the port does not run yet, and
-    (a ``ValueError``, as the reference raises) for ``rolling_kv_cache=True``
-    on a config that cannot roll."""
+    ``o_bias`` / ``mla`` / ``head_dim`` / ``attn_scale`` /
+    ``rope_interleaved`` as the counterpart's overrides). The cache layout
+    (rolling, mixed or full rows) is :func:`cache_layout`'s. Raises
+    :class:`ConfigurationError` for what the port does not run yet (an
+    interleaved ``moe_pattern``; MLA over the rolling or mixed cache, which
+    no DeepSeek config takes), and (a ``ValueError``, as the reference
+    raises) for ``rolling_kv_cache=True`` on a config that cannot roll."""
     tcfg = config.tpu_config
     tp = tp_degree if tp_degree is not None else tcfg.tp_degree
     if layer_pattern is not None:
@@ -1237,16 +1377,20 @@ def spec_from_config(config: InferenceConfig,
         bad.append("chunked attention")
     if moe is not None:
         bad += [b for b in _moe_layout_refusals(tcfg) if b not in bad]
-        if first_dense or moe_pattern is not None:
-            bad.append("a mixed dense / MoE layer stack (first_dense, "
-                       "moe_pattern; ROADMAP A14)")
+        if moe_pattern is not None:
+            bad.append("an interleaved dense / MoE layer stack "
+                       "(moe_pattern; ROADMAP A14c)")
+    if mla is not None and (rolling or mixed):
+        bad.append("multi-head latent attention over the rolling or mixed "
+                   "per-layer cache")
     if bad:
         raise ConfigurationError(
             "the PyTorch port does not run these yet: " + ", ".join(bad))
     n_q = config.num_attention_heads
     n_kv = getattr(config, "num_key_value_heads", None) or n_q
     hidden = config.hidden_size
-    head_dim = getattr(config, "head_dim", None) or hidden // n_q
+    head_dim = (head_dim or getattr(config, "head_dim", None)
+                or hidden // n_q)
     rope_scaling = getattr(config, "rope_scaling", None) or {}
     rope_type = rope_scaling.get("rope_type", rope_scaling.get("type"))
     if rope_type == "default":
@@ -1293,6 +1437,7 @@ def spec_from_config(config: InferenceConfig,
         tie_word_embeddings=bool(getattr(config, "tie_word_embeddings",
                                          False)),
         sliding_window=int(sliding_window),
+        attn_scale=attn_scale,
         flash_prefill=bool(tcfg.attn_kernel_enabled),
         decode_kernel=tcfg.attn_block_tkg_kernel_enabled,
         dtype=tcfg.torch_dtype,
@@ -1300,6 +1445,9 @@ def spec_from_config(config: InferenceConfig,
         kv_scale=(tcfg.kv_cache_scale if tcfg.kv_cache_quant else None),
         qk_norm=bool(qk_norm),
         moe=moe,
+        first_dense=int(first_dense),
+        mla=mla,
+        rope_interleaved=bool(rope_interleaved),
         layer_pattern=layer_pattern,
         attn_sink=bool(attn_sink),
         qkv_bias=bool(qkv_bias),

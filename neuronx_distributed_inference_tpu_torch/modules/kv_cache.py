@@ -8,7 +8,9 @@
 :372).
 
 The cache is a dict of two stacked tensors in the JAX package's layouts:
-K TRANSPOSED ``(L, B, Hkv, D, S)`` and V ``(L, B, Hkv, S, D)``. The JAX
+K TRANSPOSED ``(L, B, Hkv, D, S)`` and V ``(L, B, Hkv, S, Dv)``, where Dv
+is ``KVCacheSpec.v_head_dim`` (MLA: 128 beside K's 192) and else D. Every
+helper takes its widths from the tensors it is given. The JAX
 functions return an updated cache (their buffers were donated); these
 write IN PLACE and return the tensor they wrote, with the same drop
 semantics:
@@ -54,14 +56,19 @@ class KVCacheSpec:
     batch_size: int
     max_seq_len: int
     num_kv_heads: int
-    head_dim: int
+    head_dim: int         # K head width (MLA: qk_nope + qk_rope)
     dtype: torch.dtype = torch.bfloat16
     window: int = 0       # > 0: a rolling cache of this many slots
+    v_head_dim: Optional[int] = None   # MLA: V narrower than K (DeepSeek)
 
     @property
     def cache_len(self) -> int:
         return (min(self.max_seq_len, self.window) if self.window > 0
                 else self.max_seq_len)
+
+    @property
+    def v_dim(self) -> int:
+        return self.v_head_dim if self.v_head_dim is not None else self.head_dim
 
     @property
     def k_shape(self) -> Tuple[int, ...]:
@@ -73,7 +80,7 @@ class KVCacheSpec:
     @property
     def v_shape(self) -> Tuple[int, ...]:
         return (self.num_layers, self.batch_size, self.num_kv_heads,
-                self.cache_len, self.head_dim)
+                self.cache_len, self.v_dim)
 
 
 def cache_len_of(cache: Dict[str, torch.Tensor]) -> int:

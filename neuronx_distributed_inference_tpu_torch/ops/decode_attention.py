@@ -447,10 +447,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def supports(spec, phase_t: int) -> bool:
     """Kernel admission for both kernels (counterpart:
-    decode_attention.py:588): a single active token, head_dim 64 or 128,
-    and at most ``MAX_GROUP`` query heads per KV head (the kernels keep a
-    group's accumulators in registers)."""
-    return (phase_t == 1 and spec.head_dim in _HEAD_DIMS
+    decode_attention.py:588): a single active token, no MLA (its K and V
+    heads differ in width; both kernels stream them at one), head_dim 64
+    or 128, and at most ``MAX_GROUP`` query heads per KV head (the kernels
+    keep a group's accumulators in registers)."""
+    return (phase_t == 1 and spec.mla is None
+            and spec.head_dim in _HEAD_DIMS
             and spec.gqa.q_per_kv <= MAX_GROUP)
 
 

@@ -1,9 +1,10 @@
 """Rotary position embeddings (counterpart:
-``neuronx_distributed_inference_tpu/ops/rope.py:27-215``).
+``neuronx_distributed_inference_tpu/ops/rope.py:27-215``), with the
+half (rotate_half) and the interleaved pairing of :func:`apply_rope`.
 
 cos/sin are computed from the position ids in fp32. The port carries the
 default (unscaled), linear, llama3 and yarn frequency schemes — Llama-3.x
-uses llama3, GPT-OSS (and later DeepSeek) yarn, whose attention factor
+uses llama3, GPT-OSS and DeepSeek yarn, whose attention factor
 scales cos and sin (``_yarn_inv_freq`` :72-92, ``yarn_attention_factor``
 :56-69, ``rope_cos_sin`` :174-176). longrope and M-RoPE wait for the
 families that need them; :func:`compute_inv_freq` refuses them by name."""
@@ -140,18 +141,28 @@ def rope_cos_sin(position_ids: torch.Tensor, cfg: RopeConfig,
     return cos, sin
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               interleaved: bool = False) -> torch.Tensor:
     """x (B, S, H, D); cos/sin (B, S, d/2), d = rotary dim (may be < D).
-    HF "half" convention (rotate_half), computed in fp32."""
+    HF "half" convention (rotate_half) by default; ``interleaved`` pairs
+    x[..., 0::2] with x[..., 1::2] and re-interleaves the result (the
+    GPT-NeoX pairing DeepSeek's ``rope_interleave`` selects; the layout
+    stays interleaved, as the counterpart keeps it, :188-215). Computed in
+    fp32."""
     d2 = cos.shape[-1]
     d = 2 * d2
     x_rot, x_pass = x[..., :d], x[..., d:]
     xf = x_rot.float()
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
-    x1, x2 = xf[..., :d2], xf[..., d2:]
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    if interleaved:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                          dim=-1).reshape(xf.shape)
+    else:
+        x1, x2 = xf[..., :d2], xf[..., d2:]
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    out = out.to(x.dtype)
     if x_pass.shape[-1]:
         out = torch.cat([out, x_pass], dim=-1)
     return out

@@ -343,8 +343,10 @@ def test_port_only_refusals_and_accepted_moe_configs():
     reference's ``MoETpuConfig`` at tp = 1); ``moe_tkg_ep_degree=1``
     (``tkg_experts_local``, a mesh re-layout), a degree above 1 (the
     reference ignores ``moe_ep_degree`` at tp = 1; the port has no mesh to
-    honour it) and mixed dense / MoE stacks raise ConfigurationError
-    naming ROADMAP A13 / A14. Mixtral's window below ``seq_len`` takes
+    honour it) and an interleaved dense / MoE stack (``moe_pattern``)
+    raise ConfigurationError naming ROADMAP A13 / A14; a mixed stack of
+    leading dense layers (``first_dense``) builds. Mixtral's window below
+    ``seq_len`` takes
     the rolling cache and matches JAX."""
     cls = get_family("qwen3_moe").config_cls
     ok = TpuQwen3MoeForCausalLM(None, cls(TpuConfig(
@@ -359,9 +361,12 @@ def test_port_only_refusals_and_accepted_moe_configs():
                 device="cpu")
     cfg = cls(TpuConfig(batch_size=1, seq_len=32), **QWEN3_MOE)
     moe = tmoe.MoESpec(num_experts=4, top_k=2, intermediate_size=48)
-    for over in (dict(first_dense=1), dict(moe_pattern=(True, False))):
-        with pytest.raises(ConfigurationError, match="A14"):
-            model_base.spec_from_config(cfg, moe=moe, **over)
+    with pytest.raises(ConfigurationError, match="A14"):
+        model_base.spec_from_config(cfg, moe=moe, moe_pattern=(True, False))
+    # DeepSeek's leading dense layers run (a dense stack, then the MoE one)
+    mixed = model_base.spec_from_config(cfg, moe=moe, first_dense=1)
+    assert model_base.layer_stacks(mixed) == [("layers", 0, 1, "dense"),
+                                              ("moe_layers", 1, 1, "moe")]
     # Mixtral's window goes through the rolling-cache rule: a window of 16
     # below seq_len 32 takes the rolling cache (16 slots a row) as in JAX,
     # and a prompt longer than the window decodes past it with JAX's
