@@ -213,9 +213,36 @@ nvcc per source, all started together), then:
      against ``generate``, token for token; and the bf16 8-layer cut held
      to the fp32 cut by the relative RMS of teacher-forced decode logits,
      with a control (the rope pairing flipped) that must part.
+ 18. the quantization group (quantized and low-rank weights), random
+     weights from seed 0: (a) one gpt-oss-20b expert stack (MXFP4) and
+     one Llama-3.1-8B MLP layer (int8 per-channel, fp8 blockwise)
+     quantized on the card and on the CPU by the same function (codes
+     and scales equal), then ``dequantize``, ``qlinear``, ``qmatmul`` and
+     ``qeinsum`` on the card held to the fp64 product of the dequantized
+     weight (TF32 off), each with a control that applies the scales along
+     the wrong axis; (b) gpt-oss-20b with in-graph MXFP4 experts at full
+     width and depth on phase 15's engine (its gates; paged launches = 24
+     x all-decode steps; weight bytes equal to the geometry's; the MoE
+     blocks' share); (c) Llama-3.1-8B with int8 per-channel weights and
+     the scaled fp8 KV cache on phase 9's engine (its gates, paged
+     launches = 32 x all-decode steps over fp8 pages, the largest stored
+     value under e4m3's 448, the kernel held to its twin over the served
+     fp8 pages and timed); (d) at full depth in bf16 the teacher-forced
+     logits of each quantized model against the unquantized one on the
+     same draws (a reading, with the flipped-scale control), then fp32
+     4-layer cuts (MXFP4 gpt-oss, int8 + fp8 cache Llama, fp8-blockwise
+     Llama) where the ragged engine, ``generate`` on graphs, ``generate``
+     eager and an unquantized app holding the dequantized weights give
+     the same streams, its logits within TOL_QUANT_TWIN_REL and the
+     control beyond TOL_QUANT_CONTROL_REL; (e) Llama-3.2-1B with
+     ``mlp_low_rank`` 512 and int8 factors at full width and depth on the
+     paged app (``generate`` after ``precompile``, paged launches = 16 x
+     63, MLP bytes against ``compression_report``), and at a 4-layer fp32
+     cut full rank against the dense app (streams equal, logits within
+     TOL_LOW_RANK_FULL_REL, the half-rank control parting).
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17 and the fp32
-app of 6)
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18 and the
+fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -224,8 +251,8 @@ Every line before the last is one JSON object; the last line is
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14; oss: 15; long: 16; mla: 17) and then prints no ``ok``
-line.
+own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18) and then prints
+no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -347,6 +374,30 @@ LONG_CHECK_TOKENS = 32
 SPEC_SAMPLING = dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.7,
                      stream_seed=1234)
 
+# Phase 18: quantized and low-rank weights. gpt-oss-20b's experts (and
+# o_proj) in-graph MXFP4, as the reference's quantized=True,
+# quantization_dtype="mxfp4"; Llama-3.1-8B's o_proj and MLP int8
+# per-channel (or fp8 blockwise at a cut)
+MXFP4_WEIGHTS = dict(quantized=True, quantization_dtype="mxfp4")
+INT8_WEIGHTS = dict(quantized=True, quantization_dtype="int8",
+                    quantization_type="per_channel_symmetric")
+FP8_BLOCK_WEIGHTS = dict(quantized=True, quantization_dtype="fp8",
+                         quantization_type="blockwise_symmetric")
+# 18 (c) the scaled fp8 (e4m3) KV cache. With random weights N(0, 0.02)
+#   and unit-RMS normed inputs every K / V entry is ~N(0, (0.02 x
+#   sqrt(4096))^2) = N(0, 1.28^2) (RoPE keeps norms); the largest of the
+#   ~1e9 entries a run stores sits near 6.2 sigma ~ 8. The power-of-two
+#   scale 2^-5 stores it near 256, under e4m3's 448 with 1.75x to spare,
+#   and keeps every |x| >= 2^-4 a normal e4m3 value (x / s >= 2).
+QUANT_KV_SCALE = 2.0 ** -5
+FP8_KV = dict(kv_cache_dtype="float8_e4m3fn", kv_cache_quant=True,
+              kv_cache_scale=QUANT_KV_SCALE)
+QUANT_LOW_RANK = 512                   # 18 (e): Llama-3.2-1B's MLP rank
+QUANT_CHECK_LAYERS = 4                 # 18 (d), (e): the fp32 cuts
+QUANT_LENS = (37, 120, 300, 500)       # 18 (d), (e): batch 4, bucket 512
+QUANT_CHECK_TOKENS = 16
+QUANT_BF16_TOKENS = 16                 # 18 (d): teacher-forced steps
+
 # Tolerances, with their reasons:
 # kernel vs twin, bf16 out: both accumulate in fp32 and round the output
 #   to bf16 once; one bf16 ulp at |o| < 2 is <= 7.8e-3.
@@ -456,6 +507,34 @@ TOL_MLA_PLAIN_REL = 1e-4
 #   geometric mean of reading and control, a factor 2.2 and 2.7 from
 #   each.
 TOL_MLA_BF16_REL = 0.35
+
+# 18 (a) a quantized product on the card (fp32 in, TF32 off) against the
+#   fp64 product of the dequantized weight: fp32 sums of 2880- to
+#   14336-long products round at ~sqrt(K) x 6e-8 of the output's scale
+#   (~1e-5 of the largest |y|); 1e-4 leaves 10x, while a scale applied
+#   along the wrong axis (each check's control) moves outputs by whole
+#   percents or more.
+TOL_QUANT_PRODUCT_REL = 1e-4
+# 18 (a) dequantize against the fp64 decode: int8 codes times an fp32
+#   scale round once in fp32 (<= 2^-24 relative); MXFP4 values (two
+#   significant bits times a power of two) are exact in bf16: 0.
+TOL_DEQUANT_REL = 1e-6
+# a control must part by more than this: 100x the product limit
+TOL_QUANT_CONTROL_REL = 1e-2
+# 18 (d) fp32 (TF32 off) 4-layer cuts: the quantized app and an
+#   unquantized app holding its dequantized weights compute the same
+#   function, except that an int8 / fp8 per-channel scale multiplies the
+#   product instead of the weight (~1e-7 relative a product, ~1e-6 after
+#   4 layers); MXFP4 and blockwise products dequantize first and run the
+#   same GEMM. 1e-4 relative RMS of the teacher-forced logits leaves 100x;
+#   the control (every scale flipped along its output axis) must part by
+#   more than TOL_QUANT_CONTROL_REL.
+TOL_QUANT_TWIN_REL = 1e-4
+# 18 (e) full rank (2048) against the dense app at a 4-layer fp32 cut:
+#   the fp32 SVD rebuilds each weight to ~1e-6 relative, ~1e-5 in the
+#   logits after 4 layers; 1e-3 leaves 100x, while the same factors cut to
+#   half rank (the control) drop half the spectrum (~0.5).
+TOL_LOW_RANK_FULL_REL = 1e-3
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -964,7 +1043,9 @@ def _phase_kernels(device):
 
 def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
              prefix_caching=True, output_logits=False, num_blocks=None,
-             graphs=True, sampling=None):
+             graphs=True, sampling=None, **tcfg_over):
+    """A paged app of ``hf``'s geometry (``tcfg_over``: more TpuConfig
+    fields, e.g. quantization or the KV cache dtype)."""
     from neuronx_distributed_inference_tpu_torch.config import (
         OnDeviceSamplingConfig, TpuConfig)
     from neuronx_distributed_inference_tpu_torch.models.application import \
@@ -980,7 +1061,7 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      attn_block_tkg_kernel_enabled=kernel,
                      on_device_sampling_config=(
                          OnDeviceSamplingConfig(**sampling) if sampling
-                         else None))
+                         else None), **tcfg_over)
     app = PagedCausalLMApplication(None, family.config_cls(tcfg, **hf),
                                    family, device=device, cuda_graphs=graphs)
     return app.init_cache()
@@ -1377,6 +1458,8 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
     kw = dict(scale=spec.scale)
     if window or sink is not None:
         kw.update(window=window, sink=sink)
+    if spec.kv_scale is not None:
+        kw.update(kv_scale=spec.kv_scale)
     err = check_kernel_against_twin(dict(inputs), dict(kw, layer=layer))
     if not err <= TOL_KERNEL_BF16:
         raise AssertionError(f"kernel at main-path shapes: {err}")
@@ -1390,10 +1473,15 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
     plain_ms = time_cuda(
         lambda: decode_attention.paged_decode_attention_plain(*args, **kw),
         calls=20)
+    # SDPA takes no fp8: it attends over the pages dequantized (layers up
+    # to ``layer`` only) and pre-gathered
+    plain = dict(inputs, **{n: dequantized_pages(inputs[n], layer,
+                                                 spec.kv_scale)
+                            for n in ("k_pages", "v_pages")})
     if sink is not None:
-        q4, k4, v4, m4 = sdpa_window_inputs(inputs, layer, window, sink)
+        q4, k4, v4, m4 = sdpa_window_inputs(plain, layer, window, sink)
     else:
-        q4, k4, v4, m4 = sdpa_inputs(inputs, layer)
+        q4, k4, v4, m4 = sdpa_inputs(plain, layer)
     library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=m4, scale=spec.scale, enable_gqa=True))
     bound_ms, bound_by = kernel_bounds(inputs, window, sink is not None)
@@ -1412,6 +1500,15 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
                     "D": spec.head_dim, "Bs": bs, "lens": list(pos),
                     "table_width": int(table.shape[1]), "layer": layer,
                     "window": window, "sink": sink is not None}}}
+
+
+def dequantized_pages(pages, layer, kv_scale):
+    """``pages`` as they are, or for a scaled fp8 cache (``kv_scale``) a
+    bf16 copy of its layers up to ``layer`` times the scale."""
+    import torch
+    if kv_scale is None:
+        return pages
+    return pages[:layer + 1].to(torch.bfloat16) * kv_scale
 
 
 def paged_kernel_entry(t, launches, path):
@@ -1777,7 +1874,7 @@ def phase_contiguous_timings(hf, device, app, ids, mask, counts):
 
 def make_ragged_app(hf, device, dtype, cfg, *, batch=8,
                     output_logits=False, graphs=True, sampling=None,
-                    prefix_caching=True, kernel=None):
+                    prefix_caching=True, kernel=None, **tcfg_over):
     """The paged app of phases 9-15: seq_len ``cfg["seq_len"]``, block
     ``cfg["block"]`` and a pool of every row's blocks plus one spare per
     row."""
@@ -1785,7 +1882,8 @@ def make_ragged_app(hf, device, dtype, cfg, *, batch=8,
     return make_app(hf, device, dtype, batch=batch, seq_len=cfg["seq_len"],
                     output_logits=output_logits, num_blocks=batch * per_row,
                     graphs=graphs, sampling=sampling,
-                    prefix_caching=prefix_caching, kernel=kernel)
+                    prefix_caching=prefix_caching, kernel=kernel,
+                    **tcfg_over)
 
 
 def ragged_engine(app, ragged, cfg):
@@ -1921,19 +2019,22 @@ def profile_summary(recs, kind):
 def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                          on_card=True, phase="ragged_serving",
                          fp32_gemm_ms=0.0, before_pass=None,
-                         kernel_layers=(-1,)):
+                         kernel_layers=(-1,), tcfg_over=None):
     """Phase 9 (and 14 (c) as ``phase="moe_serving"``, 15 (b) as
     ``"oss_serving"``): the ragged engine at full width and depth, bf16.
     ``fp32_gemm_ms``: the fp32 GEMM time a traced mixed pass may take (0
     for a dense model; the MoE router is fp32 by design);
     ``before_pass(p)`` runs before pass ``p``; ``kernel_layers``: the
     layers at which the paged kernel is timed over the served cache (one
-    kernel entry each). Returns (app, prompts, kernel entries, per-pass
-    records)."""
+    kernel entry each); ``tcfg_over``: more TpuConfig fields (phase 18's
+    quantized weights and fp8 cache). Returns (app, prompts, kernel
+    entries, per-pass records)."""
     import numpy as np
     import torch
-    app = make_ragged_app(hf, device, "bfloat16", cfg)
+    app = make_ragged_app(hf, device, "bfloat16", cfg, **(tcfg_over or {}))
     init_weights(app, 0)
+    if tcfg_over:
+        check_weight_bytes(phase, app)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
                for n in cfg["lens"]]
@@ -3144,14 +3245,15 @@ def phase_moe_serving(device, layer_times):
                                 lambda app: dense)
 
 
-def serve_with_moe_share(hf, device, phase, dense_ms_of, kernel_layers=(-1,)):
+def serve_with_moe_share(hf, device, phase, dense_ms_of, kernel_layers=(-1,),
+                         tcfg_over=None):
     """:func:`phase_ragged_serving` of an MoE model at full width and
     depth, bf16, phase 9's schedule, on a card with nothing else on it;
     the MoE blocks' share of each traced mixed pass (CUDA events around
     each eager block) and, for the all-decode passes (graph replays),
     ``dense_ms_of(app)`` (the device ms of one dense 8-token block) x
-    layers over the pass's device time. Returns the paged kernel's
-    entries."""
+    layers over the pass's device time (``tcfg_over``: more TpuConfig
+    fields). Returns the paged kernel's entries."""
     import torch
     from neuronx_distributed_inference_tpu_torch.serving import \
         PagedEngineAdapter
@@ -3169,7 +3271,8 @@ def serve_with_moe_share(hf, device, phase, dense_ms_of, kernel_layers=(-1,)):
         app, _, entries, recs = phase_ragged_serving(
             hf, device, cfg=RAGGED, on_card=device.type == "cuda",
             phase=phase, fp32_gemm_ms=router_ms,
-            before_pass=timer.before_pass, kernel_layers=kernel_layers)
+            before_pass=timer.before_pass, kernel_layers=kernel_layers,
+            tcfg_over=tcfg_over)
         timer.current = None
         mixed = []
         for r in recs:
@@ -3191,7 +3294,8 @@ def serve_with_moe_share(hf, device, phase, dense_ms_of, kernel_layers=(-1,)):
           "decode_moe_share_est": (dense * layers / per_decode
                                    if dense and per_decode else None),
           "ledger_model_gb": ledger["model_bytes"] / 1e9,
-          "ledger_kv_pool_gb": ledger["kv"]["pool_bytes"] / 1e9})
+          "ledger_kv_pool_gb": ledger["kv"]["pool_bytes"] / 1e9,
+          "weight_bytes": param_bytes(app.params)})
     memory_note(phase)
     del app
     free_card()
@@ -3473,10 +3577,11 @@ def oss_dense_block_ms(app):
     """Device ms of one dense ``moe_block`` of ``app`` (layer 0's experts)
     on 8 tokens, as an all-decode pass runs it in each layer."""
     import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
     from neuronx_distributed_inference_tpu_torch.modules import moe
     if app.device.type != "cuda":
         return None
-    w = {k: v[0] for k, v in app.params["layers"].items()}
+    w = model_base._layer_slice(app.params["layers"], 0)
     gen = torch.Generator(device=app.device).manual_seed(16)
     x8 = torch.randn((8, 1, app.spec.hidden_size), generator=gen,
                      device=app.device).to(app.spec.dtype)
@@ -4979,8 +5084,548 @@ def phase_mla(device):
     memory_note("mla_fp32")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: quantized and low-rank weights
+# ---------------------------------------------------------------------------
+
+def sync_card(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def quant_tree(fn, params):
+    """``params`` with every quantized leaf-group replaced by
+    ``fn(leaf)``."""
+    if isinstance(params, dict):
+        if "qweight" in params:
+            return fn(params)
+        return {k: quant_tree(fn, v) for k, v in params.items()}
+    return params
+
+
+def flipped_scales(params):
+    """The control of 18 (d): every scale reversed along its output axis
+    (each output channel gets another channel's scale)."""
+    return quant_tree(lambda q: dict(q, scale=q["scale"].flip(-1)), params)
+
+
+def dequantized_params(params, dtype):
+    """The unquantized twin's tree: every quantized leaf-group decoded to
+    ``dtype`` (``quantization.dequantize``)."""
+    from neuronx_distributed_inference_tpu_torch.modules import quantization
+    return quant_tree(lambda q: quantization.dequantize(q, dtype), params)
+
+
+def quant_bytes_predicted(app):
+    """Weight bytes from the geometry: each leaf of the spec's tree in its
+    dtype, a leaf the quantization converts as its codes (1 byte a value,
+    or half a byte for MXFP4) plus fp32 scales (one per output channel, or
+    per group of the contraction axis for MXFP4 and blockwise), a low-rank
+    leaf as its two factors."""
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.modules import quantization
+    spec = app.spec
+    q, lr = spec.quant, spec.low_rank
+
+    def quantized(lead, k, n):
+        m = math.prod(lead)
+        if q.dtype == quantization.MXFP4:
+            return m * (k * n // 2 + 4 * (k // q.group_size) * n)
+        groups = {quantization.PER_TENSOR: 1.0 / n,
+                  quantization.PER_CHANNEL: 1,
+                  quantization.BLOCKWISE: k // q.group_size}[q.scheme]
+        return m * (k * n + int(4 * groups * n))
+
+    def leaf(name, ps):
+        item = ps.dtype.itemsize
+        *lead, k, n = (1, 1) + tuple(ps.shape)
+        if lr is not None and lr.converts(name):
+            r = min(lr.rank, k, n)
+            if q is not None and q.converts(name):
+                return quantized(lead, k, r) + quantized(lead, r, n)
+            return math.prod(lead) * (k + n) * r * item
+        if q is not None and q.converts(name):
+            return quantized(lead, k, n)
+        return math.prod(ps.shape) * item
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return sum(walk(v, k) for k, v in node.items())
+        return leaf(name, node)
+    return walk(model_base.decoder_param_specs(spec))
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want| (fp64)."""
+    g, w = got.double(), want.double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-300))
+
+
+def fp4_decode_fp64(leaf):
+    """An independent fp64 decode of an MXFP4 leaf-group (codes unpacked
+    by slicing, the 16-value table, each scale repeated over its group)."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.modules import quantization
+    q, scale = leaf["qweight"], leaf["scale"]
+    *lead, kh, n = q.shape
+    codes = torch.empty((*lead, 2 * kh, n), dtype=torch.long,
+                        device=q.device)
+    codes[..., 0::2, :] = (q & 0x0F).long()
+    codes[..., 1::2, :] = (q >> 4).long()
+    table = torch.as_tensor(quantization._FP4_VALUES, dtype=torch.float64,
+                            device=q.device)
+    group = 2 * kh // scale.shape[-2]
+    return table[codes] * scale.double().repeat_interleave(group, dim=-2)
+
+
+def phase_quant_products(device):
+    with fp32_exact():
+        _phase_quant_products(device)
+
+
+def _phase_quant_products(device):
+    """18 (a): one gpt-oss-20b expert stack (MXFP4) and one Llama-3.1-8B
+    MLP layer (int8 per-channel and fp8 blockwise), bf16 draws from seed
+    0, quantized on the card and on the CPU by the same port function
+    (codes and scales must be equal); then ``dequantize``, ``qlinear``,
+    ``qmatmul`` and ``qeinsum`` on the card held to the fp64 product of
+    the dequantized weight (TF32 off), each beside a control that applies
+    the scales along the wrong axis."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.modules import quantization
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def draw(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16,
+                           device=device).normal_(0.0, 0.02, generator=gen)
+    e, h = GPT_OSS_20B["num_local_experts"], GPT_OSS_20B["hidden_size"]
+    i = GPT_OSS_20B["intermediate_size"]
+    lh, li = LLAMA_3_1_8B["hidden_size"], LLAMA_3_1_8B["intermediate_size"]
+    weights = {"oss_expert_gate": draw(e, h, i), "oss_expert_up": draw(
+        e, h, i), "oss_expert_down": draw(e, i, h),
+        "llama_gate_proj": draw(lh, li), "llama_up_proj": draw(lh, li),
+        "llama_down_proj": draw(li, lh)}
+    specs = {"mxfp4": quantization.QuantSpec(quantization.MXFP4),
+             "int8_channel": quantization.QuantSpec(),
+             "fp8_blockwise": quantization.QuantSpec(
+                 quantization.FP8, quantization.BLOCKWISE)}
+    leaves, rows = {}, []
+    for name, w in weights.items():
+        for sname in (("mxfp4",) if name.startswith("oss")
+                      else ("int8_channel", "fp8_blockwise")):
+            spec = specs[sname]
+            sync_card(device)
+            t0 = time.perf_counter()
+            card = quantization.quantize_tensor(w, spec)
+            sync_card(device)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = quantization.quantize_tensor(w.cpu(), spec)
+            cpu_s = time.perf_counter() - t0
+
+            def raw(t):
+                return t.view(torch.uint8) if t.element_size() == 1 else t
+            codes = int((raw(card["qweight"]).cpu()
+                         != raw(cpu["qweight"])).sum())
+            scales = int((card["scale"].cpu() != cpu["scale"]).sum())
+            rows.append({"weight": name, "scheme": sname,
+                         "shape": list(w.shape), "card_s": card_s,
+                         "cpu_s": cpu_s, "codes": card["qweight"].numel(),
+                         "differing_codes": codes,
+                         "differing_scales": scales})
+            if codes or scales:
+                raise AssertionError(f"quant_products: {name} {sname}: "
+                                     f"{codes} codes, {scales} scales "
+                                     "differ between the card and the CPU")
+            leaves[(name, sname)] = card
+            del cpu
+    emit({"phase": "quant_quantizers", "weights": rows})
+    x = torch.randn((8, lh), generator=gen, device=device)
+    checks = []
+
+    def check(name, got, want, control, tol):
+        err, ctl = rel_max(got, want), rel_max(control, want)
+        checks.append({"check": name, "rel_err": err, "control_rel": ctl,
+                       "tol": tol, "control_min": TOL_QUANT_CONTROL_REL})
+        return err <= tol and ctl > TOL_QUANT_CONTROL_REL
+
+    ok = True
+    # int8 per-channel: codes x scale (1, N); the control puts the first K
+    # of the N channel scales along the contraction axis
+    leaf = leaves[("llama_gate_proj", "int8_channel")]
+    q, s = leaf["qweight"].double(), leaf["scale"].double()
+    w64 = q * s
+    wrong = q * s.reshape(-1)[:lh, None]
+    ok &= check("dequantize_int8_channel",
+                quantization.dequantize(leaf, torch.float32), w64, wrong,
+                TOL_DEQUANT_REL)
+    ok &= check("qlinear_int8_channel", quantization.qlinear(x, leaf),
+                x.double() @ w64, x.double() @ wrong, TOL_QUANT_PRODUCT_REL)
+    # fp8 blockwise (down_proj, K = 14336 in groups of 32)
+    leaf = leaves[("llama_down_proj", "fp8_blockwise")]
+    q = leaf["qweight"].double()
+    s = leaf["scale"].double()
+    w64 = q * s.repeat_interleave(32, dim=0)
+    # the control applies the group scales to the wrong contraction groups
+    wrong = q * s.flip(0).repeat_interleave(32, dim=0)
+    xd = torch.randn((8, li), generator=gen, device=device)
+    ok &= check("qlinear_fp8_blockwise", quantization.qlinear(xd, leaf),
+                xd.double() @ w64, xd.double() @ wrong,
+                TOL_QUANT_PRODUCT_REL)
+    # MXFP4 expert stack (K = N = 2880): the control reads the group
+    # scales transposed (group of output channels, contraction channel)
+    leaf = leaves[("oss_expert_gate", "mxfp4")]
+    w64 = fp4_decode_fp64(leaf)
+    sc = leaf["scale"].double()                          # (E, K/32, N)
+    vals = w64 / sc.repeat_interleave(32, dim=-2)
+    wrong = vals * sc.transpose(-1, -2).repeat_interleave(32, dim=-1)
+    ok &= check("dequantize_mxfp4",
+                quantization.dequantize(leaf, torch.bfloat16), w64, wrong,
+                0.0)
+    xe = x[:, :h].contiguous()
+    ok &= check("qmatmul_mxfp4_experts",
+                quantization.qmatmul(xe[None], leaf),
+                xe.double()[None] @ w64, xe.double()[None] @ wrong,
+                TOL_QUANT_PRODUCT_REL)
+    ok &= check("qeinsum_mxfp4_experts",
+                quantization.qeinsum("th,ehi->tei", xe, leaf),
+                torch.einsum("th,ehi->tei", xe.double(), w64),
+                torch.einsum("th,ehi->tei", xe.double(), wrong),
+                TOL_QUANT_PRODUCT_REL)
+    emit({"phase": "quant_products", "checks": checks})
+    if not ok:
+        raise AssertionError(f"quant_products: {checks}")
+
+
+def phase_quant_oss(device):
+    """18 (b): gpt-oss-20b at full width and depth with in-graph MXFP4
+    experts (and ``o_proj``), bf16, on phase 15's engine, schedule and
+    prompts (:func:`serve_with_moe_share`: phase 9's gates, the paged
+    kernel's launches = 24 x all-decode steps, the MoE blocks' share, the
+    kernel over the served cache at a local and a global layer); weight
+    bytes against the geometry's. Returns the kernels-line entries."""
+    with PagedArgsSpy() as spy:
+        entries = serve_with_moe_share(
+            GPT_OSS_20B, device, "quant_oss_serving", oss_dense_block_ms,
+            kernel_layers=(-2, -1), tcfg_over=MXFP4_WEIGHTS)
+    check_layer_args("quant_oss_serving", spy.calls, GPT_OSS_20B)
+    return entries
+
+
+def check_weight_bytes(phase, app):
+    """Gate: the app's weight bytes equal the geometry's
+    (:func:`quant_bytes_predicted`); emits both."""
+    got, want = param_bytes(app.params), quant_bytes_predicted(app)
+    emit({"phase": phase + "_weight_bytes", "weight_bytes": got,
+          "predicted_bytes": want, "weight_gb": got / 1e9})
+    if got != want:
+        raise AssertionError(f"{phase}: weight bytes {got} != the "
+                             f"geometry's {want}")
+
+
+def phase_quant_llama(device):
+    """18 (c): Llama-3.1-8B at full width and depth with int8 per-channel
+    weights and the scaled fp8 KV cache (``kv_cache_scale`` 2^-5), bf16,
+    on phase 9's engine, schedule and prompts (phase 9's gates; the paged
+    kernel over fp8 pages, its launches = 32 x all-decode steps); weight
+    and cache bytes, the largest stored |K/V| against e4m3's 448, and the
+    kernel held to its twin and timed over the served fp8 pages. Returns
+    the kernels-line entry."""
+    import torch
+    check_card_empty("quant_llama_serving")
+    app, _, entries, _ = phase_ragged_serving(
+        LLAMA_3_1_8B, device, cfg=RAGGED, on_card=device.type == "cuda",
+        phase="quant_llama_serving", tcfg_over=dict(INT8_WEIGHTS, **FP8_KV))
+    stored = max(float(app.cache[k].float().abs().max()) for k in ("k", "v"))
+    emit({"phase": "quant_llama_cache", "cache_bytes": cache_bytes(app),
+          "cache_dtype": str(app.cache["k"].dtype), "kv_scale":
+          app.spec.kv_scale, "max_abs_stored": stored,
+          "max_abs_kv": stored * app.spec.kv_scale, "e4m3_max": 448.0})
+    if not (app.cache["k"].dtype == torch.float8_e4m3fn
+            and stored < 448.0):
+        raise AssertionError("quant_llama_cache: the fp8 cache saturated "
+                             f"(largest stored |x| {stored})")
+    memory_note("quant_llama_serving")
+    del app
+    free_card()
+    return entries
+
+
+def bf16_quant_drift(hf, device, weights, phase):
+    """18 (d), full depth, bf16: the teacher-forced decode logits of the
+    quantized app against the unquantized app on the same draws (seed 0),
+    fed the unquantized app's greedy tokens; the control is the quantized
+    app with every scale flipped along its output axis. Apps are built,
+    read and dropped in turn. Reported with their predictions (PERF.md):
+    random-weight stacks magnify any perturbation, so this is a reading,
+    and the gates are 18 (a) and the fp32 twins."""
+    import numpy as np
+    ids, mask = prompts_of(QUANT_LENS, hf["vocab_size"], seed=0)
+
+    def build(**over):
+        app = make_app(hf, device, "bfloat16", batch=len(QUANT_LENS),
+                       seq_len=2048, output_logits=True, graphs=False,
+                       **over)
+        return init_weights(app, 0)
+    plain = build()
+    out = plain.generate(ids, attention_mask=mask,
+                         max_new_tokens=QUANT_BF16_TOKENS + 1,
+                         return_logits=True)
+    tokens = out["generated"]
+    ref = out["logits"][1:]
+    del plain, out
+    free_card()
+    app = build(**weights)
+    got = decode_logits(app, ids, mask, tokens)
+    app.params = flipped_scales(app.params)
+    control = decode_logits(app, ids, mask, tokens)
+    del app
+    free_card()
+    if not all(np.isfinite(x).all() for x in got + control):
+        raise AssertionError(f"{phase}: non-finite logits")
+    emit({"phase": phase, "steps": len(ref),
+          "rel_rms": logits_rel_rms(got, ref),
+          "rel_rms_first_step": logits_rel_rms(got[:1], ref[:1]),
+          "control_rel_rms": logits_rel_rms(control, ref),
+          "argmax_agreement": float(np.mean([
+              (a.argmax(-1) == b.argmax(-1)).mean()
+              for a, b in zip(got, ref)])),
+          "logit_std": float(np.std(ref[0]))})
+
+
+def phase_quant_twin(hf, device, weights, phase):
+    with fp32_exact():
+        _phase_quant_twin(hf, device, weights, phase)
+
+
+def _phase_quant_twin(hf, device, weights, phase):
+    """18 (d) sharp check, fp32 (TF32 off), at a 4-layer cut: the
+    quantized app Q against the unquantized app D holding Q's dequantized
+    weights (the same function up to the scales' rounding). Q's ragged
+    engine (graphs; paged launches = layers x all-decode steps), Q's
+    ``generate`` replaying graphs and the same ``generate`` eager give the
+    same streams; so do Q's and D's eager ``generate`` (a first difference
+    only at a near-tie); D's teacher-forced logits are within
+    TOL_QUANT_TWIN_REL relative RMS of Q's; the control (Q with every
+    scale flipped) parts by more than TOL_QUANT_CONTROL_REL. With an fp8
+    cache in ``weights`` the identity runs take it, while the twin pair
+    runs over an fp32 cache: K and V an fp32 rounding apart may store
+    values an e4m3 step apart, which would hide the weights' agreement."""
+    import numpy as np
+    import torch
+    on_card = device.type == "cuda"
+    kv = {k: v for k, v in weights.items() if k.startswith("kv_cache")}
+    b = len(QUANT_LENS)
+
+    def build(graphs=True, **over):
+        return make_ragged_app(hf, device, "float32", RAGGED, batch=b,
+                               output_logits=True, graphs=graphs, **over)
+    q = init_weights(build(**weights), 0)
+    ids, mask = prompts_of(QUANT_LENS, hf["vocab_size"], seed=0)
+    prompts = [list(r[:n]) for r, n in zip(ids.tolist(), QUANT_LENS)]
+    warm(q, phase, chunk_tokens=RAGGED["chunk"])
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    layers = hf["num_hidden_layers"]
+    streams, recs, launches, steps = _ragged_run(
+        phase, q, prompts, QUANT_CHECK_TOKENS, RAGGED, sync, layers,
+        on_card)
+    check_no_incidents(phase, q)
+    g = build(**kv)
+    g.params = q.params
+    want = g.generate(ids, attention_mask=mask,
+                      max_new_tokens=QUANT_CHECK_TOKENS, return_logits=True)
+    del g
+    e = build(graphs=False, **kv)
+    e.params = q.params
+    runs = {"ragged": (np.asarray([s.tokens for s in streams]), want),
+            "eager": (e.generate(ids, attention_mask=mask,
+                                 max_new_tokens=QUANT_CHECK_TOKENS)[
+                                     "generated"], want)}
+    if kv:
+        e = build(graphs=False)
+        e.params = q.params
+        base = e.generate(ids, attention_mask=mask,
+                          max_new_tokens=QUANT_CHECK_TOKENS,
+                          return_logits=True)
+    else:
+        base = want
+    d = build(graphs=False)
+    d.params = dequantized_params(q.params, torch.float32)
+    runs["dequantized_twin"] = (d.generate(
+        ids, attention_mask=mask,
+        max_new_tokens=QUANT_CHECK_TOKENS)["generated"], base)
+    tokens = base["generated"]
+    ref = decode_logits(d, ids, mask, tokens)
+    got = base["logits"][1:]
+    e.params = flipped_scales(q.params)
+    control = decode_logits(e, ids, mask, tokens)
+    lens = mask.sum(axis=1)
+    ties = {}
+    for name, (run, against) in runs.items():
+        def logit_at(i, j, lg=against["logits"]):
+            return lg[0][i, lens[i] - 1] if j == 0 else lg[j][i, 0]
+        ties[name] = check_equal_streams(f"{phase}_{name}", run,
+                                         against["generated"], logit_at)
+    rel, ctl = logits_rel_rms(got, ref), logits_rel_rms(control, ref)
+    emit({"phase": phase, "layers": layers, "launches": launches,
+          "all_decode_ragged_steps": steps, "passes": len(recs),
+          "twin_cache": "float32", "identity_cache": str(
+              q.cache["k"].dtype).replace("torch.", ""),
+          "twin_rel_rms": rel, "control_rel_rms": ctl,
+          "tol": TOL_QUANT_TWIN_REL, "control_min": TOL_QUANT_CONTROL_REL,
+          "near_ties": {k: len(v) for k, v in ties.items()}})
+    if not rel <= TOL_QUANT_TWIN_REL:
+        raise AssertionError(f"{phase}: the dequantized twin's logits part "
+                             f"by relative RMS {rel}")
+    if not ctl > TOL_QUANT_CONTROL_REL:
+        raise AssertionError(f"{phase}: the control parts by only {ctl}: "
+                             "the gate cannot see a misapplied scale")
+
+
+def phase_quant_low_rank(device):
+    """18 (e): Llama-3.2-1B at full width and depth with ``mlp_low_rank``
+    512 and int8 weights (the factors quantized), bf16, on the paged app:
+    ``generate`` of 64 new tokens for phase 3's prompts after
+    ``precompile``, the paged kernel's launches = 16 x 63 decode steps;
+    the MLP's bytes against ``compression_report``; decode step times. At
+    a 4-layer fp32 cut, full rank (2048 = min(H, I)) gives the dense
+    app's streams and logits within TOL_LOW_RANK_FULL_REL, and the
+    control (the same factors cut to half rank) parts."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.modules import low_rank
+    hf = LLAMA_3_2_1B
+    h, i = hf["hidden_size"], hf["intermediate_size"]
+    layers = hf["num_hidden_layers"]
+    w = torch.randn((h, i), device=device) * 0.02
+    t0 = time.perf_counter()
+    full = low_rank.factorize_tensor(w, min(h, i))
+    sync_card(device)
+    svd_s = time.perf_counter() - t0
+    rebuild = low_rank.reconstruction_error(w, full)
+    del w, full
+    app = make_app(hf, device, "bfloat16", batch=len(QUANT_LENS),
+                   seq_len=2048, mlp_low_rank=QUANT_LOW_RANK,
+                   **INT8_WEIGHTS)
+    t0 = time.perf_counter()
+    init_weights(app, 0)
+    sync_card(device)
+    init_s = time.perf_counter() - t0
+    check_weight_bytes("quant_low_rank", app)
+    mlp = sum(param_bytes(app.params["layers"][k])
+              for k in ("gate_proj", "up_proj", "down_proj"))
+    rep = low_rank.compression_report(h, i, layers, QUANT_LOW_RANK,
+                                      bytes_per_param=1)
+    ids, mask = prompts_of(QUANT_LENS, hf["vocab_size"], seed=0)
+    warm(app, "quant_low_rank")
+    reset_launches([app])
+    out = app.generate(ids, attention_mask=mask, max_new_tokens=NEW_TOKENS)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    want = layers * (NEW_TOKENS - 1) if device.type == "cuda" else 0
+    check_no_incidents("quant_low_rank", app)
+    pre, step = (step_times(app, ids, mask, k=16)
+                 if device.type == "cuda" else (None, None))
+    emit({"phase": "quant_low_rank", "rank": QUANT_LOW_RANK,
+          "factorize_2048x8192_s": svd_s,
+          "full_rank_rebuild_rel": rebuild, "init_s": init_s,
+          "mlp_bytes": mlp, "report_low_rank_mlp_bytes":
+          rep["low_rank_mlp_bytes"], "report_dense_mlp_bytes":
+          rep["dense_mlp_bytes"], "scale_bytes": mlp
+          - rep["low_rank_mlp_bytes"], "launches": launches,
+          "expected_launches": want, "prefill_ms": pre,
+          "decode_ms_per_step": step,
+          "generated_shape": list(out["generated"].shape)})
+    if launches != want:
+        raise AssertionError(f"quant_low_rank: paged kernel launches "
+                             f"{launches} != {want}")
+    del app
+    free_card()
+    with fp32_exact():
+        _quant_low_rank_full(hf, device)
+
+
+def _quant_low_rank_full(hf, device):
+    import numpy as np
+    cut = dict(hf, num_hidden_layers=QUANT_CHECK_LAYERS)
+    ids, mask = prompts_of(QUANT_LENS, hf["vocab_size"], seed=0)
+    full_rank = min(hf["hidden_size"], hf["intermediate_size"])
+
+    def build(**over):
+        app = make_app(cut, device, "float32", batch=len(QUANT_LENS),
+                       seq_len=2048, output_logits=True, **over)
+        return init_weights(app, 0)
+    dense = build()
+    want = dense.generate(ids, attention_mask=mask,
+                          max_new_tokens=QUANT_CHECK_TOKENS,
+                          return_logits=True)
+    tokens = want["generated"]
+    full = build(mlp_low_rank=full_rank)
+    got = full.generate(ids, attention_mask=mask,
+                        max_new_tokens=QUANT_CHECK_TOKENS,
+                        return_logits=True)
+    lens = mask.sum(axis=1)
+
+    def logit_at(i, j):
+        lg = want["logits"]
+        return lg[0][i, lens[i] - 1] if j == 0 else lg[j][i, 0]
+    ties = check_equal_streams("quant_low_rank_full_rank", got["generated"],
+                               tokens, logit_at)
+    ref = want["logits"][1:]
+    rel = logits_rel_rms(decode_logits(full, ids, mask, tokens), ref)
+    half = full_rank // 2
+
+    def cut_rank(leaf):
+        if isinstance(leaf, dict) and "lr_u" in leaf:
+            return {"lr_u": leaf["lr_u"][..., :half],
+                    "lr_v": leaf["lr_v"][..., :half, :]}
+        return leaf
+    full.params = dict(full.params, layers={
+        k: cut_rank(v) for k, v in full.params["layers"].items()})
+    ctl = logits_rel_rms(decode_logits(full, ids, mask, tokens), ref)
+    emit({"phase": "quant_low_rank_full_rank", "rank": full_rank,
+          "rel_rms": rel, "control_rank": half, "control_rel_rms": ctl,
+          "tol": TOL_LOW_RANK_FULL_REL, "control_min": TOL_QUANT_CONTROL_REL,
+          "near_ties": len(ties), "finite": bool(np.isfinite(ref[0]).all())})
+    if not rel <= TOL_LOW_RANK_FULL_REL:
+        raise AssertionError(f"quant_low_rank_full_rank: relative RMS {rel}")
+    if not ctl > TOL_QUANT_CONTROL_REL:
+        raise AssertionError("quant_low_rank_full_rank: the half-rank "
+                             f"control parts by only {ctl}")
+
+
+def phase_quant(device):
+    """Group ``quant`` (phase 18 (a)-(e)); returns its kernels-line
+    entries: the paged kernel over gpt-oss-20b's served cache with MXFP4
+    experts (a local and a global layer) and over Llama-3.1-8B's served
+    fp8 pages."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    phase_quant_products(device)
+    memory_note("quant_products")
+    free_card()
+    entries = phase_quant_oss(device)
+    entries += phase_quant_llama(device)
+    bf16_quant_drift(GPT_OSS_20B, device, MXFP4_WEIGHTS, "quant_oss_bf16")
+    memory_note("quant_oss_bf16")
+    bf16_quant_drift(LLAMA_3_1_8B, device, INT8_WEIGHTS, "quant_llama_bf16")
+    memory_note("quant_llama_bf16")
+    for hf, weights, phase in (
+            (oss_cut(QUANT_CHECK_LAYERS), MXFP4_WEIGHTS, "quant_oss_twin"),
+            (dict(LLAMA_3_1_8B, num_hidden_layers=QUANT_CHECK_LAYERS),
+             dict(INT8_WEIGHTS, **FP8_KV), "quant_llama_twin"),
+            (dict(LLAMA_3_1_8B, num_hidden_layers=QUANT_CHECK_LAYERS),
+             FP8_BLOCK_WEIGHTS, "quant_fp8_blockwise_twin")):
+        phase_quant_twin(hf, device, weights, phase)
+        memory_note(phase)
+        free_card()
+    phase_quant_low_rank(device)
+    memory_note("quant_low_rank")
+    free_card()
+    return entries
+
+
 GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
-          "long", "mla")
+          "long", "mla", "quant")
 
 
 def main(argv=None) -> int:
@@ -5006,8 +5651,16 @@ def main(argv=None) -> int:
           "bmm_out_dtype": bmm_out_dtype_available(),
           "grouped_mm": grouped_mm_available(), "build_s": build_s})
     kernels = []
+    group_s = {"build": time.perf_counter() - t_start}
+    last = [time.perf_counter()]
+
+    def mark(group):
+        now = time.perf_counter()
+        group_s[group] = now - last[0]
+        last[0] = now
     if "kernels" in only:
         phase_kernels(device)
+        mark("kernels")
     if "paged" in only:
         app, ids, mask, launches = phase_main_path(LLAMA_3_2_1B, device)
         phase_serving(LLAMA_3_2_1B, device)
@@ -5015,6 +5668,7 @@ def main(argv=None) -> int:
                                  launches)
         del app
         torch.cuda.empty_cache()
+        mark("paged")
     if "contig" in only:
         app, ids, mask, counts = phase_contiguous(MISTRAL_7B, device,
                                                   "contiguous_main_path")
@@ -5028,6 +5682,7 @@ def main(argv=None) -> int:
         phase_contiguous_serving(dict(MISTRAL_7B, num_hidden_layers=8),
                                  device)
         torch.cuda.empty_cache()
+        mark("contig")
     app = None
     if "ragged" in only:
         app, prompts, entries, _ = phase_ragged_serving(LLAMA_3_1_8B,
@@ -5039,6 +5694,7 @@ def main(argv=None) -> int:
             app = None
             torch.cuda.empty_cache()
         phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+        mark("ragged")
     if "spec" in only:
         phase_spec_greedy(LLAMA_3_1_8B, device, app)
         del app
@@ -5046,19 +5702,29 @@ def main(argv=None) -> int:
         kernels += phase_spec_sampled(LLAMA_3_1_8B, device)
         torch.cuda.empty_cache()
         phase_spec_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+        mark("spec")
     if "moe" in only:
         free_card()
         kernels += phase_moe(device)
+        mark("moe")
     if "oss" in only:
         free_card()
         kernels += phase_oss(device)
+        mark("oss")
     if "long" in only:
         free_card()
         kernels += phase_long(device)
+        mark("long")
     if "mla" in only:
         free_card()
         phase_mla(device)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        mark("mla")
+    if "quant" in only:
+        free_card()
+        kernels += phase_quant(device)
+        mark("quant")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "group_seconds": group_s})
     emit({"kernels": kernels})
     emit({"gpu": gpu})
     if only != set(GROUPS):

@@ -300,6 +300,11 @@ class TpuConfig:
                 self.kv_cache_batch_size
                 * ((self.seq_len + self.pa_block_size - 1)
                    // self.pa_block_size))
+        if self.mlp_low_rank is not None and self.mlp_low_rank < 1:
+            from .resilience.errors import ConfigurationError
+            raise ConfigurationError(
+                f"mlp_low_rank must be >= 1, got {self.mlp_low_rank} "
+                "(None disables the low-rank MLP)")
         sc = self.on_device_sampling_config
         if sc is not None and sc.stream_seed is not None \
                 and not sc.do_sample:

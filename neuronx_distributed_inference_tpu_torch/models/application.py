@@ -2,12 +2,15 @@
 paged ``PagedCausalLMApplication`` built on it (counterpart:
 ``neuronx_distributed_inference_tpu/models/application.py`` —
 ``CausalLMApplication`` :52-1080: ``__init__`` :55, ``load_weights``
-:106, ``init_random_weights`` :115, ``_put_params`` :127, ``init_cache``
-:203, ``_check_decode_fits`` :263, ``_kv_bucket`` :277, ``warmup`` :323,
+:106, ``init_random_weights`` :115, ``_put_params`` :127,
+``save_quantized_state_dict`` / ``load_quantized_state_dict`` :154-176,
+``init_cache`` :203, ``_check_decode_fits`` :263, ``_kv_bucket`` :277,
+``warmup`` :323,
 ``_default_sampling_params`` :508, ``_run_prefill`` :515,
 ``_run_prefill_windowed`` :557, ``_run_decode`` :613, ``_run_decode_loop``
 :649, ``_generate_repadded`` :687,
-``generate`` :780, ``reset`` :967; ``_finalize_generation`` :1105;
+``generate`` :780, ``reset`` :967; ``_flatten_tree`` /
+``_unflatten_tree`` :1083-1102; ``_finalize_generation`` :1105;
 ``PagedCausalLMApplication`` :1120-1626, its ``_coupled_sampling`` /
 ``_stream_seeds`` :1163-1178, ``_run_spec_draft`` :1251,
 ``_run_spec_verify`` :1286, ``_run_ragged`` :1330; the
@@ -64,6 +67,7 @@ card raises (``device.resolve_device``).
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Type
 
@@ -100,6 +104,32 @@ def _finalize_generation(input_ids: np.ndarray, collected, eos_ids,
                 gen[i, hits[0] + 1:] = eos_ids[0]
     return {"sequences": np.concatenate([input_ids, gen], axis=1),
             "generated": gen, "ttft_s": ttft, "seq_lens": seq_lens}
+
+
+def _flatten_tree(tree: Dict[str, Any], prefix: str = ""
+                  ) -> Dict[str, torch.Tensor]:
+    """A nested parameter dict -> {dotted name: tensor} (reference
+    :1083)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        key = prefix + k
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`_flatten_tree` (reference :1094)."""
+    out: Dict[str, Any] = {}
+    for k, v in flat.items():
+        parts = k.split(".")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
 
 
 class CausalLMApplication:
@@ -304,24 +334,51 @@ class CausalLMApplication:
 
     def init_random_weights(self, seed: int = 0):
         """Synthetic weights made on the device from ``seed``, each leaf in
-        its spec's dtype (an MoE router in fp32)."""
+        its spec's dtype (an MoE router in fp32), factorized and quantized
+        on the device as the config asks (``model_base.init_params``)."""
         self.params = model_base.init_params(self.spec, seed, self.device)
         return self
 
     def _put_params(self, host: Dict[str, Any]):
-        """A host tree onto the device, each leaf cast to its spec's dtype:
-        the model dtype, fp32 for an MoE router (the reference casts every
-        loaded leaf to the model dtype; ROADMAP C)."""
+        """A host tree onto the device in the reference's order (reference
+        :127-151): fuse q/k/v, cast each leaf to its spec's dtype (the
+        model dtype, fp32 for an MoE router; the reference casts every
+        leaf to the model dtype, ROADMAP C), then factorize and quantize
+        on the device, leaf by leaf (``model_base.convert_leaf``).
+        Quantized leaf-groups keep their own dtypes."""
         host = model_base.fuse_qkv_host(host)
         specs = model_base.decoder_param_specs(self.spec)
 
-        def put(node, spec):
+        def put(node, spec, name):
             if isinstance(node, dict):
-                return {k: put(v, (spec or {}).get(k))
+                return {k: put(v, (spec or {}).get(k), k)
                         for k, v in node.items()}
             dt = getattr(spec, "dtype", self.spec.dtype)
-            return tensor_from_numpy(np.asarray(node), self.device).to(dt)
-        self.params = put(host, specs)
+            t = tensor_from_numpy(np.asarray(node), self.device).to(dt)
+            return model_base.convert_leaf(self.spec, name, t)
+        self.params = put(host, specs, "")
+
+    def save_quantized_state_dict(self, path: str):
+        """Save the quantized (and factorized) weights flat, under the
+        reference's dotted names (``layers.o_proj.qweight``, ...), with the
+        config (reference :154-167). Reload with
+        :meth:`load_quantized_state_dict`; the JAX application's reads the
+        same files."""
+        if self.spec.quant is None:
+            raise ValueError("config.tpu_config.quantized must be set")
+        if self.params is None:
+            raise RuntimeError("load_weights() first")
+        ckpt.save_state_dict_safetensors(_flatten_tree(self.params), path)
+        self.config.save(path + os.sep)
+
+    def load_quantized_state_dict(self, path: str):
+        """Load a :meth:`save_quantized_state_dict` checkpoint (the port's
+        or the JAX application's) onto the device, every tensor in its
+        stored dtype (reference :169-176)."""
+        sd = ckpt.load_state_dict(path, keep_dtypes=True)
+        self.params = _unflatten_tree({name: t.to(self.device)
+                                       for name, t in sd.items()})
+        return self
 
     # -- cache -------------------------------------------------------------
     def init_cache(self):

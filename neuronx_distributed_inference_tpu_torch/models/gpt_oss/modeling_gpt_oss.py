@@ -14,8 +14,11 @@ The base decoder with these spec knobs:
 The converter reads the HF layout (a fused ``gate_up_proj`` (E, H, 2I),
 gate and up interleaved on the last axis) stored in bf16 or as the
 checkpoint's native MXFP4 ``*_blocks`` / ``*_scales``
-(``modules/quantization.dequant_oai_mxfp4_blocks``). In-graph MXFP4
-experts (``quantized=True``) wait for ROADMAP A11.
+(``modules/quantization.dequant_oai_mxfp4_blocks``). With ``quantized=True,
+quantization_dtype="mxfp4"`` the application re-packs the decoded experts
+(and ``o_proj``) into in-graph MXFP4 leaf-groups through
+``quantization.quantize_params``, as the reference does (its docstring
+:12-16); the products dequantize them (``modules/moe.py``).
 
 ``TpuGptOssForCausalLM`` builds the contiguous app as the reference's
 does; above ``seq_len = sliding_window`` that app keeps the mixed

@@ -89,7 +89,10 @@ import torch.nn.functional as F
 from ..config import InferenceConfig, TpuConfig
 from ..modules import block_kv_cache as bkv
 from ..modules import kv_cache as kv
+from ..modules import low_rank as low_rank_mod
 from ..modules import moe as moe_mod
+from ..modules import quantization as quant_mod
+from ..modules.quantization import qlinear
 from ..ops import attention as attn_ops
 from ..ops import decode_attention, flash_attention
 from ..ops import sampling as sampling_ops
@@ -157,6 +160,12 @@ class DecoderSpec:
     kv_dtype: torch.dtype = torch.bfloat16
     # scaled KV quantisation: values stored as x / kv_scale
     kv_scale: Optional[float] = None
+    # weight-only quantization: the converted weights are {"qweight",
+    # "scale"} leaf-groups (modules/quantization.py)
+    quant: Optional[quant_mod.QuantSpec] = None
+    # low-rank MLP: gate / up / down as {"lr_u", "lr_v"} factor pairs of
+    # this rank (modules/low_rank.py)
+    low_rank: Optional[low_rank_mod.LowRankSpec] = None
     # qwen3-style per-head q/k RMSNorm (after the head split, before RoPE)
     qk_norm: bool = False
     # routed mixture of experts in the MLP slot (``moe.intermediate_size``
@@ -339,18 +348,36 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     return out
 
 
+def convert_leaf(spec: DecoderSpec, name: str, w: torch.Tensor) -> Any:
+    """The reference's weight conversion after the fused q/k/v and the
+    cast to the model dtype (application.py:127-151), for one named leaf
+    on its device: factorize a low-rank MLP weight (quantizing its
+    factors), then quantize what ``spec.quant`` converts; any other leaf
+    is returned as it is. Conversion is leaf by leaf, so a tree converted
+    a leaf at a time is the same tree, and only one unconverted leaf needs
+    room beside it."""
+    tree = {name: w}
+    if spec.low_rank is not None:
+        tree = low_rank_mod.factorize_params(tree, spec.low_rank,
+                                             quant=spec.quant)
+    if spec.quant is not None:
+        tree = quant_mod.quantize_params(tree, spec.quant)
+    return tree[name]
+
+
 def init_params(spec: DecoderSpec, seed: int,
                 device: torch.device) -> Dict[str, Any]:
     """Random weights made on ``device`` from one ``torch.Generator``
-    seeded with ``seed`` (normal(0, 0.02) matrices, unit norms). They are
-    not the JAX package's values for the same seed."""
+    seeded with ``seed`` (normal(0, 0.02) matrices, unit norms), each
+    converted (:func:`convert_leaf`) as soon as it is drawn. They are not
+    the JAX package's values for the same seed."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def build(node):
+    def build(node, name):
         if isinstance(node, ParamSpec):
-            return node.initializer(gen, device)
-        return {k: build(v) for k, v in sorted(node.items())}
-    return build(decoder_param_specs(spec))
+            return convert_leaf(spec, name, node.initializer(gen, device))
+        return {k: build(v, k) for k, v in sorted(node.items())}
+    return build(decoder_param_specs(spec), "")
 
 
 def fuse_qkv_host(host: Dict[str, Any]) -> Dict[str, Any]:
@@ -413,7 +440,7 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai):
     (B,T,Hkv,D) (v a view into the projection output)."""
     b, t, _ = h.shape
     g = spec.gqa
-    qkv = h @ layer_w["qkv_proj"]
+    qkv = qlinear(h, layer_w["qkv_proj"])
     if spec.qkv_bias:
         qkv = qkv + layer_w["qkv_bias"]
     q, k, v = torch.split(qkv, [spec.q_size, spec.kv_size, spec.kv_size],
@@ -438,20 +465,20 @@ def _mla_qkv(spec: DecoderSpec, h, layer_w, ai):
     nh = spec.gqa.num_q_heads
     b, t, _ = h.shape
     if m.q_lora_rank:
-        qa = rms_norm(h @ layer_w["q_a_proj"], layer_w["q_a_norm"],
+        qa = rms_norm(qlinear(h, layer_w["q_a_proj"]), layer_w["q_a_norm"],
                       spec.rms_eps)
-        q = qa @ layer_w["q_b_proj"]
+        q = qlinear(qa, layer_w["q_b_proj"])
     else:
-        q = h @ layer_w["q_proj"]
+        q = qlinear(h, layer_w["q_proj"])
     q = q.reshape(b, t, nh, m.qk_head_dim)
     q_nope, q_rot = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
                                 dim=-1)
-    ckv = h @ layer_w["kv_a_proj"]                          # (B,T,r+rope)
+    ckv = qlinear(h, layer_w["kv_a_proj"])                  # (B,T,r+rope)
     k_pass, k_rot = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_head_dim],
                                 dim=-1)
-    kv_heads = (rms_norm(k_pass, layer_w["kv_a_norm"], spec.rms_eps)
-                @ layer_w["kv_b_proj"]).reshape(
-                    b, t, nh, m.qk_nope_head_dim + m.v_head_dim)
+    kv_heads = qlinear(rms_norm(k_pass, layer_w["kv_a_norm"], spec.rms_eps),
+                       layer_w["kv_b_proj"]).reshape(
+                           b, t, nh, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = torch.split(kv_heads, [m.qk_nope_head_dim, m.v_head_dim],
                             dim=-1)
     q_rot = apply_rope(q_rot, ai["cos"], ai["sin"], spec.rope_interleaved)
@@ -576,14 +603,16 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
 
 
 def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
-    """The MLP half of a layer (model_base.py:889-893): the MoE block in a
+    """The MLP half of a layer (model_base.py:889-938): the MoE block in a
     layer of the ``"moe"`` stack, else the dense GLU silu(x @ gate) *
-    (x @ up) @ down. ``kind`` is the stack's (:func:`layer_stacks`), a
+    (x @ up) @ down, each product through ``qlinear`` (plain, quantized or
+    low-rank weights). ``kind`` is the stack's (:func:`layer_stacks`), a
     Python value, so a captured graph holds each layer's own branch."""
     if kind == "moe":
         return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
-    inter = F.silu(x @ layer_w["gate_proj"]) * (x @ layer_w["up_proj"])
-    return inter @ layer_w["down_proj"]
+    inter = (F.silu(qlinear(x, layer_w["gate_proj"]))
+             * qlinear(x, layer_w["up_proj"]))
+    return qlinear(inter, layer_w["down_proj"])
 
 
 def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
@@ -609,7 +638,7 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     else:
         attn = _paged_attn(*args)
     b, t = h.shape[:2]
-    o = attn.reshape(b, t, -1) @ layer_w["o_proj"]
+    o = qlinear(attn.reshape(b, t, -1), layer_w["o_proj"])
     if spec.o_bias:
         o = o + layer_w["o_bias"]
     hidden = hidden + o
@@ -629,13 +658,21 @@ def layer_stacks(spec: DecoderSpec) -> List[Tuple[str, int, int, str]]:
     return [("layers", 0, L, "dense" if spec.moe is None else "moe")]
 
 
+def _layer_slice(w, j: int):
+    """Layer ``j`` of a stacked leaf; a quantized or low-rank leaf-group
+    slices each of its tensors."""
+    if isinstance(w, dict):
+        return {k: _layer_slice(v, j) for k, v in w.items()}
+    return w[j]
+
+
 def iter_layers(spec: DecoderSpec, params):
     """(absolute layer index, its weights as views into its stack, MLP
     kind) for every layer in order."""
     for key, first, count, kind in layer_stacks(spec):
         stack = params[key]
         for j in range(count):
-            yield first + j, {k: w[j] for k, w in stack.items()}, kind
+            yield first + j, _layer_slice(stack, j), kind
 
 
 def run_layers(spec: DecoderSpec, params, cache, hidden, ai, phase: str):
@@ -1253,8 +1290,6 @@ def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
          or tcfg.attention_dp_degree > 1, "parallelism degrees > 1"),
         (tcfg.sequence_parallel_enabled, "sequence parallelism"),
         (tcfg.flash_decoding_enabled, "flash decoding"),
-        (tcfg.quantized, "quantized weights"),
-        (tcfg.mlp_low_rank is not None, "low-rank MLP"),
         (tcfg.lora_config is not None, "LoRA"),
         (_has_speculation(tcfg), "speculation"),
         (tcfg.collective_config is not None
@@ -1443,6 +1478,8 @@ def spec_from_config(config: InferenceConfig,
         dtype=tcfg.torch_dtype,
         kv_dtype=tcfg.torch_kv_dtype,
         kv_scale=(tcfg.kv_cache_scale if tcfg.kv_cache_quant else None),
+        quant=quant_mod.quant_spec_from_config(tcfg),
+        low_rank=low_rank_mod.low_rank_spec_from_config(tcfg),
         qk_norm=bool(qk_norm),
         moe=moe,
         first_dense=int(first_dense),

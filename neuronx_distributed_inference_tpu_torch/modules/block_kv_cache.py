@@ -66,12 +66,15 @@ def write_slots_at_layer(cache: torch.Tensor, new: torch.Tensor, layer: int,
     Negative slots write nothing. A negative index would wrap onto a live
     slot, and filtering them out would sync the host with the device, so
     each one is aimed at slot 0 (the never-allocated null block) carrying
-    the value slot 0 already holds."""
+    the value slot 0 already holds. An fp8 cache is written through its
+    uint8 view (``index_copy_`` has no fp8 kernel)."""
     L, n, bs, h, d = cache.shape
     flat = cache.view(L, n * bs, h, d)[layer]
     slots = slot_mapping.reshape(-1).to(device=cache.device,
                                         dtype=torch.long)
     vals = new.reshape(-1, h, d).to(cache.dtype)
+    if cache.is_floating_point() and cache.element_size() == 1:
+        flat, vals = flat.view(torch.uint8), vals.view(torch.uint8)
     drop = slots < 0
     slots = slots.masked_fill(drop, 0)
     vals = torch.where(drop[:, None, None], flat[0].expand_as(vals), vals)

@@ -22,11 +22,16 @@ The reference's design, on one card:
     left on the device, the counterpart of ``jax.lax.ragged_dot``),
     unsorted and combined in fp32. No device value is read on the host.
   * Shared experts: a dense GLU MLP added to the routed output.
+  * Quantized expert leaves (``modules/quantization.py``): the dense path
+    applies the reference's ``qeinsum`` rule through ``qmatmul`` (int8 /
+    fp8 codes cast to the activation dtype, the fp32 scale (E, 1, ·)
+    broadcast over the (E, B·T, ·) product; MXFP4 and blockwise weights
+    dequantized first); the ragged path dequantizes every expert weight
+    before its grouped product; shared experts go through ``qlinear``.
 
 The reference's mesh constraints (``shard_constraint``) have no
 counterpart on one card. ``tkg_experts_local`` (an expert re-layout for
-decode across a mesh, ROADMAP A13) and quantized expert leaves (A11) raise
-:class:`ConfigurationError`.
+decode across a mesh, ROADMAP A13) raises :class:`ConfigurationError`.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..resilience.errors import ConfigurationError
+from .quantization import dequantize, is_quantized_leaf, qlinear, qmatmul
 
 
 @dataclass(frozen=True)
@@ -180,21 +186,13 @@ def _glu(moe: MoESpec, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return _act_fn(moe.act)(gate) * up
 
 
-def _check_leaves(*ws) -> None:
-    for w in ws:
-        if not isinstance(w, torch.Tensor):
-            raise ConfigurationError(
-                "quantized expert weights are not ported yet (ROADMAP A11)")
-
-
 def experts_dense(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
-                  top_idx: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                  wd: torch.Tensor, bg=None, bu=None, bd=None
-                  ) -> torch.Tensor:
+                  top_idx: torch.Tensor, wg, wu, wd, bg=None, bu=None,
+                  bd=None) -> torch.Tensor:
     """All-experts dense compute. x (B, T, H); wg / wu (E, H, I); wd
-    (E, I, H); b* optional (E, ·) biases. Intermediates are laid out
-    (E, B·T, ·), the reference's (B, T, E, ·) transposed."""
-    _check_leaves(wg, wu, wd)
+    (E, I, H), plain or quantized; b* optional (E, ·) biases.
+    Intermediates are laid out (E, B·T, ·), the reference's (B, T, E, ·)
+    transposed."""
     b, t, h = x.shape
     dt = x.dtype
     combine = combine_matrix(moe.num_experts, top_vals, top_idx)
@@ -203,17 +201,17 @@ def experts_dense(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
         # llama4: scale the expert INPUT by the affinity, combine with 1s
         xe = (x.reshape(b * t, 1, h).float()
               * combine[..., None]).to(dt).transpose(0, 1)       # (E,BT,H)
-        gate = torch.bmm(xe, wg)
-        up = torch.bmm(xe, wu)
+        gate = qmatmul(xe, wg)
+        up = qmatmul(xe, wu)
         combine = (combine > 0).float()
     else:
         xf = x.reshape(1, b * t, h)
-        gate = torch.matmul(xf, wg)                               # (E,BT,I)
-        up = torch.matmul(xf, wu)
+        gate = qmatmul(xf, wg)                                    # (E,BT,I)
+        up = qmatmul(xf, wu)
     if bg is not None:
         gate = gate + bg[:, None, :]
         up = up + bu[:, None, :]
-    outs = torch.bmm(_glu(moe, gate, up), wd)                     # (E,BT,H)
+    outs = qmatmul(_glu(moe, gate, up), wd)                       # (E,BT,H)
     if bd is not None:
         outs = outs + bd[:, None, :]
     y = torch.einsum("ebh,be->bh", outs.float(), combine)
@@ -239,16 +237,18 @@ def grouped_mm(a: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
 
 
 def experts_ragged(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
-                   top_idx: torch.Tensor, wg: torch.Tensor,
-                   wu: torch.Tensor, wd: torch.Tensor, bg=None, bu=None,
+                   top_idx: torch.Tensor, wg, wu, wd, bg=None, bu=None,
                    bd=None) -> torch.Tensor:
     """Dropless grouped-product path: sort the B·T·k token copies by
     expert (stable), one grouped product per projection, unsort and
-    combine in fp32. Shapes are static: N = B·T·k rows."""
-    _check_leaves(wg, wu, wd)
+    combine in fp32. Shapes are static: N = B·T·k rows. Quantized expert
+    weights are dequantized to the activation dtype first (the grouped
+    product takes plain weights)."""
     b, t, h = x.shape
     k = moe.top_k
     dt = x.dtype
+    wg, wu, wd = (dequantize(w, dt) if is_quantized_leaf(w) else w
+                  for w in (wg, wu, wd))
     flat_x = x.reshape(b * t, h)
     flat_expert = top_idx.reshape(-1)                         # (N,)
     flat_weight = top_vals.reshape(-1)                        # (N,) fp32
@@ -301,6 +301,7 @@ def _shared_experts(moe: MoESpec, x: torch.Tensor, y: torch.Tensor,
     """Add the always-on shared-expert branch (DeepSeek / GLM style)."""
     if moe.shared_intermediate > 0:
         act = _act_fn(moe.act)
-        s = act(x @ layer_w["shared_gate"]) * (x @ layer_w["shared_up"])
-        y = y + s @ layer_w["shared_down"]
+        s = (act(qlinear(x, layer_w["shared_gate"]))
+             * qlinear(x, layer_w["shared_up"]))
+        y = y + qlinear(s, layer_w["shared_down"])
     return y

@@ -1,38 +1,46 @@
-"""Checkpoint reading (counterpart:
-``neuronx_distributed_inference_tpu/utils/checkpoint.py:26-90``): HF
-safetensors checkpoints, single or sharded through the index json, into a
-host dict of numpy arrays; bf16 and fp8 tensors come back as float32
-(numpy has no such dtypes) and are cast to the model dtype on placement."""
+"""Checkpoint reading and writing (counterpart:
+``neuronx_distributed_inference_tpu/utils/checkpoint.py`` —
+``load_state_dict`` :26-90, ``save_state_dict_safetensors`` :90-116).
+
+HF safetensors checkpoints, single or sharded through the index json,
+load into a host dict of numpy arrays; bf16 and fp8 tensors come back as
+float32 (numpy has no such dtypes) and are cast to the model dtype on
+placement. ``keep_dtypes=True`` returns the stored torch tensors instead,
+so a quantized checkpoint keeps its int8, uint8, ``float8_e4m3fn`` codes
+and fp32 scales (an fp8 code read as float32 would look like an int8 leaf
+to ``quantization._leaf_scheme``)."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 
 SAFETENSORS_INDEX = "model.safetensors.index.json"
 
 
-def load_state_dict(model_path: str) -> Dict[str, np.ndarray]:
+def load_state_dict(model_path: str, keep_dtypes: bool = False
+                    ) -> Dict[str, Any]:
     if os.path.isfile(model_path):
-        return _load_one(model_path)
+        return _load_one(model_path, keep_dtypes)
     idx = os.path.join(model_path, SAFETENSORS_INDEX)
     if os.path.exists(idx):
         with open(idx) as f:
             index = json.load(f)
-        out: Dict[str, np.ndarray] = {}
+        out: Dict[str, Any] = {}
         for shard in sorted(set(index["weight_map"].values())):
-            out.update(_load_one(os.path.join(model_path, shard)))
+            out.update(_load_one(os.path.join(model_path, shard),
+                                 keep_dtypes))
         return out
     st = os.path.join(model_path, "model.safetensors")
     if os.path.exists(st):
-        return _load_one(st)
+        return _load_one(st, keep_dtypes)
     raise FileNotFoundError(f"no safetensors checkpoint under {model_path}")
 
 
-def _load_one(path: str) -> Dict[str, np.ndarray]:
+def _load_one(path: str, keep_dtypes: bool = False) -> Dict[str, Any]:
     import torch
     from safetensors import safe_open
     if not path.endswith(".safetensors"):
@@ -41,8 +49,47 @@ def _load_one(path: str) -> Dict[str, np.ndarray]:
     with safe_open(path, framework="pt") as f:
         for k in f.keys():
             t = f.get_tensor(k)
+            if keep_dtypes:
+                out[k] = t
+                continue
             if t.dtype in (torch.bfloat16, torch.float8_e4m3fn,
                            torch.float8_e5m2, torch.float16):
                 t = t.float()
             out[k] = t.numpy()
     return out
+
+
+def save_state_dict_safetensors(state_dict: Dict[str, Any], path: str,
+                                max_shard_bytes: int = 5 * 2**30) -> None:
+    """Save {name: tensor or numpy array} under directory ``path`` as
+    ``model.safetensors``, or as shards of at most ``max_shard_bytes`` with
+    the index json (reference :90-116). Tensors are written in their own
+    dtypes (bf16 and fp8 included) from host copies."""
+    import torch
+    from safetensors.torch import save_file
+
+    from .jax_params import tensor_from_numpy
+    os.makedirs(path, exist_ok=True)
+    shards, cur, cur_bytes = [], {}, 0
+    for k, v in state_dict.items():
+        t = (v if isinstance(v, torch.Tensor)
+             else tensor_from_numpy(np.asarray(v), torch.device("cpu")))
+        t = t.detach().to("cpu").contiguous()
+        nbytes = t.numel() * t.element_size()
+        if cur and cur_bytes + nbytes > max_shard_bytes:
+            shards.append(cur)
+            cur, cur_bytes = {}, 0
+        cur[k] = t
+        cur_bytes += nbytes
+    shards.append(cur)
+    if len(shards) == 1:
+        save_file(shards[0], os.path.join(path, "model.safetensors"))
+        return
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        name = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(shard, os.path.join(path, name))
+        for k in shard:
+            weight_map[k] = name
+    with open(os.path.join(path, SAFETENSORS_INDEX), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from neuronx_distributed_inference_tpu.modules import moe as jmoe
+from neuronx_distributed_inference_tpu.modules import quantization as jq
 from neuronx_distributed_inference_tpu_torch.modules import moe as tmoe
 from neuronx_distributed_inference_tpu_torch.resilience import \
     ConfigurationError
@@ -198,19 +199,30 @@ def test_group_ends_and_grouped_mm_match_a_loop():
 
 @pytest.mark.parametrize("case", ["tkg_experts_local", "quantized_leaf"])
 def test_unported_expert_layouts_raise(case):
-    """``tkg_experts_local`` (ROADMAP A13) and quantized expert leaves
-    (A11) raise ConfigurationError instead of running."""
+    """``tkg_experts_local`` (ROADMAP A13) raises ConfigurationError
+    instead of running, on both expert paths. A quantized expert leaf
+    (int8 per-channel ``expert_up``, the reference's quantizer) no longer
+    raises: both paths match the JAX block on the same leaf."""
     w = {k: torch.from_numpy(v) for k, v in _weights(12).items()}
     x = torch.from_numpy(_x(13))
-    over = {}
     if case == "tkg_experts_local":
-        over["tkg_experts_local"] = True
-        match = "A13"
-    else:
-        w["expert_up"] = {"qweight": w["expert_up"].to(torch.int8),
-                          "scale": torch.ones(E, 1, I)}
-        match = "A11"
+        for dense_max in (64, 0):
+            with pytest.raises(ConfigurationError, match="A13"):
+                tmoe.moe_block(_spec(tmoe, dense_max_tokens=dense_max,
+                                     tkg_experts_local=True),
+                               x, w, phase="decode")
+        return
+    host = _weights(12)
+    host["expert_up"] = jq.quantize_tensor(host["expert_up"], jq.QuantSpec())
+    w["expert_up"] = {k: torch.from_numpy(np.asarray(v))
+                      for k, v in host["expert_up"].items()}
+    assert w["expert_up"]["qweight"].dtype == torch.int8
     for dense_max in (64, 0):
-        with pytest.raises(ConfigurationError, match=match):
-            tmoe.moe_block(_spec(tmoe, dense_max_tokens=dense_max, **over),
-                           x, w, phase="decode")
+        want = jmoe.moe_block(_spec(jmoe, dense_max_tokens=dense_max),
+                              jnp.asarray(x.numpy()),
+                              jax.tree.map(jnp.asarray, host),
+                              phase="decode")
+        got = tmoe.moe_block(_spec(tmoe, dense_max_tokens=dense_max), x, w,
+                             phase="decode")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **EXPERT_TOL)

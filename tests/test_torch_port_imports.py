@@ -31,7 +31,8 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.family", "models.qwen3", "models.qwen3.modeling_qwen3",
     "models.qwen3_moe", "models.qwen3_moe.modeling_qwen3_moe",
     "models.mixtral", "models.mixtral.modeling_mixtral", "models.gpt_oss",
-    "models.gpt_oss.modeling_gpt_oss", "modules.quantization", "ops.rope")]
+    "models.gpt_oss.modeling_gpt_oss", "modules.quantization", "ops.rope",
+    "modules.low_rank", "utils.checkpoint", "models.application")]
 
 
 def _port_modules():
