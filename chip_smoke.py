@@ -240,9 +240,37 @@ nvcc per source, all started together), then:
      63, MLP bytes against ``compression_report``), and at a 4-layer fp32
      cut full rank against the dense app (streams equal, logits within
      TOL_LOW_RANK_FULL_REL, the half-rank control parting).
+ 19. the dense group (Gemma-2, Gemma-3, Phi-4, Granite, OLMo-2, Qwen2),
+     random weights from seed 0: (a) the paged kernel at Gemma-2-27B's
+     heads (32 q / 16 kv of 128: GQA group 2), B 4, lens 300-7000, with
+     soft-cap 50 at window 4096 and 0, and the contiguous kernel over a
+     Gemma-2 mixed cache's global stack (S 8192, soft-cap 50), bf16, q
+     and keys drawn so most scores exceed the cap (the share is gated):
+     each against its twin, the kernel without its cap parting from the
+     capped twin, then timed beside the twin, SDPA without the cap and
+     the bytes bound; (b) Gemma-2-27B at full width and depth (54.45 GB
+     of bf16 weights, gated equal to the geometry's) on phase 9's engine
+     at batch 4, ``seq_len`` 8192, six requests of 37-6000 tokens (two
+     past the 4096 window), 48 new tokens: phase 9's gates (one dispatch
+     and one fetch a pass, paged launches = 46 x all-decode steps, no
+     incident, full streams), every local layer's launch at window 4096
+     and every global one's at 0, all at soft-cap 50, and every served
+     stream held to ``generate`` fed its tokens (each served token within
+     TOL_SERVED_DEFICIT_BF16 logit stds of the top logit, and within
+     TOL_SERVED_MEAN_DEFICIT_BF16 on average); (c) the same at
+     Gemma-3-27B's width cut to 12 layers (two 6-layer patterns: window
+     1024, the dual rope, the (1 + w) q/k norms, no cap), prompts past
+     1024; (d) fp32 (TF32 off) 4-layer cuts of all six geometries: the
+     paged kernel path against the gather path on the same weights and
+     tokens (logits within TOL_DENSE_PATHS_FP32_REL, argmax equal), the
+     ragged engine's streams equal ``generate``'s, then
+     ``TpuGemma2ForCausalLM`` at ``seq_len`` 8192 on a 5000-token prompt
+     (the mixed per-layer cache): contiguous-kernel launches = global
+     layers x decode steps at window 0 and soft-cap 50, the stream equal
+     to the uniform cache's.
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18 and the
-fp32 app of 6)
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19 and
+the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -251,8 +279,8 @@ Every line before the last is one JSON object; the last line is
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18) and then prints
-no ``ok`` line.
+own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19)
+and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -398,6 +426,96 @@ QUANT_LENS = (37, 120, 300, 500)       # 18 (d), (e): batch 4, bucket 512
 QUANT_CHECK_TOKENS = 16
 QUANT_BF16_TOKENS = 16                 # 18 (d): teacher-forced steps
 
+# Phase 19: the dense families. Geometries written from the published HF
+# config.json files (random weights from seed 0).
+# Gemma-2-27B (google/gemma-2-27b): 46 layers alternating sliding (window
+# 4096) and full attention from a sliding layer 0 (the file has no
+# layer_types: the family's default pattern of 2), 32 q / 16 kv heads of
+# 128 (G 2), query_pre_attn_scalar 144, soft-caps 50 (attention) and 30
+# (final logits), gelu-tanh, tied embeddings: 27.23 B parameters
+GEMMA2_27B = dict(
+    model_type="gemma2", hidden_size=4608, intermediate_size=36864,
+    num_hidden_layers=46, num_attention_heads=32, num_key_value_heads=16,
+    head_dim=128, vocab_size=256000, query_pre_attn_scalar=144,
+    sliding_window=4096, attn_logit_softcapping=50.0,
+    final_logit_softcapping=30.0, hidden_act="gelu_pytorch_tanh",
+    hidden_activation="gelu_pytorch_tanh", rms_norm_eps=1e-6,
+    rope_theta=10000.0, max_position_embeddings=8192,
+    tie_word_embeddings=True)
+# Gemma-3-27B, text (the text_config of google/gemma-3-27b-it, model_type
+# gemma3_text): 62 layers, 5 sliding (window 1024) to 1 full, 32 q / 16
+# kv heads of 128, query_pre_attn_scalar 168, the global layers' rope at
+# 1e6 linear x8, the local ones' at 1e4, per-head (1 + w) q/k norms, no
+# soft-caps, tied
+GEMMA3_27B = dict(
+    model_type="gemma3_text", hidden_size=5376, intermediate_size=21504,
+    num_hidden_layers=62, num_attention_heads=32, num_key_value_heads=16,
+    head_dim=128, vocab_size=262208, query_pre_attn_scalar=168,
+    sliding_window=1024, sliding_window_pattern=6, rope_theta=1000000.0,
+    rope_scaling={"rope_type": "linear", "factor": 8.0},
+    rope_local_base_freq=10000.0, final_logit_softcapping=None,
+    attn_logit_softcapping=None, hidden_activation="gelu_pytorch_tanh",
+    rms_norm_eps=1e-6, max_position_embeddings=131072,
+    tie_word_embeddings=True)
+# Phi-4 (microsoft/phi-4, model_type phi3): 40 layers, 40 q / 10 kv heads
+# of 128 (G 4), no rope scaling
+PHI_4 = dict(
+    model_type="phi3", hidden_size=5120, intermediate_size=17920,
+    num_hidden_layers=40, num_attention_heads=40, num_key_value_heads=10,
+    vocab_size=100352, rope_theta=250000.0, rms_norm_eps=1e-5,
+    max_position_embeddings=16384, original_max_position_embeddings=16384,
+    rope_scaling=None, hidden_act="silu", tie_word_embeddings=False)
+# Granite-3.1-8B-instruct (ibm-granite/granite-3.1-8b-instruct): 40
+# layers, 32 q / 8 kv heads of 128, IBM's multipliers, tied
+GRANITE_3_1_8B = dict(
+    model_type="granite", hidden_size=4096, intermediate_size=12800,
+    num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=8,
+    vocab_size=49155, embedding_multiplier=12.0,
+    attention_multiplier=0.0078125, residual_multiplier=0.22,
+    logits_scaling=16.0, rope_theta=10000000.0, rms_norm_eps=1e-5,
+    max_position_embeddings=131072, attention_bias=False,
+    hidden_act="silu", tie_word_embeddings=True)
+# OLMo-2-1124-7B (allenai/OLMo-2-1124-7B): 32 layers, 32 q / 32 kv heads
+# of 128 (G 1), post-norm with full-width q/k norms
+OLMO2_7B = dict(
+    model_type="olmo2", hidden_size=4096, intermediate_size=11008,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+    vocab_size=100352, rope_theta=500000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=4096, attention_bias=False, hidden_act="silu",
+    tie_word_embeddings=False)
+# Qwen2.5-7B (Qwen/Qwen2.5-7B): 28 layers, 28 q / 4 kv heads of 128 (G 7),
+# q/k/v biases, no sliding window
+QWEN2_5_7B = dict(
+    model_type="qwen2", hidden_size=3584, intermediate_size=18944,
+    num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+    vocab_size=152064, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    max_position_embeddings=131072, use_sliding_window=False,
+    sliding_window=131072, max_window_layers=28, hidden_act="silu",
+    tie_word_embeddings=False)
+DENSE_GEOMETRIES = {"gemma2_27b": GEMMA2_27B, "gemma3_27b": GEMMA3_27B,
+                    "phi_4": PHI_4, "granite_3_1_8b": GRANITE_3_1_8B,
+                    "olmo2_7b": OLMO2_7B, "qwen2_5_7b": QWEN2_5_7B}
+# 19 (b): batch 4, 8192 slots a row, six requests, two past the 4096 window
+DENSE_SERVE = dict(lens=(37, 300, 1500, 4500, 6000, 900), seq_len=8192,
+                   chunk=512, block=32)
+# 19 (c): Gemma-3-27B cut to two 6-layer patterns, prompts past 1024
+GEMMA3_CUT = 12
+GEMMA3_SERVE = dict(lens=(37, 300, 1500, 2500, 1100, 640), seq_len=4096,
+                    chunk=512, block=32)
+# 19 (a): the kernels' rows; q and keys at this std put |scores| mostly
+#   above the cap: at scale 144 ** -0.5 a score is N(0, (0.94 x 12^2)^2),
+#   |s| > 50 for ~70% of the keys (gate: more than DENSE_CAPPED_SHARE)
+DENSE_KERNEL_LENS = (300, 2100, 4500, 7000)
+DENSE_QK_STD = 12.0
+DENSE_CAPPED_SHARE = 0.5
+# 19 (d): the fp32 cuts (batch 4, bucket 512) and the Gemma-2 contiguous
+#   app past its window
+DENSE_CHECK_LAYERS = 4
+DENSE_CHECK = dict(lens=(37, 120, 300, 500), seq_len=2048, chunk=512,
+                   block=32)
+DENSE_CHECK_TOKENS = 16
+GEMMA2_LONG = dict(seq_len=8192, len=5000, new_tokens=16)
+
 # Tolerances, with their reasons:
 # kernel vs twin, bf16 out: both accumulate in fp32 and round the output
 #   to bf16 once; one bf16 ulp at |o| < 2 is <= 7.8e-3.
@@ -535,6 +653,32 @@ TOL_QUANT_TWIN_REL = 1e-4
 #   logits after 4 layers; 1e-3 leaves 100x, while the same factors cut to
 #   half rank (the control) drop half the spectrum (~0.5).
 TOL_LOW_RANK_FULL_REL = 1e-3
+# 19 (b), (c) a served bf16 stream against ``generate`` on the same app
+#   and weights, fed the served tokens, in units of the step's logit std
+#   over the vocabulary: the two batch rows differently (the engine mixes
+#   prefill chunks and decode rows in one GEMM; generate runs rows
+#   together), so bf16 rounding at full depth moves each logit by a
+#   fraction of a std (phase 16's layout readings: relative RMS
+#   0.04-0.19), and the served token may then sit below generate's top
+#   logit by about that much where the two were close; a decode row
+#   that rides a mixed pass also takes the gather path (probabilities
+#   rounded to bf16) where generate's takes the kernel. A token the served
+#   path chose wrongly (a wrong window, cap, rotation or norm) sits near
+#   the random-token deficit, ~4.5 stds below the top of a 256K
+#   vocabulary (the control, the next token id, reads it in each run).
+#   Measured on Gemma-2-27B (NVIDIA H100 80GB HBM3, 700 W, 284 tokens):
+#   max 1.68 stds, mean 0.10, argmax equal at 82% of the steps; control
+#   mean 4.92. Each limit sits near the geometric mean of the reading and
+#   the control: the worst token within 2.5 stds, the mean within 0.7.
+TOL_SERVED_DEFICIT_BF16 = 2.5
+TOL_SERVED_MEAN_DEFICIT_BF16 = 0.7
+# 19 (d) the fp32 (TF32 off) cuts, kernel path against gather path on the
+#   same weights and tokens: the paged kernel sums the same fp32 products
+#   in another order (split-K online softmax against one softmax), ~1e-6
+#   relative after 4 layers; 1e-4 relative RMS of the decode logits
+#   leaves 100x, while a cap, window or rotation the kernel path dropped
+#   moves them by whole percents.
+TOL_DENSE_PATHS_FP32_REL = 1e-4
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1293,10 +1437,11 @@ def sdpa_window_inputs(inputs, layer, window, sink):
     """The paged attention with a window and a sink for
     ``scaled_dot_product_attention``: each row's keys inside its window
     (all of them when ``window`` is 0) pre-gathered from the pages, the
-    active token last, left-padded to the longest row, then one zero key
-    and zero value column whose additive float mask is the head's sink
-    logit (it joins the denominator only). Returns (q (B, Hq, 1, D), k, v
-    (B, Hkv, n + 1, D), mask (B, Hq, 1, n + 1))."""
+    active token last, left-padded to the longest row, then (with a
+    ``sink``; None: no column) one zero key and zero value column whose
+    additive float mask is the head's sink logit (it joins the denominator
+    only). Returns (q (B, Hq, 1, D), k, v (B, Hkv, n + 1, D), mask (B, Hq,
+    1, n + 1)), n + 1 -> n without a sink."""
     import torch
     kp, vp, table = inputs["k_pages"], inputs["v_pages"], inputs[
         "block_table"]
@@ -1317,12 +1462,15 @@ def sdpa_window_inputs(inputs, layer, window, sink):
     v = vp[layer][page, slot % bs].to(q.dtype)
     k[:, -1] = inputs["new_k"]
     v[:, -1] = inputs["new_v"]
-    zero = torch.zeros((b, 1, hkv, d), dtype=q.dtype, device=q.device)
+    extra = 0 if sink is None else 1
+    zero = torch.zeros((b, extra, hkv, d), dtype=q.dtype, device=q.device)
     k = torch.cat([k, zero], 1).transpose(1, 2).contiguous()
     v = torch.cat([v, zero], 1).transpose(1, 2).contiguous()
-    mask = torch.zeros((b, hq, 1, n + 1), dtype=q.dtype, device=q.device)
+    mask = torch.zeros((b, hq, 1, n + extra), dtype=q.dtype,
+                       device=q.device)
     mask[..., :n].masked_fill_(~valid[:, None, None, :], float("-inf"))
-    mask[..., n] = sink.to(q.dtype)[None, :, None]
+    if sink is not None:
+        mask[..., n] = sink.to(q.dtype)[None, :, None]
     return q[:, :, None, :], k, v, mask
 
 
@@ -1430,11 +1578,12 @@ def phase_timings(hf, device, app, ids, mask, launches):
 
 def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
     """The paged kernel over ``app``'s own cache and block ``table`` at
-    lens ``pos`` (``layer``, default the last, with that layer's window
-    and sink; random q and active token): held to its twin, then timed by
-    CUDA-graph replay beside the twin, SDPA over the pre-gathered KV (with
-    the window and the sink column where the layer has them) and the
-    bound."""
+    lens ``pos`` (``layer``, default the last, with that layer's window,
+    sink and attention soft-cap; random q and active token): held to its
+    twin, then timed by CUDA-graph replay beside the twin, SDPA over the
+    pre-gathered KV (with the window and the sink column where the layer
+    has them; no library call takes the soft-cap, so SDPA runs without
+    it) and the bound."""
     import torch
     import torch.nn.functional as F
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention
@@ -1460,12 +1609,18 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
         kw.update(window=window, sink=sink)
     if spec.kv_scale is not None:
         kw.update(kv_scale=spec.kv_scale)
+    if spec.attn_soft_cap is not None:
+        kw.update(soft_cap=spec.attn_soft_cap)
     err = check_kernel_against_twin(dict(inputs), dict(kw, layer=layer))
-    if not err <= TOL_KERNEL_BF16:
-        raise AssertionError(f"kernel at main-path shapes: {err}")
     args = (inputs["q"], inputs["k_pages"], inputs["v_pages"],
             inputs["new_k"], inputs["new_v"], layer, inputs["lens"],
             inputs["block_table"])
+    # one bf16 ulp of the largest output where the served values exceed
+    # 2 (Gemma's (1 + w) norms double them), else TOL_KERNEL_BF16
+    tol = max(TOL_KERNEL_BF16, tol_decode_bf16(
+        decode_attention.paged_decode_attention_plain(*args, **kw)))
+    if not err <= tol:
+        raise AssertionError(f"kernel at main-path shapes: {err} > {tol}")
     kernel_ms = time_cuda(
         lambda: decode_attention.paged_decode_attention(*args, **kw))
     kernel_eager_ms = time_eager(
@@ -1478,7 +1633,7 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
     plain = dict(inputs, **{n: dequantized_pages(inputs[n], layer,
                                                  spec.kv_scale)
                             for n in ("k_pages", "v_pages")})
-    if sink is not None:
+    if window or sink is not None:
         q4, k4, v4, m4 = sdpa_window_inputs(plain, layer, window, sink)
     else:
         q4, k4, v4, m4 = sdpa_inputs(plain, layer)
@@ -1495,11 +1650,12 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
                     b, spec.num_kv_heads, int(table.shape[1]), bs,
                     spec.head_dim),
                 "plain_us": plain_ms * 1e3, "library_us": library_ms * 1e3,
-                "max_abs_err": err, "kernel_shape": {
+                "max_abs_err": err, "tol": tol, "kernel_shape": {
                     "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
                     "D": spec.head_dim, "Bs": bs, "lens": list(pos),
                     "table_width": int(table.shape[1]), "layer": layer,
-                    "window": window, "sink": sink is not None}}}
+                    "window": window, "sink": sink is not None,
+                    "soft_cap": spec.attn_soft_cap}}}
 
 
 def dequantized_pages(pages, layer, kv_scale):
@@ -2019,16 +2175,18 @@ def profile_summary(recs, kind):
 def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                          on_card=True, phase="ragged_serving",
                          fp32_gemm_ms=0.0, before_pass=None,
-                         kernel_layers=(-1,), tcfg_over=None):
+                         kernel_layers=(-1,), tcfg_over=None, after=None):
     """Phase 9 (and 14 (c) as ``phase="moe_serving"``, 15 (b) as
     ``"oss_serving"``): the ragged engine at full width and depth, bf16.
     ``fp32_gemm_ms``: the fp32 GEMM time a traced mixed pass may take (0
     for a dense model; the MoE router is fp32 by design);
     ``before_pass(p)`` runs before pass ``p``; ``kernel_layers``: the
     layers at which the paged kernel is timed over the served cache (one
-    kernel entry each); ``tcfg_over``: more TpuConfig fields (phase 18's
-    quantized weights and fp8 cache). Returns (app, prompts, kernel
-    entries, per-pass records)."""
+    kernel entry each); ``tcfg_over``: more make_ragged_app arguments
+    (phase 18's quantized weights and fp8 cache, phase 19's batch);
+    ``after(app, prompts, streams)`` runs last (phase 19's check of the
+    streams against ``generate``). Returns (app, prompts, kernel entries,
+    per-pass records)."""
     import numpy as np
     import torch
     app = make_ragged_app(hf, device, "bfloat16", cfg, **(tcfg_over or {}))
@@ -2048,8 +2206,9 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     def snapshot():
         if before_pass is not None:
             before_pass(next(passes))
-        # the served cache's decode shapes, while all 8 rows are live
-        if len(ad.seqs) == len(prompts) and not ad.pending_prefill_ids:
+        # the served cache's decode shapes, while every row is live
+        full = min(len(prompts), app.tpu_config.batch_size)
+        if len(ad.seqs) == full and not ad.pending_prefill_ids:
             live = sorted(ad.seqs)
             snap["table"] = app.kv_mgr.block_table_array(
                 live, app._bt_width_for(live))
@@ -2106,15 +2265,15 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
         raise AssertionError(f"{phase}: the mixed pass runs fp32 x fp32 "
                              f"GEMMs {fp32_gemms} (allowed: {fp32_gemm_ms} "
                              "ms)")
-    if not on_card:
-        return app, prompts, [], recs
     entries = []
-    for layer in kernel_layers:
+    for layer in kernel_layers if on_card else ():
         t = time_paged_kernel(app, snap["table"], snap["pos"], device,
                               seed=9, layer=layer % layers)
         emit({"phase": phase + "_kernel_timings", **t["report"],
               "launches": launches})
         entries.append(paged_kernel_entry(t, launches, phase))
+    if after is not None:
+        after(app, prompts, streams)
     return app, prompts, entries, recs
 
 
@@ -3672,9 +3831,9 @@ class PagedArgsSpy:
     """The distinct (layer, window, sink given) of the paged kernel's
     launches while it is active, eager launches and launches recorded into
     a CUDA graph alike (a replay repeats what its capture recorded); on
-    the CPU, of its plain twin's calls. It listens where the wrapper hands
-    its arguments to the launch, so the wrapper and its counts stay as
-    they are."""
+    the CPU, of its plain twin's calls; and in ``caps`` the distinct
+    (layer, soft-cap). It listens where the wrapper hands its arguments to
+    the launch, so the wrapper and its counts stay as they are."""
 
     WRAPPER = "paged_decode_attention"
     # the launch's int arguments: [b, layer, pages, bs, hkv, g, d, mb,
@@ -3690,17 +3849,20 @@ class PagedArgsSpy:
         self._plain = getattr(da, self._plain_name)
         wrapper = getattr(da, self.WRAPPER)
         self.calls = set()
+        self.caps = set()
 
         def split_k(wrapper_, fn, q, hkv, splits, ptrs, ints, sink, *a, **k):
             if wrapper_ is wrapper:
                 self.calls.add((ints[self.LAYER], ints[self.WINDOW],
                                 sink is not None))
+                self.caps.add((ints[self.LAYER], k.get("soft_cap")))
             return self._split_k(wrapper_, fn, q, hkv, splits, ptrs, ints,
                                  sink, *a, **k)
 
         def plain(*a, **k):
             self.calls.add((int(a[5]), int(k.get("window", 0)),
                             k.get("sink") is not None))
+            self.caps.add((int(a[5]), k.get("soft_cap")))
             return self._plain(*a, **k)
         da._split_k = split_k
         setattr(da, self._plain_name, plain)
@@ -3954,19 +4116,24 @@ def cache_bytes(app):
     return sum(t.numel() * t.element_size() for t in app.cache.values())
 
 
-def make_oss_app(hf, device, dtype, *, batch, seq_len, cb=False,
-                 output_logits=False, **spec):
-    """``TpuGptOssForCausalLM`` (the contiguous app; the mixed per-layer
-    cache above ``sliding_window``), its cache made after ``spec``'s
-    fields replace the spec's (``mixed_kv=False``: the uniform cache)."""
+def make_pattern_app(hf, device, dtype, *, batch, seq_len, cb=False,
+                     output_logits=False, **spec):
+    """The family's contiguous entry point, ``TpuGptOssForCausalLM`` or
+    ``TpuGemma2ForCausalLM`` (the mixed per-layer cache above
+    ``sliding_window``), its cache made after ``spec``'s fields replace
+    the spec's (``mixed_kv=False``: the uniform cache)."""
     import dataclasses
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.family import \
         get_family
+    from neuronx_distributed_inference_tpu_torch.models.gemma2 import \
+        TpuGemma2ForCausalLM
     from neuronx_distributed_inference_tpu_torch.models.gpt_oss import \
         TpuGptOssForCausalLM
-    cls = get_family("gpt_oss").config_cls
-    app = TpuGptOssForCausalLM(None, cls(TpuConfig(
+    entry = {"gpt_oss": TpuGptOssForCausalLM,
+             "gemma2": TpuGemma2ForCausalLM}[hf["model_type"]]
+    cls = get_family(hf["model_type"]).config_cls
+    app = entry(None, cls(TpuConfig(
         batch_size=batch, seq_len=seq_len, dtype=dtype,
         is_continuous_batching=cb, output_logits=output_logits), **hf),
         device=device)
@@ -4070,8 +4237,8 @@ def phase_long_oss(hf, device):
     cfg = OSS_LONG
     lens, new = cfg["lens"], cfg["new_tokens"]
     n_global = n_global_layers(hf)
-    app = make_oss_app(hf, device, "bfloat16", batch=len(lens),
-                       seq_len=cfg["seq_len"])
+    app = make_pattern_app(hf, device, "bfloat16", batch=len(lens),
+                           seq_len=cfg["seq_len"])
     if not (app.spec.mixed_kv and set(app.cache) == {"k", "v", "k_l",
                                                        "v_l"}):
         raise AssertionError("long_oss: the app did not take the mixed "
@@ -4118,8 +4285,8 @@ def phase_long_oss(hf, device):
           "decode_ms_per_step_batch4": step,
           "prompt_lens": list(lens), "ctx_bucket": 2048})
     memory_note("long_oss")
-    uni = make_oss_app(hf, device, "bfloat16", batch=len(lens),
-                       seq_len=cfg["seq_len"], mixed_kv=False)
+    uni = make_pattern_app(hf, device, "bfloat16", batch=len(lens),
+                           seq_len=cfg["seq_len"], mixed_kv=False)
     uni.params = app.params
     ref = uni.generate(ids, attention_mask=mask,
                        max_new_tokens=new)["generated"]
@@ -4133,9 +4300,9 @@ def phase_long_oss(hf, device):
     def build(kind):
         spec = {"layout": {}, "full": dict(mixed_kv=False),
                 "control": dict(mixed_kv=False, sliding_window=0)}[kind]
-        a = make_oss_app(hf, device, "bfloat16", batch=len(lens),
-                         seq_len=cfg["seq_len"], output_logits=True,
-                         decode_kernel=False, **spec)
+        a = make_pattern_app(hf, device, "bfloat16", batch=len(lens),
+                             seq_len=cfg["seq_len"], output_logits=True,
+                             decode_kernel=False, **spec)
         a.params = app.params
         return a
     layout_gate("long_oss_logits_vs_uniform", build, ids, mask, gen)
@@ -4200,8 +4367,8 @@ def phase_long_oss_serving(hf, device, app):
     import numpy as np
     import torch
     lens, new = RAGGED["lens"], RAGGED_TOKENS
-    cb = make_oss_app(hf, device, "bfloat16", batch=len(OSS_LONG["lens"]),
-                      seq_len=OSS_LONG["seq_len"], cb=True)
+    cb = make_pattern_app(hf, device, "bfloat16", batch=len(OSS_LONG["lens"]),
+                          seq_len=OSS_LONG["seq_len"], cb=True)
     cb.params = app.params
     warm(cb, "long_oss_cb")
     from neuronx_distributed_inference_tpu_torch.serving import \
@@ -4483,14 +4650,14 @@ def _phase_long_fp32(device):
     lens, seq = OSS_LONG["lens"], OSS_LONG["seq_len"]
     b = len(lens)
     ids, mask = prompts_of(lens, hf["vocab_size"], seed=16)
-    mix = make_oss_app(hf, device, "float32", batch=b, seq_len=seq)
+    mix = make_pattern_app(hf, device, "float32", batch=b, seq_len=seq)
     init_weights(mix, 0)
     got = mix.generate(ids, attention_mask=mask,
                        max_new_tokens=new)["generated"]
 
     def oss_ref(**kw):
-        ref = make_oss_app(hf, device, "float32", batch=b, seq_len=seq,
-                           **kw)
+        ref = make_pattern_app(hf, device, "float32", batch=b, seq_len=seq,
+                               **kw)
         ref.params = mix.params
         return ref
     want = oss_ref(mixed_kv=False).generate(
@@ -5624,8 +5791,502 @@ def phase_quant(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dense families (Gemma-2, Gemma-3, Phi-3/4, Granite, OLMo-2,
+# Qwen2) and the soft-capped attention
+# ---------------------------------------------------------------------------
+
+def dense_layer_types(hf):
+    """A geometry's ``layer_types``, else every ``sliding_window_pattern``
+    -th layer full (the Gemma families' default: 2 for Gemma-2, 6 for
+    Gemma-3); None for a uniform geometry."""
+    if "layer_types" in hf:
+        return list(hf["layer_types"])
+    if not hf["model_type"].startswith("gemma"):
+        return None
+    every = hf.get("sliding_window_pattern",
+                   2 if hf["model_type"] == "gemma2" else 6)
+    return ["sliding_attention" if (i + 1) % every else "full_attention"
+            for i in range(hf["num_hidden_layers"])]
+
+
+def dense_cut(hf, layers):
+    """``hf`` cut to ``layers`` layers: the first ones with their types,
+    or, where those hold no global layer (Gemma-3's first five are local),
+    the ``layers`` ending at the first global one."""
+    cut = dict(hf, num_hidden_layers=layers)
+    types = dense_layer_types(hf)
+    if types is None:
+        return cut
+    end = (layers if "full_attention" in types[:layers]
+           else types.index("full_attention") + 1)
+    cut["layer_types"] = types[end - layers:end]
+    return cut
+
+
+def phase_dense_kernels(device):
+    with fp32_exact():
+        return _phase_dense_kernels(device)
+
+
+def masked_scores(q4, k4, mask, scale):
+    """fp32 scores of the live keys: q4 (B, Hq, 1, D), k4 (B, Hkv, n, D),
+    ``mask`` boolean (True = live) or additive (0 = live), broadcast over
+    (B, Hq, 1, n)."""
+    import torch
+    g = q4.shape[1] // k4.shape[1]
+    k = k4.float().repeat_interleave(g, dim=1)
+    sc = (q4.float() @ k.transpose(-1, -2)) * scale
+    live = mask if mask.dtype == torch.bool else mask == 0
+    return sc[live.expand_as(sc)]
+
+
+def _phase_dense_kernels(device):
+    """19 (a): the paged kernel at Gemma-2-27B's heads (Hq 32 over Hkv
+    16: G 2, D 128, scale 144 ** -0.5), B 4, lens 300-7000, soft-cap 50 at
+    window 4096 (a local layer) and 0 (a global one), and the contiguous
+    kernel over a Gemma-2 mixed cache's global stack (S 8192, window 0,
+    soft-cap 50), bf16. q and keys are drawn at DENSE_QK_STD, so most
+    scores exceed the cap (the share is printed and gated). Each kernel is
+    held to its twin with the cap; the kernel without its cap (the
+    control) must part from the capped twin by more than the tolerance.
+    Then each is timed by CUDA-graph replay beside the twin, SDPA without
+    the cap (no library call computes it: a yardstick of the attention's
+    work, not of the function) and the bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    cfg = GEMMA2_27B
+    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    d = cfg["head_dim"]
+    scale = cfg["query_pre_attn_scalar"] ** -0.5
+    cap = cfg["attn_logit_softcapping"]
+    lens = list(DENSE_KERNEL_LENS)
+    b = len(lens)
+    gen = torch.Generator(device=device).manual_seed(19)
+    mb = -(-(max(lens) + 1) // 32)
+    x = paged_inputs(gen, device, b=b, hq=hq, hkv=hkv, d=d, bs=32, mb=mb,
+                     lens=lens, act_dtype=torch.bfloat16,
+                     page_dtype=torch.bfloat16)
+    for name in ("q", "k_pages", "new_k"):
+        x[name] = (x[name].float() * DENSE_QK_STD).to(torch.bfloat16)
+    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+            x["lens"], x["block_table"])
+    out = {}
+    for window in (cfg["sliding_window"], 0):
+        kw = dict(scale=scale, window=window, soft_cap=cap)
+        err = check_kernel_against_twin(x, kw)
+        twin = decode_attention.paged_decode_attention_plain(*args, **kw)
+        nocap = decode_attention.paged_decode_attention(
+            *args, **dict(kw, soft_cap=None))
+        control = float((nocap.float() - twin.float()).abs().max())
+        q4, k4, v4, m4 = sdpa_window_inputs(x, 0, window, None)
+        share = float((masked_scores(q4, k4, m4, scale).abs() > cap)
+                      .float().mean())
+        case = f"gemma2_27b_window{window}_softcap{cap:g}"
+        emit({"phase": "dense_kernel_vs_twin",
+              "kernel": "paged_decode_attention", "case": case,
+              "geometry": {"Hq": hq, "Hkv": hkv, "D": d}, "lens": lens,
+              "max_abs_err": err, "tol": TOL_KERNEL_BF16,
+              "nocap_vs_capped_twin": control,
+              "capped_score_share": share})
+        if not err <= TOL_KERNEL_BF16:
+            raise AssertionError(f"paged kernel {case}: max abs err {err}")
+        if not control > TOL_KERNEL_BF16:
+            raise AssertionError(f"paged kernel {case}: the uncapped "
+                                 f"kernel stays within {control} of the "
+                                 "capped twin: the cap never bites")
+        if not share > DENSE_CAPPED_SHARE:
+            raise AssertionError(f"{case}: only {share} of the scores "
+                                 f"exceed the cap {cap}")
+        out[("paged", window)] = timed_kernel(
+            lambda: decode_attention.paged_decode_attention(*args, **kw),
+            lambda: decode_attention.paged_decode_attention_plain(
+                *args, **kw),
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+            kernel_bounds(x, window), err,
+            {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "Bs": 32, "lens": lens,
+             "window": window, "soft_cap": cap})
+        del twin, nocap, q4, k4, v4, m4
+    del x, args
+    n_global = dense_layer_types(cfg).count("full_attention")
+    c = contiguous_inputs(gen, device, b=b, hq=hq, hkv=hkv, d=d,
+                          s=cfg["max_position_embeddings"], lens=lens,
+                          layers=2, act_dtype=torch.bfloat16,
+                          cache_dtype=torch.bfloat16)
+    for name in ("q", "k_cache", "new_k"):
+        c[name] = (c[name].float() * DENSE_QK_STD).to(torch.bfloat16)
+    kw = dict(scale=scale, window=0, soft_cap=cap, layer=1)
+    err = check_decode_against_twin(c, kw)
+    dargs, dkw = decode_args(c, kw)
+    twin = decode_attention.decode_attention_stacked_plain(*dargs, **dkw)
+    nocap = decode_attention.decode_attention_stacked(
+        *dargs, **dict(dkw, soft_cap=None))
+    control = float((nocap.float() - twin.float()).abs().max())
+    q4, k4, v4, m4 = contiguous_sdpa_inputs(c, 1)
+    share = float((masked_scores(q4, k4, m4, scale).abs() > cap)
+                  .float().mean())
+    emit({"phase": "dense_kernel_vs_twin",
+          "kernel": "decode_attention_stacked",
+          "case": f"gemma2_27b_global_stack_softcap{cap:g}",
+          "geometry": {"Hq": hq, "Hkv": hkv, "D": d,
+                       "S": cfg["max_position_embeddings"],
+                       "global_layers": n_global}, "lens": lens,
+          "max_abs_err": err, "tol": TOL_KERNEL_BF16,
+          "nocap_vs_capped_twin": control, "capped_score_share": share})
+    if not err <= TOL_KERNEL_BF16:
+        raise AssertionError(f"contiguous kernel with a cap: {err}")
+    if not (control > TOL_KERNEL_BF16 and share > DENSE_CAPPED_SHARE):
+        raise AssertionError(f"contiguous kernel: the cap does not bite "
+                             f"({control}, share {share})")
+    out[("contig", 0)] = timed_kernel(
+        lambda: decode_attention.decode_attention_stacked(*dargs, **dkw),
+        lambda: decode_attention.decode_attention_stacked_plain(*dargs,
+                                                                **dkw),
+        lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+        decode_bounds(c), err,
+        {"B": b, "Hq": hq, "Hkv": hkv, "D": d,
+         "S": cfg["max_position_embeddings"], "lens": lens, "layer": 1,
+         "window": 0, "soft_cap": cap})
+    del c, twin, nocap, q4, k4, v4, m4
+    for (kind, window), t in out.items():
+        emit({"phase": "dense_kernel_timings",
+              "kernel": ("paged_decode_attention" if kind == "paged"
+                         else "decode_attention_stacked"),
+              "window": window, "kernel_us": t["ms"] * 1e3,
+              "bound_us": t["bound_ms"] * 1e3, "bound_by": t["bound_by"],
+              "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3,
+              "library": "SDPA without the soft-cap",
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    # comparison launches are not main-path launches
+    reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dense_args(phase, spy, hf):
+    """Gate: every layer's paged-kernel launches took that layer's window
+    (the sliding window on local layers, 0 on global ones; the window on
+    every layer of a uniform model), no sink, and the geometry's
+    attention soft-cap."""
+    types = dense_layer_types(hf)
+    window = hf.get("sliding_window") or 0
+    n = hf["num_hidden_layers"]
+    cap = hf.get("attn_logit_softcapping")
+    want = {(i, (window if types[i] == "sliding_attention" else 0)
+             if types else 0, False) for i in range(n)}
+    want_caps = {(i, cap) for i in range(n)}
+    by_kind = {}
+    for i, w, _ in spy.calls:
+        key = f"window{w}_softcap{cap}"
+        by_kind[key] = by_kind.get(key, 0) + 1
+    emit({"phase": phase + "_kernel_args", "layers_by_args": by_kind,
+          "calls": sorted(spy.calls)[:8], "caps": sorted(spy.caps)[:4]})
+    if spy.calls != want or spy.caps != want_caps:
+        raise AssertionError(
+            f"{phase}: paged kernel calls by (layer, window, sink) "
+            f"{sorted(spy.calls ^ want)[:4]}, by (layer, soft-cap) "
+            f"{sorted(spy.caps ^ want_caps)[:4]}")
+
+
+def served_vs_generate(phase, chunk):
+    """``after`` of :func:`phase_ragged_serving`: each served stream held
+    to ``generate`` of its prompt on the same app and weights, from a cold
+    cache (no prefix reused), in batches of the app's rows, prefill in
+    chunks of ``chunk`` as the engine's, fed the served tokens (teacher
+    forcing). Gate: at every step the served token's logit is within
+    TOL_SERVED_DEFICIT_BF16 logit stds of the top logit, and within
+    TOL_SERVED_MEAN_DEFICIT_BF16 on average; the control, the token one id
+    further, must sit beyond the first at most steps."""
+    import numpy as np
+
+    def check(app, prompts, streams):
+        # the served cache goes first: two caches do not fit beside the
+        # weights
+        app.cache = None
+        if app.device.type == "cuda":
+            free_card()
+        app.init_cache()
+        rows = app.tpu_config.batch_size
+        served = [np.asarray(st.tokens) for st in streams]
+        deficits, controls, exact, per = [], [], 0, []
+        for lo in range(0, len(prompts), rows):
+            part = list(range(lo, min(lo + rows, len(prompts))))
+            width = max(len(prompts[i]) for i in part)
+            ids = np.zeros((len(part), width), np.int64)
+            mask = np.zeros_like(ids)
+            for r, i in enumerate(part):
+                ids[r, :len(prompts[i])] = prompts[i]
+                mask[r, :len(prompts[i])] = 1
+            want = np.stack([served[i] for i in part])
+            lg = app.generate(ids, attention_mask=mask,
+                              max_new_tokens=want.shape[1],
+                              return_logits=True,
+                              teacher_tokens=want[:, :-1])["logits"]
+            # the prefill's logits are its last chunk's: a row whose
+            # prompt ended in an earlier chunk has none for step 0
+            last = ((width - 1) // chunk) * chunk if width > chunk else 0
+            for r, i in enumerate(part):
+                first = len(deficits)
+                for j in range(want.shape[1]):
+                    at = len(prompts[i]) - 1 - last
+                    if j == 0 and at < 0:
+                        continue
+                    row = (lg[0][r, at] if j == 0
+                           else lg[j][r, 0]).astype(np.float64)
+                    row = row[:app.spec.vocab_size]
+                    top, std = row.max(), row.std()
+                    deficits.append(float(top - row[want[r, j]]) / std)
+                    controls.append(float(
+                        top - row[(want[r, j] + 1) % row.shape[0]]) / std)
+                    exact += int(np.argmax(row) == want[r, j])
+                mine = deficits[first:]
+                per.append({"prompt_len": len(prompts[i]),
+                            "max_deficit": max(mine),
+                            "mean_deficit": float(np.mean(mine)),
+                            "steps_over_0.5": int(np.sum(
+                                np.asarray(mine) > 0.5))})
+            app.release()
+        worst, mean = max(deficits), float(np.mean(deficits))
+        far = float(np.mean(np.asarray(controls)
+                            > TOL_SERVED_DEFICIT_BF16))
+        emit({"phase": phase + "_vs_generate", "tokens": len(deficits),
+              "argmax_equal": exact, "max_deficit": worst,
+              "mean_deficit": mean, "bound": TOL_SERVED_DEFICIT_BF16,
+              "mean_bound": TOL_SERVED_MEAN_DEFICIT_BF16,
+              "control_share_beyond_bound": far,
+              "control_mean_deficit": float(np.mean(controls)),
+              "by_request": per})
+        if not (worst <= TOL_SERVED_DEFICIT_BF16
+                and mean <= TOL_SERVED_MEAN_DEFICIT_BF16):
+            raise AssertionError(f"{phase}: served tokens sit up to {worst}"
+                                 f" (mean {mean}) logit stds below "
+                                 "generate's top logit")
+        if not far > 0.5:
+            raise AssertionError(f"{phase}: the control sits within the "
+                                 f"bound at {1 - far:.2f} of the steps")
+    return check
+
+
+def phase_dense_serving(hf, device, cfg, phase, kernel_layers):
+    """19 (b), (c): ``hf`` at full width on phase 9's engine and schedule,
+    bf16, batch 4, with ``cfg``'s seq_len, prompts and chunk, the app
+    built with output logits and ``generate``'s prefill chunked as the
+    engine's (``served_vs_generate``). Gates: phase 9's (one dispatch and
+    one fetch a pass, paged launches = layers x all-decode steps, no
+    incident, full streams), weight bytes equal the geometry's, every
+    launch at its layer's window and soft-cap, the streams held to
+    ``generate``. Returns the kernels-line entries (the paged kernel over
+    the served cache at ``kernel_layers``)."""
+    from neuronx_distributed_inference_tpu_torch.config import \
+        ChunkedPrefillConfig
+    on_card = device.type == "cuda"
+    if on_card:
+        check_card_empty(phase)
+    with PagedArgsSpy() as spy:
+        app, _, entries, recs = phase_ragged_serving(
+            hf, device, cfg=cfg, phase=phase, kernel_layers=kernel_layers,
+            on_card=on_card,
+            tcfg_over=dict(batch=4, output_logits=True,
+                           is_chunked_prefill=True,
+                           chunked_prefill_config=ChunkedPrefillConfig(
+                               kernel_q_tile_size=cfg["chunk"])),
+            after=served_vs_generate(phase, cfg["chunk"]))
+    check_dense_args(phase, spy, hf)
+    emit({"phase": phase + "_bytes",
+          "weight_gb": param_bytes(app.params) / 1e9,
+          "cache_gb": cache_bytes(app) / 1e9})
+    del app
+    if on_card:
+        memory_note(phase)
+        free_card()
+    return entries
+
+
+def dense_fp32_cut(name, hf, device):
+    """19 (d), one geometry cut to DENSE_CHECK_LAYERS layers, fp32: the
+    paged app's ``generate`` on the kernel path (paged launches = layers
+    x decode steps) against the same weights on the gather path
+    (``attn_block_tkg_kernel_enabled=False``) fed the kernel path's tokens:
+    relative RMS of the decode logits within TOL_DENSE_PATHS_FP32_REL and
+    the gather path's argmax equal to the kernel path's tokens (a near-tie
+    only, printed); then the ragged engine's streams on the kernel app
+    equal ``generate``'s."""
+    import numpy as np
+    import torch
+    cfg = DENSE_CHECK
+    new = DENSE_CHECK_TOKENS
+    layers = hf["num_hidden_layers"]
+    on_card = device.type == "cuda"
+    ids, mask = prompts_of(cfg["lens"], hf["vocab_size"], seed=19)
+    kapp = make_ragged_app(hf, device, "float32", cfg, batch=len(cfg["lens"]),
+                           output_logits=True, graphs=False)
+    init_weights(kapp, 0)
+    reset_launches([kapp])
+    out = kapp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                        return_logits=True)
+    launches = kernel_counts([kapp])["paged_decode_attention"]
+    want_launches = layers * (new - 1) if on_card else 0
+    toks = np.asarray(out["generated"])
+    gapp = make_ragged_app(hf, device, "float32", cfg,
+                           batch=len(cfg["lens"]), output_logits=True,
+                           graphs=False, kernel=False)
+    gapp.params = kapp.params
+    ref = gapp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                        return_logits=True, teacher_tokens=toks[:, :-1])
+    del gapp
+    lens = mask.sum(axis=1)
+
+    def logit_at(i, j, lg=ref["logits"]):
+        return lg[0][i, lens[i] - 1] if j == 0 else lg[j][i, 0]
+    argmax = np.asarray([[int(np.argmax(logit_at(i, j)))
+                          for j in range(new)] for i in range(len(lens))])
+    check_equal_streams(f"dense_fp32_{name}_kernel_vs_gather", toks, argmax,
+                        logit_at)
+    a = np.stack(out["logits"][1:]).astype(np.float64)
+    b = np.stack(ref["logits"][1:]).astype(np.float64)
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    emit({"phase": f"dense_fp32_{name}", "layers": layers,
+          "prompt_lens": list(cfg["lens"]), "decode_steps": new - 1,
+          "launches": launches, "expected_launches": want_launches,
+          "kernel_vs_gather_logits_rel_rms": rel,
+          "tol": TOL_DENSE_PATHS_FP32_REL,
+          "spec": {k: getattr(kapp.spec, k) for k in (
+              "act", "norm_offset", "sandwich_norm", "norm_position",
+              "qk_norm", "qk_norm_full", "residual_multiplier",
+              "logits_divide", "logits_soft_cap", "attn_soft_cap",
+              "embed_scale", "qkv_bias")}})
+    if launches != want_launches:
+        raise AssertionError(f"dense_fp32_{name}: paged launches "
+                             f"{launches} != {want_launches}")
+    if not rel <= TOL_DENSE_PATHS_FP32_REL:
+        raise AssertionError(f"dense_fp32_{name}: kernel vs gather logits "
+                             f"{rel}")
+    prompts = [ids[i, :lens[i]].tolist() for i in range(len(lens))]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    kapp.init_cache()
+    streams, _, _, _ = _ragged_run(f"dense_fp32_{name}_ragged", kapp,
+                                   prompts, new, cfg, sync, layers, on_card)
+    check_equal_streams(f"dense_fp32_{name}_ragged_vs_generate",
+                        np.asarray([s.tokens for s in streams]), toks,
+                        lambda i, j, lg=out["logits"]: (
+                            lg[0][i, lens[i] - 1] if j == 0
+                            else lg[j][i, 0]))
+    del kapp
+    if on_card:
+        free_card()
+
+
+def dense_gemma2_contiguous(hf, device):
+    """19 (d): ``TpuGemma2ForCausalLM`` at DENSE_CHECK_LAYERS layers, fp32,
+    ``seq_len`` 8192, one prompt past the window (GEMMA2_LONG): the mixed
+    per-layer cache (global rows of 8192 slots, local rows rolling at
+    4096), after ``precompile``; the contiguous decode kernel launches =
+    global layers x decode steps (replays counted), each at its
+    global-stack index, window 0, soft-cap 50; the stream equals the
+    uniform cache's (``mixed_kv=False``, the kernel at
+    window 4096 on the local layers). Returns the kernel's launches."""
+    import numpy as np
+    g = GEMMA2_LONG
+    new = g["new_tokens"]
+    ids, mask = prompts_of((g["len"],), hf["vocab_size"], seed=20)
+    with ContiguousArgsSpy() as spy:
+        mix = make_pattern_app(hf, device, "float32", batch=1,
+                               seq_len=g["seq_len"])
+        init_weights(mix, 0)
+        # the T = 1 decode graph is captured here, not inside generate
+        warm(mix, "dense_gemma2_contiguous")
+        reset_launches([mix])
+        got = mix.generate(ids, attention_mask=mask,
+                           max_new_tokens=new)["generated"]
+        launches = kernel_counts([mix])["decode_attention_stacked"]
+    types = dense_layer_types(hf)
+    n_global = types.count("full_attention")
+    want_calls = {(j, 0, False) for j in range(n_global)}
+    want_caps = {(j, hf["attn_logit_softcapping"]) for j in range(n_global)}
+    on_card = device.type == "cuda"
+    want_launches = n_global * (new - 1) if on_card else 0
+
+    def ref(**kw):
+        r = make_pattern_app(hf, device, "float32", batch=1,
+                             seq_len=g["seq_len"], mixed_kv=False, **kw)
+        r.params = mix.params
+        return r
+    want = ref().generate(ids, attention_mask=mask,
+                          max_new_tokens=new)["generated"]
+    emit({"phase": "dense_gemma2_contiguous", "layers":
+          hf["num_hidden_layers"], "prompt_len": g["len"],
+          "seq_len": g["seq_len"], "mixed_kv": mix.spec.mixed_kv,
+          "cache_gb": cache_bytes(mix) / 1e9, "launches": launches,
+          "expected_launches": want_launches,
+          "calls": sorted(spy.calls), "caps": sorted(spy.caps)})
+    if not mix.spec.mixed_kv:
+        raise AssertionError("dense_gemma2_contiguous: no mixed cache")
+    if (launches != want_launches or spy.calls != want_calls
+            or spy.caps != want_caps):
+        raise AssertionError(f"dense_gemma2_contiguous: launches "
+                             f"{launches} (want {want_launches}), calls "
+                             f"{sorted(spy.calls)}, caps {sorted(spy.caps)}")
+    check_equal_streams("dense_gemma2_mixed_vs_uniform", got, want,
+                        batch_logit_at(lambda: ref(output_logits=True), ids,
+                                       mask, np.asarray(want)))
+    del mix
+    if on_card:
+        free_card()
+    return launches
+
+
+def phase_dense_fp32(device):
+    with fp32_exact():
+        return _phase_dense_fp32(device)
+
+
+def _phase_dense_fp32(device):
+    """19 (d): every geometry's fp32 cut, then the Gemma-2 contiguous app
+    past its window; returns the contiguous kernel's launches there."""
+    for name, hf in DENSE_GEOMETRIES.items():
+        dense_fp32_cut(name, dense_cut(hf, DENSE_CHECK_LAYERS), device)
+        if device.type == "cuda":
+            memory_note(f"dense_fp32_{name}")
+    return dense_gemma2_contiguous(dense_cut(GEMMA2_27B, DENSE_CHECK_LAYERS),
+                                   device)
+
+
+def phase_dense(device):
+    """Group ``dense`` (phase 19 (a)-(d)); returns its kernels-line
+    entries: the paged kernel over Gemma-2-27B's served cache at a local
+    and a global layer (with (b)'s launches), and the contiguous kernel at
+    (a)'s Gemma-2 shapes with the launches of (d)'s
+    ``TpuGemma2ForCausalLM`` run."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    times = phase_dense_kernels(device)
+    memory_note("dense_kernels")
+    entries = phase_dense_serving(GEMMA2_27B, device, DENSE_SERVE,
+                                  "dense_gemma2", (-2, -1))
+    entries += phase_dense_serving(dense_cut(GEMMA3_27B, GEMMA3_CUT),
+                                   device, GEMMA3_SERVE, "dense_gemma3", ())
+    launches = phase_dense_fp32(device)
+    t = times[("contig", 0)]
+    entries.append({
+        "name": "decode_attention_stacked", "route": "cuda",
+        "source": "neuronx_distributed_inference_tpu_torch/csrc/"
+                  "decode_attention.cu",
+        "replaces": "neuronx_distributed_inference_tpu/ops/"
+                    "decode_attention.py:41",
+        "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "SDPA without the soft-cap",
+        "path": "dense_gemma2_contiguous", "shape": t["shape"]})
+    return entries
+
+
 GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
-          "long", "mla", "quant")
+          "long", "mla", "quant", "dense")
 
 
 def main(argv=None) -> int:
@@ -5723,6 +6384,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_quant(device)
         mark("quant")
+    if "dense" in only:
+        free_card()
+        kernels += phase_dense(device)
+        mark("dense")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

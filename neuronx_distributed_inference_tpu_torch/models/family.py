@@ -4,14 +4,17 @@
 A family is a class with ``config_cls``, ``build_spec(config)`` and
 ``convert_hf_state_dict(sd, spec)`` (HF numpy state dict -> the stacked
 host parameter tree). The port carries the Llama-shaped decoder: the
-Llama, Mistral and Qwen3 families (dense), the Qwen3-MoE, Mixtral and
-GPT-OSS families (MoE) and DeepSeek (MLA, a mixed dense / MoE stack, its
-own converter). Families override the reference's hooks
-``convert_mlp_weights`` (the MoE families, through
-``convert_moe_weights`` or their own layout) and
-``convert_extra_layer_weights`` (GPT-OSS: sinks); the per-head q/k norms
-and the q/k/v and o biases (family.py:120-132) convert when the spec has
-them."""
+Llama, Mistral, Qwen3, Qwen2, Granite, Phi-3, OLMo-2, Gemma-2 and Gemma-3
+families (dense), the Qwen3-MoE, Mixtral and GPT-OSS families (MoE) and
+DeepSeek (MLA, a mixed dense / MoE stack, its own converter). Families
+override the reference's hooks ``convert_mlp_weights`` (the MoE families,
+through ``convert_moe_weights`` or their own layout),
+``convert_extra_layer_weights`` (GPT-OSS: sinks; Gemma: the sandwich
+norms; OLMo-2: those and its full-width q/k norms) and the HF names that
+feed the two block norms, ``input_norm_src`` and ``post_norm_src``
+(family.py:53-61; Gemma feeds the pre-MLP norm from
+``pre_feedforward_layernorm``); the per-head q/k norms and the q/k/v and o
+biases (family.py:120-132) convert when the spec has them."""
 
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ def register_family(*names: str):
 
 def get_family(name: str) -> Type["DecoderFamily"]:
     # their imports register them
-    from . import (deepseek, gpt_oss, llama, mistral,  # noqa: F401
-                   mixtral, qwen3, qwen3_moe)
+    from . import (deepseek, gemma2, gemma3, gpt_oss,  # noqa: F401
+                   granite, llama, mistral, mixtral, olmo2, phi3, qwen2,
+                   qwen3, qwen3_moe)
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; known: "
                        f"{sorted(_REGISTRY)}")
@@ -55,6 +59,11 @@ class DecoderFamily:
     family_names = ()
     config_cls: Type[InferenceConfig] = InferenceConfig
     hf_prefix = "model"
+    # the HF norm weight feeding the pre-attention norm ("input_norm")
+    input_norm_src = "input_layernorm"
+    # the HF norm weight feeding the pre-MLP norm ("post_norm");
+    # sandwich-norm families point it at pre_feedforward_layernorm
+    post_norm_src = "post_attention_layernorm"
 
     @classmethod
     def build_spec(cls, config: InferenceConfig,
@@ -98,12 +107,13 @@ class DecoderFamily:
 
         lp = p + ".layers.{i}."
         layers = {
-            "input_norm": layer_stack(lp + "input_layernorm.weight", ident),
+            "input_norm": layer_stack(lp + cls.input_norm_src + ".weight",
+                                      ident),
             "q_proj": layer_stack(lp + "self_attn.q_proj.weight", q_t),
             "k_proj": layer_stack(lp + "self_attn.k_proj.weight", kv_t),
             "v_proj": layer_stack(lp + "self_attn.v_proj.weight", kv_t),
             "o_proj": layer_stack(lp + "self_attn.o_proj.weight", o_t),
-            "post_norm": layer_stack(lp + "post_attention_layernorm.weight",
+            "post_norm": layer_stack(lp + cls.post_norm_src + ".weight",
                                      ident),
         }
         layers.update(cls.convert_mlp_weights(get, layer_stack, spec))

@@ -31,6 +31,16 @@ from a compressed latent plus one shared rope head; its K heads are
 ``head_dim`` wide and its V heads ``v_head_dim``, so the cache's V is
 narrower than its K and neither kernel takes it (the gather path).
 
+The dense families' knobs (Qwen2, Granite, Phi-3, OLMo-2, Gemma-2,
+Gemma-3) shape the same layer: the MLP activation (``act``), Gemma's
+(1 + w) RMSNorm on every block, final and q/k norm (``norm_offset``),
+sandwich norms on the attention and MLP outputs, OLMo-2's post-norm
+layer (``norm_position="post"``) with its full-width q/k norm
+(``qk_norm_full``), Granite's ``residual_multiplier``, ``embed_scale``
+and ``logits_divide``, the tanh soft-caps of the attention scores (into
+every attention call, kernels included) and of the logits, and Gemma-3's
+second rotation for its local layers (``local_rope``).
+
 The contiguous cache takes one of three layouts (:func:`cache_layout`,
 the reference's decisions):
 
@@ -195,6 +205,33 @@ class DecoderSpec:
     # the mixed per-layer cache: local layers' rolling rows in
     # {"k_l", "v_l"}, global layers' full rows in {"k", "v"}
     mixed_kv: bool = False
+    # the dense families' knobs (model_base.py:115-175): the MLP
+    # activation (a key of ACT_FNS)
+    act: str = "silu"
+    # RMSNorm weight offset: 1.0 gives Gemma's (1 + w) on every block
+    # norm, the final norm and the per-head / full-width q/k norms
+    norm_offset: float = 0.0
+    # Gemma's sandwich norms: post_attn_norm on the attention output,
+    # post_ff_norm on the MLP output, before each residual add
+    sandwich_norm: bool = False
+    # "pre" (Llama) or "post" (OLMo-2: no pre-norms; the sandwich norms
+    # on the block outputs)
+    norm_position: str = "pre"
+    # OLMo-2: RMSNorm over the whole q / k projection before the head split
+    qk_norm_full: bool = False
+    # Granite: each block output is scaled before its residual add, and
+    # the lm-head logits divided
+    residual_multiplier: float = 1.0
+    logits_divide: Optional[float] = None
+    # Gemma-2: tanh soft-caps of the lm-head logits and the attention
+    # scores (cap * tanh(x / cap))
+    logits_soft_cap: Optional[float] = None
+    attn_soft_cap: Optional[float] = None
+    # Gemma / Granite: the embeddings are multiplied by this (in fp32)
+    embed_scale: Optional[float] = None
+    # Gemma-3: the rotation of the local layers of ``layer_pattern``
+    # (None: they rotate as the global ones)
+    local_rope: Optional[RopeConfig] = None
 
     @property
     def scale(self) -> float:
@@ -294,7 +331,8 @@ def _mla_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
 def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     """The attention half of a layer (model_base.py:360-432): norms, the
     fused q/k/v and o projections (or the MLA projections), and the
-    optional q/k norms, biases (zeros) and fp32 sinks (zeros)."""
+    optional q/k norms (per head, or full width), biases (zeros), sandwich
+    norms and fp32 sinks (zeros)."""
     H, dt = spec.hidden_size, spec.dtype
     layers = {
         "input_norm": ParamSpec((L, H), dt, "ones"),
@@ -311,8 +349,14 @@ def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     if spec.qk_norm:
         layers["q_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
         layers["k_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+    if spec.qk_norm_full:
+        layers["q_norm"] = ParamSpec((L, spec.q_size), dt, "ones")
+        layers["k_norm"] = ParamSpec((L, spec.kv_size), dt, "ones")
     if spec.o_bias:
         layers["o_bias"] = ParamSpec((L, H), dt, "zeros")
+    if spec.sandwich_norm:
+        layers["post_attn_norm"] = ParamSpec((L, H), dt, "ones")
+        layers["post_ff_norm"] = ParamSpec((L, H), dt, "ones")
     if spec.attn_sink:
         layers["sink"] = ParamSpec((L, spec.gqa.num_q_heads), torch.float32,
                                    "zeros")
@@ -406,13 +450,19 @@ def fuse_qkv_host(host: Dict[str, Any]) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def attn_inputs(spec: DecoderSpec, position_ids: torch.Tensor,
-                inv_freq: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                inv_freq=None) -> Dict[str, Any]:
     """RoPE cos/sin for the step; each phase adds its mask
-    (:func:`_add_masks`) or kernel inputs. Local and global layers share
-    one rotation (the reference's ``local_rope`` waits for the families
-    that set it)."""
-    cos, sin = rope_cos_sin(position_ids, spec.rope, inv_freq)
-    return {"cos": cos, "sin": sin}
+    (:func:`_add_masks`) or kernel inputs. With ``local_rope`` the local
+    layers' ``cos_l`` / ``sin_l`` too (model_base.py:727-750);
+    ``inv_freq`` is then the (global, local) pair of
+    :func:`rope_inv_freq`."""
+    if spec.local_rope is None:
+        cos, sin = rope_cos_sin(position_ids, spec.rope, inv_freq)
+        return {"cos": cos, "sin": sin}
+    inv_g, inv_l = inv_freq if inv_freq is not None else (None, None)
+    cos, sin = rope_cos_sin(position_ids, spec.rope, inv_g)
+    cos_l, sin_l = rope_cos_sin(position_ids, spec.local_rope, inv_l)
+    return {"cos": cos, "sin": sin, "cos_l": cos_l, "sin_l": sin_l}
 
 
 def _add_masks(spec: DecoderSpec, ai, make_mask) -> None:
@@ -435,24 +485,34 @@ def _sink(spec: DecoderSpec, layer_w):
     return layer_w["sink"] if spec.attn_sink else None
 
 
-def _qkv(spec: DecoderSpec, h, layer_w, ai):
-    """Fused projection, head split and RoPE: q (B,T,Hq,D), k/v
-    (B,T,Hkv,D) (v a view into the projection output)."""
+def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
+    """Fused projection, q/k norms, head split and RoPE: q (B,T,Hq,D),
+    k/v (B,T,Hkv,D) (v a view into the projection output). A local layer
+    rotates with ``ai["cos_l"]`` when the step carries it (a Python
+    branch: a captured graph holds each layer's own rotation)."""
     b, t, _ = h.shape
     g = spec.gqa
+    off = spec.norm_offset
     qkv = qlinear(h, layer_w["qkv_proj"])
     if spec.qkv_bias:
         qkv = qkv + layer_w["qkv_bias"]
     q, k, v = torch.split(qkv, [spec.q_size, spec.kv_size, spec.kv_size],
                           dim=-1)
+    if spec.qk_norm_full:
+        # RMSNorm over the whole projection, before the head split
+        # (model_base.py:998-1001)
+        q = rms_norm(q, layer_w["q_norm"], spec.rms_eps, off)
+        k = rms_norm(k, layer_w["k_norm"], spec.rms_eps, off)
     q = q.reshape(b, t, g.num_q_heads, spec.head_dim)
     k = k.reshape(b, t, g.num_kv_heads, spec.head_dim)
     if spec.qk_norm:
         # per-head RMSNorm before RoPE (model_base.py:1014-1024)
-        q = rms_norm(q, layer_w["q_norm"], spec.rms_eps)
-        k = rms_norm(k, layer_w["k_norm"], spec.rms_eps)
-    q = apply_rope(q, ai["cos"], ai["sin"], spec.rope_interleaved)
-    k = apply_rope(k, ai["cos"], ai["sin"], spec.rope_interleaved)
+        q = rms_norm(q, layer_w["q_norm"], spec.rms_eps, off)
+        k = rms_norm(k, layer_w["k_norm"], spec.rms_eps, off)
+    cos, sin = ((ai["cos_l"], ai["sin_l"]) if is_local and "cos_l" in ai
+                else (ai["cos"], ai["sin"]))
+    q = apply_rope(q, cos, sin, spec.rope_interleaved)
+    k = apply_rope(k, cos, sin, spec.rope_interleaved)
     return q, k, v.reshape(b, t, g.num_kv_heads, spec.head_dim)
 
 
@@ -493,8 +553,8 @@ def _mla_qkv(spec: DecoderSpec, h, layer_w, ai):
 def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                 is_local: bool):
     """Paged branch (model_base.py:1058-1103): write at ``slot_mapping``,
-    then the paged kernel (the layer's window as a Python int, the sink)
-    or the block-table gather + ``mha``."""
+    then the paged kernel (the layer's window as a Python int, the
+    soft-cap, the sink) or the block-table gather + ``mha``."""
     kc, vc = cache["k"], cache["v"]
     bkv.write_slots_at_layer(kc, kv.quantize_kv(k, kc.dtype, spec.kv_scale),
                              li, ai["slot_mapping"])
@@ -506,7 +566,8 @@ def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
         return decode_attention.paged_decode_attention(
             q[:, 0].contiguous(), kc, vc, k[:, 0].contiguous(),
             v[:, 0].contiguous(), li, ai["lens"], ai["block_table"],
-            scale=spec.scale, window=spec.window(is_local), sink=sink,
+            scale=spec.scale, window=spec.window(is_local),
+            soft_cap=spec.attn_soft_cap, sink=sink,
             kv_scale=spec.kv_scale)[:, None]
     bt = ai["block_table"]
     k_all = kv.dequantize_kv(bkv.gather_block_kv(bkv.read_layer(kc, li), bt),
@@ -514,7 +575,8 @@ def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
     v_all = kv.dequantize_kv(bkv.gather_block_kv(bkv.read_layer(vc, li), bt),
                              q.dtype, spec.kv_scale)
     return attn_ops.mha(q, k_all, v_all, _layer_mask(ai, is_local),
-                        spec.scale, sink=sink)
+                        spec.scale, logits_soft_cap=spec.attn_soft_cap,
+                        sink=sink)
 
 
 def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
@@ -526,10 +588,11 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
     row's length are dropped (:1132-1146)."""
     if ai["flash"]:
         out = flash_attention.flash_attention(q, k, v, scale=spec.scale,
-                                              window=spec.sliding_window)
+                                              window=spec.sliding_window,
+                                              soft_cap=spec.attn_soft_cap)
     else:
         out = attn_ops.mha(q, k, v, _layer_mask(ai, is_local), spec.scale,
-                           sink=sink)
+                           logits_soft_cap=spec.attn_soft_cap, sink=sink)
     if spec.rolling_window:
         w = cache["k"].shape[4]
         pos = ai["positions"].long()
@@ -578,8 +641,8 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
         out = decode_attention.decode_attention_stacked(
             q[:, 0].contiguous(), kc, vc, k[:, 0].contiguous(),
             v[:, 0].contiguous(), li, ai["lens"], scale=spec.scale,
-            window=spec.window(is_local), sink=sink,
-            kv_scale=spec.kv_scale)[:, None]
+            window=spec.window(is_local), soft_cap=spec.attn_soft_cap,
+            sink=sink, kv_scale=spec.kv_scale)[:, None]
         return out, None
     view = None if mixed_local else ai.get("kv_view")
     k_layer = kv.read_layer_hl(kc, li)                 # (B, H, D, S)
@@ -596,41 +659,49 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
         out = attn_ops.mha_decode_merged(
             q, k_all, v_all, ai["mask"], side[0][li], side[1][li],
             ai["mask_side"], k.to(q.dtype), v.to(q.dtype), spec.scale,
-            sink=sink)
+            logits_soft_cap=spec.attn_soft_cap, sink=sink)
         return out, (k, v)
     return attn_ops.mha_hl(q, k_all, v_all, _layer_mask(ai, is_local),
-                           spec.scale, sink=sink), None
+                           spec.scale, logits_soft_cap=spec.attn_soft_cap,
+                           sink=sink), None
 
 
 def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
     """The MLP half of a layer (model_base.py:889-938): the MoE block in a
-    layer of the ``"moe"`` stack, else the dense GLU silu(x @ gate) *
-    (x @ up) @ down, each product through ``qlinear`` (plain, quantized or
-    low-rank weights). ``kind`` is the stack's (:func:`layer_stacks`), a
-    Python value, so a captured graph holds each layer's own branch."""
+    layer of the ``"moe"`` stack, else the dense GLU act(x @ gate) *
+    (x @ up) @ down with ``ACT_FNS[spec.act]``, each product through
+    ``qlinear`` (plain, quantized or low-rank weights). ``kind`` is the
+    stack's (:func:`layer_stacks`), a Python value, so a captured graph
+    holds each layer's own branch."""
     if kind == "moe":
         return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
-    inter = (F.silu(qlinear(x, layer_w["gate_proj"]))
+    inter = (ACT_FNS[spec.act](qlinear(x, layer_w["gate_proj"]))
              * qlinear(x, layer_w["up_proj"]))
     return qlinear(inter, layer_w["down_proj"])
 
 
 def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
                 phase: str, kind: str, layer: Optional[int] = None):
-    """One pre-norm transformer layer; returns (hidden, pending side
-    write or None). Layer ``layer`` (default ``li``) takes its own window
-    and mask (local or global, model_base.py:1327) and its sink; ``li``
-    addresses its rows in ``cache`` (on the mixed cache, its index within
-    its own stack). ``kind`` ("dense" / "moe") picks its MLP; MLA or the
-    fused q/k/v picks its projections (model_base.py:987-988)."""
-    h = rms_norm(hidden, layer_w["input_norm"], spec.rms_eps)
+    """One transformer layer (model_base.py:798-862); returns (hidden,
+    pending side write or None). Pre-norm, or with ``norm_position``
+    "post" no pre-norm; the sandwich norms on the attention and MLP
+    outputs; each block output scaled by ``residual_multiplier`` before
+    its residual add; every block norm with ``norm_offset``. Layer
+    ``layer`` (default ``li``) takes its own window, mask and rotation
+    (local or global, model_base.py:1327) and its sink; ``li`` addresses
+    its rows in ``cache`` (on the mixed cache, its index within its own
+    stack). ``kind`` ("dense" / "moe") picks its MLP; MLA or the fused
+    q/k/v picks its projections (model_base.py:987-988)."""
+    pre = spec.norm_position == "pre"
+    eps, off = spec.rms_eps, spec.norm_offset
+    is_local = spec.is_local(li if layer is None else layer)
+    h = rms_norm(hidden, layer_w["input_norm"], eps, off) if pre else hidden
     if spec.mla is not None:
         q, k, v = _mla_qkv(spec, h, layer_w, ai)
     else:
-        q, k, v = _qkv(spec, h, layer_w, ai)
+        q, k, v = _qkv(spec, h, layer_w, ai, is_local)
     pending = None
-    args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w),
-            spec.is_local(li if layer is None else layer))
+    args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w), is_local)
     if phase == "decode":
         attn, pending = _decode_attn(*args)
     elif phase == "prefill":
@@ -641,9 +712,21 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     o = qlinear(attn.reshape(b, t, -1), layer_w["o_proj"])
     if spec.o_bias:
         o = o + layer_w["o_bias"]
-    hidden = hidden + o
-    h = rms_norm(hidden, layer_w["post_norm"], spec.rms_eps)
-    return hidden + _mlp_block(spec, h, layer_w, phase, kind), pending
+    if spec.sandwich_norm:
+        o = rms_norm(o, layer_w["post_attn_norm"], eps, off)
+    hidden = hidden + _residual_scaled(spec, o)
+    h = rms_norm(hidden, layer_w["post_norm"], eps, off) if pre else hidden
+    m = _mlp_block(spec, h, layer_w, phase, kind)
+    if spec.sandwich_norm:
+        m = rms_norm(m, layer_w["post_ff_norm"], eps, off)
+    return hidden + _residual_scaled(spec, m), pending
+
+
+def _residual_scaled(spec: DecoderSpec, x):
+    """A block output times ``residual_multiplier`` (no product at 1.0,
+    where it is exact)."""
+    m = spec.residual_multiplier
+    return x if m == 1.0 else m * x
 
 
 def layer_stacks(spec: DecoderSpec) -> List[Tuple[str, int, int, str]]:
@@ -736,15 +819,29 @@ def fold_mixed_prefill(spec: DecoderSpec, scratch, cache, seq_lens,
     cache["v_l"][:, rows] = vl.to(cache["v_l"].dtype)
 
 
-def _embed(params, input_ids):
-    return params["embed"][input_ids.long()]
+def _embed(spec: DecoderSpec, params, input_ids):
+    """The token embeddings (model_base.py:1656-1659), times
+    ``embed_scale`` in fp32 and cast back."""
+    h = params["embed"][input_ids.long()]
+    if spec.embed_scale is not None:
+        h = (h.float() * spec.embed_scale).to(h.dtype)
+    return h
 
 
 def _lm_head(spec: DecoderSpec, params, hidden):
-    h = rms_norm(hidden, params["final_norm"], spec.rms_eps)
+    """fp32 logits (model_base.py:1671-1684): the final norm (with
+    ``norm_offset``), the product, ``logits_divide``, the
+    ``logits_soft_cap``, then the padded vocabulary masked."""
+    h = rms_norm(hidden, params["final_norm"], spec.rms_eps,
+                 spec.norm_offset)
     w = (params["embed"].t() if spec.tie_word_embeddings
          else params["lm_head"])
     logits = (h @ w).float()
+    if spec.logits_divide:
+        logits = logits / spec.logits_divide
+    if spec.logits_soft_cap:
+        cap = spec.logits_soft_cap
+        logits = cap * torch.tanh(logits / cap)
     return sampling_ops.mask_padded_logits(
         logits, spec.padded_vocab - spec.vocab_size)
 
@@ -848,8 +945,8 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                                    spec.v_head_dim), dtype=kdt,
                                   device=input_ids.device)}
         ai["identity"] = True
-    hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
-                        "prefill")
+    hidden = run_layers(spec, params, cache, _embed(spec, params, input_ids),
+                        ai, "prefill")
     if spec.mixed_kv:
         fold_mixed_prefill(spec, cache, persistent, seq_lens,
                            seq_ids if tpu_cfg.is_continuous_batching
@@ -904,7 +1001,7 @@ def token_generation_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     plus {"logits": (B, T, vocab)}."""
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids,
                         kv_view, inv_freq)
-    hidden = _embed(params, input_ids)
+    hidden = _embed(spec, params, input_ids)
     if spec.mixed_kv:
         hidden = run_layers_mixed_decode(spec, params, cache, hidden, ai)
     else:
@@ -929,8 +1026,8 @@ def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
             "supported; disable speculation or set mixed_kv=False")
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids, None,
                         inv_freq)
-    hidden = run_layers(spec, params, cache, _embed(params, input_ids), ai,
-                        "decode")
+    hidden = run_layers(spec, params, cache, _embed(spec, params, input_ids),
+                        ai, "decode")
     return {"logits_all": _lm_head(spec, params, hidden)[
         ..., :spec.vocab_size]}
 
@@ -992,8 +1089,8 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                                                 spec.sliding_window)
                            & (cols != idx))
         ai["chunk_idx"] = idx
-        hidden = run_layers(spec, params, cache, _embed(params, tok[:, None]),
-                            ai, "decode")
+        hidden = run_layers(spec, params, cache,
+                            _embed(spec, params, tok[:, None]), ai, "decode")
         tok = _sample_out(spec, no_logits, params, hidden, hidden,
                           sampling_params, generator)["tokens"]
         toks.append(tok)
@@ -1036,8 +1133,8 @@ def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
         kv_len = block_table.shape[1] * cache["k"].shape[2]
         _add_masks(spec, ai, lambda w: attn_ops.decode_mask(
             position_ids, kv_len, w))
-    return run_layers(spec, params, cache, _embed(params, input_ids), ai,
-                      "paged")
+    return run_layers(spec, params, cache, _embed(spec, params, input_ids),
+                      ai, "paged")
 
 
 def _gather_cols(hidden, cols):
@@ -1284,7 +1381,7 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 # Spec resolution from InferenceConfig
 # ---------------------------------------------------------------------------
 
-def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
+def _unported_knobs(tcfg: TpuConfig, act: str):
     checks = [
         (tcfg.tp_degree > 1 or tcfg.cp_degree > 1 or tcfg.ep_degree > 1
          or tcfg.attention_dp_degree > 1, "parallelism degrees > 1"),
@@ -1298,8 +1395,7 @@ def _unported_knobs(tcfg: TpuConfig, config: InferenceConfig):
         (tcfg.tensor_capture_config is not None
          or tcfg.tensor_replacement_config is not None,
          "tensor capture/replacement"),
-        (getattr(config, "hidden_act", "silu") != "silu",
-         f"hidden_act {getattr(config, 'hidden_act', None)!r}"),
+        (act not in ACT_FNS, f"hidden_act {act!r}"),
     ]
     return [name for bad, name in checks if bad] + _moe_degree_refusals(
         tcfg.moe_config)
@@ -1375,6 +1471,16 @@ def cache_layout(tcfg: TpuConfig, sliding_window: int, layer_pattern=None,
     return bool(roll), bool(mixed)
 
 
+# the dense families' DecoderSpec knobs that spec_from_config takes as
+# keyword overrides, as the counterpart's ``**overrides`` (model_base.py:
+# 2346); ``tie_word_embeddings`` overrides the config's (HF omits a
+# default True from config.json)
+DENSE_KNOBS = ("act", "norm_offset", "sandwich_norm", "norm_position",
+               "qk_norm_full", "residual_multiplier", "logits_divide",
+               "logits_soft_cap", "attn_soft_cap", "embed_scale",
+               "local_rope", "tie_word_embeddings")
+
+
 def spec_from_config(config: InferenceConfig,
                      tp_degree: Optional[int] = None,
                      sliding_window: int = 0,
@@ -1387,25 +1493,40 @@ def spec_from_config(config: InferenceConfig,
                      o_bias: bool = False, mla: Optional[MLASpec] = None,
                      head_dim: Optional[int] = None,
                      attn_scale: Optional[float] = None,
-                     rope_interleaved: bool = False) -> DecoderSpec:
+                     rope_interleaved: bool = False,
+                     **knobs) -> DecoderSpec:
     """DecoderSpec from the HF-style attributes of an InferenceConfig
     (families pass ``sliding_window`` / ``layer_pattern`` /
     ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
     ``first_dense`` / ``moe_pattern`` / ``attn_sink`` / ``qkv_bias`` /
     ``o_bias`` / ``mla`` / ``head_dim`` / ``attn_scale`` /
-    ``rope_interleaved`` as the counterpart's overrides). The cache layout
-    (rolling, mixed or full rows) is :func:`cache_layout`'s. Raises
-    :class:`ConfigurationError` for what the port does not run yet (an
-    interleaved ``moe_pattern``; MLA over the rolling or mixed cache, which
-    no DeepSeek config takes), and (a ``ValueError``, as the reference
-    raises) for ``rolling_kv_cache=True`` on a config that cannot roll."""
+    ``rope_interleaved`` and the :data:`DENSE_KNOBS` as the counterpart's
+    overrides; ``act`` defaults to the config's ``hidden_act``). The
+    legacy rope scaling name ``"su"`` is longrope, whose
+    ``original_max_position_embeddings`` may sit at the config's top
+    level. The cache layout (rolling, mixed or full rows) is
+    :func:`cache_layout`'s. Raises :class:`ConfigurationError` for what the
+    port does not run yet (an interleaved ``moe_pattern``; MLA over the
+    rolling or mixed cache, which no DeepSeek config takes; an activation
+    outside :data:`ACT_FNS`; ``norm_position`` other than "pre" / "post"),
+    and (a ``ValueError``, as the reference raises) for
+    ``rolling_kv_cache=True`` on a config that cannot roll."""
+    unknown = sorted(set(knobs) - set(DENSE_KNOBS))
+    if unknown:
+        raise TypeError(f"spec_from_config: unknown overrides {unknown}")
     tcfg = config.tpu_config
     tp = tp_degree if tp_degree is not None else tcfg.tp_degree
     if layer_pattern is not None:
         layer_pattern = tuple(bool(x) for x in layer_pattern)
     rolling, mixed = cache_layout(tcfg, int(sliding_window), layer_pattern,
                                   attn_chunk)
-    bad = _unported_knobs(tcfg, config)
+    knobs.setdefault("act", getattr(config, "hidden_act", "silu"))
+    knobs.setdefault("tie_word_embeddings",
+                     bool(getattr(config, "tie_word_embeddings", False)))
+    bad = _unported_knobs(tcfg, knobs["act"])
+    if knobs.get("norm_position", "pre") not in ("pre", "post"):
+        bad.append(f"norm_position {knobs['norm_position']!r} (ROADMAP "
+                   "A14d)")
     if tp != 1:
         bad.append(f"tp_degree={tp}")
     if attn_chunk:
@@ -1428,6 +1549,8 @@ def spec_from_config(config: InferenceConfig,
                 or hidden // n_q)
     rope_scaling = getattr(config, "rope_scaling", None) or {}
     rope_type = rope_scaling.get("rope_type", rope_scaling.get("type"))
+    if rope_type == "su":          # the legacy Phi-3 name of longrope
+        rope_type = "longrope"
     if rope_type == "default":
         rope_type = None
     if rope_type not in SUPPORTED_SCALING:
@@ -1454,6 +1577,12 @@ def spec_from_config(config: InferenceConfig,
         attention_factor=(float(attention_factor)
                           if attention_factor is not None else None),
         truncate=bool(rope_scaling.get("truncate", True)),
+        short_factor=(tuple(float(x) for x in rope_scaling["short_factor"])
+                      if "short_factor" in rope_scaling else None),
+        long_factor=(tuple(float(x) for x in rope_scaling["long_factor"])
+                     if "long_factor" in rope_scaling else None),
+        max_position=int(getattr(config, "max_position_embeddings", 0)
+                         or 0),
     )
     vocab = config.vocab_size
     return DecoderSpec(
@@ -1469,8 +1598,6 @@ def spec_from_config(config: InferenceConfig,
         rms_eps=float(getattr(config, "rms_norm_eps", 1e-6)),
         rope=rope,
         gqa=resolve_gqa_sharding(n_q, n_kv, tp),
-        tie_word_embeddings=bool(getattr(config, "tie_word_embeddings",
-                                         False)),
         sliding_window=int(sliding_window),
         attn_scale=attn_scale,
         flash_prefill=bool(tcfg.attn_kernel_enabled),
@@ -1491,10 +1618,15 @@ def spec_from_config(config: InferenceConfig,
         o_bias=bool(o_bias),
         rolling_window=rolling,
         mixed_kv=mixed,
+        **knobs,
     )
 
 
-def rope_inv_freq(spec: DecoderSpec, device: torch.device) -> torch.Tensor:
+def rope_inv_freq(spec: DecoderSpec, device: torch.device):
     """The step-invariant inverse-frequency table, moved to ``device`` once
-    by the application."""
-    return compute_inv_freq(spec.rope).to(device)
+    by the application (before any graph capture reads it); with
+    ``local_rope`` the (global, local) pair of tables."""
+    inv = compute_inv_freq(spec.rope).to(device)
+    if spec.local_rope is None:
+        return inv
+    return inv, compute_inv_freq(spec.local_rope).to(device)

@@ -3,11 +3,13 @@
 half (rotate_half) and the interleaved pairing of :func:`apply_rope`.
 
 cos/sin are computed from the position ids in fp32. The port carries the
-default (unscaled), linear, llama3 and yarn frequency schemes — Llama-3.x
-uses llama3, GPT-OSS and DeepSeek yarn, whose attention factor
+default (unscaled), linear, llama3, yarn and longrope frequency schemes —
+Llama-3.x uses llama3, GPT-OSS and DeepSeek yarn, whose attention factor
 scales cos and sin (``_yarn_inv_freq`` :72-92, ``yarn_attention_factor``
-:56-69, ``rope_cos_sin`` :174-176). longrope and M-RoPE wait for the
-families that need them; :func:`compute_inv_freq` refuses them by name."""
+:56-69, ``rope_cos_sin`` :174-176), Phi-3 longrope, one rescale factor per
+frequency slot with its own attention factor (:120-125, :177-184). M-RoPE
+waits for the families that need it; :func:`compute_inv_freq` refuses it
+by name."""
 
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ class RopeConfig:
     head_dim: int
     rope_theta: float = 10000.0
     rotary_dim: Optional[int] = None
-    scaling_type: Optional[str] = None   # None | "linear" | "llama3" | "yarn"
+    # None | "linear" | "llama3" | "yarn" | "longrope"
+    scaling_type: Optional[str] = None
     scaling_factor: float = 1.0
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
@@ -36,13 +39,20 @@ class RopeConfig:
     # cos/sin multiplier; None = derived from the factor and mscales
     attention_factor: Optional[float] = None
     truncate: bool = True
+    # longrope (phi-3): one rescale factor per frequency slot; the long
+    # list applies when the deployed ``max_position`` exceeds
+    # ``original_max_position``
+    short_factor: Optional[Tuple[float, ...]] = None
+    long_factor: Optional[Tuple[float, ...]] = None
+    max_position: int = 0
 
     @property
     def dim(self) -> int:
         return self.rotary_dim or self.head_dim
 
 
-SUPPORTED_SCALING = (None, "default", "linear", "llama3", "yarn")
+SUPPORTED_SCALING = (None, "default", "linear", "llama3", "yarn",
+                     "longrope")
 
 
 def _pos_freqs(cfg: RopeConfig) -> torch.Tensor:
@@ -107,6 +117,12 @@ def compute_inv_freq(cfg: RopeConfig) -> torch.Tensor:
             f"(supported: {SUPPORTED_SCALING})")
     if cfg.scaling_type == "yarn":
         return _yarn_inv_freq(cfg)
+    if cfg.scaling_type == "longrope":
+        use_long = (cfg.max_position > cfg.original_max_position
+                    and cfg.long_factor is not None)
+        ext = torch.tensor(cfg.long_factor if use_long else cfg.short_factor,
+                           dtype=torch.float32)
+        return _base_inv_freq(cfg) / ext
     inv_freq = _base_inv_freq(cfg)
     if cfg.scaling_type == "linear":
         inv_freq = inv_freq / cfg.scaling_factor
@@ -125,6 +141,19 @@ def compute_inv_freq(cfg: RopeConfig) -> torch.Tensor:
     return inv_freq
 
 
+def longrope_attention_factor(cfg: RopeConfig) -> float:
+    """The longrope cos/sin multiplier: ``attention_factor``, else
+    sqrt(1 + ln(f) / ln(original)) with f = max / original positions (1
+    when f <= 1)."""
+    if cfg.attention_factor is not None:
+        return float(cfg.attention_factor)
+    factor = max(cfg.max_position / cfg.original_max_position, 1.0)
+    if factor <= 1.0:
+        return 1.0
+    return math.sqrt(1.0 + math.log(factor)
+                     / math.log(cfg.original_max_position))
+
+
 def rope_cos_sin(position_ids: torch.Tensor, cfg: RopeConfig,
                  inv_freq: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -137,6 +166,9 @@ def rope_cos_sin(position_ids: torch.Tensor, cfg: RopeConfig,
     cos, sin = torch.cos(angles), torch.sin(angles)
     if cfg.scaling_type == "yarn":
         f = yarn_attention_factor(cfg)
+        cos, sin = cos * f, sin * f
+    elif cfg.scaling_type == "longrope":
+        f = longrope_attention_factor(cfg)
         cos, sin = cos * f, sin * f
     return cos, sin
 

@@ -32,7 +32,13 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.qwen3_moe", "models.qwen3_moe.modeling_qwen3_moe",
     "models.mixtral", "models.mixtral.modeling_mixtral", "models.gpt_oss",
     "models.gpt_oss.modeling_gpt_oss", "modules.quantization", "ops.rope",
-    "modules.low_rank", "utils.checkpoint", "models.application")]
+    "modules.low_rank", "utils.checkpoint", "models.application",
+    "models.qwen2", "models.qwen2.modeling_qwen2", "models.granite",
+    "models.granite.modeling_granite", "models.phi3",
+    "models.phi3.modeling_phi3", "models.olmo2",
+    "models.olmo2.modeling_olmo2", "models.gemma2",
+    "models.gemma2.modeling_gemma2", "models.gemma3",
+    "models.gemma3.modeling_gemma3")]
 
 
 def _port_modules():
