@@ -268,9 +268,38 @@ nvcc per source, all started together), then:
      (the mixed per-layer cache): contiguous-kernel launches = global
      layers x decode steps at window 0 and soft-cap 50, the stream equal
      to the uniform cache's.
+ 20. the MoE-families group (Llama4 text, DBRX), random weights from seed
+     0: (a) the paged and the contiguous decode kernels at DBRX's heads
+     (48 q over 8 kv of 128: GQA group 6, run on the 8-wide
+     instantiation), B 4, lens 300-7000, over bf16 and scaled fp8 pages /
+     caches, and flash at those heads (B 2, S 2048): each against its
+     twin, then timed beside the twin, SDPA and the bound; (b)
+     Llama-4-Scout's text widths (hidden 5120, 40 q / 8 kv heads of 128,
+     16 experts of 8192, top 1, a shared expert, vocab 202048, llama3
+     rope, chunk 8192, every 4th layer NoPE, the q/k norm, the
+     temperature) cut to 8 layers (39.37 GB of bf16 weights, gated equal
+     to the geometry's) on phase 9's engine at batch 4, ``seq_len``
+     16384, six requests of 37-9000 tokens (one past the 8192 chunk, one
+     whose decode crosses it), 48 new tokens: phase 9's gates with the
+     paged kernel launched 0 times (the chunk gates, latent fault 1) and
+     the streams held to ``generate`` as in 19 (b); (c) Scout's widths at
+     Maverick's interleave (layers 1 and 3 MoE), 4 layers, fp32, the
+     attention chunk cut to 64: the ragged engine's streams equal the
+     contiguous ``generate``'s, the paged logits within
+     TOL_MOE_FAMILIES_PATHS_FP32_REL, no kernel launch; (d) DBRX
+     (databricks/dbrx-instruct: d_model 6144, 16 experts of 10752, top
+     4, ``clip_qkv`` 8, LayerNorm, vocab 100352) cut to 8 layers (54.61
+     GB) on phase 9's engine at batch 4, ``seq_len`` 8192: phase 9's
+     gates, every layer's paged launch at window 0 and G 6, the kernel
+     held to its twin over the served cache, the streams held to
+     ``generate``; (e) DBRX at 2 layers, fp32, ``W_qkv`` drawn so the
+     clip bites (the share gated): ``TpuDbrxForCausalLM`` (flash and the
+     contiguous kernel at G 6, launches counted) against the ragged
+     engine's streams and the paged logits, and a control without the
+     clip that must part.
 
-The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19 and
-the fp32 app of 6)
+The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20
+and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -279,8 +308,8 @@ Every line before the last is one JSON object; the last line is
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19)
-and then prints no ``ok`` line.
+own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
+moe_families: 20) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -516,6 +545,67 @@ DENSE_CHECK = dict(lens=(37, 120, 300, 500), seq_len=2048, chunk=512,
 DENSE_CHECK_TOKENS = 16
 GEMMA2_LONG = dict(seq_len=8192, len=5000, new_tokens=16)
 
+# Phase 20: Llama4 text and DBRX. Geometries written from the published
+# HF config.json files (random weights from seed 0).
+# Llama-4-Scout-17B-16E, text_config (meta-llama/Llama-4-Scout-17B-16E,
+# model_type llama4_text): 48 layers, every 4th NoPE, the others chunked
+# at 8192; 40 q / 8 kv heads of 128 (G 5); 16 experts of 8192, top 1, a
+# shared expert, every layer MoE (interleave step 1; the dense MLP width
+# 16384 serves Maverick's interleave); llama3 rope at 5e5, factor 16; the
+# q/k norm; temperature tuning at floor_scale 8192, attn_scale 0.1
+LLAMA4_SCOUT = dict(
+    model_type="llama4_text", hidden_size=5120, intermediate_size=8192,
+    intermediate_size_mlp=16384, num_hidden_layers=48,
+    num_attention_heads=40, num_key_value_heads=8, head_dim=128,
+    vocab_size=202048, num_local_experts=16, num_experts_per_tok=1,
+    interleave_moe_layer_step=1, no_rope_layer_interval=4,
+    attention_chunk_size=8192, attn_temperature_tuning=True,
+    floor_scale=8192, attn_scale=0.1, use_qk_norm=True, rms_norm_eps=1e-5,
+    rope_theta=500000.0,
+    rope_scaling={"rope_type": "llama3", "factor": 16.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 1.0,
+                  "original_max_position_embeddings": 8192},
+    max_position_embeddings=10485760, hidden_act="silu",
+    attention_bias=False, tie_word_embeddings=False)
+# DBRX (databricks/dbrx-instruct): 40 layers, d_model 6144, 48 q / 8 kv
+# heads of 128 (G 6), clip_qkv 8, rope at 5e5, 16 experts of 10752, top
+# 4, LayerNorm, untied; ``num_hidden_layers`` mirrors ``n_layers`` for
+# the helpers that read it
+DBRX_INSTRUCT = dict(
+    model_type="dbrx", d_model=6144, n_heads=48, n_layers=40,
+    num_hidden_layers=40, vocab_size=100352, max_seq_len=32768,
+    attn_config={"kv_n_heads": 8, "clip_qkv": 8.0, "rope_theta": 500000.0},
+    ffn_config={"ffn_hidden_size": 10752, "moe_num_experts": 16,
+                "moe_top_k": 4, "moe_normalize_expert_weights": 1},
+    tie_word_embeddings=False)
+# 20 (b): Scout cut to 8 layers (3 and 7 NoPE), batch 4, 16384 slots a
+#   row; one prompt past the 8192 chunk and one whose decode crosses it
+LLAMA4_CUT = 8
+LLAMA4_SERVE = dict(lens=(37, 300, 1500, 8170, 9000, 900), seq_len=16384,
+                    chunk=512, block=32)
+# 20 (c): Scout's widths at Maverick's interleave (layers 1 and 3 MoE,
+#   layer 3 NoPE), fp32, 4 layers, the attention chunk cut to 64 so short
+#   prompts cross chunks
+LLAMA4_CHECK_LAYERS = 4
+LLAMA4_CHECK_CHUNK = 64
+# 20 (d): DBRX cut to 8 layers, the same schedule shape below 8192
+DBRX_CUT = 8
+DBRX_SERVE = dict(lens=(37, 300, 1500, 4500, 7000, 900), seq_len=8192,
+                  chunk=512, block=32)
+# 20 (e): DBRX at 2 layers, fp32; W_qkv drawn at this std so that ~30% of
+#   q/k/v values exceed clip_qkv 8 (LayerNorm'd inputs: std 0.1 x
+#   sqrt(6144) = 7.8); the gate wants at least DBRX_CLIP_SHARE
+DBRX_CHECK_LAYERS = 2
+DBRX_QKV_STD = 0.1
+DBRX_CLIP_SHARE = 0.01
+MOE_FAMILIES_CHECK = dict(lens=(37, 120, 300, 500), seq_len=2048,
+                          chunk=512, block=32)
+MOE_FAMILIES_CHECK_TOKENS = 16
+# 20 (a): the decode kernels at DBRX's heads, and the scale of their fp8
+#   pages (N(0, 1) values stored as x / 0.5)
+G6_KERNEL_LENS = (300, 2100, 4500, 7000)
+G6_FP8_SCALE = 0.5
+
 # Tolerances, with their reasons:
 # kernel vs twin, bf16 out: both accumulate in fp32 and round the output
 #   to bf16 once; one bf16 ulp at |o| < 2 is <= 7.8e-3.
@@ -672,6 +762,21 @@ TOL_LOW_RANK_FULL_REL = 1e-3
 #   the control: the worst token within 2.5 stds, the mean within 0.7.
 TOL_SERVED_DEFICIT_BF16 = 2.5
 TOL_SERVED_MEAN_DEFICIT_BF16 = 0.7
+# 20 (b), (d): in an MoE model those rounding differences (the decode rows
+#   of a mixed pass also take the ragged expert product, generate's T = 1
+#   steps the dense all-experts one) reach the router, and where its k-th
+#   and (k+1)-th expert scores are close the served pass may route a
+#   token to another expert; with top-1 routing (Llama4) that token's
+#   logits then move by whole stds. So a step beyond
+#   TOL_SERVED_DEFICIT_BF16 passes only where the served pass's experts
+#   at that token (recorded while serving, ServedRoutes) differ from
+#   generate's at some MoE layer AND generate with the served experts
+#   forced there puts the served token within TOL_SERVED_DEFICIT_BF16:
+#   the flip must be seen and must account for the deficit. Every other
+#   step keeps the limit, and the mean gate is unchanged. The reading
+#   that called for it (Scout's 8-layer cut, NVIDIA H100 80GB HBM3,
+#   700 W, 284 tokens): one step at 3.56 stds, position 8213 of the
+#   8170-token request, where generate's top-1 router gap was 3.5e-4.
 # 19 (d) the fp32 (TF32 off) cuts, kernel path against gather path on the
 #   same weights and tokens: the paged kernel sums the same fp32 products
 #   in another order (split-K online softmax against one softmax), ~1e-6
@@ -679,6 +784,13 @@ TOL_SERVED_MEAN_DEFICIT_BF16 = 0.7
 #   leaves 100x, while a cap, window or rotation the kernel path dropped
 #   moves them by whole percents.
 TOL_DENSE_PATHS_FP32_REL = 1e-4
+# 20 (c), (e) the fp32 (TF32 off) cuts, the paged app against the
+#   contiguous app on the same weights and tokens: the same fp32 math in
+#   other orders (the paged gather / the decode kernels against the
+#   contiguous cache's reads), ~1e-6 relative after a few layers; 1e-4
+#   relative RMS of the teacher-forced logits leaves 100x. 20 (e)'s clip
+#   control must part by more than TOL_QUANT_CONTROL_REL (1e-2).
+TOL_MOE_FAMILIES_PATHS_FP32_REL = 1e-4
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1854,11 +1966,18 @@ def _phase_contiguous_serving(hf, device):
                              "flash kernel")
 
 
+def peak_flops(x) -> float:
+    """The card's peak rate for ``x``'s dtype: fp32 runs on the CUDA
+    cores, bf16 (and fp8 pages, widened to bf16) on the tensor cores."""
+    return PEAK_FLOPS.get(str(x.dtype).replace("torch.", ""),
+                          PEAK_FLOPS["bfloat16"])
+
+
 def decode_bounds(inputs, sink=False):
     """Least time for the contiguous decode kernel's work on the H100:
     bytes (each live K/V row once, q, new_k/new_v, out, lens, the fp32
     sinks) over the HBM rate and operations (QK and PV over the live keys
-    plus the active token) over the bf16 peak; returns (ms,
+    plus the active token) over the peak rate of q's dtype; returns (ms,
     "bytes"|"operations")."""
     q, kc = inputs["q"], inputs["k_cache"]
     b, hq, d = q.shape
@@ -1868,15 +1987,15 @@ def decode_bounds(inputs, sink=False):
               + (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
               + 4 * b + (4 * hq if sink else 0))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * (keys + b) * hq * d / PEAK_FLOPS["bfloat16"] * 1e3
+    ops_ms = 4 * (keys + b) * hq * d / peak_flops(q) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
 
 
 def flash_bounds(q, k, window: int = 0):
-    """Least time for the flash kernel's causal work: tensor-core
-    operations 4 * B * Hq * D * sum_q min(q + 1, window) keys (the keys
-    each query attends) over the bf16 peak, and bytes (q, k, v read once,
+    """Least time for the flash kernel's causal work: operations 4 * B *
+    Hq * D * sum_q min(q + 1, window) keys (the keys each query attends)
+    over the peak rate of q's dtype, and bytes (q, k, v read once,
     out written once) over the HBM rate."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -1884,7 +2003,7 @@ def flash_bounds(q, k, window: int = 0):
         keys = window * (window + 1) // 2 + (s - window) * window
     else:
         keys = s * (s + 1) // 2
-    ops_ms = (4 * b * hq * d * keys / PEAK_FLOPS["bfloat16"] * 1e3)
+    ops_ms = (4 * b * hq * d * keys / peak_flops(q) * 1e3)
     bytes_ms = ((2 * b * s * hq * d + 2 * b * s * hkv * d)
                 * q.element_size() / HBM_BYTES_PER_S * 1e3)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
@@ -2175,7 +2294,8 @@ def profile_summary(recs, kind):
 def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                          on_card=True, phase="ragged_serving",
                          fp32_gemm_ms=0.0, before_pass=None,
-                         kernel_layers=(-1,), tcfg_over=None, after=None):
+                         kernel_layers=(-1,), tcfg_over=None, after=None,
+                         kernel=True):
     """Phase 9 (and 14 (c) as ``phase="moe_serving"``, 15 (b) as
     ``"oss_serving"``): the ragged engine at full width and depth, bf16.
     ``fp32_gemm_ms``: the fp32 GEMM time a traced mixed pass may take (0
@@ -2185,8 +2305,9 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     kernel entry each); ``tcfg_over``: more make_ragged_app arguments
     (phase 18's quantized weights and fp8 cache, phase 19's batch);
     ``after(app, prompts, streams)`` runs last (phase 19's check of the
-    streams against ``generate``). Returns (app, prompts, kernel entries,
-    per-pass records)."""
+    streams against ``generate``); ``kernel`` False: the model takes no
+    kernel (phase 20's Llama4), so the paged kernel must launch 0 times.
+    Returns (app, prompts, kernel entries, per-pass records)."""
     import numpy as np
     import torch
     app = make_ragged_app(hf, device, "bfloat16", cfg, **(tcfg_over or {}))
@@ -2231,7 +2352,7 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     layers = hf["num_hidden_layers"]
     decode_steps, want = check_ragged_passes(phase, recs, launches,
                                              layers)
-    want = want if on_card else 0
+    want = want if on_card and kernel else 0
     st = ad.host_stats
     emit({"phase": phase, "layers": layers,
           "requests": len(prompts), "prompt_lens": list(cfg["lens"]),
@@ -2256,8 +2377,9 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     check_no_incidents(phase, app)
     if launches != want:
         raise AssertionError(f"{phase}: paged kernel launches "
-                             f"{launches} != {layers} x {decode_steps} "
-                             "all-decode ragged steps")
+                             f"{launches} != {want} ({layers} x "
+                             f"{decode_steps} all-decode ragged steps "
+                             f"with the kernel: {kernel})")
     check_streams(phase, streams, new_tokens, hf["vocab_size"])
     fp32_gemms = [(k, ms) for k, ms in mixed.get("top_kernels_ms_per_pass",
                                                  ()) if "f32f32" in k]
@@ -2458,11 +2580,11 @@ def phase_ragged_fp32(hf, device, cfg=RAGGED,
 
 
 def _ragged_run(phase, app, prompts, new_tokens, cfg, sync, layers,
-                on_card, snapshot_of=None):
+                on_card, snapshot_of=None, kernel=True):
     """Serve the phase-9 schedule on ``app``'s ragged engine
     (``snapshot_of(adapter)`` makes the per-pass snapshot callback); gates
-    (a), (b) with replays counted. Returns (streams, passes, launches,
-    all-decode steps)."""
+    (a), (b) with replays counted (``kernel`` False: no launch at all).
+    Returns (streams, passes, launches, all-decode steps)."""
     reset_launches([app])
     eng = ragged_engine(app, True, cfg)
     snapshot = snapshot_of(eng.adapter) if snapshot_of else None
@@ -2470,7 +2592,7 @@ def _ragged_run(phase, app, prompts, new_tokens, cfg, sync, layers,
                                       snapshot=snapshot)
     launches = kernel_counts([app])["paged_decode_attention"]
     decode_steps, want = check_ragged_passes(phase, recs, launches, layers)
-    want = want if on_card else 0
+    want = want if on_card and kernel else 0
     check_streams(phase, streams, new_tokens, app.spec.vocab_size)
     if launches != want:
         raise AssertionError(f"{phase}: paged kernel launches {launches} "
@@ -3831,14 +3953,16 @@ class PagedArgsSpy:
     """The distinct (layer, window, sink given) of the paged kernel's
     launches while it is active, eager launches and launches recorded into
     a CUDA graph alike (a replay repeats what its capture recorded); on
-    the CPU, of its plain twin's calls; and in ``caps`` the distinct
-    (layer, soft-cap). It listens where the wrapper hands its arguments to
-    the launch, so the wrapper and its counts stay as they are."""
+    the CPU, of its plain twin's calls; in ``caps`` the distinct
+    (layer, soft-cap), in ``groups`` the distinct GQA groups (query
+    heads per KV head) and in ``ints`` the launches' distinct integer
+    arguments (kernel launches only). It listens where the wrapper hands its arguments
+    to the launch, so the wrapper and its counts stay as they are."""
 
     WRAPPER = "paged_decode_attention"
     # the launch's int arguments: [b, layer, pages, bs, hkv, g, d, mb,
     # splits, window]
-    LAYER, WINDOW = 1, 9
+    LAYER, GROUP, WINDOW = 1, 5, 9
 
     def __enter__(self):
         from neuronx_distributed_inference_tpu_torch.ops import \
@@ -3850,12 +3974,16 @@ class PagedArgsSpy:
         wrapper = getattr(da, self.WRAPPER)
         self.calls = set()
         self.caps = set()
+        self.groups = set()
+        self.ints = set()
 
         def split_k(wrapper_, fn, q, hkv, splits, ptrs, ints, sink, *a, **k):
             if wrapper_ is wrapper:
+                self.ints.add(tuple(int(x) for x in ints))
                 self.calls.add((ints[self.LAYER], ints[self.WINDOW],
                                 sink is not None))
                 self.caps.add((ints[self.LAYER], k.get("soft_cap")))
+                self.groups.add(ints[self.GROUP])
             return self._split_k(wrapper_, fn, q, hkv, splits, ptrs, ints,
                                  sink, *a, **k)
 
@@ -3863,6 +3991,7 @@ class PagedArgsSpy:
             self.calls.add((int(a[5]), int(k.get("window", 0)),
                             k.get("sink") is not None))
             self.caps.add((int(a[5]), k.get("soft_cap")))
+            self.groups.add(a[0].shape[1] // a[3].shape[1])
             return self._plain(*a, **k)
         da._split_k = split_k
         setattr(da, self._plain_name, plain)
@@ -3879,7 +4008,29 @@ class ContiguousArgsSpy(PagedArgsSpy):
 
     WRAPPER = "decode_attention_stacked"
     # [b, layer, hkv, g, d, s_len, splits, window]
-    LAYER, WINDOW = 1, 7
+    LAYER, GROUP, WINDOW = 1, 3, 7
+
+
+class FlashShapes:
+    """The (q shape, k shape, dtype) of every flash-kernel launch while
+    active, read where the wrapper checks the kernel's shape gate
+    (``check_kernel_shapes``, on the launch path only), so the wrapper
+    and its counts stay as they are."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.ops import \
+            flash_attention as fa
+        self._fa, self._check = fa, fa.check_kernel_shapes
+        self.calls = []
+
+        def check(q, k, v, *a, **kw):
+            self.calls.append((tuple(q.shape), tuple(k.shape), q.dtype))
+            return self._check(q, k, v, *a, **kw)
+        fa.check_kernel_shapes = check
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.check_kernel_shapes = self._check
 
 
 def check_layer_args(phase, calls, hf):
@@ -5992,7 +6143,186 @@ def check_dense_args(phase, spy, hf):
             f"{sorted(spy.caps ^ want_caps)[:4]}")
 
 
-def served_vs_generate(phase, chunk):
+class ServedRoutes:
+    """Every MoE layer's top-k expert ids for every token the ragged
+    engine serves while active, read where ``modules/moe.route`` returns
+    them: an eager pass keeps them as they come; a T = 1 graph keeps the
+    ids tensors its capture recorded (graph memory, rewritten by each
+    replay), stacked after each replay of a dispatch (one copy kernel a
+    decode pass; nothing in a dense model). Each dispatch keeps its rows'
+    (seq_id, offset, width) and input ids. :meth:`experts` reads them
+    back."""
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from neuronx_distributed_inference_tpu_torch.models.cuda_graphs \
+            import StepGraphs
+        from neuronx_distributed_inference_tpu_torch.modules import \
+            moe as moe_mod
+        from neuronx_distributed_inference_tpu_torch.serving.ragged.path \
+            import RaggedDispatchPath
+        self._saved = ((moe_mod, "route", moe_mod.route),
+                       (StepGraphs, "run", StepGraphs.run),
+                       (RaggedDispatchPath, "_dispatch_ragged",
+                        RaggedDispatchPath._dispatch_ragged))
+        route, run, dispatch = (f for _, _, f in self._saved)
+        self.dispatches = []
+        cur = [None]                # the dispatch being run
+        captured = {}               # (graphs, sig) -> the capture's ids
+        in_graph = [None]           # the ids list of a capture, or []
+
+        def spy_route(moe, h, router_w, router_bias=None):
+            vals, idx = route(moe, h, router_w, router_bias)
+            if in_graph[0] is not None:
+                if torch.cuda.is_current_stream_capturing():
+                    in_graph[0].append(idx)
+            elif cur[0] is not None:
+                cur[0]["experts"].append(idx)
+            return vals, idx
+
+        def spy_run(graphs, sig, fn, inputs):
+            key = (id(graphs), sig)
+            if sig not in graphs._graphs:
+                captured[key] = []
+            in_graph[0] = captured.get(key, [])
+            try:
+                out = run(graphs, sig, fn, inputs)
+            finally:
+                in_graph[0] = None
+            if cur[0] is not None and captured.get(key):
+                cur[0]["experts"] = list(torch.stack(captured[key]))
+            return out
+
+        def spy_dispatch(path, ids, pos, slots, bt, wid, emit, seeds, rows):
+            cur[0] = {"rows": [(r.seq_id, r.offset, r.width) for r in rows],
+                      "pos": np.asarray(pos)[:len(rows), 0].tolist(),
+                      "ids": (np.asarray(ids) if isinstance(ids, np.ndarray)
+                              else None), "experts": []}
+            try:
+                return dispatch(path, ids, pos, slots, bt, wid, emit, seeds,
+                                rows)
+            finally:
+                self.dispatches.append(cur[0])
+                cur[0] = None
+        moe_mod.route = spy_route
+        StepGraphs.run = spy_run
+        RaggedDispatchPath._dispatch_ragged = spy_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, f in self._saved:
+            setattr(owner, name, f)
+
+    def experts(self, prompt, position, n_moe):
+        """The served top-k experts (one sorted list per MoE layer) of the
+        request whose prompt is ``prompt`` at absolute ``position``, or
+        None where no dispatch recorded them."""
+        n = len(prompt)
+        seq = None
+        for d in self.dispatches:
+            for b, (sid, off, w) in enumerate(d["rows"]):
+                if (off == 0 and d["ids"] is not None
+                        and d["ids"][b, :min(w, n)].tolist()
+                        == list(prompt[:min(w, n)])):
+                    seq = sid
+        for d in reversed(self.dispatches):
+            for b, (sid, off, w) in enumerate(d["rows"]):
+                if sid != seq or not off <= position < off + w:
+                    continue
+                if d["pos"][b] != off or len(d["experts"]) != n_moe:
+                    raise AssertionError(
+                        f"served routes: row {b} at {d['pos'][b]} != {off},"
+                        f" {len(d['experts'])} MoE calls != {n_moe}")
+                return [sorted(e[b, position - off].tolist())
+                        for e in d["experts"]]
+        return None
+
+
+def router_check_at(app, prompt, served, step, chunk, experts):
+    """The reference's routing for the token whose logits give served
+    step ``step`` (an eager single-row ``generate`` of ``prompt`` fed
+    ``served``'s tokens, the app's graphs set aside so every router runs
+    in Python): its top-k experts at each MoE layer and its smallest gap
+    between the k-th and (k+1)-th expert score, and the served token's
+    deficit there, in logit stds. Where they differ from ``experts`` (the
+    served pass's, :class:`ServedRoutes`), the generate is run again with
+    the served experts forced at that token (their affinities as
+    ``modules/moe.route`` takes them), and the served token's deficit
+    under it is returned as ``forced_deficit``."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.modules import moe as moe_mod
+    orig = moe_mod.route
+    n_moe = sum(1 for *_, kind in model_base.layer_plan(app.spec)
+                if kind == "moe")
+    # step 0: the prompt's last token in the last prefill chunk's call;
+    # step j > 0: decode step j's (T = 1) calls, the generate's last
+    col = (len(prompt) - 1) % chunk if step == 0 else 0
+
+    def forced_vals(moe, h, router_w, router_bias, idx):
+        logits = h.float() @ router_w.float()
+        if router_bias is not None and moe.router_bias_mode == "logits":
+            logits = logits + router_bias
+        scores = (torch.sigmoid(logits) if moe.router_act == "sigmoid"
+                  else logits if moe.pre_softmax_topk
+                  else torch.softmax(logits, dim=-1))
+        vals = torch.gather(scores, -1, idx)
+        if moe.pre_softmax_topk and moe.router_act != "sigmoid":
+            vals = torch.softmax(vals, dim=-1)
+        if moe.normalize_topk:
+            vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True),
+                                      min=1e-20)
+        if moe.routed_scaling is not None:
+            vals = vals * moe.routed_scaling
+        return vals
+
+    def run(force, first):
+        calls = []
+
+        def spy(moe, h, router_w, router_bias=None):
+            vals, idx = orig(moe, h, router_w, router_bias)
+            logits = h.float() @ router_w.float()
+            scores = (torch.sigmoid(logits) if moe.router_act == "sigmoid"
+                      else torch.softmax(logits, dim=-1))
+            top = torch.topk(scores, moe.top_k + 1, dim=-1).values
+            calls.append(((top[..., -2] - top[..., -1])[0, col].item(),
+                          sorted(idx[0, col].tolist())))
+            if force is not None and len(calls) > first:
+                idx = idx.clone()
+                idx[0, col] = torch.as_tensor(force[len(calls) - 1 - first],
+                                              device=idx.device)
+                vals = vals.clone()
+                vals[0, col] = forced_vals(moe, h, router_w, router_bias,
+                                           idx)[0, col]
+            return vals, idx
+        graphs, app.graphs = app.graphs, None
+        moe_mod.route = spy
+        try:
+            lg = app.generate(np.asarray([prompt]), max_new_tokens=step + 1,
+                              return_logits=True,
+                              teacher_tokens=(np.asarray([served[:step]])
+                                              if step else None))["logits"]
+            app.release()
+        finally:
+            moe_mod.route = orig
+            app.graphs = graphs
+        row = np.asarray(lg[step][0, col if step == 0 else 0],
+                         np.float64)[:app.spec.vocab_size]
+        return calls, float(row.max() - row[served[step]]) / row.std()
+    calls, deficit = run(None, 0)
+    last = calls[-n_moe:]
+    out = {"router_gap": min(g for g, _ in last),
+           "reference_experts": [e for _, e in last],
+           "served_experts": experts, "deficit": deficit,
+           "forced_deficit": None}
+    if experts is not None and experts != out["reference_experts"]:
+        _, out["forced_deficit"] = run(experts, len(calls) - n_moe)
+    return out
+
+
+def served_vs_generate(phase, chunk, routes=None):
     """``after`` of :func:`phase_ragged_serving`: each served stream held
     to ``generate`` of its prompt on the same app and weights, from a cold
     cache (no prefix reused), in batches of the app's rows, prefill in
@@ -6000,8 +6330,14 @@ def served_vs_generate(phase, chunk):
     forcing). Gate: at every step the served token's logit is within
     TOL_SERVED_DEFICIT_BF16 logit stds of the top logit, and within
     TOL_SERVED_MEAN_DEFICIT_BF16 on average; the control, the token one id
-    further, must sit beyond the first at most steps."""
+    further, must sit beyond the first at most steps. In an MoE model a
+    step beyond the first limit passes only where the served pass routed
+    that token to other experts than ``generate`` did (``routes``, the
+    :class:`ServedRoutes` of the serving run) and ``generate`` with the
+    served experts forced there puts the served token back within it
+    (:func:`router_check_at`)."""
     import numpy as np
+    from neuronx_distributed_inference_tpu_torch.models import model_base
 
     def check(app, prompts, streams):
         # the served cache goes first: two caches do not fit beside the
@@ -6012,7 +6348,7 @@ def served_vs_generate(phase, chunk):
         app.init_cache()
         rows = app.tpu_config.batch_size
         served = [np.asarray(st.tokens) for st in streams]
-        deficits, controls, exact, per = [], [], 0, []
+        deficits, controls, exact, per, over = [], [], 0, [], []
         for lo in range(0, len(prompts), rows):
             part = list(range(lo, min(lo + rows, len(prompts))))
             width = max(len(prompts[i]) for i in part)
@@ -6031,26 +6367,50 @@ def served_vs_generate(phase, chunk):
             last = ((width - 1) // chunk) * chunk if width > chunk else 0
             for r, i in enumerate(part):
                 first = len(deficits)
+                steps = []
                 for j in range(want.shape[1]):
                     at = len(prompts[i]) - 1 - last
                     if j == 0 and at < 0:
                         continue
+                    steps.append(j)
                     row = (lg[0][r, at] if j == 0
                            else lg[j][r, 0]).astype(np.float64)
                     row = row[:app.spec.vocab_size]
                     top, std = row.max(), row.std()
                     deficits.append(float(top - row[want[r, j]]) / std)
+                    if deficits[-1] > TOL_SERVED_DEFICIT_BF16:
+                        over.append((i, j, deficits[-1]))
                     controls.append(float(
                         top - row[(want[r, j] + 1) % row.shape[0]]) / std)
                     exact += int(np.argmax(row) == want[r, j])
                 mine = deficits[first:]
+                worst_j = steps[int(np.argmax(mine))]
                 per.append({"prompt_len": len(prompts[i]),
                             "max_deficit": max(mine),
                             "mean_deficit": float(np.mean(mine)),
                             "steps_over_0.5": int(np.sum(
-                                np.asarray(mine) > 0.5))})
+                                np.asarray(mine) > 0.5)),
+                            "worst_step": worst_j,
+                            "worst_position": len(prompts[i]) + worst_j - 1})
             app.release()
         worst, mean = max(deficits), float(np.mean(deficits))
+        flips, unexplained = [], []
+        n_moe = sum(1 for *_, kind in model_base.layer_plan(app.spec)
+                    if kind == "moe")
+        for i, j, d in over:
+            got = None
+            if n_moe and routes is not None:
+                pos = len(prompts[i]) + j - 1
+                got = router_check_at(
+                    app, prompts[i], served[i], j, chunk,
+                    routes.experts(prompts[i], pos, n_moe))
+                flips.append({"request": i, "prompt_len": len(prompts[i]),
+                              "step": j, "position": pos, "deficit": d,
+                              **got})
+            if (got is None or got["forced_deficit"] is None
+                    or not got["forced_deficit"]
+                    <= TOL_SERVED_DEFICIT_BF16):
+                unexplained.append(d)
         far = float(np.mean(np.asarray(controls)
                             > TOL_SERVED_DEFICIT_BF16))
         emit({"phase": phase + "_vs_generate", "tokens": len(deficits),
@@ -6059,19 +6419,22 @@ def served_vs_generate(phase, chunk):
               "mean_bound": TOL_SERVED_MEAN_DEFICIT_BF16,
               "control_share_beyond_bound": far,
               "control_mean_deficit": float(np.mean(controls)),
+              "steps_over_bound": flips or [[i, j, d] for i, j, d in over],
               "by_request": per})
-        if not (worst <= TOL_SERVED_DEFICIT_BF16
-                and mean <= TOL_SERVED_MEAN_DEFICIT_BF16):
-            raise AssertionError(f"{phase}: served tokens sit up to {worst}"
-                                 f" (mean {mean}) logit stds below "
-                                 "generate's top logit")
+        if unexplained or not mean <= TOL_SERVED_MEAN_DEFICIT_BF16:
+            raise AssertionError(
+                f"{phase}: served tokens sit up to "
+                f"{max(unexplained, default=worst)} (mean {mean}) logit "
+                "stds below generate's top logit, not explained by the "
+                "served pass's experts")
         if not far > 0.5:
             raise AssertionError(f"{phase}: the control sits within the "
                                  f"bound at {1 - far:.2f} of the steps")
     return check
 
 
-def phase_dense_serving(hf, device, cfg, phase, kernel_layers):
+def phase_dense_serving(hf, device, cfg, phase, kernel_layers, kernel=True,
+                        group=None):
     """19 (b), (c): ``hf`` at full width on phase 9's engine and schedule,
     bf16, batch 4, with ``cfg``'s seq_len, prompts and chunk, the app
     built with output logits and ``generate``'s prefill chunked as the
@@ -6079,14 +6442,16 @@ def phase_dense_serving(hf, device, cfg, phase, kernel_layers):
     one fetch a pass, paged launches = layers x all-decode steps, no
     incident, full streams), weight bytes equal the geometry's, every
     launch at its layer's window and soft-cap, the streams held to
-    ``generate``. Returns the kernels-line entries (the paged kernel over
-    the served cache at ``kernel_layers``)."""
+    ``generate``. ``kernel`` False (phase 20's Llama4): the paged kernel
+    launches 0 times and the spy sees no call; ``group``: every launch at
+    this GQA group (phase 20's DBRX: 6). Returns the kernels-line entries
+    (the paged kernel over the served cache at ``kernel_layers``)."""
     from neuronx_distributed_inference_tpu_torch.config import \
         ChunkedPrefillConfig
     on_card = device.type == "cuda"
     if on_card:
         check_card_empty(phase)
-    with PagedArgsSpy() as spy:
+    with PagedArgsSpy() as spy, ServedRoutes() as routes:
         app, _, entries, recs = phase_ragged_serving(
             hf, device, cfg=cfg, phase=phase, kernel_layers=kernel_layers,
             on_card=on_card,
@@ -6094,8 +6459,19 @@ def phase_dense_serving(hf, device, cfg, phase, kernel_layers):
                            is_chunked_prefill=True,
                            chunked_prefill_config=ChunkedPrefillConfig(
                                kernel_q_tile_size=cfg["chunk"])),
-            after=served_vs_generate(phase, cfg["chunk"]))
-    check_dense_args(phase, spy, hf)
+            after=served_vs_generate(phase, cfg["chunk"], routes),
+            kernel=kernel)
+    if kernel:
+        check_dense_args(phase, spy, hf)
+    emit({"phase": phase + "_kernel_spy", "calls": len(spy.calls),
+          "groups": sorted(spy.groups), "expected_group": group,
+          "kernel_expected": kernel})
+    if not kernel and spy.calls:
+        raise AssertionError(f"{phase}: the paged kernel was called at "
+                             f"{sorted(spy.calls)[:4]}")
+    if group is not None and spy.groups != {group}:
+        raise AssertionError(f"{phase}: paged kernel groups "
+                             f"{sorted(spy.groups)} != {{{group}}}")
     emit({"phase": phase + "_bytes",
           "weight_gb": param_bytes(app.params) / 1e9,
           "cache_gb": cache_bytes(app) / 1e9})
@@ -6285,8 +6661,544 @@ def phase_dense(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: Llama4 text and DBRX
+# ---------------------------------------------------------------------------
+
+def moe_families_cut(hf, layers, **over):
+    """``hf`` cut to ``layers`` layers (DBRX's ``n_layers`` with it), with
+    ``over`` replacing fields."""
+    cut = dict(hf, num_hidden_layers=layers, **over)
+    if "n_layers" in hf:
+        cut["n_layers"] = layers
+    return cut
+
+
+def family_spec(hf, **tcfg):
+    """The DecoderSpec ``hf``'s family resolves (no weights, no device)."""
+    from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+    from neuronx_distributed_inference_tpu_torch.models.family import \
+        get_family
+    family = get_family(hf["model_type"])
+    return family.build_spec(family.config_cls(
+        TpuConfig(**dict(dict(batch_size=4, seq_len=8192), **tcfg)), **hf))
+
+
+def check_moe_family_specs():
+    """Gate: the specs of 20 (b) and (d) as the geometries say: Scout's
+    8-layer cut NoPE at layers 3 and 7 (the global layers), chunked at
+    8192 elsewhere, every layer MoE, the q/k norm and the temperature;
+    DBRX's LayerNorm, clip 8 and G 6. Both refused by every kernel gate
+    but DBRX's, which both decode gates admit."""
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    scout = family_spec(moe_families_cut(LLAMA4_SCOUT, LLAMA4_CUT),
+                        seq_len=LLAMA4_SERVE["seq_len"])
+    dbrx = family_spec(moe_families_cut(DBRX_INSTRUCT, DBRX_CUT))
+    got = {
+        "llama4": {"layer_pattern": scout.layer_pattern,
+                   "moe_pattern": scout.moe_pattern,
+                   "stacks": sorted({k for k, *_ in
+                                     model_base.layer_plan(scout)}),
+                   "attn_chunk": scout.attn_chunk,
+                   "attn_temp": scout.attn_temp,
+                   "qk_l2_norm": scout.qk_l2_norm,
+                   "rope": [scout.rope.scaling_type,
+                            scout.rope.scaling_factor],
+                   "group": scout.gqa.q_per_kv,
+                   "decode_gate": decode_attention.supports(scout, 1),
+                   "flash_gate": model_base.use_flash_prefill(scout, 512)},
+        "dbrx": {"norm_type": dbrx.norm_type, "qkv_clip": dbrx.qkv_clip,
+                 "group": dbrx.gqa.q_per_kv, "moe_top_k": dbrx.moe.top_k,
+                 "decode_gate": decode_attention.supports(dbrx, 1)}}
+    emit({"phase": "moe_families_specs", **got})
+    nope = tuple(i not in (3, 7) for i in range(LLAMA4_CUT))
+    ok = (scout.layer_pattern == nope and scout.moe_pattern == (True,) * 8
+          and scout.attn_chunk == 8192 and scout.attn_temp == (8192.0, 0.1)
+          and scout.qk_l2_norm and scout.nope_global
+          and not got["llama4"]["decode_gate"]
+          and dbrx.norm_type == "layernorm" and dbrx.qkv_clip == 8.0
+          and dbrx.gqa.q_per_kv == 6 and got["dbrx"]["decode_gate"])
+    if not ok:
+        raise AssertionError(f"moe_families specs: {got}")
+
+
+def _phase_moe_families_kernels(device):
+    """20 (a): both decode kernels at DBRX's heads (48 q over 8 KV heads of
+    128: G 6, which the kernels run on their 8-wide instantiation with two
+    dead rows a group), B 4, lens 300-7000, over bf16 and scaled fp8
+    pages (the paged kernel) and caches of 8192 slots (the contiguous
+    one), each within one bf16 ulp of its twin's largest output, with a
+    control (the twin reading KV head h // 8 for query head h) that must
+    part beyond it; and the flash kernel at those heads (bf16, B 2, S
+    2048) held to its twin. Each then timed by CUDA-graph replay beside
+    the twin, SDPA over the same keys (dequantized for fp8) and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    cfg = DBRX_INSTRUCT
+    hq, hkv = cfg["n_heads"], cfg["attn_config"]["kv_n_heads"]
+    d = cfg["d_model"] // hq
+    scale = d ** -0.5
+    lens = list(G6_KERNEL_LENS)
+    b = len(lens)
+    bf = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(20)
+    mb = -(-(max(lens) + 1) // 32)
+    geometry = {"Hq": hq, "Hkv": hkv, "D": d, "G": hq // hkv, "lens": lens}
+    # the control: query head h read from KV head h // 8 (G 8's map), not
+    # h // 6
+    heads = torch.arange(hq, device=device) // 8
+
+    def wrong_heads(x, *named):
+        return [x[n].index_select(dim, heads) for n, dim in named]
+
+    def g6_gate(kernel, tag, geometry, got, want, control):
+        """Gate: the kernel within one bf16 ulp of the twin's largest
+        output (tol_decode_bf16); on bf16 pages, the twin at the wrong
+        head map (``control()``) parts from the kernel beyond it."""
+        tol = tol_decode_bf16(want)
+        err = (got.float() - want.float()).abs().max().item()
+        ctl = (None if tag != "bf16" else
+               (got.float() - control().float()).abs().max().item())
+        emit({"phase": "moe_families_kernel_vs_twin", "kernel": kernel,
+              "case": f"dbrx_g6_{tag}", "geometry": geometry,
+              "max_abs_err": err, "tol": tol,
+              "control_h_over_8_max_abs_err": ctl})
+        if not (torch.isfinite(got.float()).all() and err <= tol):
+            raise AssertionError(f"{kernel} at G 6 ({tag}): {err} > {tol}")
+        if ctl is not None and not ctl > tol:
+            raise AssertionError(f"{kernel} at G 6 ({tag}): the h // 8 "
+                                 f"control sits within {tol} ({ctl})")
+        return err
+    out = {}
+    for tag, dt, kv_scale in (("bf16", bf, None),
+                              ("fp8", torch.float8_e4m3fn, G6_FP8_SCALE)):
+        kw = dict(scale=scale)
+        if kv_scale is not None:
+            kw["kv_scale"] = kv_scale
+        x = paged_inputs(gen, device, b=b, hq=hq, hkv=hkv, d=d, bs=32, mb=mb,
+                         lens=lens, act_dtype=bf, page_dtype=dt,
+                         kv_scale=kv_scale)
+        args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"],
+                0, x["lens"], x["block_table"])
+        err = g6_gate(
+            "paged_decode_attention", tag, geometry,
+            decode_attention.paged_decode_attention(*args, **kw),
+            decode_attention.paged_decode_attention_plain(*args, **kw),
+            lambda: decode_attention.paged_decode_attention_plain(
+                x["q"], *wrong_heads(x, ("k_pages", 3), ("v_pages", 3),
+                                     ("new_k", 1), ("new_v", 1)),
+                0, x["lens"], x["block_table"], **kw))
+        q4, k4, v4, m4 = sdpa_inputs(dict(x, **{
+            n: dequantized_pages(x[n], 0, kv_scale)
+            for n in ("k_pages", "v_pages")}), 0)
+        out[("paged", tag)] = timed_kernel(
+            lambda: decode_attention.paged_decode_attention(*args, **kw),
+            lambda: decode_attention.paged_decode_attention_plain(*args,
+                                                                  **kw),
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+            kernel_bounds(x), err,
+            {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "Bs": 32, "lens": lens,
+             "pages": tag})
+        del x, args, q4, k4, v4, m4
+        c = contiguous_inputs(gen, device, b=b, hq=hq, hkv=hkv, d=d,
+                              s=DBRX_SERVE["seq_len"], lens=lens,
+                              act_dtype=bf, cache_dtype=dt,
+                              kv_scale=kv_scale)
+        dargs, dkw = decode_args(c, kw)
+        err = g6_gate(
+            "decode_attention_stacked", tag,
+            dict(geometry, S=DBRX_SERVE["seq_len"]),
+            decode_attention.decode_attention_stacked(*dargs, **dkw),
+            decode_attention.decode_attention_stacked_plain(*dargs, **dkw),
+            lambda: decode_attention.decode_attention_stacked_plain(
+                c["q"], *wrong_heads(c, ("k_cache", 2), ("v_cache", 2),
+                                     ("new_k", 1), ("new_v", 1)),
+                0, c["lens"], **dkw))
+        plain = c if kv_scale is None else dict(c, **{
+            n: c[n].to(bf) * kv_scale for n in ("k_cache", "v_cache")})
+        q4, k4, v4, m4 = contiguous_sdpa_inputs(plain, 0)
+        out[("contig", tag)] = timed_kernel(
+            lambda: decode_attention.decode_attention_stacked(*dargs,
+                                                              **dkw),
+            lambda: decode_attention.decode_attention_stacked_plain(
+                *dargs, **dkw),
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=scale, enable_gqa=True),
+            decode_bounds(c), err,
+            {"B": b, "Hq": hq, "Hkv": hkv, "D": d,
+             "S": DBRX_SERVE["seq_len"], "lens": lens, "cache": tag})
+        del c, dargs, plain, q4, k4, v4, m4
+    fx = {n: torch.randn((2, 2048, h, d), generator=gen,
+                         device=device).to(bf)
+          for n, h in (("q", hq), ("k", hkv), ("v", hkv))}
+    err = check_flash_against_twin(fx, dict(scale=scale))
+    tol = tol_flash_bf16(fx)
+    emit({"phase": "moe_families_kernel_vs_twin",
+          "kernel": "flash_attention", "case": "dbrx_g6_bf16_s2048",
+          "geometry": {"Hq": hq, "Hkv": hkv, "D": d, "G": hq // hkv},
+          "max_abs_err": err, "tol": tol})
+    if not err <= tol:
+        raise AssertionError(f"flash kernel at G 6: {err} > {tol}")
+    qt, kt, vt = (fx[n].transpose(1, 2).contiguous() for n in "qkv")
+    out[("flash", "bf16")] = timed_kernel(
+        lambda: flash_attention.flash_attention(fx["q"], fx["k"], fx["v"],
+                                                scale=scale),
+        lambda: flash_attention.flash_attention_plain(
+            fx["q"], fx["k"], fx["v"], scale=scale),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=scale, enable_gqa=True),
+        flash_bounds(fx["q"], fx["k"]), err,
+        {"B": 2, "S": 2048, "Hq": hq, "Hkv": hkv, "D": d},
+        plain_calls=3, calls=20)
+    del fx, qt, kt, vt
+    names = {"paged": "paged_decode_attention",
+             "contig": "decode_attention_stacked",
+             "flash": "flash_attention"}
+    for (kind, tag), t in out.items():
+        emit({"phase": "moe_families_kernel_timings", "kernel": names[kind],
+              "case": f"dbrx_g6_{tag}", "kernel_us": t["ms"] * 1e3,
+              "bound_us": t["bound_ms"] * 1e3, "bound_by": t["bound_by"],
+              "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3, "library": "SDPA",
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    # comparison launches are not main-path launches
+    reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_logits_rel_rms(got, want, lens):
+    """:func:`logits_rel_rms` of two ``generate`` logits lists over each
+    row's last prompt token (the prefill's column ``lens[i] - 1``) and
+    every decode step."""
+    import numpy as np
+
+    def pick(lg):
+        return ([np.asarray(lg[0][i, n - 1]) for i, n in enumerate(lens)]
+                + [np.asarray(x) for x in lg[1:]])
+    return logits_rel_rms(pick(got), pick(want))
+
+
+def _phase_llama4_fp32(device):
+    """20 (c): Scout's widths at Maverick's interleave (layers 1 and 3
+    MoE, layer 3 NoPE), 4 layers, fp32 (TF32 off), the attention chunk
+    cut to 64 (prompts of 37-500 tokens cross chunks). The contiguous
+    app's ``generate`` (``attn_kernel_enabled``; every gate refuses the
+    chunk) against the paged app on the same weights: the paged
+    ``generate`` fed the contiguous tokens within
+    TOL_MOE_FAMILIES_PATHS_FP32_REL, and the ragged engine's streams equal
+    the contiguous ones (a first difference only at a near-tie). No
+    kernel launches on either app."""
+    import numpy as np
+    import torch
+    hf = moe_families_cut(LLAMA4_SCOUT, LLAMA4_CHECK_LAYERS,
+                          interleave_moe_layer_step=2,
+                          attention_chunk_size=LLAMA4_CHECK_CHUNK)
+    cfg = MOE_FAMILIES_CHECK
+    new = MOE_FAMILIES_CHECK_TOKENS
+    on_card = device.type == "cuda"
+    ids, mask = prompts_of(cfg["lens"], hf["vocab_size"], seed=21)
+    lens = mask.sum(axis=1)
+    papp = make_ragged_app(hf, device, "float32", cfg, batch=len(lens),
+                           output_logits=True, graphs=False)
+    init_weights(papp, 0)
+    spec = papp.spec
+    if (spec.moe_pattern != (False, True, False, True)
+            or spec.layer_pattern != (True, True, True, False)
+            or spec.attn_chunk != LLAMA4_CHECK_CHUNK):
+        raise AssertionError(f"llama4_fp32: spec {spec.moe_pattern} "
+                             f"{spec.layer_pattern} {spec.attn_chunk}")
+    capp = make_contiguous_app(hf, device, "float32", batch=len(lens),
+                               seq_len=cfg["seq_len"], output_logits=True)
+    capp.params = papp.params
+    reset_launches([papp, capp])
+    want = capp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                         return_logits=True)
+    toks = np.asarray(want["generated"])
+    got = papp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                        return_logits=True, teacher_tokens=toks[:, :-1])
+    rel = generate_logits_rel_rms(got["logits"], want["logits"], lens)
+    counts = kernel_counts([papp, capp])
+    papp.init_cache()
+    prompts = [ids[i, :lens[i]].tolist() for i in range(len(lens))]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    streams, recs, launches, steps = _ragged_run(
+        "llama4_fp32_ragged", papp, prompts, new, cfg, sync,
+        hf["num_hidden_layers"], on_card, kernel=False)
+    check_equal_streams("llama4_fp32_ragged_vs_contiguous",
+                        np.asarray([st.tokens for st in streams]), toks,
+                        lambda i, j, lg=want["logits"]: (
+                            lg[0][i, lens[i] - 1] if j == 0
+                            else lg[j][i, 0]))
+    emit({"phase": "llama4_fp32", "layers": hf["num_hidden_layers"],
+          "attention_chunk": LLAMA4_CHECK_CHUNK,
+          "prompt_lens": list(cfg["lens"]), "new_tokens": new,
+          "paged_vs_contiguous_logits_rel_rms": rel,
+          "tol": TOL_MOE_FAMILIES_PATHS_FP32_REL, "generate_launches": counts,
+          "ragged_launches": launches, "ragged_passes": len(recs),
+          "all_decode_ragged_steps": steps})
+    if not rel <= TOL_MOE_FAMILIES_PATHS_FP32_REL:
+        raise AssertionError(f"llama4_fp32: paged vs contiguous logits "
+                             f"{rel}")
+    if any(counts.values()):
+        raise AssertionError(f"llama4_fp32: kernel launches {counts}")
+    del papp, capp, streams, recs
+    if on_card:
+        free_card()
+
+
+def qkv_clip_share(app, ids, mask):
+    """The share of layer 0's q/k/v values on the prompts' tokens beyond
+    +-``qkv_clip`` (before the clamp)."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.ops.normalization import \
+        layer_norm
+    w = app.params["layers"]
+    tok = torch.as_tensor(ids[mask.astype(bool)], device=app.device).long()
+    h = layer_norm(app.params["embed"][tok], w["input_norm"][0], None,
+                   app.spec.rms_eps)
+    qkv = h @ w["qkv_proj"][0]
+    return float((qkv.abs() > app.spec.qkv_clip).float().mean())
+
+
+def _phase_dbrx_fp32(device):
+    """20 (e): DBRX at 2 layers, fp32 (TF32 off), ``W_qkv`` drawn at
+    DBRX_QKV_STD so the clamp bites (the share of layer 0's q/k/v values
+    beyond 8 is gated at DBRX_CLIP_SHARE). ``TpuDbrxForCausalLM``'s app
+    (flash prefill and the contiguous decode kernel at G 6, after
+    ``precompile``) against the paged app on the same weights: the ragged
+    engine's streams equal the contiguous ones (a first difference only at
+    a near-tie; paged launches = layers x all-decode steps), the paged
+    ``generate`` fed the contiguous tokens within
+    TOL_MOE_FAMILIES_PATHS_FP32_REL, and the control without the clamp
+    (``qkv_clip=None``) beyond TOL_QUANT_CONTROL_REL. Returns the
+    contiguous app's (decode-kernel, flash) launches and
+    :func:`dbrx_fp32_kernels`' numbers at its shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    hf = moe_families_cut(DBRX_INSTRUCT, DBRX_CHECK_LAYERS)
+    cfg = MOE_FAMILIES_CHECK
+    new = MOE_FAMILIES_CHECK_TOKENS
+    layers = hf["num_hidden_layers"]
+    on_card = device.type == "cuda"
+    ids, mask = prompts_of(cfg["lens"], hf["vocab_size"], seed=22)
+    lens = mask.sum(axis=1)
+    papp = make_ragged_app(hf, device, "float32", cfg, batch=len(lens),
+                           output_logits=True, graphs=False)
+    init_weights(papp, 0)
+    gen = torch.Generator(device=device).manual_seed(23)
+    papp.params["layers"]["qkv_proj"].normal_(0.0, DBRX_QKV_STD,
+                                              generator=gen)
+    share = qkv_clip_share(papp, ids, mask)
+    with ContiguousArgsSpy() as spy:
+        capp = make_contiguous_app(hf, device, "float32", batch=len(lens),
+                                   seq_len=cfg["seq_len"],
+                                   output_logits=True)
+        capp.params = papp.params
+        # the T = 1 decode graphs are captured here, not inside generate
+        warm(capp, "dbrx_fp32_contiguous")
+        reset_launches([capp])
+        with FlashShapes() as flash:
+            want = capp.generate(ids, attention_mask=mask,
+                                 max_new_tokens=new, return_logits=True)
+        counts = kernel_counts([capp])
+    spec = capp.spec
+    times = dbrx_fp32_kernels(
+        device, spy.ints, flash.calls, [int(n) + new - 2 for n in lens],
+        dict(scale=spec.scale, window=spec.sliding_window,
+             soft_cap=spec.attn_soft_cap))
+    toks = np.asarray(want["generated"])
+    want_decode = layers * (new - 1) if on_card else 0
+    want_flash = layers if on_card else 0
+
+    def logit_at(i, j, lg=want["logits"]):
+        return lg[0][i, lens[i] - 1] if j == 0 else lg[j][i, 0]
+    papp.init_cache()
+    prompts = [ids[i, :lens[i]].tolist() for i in range(len(lens))]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    streams, recs, launches, steps = _ragged_run(
+        "dbrx_fp32_ragged", papp, prompts, new, cfg, sync, layers, on_card)
+    check_equal_streams("dbrx_fp32_ragged_vs_contiguous",
+                        np.asarray([st.tokens for st in streams]), toks,
+                        logit_at)
+    papp.init_cache()
+    got = papp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                        return_logits=True, teacher_tokens=toks[:, :-1])
+    rel = generate_logits_rel_rms(got["logits"], want["logits"], lens)
+    papp.init_cache()
+    papp.spec = dataclasses.replace(papp.spec, qkv_clip=None)
+    ctl = papp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                        return_logits=True, teacher_tokens=toks[:, :-1])
+    control = generate_logits_rel_rms(ctl["logits"], want["logits"], lens)
+    emit({"phase": "dbrx_fp32", "layers": layers,
+          "prompt_lens": list(cfg["lens"]), "new_tokens": new,
+          "qkv_std": DBRX_QKV_STD, "clipped_share": share,
+          "clipped_share_min": DBRX_CLIP_SHARE,
+          "paged_vs_contiguous_logits_rel_rms": rel,
+          "tol": TOL_MOE_FAMILIES_PATHS_FP32_REL,
+          "no_clip_control_rel_rms": control,
+          "control_min": TOL_QUANT_CONTROL_REL,
+          "contiguous_launches": counts,
+          "expected": {"decode_attention_stacked": want_decode,
+                       "flash_attention": want_flash},
+          "contiguous_kernel_calls": sorted(spy.calls),
+          "contiguous_kernel_groups": sorted(spy.groups),
+          "ragged_paged_launches": launches,
+          "all_decode_ragged_steps": steps})
+    if not share >= DBRX_CLIP_SHARE:
+        raise AssertionError(f"dbrx_fp32: only {share} of q/k/v beyond the "
+                             "clip")
+    if not rel <= TOL_MOE_FAMILIES_PATHS_FP32_REL:
+        raise AssertionError(f"dbrx_fp32: paged vs contiguous logits {rel}")
+    if not control > TOL_QUANT_CONTROL_REL:
+        raise AssertionError(f"dbrx_fp32: without the clip the logits move "
+                             f"by {control} only")
+    if (counts["decode_attention_stacked"] != want_decode
+            or counts["flash_attention"] != want_flash
+            or spy.groups != {6}
+            or spy.calls != {(i, 0, False) for i in range(layers)}):
+        raise AssertionError(f"dbrx_fp32: contiguous launches {counts}, "
+                             f"calls {sorted(spy.calls)}, groups "
+                             f"{sorted(spy.groups)}")
+    del papp, capp, streams, recs
+    if on_card:
+        free_card()
+    return (counts["decode_attention_stacked"], counts["flash_attention"],
+            times)
+
+
+def dbrx_fp32_kernels(device, dec_ints, flash_calls, lens, fkw):
+    """20 (e)'s two contiguous kernels at the shapes and dtype its main
+    path gave them: the decode kernel (fp32, the CUDA-core route) at the
+    launches' (B, Hkv, G, D, S) from ``dec_ints`` (the
+    :class:`ContiguousArgsSpy` integers, B = the rows of ``lens``) with
+    ``lens`` live keys, and the
+    flash kernel at the first prefill launch's shapes from ``flash_calls``
+    (:class:`FlashShapes`) with the arguments ``fkw`` the prefill passes
+    it (the spec's scale, window and soft-cap); N(0, 1) inputs, each held
+    to its twin within TOL_KERNEL_FP32 and timed beside the twin, SDPA
+    and the bound. Returns {"contig": numbers, "flash": numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import (
+        decode_attention, flash_attention)
+    # the captures of every batch bucket; generate replays the one of
+    # its rows
+    geoms = {(i[0], i[2], i[3], i[4], i[5]) for i in dec_ints
+             if i[0] == len(lens)}
+    if len(geoms) != 1 or not flash_calls:
+        raise AssertionError(f"dbrx_fp32: decode launch shapes {geoms}, "
+                             f"{len(flash_calls)} flash calls")
+    b, hkv, g, d, s_len = geoms.pop()
+    gen = torch.Generator(device=device).manual_seed(24)
+    f32 = torch.float32
+    c = contiguous_inputs(gen, device, b=b, hq=hkv * g, hkv=hkv, d=d,
+                          s=s_len, lens=lens, act_dtype=f32,
+                          cache_dtype=f32)
+    kw = dict(scale=d ** -0.5)
+    err = check_decode_against_twin(c, kw)
+    shape = {"B": b, "Hq": hkv * g, "Hkv": hkv, "D": d, "S": s_len,
+             "lens": lens, "dtype": "float32"}
+    emit({"phase": "dbrx_fp32_kernel_vs_twin",
+          "kernel": "decode_attention_stacked", **shape,
+          "max_abs_err": err, "tol": TOL_KERNEL_FP32})
+    if not err <= TOL_KERNEL_FP32:
+        raise AssertionError(f"dbrx_fp32: contiguous kernel {err}")
+    dargs, dkw = decode_args(c, kw)
+    q4, k4, v4, m4 = contiguous_sdpa_inputs(c, 0)
+    out = {"contig": timed_kernel(
+        lambda: decode_attention.decode_attention_stacked(*dargs, **dkw),
+        lambda: decode_attention.decode_attention_stacked_plain(*dargs,
+                                                                **dkw),
+        lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, scale=kw["scale"], enable_gqa=True),
+        decode_bounds(c), err, shape)}
+    del c, dargs, q4, k4, v4, m4
+    *shapes, dtype = flash_calls[0]
+    shapes.append(shapes[1])                    # v is shaped as k
+    if dtype != f32:
+        raise AssertionError(f"dbrx_fp32: flash called at {dtype}")
+    fx = {n: torch.randn(sh, generator=gen, device=device, dtype=f32)
+          for n, sh in zip("qkv", shapes)}
+    err = check_flash_against_twin(fx, fkw)
+    shape = dict(zip(("B", "S", "Hq", "D"), shapes[0]), Hkv=shapes[1][2],
+                 dtype="float32")
+    emit({"phase": "dbrx_fp32_kernel_vs_twin", "kernel": "flash_attention",
+          **shape, "kwargs": fkw, "max_abs_err": err,
+          "tol": TOL_KERNEL_FP32})
+    if not err <= TOL_KERNEL_FP32:
+        raise AssertionError(f"dbrx_fp32: flash kernel {err}")
+    qt, kt, vt = (fx[n].transpose(1, 2).contiguous() for n in "qkv")
+    out["flash"] = timed_kernel(
+        lambda: flash_attention.flash_attention(fx["q"], fx["k"], fx["v"],
+                                                **fkw),
+        lambda: flash_attention.flash_attention_plain(fx["q"], fx["k"],
+                                                      fx["v"], **fkw),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=fkw["scale"],
+            enable_gqa=True),
+        flash_bounds(fx["q"], fx["k"], fkw.get("window") or 0), err, shape,
+        plain_calls=3, calls=20)
+    for kind, t in out.items():
+        emit({"phase": "dbrx_fp32_kernel_timings", "kernel": kind,
+              "kernel_us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
+              "bound_by": t["bound_by"], "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3, "library": "SDPA",
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    # comparison launches are not main-path launches
+    reset_launches()
+    return out
+
+
+def phase_moe_families(device):
+    """Group ``moe_families`` (phase 20 (a)-(e)); returns its kernels-line
+    entries: the paged kernel over DBRX's served cache at G 6 (with (d)'s
+    launches), and the contiguous decode and flash kernels with the
+    launches of (e)'s fp32 ``TpuDbrxForCausalLM`` run and the numbers
+    taken at that run's shapes and dtype (:func:`dbrx_fp32_kernels`)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    check_moe_family_specs()
+    _phase_moe_families_kernels(device)
+    memory_note("moe_families_kernels")
+    phase_dense_serving(moe_families_cut(LLAMA4_SCOUT, LLAMA4_CUT), device,
+                        LLAMA4_SERVE, "llama4_serving", (), kernel=False)
+    with fp32_exact():
+        _phase_llama4_fp32(device)
+    memory_note("llama4_fp32")
+    entries = phase_dense_serving(moe_families_cut(DBRX_INSTRUCT, DBRX_CUT),
+                                  device, DBRX_SERVE, "dbrx_serving", (-1,),
+                                  group=6)
+    with fp32_exact():
+        decode_launches, flash_launches, fp32_times = _phase_dbrx_fp32(
+            device)
+    memory_note("dbrx_fp32")
+    for kind, name, src, line, launches in (
+            ("contig", "decode_attention_stacked", "decode_attention.cu",
+             "decode_attention.py:41", decode_launches),
+            ("flash", "flash_attention", "flash_attention.cu",
+             "flash_attention.py:28", flash_launches)):
+        t = fp32_times[kind]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "neuronx_distributed_inference_tpu_torch/csrc/" + src,
+            "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
+            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": "dbrx_fp32_contiguous", "shape": t["shape"]})
+    return entries
+
+
 GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
-          "long", "mla", "quant", "dense")
+          "long", "mla", "quant", "dense", "moe_families")
 
 
 def main(argv=None) -> int:
@@ -6388,6 +7300,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_dense(device)
         mark("dense")
+    if "moe_families" in only:
+        free_card()
+        kernels += phase_moe_families(device)
+        mark("moe_families")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

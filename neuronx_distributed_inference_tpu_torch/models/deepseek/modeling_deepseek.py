@@ -33,7 +33,7 @@ from ...config import InferenceConfig
 from ...device import DeviceLike
 from ...modules.moe import MoESpec
 from ..family import DecoderFamily, register_family
-from ..model_base import (DecoderSpec, MLASpec, layer_stacks,
+from ..model_base import (DecoderSpec, MLASpec, layer_plan,
                           spec_from_config)
 
 
@@ -187,9 +187,11 @@ class DeepseekFamily(DecoderFamily):
             "final_norm": get(p + ".norm.weight"),
         }
         convert = {"dense": dense_layer, "moe": moe_layer}
-        for key, first, count, kind in layer_stacks(spec):
-            out[key] = stack([convert[kind](i)
-                              for i in range(first, first + count)])
+        stacks: Dict[str, list] = {}
+        for key, i, _, kind in layer_plan(spec):
+            stacks.setdefault(key, []).append(convert[kind](i))
+        for key, layers in stacks.items():
+            out[key] = stack(layers)
         if not spec.tie_word_embeddings:
             out["lm_head"] = np.ascontiguousarray(
                 vpad(get("lm_head.weight")).T)

@@ -7,7 +7,8 @@
 ``_attn_block`` :943-1280 (the per-head q/k RMSNorm :1014-1024, paged
 :1058-1103, prefill :1104-1156, decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
 ``run_layers_mixed_decode`` :1577, ``fold_mixed_prefill`` :1611,
-``_embed`` :1656, ``_lm_head`` :1671, ``context_encoding_step`` :1686,
+``_norm`` :681, ``_embed`` :1656, ``_lm_head`` :1671,
+``context_encoding_step`` :1686,
 ``token_generation_step`` :1789, ``token_generation_multi`` :1846,
 ``paged_forward_step`` :1883,
 ``decode_loop`` :1939, ``paged_decode_loop`` :2058,
@@ -17,13 +18,14 @@ decisions :2513-2554; ``MLASpec`` :78, ``_mla_qkv`` :686).
 
 The MLP slot is a dense GLU MLP or a routed mixture of experts
 (``spec.moe``, ``modules/moe.py``). A mixed stack (DeepSeek's
-``first_dense``) keeps its leading dense layers in ``params["layers"]``
-and its MoE layers in ``params["moe_layers"]``; the layer loop walks the
-two stacks in order, with the cache's layer index running on from
-``first_dense`` (:func:`layer_stacks`). Llama4's interleaved
-``moe_pattern`` is refused at spec time (ROADMAP A14c). Attention may
-alternate: with a ``layer_pattern`` (GPT-OSS) a local layer attends within
-``sliding_window`` and a global layer over the whole context. Learned
+``first_dense``, Llama4's interleaved ``moe_pattern``) keeps its dense
+layers in ``params["layers"]`` and its MoE layers in
+``params["moe_layers"]``, each in order of appearance; the layer loop
+walks the layers in order, with the cache's layer index the absolute layer
+(:func:`layer_plan`). Attention may alternate: with a ``layer_pattern``
+(GPT-OSS, Llama4) a local layer attends within ``sliding_window`` or,
+with ``attn_chunk``, within its chunk of positions, and a global layer
+over the whole context. Learned
 per-head sinks join every softmax denominator (``attn_sink``), and q/k/v
 and o projections may carry biases. Multi-head latent attention
 (``spec.mla``, DeepSeek) projects q through an optional q-LoRA and K/V
@@ -40,6 +42,15 @@ layer (``norm_position="post"``) with its full-width q/k norm
 and ``logits_divide``, the tanh soft-caps of the attention scores (into
 every attention call, kernels included) and of the logits, and Gemma-3's
 second rotation for its local layers (``local_rope``).
+
+Llama4's knobs: chunked attention on the local layers (``attn_chunk``:
+attend iff the query and key positions share a chunk), NoPE global layers
+(``nope_global``: no rotation), the weightless q/k RMS norm after RoPE on
+the local layers (``qk_l2_norm``) and the attention temperature of the
+NoPE layers (``attn_temp``, from the positions on the device). DBRX's:
+LayerNorm in every block norm and the final norm (``norm_type``) and the
+clamp of the q/k/v projections (``qkv_clip``). No kernel takes a chunked
+layer: both decode gates and the flash gate refuse ``attn_chunk``.
 
 The contiguous cache takes one of three layouts (:func:`cache_layout`,
 the reference's decisions):
@@ -106,7 +117,7 @@ from ..modules.quantization import qlinear
 from ..ops import attention as attn_ops
 from ..ops import decode_attention, flash_attention
 from ..ops import sampling as sampling_ops
-from ..ops.normalization import rms_norm
+from ..ops.normalization import layer_norm, rms_norm
 from ..ops.rope import (SUPPORTED_SCALING, RopeConfig, apply_rope,
                         compute_inv_freq, rope_cos_sin)
 from ..parallel.layers import GQASharding, ParamSpec, resolve_gqa_sharding
@@ -232,6 +243,22 @@ class DecoderSpec:
     # Gemma-3: the rotation of the local layers of ``layer_pattern``
     # (None: they rotate as the global ones)
     local_rope: Optional[RopeConfig] = None
+    # Llama4 (model_base.py:155-170): the local layers attend within their
+    # chunk of ``attn_chunk`` positions (0 = no chunking)
+    attn_chunk: int = 0
+    # the global layers of ``layer_pattern`` take no rotation (NoPE)
+    nope_global: bool = False
+    # weightless q/k RMS norm after RoPE, on the local layers only
+    qk_l2_norm: bool = False
+    # (floor_scale, attn_scale): the NoPE layers' q times
+    # log1p(floor((pos + 1) / floor_scale)) * attn_scale + 1
+    attn_temp: Optional[Tuple[float, float]] = None
+    # interleaved dense / MoE layers: moe_pattern[i] True = layer i is MoE
+    moe_pattern: Optional[Tuple[bool, ...]] = None
+    # DBRX (model_base.py:208, 241): "rms" or "layernorm" (bias-free) in
+    # every block norm and the final norm; q/k/v clamped to +-qkv_clip
+    norm_type: str = "rms"
+    qkv_clip: Optional[float] = None
 
     @property
     def scale(self) -> float:
@@ -375,18 +402,21 @@ def _dense_mlp_param_specs(spec: DecoderSpec,
 
 def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     """Shapes of the parameter tree, the counterpart's (model_base.py:
-    520-537): one ``"layers"`` stack, or for a mixed stack the
-    ``first_dense`` dense layers in ``"layers"`` and the MoE layers in
-    ``"moe_layers"``."""
+    520-549): one ``"layers"`` stack, or for a mixed stack the dense
+    layers in ``"layers"`` and the MoE layers in ``"moe_layers"``
+    (:func:`layer_plan`)."""
     H, dt = spec.hidden_size, spec.dtype
     out: Dict[str, Any] = {
         "embed": ParamSpec((spec.padded_vocab, H), dt),
         "final_norm": ParamSpec((H,), dt, "ones"),
     }
-    for key, _, count, kind in layer_stacks(spec):
-        out[key] = _attn_param_specs(spec, count)
-        out[key].update(_dense_mlp_param_specs(spec, count) if kind == "dense"
-                        else _moe_param_specs(spec, count))
+    plan = layer_plan(spec)
+    kinds = {key: kind for key, _, _, kind in plan}
+    for key, kind in kinds.items():
+        n = sum(1 for k, *_ in plan if k == key)
+        out[key] = _attn_param_specs(spec, n)
+        out[key].update(_dense_mlp_param_specs(spec, n) if kind == "dense"
+                        else _moe_param_specs(spec, n))
     if not spec.tie_word_embeddings:
         out["lm_head"] = ParamSpec((H, spec.padded_vocab), dt)
     return out
@@ -455,26 +485,53 @@ def attn_inputs(spec: DecoderSpec, position_ids: torch.Tensor,
     (:func:`_add_masks`) or kernel inputs. With ``local_rope`` the local
     layers' ``cos_l`` / ``sin_l`` too (model_base.py:727-750);
     ``inv_freq`` is then the (global, local) pair of
-    :func:`rope_inv_freq`."""
+    :func:`rope_inv_freq`. With ``attn_temp`` the NoPE layers' query
+    scale ``temp`` (:func:`attn_temp_scale`)."""
     if spec.local_rope is None:
         cos, sin = rope_cos_sin(position_ids, spec.rope, inv_freq)
-        return {"cos": cos, "sin": sin}
-    inv_g, inv_l = inv_freq if inv_freq is not None else (None, None)
-    cos, sin = rope_cos_sin(position_ids, spec.rope, inv_g)
-    cos_l, sin_l = rope_cos_sin(position_ids, spec.local_rope, inv_l)
-    return {"cos": cos, "sin": sin, "cos_l": cos_l, "sin_l": sin_l}
+        ai = {"cos": cos, "sin": sin}
+    else:
+        inv_g, inv_l = inv_freq if inv_freq is not None else (None, None)
+        cos, sin = rope_cos_sin(position_ids, spec.rope, inv_g)
+        cos_l, sin_l = rope_cos_sin(position_ids, spec.local_rope, inv_l)
+        ai = {"cos": cos, "sin": sin, "cos_l": cos_l, "sin_l": sin_l}
+    if spec.attn_temp is not None:
+        ai["temp"] = attn_temp_scale(spec.attn_temp, position_ids)
+    return ai
+
+
+def attn_temp_scale(attn_temp: Tuple[float, float],
+                    position_ids: torch.Tensor) -> torch.Tensor:
+    """Llama4's attention temperature (model_base.py:1046-1056): fp32
+    log1p(floor((pos + 1) / floor_scale)) * attn_scale + 1, (B, T, 1, 1),
+    computed from the positions on their device, so a replayed decode
+    graph takes each replay's positions."""
+    floor_scale, a_scale = attn_temp
+    pos = position_ids.float()
+    return (torch.log1p(torch.floor((pos + 1.0) / floor_scale)) * a_scale
+            + 1.0)[:, :, None, None]
+
+
+def qk_l2_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Llama4's weightless q/k norm (model_base.py:1034-1045): despite
+    its name an RMS norm with no weight, x * rsqrt(mean(x^2) + eps) in
+    fp32, then the cast."""
+    xf = x.float()
+    return (xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+            ).to(x.dtype)
 
 
 def _add_masks(spec: DecoderSpec, ai, make_mask) -> None:
-    """``ai["mask"] = make_mask(window)`` at the uniform window; with a
-    ``layer_pattern`` the global mask ``make_mask(0)`` and the local
-    ``ai["mask_l"] = make_mask(sliding_window)`` (model_base.py:720-750).
-    Each layer picks its own (:func:`_layer_mask`)."""
+    """``ai["mask"] = make_mask(window, chunk)`` at the uniform window and
+    chunk; with a ``layer_pattern`` the global mask ``make_mask(0, 0)`` and
+    the local ``ai["mask_l"] = make_mask(sliding_window, attn_chunk)``
+    (model_base.py:720-750). Each layer picks its own
+    (:func:`_layer_mask`)."""
     if spec.layer_pattern is None:
-        ai["mask"] = make_mask(spec.sliding_window)
+        ai["mask"] = make_mask(spec.sliding_window, spec.attn_chunk)
     else:
-        ai["mask"] = make_mask(0)
-        ai["mask_l"] = make_mask(spec.sliding_window)
+        ai["mask"] = make_mask(0, 0)
+        ai["mask_l"] = make_mask(spec.sliding_window, spec.attn_chunk)
 
 
 def _layer_mask(ai, is_local: bool):
@@ -486,10 +543,12 @@ def _sink(spec: DecoderSpec, layer_w):
 
 
 def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
-    """Fused projection, q/k norms, head split and RoPE: q (B,T,Hq,D),
-    k/v (B,T,Hkv,D) (v a view into the projection output). A local layer
-    rotates with ``ai["cos_l"]`` when the step carries it (a Python
-    branch: a captured graph holds each layer's own rotation)."""
+    """Fused projection, the q/k/v clamp, q/k norms, head split and RoPE,
+    then Llama4's q/k norm and temperature: q (B,T,Hq,D), k/v (B,T,Hkv,D)
+    (v a view into the projection output unless clamped). A local layer
+    rotates with ``ai["cos_l"]`` when the step carries it, a NoPE global
+    layer not at all (Python branches: a captured graph holds each
+    layer's own)."""
     b, t, _ = h.shape
     g = spec.gqa
     off = spec.norm_offset
@@ -503,16 +562,30 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
         # (model_base.py:998-1001)
         q = rms_norm(q, layer_w["q_norm"], spec.rms_eps, off)
         k = rms_norm(k, layer_w["k_norm"], spec.rms_eps, off)
+    if spec.qkv_clip is not None:
+        # DBRX's clip_qkv (model_base.py:1002-1005)
+        c = spec.qkv_clip
+        q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
     q = q.reshape(b, t, g.num_q_heads, spec.head_dim)
     k = k.reshape(b, t, g.num_kv_heads, spec.head_dim)
     if spec.qk_norm:
         # per-head RMSNorm before RoPE (model_base.py:1014-1024)
         q = rms_norm(q, layer_w["q_norm"], spec.rms_eps, off)
         k = rms_norm(k, layer_w["k_norm"], spec.rms_eps, off)
-    cos, sin = ((ai["cos_l"], ai["sin_l"]) if is_local and "cos_l" in ai
-                else (ai["cos"], ai["sin"]))
-    q = apply_rope(q, cos, sin, spec.rope_interleaved)
-    k = apply_rope(k, cos, sin, spec.rope_interleaved)
+    # with a layer pattern Llama4's knobs split the layers: the local ones
+    # rotate and take the q/k norm, the global ones are NoPE and take the
+    # temperature; a uniform stack takes both knobs on every layer
+    rotated = spec.layer_pattern is None or is_local
+    if rotated or not spec.nope_global:
+        cos, sin = ((ai["cos_l"], ai["sin_l"]) if is_local and "cos_l" in ai
+                    else (ai["cos"], ai["sin"]))
+        q = apply_rope(q, cos, sin, spec.rope_interleaved)
+        k = apply_rope(k, cos, sin, spec.rope_interleaved)
+    if spec.qk_l2_norm and rotated:
+        q, k = qk_l2_norm(q, spec.rms_eps), qk_l2_norm(k, spec.rms_eps)
+    if spec.attn_temp is not None and (spec.layer_pattern is None
+                                       or not is_local):
+        q = (q.float() * ai["temp"]).to(q.dtype)
     return q, k, v.reshape(b, t, g.num_kv_heads, spec.head_dim)
 
 
@@ -671,7 +744,7 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
     layer of the ``"moe"`` stack, else the dense GLU act(x @ gate) *
     (x @ up) @ down with ``ACT_FNS[spec.act]``, each product through
     ``qlinear`` (plain, quantized or low-rank weights). ``kind`` is the
-    stack's (:func:`layer_stacks`), a Python value, so a captured graph
+    layer's (:func:`layer_plan`), a Python value, so a captured graph
     holds each layer's own branch."""
     if kind == "moe":
         return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
@@ -680,22 +753,30 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
     return qlinear(inter, layer_w["down_proj"])
 
 
+def _norm(spec: DecoderSpec, x, w):
+    """A block or final norm (model_base.py:681-685): RMSNorm with
+    ``norm_offset``, or with ``norm_type`` "layernorm" DBRX's bias-free
+    LayerNorm."""
+    if spec.norm_type == "layernorm":
+        return layer_norm(x, w, None, spec.rms_eps)
+    return rms_norm(x, w, spec.rms_eps, spec.norm_offset)
+
+
 def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
                 phase: str, kind: str, layer: Optional[int] = None):
     """One transformer layer (model_base.py:798-862); returns (hidden,
     pending side write or None). Pre-norm, or with ``norm_position``
     "post" no pre-norm; the sandwich norms on the attention and MLP
     outputs; each block output scaled by ``residual_multiplier`` before
-    its residual add; every block norm with ``norm_offset``. Layer
+    its residual add; every block norm through :func:`_norm`. Layer
     ``layer`` (default ``li``) takes its own window, mask and rotation
     (local or global, model_base.py:1327) and its sink; ``li`` addresses
     its rows in ``cache`` (on the mixed cache, its index within its own
     stack). ``kind`` ("dense" / "moe") picks its MLP; MLA or the fused
     q/k/v picks its projections (model_base.py:987-988)."""
     pre = spec.norm_position == "pre"
-    eps, off = spec.rms_eps, spec.norm_offset
     is_local = spec.is_local(li if layer is None else layer)
-    h = rms_norm(hidden, layer_w["input_norm"], eps, off) if pre else hidden
+    h = _norm(spec, hidden, layer_w["input_norm"]) if pre else hidden
     if spec.mla is not None:
         q, k, v = _mla_qkv(spec, h, layer_w, ai)
     else:
@@ -713,12 +794,12 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     if spec.o_bias:
         o = o + layer_w["o_bias"]
     if spec.sandwich_norm:
-        o = rms_norm(o, layer_w["post_attn_norm"], eps, off)
+        o = _norm(spec, o, layer_w["post_attn_norm"])
     hidden = hidden + _residual_scaled(spec, o)
-    h = rms_norm(hidden, layer_w["post_norm"], eps, off) if pre else hidden
+    h = _norm(spec, hidden, layer_w["post_norm"]) if pre else hidden
     m = _mlp_block(spec, h, layer_w, phase, kind)
     if spec.sandwich_norm:
-        m = rms_norm(m, layer_w["post_ff_norm"], eps, off)
+        m = _norm(spec, m, layer_w["post_ff_norm"])
     return hidden + _residual_scaled(spec, m), pending
 
 
@@ -729,16 +810,29 @@ def _residual_scaled(spec: DecoderSpec, x):
     return x if m == 1.0 else m * x
 
 
-def layer_stacks(spec: DecoderSpec) -> List[Tuple[str, int, int, str]]:
-    """The parameter stacks in layer order, as (tree key, first layer,
-    layer count, MLP kind): one ``"layers"`` stack, or a mixed stack's
+def layer_plan(spec: DecoderSpec) -> List[Tuple[str, int, int, str]]:
+    """(tree key, absolute layer, index in its stack, MLP kind) for every
+    layer in order: one ``"layers"`` stack; a mixed stack's
     ``first_dense`` dense layers then its ``"moe_layers"``
-    (model_base.py:1347-1366)."""
+    (model_base.py:1347-1366); or an interleaved ``moe_pattern``
+    (:1368-1400), dense layers from ``"layers"`` and MoE layers from
+    ``"moe_layers"``, each stack's layers in order of appearance (an
+    all-MoE pattern has no ``"layers"``)."""
     L = spec.num_layers
-    if spec.moe is not None and spec.first_dense > 0:
-        nd = spec.first_dense
-        return [("layers", 0, nd, "dense"), ("moe_layers", nd, L - nd, "moe")]
-    return [("layers", 0, L, "dense" if spec.moe is None else "moe")]
+    if spec.moe is None:
+        is_moe = [False] * L
+    elif spec.moe_pattern is not None:
+        is_moe = list(spec.moe_pattern)
+    else:
+        is_moe = [i >= spec.first_dense for i in range(L)]
+    split = spec.moe is not None and (spec.moe_pattern is not None
+                                      or spec.first_dense > 0)
+    plan, used = [], {}
+    for i, m in enumerate(is_moe):
+        key = "moe_layers" if split and m else "layers"
+        plan.append((key, i, used.get(key, 0), "moe" if m else "dense"))
+        used[key] = used.get(key, 0) + 1
+    return plan
 
 
 def _layer_slice(w, j: int):
@@ -752,16 +846,14 @@ def _layer_slice(w, j: int):
 def iter_layers(spec: DecoderSpec, params):
     """(absolute layer index, its weights as views into its stack, MLP
     kind) for every layer in order."""
-    for key, first, count, kind in layer_stacks(spec):
-        stack = params[key]
-        for j in range(count):
-            yield first + j, _layer_slice(stack, j), kind
+    for key, i, j, kind in layer_plan(spec):
+        yield i, _layer_slice(params[key], j), kind
 
 
 def run_layers(spec: DecoderSpec, params, cache, hidden, ai, phase: str):
     """The layer loop (the counterpart scans stacked weights with
     ``lax.scan``; here each layer's weights are views into the stacks, and
-    a mixed stack's cache layer index runs on from ``first_dense``).
+    the cache's layer index is the absolute layer).
     Under the chunked side buffer (``ai["side"]``), every layer's step
     K/V land in the side buffers at ``ai["chunk_idx"]`` once the whole
     step has read them (model_base.py:1459-1472)."""
@@ -829,11 +921,10 @@ def _embed(spec: DecoderSpec, params, input_ids):
 
 
 def _lm_head(spec: DecoderSpec, params, hidden):
-    """fp32 logits (model_base.py:1671-1684): the final norm (with
-    ``norm_offset``), the product, ``logits_divide``, the
+    """fp32 logits (model_base.py:1671-1684): the final norm
+    (:func:`_norm`), the product, ``logits_divide``, the
     ``logits_soft_cap``, then the padded vocabulary masked."""
-    h = rms_norm(hidden, params["final_norm"], spec.rms_eps,
-                 spec.norm_offset)
+    h = _norm(spec, hidden, params["final_norm"])
     w = (params["embed"].t() if spec.tie_word_embeddings
          else params["lm_head"])
     logits = (h @ w).float()
@@ -858,13 +949,15 @@ def _cache_ok(spec: DecoderSpec, cache_dtype: torch.dtype) -> bool:
 def use_flash_prefill(spec: DecoderSpec, bucket: int) -> bool:
     """The prefill branch's kernel gate (model_base.py:1110-1118): no
     layer pattern, no sink (the kernel takes one static window and no
-    sink) and no MLA (its K and V differ in width); the alibi, CP and SP
+    sink), no MLA (its K and V differ in width) and no chunked attention
+    (the kernel masks by window, not by chunk); the alibi, CP and SP
     conditions are refused at spec time, and the contiguous prefill always
     feeds arange positions."""
     return (spec.flash_prefill and spec.layer_pattern is None
             and not spec.attn_sink and spec.mla is None
             and flash_attention.supports(bucket, spec.head_dim,
-                                         has_sink=False, chunk=0))
+                                         has_sink=False,
+                                         chunk=spec.attn_chunk))
 
 
 def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
@@ -930,8 +1023,8 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     if not ai["flash"]:
         # padded positions attend causally to themselves: harmless, their
         # outputs are discarded
-        _add_masks(spec, ai, lambda w: attn_ops.prefill_causal_mask(
-            position_ids, w))
+        _add_masks(spec, ai, lambda w, c: attn_ops.prefill_causal_mask(
+            position_ids, w, c))
     ai.update(seq_ids=seq_ids, positions=position_ids, prefill_lens=seq_lens,
               identity=not tpu_cfg.is_continuous_batching)
     persistent = cache
@@ -981,8 +1074,8 @@ def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
     elif spec.mixed_kv:
         ai["mask"] = attn_ops.decode_mask(position_ids, cache_len, 0)
     else:
-        _add_masks(spec, ai, lambda w: attn_ops.decode_mask(
-            position_ids, cache_len, w))
+        _add_masks(spec, ai, lambda w, c: attn_ops.decode_mask(
+            position_ids, cache_len, w, c))
     if spec.mixed_kv:
         ai["mask_l"] = attn_ops.rolling_decode_mask(position_ids,
                                                     cache["k_l"].shape[4])
@@ -1041,11 +1134,12 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     (model_base.py:1939). first_tokens/position_ids (B,). Returns
     {"tokens": (B, num_steps)}.
 
-    Full-attention models without sinks under a static batch over the
-    whole cache take the chunked side-buffer branch (:1964-2038): the big
-    cache is only read during the chunk; each step's K/V go to small side
-    buffers, committed with ``commit_chunk`` once at the end. Everything
-    else steps through :func:`token_generation_step`."""
+    Full-attention models without sinks or chunks under a static batch
+    over the whole cache take the chunked side-buffer branch
+    (:1964-2038): the big cache is only read during the chunk; each
+    step's K/V go to small side buffers, committed with ``commit_chunk``
+    once at the end. Everything else steps through
+    :func:`token_generation_step`."""
     b = first_tokens.shape[0]
     no_logits = dataclasses.replace(tpu_cfg, output_logits=False)
     chunkable = (num_steps > 1 and not tpu_cfg.is_continuous_batching
@@ -1053,7 +1147,8 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                  and not spec.rolling_window
                  and spec.decode_kernel is not True
                  and not (spec.attn_sink or spec.sliding_window > 0
-                          or spec.layer_pattern is not None))
+                          or spec.layer_pattern is not None
+                          or spec.attn_chunk > 0))
     tok, pos = first_tokens, position_ids.long()
     toks = []
     if not chunkable:
@@ -1086,7 +1181,8 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
         # the active token (side slot idx) is folded in from registers;
         # its side write lands at the end of the step
         ai["mask_side"] = (attn_ops.causal_mask(pos2, side_pos,
-                                                spec.sliding_window)
+                                                spec.sliding_window,
+                                                spec.attn_chunk)
                            & (cols != idx))
         ai["chunk_idx"] = idx
         hidden = run_layers(spec, params, cache,
@@ -1131,8 +1227,8 @@ def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
         ai["block_table"] = block_table.to(torch.int32).contiguous()
     else:
         kv_len = block_table.shape[1] * cache["k"].shape[2]
-        _add_masks(spec, ai, lambda w: attn_ops.decode_mask(
-            position_ids, kv_len, w))
+        _add_masks(spec, ai, lambda w, c: attn_ops.decode_mask(
+            position_ids, kv_len, w, c))
     return run_layers(spec, params, cache, _embed(spec, params, input_ids),
                       ai, "paged")
 
@@ -1471,14 +1567,16 @@ def cache_layout(tcfg: TpuConfig, sliding_window: int, layer_pattern=None,
     return bool(roll), bool(mixed)
 
 
-# the dense families' DecoderSpec knobs that spec_from_config takes as
-# keyword overrides, as the counterpart's ``**overrides`` (model_base.py:
-# 2346); ``tie_word_embeddings`` overrides the config's (HF omits a
-# default True from config.json)
-DENSE_KNOBS = ("act", "norm_offset", "sandwich_norm", "norm_position",
-               "qk_norm_full", "residual_multiplier", "logits_divide",
-               "logits_soft_cap", "attn_soft_cap", "embed_scale",
-               "local_rope", "tie_word_embeddings")
+# the DecoderSpec knobs that spec_from_config takes as keyword overrides,
+# as the counterpart's ``**overrides`` (model_base.py:2346): the dense
+# families', Llama4's and DBRX's; ``tie_word_embeddings`` overrides the
+# config's (HF omits a default True from config.json)
+KNOBS = ("act", "norm_offset", "sandwich_norm", "norm_position",
+         "qk_norm_full", "residual_multiplier", "logits_divide",
+         "logits_soft_cap", "attn_soft_cap", "embed_scale", "local_rope",
+         "tie_word_embeddings", "nope_global", "qk_l2_norm", "attn_temp",
+         "norm_type", "qkv_clip")
+NORM_TYPES = ("rms", "layernorm")
 
 
 def spec_from_config(config: InferenceConfig,
@@ -1500,18 +1598,19 @@ def spec_from_config(config: InferenceConfig,
     ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
     ``first_dense`` / ``moe_pattern`` / ``attn_sink`` / ``qkv_bias`` /
     ``o_bias`` / ``mla`` / ``head_dim`` / ``attn_scale`` /
-    ``rope_interleaved`` and the :data:`DENSE_KNOBS` as the counterpart's
+    ``rope_interleaved`` and the :data:`KNOBS` as the counterpart's
     overrides; ``act`` defaults to the config's ``hidden_act``). The
     legacy rope scaling name ``"su"`` is longrope, whose
     ``original_max_position_embeddings`` may sit at the config's top
     level. The cache layout (rolling, mixed or full rows) is
-    :func:`cache_layout`'s. Raises :class:`ConfigurationError` for what the
-    port does not run yet (an interleaved ``moe_pattern``; MLA over the
-    rolling or mixed cache, which no DeepSeek config takes; an activation
-    outside :data:`ACT_FNS`; ``norm_position`` other than "pre" / "post"),
-    and (a ``ValueError``, as the reference raises) for
-    ``rolling_kv_cache=True`` on a config that cannot roll."""
-    unknown = sorted(set(knobs) - set(DENSE_KNOBS))
+    :func:`cache_layout`'s: a chunked model never takes the rolling or
+    mixed cache. Raises :class:`ConfigurationError` for what the port
+    does not run yet (MLA over the rolling or mixed cache, which no
+    DeepSeek config takes; an activation outside :data:`ACT_FNS`;
+    ``norm_position`` other than "pre" / "post"; ``norm_type`` outside
+    :data:`NORM_TYPES`), and (a ``ValueError``, as the reference raises)
+    for ``rolling_kv_cache=True`` on a config that cannot roll."""
+    unknown = sorted(set(knobs) - set(KNOBS))
     if unknown:
         raise TypeError(f"spec_from_config: unknown overrides {unknown}")
     tcfg = config.tpu_config
@@ -1527,15 +1626,12 @@ def spec_from_config(config: InferenceConfig,
     if knobs.get("norm_position", "pre") not in ("pre", "post"):
         bad.append(f"norm_position {knobs['norm_position']!r} (ROADMAP "
                    "A14d)")
+    if knobs.get("norm_type", "rms") not in NORM_TYPES:
+        bad.append(f"norm_type {knobs['norm_type']!r} (ROADMAP A14d)")
     if tp != 1:
         bad.append(f"tp_degree={tp}")
-    if attn_chunk:
-        bad.append("chunked attention")
     if moe is not None:
         bad += [b for b in _moe_layout_refusals(tcfg) if b not in bad]
-        if moe_pattern is not None:
-            bad.append("an interleaved dense / MoE layer stack "
-                       "(moe_pattern; ROADMAP A14c)")
     if mla is not None and (rolling or mixed):
         bad.append("multi-head latent attention over the rolling or mixed "
                    "per-layer cache")
@@ -1610,6 +1706,9 @@ def spec_from_config(config: InferenceConfig,
         qk_norm=bool(qk_norm),
         moe=moe,
         first_dense=int(first_dense),
+        moe_pattern=(tuple(bool(x) for x in moe_pattern)
+                     if moe_pattern is not None else None),
+        attn_chunk=int(attn_chunk or 0),
         mla=mla,
         rope_interleaved=bool(rope_interleaved),
         layer_pattern=layer_pattern,

@@ -1,8 +1,7 @@
 """Attention cores and masks of the XLA-equivalent paths (counterpart:
 ``neuronx_distributed_inference_tpu/ops/attention.py`` — ``repeat_kv``
 :29, ``mha`` :77, ``mha_hl`` :128, ``mha_decode_merged`` :168, masks
-:232-283 with ``rolling_decode_mask`` :261; the chunked-attention masks
-wait for the families that use them).
+:232-283 with ``rolling_decode_mask`` :261).
 
 Layouts as in the JAX package: q (B, T, Hq, D); k/v (B, S, Hkv, D), or the
 contiguous cache's native layouts for ``mha_hl`` (K transposed (B, Hkv, D,
@@ -206,23 +205,30 @@ def mha_decode_merged(q: torch.Tensor, k_prior: torch.Tensor,
 
 
 def causal_mask(position_ids: torch.Tensor, kv_positions: torch.Tensor,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, chunk: int = 0) -> torch.Tensor:
     """(B, T, S) attend-mask from query positions (B, T) and key positions
-    (B, S); ``window`` > 0 adds the sliding window 0 <= qpos-kpos < window.
-    (Chunked attention waits for the families that use it.)"""
+    (B, S); ``window`` > 0 adds the sliding window 0 <= qpos-kpos < window,
+    ``chunk`` > 0 Llama4's chunked attention (attend iff both positions
+    lie in the same chunk: qpos // chunk == kpos // chunk, floor division
+    as the counterpart's). Built from the position tensors on their
+    device, so a captured graph recomputes it from each replay's
+    positions."""
     qp = position_ids[:, :, None]
     kp = kv_positions[:, None, :]
     m = kp <= qp
     if window > 0:
         m &= (qp - kp) < window
+    if chunk > 0:
+        m &= (torch.div(qp, chunk, rounding_mode="floor")
+              == torch.div(kp, chunk, rounding_mode="floor"))
     return m
 
 
-def prefill_causal_mask(position_ids: torch.Tensor,
-                        window: int = 0) -> torch.Tensor:
+def prefill_causal_mask(position_ids: torch.Tensor, window: int = 0,
+                        chunk: int = 0) -> torch.Tensor:
     """In-context causal mask: query and key positions are both
     ``position_ids`` (B, S)."""
-    return causal_mask(position_ids, position_ids, window)
+    return causal_mask(position_ids, position_ids, window, chunk)
 
 
 def rolling_decode_mask(position_ids: torch.Tensor,
@@ -239,10 +245,10 @@ def rolling_decode_mask(position_ids: torch.Tensor,
 
 
 def decode_mask(position_ids: torch.Tensor, cache_len: int,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Mask over a contiguous (or gathered) view of ``cache_len`` slots
     whose slot i holds position i. position_ids (B, T)."""
     kv_pos = torch.arange(cache_len, dtype=position_ids.dtype,
                           device=position_ids.device)[None, :]
     kv_pos = kv_pos.expand(position_ids.shape[0], cache_len)
-    return causal_mask(position_ids, kv_pos, window)
+    return causal_mask(position_ids, kv_pos, window, chunk)

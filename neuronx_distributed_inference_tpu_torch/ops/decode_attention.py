@@ -447,11 +447,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def supports(spec, phase_t: int) -> bool:
     """Kernel admission for both kernels (counterpart:
-    decode_attention.py:588): a single active token, no MLA (its K and V
-    heads differ in width; both kernels stream them at one), head_dim 64
-    or 128, and at most ``MAX_GROUP`` query heads per KV head (the kernels
-    keep a group's accumulators in registers)."""
+    decode_attention.py:588-595): a single active token, no MLA (its K
+    and V heads differ in width; both kernels stream them at one), no
+    chunked attention (the kernels mask by window, not by chunk; the
+    counterpart's ``attn_chunk == 0``), head_dim 64 or 128, and at most
+    ``MAX_GROUP`` query heads per KV head (the kernels keep a group's
+    accumulators in registers)."""
     return (phase_t == 1 and spec.mla is None
+            and spec.attn_chunk == 0
             and spec.head_dim in _HEAD_DIMS
             and spec.gqa.q_per_kv <= MAX_GROUP)
 

@@ -498,16 +498,43 @@ def _refusal(case):
     elif case == "mla_mixed_cache":
         model_base.spec_from_config(cfg, sliding_window=8,
                                     layer_pattern=(True, False) * 2, **kw)
-    elif case == "mla_attn_chunk":
-        model_base.spec_from_config(cfg, attn_chunk=8, **kw)
-    elif case == "moe_pattern":
-        model_base.spec_from_config(
-            cfg, moe_pattern=(False, True, False, True),
-            **dict(kw, first_dense=0))
     elif case == "paged_app":
         PagedCausalLMApplication(None, fam.config_cls(TpuConfig(
             batch_size=1, seq_len=32, is_block_kv_layout=True,
             pa_block_size=16), **hf), fam, device="cpu")
+
+
+# the two refusals Llama4's knobs lifted: each spec change now builds in
+# both packages (the reference refuses neither)
+LIFTED = {"mla_attn_chunk": dict(attn_chunk=8),
+          "moe_pattern": dict(first_dense=0,
+                              moe_pattern=(False, True, False, True))}
+
+
+def _lifted_pair(case):
+    """(JAX app, port app) of the qlora_mixed DeepSeek with ``LIFTED[case]``
+    applied to both families' specs; the port holds the JAX app's random
+    weights."""
+    over = LIFTED[case]
+
+    class JFam(JDeepseekFamily):
+        @classmethod
+        def build_spec(cls, config, tp_degree=None):
+            return dataclasses.replace(
+                JDeepseekFamily.build_spec(config, tp_degree), **over)
+
+    class TFam(DeepseekFamily):
+        @classmethod
+        def build_spec(cls, config, tp_degree=None):
+            return dataclasses.replace(
+                DeepseekFamily.build_spec(config, tp_degree), **over)
+    hf = dict(CONFIGS["qlora_mixed"][1], model_type="deepseek_v3")
+    japp = JApp(None, JFam.config_cls(JTpuConfig(**STATIC), **hf),
+                JFam).init_random_weights(5).init_cache()
+    tapp = CausalLMApplication(None, TFam.config_cls(TpuConfig(**STATIC),
+                                                     **hf), TFam,
+                               device="cpu")
+    return japp, _carry(japp, tapp)
 
 
 @pytest.mark.parametrize("case", ["mla_rolling_cache", "mla_mixed_cache",
@@ -515,12 +542,30 @@ def _refusal(case):
                                   "paged_app"])
 def test_refusals(case):
     """What the port does not run raises ConfigurationError: MLA over the
-    rolling or mixed cache (no DeepSeek config takes them) or with chunked
-    attention; Llama4's interleaved ``moe_pattern`` (A14c); MLA on the
-    paged app, whose block cache holds one head width."""
+    rolling or mixed cache (no DeepSeek config takes them) and MLA on the
+    paged app, whose block cache holds one head width. The two refusals
+    Llama4's knobs lifted now build and match JAX: MLA with chunked
+    attention (chunk 8 under a 12-token prompt and 9 decode steps) and an
+    interleaved ``moe_pattern`` over the MLA stack (dense, MoE, dense,
+    MoE): fp32 logits at LOGIT_TOL and greedy tokens equal to the JAX
+    app's on the same weights."""
+    if case in LIFTED:
+        japp, tapp = _lifted_pair(case)
+        for k, v in LIFTED[case].items():
+            assert getattr(tapp.spec, k) == v
+        if case == "moe_pattern":
+            assert [k for k, *_ in model_base.layer_plan(tapp.spec)] == [
+                "layers", "moe_layers", "layers", "moe_layers"]
+        ids = np.random.default_rng(6).integers(1, 250, size=(2, 12))
+        want = japp.generate(ids, max_new_tokens=9, return_logits=True)
+        got = tapp.generate(ids, max_new_tokens=9, return_logits=True)
+        np.testing.assert_array_equal(got["generated"], want["generated"])
+        for j, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+            np.testing.assert_allclose(a, np.asarray(b), err_msg=f"step {j}",
+                                       **LOGIT_TOL)
+        return
     why = {"mla_rolling_cache": "latent attention over the rolling",
            "mla_mixed_cache": "latent attention over the rolling or mixed",
-           "mla_attn_chunk": "chunked attention", "moe_pattern": "A14c",
            "paged_app": "one head width"}[case]
     with pytest.raises(ConfigurationError, match=why):
         _refusal(case)

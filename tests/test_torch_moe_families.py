@@ -341,12 +341,12 @@ def test_reference_refusals_hold(case):
 def test_port_only_refusals_and_accepted_moe_configs():
     """The port runs an MoEConfig whose degrees are all None or 1 (the
     reference's ``MoETpuConfig`` at tp = 1); ``moe_tkg_ep_degree=1``
-    (``tkg_experts_local``, a mesh re-layout), a degree above 1 (the
+    (``tkg_experts_local``, a mesh re-layout) and a degree above 1 (the
     reference ignores ``moe_ep_degree`` at tp = 1; the port has no mesh to
-    honour it) and an interleaved dense / MoE stack (``moe_pattern``)
-    raise ConfigurationError naming ROADMAP A13 / A14; a mixed stack of
-    leading dense layers (``first_dense``) builds. Mixtral's window below
-    ``seq_len`` takes
+    honour it) raise ConfigurationError naming ROADMAP A13; a mixed stack
+    of leading dense layers (``first_dense``) builds, and so does an
+    interleaved dense / MoE stack (``moe_pattern``), whose layer stacks
+    follow the pattern's runs. Mixtral's window below ``seq_len`` takes
     the rolling cache and matches JAX."""
     cls = get_family("qwen3_moe").config_cls
     ok = TpuQwen3MoeForCausalLM(None, cls(TpuConfig(
@@ -361,12 +361,16 @@ def test_port_only_refusals_and_accepted_moe_configs():
                 device="cpu")
     cfg = cls(TpuConfig(batch_size=1, seq_len=32), **QWEN3_MOE)
     moe = tmoe.MoESpec(num_experts=4, top_k=2, intermediate_size=48)
-    with pytest.raises(ConfigurationError, match="A14"):
-        model_base.spec_from_config(cfg, moe=moe, moe_pattern=(True, False))
+    # Llama4's interleaved stack: the dense layer from "layers", the MoE
+    # layer from "moe_layers"
+    inter = model_base.spec_from_config(cfg, moe=moe,
+                                        moe_pattern=(True, False))
+    assert model_base.layer_plan(inter) == [("moe_layers", 0, 0, "moe"),
+                                            ("layers", 1, 0, "dense")]
     # DeepSeek's leading dense layers run (a dense stack, then the MoE one)
     mixed = model_base.spec_from_config(cfg, moe=moe, first_dense=1)
-    assert model_base.layer_stacks(mixed) == [("layers", 0, 1, "dense"),
-                                              ("moe_layers", 1, 1, "moe")]
+    assert model_base.layer_plan(mixed) == [("layers", 0, 0, "dense"),
+                                            ("moe_layers", 1, 0, "moe")]
     # Mixtral's window goes through the rolling-cache rule: a window of 16
     # below seq_len 32 takes the rolling cache (16 slots a row) as in JAX,
     # and a prompt longer than the window decodes past it with JAX's

@@ -38,7 +38,9 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.phi3.modeling_phi3", "models.olmo2",
     "models.olmo2.modeling_olmo2", "models.gemma2",
     "models.gemma2.modeling_gemma2", "models.gemma3",
-    "models.gemma3.modeling_gemma3")]
+    "models.gemma3.modeling_gemma3", "models.llama4",
+    "models.llama4.modeling_llama4", "models.dbrx",
+    "models.dbrx.modeling_dbrx", "ops.normalization", "ops.attention")]
 
 
 def _port_modules():
