@@ -6,8 +6,10 @@ A family is a class with ``config_cls``, ``build_spec(config)`` and
 host parameter tree). The port carries the Llama-shaped decoder: the
 Llama, Mistral, Qwen3, Qwen2, Granite, Phi-3, OLMo-2, Gemma-2 and Gemma-3
 families (dense), the Qwen3-MoE, Mixtral, GPT-OSS and DBRX families (MoE),
-DeepSeek (MLA, a mixed dense / MoE stack, its own converter) and Llama4
-text (chunked attention, NoPE layers, interleaved dense / MoE). Families
+DeepSeek (MLA, a mixed dense / MoE stack, its own converter), Llama4
+text (chunked attention, NoPE layers, interleaved dense / MoE) and the
+contrib hub's MoE families (``contrib2``: GraniteMoE, OLMoE, GLM-4-MoE,
+dots.llm1; ``contrib3``: Phi-3.5-MoE). Families
 override the reference's hooks ``convert_mlp_weights`` (the MoE families,
 through ``convert_moe_weights`` or their own layout),
 ``convert_extra_layer_weights`` (GPT-OSS: sinks; Gemma: the sandwich
@@ -41,9 +43,9 @@ def register_family(*names: str):
 
 def get_family(name: str) -> Type["DecoderFamily"]:
     # their imports register them
-    from . import (dbrx, deepseek, gemma2, gemma3,  # noqa: F401
-                   gpt_oss, granite, llama, llama4, mistral, mixtral,
-                   olmo2, phi3, qwen2, qwen3, qwen3_moe)
+    from . import (contrib2, contrib3, dbrx, deepseek,  # noqa: F401
+                   gemma2, gemma3, gpt_oss, granite, llama, llama4,
+                   mistral, mixtral, olmo2, phi3, qwen2, qwen3, qwen3_moe)
     if name not in _REGISTRY:
         raise KeyError(f"unknown model family {name!r}; known: "
                        f"{sorted(_REGISTRY)}")

@@ -51,6 +51,9 @@ NoPE layers (``attn_temp``, from the positions on the device). DBRX's:
 LayerNorm in every block norm and the final norm (``norm_type``) and the
 clamp of the q/k/v projections (``qkv_clip``). No kernel takes a chunked
 layer: both decode gates and the flash gate refuse ``attn_chunk``.
+Phi-3.5-MoE's: a learned bias on every LayerNorm (``norm_bias``) and on
+the lm-head (``lm_head_bias``); GLM-4-MoE's partial rotary is the rope's
+``rotary_dim``.
 
 The contiguous cache takes one of three layouts (:func:`cache_layout`,
 the reference's decisions):
@@ -259,6 +262,11 @@ class DecoderSpec:
     # every block norm and the final norm; q/k/v clamped to +-qkv_clip
     norm_type: str = "rms"
     qkv_clip: Optional[float] = None
+    # Phi-3.5-MoE (model_base.py:218, 230): the LayerNorms carry a learned
+    # bias (``input_norm_b``, ``post_norm_b``, ``final_norm_b``), and the
+    # untied lm-head a bias (``lm_head_b``) added to the fp32 logits
+    norm_bias: bool = False
+    lm_head_bias: bool = False
 
     @property
     def scale(self) -> float:
@@ -358,13 +366,16 @@ def _mla_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
 def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     """The attention half of a layer (model_base.py:360-432): norms, the
     fused q/k/v and o projections (or the MLA projections), and the
-    optional q/k norms (per head, or full width), biases (zeros), sandwich
-    norms and fp32 sinks (zeros)."""
+    optional norm biases, q/k norms (per head, or full width), biases
+    (zeros), sandwich norms and fp32 sinks (zeros)."""
     H, dt = spec.hidden_size, spec.dtype
     layers = {
         "input_norm": ParamSpec((L, H), dt, "ones"),
         "post_norm": ParamSpec((L, H), dt, "ones"),
     }
+    if spec.norm_bias:
+        layers["input_norm_b"] = ParamSpec((L, H), dt, "zeros")
+        layers["post_norm_b"] = ParamSpec((L, H), dt, "zeros")
     if spec.mla is not None:
         layers.update(_mla_param_specs(spec, L))
     else:
@@ -404,12 +415,15 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     """Shapes of the parameter tree, the counterpart's (model_base.py:
     520-549): one ``"layers"`` stack, or for a mixed stack the dense
     layers in ``"layers"`` and the MoE layers in ``"moe_layers"``
-    (:func:`layer_plan`)."""
+    (:func:`layer_plan`); with ``norm_bias`` the final norm's bias, with
+    ``lm_head_bias`` the untied head's (:556, :579-580)."""
     H, dt = spec.hidden_size, spec.dtype
     out: Dict[str, Any] = {
         "embed": ParamSpec((spec.padded_vocab, H), dt),
         "final_norm": ParamSpec((H,), dt, "ones"),
     }
+    if spec.norm_bias:
+        out["final_norm_b"] = ParamSpec((H,), dt, "zeros")
     plan = layer_plan(spec)
     kinds = {key: kind for key, _, _, kind in plan}
     for key, kind in kinds.items():
@@ -419,6 +433,8 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
                         else _moe_param_specs(spec, n))
     if not spec.tie_word_embeddings:
         out["lm_head"] = ParamSpec((H, spec.padded_vocab), dt)
+        if spec.lm_head_bias:
+            out["lm_head_b"] = ParamSpec((spec.padded_vocab,), dt, "zeros")
     return out
 
 
@@ -753,12 +769,12 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
     return qlinear(inter, layer_w["down_proj"])
 
 
-def _norm(spec: DecoderSpec, x, w):
-    """A block or final norm (model_base.py:681-685): RMSNorm with
-    ``norm_offset``, or with ``norm_type`` "layernorm" DBRX's bias-free
-    LayerNorm."""
+def _norm(spec: DecoderSpec, x, w, b=None):
+    """A block or final norm (model_base.py:678-683): RMSNorm with
+    ``norm_offset``, or with ``norm_type`` "layernorm" a LayerNorm, with
+    the bias ``b`` (Phi-3.5-MoE) or without (DBRX)."""
     if spec.norm_type == "layernorm":
-        return layer_norm(x, w, None, spec.rms_eps)
+        return layer_norm(x, w, b, spec.rms_eps)
     return rms_norm(x, w, spec.rms_eps, spec.norm_offset)
 
 
@@ -768,7 +784,8 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     pending side write or None). Pre-norm, or with ``norm_position``
     "post" no pre-norm; the sandwich norms on the attention and MLP
     outputs; each block output scaled by ``residual_multiplier`` before
-    its residual add; every block norm through :func:`_norm`. Layer
+    its residual add; every block norm through :func:`_norm`, the pre-norms
+    with their biases under ``norm_bias`` (:799, :826). Layer
     ``layer`` (default ``li``) takes its own window, mask and rotation
     (local or global, model_base.py:1327) and its sink; ``li`` addresses
     its rows in ``cache`` (on the mixed cache, its index within its own
@@ -776,7 +793,9 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     q/k/v picks its projections (model_base.py:987-988)."""
     pre = spec.norm_position == "pre"
     is_local = spec.is_local(li if layer is None else layer)
-    h = _norm(spec, hidden, layer_w["input_norm"]) if pre else hidden
+    h = (_norm(spec, hidden, layer_w["input_norm"],
+               layer_w.get("input_norm_b") if spec.norm_bias else None)
+         if pre else hidden)
     if spec.mla is not None:
         q, k, v = _mla_qkv(spec, h, layer_w, ai)
     else:
@@ -796,7 +815,9 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     if spec.sandwich_norm:
         o = _norm(spec, o, layer_w["post_attn_norm"])
     hidden = hidden + _residual_scaled(spec, o)
-    h = _norm(spec, hidden, layer_w["post_norm"]) if pre else hidden
+    h = (_norm(spec, hidden, layer_w["post_norm"],
+               layer_w.get("post_norm_b") if spec.norm_bias else None)
+         if pre else hidden)
     m = _mlp_block(spec, h, layer_w, phase, kind)
     if spec.sandwich_norm:
         m = _norm(spec, m, layer_w["post_ff_norm"])
@@ -922,12 +943,15 @@ def _embed(spec: DecoderSpec, params, input_ids):
 
 def _lm_head(spec: DecoderSpec, params, hidden):
     """fp32 logits (model_base.py:1671-1684): the final norm
-    (:func:`_norm`), the product, ``logits_divide``, the
+    (:func:`_norm`, with ``final_norm_b`` where the tree has it), the
+    product, the ``lm_head_b`` bias in fp32, ``logits_divide``, the
     ``logits_soft_cap``, then the padded vocabulary masked."""
-    h = _norm(spec, hidden, params["final_norm"])
+    h = _norm(spec, hidden, params["final_norm"], params.get("final_norm_b"))
     w = (params["embed"].t() if spec.tie_word_embeddings
          else params["lm_head"])
     logits = (h @ w).float()
+    if spec.lm_head_bias and "lm_head_b" in params:
+        logits = logits + params["lm_head_b"].float()
     if spec.logits_divide:
         logits = logits / spec.logits_divide
     if spec.logits_soft_cap:
@@ -1569,13 +1593,13 @@ def cache_layout(tcfg: TpuConfig, sliding_window: int, layer_pattern=None,
 
 # the DecoderSpec knobs that spec_from_config takes as keyword overrides,
 # as the counterpart's ``**overrides`` (model_base.py:2346): the dense
-# families', Llama4's and DBRX's; ``tie_word_embeddings`` overrides the
-# config's (HF omits a default True from config.json)
+# families', Llama4's, DBRX's and Phi-3.5-MoE's; ``tie_word_embeddings``
+# overrides the config's (HF omits a default True from config.json)
 KNOBS = ("act", "norm_offset", "sandwich_norm", "norm_position",
          "qk_norm_full", "residual_multiplier", "logits_divide",
          "logits_soft_cap", "attn_soft_cap", "embed_scale", "local_rope",
          "tie_word_embeddings", "nope_global", "qk_l2_norm", "attn_temp",
-         "norm_type", "qkv_clip")
+         "norm_type", "qkv_clip", "norm_bias", "lm_head_bias")
 NORM_TYPES = ("rms", "layernorm")
 
 
@@ -1592,14 +1616,17 @@ def spec_from_config(config: InferenceConfig,
                      head_dim: Optional[int] = None,
                      attn_scale: Optional[float] = None,
                      rope_interleaved: bool = False,
+                     rotary_dim: Optional[int] = None,
                      **knobs) -> DecoderSpec:
     """DecoderSpec from the HF-style attributes of an InferenceConfig
     (families pass ``sliding_window`` / ``layer_pattern`` /
     ``attn_chunk`` / ``moe`` / ``qk_norm`` / ``intermediate_size`` /
     ``first_dense`` / ``moe_pattern`` / ``attn_sink`` / ``qkv_bias`` /
     ``o_bias`` / ``mla`` / ``head_dim`` / ``attn_scale`` /
-    ``rope_interleaved`` and the :data:`KNOBS` as the counterpart's
-    overrides; ``act`` defaults to the config's ``hidden_act``). The
+    ``rope_interleaved`` / ``rotary_dim`` and the :data:`KNOBS` as the
+    counterpart's overrides; ``act`` defaults to the config's
+    ``hidden_act``, ``rotary_dim`` (partial rotary, GLM-4-MoE) to the
+    config's, as the counterpart pops it at :2366-2367). The
     legacy rope scaling name ``"su"`` is longrope, whose
     ``original_max_position_embeddings`` may sit at the config's top
     level. The cache layout (rolling, mixed or full rows) is
@@ -1657,7 +1684,8 @@ def spec_from_config(config: InferenceConfig,
     rope = RopeConfig(
         head_dim=head_dim,
         rope_theta=float(getattr(config, "rope_theta", 10000.0)),
-        rotary_dim=getattr(config, "rotary_dim", None),
+        rotary_dim=(rotary_dim if rotary_dim is not None
+                    else getattr(config, "rotary_dim", None)),
         scaling_type=rope_type,
         scaling_factor=float(rope_scaling.get("factor", 1.0)),
         low_freq_factor=float(rope_scaling.get("low_freq_factor", 1.0)),

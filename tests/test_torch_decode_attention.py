@@ -360,3 +360,29 @@ def test_cuda_serving_shapes_match_plain_twin(name):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "glm_air_g12_bf16", "glm_air_g12_fp8", "glm_air_g12_fp32",
+    "granite_g3_d64_bf16", "olmoe_g1_bf16"])
+def test_cuda_kernel_at_contrib_moe_groups_matches_twin(name):
+    """On the card: the contiguous decode kernel at the contrib MoE
+    families' heads (chip_smoke.CONTRIB_KERNEL_CASES: G 12 over caches of
+    8192 slots in bf16, scaled fp8 and fp32; G 3 at head_dim 64, scale
+    1/64; G 1) against its plain twin: one bf16 ulp of the twin's largest
+    output for a bf16 output, 1e-4 for fp32."""
+    _cuda_skip()
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    x, kw = cs.contrib_kernel_inputs(
+        name, dev, torch.Generator(device=dev).manual_seed(16), "contig")
+    args, kw = cs.decode_args(x, kw)
+    before = tda.decode_attention_stacked.launches
+    got = tda.decode_attention_stacked(*args, **kw)
+    torch.cuda.synchronize()
+    want = tda.decode_attention_stacked_plain(*args, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= cs.contrib_kernel_tol(want), err
+    assert tda.decode_attention_stacked.launches == before + 1
+

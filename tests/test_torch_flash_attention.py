@@ -154,6 +154,11 @@ CUDA_BF16_CASES = {
     "qwen3_g8_s2048": dict(b=4, s=2048, hq=32, hkv=4, d=128),
     "qwen3_g8_window200": dict(b=1, s=512, hq=32, hkv=4, d=128,
                                window=200),
+    # GLM-4.5-Air's heads (96 q over 8 kv: G 12) and granite-3.0-3b-a800m's
+    # (24 q over 8 kv of 64: G 3, attention multiplier 1/64 as the scale)
+    "glm_air_g12_s512": dict(b=2, s=512, hq=96, hkv=8, d=128),
+    "granite_g3_d64_s512": dict(b=2, s=512, hq=24, hkv=8, d=64,
+                                scale=0.015625),
 }
 
 
@@ -172,8 +177,8 @@ def test_cuda_bf16_kernel_matches_plain_twin(name):
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (b, s, h, d)).astype(np.float32)).bfloat16().cuda()
         for h in (spec["hq"], spec["hkv"], spec["hkv"]))
-    kw = dict(scale=d ** -0.5, window=spec.get("window", 0),
-              soft_cap=spec.get("soft_cap"))
+    kw = dict(scale=spec.get("scale", d ** -0.5),
+              window=spec.get("window", 0), soft_cap=spec.get("soft_cap"))
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()

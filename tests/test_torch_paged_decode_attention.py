@@ -358,3 +358,32 @@ def test_paged_sdpa_window_sink_yardstick(window):
     kv_bytes = 2 * keys * 2 * 64 * 4
     assert kv_bytes / cs.HBM_BYTES_PER_S * 1e3 < ms < (
         kv_bytes + 10 ** 5) / cs.HBM_BYTES_PER_S * 1e3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "glm_air_g12_bf16", "glm_air_g12_fp8", "glm_air_g12_fp32",
+    "granite_g3_d64_bf16", "olmoe_g1_bf16"])
+def test_cuda_kernel_at_contrib_moe_groups_matches_twin(name):
+    """On the card: the paged kernel at the contrib MoE families' heads
+    (chip_smoke.CONTRIB_KERNEL_CASES: GLM-4.5-Air's 96 q over 8 KV heads,
+    G 12 on the 16-wide instantiation, over bf16, scaled fp8 and fp32
+    pages; granite's G 3 at head_dim 64 with the scale 1/64; OLMoE's G 1)
+    against its plain twin: one bf16 ulp of the twin's largest output for
+    a bf16 output, 1e-4 for fp32."""
+    _skip_without_card()
+    from test_torch_decode_attention import _chip_smoke
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    x, kw = cs.contrib_kernel_inputs(
+        name, dev, torch.Generator(device=dev).manual_seed(15), "paged")
+    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+            x["lens"], x["block_table"])
+    before = tda.paged_decode_attention.launches
+    got = tda.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = tda.paged_decode_attention_plain(*args, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= cs.contrib_kernel_tol(want), err
+    assert tda.paged_decode_attention.launches == before + 1
+

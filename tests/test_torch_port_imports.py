@@ -40,7 +40,8 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.gemma2.modeling_gemma2", "models.gemma3",
     "models.gemma3.modeling_gemma3", "models.llama4",
     "models.llama4.modeling_llama4", "models.dbrx",
-    "models.dbrx.modeling_dbrx", "ops.normalization", "ops.attention")]
+    "models.dbrx.modeling_dbrx", "ops.normalization", "ops.attention",
+    "models.contrib", "models.contrib2", "models.contrib3")]
 
 
 def _port_modules():
@@ -161,3 +162,22 @@ def test_decode_attention_wrapper_refuses_bad_input():
                 kw["q"], kw["k_pages"], kw["v_pages"], kw["new_k"],
                 kw["new_v"], kw["layer"], kw["lens"], kw["block_table"],
                 scale=d ** -0.5)
+
+
+@pytest.mark.parametrize("name", ["phimoe", "olmoe", "granitemoe",
+                                  "glm4_moe", "dots1", "gpt2", "bloom"])
+def test_get_family_resolves_the_ported_contrib_families_only(name):
+    """``get_family`` resolves the contrib hub's five MoE families to the
+    port's own classes (``models/contrib2``, ``models/contrib3``); a hub
+    family the port does not carry yet (gpt2, bloom: ROADMAP A14e) still
+    raises ``KeyError``."""
+    from neuronx_distributed_inference_tpu_torch.models.family import \
+        get_family
+    if name in ("gpt2", "bloom"):
+        with pytest.raises(KeyError, match=name):
+            get_family(name)
+        return
+    fam = get_family(name)
+    assert fam.__module__.startswith(port.__name__ + ".models.contrib")
+    assert name in fam.family_names
+
