@@ -178,7 +178,9 @@ nvcc per source, all started together), then:
      9's 8 requests over batch 4 through the adapter's own add / step /
      release loop; ``ServingEngine`` takes the paged adapter surface
      only): no decode-kernel launch (the gather path), full streams, TTFT,
-     the agreement with each request's ``generate`` (a count); (d)
+     the agreement with each request's ``generate`` (a count), and each
+     stream held to (b)'s weights on a static app fed its tokens (the
+     logit-deficit gate of 19 (b)); (d)
      Mistral-7B-v0.1 at full width and depth with the rolling cache
      (``seq_len`` 16384, 4096 slots), batch 2, prompts of 5000 and 6000
      tokens, 64 new: flash launches = 32 x 1 prefill at window 4096, no
@@ -327,9 +329,41 @@ nvcc per source, all started together), then:
      after ``precompile``) on the same weights, its streams equal the
      paged app's and its launches exact (Phi-3.5-MoE's cut at window 256
      takes the rolling cache: flash only).
+ 22. speculation on the contiguous app, bf16, Llama-3.1-8B at full width
+     and depth with random weights from seed 0 and 4 Medusa-1 heads
+     (batch 4, ``seq_len`` 4096, both kernels, four prompts of 64-1024
+     tokens, 48 new tokens, k 4): (a) ``SpeculativeDecoder`` with a
+     Llama-3.2-1B-shaped draft, then with the target as its own draft;
+     (b) ``EagleDecoder`` and ``EagleTreeDecoder`` (depth 4, branch 4, 16
+     nodes) over a 1-layer EAGLE draft at the target's width (``fc``
+     (8192, 4096); the target's embeddings and lm head); (c)
+     ``MedusaDecoder``, ``MedusaTreeDecoder`` (DEFAULT_TREE) and
+     ``DynamicTreeDecoder`` (branch 4, 16 nodes). Each decoder's step is
+     one CUDA graph: after a warm run, the contiguous decode kernel's
+     launches must equal the draft's layers x its T = 1 steps x the
+     replays (16 x 4 fused, 32 x 4 self, 1 x 4 EAGLE, 1 x 4 the EAGLE
+     tree's rollout, 0 Medusa), none eager, and every stream is held to
+     greedy decode on the same weights fed its tokens
+     (``teacher_deficits``: each token within TOL_SERVED_DEFICIT_BF16
+     logit stds of the top, TOL_SERVED_MEAN_DEFICIT_BF16 on average, the
+     control beyond). Prints tokens per step and accept rates, ms per
+     fused step against a plain decode step, a torch.profiler trace of
+     4 fused steps, and B2 at the 1B draft's shapes (D 64, G 4) and the
+     EAGLE draft's (D 128, 1 layer) against its twin, its bound and
+     SDPA. (d) the same weights in a paged app on phase 9's engine and
+     schedule (32 new tokens) with ``MedusaProposer(4)``, then
+     ``EagleProposer(draft, 4)``: at most one ragged dispatch and one
+     blocking fetch a pass, paged launches = 32 x the width-1 all-decode
+     passes, full streams held to ``generate`` (``served_vs_generate``);
+     prints accept rates and host ms per pass. (e) fp32 (TF32 off) cuts
+     at 4 layers of (a)-(d): every stream greedy's (a first difference
+     only at a near-tie, printed), launches exact, and self-speculation's
+     first step emits k + 1 on every row (later steps read the draft
+     KV the reference's loop leaves unwritten after a fully accepted
+     step; printed).
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21 and the fp32 app of 6)
+21, 22 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -337,8 +371,8 @@ Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
-contig: 6-8; ragged: 9, 11, 10; spec: 12, 13 — alone, 12 (a) builds its
-own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
+contig: 6-8; ragged: 9, 11, 10; spec: 12, 13, 22 — alone, 12 (a) builds
+its own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
 moe_families: 20; contrib_moe: 21) and then prints no ``ok`` line.
 """
 
@@ -784,8 +818,8 @@ TOL_LOGITS_BF16 = 0.25
 #   this factor for rounding noise between the two.
 TOL_CONTIG_VS_FP32 = 1.25
 # fp32 serving: batched and single-row matmuls may take different kernels;
-#   a stream may first differ only where the reference's top-2 logits are
-#   closer than this.
+#   a stream may first differ only where its token's logit sits closer
+#   than this to the reference's top logit (so the top two are as close).
 NEAR_TIE = 1e-3
 
 # 14 (b) the MoE layer vs the fp32 loop reference, fp32 with TF32 off:
@@ -1567,8 +1601,8 @@ def phase_main_path(hf, device, on_card=True):
 def near_tie_check(phase, s, got, want, prompt_len):
     """The first difference of a served stream from the reference
     ``generate`` (``want`` with per-step logits) is accepted only where the
-    reference's top-2 logits are closer than NEAR_TIE; returns the case
-    or None."""
+    served token's logit sits within NEAR_TIE of the reference's top one
+    (a near-tie); returns the case or None."""
     import numpy as np
     exp = want["generated"][0]
     diff = np.nonzero(got != exp)[0]
@@ -1577,13 +1611,13 @@ def near_tie_check(phase, s, got, want, prompt_len):
     i = int(diff[0])
     # step 0 is the prefill: its logits cover the whole window
     lg = want["logits"][i][0, prompt_len - 1 if i == 0 else 0]
-    top2 = np.sort(lg)[-2:]
-    margin = float(top2[1] - top2[0])
+    lg = np.asarray(lg, np.float64)
+    margin = float(lg.max() - lg[got[i]])
     case = {"seq_id": s, "first_diff_step": i, "margin": margin}
     emit({"phase": phase, **case, "bound": NEAR_TIE})
     if not margin < NEAR_TIE:
-        raise AssertionError(f"stream {s} differs from generate at step {i} "
-                             f"with top-2 margin {margin}")
+        raise AssertionError(f"stream {s} differs from generate at step {i}, "
+                             f"its token {margin} below the top logit")
     return case
 
 
@@ -4664,10 +4698,14 @@ def phase_long_oss_serving(hf, device, app):
     phase 9's 8 requests of 37-1900 tokens over batch 4, 48 new tokens
     each. Decode takes the gather path (rows by seq_id, as the
     reference's kernel gate requires identity rows): no decode kernel
-    launch while serving. Gates: full in-vocab streams, no incident.
-    Prints passes by kind, host ms per pass, TTFT, and how many streams
-    equal each request's single-request ``generate`` on (b)'s app (a
-    count: bf16 rounds the gather and kernel paths differently)."""
+    launch while serving. Gates: full in-vocab streams, no incident, and
+    each stream held to (b)'s weights on a static app (the decode kernel)
+    fed its tokens: every token within TOL_SERVED_DEFICIT_BF16 logit stds
+    of the top logit, within TOL_SERVED_MEAN_DEFICIT_BF16 on average
+    (:func:`teacher_deficits`, :func:`deficit_gate`). Prints passes by
+    kind, host ms per pass, TTFT, and how many streams equal each
+    request's single-request ``generate`` on (b)'s app (a count: bf16
+    rounds the gather and kernel paths differently)."""
     import numpy as np
     import torch
     lens, new = RAGGED["lens"], RAGGED_TOKENS
@@ -4702,8 +4740,17 @@ def phase_long_oss_serving(hf, device, app):
           "launches": counts, "host_stats": {
               k: v for k, v in ad.host_stats.items() if isinstance(v, int)},
           "streams_equal_generate_bf16": equal,
-          "equal_prefix_tokens": prefix, "gate": False})
+          "equal_prefix_tokens": prefix, "gate": "deficit"})
     del ad, cb
+    free_card()
+    ref = make_pattern_app(hf, device, "bfloat16",
+                           batch=len(OSS_LONG["lens"]),
+                           seq_len=OSS_LONG["seq_len"], output_logits=True)
+    ref.params = app.params
+    deficit_gate("long_oss_cb", teacher_deficits(ref, prompts, streams),
+                 exact=False)
+    del ref
+    free_card()
 
 
 def phase_long_rolling(hf, device):
@@ -4872,9 +4919,9 @@ def phase_long_windowed(hf, device):
 
 def check_equal_streams(phase, got, want, logit_at):
     """Gate: ``got`` (B, T) equals ``want`` token for token; a row may
-    first differ only where the reference's top-2 logits at that step are
-    closer than NEAR_TIE (``logit_at(row, step)``, asked for only when a
-    row differs). Returns the near ties."""
+    first differ only where ``got``'s token sits within NEAR_TIE of the
+    reference's top logit at that step (``logit_at(row, step)``, asked
+    for only when a row differs). Returns the near ties."""
     import numpy as np
     got, want = np.asarray(got), np.asarray(want)
     ties = []
@@ -4882,12 +4929,12 @@ def check_equal_streams(phase, got, want, logit_at):
         if not (got[i] != want[i]).any():
             continue
         j = int(np.argmax(got[i] != want[i]))
-        top2 = np.sort(np.asarray(logit_at(i, j), np.float64))[-2:]
-        margin = float(top2[1] - top2[0])
+        row = np.asarray(logit_at(i, j), np.float64)
+        margin = float(row.max() - row[got[i, j]])
         ties.append({"row": i, "first_diff_step": j, "margin": margin})
         if not margin < NEAR_TIE:
-            raise AssertionError(f"{phase}: row {i} differs at step {j} "
-                                 f"with top-2 margin {margin}")
+            raise AssertionError(f"{phase}: row {i} differs at step {j}, "
+                                 f"its token {margin} below the top logit")
     emit({"phase": phase, "streams": len(want), "tokens": want.shape[1],
           "streams_equal": len(want) - len(ties), "near_ties": ties,
           "near_tie_bound": NEAR_TIE})
@@ -6552,14 +6599,18 @@ def router_check_at(app, prompt, served, step, chunk, experts):
     return out
 
 
-def forced_route_deficits(app, prompt, served, routes):
+def forced_route_deficits(app, prompt, served, routes, stats=None):
     """The served tokens' deficits (in logit stds, per step) under an
     eager single-row ``generate`` of ``prompt`` on a cold prefix (prefill
     in the app's chunks from position 0, fed ``served``'s tokens) with the served pass's routing
     imposed at every MoE layer of every position it recorded: ``routes``
     is :meth:`ServedRoutes.row_routes`' (affinities, expert ids, mask).
     What is left is the served path's difference from ``generate``
-    outside the routers (attention, norms, biases, the expert products)."""
+    outside the routers (attention, norms, biases, the expert products).
+    Returns the deficits; ``stats`` (a dict) receives
+    ``expert_pairs_differing_share``, the share of the recorded (position,
+    MoE layer) pairs whose served experts differ from the ones
+    ``generate``'s own router picks there (the routers' own reading)."""
     import numpy as np
     import torch
     from neuronx_distributed_inference_tpu_torch.modules import moe as moe_mod
@@ -6571,6 +6622,7 @@ def forced_route_deficits(app, prompt, served, routes):
     # consecutive chunks of the prompt (each as wide as its input), then
     # each decode step one position
     state = {"calls": 0, "start": 0, "next": 0, "decode": 0, "last": 0}
+    pairs = {"differ": [], "seen": []}
 
     def spy(moe, h, router_w, router_bias=None):
         v, i = orig(moe, h, router_w, router_bias)
@@ -6587,6 +6639,11 @@ def forced_route_deficits(app, prompt, served, routes):
         m = max(0, min(h.shape[1], vals.shape[1] - start))
         if m:
             on = have[start:start + m, None]
+            own = i[0, :m].sort(dim=-1).values
+            served = idx[layer, start:start + m].sort(dim=-1).values
+            pairs["differ"].append(((own != served).any(dim=-1)
+                                    & on[:, 0]).sum())
+            pairs["seen"].append(on.sum())
             v, i = v.clone(), i.clone()
             v[0, :m] = torch.where(on, vals[layer, start:start + m],
                                    v[0, :m].float()).to(v.dtype)
@@ -6615,6 +6672,11 @@ def forced_route_deficits(app, prompt, served, routes):
                          else lg[j][0, 0], np.float64)
         row = row[:app.spec.vocab_size]
         out.append(float(row.max() - row[served[j]]) / row.std())
+    seen = int(sum(int(x) for x in pairs["seen"]))
+    if stats is not None:
+        stats["expert_pairs_differing_share"] = (
+            int(sum(int(x) for x in pairs["differ"])) / seen if seen
+            else None)
     return out
 
 
@@ -6716,15 +6778,16 @@ def served_vs_generate(phase, chunk, routes=None):
                     or not got["forced_deficit"]
                     <= TOL_SERVED_DEFICIT_BF16):
                 unexplained.append((i, d))
-        forced = {}
+        forced, shares = {}, {}
         if routed and (unexplained
                        or not mean <= TOL_SERVED_MEAN_DEFICIT_BF16):
             for i in sorted({i for i, _ in unexplained}
                             | {i for i, ds in spans.items()
                                if np.mean(ds) > TOL_SERVED_MEAN_DEFICIT_BF16}):
+                shares[i] = {}
                 forced[i] = forced_route_deficits(
                     app, prompts[i], served[i],
-                    routes.row_routes(prompts[i], n_moe))
+                    routes.row_routes(prompts[i], n_moe), shares[i])
             unexplained = [(i, d) for i, d in unexplained
                            if i not in forced]
             unexplained += [(i, d) for i, ds in forced.items() for d in ds
@@ -6746,7 +6809,8 @@ def served_vs_generate(phase, chunk, routes=None):
                   "raw_max_deficit": max(spans[i]),
                   "raw_mean_deficit": float(np.mean(spans[i])),
                   "steps_over_bound": int(np.sum(np.asarray(ds)
-                                                 > TOL_SERVED_DEFICIT_BF16))}
+                                                 > TOL_SERVED_DEFICIT_BF16)),
+                  **shares[i]}
                   for i, ds in forced.items()},
               "gated_mean_deficit": gated_mean})
         if unexplained or not gated_mean <= TOL_SERVED_MEAN_DEFICIT_BF16:
@@ -7903,6 +7967,582 @@ def phase_contrib_moe(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: fused speculation, EAGLE, Medusa and token trees on the
+# contiguous app; the Medusa and EAGLE proposers on the ragged engine
+# ---------------------------------------------------------------------------
+
+# (a)-(c): batch 4 on the contiguous app, seq_len 4096, k 4 drafts a step,
+#   4 Medusa heads (Medusa-1: a ResBlock, then each head's lm head), the
+#   EAGLE tree at depth 4, branch 4, 16 nodes
+SPEC22 = dict(lens=(64, 300, 700, 1024), new_tokens=48, seq_len=4096, k=4,
+              heads=4, depth=4, branch=4, nodes=16)
+# (d): phase 9's eight requests on the ragged engine, 32 new tokens each
+SPEC22_SERVE_TOKENS = 32
+# (e): the fp32 cuts
+SPEC22_CHECK_LAYERS = 4
+
+
+def make_spec_app(hf, device, dtype, *, heads=0, output_logits=False,
+                  spec=True):
+    """The contiguous ``CausalLMApplication`` of phase 22: batch 4,
+    ``seq_len`` 4096, both kernels on (``attn_kernel_enabled``), the
+    prefill's hidden states out (``output_full_hidden``, EAGLE primes its
+    draft from them), and with ``spec`` the speculation config (k drafts
+    for the fused and EAGLE paths, ``heads`` + 1 candidates for Medusa);
+    ``heads`` Medusa heads in the spec (and so in its weights)."""
+    import dataclasses
+    from neuronx_distributed_inference_tpu_torch.config import (
+        SpeculationConfig, TpuConfig)
+    from neuronx_distributed_inference_tpu_torch.models.application import \
+        CausalLMApplication
+    from neuronx_distributed_inference_tpu_torch.models.family import \
+        get_family
+    family = get_family(hf["model_type"])
+    sc = (SpeculationConfig(speculation_length=SPEC22["k"],
+                            medusa_speculation_length=SPEC22["heads"] + 1,
+                            num_medusa_heads=SPEC22["heads"])
+          if spec else None)
+    tcfg = TpuConfig(batch_size=len(SPEC22["lens"]),
+                     seq_len=SPEC22["seq_len"], dtype=dtype,
+                     attn_kernel_enabled=True, output_logits=output_logits,
+                     output_full_hidden=True, speculation_config=sc)
+    app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
+                              device=device)
+    if heads:
+        app.spec = dataclasses.replace(app.spec, medusa_heads=heads)
+    return app.init_cache()
+
+
+def teacher_deficits(app, prompts, streams):
+    """Each stream held to the contiguous ``app`` (built with
+    ``output_logits``; its plain greedy decode) fed that stream's tokens:
+    the prompts in batches of the app's rows (a short batch repeats its
+    first prompt), the prefill's last position and every decode step.
+    Returns per request (deficits in logit stds, raw deficits, the
+    control's deficits (the token one id further), argmax-equal steps)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.modules import \
+        autobucketing
+    rows = app.tpu_config.batch_size
+    vocab = app.spec.vocab_size
+    dev = app.device
+    cfg = dataclasses.replace(app.tpu_config, output_logits=False)
+    out = []
+    for lo in range(0, len(prompts), rows):
+        part = list(range(lo, min(lo + rows, len(prompts))))
+        idx = part + [part[0]] * (rows - len(part))
+        lens = np.asarray([len(prompts[i]) for i in idx], np.int32)
+        bucket = autobucketing.get_target_bucket(app.ctx_buckets,
+                                                 int(lens.max()))
+        ids = np.zeros((rows, bucket), np.int32)
+        for r, i in enumerate(idx):
+            ids[r, :lens[r]] = prompts[i]
+        served = np.stack([np.asarray(streams[i], np.int32) for i in idx])
+        app.reset()
+        pos = torch.arange(bucket, dtype=torch.int32,
+                           device=dev)[None].expand(rows, bucket)
+        # the prefill without its full logits: the last position's only
+        pre = model_base.context_encoding_step(
+            app.spec, cfg, app.params, app.cache,
+            torch.as_tensor(ids, device=dev), pos,
+            torch.arange(rows, dtype=torch.int32, device=dev),
+            torch.as_tensor(lens, device=dev), None, app.generator,
+            app._inv_freq)
+        lg = [model_base._lm_head(app.spec, app.params,
+                                  pre["last_hidden"][:, None])[:, 0, :vocab]]
+        p = lens.copy()
+        for j in range(1, served.shape[1]):
+            o = app._run_decode(served[:, j - 1:j], p[:, None])
+            lg.append(o["logits"][:, -1, :vocab])
+            p = p + 1
+        L = torch.stack(lg, dim=1).double()
+        tok = torch.as_tensor(served, device=dev).long()
+        top = L.max(dim=-1).values
+        std = L.std(dim=-1, correction=0)
+        raw = top - L.gather(-1, tok[..., None])[..., 0]
+        ctl = top - L.gather(-1, ((tok + 1) % vocab)[..., None])[..., 0]
+        am = (L.argmax(dim=-1) == tok)
+        res = [x.cpu().numpy() for x in (raw / std, raw, ctl / std, am)]
+        out += [tuple(x[r] for x in res) for r in range(len(part))]
+        del L
+    app.reset()
+    return out
+
+
+def deficit_gate(phase, per, exact):
+    """Gate of a served or speculative stream set from
+    :func:`teacher_deficits`. bf16 (``exact`` False): every token within
+    TOL_SERVED_DEFICIT_BF16 logit stds of the top logit and within
+    TOL_SERVED_MEAN_DEFICIT_BF16 on average, the control beyond the first
+    at most steps (as ``served_vs_generate``). fp32 (``exact``): every
+    token is greedy's, or sits within NEAR_TIE logits of the top (a
+    near-tie, printed). Returns the emitted summary."""
+    import numpy as np
+    d = np.concatenate([x[0] for x in per])
+    raw = np.concatenate([x[1] for x in per])
+    ctl = np.concatenate([x[2] for x in per])
+    am = np.concatenate([x[3] for x in per])
+    ties = [(i, int(j), float(x[1][j])) for i, x in enumerate(per)
+            for j in np.nonzero(x[1] > 0)[0]]
+    far = float(np.mean(ctl > TOL_SERVED_DEFICIT_BF16))
+    rep = {"phase": phase + "_vs_greedy", "tokens": int(d.size),
+           "argmax_equal": int(am.sum()), "max_deficit": float(d.max()),
+           "mean_deficit": float(d.mean()),
+           "control_share_beyond_bound": far,
+           "streams_equal_greedy": sum(int(x[3].all()) for x in per),
+           "requests": len(per)}
+    if exact:
+        rep.update(near_ties=ties, bound_raw=NEAR_TIE)
+    else:
+        rep.update(bound=TOL_SERVED_DEFICIT_BF16,
+                   mean_bound=TOL_SERVED_MEAN_DEFICIT_BF16)
+    emit(rep)
+    if exact:
+        bad = [t for t in ties if not t[2] <= NEAR_TIE]
+        if bad:
+            raise AssertionError(f"{phase}: tokens off greedy decode beyond "
+                                 f"a near-tie: {bad[:4]}")
+        return rep
+    if not (d.max() <= TOL_SERVED_DEFICIT_BF16
+            and d.mean() <= TOL_SERVED_MEAN_DEFICIT_BF16):
+        raise AssertionError(f"{phase}: tokens up to {d.max()} (mean "
+                             f"{d.mean()}) logit stds below greedy's top")
+    if not far > 0.5:
+        raise AssertionError(f"{phase}: the control sits within the bound "
+                             f"at {1 - far:.2f} of the steps")
+    return rep
+
+
+def spec_run(phase, dec, ids, mask, apps, new_tokens, layers_per_step,
+             exact, ref, prompts, before_measure=None):
+    """One decoder: a short warm run (the step's graph captured), the
+    kernel counts and the decoder's replays zeroed, the measured run of
+    ``new_tokens``, then the gates: the contiguous decode kernel's
+    launches equal ``layers_per_step`` x the replayed steps (T = 1 draft
+    steps inside the graph; none eager), and the streams held to greedy
+    decode (:func:`deficit_gate`). ``before_measure()`` runs just before
+    the measured run. Returns (result, launches, steps, gate summary)."""
+    import torch
+    for app in apps:
+        app.reset()
+    dec.generate(ids, max_new_tokens=8, attention_mask=mask)
+    for app in apps:
+        app.reset()
+    on_card = dec.graphs is not None
+    if before_measure is not None:
+        before_measure()
+    reset_launches()
+    if on_card:
+        dec.graphs.reset_counts()
+    t0 = time.perf_counter()
+    out = dec.generate(ids, max_new_tokens=new_tokens, attention_mask=mask)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    steps = sum(dec.graphs.replays.values()) if on_card else 0
+    launches = counts["decode_attention_stacked"] + (
+        dec.graphs.replayed_launches("decode_attention_stacked")
+        if on_card else 0)
+    want = layers_per_step * steps
+    mean = out.get("mean_tokens_per_step", out.get("mean_accept"))
+    k = dec.k if hasattr(dec, "k") else None
+    emit({"phase": phase, "new_tokens": new_tokens, "steps": steps,
+          "mean_tokens_per_step": mean,
+          "accept_rate": ((mean - 1) / k) if k else None,
+          "seconds": wall, "launches": launches, "expected_launches": want,
+          "eager_decode_launches": counts["decode_attention_stacked"],
+          "flash_launches": counts["flash_attention"]})
+    if on_card and (launches != want
+                    or counts["decode_attention_stacked"] != 0):
+        raise AssertionError(f"{phase}: decode kernel launches {launches} "
+                             f"!= {want} ({layers_per_step} x {steps} "
+                             f"steps), eager {counts}")
+    gate = deficit_gate(phase, teacher_deficits(
+        ref, prompts, [list(r) for r in out["generated"]]), exact)
+    return out, launches, steps, gate
+
+
+def b2_entry(phase, device, cache, lens, spec, launches):
+    """The contiguous decode kernel over ``cache``'s last layer at the
+    rows' positions ``lens``, the query and the new token drawn at the
+    cache's own scale (q . k of unit spread, the new value weighing like
+    a cached one, so the output is the cached keys' doing): within one
+    bf16 ulp of its twin's largest output (tol_decode_bf16), with two
+    controls that must part from the kernel beyond that (the twin reading
+    KV head h // (G + 1) for query head h; the twin over each row's first
+    half of its keys); timed beside the twin and SDPA (D-contiguous
+    copies), its bound; returns the kernels-line entry."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    gen = torch.Generator(device=device).manual_seed(22)
+    b = len(lens)
+    hq, hkv, d = spec.num_q_heads, spec.num_kv_heads, spec.head_dim
+    layer = cache["k"].shape[0] - 1
+    live = min(int(x) for x in lens)
+    ks = cache["k"][layer, :, :, :, :live].float().std().item()
+    vs = cache["v"][layer, :, :, :live].float().std().item()
+
+    def rnd(sd, *shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                * sd).to(torch.bfloat16)
+    dec = dict(q=rnd(1 / ks, b, hq, d), k_cache=cache["k"],
+               v_cache=cache["v"], new_k=rnd(ks, b, hkv, d),
+               new_v=rnd(vs, b, hkv, d),
+               lens=torch.tensor([int(x) for x in lens], dtype=torch.int32,
+                                 device=device))
+    kw = dict(scale=spec.scale, layer=layer)
+    args, kw2 = decode_args(dec, kw)
+    got = decode_attention.decode_attention_stacked(*args, **kw2).float()
+    want = decode_attention.decode_attention_stacked_plain(*args, **kw2)
+    tol = tol_decode_bf16(want)
+    err = (got - want.float()).abs().max().item()
+    heads = torch.arange(hq, device=device) // (hq // hkv + 1)
+    wrong = [x.index_select(dim, heads) for x, dim in (
+        (cache["k"][layer:], 2), (cache["v"][layer:], 2),
+        (dec["new_k"], 1), (dec["new_v"], 1))]
+    ctl = {"control_h_over_g_plus_1_max_abs_err": (
+        dec["q"], *wrong, 0, dec["lens"]),
+        "control_half_keys_max_abs_err": (*args[:6], dec["lens"] // 2)}
+    ctl = {n: (got - decode_attention.decode_attention_stacked_plain(
+        *a, **kw2).float()).abs().max().item() for n, a in ctl.items()}
+    del want, wrong
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{phase}: decode kernel vs twin {err} > {tol}")
+    for n, c in ctl.items():
+        if not c > tol:
+            raise AssertionError(f"{phase}: {n} {c} sits within {tol}")
+    q4, kk, vv, smask = contiguous_sdpa_inputs(dec, layer)
+    t = timed_kernel(
+        lambda: decode_attention.decode_attention_stacked(*args, **kw2),
+        lambda: decode_attention.decode_attention_stacked_plain(*args,
+                                                                **kw2),
+        lambda: F.scaled_dot_product_attention(
+            q4, kk, vv, attn_mask=smask, scale=spec.scale, enable_gqa=True),
+        decode_bounds(dec), err,
+        {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "G": hq // hkv,
+         "S": cache["k"].shape[4], "lens": [int(x) for x in lens],
+         "layer": layer})
+    emit({"phase": phase + "_kernel", "kernel_us": t["ms"] * 1e3,
+          "plain_us": t["plain_ms"] * 1e3, "library_us": t["library_ms"] * 1e3,
+          "bound_us": t["bound_ms"] * 1e3, "bound_by": t["bound_by"],
+          "max_abs_err": err, "tol": tol, **ctl,
+          "launches": launches, "shape": t["shape"]})
+    del kk, vv
+    return {"name": "decode_attention_stacked", "route": "cuda",
+            "source": "neuronx_distributed_inference_tpu_torch/csrc/"
+                      "decode_attention.cu",
+            "replaces": "neuronx_distributed_inference_tpu/ops/"
+                        "decode_attention.py:41",
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+
+def step_timings(phase, dec, target, ids, mask):
+    """Host ms of one replayed fused step (its fetch included) against
+    one replayed plain decode step of the target (tokens fetched), 8 of
+    each in turns (fused, plain, plain, fused), at positions past the
+    prompts; then a torch.profiler trace of 4 fused steps."""
+    import numpy as np
+    b = ids.shape[0]
+    pos = (mask.sum(axis=1) + 60).astype(np.int32)
+    last = np.full((b,), 7, np.int32)
+    sid = np.arange(b, dtype=np.int32)
+
+    def fused():
+        for _ in range(8):
+            dec._step(last, pos, sid)
+
+    def plain():
+        for _ in range(8):
+            target._run_decode(last[:, None], pos[:, None])["tokens"].cpu()
+    t = {"fused": [], "plain": []}
+    for tag in ("fused", "plain", "plain", "fused"):
+        t[tag].append(time_host(fused if tag == "fused" else plain,
+                                reps=3) / 8)
+    wall, per = device_kernels(
+        lambda: [dec._step(last, pos, sid) for _ in range(4)])
+    prof = profile_summary_of(wall / 4, {n: ms / 4 for n, ms in per.items()})
+    emit({"phase": phase + "_step_ms", "fused_ms_per_step": t["fused"],
+          "plain_decode_ms_per_step": t["plain"],
+          "profile_per_fused_step": prof})
+    return t
+
+
+def spec_decoders(device, target_hf, draft_hf, dtype, phase, timings):
+    """(a)-(c) on one target's weights: fused speculation with a separate
+    draft and with the target as its own draft, EAGLE (chain and tree),
+    Medusa (chain, DEFAULT_TREE, the dynamic tree). ``timings``: the B2
+    entries at the draft shapes, the step times and the profile (bf16 at
+    full depth). Returns (kernel entries, the shared objects for (d))."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import speculation
+    from neuronx_distributed_inference_tpu_torch.modules import kv_cache
+    exact = dtype == "float32"
+    k, heads = SPEC22["k"], SPEC22["heads"]
+    target = make_spec_app(target_hf, device, dtype, heads=heads)
+    target.init_random_weights(0)
+    ref = make_spec_app(target_hf, device, dtype, output_logits=True,
+                        spec=False)
+    ref.params = target.params
+    ids, mask = prompts_of(SPEC22["lens"], target_hf["vocab_size"],
+                           seed=22)
+    prompts = [list(ids[i, :n]) for i, n in enumerate(SPEC22["lens"])]
+    new = SPEC22["new_tokens"]
+    entries = []
+    t_layers = target_hf["num_hidden_layers"]
+
+    # (a) fused speculation: the Llama-3.2-1B-shaped draft, then the
+    # target drafting for itself
+    draft = make_spec_app(draft_hf, device, dtype, spec=False)
+    draft.init_random_weights(0)
+    dec = speculation.SpeculativeDecoder(target, draft)
+    out, launches, steps, _ = spec_run(
+        phase + "_fused", dec, ids, mask, (target, draft), new,
+        draft_hf["num_hidden_layers"] * k, exact, ref, prompts)
+    if timings:
+        step_timings(phase + "_fused", dec, target, ids, mask)
+        entries.append(b2_entry(phase + "_fused_draft", device, draft.cache,
+                                mask.sum(axis=1) + new - 2, draft.spec,
+                                launches))
+    del dec, draft
+    selfd = make_spec_app(target_hf, device, dtype, spec=False)
+    selfd.params = target.params
+    dec = speculation.SpeculativeDecoder(target, selfd)
+    first_counts = []
+    orig = dec._step
+
+    def counting(last, pos, sid):
+        toks, n = orig(last, pos, sid)
+        first_counts.append(n.copy())
+        return toks, n
+    dec._step = counting
+    out, launches, steps, _ = spec_run(
+        phase + "_self", dec, ids, mask, (target, selfd), new,
+        t_layers * k, exact, ref, prompts,
+        before_measure=first_counts.clear)
+    # the measured run's first step: every row's draft cache holds its
+    # whole context, so in fp32 every draft is accepted
+    first = first_counts[0]
+    emit({"phase": phase + "_self_accept",
+          "mean_tokens_per_step": out["mean_tokens_per_step"],
+          "accept_rate": (out["mean_tokens_per_step"] - 1) / k,
+          "first_step_emitted": first.tolist(),
+          "emitted_per_step": [n.tolist() for n in first_counts]})
+    if exact and not (first == k + 1).all():
+        raise AssertionError(f"{phase}: fp32 self-speculation's first step "
+                             f"emitted {first.tolist()}, not {k + 1}")
+    del dec, selfd
+    if device.type == "cuda":
+        free_card()
+
+    # (b) EAGLE: one decoder layer at the target's width plus fc (2H, H);
+    # the embeddings and the lm head are the target's tensors
+    dspec = dataclasses.replace(target.spec, num_layers=1, medusa_heads=0)
+    dparams = speculation.init_eagle_draft_params(dspec, 1, device)
+    dparams["embed"] = target.params["embed"]
+    dparams["lm_head"] = target.params["lm_head"]
+    if device.type == "cuda":
+        free_card()
+    dcache = kv_cache.init_cache(kv_cache.KVCacheSpec(
+        num_layers=1, batch_size=len(SPEC22["lens"]),
+        max_seq_len=SPEC22["seq_len"], num_kv_heads=dspec.num_kv_heads,
+        head_dim=dspec.head_dim, dtype=dspec.kv_dtype), device)
+    dec = speculation.EagleDecoder(target, dspec, dparams, dcache)
+    out, launches, steps, _ = spec_run(
+        phase + "_eagle", dec, ids, mask, (target,), new, k, exact, ref,
+        prompts)
+    if timings:
+        entries.append(b2_entry(phase + "_eagle_draft", device, dcache,
+                                mask.sum(axis=1) + new - 2, dspec,
+                                launches))
+    dec = speculation.EagleTreeDecoder(
+        target, dspec, dparams, dcache, depth=SPEC22["depth"],
+        branch_k=SPEC22["branch"], num_nodes=SPEC22["nodes"])
+    spec_run(phase + "_eagle_tree", dec, ids, mask, (target,), new,
+             SPEC22["depth"], exact, ref, prompts)
+    del dec
+
+    # (c) Medusa: 4 heads on the target's features; every step is a T > 1
+    # verify, so the decode kernel launches 0 times
+    for name, dec in (
+            ("medusa", speculation.MedusaDecoder(target)),
+            ("medusa_tree", speculation.MedusaTreeDecoder(target)),
+            ("dynamic_tree", speculation.DynamicTreeDecoder(
+                target, branch_k=SPEC22["branch"],
+                num_nodes=SPEC22["nodes"]))):
+        spec_run(phase + "_" + name, dec, ids, mask, (target,), new, 0,
+                 exact, ref, prompts)
+    del dec, ref
+    return entries, target, dspec, dparams
+
+
+def spec_serving(device, hf, dtype, phase, target, dspec, dparams):
+    """(d): the target's weights in a paged app (batch 8, block 32,
+    prefix caching) under ``ServingEngine(PagedEngineAdapter(app,
+    ragged=True, prefill_chunk_tokens=512, speculation=P))`` for P =
+    ``MedusaProposer(4)`` and ``EagleProposer(draft, 4)``: phase 9's
+    eight requests and schedule, 32 new tokens. Gates: at most one ragged
+    dispatch and one blocking fetch a pass, the paged kernel launched 32
+    x the width-1 all-decode passes, full streams; bf16: the streams held
+    to ``generate`` (``served_vs_generate``); fp32: equal to the ragged
+    engine's without speculation (a first difference only at a near-tie
+    of ``generate``'s logits)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.config import \
+        ChunkedPrefillConfig
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingEngine
+    from neuronx_distributed_inference_tpu_torch.serving.speculation import (
+        EagleProposer, MedusaProposer)
+    cfg = RAGGED
+    exact = dtype == "float32"
+    layers = hf["num_hidden_layers"]
+    app = make_ragged_app(hf, device, dtype, cfg, output_logits=True,
+                          is_chunked_prefill=True,
+                          chunked_prefill_config=ChunkedPrefillConfig(
+                              kernel_q_tile_size=cfg["chunk"]))
+    app.spec = dataclasses.replace(app.spec,
+                                   medusa_heads=SPEC22["heads"])
+    app.params = target.params
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    new = SPEC22_SERVE_TOKENS
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    ref_streams = None
+    if exact:
+        eng = ServingEngine(PagedEngineAdapter(
+            app, ragged=True, prefill_chunk_tokens=cfg["chunk"]))
+        streams, _, _ = serve_schedule(eng, prompts, new, sync)
+        ref_streams = [list(s.tokens) for s in streams]
+        app.release()
+    for name, prop in (("medusa", MedusaProposer(SPEC22["heads"])),
+                       ("eagle", EagleProposer(dspec, dparams,
+                                               SPEC22["k"]))):
+        # a cold cache: the last run's references left the prompts'
+        # blocks in the prefix cache
+        app.init_cache()
+        eng = ServingEngine(PagedEngineAdapter(
+            app, ragged=True, prefill_chunk_tokens=cfg["chunk"],
+            speculation=prop))
+        ad = eng.adapter
+        reset_launches([app])
+        streams, recs, ttft = serve_schedule(eng, prompts, new, sync)
+        launches = kernel_counts([app])["paged_decode_attention"]
+        check_ragged_passes(phase + "_" + name, recs, launches, layers)
+        width1 = 0
+        for r in recs:
+            d = r["delta"]
+            rows = (d["ragged_rows_decode"] + d["ragged_rows_verify"]
+                    + d["ragged_rows_prefill"])
+            if d["ragged_dispatches"] == 1 and d["ragged_rows_prefill"] == 0:
+                pad_to = rows + d["ragged_pad_rows"]
+                if d["ragged_padded_tokens"] == pad_to:
+                    width1 += 1
+                    r["kind"] = "decode_w1"
+        st = ad.host_stats
+        want = layers * width1 if device.type == "cuda" else 0
+        emit({"phase": phase + "_" + name, "requests": len(prompts),
+              "new_tokens": new, "passes": len(recs),
+              "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
+                                 for k in ("mixed", "decode", "decode_w1",
+                                           "idle")},
+              "launches": launches, "expected_launches": want,
+              "accept_rate": st["spec_accepted_tokens"]
+              / max(st["spec_drafted_tokens"], 1),
+              "spec_drafted_tokens": st["spec_drafted_tokens"],
+              "spec_accepted_tokens": st["spec_accepted_tokens"],
+              "host_ms": {k: pass_summary(recs, k)
+                          for k in ("mixed", "decode", "decode_w1")},
+              "ttft_s": [ttft.get(i) for i in range(len(prompts))],
+              "host_stats": {k: v for k, v in st.items()
+                             if isinstance(v, int)}})
+        if launches != want:
+            raise AssertionError(f"{phase}_{name}: paged kernel launches "
+                                 f"{launches} != {want} ({layers} x "
+                                 f"{width1} width-1 all-decode passes)")
+        check_streams(phase + "_" + name, streams, new, hf["vocab_size"])
+        got = [list(s.tokens) for s in streams]
+        app.release()
+        if exact:
+            check_equal_streams(phase + "_" + name + "_vs_plain", got,
+                                ref_streams, paged_logit_at(
+                                    app, prompts, ref_streams, cfg["chunk"]))
+        else:
+            served_vs_generate(phase + "_" + name, cfg["chunk"])(
+                app, prompts, streams)
+        del eng, ad, prop
+    del app
+
+
+def paged_logit_at(app, prompts, want, chunk):
+    """``logit_at`` for :func:`check_equal_streams` over the paged app:
+    its ``generate`` of request ``i`` (a cold prefix, fed ``want[i]``'s
+    first ``j`` tokens), the logits of step ``j`` (step 0: the last
+    prompt position, within the prefill's last chunk)."""
+    import numpy as np
+
+    def at(i, j):
+        n = len(prompts[i])
+        kw = ({} if j == 0 else
+              {"teacher_tokens": np.asarray([want[i][:j]])})
+        with cold_prefix(app):
+            lg = app.generate(np.asarray([prompts[i]]), max_new_tokens=j + 1,
+                              return_logits=True, **kw)["logits"]
+            app.release()
+        last = ((n - 1) // chunk) * chunk if n > chunk else 0
+        row = lg[0][0, n - 1 - last] if j == 0 else lg[j][0, 0]
+        return np.asarray(row)[:app.spec.vocab_size]
+    return at
+
+
+def phase_speculation(device):
+    """Phase 22: (a)-(d) in bf16 at Llama-3.1-8B's full width and depth
+    (the draft Llama-3.2-1B's), then (e) the fp32 cuts (TF32 off) at 4
+    layers. Returns the kernels-line entries (the contiguous decode kernel
+    at the draft shapes)."""
+    if device.type == "cuda":
+        check_card_empty("speculation")
+    entries, target, dspec, dparams = spec_decoders(
+        device, LLAMA_3_1_8B, LLAMA_3_2_1B, "bfloat16", "spec22",
+        device.type == "cuda")
+    spec_serving(device, LLAMA_3_1_8B, "bfloat16", "spec22_serve", target,
+                 dspec, dparams)
+    del target, dparams
+    if device.type == "cuda":
+        memory_note("spec22")
+        free_card()
+    with fp32_exact():
+        cut = dict(LLAMA_3_1_8B, num_hidden_layers=SPEC22_CHECK_LAYERS)
+        _, target, dspec, dparams = spec_decoders(
+            device, cut, dict(LLAMA_3_2_1B,
+                              num_hidden_layers=SPEC22_CHECK_LAYERS),
+            "float32", "spec22_fp32", False)
+        spec_serving(device, cut, "float32", "spec22_fp32_serve", target,
+                     dspec, dparams)
+    del target, dparams
+    if device.type == "cuda":
+        free_card()
+    return entries
+
+
 GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
           "long", "mla", "quant", "dense", "moe_families", "contrib_moe")
 
@@ -7981,6 +8621,8 @@ def main(argv=None) -> int:
         kernels += phase_spec_sampled(LLAMA_3_1_8B, device)
         torch.cuda.empty_cache()
         phase_spec_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
+        free_card()
+        kernels += phase_speculation(device)
         mark("spec")
     if "moe" in only:
         free_card()

@@ -461,7 +461,8 @@ class CausalLMApplication:
                      sampling_params=None):
         """Prefill of a (B, bucket) right-padded window
         (``model_base.context_encoding_step``, eager); the cache is
-        written in place. Returns {"tokens", ["logits"]} on the device."""
+        written in place. Returns {"tokens", "last_hidden", ["logits"],
+        ["hidden_states"]} on the device."""
         b, s = np.shape(input_ids)
         sid = self._seq_ids(b, seq_ids)
         pos = torch.arange(s, dtype=torch.int32,
@@ -880,16 +881,18 @@ class PagedCausalLMApplication(CausalLMApplication):
 
     def _run_ragged(self, input_ids, position_ids, slot_mapping,
                     block_table, widths, emit_modes, sampling_params=None,
-                    row_seeds=None):
+                    row_seeds=None, want_hidden: bool = False):
         """ONE ragged mixed step (``model_base.paged_ragged_step``): rows
         mix decode steps, prefill chunks and verify windows, each at its
         own offset over its own block table. ``input_ids`` may be a device
         tensor (verify rows' drafts); the other host arrays are numpy: the
         capacity check, the verify test and the signature (grid width,
-        batch, table width, verify, sampling mode) read them without
-        touching the device. A greedy or coupled all-decode step (W = 1,
-        no verify row) replays its graph. The cache is written in place.
-        Returns {"tokens", "num_emitted"} on the device."""
+        batch, table width, verify, sampling mode, ``want_hidden``) read
+        them without touching the device. A greedy or coupled all-decode
+        step (W = 1, no verify row) replays its graph. The cache is
+        written in place. Returns {"tokens", "num_emitted"} on the device,
+        and {"hidden"} (B, W, H) with ``want_hidden`` (the Medusa and EAGLE
+        proposers' features; reference :1325-1345 keys its jit on it)."""
         pos = np.asarray(position_ids)
         wid = np.asarray(widths)
         emit = np.asarray(emit_modes)
@@ -900,14 +903,16 @@ class PagedCausalLMApplication(CausalLMApplication):
             sampling_params = self._default_sampling_params(b)
         seeds = self._stream_seeds(row_seeds, b)
         verify = bool((emit == model_base.EMIT_VERIFY).any())
-        sig = (b, int(np.shape(block_table)[1]), verify, mode)
+        sig = (b, int(np.shape(block_table)[1]), verify, mode,
+               bool(want_hidden))
 
         def fn(x, sp):
             return model_base.paged_ragged_step(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["slots"], x["bt"], x["wid"],
                 x["emit"], sp, self.generator, self._inv_freq,
-                verify=verify, row_seeds=x.get("seeds"))
+                verify=verify, row_seeds=x.get("seeds"),
+                want_hidden=want_hidden)
         return self._step("ragged", w, sig,
                           w == 1 and not verify and graphable, fn,
                           self._paged_inputs(
@@ -971,12 +976,14 @@ class PagedCausalLMApplication(CausalLMApplication):
 
     def _run_spec_verify(self, input_ids, position_ids, slot_mapping,
                          block_table, widths, sampling_params=None,
-                         row_seeds=None):
+                         row_seeds=None, want_hidden: bool = False):
         """The speculative verify step (``model_base.paged_spec_verify``):
         one W-wide paged forward with exact-match acceptance, greedy or
         coupled. ``input_ids`` may be a device tensor (the drafts never
         visit the host). Wide grids run eagerly. Returns {"tokens",
-        "num_emitted"} on the device."""
+        "num_emitted"} on the device, and {"hidden"} (B, W, H) with
+        ``want_hidden`` (a part of the signature, as reference
+        :1287-1301 keys its jit on it)."""
         pos = np.asarray(position_ids)
         wid = np.asarray(widths)
         self._check_decode_fits(int(np.max(pos[:, 0] + wid)))
@@ -985,13 +992,13 @@ class PagedCausalLMApplication(CausalLMApplication):
         seeds = self._stream_seeds(row_seeds, b)
         if seeds is not None and sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        sig = (b, int(np.shape(block_table)[1]), mode)
+        sig = (b, int(np.shape(block_table)[1]), mode, bool(want_hidden))
 
         def fn(x, sp):
             return model_base.paged_spec_verify(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["slots"], x["bt"], x["wid"], sp,
-                x.get("seeds"), self._inv_freq)
+                x.get("seeds"), self._inv_freq, want_hidden=want_hidden)
         return self._step("spec_verify", w, sig, False, fn,
                           self._paged_inputs(
                               {"ids": input_ids, "pos": pos,

@@ -267,6 +267,9 @@ class DecoderSpec:
     # untied lm-head a bias (``lm_head_b``) added to the fp32 logits
     norm_bias: bool = False
     lm_head_bias: bool = False
+    # Medusa speculation heads (model_base.py:251-253): head j = a
+    # ResBlock (H -> H) and its own lm head, predicting position +j+2
+    medusa_heads: int = 0
 
     @property
     def scale(self) -> float:
@@ -416,7 +419,10 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     520-549): one ``"layers"`` stack, or for a mixed stack the dense
     layers in ``"layers"`` and the MoE layers in ``"moe_layers"``
     (:func:`layer_plan`); with ``norm_bias`` the final norm's bias, with
-    ``lm_head_bias`` the untied head's (:556, :579-580)."""
+    ``lm_head_bias`` the untied head's (:556, :579-580); with
+    ``medusa_heads`` M the heads' ``medusa_blocks`` (M, H, H),
+    ``medusa_bias`` (M, H) and ``medusa_lm`` (M, H, padded vocab)
+    (:582-587)."""
     H, dt = spec.hidden_size, spec.dtype
     out: Dict[str, Any] = {
         "embed": ParamSpec((spec.padded_vocab, H), dt),
@@ -435,6 +441,11 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
         out["lm_head"] = ParamSpec((H, spec.padded_vocab), dt)
         if spec.lm_head_bias:
             out["lm_head_b"] = ParamSpec((spec.padded_vocab,), dt, "zeros")
+    if spec.medusa_heads > 0:
+        M = spec.medusa_heads
+        out["medusa_blocks"] = ParamSpec((M, H, H), dt)
+        out["medusa_bias"] = ParamSpec((M, H), dt, "zeros")
+        out["medusa_lm"] = ParamSpec((M, H, spec.padded_vocab), dt)
     return out
 
 
@@ -1035,8 +1046,12 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                           inv_freq: Optional[torch.Tensor] = None):
     """Prefill (model_base.py:1686). input_ids/position_ids (B, S_bucket)
     right-padded with arange positions; seq_ids (B,) cache rows; seq_lens
-    (B,) true lengths. Writes the cache in place; returns {"tokens": (B,)}
-    plus {"logits": (B, S_bucket, vocab)} when ``output_logits``.
+    (B,) true lengths. Writes the cache in place; returns {"tokens": (B,),
+    "last_hidden": (B, H)} (the last real position's hidden state, which
+    feeds the Medusa heads and the EAGLE draft, :1770-1776), plus
+    {"logits": (B, S_bucket, vocab)} when ``output_logits`` and
+    {"hidden_states": (B, S_bucket, H)} when ``output_full_hidden``
+    (:1780-1781).
 
     On the mixed cache every layer prefills into a full-length scratch
     (identity rows), which :func:`fold_mixed_prefill` then folds into the
@@ -1071,9 +1086,13 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
         del cache           # the scratch goes before the lm_head's logits
     idx = (seq_lens.long() - 1).clamp(min=0)[:, None, None].expand(
         -1, 1, hidden.shape[-1])
-    return _sample_out(spec, tpu_cfg, params, hidden,
-                       torch.gather(hidden, 1, idx), sampling_params,
-                       generator)
+    last_h = torch.gather(hidden, 1, idx)
+    out = _sample_out(spec, tpu_cfg, params, hidden, last_h,
+                      sampling_params, generator)
+    out["last_hidden"] = last_h[:, 0, :]
+    if tpu_cfg.output_full_hidden:
+        out["hidden_states"] = hidden
+    return out
 
 
 def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
@@ -1131,12 +1150,15 @@ def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                            cache, input_ids, position_ids, seq_ids,
                            inv_freq: Optional[torch.Tensor] = None):
     """A T-token decode step that returns the logits of every position
-    (model_base.py:1846-1874): the step of windowed context encoding (and
-    of the fused speculation's verify, not ported). input_ids /
-    position_ids (B, T); positions at or past the cache write nothing.
-    The step's K/V are written first, then every query attends the cache
-    through the position mask (the gather path: T > 1 takes no kernel).
-    Returns {"logits_all": (B, T, vocab)}."""
+    (model_base.py:1846-1874): the step of windowed context encoding and
+    the target verify of fused speculation (``models/speculation.py``).
+    input_ids / position_ids (B, T); positions at or past the cache write
+    nothing. The step's K/V are written first, then every query attends
+    the cache through the position mask (the gather path: T > 1 takes no
+    kernel; at T = 1 the decode kernel's gate decides, as for
+    :func:`token_generation_step`). Returns {"logits_all": (B, T,
+    vocab), "hidden": (B, T, H)} (the hidden states before the final
+    norm, which Medusa and EAGLE read)."""
     if spec.mixed_kv:
         raise NotImplementedError(
             "multi-token decode over the mixed per-layer cache is not "
@@ -1146,7 +1168,7 @@ def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     hidden = run_layers(spec, params, cache, _embed(spec, params, input_ids),
                         ai, "decode")
     return {"logits_all": _lm_head(spec, params, hidden)[
-        ..., :spec.vocab_size]}
+        ..., :spec.vocab_size], "hidden": hidden}
 
 
 def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
@@ -1331,7 +1353,8 @@ def _accepted(input_ids, target, widths):
 def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       input_ids, position_ids, slot_mapping, block_table,
                       widths, sampling_params=None, row_seeds=None,
-                      inv_freq: Optional[torch.Tensor] = None):
+                      inv_freq: Optional[torch.Tensor] = None,
+                      want_hidden: bool = False):
     """The speculative verify step (model_base.py:2141-2220): every
     candidate of a (B, W) window in one paged forward, then exact-match
     acceptance. input_ids (B, W): column 0 each row's last accepted token,
@@ -1341,7 +1364,8 @@ def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     the emitted tokens are the target's own choices at consecutive
     positions, whatever was drafted. Writes the cache in place; returns
     {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
-    (B,) int32}."""
+    (B,) int32}, plus {"hidden": (B, W, H)} with ``want_hidden`` (the
+    verified features the Medusa and EAGLE proposers read, :2217)."""
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
                            slot_mapping, block_table, inv_freq)
     target = _verify_target(spec, tpu_cfg, params, hidden, position_ids,
@@ -1350,14 +1374,18 @@ def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     col = torch.arange(input_ids.shape[1], device=hidden.device)[None, :]
     tokens = torch.where(col <= n_acc[:, None], target,
                          torch.zeros_like(target))
-    return {"tokens": tokens, "num_emitted": (n_acc + 1).to(torch.int32)}
+    out = {"tokens": tokens, "num_emitted": (n_acc + 1).to(torch.int32)}
+    if want_hidden:
+        out["hidden"] = hidden
+    return out
 
 
 def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       input_ids, position_ids, slot_mapping, block_table,
                       widths, emit_modes, sampling_params=None,
                       generator=None, inv_freq: Optional[torch.Tensor] = None,
-                      verify: bool = False, row_seeds=None):
+                      verify: bool = False, row_seeds=None,
+                      want_hidden: bool = False):
     """The ragged unified step (model_base.py:2222-2328): one paged
     forward whose rows mix decode steps (width 1), prefill chunks (width
     n at the row's own offset) and verify windows (width k+1).
@@ -1383,7 +1411,8 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     fp32 that the other modes do not need), and the emit-1 rows take
     their sample from the same target. Writes the cache in place; returns
     {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
-    (B,) int32}."""
+    (B,) int32}, plus {"hidden": (B, W, H)} with ``want_hidden``
+    (:2326-2327)."""
     b, w = input_ids.shape
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
                            slot_mapping, block_table, inv_freq)
@@ -1415,7 +1444,10 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                              torch.where(col <= n_acc[:, None], target, zero),
                              tokens)
         n_emit = torch.where(rows, (n_acc + 1).to(torch.int32), n_emit)
-    return {"tokens": tokens, "num_emitted": n_emit}
+    out = {"tokens": tokens, "num_emitted": n_emit}
+    if want_hidden:
+        out["hidden"] = hidden
+    return out
 
 
 def _slot_of(block_table, rows, pos, bs):
@@ -1508,7 +1540,6 @@ def _unported_knobs(tcfg: TpuConfig, act: str):
         (tcfg.sequence_parallel_enabled, "sequence parallelism"),
         (tcfg.flash_decoding_enabled, "flash decoding"),
         (tcfg.lora_config is not None, "LoRA"),
-        (_has_speculation(tcfg), "speculation"),
         (tcfg.collective_config is not None
          and tcfg.collective_config.dtype is not None,
          "quantized collectives"),
@@ -1593,13 +1624,15 @@ def cache_layout(tcfg: TpuConfig, sliding_window: int, layer_pattern=None,
 
 # the DecoderSpec knobs that spec_from_config takes as keyword overrides,
 # as the counterpart's ``**overrides`` (model_base.py:2346): the dense
-# families', Llama4's, DBRX's and Phi-3.5-MoE's; ``tie_word_embeddings``
+# families', Llama4's, DBRX's, Phi-3.5-MoE's and the Medusa heads';
+# ``tie_word_embeddings``
 # overrides the config's (HF omits a default True from config.json)
 KNOBS = ("act", "norm_offset", "sandwich_norm", "norm_position",
          "qk_norm_full", "residual_multiplier", "logits_divide",
          "logits_soft_cap", "attn_soft_cap", "embed_scale", "local_rope",
          "tie_word_embeddings", "nope_global", "qk_l2_norm", "attn_temp",
-         "norm_type", "qkv_clip", "norm_bias", "lm_head_bias")
+         "norm_type", "qkv_clip", "norm_bias", "lm_head_bias",
+         "medusa_heads")
 NORM_TYPES = ("rms", "layernorm")
 
 

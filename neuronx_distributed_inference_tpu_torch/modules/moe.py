@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..ops.sampling import top_k
 from ..resilience.errors import ConfigurationError
 from .quantization import dequantize, is_quantized_leaf, qlinear, qmatmul
 
@@ -85,13 +86,6 @@ def _act_fn(name: str):
     return ACT_FNS[name]
 
 
-def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: values descending, the lower
-    index first among equal values."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def route(moe: MoESpec, h: torch.Tensor, router_w: torch.Tensor,
           router_bias: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,14 +110,14 @@ def route(moe: MoESpec, h: torch.Tensor, router_w: torch.Tensor,
         b, t, e = select.shape
         g = moe.n_group
         grouped = select.reshape(b, t, g, e // g)
-        top2, _ = _top_k(grouped, 2)
-        _, group_idx = _top_k(top2.sum(dim=-1), moe.topk_group)
+        top2, _ = top_k(grouped, 2)
+        _, group_idx = top_k(top2.sum(dim=-1), moe.topk_group)
         group_mask = torch.zeros((b, t, g), dtype=torch.bool,
                                  device=select.device).scatter_(
             -1, group_idx, True)
         mask = group_mask[..., None].expand(grouped.shape).reshape(b, t, e)
         select = torch.where(mask, select, torch.zeros_like(select))
-    _, top_idx = _top_k(select, moe.top_k)
+    _, top_idx = top_k(select, moe.top_k)
     top_vals = torch.gather(scores, -1, top_idx)
     if moe.pre_softmax_topk and moe.router_act != "sigmoid":
         top_vals = torch.softmax(top_vals, dim=-1)

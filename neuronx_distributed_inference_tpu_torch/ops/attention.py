@@ -1,7 +1,7 @@
 """Attention cores and masks of the XLA-equivalent paths (counterpart:
 ``neuronx_distributed_inference_tpu/ops/attention.py`` — ``repeat_kv``
 :29, ``mha`` :77, ``mha_hl`` :128, ``mha_decode_merged`` :168, masks
-:232-283 with ``rolling_decode_mask`` :261).
+:232-283 with ``rolling_decode_mask`` :261 and ``speculation_mask`` :283).
 
 Layouts as in the JAX package: q (B, T, Hq, D); k/v (B, S, Hkv, D), or the
 contiguous cache's native layouts for ``mha_hl`` (K transposed (B, Hkv, D,
@@ -252,3 +252,11 @@ def decode_mask(position_ids: torch.Tensor, cache_len: int,
                           device=position_ids.device)[None, :]
     kv_pos = kv_pos.expand(position_ids.shape[0], cache_len)
     return causal_mask(position_ids, kv_pos, window, chunk)
+
+
+def speculation_mask(position_ids: torch.Tensor, cache_len: int,
+                     window: int = 0) -> torch.Tensor:
+    """Mask of a block of k speculative tokens (B, k) against the cache:
+    the decode mask under its own name, as the counterpart keeps it for
+    the reference's speculation branch."""
+    return decode_mask(position_ids, cache_len, window)

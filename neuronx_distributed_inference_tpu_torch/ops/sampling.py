@@ -26,7 +26,7 @@ the logits' device, with no host read, so a captured graph can hold it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,15 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    descending order, the lower index first among equal values (a stable
+    descending sort; ``torch.topk`` leaves ties in no set order). Returns
+    (values, int64 indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def truncated_probs(logits: torch.Tensor, sampling_params: torch.Tensor,
                     global_topk: int = 256):
     """logits (B, V) + sampling_params (B, 3) -> (probs, top_idx), both
@@ -75,12 +84,9 @@ def truncated_probs(logits: torch.Tensor, sampling_params: torch.Tensor,
     b, v = logits.shape
     k = min(global_topk, v)
     lf = logits.float()
-    # ``jax.lax.top_k`` puts the lower index first among equal values; a
-    # stable descending sort does too (``torch.topk`` leaves ties in no
-    # set order). Ties are common: bf16 logits share few distinct values,
-    # and the coupled draw hangs its noise on the ranks
-    top_vals, top_idx = torch.sort(lf, dim=-1, descending=True, stable=True)
-    top_vals, top_idx = top_vals[:, :k], top_idx[:, :k]
+    # ties in ``jax.lax.top_k``'s order matter: bf16 logits share few
+    # distinct values, and the coupled draw hangs its noise on the ranks
+    top_vals, top_idx = top_k(lf, k)
     sp = sampling_params.to(device=lf.device, dtype=torch.float32)
     req_k, req_p = sp[:, 0], sp[:, 1]
     temp = torch.clamp(sp[:, 2], min=1e-6)

@@ -12,9 +12,10 @@
      ladder;
   2. per-row KV growth for the live rows' windows (preemption-aware,
      exactly like the non-ragged grow);
-  3. with speculation attached, the proposer's draft pass (k T = 1 steps
-     on the paged decode kernel); its tokens are merged into the packed
-     input on the device, never through the host;
+  3. with speculation attached, the proposer's draft pass (the self-draft
+     loop's k T = 1 steps on the paged decode kernel, or a Medusa / EAGLE
+     proposer's device work); its tokens are merged into the packed input
+     on the device, never through the host;
   4. THE ragged dispatch (``model_base.paged_ragged_step``): per-row
      sampling for decode rows and final prefill chunks, acceptance for
      verify windows (greedy exact match, or the coupled draw under a
@@ -25,7 +26,8 @@
      bookkeeping: chunk cursors advance (final chunks graduate to running
      rows), ``_unwritten`` blocks covered by the now-materialized writes
      are confirmed, accept cursors advance and KV shrinks to each verify
-     row's accepted prefix.
+     row's accepted prefix; a ``wants_hidden`` proposer gets the
+     dispatch's hidden states of its rows (re-padded as row-0 clones).
 
 Failure contract: the ``ragged_step`` fault point fires between growth
 and the dispatch; any dispatch/fetch failure rolls EVERY packed row back
@@ -96,6 +98,10 @@ class RaggedDispatchPath:
                     "ragged_rows_verify", "ragged_pad_rows",
                     "ragged_real_tokens", "ragged_padded_tokens"):
             stats.setdefault(key, 0)
+
+    @property
+    def wants_hidden(self) -> bool:
+        return self.proposer is not None and self.proposer.wants_hidden
 
     # -- the ragged engine step --------------------------------------------
     def step(self, seq_ids: Optional[Sequence[int]] = None,
@@ -279,6 +285,14 @@ class RaggedDispatchPath:
                 torch.int32)
             if pad_to > b:
                 ids[b:, 1:spec_W] = drafts[0, :spec_W - 1].to(torch.int32)
+        if ctx is not None and self.wants_hidden:
+            # ctx.cand (read only by a proposer of hidden states: EAGLE's
+            # refresh) keeps the spec context's rows (the live rows, then
+            # clones of row 0): the grid's rows past the live prefix are
+            # prefill or pad rows, so re-pad by gather; EAGLE's refresh
+            # writes cand at row 0's slot for the clones, with its values
+            ctx.cand = torch.as_tensor(ids, device=app.device)[
+                self._ctx_rows(ctx, len(live_rows)), :spec_W]
         tenant = _common_tenant(
             [_meta_tenant(ad.seqs[s].meta) for s in sids if s in ad.seqs]
             + [_meta_tenant(chunks[s].meta) for s in sids if s in chunks])
@@ -305,10 +319,19 @@ class RaggedDispatchPath:
                 phase="ragged", seq_ids=tuple(sids),
                 retry_safe=not dispatched)) from e
         return self._accept(plan, live_rows, prefill_rows, toks, n_emit,
-                            ctx, spec_W, t0, b, W, pad_to)
+                            ctx, spec_W, t0, b, W, pad_to, out.get("hidden"))
+
+    def _ctx_rows(self, ctx, n_live: int) -> torch.Tensor:
+        """Grid rows of the spec context's rows: the live prefix, then row
+        0 for each of the context's pad rows."""
+        return torch.as_tensor(np.concatenate(
+            [np.arange(n_live), np.zeros(ctx.padded_batch - n_live,
+                                         np.int64)]),
+            device=self.adapter.app.device)
 
     def _accept(self, plan, live_rows, prefill_rows, toks, n_emit, ctx,
-                spec_W, t0, b, W, pad_to) -> Dict[int, List[int]]:
+                spec_W, t0, b, W, pad_to, hidden=None
+                ) -> Dict[int, List[int]]:
         """Post-fetch host bookkeeping (the dispatch is materialized)."""
         ad = self.adapter
         app = ad.app
@@ -391,8 +414,10 @@ class RaggedDispatchPath:
                                  padded=pad_to)
         if ctx is not None:
             n_live = len(live_rows)
+            if hidden is not None:
+                hidden = hidden[self._ctx_rows(ctx, n_live), :spec_W]
             self.spec_path.feedback(ctx, toks[:n_live, :spec_W],
-                                    n_emit[:n_live])
+                                    n_emit[:n_live], hidden)
         return res
 
     # -- dispatch region: no device value is read here ---------------------
@@ -407,10 +432,12 @@ class RaggedDispatchPath:
             with ad.app.request_context(
                     self._row_trace(r.seq_id) for r in rows):
                 out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit,
-                                         row_seeds=seeds)
+                                         row_seeds=seeds,
+                                         want_hidden=self.wants_hidden)
         else:
             out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit,
-                                     row_seeds=seeds)
+                                     row_seeds=seeds,
+                                     want_hidden=self.wants_hidden)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["ragged_dispatches"] += 1
         ad.host_stats["device_steps"] += 1

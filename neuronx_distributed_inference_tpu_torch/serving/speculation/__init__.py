@@ -4,8 +4,10 @@
 * :mod:`.proposer` — the draft side: :class:`SelfDraftProposer` (the
   target model drafts its own continuation through the masked draft loop)
   and :class:`PerturbedSelfDraftProposer` (a corrupted draft column: a
-  fixed partial accept rate). ``MedusaProposer`` and ``EagleProposer``
-  wait for ``models/speculation.py``.
+  fixed partial accept rate); :class:`MedusaProposer` (the Medusa heads
+  on the verify's features) and :class:`EagleProposer` (the EAGLE draft
+  over its own slot-keyed contiguous cache, refreshed with the verified
+  pairs), both from ``models/speculation.py``.
 * :mod:`.verifier` — :class:`SpeculativeDecodePath`, the engine step:
   per-row widths on the ``autobucketing.spec_width_buckets`` ladder, one
   draft pass, ONE verify dispatch with acceptance on the device, KV grown
@@ -22,11 +24,12 @@ seeded coupled draw), whatever the proposer drafts, so the streams equal
 non-speculative decode; a bad proposer costs acceptance rate only.
 """
 
-from .proposer import (DraftProposer, PerturbedSelfDraftProposer,
-                       SelfDraftProposer)
+from .proposer import (DraftProposer, EagleProposer, MedusaProposer,
+                       PerturbedSelfDraftProposer, SelfDraftProposer)
 from .verifier import SpeculativeDecodePath, validate_spec_sampling
 
 __all__ = [
     "DraftProposer", "SelfDraftProposer", "PerturbedSelfDraftProposer",
+    "MedusaProposer", "EagleProposer",
     "SpeculativeDecodePath", "validate_spec_sampling",
 ]

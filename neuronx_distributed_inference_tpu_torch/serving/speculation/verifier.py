@@ -1,7 +1,8 @@
 """The speculative engine step (counterpart:
 ``neuronx_distributed_inference_tpu/serving/speculation/verifier.py`` —
 ``validate_spec_sampling`` :61, ``_SpecContext`` :84,
-``SpeculativeDecodePath`` :103-458).
+``SpeculativeDecodePath`` :103-458, its ``_dispatch_propose`` and
+``_dispatch_eagle_refresh`` :399-417).
 
 :class:`SpeculativeDecodePath` owns one engine step of draft-and-verify
 decode on a :class:`~..adapter.PagedEngineAdapter`:
@@ -10,21 +11,29 @@ decode on a :class:`~..adapter.PagedEngineAdapter`:
      and the scheduler's per-row token room — padded to the
      ``autobucketing.spec_width_buckets`` ladder;
   2. per-row KV growth for the whole window (preemption-aware);
-  3. the proposer's draft pass, whose tokens stay on the device;
-  4. ONE verify dispatch (``model_base.paged_spec_verify``): greedy
+  3. the proposer's draft pass, whose tokens stay on the device (the
+     self-draft loop, or a proposer's own device work through
+     :meth:`SpeculativeDecodePath._dispatch_propose`);
+  4. ONE verify dispatch (``model_base.paged_spec_verify``, with its hidden
+     states when the proposer ``wants_hidden``): greedy
      exact-match acceptance, or — under a seeded sampled config — the
      coupled draw, which makes exact match the rejection test of the
      shared positional noise;
   5. the ONE blocking fetch (tokens and accept counts together), then
-     the accept cursors advance and KV shrinks to the accepted prefix.
+     the accept cursors advance and KV shrinks to the accepted prefix;
+  6. the proposer's feedback (``on_verify``) with the verify's hidden
+     states: Medusa keeps each row's feature, EAGLE refreshes its draft
+     cache (:meth:`SpeculativeDecodePath._dispatch_eagle_refresh`).
 
 Failure contract: the ``spec_draft`` / ``spec_verify`` fault points fire
 before the two dispatches; any failure shrinks every packed row's growth
 back to its last accepted token, leaves positions untouched and raises a
 typed :class:`StepFailure`. The cache is written in place, so a failure
-inside a dispatch is not ``retry_safe``. ``_dispatch_spec_draft`` and
-``_dispatch_spec_verify`` never read a device value; :meth:`_fetch_verify`
-is the step's single blocking copy.
+inside a dispatch is not ``retry_safe``. The ``_dispatch_*`` helpers
+never read a device value; :meth:`_fetch_verify` is the step's single
+blocking copy. A proposer that fails in ``on_verify`` loses its
+per-sequence state, never a token: the step's tokens are delivered
+already.
 """
 
 from __future__ import annotations
@@ -87,6 +96,8 @@ class _SpecContext:
     widths: np.ndarray             # (Bp,) per-row candidate widths
     block_table: np.ndarray        # (Bp, table-width bucket)
     seeds: np.ndarray = None       # (Bp,) per-row sampling stream seeds
+    cand: Any = None               # (Bp, W) device candidates, set before
+                                   # on_verify (EAGLE's refresh reads them)
 
 
 class SpeculativeDecodePath:
@@ -264,6 +275,7 @@ class SpeculativeDecodePath:
         cand = (first_dev if W == 1 else
                 torch.cat([first_dev, drafts[:, :W - 1].to(torch.int32)],
                           dim=1))
+        ctx.cand = cand
         cols = np.arange(W, dtype=np.int32)[None, :]
         pos_w = pos[:, None] + cols
         slot_pos = np.where(cols < wid[:, None], pos_w, -1)
@@ -311,15 +323,18 @@ class SpeculativeDecodePath:
         ad.telemetry.on_spec_step(rows, t0, padded=pad_to, width=W,
                                   drafted=drafted, accepted=accepted,
                                   mode=self.mode)
-        self.feedback(ctx, toks, n_emit)
+        self.feedback(ctx, toks, n_emit, out.get("hidden"))
         return res
 
-    def feedback(self, ctx: _SpecContext, toks, n_emit) -> None:
-        """Hand the accept results to the proposer. The step's tokens are
-        already delivered: a proposer failing here costs its per-sequence
-        state, never the stream."""
+    def feedback(self, ctx: _SpecContext, toks, n_emit, hidden=None) -> None:
+        """Hand the accept results (and, to a ``wants_hidden`` proposer,
+        the verify's hidden states, rows as ``ctx``'s) to the proposer. The
+        step's tokens are already delivered: a proposer failing here costs
+        its per-sequence state, never the stream."""
         try:
-            self.proposer.on_verify(ctx, toks, n_emit, None)
+            self.proposer.on_verify(
+                ctx, toks, n_emit,
+                hidden if self.proposer.wants_hidden else None)
         except Exception:
             logger.warning(
                 "speculative proposer %r failed in on_verify; its "
@@ -346,11 +361,35 @@ class SpeculativeDecodePath:
                         seq_ids=list(ctx.live))
         return out["tokens"]
 
+    def _dispatch_propose(self, proposer, ctx: _SpecContext):
+        """A proposer's own draft work (the Medusa heads, the EAGLE chain):
+        device work only, the tokens stay on the device."""
+        ad = self.adapter
+        toks = proposer._propose_device(ctx)
+        ad.host_stats["dispatches"] += 1
+        ad.host_stats["spec_draft_dispatches"] += 1
+        rec = _get_recorder()
+        if rec.enabled:
+            rec.instant("dispatch.spec_draft", cat="adapter",
+                        engine=ad.engine_name, rows=ctx.b,
+                        pad_to=ctx.padded_batch, drafts=ctx.num_drafts,
+                        proposer=proposer.name, seq_ids=list(ctx.live))
+        return toks
+
+    def _dispatch_eagle_refresh(self, proposer, ctx: _SpecContext, hidden):
+        """The EAGLE draft-cache refresh with the verified pairs."""
+        ad = self.adapter
+        proposer._refresh_device(ctx, hidden)
+        ad.host_stats["dispatches"] += 1
+        ad.host_stats["spec_draft_dispatches"] += 1
+
     def _dispatch_spec_verify(self, ctx: _SpecContext, cand, pos_w, slots):
-        """Issue THE verify dispatch (one per engine step)."""
+        """Issue THE verify dispatch (one per engine step), with the hidden
+        states when the proposer wants them."""
         ad = self.adapter
         out = ad.app._run_spec_verify(cand, pos_w, slots, ctx.block_table,
-                                      ctx.widths, row_seeds=ctx.seeds)
+                                      ctx.widths, row_seeds=ctx.seeds,
+                                      want_hidden=self.proposer.wants_hidden)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["spec_verify_dispatches"] += 1
         ad.host_stats["device_steps"] += 1

@@ -1,6 +1,7 @@
 """HuggingFace ``generate()``-compatible adapter (counterpart:
 ``neuronx_distributed_inference_tpu/utils/hf_adapter.py`` —
-``HuggingFaceGenerationAdapter`` :41-181).
+``HuggingFaceGenerationAdapter`` :41-188, ``_assisted_generate``
+:177-188).
 
 Wraps a :class:`~..models.application.CausalLMApplication` so code written
 against the HF transformers generation API runs unchanged:
@@ -14,19 +15,24 @@ against the HF transformers generation API runs unchanged:
     max_new_tokens, max_length, do_sample, top_k, top_p, temperature,
     eos_token_id (one id or a list), pad_token_id.
 
-Assisted decoding (``assistant_model``) needs the fused
-``SpeculativeDecoder`` (ROADMAP A6), which the port does not have yet: it
-raises :class:`ConfigurationError`. The host loop lives in the
-application's ``generate``; this module only adapts.
+Assisted decoding (``assistant_model``: another adapter, an application
+or a prebuilt ``SpeculativeDecoder``) runs fused greedy speculation
+(``models/speculation.py``) with the adapter's application as the target,
+which needs ``speculation_config.speculation_length`` >= 1; its stream is
+greedy decode's. The host loops live in the application's ``generate`` and
+the decoder's; this module only adapts.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from ..ops.sampling import prepare_sampling_params
-from ..resilience.errors import ConfigurationError
+
+logger = logging.getLogger("nxdi_tpu_torch")
 
 
 def _to_numpy(x):
@@ -98,11 +104,6 @@ class HuggingFaceGenerationAdapter:
         the first eos and padded with ``pad_token_id``) on the
         application's device, or ``{"sequences": ...}`` with
         ``return_dict_in_generate``."""
-        if assistant_model is not None:
-            raise ConfigurationError(
-                "assisted decoding (assistant_model) needs the fused "
-                "SpeculativeDecoder, which the PyTorch port does not run yet "
-                "(ROADMAP A6)")
         ids = _to_numpy(input_ids).astype(np.int64)
         if ids.ndim == 1:
             ids = ids[None, :]
@@ -124,17 +125,25 @@ class HuggingFaceGenerationAdapter:
             pad_id = ((eos[0] if isinstance(eos, (list, tuple)) else eos)
                       if eos is not None else 0)
 
+        do_sample = bool(self._resolve("do_sample", kwargs, False))
         sampling_params = None
-        if self._resolve("do_sample", kwargs, False):
+        if do_sample:
             sampling_params = prepare_sampling_params(
                 b, self._resolve("top_k", kwargs, 0) or 0,
                 self._resolve("top_p", kwargs, 1.0),
                 self._resolve("temperature", kwargs, 1.0))
 
         r_ids, r_mask, _, _ = self._normalize_padding(ids, mask)
-        out = self.app.generate(
-            r_ids, attention_mask=r_mask, max_new_tokens=int(max_new),
-            eos_token_id=eos, sampling_params=sampling_params)
+        if assistant_model is not None:
+            if do_sample:
+                logger.warning("assisted decoding is greedy-only; ignoring "
+                               "do_sample/top_k/top_p/temperature")
+            out = self._assisted_generate(assistant_model, r_ids, r_mask,
+                                          int(max_new), eos)
+        else:
+            out = self.app.generate(
+                r_ids, attention_mask=r_mask, max_new_tokens=int(max_new),
+                eos_token_id=eos, sampling_params=sampling_params)
         gen = np.asarray(out["generated"])
         eos_arr = (np.atleast_1d(np.asarray(eos, dtype=np.int64))
                    if eos is not None else None)
@@ -148,7 +157,24 @@ class HuggingFaceGenerationAdapter:
                     row = row[:hits[0] + 1]
             seqs[i, s:s + len(row)] = row
         result = torch.from_numpy(seqs).to(self.device)
-        return ({"sequences": result} if return_dict_in_generate
-                else result)
+        if return_dict_in_generate:
+            d = {"sequences": result}
+            if "mean_tokens_per_step" in out:
+                d["mean_tokens_per_step"] = out["mean_tokens_per_step"]
+            return d
+        return result
+
+    def _assisted_generate(self, assistant_model, r_ids, r_mask, max_new,
+                           eos):
+        """Assisted decoding (reference :177-188): the assistant is another
+        adapter, an application, or a prebuilt ``SpeculativeDecoder``."""
+        from ..models.speculation import SpeculativeDecoder
+        if isinstance(assistant_model, SpeculativeDecoder):
+            dec = assistant_model
+        else:
+            draft_app = getattr(assistant_model, "app", assistant_model)
+            dec = SpeculativeDecoder(self.app, draft_app)
+        return dec.generate(r_ids, max_new_tokens=max_new, eos_token_id=eos,
+                            attention_mask=r_mask)
 
     __call__ = generate

@@ -3,7 +3,8 @@ the JAX package's, on the same weights: the five cases of
 tests/test_hf_adapter.py (right padding, left padding, a list of eos ids,
 a ``GenerationConfig`` with dict output, the sampling path), each held to
 the JAX adapter's sequences (greedy: identical) and to the port app's own
-``generate``, plus the assisted-decoding refusal. The tiny Llama of
+``generate``, plus assisted decoding (``assistant_model``) held to plain
+greedy decode and the JAX adapter's assisted sequences. The tiny Llama of
 ``conftest.tiny_llama_hf_config`` in fp32 on the CPU; the JAX app's
 ``init_random_weights(3)`` parameters are carried across with
 ``utils.jax_params.params_from_numpy``."""
@@ -14,20 +15,22 @@ import pytest
 import torch
 
 from conftest import tiny_llama_hf_config
-from neuronx_distributed_inference_tpu.config import TpuConfig as JTpuConfig
+from neuronx_distributed_inference_tpu.config import (
+    SpeculationConfig as JSpeculationConfig, TpuConfig as JTpuConfig)
 from neuronx_distributed_inference_tpu.models.application import \
     CausalLMApplication as JApp
 from neuronx_distributed_inference_tpu.models.llama import (
     LlamaFamily as JLlamaFamily, LlamaInferenceConfig as JLlamaConfig)
 from neuronx_distributed_inference_tpu.utils.hf_adapter import \
     HuggingFaceGenerationAdapter as JAdapter
-from neuronx_distributed_inference_tpu_torch.config import TpuConfig
+from neuronx_distributed_inference_tpu_torch.config import (
+    SpeculationConfig, TpuConfig)
 from neuronx_distributed_inference_tpu_torch.models.application import \
     CausalLMApplication
 from neuronx_distributed_inference_tpu_torch.models.llama import (
     LlamaFamily, LlamaInferenceConfig)
-from neuronx_distributed_inference_tpu_torch.resilience import \
-    ConfigurationError
+from neuronx_distributed_inference_tpu_torch.models.speculation import \
+    SpeculativeDecoder
 from neuronx_distributed_inference_tpu_torch.utils.hf_adapter import \
     HuggingFaceGenerationAdapter
 from neuronx_distributed_inference_tpu_torch.utils.jax_params import \
@@ -35,6 +38,8 @@ from neuronx_distributed_inference_tpu_torch.utils.jax_params import \
 
 HF = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
           num_attention_heads=4, num_key_value_heads=2, vocab_size=512)
+TCFG = dict(batch_size=2, seq_len=64, dtype="float32",
+            enable_bucketing=False)
 
 
 @pytest.fixture(scope="module")
@@ -42,8 +47,7 @@ def apps():
     """(JAX app, port app) of the tiny Llama on the same weights (the
     configuration of tests/test_hf_adapter.py:30-36)."""
     hf = tiny_llama_hf_config(**HF)
-    kw = dict(batch_size=2, seq_len=64, dtype="float32",
-              enable_bucketing=False)
+    kw = TCFG
     japp = JApp(None, JLlamaConfig(JTpuConfig(**kw), **hf), JLlamaFamily)
     japp.init_random_weights(3).init_cache()
     tapp = CausalLMApplication(None, LlamaInferenceConfig(TpuConfig(**kw),
@@ -168,9 +172,45 @@ def test_sampling_path_runs(apps):
 
 
 def test_assisted_decoding_is_refused(apps):
-    """``assistant_model`` needs the fused SpeculativeDecoder (ROADMAP
-    A6), which the port does not run yet."""
-    with pytest.raises(ConfigurationError, match="A6"):
-        HuggingFaceGenerationAdapter(apps[1]).generate(
-            torch.ones((1, 4), dtype=torch.long), max_new_tokens=2,
-            assistant_model=apps[1])
+    """``assistant_model`` runs fused speculation (ROADMAP A6, ported;
+    the name is that of the refusal the port raised before): the adapter's
+    application, with ``speculation_length`` 3, is the target and the
+    assistant (an adapter, an application or a prebuilt
+    ``SpeculativeDecoder``) the draft. On ragged right-padded prompts the
+    sequences equal plain greedy ``generate``'s and the JAX adapter's
+    assisted ones; the dict output carries the tokens per step."""
+    japp, tapp = apps
+    hf = tiny_llama_hf_config(**HF)
+    jtarget = JApp(None, JLlamaConfig(JTpuConfig(
+        **TCFG, speculation_config=JSpeculationConfig(speculation_length=3)),
+        **hf), JLlamaFamily)
+    jtarget.params = japp.params
+    jtarget.init_cache()
+    target = CausalLMApplication(None, LlamaInferenceConfig(TpuConfig(
+        **TCFG, speculation_config=SpeculationConfig(speculation_length=3)),
+        **hf), LlamaFamily, device="cpu")
+    target.params = tapp.params
+    target.init_cache()
+    ids = np.random.default_rng(4).integers(1, 512, size=(2, 9),
+                                            dtype=np.int64)
+    mask = np.ones_like(ids)
+    mask[1, 6:] = 0
+    plain = tapp.generate(ids, attention_mask=mask,
+                          max_new_tokens=10)["generated"]
+    tapp.reset()
+    want = JAdapter(jtarget).generate(
+        ids, attention_mask=mask, max_new_tokens=10, assistant_model=japp)
+    japp.reset()
+    for assistant in (tapp, HuggingFaceGenerationAdapter(tapp),
+                      SpeculativeDecoder(target, tapp)):
+        got = HuggingFaceGenerationAdapter(target).generate(
+            torch.tensor(ids), attention_mask=torch.tensor(mask),
+            max_new_tokens=10, assistant_model=assistant,
+            return_dict_in_generate=True)
+        tapp.reset()
+        target.reset()
+        np.testing.assert_array_equal(got["sequences"].numpy(),
+                                      want.numpy())
+        np.testing.assert_array_equal(got["sequences"].numpy()[:, 9:],
+                                      plain)
+        assert got["mean_tokens_per_step"] >= 1.0

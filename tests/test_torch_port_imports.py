@@ -41,7 +41,8 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.gemma3.modeling_gemma3", "models.llama4",
     "models.llama4.modeling_llama4", "models.dbrx",
     "models.dbrx.modeling_dbrx", "ops.normalization", "ops.attention",
-    "models.contrib", "models.contrib2", "models.contrib3")]
+    "models.contrib", "models.contrib2", "models.contrib3",
+    "models.speculation", "modules.token_tree", "utils.hf_adapter")]
 
 
 def _port_modules():

@@ -531,10 +531,16 @@ def test_sampling_modes_and_refusals(sampled):
                {"lora_pool": object()}):
         with pytest.raises(ConfigurationError):
             PagedEngineAdapter(tapp, speculation=2, **kw)
-    with pytest.raises(ConfigurationError, match="speculation"):
-        model_base.spec_from_config(LlamaInferenceConfig(TpuConfig(
-            **dict(TCFG, speculation_config=SpeculationConfig(
-                speculation_length=3))), **HF))
+    # the speculation config builds now (ROADMAP A6, ported); as in the
+    # reference it keeps a windowed model off the rolling cache
+    sc = SpeculationConfig(speculation_length=3)
+    spec = model_base.spec_from_config(LlamaInferenceConfig(TpuConfig(
+        **dict(TCFG, speculation_config=sc)), **HF))
+    assert spec.num_layers == HF["num_hidden_layers"]
+    assert model_base.cache_layout(TpuConfig(
+        batch_size=1, seq_len=64, speculation_config=sc), 8) == (False, False)
+    assert model_base.cache_layout(TpuConfig(batch_size=1, seq_len=64),
+                                   8) == (True, False)
     with pytest.raises(ConfigurationError, match="DraftProposer"):
         PagedEngineAdapter(tapp, speculation="greedy")
     with pytest.raises(ConfigurationError, match="corrupt_at"):
