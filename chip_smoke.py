@@ -181,9 +181,10 @@ nvcc per source, all started together), then:
      the agreement with each request's ``generate`` (a count), and each
      stream held to (b)'s weights on a static app fed its tokens (the
      logit-deficit gate of 19 (b)); (d)
-     Mistral-7B-v0.1 at full width and depth with the rolling cache
-     (``seq_len`` 16384, 4096 slots), batch 2, prompts of 5000 and 6000
-     tokens, 64 new: flash launches = 32 x 1 prefill at window 4096, no
+     Mistral-7B-v0.1 at full width cut to 16 layers with
+     the rolling cache (``seq_len`` 16384, 4096 slots), batch 2, prompts
+     of 5000 and 6000 tokens, 64 new: flash launches = 16 x 1 prefill at
+     window 4096, no
      decode-kernel launch (the gather path over the rolling slots), step
      times, cache bytes beside the full cache's, agreement with
      ``rolling_kv_cache=False`` (a count); (e) windowed context encoding
@@ -203,11 +204,12 @@ nvcc per source, all started together), then:
      decode steps held to a plain fp32 MLA written from the published
      equations in HF's rope convention, with a control (the rope head
      unrotated) that must part; (b) ``TpuDeepseekForCausalLM`` at full
-     width and depth, bf16, batch 4, ``seq_len`` 4096, phase 3's prompts,
-     64 new tokens, ``attn_kernel_enabled=True``, after ``precompile``:
-     both kernel gates refuse MLA and none of the three kernels launches,
-     no incident, cache K (27, 4, 16, 192, 4096) and V (27, 4, 16, 4096,
-     128); weight and cache bytes, peak memory, prefill and decode times,
+     width cut to 14 layers (the dense one and 13 MoE),
+     bf16, batch 4, ``seq_len`` 4096, phase 3's prompts, 64 new tokens,
+     ``attn_kernel_enabled=True``, after ``precompile``: both kernel gates
+     refuse MLA and none of the three kernels launches, no incident,
+     cache K (14, 4, 16, 192, 4096) and V (14, 4, 16, 4096, 128); weight
+     and cache bytes, peak memory, prefill and decode times,
      the decode steps' device profile and a breakdown by part; (c) (b)'s
      weights behind ``ContinuousBatchingAdapter`` with phase 9's 8
      requests over batch 4: host ms per pass, admission and TTFT, the
@@ -216,33 +218,33 @@ nvcc per source, all started together), then:
      against ``generate``, token for token; and the bf16 8-layer cut held
      to the fp32 cut by the relative RMS of teacher-forced decode logits,
      with a control (the rope pairing flipped) that must part.
- 18. the quantization group (quantized and low-rank weights), random
-     weights from seed 0: (a) one gpt-oss-20b expert stack (MXFP4) and
-     one Llama-3.1-8B MLP layer (int8 per-channel, fp8 blockwise)
-     quantized on the card and on the CPU by the same function (codes
-     and scales equal), then ``dequantize``, ``qlinear``, ``qmatmul`` and
-     ``qeinsum`` on the card held to the fp64 product of the dequantized
-     weight (TF32 off), each with a control that applies the scales along
-     the wrong axis; (b) gpt-oss-20b with in-graph MXFP4 experts at full
-     width and depth on phase 15's engine (its gates; paged launches = 24
-     x all-decode steps; weight bytes equal to the geometry's; the MoE
-     blocks' share); (c) Llama-3.1-8B with int8 per-channel weights and
-     the scaled fp8 KV cache on phase 9's engine (its gates, paged
-     launches = 32 x all-decode steps over fp8 pages, the largest stored
-     value under e4m3's 448, the kernel held to its twin over the served
-     fp8 pages and timed); (d) at full depth in bf16 the teacher-forced
-     logits of each quantized model against the unquantized one on the
-     same draws (a reading, with the flipped-scale control), then fp32
-     4-layer cuts (MXFP4 gpt-oss, int8 + fp8 cache Llama, fp8-blockwise
-     Llama) where the ragged engine, ``generate`` on graphs, ``generate``
-     eager and an unquantized app holding the dequantized weights give
-     the same streams, its logits within TOL_QUANT_TWIN_REL and the
-     control beyond TOL_QUANT_CONTROL_REL; (e) Llama-3.2-1B with
-     ``mlp_low_rank`` 512 and int8 factors at full width and depth on the
-     paged app (``generate`` after ``precompile``, paged launches = 16 x
-     63, MLP bytes against ``compression_report``), and at a 4-layer fp32
-     cut full rank against the dense app (streams equal, logits within
-     TOL_LOW_RANK_FULL_REL, the half-rank control parting).
+ 18. the quantization group (quantized and low-rank weights), random weights
+     from seed 0: (a) one gpt-oss-20b expert stack (MXFP4) and one Llama-3.1-8B
+     MLP layer (int8 per-channel, fp8 blockwise) quantized on the card and on
+     the CPU by the same function (codes and scales equal), then
+     ``dequantize``, ``qlinear``, ``qmatmul`` and ``qeinsum`` on the card held
+     to the fp64 product of the dequantized weight (TF32 off), each with a
+     control that applies the scales along the wrong axis; (b) gpt-oss-20b with
+     in-graph MXFP4 experts at full width cut to 12 layers on
+     phase 15's engine (its gates; paged launches = 12 x all-decode steps;
+     weight bytes equal to the geometry's; the MoE blocks' share); (c)
+     Llama-3.1-8B with int8 per-channel weights and the scaled fp8 KV cache on
+     phase 9's engine (its gates, paged launches = 32 x all-decode steps over
+     fp8 pages, the largest stored value under e4m3's 448, the kernel held to
+     its twin over the served fp8 pages and timed); (d) in bf16 (gpt-oss at
+     (b)'s cut, Llama at full depth) the teacher-forced logits of each
+     quantized model against the unquantized one on the same draws (a reading,
+     with the flipped-scale control), then fp32 4-layer cuts (MXFP4 gpt-oss,
+     int8 + fp8 cache Llama, fp8-blockwise Llama) where the ragged engine,
+     ``generate`` on graphs, ``generate`` eager and an unquantized app holding
+     the dequantized weights give the same streams, its logits within
+     TOL_QUANT_TWIN_REL and the control beyond TOL_QUANT_CONTROL_REL; (e)
+     Llama-3.2-1B with ``mlp_low_rank`` 512 and int8 factors at full width cut
+     to 8 layers on the paged app (``generate`` after
+     ``precompile``, paged launches = 8 x 63, MLP bytes against
+     ``compression_report``), and at a 4-layer fp32 cut full rank against the
+     dense app (streams equal, logits within TOL_LOW_RANK_FULL_REL, the
+     half-rank control parting).
  19. the dense group (Gemma-2, Gemma-3, Phi-4, Granite, OLMo-2, Qwen2),
      random weights from seed 0: (a) the paged kernel at Gemma-2-27B's
      heads (32 q / 16 kv of 128: GQA group 2), B 4, lens 300-7000, with
@@ -251,11 +253,12 @@ nvcc per source, all started together), then:
      and keys drawn so most scores exceed the cap (the share is gated):
      each against its twin, the kernel without its cap parting from the
      capped twin, then timed beside the twin, SDPA without the cap and
-     the bytes bound; (b) Gemma-2-27B at full width and depth (54.45 GB
-     of bf16 weights, gated equal to the geometry's) on phase 9's engine
+     the bytes bound; (b) Gemma-2-27B at full width cut to 24 of its 46
+     layers (its bf16 weights gated equal to the geometry's)
+     on phase 9's engine
      at batch 4, ``seq_len`` 8192, six requests of 37-6000 tokens (two
      past the 4096 window), 48 new tokens: phase 9's gates (one dispatch
-     and one fetch a pass, paged launches = 46 x all-decode steps, no
+     and one fetch a pass, paged launches = 24 x all-decode steps, no
      incident, full streams), every local layer's launch at window 4096
      and every global one's at 0, all at soft-cap 50, and every served
      stream held to ``generate`` fed its tokens (each served token within
@@ -361,9 +364,42 @@ nvcc per source, all started together), then:
      first step emits k + 1 on every row (later steps read the draft
      KV the reference's loop leaves unwritten after a fully accepted
      step; printed).
+ 23. multi-LoRA serving, the ``lora`` group: Llama-3.1-8B at full width
+     and depth, bf16, on phase 9's engine and schedule with a
+     ``LoraAdapterPool`` (``max_loras`` 4: slot 0 and three usable; rank
+     16; all seven projections targeted; five adapters of random N(0,
+     0.07) factors, each gated to move the last prompt position's logits
+     by at least one logit std). (a) the 8 requests spread over the five
+     adapters and two base rows, the first four naming four adapters
+     together (the engine admits what fits and requeues the rest; the
+     pool must evict, spill and restore), each stream held to a
+     contiguous app sharing the served
+     weights and slots, fed the stream, under the request's adapter
+     (``teacher_deficits``: 2.5 / 0.7 stds), and the control (each
+     stream under another adapter) failing that gate; (b) one ragged
+     dispatch and one fetch a pass, every all-decode pass a replay of a
+     captured graph (the LoRA one where a live row has an adapter, else
+     the LoRA-free one), paged launches = 32 x those passes, no capture
+     after ``precompile``; (c) a resident adapter's slot written in place
+     between passes: two fresh requests tagged with it hit the pool,
+     replay the same graphs and are held to the new factors (the old as
+     the control); (d) fp32 (TF32 off) at 4 layers: the served streams
+     equal each request's single-adapter paged ``generate``; served
+     again, each under another adapter with the prefix cache on, every
+     prompt token is computed and the streams equal that adapter's
+     ``generate``; base rows of the LoRA build a LoRA-free build's, a
+     failed swap (the fault
+     point, and a write failing half-way) leaves every slot's factors
+     equal, and the contiguous app's ``generate(adapter_ids=)`` (flash
+     and the contiguous decode kernel, launches exact) equals the
+     streams; (e) host ms per all-decode and mixed pass with adapters,
+     then on the same schedule with every row under one adapter and with
+     base rows only (every graph replayed LoRA-free), profiled: the
+     deltas' device ms; swap seconds and bytes, and the paged kernel at
+     the served shapes.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22 and the fp32 app of 6)
+21, 22, 23 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -373,7 +409,8 @@ exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
 contig: 6-8; ragged: 9, 11, 10; spec: 12, 13, 22 — alone, 12 (a) builds
 its own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
-moe_families: 20; contrib_moe: 21) and then prints no ``ok`` line.
+moe_families: 20; contrib_moe: 21; lora: 23) and then prints no ``ok``
+line.
 """
 
 from __future__ import annotations
@@ -457,6 +494,17 @@ MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
 # 14 (e): the cut whose fp32 twin runs phase 6's rule (8 layers fit; 4
 #   keep the whole script's time with phase 21 in it)
 MOE_CONTIG_CHECK_LAYERS = 4
+# depth cuts for phase 23's room, each keeping its phase's
+# per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 16 of 32
+# layers; 17 (b), (c) Moonlight at 14 of 27 (the dense layer and 13 MoE);
+# 18 (b), (d) gpt-oss-20b MXFP4 at 12 of 24; 18 (e) the low-rank
+# Llama-3.2-1B at 8 of 16; 19 (b) Gemma-2-27B at 24 of 46 (12 local /
+# global pairs)
+LONG_MISTRAL_LAYERS = 16
+MLA_CUT = 14
+QUANT_OSS_LAYERS = 12
+QUANT_LOW_RANK_LAYERS = 8
+GEMMA2_CUT = 24
 # phases 9-10: the ragged engine (batch 8, one spare block per row)
 RAGGED = dict(lens=(37, 300, 900, 1900, 123, 640, 1500, 64), seq_len=4096,
               chunk=512, block=32)
@@ -1986,7 +2034,7 @@ def paged_kernel_entry(t, launches, path):
 
 def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                         output_logits=False, cb=False, decode_kernel=None,
-                        rolling=False, wcte=None):
+                        rolling=False, wcte=None, **tcfg_over):
     """``CausalLMApplication`` over the family of ``hf["model_type"]``
     (what the family's ``Tpu*ForCausalLM`` entry builds). kernels=True:
     the flash prefill kernel (``attn_kernel_enabled``) and the decode
@@ -1994,7 +2042,8 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
     kernel off); False: both off (mha prefill, gather decode).
     ``rolling``: ``rolling_kv_cache`` (False: full rows; None: the rolling
     cache where the window is below ``seq_len``); ``wcte``:
-    ``windowed_context_encoding``."""
+    ``windowed_context_encoding``; ``tcfg_over``: more TpuConfig fields
+    (phase 23's ``lora_config``)."""
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         CausalLMApplication
@@ -2007,7 +2056,7 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                                                     else False),
                      rolling_kv_cache=rolling, output_logits=output_logits,
                      is_continuous_batching=cb,
-                     windowed_context_encoding=wcte)
+                     windowed_context_encoding=wcte, **tcfg_over)
     app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
                               device=device)
     return app.init_cache()
@@ -2374,11 +2423,12 @@ def pass_kind(d) -> str:
 
 
 def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
-                   snapshot=None):
+                   snapshot=None, adapters=None):
     """Submit prompts 0-3 at pass 0, then one more every 4 passes, and run
     passes until the engine drains. ``profile(p, expect_mixed)`` returns
     True to run pass ``p`` under ``device_kernels``; ``snapshot()`` runs
-    before each pass. Returns (streams, per-pass records, seconds from
+    before each pass; ``adapters[i]``: request i's LoRA adapter name (None:
+    the base model). Returns (streams, per-pass records, seconds from
     submit to first token per request). The profiler's own start-up and
     trace processing around a traced pass are taken off the clock that
     times to first token are read on."""
@@ -2390,7 +2440,10 @@ def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
         due = 4 if p == 0 else (1 if p % 4 == 0 else 0)
         for _ in range(min(due, len(prompts) - len(streams))):
             t_sub.append(time.perf_counter() - excluded)
-            streams.append(eng.submit(prompts[len(streams)], new_tokens))
+            i = len(streams)
+            streams.append(eng.submit(
+                prompts[i], new_tokens,
+                adapter=adapters[i] if adapters else None))
         expect_mixed = bool(ad.pending_prefill_ids) or eng.queue.depth > 0
         if snapshot is not None:
             snapshot()
@@ -2522,19 +2575,10 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
                 live, app._bt_width_for(live))
             snap["pos"] = [ad.seqs[s].position for s in live]
             snap["ids"] = [ad.seqs[s].last_token for s in live]
-    traced = {"mixed": 0, "decode": 0}
-
-    def profile(p, expect_mixed):
-        kind, cap, start = (("mixed", 4, 8) if expect_mixed
-                            else ("decode", 8, 24))
-        if not on_card or p < start or traced[kind] >= cap:
-            return False
-        traced[kind] += 1
-        return True
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     reset_launches([app])
     streams, recs, ttft = serve_schedule(eng, prompts, new_tokens, sync,
-                                         profile, snapshot)
+                                         pass_profile(on_card), snapshot)
     launches = kernel_counts([app])["paged_decode_attention"]
     layers = hf["num_hidden_layers"]
     decode_steps, want = check_ragged_passes(phase, recs, launches,
@@ -5081,8 +5125,9 @@ def phase_long(device):
     memory_note("long_oss_cb")
     del app
     free_card()
-    flash_launches = phase_long_rolling(MISTRAL_7B, device)
-    phase_long_windowed(MISTRAL_7B, device)
+    mistral = dict(MISTRAL_7B, num_hidden_layers=LONG_MISTRAL_LAYERS)
+    flash_launches = phase_long_rolling(mistral, device)
+    phase_long_windowed(mistral, device)
     phase_long_fp32(device)
     memory_note("long_fp32")
     src = "neuronx_distributed_inference_tpu_torch/csrc/"
@@ -5372,11 +5417,11 @@ def mla_decode_breakdown(app, ids, mask, steps):
 
 def phase_mla_generate(hf, device):
     """17 (b): Moonlight-16B-A3B through ``TpuDeepseekForCausalLM`` at
-    full width and depth, bf16, ``seq_len`` MLA_SEQ, batch 4, prompts
+    full width (the MLA_CUT cut), bf16, ``seq_len`` MLA_SEQ, batch 4, prompts
     PROMPT_LENS, NEW_TOKENS new tokens, ``attn_kernel_enabled=True``,
     after ``precompile`` (decode replays graphs). Gates: both kernel
     gates say no and none of the three kernels launches; no incident;
-    cache K (27, 4, 16, 192, S) and V (27, 4, 16, S, 128); full in-vocab
+    cache K (L, 4, 16, 192, S) and V (L, 4, 16, S, 128); full in-vocab
     streams. Prints weight and cache bytes beside the geometry's, peak
     memory, prefill and decode step times, the decode steps' device
     profile (graph replays) and a breakdown by part (eager steps).
@@ -5595,8 +5640,9 @@ def phase_mla(device):
     torch.cuda.reset_peak_memory_stats()
     phase_mla_plain(device)
     memory_note("mla_plain")
-    app = phase_mla_generate(MOONLIGHT_16B, device)
-    phase_mla_serving(MOONLIGHT_16B, device, app)
+    hf = dict(MOONLIGHT_16B, num_hidden_layers=MLA_CUT)
+    app = phase_mla_generate(hf, device)
+    phase_mla_serving(hf, device, app)
     del app
     free_card()
     phase_mla_fp32(device)
@@ -5818,17 +5864,19 @@ def _phase_quant_products(device):
 
 
 def phase_quant_oss(device):
-    """18 (b): gpt-oss-20b at full width and depth with in-graph MXFP4
-    experts (and ``o_proj``), bf16, on phase 15's engine, schedule and
-    prompts (:func:`serve_with_moe_share`: phase 9's gates, the paged
-    kernel's launches = 24 x all-decode steps, the MoE blocks' share, the
+    """18 (b): gpt-oss-20b at full width, cut to QUANT_OSS_LAYERS, with
+    in-graph MXFP4 experts (and ``o_proj``), bf16, on phase 15's engine,
+    schedule and prompts (:func:`serve_with_moe_share`: phase 9's gates,
+    the paged kernel's launches = layers x all-decode steps, the MoE
+    blocks' share, the
     kernel over the served cache at a local and a global layer); weight
     bytes against the geometry's. Returns the kernels-line entries."""
+    hf = oss_cut(QUANT_OSS_LAYERS)
     with PagedArgsSpy() as spy:
         entries = serve_with_moe_share(
-            GPT_OSS_20B, device, "quant_oss_serving", oss_dense_block_ms,
+            hf, device, "quant_oss_serving", oss_dense_block_ms,
             kernel_layers=(-2, -1), tcfg_over=MXFP4_WEIGHTS)
-    check_layer_args("quant_oss_serving", spy.calls, GPT_OSS_20B)
+    check_layer_args("quant_oss_serving", spy.calls, hf)
     return entries
 
 
@@ -6003,17 +6051,18 @@ def _phase_quant_twin(hf, device, weights, phase):
 
 
 def phase_quant_low_rank(device):
-    """18 (e): Llama-3.2-1B at full width and depth with ``mlp_low_rank``
-    512 and int8 weights (the factors quantized), bf16, on the paged app:
-    ``generate`` of 64 new tokens for phase 3's prompts after
-    ``precompile``, the paged kernel's launches = 16 x 63 decode steps;
+    """18 (e): Llama-3.2-1B at full width, cut to QUANT_LOW_RANK_LAYERS,
+    with ``mlp_low_rank`` 512 and int8 weights (the factors quantized),
+    bf16, on the paged app: ``generate`` of 64 new tokens for phase 3's
+    prompts after ``precompile``, the paged kernel's launches = layers x
+    63 decode steps;
     the MLP's bytes against ``compression_report``; decode step times. At
     a 4-layer fp32 cut, full rank (2048 = min(H, I)) gives the dense
     app's streams and logits within TOL_LOW_RANK_FULL_REL, and the
     control (the same factors cut to half rank) parts."""
     import torch
     from neuronx_distributed_inference_tpu_torch.modules import low_rank
-    hf = LLAMA_3_2_1B
+    hf = dict(LLAMA_3_2_1B, num_hidden_layers=QUANT_LOW_RANK_LAYERS)
     h, i = hf["hidden_size"], hf["intermediate_size"]
     layers = hf["num_hidden_layers"]
     w = torch.randn((h, i), device=device) * 0.02
@@ -6124,7 +6173,8 @@ def phase_quant(device):
     free_card()
     entries = phase_quant_oss(device)
     entries += phase_quant_llama(device)
-    bf16_quant_drift(GPT_OSS_20B, device, MXFP4_WEIGHTS, "quant_oss_bf16")
+    bf16_quant_drift(oss_cut(QUANT_OSS_LAYERS), device, MXFP4_WEIGHTS,
+                     "quant_oss_bf16")
     memory_note("quant_oss_bf16")
     bf16_quant_drift(LLAMA_3_1_8B, device, INT8_WEIGHTS, "quant_llama_bf16")
     memory_note("quant_llama_bf16")
@@ -6399,14 +6449,15 @@ class ServedRoutes:
                     [v for v, _ in captured[key]]))
             return out
 
-        def spy_dispatch(path, ids, pos, slots, bt, wid, emit, seeds, rows):
+        def spy_dispatch(path, ids, pos, slots, bt, wid, emit, seeds, rows,
+                         *more):
             cur[0] = {"rows": [(r.seq_id, r.offset, r.width) for r in rows],
                       "pos": np.asarray(pos)[:len(rows), 0].tolist(),
                       "ids": (np.asarray(ids) if isinstance(ids, np.ndarray)
                               else None), "experts": [], "vals": []}
             try:
                 return dispatch(path, ids, pos, slots, bt, wid, emit, seeds,
-                                rows)
+                                rows, *more)
             finally:
                 self.dispatches.append(cur[0])
                 cur[0] = None
@@ -7036,8 +7087,8 @@ def phase_dense(device):
     torch.cuda.reset_peak_memory_stats()
     times = phase_dense_kernels(device)
     memory_note("dense_kernels")
-    entries = phase_dense_serving(GEMMA2_27B, device, DENSE_SERVE,
-                                  "dense_gemma2", (-2, -1))
+    entries = phase_dense_serving(dense_cut(GEMMA2_27B, GEMMA2_CUT), device,
+                                  DENSE_SERVE, "dense_gemma2", (-2, -1))
     entries += phase_dense_serving(dense_cut(GEMMA3_27B, GEMMA3_CUT),
                                    device, GEMMA3_SERVE, "dense_gemma3", ())
     launches = phase_dense_fp32(device)
@@ -8014,11 +8065,12 @@ def make_spec_app(hf, device, dtype, *, heads=0, output_logits=False,
     return app.init_cache()
 
 
-def teacher_deficits(app, prompts, streams):
+def teacher_deficits(app, prompts, streams, adapter_ids=None):
     """Each stream held to the contiguous ``app`` (built with
     ``output_logits``; its plain greedy decode) fed that stream's tokens:
     the prompts in batches of the app's rows (a short batch repeats its
-    first prompt), the prefill's last position and every decode step.
+    first prompt), the prefill's last position and every decode step;
+    ``adapter_ids[i]``: request i's LoRA slot (None: no adapters).
     Returns per request (deficits in logit stds, raw deficits, the
     control's deficits (the token one id further), argmax-equal steps)."""
     import dataclasses
@@ -8043,6 +8095,8 @@ def teacher_deficits(app, prompts, streams):
         for r, i in enumerate(idx):
             ids[r, :lens[r]] = prompts[i]
         served = np.stack([np.asarray(streams[i], np.int32) for i in idx])
+        aids = (None if adapter_ids is None else
+                np.asarray([adapter_ids[i] for i in idx], np.int32))
         app.reset()
         pos = torch.arange(bucket, dtype=torch.int32,
                            device=dev)[None].expand(rows, bucket)
@@ -8052,12 +8106,14 @@ def teacher_deficits(app, prompts, streams):
             torch.as_tensor(ids, device=dev), pos,
             torch.arange(rows, dtype=torch.int32, device=dev),
             torch.as_tensor(lens, device=dev), None, app.generator,
-            app._inv_freq)
+            app._inv_freq,
+            None if aids is None else torch.as_tensor(aids, device=dev))
         lg = [model_base._lm_head(app.spec, app.params,
                                   pre["last_hidden"][:, None])[:, 0, :vocab]]
         p = lens.copy()
         for j in range(1, served.shape[1]):
-            o = app._run_decode(served[:, j - 1:j], p[:, None])
+            o = app._run_decode(served[:, j - 1:j], p[:, None],
+                                adapter_ids=aids)
             lg.append(o["logits"][:, -1, :vocab])
             p = p + 1
         L = torch.stack(lg, dim=1).double()
@@ -8543,8 +8599,659 @@ def phase_speculation(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: multi-LoRA serving
+# ---------------------------------------------------------------------------
+
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+# four slots (slot 0, the zero adapter, and three usable), rank 16, five
+# registered adapters of random factors N(0, scale) from seeds 100-104
+LORA23 = dict(max_loras=4, rank=16, adapters=5, scale=0.07)
+# the adapters of RAGGED's 8 requests: l0 twice, l1-l4 once, two base rows.
+# The first four, submitted together, name four adapters over three
+# slots: the engine admits three (restoring l0 and l1, which the logit
+# shift check left spilled, and evicting and spilling the residents) and
+# requeues l3 until a slot is released; base rows and resident adapters
+# submitted meanwhile are admitted at once
+LORA_ROWS = ("l0", "l1", "l2", "l3", None, "l4", None, "l0")
+LORA_SWAP_LENS = (200, 700)      # 23 (c): fresh prompts (no prefix hit)
+LORA_SWAP_TOKENS = 24
+LORA_SHIFT_MIN = 1.0             # an adapter moves the logits >= 1 std
+LORA_CHECK_LAYERS = 4
+LORA_CHECK_TOKENS = 24
+
+
+def lora_config():
+    from neuronx_distributed_inference_tpu_torch.config import \
+        LoraServingConfig
+    return LoraServingConfig(max_loras=LORA23["max_loras"],
+                             max_lora_rank=LORA23["rank"],
+                             target_modules=list(LORA_TARGETS))
+
+
+def lora_arrays(app, seed, dtype):
+    """One adapter in the ``lora_adapter_arrays`` layout ({module: (A (L,
+    in, r), B (L, r, out))}), N(0, LORA23["scale"]) factors drawn on the
+    host from ``seed``, in ``dtype``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    lw = app.params["layers"]
+    out = {}
+    for mod in LORA_TARGETS:
+        L, _, d_in, r = lw[f"lora_A_{mod}"].shape
+        d_out = lw[f"lora_B_{mod}"].shape[3]
+        out[mod] = tuple(
+            (torch.randn(shape, generator=gen) * LORA23["scale"]).to(dtype)
+            for shape in ((L, d_in, r), (L, r, d_out)))
+    return out
+
+
+def lora_pool(app, dtype):
+    """The pool over ``app`` with adapters l0-l4 registered (seeds
+    100-104), a host cache that holds all of them."""
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        LoraAdapterPool
+    pool = LoraAdapterPool(app, host_cache_adapters=LORA23["adapters"])
+    for i in range(LORA23["adapters"]):
+        pool.register_arrays(f"l{i}", lora_arrays(app, 100 + i, dtype))
+    return pool
+
+
+def lora_engine(app, pool, cfg):
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingEngine
+    return ServingEngine(PagedEngineAdapter(
+        app, ragged=True, prefill_chunk_tokens=cfg["chunk"],
+        lora_pool=pool))
+
+
+def without_lora(params):
+    """The parameter dict without its LoRA leaves (the same tensors)."""
+    return {k: ({n: t for n, t in v.items() if not n.startswith("lora_")}
+                if isinstance(v, dict) else v) for k, v in params.items()}
+
+
+def other_adapter(name):
+    """The control's adapter for a request: the next one (base rows l0)."""
+    if name is None:
+        return "l0"
+    return f"l{(int(name[1:]) + 1) % LORA23['adapters']}"
+
+
+def lora_groups(names, n_slots, rows):
+    """Request indices in groups of at most ``rows`` requests naming at
+    most ``n_slots`` adapters (they fit the pool at once)."""
+    groups, cur, used = [], [], set()
+    for i, n in enumerate(names):
+        more = used | ({n} if n else set())
+        if cur and (len(cur) == rows or len(more) > n_slots):
+            groups.append(cur)
+            cur, more = [], ({n} if n else set())
+        cur.append(i)
+        used = more
+    return groups + ([cur] if cur else [])
+
+
+def lora_scored(twin, pool, prompts, streams, names):
+    """``teacher_deficits`` of each stream on the contiguous ``twin`` (it
+    shares the served app's tensors, LoRA slots included) under the
+    adapter ``names[i]`` (None: slot 0), the pool pinning each group's
+    adapters while it is scored."""
+    per = [None] * len(prompts)
+    for group in lora_groups(names, pool.n_slots,
+                             twin.tpu_config.batch_size):
+        distinct = sorted({names[i] for i in group if names[i]})
+        slots = {n: pool.acquire(n) for n in distinct}
+        try:
+            sub = teacher_deficits(
+                twin, [prompts[i] for i in group],
+                [streams[i] for i in group],
+                adapter_ids=[slots.get(names[i], 0) for i in group])
+        finally:
+            for n in distinct:
+                pool.release(n)
+        for i, x in zip(group, sub):
+            per[i] = x
+    return per
+
+
+def lora_control_fails(phase, per):
+    """The control (each stream scored under another adapter) must fail
+    the deficit gate."""
+    import numpy as np
+    d = np.concatenate([x[0] for x in per])
+    rep = {"phase": phase + "_control", "tokens": int(d.size),
+           "max_deficit": float(d.max()), "mean_deficit": float(d.mean()),
+           "bound": TOL_SERVED_DEFICIT_BF16,
+           "mean_bound": TOL_SERVED_MEAN_DEFICIT_BF16}
+    emit(rep)
+    if (d.max() <= TOL_SERVED_DEFICIT_BF16
+            and d.mean() <= TOL_SERVED_MEAN_DEFICIT_BF16):
+        raise AssertionError(f"{phase}: the streams pass the gate under "
+                             "other adapters too")
+    return rep
+
+
+def lora_logit_shift(phase, twin, pool, prompt):
+    """How far each adapter moves the last prompt position's logits: the
+    RMS of (adapter - base) over the base logits' std, each adapter in
+    its own row of one prefill beside a base row; gated at
+    LORA_SHIFT_MIN."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    names = [f"l{i}" for i in range(LORA23["adapters"])]
+    cfg = dataclasses.replace(twin.tpu_config, output_logits=False)
+    rows = twin.tpu_config.batch_size
+    dev = twin.device
+    vocab = twin.spec.vocab_size
+    ids = torch.as_tensor(np.tile(np.asarray(prompt, np.int32), (rows, 1)),
+                          device=dev)
+    pos = torch.arange(len(prompt), dtype=torch.int32,
+                       device=dev)[None].expand(rows, -1)
+    shifts = {}
+    for lo in range(0, len(names), pool.n_slots):
+        group = names[lo:lo + pool.n_slots]
+        slots = [pool.acquire(n) for n in group]
+        try:
+            aids = np.zeros((rows,), np.int32)
+            aids[1:1 + len(slots)] = slots
+            twin.reset()
+            pre = model_base.context_encoding_step(
+                twin.spec, cfg, twin.params, twin.cache, ids, pos,
+                torch.arange(rows, dtype=torch.int32, device=dev),
+                torch.full((rows,), len(prompt), dtype=torch.int32,
+                           device=dev), None, twin.generator,
+                twin._inv_freq, torch.as_tensor(aids, device=dev))
+            lg = model_base._lm_head(twin.spec, twin.params,
+                                     pre["last_hidden"][:, None])[
+                :, 0, :vocab].double()
+        finally:
+            for n in group:
+                pool.release(n)
+        std = float(lg[0].std())
+        for j, n in enumerate(group):
+            shifts[n] = float((lg[1 + j] - lg[0]).pow(2).mean().sqrt()) / std
+    twin.reset()
+    emit({"phase": phase + "_logit_shift", "scale": LORA23["scale"],
+          "rank": LORA23["rank"], "targets": list(LORA_TARGETS),
+          "shift_in_logit_stds": shifts, "bound": LORA_SHIFT_MIN})
+    if not min(shifts.values()) >= LORA_SHIFT_MIN:
+        raise AssertionError(f"{phase}: an adapter moves the logits by "
+                             f"{min(shifts.values())} stds only")
+    return shifts
+
+
+def lora_replays(app):
+    """(replays of the LoRA ragged W = 1 graphs, of the LoRA-free ones):
+    the signature's last element says whether the step carried ids."""
+    lora = base = 0
+    for (kind, bucket, sig), n in app.graphs.replays.items():
+        if kind == "ragged" and bucket == 1:
+            if sig[-1]:
+                lora += n
+            else:
+                base += n
+    return lora, base
+
+
+def pass_profile(on_card):
+    """The passes :func:`serve_schedule` traces: 8 all-decode passes from
+    pass 24 on and 4 mixed ones from pass 8 on (none off the card)."""
+    traced = {"mixed": 0, "decode": 0}
+
+    def profile(p, expect_mixed):
+        kind, cap, start = (("mixed", 4, 8) if expect_mixed
+                            else ("decode", 8, 24))
+        if not on_card or p < start or traced[kind] >= cap:
+            return False
+        traced[kind] += 1
+        return True
+    return profile
+
+
+def phase_lora(device, on_card=True):
+    """Phase 23 (a)-(c), (e): multi-LoRA serving at Llama-3.1-8B width and
+    depth, bf16. Returns the paged kernel's entries."""
+    import numpy as np
+    import torch
+    phase = "lora_serving"
+    hf, cfg = LLAMA_3_1_8B, RAGGED
+    layers = hf["num_hidden_layers"]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    app = make_ragged_app(hf, device, "bfloat16", cfg,
+                          lora_config=lora_config())
+    init_weights(app, 0)
+    pool = lora_pool(app, torch.bfloat16)
+    twin = make_contiguous_app(hf, device, "bfloat16", batch=8,
+                               seq_len=cfg["seq_len"], output_logits=True,
+                               lora_config=lora_config())
+    twin.params = app.params
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    shifts = lora_logit_shift(phase, twin, pool, prompts[1])
+    warm(app, phase, chunk_tokens=cfg["chunk"])
+    n_graphs = len(app.graphs) if app.graphs is not None else 0
+    stats0 = dict(pool.stats)
+    eng = lora_engine(app, pool, cfg)
+    ad = eng.adapter
+    snap = {}
+    adapter_live = []       # per pass: a live row gathers an adapter
+
+    def snapshot():
+        adapter_live.append(any(ad._lora_slots.get(s) for s in ad.seqs))
+        # the served cache's decode shapes: the last all-decode state with
+        # the most live rows (capacity stalls keep some rows queued)
+        if (not ad.seqs or ad.pending_prefill_ids
+                or len(ad.seqs) < len(snap.get("pos", ()))):
+            return
+        live = sorted(ad.seqs)
+        snap["table"] = app.kv_mgr.block_table_array(
+            live, app._bt_width_for(live))
+        snap["pos"] = [ad.seqs[s].position for s in live]
+    reset_launches([app])
+    # (a), (b): the mixed-adapter schedule
+    streams, recs, ttft = serve_schedule(eng, prompts, RAGGED_TOKENS, sync,
+                                         pass_profile(on_card), snapshot,
+                                         adapters=LORA_ROWS)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    decode_steps, want = check_ragged_passes(phase, recs, launches, layers)
+    want = want if on_card else 0
+    lora_g, base_g = (lora_replays(app) if app.graphs is not None
+                      else (0, 0))
+    # an all-decode pass of base rows only runs the LoRA-free graph
+    base_steps = sum(1 for r in recs
+                     if r["kind"] == "decode" and not adapter_live[r["pass"]])
+    served_stats = {k: pool.stats[k] - stats0.get(k, 0)
+                    for k in pool.stats}
+    st = ad.host_stats
+    emit({"phase": phase, "layers": layers, "requests": len(prompts),
+          "adapters": list(LORA_ROWS), "new_tokens": RAGGED_TOKENS,
+          "passes": len(recs),
+          "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
+                             for k in ("mixed", "decode", "idle")},
+          "launches": launches, "expected_launches": want,
+          "lora_graph_replays": lora_g, "lora_free_graph_replays": base_g,
+          "base_only_decode_passes": base_steps,
+          "graphs_after_warmup": n_graphs,
+          "graphs_after_serving": len(app.graphs) if app.graphs else 0,
+          "host_ms_mixed": pass_summary(recs, "mixed"),
+          "host_ms_decode": pass_summary(recs, "decode"),
+          "ttft_s": [ttft.get(i) for i in range(len(prompts))],
+          "admission_retries": eng.stats["admission_retries"],
+          "pool": served_stats,
+          "swap_ms_mean": (1e3 * served_stats["swap_s"]
+                           / max(served_stats["swaps"], 1)),
+          "swap_bytes_mean": (served_stats["swap_bytes"]
+                              / max(served_stats["swaps"], 1)),
+          "host_stats": {k: v for k, v in st.items()
+                         if isinstance(v, int)}})
+    emit({"phase": phase + "_profile_decode",
+          **profile_summary(recs, "decode")})
+    emit({"phase": phase + "_profile_mixed",
+          **profile_summary(recs, "mixed")})
+    check_no_incidents(phase, app)
+    if launches != want:
+        raise AssertionError(f"{phase}: paged kernel launches {launches} "
+                             f"!= {layers} x {decode_steps}")
+    if on_card and (lora_g != decode_steps - base_steps
+                    or base_g != base_steps
+                    or len(app.graphs) != n_graphs):
+        raise AssertionError(
+            f"{phase}: {decode_steps} all-decode passes ({base_steps} of "
+            f"base rows only), {lora_g} LoRA graph replays, {base_g} "
+            f"LoRA-free ones, graphs {n_graphs} -> {len(app.graphs)}")
+    if eng.stats["admission_retries"] < 1:
+        raise AssertionError(f"{phase}: four adapters over three slots "
+                             "never waited for a slot")
+    check_streams(phase, streams, RAGGED_TOKENS, hf["vocab_size"])
+    if not (served_stats["evictions"] and served_stats["spills"]
+            and served_stats["restores"]):
+        raise AssertionError(f"{phase}: the pool never evicted, spilled "
+                             f"and restored: {served_stats}")
+    toks = [s.tokens for s in streams]
+    per = lora_scored(twin, pool, prompts, toks, LORA_ROWS)
+    deficit_gate(phase, per, exact=False)
+    lora_control_fails(phase, lora_scored(
+        twin, pool, prompts, toks, [other_adapter(n) for n in LORA_ROWS]))
+    entries = []
+    if on_card:
+        t = time_paged_kernel(app, snap["table"], snap["pos"], device,
+                              seed=9)
+        emit({"phase": phase + "_kernel_timings", **t["report"],
+              "launches": launches})
+        entries.append(paged_kernel_entry(t, launches, phase))
+    # (c): a swap under the captured graphs
+    phase_lora_swap(app, pool, twin, cfg, sync, on_card)
+    # (e): the same schedule on the LoRA build with every row under l0
+    # (the deltas on every pass, no capacity stall) and with base rows
+    # only (every pass the LoRA-free step: the graphs a LoRA-free build
+    # captures; (d) holds its streams to such a build in fp32), every
+    # prompt computed in both (a cold prefix), so the two time the same
+    # work
+    base_runs = {}
+    for name, names in (("one_adapter", ["l0"] * len(prompts)),
+                        ("base_rows", None)):
+        e = lora_engine(app, pool, cfg)
+        reset_launches([app])
+        with cold_prefix(app):
+            s2, r2, t2 = serve_schedule(e, prompts, RAGGED_TOKENS, sync,
+                                        pass_profile(on_card),
+                                        adapters=names)
+        check_streams(phase + "_" + name, s2, RAGGED_TOKENS,
+                      hf["vocab_size"])
+        steps = sum(1 for r in r2 if r["kind"] == "decode")
+        replays = lora_replays(app) if app.graphs is not None else (0, 0)
+        want_replays = (steps, 0) if names else (0, steps)
+        if on_card and replays != want_replays:
+            raise AssertionError(
+                f"{phase}_{name}: (LoRA, LoRA-free) graph replays "
+                f"{replays} over {steps} all-decode passes")
+        prof = profile_summary(r2, "decode")
+        host = pass_summary(r2, "decode")
+        base_runs[name] = {
+            "host_ms_mixed": pass_summary(r2, "mixed"),
+            "host_ms_decode": host,
+            "profile_decode": prof,
+            "profile_mixed": profile_summary(r2, "mixed"),
+            # the device's idle share against the untraced host clock
+            # (the traced passes also carry the profiler's host cost)
+            "decode_idle_share_untraced": (
+                1 - prof["device_busy_ms_per_pass"] / host["median_ms"]
+                if prof.get("measured") and host["median_ms"] else None),
+            "graph_replays_lora_free": list(replays),
+            "ttft_s": [t2.get(i) for i in range(len(prompts))]}
+    delta = {}
+    for kind in ("decode", "mixed"):
+        a = base_runs["one_adapter"]["profile_" + kind]
+        b = base_runs["base_rows"]["profile_" + kind]
+        if a.get("measured") and b.get("measured"):
+            delta[kind] = (a["device_busy_ms_per_pass"]
+                           - b["device_busy_ms_per_pass"])
+    emit({"phase": phase + "_base_rows", **base_runs,
+          "lora_device_ms_per_pass": delta, "requests": len(prompts),
+          "logit_shift_in_stds": shifts})
+    if on_card:
+        memory_note(phase)
+    del twin
+    return entries
+
+
+def phase_lora_swap(app, pool, twin, cfg, sync, on_card):
+    """23 (c): between passes the slot of a resident adapter X is written
+    in place with new factors Y (a hot update of X); two fresh requests
+    tagged X then hit the pool (no swap) and replay the captured LoRA
+    graph, which must serve Y: their streams pass the deficit gate under
+    Y and fail it under X (the control, X written back)."""
+    import numpy as np
+    import torch
+    phase = "lora_swap"
+    x = next(n for n, slot in sorted(pool._slots.items())
+             if pool.pins(n) == 0)
+    s = pool.slot_of(x)
+    x_arrays = pool._slot_arrays(s)
+    y_arrays = lora_arrays(app, 200, torch.bfloat16)
+    nbytes = sum(a.numel() * a.element_size() + b.numel() * b.element_size()
+                 for a, b in y_arrays.values())
+    t0 = time.perf_counter()
+    app.write_lora_slot(s, y_arrays)
+    sync()
+    swap_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, app.spec.vocab_size, size=n).tolist()
+               for n in LORA_SWAP_LENS]
+    n_graphs = len(app.graphs) if app.graphs is not None else 0
+    stats0 = dict(pool.stats)
+    reset_launches([app])
+    eng = lora_engine(app, pool, cfg)
+    streams, recs, _ = serve_schedule(eng, prompts, LORA_SWAP_TOKENS, sync,
+                                      adapters=[x] * len(prompts))
+    launches = kernel_counts([app])["paged_decode_attention"]
+    decode_steps, want = check_ragged_passes(phase, recs, launches,
+                                             app.spec.num_layers)
+    check_streams(phase, streams, LORA_SWAP_TOKENS, app.spec.vocab_size)
+    replays, _ = lora_replays(app) if app.graphs is not None else (0, 0)
+    toks = [st.tokens for st in streams]
+    per = lora_scored(twin, pool, prompts, toks, [x] * len(prompts))
+    app.write_lora_slot(s, x_arrays)
+    ctl = lora_scored(twin, pool, prompts, toks, [x] * len(prompts))
+    emit({"phase": phase, "adapter": x, "slot": s, "swap_s": swap_s,
+          "swap_bytes": nbytes, "passes": len(recs),
+          "all_decode_passes": decode_steps,
+          "lora_graph_replays": replays,
+          "pool_misses": pool.stats["misses"] - stats0["misses"],
+          "launches": launches,
+          "expected_launches": want if on_card else 0})
+    if on_card and (replays != decode_steps or not decode_steps
+                    or len(app.graphs) != n_graphs
+                    or launches != want):
+        raise AssertionError(f"{phase}: {decode_steps} all-decode passes, "
+                             f"{replays} LoRA graph replays, "
+                             f"launches {launches} != {want}")
+    if pool.stats["misses"] != stats0["misses"]:
+        raise AssertionError(f"{phase}: the requests missed the pool")
+    deficit_gate(phase, per, exact=False)
+    lora_control_fails(phase, ctl)
+
+
+def phase_lora_fp32(device, on_card=True):
+    with fp32_exact():
+        return _phase_lora_fp32(device, on_card)
+
+
+def _phase_lora_fp32(device, on_card):
+    """23 (d): fp32 (TF32 off) at 4 layers: the mixed-adapter schedule's
+    streams equal each request's single-adapter ``generate`` (a first
+    difference only at a near-tie); base rows of the LoRA build equal a
+    LoRA-free build's; a failed swap leaves every slot's factors as they
+    were; the contiguous app's ``generate(adapter_ids=)`` (flash and the
+    contiguous decode kernel, launches exact) equals them too."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.resilience import (
+        FAULTS, StepFailure)
+    phase = "lora_fp32"
+    hf = dict(LLAMA_3_1_8B, num_hidden_layers=LORA_CHECK_LAYERS)
+    cfg, n = RAGGED, LORA_CHECK_TOKENS
+    layers = hf["num_hidden_layers"]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    app = make_ragged_app(hf, device, "float32", cfg,
+                          lora_config=lora_config())
+    init_weights(app, 0)
+    pool = lora_pool(app, torch.float32)
+    warm(app, phase, chunk_tokens=cfg["chunk"])
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=k).tolist()
+               for k in cfg["lens"]]
+    reset_launches([app])
+    streams, recs, _ = serve_schedule(lora_engine(app, pool, cfg), prompts,
+                                      n, sync, adapters=LORA_ROWS)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    decode_steps, want = check_ragged_passes(phase, recs, launches, layers)
+    want = want if on_card else 0
+    check_streams(phase, streams, n, hf["vocab_size"])
+    if launches != want:
+        raise AssertionError(f"{phase}: paged kernel launches {launches} "
+                             f"!= {want}")
+    check_no_incidents(phase, app)
+    served = [np.asarray(st.tokens) for st in streams]
+    ref = make_ragged_app(hf, device, "float32", cfg, batch=1,
+                          output_logits=True, lora_config=lora_config())
+    ref.params = app.params
+
+    def want_of(i, name):
+        # the reference computes every prompt afresh (a cold prefix: ref
+        # shares the served app's factors, but not its record of slot
+        # writes that keys the prefix cache)
+        slot = pool.acquire(name) if name else 0
+        try:
+            with cold_prefix(ref):
+                w = ref.generate(np.asarray([prompts[i]]), max_new_tokens=n,
+                                 return_logits=True,
+                                 adapter_ids=np.asarray([slot]))
+        finally:
+            if name:
+                pool.release(name)
+        ref.reset()
+        return w
+    wants, ties = [], []
+    for i, prompt in enumerate(prompts):
+        w = want_of(i, LORA_ROWS[i])
+        wants.append(w)
+        case = near_tie_check(phase + "_near_tie", i, served[i], w,
+                              len(prompt))
+        if case:
+            ties.append(case)
+    # the prefix cache keyed by adapter: the same prompts served again,
+    # each under another adapter (base rows under l0), with the prefix
+    # cache on, compute every prompt token (no block written under
+    # another adapter is served) and equal their own generate
+    eng = lora_engine(app, pool, cfg)
+    before = dict(eng.adapter.host_stats)
+    others = [other_adapter(x) for x in LORA_ROWS]
+    again, _, _ = serve_schedule(eng, prompts, n, sync, adapters=others)
+    computed = (eng.adapter.host_stats["prefill_real_tokens"]
+                - before["prefill_real_tokens"])
+    check_streams(phase + "_other_adapters", again, n, hf["vocab_size"])
+    other_ties = []
+    for i, st in enumerate(again):
+        case = near_tie_check(phase + "_other_adapters_near_tie", i,
+                              np.asarray(st.tokens), want_of(i, others[i]),
+                              len(prompts[i]))
+        if case:
+            other_ties.append(case)
+    if computed != sum(len(p) for p in prompts):
+        raise AssertionError(f"{phase}: under other adapters the engine "
+                             f"computed {computed} of "
+                             f"{sum(len(p) for p in prompts)} prompt tokens")
+    del ref
+    # base rows: the LoRA build against a LoRA-free build of the same
+    # weights, bit for bit, every prompt computed in both (a cold prefix)
+    with cold_prefix(app):
+        base_l, _, _ = serve_schedule(lora_engine(app, pool, cfg), prompts,
+                                      n, sync)
+    plain = make_ragged_app(hf, device, "float32", cfg)
+    plain.params = without_lora(app.params)
+    base_f, _, _ = serve_schedule(ragged_engine(plain, True, cfg), prompts,
+                                  n, sync)
+    del plain
+    if [s.tokens for s in base_l] != [s.tokens for s in base_f]:
+        raise AssertionError(f"{phase}: base rows of the LoRA build differ "
+                             "from the LoRA-free build")
+    # a failed swap (the fault point, then a write that fails half-way)
+    # leaves every slot's factors as they were
+    lw = app.params["layers"]
+    before = {k: v.clone() for k, v in lw.items() if k.startswith("lora_")}
+    cold = next(f"l{i}" for i in range(LORA23["adapters"])
+                if not pool.resident(f"l{i}"))
+    failures = 0
+    with FAULTS.inject("adapter_swap", nth=1, times=1):
+        try:
+            pool.acquire(cold)
+        except StepFailure:
+            failures += 1
+    write = app.write_lora_slot
+
+    def half(slot, arrays):
+        write(slot, dict(list(arrays.items())[:3]))
+        raise RuntimeError("the device write failed half-way")
+    app.write_lora_slot = half
+    try:
+        pool.acquire(cold)
+    except StepFailure:
+        failures += 1
+    finally:
+        del app.write_lora_slot
+    unchanged = all(torch.equal(lw[k], v) for k, v in before.items())
+    if failures != 2 or not unchanged or pool.resident(cold):
+        raise AssertionError(f"{phase}: failed swaps {failures}, factors "
+                             f"unchanged {unchanged}")
+    # the contiguous app under the same slots: flash prefill at the
+    # 128-multiple bucket, the contiguous decode kernel on every step
+    capp = make_contiguous_app(hf, device, "float32", batch=4,
+                               seq_len=cfg["seq_len"],
+                               lora_config=lora_config())
+    capp.params = app.params
+    ids0, mask0 = prompts_of([len(p) for p in prompts[:4]],
+                             hf["vocab_size"], 0)
+    capp.generate(ids0, attention_mask=mask0, max_new_tokens=3,
+                  adapter_ids=np.zeros((4,), np.int32))   # captures
+    capp.reset()
+    reset_launches([capp])
+    contiguous_ties = []
+    calls = 0
+    for group in lora_groups(LORA_ROWS, pool.n_slots, 4):
+        # groups of at most three adapters, padded to the batch of 4 with
+        # copies of their last row
+        rows = tuple(group) + (group[-1],) * (4 - len(group))
+        names = [LORA_ROWS[i] for i in rows]
+        distinct = sorted({x for x in names if x})
+        slots = {x: pool.acquire(x) for x in distinct}
+        width = max(len(prompts[i]) for i in rows)
+        ids = np.zeros((4, width), np.int64)
+        mask = np.zeros((4, width), np.int64)
+        for r, i in enumerate(rows):
+            ids[r, :len(prompts[i])] = prompts[i]
+            mask[r, :len(prompts[i])] = 1
+        try:
+            out = capp.generate(ids, attention_mask=mask, max_new_tokens=n,
+                                adapter_ids=np.asarray(
+                                    [slots.get(x, 0) for x in names]))
+        finally:
+            for x in distinct:
+                pool.release(x)
+        capp.reset()
+        calls += 1
+        for r, i in enumerate(group):
+            case = near_tie_check(phase + "_contiguous_near_tie", i,
+                                  out["generated"][r], wants[i],
+                                  len(prompts[i]))
+            if case:
+                contiguous_ties.append(case)
+    counts = kernel_counts([capp])
+    want_counts = {"flash_attention": layers * calls if on_card else 0,
+                   "decode_attention_stacked":
+                       layers * (n - 1) * calls if on_card else 0}
+    emit({"phase": phase, "layers": layers, "requests": len(prompts),
+          "adapters": list(LORA_ROWS), "new_tokens": n,
+          "passes": len(recs), "launches": launches,
+          "expected_launches": want, "near_ties": ties,
+          "streams_identical_to_generate": len(prompts) - len(ties),
+          "other_adapters": list(others),
+          "other_adapters_prompt_tokens_computed": computed,
+          "other_adapters_near_ties": other_ties,
+          "base_rows_equal_lora_free": True, "failed_swaps": failures,
+          "contiguous_launches": counts, "contiguous_expected": want_counts,
+          "contiguous_near_ties": contiguous_ties,
+          "contiguous_identical_to_generate":
+              len(prompts) - len(contiguous_ties)})
+    if any(counts[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"{phase}: contiguous launches {counts} != "
+                             f"{want_counts}")
+    if on_card:
+        memory_note(phase)
+
+
+def phase_lora_group(device):
+    """The ``lora`` group: phase 23 (a)-(e)."""
+    import torch
+    entries = phase_lora(device)
+    free_card()
+    phase_lora_fp32(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return entries
+
+
 GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
-          "long", "mla", "quant", "dense", "moe_families", "contrib_moe")
+          "long", "mla", "quant", "dense", "moe_families", "contrib_moe",
+          "lora")
 
 
 def main(argv=None) -> int:
@@ -8656,6 +9363,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_contrib_moe(device)
         mark("contrib_moe")
+    if "lora" in only:
+        free_card()
+        kernels += phase_lora_group(device)
+        mark("lora")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

@@ -15,7 +15,10 @@ paged ``PagedCausalLMApplication`` built on it (counterpart:
 ``_stream_seeds`` :1163-1178, ``_run_spec_draft`` :1251,
 ``_run_spec_verify`` :1286, ``_run_ragged`` :1330; the
 jit-cache accounting ``_note_jit`` / ``declare_steady_state`` /
-``request_context`` / ``warmup_state`` :78-82, 373-381, 413-494).
+``request_context`` / ``warmup_state`` :78-82, 373-381, 413-494; the
+multi-LoRA methods ``load_lora_adapters`` / ``lora_adapter_arrays`` /
+``write_lora_slot`` / ``set_lora_adapter`` :1004-1080 and
+``_lora_adapter_ids`` :1180).
 
 Same host contract as the JAX applications. The contiguous app:
 ``init_cache``, ``_run_prefill``, ``_run_decode``, ``_run_decode_loop``,
@@ -27,9 +30,18 @@ encoding, reference :557-599: a prompt longer than
 ``_run_spec_verify``, ``generate``, ``release``,
 ``reset``, with the host
 owning the block allocator and tables. Step results are torch tensors
-(read them with ``np.asarray(t.cpu())``). Images, LoRA adapters and
-M-RoPE positions of the JAX ``generate`` are not ported (the spec refuses
-their configs).
+(read them with ``np.asarray(t.cpu())``). Images and M-RoPE positions of
+the JAX ``generate`` are not ported.
+
+Multi-LoRA (``TpuConfig.lora_config``): every step takes ``adapter_ids``
+(B,), each row's slot of the stacked adapter factors; ``generate`` takes
+them on both apps (the reference's paged ``generate`` does not). A step
+with ids is a signature of its own (its ids ride the int32 staging buffer
+of a captured graph); a step without them is the LoRA-free step. An id
+at or past ``max_loras`` raises :class:`ConfigurationError` on the host
+(XLA's gather clamps it). Adapter slots are written in place
+(:meth:`~CausalLMApplication.write_lora_slot`), so the captured graphs
+serve a swapped slot at their next replay.
 
 The contiguous cache is full rows, the rolling cache or the mixed
 per-layer cache, as ``model_base.cache_layout`` decides (``init_cache``,
@@ -155,6 +167,9 @@ class CausalLMApplication:
             if cuda_graphs and self.device.type == "cuda" else None)
         self.params = None
         self.cache = None
+        # LoRA slot -> writes so far: the prefix cache's salt of the rows
+        # that gather the slot (lora_kv_salt)
+        self._lora_writes: Dict[int, int] = {}
         # telemetry: None = follow the process-global registry; assign
         # app.telemetry = reg to pin one. _jit_seen tracks (kind, bucket,
         # sig) signatures; after declare_steady_state() a first-seen graph
@@ -341,12 +356,15 @@ class CausalLMApplication:
 
     def _put_params(self, host: Dict[str, Any]):
         """A host tree onto the device in the reference's order (reference
-        :127-151): fuse q/k/v, cast each leaf to its spec's dtype (the
+        :127-151): fuse q/k/v, stack the zero adapter factors a
+        checkpoint never carries (``stack_lora_host``, :135), cast each
+        leaf to its spec's dtype (the
         model dtype, fp32 for an MoE router; the reference casts every
         leaf to the model dtype, ROADMAP C), then factorize and quantize
         on the device, leaf by leaf (``model_base.convert_leaf``).
         Quantized leaf-groups keep their own dtypes."""
         host = model_base.fuse_qkv_host(host)
+        host = model_base.stack_lora_host(self.spec, host)
         specs = model_base.decoder_param_specs(self.spec)
 
         def put(node, spec, name):
@@ -456,24 +474,54 @@ class CausalLMApplication:
                              "is_continuous_batching=True")
         return np.asarray(seq_ids, np.int32)
 
+    def _lora_adapter_ids(self, adapter_ids) -> Optional[np.ndarray]:
+        """The per-row LoRA slot input of a step (reference :1180-1192):
+        None (no adapters) keeps the step LoRA-free; negative ids are slot
+        0, the zero adapter. Raises :class:`ConfigurationError` for ids
+        without ``lora_config`` and for an id at or past ``max_loras``
+        (the reference's gather clamps it; a deliberate difference)."""
+        if adapter_ids is None:
+            return None
+        if self.spec.lora is None:
+            raise ConfigurationError(
+                "adapter_ids passed but the model was built without "
+                "lora_config; set TpuConfig.lora_config")
+        if isinstance(adapter_ids, torch.Tensor):
+            adapter_ids = adapter_ids.cpu().numpy()
+        aids = np.maximum(np.asarray(adapter_ids, np.int32), 0)
+        if aids.size and int(aids.max()) >= self.spec.lora.max_loras:
+            raise ConfigurationError(
+                f"adapter id {int(aids.max())} is past the "
+                f"{self.spec.lora.max_loras} LoRA slots (max_loras)")
+        return aids
+
+    @staticmethod
+    def _with_aids(inputs, aids):
+        if aids is not None:
+            inputs["aids"] = aids
+        return inputs
+
     # -- device steps ------------------------------------------------------
     def _run_prefill(self, input_ids, seq_lens, seq_ids=None,
-                     sampling_params=None):
+                     sampling_params=None, adapter_ids=None):
         """Prefill of a (B, bucket) right-padded window
         (``model_base.context_encoding_step``, eager); the cache is
-        written in place. Returns {"tokens", "last_hidden", ["logits"],
-        ["hidden_states"]} on the device."""
+        written in place. ``adapter_ids`` (B,): the rows' LoRA slots.
+        Returns {"tokens", "last_hidden", ["logits"], ["hidden_states"]}
+        on the device."""
         b, s = np.shape(input_ids)
         sid = self._seq_ids(b, seq_ids)
+        aids = self._lora_adapter_ids(adapter_ids)
         pos = torch.arange(s, dtype=torch.int32,
                            device=self.device)[None, :].expand(b, s)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        self._note_jit("prefill", s, (b, s), graph=False)
+        self._note_jit("prefill", s, (b, s, aids is not None), graph=False)
         return model_base.context_encoding_step(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(input_ids), pos, sid, self._t(seq_lens),
-            sampling_params, self.generator, self._inv_freq)
+            sampling_params, self.generator, self._inv_freq,
+            None if aids is None else self._t(aids))
 
     def _run_prefill_windowed(self, input_ids, seq_lens, window: int,
                               sampling_params=None):
@@ -514,24 +562,26 @@ class CausalLMApplication:
         return {"tokens": sample(last, sc, sampling_params, self.generator)}
 
     def _run_decode(self, input_ids, position_ids, seq_ids=None,
-                    sampling_params=None):
+                    sampling_params=None, adapter_ids=None):
         """One decode step (``model_base.token_generation_step``):
         ``input_ids`` numpy or a device tensor, ``position_ids`` numpy."""
         b, t = tuple(input_ids.shape)
         needed = int(np.max(np.asarray(position_ids))) + t
         self._check_decode_fits(needed)
         return self._decode_call(input_ids, position_ids, seq_ids,
-                                 self._kv_bucket(needed), sampling_params)
+                                 self._kv_bucket(needed), sampling_params,
+                                 adapter_ids)
 
     def _decode_call(self, input_ids, position_ids, seq_ids, kv_view,
-                     sampling_params=None):
+                     sampling_params=None, adapter_ids=None):
         """The decode step at an explicit ``kv_view`` bucket (the warm-up
         plane reaches every bucket with positions past the cache, which
         write nothing). Its signature: batch, width, identity rows,
         kernel or gather path (the view only matters to the gather),
-        greedy, logits."""
+        greedy, logits, LoRA ids."""
         b, t = tuple(input_ids.shape)
         sid = self._host_seq_ids(b, seq_ids)
+        aids = self._lora_adapter_ids(adapter_ids)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
         identity = not self.tpu_config.is_continuous_batching
@@ -540,33 +590,39 @@ class CausalLMApplication:
         view = None if kernel else kv_view
         greedy = self._greedy(sampling_params)
         sig = (b, t, identity, kernel, greedy,
-               bool(self.tpu_config.output_logits))
+               bool(self.tpu_config.output_logits), aids is not None)
 
         def fn(x, sp):
             return model_base.token_generation_step(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["sid"], sp, self.generator, view,
-                self._inv_freq)
+                self._inv_freq, x.get("aids"))
         return self._step("decode", view, sig, t == 1 and greedy, fn,
-                          {"ids": input_ids, "pos": position_ids,
-                           "sid": sid}, sampling_params)
+                          self._with_aids({"ids": input_ids,
+                                           "pos": position_ids,
+                                           "sid": sid}, aids),
+                          sampling_params)
 
     def _run_decode_loop(self, first_tokens, positions, num_steps: int,
-                         seq_ids=None, sampling_params=None):
+                         seq_ids=None, sampling_params=None,
+                         adapter_ids=None):
         """``num_steps`` decode steps with the tokens on the device
         (``model_base.decode_loop``, eager)."""
         b = np.shape(first_tokens)[0]
         sid = self._seq_ids(b, seq_ids)
+        aids = self._lora_adapter_ids(adapter_ids)
         needed = int(np.max(np.asarray(positions))) + num_steps
         self._check_decode_fits(needed)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        self._note_jit("decode_loop", num_steps, (b,), graph=False)
+        self._note_jit("decode_loop", num_steps, (b, aids is not None),
+                       graph=False)
         return model_base.decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions), sid, sampling_params,
             self.generator, num_steps=num_steps,
-            kv_view=self._kv_bucket(needed), inv_freq=self._inv_freq)
+            kv_view=self._kv_bucket(needed), inv_freq=self._inv_freq,
+            adapter_ids=None if aids is None else self._t(aids))
 
     def warmup(self):
         """Walk the warm-up plan of ``serving/warmup.py`` (every graph
@@ -585,7 +641,8 @@ class CausalLMApplication:
         chunks run one after the other."""
         b_in = input_ids.shape[0]
         cfg = self.tpu_config
-        per_row = ("attention_mask", "sampling_params", "teacher_tokens")
+        per_row = ("attention_mask", "sampling_params", "teacher_tokens",
+                   "adapter_ids")
 
         def _batchful(k, x):
             return k in per_row and x is not None
@@ -643,7 +700,8 @@ class CausalLMApplication:
                  eos_token_id: Optional[int] = None,
                  sampling_params: Optional[np.ndarray] = None,
                  return_logits: bool = False,
-                 teacher_tokens: Optional[np.ndarray] = None
+                 teacher_tokens: Optional[np.ndarray] = None,
+                 adapter_ids: Optional[np.ndarray] = None
                  ) -> Dict[str, Any]:
         """Greedy/sampled generation. input_ids (B, S) right-padded;
         attention_mask (B, S) marks real tokens. Returns sequences
@@ -653,6 +711,7 @@ class CausalLMApplication:
 
         ``teacher_tokens`` (B, T): feed these instead of the sampled tokens
         at decode steps 1..T (teacher forcing, for logit matching).
+        ``adapter_ids`` (B,): each row's LoRA slot (reference :787-826).
 
         Tokens stay on the device between steps; the eos check runs one
         chunk late, as the JAX app's overlapped fetch does."""
@@ -663,7 +722,8 @@ class CausalLMApplication:
                 input_ids, attention_mask=attention_mask,
                 max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
                 sampling_params=sampling_params, return_logits=return_logits,
-                teacher_tokens=teacher_tokens)
+                teacher_tokens=teacher_tokens, adapter_ids=adapter_ids)
+        aids = self._lora_adapter_ids(adapter_ids)
         if attention_mask is None:
             attention_mask = np.ones_like(input_ids)
         seq_lens = attention_mask.astype(np.int32).sum(axis=1)
@@ -695,7 +755,7 @@ class CausalLMApplication:
 
         t0 = time.perf_counter()
         if wcte:
-            if return_logits:
+            if return_logits or aids is not None:
                 raise NotImplementedError(
                     "windowed context encoding supports plain text prompts "
                     "without logits output")
@@ -703,7 +763,8 @@ class CausalLMApplication:
                                              sampling_params=sampling_params)
         else:
             out = self._run_prefill(padded, seq_lens,
-                                    sampling_params=sampling_params)
+                                    sampling_params=sampling_params,
+                                    adapter_ids=aids)
         first = out["tokens"]
         logits_trace: List[np.ndarray] = (
             [out["logits"].cpu().numpy()]
@@ -726,7 +787,8 @@ class CausalLMApplication:
                 n = 1
             if n == 1 or return_logits:
                 o = self._run_decode(cur[:, None], positions[:, None],
-                                     sampling_params=sampling_params)
+                                     sampling_params=sampling_params,
+                                     adapter_ids=aids)
                 new = o["tokens"].reshape(b, 1)
                 if return_logits and "logits" in o:
                     logits_trace.append(o["logits"].cpu().numpy())
@@ -734,8 +796,8 @@ class CausalLMApplication:
                 n_generated += 1
             else:
                 new = self._run_decode_loop(
-                    cur, positions, n,
-                    sampling_params=sampling_params)["tokens"]
+                    cur, positions, n, sampling_params=sampling_params,
+                    adapter_ids=aids)["tokens"]
                 positions = positions + n
                 n_generated += n
             collected.append(new)
@@ -757,6 +819,112 @@ class CausalLMApplication:
         if return_logits:
             result["logits"] = logits_trace
         return result
+
+    # -- multi-LoRA serving ------------------------------------------------
+    def load_lora_adapters(self, ckpt_paths: Optional[Dict[str, str]] = None
+                           ) -> Dict[str, int]:
+        """Load PEFT adapter directories into slots 1..N (slot 0 stays the
+        zero adapter), ``ckpt_paths`` {name: dir} defaulting to
+        ``lora_config.lora_ckpt_paths`` (reference :1006-1025). Returns
+        {name: slot}."""
+        lc = self.tpu_config.lora_config
+        if self.spec.lora is None or lc is None:
+            raise ConfigurationError("lora_config must be set on the "
+                                     "TpuConfig")
+        ckpt_paths = ckpt_paths or lc.lora_ckpt_paths or {}
+        if self.params is None:
+            raise RuntimeError("load_weights() first")
+        slots: Dict[str, int] = {}
+        for slot, (name, path) in enumerate(ckpt_paths.items(), start=1):
+            if slot >= self.spec.lora.max_loras:
+                raise ConfigurationError(
+                    f"adapter {name!r}: slot {slot} exceeds max_loras "
+                    f"{self.spec.lora.max_loras}")
+            self.set_lora_adapter(slot, path)
+            slots[name] = slot
+        self.lora_slots = slots
+        return slots
+
+    def lora_adapter_arrays(self, path: str) -> Dict[str, Any]:
+        """One PEFT adapter directory as host arrays in the stacked layout,
+        ``{module: (A (L, in, r), B (L, r, out))}``, with the base
+        weights' head transforms (``parallel.layers.place_q_weight`` /
+        ``replicate_kv_weight``, identities at tp 1), so they are
+        slot-writable as they are (reference :1027-1064)."""
+        from ..modules import lora as lora_mod
+        from ..parallel.layers import place_q_weight, replicate_kv_weight
+        sd, acfg = lora_mod.load_peft_adapter(path)
+        spec = self.spec
+        g, D, H = spec.gqa, spec.head_dim, spec.hidden_size
+        I = spec.intermediate_size
+        dims = {"q_proj": (H, spec.q_size), "k_proj": (H, spec.kv_size),
+                "v_proj": (H, spec.kv_size), "o_proj": (spec.q_size, H),
+                "gate_proj": (H, I), "up_proj": (H, I),
+                "down_proj": (I, H)}
+        outs = {"q_proj": lambda b: place_q_weight(b, g, D, -1),
+                "k_proj": lambda b: replicate_kv_weight(b, g, D, -1),
+                "v_proj": lambda b: replicate_kv_weight(b, g, D, -1)}
+        arrays: Dict[str, Any] = {}
+        for mod in spec.lora.target_modules:
+            d_in, d_out = dims[mod]
+            # o_proj's A reads the padded head layout on its input side
+            ins = ((lambda a: place_q_weight(a, g, D, 0))
+                   if mod == "o_proj" else None)
+            arrays[mod] = lora_mod.adapter_layer_arrays(
+                sd, acfg, spec.num_layers, mod, d_in, d_out, spec.lora.rank,
+                out_transform=outs.get(mod), in_transform=ins)
+        return arrays
+
+    def write_lora_slot(self, slot: int, arrays: Dict[str, Any]):
+        """Write adapter ``arrays`` ({module: (A (L, in, r), B (L, r,
+        out))}, numpy or tensors) into ``slot`` of the stacked factors, IN
+        PLACE (reference :1066-1075 rebinds fresh arrays): a captured
+        graph holds the tensors' addresses and serves the new factors at
+        its next replay. Each layer stack (:func:`model_base.layer_plan`)
+        takes its own layers' rows; an MoE stack has no MLP factors."""
+        from ..modules import lora as lora_mod
+        if not 0 <= slot < self.spec.lora.max_loras:
+            raise ConfigurationError(
+                f"LoRA slot {slot} is outside [0, "
+                f"{self.spec.lora.max_loras})")
+        # before the write: even a write that fails half-way retires the
+        # prefix-cache blocks computed under the slot's old factors
+        self._lora_writes[slot] = self._lora_writes.get(slot, 0) + 1
+        for key, rows in self._lora_stack_rows().items():
+            lw = self.params[key]
+            for mod, (a, b) in arrays.items():
+                if f"lora_A_{mod}" in lw:
+                    lora_mod.set_adapter_slot(self.params, key, slot, mod,
+                                              a[rows], b[rows])
+        return self
+
+    def _lora_stack_rows(self) -> Dict[str, Any]:
+        """{stack key: the absolute layers it holds} (a slice when the
+        stack holds every layer)."""
+        plan = model_base.layer_plan(self.spec)
+        out: Dict[str, Any] = {}
+        for key in dict.fromkeys(k for k, *_ in plan):
+            rows = [i for k, i, _, _ in plan if k == key]
+            out[key] = (slice(None) if len(rows) == self.spec.num_layers
+                        else rows)
+        return out
+
+    def lora_kv_salt(self, slot: int) -> bytes:
+        """The prefix cache's salt for a row that gathers LoRA ``slot``:
+        KV written under one adapter is never served to a row under
+        another, nor to a base row (a deliberate difference: the
+        reference keys its prefix cache on the tokens only). Slot 0 as
+        loaded (the zero adapter) salts nothing, so base rows share
+        blocks as before; every write to a slot gives it a new salt."""
+        n = self._lora_writes.get(int(slot), 0)
+        if int(slot) == 0 and n == 0:
+            return b""
+        return b"lora:%d:%d" % (int(slot), n)
+
+    def set_lora_adapter(self, slot: int, path: str):
+        """Dynamic multi-LoRA: (re)load one adapter directory into
+        ``slot`` (reference :1077-1080)."""
+        return self.write_lora_slot(slot, self.lora_adapter_arrays(path))
 
     def reset(self):
         """Clear the KV cache between requests (zeroed in place, so the
@@ -848,48 +1016,54 @@ class PagedCausalLMApplication(CausalLMApplication):
             return "coupled", sampling_params is None
         return "sampled", False
 
-    def _paged_inputs(self, inputs, seeds):
+    def _paged_inputs(self, inputs, seeds, aids=None):
         if seeds is not None:
             inputs["seeds"] = seeds
-        return inputs
+        return self._with_aids(inputs, aids)
 
     # -- device steps ------------------------------------------------------
     def _run_paged(self, input_ids, position_ids, slot_mapping, block_table,
-                   last_idx, sampling_params=None, row_seeds=None):
+                   last_idx, sampling_params=None, row_seeds=None,
+                   adapter_ids=None):
         """One paged step (``model_base.paged_forward_step``); the cache is
         written in place. Signature: width, batch, table width, sampling
-        mode, logits; a greedy or coupled T = 1 step replays its graph.
-        Returns {"tokens", ["logits"]} on the device."""
+        mode, logits, LoRA ids; a greedy or coupled T = 1 step replays its
+        graph. Returns {"tokens", ["logits"]} on the device."""
         b, t = np.shape(input_ids)
         mode, graphable = self._sampling_mode(sampling_params)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
         seeds = self._stream_seeds(row_seeds, b)
+        aids = self._lora_adapter_ids(adapter_ids)
         sig = (b, int(np.shape(block_table)[1]), mode,
-               bool(self.tpu_config.output_logits))
+               bool(self.tpu_config.output_logits), aids is not None)
 
         def fn(x, sp):
             return model_base.paged_forward_step(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["slots"], x["bt"], x["last"], sp,
-                self.generator, self._inv_freq, x.get("seeds"))
+                self.generator, self._inv_freq, x.get("seeds"),
+                x.get("aids"))
         return self._step("paged", t, sig, t == 1 and graphable, fn,
                           self._paged_inputs(
                               {"ids": input_ids, "pos": position_ids,
                                "slots": slot_mapping, "bt": block_table,
-                               "last": last_idx}, seeds), sampling_params)
+                               "last": last_idx}, seeds, aids),
+                          sampling_params)
 
     def _run_ragged(self, input_ids, position_ids, slot_mapping,
                     block_table, widths, emit_modes, sampling_params=None,
-                    row_seeds=None, want_hidden: bool = False):
+                    row_seeds=None, want_hidden: bool = False,
+                    adapter_ids=None):
         """ONE ragged mixed step (``model_base.paged_ragged_step``): rows
         mix decode steps, prefill chunks and verify windows, each at its
         own offset over its own block table. ``input_ids`` may be a device
         tensor (verify rows' drafts); the other host arrays are numpy: the
         capacity check, the verify test and the signature (grid width,
-        batch, table width, verify, sampling mode, ``want_hidden``) read
-        them without touching the device. A greedy or coupled all-decode
-        step (W = 1, no verify row) replays its graph. The cache is
+        batch, table width, verify, sampling mode, ``want_hidden``, LoRA
+        ids) read them without touching the device. A greedy or coupled
+        all-decode step (W = 1, no verify row) replays its graph, the
+        rows' ``adapter_ids`` riding its staging buffer. The cache is
         written in place. Returns {"tokens", "num_emitted"} on the device,
         and {"hidden"} (B, W, H) with ``want_hidden`` (the Medusa and EAGLE
         proposers' features; reference :1325-1345 keys its jit on it)."""
@@ -902,9 +1076,10 @@ class PagedCausalLMApplication(CausalLMApplication):
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
         seeds = self._stream_seeds(row_seeds, b)
+        aids = self._lora_adapter_ids(adapter_ids)
         verify = bool((emit == model_base.EMIT_VERIFY).any())
         sig = (b, int(np.shape(block_table)[1]), verify, mode,
-               bool(want_hidden))
+               bool(want_hidden), aids is not None)
 
         def fn(x, sp):
             return model_base.paged_ragged_step(
@@ -912,18 +1087,18 @@ class PagedCausalLMApplication(CausalLMApplication):
                 x["ids"], x["pos"], x["slots"], x["bt"], x["wid"],
                 x["emit"], sp, self.generator, self._inv_freq,
                 verify=verify, row_seeds=x.get("seeds"),
-                want_hidden=want_hidden)
+                want_hidden=want_hidden, adapter_ids=x.get("aids"))
         return self._step("ragged", w, sig,
                           w == 1 and not verify and graphable, fn,
                           self._paged_inputs(
                               {"ids": input_ids, "pos": pos,
                                "slots": slot_mapping, "bt": block_table,
-                               "wid": wid, "emit": emit}, seeds),
+                               "wid": wid, "emit": emit}, seeds, aids),
                           sampling_params)
 
     def _run_paged_loop(self, first_tokens, positions, block_table,
                         num_steps: int, sampling_params=None,
-                        row_seeds=None):
+                        row_seeds=None, adapter_ids=None):
         """``num_steps`` decode steps with in-device slot advance
         (``model_base.paged_decode_loop``, eager); blocks for the horizon
         must be allocated already."""
@@ -933,19 +1108,22 @@ class PagedCausalLMApplication(CausalLMApplication):
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
         seeds = self._stream_seeds(row_seeds, b)
+        aids = self._lora_adapter_ids(adapter_ids)
         self._note_jit("paged_loop", num_steps,
-                       (b, int(np.shape(block_table)[1])), graph=False)
+                       (b, int(np.shape(block_table)[1]), aids is not None),
+                       graph=False)
         return model_base.paged_decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions),
             self._t(block_table), sampling_params, self.generator,
             num_steps=num_steps, inv_freq=self._inv_freq,
-            row_seeds=None if seeds is None else self._t(seeds))
+            row_seeds=None if seeds is None else self._t(seeds),
+            adapter_ids=None if aids is None else self._t(aids))
 
     # -- speculative serving steps (serving/speculation/) ------------------
     def _run_spec_draft(self, first_tokens, positions, block_table, widths,
                         num_steps: int, sampling_params=None,
-                        row_seeds=None):
+                        row_seeds=None, adapter_ids=None):
         """The masked self-draft pass (``model_base.paged_spec_draft_loop``:
         ``num_steps`` T = 1 steps on the paged kernel). Frozen rows write
         nothing, so the per-row ``widths`` bound every KV write. The loop
@@ -960,23 +1138,25 @@ class PagedCausalLMApplication(CausalLMApplication):
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
         seeds = self._stream_seeds(row_seeds, b)
-        sig = (b, int(np.shape(block_table)[1]), mode)
+        aids = self._lora_adapter_ids(adapter_ids)
+        sig = (b, int(np.shape(block_table)[1]), mode, aids is not None)
 
         def fn(x, sp):
             return model_base.paged_spec_draft_loop(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["first"], x["pos"], x["bt"], x["wid"], sp, self.generator,
                 num_steps=num_steps, inv_freq=self._inv_freq,
-                row_seeds=x.get("seeds"))
+                row_seeds=x.get("seeds"), adapter_ids=x.get("aids"))
         return self._step("spec_draft", num_steps, sig, graphable, fn,
                           self._paged_inputs(
                               {"first": first_tokens, "pos": pos,
-                               "bt": block_table, "wid": wid}, seeds),
+                               "bt": block_table, "wid": wid}, seeds, aids),
                           sampling_params)
 
     def _run_spec_verify(self, input_ids, position_ids, slot_mapping,
                          block_table, widths, sampling_params=None,
-                         row_seeds=None, want_hidden: bool = False):
+                         row_seeds=None, want_hidden: bool = False,
+                         adapter_ids=None):
         """The speculative verify step (``model_base.paged_spec_verify``):
         one W-wide paged forward with exact-match acceptance, greedy or
         coupled. ``input_ids`` may be a device tensor (the drafts never
@@ -992,18 +1172,21 @@ class PagedCausalLMApplication(CausalLMApplication):
         seeds = self._stream_seeds(row_seeds, b)
         if seeds is not None and sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        sig = (b, int(np.shape(block_table)[1]), mode, bool(want_hidden))
+        aids = self._lora_adapter_ids(adapter_ids)
+        sig = (b, int(np.shape(block_table)[1]), mode, bool(want_hidden),
+               aids is not None)
 
         def fn(x, sp):
             return model_base.paged_spec_verify(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["slots"], x["bt"], x["wid"], sp,
-                x.get("seeds"), self._inv_freq, want_hidden=want_hidden)
+                x.get("seeds"), self._inv_freq, want_hidden=want_hidden,
+                adapter_ids=x.get("aids"))
         return self._step("spec_verify", w, sig, False, fn,
                           self._paged_inputs(
                               {"ids": input_ids, "pos": pos,
                                "slots": slot_mapping, "bt": block_table,
-                               "wid": wid}, seeds), sampling_params)
+                               "wid": wid}, seeds, aids), sampling_params)
 
     # -- generation --------------------------------------------------------
     def generate(self, input_ids: np.ndarray,
@@ -1012,7 +1195,8 @@ class PagedCausalLMApplication(CausalLMApplication):
                  eos_token_id: Optional[int] = None,
                  sampling_params: Optional[np.ndarray] = None,
                  return_logits: bool = False,
-                 teacher_tokens: Optional[np.ndarray] = None
+                 teacher_tokens: Optional[np.ndarray] = None,
+                 adapter_ids: Optional[np.ndarray] = None
                  ) -> Dict[str, Any]:
         """Paged generation. input_ids (B, S) right-padded; attention_mask
         (B, S) marks real tokens. Prefix-cached prompt blocks are not
@@ -1023,7 +1207,8 @@ class PagedCausalLMApplication(CausalLMApplication):
         ``teacher_tokens`` (B, T): feed these instead of the sampled tokens
         at decode steps 1..T (the contract of the JAX contiguous app's
         teacher forcing, for logit matching; the JAX paged app does not
-        take it)."""
+        take it). ``adapter_ids`` (B,): each row's LoRA slot (a port-only
+        argument: the JAX paged ``generate`` takes none)."""
         if teacher_tokens is not None:
             teacher_tokens = np.asarray(teacher_tokens)
             max_new_tokens = min(max_new_tokens,
@@ -1036,7 +1221,8 @@ class PagedCausalLMApplication(CausalLMApplication):
                 input_ids, attention_mask=attention_mask,
                 max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
                 sampling_params=sampling_params, return_logits=return_logits,
-                teacher_tokens=teacher_tokens)
+                teacher_tokens=teacher_tokens, adapter_ids=adapter_ids)
+        aids = self._lora_adapter_ids(adapter_ids)
         if attention_mask is None:
             attention_mask = np.ones_like(input_ids)
         seq_lens = attention_mask.astype(np.int32).sum(axis=1)
@@ -1060,7 +1246,8 @@ class PagedCausalLMApplication(CausalLMApplication):
         batch_fresh: set = set()      # blocks first written by THIS call
         for i in range(b):
             toks = input_ids[i, :seq_lens[i]].tolist()
-            blocks, c = self.kv_mgr.begin_sequence(i, toks)
+            salt = b"" if aids is None else self.lora_kv_salt(aids[i])
+            blocks, c = self.kv_mgr.begin_sequence(i, toks, salt=salt)
             if chunked:
                 c = cut_cached_at_unwritten(blocks, c, bsz, batch_fresh)
             batch_fresh.update(blocks[c // bsz:])
@@ -1088,7 +1275,7 @@ class PagedCausalLMApplication(CausalLMApplication):
             slot_pos = np.where(valid, pos_w, -1)
             slots = slots_from_table(bt, slot_pos, bsz)
             return self._run_paged(ids_w, pos_w, slots, bt, last_idx,
-                                   sampling_params)
+                                   sampling_params, adapter_ids=aids)
 
         t0 = time.perf_counter()
         if chunk_w and t_max > chunk_w:
@@ -1141,13 +1328,13 @@ class PagedCausalLMApplication(CausalLMApplication):
                 slots = slots_from_table(bt, pos, bsz)
                 o = self._run_paged(cur[:, None], pos, slots, bt,
                                     np.zeros((b,), np.int32),
-                                    sampling_params)
+                                    sampling_params, adapter_ids=aids)
                 new = o["tokens"].cpu().numpy().reshape(b, 1)
                 if return_logits and "logits" in o:
                     logits_trace.append(o["logits"].cpu().numpy())
             else:
                 o = self._run_paged_loop(cur, positions, bt, steps,
-                                         sampling_params)
+                                         sampling_params, adapter_ids=aids)
                 new = o["tokens"].cpu().numpy()
             collected.append(new)
             positions = positions + steps

@@ -37,7 +37,11 @@ self-draft loop (``paged_spec_draft_loop``: k T = 1 steps in one graph per
 dispatch), and only when they sample greedily or with the seeded coupled
 draw (``ops/sampling.coupled_sample``): that draw is a pure function of
 the step's inputs, and its row seeds ride the int32 staging buffer with
-the other inputs. A step reads every tensor of the app's cache, so the
+the other inputs. So do the rows' LoRA slots (``aids``) of a multi-LoRA
+step: the app's signature tells a step with ids from one without (the
+reference's jit signature, serving/warmup.py:116-122), and each replay
+gathers the factors from the stacked tensors it captured, which an
+adapter swap writes in place. A step reads every tensor of the app's cache, so the
 decode graph of a rolling or mixed-cache app holds all of its stacks
 (``k``/``v`` and ``k_l``/``v_l``); the rolling write slot (``pos % w``)
 and the masks are computed on the device from the static position input,

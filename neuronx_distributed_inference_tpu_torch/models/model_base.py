@@ -14,7 +14,8 @@
 ``decode_loop`` :1939, ``paged_decode_loop`` :2058,
 ``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
 ``paged_ragged_step`` :2222, ``spec_from_config`` :2346, its cache-layout
-decisions :2513-2554; ``MLASpec`` :78, ``_mla_qkv`` :686).
+decisions :2513-2554; ``MLASpec`` :78, ``_mla_qkv`` :686;
+``_add_lora_specs`` :431, ``stack_lora_host`` :641).
 
 The MLP slot is a dense GLU MLP or a routed mixture of experts
 (``spec.moe``, ``modules/moe.py``). A mixed stack (DeepSeek's
@@ -54,6 +55,13 @@ layer: both decode gates and the flash gate refuse ``attn_chunk``.
 Phi-3.5-MoE's: a learned bias on every LayerNorm (``norm_bias``) and on
 the lm-head (``lm_head_bias``); GLM-4-MoE's partial rotary is the rope's
 ``rotary_dim``.
+
+Multi-LoRA (``spec.lora``, ``modules/lora.py``): every targeted
+projection has stacked factors ``lora_A_<mod>`` (L, max_loras, in, r) and
+``lora_B_<mod>`` (L, max_loras, r, out) (none on MLA projections or an
+MoE layer's MLP), and every step takes ``adapter_ids`` (B,), each row's
+slot, carried to the layers in ``ai["adapter_ids"]``. Without ids a step
+adds no delta at all (the LoRA-free graph); slot 0 is the zero adapter.
 
 The contiguous cache takes one of three layouts (:func:`cache_layout`,
 the reference's decisions):
@@ -115,6 +123,7 @@ from ..modules import block_kv_cache as bkv
 from ..modules import kv_cache as kv
 from ..modules import low_rank as low_rank_mod
 from ..modules import moe as moe_mod
+from ..modules.lora import LoraSpec, apply_lora, lora_spec_from_config
 from ..modules import quantization as quant_mod
 from ..modules.quantization import qlinear
 from ..ops import attention as attn_ops
@@ -270,6 +279,9 @@ class DecoderSpec:
     # Medusa speculation heads (model_base.py:251-253): head j = a
     # ResBlock (H -> H) and its own lm head, predicting position +j+2
     medusa_heads: int = 0
+    # multi-LoRA serving (model_base.py:254-256): stacked per-adapter
+    # factors, each row's picked by its ``adapter_ids`` entry
+    lora: Optional[LoraSpec] = None
 
     @property
     def scale(self) -> float:
@@ -401,17 +413,43 @@ def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     if spec.attn_sink:
         layers["sink"] = ParamSpec((L, spec.gqa.num_q_heads), torch.float32,
                                    "zeros")
+    if spec.lora is not None and spec.mla is None:
+        _add_lora_specs(spec, layers, L, {
+            "q_proj": (H, spec.q_size), "k_proj": (H, spec.kv_size),
+            "v_proj": (H, spec.kv_size), "o_proj": (spec.q_size, H)})
     return layers
+
+
+def _add_lora_specs(spec: DecoderSpec, layers: Dict[str, ParamSpec], L: int,
+                    dims: Dict[str, Tuple[int, int]]) -> None:
+    """Stacked adapter factors of each targeted module (model_base.py:
+    431-449): A (L, max_loras, in, r) and B (L, max_loras, r, out) in the
+    model dtype, zeros (every slot the zero adapter until one is
+    written)."""
+    lo = spec.lora
+    for mod, (d_in, d_out) in dims.items():
+        if not lo.targets(mod):
+            continue
+        layers[f"lora_A_{mod}"] = ParamSpec(
+            (L, lo.max_loras, d_in, lo.rank), spec.dtype, "zeros")
+        layers[f"lora_B_{mod}"] = ParamSpec(
+            (L, lo.max_loras, lo.rank, d_out), spec.dtype, "zeros")
 
 
 def _dense_mlp_param_specs(spec: DecoderSpec,
                            L: int) -> Dict[str, ParamSpec]:
     """The dense GLU MLP slot (model_base.py:452): gate / up / down of
-    ``intermediate_size``."""
+    ``intermediate_size``, with their adapter factors under LoRA (:470-474;
+    an MoE layer takes none)."""
     H, I, dt = spec.hidden_size, spec.intermediate_size, spec.dtype
-    return {"gate_proj": ParamSpec((L, H, I), dt),
-            "up_proj": ParamSpec((L, H, I), dt),
-            "down_proj": ParamSpec((L, I, H), dt)}
+    layers = {"gate_proj": ParamSpec((L, H, I), dt),
+              "up_proj": ParamSpec((L, H, I), dt),
+              "down_proj": ParamSpec((L, I, H), dt)}
+    if spec.lora is not None:
+        _add_lora_specs(spec, layers, L, {"gate_proj": (H, I),
+                                          "up_proj": (H, I),
+                                          "down_proj": (I, H)})
+    return layers
 
 
 def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
@@ -479,6 +517,24 @@ def init_params(spec: DecoderSpec, seed: int,
             return convert_leaf(spec, name, node.initializer(gen, device))
         return {k: build(v, k) for k, v in sorted(node.items())}
     return build(decoder_param_specs(spec), "")
+
+
+def stack_lora_host(spec: DecoderSpec, host: Dict[str, Any]) -> Dict[str, Any]:
+    """Backfill the stacked ``lora_A_<mod>`` / ``lora_B_<mod>`` host
+    leaves a checkpoint never carries (model_base.py:641-658): a state dict
+    holds the base weights only, adapters arrive at serving time, so every
+    load path stacks zeroed ``(L, max_loras, ...)`` factors here (slot 0 is
+    the zero adapter). A no-op without ``spec.lora`` or where the leaves
+    are present already."""
+    if spec.lora is None:
+        return host
+    for group, d in decoder_param_specs(spec).items():
+        if not isinstance(d, dict) or not isinstance(host.get(group), dict):
+            continue
+        for k, ps in d.items():
+            if k.startswith("lora_") and k not in host[group]:
+                host[group][k] = np.zeros(ps.shape, np.float32)
+    return host
 
 
 def fuse_qkv_host(host: Dict[str, Any]) -> Dict[str, Any]:
@@ -570,7 +626,8 @@ def _sink(spec: DecoderSpec, layer_w):
 
 
 def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
-    """Fused projection, the q/k/v clamp, q/k norms, head split and RoPE,
+    """Fused projection, the rows' adapter deltas (``ai["adapter_ids"]``),
+    the q/k/v clamp, q/k norms, head split and RoPE,
     then Llama4's q/k norm and temperature: q (B,T,Hq,D), k/v (B,T,Hkv,D)
     (v a view into the projection output unless clamped). A local layer
     rotates with ``ai["cos_l"]`` when the step carries it, a NoPE global
@@ -584,6 +641,12 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
         qkv = qkv + layer_w["qkv_bias"]
     q, k, v = torch.split(qkv, [spec.q_size, spec.kv_size, spec.kv_size],
                           dim=-1)
+    # the adapters' deltas land on the split projections, before every
+    # norm, clamp and rotation (model_base.py:989-997)
+    aids = ai.get("adapter_ids")
+    q = apply_lora(spec.lora, layer_w, "q_proj", h, q, aids)
+    k = apply_lora(spec.lora, layer_w, "k_proj", h, k, aids)
+    v = apply_lora(spec.lora, layer_w, "v_proj", h, v, aids)
     if spec.qk_norm_full:
         # RMSNorm over the whole projection, before the head split
         # (model_base.py:998-1001)
@@ -766,18 +829,25 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                            sink=sink), None
 
 
-def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str):
+def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str,
+               adapter_ids=None):
     """The MLP half of a layer (model_base.py:889-938): the MoE block in a
     layer of the ``"moe"`` stack, else the dense GLU act(x @ gate) *
     (x @ up) @ down with ``ACT_FNS[spec.act]``, each product through
-    ``qlinear`` (plain, quantized or low-rank weights). ``kind`` is the
-    layer's (:func:`layer_plan`), a Python value, so a captured graph
-    holds each layer's own branch."""
+    ``qlinear`` (plain, quantized or low-rank weights) plus, with
+    ``adapter_ids``, its rows' adapter deltas (:925-938; an MoE layer
+    takes none). ``kind`` is the layer's (:func:`layer_plan`), a Python
+    value, so a captured graph holds each layer's own branch."""
     if kind == "moe":
         return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
-    inter = (ACT_FNS[spec.act](qlinear(x, layer_w["gate_proj"]))
-             * qlinear(x, layer_w["up_proj"]))
-    return qlinear(inter, layer_w["down_proj"])
+    lo = spec.lora
+    gate = apply_lora(lo, layer_w, "gate_proj", x,
+                      qlinear(x, layer_w["gate_proj"]), adapter_ids)
+    up = apply_lora(lo, layer_w, "up_proj", x,
+                    qlinear(x, layer_w["up_proj"]), adapter_ids)
+    inter = ACT_FNS[spec.act](gate) * up
+    return apply_lora(lo, layer_w, "down_proj", inter,
+                      qlinear(inter, layer_w["down_proj"]), adapter_ids)
 
 
 def _norm(spec: DecoderSpec, x, w, b=None):
@@ -801,7 +871,10 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     (local or global, model_base.py:1327) and its sink; ``li`` addresses
     its rows in ``cache`` (on the mixed cache, its index within its own
     stack). ``kind`` ("dense" / "moe") picks its MLP; MLA or the fused
-    q/k/v picks its projections (model_base.py:987-988)."""
+    q/k/v picks its projections (model_base.py:987-988). With
+    ``ai["adapter_ids"]`` every targeted projection adds its rows' adapter
+    deltas (q/k/v in :func:`_qkv`, o_proj before ``o_bias``, the MLP's in
+    :func:`_mlp_block`; MLA projections take none)."""
     pre = spec.norm_position == "pre"
     is_local = spec.is_local(li if layer is None else layer)
     h = (_norm(spec, hidden, layer_w["input_norm"],
@@ -820,7 +893,10 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     else:
         attn = _paged_attn(*args)
     b, t = h.shape[:2]
-    o = qlinear(attn.reshape(b, t, -1), layer_w["o_proj"])
+    attn = attn.reshape(b, t, -1)
+    aids = ai.get("adapter_ids")
+    o = apply_lora(spec.lora, layer_w, "o_proj", attn,
+                   qlinear(attn, layer_w["o_proj"]), aids)
     if spec.o_bias:
         o = o + layer_w["o_bias"]
     if spec.sandwich_norm:
@@ -829,7 +905,7 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     h = (_norm(spec, hidden, layer_w["post_norm"],
                layer_w.get("post_norm_b") if spec.norm_bias else None)
          if pre else hidden)
-    m = _mlp_block(spec, h, layer_w, phase, kind)
+    m = _mlp_block(spec, h, layer_w, phase, kind, aids)
     if spec.sandwich_norm:
         m = _norm(spec, m, layer_w["post_ff_norm"])
     return hidden + _residual_scaled(spec, m), pending
@@ -1043,7 +1119,8 @@ def _sample_out(spec: DecoderSpec, tpu_cfg: TpuConfig, params, hidden,
 def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                           cache, input_ids, position_ids, seq_ids, seq_lens,
                           sampling_params=None, generator=None,
-                          inv_freq: Optional[torch.Tensor] = None):
+                          inv_freq: Optional[torch.Tensor] = None,
+                          adapter_ids: Optional[torch.Tensor] = None):
     """Prefill (model_base.py:1686). input_ids/position_ids (B, S_bucket)
     right-padded with arange positions; seq_ids (B,) cache rows; seq_lens
     (B,) true lengths. Writes the cache in place; returns {"tokens": (B,),
@@ -1051,7 +1128,8 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     feeds the Medusa heads and the EAGLE draft, :1770-1776), plus
     {"logits": (B, S_bucket, vocab)} when ``output_logits`` and
     {"hidden_states": (B, S_bucket, H)} when ``output_full_hidden``
-    (:1780-1781).
+    (:1780-1781). ``adapter_ids`` (B,): each row's LoRA slot (None: no
+    adapter delta at all, the graph of a LoRA-free build).
 
     On the mixed cache every layer prefills into a full-length scratch
     (identity rows), which :func:`fold_mixed_prefill` then folds into the
@@ -1065,7 +1143,8 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
         _add_masks(spec, ai, lambda w, c: attn_ops.prefill_causal_mask(
             position_ids, w, c))
     ai.update(seq_ids=seq_ids, positions=position_ids, prefill_lens=seq_lens,
-              identity=not tpu_cfg.is_continuous_batching)
+              identity=not tpu_cfg.is_continuous_batching,
+              adapter_ids=adapter_ids)
     persistent = cache
     if spec.mixed_kv:
         g = spec.gqa
@@ -1096,7 +1175,8 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 
 
 def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
-                   position_ids, seq_ids, kv_view, inv_freq, side=None):
+                   position_ids, seq_ids, kv_view, inv_freq, side=None,
+                   adapter_ids=None):
     """Inputs of a decode step: RoPE, rows, the kernel decision and its
     lengths, the masks. The rolling cache's mask maps slots back to the
     positions they hold; the mixed cache adds the local stack's rolling
@@ -1105,7 +1185,7 @@ def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
     identity = not tpu_cfg.is_continuous_batching
     ai = attn_inputs(spec, position_ids, inv_freq)
     ai.update(seq_ids=seq_ids, positions=position_ids, identity=identity,
-              kv_view=kv_view, side=side)
+              kv_view=kv_view, side=side, adapter_ids=adapter_ids)
     ai["use_kernel"] = use_contiguous_decode_kernel(
         spec, position_ids.shape[1], position_ids.shape[0], cache, identity,
         side is not None)
@@ -1129,14 +1209,15 @@ def token_generation_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                           cache, input_ids, position_ids, seq_ids,
                           sampling_params=None, generator=None,
                           kv_view: Optional[int] = None,
-                          inv_freq: Optional[torch.Tensor] = None):
+                          inv_freq: Optional[torch.Tensor] = None,
+                          adapter_ids: Optional[torch.Tensor] = None):
     """Decode (model_base.py:1789). input_ids/position_ids (B, T); seq_ids
-    (B,) cache rows. ``kv_view``: the gather path reads only cache slots
+    (B,) cache rows; adapter_ids (B,) the rows' LoRA slots or None. ``kv_view``: the gather path reads only cache slots
     [0, kv_view) (of the global stack on the mixed cache); writes address
     the whole cache. Writes the cache in place; returns {"tokens": (B,)}
     plus {"logits": (B, T, vocab)}."""
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids,
-                        kv_view, inv_freq)
+                        kv_view, inv_freq, adapter_ids=adapter_ids)
     hidden = _embed(spec, params, input_ids)
     if spec.mixed_kv:
         hidden = run_layers_mixed_decode(spec, params, cache, hidden, ai)
@@ -1148,7 +1229,8 @@ def token_generation_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 
 def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                            cache, input_ids, position_ids, seq_ids,
-                           inv_freq: Optional[torch.Tensor] = None):
+                           inv_freq: Optional[torch.Tensor] = None,
+                           adapter_ids: Optional[torch.Tensor] = None):
     """A T-token decode step that returns the logits of every position
     (model_base.py:1846-1874): the step of windowed context encoding and
     the target verify of fused speculation (``models/speculation.py``).
@@ -1164,7 +1246,7 @@ def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
             "multi-token decode over the mixed per-layer cache is not "
             "supported; disable speculation or set mixed_kv=False")
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids, None,
-                        inv_freq)
+                        inv_freq, adapter_ids=adapter_ids)
     hidden = run_layers(spec, params, cache, _embed(spec, params, input_ids),
                         ai, "decode")
     return {"logits_all": _lm_head(spec, params, hidden)[
@@ -1175,9 +1257,11 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                 first_tokens, position_ids, seq_ids, sampling_params=None,
                 generator=None, num_steps: int = 1,
                 kv_view: Optional[int] = None,
-                inv_freq: Optional[torch.Tensor] = None):
+                inv_freq: Optional[torch.Tensor] = None,
+                adapter_ids: Optional[torch.Tensor] = None):
     """``num_steps`` decode steps with the tokens kept on the device
-    (model_base.py:1939). first_tokens/position_ids (B,). Returns
+    (model_base.py:1939). first_tokens/position_ids (B,); adapter_ids (B,)
+    the rows' LoRA slots or None. Returns
     {"tokens": (B, num_steps)}.
 
     Full-attention models without sinks or chunks under a static batch
@@ -1202,7 +1286,7 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
             tok = token_generation_step(
                 spec, no_logits, params, cache, tok[:, None], pos[:, None],
                 seq_ids, sampling_params, generator, kv_view,
-                inv_freq)["tokens"]
+                inv_freq, adapter_ids)["tokens"]
             toks.append(tok)
             pos = pos + 1
         return {"tokens": torch.stack(toks, dim=1)}
@@ -1222,7 +1306,7 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     for idx in range(c):
         pos2 = pos[:, None]
         ai = _decode_inputs(spec, tpu_cfg, cache, pos2, seq_ids, kv_view,
-                            inv_freq, side=(sk, sv))
+                            inv_freq, side=(sk, sv), adapter_ids=adapter_ids)
         ai["mask"] = ai["mask"] & (slots < start[:, None, None])
         # the active token (side slot idx) is folded in from registers;
         # its side write lands at the end of the step
@@ -1259,12 +1343,14 @@ def use_decode_kernel(spec: DecoderSpec, phase_t: int,
 
 
 def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
-                  slot_mapping, block_table, inv_freq):
+                  slot_mapping, block_table, inv_freq, adapter_ids=None):
     """The layer stack over the paged cache: the step's K/V land at
     ``slot_mapping``; a T = 1 step runs the paged kernel, a wider one the
-    block-table gather + ``mha`` (model_base.py:1071-1077)."""
+    block-table gather + ``mha`` (model_base.py:1071-1077); with
+    ``adapter_ids`` each row adds its LoRA slot's deltas."""
     t = input_ids.shape[1]
     ai = attn_inputs(spec, position_ids, inv_freq)
+    ai["adapter_ids"] = adapter_ids
     ai["use_kernel"] = use_decode_kernel(spec, t, cache["k"].dtype)
     ai["slot_mapping"] = slot_mapping
     ai["block_table"] = block_table
@@ -1298,7 +1384,7 @@ def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                        input_ids, position_ids, slot_mapping, block_table,
                        last_idx, sampling_params=None, generator=None,
                        inv_freq: Optional[torch.Tensor] = None,
-                       row_seeds=None):
+                       row_seeds=None, adapter_ids=None):
     """One paged step: paged prefill, prefix-cached or chunked prefill
     (T = window at arbitrary positions) and paged decode (T = 1).
 
@@ -1307,10 +1393,12 @@ def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     token whose logits are sampled — all tensors on the cache's device.
     row_seeds (B,) per-request seeds: with a ``stream_seed`` config the
     token is the coupled draw keyed by the ABSOLUTE position of the
-    sampled token. Writes the cache in place; returns {"tokens": (B,)
-    int32} plus {"logits": (B, T, vocab)} when ``tpu_cfg.output_logits``."""
+    sampled token. adapter_ids (B,): the rows' LoRA slots (model_base.py:
+    1905-1909), None for a LoRA-free step. Writes the cache in place;
+    returns {"tokens": (B,) int32} plus {"logits": (B, T, vocab)} when
+    ``tpu_cfg.output_logits``."""
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
-                           slot_mapping, block_table, inv_freq)
+                           slot_mapping, block_table, inv_freq, adapter_ids)
     coupled = None
     if _coupled_mode(tpu_cfg, row_seeds):
         pos_last = torch.gather(position_ids, 1,
@@ -1354,7 +1442,7 @@ def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       input_ids, position_ids, slot_mapping, block_table,
                       widths, sampling_params=None, row_seeds=None,
                       inv_freq: Optional[torch.Tensor] = None,
-                      want_hidden: bool = False):
+                      want_hidden: bool = False, adapter_ids=None):
     """The speculative verify step (model_base.py:2141-2220): every
     candidate of a (B, W) window in one paged forward, then exact-match
     acceptance. input_ids (B, W): column 0 each row's last accepted token,
@@ -1365,9 +1453,10 @@ def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     positions, whatever was drafted. Writes the cache in place; returns
     {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
     (B,) int32}, plus {"hidden": (B, W, H)} with ``want_hidden`` (the
-    verified features the Medusa and EAGLE proposers read, :2217)."""
+    verified features the Medusa and EAGLE proposers read, :2217).
+    ``adapter_ids`` (B,): the rows' LoRA slots or None."""
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
-                           slot_mapping, block_table, inv_freq)
+                           slot_mapping, block_table, inv_freq, adapter_ids)
     target = _verify_target(spec, tpu_cfg, params, hidden, position_ids,
                             sampling_params, row_seeds)
     n_acc = _accepted(input_ids, target, widths)
@@ -1385,7 +1474,7 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       widths, emit_modes, sampling_params=None,
                       generator=None, inv_freq: Optional[torch.Tensor] = None,
                       verify: bool = False, row_seeds=None,
-                      want_hidden: bool = False):
+                      want_hidden: bool = False, adapter_ids=None):
     """The ragged unified step (model_base.py:2222-2328): one paged
     forward whose rows mix decode steps (width 1), prefill chunks (width
     n at the row's own offset) and verify windows (width k+1).
@@ -1412,10 +1501,11 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     their sample from the same target. Writes the cache in place; returns
     {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
     (B,) int32}, plus {"hidden": (B, W, H)} with ``want_hidden``
-    (:2326-2327)."""
+    (:2326-2327). ``adapter_ids`` (B,): each row gathers its own LoRA
+    slot's factors (:2261-2265); None keeps the step LoRA-free."""
     b, w = input_ids.shape
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
-                           slot_mapping, block_table, inv_freq)
+                           slot_mapping, block_table, inv_freq, adapter_ids)
     emit = emit_modes.to(torch.int32)
     last = (widths.long() - 1).clamp(min=0)
     coupled = _coupled_mode(tpu_cfg, row_seeds)
@@ -1459,7 +1549,7 @@ def paged_decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       sampling_params=None, generator=None,
                       num_steps: int = 1,
                       inv_freq: Optional[torch.Tensor] = None,
-                      row_seeds=None):
+                      row_seeds=None, adapter_ids=None):
     """``num_steps`` paged decode steps with no host round trip between
     them: each step's slot comes from the (pre-extended) block table on the
     device, and each sampled token feeds the next step on the device. The
@@ -1480,7 +1570,7 @@ def paged_decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
         out = paged_forward_step(
             spec, no_logits, params, cache, tok[:, None], pos[:, None],
             slot[:, None], block_table, last, sampling_params, generator,
-            inv_freq, row_seeds)
+            inv_freq, row_seeds, adapter_ids)
         tok = out["tokens"]
         toks.append(tok)
         pos = pos + 1
@@ -1492,7 +1582,7 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                           widths, sampling_params=None, generator=None,
                           num_steps: int = 1,
                           inv_freq: Optional[torch.Tensor] = None,
-                          row_seeds=None):
+                          row_seeds=None, adapter_ids=None):
     """The masked greedy-k self-draft loop (model_base.py:2091-2139):
     :func:`paged_decode_loop`, except that row i stops drafting once it
     has ``widths[i] - 1`` drafts. A frozen row's step writes nothing (slot
@@ -1522,7 +1612,7 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
         out = paged_forward_step(
             spec, no_logits, params, cache, tok[:, None], pos[:, None],
             slot[:, None], block_table, last, sampling_params, generator,
-            inv_freq, row_seeds)
+            inv_freq, row_seeds, adapter_ids)
         tok = torch.where(valid, out["tokens"], tok)
         pos = torch.where(valid, pos + 1, pos)
         toks.append(tok)
@@ -1539,7 +1629,6 @@ def _unported_knobs(tcfg: TpuConfig, act: str):
          or tcfg.attention_dp_degree > 1, "parallelism degrees > 1"),
         (tcfg.sequence_parallel_enabled, "sequence parallelism"),
         (tcfg.flash_decoding_enabled, "flash decoding"),
-        (tcfg.lora_config is not None, "LoRA"),
         (tcfg.collective_config is not None
          and tcfg.collective_config.dtype is not None,
          "quantized collectives"),
@@ -1778,6 +1867,7 @@ def spec_from_config(config: InferenceConfig,
         o_bias=bool(o_bias),
         rolling_window=rolling,
         mixed_kv=mixed,
+        lora=lora_spec_from_config(tcfg),
         **knobs,
     )
 

@@ -188,13 +188,17 @@ class BlockAllocator:
             return blk
         raise CapacityError("out of KV cache blocks")
 
-    def allocate(self, token_ids: Sequence[int]) -> Tuple[List[int], int]:
+    def allocate(self, token_ids: Sequence[int], salt: bytes = b""
+                 ) -> Tuple[List[int], int]:
         """Allocate blocks for a prompt. Returns (block_ids, cached_tokens).
-        On OOM this call's partial allocations are rolled back."""
+        On OOM this call's partial allocations are rolled back. ``salt``
+        seeds the hash chain: prompts match only under the same salt (the
+        LoRA adapter whose KV the blocks hold; b"" is the reference's
+        chain)."""
         n_blocks = max(1, -(-len(token_ids) // self.block_size))
         blocks: List[int] = []
         cached_tokens = 0
-        parent = b""
+        parent = salt
         matching = self.enable_prefix_caching
         for bi in range(n_blocks):
             chunk = token_ids[bi * self.block_size:(bi + 1) * self.block_size]
@@ -228,12 +232,13 @@ class BlockAllocator:
             blocks.append(blk)
         return blocks, cached_tokens
 
-    def probe(self, token_ids: Sequence[int]) -> Tuple[int, List[int]]:
+    def probe(self, token_ids: Sequence[int], salt: bytes = b""
+              ) -> Tuple[int, List[int]]:
         """READ-ONLY prefix-warmth probe: (cached_tokens, hit block ids)
         that :meth:`allocate` would serve from the prefix cache now."""
         if not self.enable_prefix_caching:
             return 0, []
-        parent = b""
+        parent = salt
         blocks: List[int] = []
         cached = 0
         for bi in range(len(token_ids) // self.block_size):
@@ -306,11 +311,11 @@ class BlockKVCacheManager:
         self.lens: Dict[int, int] = {}
         self._hit_blocks: Dict[int, int] = {}      # leading prefix-HIT blocks
 
-    def begin_sequence(self, seq_id: int, token_ids: Sequence[int]
-                       ) -> Tuple[List[int], int]:
+    def begin_sequence(self, seq_id: int, token_ids: Sequence[int],
+                       salt: bytes = b"") -> Tuple[List[int], int]:
         if seq_id in self.tables:      # stale table from an unreleased run
             self.end_sequence(seq_id)
-        blocks, cached = self.allocator.allocate(token_ids)
+        blocks, cached = self.allocator.allocate(token_ids, salt)
         self.tables[seq_id] = blocks
         self.lens[seq_id] = len(token_ids)
         self._hit_blocks[seq_id] = cached // self.spec.block_size
@@ -366,9 +371,9 @@ class BlockKVCacheManager:
             self.allocator.free([b for b in blocks if b not in unwritten])
             self.allocator.invalidate([b for b in blocks if b in unwritten])
 
-    def probe_cached_tokens(self, token_ids: Sequence[int]
-                            ) -> Tuple[int, List[int]]:
-        return self.allocator.probe(list(token_ids))
+    def probe_cached_tokens(self, token_ids: Sequence[int],
+                            salt: bytes = b"") -> Tuple[int, List[int]]:
+        return self.allocator.probe(list(token_ids), salt)
 
     def block_table_array(self, seq_ids: Sequence[int], max_blocks: int
                           ) -> np.ndarray:

@@ -1,10 +1,10 @@
 """Closed-loop degradation controller: ACT on SLO burn, reversibly (a
 copy of ``neuronx_distributed_inference_tpu/resilience/controller.py``).
-On the port's adapter ``shed_speculation`` acts
-(``set_speculation_shed``), as do ``drop_ragged`` (``set_ragged_shed``)
-and ``tighten_admission`` (``MultiTenantQueue.set_weight_scale``);
-``shed_adapters`` finds no hook there (LoRA is not ported) and does
-nothing, as on any adapter without a pool.
+On the port's adapter every action acts: ``shed_speculation``
+(``set_speculation_shed``), ``drop_ragged`` (``set_ragged_shed``),
+``tighten_admission`` (``MultiTenantQueue.set_weight_scale``) and
+``shed_adapters`` (``PagedEngineAdapter.set_adapter_shed``; a no-op on
+an adapter without a LoRA pool).
 
 The SLO plane (telemetry/slo.py) computes per-tenant multiwindow burn
 rates and an advisory hint (``shed_speculation`` /

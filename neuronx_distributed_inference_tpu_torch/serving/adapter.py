@@ -1,13 +1,13 @@
 """Serving adapters — the continuous-batching contract an engine drives
 (counterpart: ``neuronx_distributed_inference_tpu/serving/adapter.py`` —
 ``_SeqState``/``_ChunkState`` :137-180, the helpers :182-243
-(``_meta_seed`` :192), ``_AdapterTelemetry`` :245-456 (``on_spec_step``
-:320), the helpers :459-560, ``_CbScratch`` :563,
+(``_meta_seed`` :192, ``_meta_adapter`` :204), ``_AdapterTelemetry``
+:245-456 (``on_spec_step`` :320), the helpers :459-560, ``_CbScratch`` :563,
 ``_PagedScratch`` :606, the eager path of ``_EngineAdapterBase``
 :682-903 with ``flush`` :837 and ``debug_state`` :1071,
 ``ContinuousBatchingAdapter`` :1090-1275 and ``PagedEngineAdapter`` :1277
 with its speculation and ragged routing :1371-1385 and :1540-1670,
-scheduler hooks :1794-1878,
+scheduler hooks :1794-1878, the LoRA pool binding :1975-2020,
 preemption :2022-2165 and chunked prefill :2174-2400).
 
 ``ContinuousBatchingAdapter`` drives the contiguous app: a request owns one
@@ -36,12 +36,23 @@ Every paged dispatch carries the per-request sampling seeds
 ``stream_seed`` config every sampled token is the coupled draw of its
 (request seed, position), whatever path or batch produced it.
 
+With a ``lora_pool`` (:class:`~.lora_pool.LoraAdapterPool` over the same
+app) a request's ``meta["adapter"]`` names its LoRA adapter: admission
+pins it into a device slot (the pool swaps it in on a miss) before the
+row's blocks are allocated, so the prefix cache is keyed by the slot
+(``app.lora_kv_salt``; the reference keys it on the tokens only); every
+dispatch with an adapter row carries the rows' slots as ``adapter_ids``
+(base-model rows slot 0, the zero adapter; a pass of base rows only
+carries none and runs the LoRA-free step), and release, preemption and
+admission rollback unpin it. ``set_adapter_shed(True)`` (the ``shed_adapters`` degradation
+actuator) admits tagged requests as base-model rows.
+
 Telemetry (``telemetry=`` registry, else the process-global one) and the
 fault points ``slow_step``, ``decode_step``, ``prefill_chunk``,
 ``spec_draft``, ``spec_verify`` and ``ragged_step`` are those of the
 counterpart. The eager path (``pipeline_depth=0``) is ported; the
-constructor refuses what waits for later slices: ``lora_pool``,
-``kv_spill_tier`` and ``pipeline_depth > 0``.
+constructor refuses what waits for later slices: ``kv_spill_tier`` and
+``pipeline_depth > 0``.
 
 A step that fails before its dispatch began (an injected fault, a host
 error) raises a ``retry_safe`` :class:`StepFailure`; one that fails inside
@@ -119,6 +130,17 @@ def _meta_seed(meta: Any) -> int:
         return int(meta.get("sampling_seed", 0))
     except (AttributeError, TypeError, ValueError):
         return 0
+
+
+def _meta_adapter(meta: Any) -> Optional[str]:
+    """The named LoRA adapter of an opaque per-request ``meta`` payload
+    (the engine passes mappings with an "adapter" key); anything else,
+    empty values included, is the base model."""
+    try:
+        name = meta.get("adapter", None)
+    except AttributeError:
+        return None
+    return str(name) if name else None
 
 
 def _common_tenant(tenants) -> str:
@@ -446,13 +468,17 @@ class _PagedScratch:
     only for rows whose block list grew; slots are recomputed in place."""
 
     def __init__(self, live: Sequence[int], pad_to: int, width: int,
-                 block_size: int, seeds: Sequence[int]):
+                 block_size: int, seeds: Sequence[int],
+                 aids: Optional[Sequence[int]] = None):
         b = len(live)
         self.live = tuple(live)
         self.b = b
         self.pad_to = pad_to
         self.width = width
         self.seeds = _repeat_row0(np.asarray(seeds, np.int32), pad_to)
+        # the rows' LoRA slots are constants of the live composition
+        self.aids = (None if aids is None else
+                     _repeat_row0(np.asarray(aids, np.int32), pad_to))
         self.last = np.zeros((pad_to,), np.int32)
         self.ids = np.empty((pad_to, 1), np.int32)
         self.pos = np.empty((pad_to, 1), np.int32)
@@ -862,8 +888,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
                  ragged: bool = False, lora_pool=None):
         _refuse_waiting(**{
             "pipeline_depth > 0": pipeline_depth,
-            "kv_spill_tier": kv_spill_tier is not None,
-            "lora_pool": lora_pool is not None})
+            "kv_spill_tier": kv_spill_tier is not None})
         cfg = app.tpu_config
         if not cfg.is_block_kv_layout:
             raise ConfigurationError("app must be built with "
@@ -896,8 +921,24 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self._chunks: Dict[int, _ChunkState] = {}   # pending admissions
         self._unwritten: set = set()   # allocated blocks not fully written
         self._init_host_stats()
+        # the multi-LoRA pool: a request's meta "adapter" resolves to a
+        # pinned device slot at admission; every dispatch then carries the
+        # rows' slots, so one step mixes rows of different adapters
+        if (lora_pool is not None
+                and getattr(lora_pool, "app", None) is not app):
+            raise ConfigurationError(
+                "lora_pool must be built over THIS adapter's application "
+                "(its stacked slots back the per-row gather)")
+        self._lora_pool = lora_pool
+        self._lora_slots: Dict[int, int] = {}   # seq_id -> pinned slot
+        self._lora_names: Dict[int, str] = {}
+        self._adapter_shed = False
+        if lora_pool is not None:
+            self.host_stats["lora_rows"] = 0
+            self.host_stats["lora_shed_requests"] = 0
         # degradation actuators: set_ragged_shed routes steps through the
-        # two-phase template; set_speculation_shed clamps windows to 1
+        # two-phase template; set_speculation_shed clamps windows to 1;
+        # set_adapter_shed admits adapter requests as base-model rows
         self._ragged_shed = False
         self._spec_shed = False
         self._ragged = None
@@ -949,9 +990,13 @@ class PagedEngineAdapter(_EngineAdapterBase):
         try:
             for i, sid in enumerate(seq_ids):
                 prompt = list(prompts[i])
+                # the adapter's slot first: it salts the prefix cache
+                self._bind_adapter(sid, metas[i])
+                salt = self._kv_salt(sid)
                 while True:
                     try:
-                        blocks, c = mgr.begin_sequence(sid, prompt)
+                        blocks, c = mgr.begin_sequence(sid, prompt,
+                                                       salt=salt)
                         begun.append(sid)
                         break
                     except CapacityError:
@@ -974,9 +1019,11 @@ class PagedEngineAdapter(_EngineAdapterBase):
                     deadline=deadlines[i], meta=metas[i])
         except ServingError:
             self._rollback_admission(begun)
+            self._lora_release_all(seq_ids)
             raise
         except Exception as e:
             self._rollback_admission(begun)
+            self._lora_release_all(seq_ids)
             self.telemetry.on_step_failure(
                 "prefill", _common_tenant(map(_meta_tenant, metas)))
             raise _trace_error(StepFailure(
@@ -1014,6 +1061,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
             proposer.forget(seq_ids)
         for sid in seq_ids:
             self._ready.pop(sid, None)
+            self._lora_release(sid)
             if sid in self._chunks:
                 self._abort_prefill_rows([sid])
                 continue
@@ -1124,6 +1172,18 @@ class PagedEngineAdapter(_EngineAdapterBase):
         without ``ragged=True``."""
         self._ragged_shed = bool(shed)
 
+    @property
+    def adapter_shed(self) -> bool:
+        return self._adapter_shed
+
+    def set_adapter_shed(self, shed: bool) -> None:
+        """Degradation actuator (reference :1655-1664): admit NEW
+        adapter-tagged requests as base-model rows, with no pool acquire
+        (no swap traffic while burning). Running rows keep their pinned
+        slots; a shed admission's meta mapping is annotated
+        ``lora_shed=True``. Reversible; a no-op without a pool."""
+        self._adapter_shed = bool(shed)
+
     # -- decode hooks ------------------------------------------------------
     _decode_failure_msg = ("paged decode step failed; KV growth was rolled "
                            "back")
@@ -1151,7 +1211,8 @@ class PagedEngineAdapter(_EngineAdapterBase):
                 or scr.width != width):
             scr = self._scratch = _PagedScratch(
                 live, pad_to, width, app.kv_mgr.spec.block_size,
-                [_meta_seed(self.seqs[s].meta) for s in live])
+                [_meta_seed(self.seqs[s].meta) for s in live],
+                aids=self._lora_aids(live))
         return scr
 
     def _dispatch_decode(self, scr: _PagedScratch):
@@ -1160,7 +1221,8 @@ class PagedEngineAdapter(_EngineAdapterBase):
         signature is attributed to the batched requests' traces."""
         with self._request_context(scr.live):
             out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
-                                      scr.last, row_seeds=scr.seeds)
+                                      scr.last, row_seeds=scr.seeds,
+                                      adapter_ids=scr.aids)
         self.host_stats["dispatches"] += 1
         self.host_stats["device_steps"] += 1
         rec = _get_recorder()
@@ -1184,14 +1246,20 @@ class PagedEngineAdapter(_EngineAdapterBase):
         pos = np.asarray([self.seqs[s].position for s in live], np.int32)
         seeds = np.asarray([_meta_seed(self.seqs[s].meta) for s in live],
                            np.int32)
+        aids = self._lora_aids(live)
+        if aids is not None:
+            aids = np.asarray(aids, np.int32)
         if pad_to > b:
             first, pos, bt, seeds = (_repeat_row0(x, pad_to)
                                      for x in (first, pos, bt, seeds))
+            if aids is not None:
+                aids = _repeat_row0(aids, pad_to)
 
         def run():
             with self._request_context(live):
                 out = app._run_paged_loop(first, pos, bt, num_steps,
-                                          row_seeds=seeds)
+                                          row_seeds=seeds,
+                                          adapter_ids=aids)
             self.host_stats["dispatches"] += 1
             self.host_stats["device_steps"] += num_steps
             return self._fetch_rows(out, b)
@@ -1211,17 +1279,38 @@ class PagedEngineAdapter(_EngineAdapterBase):
     def free_capacity(self) -> int:
         return self.batch - len(self.seqs) - len(self._chunks)
 
-    def prefix_warmth(self, prompt: Sequence[int]) -> int:
+    def prefix_warmth(self, prompt: Sequence[int],
+                      adapter: Optional[str] = None) -> int:
         """READ-ONLY probe: how many leading tokens of ``prompt`` an
         admission right now would serve from the prefix cache (cut at the
         first block a pending admission has not written yet, capped at
-        ``len(prompt) - 1``). The engine orders admissions warm-first."""
-        cached, blocks = self.app.kv_mgr.probe_cached_tokens(prompt)
+        ``len(prompt) - 1``). The engine orders admissions warm-first.
+
+        ``adapter`` (the request's named LoRA adapter) adds
+        ``prefill_chunk_tokens`` when a pool is attached and holds the
+        adapter resident (the admission saves a swap), so a router lands
+        a tenant's requests where their adapter lives (reference
+        :1843-1880), and probes the blocks cached under that adapter's
+        salt (none for an adapter that is not resident: its swap-in will
+        salt anew). The residency probe never touches the pool's LRU."""
+        salt = b""
+        resident = False
+        if (adapter is not None and self._lora_pool is not None
+                and not self._adapter_shed):
+            resident = self._lora_pool.resident(adapter)
+            # a cold adapter gets a fresh salt: nothing is cached under it
+            salt = (self.app.lora_kv_salt(self._lora_pool.slot_of(adapter))
+                    if resident else None)
+        cached, blocks = ((0, []) if salt is None else
+                          self.app.kv_mgr.probe_cached_tokens(prompt, salt))
         if cached and self._unwritten:
             cached = cut_cached_at_unwritten(
                 blocks, cached, self.app.kv_mgr.spec.block_size,
                 self._unwritten)
-        return min(cached, len(prompt) - 1)
+        warmth = min(cached, len(prompt) - 1)
+        if resident:
+            warmth += self.prefill_chunk_tokens
+        return warmth
 
     def debug_state(self) -> Dict[str, Any]:
         """Base snapshot plus pending chunked admissions, batch headroom,
@@ -1242,7 +1331,70 @@ class PagedEngineAdapter(_EngineAdapterBase):
             "preempted_uncollected": [int(r.seq_id) for r in self.preempted],
             "ragged": self._ragged is not None,
         })
+        if self._lora_pool is not None:
+            state["lora"] = {
+                "rows": {int(s): int(slot)
+                         for s, slot in self._lora_slots.items()},
+                "shed": self._adapter_shed,
+                "pool": self._lora_pool.debug_state(),
+            }
         return state
+
+    # -- the multi-LoRA adapter pool (serving/lora_pool.py) -----------------
+    def _bind_adapter(self, sid: int, meta: Any) -> None:
+        """Resolve a request's named adapter (meta "adapter") to a pinned
+        device slot at admission. Shed (``set_adapter_shed``): admitted as
+        a base-model row, no acquire, meta annotated ``lora_shed=True``. A
+        typed acquire failure (:class:`CapacityError`: every slot pinned;
+        :class:`StepFailure`: the swap failed, rolled back) propagates
+        into the admission's rollback."""
+        if self._lora_pool is None:
+            return
+        name = _meta_adapter(meta)
+        if name is None:
+            return
+        if self._adapter_shed:
+            self.host_stats["lora_shed_requests"] += 1
+            try:
+                meta["lora_shed"] = True
+            except TypeError:
+                pass
+            return
+        slot = self._lora_pool.acquire(name)
+        self._lora_slots[sid] = slot
+        self._lora_names[sid] = name
+        self.host_stats["lora_rows"] += 1
+
+    def _lora_release(self, sid: int) -> None:
+        """Unpin ``sid``'s adapter slot (release, preemption, admission
+        rollback); idempotent."""
+        name = self._lora_names.pop(sid, None)
+        if name is not None:
+            self._lora_slots.pop(sid, None)
+            self._lora_pool.release(name)
+
+    def _lora_release_all(self, seq_ids) -> None:
+        """Unpin the adapters an admission that failed bound (a row can
+        hold its slot before its blocks are begun)."""
+        for sid in seq_ids:
+            self._lora_release(sid)
+
+    def _kv_salt(self, sid: int) -> bytes:
+        """The prefix-cache salt of ``sid``'s blocks: its adapter slot's
+        (``app.lora_kv_salt``); base rows salt nothing."""
+        slot = self._lora_slots.get(sid, 0)
+        return self.app.lora_kv_salt(slot) if slot else b""
+
+    def _lora_aids(self, sids) -> Optional[List[int]]:
+        """The rows' device slots for a dispatch, or None: without a pool,
+        or when every row is a base-model row (no adapter, or admitted
+        shed), so a base-only pass runs the LoRA-free step and pays no
+        deltas (slot 0's are zeros: the same tokens, bit for bit; the
+        reference always passes the ids)."""
+        if self._lora_pool is None:
+            return None
+        aids = [self._lora_slots.get(s, 0) for s in sids]
+        return aids if any(aids) else None
 
     # -- preemption --------------------------------------------------------
     def preempt(self, seq_id: int, reason: str = "scheduler") -> Preempted:
@@ -1271,6 +1423,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
 
     def _preempt(self, victim: int, reason: str):
         self._ready.pop(victim, None)      # the replay regenerates it
+        self._lora_release(victim)         # a requeue re-acquires via meta
         proposer = self._active_proposer
         if proposer is not None:
             # a stateful proposer must not carry the victim's state into a
@@ -1356,6 +1509,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
         for sid in reversed(list(seq_ids)):
             self._chunks.pop(sid, None)
             self._ready.pop(sid, None)
+            self._lora_release(sid)
             if self.seqs.pop(sid, None) is not None:
                 self._scratch = None
             self._abort_pending(sid)
@@ -1423,9 +1577,10 @@ class PagedEngineAdapter(_EngineAdapterBase):
         try:
             if _FAULTS.active:
                 _FAULTS.fire("prefill_chunk")
-            *packed, seeds = self._pack_prefill_rows(rows)
+            *packed, seeds, aids = self._pack_prefill_rows(rows)
             dispatched = True
-            out = self.app._run_paged(*packed, row_seeds=seeds)
+            out = self.app._run_paged(*packed, row_seeds=seeds,
+                                      adapter_ids=aids)
             self.host_stats["prefill_dispatches"] += 1
             new = (self._fetch_prefill_tokens(out) if final_rows else None)
         except ServingError as e:
@@ -1488,7 +1643,9 @@ class PagedEngineAdapter(_EngineAdapterBase):
     def _pack_prefill_rows(self, rows):
         """Packed-chunk inputs: one row per sequence at its own suffix
         offset over its own block table; width = smallest ctx bucket
-        covering the longest chunk; batch padded by repeating row 0."""
+        covering the longest chunk; batch padded by repeating row 0. The
+        last two are the rows' seeds and LoRA slots (None without a
+        pool)."""
         app = self.app
         b = len(rows)
         width = autobucketing.get_target_bucket(
@@ -1509,9 +1666,12 @@ class PagedEngineAdapter(_EngineAdapterBase):
         slots = slots_from_table(bt, slot_pos, app.kv_mgr.spec.block_size)
         seeds = np.asarray([_meta_seed(self._chunks[s].meta) for s in sids],
                            np.int32)
+        aids = self._lora_aids(sids)
         pad_to = autobucketing.get_target_bucket(app.batch_buckets, b)
+        if aids is not None:
+            aids = _repeat_row0(np.asarray(aids, np.int32), pad_to)
         return _pad_paged_rows(pad_to, ids_w, pos_w, slots, bt, last,
-                               seeds)
+                               seeds) + (aids,)
 
     def _drop_unwritten(self, sid):
         """Retire ``sid``'s EXCLUSIVE blocks from the unwritten set (a
@@ -1534,6 +1694,11 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self.app.kv_mgr.abort_sequence(sid, unwritten=unwritten)
 
     def _abort_prefill_rows(self, sids):
+        """Drop pending rows (reverse admission order): their chunk state,
+        their blocks (unwritten ones invalidated) and their adapter pins
+        (the reference keeps the pin, so a replayed admission would pin
+        the slot twice)."""
         for s in reversed(list(sids)):
             self._chunks.pop(s, None)
+            self._lora_release(s)
             self._abort_pending(s)

@@ -55,6 +55,7 @@ from ...telemetry import get_registry
 from ...telemetry import metrics as tmetrics
 from ...telemetry.request_trace import new_trace_id, trace_of
 from ...telemetry.trace import get_recorder as _get_recorder
+from ..lora_pool import AdapterCapacityError
 from .queue import MultiTenantQueue, QueuedRequest
 from .streams import TokenStream
 
@@ -236,6 +237,14 @@ class ServingEngine:
         self._finalize(req)
         self.stats["cancelled"] += 1
         return True
+
+    def _warmth(self, req) -> int:
+        """The adapter's ``prefix_warmth`` of a queued request, with its
+        LoRA adapter (``meta["adapter"]``) when it names one."""
+        name = req.meta.get("adapter")
+        if name:
+            return self.adapter.prefix_warmth(req.tokens, adapter=name)
+        return self.adapter.prefix_warmth(req.tokens)
 
     def submit_record(self, rec, max_new_tokens: int, *,
                       stop_tokens: Sequence[int] = (),
@@ -475,8 +484,9 @@ class ServingEngine:
             return
         # warm-prefix-first admission ordering: stable sort keeps the
         # fairness pick order among equally-warm requests, and puts warm
-        # prompts ahead so intra-call shared prefixes hit originator-first
-        batch.sort(key=lambda r: -self.adapter.prefix_warmth(r.tokens))
+        # prompts ahead so intra-call shared prefixes hit originator-first;
+        # a request's resident LoRA adapter counts as warmth too
+        batch.sort(key=lambda r: -self._warmth(r))
         try:
             first = self._add_batch(batch, now)
         except DeadlineExceeded:
@@ -486,22 +496,12 @@ class ServingEngine:
                 self.queue.push(r, front=True)
             self.stats["admission_retries"] += 1
             return
-        except AdmissionError:
+        except (AdmissionError, AdapterCapacityError):
             # one bad request must not sink its innocent batch neighbours
-            # (or the serving loop): isolate it by admitting one-by-one
-            first = {}
-            for r in batch:
-                try:
-                    first.update(self._add_batch([r], now))
-                except AdmissionError as e:
-                    r.stream.finish("error", e)
-                    self._finalize(r)
-                except (DeadlineExceeded, CapacityError, StepFailure) as e:
-                    if isinstance(e, StepFailure) and not e.retry_safe:
-                        self._fatal(e)
-                        raise
-                    self.queue.push(r, front=True)
-                    self.stats["admission_retries"] += 1
+            # (or the serving loop), nor may base rows and resident LoRA
+            # adapters wait behind an adapter that has no free slot (the
+            # reference requeues that whole batch): admit one-by-one
+            first = self._admit_each(batch, now)
         except (CapacityError, StepFailure) as e:
             if isinstance(e, StepFailure) and not e.retry_safe:
                 self._fatal(e)
@@ -516,6 +516,34 @@ class ServingEngine:
             return
         for sid, tok in first.items():   # non-deferred adapters
             self._deliver(sid, [tok])
+
+    def _admit_each(self, batch: List[QueuedRequest],
+                    now: float) -> Dict[int, int]:
+        """Admit ``batch`` request by request: a request the adapter
+        rejects finishes with its error, one that does not fit yet
+        (capacity, a retry-safe failure, a zero deadline budget) is
+        requeued at the front in its order. Returns the first tokens."""
+        first: Dict[int, int] = {}
+        retry: List[QueuedRequest] = []
+        dry = False
+        for r in batch:
+            try:
+                first.update(self._add_batch([r], now))
+            except AdmissionError as e:
+                r.stream.finish("error", e)
+                self._finalize(r)
+            except (DeadlineExceeded, CapacityError, StepFailure) as e:
+                if isinstance(e, StepFailure) and not e.retry_safe:
+                    self._fatal(e)
+                    raise
+                retry.append(r)
+                dry = dry or isinstance(e, CapacityError)
+        for r in reversed(retry):
+            self.queue.push(r, front=True)
+        self.stats["admission_retries"] += len(retry)
+        if dry:
+            self._note_headroom("admit")
+        return first
 
     def _add_batch(self, batch: List[QueuedRequest],
                    now: float) -> Dict[int, int]:

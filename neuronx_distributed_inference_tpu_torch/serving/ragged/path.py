@@ -44,6 +44,7 @@ is the step's single blocking copy.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -267,12 +268,23 @@ class RaggedDispatchPath:
             [_meta_seed(ad.seqs[r.seq_id].meta if r.seq_id in ad.seqs
                         else chunks[r.seq_id].meta) for r in rows],
             np.int32)
+        # the rows' pinned LoRA slots ride the plan (reference :291-305);
+        # without a pool, or with base rows only (slot 0's deltas are
+        # zeros), the dispatch stays LoRA-free
+        aids = None
+        if (ad._lora_pool is not None
+                and any(r.adapter_id > 0 for r in rows)):
+            aids = np.asarray([max(r.adapter_id, 0) for r in rows],
+                              np.int32)
         if pad_to > b:
             # batch-pad rows clone row 0 and write its slots with the same
-            # values, so the duplicate writes are order-free
+            # values, so the duplicate writes are order-free (row 0's
+            # adapter too, or the clones would write other values)
             ids, pos, slots, bt, wid, emit, seeds = (
                 _repeat_row0(x, pad_to)
                 for x in (ids, pos, slots, bt, wid, emit, seeds))
+            if aids is not None:
+                aids = _repeat_row0(aids, pad_to)
         if drafts is not None and spec_W > 1:
             # merge the device-resident drafts into the packed input: the
             # verify rows are the plan's live prefix. Batch-pad rows clone
@@ -302,7 +314,7 @@ class RaggedDispatchPath:
                 _FAULTS.fire("ragged_step")
             dispatched = True
             out = self._dispatch_ragged(ids, pos, slots, bt, wid, emit,
-                                        seeds, rows)
+                                        seeds, rows, aids)
             toks, n_emit = self._fetch_ragged(out, b)
         except ServingError as e:
             self._rollback_plan(plan)
@@ -421,23 +433,23 @@ class RaggedDispatchPath:
         return res
 
     # -- dispatch region: no device value is read here ---------------------
-    def _dispatch_ragged(self, ids, pos, slots, bt, wid, emit, seeds, rows):
+    def _dispatch_ragged(self, ids, pos, slots, bt, wid, emit, seeds, rows,
+                         aids=None):
         """Issue THE unified dispatch (one per engine step) from the
         numpy plan (``ids`` a device tensor when drafts were merged),
         without reading any output. In declared steady state an unexpected
         graph signature is attributed to the packed rows' request traces
-        (reference path.py:479-488)."""
+        (reference path.py:479-488). ``aids``: the rows' LoRA slots (None
+        without a pool)."""
         ad = self.adapter
-        if ad.app._steady_state:
-            with ad.app.request_context(
-                    self._row_trace(r.seq_id) for r in rows):
-                out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit,
-                                         row_seeds=seeds,
-                                         want_hidden=self.wants_hidden)
-        else:
+        ctx = (ad.app.request_context(self._row_trace(r.seq_id)
+                                      for r in rows)
+               if ad.app._steady_state else contextlib.nullcontext())
+        with ctx:
             out = ad.app._run_ragged(ids, pos, slots, bt, wid, emit,
                                      row_seeds=seeds,
-                                     want_hidden=self.wants_hidden)
+                                     want_hidden=self.wants_hidden,
+                                     adapter_ids=aids)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["ragged_dispatches"] += 1
         ad.host_stats["device_steps"] += 1

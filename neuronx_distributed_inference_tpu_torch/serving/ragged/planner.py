@@ -1,6 +1,6 @@
 """Ragged row planning: assemble ALL runnable work into ONE row plan (a
-copy of ``neuronx_distributed_inference_tpu/serving/ragged/planner.py``
-without the per-row LoRA slot: the port's adapter refuses ``lora_pool``).
+copy of ``neuronx_distributed_inference_tpu/serving/ragged/planner.py``,
+the per-row LoRA slot ``RaggedRow.adapter_id`` included).
 
 The :class:`RaggedBatchPlanner` is the scheduling half of the ragged
 unified dispatch (see the package docstring): each engine step it walks
@@ -9,8 +9,8 @@ pending chunked-prefill admissions — and lays them out as ragged rows of
 a single :func:`~...models.model_base.paged_ragged_step` dispatch. A
 :class:`RaggedRow` carries everything the packer needs: the row's seq_id,
 kind tag (``decode`` / ``verify`` / ``prefill``), absolute token offset,
-real-token width, and (prefill rows) whether the chunk completes the
-prompt.
+real-token width, (prefill rows) whether the chunk completes the
+prompt, and the row's pinned LoRA slot.
 
 Contracts the plan preserves from the two-phase paths it replaces:
 
@@ -55,6 +55,8 @@ class RaggedRow:
     offset: int                # absolute position of the row's first token
     width: int                 # real tokens in the row (>= 1)
     final: bool = False        # prefill row completing its prompt
+    adapter_id: int = -1       # pinned LoRA slot; -1 / 0 = base model (the
+                               # zero adapter)
 
 
 @dataclass
@@ -112,7 +114,8 @@ class RaggedBatchPlanner:
             widths[s] = w
             rows.append(RaggedRow(
                 s, KIND_VERIFY if max_width > 1 else KIND_DECODE,
-                ad.seqs[s].position, w))
+                ad.seqs[s].position, w,
+                adapter_id=ad._lora_slots.get(s, -1)))
         self._plan_prefill(rows, target)
         return RaggedPlan(rows, widths)
 
@@ -153,5 +156,6 @@ class RaggedBatchPlanner:
             n = int(min(len(st.prompt) - st.done,
                         ad.prefill_chunk_tokens, left))
             rows.append(RaggedRow(s, KIND_PREFILL, st.done, n,
-                                  final=st.done + n == len(st.prompt)))
+                                  final=st.done + n == len(st.prompt),
+                                  adapter_id=ad._lora_slots.get(s, -1)))
             left -= n

@@ -96,6 +96,8 @@ class _SpecContext:
     widths: np.ndarray             # (Bp,) per-row candidate widths
     block_table: np.ndarray        # (Bp, table-width bucket)
     seeds: np.ndarray = None       # (Bp,) per-row sampling stream seeds
+    aids: np.ndarray = None        # (Bp,) per-row LoRA slots (None: no
+                                   # pool)
     cand: Any = None               # (Bp, W) device candidates, set before
                                    # on_verify (EAGLE's refresh reads them)
 
@@ -222,15 +224,20 @@ class SpeculativeDecodePath:
         wid = np.asarray([widths[s] for s in live], np.int32)
         seeds = np.asarray([_meta_seed(ad.seqs[s].meta) for s in live],
                            np.int32)
+        aids = ad._lora_aids(live)
+        if aids is not None:
+            aids = np.asarray(aids, np.int32)
         bt = app.kv_mgr.block_table_array(live, app._bt_width_for(live))
         if pad_to > b:
             first, pos, wid, seeds, bt = (_repeat_row0(x, pad_to)
                                           for x in (first, pos, wid,
                                                     seeds, bt))
+            if aids is not None:
+                aids = _repeat_row0(aids, pad_to)
         ctx = _SpecContext(path=self, live=tuple(live), b=b,
                            padded_batch=pad_to, num_drafts=W - 1,
                            first=first, positions=pos, widths=wid,
-                           block_table=bt, seeds=seeds)
+                           block_table=bt, seeds=seeds, aids=aids)
         dispatched = False
         try:
             if _FAULTS.active:
@@ -349,7 +356,8 @@ class SpeculativeDecodePath:
         ad = self.adapter
         out = ad.app._run_spec_draft(ctx.first, ctx.positions,
                                      ctx.block_table, ctx.widths,
-                                     ctx.num_drafts, row_seeds=ctx.seeds)
+                                     ctx.num_drafts, row_seeds=ctx.seeds,
+                                     adapter_ids=ctx.aids)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["spec_draft_dispatches"] += 1
         ad.host_stats["device_steps"] += ctx.num_drafts
@@ -389,7 +397,8 @@ class SpeculativeDecodePath:
         ad = self.adapter
         out = ad.app._run_spec_verify(cand, pos_w, slots, ctx.block_table,
                                       ctx.widths, row_seeds=ctx.seeds,
-                                      want_hidden=self.proposer.wants_hidden)
+                                      want_hidden=self.proposer.wants_hidden,
+                                      adapter_ids=ctx.aids)
         ad.host_stats["dispatches"] += 1
         ad.host_stats["spec_verify_dispatches"] += 1
         ad.host_stats["device_steps"] += 1

@@ -14,7 +14,13 @@ every block-table or KV-view bucket:
     (greedy, or the coupled draw of a ``stream_seed`` config), and with
     ``spec_widths`` the self-draft loop at every draft count — dummy
     dispatches that write nothing: every slot is -1 (a draft row of width
-    1 is frozen) and the table holds only the null block;
+    1 is frozen) and the table holds only the null block. A LoRA build
+    (``lora_config``) adds each of them again with ``adapter_ids`` (all
+    slot 0), the signatures ``ragged_lora``, ``paged_lora`` and
+    ``spec_draft_lora`` (reference :116-163 warms ``ragged_lora``,
+    ``paged_loop_lora`` and ``spec_verify_lora``; the port lists those
+    two eager ones too), so the first multi-LoRA pass after warm-up
+    captures nothing;
   * contiguous app: the decode step at each batch bucket (and each KV-view
     bucket where the gather path reads the cache) at positions past the
     cache, which write nothing to full rows. A rolling stack (the rolling
@@ -88,7 +94,8 @@ def _paged_plan(app, widths, bt_widths, chunk_tokens,
     paged T = 1 step (two-phase decode, ``generate``), the eager fused
     decode loop and, per speculative width w (reference
     serving/warmup.py:146-160), the draft loop of w - 1 steps (captured)
-    and the verify window (eager)."""
+    and the verify window (eager); a LoRA build each of them again with
+    ``adapter_ids`` (the ``*_lora`` kinds)."""
     cfg = app.tpu_config
     if widths is None:
         widths = autobucketing.ragged_row_buckets(app.ctx_buckets,
@@ -96,31 +103,47 @@ def _paged_plan(app, widths, bt_widths, chunk_tokens,
     if bt_widths is None:
         bt_widths = list(app._bt_buckets)
     chunk = max(cfg.decode_chunk_tokens, 1)
+    # a LoRA build warms every signature twice: without ids and with them
+    # (slot 0, the zero adapter: the dummies write nothing either way)
+    variants = [("", None)]
+    if app.spec.lora is not None:
+        variants.append(("_lora", 0))
     plan: List[tuple] = []
     for tw in bt_widths:
         for b in app.batch_buckets:
             bt = np.zeros((b, tw), np.int32)    # null block only: no writes
             zero = np.zeros((b, 1), np.int32)
             none = np.full((b, 1), -1, np.int32)     # every slot: no write
+            for tag, slot in variants:
+                aids = None if slot is None else np.full((b,), slot,
+                                                         np.int32)
 
-            def ragged(b=b, bt=bt, zero=zero, none=none):
-                app._run_ragged(zero, zero, none, bt, np.ones((b,), np.int32),
-                                np.zeros((b,), np.int32))
+                def ragged(b=b, bt=bt, zero=zero, none=none, aids=aids):
+                    app._run_ragged(zero, zero, none, bt,
+                                    np.ones((b,), np.int32),
+                                    np.zeros((b,), np.int32),
+                                    adapter_ids=aids)
 
-            def paged(b=b, bt=bt, zero=zero, none=none):
-                app._run_paged(zero, zero, none, bt, np.zeros((b,), np.int32))
-            for w in sorted(widths):
-                plan.append(("ragged", w, ragged if w == 1 else None))
-            plan.append(("paged", 1, paged))
-            if chunk > 1:
-                plan.append(("paged_loop", chunk, None))
-            for sw in sorted(spec_widths):
-                if sw > 1:
-                    plan.append(("spec_draft", sw - 1, functools.partial(
-                        app._run_spec_draft, np.zeros((b,), np.int32),
-                        np.zeros((b,), np.int32), bt,
-                        np.ones((b,), np.int32), sw - 1)))
-                plan.append(("spec_verify", sw, None))
+                def paged(b=b, bt=bt, zero=zero, none=none, aids=aids):
+                    app._run_paged(zero, zero, none, bt,
+                                   np.zeros((b,), np.int32),
+                                   adapter_ids=aids)
+                for w in sorted(widths):
+                    plan.append(("ragged" + tag, w,
+                                 ragged if w == 1 else None))
+                plan.append(("paged" + tag, 1, paged))
+                if chunk > 1:
+                    plan.append(("paged_loop" + tag, chunk, None))
+                for sw in sorted(spec_widths):
+                    if sw > 1:
+                        plan.append(("spec_draft" + tag, sw - 1,
+                                     functools.partial(
+                                         app._run_spec_draft,
+                                         np.zeros((b,), np.int32),
+                                         np.zeros((b,), np.int32), bt,
+                                         np.ones((b,), np.int32), sw - 1,
+                                         adapter_ids=aids)))
+                    plan.append(("spec_verify" + tag, sw, None))
     return plan
 
 
