@@ -181,9 +181,9 @@ nvcc per source, all started together), then:
      the agreement with each request's ``generate`` (a count), and each
      stream held to (b)'s weights on a static app fed its tokens (the
      logit-deficit gate of 19 (b)); (d)
-     Mistral-7B-v0.1 at full width cut to 16 layers with
+     Mistral-7B-v0.1 at full width cut to 12 layers with
      the rolling cache (``seq_len`` 16384, 4096 slots), batch 2, prompts
-     of 5000 and 6000 tokens, 64 new: flash launches = 16 x 1 prefill at
+     of 5000 and 6000 tokens, 64 new: flash launches = 12 x 1 prefill at
      window 4096, no
      decode-kernel launch (the gather path over the rolling slots), step
      times, cache bytes beside the full cache's, agreement with
@@ -204,7 +204,7 @@ nvcc per source, all started together), then:
      decode steps held to a plain fp32 MLA written from the published
      equations in HF's rope convention, with a control (the rope head
      unrotated) that must part; (b) ``TpuDeepseekForCausalLM`` at full
-     width cut to 14 layers (the dense one and 13 MoE),
+     width cut to 8 layers (the dense one and 7 MoE),
      bf16, batch 4, ``seq_len`` 4096, phase 3's prompts, 64 new tokens,
      ``attn_kernel_enabled=True``, after ``precompile``: both kernel gates
      refuse MLA and none of the three kernels launches, no incident,
@@ -225,14 +225,15 @@ nvcc per source, all started together), then:
      ``dequantize``, ``qlinear``, ``qmatmul`` and ``qeinsum`` on the card held
      to the fp64 product of the dequantized weight (TF32 off), each with a
      control that applies the scales along the wrong axis; (b) gpt-oss-20b with
-     in-graph MXFP4 experts at full width cut to 12 layers on
-     phase 15's engine (its gates; paged launches = 12 x all-decode steps;
+     in-graph MXFP4 experts at full width cut to 8 layers on
+     phase 15's engine (its gates; paged launches = 8 x all-decode steps;
      weight bytes equal to the geometry's; the MoE blocks' share); (c)
-     Llama-3.1-8B with int8 per-channel weights and the scaled fp8 KV cache on
-     phase 9's engine (its gates, paged launches = 32 x all-decode steps over
+     Llama-3.1-8B cut to 16 layers with int8 per-channel weights and the
+     scaled fp8 KV cache on phase 9's engine (its gates, paged launches = 16
+     x all-decode steps over
      fp8 pages, the largest stored value under e4m3's 448, the kernel held to
      its twin over the served fp8 pages and timed); (d) in bf16 (gpt-oss at
-     (b)'s cut, Llama at full depth) the teacher-forced logits of each
+     (b)'s cut, Llama at (c)'s) the teacher-forced logits of each
      quantized model against the unquantized one on the same draws (a reading,
      with the flipped-scale control), then fp32 4-layer cuts (MXFP4 gpt-oss,
      int8 + fp8 cache Llama, fp8-blockwise Llama) where the ragged engine,
@@ -253,12 +254,12 @@ nvcc per source, all started together), then:
      and keys drawn so most scores exceed the cap (the share is gated):
      each against its twin, the kernel without its cap parting from the
      capped twin, then timed beside the twin, SDPA without the cap and
-     the bytes bound; (b) Gemma-2-27B at full width cut to 24 of its 46
+     the bytes bound; (b) Gemma-2-27B at full width cut to 16 of its 46
      layers (its bf16 weights gated equal to the geometry's)
      on phase 9's engine
      at batch 4, ``seq_len`` 8192, six requests of 37-6000 tokens (two
      past the 4096 window), 48 new tokens: phase 9's gates (one dispatch
-     and one fetch a pass, paged launches = 24 x all-decode steps, no
+     and one fetch a pass, paged launches = 16 x all-decode steps, no
      incident, full streams), every local layer's launch at window 4096
      and every global one's at 0, all at soft-cap 50, and every served
      stream held to ``generate`` fed its tokens (each served token within
@@ -294,8 +295,8 @@ nvcc per source, all started together), then:
      contiguous ``generate``'s, the paged logits within
      TOL_MOE_FAMILIES_PATHS_FP32_REL, no kernel launch; (d) DBRX
      (databricks/dbrx-instruct: d_model 6144, 16 experts of 10752, top
-     4, ``clip_qkv`` 8, LayerNorm, vocab 100352) cut to 8 layers (54.61
-     GB) on phase 9's engine at batch 4, ``seq_len`` 8192: phase 9's
+     4, ``clip_qkv`` 8, LayerNorm, vocab 100352) cut to 4 layers on
+     phase 9's engine at batch 4, ``seq_len`` 8192: phase 9's
      gates, every layer's paged launch at window 0 and G 6, the kernel
      held to its twin over the served cache, the streams held to
      ``generate``; (e) DBRX at 2 layers, fp32, ``W_qkv`` drawn so the
@@ -321,8 +322,8 @@ nvcc per source, all started together), then:
      0, the streams held to ``generate`` as in 20 (b); (c) Phi-3.5-MoE
      (microsoft/Phi-3.5-MoE-instruct: 16 experts of 6400, top 2,
      sparsemixer, biased LayerNorms, q/k/v/o and lm-head biases, window
-     131072; its longrope lists left out, ``seq_len`` 4096) cut to 16
-     layers (42.14 GB), batch 4: every launch at G 4 and window 131072;
+     131072; its longrope lists left out, ``seq_len`` 4096) cut to 8
+     layers, batch 4: every launch at G 4 and window 131072;
      (d) OLMoE-1B-7B-0924 (G 1, 64 experts, top 8 unnormalised) and (e)
      granite-3.0-3b-a800m (G 3, head_dim 64, the multipliers) at full
      depth on phase 9's engine at batch 8, with (b)'s gates; (f) fp32
@@ -333,7 +334,7 @@ nvcc per source, all started together), then:
      paged app's and its launches exact (Phi-3.5-MoE's cut at window 256
      takes the rolling cache: flash only).
  22. speculation on the contiguous app, bf16, Llama-3.1-8B at full width
-     and depth with random weights from seed 0 and 4 Medusa-1 heads
+     cut to 16 layers (``LLAMA_CUT``) with random weights from seed 0 and 4 Medusa-1 heads
      (batch 4, ``seq_len`` 4096, both kernels, four prompts of 64-1024
      tokens, 48 new tokens, k 4): (a) ``SpeculativeDecoder`` with a
      Llama-3.2-1B-shaped draft, then with the target as its own draft;
@@ -344,7 +345,7 @@ nvcc per source, all started together), then:
      ``DynamicTreeDecoder`` (branch 4, 16 nodes). Each decoder's step is
      one CUDA graph: after a warm run, the contiguous decode kernel's
      launches must equal the draft's layers x its T = 1 steps x the
-     replays (16 x 4 fused, 32 x 4 self, 1 x 4 EAGLE, 1 x 4 the EAGLE
+     replays (16 x 4 fused, 16 x 4 self, 1 x 4 EAGLE, 1 x 4 the EAGLE
      tree's rollout, 0 Medusa), none eager, and every stream is held to
      greedy decode on the same weights fed its tokens
      (``teacher_deficits``: each token within TOL_SERVED_DEFICIT_BF16
@@ -356,7 +357,7 @@ nvcc per source, all started together), then:
      SDPA. (d) the same weights in a paged app on phase 9's engine and
      schedule (32 new tokens) with ``MedusaProposer(4)``, then
      ``EagleProposer(draft, 4)``: at most one ragged dispatch and one
-     blocking fetch a pass, paged launches = 32 x the width-1 all-decode
+     blocking fetch a pass, paged launches = 16 x the width-1 all-decode
      passes, full streams held to ``generate`` (``served_vs_generate``);
      prints accept rates and host ms per pass. (e) fp32 (TF32 off) cuts
      at 4 layers of (a)-(d): every stream greedy's (a first difference
@@ -365,7 +366,7 @@ nvcc per source, all started together), then:
      KV the reference's loop leaves unwritten after a fully accepted
      step; printed).
  23. multi-LoRA serving, the ``lora`` group: Llama-3.1-8B at full width
-     and depth, bf16, on phase 9's engine and schedule with a
+     cut to 16 layers (``LLAMA_CUT``), bf16, on phase 9's engine and schedule with a
      ``LoraAdapterPool`` (``max_loras`` 4: slot 0 and three usable; rank
      16; all seven projections targeted; five adapters of random N(0,
      0.07) factors, each gated to move the last prompt position's logits
@@ -379,7 +380,7 @@ nvcc per source, all started together), then:
      stream under another adapter) failing that gate; (b) one ragged
      dispatch and one fetch a pass, every all-decode pass a replay of a
      captured graph (the LoRA one where a live row has an adapter, else
-     the LoRA-free one), paged launches = 32 x those passes, no capture
+     the LoRA-free one), paged launches = 16 x those passes, no capture
      after ``precompile``; (c) a resident adapter's slot written in place
      between passes: two fresh requests tagged with it hit the pool,
      replay the same graphs and are held to the new factors (the old as
@@ -397,9 +398,30 @@ nvcc per source, all started together), then:
      base rows only (every graph replayed LoRA-free), profiled: the
      deltas' device ms; swap seconds and bytes, and the paged kernel at
      the served shapes.
+ 24. the KV cache's host tier, the ``tier`` group, on phase 9's app (or
+     one built the same way): (a) a ``HostKVSpillTier`` of 1024 blocks
+     (4 MiB each) on the ragged engine; phase 9's prompts served, cold
+     prompts of 1900 tokens until every full block of theirs left the
+     pool through the LRU and was spilled, then the prompts again: every
+     restored block read back bit for bit, exactly the uncovered suffixes
+     computed, the streams held to ``teacher_deficits`` (2.5 / 0.7 stds)
+     with a control (other prompts' payloads under the right hashes) that
+     must fail, paged launches = 32 x one-column passes, no capture or
+     incident; spills, restores, host bytes, ms per spill and per restore
+     call, TTFT restored against recomputed, the paged kernel at the
+     restored shapes; (b) four requests of 300-1900 tokens handed off
+     after their first token through the JSON wire form to a second paged
+     app sharing the weights (its own pool, tier and graphs), 32 tokens
+     decoded there: bytes equal, the suffixes computed, graph replays,
+     the deficit gate and its control, record bytes and encode / decode
+     ms; (c) phase 9's engine runs the native allocator, and (a)'s
+     allocator calls replayed through the native and the Python one give
+     equal results (host us per call); (d) fp32 at 4 layers (TF32 off):
+     restored and handed-off streams equal the single engine's; an fp8
+     (e4m3) pool's restores read back bit for bit.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22, 23 and the fp32 app of 6)
+21, 22, 23, 24 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -407,10 +429,10 @@ Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
-contig: 6-8; ragged: 9, 11, 10; spec: 12, 13, 22 — alone, 12 (a) builds
-its own app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
-moe_families: 20; contrib_moe: 21; lora: 23) and then prints no ``ok``
-line.
+contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it builds phase 9's
+app; spec: 12, 13, 22 — alone, 12 (a) builds its own app; moe: 14; oss:
+15; long: 16; mla: 17; quant: 18; dense: 19; moe_families: 20;
+contrib_moe: 21; lora: 23) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -494,17 +516,23 @@ MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
 # 14 (e): the cut whose fp32 twin runs phase 6's rule (8 layers fit; 4
 #   keep the whole script's time with phase 21 in it)
 MOE_CONTIG_CHECK_LAYERS = 4
-# depth cuts for phase 23's room, each keeping its phase's
-# per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 16 of 32
-# layers; 17 (b), (c) Moonlight at 14 of 27 (the dense layer and 13 MoE);
-# 18 (b), (d) gpt-oss-20b MXFP4 at 12 of 24; 18 (e) the low-rank
-# Llama-3.2-1B at 8 of 16; 19 (b) Gemma-2-27B at 24 of 46 (12 local /
+# depth cuts for the room of phases 23 and 24, each keeping its phase's
+# per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 12 of 32
+# layers; 17 (b), (c) Moonlight at 8 of 27 (the dense layer and 7 MoE);
+# 18 (b), (d) gpt-oss-20b MXFP4 at 8 of 24; 18 (e) the low-rank
+# Llama-3.2-1B at 8 of 16; 19 (b) Gemma-2-27B at 16 of 46 (8 local /
 # global pairs)
-LONG_MISTRAL_LAYERS = 16
-MLA_CUT = 14
-QUANT_OSS_LAYERS = 12
+LONG_MISTRAL_LAYERS = 12
+MLA_CUT = 8
+QUANT_OSS_LAYERS = 8
 QUANT_LOW_RANK_LAYERS = 8
-GEMMA2_CUT = 24
+GEMMA2_CUT = 16
+# for phase 24's room: Llama-3.1-8B at 16 of its 32 layers in 18 (c), the
+#   Llama reading of 18 (d), 22 (a)-(d) and 23 (a)-(c), (e), each phase's
+#   per-layer shapes and gates kept (12
+#   (b)'s sampled twin check is tuned to the full depth's logits: at 16
+#   layers a twin's first difference fell outside the top-k)
+LLAMA_CUT = 16
 # phases 9-10: the ragged engine (batch 8, one spare block per row)
 RAGGED = dict(lens=(37, 300, 900, 1900, 123, 640, 1500, 64), seq_len=4096,
               chunk=512, block=32)
@@ -705,8 +733,8 @@ LLAMA4_SERVE = dict(lens=(37, 300, 1500, 8170, 9000, 900), seq_len=16384,
 #   prompts cross chunks
 LLAMA4_CHECK_LAYERS = 4
 LLAMA4_CHECK_CHUNK = 64
-# 20 (d): DBRX cut to 8 layers, the same schedule shape below 8192
-DBRX_CUT = 8
+# 20 (d): DBRX cut to 4 layers, the same schedule shape below 8192
+DBRX_CUT = 4
 DBRX_SERVE = dict(lens=(37, 300, 1500, 4500, 7000, 900), seq_len=8192,
                   chunk=512, block=32)
 # 20 (e): DBRX at 2 layers, fp32; W_qkv drawn at this std so that ~30% of
@@ -792,8 +820,8 @@ DOTS_LLM1 = dict(
 #   weights), on 20 (d)'s schedule (batch 4, 8192 slots a row)
 GLM_CUT = 10
 GLM_SERVE = DBRX_SERVE
-# 21 (c): Phi-3.5-MoE cut to 16 layers (42.1 GB), batch 4, 4096 slots
-PHI_CUT = 16
+# 21 (c): Phi-3.5-MoE cut to 8 layers, batch 4, 4096 slots
+PHI_CUT = 8
 PHI_SERVE = dict(lens=(37, 300, 1500, 3900, 2500, 900), seq_len=4096,
                  chunk=512, block=32)
 # 21 (d), (e): OLMoE and granite-3.0-3b-a800m at full depth on phase 9's
@@ -2423,7 +2451,7 @@ def pass_kind(d) -> str:
 
 
 def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
-                   snapshot=None, adapters=None):
+                   snapshot=None, adapters=None, off_clock=None):
     """Submit prompts 0-3 at pass 0, then one more every 4 passes, and run
     passes until the engine drains. ``profile(p, expect_mixed)`` returns
     True to run pass ``p`` under ``device_kernels``; ``snapshot()`` runs
@@ -2431,10 +2459,12 @@ def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
     the base model). Returns (streams, per-pass records, seconds from
     submit to first token per request). The profiler's own start-up and
     trace processing around a traced pass are taken off the clock that
-    times to first token are read on."""
+    times to first token are read on, and so are the seconds
+    ``off_clock()`` counts (a check's, cumulative)."""
     ad = eng.adapter
     streams, t_sub, ttft, recs = [], [], {}, []
     excluded = 0.0                  # seconds of profiler overhead so far
+    checks = off_clock() if off_clock else 0.0
     p = 0
     while len(streams) < len(prompts) or eng.has_work:
         due = 4 if p == 0 else (1 if p % 4 == 0 else 0)
@@ -2462,6 +2492,11 @@ def serve_schedule(eng, prompts, new_tokens, sync, profile=None,
             eng.run_pass()
             sync()
             wall = (time.perf_counter() - t0) * 1e3
+            if off_clock:
+                now_checks = off_clock()
+                excluded += now_checks - checks
+                wall -= 1e3 * (now_checks - checks)
+                checks = now_checks
             now = time.perf_counter() - excluded
         d = stats_delta(ad, before)
         recs.append({"pass": p, "kind": pass_kind(d), "ms": wall,
@@ -2586,6 +2621,7 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     want = want if on_card and kernel else 0
     st = ad.host_stats
     emit({"phase": phase, "layers": layers,
+          "allocator": app.kv_mgr.allocator_kind,
           "requests": len(prompts), "prompt_lens": list(cfg["lens"]),
           "new_tokens": new_tokens, "passes": len(recs),
           "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
@@ -2606,6 +2642,10 @@ def phase_ragged_serving(hf, device, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     mixed = profile_summary(recs, "mixed")
     emit({"phase": phase + "_profile_mixed", **mixed})
     check_no_incidents(phase, app)
+    if on_card and app.kv_mgr.allocator_kind != "native":
+        from neuronx_distributed_inference_tpu_torch import native
+        raise AssertionError(f"{phase}: the engine runs the Python block "
+                             f"allocator ({native.load_error})")
     if launches != want:
         raise AssertionError(f"{phase}: paged kernel launches "
                              f"{launches} != {want} ({layers} x "
@@ -5892,18 +5932,20 @@ def check_weight_bytes(phase, app):
 
 
 def phase_quant_llama(device):
-    """18 (c): Llama-3.1-8B at full width and depth with int8 per-channel
-    weights and the scaled fp8 KV cache (``kv_cache_scale`` 2^-5), bf16,
-    on phase 9's engine, schedule and prompts (phase 9's gates; the paged
-    kernel over fp8 pages, its launches = 32 x all-decode steps); weight
+    """18 (c): Llama-3.1-8B at full width, cut to LLAMA_CUT layers, with
+    int8 per-channel weights and the scaled fp8 KV cache
+    (``kv_cache_scale`` 2^-5), bf16, on phase 9's engine, schedule and
+    prompts (phase 9's gates; the paged kernel over fp8 pages, its
+    launches = the layers x all-decode steps); weight
     and cache bytes, the largest stored |K/V| against e4m3's 448, and the
     kernel held to its twin and timed over the served fp8 pages. Returns
     the kernels-line entry."""
     import torch
     check_card_empty("quant_llama_serving")
     app, _, entries, _ = phase_ragged_serving(
-        LLAMA_3_1_8B, device, cfg=RAGGED, on_card=device.type == "cuda",
-        phase="quant_llama_serving", tcfg_over=dict(INT8_WEIGHTS, **FP8_KV))
+        dict(LLAMA_3_1_8B, num_hidden_layers=LLAMA_CUT), device, cfg=RAGGED,
+        on_card=device.type == "cuda", phase="quant_llama_serving",
+        tcfg_over=dict(INT8_WEIGHTS, **FP8_KV))
     stored = max(float(app.cache[k].float().abs().max()) for k in ("k", "v"))
     emit({"phase": "quant_llama_cache", "cache_bytes": cache_bytes(app),
           "cache_dtype": str(app.cache["k"].dtype), "kv_scale":
@@ -5920,7 +5962,7 @@ def phase_quant_llama(device):
 
 
 def bf16_quant_drift(hf, device, weights, phase):
-    """18 (d), full depth, bf16: the teacher-forced decode logits of the
+    """18 (d), bf16, at ``hf``'s depth: the teacher-forced decode logits of the
     quantized app against the unquantized app on the same draws (seed 0),
     fed the unquantized app's greedy tokens; the control is the quantized
     app with every scale flipped along its output axis. Apps are built,
@@ -6176,7 +6218,8 @@ def phase_quant(device):
     bf16_quant_drift(oss_cut(QUANT_OSS_LAYERS), device, MXFP4_WEIGHTS,
                      "quant_oss_bf16")
     memory_note("quant_oss_bf16")
-    bf16_quant_drift(LLAMA_3_1_8B, device, INT8_WEIGHTS, "quant_llama_bf16")
+    bf16_quant_drift(dict(LLAMA_3_1_8B, num_hidden_layers=LLAMA_CUT), device,
+                     INT8_WEIGHTS, "quant_llama_bf16")
     memory_note("quant_llama_bf16")
     for hf, weights, phase in (
             (oss_cut(QUANT_CHECK_LAYERS), MXFP4_WEIGHTS, "quant_oss_twin"),
@@ -8570,16 +8613,18 @@ def paged_logit_at(app, prompts, want, chunk):
 
 
 def phase_speculation(device):
-    """Phase 22: (a)-(d) in bf16 at Llama-3.1-8B's full width and depth
-    (the draft Llama-3.2-1B's), then (e) the fp32 cuts (TF32 off) at 4
+    """Phase 22: (a)-(d) in bf16 at Llama-3.1-8B's full width, cut to
+    LLAMA_CUT layers (the draft Llama-3.2-1B at full depth), then (e) the
+    fp32 cuts (TF32 off) at 4
     layers. Returns the kernels-line entries (the contiguous decode kernel
     at the draft shapes)."""
     if device.type == "cuda":
         check_card_empty("speculation")
+    hf = dict(LLAMA_3_1_8B, num_hidden_layers=LLAMA_CUT)
     entries, target, dspec, dparams = spec_decoders(
-        device, LLAMA_3_1_8B, LLAMA_3_2_1B, "bfloat16", "spec22",
+        device, hf, LLAMA_3_2_1B, "bfloat16", "spec22",
         device.type == "cuda")
-    spec_serving(device, LLAMA_3_1_8B, "bfloat16", "spec22_serve", target,
+    spec_serving(device, hf, "bfloat16", "spec22_serve", target,
                  dspec, dparams)
     del target, dparams
     if device.type == "cuda":
@@ -8721,6 +8766,12 @@ def lora_scored(twin, pool, prompts, streams, names):
 def lora_control_fails(phase, per):
     """The control (each stream scored under another adapter) must fail
     the deficit gate."""
+    return control_fails(phase, per, "under other adapters")
+
+
+def control_fails(phase, per, what):
+    """A control's streams (scored by :func:`teacher_deficits`) must fail
+    the deficit gate; ``what`` names the control."""
     import numpy as np
     d = np.concatenate([x[0] for x in per])
     rep = {"phase": phase + "_control", "tokens": int(d.size),
@@ -8730,8 +8781,8 @@ def lora_control_fails(phase, per):
     emit(rep)
     if (d.max() <= TOL_SERVED_DEFICIT_BF16
             and d.mean() <= TOL_SERVED_MEAN_DEFICIT_BF16):
-        raise AssertionError(f"{phase}: the streams pass the gate under "
-                             "other adapters too")
+        raise AssertionError(f"{phase}: the streams pass the gate {what} "
+                             "too")
     return rep
 
 
@@ -8816,12 +8867,12 @@ def pass_profile(on_card):
 
 
 def phase_lora(device, on_card=True):
-    """Phase 23 (a)-(c), (e): multi-LoRA serving at Llama-3.1-8B width and
-    depth, bf16. Returns the paged kernel's entries."""
+    """Phase 23 (a)-(c), (e): multi-LoRA serving at Llama-3.1-8B width,
+    cut to LLAMA_CUT layers, bf16. Returns the paged kernel's entries."""
     import numpy as np
     import torch
     phase = "lora_serving"
-    hf, cfg = LLAMA_3_1_8B, RAGGED
+    hf, cfg = dict(LLAMA_3_1_8B, num_hidden_layers=LLAMA_CUT), RAGGED
     layers = hf["num_hidden_layers"]
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     app = make_ragged_app(hf, device, "bfloat16", cfg,
@@ -9249,9 +9300,631 @@ def phase_lora_group(device):
     return entries
 
 
-GROUPS = ("kernels", "paged", "contig", "ragged", "spec", "moe", "oss",
-          "long", "mla", "quant", "dense", "moe_families", "contrib_moe",
-          "lora")
+# ---------------------------------------------------------------------------
+# Phase 24: the KV cache's host tier on phase 9's engine
+# ---------------------------------------------------------------------------
+
+# 24 (a): a block of phase 9's pool is 4 MiB (32 layers x 32 slots x 8
+#   heads x 128 x 2 bytes x K and V); the tier's bound of 1024 blocks (4
+#   GiB of host RAM) holds the 168 full blocks of phase 9's prompts and
+#   the cold blocks the restore pass evicts in turn. Cold prompts of 1900
+#   tokens (8 new) push every full block of the first pass out of the
+#   pool's LRU (about 33k tokens at phase 9's 1031 usable blocks).
+# 24 (b): four requests handed off to a decode app of batch 4.
+TIER24 = dict(max_blocks=1024, cold_len=1900, cold_tokens=8, new_tokens=16,
+              handoff_lens=(300, 700, 1300, 1900), handoff_tokens=32,
+              decode_batch=4)
+TIER_CHECK_LAYERS = 4                  # 24 (d): the fp32 and fp8 cuts
+TIER_CHECK_TOKENS = 16
+
+
+class TierProbe:
+    """Wraps a tier adapter's spill hook and restore write: host ms per
+    spill (its device-to-host read syncs the host) and per restore call
+    (synchronized before the clock stops), and every restored block read
+    back against its payload bit for bit, off the clock (``check_s``)."""
+
+    def __init__(self, ad, sync):
+        import torch
+        self.spill_ms, self.restore_ms, self.bad = [], [], []
+        self.blocks, self.check_s = 0, 0.0
+        spill, apply = ad._spill_block, ad._apply_block_payloads
+
+        def spill_block(blk, h):
+            n = ad.host_stats["kv_spilled_blocks"]
+            t0 = time.perf_counter()
+            spill(blk, h)
+            if ad.host_stats["kv_spilled_blocks"] > n:
+                self.spill_ms.append(1e3 * (time.perf_counter() - t0))
+
+        def apply_payloads(restores):
+            t0 = time.perf_counter()
+            apply(restores)
+            sync()
+            t1 = time.perf_counter()
+            self.restore_ms.append(1e3 * (t1 - t0))
+            cache = ad.app.cache
+            idx = torch.tensor([b for b, _ in restores],
+                               device=cache["k"].device)
+            for name in ("k", "v"):
+                got = cache[name].index_select(1, idx).cpu()
+                want = torch.stack([p[name].view(torch.uint8)
+                                    for _, p in restores], dim=1)
+                if not torch.equal(got.view(torch.uint8), want):
+                    self.bad.append((name, [b for b, _ in restores]))
+            self.blocks += len(restores)
+            self.check_s += time.perf_counter() - t1
+        ad._spill_block = spill_block
+        ad._apply_block_payloads = apply_payloads
+        ad.app.kv_mgr.allocator.on_evict = spill_block
+
+    def summary(self):
+        import statistics as st
+
+        def of(ms):
+            return ({"calls": len(ms), "mean_ms": st.fmean(ms),
+                     "median_ms": st.median(ms), "max_ms": max(ms)}
+                    if ms else {"calls": 0})
+        return {"spill": of(self.spill_ms), "restore": of(self.restore_ms),
+                "restored_blocks_read_back": self.blocks,
+                "read_back_mismatches": len(self.bad),
+                "read_back_s": self.check_s}
+
+
+ALLOC_CALLS = ("allocate", "extend", "free", "invalidate", "probe")
+
+
+def record_allocator(alloc):
+    """Record the outermost calls made to ``alloc`` (a Python
+    ``BlockAllocator``): (method, copied arguments), until
+    :func:`stop_recording`."""
+    trace, depth = [], [0]
+    for name in ALLOC_CALLS:
+        def wrapped(*args, _fn=getattr(alloc, name), _name=name):
+            if depth[0] == 0:
+                trace.append((_name, tuple(
+                    list(a) if isinstance(a, list) else a for a in args)))
+            depth[0] += 1
+            try:
+                return _fn(*args)
+            finally:
+                depth[0] -= 1
+        setattr(alloc, name, wrapped)
+    return trace
+
+
+def stop_recording(alloc):
+    for name in ALLOC_CALLS:
+        delattr(alloc, name)
+
+
+def replay_allocator(phase, trace, num_blocks, block_size):
+    """24 (c): the recorded calls through a fresh native and a fresh
+    Python allocator: identical results, host us per call by method."""
+    import statistics as st
+    from neuronx_distributed_inference_tpu_torch.modules.block_kv_cache \
+        import BlockAllocator, NativeBlockAllocator
+    from neuronx_distributed_inference_tpu_torch.resilience.errors import \
+        CapacityError
+    outs, times = {}, {}
+    for kind, cls in (("native", NativeBlockAllocator),
+                      ("python", BlockAllocator)):
+        a = cls(num_blocks, block_size)
+        res, us = [], {}
+        for name, args in trace:
+            args = tuple(list(x) if isinstance(x, list) else x
+                         for x in args)
+            t0 = time.perf_counter()
+            try:
+                out = getattr(a, name)(*args)
+            except CapacityError:
+                out = "capacity"
+            us.setdefault(name, []).append(
+                1e6 * (time.perf_counter() - t0))
+            res.append(out)
+        outs[kind] = res
+        times[kind] = {n: {"calls": len(v), "mean_us": st.fmean(v),
+                           "median_us": st.median(v)}
+                       for n, v in us.items()}
+    same = outs["native"] == outs["python"]
+    emit({"phase": phase + "_allocators", "calls": len(trace),
+          "identical_results": same, "us_per_call": times})
+    if not same:
+        raise AssertionError(f"{phase}: the native allocator parts from the "
+                             "Python one on the recorded calls")
+    return times
+
+
+def one_column_passes(recs):
+    """Passes whose one ragged dispatch was one token wide (decode rows
+    and one-token prefill chunks): those run the paged kernel."""
+    n = 0
+    for r in recs:
+        d = r["delta"]
+        rows = sum(d[k] for k in ("ragged_rows_decode", "ragged_rows_verify",
+                                  "ragged_rows_prefill", "ragged_pad_rows"))
+        n += d["ragged_dispatches"] == 1 and d["ragged_padded_tokens"] == rows
+    return n
+
+
+def tier_keys(prompts, block_size):
+    """Every full block's tier key of ``prompts`` (base rows: from b"")."""
+    from neuronx_distributed_inference_tpu_torch.serving.adapter import \
+        tier_chain
+    return [tier_chain(p, block_size, b"") for p in prompts]
+
+
+def restore_suffix(prompts, block_size):
+    """The prompt tokens an admission computes when every full block is
+    restored: the partial block, or the last token (the cap)."""
+    return sum(len(p) - min(len(p) // block_size * block_size, len(p) - 1)
+               for p in prompts)
+
+
+def rotated_payloads(keys, payloads):
+    """The control's tier contents: each request's keys carry another
+    request's payloads (the next request with full blocks: its block b,
+    or its last block)."""
+    out = {}
+    for i, ks in enumerate(keys):
+        j = next(j % len(keys) for j in range(i + 1, i + len(keys))
+                 if payloads[j % len(keys)])
+        for b, k in enumerate(ks):
+            out[k] = payloads[j][min(b, len(payloads[j]) - 1)]
+    return out
+
+
+def tier_adapter(app, cfg, tier):
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    return PagedEngineAdapter(app, ragged=True, kv_spill_tier=tier,
+                              prefill_chunk_tokens=cfg["chunk"])
+
+
+def serve_cold(eng, vocab, n_tokens, new_tokens, done, sync, seed=24):
+    """Keep ``eng`` full of fresh random prompts of ``n_tokens`` until
+    ``done()``, then drain. Returns (prompts served, passes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    streams, passes = [], 0
+    while not done():
+        for _ in range(eng.adapter.free_capacity - eng.queue.depth):
+            streams.append(eng.submit(
+                rng.integers(1, vocab, size=n_tokens).tolist(), new_tokens))
+        eng.run_pass()
+        sync()
+        passes += 1
+        if passes > 400:
+            raise AssertionError("cold traffic never evicted the prompts")
+    eng.run_until_drained()
+    return len(streams), passes
+
+
+def phase_tier(device, app=None, on_card=True):
+    """Phase 24 (a)-(c): the host-RAM spill tier, the handoff and the
+    native allocator on phase 9's engine (Llama-3.1-8B, bf16, full width
+    and depth; ``app``: phase 9's, else built). Returns the paged
+    kernel's entries."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving.engine import \
+        ServingEngine
+    from neuronx_distributed_inference_tpu_torch.serving.fleet import \
+        HostKVSpillTier
+    phase = "tier"
+    hf, cfg = LLAMA_3_1_8B, RAGGED
+    layers, vocab = hf["num_hidden_layers"], hf["vocab_size"]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if app is None:
+        app = make_ragged_app(hf, device, "bfloat16", cfg)
+        init_weights(app, 0)
+        warm(app, phase, chunk_tokens=cfg["chunk"])
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, vocab, size=n).tolist() for n in cfg["lens"]]
+    mgr = app.kv_mgr
+    bs = mgr.spec.block_size
+    n_graphs = len(app.graphs) if app.graphs is not None else 0
+    block_bytes = sum(t[:, 0].numel() * t.element_size()
+                      for t in app.cache.values())
+    tier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    ad = tier_adapter(app, cfg, tier)
+    probe = TierProbe(ad, sync)
+    trace = record_allocator(mgr.allocator)
+    eng = ServingEngine(ad)
+    new = TIER24["new_tokens"]
+    # (a) 1: the prompts, computed (the tier's allocator starts empty)
+    _, _, ttft_recompute = serve_schedule(eng, prompts, new, sync)
+    keys = tier_keys(prompts, bs)
+    flat = [k for ks in keys for k in ks]
+    # (a) 2: cold traffic until every full block left the pool, spilled
+    t0 = time.perf_counter()
+    n_cold, cold_passes = serve_cold(
+        eng, vocab, TIER24["cold_len"], TIER24["cold_tokens"],
+        lambda: (all(tier.contains(k) for k in flat) and not any(
+            mgr.probe_cached_tokens(p)[0] for p in prompts)), sync)
+    cold_s = time.perf_counter() - t0
+    if not all(tier.contains(k) for k in flat):
+        raise AssertionError(f"{phase}: spilled blocks left the tier")
+    spilled_bytes = tier.nbytes
+    stats_before = dict(tier.stats)
+    real0 = ad.host_stats["prefill_real_tokens"]
+    snap = {}
+
+    def snapshot():
+        # the restored cache's decode shapes: the last all-decode state
+        # with the most live rows
+        if (not ad.seqs or ad.pending_prefill_ids
+                or len(ad.seqs) < len(snap.get("pos", ()))):
+            return
+        live = sorted(ad.seqs)
+        snap["table"] = mgr.block_table_array(live, app._bt_width_for(live))
+        snap["pos"] = [ad.seqs[s].position for s in live]
+    # (a) 3: the prompts again, restored
+    reset_launches([app])
+    streams, recs, ttft_restore = serve_schedule(
+        eng, prompts, new, sync, snapshot=snapshot,
+        off_clock=lambda: probe.check_s)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    check_ragged_passes(phase, recs, launches, layers)
+    # a restored prompt whose full blocks cover it computes one token, so
+    # a pass of such rows and decode rows is one column wide: the kernel
+    decode_steps = one_column_passes(recs)
+    want_launches = layers * decode_steps if on_card else 0
+    computed = ad.host_stats["prefill_real_tokens"] - real0
+    restored = tier.stats["restored"] - stats_before["restored"]
+    stop_recording(mgr.allocator)  # (c) replays the calls up to here
+    payloads = [[tier._pool[k] for k in ks] for ks in keys]
+    emit({"phase": phase, "layers": layers, "requests": len(prompts),
+          "max_blocks": TIER24["max_blocks"], "block_bytes": block_bytes,
+          "cold_prompts": n_cold, "cold_passes": cold_passes,
+          "cold_s": cold_s, "full_blocks": len(flat),
+          "tier_stats": dict(tier.stats), "host_bytes": spilled_bytes,
+          "restored_blocks": restored, "computed_prompt_tokens": computed,
+          "expected_prompt_tokens": restore_suffix(prompts, bs),
+          "ttft_recomputed_s": [ttft_recompute.get(i)
+                                for i in range(len(prompts))],
+          "ttft_restored_s": [ttft_restore.get(i)
+                              for i in range(len(prompts))],
+          "launches": launches, "expected_launches": want_launches,
+          "one_column_passes": decode_steps,
+          "all_decode_passes": sum(r["kind"] == "decode" for r in recs),
+          "graphs": [n_graphs, len(app.graphs) if app.graphs else 0],
+          **probe.summary()})
+    check_streams(phase, streams, new, vocab)
+    check_no_incidents(phase, app)
+    if probe.bad or probe.blocks != len(flat) or restored != len(flat):
+        raise AssertionError(f"{phase}: {probe.blocks} blocks restored of "
+                             f"{len(flat)}, mismatched {probe.bad[:2]}")
+    if computed != restore_suffix(prompts, bs):
+        raise AssertionError(f"{phase}: {computed} prompt tokens computed "
+                             "after the restore")
+    if launches != want_launches:
+        raise AssertionError(f"{phase}: paged kernel launches {launches} "
+                             f"!= {layers} x {decode_steps}")
+    if app.graphs is not None and len(app.graphs) != n_graphs:
+        raise AssertionError(f"{phase}: graphs captured after the restore")
+    twin = make_contiguous_app(hf, device, "bfloat16", batch=8,
+                               seq_len=cfg["seq_len"], output_logits=True)
+    twin.params = app.params
+    toks = [s.tokens for s in streams]
+    deficit_gate(phase, teacher_deficits(twin, prompts, toks), exact=False)
+    # the control: every request's keys carry another request's payloads
+    ctl_tier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    ctl_tier.seed(rotated_payloads(keys, payloads))
+    ctl = ServingEngine(tier_adapter(app, cfg, ctl_tier))
+    with cold_prefix(app):
+        ctl_streams, _, _ = serve_schedule(ctl, prompts, new, sync)
+    if ctl_tier.stats["restored"] != len(flat):
+        raise AssertionError(f"{phase}: the control restored "
+                             f"{ctl_tier.stats['restored']} blocks")
+    control_fails(phase, teacher_deficits(
+        twin, prompts, [s.tokens for s in ctl_streams]),
+        "with other prompts' payloads")
+    entries = []
+    if on_card:
+        t = time_paged_kernel(app, snap["table"], snap["pos"], device,
+                              seed=9)
+        emit({"phase": phase + "_kernel_timings", **t["report"],
+              "launches": launches})
+        entries.append(paged_kernel_entry(t, launches, phase))
+    # (c): the allocator calls of (a) through both allocators
+    replay_allocator(phase, trace, mgr.spec.num_blocks, bs)
+    del tier, payloads, ctl_tier
+    phase_handoff(device, app, twin, sync, on_card)
+    del twin
+    if on_card:
+        memory_note(phase)
+    return entries
+
+
+def first_tokens_then_capture(ad, sids, prompts):
+    """Admit ``prompts`` on a ragged prefill adapter and hand each
+    request off as soon as its first token lands: {sid: (first token,
+    record, JSON wire string, encode ms)}."""
+    from neuronx_distributed_inference_tpu_torch.serving.fleet import (
+        capture_handoff, handoff_to_json)
+    out = {}
+    ad.add_requests(sids, prompts)
+    steps = 0
+    while len(out) < len(sids):
+        for sid, toks in ad.step().items():
+            if sid in out or not toks:
+                continue
+            rec = capture_handoff(ad, sid)
+            t0 = time.perf_counter()
+            wire = json.dumps(handoff_to_json(rec))
+            out[sid] = (toks[0], rec, wire,
+                        1e3 * (time.perf_counter() - t0))
+        steps += 1
+        if steps > 200:
+            raise AssertionError("the prefill role made no progress")
+    return out
+
+
+def admit_records(ad, records, sids, new_tokens):
+    """Admit handoff records on a ragged decode adapter and collect
+    ``new_tokens`` tokens a request: {sid: tokens}."""
+    from neuronx_distributed_inference_tpu_torch.serving.fleet import \
+        admit_handoff
+    for sid, rec in zip(sids, records):
+        admit_handoff(ad, rec, sid)
+    got = {s: [] for s in sids}
+    steps = 0
+    while any(len(v) < new_tokens for v in got.values()):
+        for sid, toks in ad.step().items():
+            got[sid].extend(toks)
+        steps += 1
+        if steps > 20 * new_tokens:
+            raise AssertionError("the decode role made no progress")
+    ad.release(sids)
+    return {s: v[:new_tokens] for s, v in got.items()}
+
+
+def phase_handoff(device, app, twin, sync, on_card):
+    """24 (b): four requests prefilled on phase 9's app, handed off after
+    their first token through the JSON wire form to a decode app that
+    shares its weights (its own pool, tier and graphs), decoded there."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.fleet import (
+        HostKVSpillTier, handoff_from_json)
+    phase = "tier_handoff"
+    hf, cfg = LLAMA_3_1_8B, RAGGED
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in TIER24["handoff_lens"]]
+    sids = list(range(len(prompts)))
+    dapp = make_ragged_app(hf, device, "bfloat16", cfg,
+                           batch=TIER24["decode_batch"])
+    dapp.params = app.params
+    warm(dapp, phase, chunk_tokens=cfg["chunk"])
+    n_graphs = len(dapp.graphs) if dapp.graphs is not None else 0
+    bs = dapp.kv_mgr.spec.block_size
+    pre = PagedEngineAdapter(app, ragged=True,
+                             prefill_chunk_tokens=cfg["chunk"])
+    got = first_tokens_then_capture(pre, sids, prompts)
+    records, decode_ms, same_bytes = [], [], True
+    for sid in sids:
+        t0 = time.perf_counter()
+        rec = handoff_from_json(json.loads(got[sid][2]))
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        for a, b in zip(got[sid][1]["kv_blocks"], rec["kv_blocks"]):
+            same_bytes &= a["hash"] == b["hash"] and all(
+                torch.equal(a[n].view(torch.uint8), b[n].view(torch.uint8))
+                for n in ("k", "v"))
+        records.append(rec)
+    tier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    ad = tier_adapter(dapp, cfg, tier)
+    probe = TierProbe(ad, sync)
+    real0 = ad.host_stats["prefill_real_tokens"]
+    n = TIER24["handoff_tokens"]
+    if dapp.graphs is not None:
+        dapp.graphs.reset_counts()
+    decoded = admit_records(ad, records, sids, n)
+    replays = (sum(dapp.graphs.replays.values())
+               if dapp.graphs is not None else 0)
+    computed = ad.host_stats["prefill_real_tokens"] - real0
+    ctx = [p + [got[s][0]] for s, p in zip(sids, prompts)]
+    n_blocks = sum(len(r["kv_blocks"]) for r in records)
+    emit({"phase": phase, "requests": len(prompts),
+          "prompt_lens": list(TIER24["handoff_lens"]),
+          "record_bytes": [len(got[s][2]) for s in sids],
+          "encode_ms": [got[s][3] for s in sids], "decode_ms": decode_ms,
+          "blocks": n_blocks, "bytes_equal_after_wire": same_bytes,
+          "computed_prompt_tokens": computed,
+          "expected_prompt_tokens": restore_suffix(ctx, bs),
+          "decoded_tokens": n, "graph_replays": replays,
+          "graphs": [n_graphs, len(dapp.graphs) if dapp.graphs else 0],
+          "tier_stats": dict(tier.stats), **probe.summary()})
+    if not same_bytes or probe.bad or probe.blocks != n_blocks:
+        raise AssertionError(f"{phase}: restored bytes differ from the "
+                             f"captured ones ({probe.blocks} of {n_blocks} "
+                             "blocks read back)")
+    if computed != restore_suffix(ctx, bs):
+        raise AssertionError(f"{phase}: {computed} prompt tokens computed "
+                             "on the decode side")
+    if on_card and (replays == 0 or len(dapp.graphs) != n_graphs):
+        raise AssertionError(f"{phase}: {replays} graph replays, graphs "
+                             f"{n_graphs} -> {len(dapp.graphs)}")
+    check_no_incidents(phase, dapp)
+    streams = [[got[s][0]] + decoded[s] for s in sids]
+    deficit_gate(phase, teacher_deficits(twin, prompts, streams),
+                 exact=False)
+    # the control: each record's hashes carry another record's payloads
+    keys = [[b["hash"] for b in r["kv_blocks"]] for r in records]
+    pays = [[{"k": b["k"], "v": b["v"]} for b in r["kv_blocks"]]
+            for r in records]
+    rot = rotated_payloads(keys, pays)
+    ctl_records = [dict(r, kv_blocks=[dict(b, **rot[b["hash"]])
+                                      for b in r["kv_blocks"]])
+                   for r in records]
+    ctl_tier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    with cold_prefix(dapp):
+        ctl = admit_records(tier_adapter(dapp, cfg, ctl_tier), ctl_records,
+                            sids, n)
+    if ctl_tier.stats["restored"] != n_blocks:
+        raise AssertionError(f"{phase}: the control restored "
+                             f"{ctl_tier.stats['restored']} blocks")
+    control_fails(phase, teacher_deficits(
+        twin, prompts, [[got[s][0]] + ctl[s] for s in sids]),
+        "with other requests' payloads")
+    del dapp
+
+
+def phase_tier_fp32(device, on_card=True):
+    """24 (d): the restored and the handed-off greedy streams of an fp32
+    4-layer cut (TF32 off) equal the single engine's exactly (a first
+    difference only at a near-tie), and an fp8 (e4m3) pool's restore
+    reads back bit for bit."""
+    with fp32_exact():
+        _phase_tier_fp32(device, on_card)
+
+
+def evict_all(mgr, seed):
+    """Push every LRU-resident block through the eviction hook: one
+    pool-sized cold admission, aborted (its hashes purged)."""
+    import numpy as np
+    cold = np.random.default_rng(seed).integers(
+        1, 1000, size=(mgr.spec.num_blocks - 1) * mgr.spec.block_size)
+    mgr.begin_sequence(1 << 30, (cold + 10 ** 6).tolist())
+    mgr.abort_sequence(1 << 30)
+    if mgr.allocator._lru:
+        raise AssertionError("the LRU was not drained")
+
+
+def _phase_tier_fp32(device, on_card):
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        PagedEngineAdapter
+    from neuronx_distributed_inference_tpu_torch.serving.fleet import (
+        HostKVSpillTier, handoff_from_json)
+    phase = "tier_fp32"
+    hf = dict(LLAMA_3_1_8B, num_hidden_layers=TIER_CHECK_LAYERS)
+    cfg = RAGGED
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"][:4]]
+    sids = list(range(len(prompts)))
+    n = TIER_CHECK_TOKENS
+    app = make_ragged_app(hf, device, "float32", cfg, batch=4,
+                          graphs=False, output_logits=True)
+    init_weights(app, 0)
+
+    def serve(ad):
+        toks, _ = admit_and_collect(ad, sids, prompts, n)
+        return [toks[s] for s in sids]
+    single = serve(PagedEngineAdapter(app, ragged=True,
+                                      prefill_chunk_tokens=cfg["chunk"]))
+    tier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    ad = tier_adapter(app, cfg, tier)
+    probe = TierProbe(ad, sync)
+    serve(ad)
+    evict_all(app.kv_mgr, 5)
+    restored = serve(ad)
+    logit_at = paged_logit_at(app, prompts, single, cfg["chunk"])
+    ties = check_equal_streams(phase + "_restored", restored, single,
+                               logit_at)
+    # the handoff: capture on app, admit on a second app (shared weights)
+    dapp = make_ragged_app(hf, device, "float32", cfg, batch=4,
+                           graphs=False)
+    dapp.params = app.params
+    pre = PagedEngineAdapter(app, ragged=True,
+                             prefill_chunk_tokens=cfg["chunk"])
+    with cold_prefix(app):
+        got = first_tokens_then_capture(pre, sids, prompts)
+    dtier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    dad = tier_adapter(dapp, cfg, dtier)
+    dprobe = TierProbe(dad, sync)
+    decoded = admit_records(dad, [handoff_from_json(json.loads(got[s][2]))
+                                  for s in sids], sids, n - 1)
+    handed = [[got[s][0]] + decoded[s] for s in sids]
+    ties += check_equal_streams(phase + "_handoff", handed, single,
+                                logit_at)
+    emit({"phase": phase, "layers": TIER_CHECK_LAYERS,
+          "requests": len(prompts), "tokens": n, "near_ties": ties,
+          "restore": probe.summary(), "handoff": dprobe.summary(),
+          "tier_stats": dict(tier.stats), "decode_tier_stats":
+              dict(dtier.stats)})
+    if (probe.bad or dprobe.bad or not tier.stats["restored"]
+            or not dtier.stats["restored"]):
+        raise AssertionError(f"{phase}: restores {tier.stats}, "
+                             f"{dtier.stats}, mismatched "
+                             f"{(probe.bad + dprobe.bad)[:2]}")
+    del app, dapp
+    phase_tier_fp8(device, cfg, prompts, sync)
+
+
+def admit_and_collect(ad, sids, prompts, new_tokens):
+    """Admit ``prompts`` on a ragged adapter, collect ``new_tokens``
+    tokens a request, release: ({sid: tokens}, steps)."""
+    ad.add_requests(sids, prompts)
+    got = {s: [] for s in sids}
+    steps = 0
+    while any(len(v) < new_tokens for v in got.values()):
+        for sid, toks in ad.step().items():
+            got[sid].extend(toks)
+        steps += 1
+        if steps > 20 * new_tokens + 50:
+            raise AssertionError("the engine made no progress")
+    ad.release(sids)
+    return {s: v[:new_tokens] for s, v in got.items()}, steps
+
+
+def phase_tier_fp8(device, cfg, prompts, sync):
+    """24 (d): an fp8 (e4m3) pool (phase 18's scaled cache) spills and
+    restores through its uint8 view: every restored block reads back bit
+    for bit."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving.fleet import \
+        HostKVSpillTier
+    phase = "tier_fp8"
+    hf = dict(LLAMA_3_1_8B, num_hidden_layers=TIER_CHECK_LAYERS)
+    app = make_ragged_app(hf, device, "bfloat16", cfg, batch=4,
+                          graphs=False, **FP8_KV)
+    init_weights(app, 0)
+    if app.cache["k"].dtype != torch.float8_e4m3fn:
+        raise AssertionError(f"{phase}: cache is {app.cache['k'].dtype}")
+    tier = HostKVSpillTier(max_blocks=TIER24["max_blocks"])
+    ad = tier_adapter(app, cfg, tier)
+    probe = TierProbe(ad, sync)
+    sids = list(range(len(prompts)))
+    first, _ = admit_and_collect(ad, sids, prompts, 4)
+    evict_all(app.kv_mgr, 6)
+    again, _ = admit_and_collect(ad, sids, prompts, 4)
+    emit({"phase": phase, "dtype": str(app.cache["k"].dtype),
+          "tier_stats": dict(tier.stats), **probe.summary()})
+    if probe.bad or not probe.blocks:
+        raise AssertionError(f"{phase}: {probe.blocks} blocks restored, "
+                             f"mismatched {probe.bad[:2]}")
+    del app
+
+
+def phase_tier_group(device, app=None):
+    """The ``tier`` group: phase 24 (a)-(d). Phase 9's app (``app``)
+    replays its graphs again in phase 12, so the group frees memory
+    without :func:`free_card`: dropping cuBLAS's workspaces would free
+    the ones those graphs captured (an illegal address at their next
+    replay, once the memory is returned to the card)."""
+    import gc
+
+    import torch
+    entries = phase_tier(device, app)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_tier_fp32(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return entries
+
+
+GROUPS = ("kernels", "paged", "contig", "ragged", "tier", "spec", "moe",
+          "oss", "long", "mla", "quant", "dense", "moe_families",
+          "contrib_moe", "lora")
 
 
 def main(argv=None) -> int:
@@ -9315,12 +9988,15 @@ def main(argv=None) -> int:
                                                         device)
         kernels += entries
         phase_front_door(LLAMA_3_1_8B, device, app, prompts)
-        if "spec" not in only:
+        if not {"tier", "spec"} & only:
             del app
             app = None
             torch.cuda.empty_cache()
         phase_ragged_fp32(dict(LLAMA_3_1_8B, num_hidden_layers=4), device)
         mark("ragged")
+    if "tier" in only:
+        kernels += phase_tier_group(device, app)
+        mark("tier")
     if "spec" in only:
         phase_spec_greedy(LLAMA_3_1_8B, device, app)
         del app

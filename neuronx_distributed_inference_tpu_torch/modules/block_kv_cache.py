@@ -2,7 +2,8 @@
 ``neuronx_distributed_inference_tpu/modules/block_kv_cache.py`` —
 ``BlockKVSpec``/``init_block_cache`` :47-75, the in-graph ops :81-127, the
 host slot-mapping helpers :134-170, ``BlockAllocator`` with blake2b prefix
-hashing :177-344, ``BlockKVCacheManager`` :442-639).
+hashing :177-344, ``NativeBlockAllocator`` :346-428,
+``make_block_allocator`` :431-439, ``BlockKVCacheManager`` :442-639).
 
 Device layout: k, v : (num_layers, num_blocks, block_size, num_kv_heads,
 head_dim). Block 0 is the NULL block: it is never allocated, block-table
@@ -12,21 +13,35 @@ Unlike the JAX functions, which return an updated cache, the port writes
 the cache IN PLACE (the JAX application donated the buffers, so every step
 was already a destructive update).
 
-The host side (allocator, manager) is a copy of the JAX package's Python
-code without its telemetry, fault points and host-RAM spill hook; the C++
-``NativeBlockAllocator`` is not ported yet.
+The host side is the counterpart's: the manager's telemetry (block
+occupancy gauges, the ``kv_alloc_failures`` and ``prefix_hit_tokens``
+counters), its ``paged_alloc`` fault point and its spill hook (the
+host-RAM tier of ``serving/fleet/kv_tier.py``), and the C++ allocator
+(the port's own copy, ``native/block_allocator.cpp``) preferred over the
+Python one. One difference: a salt seeds every hash chain (the LoRA
+adapter whose KV a block holds; b"" is the counterpart's chain), in both
+allocators.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..resilience.errors import CapacityError, KVCacheStateError
+from .. import native
+from ..resilience.errors import (CapacityError, ConfigurationError,
+                                 KVCacheStateError)
+from ..resilience.faults import FAULTS as _FAULTS
+from ..telemetry import get_registry
+from ..telemetry import metrics as tmetrics
+
+logger = logging.getLogger("nxdi_tpu")
 
 
 @dataclass(frozen=True)
@@ -171,6 +186,13 @@ class BlockAllocator:
         self.free_list: List[int] = list(range(1, num_blocks))
         self.hash_to_block: Dict[bytes, int] = {}
         self._lru: List[int] = []          # hashed, ref_count==0, oldest first
+        # eviction hook (the host-RAM KV spill tier, serving/fleet/): called
+        # with (block_id, salted chain hash) just BEFORE an LRU-resident
+        # block's hash is dropped, the last moment its device payload is
+        # still named by its content
+        self.on_evict = None
+
+    kind = "python"
 
     @property
     def num_free(self) -> int:
@@ -183,6 +205,8 @@ class BlockAllocator:
             blk = self._lru.pop(0)
             h = self.meta[blk].content_hash
             if h is not None:
+                if self.on_evict is not None:
+                    self.on_evict(blk, h)
                 self.hash_to_block.pop(h, None)
             self.meta[blk] = _BlockMeta()
             return blk
@@ -297,38 +321,185 @@ class BlockAllocator:
                 self.free_list.append(blk)
 
 
+class NativeBlockAllocator:
+    """ctypes wrapper over the C++ allocator (``native/block_allocator.cpp``):
+    the interface of :class:`BlockAllocator` and its block ids. Its chain
+    hashes are 64-bit FNV-1a, not blake2b, so it has no eviction hook
+    (:meth:`BlockKVCacheManager.set_spill_hook` swaps it out)."""
+
+    kind = "native"
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 enable_prefix_caching: bool = True):
+        self._lib = native.load_library()
+        if self._lib is None:
+            raise ImportError("native library unavailable: "
+                              f"{native.load_error or 'NXDI_TPU_NATIVE=0'}")
+        self.block_size = block_size
+        self.num_blocks = num_blocks
+        self._prefix = bool(enable_prefix_caching)
+        self._h = self._lib.nxdi_alloc_create(num_blocks, block_size,
+                                              int(self._prefix))
+
+    def __del__(self):
+        lib, h = getattr(self, "_lib", None), getattr(self, "_h", None)
+        if lib is not None and h:
+            lib.nxdi_alloc_destroy(h)
+            self._h = None
+
+    @property
+    def enable_prefix_caching(self) -> bool:
+        return self._prefix
+
+    @enable_prefix_caching.setter
+    def enable_prefix_caching(self, on: bool) -> None:
+        self._prefix = bool(on)
+        self._lib.nxdi_alloc_set_prefix_caching(self._h, int(self._prefix))
+
+    @property
+    def num_free(self) -> int:
+        return self._lib.nxdi_alloc_num_free(self._h)
+
+    @staticmethod
+    def _tokens(token_ids):
+        toks = np.ascontiguousarray(np.asarray(token_ids, np.int64))
+        return toks, toks.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+    def allocate(self, token_ids: Sequence[int], salt: bytes = b""
+                 ) -> Tuple[List[int], int]:
+        toks, ptr = self._tokens(token_ids)
+        max_out = max(1, -(-len(toks) // self.block_size))
+        out = (ctypes.c_int * max_out)()
+        cached = ctypes.c_int(0)
+        n = self._lib.nxdi_alloc_allocate_salted(
+            self._h, ptr, len(toks), out, max_out, ctypes.byref(cached),
+            salt, len(salt))
+        if n < 0:
+            raise CapacityError("out of KV cache blocks")
+        return list(out[:n]), int(cached.value)
+
+    def probe(self, token_ids: Sequence[int], salt: bytes = b""
+              ) -> Tuple[int, List[int]]:
+        if not self._prefix:
+            return 0, []
+        toks, ptr = self._tokens(token_ids)
+        max_out = max(1, len(toks) // self.block_size)
+        out = (ctypes.c_int * max_out)()
+        cached = self._lib.nxdi_alloc_probe_salted(
+            self._h, ptr, len(toks), out, max_out, salt, len(salt))
+        return int(cached), list(out[:cached // self.block_size])
+
+    def extend(self, blocks: List[int], new_len: int) -> List[int]:
+        need = max(1, -(-new_len // self.block_size), len(blocks))
+        if need == len(blocks):        # covered: nothing to marshal
+            return blocks
+        buf = (ctypes.c_int * need)(*blocks)
+        n = self._lib.nxdi_alloc_extend(self._h, buf, len(blocks), new_len,
+                                        need)
+        if n < 0:
+            raise CapacityError("out of KV cache blocks")
+        return list(buf[:n])
+
+    def free(self, blocks: Sequence[int]):
+        arr = (ctypes.c_int * len(blocks))(*blocks)
+        if self._lib.nxdi_alloc_free(self._h, arr, len(blocks)) < 0:
+            raise KVCacheStateError("double free of a KV block")
+
+    def invalidate(self, blocks: Sequence[int]):
+        arr = (ctypes.c_int * len(blocks))(*blocks)
+        if self._lib.nxdi_alloc_invalidate(self._h, arr, len(blocks)) < 0:
+            raise KVCacheStateError("double free of a KV block")
+
+
+def make_block_allocator(num_blocks: int, block_size: int,
+                         enable_prefix_caching: bool = True):
+    """The C++ allocator, else the Python one: under ``NXDI_TPU_NATIVE=0``,
+    or with a warning when the library did not build. The result's
+    ``kind`` says which ("native" / "python")."""
+    if native.native_enabled():
+        if native.load_library() is not None:
+            return NativeBlockAllocator(num_blocks, block_size,
+                                        enable_prefix_caching)
+        logger.warning("native block allocator unavailable (%s); using the "
+                       "Python allocator", native.load_error)
+    return BlockAllocator(num_blocks, block_size, enable_prefix_caching)
+
+
 class BlockKVCacheManager:
     """Host-side owner: spec + cache tensors + allocator + per-seq block
-    tables."""
+    tables.
+
+    Telemetry (host side, a no-op while the registry is disabled): the
+    blocks in use and in total, allocation failures, prefix-hit tokens."""
 
     def __init__(self, spec: BlockKVSpec, device: torch.device,
                  enable_prefix_caching: bool = True):
         self.spec = spec
         self.cache = init_block_cache(spec, device)
-        self.allocator = BlockAllocator(spec.num_blocks, spec.block_size,
-                                        enable_prefix_caching)
+        self.allocator = make_block_allocator(spec.num_blocks, spec.block_size,
+                                              enable_prefix_caching)
         self.tables: Dict[int, List[int]] = {}     # seq_id -> block list
         self.lens: Dict[int, int] = {}
         self._hit_blocks: Dict[int, int] = {}      # leading prefix-HIT blocks
+        self._tel_occupancy()
+
+    @property
+    def allocator_kind(self) -> str:
+        """"native" (the C++ allocator) or "python"."""
+        return self.allocator.kind
+
+    @staticmethod
+    def _tel_registry():
+        reg = get_registry()
+        return reg if reg.enabled else None
+
+    def _tel_occupancy(self, reg=None):
+        reg = reg if reg is not None else self._tel_registry()
+        if reg is None:
+            return
+        usable = self.spec.num_blocks - 1          # null block excluded
+        tmetrics.kv_blocks_total_gauge(reg).set(usable)
+        # num_free counts the free list and unreferenced prefix-cached
+        # residents; in use = blocks a live sequence still references
+        tmetrics.kv_blocks_in_use_gauge(reg).set(
+            usable - self.allocator.num_free)
 
     def begin_sequence(self, seq_id: int, token_ids: Sequence[int],
                        salt: bytes = b"") -> Tuple[List[int], int]:
         if seq_id in self.tables:      # stale table from an unreleased run
             self.end_sequence(seq_id)
-        blocks, cached = self.allocator.allocate(token_ids, salt)
+        reg = self._tel_registry()
+        try:
+            if _FAULTS.active:
+                _FAULTS.fire("paged_alloc")
+            blocks, cached = self.allocator.allocate(token_ids, salt)
+        except CapacityError:
+            if reg is not None:
+                tmetrics.kv_alloc_failures_counter(reg).inc()
+            raise
         self.tables[seq_id] = blocks
         self.lens[seq_id] = len(token_ids)
         self._hit_blocks[seq_id] = cached // self.spec.block_size
+        if reg is not None:
+            if cached:
+                tmetrics.prefix_hit_tokens_counter(reg).inc(cached)
+            self._tel_occupancy(reg)
         return blocks, cached
 
     def grow(self, seq_id: int, n_new: int = 1) -> List[int]:
         self.lens[seq_id] += n_new
         try:
+            if _FAULTS.active:
+                _FAULTS.fire("paged_alloc")
             self.tables[seq_id] = self.allocator.extend(
                 self.tables[seq_id], self.lens[seq_id])
         except CapacityError:
             self.lens[seq_id] -= n_new
+            reg = self._tel_registry()
+            if reg is not None:
+                tmetrics.kv_alloc_failures_counter(reg).inc()
             raise
+        self._tel_occupancy()
         return self.tables[seq_id]
 
     def shrink(self, seq_id: int, n_tokens: int = 1) -> List[int]:
@@ -348,12 +519,14 @@ class BlockKVCacheManager:
             del blocks[need:]
             self.allocator.free(extra)
         self.lens[seq_id] = new_len
+        self._tel_occupancy()
         return blocks
 
     def end_sequence(self, seq_id: int):
         self.allocator.free(self.tables.pop(seq_id))
         self.lens.pop(seq_id)
         self._hit_blocks.pop(seq_id, None)
+        self._tel_occupancy()
 
     def abort_sequence(self, seq_id: int, unwritten=None):
         """End a sequence whose prefill never (fully) wrote its KV:
@@ -370,6 +543,32 @@ class BlockKVCacheManager:
         else:
             self.allocator.free([b for b in blocks if b not in unwritten])
             self.allocator.invalidate([b for b in blocks if b in unwritten])
+        self._tel_occupancy()
+
+    def set_spill_hook(self, hook) -> None:
+        """Install ``hook(block_id, chain_hash)`` to run just before a
+        prefix-cached block is LRU-evicted: the attach point of the
+        host-RAM KV spill tier (``serving/fleet/kv_tier.py``).
+
+        The hook is keyed by the Python allocator's blake2b chain hashes
+        (those the tier and the handoff records use), so a native
+        allocator is swapped for a fresh Python one, which is allowed only
+        while nothing is live (no table, every block free): the swap may
+        drop unreferenced prefix-cache residency, never a sequence's
+        state. With live state it raises :class:`ConfigurationError`."""
+        alloc = self.allocator
+        if not isinstance(alloc, BlockAllocator):
+            if self.tables or alloc.num_free != self.spec.num_blocks - 1:
+                raise ConfigurationError(
+                    "set_spill_hook needs the Python BlockAllocator's "
+                    "eviction callback, and this manager's native "
+                    "allocator holds live state: attach the spill tier "
+                    "before the first admission (or set NXDI_TPU_NATIVE=0)")
+            alloc = BlockAllocator(self.spec.num_blocks,
+                                   self.spec.block_size,
+                                   alloc.enable_prefix_caching)
+            self.allocator = alloc
+        alloc.on_evict = hook
 
     def probe_cached_tokens(self, token_ids: Sequence[int],
                             salt: bytes = b"") -> Tuple[int, List[int]]:

@@ -7,8 +7,9 @@
 :682-903 with ``flush`` :837 and ``debug_state`` :1071,
 ``ContinuousBatchingAdapter`` :1090-1275 and ``PagedEngineAdapter`` :1277
 with its speculation and ragged routing :1371-1385 and :1540-1670,
-scheduler hooks :1794-1878, the LoRA pool binding :1975-2020,
-preemption :2022-2165 and chunked prefill :2174-2400).
+scheduler hooks :1794-1878, the host-RAM KV spill tier :1881-1975, the
+LoRA pool binding :1975-2020, preemption :2022-2165 and chunked prefill
+:2174-2400).
 
 ``ContinuousBatchingAdapter`` drives the contiguous app: a request owns one
 cache row (its ``seq_id``) from ``add_requests`` to ``release``; prefill
@@ -47,12 +48,23 @@ carries none and runs the LoRA-free step), and release, preemption and
 admission rollback unpin it. ``set_adapter_shed(True)`` (the ``shed_adapters`` degradation
 actuator) admits tagged requests as base-model rows.
 
+With a ``kv_spill_tier`` (:class:`~.fleet.kv_tier.HostKVSpillTier`) an
+LRU-evicted prefix block spills its payload to host RAM, and an admission
+restores the spilled full blocks past its device prefix hit, in place,
+instead of recomputing them. The tier's chains (and the handoff records'
+of ``fleet/handoff.py``) are salted as the prefix cache's cannot be: a
+slot's salt names one write on one engine, while a tier may be shared by
+engines and a record crosses them. So a row under a pooled adapter keys
+them by the adapter's NAME (:func:`adapter_tier_salt`), a base row by b""
+(the reference's chain), and a row whose factors were written outside
+the pool (``LoraAdapterPool.portable``; a base row after slot 0 was
+written) never reaches a tier or a record.
+
 Telemetry (``telemetry=`` registry, else the process-global one) and the
 fault points ``slow_step``, ``decode_step``, ``prefill_chunk``,
 ``spec_draft``, ``spec_verify`` and ``ragged_step`` are those of the
 counterpart. The eager path (``pipeline_depth=0``) is ported; the
-constructor refuses what waits for later slices: ``kv_spill_tier`` and
-``pipeline_depth > 0``.
+constructor refuses what waits for a later slice: ``pipeline_depth > 0``.
 
 A step that fails before its dispatch began (an injected fault, a host
 error) raises a ``retry_safe`` :class:`StepFailure`; one that fails inside
@@ -68,15 +80,16 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..modules import autobucketing
-from ..modules.block_kv_cache import (cut_cached_at_unwritten,
+from ..modules.block_kv_cache import (_hash_block, cut_cached_at_unwritten,
                                       slots_from_table,
                                       slots_from_table_into)
 from ..resilience.errors import (AdmissionError, CapacityError,
                                  ConfigurationError, DeadlineExceeded,
-                                 SequenceStateError, ServingError,
-                                 StepFailure)
+                                 KVCacheStateError, SequenceStateError,
+                                 ServingError, StepFailure)
 from ..resilience.faults import FAULTS as _FAULTS
 from ..resilience.preemption import (PREEMPTION_POLICIES, Preempted,
                                      pick_victim)
@@ -717,6 +730,25 @@ class _EngineAdapterBase:
         }
 
 
+def adapter_tier_salt(name: str) -> bytes:
+    """The salt of the spill tier's and the handoff records' chains for a
+    row under the pooled LoRA adapter ``name``: one adapter, whatever its
+    slot or engine (a name names one adapter's weights across engines
+    that share a tier or trade records)."""
+    return b"lora-adapter:" + name.encode("utf-8")
+
+
+def tier_chain(prompt: Sequence[int], block_size: int,
+               salt: bytes) -> List[bytes]:
+    """The chain hashes of ``prompt``'s full blocks from ``salt``."""
+    out, parent = [], salt
+    for bi in range(len(prompt) // block_size):
+        parent = _hash_block(parent, prompt[bi * block_size:
+                                            (bi + 1) * block_size])
+        out.append(parent)
+    return out
+
+
 def _refuse_waiting(**knobs):
     waiting = [name for name, v in knobs.items() if v]
     if waiting:
@@ -886,9 +918,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
                  prefill_budget_tokens: Optional[int] = None,
                  speculation=None, kv_spill_tier=None,
                  ragged: bool = False, lora_pool=None):
-        _refuse_waiting(**{
-            "pipeline_depth > 0": pipeline_depth,
-            "kv_spill_tier": kv_spill_tier is not None})
+        _refuse_waiting(**{"pipeline_depth > 0": pipeline_depth})
         cfg = app.tpu_config
         if not cfg.is_block_kv_layout:
             raise ConfigurationError("app must be built with "
@@ -921,6 +951,18 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self._chunks: Dict[int, _ChunkState] = {}   # pending admissions
         self._unwritten: set = set()   # allocated blocks not fully written
         self._init_host_stats()
+        # the host-RAM KV spill tier: evicted prefix blocks spill their
+        # payloads to host RAM and come back by an in-place H2D write
+        # instead of a recompute
+        self._kv_tier = kv_spill_tier
+        # block -> (its prefix-cache hash, its tier key, its adapter) as
+        # its admission named it: the spill hook files a block under the
+        # tier key only while the block still holds that content
+        self._tier_keys: Dict[int, Tuple[bytes, bytes, Optional[str]]] = {}
+        self.host_stats["kv_spilled_blocks"] = 0
+        self.host_stats["kv_restored_blocks"] = 0
+        if kv_spill_tier is not None:
+            app.kv_mgr.set_spill_hook(self._spill_block)
         # the multi-LoRA pool: a request's meta "adapter" resolves to a
         # pinned device slot at admission; every dispatch then carries the
         # rows' slots, so one step mixes rows of different adapters
@@ -1012,6 +1054,12 @@ class PagedEngineAdapter(_EngineAdapterBase):
                                             self._unwritten)
                 c = min(c, len(prompt) - 1)
                 self._unwritten.update(blocks[n_hit:])
+                if self._kv_tier is not None:
+                    # restore instead of recompute: the spilled full
+                    # blocks past the device hit, written in place; they
+                    # stay unwritten until the row's last chunk lands,
+                    # like chunk-written blocks
+                    c = self._tier_admit(sid, prompt, blocks, c)
                 self._admit_counter += 1
                 self._chunks[sid] = _ChunkState(
                     prompt=prompt, done=int(c),
@@ -1295,8 +1343,9 @@ class PagedEngineAdapter(_EngineAdapterBase):
         salt anew). The residency probe never touches the pool's LRU."""
         salt = b""
         resident = False
-        if (adapter is not None and self._lora_pool is not None
-                and not self._adapter_shed):
+        named = (adapter is not None and self._lora_pool is not None
+                 and not self._adapter_shed)
+        if named:
             resident = self._lora_pool.resident(adapter)
             # a cold adapter gets a fresh salt: nothing is cached under it
             salt = (self.app.lora_kv_salt(self._lora_pool.slot_of(adapter))
@@ -1307,6 +1356,13 @@ class PagedEngineAdapter(_EngineAdapterBase):
             cached = cut_cached_at_unwritten(
                 blocks, cached, self.app.kv_mgr.spec.block_size,
                 self._unwritten)
+        if self._kv_tier is not None:
+            # spilled blocks count too (an admission would restore them),
+            # under the tier's salt: a cold adapter may have some
+            tsalt = (self._name_tier_salt(adapter) if named
+                     else self._base_tier_salt())
+            if tsalt is not None:
+                cached = self._tier_warmth(prompt, cached, tsalt)
         warmth = min(cached, len(prompt) - 1)
         if resident:
             warmth += self.prefill_chunk_tokens
@@ -1330,7 +1386,12 @@ class PagedEngineAdapter(_EngineAdapterBase):
                        "unwritten": len(self._unwritten)},
             "preempted_uncollected": [int(r.seq_id) for r in self.preempted],
             "ragged": self._ragged is not None,
+            "allocator": mgr.allocator_kind,
         })
+        if self._kv_tier is not None:
+            state["kv_tier"] = {"blocks": len(self._kv_tier),
+                                "bytes": int(self._kv_tier.nbytes),
+                                "stats": dict(self._kv_tier.stats)}
         if self._lora_pool is not None:
             state["lora"] = {
                 "rows": {int(s): int(slot)
@@ -1339,6 +1400,149 @@ class PagedEngineAdapter(_EngineAdapterBase):
                 "pool": self._lora_pool.debug_state(),
             }
         return state
+
+    # -- the host-RAM KV spill tier (serving/fleet/kv_tier.py) --------------
+    def _base_tier_salt(self) -> Optional[bytes]:
+        """A base row's tier salt: b"", or None when slot 0 was written
+        on this engine (its prefix-cache salt is then local to it)."""
+        return b"" if self.app.lora_kv_salt(0) == b"" else None
+
+    def _name_tier_salt(self, name: str) -> Optional[bytes]:
+        """A pooled adapter's tier salt, or None once its slot was written
+        outside the pool (``LoraAdapterPool.portable``)."""
+        return (adapter_tier_salt(name) if self._lora_pool.portable(name)
+                else None)
+
+    def tier_salt(self, sid: int) -> Optional[bytes]:
+        """The salt of ``sid``'s tier and handoff chains
+        (:func:`adapter_tier_salt` of its pooled adapter, b"" for a base
+        row), or None when its KV must not leave this engine."""
+        name = self._lora_names.get(sid)
+        if name is not None:
+            return self._name_tier_salt(name)
+        return self._base_tier_salt()
+
+    def _tier_admit(self, sid: int, prompt: List[int], blocks: List[int],
+                    done: int) -> int:
+        """At admission: name each full block by its tier key (for the
+        spill hook) and restore the spilled blocks past ``done``. Returns
+        the new ``done``."""
+        tsalt = self.tier_salt(sid)
+        if tsalt is None:
+            return done
+        chain = tier_chain(prompt, self.app.kv_mgr.spec.block_size, tsalt)
+        meta = getattr(self.app.kv_mgr.allocator, "meta", {})
+        name = self._lora_names.get(sid)
+        for bi, key in enumerate(chain):
+            m = meta.get(blocks[bi])
+            if m is not None and m.content_hash is not None:
+                self._tier_keys[blocks[bi]] = (m.content_hash, key, name)
+        return self._restore_spilled(sid, len(prompt), blocks, done, chain)
+
+    def _spill_block(self, blk: int, content_hash: bytes) -> None:
+        """The manager's eviction hook: copy an LRU-evicted prefix block's
+        payload device → host into the tier under the tier key its
+        admission recorded (a block no admission named, or one whose salt
+        is local to this engine, is not spilled). Best-effort: a failure
+        (the ``kv_spill`` fault point included) is counted, never raised
+        into the allocation that evicted the block.
+
+        The read runs on the cache's stream inside ``allocate`` /
+        ``extend``, between dispatches: stream order puts it after every
+        write queued before it, and it syncs the host with the card."""
+        key = self._tier_keys.pop(blk, None)
+        if (blk in self._unwritten or key is None
+                or key[0] != content_hash
+                or (key[2] is not None
+                    and not self._lora_pool.portable(key[2]))):
+            return
+        try:
+            cache = self.app.cache
+            self._kv_tier.spill(key[1],
+                                cache["k"][:, blk].to("cpu", copy=True),
+                                cache["v"][:, blk].to("cpu", copy=True))
+            self.host_stats["kv_spilled_blocks"] += 1
+        except Exception:
+            self._kv_tier.stats["spill_errors"] += 1
+
+    def _tier_warmth(self, prompt: Sequence[int], cached: int,
+                     salt: bytes) -> int:
+        """Extend the device prefix hit with the consecutive spilled full
+        blocks an admission would restore now (read-only)."""
+        bs = self.app.kv_mgr.spec.block_size
+        warm = cached
+        for bi, key in enumerate(tier_chain(prompt, bs, salt)):
+            if (bi + 1) * bs <= cached:
+                continue                   # on the device already
+            if bi * bs != warm or not self._kv_tier.contains(key):
+                break
+            warm = (bi + 1) * bs
+        return warm
+
+    def _restore_spilled(self, sid: int, n_prompt: int, blocks: List[int],
+                         done: int, chain: List[bytes]) -> int:
+        """Restore the consecutive spilled full blocks past ``done`` (the
+        device hit after its cut) and return the new ``done``, capped at
+        ``n_prompt - 1`` like a prefix hit (the last token always runs;
+        a restored block that holds it is partly rewritten by the final
+        chunk). The ``kv_restore`` fault point fires before the write, so
+        the admission's rollback is exact."""
+        tier = self._kv_tier
+        bs = self.app.kv_mgr.spec.block_size
+        limit = n_prompt - 1
+        restores: List[Tuple[int, Any]] = []
+        new_done = done
+        for bi, key in enumerate(chain):
+            if (bi + 1) * bs <= new_done:
+                continue                   # on the device already
+            if bi * bs != new_done or new_done >= limit:
+                break                      # a gap or the cap: stop
+            payload = tier.get(key)
+            if payload is None:
+                break
+            restores.append((blocks[bi], payload))
+            new_done = min((bi + 1) * bs, limit)
+        if not restores:
+            return done
+        if _FAULTS.active:
+            _FAULTS.fire("kv_restore")
+        self._apply_block_payloads(restores)
+        n_tok = new_done - done
+        tier.note_restored(len(restores), n_tok)
+        self.host_stats["kv_restored_blocks"] += len(restores)
+        rec = _get_recorder()
+        if rec.enabled:
+            rec.instant("kv.restore", cat="fleet", engine=self.engine_name,
+                        seq_id=int(sid), blocks=len(restores),
+                        tokens=n_tok)
+        return new_done
+
+    def _apply_block_payloads(self, restores) -> None:
+        """Write spilled payloads into their freshly allocated device
+        blocks IN PLACE (the captured graphs hold the cache's addresses;
+        the reference rebinds the cache): per K and V one host-to-device
+        copy of the stacked payloads and one indexed write, on the
+        cache's stream, which every later dispatch follows. An fp8 cache
+        is written through its uint8 view. A payload of another dtype or
+        block shape is refused, never cast."""
+        cache = self.app.cache
+        idx = torch.tensor([b for b, _ in restores], dtype=torch.long)
+        for name in ("k", "v"):
+            dst = cache[name]
+            want = (dst.dtype, (dst.shape[0], *dst.shape[2:]))
+            parts = [p[name] for _, p in restores]
+            for t in parts:
+                if (t.dtype, tuple(t.shape)) != want:
+                    raise KVCacheStateError(
+                        f"a spilled {name} payload {t.dtype} "
+                        f"{tuple(t.shape)} does not fit the cache's "
+                        f"{want[0]} {want[1]} blocks")
+            if dst.is_floating_point() and dst.element_size() == 1:
+                dst = dst.view(torch.uint8)
+                parts = [t.view(torch.uint8) for t in parts]
+            dst.index_copy_(1, idx.to(dst.device),
+                            torch.stack(parts, dim=1).to(
+                                dst.device, non_blocking=True))
 
     # -- the multi-LoRA adapter pool (serving/lora_pool.py) -----------------
     def _bind_adapter(self, sid: int, meta: Any) -> None:

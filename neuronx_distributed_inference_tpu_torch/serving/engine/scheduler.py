@@ -281,6 +281,12 @@ class ServingEngine:
         or an unrecoverable device failure)."""
         return self._closed
 
+    def seq_id_of(self, request_id: str):
+        """The adapter seq id of an ADMITTED request, or None while it is
+        queued, mid-prefill or unknown (reference :282-286; a handoff
+        captures by seq id)."""
+        return self._sid_of.get(request_id)
+
     @property
     def has_work(self) -> bool:
         return bool(self._active) or self.queue.depth > 0

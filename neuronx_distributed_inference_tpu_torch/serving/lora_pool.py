@@ -102,6 +102,11 @@ class LoraAdapterPool:
         self._sources: Dict[str, Any] = {}
         # the host spill cache: name -> {mod: (A, B)} (bounded, LRU)
         self._host: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+        # resident name -> the slot's prefix-cache salt its swap-in left;
+        # names whose slot was since written outside the pool (a hot
+        # update, which the spill cache then carries on) are local
+        self._swap_salt: Dict[str, bytes] = {}
+        self._local: set = set()
         self.stats: Dict[str, Any] = {
             "hits": 0, "misses": 0, "swaps": 0, "swap_bytes": 0,
             "swap_errors": 0, "cold_loads": 0, "restores": 0,
@@ -136,6 +141,17 @@ class LoraAdapterPool:
 
     def slot_of(self, name: str) -> Optional[int]:
         return self._slots.get(name)
+
+    def portable(self, name: str) -> bool:
+        """Whether ``name`` on this pool still holds its registered
+        factors, so KV computed under it may leave this engine (the spill
+        tier, handoff records): False for good once its slot was written
+        outside the pool."""
+        slot = self._slots.get(name)
+        if (slot is not None
+                and self.app.lora_kv_salt(slot) != self._swap_salt.get(name)):
+            self._local.add(name)
+        return name not in self._local
 
     # -- the acquire / release lifecycle -----------------------------------
     def acquire(self, name: str) -> int:
@@ -189,7 +205,9 @@ class LoraAdapterPool:
             "another adapter")
 
     def _evict(self, name: str) -> int:
+        self.portable(name)            # a hot-updated slot stays local
         slot = self._slots.pop(name)
+        self._swap_salt.pop(name, None)
         del self._lru[name]
         self._pins.pop(name, None)
         self.stats["evictions"] += 1
@@ -297,6 +315,7 @@ class LoraAdapterPool:
                 "(no resident slot corrupted)",
                 phase="adapter_swap", seq_ids=(), retry_safe=True)) from e
         dt = time.perf_counter() - t0
+        self._swap_salt[name] = self.app.lora_kv_salt(slot)
         nbytes = sum(_nbytes(a) + _nbytes(b) for a, b in arrays.values())
         self.stats["swaps"] += 1
         self.stats["swap_bytes"] += nbytes

@@ -294,11 +294,12 @@ def memory_ledger(adapter, *, registry=None) -> Dict[str, Any]:
     """One live device-memory account over a
     :class:`~.adapter.PagedEngineAdapter`: parameter bytes, the KV pool
     split by block state (reconciling with
-    ``adapter.debug_state()["blocks"]`` exactly), fragmentation and the
-    admission headroom. Sets the ``nxdi_hbm_*`` gauges when ``registry``
-    is live. (The reference's spill tier and per-graph
-    ``memory_analysis()`` peaks wait for their modules: ``spill`` is
-    None.)"""
+    ``adapter.debug_state()["blocks"]`` exactly), the spill tier's
+    residency (reference :294-350), fragmentation, the admission headroom
+    and which block allocator runs (``kv.allocator``: "native" or
+    "python"). Sets the ``nxdi_hbm_*`` gauges when ``registry`` is live.
+    (The reference's per-graph ``memory_analysis()`` peaks have no
+    counterpart.)"""
     app = adapter.app
     mgr = getattr(app, "kv_mgr", None)
     if mgr is None:
@@ -324,6 +325,8 @@ def memory_ledger(adapter, *, registry=None) -> Dict[str, Any]:
     alloc_slots = in_use * spec.block_size
     frag = (1.0 - live_tokens / alloc_slots) if alloc_slots else 0.0
     frag = min(max(frag, 0.0), 1.0)
+    tier = getattr(adapter, "_kv_tier", None)
+    spilled_bytes = int(tier.nbytes) if tier is not None else 0
     ledger: Dict[str, Any] = {
         "schema": LEDGER_SCHEMA,
         "model_bytes": _tensor_bytes(app.params),
@@ -336,11 +339,14 @@ def memory_ledger(adapter, *, registry=None) -> Dict[str, Any]:
             "bytes": {"used": in_use * block_bytes,
                       "free": free * block_bytes,
                       "unwritten": unwritten * block_bytes,
-                      "spilled": 0},
+                      "spilled": spilled_bytes},
             "live_tokens": live_tokens,
             "fragmentation_ratio": frag,
+            "allocator": mgr.allocator_kind,
         },
-        "spill": None,
+        "spill": (None if tier is None else
+                  {"blocks": len(tier), "bytes": spilled_bytes,
+                   "stats": dict(tier.stats)}),
         "headroom": admission_headroom(adapter),
     }
     reg = registry

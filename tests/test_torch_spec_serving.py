@@ -45,6 +45,8 @@ from neuronx_distributed_inference_tpu_torch.serving import \
     PagedEngineAdapter
 from neuronx_distributed_inference_tpu_torch.serving.engine import \
     ServingEngine
+from neuronx_distributed_inference_tpu_torch.serving.fleet import \
+    HostKVSpillTier
 from neuronx_distributed_inference_tpu_torch.serving.speculation import (
     PerturbedSelfDraftProposer, SelfDraftProposer, validate_spec_sampling)
 from neuronx_distributed_inference_tpu_torch.serving.warmup import \
@@ -527,10 +529,16 @@ def test_sampling_modes_and_refusals(sampled):
         TpuConfig(batch_size=1, seq_len=64,
                   on_device_sampling_config=OnDeviceSamplingConfig(
                       do_sample=False, stream_seed=3))
-    for kw in ({"pipeline_depth": 1}, {"kv_spill_tier": object()},
-               {"lora_pool": object()}):
+    for kw in ({"pipeline_depth": 1}, {"lora_pool": object()}):
         with pytest.raises(ConfigurationError):
             PagedEngineAdapter(tapp, speculation=2, **kw)
+    # a host-RAM spill tier attaches beside speculation (ROADMAP A8,
+    # ported), as the reference allows
+    tier = HostKVSpillTier(max_blocks=4)
+    ad = PagedEngineAdapter(tapp, speculation=2, kv_spill_tier=tier)
+    assert ad._kv_tier is tier and ad._spec is not None
+    assert tapp.kv_mgr.allocator.on_evict == ad._spill_block
+    tapp.kv_mgr.set_spill_hook(None)
     # the speculation config builds now (ROADMAP A6, ported); as in the
     # reference it keeps a windowed model off the rolling cache
     sc = SpeculationConfig(speculation_length=3)
