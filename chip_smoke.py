@@ -177,7 +177,9 @@ nvcc per source, all started together), then:
      count); (c) (b)'s weights behind ``ContinuousBatchingAdapter`` (phase
      9's 8 requests over batch 4 through the adapter's own add / step /
      release loop; ``ServingEngine`` takes the paged adapter surface
-     only): no decode-kernel launch (the gather path), full streams, TTFT,
+     only): decode-kernel launches = global layers x the passes that
+     hold all four rows (identity rows; other passes gather), full
+     streams, TTFT,
      the agreement with each request's ``generate`` (a count), and each
      stream held to (b)'s weights on a static app fed its tokens (the
      logit-deficit gate of 19 (b)); (d)
@@ -419,6 +421,37 @@ nvcc per source, all started together), then:
      equal results (host us per call); (d) fp32 at 4 layers (TF32 off):
      restored and handed-off streams equal the single engine's; an fp8
      (e4m3) pool's restores read back bit for bit.
+ 25. the decode pipeline, the ``pipeline`` group: Llama-3.2-1B at full
+     width and depth, bf16, random weights from seed 0, phase 3's four
+     prompt lengths each twice at batch 8 (``seq_len`` 2048, no prefix
+     caching), served by ``PagedEngineAdapter`` (two-phase; its T = 1
+     graph runs the paged kernel) and ``ContinuousBatchingAdapter`` (all
+     8 rows every step: the identity rows, so the contiguous decode
+     kernel) over the same weights, each after ``precompile``: (a)
+     ``pipeline_depth=1`` streams equal ``pipeline_depth=0``'s token for
+     token; (b) every pipelined ``_dispatch_decode`` runs under
+     ``torch.cuda.set_sync_debug_mode("error")`` (wrapped by the phase)
+     and no staging fill of the graphs waits on the card; each kernel's
+     launches = layers x the pipelined dispatches, replays counted, and
+     the kernel is held to its twin and timed at the served shapes; (c)
+     host ms a step, device ms a dispatch (CUDA events around each
+     dispatch) and the card's idle share at depths 0 and 1, untraced, and
+     on the continuous-batching adapter again with the identity rule off
+     (the gather path at the full batch); (d)
+     with a registry on the app and the adapter: ``nxdi_run_seconds`` has
+     host and device parts (``paged``, ``decode``),
+     ``nxdi_device_sampled_rows_total`` equals the rows dispatched,
+     ``nxdi_dispatch_depth`` reads 1 with a step in flight and 0 after
+     ``flush``, and the ``nxdi_host_overlap_seconds`` median; (e)
+     ``telemetry.observatory.analyze_app`` over the paged app: the cache
+     untouched, the ``w1xb8`` decode graph's flops within
+     TOL_OBSERVATORY_FLOPS_REL of the analytic count (weights and lm head
+     times rows, plus the paged kernel's formula), its bytes at least the
+     weights', the captured graph's capture seconds and pool bytes, the
+     H100's figures in the roofline; (f) a continuous batch with a free
+     row (row 0 pads it: the gather path) gives equal streams at both
+     depths, and neither app records a steady-state incident; the group
+     within its 60 s budget.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
 21, 22, 23, 24 and the fp32 app of 6)
@@ -429,10 +462,11 @@ Every line before the last is one JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero and prints no last line. Without a CUDA card it exits 2.
 ``--only`` runs a subset of the phase groups (kernels: 2; paged: 3-5;
-contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it builds phase 9's
-app; spec: 12, 13, 22 — alone, 12 (a) builds its own app; moe: 14; oss:
-15; long: 16; mla: 17; quant: 18; dense: 19; moe_families: 20;
-contrib_moe: 21; lora: 23) and then prints no ``ok`` line.
+pipeline: 25; contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it
+builds phase 9's app; spec: 12, 13, 22 — alone, 12 (a) builds its own
+app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
+moe_families: 20; contrib_moe: 21; lora: 23) and then prints no ``ok``
+line.
 """
 
 from __future__ import annotations
@@ -1043,8 +1077,13 @@ TOL_DENSE_PATHS_FP32_REL = 1e-4
 #   control must part by more than TOL_QUANT_CONTROL_REL (1e-2).
 TOL_MOE_FAMILIES_PATHS_FP32_REL = 1e-4
 
-HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the H100 SXM data sheet's peaks, kept by the compiled-graph observatory
+from neuronx_distributed_inference_tpu_torch.telemetry.observatory import \
+    DEVICE_PEAKS  # noqa: E402
+
+HBM_BYTES_PER_S = DEVICE_PEAKS["H100"]["hbm_gbps"] * 1e9
+PEAK_FLOPS = {k: v * 1e12
+              for k, v in DEVICE_PEAKS["H100"]["peak_tflops"].items()}
 
 
 T_START = time.perf_counter()
@@ -4763,13 +4802,14 @@ def serve_cb(ad, prompts, new_tokens, sync):
         done = [r for r in ad.seqs if len(streams[owner[r]]) >= new_tokens]
         if done:
             ad.release(done)
+        rows = len(ad.seqs)
         if ad.seqs:
             for row, tok in ad.step().items():
                 streams[owner[row]].append(tok)
         sync()
         recs.append({"pass": p, "kind": "admit" if admit else "decode",
                      "ms": (time.perf_counter() - t0) * 1e3,
-                     "traced": False})
+                     "rows": rows, "traced": False})
         p += 1
         if p > 100 * len(prompts):
             raise AssertionError("the adapter made no progress")
@@ -4780,9 +4820,11 @@ def phase_long_oss_serving(hf, device, app):
     """16 (c): (b)'s weights behind ``ContinuousBatchingAdapter`` (the app
     built with ``is_continuous_batching=True``, after ``precompile``):
     phase 9's 8 requests of 37-1900 tokens over batch 4, 48 new tokens
-    each. Decode takes the gather path (rows by seq_id, as the
-    reference's kernel gate requires identity rows): no decode kernel
-    launch while serving. Gates: full in-vocab streams, no incident, and
+    each. A pass that holds all four rows (the identity rows, in order)
+    takes the decode kernel on the global stack, one launch a global
+    layer; any other pass gathers the rows by seq_id (the reference's
+    continuous batching always gathers). Gates: decode-kernel launches =
+    global layers x full passes, full in-vocab streams, no incident, and
     each stream held to (b)'s weights on a static app (the decode kernel)
     fed its tokens: every token within TOL_SERVED_DEFICIT_BF16 logit stds
     of the top logit, within TOL_SERVED_MEAN_DEFICIT_BF16 on average
@@ -4811,9 +4853,12 @@ def phase_long_oss_serving(hf, device, app):
         if len(st) != new or not all(0 <= t < hf["vocab_size"] for t in st):
             raise AssertionError(f"long_oss_cb: stream {i} has {len(st)} "
                                  "tokens")
-    if counts["decode_attention_stacked"] != 0:
+    full = sum(1 for r in recs if r["rows"] == len(OSS_LONG["lens"]))
+    want_launches = n_global_layers(hf) * full
+    if counts["decode_attention_stacked"] != want_launches:
         raise AssertionError(f"long_oss_cb: decode kernel launched "
-                             f"{counts} under continuous batching")
+                             f"{counts} times, not {want_launches} (global "
+                             f"layers x {full} full passes)")
     want = np.stack([app.generate(np.asarray([p]), max_new_tokens=new)[
         "generated"][0] for p in prompts])
     equal, prefix = agreement(np.asarray(streams), want)
@@ -4821,7 +4866,7 @@ def phase_long_oss_serving(hf, device, app):
           "prompt_lens": list(lens), "new_tokens": new,
           "passes": {k: pass_summary(recs, k) for k in ("admit", "decode")},
           "ttft_s": [ttft[i] for i in range(len(prompts))],
-          "launches": counts, "host_stats": {
+          "launches": counts, "full_passes": full, "host_stats": {
               k: v for k, v in ad.host_stats.items() if isinstance(v, int)},
           "streams_equal_generate_bf16": equal,
           "equal_prefix_tokens": prefix, "gate": "deficit"})
@@ -9922,9 +9967,358 @@ def phase_tier_group(device, app=None):
     return entries
 
 
-GROUPS = ("kernels", "paged", "contig", "ragged", "tier", "spec", "moe",
-          "oss", "long", "mla", "quant", "dense", "moe_families",
-          "contrib_moe", "lora")
+# ---------------------------------------------------------------------------
+# Phase 25: the depth-1 decode pipeline, the run telemetry, the observatory
+# ---------------------------------------------------------------------------
+
+# phase 3's four prompt lengths, each twice, at batch 8; 24 decode calls a
+# run; the telemetry runs take 6; the group's hard budget in seconds
+PIPE25 = dict(lens=PROMPT_LENS * 2, batch=8, seq_len=2048, steps=24,
+              tel_steps=6, budget_s=60.0)
+TOL_OBSERVATORY_FLOPS_REL = 0.05     # 25 (e): the decode graph's count
+
+
+class DispatchProbe:
+    """Wraps an adapter's ``_dispatch_decode`` (the phase's, not the
+    package's): ``timed`` records a CUDA event before and after each
+    dispatch (an event is stamped when the stream reaches it, so an idle
+    gap before a dispatch falls outside its window); ``guard`` runs each
+    dispatch under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    host-device sync inside it raises). Counts the dispatches."""
+
+    def __init__(self, ad, timed=False, guard=False):
+        import torch
+        self.events = []
+        self.dispatches = 0
+        inner = ad._dispatch_decode
+
+        def wrapped(*a, **k):
+            self.dispatches += 1
+            if timed:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            if guard:
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*a, **k)
+            finally:
+                if guard:
+                    torch.cuda.set_sync_debug_mode(prev)
+            if timed:
+                e1 = torch.cuda.Event(enable_timing=True)
+                e1.record()
+                self.events.append((e0, e1))
+            return out
+        ad._dispatch_decode = wrapped
+
+    def device(self):
+        """(device ms a dispatch, the card's idle share from the first
+        dispatch's start to the last one's end)."""
+        busy = sum(a.elapsed_time(b) for a, b in self.events)
+        span = self.events[0][0].elapsed_time(self.events[-1][1])
+        return busy / len(self.events), 1.0 - busy / span
+
+
+def pipeline_serve(ad, prompts, steps, sync):
+    """Admit every prompt at once (rows 0..n-1), then ``steps`` calls of
+    ``step()`` and a ``flush()``: ({row: tokens}, host ms a step call over
+    the decode loop). A pipelined adapter delivers the same count: its
+    first call returns nothing, ``flush`` the last step's tokens."""
+    rows = list(range(len(prompts)))
+    got = {s: [t] for s, t in ad.add_requests(rows, prompts).items()}
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        for s, t in ad.step().items():
+            got[s].append(t)
+    for s, t in ad.flush().items():
+        got[s].append(t)
+    sync()
+    return got, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def decode_graph_flops(hf, rows, keys):
+    """2 x the multiply-adds of one T = 1 step over ``rows`` (every
+    layer's weights and the lm head), plus the paged kernel's formula (QK
+    and PV over ``keys`` prior keys and the active token, each row, each
+    layer)."""
+    h, i = hf["hidden_size"], hf["intermediate_size"]
+    hq, d = hf["num_attention_heads"], hf["head_dim"]
+    q, kv = hq * d, hf["num_key_value_heads"] * d
+    layers = hf["num_hidden_layers"]
+    per_token = h * (q + 2 * kv) + q * h + 3 * h * i
+    return (2 * rows * (layers * per_token + h * hf["vocab_size"])
+            + layers * 4 * (rows * keys + rows) * hq * d)
+
+
+def pipeline_telemetry(phase, app, cls, prompts, steps, sync, kind):
+    """25 (d): a short pipelined run with a registry on the app and the
+    adapter. ``nxdi_dispatch_depth`` reads 1 after each dispatch and 0
+    after ``flush``; ``nxdi_run_seconds`` holds host and device parts for
+    ``kind``; ``nxdi_device_sampled_rows_total`` per kind equals the rows
+    the app's steps were given (counted by a spy on its ``_run_*``).
+    Returns the overlap histogram's median bucket and mean (seconds)."""
+    import numpy as np
+    from neuronx_distributed_inference_tpu_torch.telemetry import (
+        MetricsRegistry, metrics)
+    reg = MetricsRegistry()
+    rows = {}
+    spied = {m: k for m, k in (("_run_paged", "paged"),
+                               ("_run_prefill", "prefill"),
+                               ("_run_decode", "decode"))
+             if hasattr(app, m)}
+    for meth, k in spied.items():
+        inner = getattr(app, meth)
+
+        def spy(ids, *a, _inner=inner, _k=k, **kw):
+            b, t = (tuple(np.shape(ids)) + (1,))[:2]
+            rows[_k] = rows.get(_k, 0) + b * (t if _k == "decode" else 1)
+            return _inner(ids, *a, **kw)
+        setattr(app, meth, spy)
+    app.telemetry = reg
+    ad = cls(app, pipeline_depth=1, telemetry=reg)
+    try:
+        engine = ad.engine_name
+        ad.add_requests(list(range(len(prompts))), prompts)
+        depth = []
+        for _ in range(steps):
+            ad.step()
+            depth.append(reg.get(metrics.DISPATCH_DEPTH).get(engine=engine))
+        ad.flush()
+        depth.append(reg.get(metrics.DISPATCH_DEPTH).get(engine=engine))
+        sync()
+        ad.release(list(range(len(prompts))))
+    finally:
+        app.telemetry = None
+        for meth in spied:
+            delattr(app, meth)
+    hist = reg.get(metrics.RUN_SECONDS)
+    parts = {p: hist.count(kind=kind, part=p) for p in ("host", "device")}
+    sampled = {k: reg.get(metrics.DEVICE_SAMPLED_ROWS_TOTAL).get(kind=k)
+               for k in rows}
+    over = reg.get(metrics.HOST_OVERLAP_SECONDS)
+    n = over.count(engine=engine)
+    out = {"dispatch_depth_after_each_step": depth,
+           "run_seconds_counts": parts, "sampled_rows": sampled,
+           "rows_dispatched": rows, "overlaps": n,
+           "overlap_median_bucket_s": over.percentile(0.5, engine=engine),
+           "overlap_mean_s": over.sum(engine=engine) / max(n, 1)}
+    emit({"phase": phase + "_telemetry", **out})
+    if depth != [1.0] * steps + [0.0]:
+        raise AssertionError(f"{phase}: dispatch depth {depth}")
+    if not (parts["host"] and parts["host"] == parts["device"]):
+        raise AssertionError(f"{phase}: run seconds {parts} for {kind}")
+    if sampled != {k: float(v) for k, v in rows.items()}:
+        raise AssertionError(f"{phase}: sampled rows {sampled} != {rows}")
+    if n != steps:
+        raise AssertionError(f"{phase}: {n} overlaps for {steps} fetches")
+    return out
+
+
+def pipeline_cb_extra(app, prompts, cfg, sync, on_card):
+    """25 (c), (f) on the continuous-batching app. (c) the full batch in
+    order at both depths with the identity rule off (every step on the
+    gather path, as the reference's continuous batching runs), timed as
+    with it on. (f) a batch with a free row (the last prompt left out:
+    row 0 pads it, the gather path) at both depths: equal streams, and no
+    steady-state incident after ``precompile``."""
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    rows = list(range(len(prompts)))
+    off = {}
+    app._identity_rows = lambda sid, t=1: False
+    try:
+        for depth in (0, 1):
+            ad = ContinuousBatchingAdapter(app, pipeline_depth=depth)
+            probe = DispatchProbe(ad, timed=on_card)
+            _, host_ms = pipeline_serve(ad, prompts, cfg["steps"], sync)
+            ad.release(rows)
+            dev_ms, idle = probe.device() if on_card else (None, None)
+            off[depth] = {"host_ms_per_step": host_ms,
+                          "device_ms_per_dispatch": dev_ms,
+                          "idle_share": idle}
+    finally:
+        del app._identity_rows
+    free = {}
+    for depth in (0, 1):
+        ad = ContinuousBatchingAdapter(app, pipeline_depth=depth)
+        free[depth], _ = pipeline_serve(ad, prompts[:-1], cfg["tel_steps"],
+                                        sync)
+        ad.release(rows[:-1])
+    emit({"phase": "pipeline_cb_rule_off", "timing": off,
+          "free_row_streams_equal": free[0] == free[1]})
+    if free[0] != free[1]:
+        raise AssertionError("pipeline_cb_free_row: depth 1 streams part "
+                             "from depth 0's")
+    check_no_incidents("pipeline_cb_free_row", app)
+    return off
+
+
+def phase_pipeline(device, hf=LLAMA_3_2_1B, cfg=PIPE25, on_card=True):
+    """Phase 25 (the ``pipeline`` group): Llama-3.2-1B at full width and
+    depth, bf16, random weights from seed 0, batch 8, served by the paged
+    adapter (two-phase; decode through the paged kernel) and the
+    continuous-batching adapter (every step holds all 8 rows: the
+    contiguous decode kernel), both over captured graphs. (a) streams at
+    ``pipeline_depth=1`` equal depth 0's, token for token; (b) every
+    pipelined dispatch runs under the sync debug mode "error", and no
+    staging fill waits on the card; (c) host ms a step, device ms a
+    dispatch (CUDA events) and the idle share at depths 0 and 1,
+    untraced, and on the continuous-batching app with the identity rule
+    off; (d) :func:`pipeline_telemetry`; (e) the observatory over the
+    paged app; (f) a continuous batch with a free row (:func:`
+    pipeline_cb_extra`), and no steady-state incident on either app.
+    Returns the kernels-line entries of both decode kernels with this
+    phase's launches (the guarded pipelined runs)."""
+    import numpy as np
+    import torch
+    from neuronx_distributed_inference_tpu_torch.serving import (
+        ContinuousBatchingAdapter, PagedEngineAdapter)
+    from neuronx_distributed_inference_tpu_torch.telemetry import \
+        observatory
+    t_start = time.perf_counter()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(1, hf["vocab_size"], size=n).tolist()
+               for n in cfg["lens"]]
+    rows = list(range(len(prompts)))
+    papp = make_app(hf, device, "bfloat16", batch=cfg["batch"],
+                    seq_len=cfg["seq_len"], prefix_caching=False)
+    papp.init_random_weights(0)
+    capp = make_contiguous_app(hf, device, "bfloat16", batch=cfg["batch"],
+                               seq_len=cfg["seq_len"], cb=True)
+    capp.params = papp.params
+    warm(papp, "pipeline_paged")
+    warm(capp, "pipeline_cb")
+    entries, timing = [], {}
+    layers = hf["num_hidden_layers"]
+    for name, app, cls, kernel in (
+            ("paged", papp, PagedEngineAdapter, "paged_decode_attention"),
+            ("cb", capp, ContinuousBatchingAdapter,
+             "decode_attention_stacked")):
+        phase = "pipeline_" + name
+        streams, timing[name] = {}, {}
+        for depth in (0, 1):
+            ad = cls(app, pipeline_depth=depth)
+            probe = DispatchProbe(ad, timed=on_card)
+            streams[depth], host_ms = pipeline_serve(ad, prompts,
+                                                     cfg["steps"], sync)
+            ad.release(rows)
+            dev_ms, idle = probe.device() if on_card else (None, None)
+            timing[name][depth] = {
+                "host_ms_per_step": host_ms,
+                "host_ms_per_token": host_ms / len(rows),
+                "device_ms_per_dispatch": dev_ms, "idle_share": idle,
+                "dispatches": probe.dispatches}
+        # (a), (b): depth 1 again under the guard; this run's launches
+        ad = cls(app, pipeline_depth=1)
+        probe = DispatchProbe(ad, guard=on_card)
+        reset_launches([app])
+        guarded, _ = pipeline_serve(ad, prompts, cfg["steps"], sync)
+        launches = kernel_counts([app])[kernel]
+        waits = app.graphs.staging_waits if app.graphs is not None else 0
+        positions = [ad.seqs[s].position for s in rows]
+        for depth, got in ((0, streams[0]), (1, streams[1]),
+                           ("guarded", guarded)):
+            for s in rows:
+                if got[s] != streams[0][s]:
+                    j = next(i for i, (a, b) in enumerate(
+                        zip(got[s], streams[0][s])) if a != b)
+                    raise AssertionError(
+                        f"{phase}: depth {depth} stream {s} parts from "
+                        f"depth 0 at token {j}")
+            if any(len(got[s]) != cfg["steps"] + 1 for s in rows):
+                raise AssertionError(f"{phase}: short stream at {depth}")
+        want = layers * probe.dispatches if on_card else 0
+        emit({"phase": phase, "streams_equal": True,
+              "tokens_per_stream": cfg["steps"] + 1,
+              "dispatches": probe.dispatches, "launches": launches,
+              "expected_launches": want, "staging_waits": waits,
+              "timing": timing[name],
+              "host_stats": {k: v for k, v in ad.host_stats.items()
+                             if isinstance(v, int)}})
+        if launches != want:
+            raise AssertionError(f"{phase}: {kernel} launches {launches} "
+                                 f"!= layers x dispatches {want}")
+        if waits:
+            raise AssertionError(f"{phase}: {waits} staging fills waited")
+        if on_card and name == "paged":
+            table = papp.kv_mgr.block_table_array(rows, papp._bt_width(
+                len(rows)))
+            t = time_paged_kernel(papp, table, positions, device, seed=25)
+            emit({"phase": phase + "_kernel", **t["report"],
+                  "launches": launches})
+            entries.append(paged_kernel_entry(t, launches, phase))
+        elif on_card:
+            entries.append(dict(b2_entry(phase, device, capp.cache,
+                                         positions, capp.spec, launches),
+                                path=phase))
+        ad.release(rows)
+        if name == "cb":
+            timing[name]["rule_off"] = pipeline_cb_extra(
+                app, prompts, cfg, sync, on_card)
+        pipeline_telemetry(phase, app, cls, prompts, cfg["tel_steps"], sync,
+                           "paged" if name == "paged" else "decode")
+        check_no_incidents(phase, app)
+    # (e) the observatory over the paged app: no state touched
+    cache = {k: v.clone() for k, v in papp.cache.items()}
+    rep = observatory.analyze_app(papp)
+    for k, v in papp.cache.items():
+        if not torch.equal(v, cache[k]):
+            raise AssertionError(f"pipeline_observatory: cache {k} moved")
+    del cache
+    b = cfg["batch"]
+    g = next(x for x in rep["graphs"]
+             if (x["kind"], x["bucket"]) == ("paged", f"w1xb{b}"))
+    want = decode_graph_flops(hf, b, papp.max_blocks
+                              * papp.kv_mgr.spec.block_size)
+    rel = abs(g["flops"] - want) / want
+    weight_bytes = param_bytes(papp.params)
+    emit({"phase": "pipeline_observatory", "totals": rep["totals"],
+          "assumptions": rep["assumptions"], "device": rep["device"],
+          "decode_graph": g, "analytic_flops": want, "flops_rel_err": rel,
+          "tol": TOL_OBSERVATORY_FLOPS_REL, "weight_bytes": weight_bytes,
+          "graphs": [[x["kind"], x["bucket"], x["compile_seconds"],
+                      x["flops"], x["bytes_accessed"],
+                      (x["memory"] or {}).get("peak_bytes")]
+                     for x in rep["graphs"]]})
+    if not rel <= TOL_OBSERVATORY_FLOPS_REL:
+        raise AssertionError(f"pipeline_observatory: decode flops "
+                             f"{g['flops']} vs analytic {want}")
+    if not g["bytes_accessed"] >= weight_bytes:
+        raise AssertionError("pipeline_observatory: bytes below the "
+                             "weights'")
+    if on_card:
+        if not (g["compile_seconds"] > 0 and g["memory"]
+                and g["memory"]["peak_bytes"] > 0):
+            raise AssertionError("pipeline_observatory: the captured decode "
+                                 f"graph reports {g['compile_seconds']} s, "
+                                 f"{g['memory']}")
+        for x in rep["graphs"]:
+            if (x["memory"] is None) != (x["compile_seconds"] == 0.0):
+                raise AssertionError(f"pipeline_observatory: {x}")
+        h100 = DEVICE_PEAKS["H100"]
+        if "H100" in rep["device"] and (
+                rep["assumptions"]["hbm_gbps"] != h100["hbm_gbps"]
+                or rep["assumptions"]["peak_tflops"]
+                != h100["peak_tflops"]["bfloat16"]
+                or g["roofline"] is None):
+            raise AssertionError(f"pipeline_observatory: roofline "
+                                 f"{rep['assumptions']}")
+    seconds = time.perf_counter() - t_start
+    emit({"phase": "pipeline_done", "seconds": seconds,
+          "budget_s": cfg["budget_s"]})
+    if on_card and seconds > cfg["budget_s"]:
+        raise AssertionError(f"pipeline group took {seconds:.1f} s, over "
+                             f"its budget of {cfg['budget_s']} s")
+    return entries
+
+
+
+GROUPS = ("kernels", "paged", "pipeline", "contig", "ragged", "tier",
+          "spec", "moe", "oss", "long", "mla", "quant", "dense",
+          "moe_families", "contrib_moe", "lora")
 
 
 def main(argv=None) -> int:
@@ -9968,6 +10362,10 @@ def main(argv=None) -> int:
         del app
         torch.cuda.empty_cache()
         mark("paged")
+    if "pipeline" in only:
+        kernels += phase_pipeline(device)
+        torch.cuda.empty_cache()
+        mark("pipeline")
     if "contig" in only:
         app, ids, mask, counts = phase_contiguous(MISTRAL_7B, device,
                                                   "contiguous_main_path")

@@ -11,6 +11,7 @@ paged ``PagedCausalLMApplication`` built on it (counterpart:
 :649, ``_generate_repadded`` :687,
 ``generate`` :780, ``reset`` :967; ``_flatten_tree`` /
 ``_unflatten_tree`` :1083-1102; ``_finalize_generation`` :1105;
+``_tel_start`` / ``_tel_end`` :383-411;
 ``PagedCausalLMApplication`` :1120-1626, its ``_coupled_sampling`` /
 ``_stream_seeds`` :1163-1178, ``_run_spec_draft`` :1251,
 ``_run_spec_verify`` :1286, ``_run_ragged`` :1330; the
@@ -71,6 +72,14 @@ flight-recorder event with the request traces of the dispatch
 :meth:`~CausalLMApplication.warmup_state`. Eager signatures are never
 incidents. Replacing ``params`` or ``cache`` drops the graphs, which read
 the old tensors.
+
+Every ``_run_*`` is timed as the reference's (``_tel_start`` /
+``_tel_end``, :383-411): with the registry enabled, the host part and the
+device part (a wait on a CUDA event recorded after the dispatch) into
+``nxdi_run_seconds{kind,part}`` and the step's rows into
+``nxdi_device_sampled_rows_total{kind}``; with the flight recorder live a
+``run.<kind>`` slice of the host window. Both off, nothing is timed and
+nothing waits.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed; a missing
 card raises (``device.resolve_device``).
@@ -222,6 +231,42 @@ class CausalLMApplication:
     def telemetry(self, reg):
         self._telemetry_override = reg
 
+    def _tel_start(self):
+        """``perf_counter()`` when telemetry or the flight recorder is
+        live, else None: the disabled path does no timing work and no
+        device wait in :meth:`_tel_end` (reference :383-389)."""
+        if self.telemetry.enabled or trace_mod.get_recorder().enabled:
+            return time.perf_counter()
+        return None
+
+    def _tel_end(self, kind: str, t0, out, n_rows: int) -> None:
+        """Observe one ``_run_*`` call (reference :391-411): the host part
+        (entry to dispatch return) and, only while the registry is
+        enabled, the device part, a wait on a CUDA event recorded after
+        the dispatch (the reference's ``block_until_ready``; on the CPU the
+        step has run by its return) into ``nxdi_run_seconds{kind,part}``,
+        and the rows into ``nxdi_device_sampled_rows_total{kind}``. The
+        flight recorder's ``run.<kind>`` slice covers the host window only:
+        recording never waits on the card."""
+        if t0 is None:
+            return
+        t1 = time.perf_counter()
+        rec = trace_mod.get_recorder()
+        if rec.enabled:
+            rec.complete(f"run.{kind}", t0, cat="app", t1=t1, rows=n_rows)
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        if out["tokens"].device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        t2 = time.perf_counter()
+        hist = tmetrics.run_seconds_histogram(tel)
+        hist.observe(t1 - t0, kind=kind, part="host")
+        hist.observe(t2 - t1, kind=kind, part="device")
+        tmetrics.device_sampled_rows_counter(tel).inc(n_rows, kind=kind)
+
     def _note_jit(self, kind: str, bucket, sig, graph: bool) -> None:
         """Signature accounting (reference ``_note_jit``): the first time a
         (kind, bucket, sig) runs it is a build — here a CUDA-graph capture
@@ -316,20 +361,25 @@ class CausalLMApplication:
         return sampling_params is None and (sc is None or not sc.do_sample)
 
     def _step(self, kind: str, bucket, sig, graph: bool, fn, inputs,
-              sampling_params=None):
+              rows: int, sampling_params=None):
         """Run one step: ``fn(tensors, sampling_params)`` over ``inputs``
         (numpy arrays or device tensors, all int32). A ``graph`` signature
         (a T = 1 step or the draft loop, greedy or coupled) replays its
         captured CUDA graph on the card, with the config's sampling params
-        (``fn(tensors, None)``); everything else runs eagerly."""
+        (``fn(tensors, None)``); everything else runs eagerly. ``rows``:
+        the sampled rows :meth:`_tel_end` counts."""
+        t0 = self._tel_start()
         self._note_jit(kind, bucket, sig, graph)
         if graph and self.graphs is not None:
             if not len(self.graphs):
                 self._reserve_graphs()
-            return self.graphs.run((kind, bucket, sig),
-                                   lambda t: fn(t, None), inputs)
-        return fn({k: self._t(v) for k, v in inputs.items()},
-                  sampling_params)
+            out = self.graphs.run((kind, bucket, sig),
+                                  lambda t: fn(t, None), inputs)
+        else:
+            out = fn({k: self._t(v) for k, v in inputs.items()},
+                     sampling_params)
+        self._tel_end(kind, t0, out, rows)
+        return out
 
     def _reserve_graphs(self):
         """Pin the decode kernels' merge counters at the largest batch
@@ -510,6 +560,7 @@ class CausalLMApplication:
         Returns {"tokens", "last_hidden", ["logits"], ["hidden_states"]}
         on the device."""
         b, s = np.shape(input_ids)
+        t0 = self._tel_start()
         sid = self._seq_ids(b, seq_ids)
         aids = self._lora_adapter_ids(adapter_ids)
         pos = torch.arange(s, dtype=torch.int32,
@@ -517,11 +568,13 @@ class CausalLMApplication:
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
         self._note_jit("prefill", s, (b, s, aids is not None), graph=False)
-        return model_base.context_encoding_step(
+        out = model_base.context_encoding_step(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(input_ids), pos, sid, self._t(seq_lens),
             sampling_params, self.generator, self._inv_freq,
             None if aids is None else self._t(aids))
+        self._tel_end("prefill", t0, out, b)
+        return out
 
     def _run_prefill_windowed(self, input_ids, seq_lens, window: int,
                               sampling_params=None):
@@ -537,6 +590,7 @@ class CausalLMApplication:
                 "windowed_context_encoding is incompatible with rolling / "
                 "mixed per-layer KV caches (slot != position)")
         b, s = np.shape(input_ids)
+        t0 = self._tel_start()
         lens = np.asarray(seq_lens, np.int64)
         sid = self._seq_ids(b, None)
         if sampling_params is None:
@@ -559,7 +613,9 @@ class CausalLMApplication:
             last = torch.where(self._t(hit, torch.bool)[:, None],
                                lg.float(), last)
         sc = self.tpu_config.on_device_sampling_config
-        return {"tokens": sample(last, sc, sampling_params, self.generator)}
+        out = {"tokens": sample(last, sc, sampling_params, self.generator)}
+        self._tel_end("prefill", t0, out, b)
+        return out
 
     def _run_decode(self, input_ids, position_ids, seq_ids=None,
                     sampling_params=None, adapter_ids=None):
@@ -584,7 +640,7 @@ class CausalLMApplication:
         aids = self._lora_adapter_ids(adapter_ids)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
-        identity = not self.tpu_config.is_continuous_batching
+        identity = self._identity_rows(sid, t)
         kernel = model_base.use_contiguous_decode_kernel(
             self.spec, t, b, self.cache, identity)
         view = None if kernel else kv_view
@@ -596,12 +652,31 @@ class CausalLMApplication:
             return model_base.token_generation_step(
                 self.spec, self.tpu_config, self.params, self.cache,
                 x["ids"], x["pos"], x["sid"], sp, self.generator, view,
-                self._inv_freq, x.get("aids"))
+                self._inv_freq, x.get("aids"), identity=identity)
         return self._step("decode", view, sig, t == 1 and greedy, fn,
                           self._with_aids({"ids": input_ids,
                                            "pos": position_ids,
                                            "sid": sid}, aids),
-                          sampling_params)
+                          b * t, sampling_params)
+
+    def _identity_rows(self, sid: np.ndarray, t: int = 1) -> bool:
+        """Whether a decode step of width ``t`` over cache rows ``sid``
+        runs as over the identity rows (cache row b for batch row b):
+        always on a static batch. Under continuous batching only where that
+        admits the contiguous decode kernel: the step holds every cache
+        row in order (a full batch of running rows, as the adapters sort
+        them) and the kernel takes the geometry; every other step keeps
+        the gather path. (A deliberate difference: the reference decides
+        from the config alone, so its continuous batching never takes the
+        kernel. On the H100 the kernel's full-batch step beat the gather's:
+        PERF.md, phase 25 (c).)"""
+        if not self.tpu_config.is_continuous_batching:
+            return True
+        b = len(sid)
+        return (b == self.cache["k"].shape[1]
+                and bool((sid == np.arange(b)).all())
+                and model_base.use_contiguous_decode_kernel(
+                    self.spec, t, b, self.cache, True))
 
     def _run_decode_loop(self, first_tokens, positions, num_steps: int,
                          seq_ids=None, sampling_params=None,
@@ -609,6 +684,7 @@ class CausalLMApplication:
         """``num_steps`` decode steps with the tokens on the device
         (``model_base.decode_loop``, eager)."""
         b = np.shape(first_tokens)[0]
+        t0 = self._tel_start()
         sid = self._seq_ids(b, seq_ids)
         aids = self._lora_adapter_ids(adapter_ids)
         needed = int(np.max(np.asarray(positions))) + num_steps
@@ -617,12 +693,14 @@ class CausalLMApplication:
             sampling_params = self._default_sampling_params(b)
         self._note_jit("decode_loop", num_steps, (b, aids is not None),
                        graph=False)
-        return model_base.decode_loop(
+        out = model_base.decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions), sid, sampling_params,
             self.generator, num_steps=num_steps,
             kv_view=self._kv_bucket(needed), inv_freq=self._inv_freq,
             adapter_ids=None if aids is None else self._t(aids))
+        self._tel_end("decode_loop", t0, out, b * num_steps)
+        return out
 
     def warmup(self):
         """Walk the warm-up plan of ``serving/warmup.py`` (every graph
@@ -1049,7 +1127,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                               {"ids": input_ids, "pos": position_ids,
                                "slots": slot_mapping, "bt": block_table,
                                "last": last_idx}, seeds, aids),
-                          sampling_params)
+                          b, sampling_params)
 
     def _run_ragged(self, input_ids, position_ids, slot_mapping,
                     block_table, widths, emit_modes, sampling_params=None,
@@ -1094,7 +1172,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                               {"ids": input_ids, "pos": pos,
                                "slots": slot_mapping, "bt": block_table,
                                "wid": wid, "emit": emit}, seeds, aids),
-                          sampling_params)
+                          b, sampling_params)
 
     def _run_paged_loop(self, first_tokens, positions, block_table,
                         num_steps: int, sampling_params=None,
@@ -1104,6 +1182,7 @@ class PagedCausalLMApplication(CausalLMApplication):
         must be allocated already."""
         self._check_decode_fits(
             int(np.max(np.asarray(positions))) + num_steps)
+        t0 = self._tel_start()
         b = np.shape(first_tokens)[0]
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
@@ -1112,13 +1191,15 @@ class PagedCausalLMApplication(CausalLMApplication):
         self._note_jit("paged_loop", num_steps,
                        (b, int(np.shape(block_table)[1]), aids is not None),
                        graph=False)
-        return model_base.paged_decode_loop(
+        out = model_base.paged_decode_loop(
             self.spec, self.tpu_config, self.params, self.cache,
             self._t(first_tokens), self._t(positions),
             self._t(block_table), sampling_params, self.generator,
             num_steps=num_steps, inv_freq=self._inv_freq,
             row_seeds=None if seeds is None else self._t(seeds),
             adapter_ids=None if aids is None else self._t(aids))
+        self._tel_end("paged_loop", t0, out, b * num_steps)
+        return out
 
     # -- speculative serving steps (serving/speculation/) ------------------
     def _run_spec_draft(self, first_tokens, positions, block_table, widths,
@@ -1151,7 +1232,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                           self._paged_inputs(
                               {"first": first_tokens, "pos": pos,
                                "bt": block_table, "wid": wid}, seeds, aids),
-                          sampling_params)
+                          b * num_steps, sampling_params)
 
     def _run_spec_verify(self, input_ids, position_ids, slot_mapping,
                          block_table, widths, sampling_params=None,
@@ -1186,7 +1267,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                           self._paged_inputs(
                               {"ids": input_ids, "pos": pos,
                                "slots": slot_mapping, "bt": block_table,
-                               "wid": wid}, seeds, aids), sampling_params)
+                               "wid": wid}, seeds, aids), b, sampling_params)
 
     # -- generation --------------------------------------------------------
     def generate(self, input_ids: np.ndarray,

@@ -12,9 +12,16 @@ of the step. :class:`StepGraphs` captures a step once per signature into a
 pool) and afterwards replays it:
 
   * inputs live in static device buffers, all int32, packed into one
-    buffer that one pinned host staging buffer fills with one
-    host-to-device copy per replay (tensors already on the card are copied
-    into their views on the device);
+    buffer that a pinned host staging buffer fills with one host-to-device
+    copy per replay (tensors already on the card, such as the tokens a
+    pipelined decode step feeds back from the step before it, are copied
+    into their views on the device). Two staging buffers alternate, each
+    with the event of its last copy, so the host never waits for the card
+    before it fills the next one: with one step in flight (the adapters'
+    ``pipeline_depth=1``) the buffer a fill reuses was read by a step the
+    host has already fetched. ``StepGraphs.staging_waits`` counts the
+    fills that found their buffer's copy not yet done (each such fill
+    waits for it);
   * the outputs are the graph's static tensors, copied out on the device
     at each replay, so a caller may keep them across replays (the
     contiguous ``generate`` keeps its tokens on the card);
@@ -23,6 +30,12 @@ pool) and afterwards replays it:
     there, never inside the capture), then captures it; a step's cache
     writes depend only on its inputs, so the repeats write the same values.
     A failed capture raises (there is no eager fall back).
+
+Each signature keeps its capture's wall time (the warm-up calls and the
+capture, :meth:`StepGraphs.capture_seconds`) and the growth of
+``torch.cuda.memory_allocated`` over it (:meth:`StepGraphs.pool_bytes`),
+which the compiled-graph observatory (``telemetry/observatory.py``)
+reports as the signature's build time and memory.
 
 Kernel launches inside a capture are recorded into the graph, not made:
 the kernel wrappers count them as ``<wrapper>.captured``
@@ -41,7 +54,10 @@ the other inputs. So do the rows' LoRA slots (``aids``) of a multi-LoRA
 step: the app's signature tells a step with ids from one without (the
 reference's jit signature, serving/warmup.py:116-122), and each replay
 gathers the factors from the stacked tensors it captured, which an
-adapter swap writes in place. A step reads every tensor of the app's cache, so the
+adapter swap writes in place. A T = 1 step's input tokens may be device
+tensors (a pipelined step's fed-back tokens, int64 as sampled): the
+replay copies them into the int32 static input on the card, with no host
+round trip. A step reads every tensor of the app's cache, so the
 decode graph of a rolling or mixed-cache app holds all of its stacks
 (``k``/``v`` and ``k_l``/``v_l``); the rolling write slot (``pos % w``)
 and the masks are computed on the device from the static position input,
@@ -54,6 +70,7 @@ a replay would repeat the captured draw.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
@@ -73,8 +90,9 @@ _WARMUP_CALLS = 2
 
 class _Graph:
     """One captured step: its static input views (one int32 device buffer
-    filled from one pinned host buffer), the graph, its static outputs and
-    the kernel launches it holds."""
+    filled from one of two alternating pinned host buffers), the graph,
+    its static outputs, the kernel launches it holds, and its capture's
+    seconds and memory growth."""
 
     def __init__(self, device: torch.device,
                  shapes: Mapping[str, tuple]):
@@ -85,36 +103,47 @@ class _Graph:
             size = int(np.prod(shape, dtype=np.int64))
             self._offsets[name] = (n, size)
             n += size
-        self.host = torch.empty(max(n, 1), dtype=torch.int32,
-                                pin_memory=True)
-        self._host_np = self.host.numpy()
+        self._staging = [torch.empty(max(n, 1), dtype=torch.int32,
+                                     pin_memory=True) for _ in range(2)]
+        self._staging_np = [h.numpy() for h in self._staging]
+        self._copied: list = [None, None]
+        self._next = 0
         self.dev = torch.empty(max(n, 1), dtype=torch.int32, device=device)
         self.static = {name: self.dev[o:o + size].view(self.shapes[name])
                        for name, (o, size) in self._offsets.items()}
-        self._copied: Optional[torch.cuda.Event] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Dict[str, torch.Tensor] = {}
         self.kernel_launches: Dict[str, int] = {}
+        self.capture_s = 0.0
+        self.pool_bytes = 0
 
-    def load(self, inputs: Mapping[str, Any]) -> None:
-        """Fill the static inputs: numpy arrays through the pinned buffer
-        (one copy), device tensors by a copy on the card."""
-        if self._copied is not None:
-            # the previous copy out of the pinned buffer must be done
-            # before the host overwrites it
-            self._copied.synchronize()
+    def load(self, inputs: Mapping[str, Any]) -> bool:
+        """Fill the static inputs: numpy arrays through the next pinned
+        staging buffer (one copy), device tensors by a copy on the card.
+        Returns True when the buffer's previous copy was still running (the
+        fill then waited for it)."""
+        i = self._next
+        self._next ^= 1
+        waited = False
+        ev = self._copied[i]
+        if ev is not None and not ev.query():
+            # the card has not yet read this buffer's previous fill
+            ev.synchronize()
+            waited = True
         on_card = []
+        host = self._staging_np[i]
         for name, x in inputs.items():
             if isinstance(x, torch.Tensor):
                 on_card.append((name, x))
                 continue
             o, size = self._offsets[name]
-            self._host_np[o:o + size] = np.asarray(x).reshape(-1)
-        self.dev.copy_(self.host, non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record()
+            host[o:o + size] = np.asarray(x).reshape(-1)
+        self.dev.copy_(self._staging[i], non_blocking=True)
+        ev = self._copied[i] = torch.cuda.Event()
+        ev.record()
         for name, x in on_card:
             self.static[name].copy_(x.reshape(self.shapes[name]))
+        return waited
 
 
 class StepGraphs:
@@ -132,6 +161,7 @@ class StepGraphs:
         self._pool = None
         self.replays: Dict[Any, int] = {}
         self._replayed: Dict[str, int] = {k: 0 for k in KERNELS}
+        self.staging_waits = 0
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -143,6 +173,17 @@ class StepGraphs:
         """Kernel launches one replay of ``sig``'s graph makes."""
         return dict(self._graphs[sig].kernel_launches)
 
+    def capture_seconds(self, sig) -> float:
+        """Wall seconds of ``sig``'s capture: its warm-up calls and the
+        capture itself."""
+        return self._graphs[sig].capture_s
+
+    def pool_bytes(self, sig) -> int:
+        """Growth of ``torch.cuda.memory_allocated`` over ``sig``'s
+        capture: the memory its graph holds (outputs, staging and the
+        pool blocks it keeps)."""
+        return self._graphs[sig].pool_bytes
+
     def replayed_launches(self, name: str) -> int:
         """Launches of kernel ``name`` made by replays since the last
         :meth:`reset_counts` (graphs dropped since included)."""
@@ -151,6 +192,7 @@ class StepGraphs:
     def reset_counts(self) -> None:
         self.replays = {}
         self._replayed = {k: 0 for k in KERNELS}
+        self.staging_waits = 0
 
     def clear(self) -> None:
         """Drop every graph (their inputs, outputs and pool memory go with
@@ -171,8 +213,8 @@ class StepGraphs:
         if g is None:
             g = self._capture(fn, inputs)
             self._graphs[sig] = g
-        else:
-            g.load(inputs)
+        elif g.load(inputs):
+            self.staging_waits += 1
         g.graph.replay()
         self.replays[sig] = self.replays.get(sig, 0) + 1
         for name, n in g.kernel_launches.items():
@@ -182,6 +224,8 @@ class StepGraphs:
     def _capture(self, fn, inputs: Mapping[str, Any]) -> _Graph:
         shapes = {k: tuple(np.shape(v)) if not isinstance(v, torch.Tensor)
                   else tuple(v.shape) for k, v in inputs.items()}
+        t0 = time.perf_counter()
+        mem0 = torch.cuda.memory_allocated(self.device)
         g = _Graph(self.device, shapes)
         g.load(inputs)
         cur = torch.cuda.current_stream(self.device)
@@ -203,4 +247,6 @@ class StepGraphs:
         g.kernel_launches = {k: w.captured - before[k]
                              for k, w in KERNELS.items()
                              if w.captured != before[k]}
+        g.capture_s = time.perf_counter() - t0
+        g.pool_bytes = torch.cuda.memory_allocated(self.device) - mem0
         return g

@@ -1176,13 +1176,16 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 
 def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
                    position_ids, seq_ids, kv_view, inv_freq, side=None,
-                   adapter_ids=None):
+                   adapter_ids=None, identity: Optional[bool] = None):
     """Inputs of a decode step: RoPE, rows, the kernel decision and its
     lengths, the masks. The rolling cache's mask maps slots back to the
     positions they hold; the mixed cache adds the local stack's rolling
     ``mask_l`` (model_base.py:1806-1830). Every mask is built on the
-    device from ``position_ids``."""
-    identity = not tpu_cfg.is_continuous_batching
+    device from ``position_ids``. ``identity``: the caller's host-side
+    word that ``seq_ids`` are the identity over the whole cache (default:
+    a static batch is, continuous batching is not)."""
+    if identity is None:
+        identity = not tpu_cfg.is_continuous_batching
     ai = attn_inputs(spec, position_ids, inv_freq)
     ai.update(seq_ids=seq_ids, positions=position_ids, identity=identity,
               kv_view=kv_view, side=side, adapter_ids=adapter_ids)
@@ -1210,14 +1213,17 @@ def token_generation_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                           sampling_params=None, generator=None,
                           kv_view: Optional[int] = None,
                           inv_freq: Optional[torch.Tensor] = None,
-                          adapter_ids: Optional[torch.Tensor] = None):
+                          adapter_ids: Optional[torch.Tensor] = None,
+                          identity: Optional[bool] = None):
     """Decode (model_base.py:1789). input_ids/position_ids (B, T); seq_ids
     (B,) cache rows; adapter_ids (B,) the rows' LoRA slots or None. ``kv_view``: the gather path reads only cache slots
     [0, kv_view) (of the global stack on the mixed cache); writes address
-    the whole cache. Writes the cache in place; returns {"tokens": (B,)}
-    plus {"logits": (B, T, vocab)}."""
+    the whole cache. ``identity``: see :func:`_decode_inputs`. Writes the
+    cache in place; returns {"tokens": (B,)} plus {"logits": (B, T,
+    vocab)}."""
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids,
-                        kv_view, inv_freq, adapter_ids=adapter_ids)
+                        kv_view, inv_freq, adapter_ids=adapter_ids,
+                        identity=identity)
     hidden = _embed(spec, params, input_ids)
     if spec.mixed_kv:
         hidden = run_layers_mixed_decode(spec, params, cache, hidden, ai)

@@ -30,14 +30,24 @@ A wrapper called while its stream is being captured into a CUDA graph
 (``models/cuda_graphs.py``) records the launch into the graph: it adds one
 to ``<wrapper>.captured`` instead of ``<wrapper>.launches``, and the graph
 cache counts the launches of its replays.
+
+Given fake tensors (``torch._subclasses.FakeTensor``: a FakeTensorMode
+trace, such as the compiled-graph observatory's, ``telemetry/
+observatory.py``) a wrapper returns an empty output of its shape, as a
+fake registration of the kernel would: nothing launches, no twin runs, no
+launch is counted. Each listener opened by :func:`kernel_work_listener`
+hears the call's work, by the kernel's own formula
+(:func:`paged_decode_work`, :func:`stacked_decode_work`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .. import _build
 
@@ -254,6 +264,75 @@ def _splits(want: int, keys: int, head_dim: int) -> int:
     return max(1, min(want, tiles, _MAX_SPLITS))
 
 
+# -- fake tensors ----------------------------------------------------------
+
+_work_listeners: List[Callable[[str, int, int], None]] = []
+
+
+@contextlib.contextmanager
+def kernel_work_listener(fn: Callable[[str, int, int], None]):
+    """While open, ``fn(kernel name, flops, bytes)`` hears every wrapper
+    call on fake tensors (this module's and ``flash_attention``'s)."""
+    _work_listeners.append(fn)
+    try:
+        yield
+    finally:
+        _work_listeners.remove(fn)
+
+
+def fake_result(name: str, work: Callable[..., Tuple[int, int]],
+                out_like: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """A kernel wrapper's call on fake tensors: an empty (fake) output
+    shaped like ``out_like``, contiguous; ``work(*args, **kw)`` (flops,
+    bytes) goes to every open :func:`kernel_work_listener`."""
+    if _work_listeners:
+        flops, nbytes = work(*args, **kw)
+        for fn in _work_listeners:
+            fn(name, flops, nbytes)
+    return torch.empty_like(out_like, memory_format=torch.contiguous_format)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    return isinstance(t, FakeTensor)
+
+
+def _live_keys(capacity: int, window: int) -> int:
+    return min(capacity, window - 1) if window > 0 else capacity
+
+
+def paged_decode_work(q, k_pages, v_pages, new_k, new_v, layer, lens,
+                      block_table, *, window=0, sink=None, **_
+                      ) -> Tuple[int, int]:
+    """(flops, bytes) of one :func:`paged_decode_attention` call, the
+    formula of its bound in PERF.md, at the call's capacity (a static
+    graph knows no lengths): every row reads the keys its block table
+    holds, inside the window; QK and PV over them and the active token."""
+    b, hq, d = q.shape
+    bs, hkv = k_pages.shape[2], k_pages.shape[3]
+    live = _live_keys(block_table.shape[1] * bs, int(window))
+    flops = 4 * (b * live + b) * hq * d
+    nbytes = (2 * b * live * hkv * d * k_pages.element_size()
+              + (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
+              + 4 * b + 4 * b * -(-live // bs)
+              + (4 * hq if sink is not None else 0))
+    return flops, nbytes
+
+
+def stacked_decode_work(q, k_cache, v_cache, new_k, new_v, layer, lens, *,
+                        window=0, sink=None, **_) -> Tuple[int, int]:
+    """(flops, bytes) of one :func:`decode_attention_stacked` call, as
+    :func:`paged_decode_work`: every row reads its whole cache row, inside
+    the window."""
+    b, hq, d = q.shape
+    hkv, s_len = k_cache.shape[2], k_cache.shape[4]
+    live = _live_keys(s_len, int(window))
+    flops = 4 * (b * live + b) * hq * d
+    nbytes = (2 * b * live * hkv * d * k_cache.element_size()
+              + (2 * b * hq * d + 2 * b * hkv * d) * q.element_size()
+              + 4 * b + (4 * hq if sink is not None else 0))
+    return flops, nbytes
+
+
 def _device_check(q):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -330,6 +409,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     _check_common(q, hkv, d, k_pages.dtype, L, new_k, new_v, layer, lens,
                   sink, [k_pages, v_pages, block_table])
     kw = dict(scale=scale, soft_cap=soft_cap, kv_scale=kv_scale)
+    if is_fake(q):
+        return fake_result("paged_decode_attention", paged_decode_work, q,
+                           q, k_pages, v_pages, new_k, new_v, layer, lens,
+                           block_table, window=window, sink=sink)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, new_k, new_v, int(layer), lens, block_table,
@@ -411,6 +494,10 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
     _check_common(q, hkv, d, k_cache.dtype, L, new_k, new_v, layer, lens,
                   sink, [k_cache, v_cache])
     kw = dict(scale=scale, soft_cap=soft_cap, kv_scale=kv_scale)
+    if is_fake(q):
+        return fake_result("decode_attention_stacked", stacked_decode_work,
+                           q, q, k_cache, v_cache, new_k, new_v, layer,
+                           lens, window=window, sink=sink)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(
             q, k_cache, v_cache, new_k, new_v, int(layer), lens,

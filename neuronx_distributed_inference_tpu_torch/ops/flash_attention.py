@@ -14,12 +14,13 @@ kernel of ``csrc/flash_attention.cu``: for bf16 the tensor-core kernel
 (TMA, wgmma), for fp32 the CUDA-core kernel (its header says what bounds
 them on the H100 and what the designs do about that); on CPU tensors it runs
 :func:`flash_attention_plain`. There is no fall back from one to the
-other."""
+other. On fake tensors it returns an empty output of its shape and hands
+its work (:func:`flash_work`) to ``decode_attention``'s listeners."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,6 +87,22 @@ def check_kernel_shapes(q: torch.Tensor, k: torch.Tensor,
                              "every row 16-byte aligned")
 
 
+def flash_work(q, k, v, *, window=0) -> Tuple[int, int]:
+    """(flops, bytes) of one :func:`flash_attention` call, the formula of
+    its bound in PERF.md: QK and PV over the causal (windowed) keys of
+    every query; q, k, v read and the output written once."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    window = int(window)
+    if 0 < window < s:
+        keys = window * (window + 1) // 2 + (s - window) * window
+    else:
+        keys = s * (s + 1) // 2
+    flops = 4 * b * hq * d * keys
+    nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * q.element_size()
+    return flops, nbytes
+
+
 def _kernel_fn():
     fn = _build.load(KERNEL_NAME).nxdi_flash_attention
     if fn.argtypes is None:
@@ -106,8 +123,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.launches`` (``.captured`` inside a CUDA-graph
     capture); they must meet the kernel's shape gate
     (:func:`check_kernel_shapes`). CPU tensors run
-    :func:`flash_attention_plain`."""
+    :func:`flash_attention_plain`; fake tensors an empty output
+    (``decode_attention.fake_result``)."""
     _check_inputs(q, k, v)
+    if decode_attention.is_fake(q):
+        return decode_attention.fake_result("flash_attention", flash_work,
+                                            q, q, k, v, window=window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, window=window,
                                      soft_cap=soft_cap)

@@ -1,10 +1,12 @@
 """Serving adapters — the continuous-batching contract an engine drives
 (counterpart: ``neuronx_distributed_inference_tpu/serving/adapter.py`` —
 ``_SeqState``/``_ChunkState`` :137-180, the helpers :182-243
-(``_meta_seed`` :192, ``_meta_adapter`` :204), ``_AdapterTelemetry``
-:245-456 (``on_spec_step`` :320), the helpers :459-560, ``_CbScratch`` :563,
-``_PagedScratch`` :606, the eager path of ``_EngineAdapterBase``
-:682-903 with ``flush`` :837 and ``debug_state`` :1071,
+(``_meta_seed`` :192, ``_meta_adapter`` :204), ``_Inflight`` :165,
+``_async_fetch`` :236, ``_AdapterTelemetry`` :245-456 (``on_spec_step``
+:320, the pipeline hooks :373-386), the helpers :459-560, ``_CbScratch``
+:563, ``_PagedScratch`` :606, ``_EngineAdapterBase`` :682-1088 (the eager
+path, the depth-1 pipeline :903-1068, ``flush`` :837 and ``debug_state``
+:1071),
 ``ContinuousBatchingAdapter`` :1090-1275 and ``PagedEngineAdapter`` :1277
 with its speculation and ragged routing :1371-1385 and :1540-1670,
 scheduler hooks :1794-1878, the host-RAM KV spill tier :1881-1975, the
@@ -60,11 +62,31 @@ them by the adapter's NAME (:func:`adapter_tier_salt`), a base row by b""
 the pool (``LoraAdapterPool.portable``; a base row after slot 0 was
 written) never reaches a tier or a record.
 
+Decode pipeline (``pipeline_depth``, both adapters):
+
+  * ``pipeline_depth=0`` (default) is the eager path: every ``step()``
+    dispatches and fetches its own tokens;
+  * ``pipeline_depth=1`` keeps the previous dispatch's sampled tokens on
+    the card and feeds them straight into the next decode step (the
+    captured T = 1 graph copies them into its static input on the card),
+    while their copy to a pinned host buffer runs behind it; ``step()``
+    then returns the PREVIOUS step's tokens ({} on the first call) and
+    ``flush()`` drains the last. The host's bookkeeping for step N + 1
+    overlaps the card's work on step N. Token streams equal the eager
+    path's. A live set that changed since the in-flight dispatch (an
+    admission, a release, a preemption) drains it first; a ragged or
+    speculative step, ``step_many`` and ``release`` drain it too;
+  * a device failure of step N surfaces at its fetch, in step N + 1's
+    call, as a :class:`StepFailure` with ``retry_safe=False``: the host
+    bookkeeping of every in-flight step (positions, paged KV growth) is
+    rolled back to the last DELIVERED token (the ``pipeline_flush`` fault
+    point makes this deterministic). The cache itself was written in
+    place by the failed chain.
+
 Telemetry (``telemetry=`` registry, else the process-global one) and the
-fault points ``slow_step``, ``decode_step``, ``prefill_chunk``,
-``spec_draft``, ``spec_verify`` and ``ragged_step`` are those of the
-counterpart. The eager path (``pipeline_depth=0``) is ported; the
-constructor refuses what waits for a later slice: ``pipeline_depth > 0``.
+fault points ``slow_step``, ``decode_step``, ``pipeline_flush``,
+``prefill_chunk``, ``spec_draft``, ``spec_verify`` and ``ragged_step``
+are those of the counterpart.
 
 A step that fails before its dispatch began (an injected fault, a host
 error) raises a ``retry_safe`` :class:`StepFailure`; one that fails inside
@@ -126,6 +148,40 @@ class _ChunkState:
     meta: Any = None
 
 
+@dataclass
+class _Inflight:
+    """One dispatched but not yet fetched decode step (pipeline_depth 1).
+
+    ``states`` pins the exact _SeqState objects the dispatch advanced:
+    retire and rollback apply only where the identity still matches, so a
+    row released (or preempted) and re-admitted under the same seq_id
+    while the step was in flight never receives the stale token."""
+    live: Tuple[int, ...]
+    states: Tuple[_SeqState, ...]
+    b: int
+    pad_to: int
+    out: Dict[str, Any]
+    t_dispatch: float
+    grown: int = 0                # paged KV tokens grown for this dispatch
+
+
+def _async_fetch(out: Dict[str, Any]) -> None:
+    """Start the copy of a dispatch's sampled tokens to the host without
+    waiting: on the card a non-blocking copy into a pinned buffer of its
+    own (one per dispatch, so a later step's copy never overwrites tokens
+    not yet read) and an event recorded behind it, kept in
+    ``out["fetch"]``; on the CPU the tokens are on the host already."""
+    toks = out["tokens"]
+    if toks.device.type != "cuda":
+        out["fetch"] = (toks, None)
+        return
+    host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+    host.copy_(toks, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    out["fetch"] = (host, done)
+
+
 def _meta_tenant(meta: Any) -> str:
     """Tenant label value from an opaque per-request ``meta`` payload (the
     engine passes mappings with a "tenant" key; anything else is "")."""
@@ -173,11 +229,11 @@ def _trace_error(err):
 
 
 class _AdapterTelemetry:
-    """Engine-adapter instrumentation (a copy of the counterpart's, less
-    the pipeline hooks the port does not run): TTFT /
-    per-step decode latency histograms, live-batch and pad-waste
-    accounting, one request span per seq_id. Host-side only; every method
-    is a cheap no-op while telemetry is disabled."""
+    """Engine-adapter instrumentation (a copy of the counterpart's): TTFT
+    / per-step decode latency histograms, live-batch and pad-waste
+    accounting, pipeline depth, overlap and steps per fetch, one request
+    span per seq_id. Host-side only; every method is a cheap no-op while
+    telemetry is disabled."""
 
     def __init__(self, engine: str, telemetry=None):
         self.engine = engine
@@ -294,11 +350,20 @@ class _AdapterTelemetry:
             tmetrics.ragged_pad_waste_gauge(reg).set(
                 1.0 - real_tokens / padded_tokens, engine=self.engine)
 
-    def on_fetch(self, steps: int):
+    def on_dispatch(self, depth: int):
         reg = self.registry
         if reg.enabled:
-            tmetrics.steps_per_fetch_histogram(reg).observe(
-                steps, engine=self.engine)
+            tmetrics.dispatch_depth_gauge(reg).set(depth, engine=self.engine)
+
+    def on_fetch(self, steps: int, overlap_s: Optional[float] = None):
+        reg = self.registry
+        if not reg.enabled:
+            return
+        tmetrics.steps_per_fetch_histogram(reg).observe(steps,
+                                                        engine=self.engine)
+        if overlap_s is not None:
+            tmetrics.host_overlap_histogram(reg).observe(overlap_s,
+                                                         engine=self.engine)
 
     def on_release(self, seq_ids: Sequence[int]):
         reg = self.registry
@@ -463,16 +528,19 @@ class _CbScratch:
         self.sid_p[b:] = live[0]
         self.toks_p = np.empty((pad_to, 1), np.int32)
         self.pos_p = np.empty((pad_to, 1), np.int32)
+        self.gather_idx = None            # _feedback_index
 
-    def fill(self, adapter):
+    def fill(self, adapter, need_tokens: bool = True):
         seqs = adapter.seqs
         for i, s in enumerate(self.live):
             st = seqs[s]
             self.pos_p[i, 0] = st.position
-            self.toks_p[i, 0] = st.last_token
+            if need_tokens:
+                self.toks_p[i, 0] = st.last_token
         if self.pad_to > self.b:
             self.pos_p[self.b:] = self.pos_p[0, 0]
-            self.toks_p[self.b:] = self.toks_p[0, 0]
+            if need_tokens:
+                self.toks_p[self.b:] = self.toks_p[0, 0]
 
 
 class _PagedScratch:
@@ -499,19 +567,22 @@ class _PagedScratch:
         self.bt = np.zeros((pad_to, width), np.int32)
         self.counts = [0] * b
         self._block_size = block_size
+        self.gather_idx = None            # _feedback_index
 
-    def fill(self, adapter):
+    def fill(self, adapter, need_tokens: bool = True):
         seqs = adapter.seqs
         for i, s in enumerate(self.live):
             st = seqs[s]
             self.pos[i, 0] = st.position
-            self.ids[i, 0] = st.last_token
+            if need_tokens:
+                self.ids[i, 0] = st.last_token
         prev0 = self.counts[0]
         adapter.app.kv_mgr.fill_block_table(self.bt[:self.b], self.live,
                                             self.counts)
         if self.pad_to > self.b:
             self.pos[self.b:] = self.pos[0, 0]
-            self.ids[self.b:] = self.ids[0, 0]
+            if need_tokens:
+                self.ids[self.b:] = self.ids[0, 0]
             if self.counts[0] != prev0:
                 self.bt[self.b:] = self.bt[0]
         slots_from_table_into(self.slots, self.bt, self.pos,
@@ -519,18 +590,26 @@ class _PagedScratch:
 
 
 class _EngineAdapterBase:
-    """The eager decode template both adapters share (``step``,
-    ``step_many``, ``flush``); subclasses provide dispatch, scratch
-    construction, KV growth and token bookkeeping."""
+    """The decode machinery both adapters share: the eager step template,
+    the depth-1 decode pipeline (device-resident token feedback, deferred
+    fetch, lookahead-aware rollback) and ``step_many``; subclasses provide
+    dispatch, scratch construction, KV growth and token bookkeeping."""
 
     engine_name = ""
     _decode_failure_msg = "decode device step failed"
+    _step_growth = 0              # paged: KV tokens grown per dispatch
 
-    def _init_host_stats(self):
-        # plain-int host counters (always on). The decode counters count
-        # ONLY decode work; chunked prefill keeps its own prefill_* set
+    def _init_decode_path(self, pipeline_depth: int):
+        if pipeline_depth not in (0, 1):
+            raise ConfigurationError(
+                f"pipeline_depth must be 0 (eager) or 1 (one dispatch of "
+                f"lookahead), got {pipeline_depth!r}")
+        self.pipeline_depth = pipeline_depth
+        self._inflight: Optional[_Inflight] = None
         self._ready: Dict[int, int] = {}
         self._scratch = None
+        # plain-int host counters (always on). The decode counters count
+        # ONLY decode work; chunked prefill keeps its own prefill_* set
         self.host_stats: Dict[str, Any] = {
             "dispatches": 0, "device_steps": 0,
             "blocking_fetches": 0, "blocked_s": 0.0,
@@ -552,6 +631,9 @@ class _EngineAdapterBase:
         return live
 
     def _rollback_step_growth(self, live: Sequence[int], n: int = 1):
+        pass
+
+    def _unwind_inflight_growth(self, rec: _Inflight):
         pass
 
     def _append_token(self, st: _SeqState, tok: int):
@@ -576,10 +658,29 @@ class _EngineAdapterBase:
         return _common_tenant(_meta_tenant(self.seqs[s].meta)
                               for s in seq_ids if s in self.seqs)
 
+    def _note_dispatch(self, scr, toks_dev) -> None:
+        """Count one decode dispatch and mark it on the flight recorder."""
+        self.host_stats["dispatches"] += 1
+        self.host_stats["device_steps"] += 1
+        rec = _get_recorder()
+        if rec.enabled:
+            rec.instant("dispatch.decode", cat="adapter",
+                        engine=self.engine_name, rows=scr.b,
+                        pad_to=scr.pad_to, seq_ids=list(scr.live),
+                        pipelined=toks_dev is not None)
+
     # -- the ONLY places that block on device output -----------------------
     def _fetch_rows(self, out, b: int) -> np.ndarray:
+        """The dispatch's sampled tokens on the host: a wait on the event
+        of its copy (:func:`_async_fetch`, started here when the dispatch
+        did not)."""
         t0 = time.perf_counter()
-        toks = out["tokens"].cpu().numpy()
+        if "fetch" not in out:
+            _async_fetch(out)
+        host, done = out["fetch"]
+        if done is not None:
+            done.synchronize()
+        toks = host.numpy()
         t1 = time.perf_counter()
         self.host_stats["blocking_fetches"] += 1
         self.host_stats["blocked_s"] += t1 - t0
@@ -591,12 +692,117 @@ class _EngineAdapterBase:
 
     # -- decode ------------------------------------------------------------
     def step(self, seq_ids: Optional[Sequence[int]] = None) -> Dict[int, int]:
-        """One decode step for ``seq_ids`` (default: every running row):
-        {seq_id: next token}, plus the first tokens of prefills that
-        completed in this call. Raises :class:`DeadlineExceeded` /
-        :class:`CapacityError` before any device work when a row is over
-        budget, and :class:`StepFailure` when the device step fails (KV
-        growth is rolled back, positions are not advanced)."""
+        """One decode step for ``seq_ids`` (default: every running row).
+
+        Eager (``pipeline_depth=0``): {seq_id: next token} for THIS step,
+        plus the first tokens of prefills that completed in this call.
+        Pipelined (``pipeline_depth=1``): dispatches this step and returns
+        the PREVIOUS step's tokens ({} on the first call after the
+        pipeline empties; :meth:`flush` drains the last). Raises
+        :class:`DeadlineExceeded` / :class:`CapacityError` before any
+        device work when a row is over budget, and :class:`StepFailure`
+        when a device step fails (see the module docstring for the
+        deferred-failure rollback)."""
+        if self.pipeline_depth:
+            return self._step_pipelined(seq_ids)
+        return self._step_eager(seq_ids)
+
+    def step_many(self, num_steps: int,
+                  seq_ids: Optional[Sequence[int]] = None
+                  ) -> Dict[int, List[int]]:
+        """``num_steps`` decode steps in one call of the device loop and
+        one host fetch: {seq_id: [tokens]} in stream order; a pipelined
+        adapter's in-flight token is drained first and leads its row's
+        list. Deadlines and the seq_len guard are enforced once for the
+        whole horizon."""
+        if num_steps < 1:
+            raise ConfigurationError("step_many requires num_steps >= 1")
+        if self._inflight is not None or self._ready:
+            self._stash_flush()
+        # drained tokens stay in _ready until this call is past every
+        # fallible stage: a recoverable failure must not drop them
+        pending = self._pending_ids()
+        live = _live_rows(self.seqs, seq_ids, pending)
+        if not live and not pending:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        if _FAULTS.active:
+            _FAULTS.fire("slow_step")
+        if live:
+            _pre_step_checks(self.seqs, live, self._pos_limit,
+                             self.telemetry, horizon=num_steps)
+        self._advance_prefill(seq_ids)
+        if not live:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        t0 = time.perf_counter()
+        live = self._grow_for_step(live, num_steps)
+        if not live:
+            return {s: [t] for s, t in self._drain_ready().items()}
+        toks, pad_to = self._run_many(live, num_steps)
+        res = {s: [t] for s, t in self._drain_ready().items()}
+        for i, s in enumerate(live):
+            st = self.seqs[s]
+            st.position += num_steps
+            row = [int(t) for t in toks[i]]
+            for t in row:
+                self._append_token(st, t)
+            res.setdefault(s, []).extend(row)
+        self.telemetry.on_step(live, t0, padded=pad_to, steps=num_steps)
+        self.telemetry.on_fetch(num_steps)
+        return res
+
+    def flush(self) -> Dict[int, int]:
+        """Retire the in-flight pipelined dispatch (if any) and hand back
+        every token not yet delivered: {seq_id: token} ({} in eager mode
+        unless a failed call left first tokens behind). A deferred fetch
+        failure aborts the pipeline (StepFailure, ``retry_safe=False``)."""
+        ready = self._drain_ready()
+        rec, self._inflight = self._inflight, None
+        if rec is not None:
+            try:
+                ready.update(self._retire_or_abort([rec]))
+            except BaseException:
+                # the drained tokens were already generated and applied to
+                # host state: keep them deliverable past the failure
+                self._ready = {**ready, **self._ready}
+                raise
+        return ready
+
+    def _drain_ready(self) -> Dict[int, int]:
+        if not self._ready:
+            return {}
+        out, self._ready = self._ready, {}
+        return out
+
+    def _stash_flush(self):
+        """flush() into the pending buffer, so tokens drained by add,
+        release or step_many are handed back by the next returning call
+        instead of being dropped."""
+        for s, t in self.flush().items():
+            self._ready[s] = t
+
+    def _run_guarded(self, live, n: int, run):
+        """Run the fused loop ``run()`` (which fetches its tokens) under
+        the ``decode_step`` fault point; any failure rolls back the
+        horizon's KV growth and raises a typed :class:`StepFailure`."""
+        dispatched = False
+        try:
+            if _FAULTS.active:
+                _FAULTS.fire("decode_step")
+            dispatched = True
+            return run()
+        except ServingError:
+            self._rollback_step_growth(live, n)
+            raise
+        except Exception as e:
+            self._rollback_step_growth(live, n)
+            self.telemetry.on_step_failure("decode", self._tenant_of(live))
+            raise _trace_error(StepFailure(
+                "fused decode loop failed; positions were not advanced",
+                phase="decode", seq_ids=tuple(live),
+                retry_safe=not dispatched)) from e
+
+    # -- eager path --------------------------------------------------------
+    def _step_eager(self, seq_ids) -> Dict[int, int]:
         pending = self._pending_ids()
         live = _live_rows(self.seqs, seq_ids, pending)
         if not live and not pending:
@@ -645,73 +851,159 @@ class _EngineAdapterBase:
         self.telemetry.on_fetch(1)
         return res
 
-    def step_many(self, num_steps: int,
-                  seq_ids: Optional[Sequence[int]] = None
-                  ) -> Dict[int, List[int]]:
-        """``num_steps`` decode steps in one call of the device loop and
-        one host fetch: {seq_id: [tokens]} in stream order. Deadlines and
-        the seq_len guard are enforced once for the whole horizon."""
-        if num_steps < 1:
-            raise ConfigurationError("step_many requires num_steps >= 1")
+    # -- pipelined path ----------------------------------------------------
+    def _step_pipelined(self, seq_ids) -> Dict[int, int]:
         pending = self._pending_ids()
         live = _live_rows(self.seqs, seq_ids, pending)
         if not live and not pending:
-            return {s: [t] for s, t in self._drain_ready().items()}
+            return self.flush()
         if _FAULTS.active:
             _FAULTS.fire("slow_step")
         if live:
             _pre_step_checks(self.seqs, live, self._pos_limit,
-                             self.telemetry, horizon=num_steps)
+                             self.telemetry)
         self._advance_prefill(seq_ids)
         if not live:
-            return {s: [t] for s, t in self._drain_ready().items()}
+            return self.flush()
+        ready = self._drain_ready()
+        try:
+            return self._advance_pipeline(live, ready)
+        except BaseException:
+            # tokens drained (or retired) this call were already generated
+            # and applied to host state: keep them deliverable past a
+            # recoverable failure
+            self._ready = {**ready, **self._ready}
+            raise
+
+    def _advance_pipeline(self, live: List[int],
+                          ready: Dict[int, int]) -> Dict[int, int]:
+        prev, self._inflight = self._inflight, None
+        if prev is not None and not self._matches(prev, live):
+            # the live set changed since the dispatch: drain it first
+            ready.update(self._retire_or_abort([prev]))
+            prev = None
         t0 = time.perf_counter()
-        live = self._grow_for_step(live, num_steps)
+        try:
+            live = self._grow_for_step(live)
+        except ServingError:
+            self._inflight = prev          # growth rolled itself back
+            raise
         if not live:
-            return {s: [t] for s, t in self._drain_ready().items()}
-        toks, pad_to = self._run_many(live, num_steps)
-        res = {s: [t] for s, t in self._drain_ready().items()}
-        for i, s in enumerate(live):
-            st = self.seqs[s]
-            st.position += num_steps
-            row = [int(t) for t in toks[i]]
-            for t in row:
-                self._append_token(st, t)
-            res.setdefault(s, []).extend(row)
-        self.telemetry.on_step(live, t0, padded=pad_to, steps=num_steps)
-        self.telemetry.on_fetch(num_steps)
-        return res
-
-    def flush(self) -> Dict[int, int]:
-        """Hand back every token not yet delivered: {seq_id: token}. The
-        eager path keeps nothing in flight, so this only drains first
-        tokens a failed call left behind."""
-        return self._drain_ready()
-
-    def _drain_ready(self) -> Dict[int, int]:
-        out, self._ready = self._ready, {}
-        return out
-
-    def _run_guarded(self, live, n: int, run):
-        """Run the fused loop ``run()`` (which fetches its tokens) under
-        the ``decode_step`` fault point; any failure rolls back the
-        horizon's KV growth and raises a typed :class:`StepFailure`."""
+            self._inflight = prev
+            return ready
+        if prev is not None and not self._matches(prev, live):
+            # preemption shrank the batch: drain the old composition's
+            # dispatch before re-padding for the new one
+            ready.update(self._retire_or_abort([prev]))
+            prev = None
+        scr = self._scratch_for(live)
+        scr.fill(self, need_tokens=prev is None)
+        toks_dev = None if prev is None else self._feedback_tokens(prev, scr)
         dispatched = False
         try:
             if _FAULTS.active:
                 _FAULTS.fire("decode_step")
             dispatched = True
-            return run()
+            out = self._dispatch_decode(scr, toks_dev)
         except ServingError:
-            self._rollback_step_growth(live, n)
+            self._rollback_step_growth(live)
+            self._scratch = None
+            self._inflight = prev          # the lookahead step is healthy
             raise
         except Exception as e:
-            self._rollback_step_growth(live, n)
+            self._rollback_step_growth(live)
+            self._scratch = None
+            self._inflight = prev
             self.telemetry.on_step_failure("decode", self._tenant_of(live))
             raise _trace_error(StepFailure(
-                "fused decode loop failed; positions were not advanced",
+                self._decode_failure_msg + " at dispatch; the in-flight "
+                "lookahead step was preserved",
                 phase="decode", seq_ids=tuple(live),
                 retry_safe=not dispatched)) from e
+        rec = _Inflight(
+            live=tuple(live), states=tuple(self.seqs[s] for s in live),
+            b=len(live), pad_to=scr.pad_to, out=out, t_dispatch=t0,
+            grown=self._step_growth)
+        for s in live:
+            self.seqs[s].position += 1
+        if prev is not None:
+            ready.update(self._retire_or_abort([prev, rec]))
+        self._inflight = rec
+        self.telemetry.on_dispatch(1)
+        return ready
+
+    def _matches(self, rec: _Inflight, live: Sequence[int]) -> bool:
+        return (rec.live == tuple(live)
+                and all(self.seqs.get(s) is st
+                        for s, st in zip(rec.live, rec.states)))
+
+    def _feedback_tokens(self, prev: _Inflight, scr):
+        """The previous dispatch's sampled tokens, still on the card,
+        re-padded there (pad rows stay clones of row 0) as the next step's
+        (pad_to, 1) input ids: no host round trip. The pad map is a device
+        tensor made once per scratch."""
+        toks = prev.out["tokens"].reshape(-1)
+        if scr.pad_to > scr.b:
+            if scr.gather_idx is None:
+                idx = torch.zeros(scr.pad_to, dtype=torch.long)
+                idx[:scr.b] = torch.arange(scr.b)
+                if toks.device.type == "cuda":
+                    idx = idx.pin_memory()
+                scr.gather_idx = idx.to(toks.device, non_blocking=True)
+            toks = toks.index_select(0, scr.gather_idx)
+        return toks[:, None]
+
+    def _retire(self, rec: _Inflight) -> Dict[int, int]:
+        """Fetch ``rec``'s tokens (the one blocking wait of the pipelined
+        path) and apply the deferred host bookkeeping. Raises the raw
+        fetch failure: callers route it through :meth:`_abort_pipeline`."""
+        if _FAULTS.active:
+            _FAULTS.fire("pipeline_flush")
+        overlap = time.perf_counter() - rec.t_dispatch
+        new = self._fetch_rows(rec.out, rec.b)
+        res = {}
+        for i, (s, st) in enumerate(zip(rec.live, rec.states)):
+            if self.seqs.get(s) is not st:
+                continue               # released or preempted in flight
+            tok = int(new[i, 0])
+            self._append_token(st, tok)
+            res[s] = tok
+        self.telemetry.on_step(list(res), rec.t_dispatch, padded=rec.pad_to)
+        self.telemetry.on_fetch(1, overlap_s=overlap)
+        self.telemetry.on_dispatch(0)
+        return res
+
+    def _retire_or_abort(self, records: List[Optional[_Inflight]]
+                         ) -> Dict[int, int]:
+        try:
+            return self._retire(records[0])
+        except Exception as e:
+            self._abort_pipeline(records, e)
+
+    def _abort_pipeline(self, records: Sequence[Optional[_Inflight]],
+                        cause: Exception):
+        """A deferred fetch failed: the in-flight step's output (and any
+        dispatch issued on top of it) is garbage. Unwind every in-flight
+        dispatch's host bookkeeping (positions, paged KV growth) to the
+        last DELIVERED token and raise a :class:`StepFailure` with
+        ``retry_safe=False`` (the failed chain wrote the cache in place)."""
+        self._scratch = None
+        seq_ids: Tuple[int, ...] = ()
+        for rec in records:
+            if rec is None:
+                continue
+            if not seq_ids:
+                seq_ids = rec.live
+            for s, st in zip(rec.live, rec.states):
+                if self.seqs.get(s) is st:
+                    st.position -= 1
+            self._unwind_inflight_growth(rec)
+        self.telemetry.on_dispatch(0)
+        self.telemetry.on_step_failure("decode", self._tenant_of(seq_ids))
+        raise _trace_error(StepFailure(
+            "pipelined decode fetch failed; every in-flight lookahead step "
+            "was rolled back to the last delivered token",
+            phase="decode", seq_ids=seq_ids, retry_safe=False)) from cause
 
     # -- post-mortem snapshot ----------------------------------------------
     def debug_state(self) -> Dict[str, Any]:
@@ -724,7 +1016,8 @@ class _EngineAdapterBase:
                           for s, st in self.seqs.items()},
             "tenants": {int(s): _meta_tenant(st.meta)
                         for s, st in self.seqs.items()},
-            "pipeline_inflight": 0,
+            "pipeline_inflight": (0 if self._inflight is None
+                                  else len(self._inflight.live)),
             "ready_undelivered": [int(s) for s in sorted(self._ready)],
             "host_stats": dict(self.host_stats),
         }
@@ -749,14 +1042,6 @@ def tier_chain(prompt: Sequence[int], block_size: int,
     return out
 
 
-def _refuse_waiting(**knobs):
-    waiting = [name for name, v in knobs.items() if v]
-    if waiting:
-        raise ConfigurationError(
-            "the PyTorch port's adapter does not run these yet: "
-            + ", ".join(waiting))
-
-
 class ContinuousBatchingAdapter(_EngineAdapterBase):
     """Engine adapter over the contiguous app (built with
     ``is_continuous_batching=True``): each request owns cache row
@@ -765,7 +1050,6 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
     engine_name = "cb"
 
     def __init__(self, app, telemetry=None, pipeline_depth: int = 0):
-        _refuse_waiting(pipeline_depth=pipeline_depth)
         cfg = app.tpu_config
         if not cfg.is_continuous_batching:
             raise ConfigurationError("app must be built with "
@@ -781,7 +1065,7 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
                            else cfg.seq_len)
         # free rows, ascending — maintained incrementally on add/release
         self._free: List[int] = list(range(self.batch))
-        self._init_host_stats()
+        self._init_decode_path(pipeline_depth)
 
     @property
     def free_slots(self) -> List[int]:
@@ -844,6 +1128,8 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
         return res
 
     def release(self, seq_ids: Sequence[int]):
+        if self._inflight is not None:
+            self._stash_flush()
         for sid in seq_ids:
             self._ready.pop(sid, None)
             if self.seqs.pop(sid, None) is not None:
@@ -858,12 +1144,17 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
             scr = self._scratch = _CbScratch(live, pad_to)
         return scr
 
-    def _dispatch_decode(self, scr: _CbScratch):
+    def _dispatch_decode(self, scr: _CbScratch, toks_dev=None):
+        """Issue ONE decode step without waiting on the card: the token
+        copy to the host starts behind it (:func:`_async_fetch`), the
+        fetch is the caller's. ``toks_dev``: the previous dispatch's tokens
+        on the card (pipelined feedback); None = the scratch's host
+        tokens."""
+        ids = scr.toks_p if toks_dev is None else toks_dev
         with self._request_context(scr.live):
-            out = self.app._run_decode(scr.toks_p, scr.pos_p,
-                                       seq_ids=scr.sid_p)
-        self.host_stats["dispatches"] += 1
-        self.host_stats["device_steps"] += 1
+            out = self.app._run_decode(ids, scr.pos_p, seq_ids=scr.sid_p)
+        _async_fetch(out)
+        self._note_dispatch(scr, toks_dev)
         return out
 
     def _run_many(self, live: List[int], num_steps: int):
@@ -918,7 +1209,6 @@ class PagedEngineAdapter(_EngineAdapterBase):
                  prefill_budget_tokens: Optional[int] = None,
                  speculation=None, kv_spill_tier=None,
                  ragged: bool = False, lora_pool=None):
-        _refuse_waiting(**{"pipeline_depth > 0": pipeline_depth})
         cfg = app.tpu_config
         if not cfg.is_block_kv_layout:
             raise ConfigurationError("app must be built with "
@@ -950,7 +1240,7 @@ class PagedEngineAdapter(_EngineAdapterBase):
         self.prefill_budget_tokens = prefill_budget_tokens
         self._chunks: Dict[int, _ChunkState] = {}   # pending admissions
         self._unwritten: set = set()   # allocated blocks not fully written
-        self._init_host_stats()
+        self._init_decode_path(pipeline_depth)
         # the host-RAM KV spill tier: evicted prefix blocks spill their
         # payloads to host RAM and come back by an in-place H2D write
         # instead of a recompute
@@ -1104,6 +1394,8 @@ class PagedEngineAdapter(_EngineAdapterBase):
         return {s: self._ready.pop(s) for s in seq_ids}
 
     def release(self, seq_ids: Sequence[int]):
+        if self._inflight is not None:
+            self._stash_flush()
         proposer = self._active_proposer
         if proposer is not None:
             proposer.forget(seq_ids)
@@ -1245,6 +1537,15 @@ class PagedEngineAdapter(_EngineAdapterBase):
     def _rollback_step_growth(self, live: Sequence[int], n: int = 1):
         self._rollback_grow(live, n)
 
+    _step_growth = 1
+
+    def _unwind_inflight_growth(self, rec: _Inflight):
+        if not rec.grown:
+            return
+        for s, st in zip(rec.live, rec.states):
+            if self.seqs.get(s) is st and s in self.app.kv_mgr.tables:
+                self.app.kv_mgr.shrink(s, rec.grown)
+
     def _append_token(self, st: _SeqState, tok: int):
         st.last_token = tok
         st.tokens.append(tok)
@@ -1263,22 +1564,20 @@ class PagedEngineAdapter(_EngineAdapterBase):
                 aids=self._lora_aids(live))
         return scr
 
-    def _dispatch_decode(self, scr: _PagedScratch):
-        """Issue ONE paged decode step without reading any device value
-        (the fetch is the caller's); in steady state an unexpected graph
-        signature is attributed to the batched requests' traces."""
+    def _dispatch_decode(self, scr: _PagedScratch, toks_dev=None):
+        """Issue ONE paged decode step without waiting on the card (the
+        token copy to the host starts behind it, the fetch is the
+        caller's); in steady state an unexpected graph signature is
+        attributed to the batched requests' traces. ``toks_dev``: the
+        previous dispatch's tokens on the card (pipelined feedback); None
+        = the scratch's host tokens."""
+        ids = scr.ids if toks_dev is None else toks_dev
         with self._request_context(scr.live):
-            out = self.app._run_paged(scr.ids, scr.pos, scr.slots, scr.bt,
+            out = self.app._run_paged(ids, scr.pos, scr.slots, scr.bt,
                                       scr.last, row_seeds=scr.seeds,
                                       adapter_ids=scr.aids)
-        self.host_stats["dispatches"] += 1
-        self.host_stats["device_steps"] += 1
-        rec = _get_recorder()
-        if rec.enabled:
-            rec.instant("dispatch.decode", cat="adapter",
-                        engine=self.engine_name, rows=scr.b,
-                        pad_to=scr.pad_to, seq_ids=list(scr.live),
-                        pipelined=False)
+        _async_fetch(out)
+        self._note_dispatch(scr, toks_dev)
         return out
 
     def _run_many(self, live: List[int], num_steps: int):

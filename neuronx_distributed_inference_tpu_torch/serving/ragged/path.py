@@ -115,6 +115,8 @@ class RaggedDispatchPath:
         ``token_room`` (scheduler hook) clamps a verify row's width so a
         step never overshoots its remaining token budget."""
         ad = self.adapter
+        if ad._inflight is not None:
+            ad._stash_flush()          # retire a pre-ragged pipelined step
         pending = ad._pending_ids()
         live = _live_rows(ad.seqs, seq_ids, pending)
 

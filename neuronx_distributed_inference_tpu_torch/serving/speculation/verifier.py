@@ -134,6 +134,8 @@ class SpeculativeDecodePath:
         ``token_room`` clamps a row's width so a step never overshoots its
         remaining token budget."""
         ad = self.adapter
+        if ad._inflight is not None:
+            ad._stash_flush()          # retire a pre-spec pipelined step
         pending = ad._pending_ids()
         live = _live_rows(ad.seqs, seq_ids, pending)
 

@@ -150,11 +150,12 @@ def _paged_plan(app, widths, bt_widths, chunk_tokens,
 def _cb_plan(app) -> List[tuple]:
     """The contiguous app: every prefill bucket and the windowed context
     encoding step (eager), and the decode step per batch bucket — per
-    KV-view bucket too where the gather path reads the cache — at
-    positions past the cache (no write to full rows)."""
+    KV-view bucket too where the gather path reads the cache; at the full
+    batch of continuous batching both the kernel's in-order rows and the
+    gather's rows with a free one — at positions past the cache (no write
+    to full rows)."""
     cfg = app.tpu_config
     chunk = max(cfg.decode_chunk_tokens, 1)
-    identity = not cfg.is_continuous_batching
     plan: List[tuple] = [("prefill", s, None) for s in app.ctx_buckets]
     if cfg.windowed_context_encoding:
         plan.append(("windowed_cte", cfg.windowed_context_encoding, None))
@@ -163,14 +164,24 @@ def _cb_plan(app) -> List[tuple]:
     for bb in warm_batches:
         if chunk > 1:
             plan.append(("decode_loop", chunk, None))
-        kernel = model_base.use_contiguous_decode_kernel(
-            app.spec, 1, bb, app.cache, identity)
-        views = ([None] if kernel or app._kv_bucket(1) is None
-                 else list(app.tkg_buckets))
-        for v in views:
-            plan.append(("decode", v, lambda bb=bb, v=v: app._decode_call(
-                np.zeros((bb, 1), np.int32),
-                np.full((bb, 1), cfg.seq_len, np.int32), None, v)))
+        # rows 0..bb-1; where continuous batching takes those as the
+        # identity rows (the kernel's full batch), also a full batch with a
+        # free row, padded with row 0 as the adapters pad it: the gather
+        full = np.arange(bb, dtype=np.int32)
+        row_sets = [full]
+        if cfg.is_continuous_batching and bb > 1 and app._identity_rows(full):
+            row_sets.append(np.append(full[:-1], 0).astype(np.int32))
+        for sid in row_sets:
+            kernel = model_base.use_contiguous_decode_kernel(
+                app.spec, 1, bb, app.cache, app._identity_rows(sid))
+            views = ([None] if kernel or app._kv_bucket(1) is None
+                     else list(app.tkg_buckets))
+            for v in views:
+                plan.append(("decode", v,
+                             lambda bb=bb, v=v, sid=sid: app._decode_call(
+                                 np.zeros((bb, 1), np.int32),
+                                 np.full((bb, 1), cfg.seq_len, np.int32),
+                                 sid, v)))
     return plan
 
 
@@ -290,16 +301,21 @@ def _tensor_bytes(tree) -> int:
     return 0
 
 
-def memory_ledger(adapter, *, registry=None) -> Dict[str, Any]:
+def memory_ledger(adapter, *, registry=None,
+                  graph_report: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, Any]:
     """One live device-memory account over a
     :class:`~.adapter.PagedEngineAdapter`: parameter bytes, the KV pool
     split by block state (reconciling with
     ``adapter.debug_state()["blocks"]`` exactly), the spill tier's
-    residency (reference :294-350), fragmentation, the admission headroom
+    residency (reference :294-357), fragmentation, the admission headroom
     and which block allocator runs (``kv.allocator``: "native" or
     "python"). Sets the ``nxdi_hbm_*`` gauges when ``registry`` is live.
-    (The reference's per-graph ``memory_analysis()`` peaks have no
-    counterpart.)"""
+    With an observatory ``graph_report`` (nxdi-graph-report-v1,
+    ``telemetry.observatory.analyze_app``) the ledger gets a ``graphs``
+    section: each graph's ``memory.peak_bytes`` by its label (None for a
+    graph that runs eagerly; the reference reads XLA's
+    ``memory_analysis()``)."""
     app = adapter.app
     mgr = getattr(app, "kv_mgr", None)
     if mgr is None:
@@ -349,6 +365,10 @@ def memory_ledger(adapter, *, registry=None) -> Dict[str, Any]:
                    "stats": dict(tier.stats)}),
         "headroom": admission_headroom(adapter),
     }
+    if graph_report is not None:
+        ledger["graphs"] = {
+            g["label"]: (g.get("memory") or {}).get("peak_bytes")
+            for g in graph_report.get("graphs", [])}
     reg = registry
     if reg is not None and reg.enabled:
         tmetrics.hbm_model_bytes_gauge(reg).set(ledger["model_bytes"])

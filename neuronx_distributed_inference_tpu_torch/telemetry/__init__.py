@@ -12,11 +12,12 @@ Quick start::
     print(reg.render_prometheus())    # Prometheus text exposition
 
 Disabled (the default) every instrument is a shared no-op. ``slo.py`` is
-the per-tenant SLO tracker; the compiled-graph observatory
-(``observatory.py``) is not ported yet.
+the per-tenant SLO tracker; ``observatory.py`` is the compiled-graph
+observatory (``observatory.analyze_app(app)``: per-graph flops, bytes,
+capture seconds, memory and roofline, schema ``nxdi-graph-report-v1``).
 """
 
-from . import metrics
+from . import metrics, observatory
 from .registry import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge, Histogram,
                        MetricsRegistry, NULL_REGISTRY, NullRegistry, disable,
                        enable, get_registry, set_registry)
@@ -29,7 +30,7 @@ from .trace import (FlightRecorder, NULL_RECORDER, NullFlightRecorder,
                     set_recorder)
 
 __all__ = [
-    "metrics",
+    "metrics", "observatory",
     "DEFAULT_LATENCY_BUCKETS", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "NULL_REGISTRY", "NullRegistry",
     "enable", "disable", "get_registry", "set_registry",

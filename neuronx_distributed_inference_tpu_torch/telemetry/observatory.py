@@ -1,0 +1,437 @@
+"""Compiled-graph observatory of the port: static truth about the serving
+graphs (counterpart:
+``neuronx_distributed_inference_tpu/telemetry/observatory.py`` —
+``_cost`` :434, ``_memory`` :449, ``_graph_entries`` :475-583 and
+``analyze_app`` :592-724; schema ``nxdi-graph-report-v1``).
+
+:func:`analyze_app` walks the same (kind, bucket) graphs the reference
+lowers from an application's bucket ladders and reports, per graph,
+``compile_seconds``, ``flops``, ``bytes_accessed``, ``memory``,
+``arithmetic_intensity`` and a ``roofline``, and sets the gauges
+``nxdi_compile_seconds`` / ``nxdi_graph_flops`` / ``nxdi_graph_bytes`` /
+``nxdi_graph_peak_bytes`` (labels ``kind`` + ``bucket``) on a live
+registry.
+
+PyTorch has no compiled program to ask, so the port counts the work
+itself, and touches no device state: each graph's step function runs
+under ``torch._subclasses.FakeTensorMode`` over fake copies of the
+parameters and the cache (shapes, dtypes and devices, no storage; the
+step's in-place cache writes land on the fakes), inside a counting
+``TorchDispatchMode`` that adds up
+
+  * ``flops``: the product ops' formulas of ``torch.utils.flop_counter``
+    (matmuls, batched matmuls, convolutions, SDPA); elementwise ops count
+    none, where XLA's cost analysis counts them too;
+  * ``bytes_accessed``: each op's tensor inputs plus outputs, as XLA
+    reckons an unfused op, except that views, allocations and metadata
+    queries move nothing, a gather reads only what it gathers (its
+    indices plus twice its output) and an in-place write moves twice the
+    data it writes, not its destination.
+
+The three hand-written kernels (``ops/decode_attention.
+paged_decode_attention`` and ``decode_attention_stacked``,
+``ops/flash_attention.flash_attention``) cannot run on fake tensors: given
+fake inputs, each wrapper returns an empty output of its shape (launching
+nothing, running no twin, counting no launch), and the counter, a
+``decode_attention.kernel_work_listener``, hears the kernel's own work by
+the formula its bound in PERF.md uses (``paged_decode_work``,
+``stacked_decode_work``, ``flash_work``, beside the wrappers), taken at the
+graph's capacity since a static graph knows no lengths. So the report
+reads the same work on the CPU, where the wrappers would run their plain
+twins, and on the card.
+
+``compile_seconds`` and ``memory``: PyTorch eager builds nothing per
+shape. A graph the app captured into a CUDA graph
+(``models/cuda_graphs.py``) reports its capture's wall time (warm-up
+calls plus capture) and ``memory`` = {``argument_bytes`` (parameters and
+cache), ``pool_bytes`` (the capture's growth of
+``torch.cuda.memory_allocated``), ``peak_bytes`` (their sum)}; an eager
+graph reports ``compile_seconds`` 0.0 and ``memory`` None, and so does
+every graph on the CPU.
+
+The roofline takes the card's figures from :data:`DEVICE_PEAKS`, keyed by
+``torch.cuda.get_device_name()`` (the H100 SXM data sheet: 3.35 TB/s HBM3,
+989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32), at the
+model dtype's rate; the keyword arguments override them. On the CPU or an
+unknown card ``roofline`` is None; a zero figure means an unknown chip,
+as in the reference.
+
+The multi-device census (``census_collectives``, ``mesh_comm_labels``,
+the comm leg of the roofline, ``capture_compiler_stderr``) reads XLA's
+partitioned HLO and waits for a mesh in the port: ``collectives``,
+``collective_count`` and ``collective_bytes`` are None. The single-device
+guard stays: a ``c10d`` / ``_c10d_functional`` op seen while counting
+raises ``RuntimeError``, as the reference raises on a collective in an
+unsharded graph.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import flop_registry
+
+from . import metrics as tmetrics
+from .registry import get_registry
+from ..ops import decode_attention
+
+__all__ = ["analyze_app", "device_peaks", "DEVICE_PEAKS",
+           "GRAPH_REPORT_SCHEMA"]
+
+GRAPH_REPORT_SCHEMA = "nxdi-graph-report-v1"
+
+#: Peak rates by card (a substring of ``torch.cuda.get_device_name()``):
+#: HBM GB/s and TFLOP/s per dtype. The H100 SXM data sheet: 3.35 TB/s of
+#: HBM3, 989 TFLOP/s dense bf16 (tensor cores), 67 TFLOP/s fp32 (CUDA
+#: cores). ``chip_smoke.py``'s kernel bounds read them from here.
+DEVICE_PEAKS: Dict[str, Dict[str, Any]] = {
+    "H100": {"hbm_gbps": 3350.0,
+             "peak_tflops": {"bfloat16": 989.0, "float32": 67.0}},
+}
+
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+_aten = torch.ops.aten
+# ops that move no data (besides the views the schema marks)
+_FREE = {_aten._unsafe_view, _aten.detach, _aten.lift_fresh,
+         _aten.empty, _aten.empty_like, _aten.empty_strided,
+         _aten.new_empty, _aten.new_empty_strided}
+# ops that read only the rows they gather
+_GATHERS = {_aten.index, _aten.index_select, _aten.gather,
+            _aten.embedding}
+# the products with an ``out_dtype`` (a bf16 pair into fp32 on the card,
+# ``ops/attention._bmm_f32``): their result follows from the shapes, and
+# the fake-tensor decomposition of some torch releases fails on them
+_OUT_DTYPE = {getattr(getattr(_aten, op), ov)
+              for op in ("mm", "addmm", "bmm", "baddbmm")
+              for ov in ("dtype", "dtype_out")}
+
+
+def device_peaks(device) -> Optional[Dict[str, Any]]:
+    """The :data:`DEVICE_PEAKS` entry of ``device``'s card, or None (the
+    CPU, an unknown card)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    for key, peaks in DEVICE_PEAKS.items():
+        if key in name:
+            return peaks
+    return None
+
+
+def _nbytes(tree) -> int:
+    leaves, _ = tree_flatten(tree)
+    return sum(x.numel() * x.element_size() for x in leaves
+               if isinstance(x, torch.Tensor))
+
+
+class _WorkCounter(TorchDispatchMode):
+    """Adds up the flops and bytes of every op dispatched under it (see the
+    module docstring), plus the hand-written kernels' work handed over by
+    their wrappers (:meth:`kernel`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+
+    def kernel(self, name: str, flops: int, nbytes: int) -> None:
+        self.flops += flops
+        self.bytes += nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            raise RuntimeError(
+                f"single-device graph runs the collective {func}: a "
+                "process-group op leaked into the unsharded path")
+        packet = func.overloadpacket
+        if func in _OUT_DTYPE:
+            out, flops = _product_out(func, args, kwargs)
+            self.flops += flops
+        else:
+            out = func(*args, **kwargs)
+            if packet in flop_registry:
+                self.flops += int(flop_registry[packet](*args, **kwargs,
+                                                        out_val=out))
+        self.bytes += _op_bytes(func, packet, args, kwargs, out)
+        return out
+
+
+def _named(func, args, kwargs) -> Dict[str, Any]:
+    named = dict(zip((a.name for a in func._schema.arguments), args))
+    named.update(kwargs)
+    return named
+
+
+def _product_out(func, args, kwargs):
+    """(result, flops) of an ``out_dtype`` product without running it:
+    its ``out``, or an empty tensor of the product's shape and dtype; 2 x
+    the multiply-adds."""
+    named = _named(func, args, kwargs)
+    a, b = [v for k, v in named.items()
+            if k in ("self", "mat1", "mat2", "batch1", "batch2")][-2:]
+    shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+    flops = 2 * int(np.prod(shape, dtype=np.int64)) * a.shape[-1]
+    out = named.get("out")
+    if out is None:
+        out = torch.empty(shape, dtype=named["out_dtype"], device=a.device)
+    return out, flops
+
+
+def _op_bytes(func, packet, args, kwargs, out) -> int:
+    if (func.is_view or packet in _FREE or func.namespace == "prim"
+            or not _nbytes(out)):
+        return 0                   # views, allocations, metadata queries
+    if packet in _GATHERS:
+        return _nbytes(list(args[1:])) + 2 * _nbytes(out)
+    named = _named(func, args, kwargs)
+    written = {a.name for a in func._schema.arguments
+               if a.alias_info is not None and a.alias_info.is_write}
+    if written:
+        return 2 * _nbytes([v for k, v in named.items()
+                            if k not in written])
+    return _nbytes(list(named.values())) + _nbytes(out)
+
+
+# -- the graph list (reference _graph_entries :475-583) ---------------------
+
+def _graph_entries(app) -> List[Tuple[str, str, Optional[tuple],
+                                      Callable[[Callable], Any]]]:
+    """(kind, bucket label, the app's graph key or None for an eager
+    graph, run) for every graph of ``app``'s bucket ladders; ``run(f)``
+    calls the step function with every tensor argument passed through
+    ``f`` (the fake-copy conversion)."""
+    from ..models import model_base
+    cfg = app.tpu_config
+    spec = app.spec
+    chunk = max(cfg.decode_chunk_tokens, 1)
+    entries: List[Tuple[str, str, Optional[tuple], Callable]] = []
+
+    def i32(*shape, fill=0):
+        return torch.full(shape, fill, dtype=torch.int32, device=app.device)
+
+    def common(f, b):
+        return (f(app.params), f(app.cache),
+                f(app._default_sampling_params(b)), f(app._inv_freq))
+
+    if getattr(cfg, "is_block_kv_layout", False):
+        b = cfg.batch_size
+        wbt = app.max_blocks
+        mode, graphable = app._sampling_mode(None)
+        seeds = app._stream_seeds(None, b)
+        logits = bool(cfg.output_logits)
+
+        def seeds_of(f):
+            return None if seeds is None else f(torch.as_tensor(
+                seeds, device=app.device))
+
+        def paged(w):
+            def run(f):
+                params, cache, sp, inv = common(f, b)
+                return model_base.paged_forward_step(
+                    spec, cfg, params, cache, f(i32(b, w)), f(i32(b, w)),
+                    f(i32(b, w, fill=-1)), f(i32(b, wbt)), f(i32(b)), sp,
+                    app.generator, inv, seeds_of(f), None)
+            return run
+
+        for w in list(app.ctx_buckets) + [1]:
+            key = (("paged", 1, (b, wbt, mode, logits, False))
+                   if w == 1 and graphable else None)
+            entries.append(("paged", f"w{w}xb{b}", key, paged(w)))
+        if chunk > 1:
+            def loop(f):
+                params, cache, sp, inv = common(f, b)
+                return model_base.paged_decode_loop(
+                    spec, cfg, params, cache, f(i32(b)), f(i32(b)),
+                    f(i32(b, wbt)), sp, app.generator, num_steps=chunk,
+                    inv_freq=inv, row_seeds=seeds_of(f))
+            entries.append(("paged_loop", f"k{chunk}xb{b}", None, loop))
+        sw = 4                      # the default self-draft ladder top + 1
+
+        def verify(f):
+            params, cache, sp, inv = common(f, b)
+            return model_base.paged_spec_verify(
+                spec, cfg, params, cache, f(i32(b, sw)), f(i32(b, sw)),
+                f(i32(b, sw, fill=-1)), f(i32(b, wbt)), f(i32(b, fill=1)),
+                sp if seeds is not None else None, seeds_of(f), inv)
+        entries.append(("spec_verify", f"W{sw}xb{b}", None, verify))
+
+        def ragged(lora):
+            def run(f):
+                params, cache, sp, inv = common(f, b)
+                return model_base.paged_ragged_step(
+                    spec, cfg, params, cache, f(i32(b, sw)), f(i32(b, sw)),
+                    f(i32(b, sw, fill=-1)), f(i32(b, wbt)),
+                    f(i32(b, fill=1)), f(i32(b)), sp,
+                    app.generator, inv, verify=False,
+                    row_seeds=seeds_of(f),
+                    adapter_ids=f(i32(b)) if lora else None)
+            return run
+        entries.append(("ragged", f"W{sw}xb{b}", None, ragged(False)))
+        if spec.lora is not None:
+            entries.append(("ragged_lora", f"W{sw}xb{b}", None,
+                            ragged(True)))
+        return entries
+
+    cb = cfg.ctx_batch_size
+
+    def prefill(s):
+        def run(f):
+            params, cache, sp, inv = common(f, cb)
+            return model_base.context_encoding_step(
+                spec, cfg, params, cache, f(i32(cb, s)), f(i32(cb, s)),
+                f(torch.arange(cb, dtype=torch.int32, device=app.device)),
+                f(i32(cb, fill=1)), sp, app.generator, inv, None)
+        return run
+
+    for s in app.ctx_buckets:
+        entries.append(("prefill", f"ctx{s}xb{cb}", None, prefill(s)))
+    logits = bool(cfg.output_logits)
+    for bb in app.batch_buckets:
+        sid = np.arange(bb, dtype=np.int32)
+        identity = app._identity_rows(sid)
+        kernel = model_base.use_contiguous_decode_kernel(
+            spec, 1, bb, app.cache, identity)
+        view = None if kernel else app._kv_bucket(cfg.seq_len)
+        greedy = app._greedy(app._default_sampling_params(bb))
+        key = (("decode", view, (bb, 1, identity, kernel, greedy, logits,
+                                 False)) if greedy else None)
+
+        def decode(f, bb=bb, sid=sid, view=view, identity=identity):
+            params, cache, sp, inv = common(f, bb)
+            return model_base.token_generation_step(
+                spec, cfg, params, cache, f(i32(bb, 1)), f(i32(bb, 1)),
+                f(torch.as_tensor(sid, device=app.device)), sp,
+                app.generator, view, inv, None, identity=identity)
+        entries.append(("decode", f"b{bb}", key, decode))
+        if chunk > 1:
+            def dloop(f, bb=bb, sid=sid):
+                params, cache, sp, inv = common(f, bb)
+                return model_base.decode_loop(
+                    spec, cfg, params, cache, f(i32(bb)), f(i32(bb)),
+                    f(torch.as_tensor(sid, device=app.device)), sp,
+                    app.generator, num_steps=chunk,
+                    kv_view=app._kv_bucket(cfg.seq_len), inv_freq=inv)
+            entries.append(("decode_loop", f"b{bb}xk{chunk}", None, dloop))
+    return entries
+
+
+def _count(run) -> Tuple[int, int]:
+    """(flops, bytes) of one step function over fake copies."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def fake(x):
+        if isinstance(x, torch.Tensor):
+            return mode.from_tensor(x)
+        if isinstance(x, dict):
+            return {k: fake(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(fake(v) for v in x)
+        return x
+
+    counter = _WorkCounter()
+    with decode_attention.kernel_work_listener(counter.kernel), mode, \
+            counter:
+        run(fake)
+    return counter.flops, counter.bytes
+
+
+def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
+                peak_tflops: Optional[float] = None,
+                ici_gbps: Optional[float] = None,
+                dcn_gbps: Optional[float] = None) -> Dict[str, Any]:
+    """Count every bucket-ladder graph of ``app`` and return the graph
+    report (see the module docstring). Gauges are recorded on
+    ``registry`` (default: the process-global one) when it is enabled.
+    ``hbm_gbps`` / ``peak_tflops`` override the card's figures;
+    ``ici_gbps`` / ``dcn_gbps`` are recorded for the comm leg a mesh will
+    price. Touches no device state: the parameters and the cache are read
+    for their shapes only."""
+    reg = registry if registry is not None else get_registry()
+    if app.params is None:
+        raise ValueError("load_weights() or init_random_weights() first")
+    if app.cache is None:
+        raise ValueError("init_cache() first")
+    peaks = device_peaks(app.device) or {}
+    dtype = str(app.spec.dtype).replace("torch.", "")
+    if hbm_gbps is None:
+        hbm_gbps = float(peaks.get("hbm_gbps", 0.0))
+    if peak_tflops is None:
+        peak_tflops = float(peaks.get("peak_tflops", {}).get(dtype, 0.0))
+    argument_bytes = _nbytes(app.params) + _nbytes(app.cache)
+    graphs_cache = app.graphs
+    captured = set(graphs_cache.signatures()) if graphs_cache else set()
+    graphs: List[Dict[str, Any]] = []
+    for kind, bucket, key, run in _graph_entries(app):
+        flops, bytes_acc = _count(run)
+        compile_s, mem = 0.0, None
+        if key in captured:
+            compile_s = graphs_cache.capture_seconds(key)
+            pool = graphs_cache.pool_bytes(key)
+            mem = {"argument_bytes": argument_bytes, "pool_bytes": pool,
+                   "peak_bytes": argument_bytes + pool}
+        roofline = None
+        if peak_tflops > 0 and hbm_gbps > 0:
+            # a zero figure means "unknown chip": the counts stay valid
+            t_compute = flops / (peak_tflops * 1e12)
+            t_memory = bytes_acc / (hbm_gbps * 1e9)
+            legs = {"compute": t_compute, "memory": t_memory, "comm": 0.0}
+            roofline = {
+                "est_step_ms": round(max(legs.values()) * 1e3, 6),
+                "bound": max(legs, key=legs.get),
+                "t_compute_ms": round(t_compute * 1e3, 6),
+                "t_memory_ms": round(t_memory * 1e3, 6),
+                "t_comm_ms": 0.0,
+                "comm_bytes_saved": 0,
+            }
+        graphs.append({
+            "kind": kind,
+            "bucket": bucket,
+            "label": f"{kind}/{bucket}",
+            "compile_seconds": round(compile_s, 4),
+            "flops": float(flops),
+            "bytes_accessed": float(bytes_acc),
+            "memory": mem,
+            "arithmetic_intensity": (round(flops / bytes_acc, 3)
+                                     if bytes_acc else None),
+            "collectives": None,
+            "collective_count": None,
+            "collective_bytes": None,
+            "roofline": roofline,
+        })
+        if reg.enabled:
+            peak = mem["peak_bytes"] if mem else 0
+            tmetrics.compile_seconds_gauge(reg).set(compile_s, kind=kind,
+                                                    bucket=bucket)
+            tmetrics.graph_flops_gauge(reg).set(flops, kind=kind,
+                                                bucket=bucket)
+            tmetrics.graph_bytes_gauge(reg).set(bytes_acc, kind=kind,
+                                                bucket=bucket)
+            tmetrics.graph_peak_bytes_gauge(reg).set(peak, kind=kind,
+                                                     bucket=bucket)
+    return {
+        "schema": GRAPH_REPORT_SCHEMA,
+        "backend": app.device.type,
+        "device": (torch.cuda.get_device_name(app.device)
+                   if app.device.type == "cuda" else str(app.device)),
+        "mesh": {"devices": 1, "axes": {}},
+        "assumptions": {"hbm_gbps": hbm_gbps, "peak_tflops": peak_tflops,
+                        "ici_gbps": ici_gbps, "dcn_gbps": dcn_gbps},
+        "graphs": graphs,
+        "totals": {
+            "graphs": len(graphs),
+            "compile_seconds": round(sum(g["compile_seconds"]
+                                         for g in graphs), 4),
+            "flops": sum(g["flops"] for g in graphs),
+            "bytes_accessed": sum(g["bytes_accessed"] for g in graphs),
+            "collectives": None,
+            "collective_bytes": None,
+            "comm_bytes_saved": None,
+        },
+    }

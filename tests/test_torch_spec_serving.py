@@ -529,7 +529,12 @@ def test_sampling_modes_and_refusals(sampled):
         TpuConfig(batch_size=1, seq_len=64,
                   on_device_sampling_config=OnDeviceSamplingConfig(
                       do_sample=False, stream_seed=3))
-    for kw in ({"pipeline_depth": 1}, {"lora_pool": object()}):
+    # speculation beside a depth-1 pipeline builds, as the reference
+    # allows (its speculative step flushes the pipeline first); depth 2
+    # is refused
+    ad = PagedEngineAdapter(tapp, speculation=2, pipeline_depth=1)
+    assert ad.pipeline_depth == 1 and ad._spec is not None
+    for kw in ({"pipeline_depth": 2}, {"lora_pool": object()}):
         with pytest.raises(ConfigurationError):
             PagedEngineAdapter(tapp, speculation=2, **kw)
     # a host-RAM spill tier attaches beside speculation (ROADMAP A8,

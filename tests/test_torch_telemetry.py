@@ -92,3 +92,87 @@ def test_served_run_renders_identical_counters(pair):
     jlines, tlines = texts
     assert tlines == jlines
     assert any(line.startswith(metrics.RAGGED_ROWS_TOTAL) for line in tlines)
+
+
+def _run_series(text):
+    """The application's run-timing series of an exposition: the (kind,
+    part) label pairs of ``nxdi_run_seconds`` with their observation
+    counts, and the ``nxdi_device_sampled_rows_total`` lines."""
+    counts = {}
+    for line in text.splitlines():
+        if line.startswith(metrics.RUN_SECONDS + "_count{"):
+            kind = re.search(r'kind="(\w+)"', line).group(1)
+            part = re.search(r'part="(\w+)"', line).group(1)
+            counts[(kind, part)] = line.rsplit(" ", 1)[1]
+    rows = sorted(line for line in text.splitlines()
+                  if line.startswith(metrics.DEVICE_SAMPLED_ROWS_TOTAL))
+    return counts, rows
+
+
+def _timed_schedule(papp, cbapp, paged_cls, cb_cls, reg):
+    """One schedule over both adapters with the apps timing into ``reg``:
+    packed prefill chunks, decode steps and a fused loop on the paged
+    app; a prefill, a decode step and a fused loop on the contiguous
+    one."""
+    papp.telemetry = reg
+    cbapp.telemetry = reg
+    try:
+        ad = paged_cls(papp)
+        ad.add_requests([0, 1], [P_A, P_B])
+        for _ in range(2):
+            ad.step()
+        ad.step_many(2)
+        ad.release([0, 1])
+        cb = cb_cls(cbapp)
+        cb.add_requests([0, 1], [P_A, P_B])
+        cb.step()
+        cb.step_many(2)
+        cb.release([0, 1])
+    finally:
+        papp.telemetry = None
+        cbapp.telemetry = None
+    return _run_series(reg.render_prometheus())
+
+
+def test_run_timings_match_the_reference(pair):
+    """``_tel_start`` / ``_tel_end`` around every ``_run_*``: for one
+    schedule the (kind, part) pairs of ``nxdi_run_seconds`` (with their
+    counts) and ``nxdi_device_sampled_rows_total`` per kind equal the
+    reference's."""
+    from neuronx_distributed_inference_tpu.serving import \
+        ContinuousBatchingAdapter as JCbAdapter
+    from neuronx_distributed_inference_tpu_torch.serving import \
+        ContinuousBatchingAdapter
+    from test_torch_decode_pipeline import make_cb_pair
+    japp, tapp = pair
+    jcb, tcb = make_cb_pair()
+    want = _timed_schedule(japp, jcb, JPagedEngineAdapter, JCbAdapter,
+                           jtelemetry.MetricsRegistry())
+    got = _timed_schedule(tapp, tcb, PagedEngineAdapter,
+                          ContinuousBatchingAdapter,
+                          telemetry.MetricsRegistry())
+    assert got == want
+    assert set(got[0]) == {(k, p) for k in ("paged", "paged_loop",
+                                            "prefill", "decode",
+                                            "decode_loop")
+                           for p in ("host", "device")}
+
+
+def test_disabled_telemetry_does_no_timing(pair):
+    """With the registry and the flight recorder off, ``_tel_start`` is
+    None: no clock read and no device wait in ``_tel_end``; a live
+    registry or recorder starts the clock."""
+    _, tapp = pair
+    assert not telemetry.get_registry().enabled
+    assert tapp._tel_start() is None
+    tapp._tel_end("paged", None, {"tokens": None}, 1)   # returns at once
+    tapp.telemetry = telemetry.MetricsRegistry()
+    try:
+        assert isinstance(tapp._tel_start(), float)
+    finally:
+        tapp.telemetry = None
+    telemetry.enable_recorder()
+    try:
+        assert isinstance(tapp._tel_start(), float)
+    finally:
+        telemetry.disable_recorder()
