@@ -183,9 +183,9 @@ nvcc per source, all started together), then:
      the agreement with each request's ``generate`` (a count), and each
      stream held to (b)'s weights on a static app fed its tokens (the
      logit-deficit gate of 19 (b)); (d)
-     Mistral-7B-v0.1 at full width cut to 12 layers with
+     Mistral-7B-v0.1 at full width cut to 8 layers with
      the rolling cache (``seq_len`` 16384, 4096 slots), batch 2, prompts
-     of 5000 and 6000 tokens, 64 new: flash launches = 12 x 1 prefill at
+     of 5000 and 6000 tokens, 64 new: flash launches = 8 x 1 prefill at
      window 4096, no
      decode-kernel launch (the gather path over the rolling slots), step
      times, cache bytes beside the full cache's, agreement with
@@ -206,7 +206,7 @@ nvcc per source, all started together), then:
      decode steps held to a plain fp32 MLA written from the published
      equations in HF's rope convention, with a control (the rope head
      unrotated) that must part; (b) ``TpuDeepseekForCausalLM`` at full
-     width cut to 8 layers (the dense one and 7 MoE),
+     width cut to 4 layers (the dense one and 3 MoE),
      bf16, batch 4, ``seq_len`` 4096, phase 3's prompts, 64 new tokens,
      ``attn_kernel_enabled=True``, after ``precompile``: both kernel gates
      refuse MLA and none of the three kernels launches, no incident,
@@ -256,18 +256,18 @@ nvcc per source, all started together), then:
      and keys drawn so most scores exceed the cap (the share is gated):
      each against its twin, the kernel without its cap parting from the
      capped twin, then timed beside the twin, SDPA without the cap and
-     the bytes bound; (b) Gemma-2-27B at full width cut to 16 of its 46
+     the bytes bound; (b) Gemma-2-27B at full width cut to 8 of its 46
      layers (its bf16 weights gated equal to the geometry's)
      on phase 9's engine
      at batch 4, ``seq_len`` 8192, six requests of 37-6000 tokens (two
      past the 4096 window), 48 new tokens: phase 9's gates (one dispatch
-     and one fetch a pass, paged launches = 16 x all-decode steps, no
+     and one fetch a pass, paged launches = 8 x all-decode steps, no
      incident, full streams), every local layer's launch at window 4096
      and every global one's at 0, all at soft-cap 50, and every served
      stream held to ``generate`` fed its tokens (each served token within
      TOL_SERVED_DEFICIT_BF16 logit stds of the top logit, and within
      TOL_SERVED_MEAN_DEFICIT_BF16 on average); (c) the same at
-     Gemma-3-27B's width cut to 12 layers (two 6-layer patterns: window
+     Gemma-3-27B's width cut to 6 layers (one 6-layer pattern: window
      1024, the dual rope, the (1 + w) q/k norms, no cap), prompts past
      1024; (d) fp32 (TF32 off) 4-layer cuts of all six geometries: the
      paged kernel path against the gather path on the same weights and
@@ -324,11 +324,11 @@ nvcc per source, all started together), then:
      0, the streams held to ``generate`` as in 20 (b); (c) Phi-3.5-MoE
      (microsoft/Phi-3.5-MoE-instruct: 16 experts of 6400, top 2,
      sparsemixer, biased LayerNorms, q/k/v/o and lm-head biases, window
-     131072; its longrope lists left out, ``seq_len`` 4096) cut to 8
+     131072; its longrope lists left out, ``seq_len`` 4096) cut to 4
      layers, batch 4: every launch at G 4 and window 131072;
      (d) OLMoE-1B-7B-0924 (G 1, 64 experts, top 8 unnormalised) and (e)
-     granite-3.0-3b-a800m (G 3, head_dim 64, the multipliers) at full
-     depth on phase 9's engine at batch 8, with (b)'s gates; (f) fp32
+     granite-3.0-3b-a800m (G 3, head_dim 64, the multipliers) cut to 8
+     layers each on phase 9's engine at batch 8, with (b)'s gates; (f) fp32
      (TF32 off) cuts of the five geometries (dots.llm1's
      rednote-hilab/dots.llm1.inst only here): 19 (d)'s gates on the paged
      app, then the family's contiguous app (flash and the decode kernel,
@@ -452,9 +452,38 @@ nvcc per source, all started together), then:
      row (row 0 pads it: the gather path) gives equal streams at both
      depths, and neither app records a steady-state incident; the group
      within its 60 s budget.
+ 26. the contrib dense group, ``contrib_dense``: Pythia-6.9B
+     (EleutherAI/pythia-6.9b: 32 layers, 32 heads of 128 over 32 KV
+     heads, rotary over 32 of 128, the parallel residual, a plain gelu MLP
+     with biases, biased LayerNorms, vocab 50432, untied) and BLOOM-7B1
+     (bigscience/bloom-7b1: 30 layers, 32 heads of 128, ALiBi, the
+     embeddings' LayerNorm, vocab 250880, tied), random weights from seed
+     0, every bias N(0, 0.02), BLOOM's ALiBi slopes its published ones:
+     the specs as the geometries say, and with both kernels asked for no
+     kernel gate admits BLOOM (each does without ``alibi``); (a) the paged
+     kernel at Pythia's heads (B 8, G 1, D 128, lens 37-2000) within one
+     bf16 ulp of its twin, a control (the twin at KV head h // 2) parting,
+     timed beside the twin, SDPA over the pre-gathered KV and the bound;
+     (b) Pythia at full width and depth on phase 9's engine and mix at
+     ``seq_len`` 2048 (batch 8, chunk 512, 48 new tokens): phase 19's
+     gates, every paged launch at G 1, launches = 32 x the all-decode
+     steps, the kernel held to its twin at the served cache's shapes and
+     timed, the streams held to ``generate``; (c) BLOOM at full width cut
+     to 10 layers on the same engine and mix with the decode kernel and
+     flash
+     forced on: the same gates with no launch or capture of any of the
+     three kernels, and a control (a 2-layer cut with ``alibi`` taken off)
+     that launches the paged kernel at every layer of every decode step;
+     (d) fp32 (TF32 off) 2-layer cuts of both on the contiguous app with
+     both kernels asked for, after ``precompile``: Pythia launches flash
+     once a layer and the decode kernel at every layer of every step, each
+     held to its twin and timed at those shapes, BLOOM launches nothing
+     (its control without ``alibi`` launches both), and each app's
+     streams equal the kernels-off app's; the group within its 90 s
+     budget.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22, 23, 24 and the fp32 app of 6)
+21, 22, 23, 24, 26 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -465,8 +494,8 @@ exits non-zero and prints no last line. Without a CUDA card it exits 2.
 pipeline: 25; contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it
 builds phase 9's app; spec: 12, 13, 22 — alone, 12 (a) builds its own
 app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
-moe_families: 20; contrib_moe: 21; lora: 23) and then prints no ``ok``
-line.
+moe_families: 20; contrib_moe: 21; lora: 23; contrib_dense: 26) and
+then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -550,17 +579,17 @@ MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
 # 14 (e): the cut whose fp32 twin runs phase 6's rule (8 layers fit; 4
 #   keep the whole script's time with phase 21 in it)
 MOE_CONTIG_CHECK_LAYERS = 4
-# depth cuts for the room of phases 23 and 24, each keeping its phase's
-# per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 12 of 32
-# layers; 17 (b), (c) Moonlight at 8 of 27 (the dense layer and 7 MoE);
-# 18 (b), (d) gpt-oss-20b MXFP4 at 8 of 24; 18 (e) the low-rank
-# Llama-3.2-1B at 8 of 16; 19 (b) Gemma-2-27B at 16 of 46 (8 local /
+# depth cuts for the room of phases 23, 24 and 26, each keeping its
+# phase's per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 12 of
+# 32 layers; 17 (b), (c) Moonlight at 8 of 27 (the dense layer and 7
+# MoE); 18 (b), (d) gpt-oss-20b MXFP4 at 8 of 24; 18 (e) the low-rank
+# Llama-3.2-1B at 8 of 16; 19 (b) Gemma-2-27B at 8 of 46 (4 local /
 # global pairs)
 LONG_MISTRAL_LAYERS = 12
 MLA_CUT = 8
 QUANT_OSS_LAYERS = 8
 QUANT_LOW_RANK_LAYERS = 8
-GEMMA2_CUT = 16
+GEMMA2_CUT = 8
 # for phase 24's room: Llama-3.1-8B at 16 of its 32 layers in 18 (c), the
 #   Llama reading of 18 (d), 22 (a)-(d) and 23 (a)-(c), (e), each phase's
 #   per-layer shapes and gates kept (12
@@ -706,8 +735,9 @@ DENSE_GEOMETRIES = {"gemma2_27b": GEMMA2_27B, "gemma3_27b": GEMMA3_27B,
 # 19 (b): batch 4, 8192 slots a row, six requests, two past the 4096 window
 DENSE_SERVE = dict(lens=(37, 300, 1500, 4500, 6000, 900), seq_len=8192,
                    chunk=512, block=32)
-# 19 (c): Gemma-3-27B cut to two 6-layer patterns, prompts past 1024
-GEMMA3_CUT = 12
+# 19 (c): Gemma-3-27B cut to one 6-layer pattern (5 local, 1 global; for
+#   phase 26's room), prompts past 1024
+GEMMA3_CUT = 6
 GEMMA3_SERVE = dict(lens=(37, 300, 1500, 2500, 1100, 640), seq_len=4096,
                     chunk=512, block=32)
 # 19 (a): the kernels' rows; q and keys at this std put |scores| mostly
@@ -854,12 +884,15 @@ DOTS_LLM1 = dict(
 #   weights), on 20 (d)'s schedule (batch 4, 8192 slots a row)
 GLM_CUT = 10
 GLM_SERVE = DBRX_SERVE
-# 21 (c): Phi-3.5-MoE cut to 8 layers, batch 4, 4096 slots
-PHI_CUT = 8
+# 21 (c): Phi-3.5-MoE cut to 4 layers (for phase 26's room), batch 4,
+#   4096 slots
+PHI_CUT = 4
 PHI_SERVE = dict(lens=(37, 300, 1500, 3900, 2500, 900), seq_len=4096,
                  chunk=512, block=32)
-# 21 (d), (e): OLMoE and granite-3.0-3b-a800m at full depth on phase 9's
-#   schedule (batch 8)
+# 21 (d), (e): OLMoE-1B-7B-0924 at full depth and granite-3.0-3b-a800m
+#   at 8 of its 32 layers (for phase 26's room) on phase 9's schedule
+#   (batch 8)
+GRANITE_MOE_CUT = 8
 # 21 (f): the fp32 cuts (each MoE geometry's first dense layer kept), the
 #   Phi cut's window small enough to bite at 21 (f)'s prompts
 CONTRIB_CHECK_LAYERS = {"glm4_moe": 2, "phimoe": 2, "olmoe": 4,
@@ -1635,12 +1668,16 @@ def prompts_of(lens, vocab, seed):
 def init_weights(app, seed):
     """``init_random_weights(seed)``, then the leaves it leaves at zero
     drawn from the seed too, so their paths carry values: learned sinks
-    N(0, 1), every bias (q/k/v, o, router, experts, the block norms') N(0,
-    0.02), in each layer stack (a mixed stack's ``moe_layers`` after
-    ``layers``), then the final norm's and the lm-head's biases N(0,
-    0.02). A model without such leaves keeps ``init_random_weights``'
-    values."""
+    N(0, 1), every bias (q/k/v, o, MLP, router, experts, the block and
+    q/k norms') N(0, 0.02), in each layer stack (a mixed stack's
+    ``moe_layers`` after ``layers``), then the final norm's, the
+    embeddings' norm's and the lm-head's biases N(0, 0.02); ALiBi slopes
+    (zeros in the random tree, as in the reference's) are the model's
+    published ones. A model without such leaves keeps
+    ``init_random_weights``' values."""
     import torch
+    from neuronx_distributed_inference_tpu_torch.ops.attention import \
+        alibi_slopes
     app.init_random_weights(seed)
     gen = torch.Generator(device=app.device).manual_seed(seed + 1)
     for stack in ("layers", "moe_layers"):
@@ -1650,7 +1687,10 @@ def init_weights(app, seed):
                 layers[name].normal_(0.0, 1.0, generator=gen)
             elif name.endswith(("bias", "norm_b")):
                 layers[name].normal_(0.0, 0.02, generator=gen)
-    for name in ("final_norm_b", "lm_head_b"):
+            elif name == "alibi_slopes":
+                layers[name].copy_(torch.from_numpy(alibi_slopes(
+                    layers[name].shape[1])).expand_as(layers[name]))
+    for name in ("final_norm_b", "embed_norm_b", "lm_head_b"):
         if name in app.params:
             app.params[name].normal_(0.0, 0.02, generator=gen)
     return app
@@ -2101,7 +2141,7 @@ def paged_kernel_entry(t, launches, path):
 
 def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                         output_logits=False, cb=False, decode_kernel=None,
-                        rolling=False, wcte=None, **tcfg_over):
+                        rolling=False, wcte=None, graphs=True, **tcfg_over):
     """``CausalLMApplication`` over the family of ``hf["model_type"]``
     (what the family's ``Tpu*ForCausalLM`` entry builds). kernels=True:
     the flash prefill kernel (``attn_kernel_enabled``) and the decode
@@ -2109,8 +2149,9 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
     kernel off); False: both off (mha prefill, gather decode).
     ``rolling``: ``rolling_kv_cache`` (False: full rows; None: the rolling
     cache where the window is below ``seq_len``); ``wcte``:
-    ``windowed_context_encoding``; ``tcfg_over``: more TpuConfig fields
-    (phase 23's ``lora_config``)."""
+    ``windowed_context_encoding``; ``graphs`` False: every step eager
+    (no CUDA graph captured); ``tcfg_over``: more TpuConfig fields (phase
+    23's ``lora_config``)."""
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         CausalLMApplication
@@ -2125,7 +2166,7 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                      is_continuous_batching=cb,
                      windowed_context_encoding=wcte, **tcfg_over)
     app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
-                              device=device)
+                              device=device, cuda_graphs=graphs)
     return app.init_cache()
 
 
@@ -6965,7 +7006,7 @@ def served_vs_generate(phase, chunk, routes=None):
 
 
 def phase_dense_serving(hf, device, cfg, phase, kernel_layers, kernel=True,
-                        group=None, batch=4):
+                        group=None, batch=4, tcfg_extra=None):
     """19 (b), (c): ``hf`` at full width on phase 9's engine and schedule,
     bf16, ``batch`` rows (4; phase 21's OLMoE and granite: 8), with
     ``cfg``'s seq_len, prompts and chunk, the app
@@ -6976,8 +7017,9 @@ def phase_dense_serving(hf, device, cfg, phase, kernel_layers, kernel=True,
     launch at its layer's window and soft-cap, the streams held to
     ``generate``. ``kernel`` False (phase 20's Llama4): the paged kernel
     launches 0 times and the spy sees no call; ``group``: every launch at
-    this GQA group (phase 20's DBRX: 6; phase 21's: 12, 4, 1, 3). Returns
-    the kernels-line entries
+    this GQA group (phase 20's DBRX: 6; phase 21's: 12, 4, 1, 3);
+    ``tcfg_extra``: more make_ragged_app arguments (phase 26's BLOOM: both
+    kernels forced on). Returns the kernels-line entries
     (the paged kernel over the served cache at ``kernel_layers``)."""
     from neuronx_distributed_inference_tpu_torch.config import \
         ChunkedPrefillConfig
@@ -6991,7 +7033,8 @@ def phase_dense_serving(hf, device, cfg, phase, kernel_layers, kernel=True,
             tcfg_over=dict(batch=batch, output_logits=True,
                            is_chunked_prefill=True,
                            chunked_prefill_config=ChunkedPrefillConfig(
-                               kernel_q_tile_size=cfg["chunk"])),
+                               kernel_q_tile_size=cfg["chunk"]),
+                           **(tcfg_extra or {})),
             after=served_vs_generate(phase, cfg["chunk"], routes),
             kernel=kernel)
     if kernel:
@@ -8080,7 +8123,8 @@ def phase_contrib_moe(device):
             (moe_families_cut(PHI_35_MOE, PHI_CUT), PHI_SERVE, "phimoe_serving",
              4, 4),
             (OLMOE_1B_7B, RAGGED, "olmoe_serving", 1, 8),
-            (GRANITE_3B_MOE, RAGGED, "granitemoe_serving", 3, 8)):
+            (moe_families_cut(GRANITE_3B_MOE, GRANITE_MOE_CUT), RAGGED,
+             "granitemoe_serving", 3, 8)):
         entries += phase_dense_serving(hf, device, cfg, phase, (-1,),
                                        group=group, batch=batch)
     cuts = phase_contrib_fp32(device)
@@ -10316,9 +10360,356 @@ def phase_pipeline(device, hf=LLAMA_3_2_1B, cfg=PIPE25, on_card=True):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the contrib dense families. Geometries written from the
+# published HF config.json files (random weights from seed 0).
+# ---------------------------------------------------------------------------
+
+# Pythia-6.9B (EleutherAI/pythia-6.9b, model_type gpt_neox): 32 layers, 32
+# heads of 128 over 32 KV heads (G 1), rotary over 25% of each head (32 of
+# 128) at base 10000, the parallel residual (its MLP norm over the block
+# input), a plain gelu MLP of 16384 with biases, LayerNorms with biases
+# (eps 1e-5), 2048 positions, an untied head over 50432 rows (the
+# tokenizer's 50277 padded)
+PYTHIA_6_9B = dict(
+    model_type="gpt_neox", hidden_size=4096, intermediate_size=16384,
+    num_hidden_layers=32, num_attention_heads=32, vocab_size=50432,
+    rotary_pct=0.25, rotary_emb_base=10000, use_parallel_residual=True,
+    hidden_act="gelu", layer_norm_eps=1e-5, max_position_embeddings=2048,
+    tie_word_embeddings=False)
+# BLOOM-7B1 (bigscience/bloom-7b1): 30 layers, 32 heads of 128 (G 1),
+# ALiBi (no rotation), the embeddings' LayerNorm, a plain tanh-gelu MLP of
+# 4 x 4096 with biases, LayerNorms with biases (eps 1e-5), the 250880-row
+# table tied to the head; ``num_hidden_layers`` mirrors ``n_layer`` for
+# the helpers that read it
+BLOOM_7B1 = dict(
+    model_type="bloom", hidden_size=4096, n_head=32, n_layer=30,
+    num_hidden_layers=30, vocab_size=250880, layer_norm_epsilon=1e-5,
+    tie_word_embeddings=True)
+# (b), (c): phase 9's engine and mix on Pythia's 2048 positions; BLOOM
+#   served at 10 of its 30 layers (every layer alike; the room of the
+#   950 s target)
+CONTRIB_DENSE_SERVE = dict(RAGGED, seq_len=2048)
+BLOOM_SERVE_LAYERS = 10
+# (a): the synthetic batch at Pythia's heads (B 8 over 2048 slots)
+CONTRIB_DENSE_KERNEL_LENS = (37, 300, 640, 900, 1200, 1500, 1900, 2000)
+# (d): the fp32 cuts on the contiguous app (batch 4, bucket 512)
+CONTRIB_DENSE_CHECK_LAYERS = 2
+CONTRIB_DENSE_BUDGET_S = 90
+
+
+def bloom_cut(layers):
+    """BLOOM-7B1 cut to ``layers`` layers (``n_layer`` with it)."""
+    return dict(BLOOM_7B1, n_layer=layers, num_hidden_layers=layers)
+
+
+def check_contrib_dense_specs():
+    """Gate: Pythia-6.9B resolves to G 1 at head_dim 128, rotary 32 of 128,
+    the parallel-dual block, a plain biased MLP, biased LayerNorms, an
+    untied head, and the paged and contiguous decode gates admit it;
+    BLOOM-7B1 to ALiBi without rotation, the embeddings' norm and a tied
+    head, and with both kernels asked for (``decode_kernel`` and
+    ``flash_prefill`` True) no gate admits it: not the decode kernels'
+    ``supports``, not the paged branch's, not the contiguous decode
+    branch's and not the flash prefill's; without ``alibi`` each
+    does."""
+    import dataclasses
+
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    pythia = family_spec(PYTHIA_6_9B, seq_len=2048)
+    bloom = family_spec(BLOOM_7B1, seq_len=2048, attn_kernel_enabled=True,
+                        attn_block_tkg_kernel_enabled=True)
+    cache = {"k": torch.empty((1, 4, 1, 1, 1), dtype=torch.bfloat16)}
+
+    def gates(spec):
+        return {"supports": decode_attention.supports(spec, 1),
+                "paged": model_base.use_decode_kernel(spec, 1,
+                                                      torch.bfloat16),
+                "contiguous": model_base.use_contiguous_decode_kernel(
+                    spec, 1, 4, cache, True),
+                "flash": model_base.use_flash_prefill(spec, 512)}
+    got = {name: {"group": spec.gqa.q_per_kv, "head_dim": spec.head_dim,
+                  "rotary_dim": spec.rope.rotary_dim,
+                  "block_style": spec.block_style, "mlp_glu": spec.mlp_glu,
+                  "mlp_bias": spec.mlp_bias,
+                  "norm": [spec.norm_type, spec.norm_bias],
+                  "no_rope": spec.no_rope, "alibi": spec.alibi,
+                  "embed_norm": spec.embed_norm,
+                  "tied": spec.tie_word_embeddings,
+                  "padded_vocab": spec.padded_vocab, "gates": gates(spec)}
+           for name, spec in (("pythia_6_9b", pythia), ("bloom_7b1", bloom))}
+    got["bloom_7b1_without_alibi"] = gates(dataclasses.replace(bloom,
+                                                               alibi=False))
+    emit({"phase": "contrib_dense_specs", **got})
+    ok = (pythia.gqa.q_per_kv == 1 and pythia.head_dim == 128
+          and pythia.rope.rotary_dim == 32
+          and pythia.block_style == "parallel_dual" and not pythia.mlp_glu
+          and pythia.mlp_bias and pythia.norm_bias
+          and pythia.norm_type == "layernorm"
+          and not pythia.tie_word_embeddings
+          and pythia.padded_vocab == 50432
+          and got["pythia_6_9b"]["gates"]["paged"]
+          and got["pythia_6_9b"]["gates"]["contiguous"]
+          and bloom.alibi and bloom.no_rope and bloom.embed_norm
+          and bloom.tie_word_embeddings and bloom.padded_vocab == 250880
+          and bloom.gqa.q_per_kv == 1 and bloom.head_dim == 128
+          and bloom.flash_prefill and bloom.decode_kernel is True
+          and not any(got["bloom_7b1"]["gates"].values())
+          and all(got["bloom_7b1_without_alibi"].values()))
+    if not ok:
+        raise AssertionError(f"contrib_dense specs: {got}")
+
+
+def _phase_contrib_dense_kernels(device):
+    """26 (a): the paged kernel on a synthetic batch at Pythia's heads (B
+    8, Hq = Hkv = 32, G 1, D 128, bf16 pages of 32, lens 37-2000), within
+    one bf16 ulp of its twin (tol_decode_bf16), with a control (the twin
+    reading KV head h // 2 for query head h) that must part beyond it;
+    then timed by CUDA-graph replay beside the twin, SDPA over the
+    pre-gathered KV and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    gen = torch.Generator(device=device).manual_seed(26)
+    lens = list(CONTRIB_DENSE_KERNEL_LENS)
+    x = paged_inputs(gen, device, b=len(lens), hq=32, hkv=32, d=128, bs=32,
+                     mb=-(-(max(lens) + 1) // 32), lens=lens,
+                     act_dtype=torch.bfloat16, page_dtype=torch.bfloat16)
+    kw = dict(scale=128 ** -0.5)
+    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+            x["lens"], x["block_table"])
+    got = decode_attention.paged_decode_attention(*args, **kw)
+    want = decode_attention.paged_decode_attention_plain(*args, **kw)
+    heads = torch.arange(32, device=device) // 2
+    ctl = decode_attention.paged_decode_attention_plain(
+        x["q"], x["k_pages"].index_select(3, heads),
+        x["v_pages"].index_select(3, heads), x["new_k"].index_select(1, heads),
+        x["new_v"].index_select(1, heads), 0, x["lens"], x["block_table"],
+        **kw)
+    tol = tol_decode_bf16(want)
+    err = (got.float() - want.float()).abs().max().item()
+    ctl_err = (got.float() - ctl.float()).abs().max().item()
+    shape = {"B": len(lens), "Hq": 32, "Hkv": 32, "G": 1, "D": 128,
+             "Bs": 32, "lens": lens, "pages": "bfloat16"}
+    emit({"phase": "contrib_dense_kernel_vs_twin",
+          "kernel": "paged_decode_attention", "shape": shape,
+          "max_abs_err": err, "tol": tol,
+          "control_h_over_2_max_abs_err": ctl_err})
+    if not (torch.isfinite(got.float()).all() and err <= tol):
+        raise AssertionError(f"contrib_dense kernel: {err} > {tol}")
+    if not ctl_err > tol:
+        raise AssertionError(f"contrib_dense kernel: the h // 2 control "
+                             f"sits within {tol} ({ctl_err})")
+    q4, k4, v4, m4 = sdpa_inputs(x, 0)
+    t = timed_kernel(
+        lambda: decode_attention.paged_decode_attention(*args, **kw),
+        lambda: decode_attention.paged_decode_attention_plain(*args, **kw),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                               scale=kw["scale"],
+                                               enable_gqa=True),
+        kernel_bounds(x), err, shape)
+    emit({"phase": "contrib_dense_kernel_timings",
+          "kernel": "paged_decode_attention", "kernel_us": t["ms"] * 1e3,
+          "bound_us": t["bound_ms"] * 1e3, "bound_by": t["bound_by"],
+          "plain_us": t["plain_ms"] * 1e3,
+          "library_us": t["library_ms"] * 1e3, "library": "SDPA",
+          "max_abs_err": err, "shape": shape})
+    # comparison launches are not main-path launches
+    reset_launches()
+    del x, args, got, want, ctl, q4, k4, v4, m4
+    torch.cuda.empty_cache()
+    return t
+
+
+def wrapper_counts():
+    """Each kernel wrapper's (eager launches, launches recorded into CUDA
+    graphs) so far: a graph replays only what a capture recorded, so no
+    capture and no eager launch means no launch at all."""
+    from neuronx_distributed_inference_tpu_torch.models.cuda_graphs import \
+        KERNELS
+    return {name: (KERNELS[name].launches, KERNELS[name].captured)
+            for name in KERNEL_NAMES}
+
+
+def bloom_serving(device):
+    """26 (c): BLOOM-7B1 at full width, cut to BLOOM_SERVE_LAYERS layers,
+    on the engine of (b), with the decode kernel and flash forced on: phase 19's gates with no
+    paged-kernel launch (the spy sees no call), the streams held to
+    ``generate``, and no launch or capture of any of the three kernel
+    wrappers over the whole run. The control: a 2-layer cut at the same
+    width, eager, with ``alibi`` taken off its spec, launches the paged
+    kernel at both layers of every decode step."""
+    import dataclasses
+    before = wrapper_counts()
+    reset_launches()
+    phase_dense_serving(bloom_cut(BLOOM_SERVE_LAYERS), device,
+                        CONTRIB_DENSE_SERVE, "bloom_serving", (),
+                        kernel=False, group=None,
+                        batch=8, tcfg_extra=dict(kernel=True,
+                                                 attn_kernel_enabled=True))
+    after = wrapper_counts()
+    delta = {k: [after[k][0], after[k][1] - before[k][1]] for k in after}
+    ctl = make_ragged_app(bloom_cut(2), device, "bfloat16",
+                          CONTRIB_DENSE_SERVE, batch=4, graphs=False,
+                          kernel=True)
+    ctl.init_random_weights(1)
+    ctl.spec = dataclasses.replace(ctl.spec, alibi=False)
+    ids, mask = prompts_of(CONTRIB_DENSE_SERVE["lens"][:4],
+                           BLOOM_7B1["vocab_size"], seed=26)
+    reset_launches([ctl])
+    ctl.generate(ids, attention_mask=mask, max_new_tokens=5)
+    ctl_launches = kernel_counts([ctl])["paged_decode_attention"]
+    want = 2 * 4 if device.type == "cuda" else 0
+    emit({"phase": "bloom_serving_no_kernel",
+          "launches_and_captures": delta,
+          "control_without_alibi_paged_launches": ctl_launches,
+          "control_expected": want})
+    del ctl
+    free_card()
+    if any(v != [0, 0] for v in delta.values()):
+        raise AssertionError(f"bloom_serving: kernel launches {delta}")
+    if ctl_launches != want:
+        raise AssertionError(f"bloom_serving: the control without ALiBi "
+                             f"launched the paged kernel {ctl_launches} "
+                             "times, not 8")
+
+
+def contrib_dense_fp32_cut(name, hf, device):
+    """26 (d), one geometry cut to CONTRIB_DENSE_CHECK_LAYERS layers, fp32
+    (TF32 off), on the family's contiguous ``CausalLMApplication`` with
+    both kernels asked for (``attn_kernel_enabled``, the decode kernel
+    forced on), after ``precompile``: phase 19's four prompts, 16 new
+    tokens. Pythia launches flash once a layer and the decode kernel at
+    every layer of every decode step (replays counted), each kernel then
+    held to its twin and timed at the launches' shapes
+    (:func:`dbrx_fp32_kernels`); BLOOM launches neither. The greedy
+    streams equal those of the same weights with both kernels off (a
+    first difference only at a near-tie). BLOOM's control: the same app
+    with ``alibi`` taken off its spec launches both kernels. Returns
+    (decode launches, flash launches, kernel numbers or None)."""
+    import dataclasses
+
+    import numpy as np
+    new = DENSE_CHECK_TOKENS
+    layers = hf["num_hidden_layers"]
+    cfg = DENSE_CHECK
+    alibi = hf["model_type"] == "bloom"
+    on_card = device.type == "cuda"
+    ids, mask = prompts_of(cfg["lens"], hf["vocab_size"], seed=26)
+    lens = mask.sum(axis=1)
+    phase = f"contrib_dense_fp32_{name}"
+    with ContiguousArgsSpy() as spy:
+        capp = make_contiguous_app(hf, device, "float32", batch=len(lens),
+                                   seq_len=cfg["seq_len"], decode_kernel=True,
+                                   output_logits=True)
+        init_weights(capp, 0)
+        warm(capp, phase)
+        reset_launches([capp])
+        with FlashShapes() as flash:
+            out = capp.generate(ids, attention_mask=mask, max_new_tokens=new,
+                                return_logits=True)
+        counts = kernel_counts([capp])
+    want = ({"paged_decode_attention": 0, "decode_attention_stacked": 0,
+             "flash_attention": 0} if alibi or not on_card else
+            {"paged_decode_attention": 0,
+             "decode_attention_stacked": layers * (new - 1),
+             "flash_attention": layers})
+    off = make_contiguous_app(hf, device, "float32", batch=len(lens),
+                              seq_len=cfg["seq_len"], kernels=False,
+                              output_logits=True)
+    off.params = capp.params
+    ref = off.generate(ids, attention_mask=mask, max_new_tokens=new,
+                       return_logits=True)
+    del off
+    check_equal_streams(
+        phase + "_kernels_vs_off", np.asarray(out["generated"]),
+        np.asarray(ref["generated"]),
+        lambda i, j, lg=ref["logits"]: (lg[0][i, lens[i] - 1] if j == 0
+                                        else lg[j][i, 0]))
+    control = None
+    if alibi:
+        ctl = make_contiguous_app(hf, device, "float32", batch=len(lens),
+                                  seq_len=cfg["seq_len"], decode_kernel=True,
+                                  graphs=False)
+        ctl.spec = dataclasses.replace(ctl.spec, alibi=False)
+        ctl.params = capp.params
+        reset_launches([ctl])
+        ctl.generate(ids, attention_mask=mask, max_new_tokens=4)
+        control = kernel_counts([ctl])
+        del ctl
+    emit({"phase": phase, "layers": layers, "launches": counts,
+          "expected": want, "decode_calls": sorted(spy.calls),
+          "flash_shapes": [list(map(str, c)) for c in flash.calls[:2]],
+          "control_without_alibi": control})
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts} != {want}")
+    if alibi and on_card and not (
+            control["flash_attention"] == layers
+            and control["decode_attention_stacked"] == layers * 3):
+        raise AssertionError(f"{phase}: the control without ALiBi "
+                             f"launched {control}")
+    times = None
+    if on_card and not alibi:
+        spec = capp.spec
+        times = dbrx_fp32_kernels(
+            device, spy.ints, flash.calls, [int(n) + new - 2 for n in lens],
+            dict(scale=spec.scale, window=spec.sliding_window,
+                 soft_cap=spec.attn_soft_cap), phase=phase)
+    del capp
+    free_card()
+    return (counts["decode_attention_stacked"], counts["flash_attention"],
+            times)
+
+
+def phase_contrib_dense(device):
+    """Group ``contrib_dense`` (phase 26 (a)-(d)); returns its kernels-line
+    entries: the paged kernel over Pythia's served cache at its last layer
+    (with (b)'s launches), and the contiguous decode and flash kernels at
+    Pythia's fp32 cut's shapes and dtype (with (d)'s launches)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    check_contrib_dense_specs()
+    _phase_contrib_dense_kernels(device)
+    memory_note("contrib_dense_kernels")
+    entries = phase_dense_serving(PYTHIA_6_9B, device, CONTRIB_DENSE_SERVE,
+                                  "pythia_serving", (-1,), group=1, batch=8)
+    bloom_serving(device)
+    with fp32_exact():
+        cuts = {name: contrib_dense_fp32_cut(
+            name, dict(hf, num_hidden_layers=CONTRIB_DENSE_CHECK_LAYERS),
+            device) for name, hf in (
+                ("pythia", PYTHIA_6_9B),
+                ("bloom", bloom_cut(CONTRIB_DENSE_CHECK_LAYERS)))}
+    decode_launches, flash_launches, times = cuts["pythia"]
+    for kind, kname, src, line, launches in (
+            ("contig", "decode_attention_stacked", "decode_attention.cu",
+             "decode_attention.py:41", decode_launches),
+            ("flash", "flash_attention", "flash_attention.cu",
+             "flash_attention.py:28", flash_launches)):
+        t = times[kind]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "neuronx_distributed_inference_tpu_torch/csrc/" + src,
+            "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
+            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": "contrib_dense_fp32_pythia", "shape": t["shape"]})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "contrib_dense_done", "seconds": seconds,
+          "budget_s": CONTRIB_DENSE_BUDGET_S})
+    if seconds > CONTRIB_DENSE_BUDGET_S:
+        raise AssertionError(f"contrib_dense group took {seconds:.1f} s, "
+                             f"over its budget of {CONTRIB_DENSE_BUDGET_S} s")
+    return entries
+
+
 GROUPS = ("kernels", "paged", "pipeline", "contig", "ragged", "tier",
           "spec", "moe", "oss", "long", "mla", "quant", "dense",
-          "moe_families", "contrib_moe", "lora")
+          "moe_families", "contrib_moe", "lora", "contrib_dense")
 
 
 def main(argv=None) -> int:
@@ -10441,6 +10832,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_lora_group(device)
         mark("lora")
+    if "contrib_dense" in only:
+        free_card()
+        kernels += phase_contrib_dense(device)
+        mark("contrib_dense")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

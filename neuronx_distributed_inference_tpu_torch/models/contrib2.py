@@ -1,7 +1,23 @@
-"""The contrib hub's MoE families of its second wave (counterpart:
+"""The contrib hub's second wave (counterpart:
 ``neuronx_distributed_inference_tpu/models/contrib2.py`` —
-``GraniteMoeFamily`` :745-798, ``OlmoeFamily`` :801-847,
-``Glm4MoeFamily`` :850-962, ``Dots1Family`` :1210-1250).
+``HunYuanDenseFamily`` :711-742, ``GraniteMoeFamily`` :745-798,
+``OlmoeFamily`` :801-847, ``Glm4MoeFamily`` :850-962, ``BloomFamily``
+:966-1036, ``MptFamily`` :1039-1116, ``PersimmonFamily`` :1122-1203,
+``Dots1Family`` :1210-1250).
+
+  * HunYuan-Dense: Llama with the per-head q/k RMSNorm applied after RoPE
+    (``query_layernorm`` / ``key_layernorm``, ``qk_norm_after_rope``).
+  * BLOOM: ALiBi (the ``"bloom"`` slopes, no rotation), the
+    per-head-interleaved fused QKV, the embeddings' LayerNorm
+    (``embed_norm``), a plain tanh-gelu MLP with biases, LayerNorms with
+    biases, tied embeddings.
+  * MPT: ALiBi (the ``"mpt"`` slopes), the thirds-split ``Wqkv``, no
+    biases anywhere, a plain gelu MLP; learned positions, another
+    ``alibi_bias_max``, biases and the ``qk_ln`` / ``clip_qkv`` variants
+    are refused, as in the reference.
+  * Persimmon: the per-head-interleaved fused QKV with biases, the
+    per-head q/k LayerNorm with biases (``qk_norm_type="layernorm"``),
+    partial rotary, a squared-ReLU plain MLP, LayerNorms with biases.
 
   * GraniteMoE: Granite's multipliers (``attention_multiplier`` as the
     softmax scale, the embedding, residual and logits multipliers) over an
@@ -20,7 +36,8 @@
   * dots.llm1: GLM-4-MoE's shape with full rotary and the per-head q/k
     norm always on.
 
-The wave's dense families wait for ROADMAP A14e (``contrib``)."""
+The wave's other dense families (GPT-J, GPT-Neo, GPT-BigCode, OPT, ...)
+wait for the next slice of ROADMAP A14f."""
 
 from __future__ import annotations
 
@@ -29,8 +46,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from ..modules.moe import MoESpec
+from ..ops.attention import alibi_slopes
 from ..parallel.layers import place_q_weight, replicate_kv_weight
-from .contrib import _SimpleConfig, _ident, _t, _vpad
+from .contrib import (_SimpleConfig, _ident, _split_interleaved_qkv,
+                      _stacker, _t, _vpad)
 from .family import DecoderFamily, register_family
 from .model_base import DecoderSpec, spec_from_config
 
@@ -281,3 +300,253 @@ class Dots1Family(Glm4MoeFamily):
             tie_word_embeddings=bool(getattr(config, "tie_word_embeddings",
                                              False)),
         )
+
+
+@register_family("hunyuan_v1_dense")
+class HunYuanDenseFamily(DecoderFamily):
+    """Tencent HunYuan (dense): Llama with the per-head q/k RMSNorm applied
+    after RoPE."""
+    config_cls = _SimpleConfig
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        bias = bool(getattr(config, "attention_bias", False))
+        return spec_from_config(
+            config, tp_degree,
+            qk_norm=True, qk_norm_after_rope=True,
+            qkv_bias=bias, o_bias=bias,
+            tie_word_embeddings=bool(getattr(config, "tie_word_embeddings",
+                                             False)),
+        )
+
+    @classmethod
+    def convert_hf_state_dict(cls, sd: Dict[str, np.ndarray],
+                              spec: DecoderSpec) -> Dict[str, Any]:
+        """``query_layernorm`` / ``key_layernorm`` read under the
+        ``q_norm`` / ``k_norm`` names the base converter takes."""
+        sd = dict(sd)
+        for i in range(spec.num_layers):
+            a = f"model.layers.{i}.self_attn."
+            sd[a + "q_norm.weight"] = np.asarray(
+                sd[a + "query_layernorm.weight"])
+            sd[a + "k_norm.weight"] = np.asarray(
+                sd[a + "key_layernorm.weight"])
+        return super().convert_hf_state_dict(sd, spec)
+
+
+def _alibi_stack(spec: DecoderSpec, variant: str) -> np.ndarray:
+    """The (L, Hq) slopes leaf: every layer's row the placed slopes of the
+    variant (identical rows keep the layer stack uniform)."""
+    slopes = place_q_weight(alibi_slopes(spec.num_q_heads, variant),
+                            spec.gqa, 1)
+    return np.broadcast_to(slopes, (spec.num_layers,) + slopes.shape).copy()
+
+
+@register_family("bloom")
+class BloomFamily(DecoderFamily):
+    """BigScience BLOOM: ALiBi, the per-head-interleaved fused QKV, the
+    embeddings' LayerNorm, a plain tanh-gelu MLP with biases, LayerNorms
+    with biases, tied embeddings."""
+    config_cls = _SimpleConfig
+    hf_prefix = "transformer"
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        H = config.hidden_size
+        nh = config.n_head
+        return spec_from_config(
+            config, tp_degree,
+            num_layers=config.n_layer,
+            hidden_size=H, num_q_heads=nh, num_kv_heads=nh,
+            head_dim=H // nh,
+            intermediate_size=4 * H,
+            rms_eps=float(getattr(config, "layer_norm_epsilon", 1e-5)),
+            # bloom_gelu_forward is the tanh form
+            act="gelu_pytorch_tanh",
+            norm_type="layernorm", norm_bias=True,
+            mlp_glu=False, mlp_bias=True,
+            qkv_bias=True, o_bias=True,
+            no_rope=True, alibi=True, embed_norm=True,
+            tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def convert_hf_state_dict(cls, sd: Dict[str, np.ndarray],
+                              spec: DecoderSpec) -> Dict[str, Any]:
+        g, D = spec.gqa, spec.head_dim
+        p = cls.hf_prefix
+        get, stack = _stacker(sd, spec.num_layers)
+        lp = p + ".h.{i}."
+        layers = {
+            "input_norm": stack(lp + "input_layernorm.weight", _ident),
+            "input_norm_b": stack(lp + "input_layernorm.bias", _ident),
+            "post_norm": stack(lp + "post_attention_layernorm.weight",
+                               _ident),
+            "post_norm_b": stack(lp + "post_attention_layernorm.bias",
+                                 _ident),
+            **_split_interleaved_qkv(get, lp + "self_attention.query_key_value",
+                                     spec.num_layers, spec.num_q_heads, g,
+                                     D),
+            "o_proj": stack(lp + "self_attention.dense.weight",
+                            lambda w: place_q_weight(_t(w), g, D, axis=0)),
+            "o_bias": stack(lp + "self_attention.dense.bias", _ident),
+            "gate_proj": stack(lp + "mlp.dense_h_to_4h.weight", _t),
+            "gate_bias": stack(lp + "mlp.dense_h_to_4h.bias", _ident),
+            "down_proj": stack(lp + "mlp.dense_4h_to_h.weight", _t),
+            "down_bias": stack(lp + "mlp.dense_4h_to_h.bias", _ident),
+            "alibi_slopes": _alibi_stack(spec, "bloom"),
+        }
+        return {
+            "embed": _vpad(get(p + ".word_embeddings.weight"),
+                           spec.padded_vocab),
+            "embed_norm": get(p + ".word_embeddings_layernorm.weight"),
+            "embed_norm_b": get(p + ".word_embeddings_layernorm.bias"),
+            "layers": layers,
+            "final_norm": get(p + ".ln_f.weight"),
+            "final_norm_b": get(p + ".ln_f.bias"),
+        }
+
+
+@register_family("mpt")
+class MptFamily(DecoderFamily):
+    """MosaicML MPT: ALiBi, the thirds-split fused ``Wqkv``, no biases, a
+    plain gelu MLP, bias-free LayerNorms, tied embeddings."""
+    config_cls = _SimpleConfig
+    hf_prefix = "transformer"
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        H = config.d_model
+        nh = config.n_heads
+        ac = getattr(config, "attn_config", None) or {}
+        if not isinstance(ac, dict):      # an MptConfig object, not JSON
+            ac = {k: getattr(ac, k) for k in
+                  ("alibi", "alibi_bias_max", "qk_ln", "clip_qkv")
+                  if hasattr(ac, k)}
+        if not ac.get("alibi", True):
+            raise NotImplementedError("MPT without ALiBi (learned "
+                                      "positions) is not supported")
+        if ac.get("alibi_bias_max", 8) != 8:
+            raise NotImplementedError("MPT alibi_bias_max != 8")
+        if not getattr(config, "no_bias", True):
+            raise NotImplementedError("MPT with biases is not supported")
+        if ac.get("qk_ln", False) or ac.get("clip_qkv", None):
+            raise NotImplementedError("MPT qk_ln / clip_qkv variants")
+        return spec_from_config(
+            config, tp_degree,
+            num_layers=config.n_layers,
+            hidden_size=H, num_q_heads=nh, num_kv_heads=nh,
+            head_dim=H // nh,
+            intermediate_size=int(H * getattr(config, "expansion_ratio", 4)),
+            rms_eps=float(getattr(config, "layer_norm_epsilon", 1e-5)),
+            act="gelu",
+            norm_type="layernorm", norm_bias=False,
+            mlp_glu=False, mlp_bias=False,
+            no_rope=True, alibi=True,
+            tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def convert_hf_state_dict(cls, sd: Dict[str, np.ndarray],
+                              spec: DecoderSpec) -> Dict[str, Any]:
+        """``Wqkv`` (3H, H): q, k and v in thirds."""
+        g, D = spec.gqa, spec.head_dim
+        H = spec.hidden_size
+        p = cls.hf_prefix
+        get, stack = _stacker(sd, spec.num_layers)
+        qs, ks, vs = [], [], []
+        for i in range(spec.num_layers):
+            w = get(f"{p}.blocks.{i}.attn.Wqkv.weight")
+            qs.append(place_q_weight(_t(w[:H]), g, D, axis=-1))
+            ks.append(replicate_kv_weight(_t(w[H:2 * H]), g, D, axis=-1))
+            vs.append(replicate_kv_weight(_t(w[2 * H:]), g, D, axis=-1))
+        lp = p + ".blocks.{i}."
+        layers = {
+            "input_norm": stack(lp + "norm_1.weight", _ident),
+            "post_norm": stack(lp + "norm_2.weight", _ident),
+            "qkv_proj": np.concatenate(
+                [np.stack(qs), np.stack(ks), np.stack(vs)], axis=-1),
+            "o_proj": stack(lp + "attn.out_proj.weight",
+                            lambda w: place_q_weight(_t(w), g, D, axis=0)),
+            "gate_proj": stack(lp + "ffn.up_proj.weight", _t),
+            "down_proj": stack(lp + "ffn.down_proj.weight", _t),
+            "alibi_slopes": _alibi_stack(spec, "mpt"),
+        }
+        return {
+            "embed": _vpad(get(p + ".wte.weight"), spec.padded_vocab),
+            "layers": layers,
+            "final_norm": get(p + ".norm_f.weight"),
+        }
+
+
+@register_family("persimmon")
+class PersimmonFamily(DecoderFamily):
+    """Adept Persimmon: the per-head-interleaved fused QKV with biases, the
+    per-head q/k LayerNorm with biases, partial rotary, a squared-ReLU
+    plain MLP with biases, LayerNorms with biases, an untied head."""
+    config_cls = _SimpleConfig
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        H = config.hidden_size
+        nh = config.num_attention_heads
+        hd = H // nh
+        return spec_from_config(
+            config, tp_degree,
+            num_kv_heads=nh,
+            head_dim=hd,
+            rms_eps=float(getattr(config, "layer_norm_eps", 1e-5)),
+            act=getattr(config, "hidden_act", "relu2"),
+            norm_type="layernorm", norm_bias=True,
+            mlp_glu=False, mlp_bias=True,
+            qkv_bias=True, o_bias=True,
+            qk_norm=bool(getattr(config, "qk_layernorm", True)),
+            qk_norm_type="layernorm",
+            rotary_dim=int(hd * getattr(config, "partial_rotary_factor",
+                                        0.5)),
+            tie_word_embeddings=False,
+        )
+
+    @classmethod
+    def convert_hf_state_dict(cls, sd: Dict[str, np.ndarray],
+                              spec: DecoderSpec) -> Dict[str, Any]:
+        g, D = spec.gqa, spec.head_dim
+        p = cls.hf_prefix
+        get, stack = _stacker(sd, spec.num_layers)
+        lp = p + ".layers.{i}."
+        layers = {
+            "input_norm": stack(lp + "input_layernorm.weight", _ident),
+            "input_norm_b": stack(lp + "input_layernorm.bias", _ident),
+            "post_norm": stack(lp + "post_attention_layernorm.weight",
+                               _ident),
+            "post_norm_b": stack(lp + "post_attention_layernorm.bias",
+                                 _ident),
+            **_split_interleaved_qkv(get, lp + "self_attn.query_key_value",
+                                     spec.num_layers, spec.num_q_heads, g,
+                                     D),
+            "o_proj": stack(lp + "self_attn.dense.weight",
+                            lambda w: place_q_weight(_t(w), g, D, axis=0)),
+            "o_bias": stack(lp + "self_attn.dense.bias", _ident),
+            "gate_proj": stack(lp + "mlp.dense_h_to_4h.weight", _t),
+            "gate_bias": stack(lp + "mlp.dense_h_to_4h.bias", _ident),
+            "down_proj": stack(lp + "mlp.dense_4h_to_h.weight", _t),
+            "down_bias": stack(lp + "mlp.dense_4h_to_h.bias", _ident),
+        }
+        if spec.qk_norm:
+            for n in ("q", "k"):
+                layers[n + "_norm"] = stack(
+                    lp + f"self_attn.{n}_layernorm.weight", _ident)
+                layers[n + "_norm_b"] = stack(
+                    lp + f"self_attn.{n}_layernorm.bias", _ident)
+        return {
+            "embed": _vpad(get(p + ".embed_tokens.weight"),
+                           spec.padded_vocab),
+            "layers": layers,
+            "final_norm": get(p + ".final_layernorm.weight"),
+            "final_norm_b": get(p + ".final_layernorm.bias"),
+            "lm_head": _t(_vpad(get("lm_head.weight"), spec.padded_vocab)),
+        }

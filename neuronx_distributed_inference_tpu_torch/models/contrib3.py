@@ -1,24 +1,137 @@
-"""Phi-3.5-MoE, of the contrib hub's third wave (counterpart:
-``neuronx_distributed_inference_tpu/models/contrib3.py:295-360``,
-``PhimoeFamily``).
+"""The contrib hub's third wave (counterpart:
+``neuronx_distributed_inference_tpu/models/contrib3.py`` —
+``OpenAIGPTFamily`` :24-67, ``ApertusInferenceConfig`` :237,
+``ApertusFamily`` :246-292, ``PhimoeFamily`` :295-360).
 
-Mixtral's shape (16 experts, top 2) with the sparsemixer inference routing
+openai-gpt (GPT-1) is GPT-2's shape (the fused Conv1D attention, learned
+positions, a plain biased MLP) with post-LN blocks, x = ln(x + sub(x))
+(``norm_position="post_residual"``), and no final norm
+(``skip_final_norm``). Apertus is Llama attention with the per-head q/k
+RMSNorm before RoPE and a plain up / down MLP with the learned-alpha xIELU
+(``act="xielu"``: a (L, 4) fp32 leaf from each layer's ``act_fn``).
+
+Phi-3.5-MoE is Mixtral's shape (16 experts, top 2) with the sparsemixer inference routing
 (``modules/moe.py``), LayerNorm with a learned bias in every block norm and
 the final norm (``norm_bias``), q/k/v and o biases, an optional lm-head
 bias (``lm_head_bias``, padded to the padded vocabulary) and a sliding
-window on every layer. The wave's other families (openai-gpt, LFM2,
-VaultGemma, Apertus, MiniCPM, ...) wait for ROADMAP A14e."""
+window on every layer. The wave's other families (VaultGemma, MiniCPM,
+Orion, InternLM3, OLMo-3) wait for the next slice of ROADMAP A14f, LFM2 for
+A14e."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..config import InferenceConfig
 from ..modules.moe import MoESpec
-from .contrib import _SimpleConfig, _ident, _vpad1
+from .contrib import GPT2Family, _SimpleConfig, _ident, _t, _vpad1
 from .family import DecoderFamily, register_family
 from .model_base import DecoderSpec, spec_from_config
+
+
+@register_family("openai-gpt")
+class OpenAIGPTFamily(GPT2Family):
+    """GPT-1: GPT-2's fused Conv1D attention and learned positions with
+    post-LN blocks (x = ln(x + sublayer(x))) and no final norm."""
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        H = config.n_embd
+        nh = config.n_head
+        return spec_from_config(
+            config, tp_degree,
+            num_layers=config.n_layer,
+            hidden_size=H,
+            num_q_heads=nh, num_kv_heads=nh, head_dim=H // nh,
+            intermediate_size=getattr(config, "n_inner", None) or 4 * H,
+            rms_eps=float(getattr(config, "layer_norm_epsilon", 1e-5)),
+            act={"gelu": "gelu_new", "gelu_new": "gelu_new",
+                 "relu": "relu", "silu": "silu"}.get(
+                getattr(config, "afn", "gelu"), "gelu_new"),
+            norm_type="layernorm", norm_bias=True,
+            norm_position="post_residual", skip_final_norm=True,
+            mlp_glu=False, mlp_bias=True,
+            qkv_bias=True, o_bias=True,
+            no_rope=True,
+            learned_pos=int(getattr(config, "n_positions", 512)),
+            tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def convert_hf_state_dict(cls, sd: Dict[str, np.ndarray],
+                              spec: DecoderSpec) -> Dict[str, Any]:
+        """``tokens_embed`` / ``positions_embed`` under GPT-2's ``wte`` /
+        ``wpe`` names; GPT-1 has no ``ln_f``, so the tree has no final
+        norm."""
+        sd = dict(sd)
+        p = cls.hf_prefix
+        sd[p + ".wte.weight"] = sd.pop(p + ".tokens_embed.weight")
+        sd[p + ".wpe.weight"] = sd.pop(p + ".positions_embed.weight")
+        H = spec.hidden_size
+        sd[p + ".ln_f.weight"] = np.ones((H,), np.float32)
+        sd[p + ".ln_f.bias"] = np.zeros((H,), np.float32)
+        out = super().convert_hf_state_dict(sd, spec)
+        out.pop("final_norm", None)
+        out.pop("final_norm_b", None)
+        return out
+
+
+class ApertusInferenceConfig(InferenceConfig):
+    """Apertus's config: the geometry it reads without defaults."""
+
+    def get_required_attributes(self) -> List[str]:
+        return ["hidden_size", "num_attention_heads", "num_hidden_layers",
+                "num_key_value_heads", "vocab_size", "intermediate_size"]
+
+    def get_text_config(self):
+        return self
+
+
+@register_family("apertus")
+class ApertusFamily(DecoderFamily):
+    """Swiss AI Apertus: Llama attention, the per-head q/k RMSNorm before
+    RoPE, a plain up / down MLP with the learned-alpha xIELU."""
+
+    config_cls = ApertusInferenceConfig
+    input_norm_src = "attention_layernorm"
+    post_norm_src = "feedforward_layernorm"
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        bias = bool(getattr(config, "attention_bias", False))
+        return spec_from_config(
+            config, tp_degree,
+            qk_norm=True,
+            mlp_glu=False,
+            act="xielu",
+            qkv_bias=bias, o_bias=bias,
+        )
+
+    @classmethod
+    def convert_mlp_weights(cls, get, layer_stack, spec: DecoderSpec
+                            ) -> Dict[str, np.ndarray]:
+        """The plain MLP's fc1 / fc2 (``up_proj`` / ``down_proj``) in the
+        gate / down slots."""
+        lp = cls.hf_prefix + ".layers.{i}.mlp."
+        return {"gate_proj": layer_stack(lp + "up_proj.weight", _t),
+                "down_proj": layer_stack(lp + "down_proj.weight", _t)}
+
+    @classmethod
+    def convert_extra_layer_weights(cls, get, layer_stack, spec: DecoderSpec
+                                    ) -> Dict[str, np.ndarray]:
+        """Each layer's ``act_fn`` scalars as the fp32 row [alpha_p,
+        alpha_n, beta, eps]."""
+        a = "model.layers.{i}.mlp.act_fn."
+
+        def row(i):
+            return np.array([np.asarray(get(a.format(i=i) + n)).reshape(-1)[0]
+                             for n in ("alpha_p", "alpha_n", "beta", "eps")],
+                            np.float32)
+        return {"xielu": np.stack([row(i) for i in range(spec.num_layers)])}
 
 
 @register_family("phimoe")

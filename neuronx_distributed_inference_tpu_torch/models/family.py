@@ -8,16 +8,20 @@ Llama, Mistral, Qwen3, Qwen2, Granite, Phi-3, OLMo-2, Gemma-2 and Gemma-3
 families (dense), the Qwen3-MoE, Mixtral, GPT-OSS and DBRX families (MoE),
 DeepSeek (MLA, a mixed dense / MoE stack, its own converter), Llama4
 text (chunked attention, NoPE layers, interleaved dense / MoE) and the
-contrib hub's MoE families (``contrib2``: GraniteMoE, OLMoE, GLM-4-MoE,
-dots.llm1; ``contrib3``: Phi-3.5-MoE). Families
+contrib hub's families (``contrib``: GPT-2, GPT-NeoX, Falcon, StarCoder2,
+Phi, Gemma, OLMo, GLM-4, StableLM, Cohere; ``contrib2``: HunYuan-Dense,
+BLOOM, MPT, Persimmon and the MoE ones GraniteMoE, OLMoE, GLM-4-MoE,
+dots.llm1; ``contrib3``: openai-gpt, Apertus, Phi-3.5-MoE). Families
 override the reference's hooks ``convert_mlp_weights`` (the MoE families,
 through ``convert_moe_weights`` or their own layout),
 ``convert_extra_layer_weights`` (GPT-OSS: sinks; Gemma: the sandwich
 norms; OLMo-2: those and its full-width q/k norms) and the HF names that
 feed the two block norms, ``input_norm_src`` and ``post_norm_src``
 (family.py:53-61; Gemma feeds the pre-MLP norm from
-``pre_feedforward_layernorm``); the per-head q/k norms and the q/k/v and o
-biases (family.py:120-132) convert when the spec has them."""
+``pre_feedforward_layernorm``) and the attention's output projection,
+``attn_o_src`` (Phi's ``self_attn.dense``); the per-head q/k norms and
+the q/k/v and o biases (family.py:120-132) convert when the spec has
+them."""
 
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ def register_family(*names: str):
 
 def get_family(name: str) -> Type["DecoderFamily"]:
     # their imports register them
-    from . import (contrib2, contrib3, dbrx, deepseek,  # noqa: F401
+    from . import (contrib, contrib2, contrib3, dbrx, deepseek,  # noqa: F401
                    gemma2, gemma3, gpt_oss, granite, llama, llama4,
                    mistral, mixtral, olmo2, phi3, qwen2, qwen3, qwen3_moe)
     if name not in _REGISTRY:
@@ -67,6 +71,8 @@ class DecoderFamily:
     # the HF norm weight feeding the pre-MLP norm ("post_norm");
     # sandwich-norm families point it at pre_feedforward_layernorm
     post_norm_src = "post_attention_layernorm"
+    # the HF module of the attention's output projection
+    attn_o_src = "self_attn.o_proj"
 
     @classmethod
     def build_spec(cls, config: InferenceConfig,
@@ -115,7 +121,7 @@ class DecoderFamily:
             "q_proj": layer_stack(lp + "self_attn.q_proj.weight", q_t),
             "k_proj": layer_stack(lp + "self_attn.k_proj.weight", kv_t),
             "v_proj": layer_stack(lp + "self_attn.v_proj.weight", kv_t),
-            "o_proj": layer_stack(lp + "self_attn.o_proj.weight", o_t),
+            "o_proj": layer_stack(lp + cls.attn_o_src + ".weight", o_t),
             "post_norm": layer_stack(lp + cls.post_norm_src + ".weight",
                                      ident),
         }
@@ -132,7 +138,7 @@ class DecoderFamily:
                     lp + f"self_attn.{name}_proj.bias",
                     lambda b: replicate_kv_weight(np.asarray(b), g, D))
         if spec.o_bias:
-            layers["o_bias"] = layer_stack(lp + "self_attn.o_proj.bias",
+            layers["o_bias"] = layer_stack(lp + cls.attn_o_src + ".bias",
                                            ident)
         if spec.qk_norm:
             layers["q_norm"] = layer_stack(lp + "self_attn.q_norm.weight",

@@ -3,7 +3,8 @@
 :66, ``DecoderSpec`` :98, ``pad_vocab`` :350, the parameter specs :360-590
 (``_attn_param_specs`` :360, ``_moe_param_specs`` :478), ``fuse_qkv_host``
 :618, ``attn_inputs`` :720,
-``_layer_body`` :753, ``_mlp_block`` :889 (dense GLU or the MoE block),
+``_layer_body`` :753, ``_mlp_block`` :889 (dense GLU, plain MLP, xIELU or
+the MoE block),
 ``_attn_block`` :943-1280 (the per-head q/k RMSNorm :1014-1024, paged
 :1058-1103, prefill :1104-1156, decode :1157-1272), ``run_layers`` :1296 / ``run_layer_slice`` :1414,
 ``run_layers_mixed_decode`` :1577, ``fold_mixed_prefill`` :1611,
@@ -55,6 +56,19 @@ layer: both decode gates and the flash gate refuse ``attn_chunk``.
 Phi-3.5-MoE's: a learned bias on every LayerNorm (``norm_bias``) and on
 the lm-head (``lm_head_bias``); GLM-4-MoE's partial rotary is the rope's
 ``rotary_dim``.
+
+The contrib dense families' (GPT-2, GPT-NeoX, Falcon, BLOOM, MPT, ...):
+plain two-layer MLPs (``mlp_glu`` False, fc1 / fc2 in the gate / down
+slots) and MLP biases, no rotation (``no_rope``), a learned position
+table added at each step's positions (``learned_pos``), the embeddings'
+LayerNorm (``embed_norm``), parallel blocks (``block_style``), GPT-1's
+post-residual LayerNorms and missing final norm (``norm_position=
+"post_residual"``, ``skip_final_norm``), the per-head q/k norm after RoPE
+or as a LayerNorm (``qk_norm_after_rope``, ``qk_norm_type``), Apertus's
+learned xIELU, and ALiBi (``alibi``: the layer's fp32 slopes times the
+key positions, added to the scores of the gather paths' ``mha`` /
+``mha_hl``). No kernel takes ALiBi: every kernel gate refuses it, as
+the reference's do.
 
 Multi-LoRA (``spec.lora``, ``modules/lora.py``): every targeted
 projection has stacked factors ``lora_A_<mod>`` (L, max_loras, in, r) and
@@ -135,6 +149,23 @@ from ..ops.rope import (SUPPORTED_SCALING, RopeConfig, apply_rope,
 from ..parallel.layers import GQASharding, ParamSpec, resolve_gqa_sharding
 from ..resilience.errors import ConfigurationError
 
+def xielu(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Apertus's xIELU with learned alphas (model_base.py:894-909):
+    ``params`` = the layer's fp32 [alpha_p_raw, alpha_n_raw, beta, eps];
+    alpha_p = softplus(alpha_p_raw), alpha_n = beta + softplus(alpha_n_raw);
+    alpha_p x^2 + beta x where x > 0, else (expm1(min(x, eps)) - x) alpha_n
+    + beta x, in fp32, then the cast."""
+    p = params.float()
+    alpha_p = F.softplus(p[0])
+    beta, eps = p[2], p[3]
+    alpha_n = beta + F.softplus(p[1])
+    xf = x.float()
+    y = torch.where(xf > 0, alpha_p * xf * xf + beta * xf,
+                    (torch.expm1(torch.minimum(xf, eps)) - xf) * alpha_n
+                    + beta * xf)
+    return y.to(x.dtype)
+
+
 ACT_FNS = {
     "silu": F.silu,
     "gelu": functools.partial(F.gelu, approximate="none"),
@@ -143,6 +174,8 @@ ACT_FNS = {
     "relu": F.relu,
     # squared ReLU (nemotron / arcee plain MLPs)
     "relu2": lambda x: torch.square(F.relu(x)),
+    # learned per layer: _mlp_block binds the layer's "xielu" row
+    "xielu": xielu,
 }
 
 
@@ -282,6 +315,35 @@ class DecoderSpec:
     # multi-LoRA serving (model_base.py:254-256): stacked per-adapter
     # factors, each row's picked by its ``adapter_ids`` entry
     lora: Optional[LoraSpec] = None
+    # the contrib dense families' knobs (model_base.py:119, :179-186,
+    # :209-249): a GLU MLP act(x @ gate) * (x @ up) @ down, or with
+    # ``mlp_glu`` False the plain act(x @ fc1) @ fc2 in the gate / down
+    # slots; ``mlp_bias`` adds the MLP projections' biases
+    mlp_glu: bool = True
+    mlp_bias: bool = False
+    # no rotation at all (learned-position and ALiBi models)
+    no_rope: bool = False
+    # a learned absolute position table of this many rows ("pos_embed"),
+    # gathered at the positions (clamped to its last row) and added to the
+    # token embeddings; 0 = none
+    learned_pos: int = 0
+    # a LayerNorm with bias over the token embeddings (BLOOM's
+    # word_embeddings_layernorm: "embed_norm", "embed_norm_b")
+    embed_norm: bool = False
+    # no final norm before the lm-head (GPT-1's post-LN blocks end normed)
+    skip_final_norm: bool = False
+    # ALiBi (BLOOM, MPT): score += slope_h * (kpos - qpos) with the (L, Hq)
+    # fp32 "alibi_slopes" leaf; no kernel takes such a layer
+    alibi: bool = False
+    # "sequential" (Llama), "parallel_shared" (one norm feeds attention
+    # and the MLP: Falcon-7B, Phi, Cohere) or "parallel_dual" (the MLP's
+    # own post_norm, also over the block input: GPT-NeoX, Falcon-40B)
+    block_style: str = "sequential"
+    # the per-head q/k norm after RoPE (HunYuan) instead of before, and its
+    # kind: "rms" or "layernorm" with the biases q_norm_b / k_norm_b
+    # (Persimmon)
+    qk_norm_after_rope: bool = False
+    qk_norm_type: str = "rms"
 
     @property
     def scale(self) -> float:
@@ -381,8 +443,9 @@ def _mla_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
 def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     """The attention half of a layer (model_base.py:360-432): norms, the
     fused q/k/v and o projections (or the MLA projections), and the
-    optional norm biases, q/k norms (per head, or full width), biases
-    (zeros), sandwich norms and fp32 sinks (zeros)."""
+    optional norm biases, q/k norms (per head, or full width; a per-head
+    LayerNorm with its biases), biases (zeros), sandwich norms, fp32 sinks
+    and fp32 ALiBi slopes (zeros)."""
     H, dt = spec.hidden_size, spec.dtype
     layers = {
         "input_norm": ParamSpec((L, H), dt, "ones"),
@@ -405,6 +468,9 @@ def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     if spec.qk_norm_full:
         layers["q_norm"] = ParamSpec((L, spec.q_size), dt, "ones")
         layers["k_norm"] = ParamSpec((L, spec.kv_size), dt, "ones")
+    if spec.qk_norm and spec.qk_norm_type == "layernorm":
+        layers["q_norm_b"] = ParamSpec((L, spec.head_dim), dt, "zeros")
+        layers["k_norm_b"] = ParamSpec((L, spec.head_dim), dt, "zeros")
     if spec.o_bias:
         layers["o_bias"] = ParamSpec((L, H), dt, "zeros")
     if spec.sandwich_norm:
@@ -413,6 +479,9 @@ def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     if spec.attn_sink:
         layers["sink"] = ParamSpec((L, spec.gqa.num_q_heads), torch.float32,
                                    "zeros")
+    if spec.alibi:
+        layers["alibi_slopes"] = ParamSpec((L, spec.gqa.num_q_heads),
+                                           torch.float32, "zeros")
     if spec.lora is not None and spec.mla is None:
         _add_lora_specs(spec, layers, L, {
             "q_proj": (H, spec.q_size), "k_proj": (H, spec.kv_size),
@@ -438,17 +507,28 @@ def _add_lora_specs(spec: DecoderSpec, layers: Dict[str, ParamSpec], L: int,
 
 def _dense_mlp_param_specs(spec: DecoderSpec,
                            L: int) -> Dict[str, ParamSpec]:
-    """The dense GLU MLP slot (model_base.py:452): gate / up / down of
-    ``intermediate_size``, with their adapter factors under LoRA (:470-474;
-    an MoE layer takes none)."""
+    """The dense MLP slot (model_base.py:452-475): gate / up / down of
+    ``intermediate_size`` (a plain MLP has no up: its fc1 / fc2 sit in the
+    gate / down slots), their biases (zeros) under ``mlp_bias``, xIELU's
+    fp32 (L, 4) [alpha_p_raw, alpha_n_raw, beta, eps] (ones), and the
+    adapter factors under LoRA (:470-474; an MoE layer takes none)."""
     H, I, dt = spec.hidden_size, spec.intermediate_size, spec.dtype
     layers = {"gate_proj": ParamSpec((L, H, I), dt),
-              "up_proj": ParamSpec((L, H, I), dt),
               "down_proj": ParamSpec((L, I, H), dt)}
+    if spec.mlp_glu:
+        layers["up_proj"] = ParamSpec((L, H, I), dt)
+    if spec.mlp_bias:
+        layers["gate_bias"] = ParamSpec((L, I), dt, "zeros")
+        layers["down_bias"] = ParamSpec((L, H), dt, "zeros")
+        if spec.mlp_glu:
+            layers["up_bias"] = ParamSpec((L, I), dt, "zeros")
+    if spec.act == "xielu":
+        layers["xielu"] = ParamSpec((L, 4), torch.float32, "ones")
     if spec.lora is not None:
-        _add_lora_specs(spec, layers, L, {"gate_proj": (H, I),
-                                          "up_proj": (H, I),
-                                          "down_proj": (I, H)})
+        dims = {"gate_proj": (H, I), "down_proj": (I, H)}
+        if spec.mlp_glu:
+            dims["up_proj"] = (H, I)
+        _add_lora_specs(spec, layers, L, dims)
     return layers
 
 
@@ -456,18 +536,23 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     """Shapes of the parameter tree, the counterpart's (model_base.py:
     520-549): one ``"layers"`` stack, or for a mixed stack the dense
     layers in ``"layers"`` and the MoE layers in ``"moe_layers"``
-    (:func:`layer_plan`); with ``norm_bias`` the final norm's bias, with
-    ``lm_head_bias`` the untied head's (:556, :579-580); with
-    ``medusa_heads`` M the heads' ``medusa_blocks`` (M, H, H),
-    ``medusa_bias`` (M, H) and ``medusa_lm`` (M, H, padded vocab)
-    (:582-587)."""
+    (:func:`layer_plan`); the final norm unless ``skip_final_norm``, with
+    ``norm_bias`` its bias, with ``lm_head_bias`` the untied head's (:521-
+    529, :579-580); the ``learned_pos`` table ``pos_embed``, BLOOM's
+    ``embed_norm`` / ``embed_norm_b``; with ``medusa_heads`` M the heads'
+    ``medusa_blocks`` (M, H, H), ``medusa_bias`` (M, H) and ``medusa_lm``
+    (M, H, padded vocab) (:582-587)."""
     H, dt = spec.hidden_size, spec.dtype
-    out: Dict[str, Any] = {
-        "embed": ParamSpec((spec.padded_vocab, H), dt),
-        "final_norm": ParamSpec((H,), dt, "ones"),
-    }
-    if spec.norm_bias:
-        out["final_norm_b"] = ParamSpec((H,), dt, "zeros")
+    out: Dict[str, Any] = {"embed": ParamSpec((spec.padded_vocab, H), dt)}
+    if not spec.skip_final_norm:
+        out["final_norm"] = ParamSpec((H,), dt, "ones")
+        if spec.norm_bias:
+            out["final_norm_b"] = ParamSpec((H,), dt, "zeros")
+    if spec.learned_pos:
+        out["pos_embed"] = ParamSpec((spec.learned_pos, H), dt)
+    if spec.embed_norm:
+        out["embed_norm"] = ParamSpec((H,), dt, "ones")
+        out["embed_norm_b"] = ParamSpec((H,), dt, "zeros")
     plan = layer_plan(spec)
     kinds = {key: kind for key, _, _, kind in plan}
     for key, kind in kinds.items():
@@ -625,14 +710,29 @@ def _sink(spec: DecoderSpec, layer_w):
     return layer_w["sink"] if spec.attn_sink else None
 
 
+def _qk_head_norm(spec: DecoderSpec, q, k, layer_w):
+    """The per-head q/k norm (model_base.py:1014-1033): RMSNorm with
+    ``norm_offset``, or with ``qk_norm_type`` "layernorm" a LayerNorm with
+    the ``q_norm_b`` / ``k_norm_b`` biases (Persimmon)."""
+    if spec.qk_norm_type == "layernorm":
+        return (layer_norm(q, layer_w["q_norm"], layer_w["q_norm_b"],
+                           spec.rms_eps),
+                layer_norm(k, layer_w["k_norm"], layer_w["k_norm_b"],
+                           spec.rms_eps))
+    off = spec.norm_offset
+    return (rms_norm(q, layer_w["q_norm"], spec.rms_eps, off),
+            rms_norm(k, layer_w["k_norm"], spec.rms_eps, off))
+
+
 def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
     """Fused projection, the rows' adapter deltas (``ai["adapter_ids"]``),
-    the q/k/v clamp, q/k norms, head split and RoPE,
+    the q/k/v clamp, q/k norms (the per-head one before RoPE, or after it
+    with ``qk_norm_after_rope``), head split and RoPE,
     then Llama4's q/k norm and temperature: q (B,T,Hq,D), k/v (B,T,Hkv,D)
     (v a view into the projection output unless clamped). A local layer
     rotates with ``ai["cos_l"]`` when the step carries it, a NoPE global
-    layer not at all (Python branches: a captured graph holds each
-    layer's own)."""
+    layer and a ``no_rope`` model not at all (Python branches: a captured
+    graph holds each layer's own)."""
     b, t, _ = h.shape
     g = spec.gqa
     off = spec.norm_offset
@@ -658,19 +758,19 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
         q, k, v = q.clamp(-c, c), k.clamp(-c, c), v.clamp(-c, c)
     q = q.reshape(b, t, g.num_q_heads, spec.head_dim)
     k = k.reshape(b, t, g.num_kv_heads, spec.head_dim)
-    if spec.qk_norm:
-        # per-head RMSNorm before RoPE (model_base.py:1014-1024)
-        q = rms_norm(q, layer_w["q_norm"], spec.rms_eps, off)
-        k = rms_norm(k, layer_w["k_norm"], spec.rms_eps, off)
+    if spec.qk_norm and not spec.qk_norm_after_rope:
+        q, k = _qk_head_norm(spec, q, k, layer_w)
     # with a layer pattern Llama4's knobs split the layers: the local ones
     # rotate and take the q/k norm, the global ones are NoPE and take the
     # temperature; a uniform stack takes both knobs on every layer
     rotated = spec.layer_pattern is None or is_local
-    if rotated or not spec.nope_global:
+    if not spec.no_rope and (rotated or not spec.nope_global):
         cos, sin = ((ai["cos_l"], ai["sin_l"]) if is_local and "cos_l" in ai
                     else (ai["cos"], ai["sin"]))
         q = apply_rope(q, cos, sin, spec.rope_interleaved)
         k = apply_rope(k, cos, sin, spec.rope_interleaved)
+    if spec.qk_norm and spec.qk_norm_after_rope:
+        q, k = _qk_head_norm(spec, q, k, layer_w)
     if spec.qk_l2_norm and rotated:
         q, k = qk_l2_norm(q, spec.rms_eps), qk_l2_norm(k, spec.rms_eps)
     if spec.attn_temp is not None and (spec.layer_pattern is None
@@ -713,11 +813,21 @@ def _mla_qkv(spec: DecoderSpec, h, layer_w, ai):
     return q, k, v
 
 
+def _alibi_for(slopes, n_kv: int, device):
+    """The gather paths' ALiBi input (model_base.py:980-985): the layer's
+    slopes and the key positions of a contiguous or gathered view, whose
+    slot i holds position i; None without ALiBi."""
+    if slopes is None:
+        return None
+    return slopes, torch.arange(n_kv, device=device)[None, :]
+
+
 def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
-                is_local: bool):
+                is_local: bool, slopes=None):
     """Paged branch (model_base.py:1058-1103): write at ``slot_mapping``,
     then the paged kernel (the layer's window as a Python int, the
-    soft-cap, the sink) or the block-table gather + ``mha``."""
+    soft-cap, the sink) or the block-table gather + ``mha`` (with the
+    ALiBi ``slopes`` over the gathered positions, :1100-1103)."""
     kc, vc = cache["k"], cache["v"]
     bkv.write_slots_at_layer(kc, kv.quantize_kv(k, kc.dtype, spec.kv_scale),
                              li, ai["slot_mapping"])
@@ -739,13 +849,15 @@ def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                              q.dtype, spec.kv_scale)
     return attn_ops.mha(q, k_all, v_all, _layer_mask(ai, is_local),
                         spec.scale, logits_soft_cap=spec.attn_soft_cap,
-                        sink=sink)
+                        sink=sink,
+                        alibi=_alibi_for(slopes, k_all.shape[1], q.device))
 
 
 def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
-                  is_local: bool):
+                  is_local: bool, slopes=None):
     """Contiguous prefill branch (model_base.py:1104-1156): attend within
-    the window (flash kernel or masked ``mha``), then write the window
+    the window (flash kernel or masked ``mha``, whose ALiBi keys sit at
+    the window's own positions, :1126-1131), then write the window
     into the cache rows ``seq_ids``. On the rolling cache only each row's
     last ``w`` positions land, at ``pos % w``; padded positions past the
     row's length are dropped (:1132-1146)."""
@@ -755,7 +867,9 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                                               soft_cap=spec.attn_soft_cap)
     else:
         out = attn_ops.mha(q, k, v, _layer_mask(ai, is_local), spec.scale,
-                           logits_soft_cap=spec.attn_soft_cap, sink=sink)
+                           logits_soft_cap=spec.attn_soft_cap, sink=sink,
+                           alibi=(None if slopes is None
+                                  else (slopes, ai["positions"])))
     if spec.rolling_window:
         w = cache["k"].shape[4]
         pos = ai["positions"].long()
@@ -777,7 +891,7 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
 
 
 def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
-                 is_local: bool):
+                 is_local: bool, slopes=None):
     """Contiguous decode branch (model_base.py:1157-1272). Returns the
     attention output and, under the chunked side buffer, the step's
     (k, v) for the end-of-step side write. On the rolling cache and a
@@ -826,28 +940,46 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
         return out, (k, v)
     return attn_ops.mha_hl(q, k_all, v_all, _layer_mask(ai, is_local),
                            spec.scale, logits_soft_cap=spec.attn_soft_cap,
-                           sink=sink), None
+                           sink=sink,
+                           alibi=_alibi_for(slopes, v_all.shape[2],
+                                            q.device)), None
 
 
 def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str,
                adapter_ids=None):
-    """The MLP half of a layer (model_base.py:889-938): the MoE block in a
+    """The MLP half of a layer (model_base.py:889-940): the MoE block in a
     layer of the ``"moe"`` stack, else the dense GLU act(x @ gate) *
-    (x @ up) @ down with ``ACT_FNS[spec.act]``, each product through
-    ``qlinear`` (plain, quantized or low-rank weights) plus, with
-    ``adapter_ids``, its rows' adapter deltas (:925-938; an MoE layer
-    takes none). ``kind`` is the layer's (:func:`layer_plan`), a Python
-    value, so a captured graph holds each layer's own branch."""
+    (x @ up) @ down, or with ``mlp_glu`` False the plain act(x @ fc1) @ fc2
+    (fc1 / fc2 in the gate / down slots), with ``ACT_FNS[spec.act]`` (xIELU
+    from the layer's learned ``xielu`` row) and, under ``mlp_bias``, each
+    projection's bias. Each product goes through ``qlinear`` (plain,
+    quantized or low-rank weights) plus, with ``adapter_ids``, its rows'
+    adapter deltas (:915-938; an MoE layer takes none). ``kind`` is the
+    layer's (:func:`layer_plan`), a Python value, so a captured graph
+    holds each layer's own branch."""
     if kind == "moe":
         return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
     lo = spec.lora
+    act = ACT_FNS[spec.act]
+    if spec.act == "xielu":
+        act = functools.partial(act, params=layer_w["xielu"])
     gate = apply_lora(lo, layer_w, "gate_proj", x,
                       qlinear(x, layer_w["gate_proj"]), adapter_ids)
-    up = apply_lora(lo, layer_w, "up_proj", x,
-                    qlinear(x, layer_w["up_proj"]), adapter_ids)
-    inter = ACT_FNS[spec.act](gate) * up
-    return apply_lora(lo, layer_w, "down_proj", inter,
-                      qlinear(inter, layer_w["down_proj"]), adapter_ids)
+    if spec.mlp_bias:
+        gate = gate + layer_w["gate_bias"]
+    if spec.mlp_glu:
+        up = apply_lora(lo, layer_w, "up_proj", x,
+                        qlinear(x, layer_w["up_proj"]), adapter_ids)
+        if spec.mlp_bias:
+            up = up + layer_w["up_bias"]
+        inter = act(gate) * up
+    else:
+        inter = act(gate)
+    y = apply_lora(lo, layer_w, "down_proj", inter,
+                   qlinear(inter, layer_w["down_proj"]), adapter_ids)
+    if spec.mlp_bias:
+        y = y + layer_w["down_bias"]
+    return y
 
 
 def _norm(spec: DecoderSpec, x, w, b=None):
@@ -874,18 +1006,27 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     q/k/v picks its projections (model_base.py:987-988). With
     ``ai["adapter_ids"]`` every targeted projection adds its rows' adapter
     deltas (q/k/v in :func:`_qkv`, o_proj before ``o_bias``, the MLP's in
-    :func:`_mlp_block`; MLA projections take none)."""
+    :func:`_mlp_block`; MLA projections take none).
+
+    A parallel ``block_style`` adds both blocks to the block input in one
+    residual, the MLP fed from the attention's norm ("parallel_shared") or
+    from its own ``post_norm`` over the block input ("parallel_dual");
+    ``norm_position`` "post_residual" (GPT-1) normalises after each
+    residual add, ``input_norm`` after the attention's and ``post_norm``
+    after the MLP's (:820-849)."""
     pre = spec.norm_position == "pre"
     is_local = spec.is_local(li if layer is None else layer)
     h = (_norm(spec, hidden, layer_w["input_norm"],
                layer_w.get("input_norm_b") if spec.norm_bias else None)
          if pre else hidden)
+    attn_in = h
     if spec.mla is not None:
         q, k, v = _mla_qkv(spec, h, layer_w, ai)
     else:
         q, k, v = _qkv(spec, h, layer_w, ai, is_local)
     pending = None
-    args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w), is_local)
+    args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w), is_local,
+            layer_w["alibi_slopes"] if spec.alibi else None)
     if phase == "decode":
         attn, pending = _decode_attn(*args)
     elif phase == "prefill":
@@ -901,6 +1042,21 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
         o = o + layer_w["o_bias"]
     if spec.sandwich_norm:
         o = _norm(spec, o, layer_w["post_attn_norm"])
+    if spec.block_style != "sequential":
+        mlp_in = (attn_in if spec.block_style == "parallel_shared"
+                  else _norm(spec, hidden, layer_w["post_norm"],
+                             layer_w.get("post_norm_b") if spec.norm_bias
+                             else None))
+        m = _mlp_block(spec, mlp_in, layer_w, phase, kind, aids)
+        return hidden + _residual_scaled(spec, o + m), pending
+    if spec.norm_position == "post_residual":
+        hidden = _norm(spec, hidden + o, layer_w["input_norm"],
+                       layer_w.get("input_norm_b") if spec.norm_bias
+                       else None)
+        m = _mlp_block(spec, hidden, layer_w, phase, kind, aids)
+        return _norm(spec, hidden + m, layer_w["post_norm"],
+                     layer_w.get("post_norm_b") if spec.norm_bias
+                     else None), pending
     hidden = hidden + _residual_scaled(spec, o)
     h = (_norm(spec, hidden, layer_w["post_norm"],
                layer_w.get("post_norm_b") if spec.norm_bias else None)
@@ -1019,21 +1175,36 @@ def fold_mixed_prefill(spec: DecoderSpec, scratch, cache, seq_lens,
     cache["v_l"][:, rows] = vl.to(cache["v_l"].dtype)
 
 
-def _embed(spec: DecoderSpec, params, input_ids):
-    """The token embeddings (model_base.py:1656-1659), times
-    ``embed_scale`` in fp32 and cast back."""
+def _embed(spec: DecoderSpec, params, input_ids, position_ids=None):
+    """The token embeddings (model_base.py:1656-1668), times
+    ``embed_scale`` in fp32 and cast back, then BLOOM's ``embed_norm``
+    LayerNorm, then with ``learned_pos`` the position table's rows at
+    ``position_ids`` clamped to [0, learned_pos - 1]. A learned-position
+    spec without ``position_ids`` raises, where the reference adds no row
+    (the position-less calls in its speculation)."""
     h = params["embed"][input_ids.long()]
     if spec.embed_scale is not None:
         h = (h.float() * spec.embed_scale).to(h.dtype)
+    if spec.embed_norm:
+        h = layer_norm(h, params["embed_norm"], params["embed_norm_b"],
+                       spec.rms_eps)
+    if spec.learned_pos:
+        if position_ids is None:
+            raise ValueError("a learned position table needs position_ids")
+        h = h + params["pos_embed"][
+            position_ids.long().clamp(0, spec.learned_pos - 1)]
     return h
 
 
 def _lm_head(spec: DecoderSpec, params, hidden):
     """fp32 logits (model_base.py:1671-1684): the final norm
-    (:func:`_norm`, with ``final_norm_b`` where the tree has it), the
-    product, the ``lm_head_b`` bias in fp32, ``logits_divide``, the
-    ``logits_soft_cap``, then the padded vocabulary masked."""
-    h = _norm(spec, hidden, params["final_norm"], params.get("final_norm_b"))
+    (:func:`_norm`, with ``final_norm_b`` where the tree has it; none with
+    ``skip_final_norm``), the product, the ``lm_head_b`` bias in fp32,
+    ``logits_divide``, the ``logits_soft_cap``, then the padded vocabulary
+    masked."""
+    h = (hidden if spec.skip_final_norm else
+         _norm(spec, hidden, params["final_norm"],
+               params.get("final_norm_b")))
     w = (params["embed"].t() if spec.tie_word_embeddings
          else params["lm_head"])
     logits = (h @ w).float()
@@ -1060,12 +1231,12 @@ def _cache_ok(spec: DecoderSpec, cache_dtype: torch.dtype) -> bool:
 def use_flash_prefill(spec: DecoderSpec, bucket: int) -> bool:
     """The prefill branch's kernel gate (model_base.py:1110-1118): no
     layer pattern, no sink (the kernel takes one static window and no
-    sink), no MLA (its K and V differ in width) and no chunked attention
-    (the kernel masks by window, not by chunk); the alibi, CP and SP
-    conditions are refused at spec time, and the contiguous prefill always
-    feeds arange positions."""
+    sink), no ALiBi (the kernel has no position bias), no MLA (its K and V
+    differ in width) and no chunked attention (the kernel masks by window,
+    not by chunk); the CP and SP conditions are refused at spec time, and
+    the contiguous prefill always feeds arange positions."""
     return (spec.flash_prefill and spec.layer_pattern is None
-            and not spec.attn_sink and spec.mla is None
+            and not spec.attn_sink and not spec.alibi and spec.mla is None
             and flash_attention.supports(bucket, spec.head_dim,
                                          has_sink=False,
                                          chunk=spec.attn_chunk))
@@ -1076,7 +1247,8 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
                                  identity_seq_ids: bool,
                                  side: bool = False) -> bool:
     """The decode branch's kernel admission, model_base.py:1175-1197: no
-    side buffer, not disabled, supported geometry, not the rolling cache,
+    side buffer, no ALiBi, not disabled, supported geometry, not the
+    rolling cache,
     static batch over the whole cache, a cache dtype the kernel streams.
     On the mixed cache it admits the global stack's layers (``cache["k"]``);
     the rolling local layers keep the gather path.
@@ -1088,7 +1260,7 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
     geometry's decode step (32/8 heads, D 128, batch 4, window = seq_len,
     so full attention) took 10.95 ms with the kernel and 11.74 ms on the
     gather + ``mha_hl`` path, both replaying CUDA graphs (PERF.md)."""
-    return (not side and spec.decode_kernel is not False
+    return (not side and not spec.alibi and spec.decode_kernel is not False
             and decode_attention.supports(spec, phase_t)
             and not spec.rolling_window
             and identity_seq_ids and batch == cache["k"].shape[1]
@@ -1156,8 +1328,9 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                                    spec.v_head_dim), dtype=kdt,
                                   device=input_ids.device)}
         ai["identity"] = True
-    hidden = run_layers(spec, params, cache, _embed(spec, params, input_ids),
-                        ai, "prefill")
+    hidden = run_layers(spec, params, cache,
+                        _embed(spec, params, input_ids, position_ids), ai,
+                        "prefill")
     if spec.mixed_kv:
         fold_mixed_prefill(spec, cache, persistent, seq_lens,
                            seq_ids if tpu_cfg.is_continuous_batching
@@ -1224,7 +1397,7 @@ def token_generation_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids,
                         kv_view, inv_freq, adapter_ids=adapter_ids,
                         identity=identity)
-    hidden = _embed(spec, params, input_ids)
+    hidden = _embed(spec, params, input_ids, position_ids)
     if spec.mixed_kv:
         hidden = run_layers_mixed_decode(spec, params, cache, hidden, ai)
     else:
@@ -1253,8 +1426,9 @@ def token_generation_multi(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
             "supported; disable speculation or set mixed_kv=False")
     ai = _decode_inputs(spec, tpu_cfg, cache, position_ids, seq_ids, None,
                         inv_freq, adapter_ids=adapter_ids)
-    hidden = run_layers(spec, params, cache, _embed(spec, params, input_ids),
-                        ai, "decode")
+    hidden = run_layers(spec, params, cache,
+                        _embed(spec, params, input_ids, position_ids), ai,
+                        "decode")
     return {"logits_all": _lm_head(spec, params, hidden)[
         ..., :spec.vocab_size], "hidden": hidden}
 
@@ -1270,8 +1444,9 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     the rows' LoRA slots or None. Returns
     {"tokens": (B, num_steps)}.
 
-    Full-attention models without sinks or chunks under a static batch
-    over the whole cache take the chunked side-buffer branch
+    Full-attention models without sinks, chunks or ALiBi (the merged
+    core takes no position bias) under a static batch over the whole
+    cache take the chunked side-buffer branch
     (:1964-2038): the big cache is only read during the chunk; each
     step's K/V go to small side buffers, committed with ``commit_chunk``
     once at the end. Everything else steps through
@@ -1282,6 +1457,7 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                  and b == cache["k"].shape[1]
                  and not spec.rolling_window
                  and spec.decode_kernel is not True
+                 and not spec.alibi
                  and not (spec.attn_sink or spec.sliding_window > 0
                           or spec.layer_pattern is not None
                           or spec.attn_chunk > 0))
@@ -1322,7 +1498,8 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                            & (cols != idx))
         ai["chunk_idx"] = idx
         hidden = run_layers(spec, params, cache,
-                            _embed(spec, params, tok[:, None]), ai, "decode")
+                            _embed(spec, params, tok[:, None], pos2), ai,
+                            "decode")
         tok = _sample_out(spec, no_logits, params, hidden, hidden,
                           sampling_params, generator)["tokens"]
         toks.append(tok)
@@ -1342,8 +1519,11 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
 
 def use_decode_kernel(spec: DecoderSpec, phase_t: int,
                       cache_dtype: torch.dtype) -> bool:
-    """The paged branch's kernel admission (model_base.py:1071-1077)."""
-    return (phase_t == 1 and spec.decode_kernel is not False
+    """The paged branch's kernel admission (model_base.py:1071-1077): a
+    single token, no ALiBi, not disabled, a supported geometry and a cache
+    dtype the kernel streams."""
+    return (phase_t == 1 and not spec.alibi
+            and spec.decode_kernel is not False
             and decode_attention.supports(spec, 1)
             and _cache_ok(spec, cache_dtype))
 
@@ -1367,8 +1547,9 @@ def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
         kv_len = block_table.shape[1] * cache["k"].shape[2]
         _add_masks(spec, ai, lambda w, c: attn_ops.decode_mask(
             position_ids, kv_len, w, c))
-    return run_layers(spec, params, cache, _embed(spec, params, input_ids),
-                      ai, "paged")
+    return run_layers(spec, params, cache,
+                      _embed(spec, params, input_ids, position_ids), ai,
+                      "paged")
 
 
 def _gather_cols(hidden, cols):
@@ -1719,16 +1900,20 @@ def cache_layout(tcfg: TpuConfig, sliding_window: int, layer_pattern=None,
 
 # the DecoderSpec knobs that spec_from_config takes as keyword overrides,
 # as the counterpart's ``**overrides`` (model_base.py:2346): the dense
-# families', Llama4's, DBRX's, Phi-3.5-MoE's and the Medusa heads';
-# ``tie_word_embeddings``
+# families', Llama4's, DBRX's, Phi-3.5-MoE's, the Medusa heads' and the
+# contrib dense families'; ``tie_word_embeddings``
 # overrides the config's (HF omits a default True from config.json)
 KNOBS = ("act", "norm_offset", "sandwich_norm", "norm_position",
          "qk_norm_full", "residual_multiplier", "logits_divide",
          "logits_soft_cap", "attn_soft_cap", "embed_scale", "local_rope",
          "tie_word_embeddings", "nope_global", "qk_l2_norm", "attn_temp",
          "norm_type", "qkv_clip", "norm_bias", "lm_head_bias",
-         "medusa_heads")
+         "medusa_heads", "mlp_glu", "mlp_bias", "no_rope", "learned_pos",
+         "embed_norm", "skip_final_norm", "alibi", "block_style",
+         "qk_norm_after_rope", "qk_norm_type")
 NORM_TYPES = ("rms", "layernorm")
+NORM_POSITIONS = ("pre", "post", "post_residual")
+BLOCK_STYLES = ("sequential", "parallel_shared", "parallel_dual")
 
 
 def spec_from_config(config: InferenceConfig,
@@ -1745,6 +1930,11 @@ def spec_from_config(config: InferenceConfig,
                      attn_scale: Optional[float] = None,
                      rope_interleaved: bool = False,
                      rotary_dim: Optional[int] = None,
+                     num_layers: Optional[int] = None,
+                     hidden_size: Optional[int] = None,
+                     num_q_heads: Optional[int] = None,
+                     num_kv_heads: Optional[int] = None,
+                     rms_eps: Optional[float] = None,
                      **knobs) -> DecoderSpec:
     """DecoderSpec from the HF-style attributes of an InferenceConfig
     (families pass ``sliding_window`` / ``layer_pattern`` /
@@ -1754,7 +1944,11 @@ def spec_from_config(config: InferenceConfig,
     ``rope_interleaved`` / ``rotary_dim`` and the :data:`KNOBS` as the
     counterpart's overrides; ``act`` defaults to the config's
     ``hidden_act``, ``rotary_dim`` (partial rotary, GLM-4-MoE) to the
-    config's, as the counterpart pops it at :2366-2367). The
+    config's, as the counterpart pops it at :2366-2367). Families whose HF
+    configs name the geometry otherwise (GPT-2's ``n_embd`` / ``n_head``,
+    BLOOM's ``n_layer``, MPT's ``d_model``) pass ``num_layers`` /
+    ``hidden_size`` / ``num_q_heads`` / ``num_kv_heads`` / ``rms_eps``,
+    which win over the config's (:2352-2365). The
     legacy rope scaling name ``"su"`` is longrope, whose
     ``original_max_position_embeddings`` may sit at the config's top
     level. The cache layout (rolling, mixed or full rows) is
@@ -1762,9 +1956,12 @@ def spec_from_config(config: InferenceConfig,
     mixed cache. Raises :class:`ConfigurationError` for what the port
     does not run yet (MLA over the rolling or mixed cache, which no
     DeepSeek config takes; an activation outside :data:`ACT_FNS`;
-    ``norm_position`` other than "pre" / "post"; ``norm_type`` outside
-    :data:`NORM_TYPES`), and (a ``ValueError``, as the reference raises)
-    for ``rolling_kv_cache=True`` on a config that cannot roll."""
+    ``norm_position`` outside :data:`NORM_POSITIONS`; ``norm_type`` or
+    ``qk_norm_type`` outside :data:`NORM_TYPES`; ``block_style`` outside
+    :data:`BLOCK_STYLES`), and (a ``ValueError``, as the reference raises)
+    for ``rolling_kv_cache=True`` on a config that cannot roll and for a
+    ``seq_len`` past a ``learned_pos`` table (:2562-2567: decoding past it
+    would reuse its last row)."""
     unknown = sorted(set(knobs) - set(KNOBS))
     if unknown:
         raise TypeError(f"spec_from_config: unknown overrides {unknown}")
@@ -1778,11 +1975,13 @@ def spec_from_config(config: InferenceConfig,
     knobs.setdefault("tie_word_embeddings",
                      bool(getattr(config, "tie_word_embeddings", False)))
     bad = _unported_knobs(tcfg, knobs["act"])
-    if knobs.get("norm_position", "pre") not in ("pre", "post"):
-        bad.append(f"norm_position {knobs['norm_position']!r} (ROADMAP "
-                   "A14d)")
-    if knobs.get("norm_type", "rms") not in NORM_TYPES:
-        bad.append(f"norm_type {knobs['norm_type']!r} (ROADMAP A14d)")
+    if knobs.get("norm_position", "pre") not in NORM_POSITIONS:
+        bad.append(f"norm_position {knobs['norm_position']!r}")
+    for knob in ("norm_type", "qk_norm_type"):
+        if knobs.get(knob, "rms") not in NORM_TYPES:
+            bad.append(f"{knob} {knobs[knob]!r}")
+    if knobs.get("block_style", "sequential") not in BLOCK_STYLES:
+        bad.append(f"block_style {knobs['block_style']!r}")
     if tp != 1:
         bad.append(f"tp_degree={tp}")
     if moe is not None:
@@ -1793,9 +1992,14 @@ def spec_from_config(config: InferenceConfig,
     if bad:
         raise ConfigurationError(
             "the PyTorch port does not run these yet: " + ", ".join(bad))
-    n_q = config.num_attention_heads
-    n_kv = getattr(config, "num_key_value_heads", None) or n_q
-    hidden = config.hidden_size
+    if knobs.get("learned_pos") and tcfg.seq_len > knobs["learned_pos"]:
+        raise ValueError(
+            f"seq_len {tcfg.seq_len} exceeds the learned position table "
+            f"({knobs['learned_pos']} positions)")
+    n_q = num_q_heads or config.num_attention_heads
+    n_kv = (num_kv_heads or getattr(config, "num_key_value_heads", None)
+            or n_q)
+    hidden = hidden_size or config.hidden_size
     head_dim = (head_dim or getattr(config, "head_dim", None)
                 or hidden // n_q)
     rope_scaling = getattr(config, "rope_scaling", None) or {}
@@ -1838,7 +2042,7 @@ def spec_from_config(config: InferenceConfig,
     )
     vocab = config.vocab_size
     return DecoderSpec(
-        num_layers=config.num_hidden_layers,
+        num_layers=num_layers or config.num_hidden_layers,
         hidden_size=hidden,
         num_q_heads=n_q,
         num_kv_heads=n_kv,
@@ -1847,7 +2051,8 @@ def spec_from_config(config: InferenceConfig,
                            else config.intermediate_size),
         vocab_size=vocab,
         padded_vocab=pad_vocab(vocab, tp),
-        rms_eps=float(getattr(config, "rms_norm_eps", 1e-6)),
+        rms_eps=float(rms_eps if rms_eps is not None
+                      else getattr(config, "rms_norm_eps", 1e-6)),
         rope=rope,
         gqa=resolve_gqa_sharding(n_q, n_kv, tp),
         sliding_window=int(sliding_window),

@@ -413,6 +413,15 @@ def init_eagle_draft_params(draft_spec: DecoderSpec, seed: int,
     return build(eagle_draft_param_specs(draft_spec, input_norm), "")
 
 
+def _refuse_learned_pos_draft(draft_spec: DecoderSpec):
+    """The EAGLE draft embeds its tokens with no positions (reference
+    :236), so a draft with a learned position table (GPT-2, openai-gpt)
+    would skip it and propose from wrong features: refused."""
+    if draft_spec.learned_pos:
+        raise NotImplementedError("an EAGLE draft with a learned position "
+                                  "table")
+
+
 def eagle_forward(draft_spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                   tokens, prev_hidden, positions, seq_ids,
                   input_norm: bool = False, inv_freq=None):
@@ -422,6 +431,7 @@ def eagle_forward(draft_spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     positions (B, T); prev_hidden (B, T, H), the feature of position - 1.
     A T = 1 step over identity rows takes the contiguous decode kernel.
     Returns {"logits": (B, T, vocab), "hidden": (B, T, H)}."""
+    _refuse_learned_pos_draft(draft_spec)
     e = model_base._embed(draft_spec, params, tokens)
     if input_norm:
         e = rms_norm(e, params["fc_norm"], draft_spec.rms_eps)
@@ -575,6 +585,7 @@ class EagleDecoder(_EagleBase):
 
     def __init__(self, target_app, draft_spec: DecoderSpec, draft_params,
                  draft_cache, input_norm: bool = False):
+        _refuse_learned_pos_draft(draft_spec)
         cfg = target_app.tpu_config
         if (not cfg.speculation_config
                 or cfg.speculation_config.speculation_length < 1):
@@ -717,6 +728,18 @@ class MedusaDecoder(_Decoder):
 # Token trees
 # ---------------------------------------------------------------------------
 
+def _refuse_tree_target(spec: DecoderSpec):
+    """Tree nodes sit at slots base + i with logical positions base +
+    depth, and the reference embeds them with no positions (:580): an
+    ALiBi bias over slot indices and a learned position table left out
+    would both verify against wrong target logits, so both are refused."""
+    if spec.alibi:
+        raise NotImplementedError("token-tree speculation over ALiBi models")
+    if spec.learned_pos:
+        raise NotImplementedError("token-tree speculation over models with "
+                                  "a learned position table")
+
+
 def tree_forward(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                  node_tokens, rope_positions, write_positions, seq_ids, mask,
                  inv_freq=None):
@@ -728,6 +751,7 @@ def tree_forward(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     if spec.layer_pattern is not None or spec.mixed_kv or spec.rolling_window:
         raise NotImplementedError("token-tree speculation over layer "
                                   "patterns or rolling / mixed caches")
+    _refuse_tree_target(spec)
     ai = model_base.attn_inputs(spec, rope_positions, inv_freq)
     ai.update(seq_ids=seq_ids, positions=write_positions,
               identity=not tpu_cfg.is_continuous_batching, kv_view=None,
@@ -813,6 +837,7 @@ class MedusaTreeDecoder(_Decoder):
     from the same feature)."""
 
     def __init__(self, target_app, tree: Optional[TokenTree] = None):
+        _refuse_tree_target(target_app.spec)
         self.target = target_app
         cfg = target_app.tpu_config
         sc = cfg.speculation_config
@@ -999,6 +1024,7 @@ class DynamicTreeDecoder(_Decoder):
     step left on the device."""
 
     def __init__(self, target_app, branch_k: int = 4, num_nodes: int = 16):
+        _refuse_tree_target(target_app.spec)
         self.target = target_app
         if target_app.spec.medusa_heads < 1:
             raise ValueError("medusa heads required")
@@ -1110,6 +1136,8 @@ class EagleTreeDecoder(_EagleBase):
     def __init__(self, target_app, draft_spec: DecoderSpec, draft_params,
                  draft_cache, depth: int = 4, branch_k: int = 4,
                  num_nodes: int = 16, input_norm: bool = False):
+        _refuse_tree_target(target_app.spec)
+        _refuse_learned_pos_draft(draft_spec)
         super().__init__(target_app, draft_spec, draft_params, draft_cache,
                          input_norm)
         self.depth = depth

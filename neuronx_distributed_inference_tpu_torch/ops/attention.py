@@ -1,7 +1,8 @@
 """Attention cores and masks of the XLA-equivalent paths (counterpart:
 ``neuronx_distributed_inference_tpu/ops/attention.py`` — ``repeat_kv``
-:29, ``mha`` :77, ``mha_hl`` :128, ``mha_decode_merged`` :168, masks
-:232-283 with ``rolling_decode_mask`` :261 and ``speculation_mask`` :283).
+:29, ``alibi_slopes`` :39, ``_alibi_bias`` :69, ``mha`` :77, ``mha_hl``
+:128, ``mha_decode_merged`` :168, masks :232-283 with
+``rolling_decode_mask`` :261 and ``speculation_mask`` :283).
 
 Layouts as in the JAX package: q (B, T, Hq, D); k/v (B, S, Hkv, D), or the
 contiguous cache's native layouts for ``mha_hl`` (K transposed (B, Hkv, D,
@@ -11,12 +12,21 @@ their operands in the storage dtype (the probabilities rounded to v's
 dtype) and accumulate into fp32; scores and softmax are fp32. On the card
 the bf16 products run on the tensor cores with an fp32 result and no fp32
 copy of K or V; the CPU multiplies fp32 copies (:func:`_bmm_f32`).
+
+ALiBi (BLOOM, MPT): ``mha`` and ``mha_hl`` take ``alibi`` = (slopes (Hq,),
+key positions (B, S) or (1, S)) and add ``slope_h * kpos`` to the scaled
+fp32 scores before the soft-cap and the mask; the softmax's shift
+invariance makes it the relative ``slope_h * (kpos - qpos)``. No kernel
+takes ALiBi (the model's gates keep such layers on these cores).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import math
+
+import numpy as np
 import torch
 
 NEG_INF = -30000.0   # finite large-negative fill (the JAX package's value)
@@ -29,6 +39,34 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     b, s, h, d = x.shape
     return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
         b, s, h * n_rep, d)
+
+
+def alibi_slopes(num_heads: int, variant: str = "bloom") -> np.ndarray:
+    """Per-head ALiBi slopes, fp32 (counterpart :39-66): the closest power
+    of two below ``num_heads`` plus interleaved extra slopes (HF
+    ``build_alibi_tensor``). The counterpart's ``"mpt"`` variant (the next
+    power of two up with ``alibi_bias_max`` 8, odd slopes first, HF
+    ``build_mpt_alibi_tensor``) gives the same fp32 slopes at every head
+    count from 1 to 512, so one formula serves both names."""
+    if variant not in ("bloom", "mpt"):
+        raise ValueError(f"unknown alibi variant {variant!r}")
+    cp2 = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(cp2) - 3)))
+    slopes = base ** np.arange(1, cp2 + 1, dtype=np.float64)
+    if cp2 != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * cp2) - 3)))
+        n_extra = min(2 * cp2, num_heads) - cp2
+        extra = extra_base ** np.arange(1, 2 * n_extra, 2, dtype=np.float64)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
+def _alibi_bias(alibi, hkv: int, g: int) -> torch.Tensor:
+    """(slopes (Hq,), key positions (B, S) or (1, S)) -> the additive fp32
+    score bias (B, Hkv, G, 1, S) (counterpart :69-74)."""
+    slopes, kv_pos = alibi
+    sl = slopes.float().reshape(1, hkv, g, 1, 1)
+    return sl * kv_pos.float()[:, None, None, None, :]
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor,
@@ -73,7 +111,7 @@ def _softcap_(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def _core(q: torch.Tensor, kt: torch.Tensor, vv: torch.Tensor,
           mask: Optional[torch.Tensor], scale: float,
           logits_soft_cap: Optional[float], sink: Optional[torch.Tensor],
-          out_dtype: torch.dtype) -> torch.Tensor:
+          out_dtype: torch.dtype, alibi=None) -> torch.Tensor:
     """The attention core over GQA groups flattened into the batch: q (B,
     T, Hq, D), kt (B * Hkv, D, S) and vv (B * Hkv, S, Dv) -> (B, T, Hq,
     Dv). Besides the products the fp32 scores take the mask in place and
@@ -84,7 +122,9 @@ def _core(q: torch.Tensor, kt: torch.Tensor, vv: torch.Tensor,
     products; the padding at NEG_INF) whose column ``s`` holds the head's
     sink logit, so the same three contiguous passes (mask, softmax, cast)
     run with or without it; the products read only the first ``s``
-    columns of the probabilities."""
+    columns of the probabilities. ``alibi`` adds its bias
+    (:func:`_alibi_bias`) to the scaled scores in place, before the
+    soft-cap and the mask (counterpart :99-104)."""
     b, t, hq, d = q.shape
     n, _, s = kt.shape
     hkv = n // b
@@ -106,6 +146,9 @@ def _core(q: torch.Tensor, kt: torch.Tensor, vv: torch.Tensor,
             wide = mask.new_ones((b, t, width))
             wide[..., :s] = mask
             mask = wide
+    if alibi is not None:
+        full.view(b, hkv, g, t, width)[..., :s].add_(
+            _alibi_bias(alibi, hkv, g))
     _softcap_(scores, logits_soft_cap)
     if mask is not None:
         full.view(b, hkv, g, t, width).masked_fill_(
@@ -122,29 +165,32 @@ def _core(q: torch.Tensor, kt: torch.Tensor, vv: torch.Tensor,
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: Optional[torch.Tensor], scale: float,
         logits_soft_cap: Optional[float] = None,
-        sink: Optional[torch.Tensor] = None) -> torch.Tensor:
+        sink: Optional[torch.Tensor] = None, alibi=None) -> torch.Tensor:
     """Masked multi-head attention with GQA grouping (q head i reads KV
     head i // (Hq/Hkv)). q (B,T,Hq,D), k/v (B,S,Hkv,D) -> (B,T,Hq,D).
     ``sink``: per-head learned softmax sink logits (Hq,), entering the
-    denominator only. K and V are relaid out per KV head in their own
-    dtype (one copy each, as the products need a batch of matrices)."""
+    denominator only; ``alibi``: (slopes (Hq,), key positions (B or 1, S)).
+    K and V are relaid out per KV head in their own dtype (one copy each,
+    as the products need a batch of matrices)."""
     b, s, hkv, d = k.shape
     kt = k.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
     vv = v.permute(0, 2, 1, 3).reshape(b * hkv, s, v.shape[-1])
-    return _core(q, kt, vv, mask, scale, logits_soft_cap, sink, q.dtype)
+    return _core(q, kt, vv, mask, scale, logits_soft_cap, sink, q.dtype,
+                 alibi)
 
 
 def mha_hl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: Optional[torch.Tensor], scale: float,
            logits_soft_cap: Optional[float] = None,
-           sink: Optional[torch.Tensor] = None) -> torch.Tensor:
+           sink: Optional[torch.Tensor] = None,
+           alibi=None) -> torch.Tensor:
     """:func:`mha` over the cache's native layouts: k TRANSPOSED (B, Hkv,
     D, S), v (B, Hkv, S, D). A layer read of the cache (cut at the view)
     flattens to the products' batches without a copy."""
     b, hkv, d, s = k.shape
     return _core(q, k.reshape(b * hkv, d, s),
                  v.reshape(b * hkv, s, v.shape[-1]), mask, scale,
-                 logits_soft_cap, sink, q.dtype)
+                 logits_soft_cap, sink, q.dtype, alibi)
 
 
 def mha_decode_merged(q: torch.Tensor, k_prior: torch.Tensor,

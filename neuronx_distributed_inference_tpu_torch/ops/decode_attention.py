@@ -537,11 +537,13 @@ def supports(spec, phase_t: int) -> bool:
     decode_attention.py:588-595): a single active token, no MLA (its K
     and V heads differ in width; both kernels stream them at one), no
     chunked attention (the kernels mask by window, not by chunk; the
-    counterpart's ``attn_chunk == 0``), head_dim 64 or 128, and at most
-    ``MAX_GROUP`` query heads per KV head (the kernels keep a group's
-    accumulators in registers)."""
+    counterpart's ``attn_chunk == 0``), no ALiBi (the kernels add no
+    position bias; the counterpart keeps ``not spec.alibi`` beside each
+    call of its gate, model_base.py:1072, :1177), head_dim 64 or 128, and
+    at most ``MAX_GROUP`` query heads per KV head (the kernels keep a
+    group's accumulators in registers)."""
     return (phase_t == 1 and spec.mla is None
-            and spec.attn_chunk == 0
+            and spec.attn_chunk == 0 and not spec.alibi
             and spec.head_dim in _HEAD_DIMS
             and spec.gqa.q_per_kv <= MAX_GROUP)
 

@@ -5,8 +5,9 @@ numpy arrays — ``jax.tree.map(np.asarray, app.params)`` — and returns the
 port's parameter dict, so both packages compute with the same weights. The
 port keeps the JAX tree's layout (stacked ``(L, …)`` layer leaves, fused
 ``qkv_proj`` and ``qkv_bias``, padded vocabulary), so the conversion is
-leaf by leaf, every leaf of the tree included (biases, fp32 sinks and
-routers, expert biases) in its own dtype; bf16 and fp8 leaves (numpy's
+leaf by leaf, every leaf of the tree included (biases, fp32 sinks,
+routers, ALiBi slopes and xIELU rows, expert biases, position tables) in
+its own dtype; bf16 and fp8 leaves (numpy's
 ``ml_dtypes`` types) are reinterpreted bit for bit.
 This module imports neither jax nor the JAX package."""
 

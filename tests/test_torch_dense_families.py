@@ -429,9 +429,9 @@ def test_dual_rope_tables_and_activation_refusal():
         TpuQwen2ForCausalLM(None, qcls(TpuConfig(batch_size=1, seq_len=32),
                                        hidden_act=act, **base),
                             device="cpu")
-    with pytest.raises(ConfigurationError, match="xielu"):
+    with pytest.raises(ConfigurationError, match="quick_gelu"):
         TpuQwen2ForCausalLM(None, qcls(TpuConfig(batch_size=1, seq_len=32),
-                                       hidden_act="xielu", **base),
+                                       hidden_act="quick_gelu", **base),
                             device="cpu")
     with pytest.raises(TypeError, match="post_residual"):
         model_base.spec_from_config(
