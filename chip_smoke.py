@@ -166,7 +166,7 @@ nvcc per source, all started together), then:
      the flash kernel at Mistral-7B-v0.1's heads at window 4096 over S
      8192, B 2, each against its twin, timed beside the twin, SDPA and its
      bound; (b) gpt-oss-20b through ``TpuGptOssForCausalLM`` (the
-     contiguous app) at full width cut to LONG_OSS_LAYERS (12) layers,
+     contiguous app) at full width cut to LONG_OSS_LAYERS (8) layers,
      ``seq_len`` 32768, so the
      mixed per-layer cache (global rows of 32768 slots, local rows rolling
      at 128), batch 4, prompts of 200-2000 tokens, 128 new tokens, after
@@ -286,8 +286,8 @@ nvcc per source, all started together), then:
      Llama-4-Scout's text widths (hidden 5120, 40 q / 8 kv heads of 128,
      16 experts of 8192, top 1, a shared expert, vocab 202048, llama3
      rope, chunk 8192, every 4th layer NoPE, the q/k norm, the
-     temperature) cut to 8 layers (39.37 GB of bf16 weights, gated equal
-     to the geometry's) on phase 9's engine at batch 4, ``seq_len``
+     temperature) cut to 4 layers (its bf16 weights gated equal to the
+     geometry's) on phase 9's engine at batch 4, ``seq_len``
      16384, six requests of 37-9000 tokens (one past the 8192 chunk, one
      whose decode crosses it), 48 new tokens: phase 9's gates with the
      paged kernel launched 0 times (the chunk gates, latent fault 1) and
@@ -481,9 +481,39 @@ nvcc per source, all started together), then:
      (its control without ``alibi`` launches both), and each app's
      streams equal the kernels-off app's; the group within its 90 s
      budget.
+ 27. the second contrib dense group, ``contrib_dense2``: StarCoder
+     (bigcode/starcoder: GPT-BigCode, 48 heads of 128 over one KV head,
+     G 48), Command-R7B (CohereForAI/c4ai-command-r7b-12-2024: Cohere2, G
+     4, window 4096 on three layers of four and NoPE on the fourth),
+     Falcon-7B (G 71 at head_dim 64) and GPT-Neo-1.3B (global and local
+     layers, window 256), random weights from seed 0, every bias N(0,
+     0.02): the specs as the geometries say and every decode gate
+     admitting them (no group term); (a) both decode kernels at G 48 / D
+     128 and G 71 / D 64 over one KV head (3 and 5 chunks of at most 16
+     query heads in one launch: the paged kernel at B 8, lens 37-2000,
+     block 32, over bf16, fp32 and scaled fp8 pages; the contiguous one at
+     B 4, S 2048, over bf16 and fp32 caches), each within one bf16 ulp
+     (bf16 out) or 1e-4 (fp32) of its twin, a control (the twin's heads
+     shifted by one chunk) parting on bf16, timed beside the twin, SDPA
+     and the bound; (b) StarCoder at full width cut to 10 of 40 layers on
+     phase 9's engine and mix: phase 19's gates, every paged launch at G
+     48, launches = layers x the all-decode steps, the kernel held to its
+     twin at the served shapes and timed, the streams held to
+     ``generate``; (c) Command-R7B at full width cut to 8 of 32 layers on
+     phase 19's engine and mix (batch 4, ``seq_len`` 8192, six requests of
+     37-6000 tokens): the same gates at G 4, each launch at its layer's
+     window (4096 sliding, 0 NoPE), timed at a sliding and a NoPE layer;
+     (d) fp32 2-layer cuts of StarCoder, Falcon-7B and GPT-Neo-1.3B on the
+     contiguous app with both kernels asked for, as 26 (d): StarCoder and
+     Falcon launch flash once a layer and the decode kernel at every layer
+     of every step (G 48, G 71), GPT-Neo the decode kernel at its global
+     layer only (its local layer rolls on the mixed cache; no flash under
+     a layer pattern), each kernel held to its twin at those shapes, the
+     streams equal the kernels-off app's; the group within its 90 s
+     budget.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22, 23, 24, 26 and the fp32 app of 6)
+21, 22, 23, 24, 26, 27 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -494,8 +524,8 @@ exits non-zero and prints no last line. Without a CUDA card it exits 2.
 pipeline: 25; contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it
 builds phase 9's app; spec: 12, 13, 22 — alone, 12 (a) builds its own
 app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
-moe_families: 20; contrib_moe: 21; lora: 23; contrib_dense: 26) and
-then prints no ``ok`` line.
+moe_families: 20; contrib_moe: 21; lora: 23; contrib_dense: 26;
+contrib_dense2: 27) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -579,14 +609,14 @@ MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
 # 14 (e): the cut whose fp32 twin runs phase 6's rule (8 layers fit; 4
 #   keep the whole script's time with phase 21 in it)
 MOE_CONTIG_CHECK_LAYERS = 4
-# depth cuts for the room of phases 23, 24 and 26, each keeping its
-# phase's per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 12 of
-# 32 layers; 17 (b), (c) Moonlight at 8 of 27 (the dense layer and 7
+# depth cuts for the room of phases 23, 24, 26 and 27, each keeping its
+# phase's per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 8 of
+# 32 layers; 17 (b), (c) Moonlight at 4 of 27 (the dense layer and 3
 # MoE); 18 (b), (d) gpt-oss-20b MXFP4 at 8 of 24; 18 (e) the low-rank
 # Llama-3.2-1B at 8 of 16; 19 (b) Gemma-2-27B at 8 of 46 (4 local /
 # global pairs)
-LONG_MISTRAL_LAYERS = 12
-MLA_CUT = 8
+LONG_MISTRAL_LAYERS = 8
+MLA_CUT = 4
 QUANT_OSS_LAYERS = 8
 QUANT_LOW_RANK_LAYERS = 8
 GEMMA2_CUT = 8
@@ -606,9 +636,9 @@ SPEC_K = 3                              # phases 12-13: drafts per step
 # (the mixed per-layer cache), Mistral-7B-v0.1 past its 4096-token window
 # (the rolling cache) and windowed context encoding
 OSS_LONG = dict(seq_len=32768, lens=(200, 700, 1300, 2000), new_tokens=128)
-# 16 (b), (c): gpt-oss-20b cut to 12 layers (6 global, 6 local) of its
-#   24, to keep the whole script's time with phase 21 in it
-LONG_OSS_LAYERS = 12
+# 16 (b), (c): gpt-oss-20b cut to 8 layers (4 global, 4 local) of its
+#   24, to keep the whole script's time with phases 21 and 27 in it
+LONG_OSS_LAYERS = 8
 MISTRAL_ROLL = dict(seq_len=16384, lens=(5000, 6000), new_tokens=64)
 MISTRAL_WCTE = dict(seq_len=16384, window=2048, len=12000, new_tokens=32,
                     one_shot_len=4000)
@@ -787,9 +817,9 @@ DBRX_INSTRUCT = dict(
     ffn_config={"ffn_hidden_size": 10752, "moe_num_experts": 16,
                 "moe_top_k": 4, "moe_normalize_expert_weights": 1},
     tie_word_embeddings=False)
-# 20 (b): Scout cut to 8 layers (3 and 7 NoPE), batch 4, 16384 slots a
+# 20 (b): Scout cut to 4 layers (layer 3 NoPE), batch 4, 16384 slots a
 #   row; one prompt past the 8192 chunk and one whose decode crosses it
-LLAMA4_CUT = 8
+LLAMA4_CUT = 4
 LLAMA4_SERVE = dict(lens=(37, 300, 1500, 8170, 9000, 900), seq_len=16384,
                     chunk=512, block=32)
 # 20 (c): Scout's widths at Maverick's interleave (layers 1 and 3 MoE,
@@ -1008,7 +1038,7 @@ TOL_SDPA_YARDSTICK = 5e-2
 #   rows with the window dropped, so keys outside it are read, as a
 #   misplaced slot reads them) 0.891 and 1.283. Each limit sits near the
 #   geometric mean of its two readings, a factor 2.2 and 5.7 from each.
-#   The gpt-oss run is now a 12-layer cut (LONG_OSS_LAYERS): a
+#   The gpt-oss run is now an 8-layer cut (LONG_OSS_LAYERS): a
 #   shallower stack magnifies less, so the reading falls and the limit
 #   stays (PERF.md has the cut's reading and control).
 TOL_LAYOUT_REL = {"long_oss_logits_vs_uniform": 0.4,
@@ -2102,7 +2132,7 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
                 "kernel_eager_us": kernel_eager_ms * 1e3,
                 "splits": decode_attention.num_splits(
                     b, spec.num_kv_heads, int(table.shape[1]), bs,
-                    spec.head_dim),
+                    spec.head_dim, spec.gqa.q_per_kv),
                 "plain_us": plain_ms * 1e3, "library_us": library_ms * 1e3,
                 "max_abs_err": err, "tol": tol, "kernel_shape": {
                     "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
@@ -7263,7 +7293,7 @@ def family_spec(hf, **tcfg):
 
 def check_moe_family_specs():
     """Gate: the specs of 20 (b) and (d) as the geometries say: Scout's
-    8-layer cut NoPE at layers 3 and 7 (the global layers), chunked at
+    cut NoPE at layers 3, 7, ... (the global layers), chunked at
     8192 elsewhere, every layer MoE, the q/k norm and the temperature;
     DBRX's LayerNorm, clip 8 and G 6. Both refused by every kernel gate
     but DBRX's, which both decode gates admit."""
@@ -7290,7 +7320,8 @@ def check_moe_family_specs():
                  "decode_gate": decode_attention.supports(dbrx, 1)}}
     emit({"phase": "moe_families_specs", **got})
     nope = tuple(i not in (3, 7) for i in range(LLAMA4_CUT))
-    ok = (scout.layer_pattern == nope and scout.moe_pattern == (True,) * 8
+    ok = (scout.layer_pattern == nope
+          and scout.moe_pattern == (True,) * LLAMA4_CUT
           and scout.attn_chunk == 8192 and scout.attn_temp == (8192.0, 0.1)
           and scout.qk_l2_norm and scout.nope_global
           and not got["llama4"]["decode_gate"]
@@ -7652,7 +7683,7 @@ def _phase_dbrx_fp32(device):
 
 
 def dbrx_fp32_kernels(device, dec_ints, flash_calls, lens, fkw,
-                      phase="dbrx_fp32"):
+                      phase="dbrx_fp32", flash=True):
     """20 (e)'s two contiguous kernels (and 21 (f)'s, as ``phase``) at the
     shapes and dtype its main path gave them: the decode kernel (fp32, the CUDA-core route) at the
     launches' (B, Hkv, G, D, S) from ``dec_ints`` (the
@@ -7662,7 +7693,8 @@ def dbrx_fp32_kernels(device, dec_ints, flash_calls, lens, fkw,
     (:class:`FlashShapes`) with the arguments ``fkw`` the prefill passes
     it (the spec's scale, window and soft-cap); N(0, 1) inputs, each held
     to its twin within TOL_KERNEL_FP32 and timed beside the twin, SDPA
-    and the bound. Returns {"contig": numbers, "flash": numbers}."""
+    and the bound (``flash`` False: a path that launches no flash, the
+    decode kernel only). Returns {"contig": numbers, "flash": numbers}."""
     import torch
     import torch.nn.functional as F
     from neuronx_distributed_inference_tpu_torch.ops import (
@@ -7671,7 +7703,7 @@ def dbrx_fp32_kernels(device, dec_ints, flash_calls, lens, fkw,
     # its rows
     geoms = {(i[0], i[2], i[3], i[4], i[5]) for i in dec_ints
              if i[0] == len(lens)}
-    if len(geoms) != 1 or not flash_calls:
+    if len(geoms) != 1 or bool(flash_calls) != flash:
         raise AssertionError(f"{phase}: decode launch shapes {geoms}, "
                              f"{len(flash_calls)} flash calls")
     b, hkv, g, d, s_len = geoms.pop()
@@ -7699,31 +7731,32 @@ def dbrx_fp32_kernels(device, dec_ints, flash_calls, lens, fkw,
             q4, k4, v4, attn_mask=m4, scale=kw["scale"], enable_gqa=True),
         decode_bounds(c), err, shape)}
     del c, dargs, q4, k4, v4, m4
-    *shapes, dtype = flash_calls[0]
-    shapes.append(shapes[1])                    # v is shaped as k
-    if dtype != f32:
-        raise AssertionError(f"{phase}: flash called at {dtype}")
-    fx = {n: torch.randn(sh, generator=gen, device=device, dtype=f32)
-          for n, sh in zip("qkv", shapes)}
-    err = check_flash_against_twin(fx, fkw)
-    shape = dict(zip(("B", "S", "Hq", "D"), shapes[0]), Hkv=shapes[1][2],
-                 dtype="float32")
-    emit({"phase": phase + "_kernel_vs_twin", "kernel": "flash_attention",
-          **shape, "kwargs": fkw, "max_abs_err": err,
-          "tol": TOL_KERNEL_FP32})
-    if not err <= TOL_KERNEL_FP32:
-        raise AssertionError(f"{phase}: flash kernel {err}")
-    qt, kt, vt = (fx[n].transpose(1, 2).contiguous() for n in "qkv")
-    out["flash"] = timed_kernel(
-        lambda: flash_attention.flash_attention(fx["q"], fx["k"], fx["v"],
-                                                **fkw),
-        lambda: flash_attention.flash_attention_plain(fx["q"], fx["k"],
-                                                      fx["v"], **fkw),
-        lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=fkw["scale"],
-            enable_gqa=True),
-        flash_bounds(fx["q"], fx["k"], fkw.get("window") or 0), err, shape,
-        plain_calls=3, calls=20)
+    if flash:
+        *shapes, dtype = flash_calls[0]
+        shapes.append(shapes[1])                # v is shaped as k
+        if dtype != f32:
+            raise AssertionError(f"{phase}: flash called at {dtype}")
+        fx = {n: torch.randn(sh, generator=gen, device=device, dtype=f32)
+              for n, sh in zip("qkv", shapes)}
+        err = check_flash_against_twin(fx, fkw)
+        shape = dict(zip(("B", "S", "Hq", "D"), shapes[0]),
+                     Hkv=shapes[1][2], dtype="float32")
+        emit({"phase": phase + "_kernel_vs_twin",
+              "kernel": "flash_attention", **shape, "kwargs": fkw,
+              "max_abs_err": err, "tol": TOL_KERNEL_FP32})
+        if not err <= TOL_KERNEL_FP32:
+            raise AssertionError(f"{phase}: flash kernel {err}")
+        qt, kt, vt = (fx[n].transpose(1, 2).contiguous() for n in "qkv")
+        out["flash"] = timed_kernel(
+            lambda: flash_attention.flash_attention(fx["q"], fx["k"],
+                                                    fx["v"], **fkw),
+            lambda: flash_attention.flash_attention_plain(
+                fx["q"], fx["k"], fx["v"], **fkw),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=fkw["scale"],
+                enable_gqa=True),
+            flash_bounds(fx["q"], fx["k"], fkw.get("window") or 0), err,
+            shape, plain_calls=3, calls=20)
     for kind, t in out.items():
         emit({"phase": phase + "_kernel_timings", "kernel": kind,
               "kernel_us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
@@ -10581,10 +10614,13 @@ def contrib_dense_fp32_cut(name, hf, device):
     (TF32 off), on the family's contiguous ``CausalLMApplication`` with
     both kernels asked for (``attn_kernel_enabled``, the decode kernel
     forced on), after ``precompile``: phase 19's four prompts, 16 new
-    tokens. Pythia launches flash once a layer and the decode kernel at
-    every layer of every decode step (replays counted), each kernel then
-    held to its twin and timed at the launches' shapes
-    (:func:`dbrx_fp32_kernels`); BLOOM launches neither. The greedy
+    tokens. Pythia (and 27 (d)'s StarCoder and Falcon-7B) launch flash
+    once a layer and the decode kernel at every layer of every decode step
+    (replays counted); GPT-Neo (a layer pattern on the mixed cache)
+    launches no flash and the decode kernel at its global layers only;
+    each kernel launched is then held to its twin and timed at the
+    launches' shapes (:func:`dbrx_fp32_kernels`); BLOOM launches neither.
+    The greedy
     streams equal those of the same weights with both kernels off (a
     first difference only at a near-tie). BLOOM's control: the same app
     with ``alibi`` taken off its spec launches both kernels. Returns
@@ -10611,11 +10647,18 @@ def contrib_dense_fp32_cut(name, hf, device):
             out = capp.generate(ids, attention_mask=mask, max_new_tokens=new,
                                 return_logits=True)
         counts = kernel_counts([capp])
+    # a layer pattern keeps flash off and, on the mixed cache, the decode
+    # kernel on the global stack
+    pattern = capp.spec.layer_pattern
+    if pattern is not None and not capp.spec.mixed_kv:
+        raise AssertionError(f"{phase}: a layer pattern on a uniform cache")
+    dec_layers = layers - sum(map(bool, pattern or ()))
+    flash_layers = 0 if pattern else layers
     want = ({"paged_decode_attention": 0, "decode_attention_stacked": 0,
              "flash_attention": 0} if alibi or not on_card else
             {"paged_decode_attention": 0,
-             "decode_attention_stacked": layers * (new - 1),
-             "flash_attention": layers})
+             "decode_attention_stacked": dec_layers * (new - 1),
+             "flash_attention": flash_layers})
     off = make_contiguous_app(hf, device, "float32", batch=len(lens),
                               seq_len=cfg["seq_len"], kernels=False,
                               output_logits=True)
@@ -10656,7 +10699,8 @@ def contrib_dense_fp32_cut(name, hf, device):
         times = dbrx_fp32_kernels(
             device, spy.ints, flash.calls, [int(n) + new - 2 for n in lens],
             dict(scale=spec.scale, window=spec.sliding_window,
-                 soft_cap=spec.attn_soft_cap), phase=phase)
+                 soft_cap=spec.attn_soft_cap), phase=phase,
+            flash=flash_layers > 0)
     del capp
     free_card()
     return (counts["decode_attention_stacked"], counts["flash_attention"],
@@ -10707,9 +10751,305 @@ def phase_contrib_dense(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the contrib hub's second dense wave, decode at any GQA group
+# ---------------------------------------------------------------------------
+
+# StarCoder (bigcode/starcoder): GPT-BigCode, 40 layers of 6144, 48 heads
+# of 128 over one KV head (multi-query: G 48), an MLP of 24576 with biases
+# (tanh gelu), biased LayerNorms, 8192 learned positions, the 49152-row
+# table tied to the head; ``num_hidden_layers`` mirrors ``n_layer`` for the
+# helpers that read it
+STARCODER = dict(
+    model_type="gpt_bigcode", n_embd=6144, n_head=48, n_layer=40,
+    num_hidden_layers=40, n_inner=24576, n_positions=8192,
+    vocab_size=49152, activation_function="gelu_pytorch_tanh",
+    multi_query=True, layer_norm_epsilon=1e-5)
+# Command-R7B (CohereForAI/c4ai-command-r7b-12-2024): 32 layers of 4096,
+# 32 heads of 128 over 8 (G 4), an MLP of 14336, a window of 4096 on three
+# layers of every four and NoPE on the fourth, the parallel-shared block,
+# a bias-free LayerNorm, ``logit_scale`` 0.25, the 256000-row table tied
+COMMAND_R7B = dict(
+    model_type="cohere2", hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, vocab_size=256000, layer_norm_eps=1e-5, logit_scale=0.25,
+    rope_theta=50000.0, sliding_window=4096, max_position_embeddings=132096,
+    layer_types=(["sliding_attention"] * 3 + ["full_attention"]) * 8,
+    tie_word_embeddings=True)
+# Falcon-7B (tiiuae/falcon-7b): 32 layers of 4544, 71 heads of 64 over one
+# KV head (G 71), the parallel-shared block, no biases, vocab 65024
+FALCON_7B = dict(
+    model_type="falcon", hidden_size=4544, num_attention_heads=71,
+    num_hidden_layers=32, vocab_size=65024, multi_query=True,
+    parallel_attn=True, new_decoder_architecture=False, bias=False,
+    alibi=False, layer_norm_epsilon=1e-5)
+# GPT-Neo-1.3B (EleutherAI/gpt-neo-1.3B): 24 layers of 2048 alternating
+# global and local (window 256), 16 heads of 128, learned positions,
+# no 1/sqrt(D) scaling, vocab 50257
+GPT_NEO_1_3B = dict(
+    model_type="gpt_neo", hidden_size=2048, num_heads=16, num_layers=24,
+    num_hidden_layers=24, attention_layers=["global", "local"] * 12,
+    window_size=256, max_position_embeddings=2048, vocab_size=50257,
+    activation_function="gelu_new", layer_norm_epsilon=1e-5)
+# (a): the decode kernels at G 48 / D 128 and G 71 / D 64 (one KV head):
+#   the paged kernel on phase 26's batch (B 8, lens 37-2000, block 32),
+#   the contiguous one at B 4, S 2048; bf16 and fp32 activations over
+#   caches of their dtype, and bf16 over scaled fp8 pages
+WIDE_GROUPS = {"g48_d128": dict(hq=48, hkv=1, d=128),
+               "g71_d64": dict(hq=71, hkv=1, d=64)}
+WIDE_PAGE_DTYPES = ("bfloat16", "float32", "float8_e4m3fn")
+WIDE_CACHE_DTYPES = ("bfloat16", "float32")
+WIDE_CONTIG = dict(s=2048, lens=(300, 900, 1500, 2000))
+WIDE_FP8_SCALE = 0.5
+# (b): StarCoder on phase 9's engine and mix, 10 of its 40 layers (every
+#   layer alike; the room of the 950 s target); (c) Command-R7B on phase
+#   19's engine and mix, 8 of 32 layers (two of its 3:1 periods)
+STARCODER_SERVE_LAYERS = 10
+COMMAND_R_SERVE_LAYERS = 8
+# (d): the fp32 cuts on the contiguous app (batch 4, bucket 512)
+CONTRIB_DENSE2_CHECK_LAYERS = 2
+CONTRIB_DENSE2_BUDGET_S = 90
+
+
+def starcoder_cut(layers):
+    """StarCoder cut to ``layers`` layers (``n_layer`` with it)."""
+    return dict(STARCODER, n_layer=layers, num_hidden_layers=layers)
+
+
+def gpt_neo_cut(layers):
+    """GPT-Neo-1.3B cut to its first ``layers`` layers (global, local,
+    ...)."""
+    return dict(GPT_NEO_1_3B, num_layers=layers, num_hidden_layers=layers,
+                attention_layers=GPT_NEO_1_3B["attention_layers"][:layers])
+
+
+def check_contrib_dense2_specs():
+    """Gate: StarCoder resolves to G 48 (one KV head) at head_dim 128 with
+    learned positions and no rotation, Falcon-7B to G 71 at head_dim 64,
+    Command-R7B to G 4 with the 3:1 sliding / NoPE pattern at window 4096
+    and the parallel-shared block, GPT-Neo-1.3B to its alternating pattern
+    at window 256 with ``attn_scale`` 1.0; and the decode kernels' gates
+    (``supports``, the paged and the contiguous branches') admit each of
+    them: no group term, as the reference's."""
+    import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    specs = {"starcoder": family_spec(STARCODER, seq_len=4096),
+             "falcon_7b": family_spec(FALCON_7B, seq_len=2048),
+             "command_r7b": family_spec(COMMAND_R7B, seq_len=8192),
+             "gpt_neo_1_3b": family_spec(GPT_NEO_1_3B, seq_len=2048)}
+    cache = {"k": torch.empty((1, 4, 1, 1, 1), dtype=torch.bfloat16)}
+    got = {name: {
+        "group": s.gqa.q_per_kv, "kv_heads": s.num_kv_heads,
+        "head_dim": s.head_dim, "learned_pos": s.learned_pos,
+        "no_rope": s.no_rope, "block_style": s.block_style,
+        "window": s.sliding_window, "nope_global": s.nope_global,
+        "pattern_local_layers": sum(map(bool, s.layer_pattern or ())),
+        "attn_scale": s.attn_scale, "padded_vocab": s.padded_vocab,
+        "chunks": decode_attention.group_chunks(s.gqa.q_per_kv),
+        "gates": {"supports": decode_attention.supports(s, 1),
+                  "paged": model_base.use_decode_kernel(s, 1,
+                                                        torch.bfloat16),
+                  "contiguous": model_base.use_contiguous_decode_kernel(
+                      s, 1, 4, cache, True)}}
+        for name, s in specs.items()}
+    emit({"phase": "contrib_dense2_specs", **got})
+    sc, fa, cr, neo = (specs[n] for n in ("starcoder", "falcon_7b",
+                                          "command_r7b", "gpt_neo_1_3b"))
+    ok = (sc.gqa.q_per_kv == 48 and sc.num_kv_heads == 1
+          and sc.head_dim == 128 and sc.learned_pos == 8192 and sc.no_rope
+          and sc.qkv_bias and not sc.mlp_glu and sc.tie_word_embeddings
+          and fa.gqa.q_per_kv == 71 and fa.head_dim == 64
+          and fa.block_style == "parallel_shared"
+          and cr.gqa.q_per_kv == 4 and cr.sliding_window == 4096
+          and cr.layer_pattern == tuple(
+              t == "sliding_attention" for t in COMMAND_R7B["layer_types"])
+          and cr.nope_global and cr.block_style == "parallel_shared"
+          and cr.logits_divide == 4.0
+          and neo.layer_pattern == (False, True) * 12
+          and neo.sliding_window == 256 and neo.attn_scale == 1.0
+          and all(all(v["gates"].values()) for v in got.values()))
+    if not ok:
+        raise AssertionError(f"contrib_dense2 specs: {got}")
+
+
+def wide_kernel_inputs(group, dtype, device, gen, kind):
+    """(a)'s inputs at WIDE_GROUPS[group] for the paged kernel (``kind``
+    "paged": phase 26's batch, block 32) or the contiguous one
+    ("contig": WIDE_CONTIG) over a cache of ``dtype`` (fp32 runs fp32
+    activations, the rest bf16; fp8 scaled by WIDE_FP8_SCALE), and the
+    kernel's keyword arguments."""
+    import torch
+    c = WIDE_GROUPS[group]
+    dt = getattr(torch, dtype)
+    act = torch.float32 if dt == torch.float32 else torch.bfloat16
+    kv_scale = WIDE_FP8_SCALE if dt == torch.float8_e4m3fn else None
+    kw = dict(scale=c["d"] ** -0.5)
+    if kv_scale is not None:
+        kw["kv_scale"] = kv_scale
+    if kind == "paged":
+        lens = list(CONTRIB_DENSE_KERNEL_LENS)
+        return paged_inputs(gen, device, b=len(lens), bs=32,
+                            mb=-(-(max(lens) + 1) // 32), lens=lens,
+                            act_dtype=act, page_dtype=dt, kv_scale=kv_scale,
+                            **c), kw
+    lens = list(WIDE_CONTIG["lens"])
+    return contiguous_inputs(gen, device, b=len(lens), s=WIDE_CONTIG["s"],
+                             lens=lens, act_dtype=act, cache_dtype=dt,
+                             kv_scale=kv_scale, **c), kw
+
+
+def _phase_wide_group_kernels(device):
+    """27 (a): both decode kernels at G 48 / D 128 and G 71 / D 64 over one
+    KV head (3 and 5 chunks of at most 16 query heads, one launch), bf16
+    and fp32 activations over caches of their dtype and (paged) bf16 over
+    scaled fp8 pages, each within contrib_kernel_tol of its twin, with a
+    control on bf16 (the twin's heads shifted by one chunk of 16, the
+    output a chunk-offset fault would give) that must part beyond it; each
+    then timed by CUDA-graph replay beside the twin, SDPA (``enable_gqa``)
+    over the pre-gathered keys (dequantized for fp8) and the bound (K/V
+    read once). Returns {(kind, case): numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention
+    gen = torch.Generator(device=device).manual_seed(27)
+    out = {}
+    da = decode_attention
+
+    def gate(kernel, name, geometry, got, want):
+        tol = contrib_kernel_tol(want)
+        err = (got.float() - want.float()).abs().max().item()
+        bf16 = want.dtype == torch.bfloat16
+        ctl = ((got.float() - want.float().roll(16, dims=1)).abs().max()
+               .item() if bf16 else None)
+        emit({"phase": "contrib_dense2_kernel_vs_twin", "kernel": kernel,
+              "case": name, "geometry": geometry, "max_abs_err": err,
+              "tol": tol, "control_heads_shifted_16_max_abs_err": ctl})
+        if not (torch.isfinite(got.float()).all() and err <= tol):
+            raise AssertionError(f"{kernel} {name}: {err} > {tol}")
+        if ctl is not None and not ctl > tol:
+            raise AssertionError(f"{kernel} {name}: the shifted-heads "
+                                 f"control sits within {tol} ({ctl})")
+        return err
+    for group, c in WIDE_GROUPS.items():
+        g = c["hq"] // c["hkv"]
+        geometry = dict(c, G=g, chunks=da.group_chunks(g))
+        for dtype in WIDE_PAGE_DTYPES:
+            name = f"{group}_{dtype}"
+            x, kw = wide_kernel_inputs(group, dtype, device, gen, "paged")
+            args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"],
+                    x["new_v"], 0, x["lens"], x["block_table"])
+            shape = dict(geometry, B=len(x["lens"]), Bs=32, pages=dtype,
+                         lens=list(CONTRIB_DENSE_KERNEL_LENS))
+            err = gate("paged_decode_attention", name, shape,
+                       da.paged_decode_attention(*args, **kw),
+                       da.paged_decode_attention_plain(*args, **kw))
+            q4, k4, v4, m4 = sdpa_inputs(dict(x, **{
+                n: dequantized_pages(x[n], 0, kw.get("kv_scale")).to(
+                    x["q"].dtype) for n in ("k_pages", "v_pages")}), 0)
+            out[("paged", name)] = timed_kernel(
+                lambda: da.paged_decode_attention(*args, **kw),
+                lambda: da.paged_decode_attention_plain(*args, **kw),
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=m4, scale=kw["scale"],
+                    enable_gqa=True),
+                kernel_bounds(x), err, dict(shape, splits=da.num_splits(
+                    len(x["lens"]), 1, x["block_table"].shape[1], 32,
+                    c["d"], g)))
+            del x, args, q4, k4, v4, m4
+        for dtype in WIDE_CACHE_DTYPES:
+            name = f"{group}_{dtype}"
+            x, kw = wide_kernel_inputs(group, dtype, device, gen, "contig")
+            dargs, dkw = decode_args(x, kw)
+            shape = dict(geometry, B=len(WIDE_CONTIG["lens"]),
+                         S=WIDE_CONTIG["s"], cache=dtype,
+                         lens=list(WIDE_CONTIG["lens"]))
+            err = gate("decode_attention_stacked", name, shape,
+                       da.decode_attention_stacked(*dargs, **dkw),
+                       da.decode_attention_stacked_plain(*dargs, **dkw))
+            q4, k4, v4, m4 = contiguous_sdpa_inputs(x, 0)
+            out[("contig", name)] = timed_kernel(
+                lambda: da.decode_attention_stacked(*dargs, **dkw),
+                lambda: da.decode_attention_stacked_plain(*dargs, **dkw),
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=m4, scale=kw["scale"],
+                    enable_gqa=True),
+                decode_bounds(x), err, dict(
+                    shape, splits=da.contiguous_num_splits(
+                        len(WIDE_CONTIG["lens"]), 1, WIDE_CONTIG["s"],
+                        c["d"], g)))
+            del x, dargs, q4, k4, v4, m4
+    names = {"paged": "paged_decode_attention",
+             "contig": "decode_attention_stacked"}
+    for (kind, name), t in out.items():
+        emit({"phase": "contrib_dense2_kernel_timings",
+              "kernel": names[kind], "case": name,
+              "kernel_us": t["ms"] * 1e3, "bound_us": t["bound_ms"] * 1e3,
+              "bound_by": t["bound_by"], "plain_us": t["plain_ms"] * 1e3,
+              "library_us": t["library_ms"] * 1e3, "library": "SDPA",
+              "max_abs_err": t["err"], "shape": t["shape"]})
+    # comparison launches are not main-path launches
+    reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_contrib_dense2(device):
+    """Group ``contrib_dense2`` (phase 27 (a)-(d)); returns its kernels-line
+    entries: the paged kernel over StarCoder's served cache at G 48 (with
+    (b)'s launches) and over Command-R7B's at a sliding and a NoPE layer
+    (with (c)'s), and the contiguous decode and flash kernels at
+    StarCoder's fp32 cut's shapes and dtype (with (d)'s launches)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    check_contrib_dense2_specs()
+    _phase_wide_group_kernels(device)
+    memory_note("contrib_dense2_kernels")
+    entries = phase_dense_serving(
+        starcoder_cut(STARCODER_SERVE_LAYERS), device, RAGGED,
+        "starcoder_serving", (-1,), group=48, batch=8)
+    entries += phase_dense_serving(
+        dense_cut(COMMAND_R7B, COMMAND_R_SERVE_LAYERS), device,
+        DENSE_SERVE, "command_r7b_serving", (-2, -1), group=4)
+    with fp32_exact():
+        cuts = {name: contrib_dense_fp32_cut(name, hf, device) for name, hf
+                in (("starcoder", starcoder_cut(
+                        CONTRIB_DENSE2_CHECK_LAYERS)),
+                    ("falcon_7b", dict(
+                        FALCON_7B,
+                        num_hidden_layers=CONTRIB_DENSE2_CHECK_LAYERS)),
+                    ("gpt_neo_1_3b", gpt_neo_cut(
+                        CONTRIB_DENSE2_CHECK_LAYERS)))}
+    decode_launches, flash_launches, times = cuts["starcoder"]
+    for kind, kname, src, line, launches in (
+            ("contig", "decode_attention_stacked", "decode_attention.cu",
+             "decode_attention.py:41", decode_launches),
+            ("flash", "flash_attention", "flash_attention.cu",
+             "flash_attention.py:28", flash_launches)):
+        t = times[kind]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "neuronx_distributed_inference_tpu_torch/csrc/" + src,
+            "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
+            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": "contrib_dense_fp32_starcoder", "shape": t["shape"]})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "contrib_dense2_done", "seconds": seconds,
+          "budget_s": CONTRIB_DENSE2_BUDGET_S})
+    if seconds > CONTRIB_DENSE2_BUDGET_S:
+        raise AssertionError(
+            f"contrib_dense2 group took {seconds:.1f} s, over its budget "
+            f"of {CONTRIB_DENSE2_BUDGET_S} s")
+    return entries
+
+
 GROUPS = ("kernels", "paged", "pipeline", "contig", "ragged", "tier",
           "spec", "moe", "oss", "long", "mla", "quant", "dense",
-          "moe_families", "contrib_moe", "lora", "contrib_dense")
+          "moe_families", "contrib_moe", "lora", "contrib_dense",
+          "contrib_dense2")
 
 
 def main(argv=None) -> int:
@@ -10836,6 +11176,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_contrib_dense(device)
         mark("contrib_dense")
+    if "contrib_dense2" in only:
+        free_card()
+        kernels += phase_contrib_dense2(device)
+        mark("contrib_dense2")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

@@ -19,7 +19,8 @@
 // the tile math's instructions, barriers and the merge of the splits.
 // What the design does about that: the paged kernel's design
 // (decode_common.cuh), with contiguous addressing. ONE launch, grid
-// (splits, Hkv, B): each block takes an equal share of its row's live keys,
+// (splits, Hkv x C, B), C = ceil(G / 16) chunks of at most 16 query heads a
+// KV head: each block takes an equal share of its row's live keys,
 // at least one tile and a multiple of a 16-byte piece's keys; blocks whose
 // share is empty exit at once; the last block of a (row, KV head) with keys
 // merges the splits (the fused merge), so no combine kernel and no memset
@@ -35,14 +36,14 @@
 //     is used; the stage hand-off is the tile's only block barrier.
 //   - bf16 cache with bf16 queries (the Mistral-7B serving path), S a
 //     multiple of 8: tensor cores (decode_mma), tiles of 64 keys (a K^T row
-//     of the tile is one 128-byte line). The G <= 16 query heads are the 16
-//     rows of mma.sync tiles; warp w takes keys 16w .. 16w + 15. S = Q K^T
-//     by m16n8k16 with K's fragments from a .trans ldmatrix (the tile holds
-//     K^T: rows are d), dead keys' scores overwritten with NEG_INF (a 16-byte
-//     K piece that straddles the window start or lens holds dead keys), O
-//     += P V by m16n8k16 (V by a .trans ldmatrix; the two 8-key score blocks
-//     are P's A fragment) with P = bf16(p) + bf16(p - bf16(p)) (two
-//     products: the probabilities keep ~16 bits).
+//     of the tile is one 128-byte line). A chunk's <= 16 query heads are
+//     the 16 rows of mma.sync tiles; warp w takes keys 16w .. 16w + 15.
+//     S = Q K^T by m16n8k16 with K's fragments from a .trans ldmatrix (the
+//     tile holds K^T: rows are d), dead keys' scores overwritten with
+//     NEG_INF (a 16-byte K piece that straddles the window start or lens
+//     holds dead keys), O += P V by m16n8k16 (V by a .trans ldmatrix; the
+//     two 8-key score blocks are P's A fragment) with P = bf16(p) +
+//     bf16(p - bf16(p)) (two products: the probabilities keep ~16 bits).
 //   - fp32 or fp8 caches, fp32 queries: CUDA cores (decode_simt), tiles of
 //     32 keys, the same ring and merge: a warp owns query heads, lane t
 //     scores key t of the tile (reading K column t, d by d), then owns D/32
@@ -58,7 +59,7 @@
 //     bf16 or fp8-e4m3 (template TKV)
 //   lens (B,) int32 prior lengths, each at most S; sink (Hq,) fp32 or null
 //   part_acc (B, Hkv, splits, G, D) and part_ml (B, Hkv, splits, G, 2) fp32
-//     scratch; counters (B * Hkv) int32, zero before and after each launch
+//     scratch; counters (B * Hkv * C) int32, zero before and after each launch
 //     (the paged kernel's buffer: both run on one stream and leave it 0);
 //     all allocated by the caller
 
@@ -166,7 +167,8 @@ decode_simt(NXDI_CONTIG_PARAMS, int vec) {
 
   const int split = blockIdx.x;
   const int nsplit = gridDim.x;
-  const int h = blockIdx.y;
+  const Chunk ck = chunk_of(g);
+  const int h = ck.h;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -179,15 +181,15 @@ decode_simt(NXDI_CONTIG_PARAMS, int vec) {
   const TKV* kbase = k_cache + head * D * seq;     // (D, S) of this head
   const TKV* vbase = v_cache + head * seq * D;     // (S, D) of this head
   const Active<D, GMAX> act =
-      active_token<D, GMAX>(q, new_k, new_v, b, h, hkv, g, q_bf16);
+      active_token<D, GMAX>(q, new_k, new_v, b, ck, hkv, g, q_bf16);
   auto issue = [&](int i) {
     issue_tile<TKV, D, PT, false>(ring, i, sh, kbase, vbase, seq, vec);
   };
   for (int i = 0; i < CSTAGES - 1; ++i) issue(i);
 
-  const int64_t q_off = ((int64_t)b * hkv * g + (int64_t)h * g) * D;
+  const int64_t q_off = ((int64_t)b * hkv * g + (int64_t)h * g + ck.g0) * D;
   for (int i = tid; i < GMAX * D; i += NT)
-    sQ[i] = i / D < g ? load_act(q, q_off + i, q_bf16) : 0.f;
+    sQ[i] = i / D < ck.gc ? load_act(q, q_off + i, q_bf16) : 0.f;
 
   float m[HPW], l[HPW], acc[HPW][DPL];
 #pragma unroll
@@ -227,16 +229,16 @@ decode_simt(NXDI_CONTIG_PARAMS, int vec) {
     }
 #pragma unroll
     for (int j = 0; j < HPW; ++j) {
-      if (warp + j * NW >= g) break;
+      if (warp + j * NW >= ck.gc) break;
       const float s = live ? cap(dot[j] * ks, soft_cap) : NEG_INF;
       simt_update<TKV, D>(s, m[j], l[j], acc[j], st + L::KBYTES, tlo, thi);
     }
   }
 
   simt_write_split<D, HPW>(m, l, acc, part_acc, part_ml,
-                           ((int64_t)b * hkv + h) * nsplit + split, g,
+                           ((int64_t)b * hkv + h) * nsplit + split, g, ck,
                            kv_scale);
-  merge_tail<D, GMAX>(act, sink, part_acc, part_ml, counters, out, b, h,
+  merge_tail<D, GMAX>(act, sink, part_acc, part_ml, counters, out, b, ck,
                       hkv, g, nsplit, sh.n_part, scale, soft_cap, q_bf16,
                       &s_last);
 }
@@ -315,7 +317,7 @@ __device__ __forceinline__ void mma_update16(float (&c)[2][4], int kb,
   }
 }
 
-// Tensor cores: bf16 cache and bf16 queries, G <= 16, S % 8 == 0. Tiles of
+// Tensor cores: bf16 cache and bf16 queries, S % 8 == 0. Tiles of
 // MK = 64 keys: a K^T row of the tile is one 128-byte line; warp w takes
 // keys 16 w .. 16 w + 15.
 constexpr int MK = 64;
@@ -336,7 +338,8 @@ decode_mma(NXDI_CONTIG_PARAMS) {
 
   const int split = blockIdx.x;
   const int nsplit = gridDim.x;
-  const int h = blockIdx.y;
+  const Chunk ck = chunk_of(g);
+  const int h = ck.h;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -348,7 +351,7 @@ decode_mma(NXDI_CONTIG_PARAMS) {
   const TKV* kbase = k_cache + head * D * seq;     // (D, S) of this head
   const TKV* vbase = v_cache + head * seq * D;     // (S, D) of this head
   const Active<D, MAX_G> act =
-      active_token<D, MAX_G>(q, new_k, new_v, b, h, hkv, g, q_bf16);
+      active_token<D, MAX_G>(q, new_k, new_v, b, ck, hkv, g, q_bf16);
   auto issue = [&](int i) {
     issue_tile<TKV, D, MK, true>(ring, i, sh, kbase, vbase, seq, true);
   };
@@ -356,8 +359,8 @@ decode_mma(NXDI_CONTIG_PARAMS) {
 
   uint32_t qa[KS][4];
   load_q_frags<D>(qa, static_cast<const __nv_bfloat16*>(q) +
-                          ((int64_t)b * hkv * g + (int64_t)h * g) * D,
-                  g);
+                          ((int64_t)b * hkv * g + (int64_t)h * g + ck.g0) * D,
+                  ck.gc);
 
   float o[D / 8][4];
 #pragma unroll
@@ -406,8 +409,8 @@ decode_mma(NXDI_CONTIG_PARAMS) {
   }
 
   mma_write_split<D>(m, l, o, ring, sM, sL, part_acc, part_ml,
-                     ((int64_t)b * hkv + h) * nsplit + split, g, kv_scale);
-  merge_tail<D, MAX_G>(act, sink, part_acc, part_ml, counters, out, b, h,
+                     ((int64_t)b * hkv + h) * nsplit + split, g, ck, kv_scale);
+  merge_tail<D, MAX_G>(act, sink, part_acc, part_ml, counters, out, b, ck,
                        hkv, g, nsplit, sh.n_part, scale, soft_cap, q_bf16,
                        &s_last);
 }
@@ -423,11 +426,12 @@ int launch(const void* q, const void* kc, const void* vc, const void* nk,
            cudaStream_t stream) {
   constexpr int EPV = 16 / sizeof(TKV);
   const int vec = seq % EPV == 0;        // every K row 16-byte aligned
-  const dim3 grid(nsplit, hkv, batch);
+  const int nc = (g + MAX_G - 1) / MAX_G;  // chunks of the group
+  const dim3 grid(nsplit, hkv * nc, batch);
   const TKV* k = static_cast<const TKV*>(kc);
   const TKV* v = static_cast<const TKV*>(vc);
   if constexpr (std::is_same<TKV, __nv_bfloat16>::value) {
-    if (q_bf16 && g <= MAX_G && vec) {
+    if (q_bf16 && vec) {
       static bool opted_in = false;
       return launch_opted_in(decode_mma<D>, opted_in, grid,
                              ContigTile<TKV, D, MK>::BYTES, stream,

@@ -4,8 +4,11 @@
 // rows are addressed and laid out in shared memory, and in the tile size
 // of their tensor-core path.
 //
-// The design: one launch, grid (splits, Hkv, B). A block owns one (row, KV
-// head, split): its G = Hq/Hkv query heads share every key it loads. Each
+// The design: one launch, grid (splits, Hkv x C, B). A block owns one (row,
+// KV head, chunk, split): a KV head's group of G = Hq/Hkv query heads is cut
+// in C = ceil(G / MAX_G) chunks of at most MAX_G heads (chunk_of), and a
+// chunk's heads share every key its block loads (a wider group's chunks
+// each load the KV head's keys; past the first, from L2). Each
 // block takes an equal share of its row's live keys (share_of); a block
 // whose share is empty exits at once. It walks its share in tiles, copied
 // with cp.async into a ring in the cache's own dtype (16-byte pieces,
@@ -14,7 +17,8 @@
 // caches with bf16 queries (load_q_frags, each kernel's tile update,
 // mma_write_split) and on the CUDA cores otherwise (simt_update,
 // simt_write_split). The combine is fused (merge_tail): a block writes its
-// split's (m, l, acc) and counts itself on its (row, KV head)'s counter;
+// split's (m, l, acc) and counts itself on its (row, KV head, chunk)'s
+// counter;
 // the last block with keys merges the splits with the active token and the
 // sink and resets the counter to 0.
 //
@@ -177,7 +181,27 @@ struct SwzRows {
   }
 };
 
-// What every block of a (row, KV head, split) works out first.
+// The query heads a block serves: grid axis y is KV head x chunk; chunk c
+// of KV head h holds the group's heads [g0, g0 + gc), g0 = c MAX_G, gc =
+// min(MAX_G, g - g0); a group of at most MAX_G is one chunk (g0 0, gc g).
+struct Chunk {
+  int h;      // the KV head
+  int g0;     // the chunk's first head in the group
+  int gc;     // its heads, 1 .. MAX_G
+  int slot;   // its merge counter: (row b, KV head, chunk) = b Hkv C + y
+};
+
+__device__ __forceinline__ Chunk chunk_of(int g) {
+  const int nc = (g + MAX_G - 1) / MAX_G;
+  Chunk ck;
+  ck.h = blockIdx.y / nc;
+  ck.g0 = (blockIdx.y % nc) * MAX_G;
+  ck.gc = min(MAX_G, g - ck.g0);
+  ck.slot = blockIdx.z * gridDim.y + blockIdx.y;
+  return ck;
+}
+
+// What every block of a (row, KV head, chunk, split) works out first.
 struct Share {
   int lo, hi;        // its live keys [lo, hi)
   int t0;            // the first key of its first tile (t0 <= lo)
@@ -234,14 +258,15 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 16][4],
     }
 }
 
-// The four warps' (m, l, O) into the block's split `part` of the scratch
-// (acc times kv_scale), through shared memory: `ring` (the ring, free once
-// the caller's loop is done) must hold NW x 16 x D floats.
+// The four warps' (m, l, O) of the chunk's heads [g0, g0 + gc) into the
+// block's split `part` of the scratch (acc times kv_scale; heads of the
+// group of g), through shared memory: `ring` (the ring, free once the
+// caller's loop is done) must hold NW x 16 x D floats.
 template <int D>
 __device__ __forceinline__ void mma_write_split(
     float (&m)[2], float (&l)[2], const float (&o)[D / 8][4], char* ring,
     float (&sM)[NW][16], float (&sL)[NW][16], float* part_acc,
-    float* part_ml, int64_t part, int g, float kv_scale) {
+    float* part_ml, int64_t part, int g, const Chunk& ck, float kv_scale) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -267,7 +292,7 @@ __device__ __forceinline__ void mma_write_split(
       sO[(warp * 16 + gr + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] =
           o[n][e];
   __syncthreads();
-  for (int idx = tid; idx < g * D; idx += NT) {
+  for (int idx = tid; idx < ck.gc * D; idx += NT) {
     const int gg = idx / D;
     float mm = NEG_INF;
 #pragma unroll
@@ -276,16 +301,16 @@ __device__ __forceinline__ void mma_write_split(
 #pragma unroll
     for (int w = 0; w < NW; ++w)
       a += sO[(w * 16 + gg) * D + idx % D] * expf(sM[w][gg] - mm);
-    part_acc[part * g * D + idx] = a * kv_scale;
+    part_acc[(part * g + ck.g0) * D + idx] = a * kv_scale;
   }
-  if (tid < g) {
+  if (tid < ck.gc) {
     float mm = NEG_INF, ll = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mm = fmaxf(mm, sM[w][tid]);
 #pragma unroll
     for (int w = 0; w < NW; ++w) ll += sL[w][tid] * expf(sM[w][tid] - mm);
-    part_ml[(part * g + tid) * 2] = mm;
-    part_ml[(part * g + tid) * 2 + 1] = ll;
+    part_ml[(part * g + ck.g0 + tid) * 2] = mm;
+    part_ml[(part * g + ck.g0 + tid) * 2 + 1] = ll;
   }
 }
 
@@ -322,24 +347,26 @@ __device__ __forceinline__ void simt_update(float s, float& m, float& l,
 }
 
 // The split's (m, l) and acc (times kv_scale) of each head a warp owns
-// (heads warp, warp + NW, ...; acc = 0, l = 0 for an empty share).
+// (the chunk's heads warp, warp + NW, ...; acc = 0, l = 0 for an empty
+// share).
 template <int D, int HPW>
 __device__ __forceinline__ void simt_write_split(
     const float (&m)[HPW], const float (&l)[HPW],
     const float (&acc)[HPW][D / 32], float* part_acc, float* part_ml,
-    int64_t part, int g, float kv_scale) {
+    int64_t part, int g, const Chunk& ck, float kv_scale) {
   constexpr int DPL = D / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int j = 0; j < HPW; ++j) {
     const int gg = warp + j * NW;
-    if (gg >= g) break;
+    if (gg >= ck.gc) break;
+    const int64_t row = part * g + ck.g0 + gg;
     if (lane == 0) {
-      part_ml[(part * g + gg) * 2] = m[j];
-      part_ml[(part * g + gg) * 2 + 1] = l[j];
+      part_ml[row * 2] = m[j];
+      part_ml[row * 2 + 1] = l[j];
     }
-    float* pa = part_acc + (part * g + gg) * D + lane * DPL;
+    float* pa = part_acc + row * D + lane * DPL;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) pa[e] = acc[j][e] * kv_scale;
   }
@@ -379,13 +406,13 @@ struct Active {
 
 template <int D, int GMAX>
 __device__ __forceinline__ Active<D, GMAX> active_token(
-    const void* q, const void* new_k, const void* new_v, int b, int h,
-    int hkv, int g, int q_bf16) {
+    const void* q, const void* new_k, const void* new_v, int b,
+    const Chunk& ck, int hkv, int g, int q_bf16) {
   constexpr int HPW = (GMAX + NW - 1) / NW;
   constexpr int DPL = D / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int64_t kv_row = ((int64_t)b * hkv + h) * D + lane * DPL;
+  const int64_t kv_row = ((int64_t)b * hkv + ck.h) * D + lane * DPL;
   Active<D, GMAX> a;
 #pragma unroll
   for (int e = 0; e < DPL; ++e) {
@@ -394,9 +421,10 @@ __device__ __forceinline__ Active<D, GMAX> active_token(
   }
 #pragma unroll
   for (int j = 0; j < HPW; ++j) {
-    const int gg = min(warp + j * NW, g - 1);
+    const int gg = min(warp + j * NW, ck.gc - 1);
     const int64_t q_row =
-        ((int64_t)b * hkv * g + (int64_t)h * g + gg) * D + lane * DPL;
+        ((int64_t)b * hkv * g + (int64_t)ck.h * g + ck.g0 + gg) * D +
+        lane * DPL;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) a.q[j][e] = load_act(q, q_row + e, q_bf16);
   }
@@ -404,19 +432,19 @@ __device__ __forceinline__ Active<D, GMAX> active_token(
 }
 
 // The fused merge, after a block has written its split's (m, l, acc): the
-// block counts itself on its (row, KV head)'s counter (a release atomic
-// after a block barrier, as a semaphore: the writes of every thread are
-// visible before the count); the last of the n_part blocks (an acquire
+// block counts itself on its (row, KV head, chunk)'s counter (a release
+// atomic after a block barrier, as a semaphore: the writes of every thread
+// are visible before the count); the last of the n_part blocks (an acquire
 // atomic) merges their splits with the active token and the sink (warp w:
-// heads w, w + NW, ...; lane: columns lane * D/32 ..; lane s holds splits
-// s and s + 32), stores the output in q's dtype and puts the counter back
-// to 0 for the next launch (so CUDA-graph replays see 0).
+// the chunk's heads w, w + NW, ...; lane: columns lane * D/32 ..; lane s
+// holds splits s and s + 32), stores the output in q's dtype and puts the
+// counter back to 0 for the next launch (so CUDA-graph replays see 0).
 template <int D, int GMAX>
 __device__ __forceinline__ void merge_tail(
     const Active<D, GMAX>& act, const float* sink, const float* part_acc,
-    const float* part_ml, int* counters, void* out, int b, int h, int hkv,
-    int g, int nsplit, int n_part, float scale, float soft_cap, int q_bf16,
-    int* s_last) {
+    const float* part_ml, int* counters, void* out, int b, const Chunk& ck,
+    int hkv, int g, int nsplit, int n_part, float scale, float soft_cap,
+    int q_bf16, int* s_last) {
   constexpr int HPW = (GMAX + NW - 1) / NW;
   constexpr int DPL = D / 32;
   constexpr int SB = D == 64 ? 32 : 16;        // splits loaded at a time
@@ -424,7 +452,7 @@ __device__ __forceinline__ void merge_tail(
   const int lane = threadIdx.x % 32;
   const int hq = hkv * g;
   __syncthreads();
-  int* counter = counters + (int64_t)b * hkv + h;
+  int* counter = counters + ck.slot;
   if (threadIdx.x == 0) {
     int prev;
     asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
@@ -436,11 +464,11 @@ __device__ __forceinline__ void merge_tail(
   __syncthreads();
   if (!*s_last) return;
 
-  const int64_t part0 = ((int64_t)b * hkv + h) * nsplit;
+  const int64_t part0 = ((int64_t)b * hkv + ck.h) * nsplit;
 #pragma unroll
   for (int j = 0; j < HPW; ++j) {
-    const int gg = warp + j * NW;
-    if (gg >= g) break;
+    const int gg = ck.g0 + warp + j * NW;     // the head in the group
+    if (gg >= ck.g0 + ck.gc) break;
     const float* pa0 = part_acc + (part0 * g + gg) * D + lane * DPL;
     float ms[2], ls[2];
 #pragma unroll
@@ -469,7 +497,7 @@ __device__ __forceinline__ void merge_tail(
     float mt = fmaxf(sa, warp_max(fmaxf(ms[0], ms[1])));
     float sk = 0.f;
     if (sink != nullptr) {
-      sk = sink[h * g + gg];
+      sk = sink[ck.h * g + gg];
       mt = fmaxf(mt, sk);
     }
     float den =
@@ -503,7 +531,7 @@ __device__ __forceinline__ void merge_tail(
         for (int e = 0; e < DPL; ++e) o[e] += ws * a[u][e];
       }
     }
-    const int64_t oi = ((int64_t)b * hq + (int64_t)h * g + gg) * D +
+    const int64_t oi = ((int64_t)b * hq + (int64_t)ck.h * g + gg) * D +
                        lane * DPL;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) {
@@ -522,10 +550,13 @@ __device__ __forceinline__ void merge_tail(
 // ---------------------------------------------------------------------------
 
 // Calls launch(std::integral_constant<int, GMAX>) for the smallest of the
-// CUDA-core kernel's instantiations GMAX >= g; -1 when g exceeds MAX_G.
+// CUDA-core kernel's instantiations GMAX >= the widest chunk of a group of
+// g (min(g, MAX_G): one launch serves every chunk, a narrower last chunk
+// included); -1 when g < 1.
 template <typename F>
 int for_group(int g, F&& launch) {
   if (g < 1) return -1;
+  g = min(g, MAX_G);
   if (g <= 1) launch(std::integral_constant<int, 1>{});
   else if (g <= 2) launch(std::integral_constant<int, 2>{});
   else if (g <= 4) launch(std::integral_constant<int, 4>{});

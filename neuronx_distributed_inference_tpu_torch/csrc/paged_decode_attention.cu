@@ -17,7 +17,10 @@
 // loads lens -> block table -> K/V, the instructions of the tile math,
 // barriers, and launches.
 // What the design does about that (decode_common.cuh holds the parts it
-// shares with the contiguous kernel): ONE launch, grid (splits, Hkv, B).
+// shares with the contiguous kernel): ONE launch, grid (splits, Hkv x C, B),
+// C = ceil(G / 16) chunks of at most 16 query heads a KV head (a group of
+// at most 16 is one chunk; a multi-query group of 48 or 71 is 3 or 5, each
+// chunk's block loading the KV head's keys, past the first from L2).
 // Each block takes an equal share of its row's live keys (split-K, at
 // least 2048/D keys, so B*Hkv*splits blocks keep the SMs loading at batch
 // 4); blocks whose share is empty exit at once (a row with no live key
@@ -30,8 +33,8 @@
 //     blocks fit an SM). Two tiles are in flight while one is used, and the
 //     stage hand-off is the only block barrier of a tile.
 //   - bf16 pages with bf16 queries (the serving path) run the tile math on
-//     the tensor cores (paged_decode_mma): the G <= 16 query heads are the
-//     rows of mma.sync tiles, warp w takes keys 8w .. 8w + 7 of the tile,
+//     the tensor cores (paged_decode_mma): a chunk's <= 16 query heads are
+//     the rows of mma.sync tiles, warp w takes keys 8w .. 8w + 7 of a tile,
 //     S = Q K^T by m16n8k16 (K rows read by a plain ldmatrix: a page row
 //     is one key's D values), fp32 online softmax per head in registers,
 //     O += P V by m16n8k8 with P = bf16(p) + bf16(p - bf16(p)) (two
@@ -56,7 +59,8 @@
 //   lens (B,) int32 prior lengths; block_table (B, max_blocks) int32
 //   sink (Hq,) fp32 or null
 //   part_acc (B, Hkv, splits, G, D) and part_ml (B, Hkv, splits, G, 2) fp32
-//     scratch; counters (B * Hkv) int32, zero before and after each launch;
+//     scratch; counters (B * Hkv * C) int32, zero before and after each
+//     launch;
 //     all allocated by the caller
 
 #include "decode_common.cuh"
@@ -195,7 +199,8 @@ paged_decode_simt(NXDI_PAGED_PARAMS) {
 
   const int split = blockIdx.x;
   const int nsplit = gridDim.x;
-  const int h = blockIdx.y;
+  const Chunk ck = chunk_of(g);
+  const int h = ck.h;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -209,7 +214,7 @@ paged_decode_simt(NXDI_PAGED_PARAMS) {
       (int64_t)layer * num_pages * page_stride + (int64_t)h * D;
   const int32_t* table = block_table + (int64_t)b * max_blocks;
   const Active<D, GMAX> act =
-      active_token<D, GMAX>(q, new_k, new_v, b, h, hkv, g, q_bf16);
+      active_token<D, GMAX>(q, new_k, new_v, b, ck, hkv, g, q_bf16);
   auto issue = [&](int i) {
     issue_tile<TKV, D, false>(ring, i, sh, k_pages, v_pages, table,
                               block_size, page_stride, row_stride,
@@ -217,9 +222,9 @@ paged_decode_simt(NXDI_PAGED_PARAMS) {
   };
   for (int i = 0; i < PSTAGES - 1; ++i) issue(i);
 
-  const int64_t q_off = ((int64_t)b * hkv * g + (int64_t)h * g) * D;
+  const int64_t q_off = ((int64_t)b * hkv * g + (int64_t)h * g + ck.g0) * D;
   for (int i = tid; i < GMAX * D; i += NT)
-    sQ[i] = i / D < g ? load_act(q, q_off + i, q_bf16) : 0.f;
+    sQ[i] = i / D < ck.gc ? load_act(q, q_off + i, q_bf16) : 0.f;
 
   float m[HPW], l[HPW], acc[HPW][DPL];
 #pragma unroll
@@ -240,7 +245,7 @@ paged_decode_simt(NXDI_PAGED_PARAMS) {
 #pragma unroll
     for (int j = 0; j < HPW; ++j) {
       const int gg = warp + j * NW;
-      if (gg >= g) break;
+      if (gg >= ck.gc) break;
       // score of key `lane`
       float s = NEG_INF;
       if (lane < nv) {
@@ -266,14 +271,14 @@ paged_decode_simt(NXDI_PAGED_PARAMS) {
   }
 
   simt_write_split<D, HPW>(m, l, acc, part_acc, part_ml,
-                           ((int64_t)b * hkv + h) * nsplit + split, g,
+                           ((int64_t)b * hkv + h) * nsplit + split, g, ck,
                            kv_scale);
-  merge_tail<D, GMAX>(act, sink, part_acc, part_ml, counters, out, b, h,
+  merge_tail<D, GMAX>(act, sink, part_acc, part_ml, counters, out, b, ck,
                       hkv, g, nsplit, sh.n_part, scale, soft_cap, q_bf16,
                       &s_last);
 }
 
-// Tensor cores: bf16 pages and bf16 queries, G <= 16.
+// Tensor cores: bf16 pages and bf16 queries, a chunk of <= 16 heads.
 template <int D, typename TKV = __nv_bfloat16>
 __global__ void __launch_bounds__(NT)
 paged_decode_mma(NXDI_PAGED_PARAMS) {
@@ -287,7 +292,8 @@ paged_decode_mma(NXDI_PAGED_PARAMS) {
 
   const int split = blockIdx.x;
   const int nsplit = gridDim.x;
-  const int h = blockIdx.y;
+  const Chunk ck = chunk_of(g);
+  const int h = ck.h;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -300,7 +306,7 @@ paged_decode_mma(NXDI_PAGED_PARAMS) {
       (int64_t)layer * num_pages * page_stride + (int64_t)h * D;
   const int32_t* table = block_table + (int64_t)b * max_blocks;
   const Active<D, MAX_G> act =
-      active_token<D, MAX_G>(q, new_k, new_v, b, h, hkv, g, q_bf16);
+      active_token<D, MAX_G>(q, new_k, new_v, b, ck, hkv, g, q_bf16);
   auto issue = [&](int i) {
     issue_tile<TKV, D, true>(ring, i, sh, k_pages, v_pages, table,
                              block_size, page_stride, row_stride, head_off);
@@ -309,8 +315,8 @@ paged_decode_mma(NXDI_PAGED_PARAMS) {
 
   uint32_t qa[KS][4];
   load_q_frags<D>(qa, static_cast<const __nv_bfloat16*>(q) +
-                          ((int64_t)b * hkv * g + (int64_t)h * g) * D,
-                  g);
+                          ((int64_t)b * hkv * g + (int64_t)h * g + ck.g0) * D,
+                  ck.gc);
 
   float o[D / 8][4];
 #pragma unroll
@@ -343,8 +349,8 @@ paged_decode_mma(NXDI_PAGED_PARAMS) {
   }
 
   mma_write_split<D>(m, l, o, ring, sM, sL, part_acc, part_ml,
-                     ((int64_t)b * hkv + h) * nsplit + split, g, kv_scale);
-  merge_tail<D, MAX_G>(act, sink, part_acc, part_ml, counters, out, b, h,
+                     ((int64_t)b * hkv + h) * nsplit + split, g, ck, kv_scale);
+  merge_tail<D, MAX_G>(act, sink, part_acc, part_ml, counters, out, b, ck,
                        hkv, g, nsplit, sh.n_part, scale, soft_cap, q_bf16,
                        &s_last);
 }
@@ -360,11 +366,12 @@ int launch(const void* q, const void* kp, const void* vp, const void* nk,
            float scale, float soft_cap, float kv_scale, int q_bf16,
            cudaStream_t stream) {
   const int bytes = PagedTile<TKV, D>::BYTES;
-  const dim3 grid(nsplit, hkv, batch);
+  const int nc = (g + MAX_G - 1) / MAX_G;  // chunks of the group
+  const dim3 grid(nsplit, hkv * nc, batch);
   const TKV* k = static_cast<const TKV*>(kp);
   const TKV* v = static_cast<const TKV*>(vp);
   if constexpr (std::is_same<TKV, __nv_bfloat16>::value) {
-    if (q_bf16 && g <= MAX_G) {
+    if (q_bf16) {
       static bool opted_in = false;
       return launch_opted_in(
           paged_decode_mma<D>, opted_in, grid, bytes, stream, q, k, v, nk,

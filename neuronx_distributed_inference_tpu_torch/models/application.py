@@ -102,6 +102,7 @@ from ..modules import kv_cache as kvc
 from ..modules.block_kv_cache import (BlockKVCacheManager, BlockKVSpec,
                                       cut_cached_at_unwritten,
                                       slots_from_table)
+from ..ops import decode_attention
 from ..ops.sampling import prepare_sampling_params, sample
 from ..resilience.errors import CapacityError, ConfigurationError
 from ..telemetry import get_registry
@@ -388,7 +389,8 @@ class CausalLMApplication:
             self.graphs.reserve(
                 max(self.batch_buckets
                     + [self.tpu_config.kv_cache_batch_size or 0]),
-                self.spec.gqa.num_kv_heads)
+                decode_attention.counters_per_row(
+                    self.spec.gqa.num_kv_heads, self.spec.gqa.q_per_kv))
 
     # -- weights -----------------------------------------------------------
     def load_weights(self, model_path: Optional[str] = None):

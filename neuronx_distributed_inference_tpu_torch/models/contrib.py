@@ -26,9 +26,7 @@ it needs:
     (partial rotary, biased LayerNorms) and Cohere (``parallel_shared``,
     a bias-free LayerNorm, the logit scale).
 
-The later waves live in ``contrib2`` / ``contrib3``; the hub's other
-dense families (GPT-J, GPT-Neo, OPT, ...) wait for the next slice of
-ROADMAP A14f."""
+The later waves live in ``contrib2`` / ``contrib3``."""
 
 from __future__ import annotations
 
@@ -103,6 +101,18 @@ def _split_interleaved_qkv(get, key_fmt, num_layers, nh, g, D,
     if with_bias:
         out["qkv_bias"] = np.concatenate(
             [np.stack(qb), np.stack(kb), np.stack(vb)], axis=-1)
+    return out
+
+
+def _up_down(cls, layer_stack, bias: bool = False):
+    """A plain MLP's ``up_proj`` / ``down_proj`` (and their biases) in the
+    gate / down slots, through the base converter's ``layer_stack``."""
+    lp = cls.hf_prefix + ".layers.{i}.mlp."
+    out = {"gate_proj": layer_stack(lp + "up_proj.weight", _t),
+           "down_proj": layer_stack(lp + "down_proj.weight", _t)}
+    if bias:
+        out["gate_bias"] = layer_stack(lp + "up_proj.bias", _ident)
+        out["down_bias"] = layer_stack(lp + "down_proj.bias", _ident)
     return out
 
 

@@ -1,7 +1,9 @@
 """The contrib hub's third wave (counterpart:
 ``neuronx_distributed_inference_tpu/models/contrib3.py`` —
-``OpenAIGPTFamily`` :24-67, ``ApertusInferenceConfig`` :237,
-``ApertusFamily`` :246-292, ``PhimoeFamily`` :295-360).
+``OpenAIGPTFamily`` :24-67, ``VaultGemmaFamily`` :203-234,
+``ApertusInferenceConfig`` :237, ``ApertusFamily`` :246-292,
+``PhimoeFamily`` :295-360, ``MiniCPMFamily`` :362-384, ``OrionFamily``
+:387-400, ``InternLM3Family`` :403-418, ``Olmo3Family`` :421-453).
 
 openai-gpt (GPT-1) is GPT-2's shape (the fused Conv1D attention, learned
 positions, a plain biased MLP) with post-LN blocks, x = ln(x + sub(x))
@@ -14,21 +16,34 @@ Phi-3.5-MoE is Mixtral's shape (16 experts, top 2) with the sparsemixer inferenc
 (``modules/moe.py``), LayerNorm with a learned bias in every block norm and
 the final norm (``norm_bias``), q/k/v and o biases, an optional lm-head
 bias (``lm_head_bias``, padded to the padded vocabulary) and a sliding
-window on every layer. The wave's other families (VaultGemma, MiniCPM,
-Orion, InternLM3, OLMo-3) wait for the next slice of ROADMAP A14f, LFM2 for
-A14e."""
+window on every layer.
+
+VaultGemma is Gemma-2's soft caps and (1 + w) norms over alternating
+sliding / full layers with two pre-norms a layer (no sandwich norms).
+MiniCPM / MiniCPM4 are Llama with MuP's scalings on existing knobs (the
+embeddings times ``scale_emb``, every residual branch times
+``scale_depth`` / sqrt(L), the head's input over hidden /
+``dim_model_base``). Orion is StableLM's biased LayerNorms at full rotary
+without q/k/v biases; InternLM3 is Llama with separate q/k/v and o + MLP
+bias switches; OLMo-3 is OLMo-2 with an alternating sliding / full pattern
+whose sliding layers rotate with plain RoPE whatever the config's
+scaling. LFM2 waits for ROADMAP A14e."""
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..config import InferenceConfig
 from ..modules.moe import MoESpec
-from .contrib import GPT2Family, _SimpleConfig, _ident, _t, _vpad1
+from ..ops.rope import RopeConfig
+from .contrib import (GPT2Family, StableLmFamily, _SimpleConfig, _ident,
+                      _up_down, _vpad1)
 from .family import DecoderFamily, register_family
 from .model_base import DecoderSpec, spec_from_config
+from .olmo2.modeling_olmo2 import Olmo2Family
 
 
 @register_family("openai-gpt")
@@ -116,9 +131,7 @@ class ApertusFamily(DecoderFamily):
                             ) -> Dict[str, np.ndarray]:
         """The plain MLP's fc1 / fc2 (``up_proj`` / ``down_proj``) in the
         gate / down slots."""
-        lp = cls.hf_prefix + ".layers.{i}.mlp."
-        return {"gate_proj": layer_stack(lp + "up_proj.weight", _t),
-                "down_proj": layer_stack(lp + "down_proj.weight", _t)}
+        return _up_down(cls, layer_stack)
 
     @classmethod
     def convert_extra_layer_weights(cls, get, layer_stack, spec: DecoderSpec
@@ -197,3 +210,129 @@ class PhimoeFamily(DecoderFamily):
             out["lm_head_b"] = _vpad1(np.asarray(sd["lm_head.bias"]),
                                       spec.padded_vocab)
         return out
+
+
+def _alternating(config):
+    """(pattern, every layer sliding) from ``layer_types``: the pattern
+    (True on each ``"sliding_attention"`` layer) only when the types
+    differ."""
+    lt = list(getattr(config, "layer_types", []) or [])
+    pattern = (tuple(t == "sliding_attention" for t in lt)
+               if lt and not all(t == lt[0] for t in lt) else None)
+    return pattern, bool(lt) and all(t == "sliding_attention" for t in lt)
+
+
+@register_family("vaultgemma")
+class VaultGemmaFamily(DecoderFamily):
+    """Google VaultGemma: Gemma-2's soft caps, (1 + w) norms and embedding
+    scale over alternating sliding / full layers, with only the two
+    pre-norms a layer."""
+    config_cls = _SimpleConfig
+    post_norm_src = "pre_feedforward_layernorm"
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        pattern, _ = _alternating(config)
+        qpre = getattr(config, "query_pre_attn_scalar", None)
+        bias = bool(getattr(config, "attention_bias", False))
+        return spec_from_config(
+            config, tp_degree,
+            act=getattr(config, "hidden_activation", "gelu_pytorch_tanh"),
+            embed_scale=math.sqrt(config.hidden_size),
+            norm_offset=1.0,
+            attn_scale=(float(qpre) ** -0.5 if qpre else None),
+            attn_soft_cap=getattr(config, "attn_logit_softcapping", None),
+            logits_soft_cap=getattr(config, "final_logit_softcapping", None),
+            sliding_window=int(getattr(config, "sliding_window", 0) or 0),
+            layer_pattern=pattern,
+            qkv_bias=bias, o_bias=bias,
+            tie_word_embeddings=bool(getattr(config, "tie_word_embeddings",
+                                             True)),
+        )
+
+
+@register_family("minicpm", "minicpm4")
+class MiniCPMFamily(DecoderFamily):
+    """OpenBMB MiniCPM / MiniCPM4: Llama with MuP's scalings: the
+    embeddings times ``scale_emb``, each residual branch times
+    ``scale_depth`` / sqrt(L), the head's input over hidden /
+    ``dim_model_base``."""
+    config_cls = _SimpleConfig
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        L = config.num_hidden_layers
+        H = config.hidden_size
+        dmb = float(getattr(config, "dim_model_base", H) or H)
+        return spec_from_config(
+            config, tp_degree,
+            embed_scale=float(getattr(config, "scale_emb", 1.0)),
+            residual_multiplier=float(
+                getattr(config, "scale_depth", 1.0)) / math.sqrt(L),
+            logits_divide=H / dmb,
+        )
+
+
+@register_family("orion")
+class OrionFamily(StableLmFamily):
+    """OrionStar Orion: Llama's shape with biased LayerNorms everywhere:
+    StableLM at full rotary without q/k/v biases (its LayerNorm-bias
+    conversion)."""
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        return spec_from_config(
+            config, tp_degree,
+            rms_eps=float(getattr(config, "rms_norm_eps", 1e-5)),
+            norm_type="layernorm", norm_bias=True,
+        )
+
+
+@register_family("internlm3")
+class InternLM3Family(DecoderFamily):
+    """Shanghai AI Lab InternLM3: Llama with a q/k/v bias switch
+    (``qkv_bias``) and one for the o and MLP biases (``bias``)."""
+    config_cls = _SimpleConfig
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        bias = bool(getattr(config, "bias", False))
+        return spec_from_config(
+            config, tp_degree,
+            qkv_bias=bool(getattr(config, "qkv_bias", False)),
+            o_bias=bias, mlp_bias=bias,
+        )
+
+
+@register_family("olmo3")
+class Olmo3Family(Olmo2Family):
+    """AllenAI OLMo-3: OLMo-2's post-norm blocks and full-width q/k norms
+    with an alternating sliding / full pattern; the sliding layers rotate
+    with plain RoPE whatever the config's ``rope_scaling``, as HF's two
+    rotary embeddings do."""
+
+    @classmethod
+    def build_spec(cls, config, tp_degree: Optional[int] = None
+                   ) -> DecoderSpec:
+        pattern, all_sliding = _alternating(config)
+        window = int(getattr(config, "sliding_window", 0) or 0)
+        local = None
+        if pattern is not None and getattr(config, "rope_scaling", None):
+            hd = (getattr(config, "head_dim", None)
+                  or config.hidden_size // config.num_attention_heads)
+            local = RopeConfig(head_dim=hd, rope_theta=float(
+                getattr(config, "rope_theta", 500000.0)))
+        return spec_from_config(
+            config, tp_degree,
+            norm_position="post",
+            sandwich_norm=True,
+            qk_norm_full=True,
+            sliding_window=window if (pattern is not None
+                                      or all_sliding) else 0,
+            layer_pattern=pattern,
+            local_rope=local,
+        )

@@ -200,11 +200,12 @@ class StepGraphs:
         self._graphs = {}
         self._pool = None
 
-    def reserve(self, max_rows: int, num_kv_heads: int) -> None:
+    def reserve(self, max_rows: int, per_row: int) -> None:
         """Pin the decode kernels' merge counters for ``max_rows`` rows
-        (the largest batch bucket) before the first capture."""
-        decode_attention.pin_merge_counters(self.device,
-                                            max_rows * num_kv_heads)
+        (the largest batch bucket) of ``per_row`` counters each
+        (``decode_attention.counters_per_row``) before the first
+        capture."""
+        decode_attention.pin_merge_counters(self.device, max_rows * per_row)
 
     def run(self, sig, fn: Callable[[Dict[str, torch.Tensor]],
                                     Dict[str, torch.Tensor]],

@@ -62,7 +62,7 @@ import torch.nn.functional as F
 from ..config import TpuConfig
 from ..modules import kv_cache as kv_mod
 from ..modules.token_tree import DEFAULT_TREE, TokenTree
-from ..ops import sampling
+from ..ops import decode_attention, sampling
 from ..ops.normalization import rms_norm
 from ..parallel.layers import ParamSpec
 from . import model_base
@@ -193,12 +193,13 @@ class _StepRunner:
     read the ``params`` / ``cache`` objects of the target application and
     of ``watched`` (a draft application or an EAGLE decoder): a replaced
     object drops every graph. The decode kernels' merge counters are
-    pinned for the target's largest batch bucket at the most KV heads
-    (``num_kv_heads``: the draft's). ``state`` holds the float buffers
+    pinned for the target's largest batch bucket at the most counters a
+    row of the target or of ``draft_spec`` takes.
+    ``state`` holds the float buffers
     that cross steps (one per name and shape), stable tensors that a
     captured graph reads."""
 
-    def __init__(self, target_app, watched=(), num_kv_heads: int = 0):
+    def __init__(self, target_app, watched=(), draft_spec=None):
         cfg = target_app.tpu_config
         self.device = target_app.device
         self.apps = (target_app,) + tuple(watched)
@@ -206,7 +207,10 @@ class _StepRunner:
             StepGraphs(self.device) if self.device.type == "cuda" else None)
         self._rows = max(target_app.batch_buckets
                          + [cfg.kv_cache_batch_size or 0])
-        self._kv_heads = max(target_app.spec.gqa.num_kv_heads, num_kv_heads)
+        self._counters = max(
+            decode_attention.counters_per_row(s.gqa.num_kv_heads,
+                                              s.gqa.q_per_kv)
+            for s in (target_app.spec, draft_spec or target_app.spec))
         self._bound = None
         self.state: Dict[Tuple[str, int], torch.Tensor] = {}
 
@@ -234,7 +238,7 @@ class _StepRunner:
             self.graphs.clear()
             self._bound = objs
         if not len(self.graphs):
-            self.graphs.reserve(self._rows, self._kv_heads)
+            self.graphs.reserve(self._rows, self._counters)
         return self.graphs.run(sig, fn, inputs)
 
 
@@ -336,8 +340,7 @@ class SpeculativeDecoder(_Decoder):
             raise ValueError("target app needs "
                              "speculation_config.speculation_length >= 1")
         self.k = cfg.speculation_config.speculation_length
-        self.runner = _StepRunner(target_app, (draft_app,),
-                                  draft_app.spec.gqa.num_kv_heads)
+        self.runner = _StepRunner(target_app, (draft_app,), draft_app.spec)
 
     def _step(self, last, positions, seq_ids):
         t, d = self.target, self.draft
@@ -544,8 +547,7 @@ class _EagleBase(_Decoder):
         self.input_norm = input_norm
         self.draft_inv_freq = model_base.rope_inv_freq(draft_spec,
                                                        target_app.device)
-        self.runner = _StepRunner(target_app, (self,),
-                                  draft_spec.gqa.num_kv_heads)
+        self.runner = _StepRunner(target_app, (self,), draft_spec)
 
     # the runner watches these as it watches an application's
     @property

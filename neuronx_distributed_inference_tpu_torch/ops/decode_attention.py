@@ -56,7 +56,9 @@ NEG_INF = -2.3819763e38      # finite: the online softmax never sees inf-inf
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
-MAX_GROUP = 16               # query heads per KV head the kernel takes
+# query heads a block serves: a KV head's larger group is cut in chunks of
+# at most this many, each its own block (group_chunks)
+MAX_GROUP = 16
 # paged split-K blocks: four per H100 SM, rounded down. On the H100 at the
 # paged path's decode shapes the fused kernel took 10.7-11.0 us at 16
 # splits, 11.2-11.3 at 12, 12.6-12.8 at 20 and 13.5-13.6 at 32
@@ -119,9 +121,8 @@ def _check_common(q, hkv, cache_d, cache_dtype, n_layers, new_k, new_v,
     if cache_d != d or d not in _HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {_HEAD_DIMS} and match "
                          f"the cache (q {d}, cache {cache_d})")
-    if hq % hkv or hq // hkv > MAX_GROUP:
-        raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv} with at "
-                         f"most {MAX_GROUP} query heads per KV head")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv}")
     if q.dtype not in _ACT_DTYPES:
         raise ValueError(f"q dtype {q.dtype} not in {_ACT_DTYPES}")
     if cache_dtype not in _PAGE_DTYPES:
@@ -157,6 +158,19 @@ def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def group_chunks(g: int) -> int:
+    """Blocks a KV head's group of ``g`` query heads takes in both
+    kernels: chunks of at most ``MAX_GROUP`` heads (the rows of one mma
+    tile), on the grid's second axis beside the KV heads."""
+    return -(-g // MAX_GROUP)
+
+
+def counters_per_row(hkv: int, g: int) -> int:
+    """Merge counters (:func:`merge_counters`) a row takes in both
+    kernels: one per (KV head, chunk of its group of ``g``)."""
+    return hkv * group_chunks(g)
+
+
 def scratch_layout(batch: int, hkv: int, g: int, head_dim: int,
                    splits: int):
     """Sizes, in fp32 elements, of the split-K scratch of both kernels: the
@@ -167,7 +181,7 @@ def scratch_layout(batch: int, hkv: int, g: int, head_dim: int,
 
 
 _COUNTERS = {}
-_MIN_COUNTERS = 4096         # (row, KV head) pairs: batch 512 at Hkv 8
+_MIN_COUNTERS = 4096         # (row, KV head, chunk): batch 512 at Hkv 8
 _PINNED = set()              # devices whose buffer a captured graph holds
 
 
@@ -189,7 +203,7 @@ def count_launch(wrapper) -> None:
 
 
 def pin_merge_counters(device, n: int) -> None:
-    """Allocate the merge counters for ``n`` (row, KV head) pairs and pin
+    """Allocate the merge counters for ``n`` (row, KV head, chunk) and pin
     them: a captured CUDA graph keeps the buffer's address, so a later
     call that needs a larger buffer raises instead of moving it. The graph
     cache pins at the largest batch bucket before its first capture."""
@@ -199,8 +213,9 @@ def pin_merge_counters(device, n: int) -> None:
 
 def merge_counters(device: torch.device, n: int) -> torch.Tensor:
     """The fused decode kernels' arrival counters, one int32 per (row, KV
-    head): a zeroed buffer cached per device, at least ``n`` long, shared
-    by the paged and the contiguous kernel. A kernel's merging block puts
+    head, group chunk): a zeroed buffer cached per device, at least ``n``
+    long, shared by the paged and the contiguous kernel. A kernel's
+    merging block puts
     each counter back to 0, so the buffer stays zeroed from launch to
     launch (CUDA-graph replays included) and a call launches no memset.
     Both kernels run on one stream, one launch after the other, and each
@@ -227,8 +242,9 @@ def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
              *, scale, soft_cap, kv_scale):
     """Allocate the output and the split-K scratch (:func:`scratch_layout`),
     launch on the current stream, raise on a non-zero return, count the
-    launch on ``wrapper``. The merge counters (:func:`merge_counters`) go
-    to the kernel right after the scratch."""
+    launch on ``wrapper``. The merge counters (:func:`merge_counters`,
+    :func:`counters_per_row` a row) go to the kernel right after the
+    scratch."""
     if cache[0].data_ptr() % 16 or cache[1].data_ptr() % 16:
         raise ValueError("the kernel reads the cache in 16-byte vectors: "
                          "the K and V caches must be 16-byte aligned")
@@ -236,7 +252,8 @@ def _split_k(wrapper, fn, q, hkv, splits, cache_ptrs, ints, sink, cache,
     out = torch.empty_like(q)
     n_acc, n_ml = scratch_layout(b, hkv, hq // hkv, d, splits)
     scratch = torch.empty(n_acc + n_ml, dtype=torch.float32, device=q.device)
-    counters = merge_counters(q.device, b * hkv)
+    counters = merge_counters(q.device,
+                              b * counters_per_row(hkv, hq // hkv))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), *cache_ptrs,
@@ -368,11 +385,13 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def num_splits(batch: int, hkv: int, max_blocks: int, block_size: int,
-               head_dim: int) -> int:
-    """Blocks per (row, KV head) of the paged kernel: about four blocks on
-    each of the H100's 132 SMs (rounded down), within :func:`_splits`'s
-    bounds over the table's ``max_blocks * block_size`` keys."""
-    return _splits(_PAGED_TARGET_BLOCKS // (batch * hkv),
+               head_dim: int, group: int = 1) -> int:
+    """Blocks per (row, KV head, group chunk) of the paged kernel: about
+    four blocks on each of the H100's 132 SMs (rounded down), a chunk
+    counted as a head, within :func:`_splits`'s bounds over the table's
+    ``max_blocks * block_size`` keys."""
+    return _splits(_PAGED_TARGET_BLOCKS
+                   // (batch * hkv * group_chunks(group)),
                    max_blocks * block_size, head_dim)
 
 
@@ -419,7 +438,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             window=int(window), sink=sink, **kw)
     _device_check(q)
     g, mb = q.shape[1] // hkv, block_table.shape[1]
-    splits = num_splits(b, hkv, mb, bs, d)
+    splits = num_splits(b, hkv, mb, bs, d, g)
     return _split_k(
         paged_decode_attention, _kernel_fn("paged_decode_attention", 12, 10),
         q, hkv, splits,
@@ -454,11 +473,13 @@ def decode_attention_stacked_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def contiguous_num_splits(batch: int, hkv: int, seq_len: int,
-                          head_dim: int) -> int:
-    """Blocks per (row, KV head) of the contiguous kernel: about two blocks
-    on each of the H100's 132 SMs (rounded down, one resident wave), within
-    :func:`_splits`'s bounds over a cache row's ``seq_len`` keys."""
-    return _splits(_CONTIG_TARGET_BLOCKS // (batch * hkv), seq_len,
+                          head_dim: int, group: int = 1) -> int:
+    """Blocks per (row, KV head, group chunk) of the contiguous kernel:
+    about two blocks on each of the H100's 132 SMs (rounded down, one
+    resident wave), a chunk counted as a head, within :func:`_splits`'s
+    bounds over a cache row's ``seq_len`` keys."""
+    return _splits(_CONTIG_TARGET_BLOCKS
+                   // (batch * hkv * group_chunks(group)), seq_len,
                    head_dim)
 
 
@@ -503,7 +524,7 @@ def decode_attention_stacked(q: torch.Tensor, k_cache: torch.Tensor,
             q, k_cache, v_cache, new_k, new_v, int(layer), lens,
             window=int(window), sink=sink, **kw)
     _device_check(q)
-    splits = contiguous_num_splits(b, hkv, s_len, d)
+    splits = contiguous_num_splits(b, hkv, s_len, d, q.shape[1] // hkv)
     return _split_k(
         decode_attention_stacked, _kernel_fn("decode_attention", 11, 8),
         q, hkv, splits,
@@ -539,13 +560,13 @@ def supports(spec, phase_t: int) -> bool:
     chunked attention (the kernels mask by window, not by chunk; the
     counterpart's ``attn_chunk == 0``), no ALiBi (the kernels add no
     position bias; the counterpart keeps ``not spec.alibi`` beside each
-    call of its gate, model_base.py:1072, :1177), head_dim 64 or 128, and
-    at most ``MAX_GROUP`` query heads per KV head (the kernels keep a
-    group's accumulators in registers)."""
+    call of its gate, model_base.py:1072, :1177) and head_dim 64 or 128.
+    Any GQA group, as the counterpart's gate: a group over ``MAX_GROUP``
+    query heads takes :func:`group_chunks` blocks per KV head and split,
+    in the same one launch."""
     return (phase_t == 1 and spec.mla is None
             and spec.attn_chunk == 0 and not spec.alibi
-            and spec.head_dim in _HEAD_DIMS
-            and spec.gqa.q_per_kv <= MAX_GROUP)
+            and spec.head_dim in _HEAD_DIMS)
 
 
 def quantized_cache_ok(cache_dtype: torch.dtype) -> bool:

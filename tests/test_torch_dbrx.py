@@ -315,8 +315,8 @@ def test_cuda_contiguous_kernel_at_group_six_matches_twin(cache):
 def test_chip_smoke_moe_families_helpers(capsys):
     """Phase 20's helpers (chip_smoke), none defined twice in the
     script: the full-width Scout and DBRX
-    specs pass ``check_moe_family_specs`` (NoPE at layers 3 and 7, all
-    MoE, chunk 8192; LayerNorm, clip 8, G 6 admitted by the decode gate);
+    specs pass ``check_moe_family_specs`` (NoPE at every fourth layer,
+    all MoE, chunk 8192; LayerNorm, clip 8, G 6 admitted by the decode gate);
     ``moe_families_cut`` cuts DBRX's ``n_layers`` with
     ``num_hidden_layers``; ``generate_logits_rel_rms`` reads the prompt's
     last token and every decode step."""

@@ -46,6 +46,15 @@ CASES = {
     "fp8_e4m3_direct": dict(lens=(100, 255), cache="float8_e4m3fn"),
     "bf16_cache_kv_scale": dict(lens=(100, 255), cache="bfloat16",
                                 kv_scale=2.0),
+    # multi-query groups over 16 (StarCoder's G 48 at D 128, Falcon-7B's
+    # G 71 at D 64): 3 and 5 chunks of at most 16 query heads, the last of
+    # 7; with sinks and a window across the chunks, in bf16
+    "mqa_g48_d128": dict(hq=48, hkv=1, d=128),
+    "mqa_g71_d64": dict(hq=71, hkv=1),
+    "mqa_g71_sink_window": dict(s=128, hq=71, hkv=1, lens=(60, 100),
+                                sink=True, window=48),
+    "mqa_g48_bf16_io": dict(s=128, hq=48, hkv=1, d=128, lens=(64, 100),
+                            dtype="bfloat16"),
 }
 
 
@@ -386,3 +395,31 @@ def test_cuda_kernel_at_contrib_moe_groups_matches_twin(name):
     assert err <= cs.contrib_kernel_tol(want), err
     assert tda.decode_attention_stacked.launches == before + 1
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("group", ["g48_d128", "g71_d64"])
+def test_cuda_kernel_at_wide_groups_matches_twin(group, dtype):
+    """On the card: the contiguous kernel at G 48 / D 128 and G 71 / D 64
+    over one KV head (chip_smoke.wide_kernel_inputs: phase 27 (a)'s B 4,
+    S 2048) over a bf16 cache (the tensor cores) and an fp32 one (the CUDA
+    cores) against its twin, in one launch: one bf16 ulp of the twin's
+    largest output for a bf16 output, 1e-4 for fp32; every merge counter
+    (one per row and chunk) back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m cuda)")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    x, kw = cs.wide_kernel_inputs(
+        group, dtype, dev, torch.Generator(device=dev).manual_seed(27),
+        "contig")
+    dargs, dkw = cs.decode_args(x, kw)
+    before = tda.decode_attention_stacked.launches
+    got = tda.decode_attention_stacked(*dargs, **dkw)
+    torch.cuda.synchronize()
+    want = tda.decode_attention_stacked_plain(*dargs, **dkw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= cs.contrib_kernel_tol(want), err
+    assert tda.decode_attention_stacked.launches == before + 1
+    assert int(tda.merge_counters(tda._device_key(dev), 1).abs().sum()) == 0

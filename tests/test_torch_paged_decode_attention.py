@@ -90,6 +90,16 @@ CASES = {
                                          mb=12, extra="gpt_oss_local"),
     "gpt_oss_global_window0_sink": dict(hq=64, hkv=8, lens=(300, 37, 129),
                                         mb=12, extra="gpt_oss_global"),
+    # multi-query groups over 16 (StarCoder's G 48 at D 128, Falcon-7B's
+    # G 71 at D 64): 3 and 5 chunks of at most 16 query heads, the last of
+    # 7; with a window and per-head sinks across the chunks, over fp8
+    "mqa_g48_d128": dict(hq=48, hkv=1, d=128, lens=(5, 100, 255)),
+    "mqa_g71_d64": dict(hq=71, hkv=1, lens=(5, 100, 255)),
+    "mqa_g71_d64_window_sink": dict(hq=71, hkv=1, lens=(200, 90),
+                                    extra="window_sink"),
+    "mqa_g48_fp8_kv_scale": dict(hq=48, hkv=1, d=128, lens=(70, 130),
+                                 bs=64, mb=4, page_dtype="float8_e4m3fn",
+                                 kv_scale=0.5),
 }
 # the window of each case that takes a window and a sink
 WINDOW_SINK = {"window_sink": 64, "gpt_oss_local": 128, "gpt_oss_global": 0}
@@ -387,3 +397,134 @@ def test_cuda_kernel_at_contrib_moe_groups_matches_twin(name):
     assert err <= cs.contrib_kernel_tol(want), err
     assert tda.paged_decode_attention.launches == before + 1
 
+
+
+def test_supports_takes_any_gqa_group():
+    """The kernels' gate has no group term, as the reference's
+    (decode_attention.py:588-595): StarCoder's G 48 at head_dim 128,
+    Falcon-7B's G 71 at 64 and a group of 16 all pass it and the paged
+    branch's; ALiBi, MLA, chunked attention and other head dims stay
+    refused; the wrapper's checks take Hq 71 over one KV head."""
+    import dataclasses
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from test_torch_decode_attention import _chip_smoke
+    cs = _chip_smoke()
+    sc = cs.family_spec(cs.STARCODER, seq_len=4096)
+    fa = cs.family_spec(cs.FALCON_7B, seq_len=2048)
+    assert (sc.gqa.q_per_kv, sc.head_dim) == (48, 128)
+    assert (fa.gqa.q_per_kv, fa.head_dim) == (71, 64)
+    for spec in (sc, fa):
+        assert tda.supports(spec, 1)
+        assert model_base.use_decode_kernel(spec, 1, torch.bfloat16)
+        assert not tda.supports(spec, 2)
+        for over in (dict(alibi=True), dict(attn_chunk=64),
+                     dict(head_dim=96)):
+            assert not tda.supports(dataclasses.replace(spec, **over), 1)
+    inp = _case(np.random.default_rng(5), hq=71, hkv=1, lens=(3, 40), mb=2)
+    assert _port(inp, scale=0.125).shape == (2, 71, 64)
+
+
+@pytest.mark.parametrize("g,chunks,want_paged,want_contig", [
+    (1, 1, 63, 64), (16, 1, 63, 64), (17, 2, 33, 33), (48, 3, 22, 22),
+    (71, 5, 13, 13)])
+def test_num_splits_count_group_chunks(g, chunks, want_paged, want_contig):
+    """A group over 16 takes ceil(G / 16) blocks per KV head and split;
+    the split counts count those chunks as heads toward their targets (B
+    8, one KV head, 63 blocks of 32 at D 128; B 4, S 2048); a group of at
+    most 16 keeps its counts."""
+    assert tda.group_chunks(g) == chunks
+    assert tda.num_splits(8, 1, 63, 32, 128, g) == want_paged
+    assert tda.contiguous_num_splits(4, 1, 2048, 128, g) == want_contig
+    if g <= 16:
+        assert tda.num_splits(8, 1, 63, 32, 128) == want_paged
+
+
+def test_reserve_pins_a_counter_per_row_kv_head_and_chunk():
+    """``StepGraphs.reserve`` pins max rows x ``counters_per_row``
+    counters, one per (row, KV head, chunk) the kernels count on: at 512
+    rows, 8 KV heads and G 48 that is 12288; a later call needing more
+    raises
+    instead of moving the buffer a captured graph holds. The speculative
+    decoders' runner pins the most blocks a row of the target or the
+    draft takes."""
+    import types
+    from neuronx_distributed_inference_tpu_torch.models import speculation
+    from neuronx_distributed_inference_tpu_torch.models.cuda_graphs import \
+        StepGraphs
+    dev = torch.device("cpu")
+    tda._COUNTERS.pop(dev, None)
+    try:
+        StepGraphs(dev).reserve(512, tda.counters_per_row(8, 48))
+        assert tda._COUNTERS[dev].numel() == 512 * 8 * 3
+        assert tda.merge_counters(dev, 512 * 8 * 3) is tda._COUNTERS[dev]
+        with pytest.raises(RuntimeError, match="pin_merge_counters"):
+            tda.merge_counters(dev, 512 * 8 * 3 + 1)
+    finally:
+        tda._COUNTERS.pop(dev, None)
+        tda._PINNED.discard(dev)
+
+    def spec(hq, hkv):
+        return types.SimpleNamespace(gqa=types.SimpleNamespace(
+            num_kv_heads=hkv, q_per_kv=hq // hkv))
+    target = types.SimpleNamespace(
+        tpu_config=types.SimpleNamespace(kv_cache_batch_size=None),
+        device=dev, batch_buckets=[1, 4], spec=spec(32, 8))
+    assert speculation._StepRunner(target)._counters == 8
+    assert speculation._StepRunner(target, (), spec(71, 1))._counters == 8
+    assert speculation._StepRunner(target, (),
+                                   spec(48 * 4, 4))._counters == 12
+
+
+def test_work_counts_the_whole_group():
+    """The observatory's count of a call at G 48 (fake tensors): QK and PV
+    of every query head over the live keys and the active token, the K/V
+    bytes read once for the one KV head (the bound's formula), as at any
+    group."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    b, hq, hkv, d, bs, mb = 8, 48, 1, 128, 32, 64
+    with FakeTensorMode():
+        q = torch.empty(b, hq, d, dtype=torch.bfloat16)
+        pages = torch.empty(1, b * mb + 1, bs, hkv, d, dtype=torch.bfloat16)
+        nk = torch.empty(b, hkv, d, dtype=torch.bfloat16)
+        lens = torch.empty(b, dtype=torch.int32)
+        table = torch.empty(b, mb, dtype=torch.int32)
+        heard = []
+        with tda.kernel_work_listener(lambda *a: heard.append(a)):
+            out = tda.paged_decode_attention(q, pages, pages, nk, nk, 0,
+                                             lens, table, scale=d ** -0.5)
+        assert out.shape == (b, hq, d)
+    live = mb * bs
+    assert heard == [("paged_decode_attention",
+                      4 * (b * live + b) * hq * d,
+                      2 * b * live * hkv * d * 2
+                      + (2 * b * hq * d + 2 * b * hkv * d) * 2
+                      + 4 * b + 4 * b * mb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float8_e4m3fn"])
+@pytest.mark.parametrize("group", ["g48_d128", "g71_d64"])
+def test_cuda_kernel_at_wide_groups_matches_twin(group, dtype):
+    """On the card: the paged kernel at G 48 / D 128 and G 71 / D 64 over
+    one KV head (chip_smoke.wide_kernel_inputs: phase 27 (a)'s batch, B 8,
+    lens 37-2000) over bf16 (the tensor cores), fp32 and scaled fp8 pages
+    (the CUDA cores) against its twin, in one launch: one bf16 ulp of the
+    twin's largest output for a bf16 output, 1e-4 for fp32; every merge
+    counter (one per row and chunk) back at 0."""
+    _skip_without_card()
+    from test_torch_decode_attention import _chip_smoke
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    x, kw = cs.wide_kernel_inputs(
+        group, dtype, dev, torch.Generator(device=dev).manual_seed(27),
+        "paged")
+    args = (x["q"], x["k_pages"], x["v_pages"], x["new_k"], x["new_v"], 0,
+            x["lens"], x["block_table"])
+    before = tda.paged_decode_attention.launches
+    got = tda.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = tda.paged_decode_attention_plain(*args, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= cs.contrib_kernel_tol(want), err
+    assert tda.paged_decode_attention.launches == before + 1
+    assert int(tda.merge_counters(tda._device_key(dev), 1).abs().sum()) == 0

@@ -167,16 +167,16 @@ def test_decode_attention_wrapper_refuses_bad_input():
 
 @pytest.mark.parametrize("name", ["phimoe", "olmoe", "granitemoe",
                                   "glm4_moe", "dots1", "gpt2", "bloom",
-                                  "gptj", "opt"])
+                                  "lfm2", "falcon_h1"])
 def test_get_family_resolves_the_ported_contrib_families_only(name):
     """``get_family`` resolves the contrib hub's five MoE families and its
     ported dense ones (gpt2, bloom, ...) to the port's own classes
     (``models/contrib``, ``contrib2``, ``contrib3``); a hub family the port
-    does not carry yet (gptj, opt: ROADMAP A14f) still raises
-    ``KeyError``."""
+    does not carry yet (the hybrid lfm2 and falcon_h1: ROADMAP A14e) still
+    raises ``KeyError``."""
     from neuronx_distributed_inference_tpu_torch.models.family import \
         get_family
-    if name in ("gptj", "opt"):
+    if name in ("lfm2", "falcon_h1"):
         with pytest.raises(KeyError, match=name):
             get_family(name)
         return
