@@ -512,8 +512,29 @@ nvcc per source, all started together), then:
      streams equal the kernels-off app's; the group within its 90 s
      budget.
 
+ 28. tensor parallelism (group ``tp``), Qwen2.5-72B widths (hidden 8192,
+     64 q / 8 KV heads of 128, intermediate 29568, vocab 152064, q/k/v
+     biases) cut to 8 of 80 layers, random weights from seed 0: (a) world
+     size 1 over NCCL in this process: phase 9's ragged engine and mix on
+     the app over the mesh (its T = 1 graphs captured with the model's
+     collectives inside) and on the same weights without a process group:
+     streams bit for bit equal, paged launches = 8 x the all-decode steps;
+     host and device ms, idle share; (b) two ranks spawned on the one card
+     over gloo (``parallel.mesh.spawn_world``, every step eager; rank 0
+     plans, rank 1 follows its dispatch records): each rank's weight bytes
+     at most 0.51 of (a)'s plus its replicated leaves, Hq 32 / Hkv 4 a
+     rank (its cache and every paged launch at group 8), launches = 8 x
+     the all-decode steps on both ranks, the streams held to (a)'s weights
+     by the teacher-deficit gate with its shifted control; the paged
+     kernel at the ranks' shapes; (c) an fp32 2-layer cut on the
+     contiguous app at tp 2 with both kernels asked for: tokens equal tp
+     1, logits within atol 2e-3 / rtol 1e-3, flash once a layer and the
+     decode kernel at every layer of every step on each rank's local heads
+     (timed there), and the int8 ring's stream holds the fp32 collectives'
+     tokens with decode logits within 3% of theirs.
+
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22, 23, 24, 26, 27 and the fp32 app of 6)
+21, 22, 23, 24, 26, 27, 28 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -525,7 +546,7 @@ pipeline: 25; contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it
 builds phase 9's app; spec: 12, 13, 22 — alone, 12 (a) builds its own
 app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
 moe_families: 20; contrib_moe: 21; lora: 23; contrib_dense: 26;
-contrib_dense2: 27) and then prints no ``ok`` line.
+contrib_dense2: 27; tp: 28) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -1659,9 +1680,10 @@ def _phase_kernels(device):
 
 def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
              prefix_caching=True, output_logits=False, num_blocks=None,
-             graphs=True, sampling=None, **tcfg_over):
+             graphs=True, sampling=None, mesh=None, **tcfg_over):
     """A paged app of ``hf``'s geometry (``tcfg_over``: more TpuConfig
-    fields, e.g. quantization or the KV cache dtype)."""
+    fields, e.g. quantization or the KV cache dtype; ``mesh``: one rank of
+    a tensor-parallel mesh, at ``tp_degree`` = its size)."""
     from neuronx_distributed_inference_tpu_torch.config import (
         OnDeviceSamplingConfig, TpuConfig)
     from neuronx_distributed_inference_tpu_torch.models.application import \
@@ -1677,9 +1699,12 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      attn_block_tkg_kernel_enabled=kernel,
                      on_device_sampling_config=(
                          OnDeviceSamplingConfig(**sampling) if sampling
-                         else None), **tcfg_over)
+                         else None),
+                     tp_degree=mesh.tp if mesh is not None else 1,
+                     **tcfg_over)
     app = PagedCausalLMApplication(None, family.config_cls(tcfg, **hf),
-                                   family, device=device, cuda_graphs=graphs)
+                                   family, device=device, cuda_graphs=graphs,
+                                   mesh=mesh)
     return app.init_cache()
 
 
@@ -1704,25 +1729,42 @@ def init_weights(app, seed):
     embeddings' norm's and the lm-head's biases N(0, 0.02); ALiBi slopes
     (zeros in the random tree, as in the reference's) are the model's
     published ones. A model without such leaves keeps
-    ``init_random_weights``' values."""
+    ``init_random_weights``' values. On a rank of a mesh each redrawn leaf
+    is drawn whole and cut to the rank's slice, so every rank holds the
+    slice of the tp = 1 draw."""
     import torch
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    from neuronx_distributed_inference_tpu_torch.modules.quantization import \
+        shard_leaf
     from neuronx_distributed_inference_tpu_torch.ops.attention import \
         alibi_slopes
     app.init_random_weights(seed)
     gen = torch.Generator(device=app.device).manual_seed(seed + 1)
+    tp, rank = ((app.mesh.tp, app.mesh.rank) if app.mesh is not None
+                else (1, 0))
+    specs = (model_base.decoder_param_specs(app.full_spec) if tp > 1
+             else {})
+
+    def redraw(leaf, ps, std):
+        if tp == 1:
+            leaf.normal_(0.0, std, generator=gen)
+            return
+        full = torch.empty(ps.shape, dtype=leaf.dtype, device=leaf.device)
+        full.normal_(0.0, std, generator=gen)
+        leaf.copy_(shard_leaf(full, ps.split, ps.parts, tp, rank))
     for stack in ("layers", "moe_layers"):
         layers = app.params.get(stack, {})
         for name in sorted(layers):
             if name == "sink":
-                layers[name].normal_(0.0, 1.0, generator=gen)
+                redraw(layers[name], specs.get(stack, {}).get(name), 1.0)
             elif name.endswith(("bias", "norm_b")):
-                layers[name].normal_(0.0, 0.02, generator=gen)
+                redraw(layers[name], specs.get(stack, {}).get(name), 0.02)
             elif name == "alibi_slopes":
                 layers[name].copy_(torch.from_numpy(alibi_slopes(
                     layers[name].shape[1])).expand_as(layers[name]))
     for name in ("final_norm_b", "embed_norm_b", "lm_head_b"):
         if name in app.params:
-            app.params[name].normal_(0.0, 0.02, generator=gen)
+            redraw(app.params[name], specs.get(name), 0.02)
     return app
 
 
@@ -2078,10 +2120,12 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
     def rnd(*shape):
         return torch.randn(shape, generator=gen_t,
                            device=device).to(torch.bfloat16)
+    # the cache's heads (a rank's own on a mesh)
+    hq, hkv = spec.gqa.num_q_heads, spec.gqa.num_kv_heads
     inputs = dict(
-        q=rnd(b, spec.num_q_heads, spec.head_dim),
-        new_k=rnd(b, spec.num_kv_heads, spec.head_dim),
-        new_v=rnd(b, spec.num_kv_heads, spec.head_dim),
+        q=rnd(b, hq, spec.head_dim),
+        new_k=rnd(b, hkv, spec.head_dim),
+        new_v=rnd(b, hkv, spec.head_dim),
         k_pages=app.cache["k"], v_pages=app.cache["v"],
         lens=torch.tensor(pos, dtype=torch.int32, device=device),
         block_table=torch.as_tensor(table, device=device))
@@ -2131,11 +2175,11 @@ def time_paged_kernel(app, table, pos, device, seed: int, layer=None):
                 "kernel_us": kernel_ms * 1e3, "bound_us": bound_ms * 1e3,
                 "kernel_eager_us": kernel_eager_ms * 1e3,
                 "splits": decode_attention.num_splits(
-                    b, spec.num_kv_heads, int(table.shape[1]), bs,
+                    b, hkv, int(table.shape[1]), bs,
                     spec.head_dim, spec.gqa.q_per_kv),
                 "plain_us": plain_ms * 1e3, "library_us": library_ms * 1e3,
                 "max_abs_err": err, "tol": tol, "kernel_shape": {
-                    "B": b, "Hq": spec.num_q_heads, "Hkv": spec.num_kv_heads,
+                    "B": b, "Hq": hq, "Hkv": hkv,
                     "D": spec.head_dim, "Bs": bs, "lens": list(pos),
                     "table_width": int(table.shape[1]), "layer": layer,
                     "window": window, "sink": sink is not None,
@@ -2165,13 +2209,37 @@ def paged_kernel_entry(t, launches, path):
             "path": path, "shape": t["report"]["kernel_shape"]}
 
 
+def contiguous_kernel_entries(times, decode_launches, flash_launches,
+                              path):
+    """The contiguous decode and flash kernels' objects of the
+    ``{"kernels": [...]}`` line from :func:`dbrx_fp32_kernels`' ``times``
+    and the launches of the run ``path`` names."""
+    out = []
+    for kind, kname, src, line, launches in (
+            ("contig", "decode_attention_stacked", "decode_attention.cu",
+             "decode_attention.py:41", decode_launches),
+            ("flash", "flash_attention", "flash_attention.cu",
+             "flash_attention.py:28", flash_launches)):
+        t = times[kind]
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "neuronx_distributed_inference_tpu_torch/csrc/" + src,
+            "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
+            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "path": path, "shape": t["shape"]})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 6-8: the contiguous path
 # ---------------------------------------------------------------------------
 
 def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                         output_logits=False, cb=False, decode_kernel=None,
-                        rolling=False, wcte=None, graphs=True, **tcfg_over):
+                        rolling=False, wcte=None, graphs=True, mesh=None,
+                        **tcfg_over):
     """``CausalLMApplication`` over the family of ``hf["model_type"]``
     (what the family's ``Tpu*ForCausalLM`` entry builds). kernels=True:
     the flash prefill kernel (``attn_kernel_enabled``) and the decode
@@ -2181,7 +2249,7 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
     cache where the window is below ``seq_len``); ``wcte``:
     ``windowed_context_encoding``; ``graphs`` False: every step eager
     (no CUDA graph captured); ``tcfg_over``: more TpuConfig fields (phase
-    23's ``lora_config``)."""
+    23's ``lora_config``); ``mesh``: one rank of a tensor-parallel mesh."""
     from neuronx_distributed_inference_tpu_torch.config import TpuConfig
     from neuronx_distributed_inference_tpu_torch.models.application import \
         CausalLMApplication
@@ -2194,9 +2262,11 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                                                     else False),
                      rolling_kv_cache=rolling, output_logits=output_logits,
                      is_continuous_batching=cb,
-                     windowed_context_encoding=wcte, **tcfg_over)
+                     windowed_context_encoding=wcte,
+                     tp_degree=mesh.tp if mesh is not None else 1,
+                     **tcfg_over)
     app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
-                              device=device, cuda_graphs=graphs)
+                              device=device, cuda_graphs=graphs, mesh=mesh)
     return app.init_cache()
 
 
@@ -8163,23 +8233,9 @@ def phase_contrib_moe(device):
     cuts = phase_contrib_fp32(device)
     for name in ("glm4_moe", "granitemoe"):
         decode_launches, flash_launches, times = cuts[name]
-        for kind, kname, src, line, launches in (
-                ("contig", "decode_attention_stacked", "decode_attention.cu",
-                 "decode_attention.py:41", decode_launches),
-                ("flash", "flash_attention", "flash_attention.cu",
-                 "flash_attention.py:28", flash_launches)):
-            t = times[kind]
-            entries.append({
-                "name": kname, "route": "cuda",
-                "source": "neuronx_distributed_inference_tpu_torch/csrc/"
-                          + src,
-                "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
-                "launches": launches, "max_abs_err": t["err"],
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"],
-                "path": f"contrib_fp32_{name}_contiguous",
-                "shape": t["shape"]})
+        entries += contiguous_kernel_entries(
+            times, decode_launches, flash_launches,
+            f"contrib_fp32_{name}_contiguous")
     return entries
 
 
@@ -8973,14 +9029,15 @@ def lora_replays(app):
     return lora, base
 
 
-def pass_profile(on_card):
-    """The passes :func:`serve_schedule` traces: 8 all-decode passes from
-    pass 24 on and 4 mixed ones from pass 8 on (none off the card)."""
+def pass_profile(on_card, decode=8, mixed=4):
+    """The passes :func:`serve_schedule` traces: ``decode`` all-decode
+    passes from pass 24 on and ``mixed`` mixed ones from pass 8 on (none
+    off the card)."""
     traced = {"mixed": 0, "decode": 0}
 
     def profile(p, expect_mixed):
-        kind, cap, start = (("mixed", 4, 8) if expect_mixed
-                            else ("decode", 8, 24))
+        kind, cap, start = (("mixed", mixed, 8) if expect_mixed
+                            else ("decode", decode, 24))
         if not on_card or p < start or traced[kind] >= cap:
             return False
         traced[kind] += 1
@@ -10728,20 +10785,9 @@ def phase_contrib_dense(device):
                 ("pythia", PYTHIA_6_9B),
                 ("bloom", bloom_cut(CONTRIB_DENSE_CHECK_LAYERS)))}
     decode_launches, flash_launches, times = cuts["pythia"]
-    for kind, kname, src, line, launches in (
-            ("contig", "decode_attention_stacked", "decode_attention.cu",
-             "decode_attention.py:41", decode_launches),
-            ("flash", "flash_attention", "flash_attention.cu",
-             "flash_attention.py:28", flash_launches)):
-        t = times[kind]
-        entries.append({
-            "name": kname, "route": "cuda",
-            "source": "neuronx_distributed_inference_tpu_torch/csrc/" + src,
-            "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
-            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "path": "contrib_dense_fp32_pythia", "shape": t["shape"]})
+    entries += contiguous_kernel_entries(times, decode_launches,
+                                         flash_launches,
+                                         "contrib_dense_fp32_pythia")
     seconds = time.perf_counter() - t0
     emit({"phase": "contrib_dense_done", "seconds": seconds,
           "budget_s": CONTRIB_DENSE_BUDGET_S})
@@ -11022,20 +11068,9 @@ def phase_contrib_dense2(device):
                     ("gpt_neo_1_3b", gpt_neo_cut(
                         CONTRIB_DENSE2_CHECK_LAYERS)))}
     decode_launches, flash_launches, times = cuts["starcoder"]
-    for kind, kname, src, line, launches in (
-            ("contig", "decode_attention_stacked", "decode_attention.cu",
-             "decode_attention.py:41", decode_launches),
-            ("flash", "flash_attention", "flash_attention.cu",
-             "flash_attention.py:28", flash_launches)):
-        t = times[kind]
-        entries.append({
-            "name": kname, "route": "cuda",
-            "source": "neuronx_distributed_inference_tpu_torch/csrc/" + src,
-            "replaces": "neuronx_distributed_inference_tpu/ops/" + line,
-            "launches": launches, "max_abs_err": t["err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "path": "contrib_dense_fp32_starcoder", "shape": t["shape"]})
+    entries += contiguous_kernel_entries(times, decode_launches,
+                                         flash_launches,
+                                         "contrib_dense_fp32_starcoder")
     seconds = time.perf_counter() - t0
     emit({"phase": "contrib_dense2_done", "seconds": seconds,
           "budget_s": CONTRIB_DENSE2_BUDGET_S})
@@ -11046,10 +11081,519 @@ def phase_contrib_dense2(device):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: tensor parallelism
+# ---------------------------------------------------------------------------
+
+# Qwen2.5-72B (HF config.json of Qwen/Qwen2.5-72B, written by hand; least
+# certain: rms_norm_eps and max_position_embeddings)
+QWEN25_72B = dict(
+    model_type="qwen2", hidden_size=8192, intermediate_size=29568,
+    num_hidden_layers=80, num_attention_heads=64, num_key_value_heads=8,
+    vocab_size=152064, rms_norm_eps=1e-6, rope_theta=1000000.0,
+    max_position_embeddings=32768, hidden_act="silu",
+    tie_word_embeddings=False)
+TP_SERVE_LAYERS = 8        # 80 -> 8: ~19 GB of bf16 weights at tp 1
+TP_CHECK_LAYERS = 2        # (c): the fp32 cut
+TP_WORLD_TIMEOUT_S = 400   # the two spawned ranks, init and join
+TP_BUDGET_S = 90
+# (c): the suite's fp32 tolerance (tests/test_llama_golden.py:63) and the
+# reference's pin of its int8-ring decode logits against the fp32
+# collective stream (tests/test_quantized_collectives.py:163)
+TOL_TP_FP32 = dict(atol=2e-3, rtol=1e-3)
+TOL_TP_RING_INT8 = 0.03
+
+
+class CollectiveSpy:
+    """Counts the model's collectives (``parallel/collectives.all_reduce``
+    and ``all_gather``, which the steps call by module attribute) by
+    whether a CUDA graph was capturing when they were made."""
+
+    def __enter__(self):
+        import torch
+        from neuronx_distributed_inference_tpu_torch.parallel import \
+            collectives as coll
+        self._coll = coll
+        self._orig = {n: getattr(coll, n) for n in ("all_reduce",
+                                                     "all_gather")}
+        self.captured = {n: 0 for n in self._orig}
+        self.eager = {n: 0 for n in self._orig}
+
+        def spy(name):
+            def call(*a, **k):
+                box = (self.captured if torch.cuda.is_available()
+                       and torch.cuda.is_current_stream_capturing()
+                       else self.eager)
+                box[name] += 1
+                return self._orig[name](*a, **k)
+            return call
+        for n in self._orig:
+            setattr(coll, n, spy(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self._coll, n, fn)
+
+
+def tp_prompts(hf, cfg):
+    import numpy as np
+    rng = np.random.default_rng(2)
+    return [rng.integers(1, hf["vocab_size"], size=n).tolist()
+            for n in cfg["lens"]]
+
+
+def tp_serve(app, prompts, cfg, new_tokens, phase, sync, profile=None,
+             snap=None):
+    """Phase 9's engine and schedule over ``app`` (``cfg``: its seq_len,
+    chunk and prompts' lens): (streams, per-pass records, TTFT, the paged
+    kernel's launches, the all-decode steps); ``snap`` (a dict) receives
+    the served cache's decode shapes while every row is live."""
+    eng = ragged_engine(app, True, cfg)
+    ad = eng.adapter
+
+    def snapshot():
+        if snap is not None and len(ad.seqs) == len(prompts) \
+                and not ad.pending_prefill_ids:
+            live = sorted(ad.seqs)
+            snap["table"] = app.kv_mgr.block_table_array(
+                live, app._bt_width_for(live))
+            snap["pos"] = [ad.seqs[s].position for s in live]
+    reset_launches([app])
+    streams, recs, ttft = serve_schedule(eng, prompts, new_tokens, sync,
+                                         profile, snapshot)
+    launches = kernel_counts([app])["paged_decode_attention"]
+    steps, _ = check_ragged_passes(phase, recs, launches,
+                                   app.spec.num_layers)
+    check_streams(phase, streams, new_tokens, app.spec.vocab_size)
+    return [list(st.tokens) for st in streams], recs, ttft, launches, steps
+
+
+def _step_logits(logits, lens):
+    """``generate``'s logits of every step as (B, V) host arrays: the
+    prefill's at each row's last prompt position, then each decode
+    step's."""
+    import numpy as np
+    first = _host(logits[0])
+    out = [first[np.arange(len(lens)), np.asarray(lens) - 1]]
+    return out + [_host(x)[:, -1] for x in logits[1:]]
+
+
+def _sync(device):
+    import torch
+    return (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+
+
+def tp_world1(hf, device, cfg, prompts, new_tokens, tmpdir):
+    """28 (a): world size 1 in this process (NCCL on the card, gloo in a
+    CPU rehearsal). Phase 9's ragged engine and mix on the app built over
+    the mesh (bf16, graphs captured by ``precompile`` with the model's
+    collectives inside) and on the same app built without a process
+    group, on the same weights: the streams equal bit for bit; the paged
+    kernel launches layers x the all-decode steps. Returns (the app
+    without a group, its streams, the paged kernel's entry at these
+    shapes or None off the card)."""
+    import os
+
+    import torch.distributed as dist
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import (
+        MeshConfig, build_mesh, initialize_distributed)
+    phase = "tp_world1"
+    on_card = device.type == "cuda"
+    sync = _sync(device)
+    ref = make_ragged_app(hf, device, "bfloat16", cfg)
+    init_weights(ref, 0)
+    warm(ref, phase + "_ref", chunk_tokens=cfg["chunk"])
+    want, _, _, ref_launches, _ = tp_serve(ref, prompts, cfg, new_tokens,
+                                           phase + "_ref", sync)
+    initialize_distributed("nccl" if on_card else "gloo",
+                           store=dist.FileStore(os.path.join(
+                               tmpdir, "world1"), 1),
+                           rank=0, world_size=1)
+    try:
+        mesh = build_mesh(MeshConfig(tp=1), device)
+        app = make_ragged_app(hf, device, "bfloat16", cfg, mesh=mesh)
+        app.params = ref.params
+        with CollectiveSpy() as spy:
+            warm(app, phase, chunk_tokens=cfg["chunk"])
+        snap = {}
+        got, recs, ttft, launches, steps = tp_serve(
+            app, prompts, cfg, new_tokens, phase, sync,
+            # 3 and 1 traced passes (each trace costs about a second)
+            pass_profile(on_card, decode=3, mixed=1), snap)
+        t = (time_paged_kernel(app, snap["table"], snap["pos"], device,
+                               seed=9) if on_card else None)
+    finally:
+        dist.destroy_process_group()
+    layers = hf["num_hidden_layers"]
+    want_launches = layers * steps if on_card else 0
+    emit({"phase": phase, "backend": mesh.backend, "tp": mesh.tp,
+          "layers": layers, "passes": len(recs),
+          "passes_by_kind": {k: sum(1 for r in recs if r["kind"] == k)
+                             for k in ("mixed", "decode", "idle")},
+          "launches": launches, "expected_launches": want_launches,
+          "launches_without_group": ref_launches,
+          "collectives_captured": spy.captured,
+          "collectives_eager": spy.eager,
+          "graphs": graph_report(app) if app.graphs is not None else None,
+          "streams_equal": got == want,
+          "host_ms_decode": pass_summary(recs, "decode"),
+          "host_ms_mixed": pass_summary(recs, "mixed"),
+          "ttft_s": [ttft.get(i) for i in range(len(prompts))]})
+    emit({"phase": phase + "_profile_decode",
+          **profile_summary(recs, "decode")})
+    emit({"phase": phase + "_profile_mixed",
+          **profile_summary(recs, "mixed")})
+    check_no_incidents(phase, app)
+    if launches != want_launches or ref_launches != launches:
+        raise AssertionError(f"{phase}: paged launches {launches} (without "
+                             f"a group {ref_launches}) != {want_launches}")
+    # every captured step holds its collectives: the embedding's sum, two
+    # row-parallel sums a layer, and the logits' gather
+    made = spy.captured if on_card else spy.eager
+    if not (made["all_reduce"] >= 1 + 2 * layers
+            and made["all_gather"] >= 1):
+        raise AssertionError(f"{phase}: collectives {made} (captured: "
+                             f"{on_card})")
+    if got != want:
+        diff = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"{phase}: stream {diff} differs from the app "
+                             "without a process group")
+    entry = None
+    if on_card:
+        emit({"phase": phase + "_kernel_timings", **t["report"],
+              "launches": launches})
+        entry = paged_kernel_entry(t, launches, phase)
+    del app
+    return ref, want, entry
+
+
+def _host(x):
+    import numpy as np
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+def tp_rank(mesh, hf, cfg, prompts, new_tokens, cut, check_cfg, ids, mask,
+            check_new):
+    """28 (b) and (c) on one spawned rank (two ranks on one card over
+    gloo, every step eager): rank 0 serves phase 9's engine and mix
+    (``cfg``, ``prompts``) over the rank's slice of ``hf`` (Qwen2.5-72B:
+    Hq 32, Hkv 4 a rank), the other follows; then the fp32 ``cut`` on the
+    contiguous app with both kernels asked for, ``generate`` of ``ids``
+    over the plain collectives, then over the int8 ring fed the plain
+    stream's tokens (teacher forcing: both streams' logits at the same
+    inputs). Returns each rank's numbers (rank 0's with the streams, each
+    step's (B, V) logits and, on the card, the kernels' timings). Rank 0
+    times the paged kernel while the other rank waits between two
+    barriers, its card idle."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from neuronx_distributed_inference_tpu_torch.config import \
+        CollectiveConfig
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    lead = mesh.rank == 0
+    out = {"rank": mesh.rank}
+    app = make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
+                          graphs=False)
+    init_weights(app, 0)
+    specs = model_base.decoder_param_specs(app.full_spec)
+    repl = 0
+    for key, node in specs.items():
+        for name, ps in (node.items() if isinstance(node, dict)
+                         else [(None, node)]):
+            if ps.split is None:
+                repl += param_bytes(app.params[key][name] if name
+                                    else app.params[key])
+    out.update(weight_bytes=param_bytes(app.params), replicated_bytes=repl,
+               heads=[app.spec.gqa.num_q_heads, app.spec.gqa.num_kv_heads],
+               cache_kv_heads=int(app.cache["k"].shape[3]))
+    if lead:
+        snap = {}
+        with PagedArgsSpy() as spy:
+            streams, recs, ttft, launches, steps = tp_serve(
+                app, prompts, cfg, new_tokens, "tp_two_ranks", _sync(dev),
+                snap=snap)
+        app.stop_followers()
+        # the follower's card falls idle before the timing (barrier 1) and
+        # stays so until it ends (barrier 2)
+        dist.barrier(group=mesh.group)
+        out.update(streams=streams, launches=launches, steps=steps,
+                   groups=sorted(spy.groups),
+                   passes_by_kind={k: sum(1 for r in recs if r["kind"] == k)
+                                   for k in ("mixed", "decode", "idle")},
+                   host_ms_decode=pass_summary(recs, "decode"),
+                   host_ms_mixed=pass_summary(recs, "mixed"),
+                   ttft_s=[ttft.get(i) for i in range(len(prompts))],
+                   dispatch=dict(app.dispatch_stats))
+        if on_card:
+            out["kernel"] = time_paged_kernel(app, snap["table"],
+                                              snap["pos"], dev, seed=9)
+        dist.barrier(group=mesh.group)
+    else:
+        reset_launches([app])
+        app.follow()
+        out["launches"] = kernel_counts([app])["paged_decode_attention"]
+        if on_card:
+            torch.cuda.synchronize(dev)
+        dist.barrier(group=mesh.group)
+        dist.barrier(group=mesh.group)
+    del app
+    if on_card:
+        free_card()
+    lens = [int(n) for n in mask.sum(axis=1)]
+    with fp32_exact():
+        capp = make_contiguous_app(cut, dev, "float32", batch=len(lens),
+                                   seq_len=check_cfg["seq_len"],
+                                   decode_kernel=True, output_logits=True,
+                                   graphs=False, mesh=mesh)
+        init_weights(capp, 0)
+        reset_launches()
+        with ContiguousArgsSpy() as cspy, FlashShapes() as flash:
+            if lead:
+                r = capp.generate(ids, attention_mask=mask,
+                                  max_new_tokens=check_new,
+                                  return_logits=True)
+                capp.stop_followers()
+            else:
+                capp.follow()
+        out["fp32_counts"] = kernel_counts()
+        qapp = make_contiguous_app(
+            cut, dev, "float32", batch=len(lens),
+            seq_len=check_cfg["seq_len"], decode_kernel=True,
+            output_logits=True, graphs=False, mesh=mesh,
+            collective_config=CollectiveConfig(dtype="int8"))
+        qapp.params = capp.params
+        if lead:
+            toks = np.asarray(r["generated"])
+            q = qapp.generate(ids, attention_mask=mask,
+                              max_new_tokens=check_new, return_logits=True,
+                              teacher_tokens=toks[:, :-1])
+            qapp.stop_followers()
+            out.update(fp32_tokens=toks,
+                       fp32_logits=_step_logits(r["logits"], lens),
+                       int8_logits=_step_logits(q["logits"], lens),
+                       flash_calls=[[list(c[0]), list(c[1])]
+                                    for c in flash.calls])
+            if on_card:
+                spec = capp.spec
+                out["fp32_times"] = dbrx_fp32_kernels(
+                    dev, cspy.ints, flash.calls,
+                    [n + check_new - 2 for n in lens],
+                    dict(scale=spec.scale, window=spec.sliding_window,
+                         soft_cap=spec.attn_soft_cap), phase="tp_fp32_cut")
+        else:
+            qapp.follow()
+    return out
+
+
+def tp_two_ranks_check(ref, hf, cfg, prompts, want_a, ranks):
+    """28 (b)'s gates on the ranks' numbers: each rank's weight bytes at
+    most 0.51 of (a)'s plus its replicated leaves, half of the heads a
+    rank (its cache, and every paged launch at the model's group),
+    launches = layers x the all-decode steps on both ranks, the streams
+    held to (a)'s weights by the teacher-deficit gate (a contiguous app on
+    (a)'s weights fed each stream) with its shifted control. Returns the
+    paged kernel's entry at the ranks' shapes (None off the card)."""
+    phase = "tp_two_ranks"
+    on_card = ref.device.type == "cuda"
+    lead = ranks[0]
+    layers = ref.spec.num_layers
+    g = ref.spec.gqa
+    heads = [g.num_q_heads // len(ranks), g.num_kv_heads // len(ranks)]
+    a_bytes = param_bytes(ref.params)
+    want_launches = layers * lead["steps"] if on_card else 0
+    emit({"phase": phase, "backend": "gloo", "tp": len(ranks),
+          "layers": layers, "weight_gb_tp1": a_bytes / 1e9,
+          "weight_gb_ranks": [r["weight_bytes"] / 1e9 for r in ranks],
+          "replicated_gb_ranks": [r["replicated_bytes"] / 1e9
+                                  for r in ranks],
+          "heads_ranks": [r["heads"] for r in ranks],
+          "cache_kv_heads": [r["cache_kv_heads"] for r in ranks],
+          "launches_ranks": [r["launches"] for r in ranks],
+          "expected_launches": want_launches, "groups": lead["groups"],
+          "passes_by_kind": lead["passes_by_kind"],
+          "host_ms_decode": lead["host_ms_decode"],
+          "host_ms_mixed": lead["host_ms_mixed"],
+          "ttft_s": lead["ttft_s"], "dispatch_records":
+          lead["dispatch"]["records"], "dispatch_broadcast_us_each":
+          1e6 * lead["dispatch"]["broadcast_s"]
+          / max(lead["dispatch"]["records"], 1),
+          "streams_equal_world1": lead["streams"] == want_a})
+    for r in ranks:
+        if r["weight_bytes"] > 0.51 * a_bytes + r["replicated_bytes"]:
+            raise AssertionError(f"{phase}: rank {r['rank']} holds "
+                                 f"{r['weight_bytes']} weight bytes of "
+                                 f"{a_bytes}")
+        if r["heads"] != heads or r["cache_kv_heads"] != heads[1]:
+            raise AssertionError(f"{phase}: rank {r['rank']} heads "
+                                 f"{r['heads']}, cache {r['cache_kv_heads']}")
+        if r["launches"] != want_launches:
+            raise AssertionError(f"{phase}: rank {r['rank']} launched the "
+                                 f"paged kernel {r['launches']} times, "
+                                 f"want {want_launches}")
+    if lead["groups"] != [g.q_per_kv]:
+        raise AssertionError(f"{phase}: paged launches at groups "
+                             f"{lead['groups']}")
+    teacher = make_contiguous_app(hf, ref.device, "bfloat16", batch=8,
+                                  seq_len=cfg["seq_len"], output_logits=True)
+    teacher.params = ref.params
+    deficit_gate(phase, teacher_deficits(teacher, prompts, lead["streams"]),
+                 exact=False)
+    del teacher
+    if not on_card:
+        return None
+    t = lead["kernel"]
+    emit({"phase": phase + "_kernel_timings", **t["report"],
+          "launches": lead["launches"]})
+    return paged_kernel_entry(t, lead["launches"], phase)
+
+
+def tp_fp32_check(device, cut, check_cfg, ids, mask, check_new, ranks):
+    """28 (c)'s gates: the tp-2 fp32 cut's tokens equal the same weights'
+    at tp 1 (this process, no group) and its logits within the suite's
+    tolerance; each rank launched flash once a layer and the contiguous
+    decode kernel at every layer of every decode step, on its local heads;
+    the int8 ring's decode logits, fed the fp32 collectives' tokens, within
+    the reference's pin of theirs (3% of the largest logit) and the same
+    greedy choice but at a near-tie: an fp32 top-2 gap within twice the
+    ring's largest deviation at that row and step (printed). Twice,
+    because a flip needs the two tokens' logits to cross, and each may
+    move by up to that deviation, the one up and the other down: the ring
+    alone flips gaps up to 2x, and no wider. Returns the decode and flash
+    kernels' entries at the ranks' shapes (none off the card)."""
+    import numpy as np
+    phase = "tp_fp32_cut"
+    on_card = device.type == "cuda"
+    lead = ranks[0]
+    layers = cut["num_hidden_layers"]
+    with fp32_exact():
+        one = make_contiguous_app(cut, device, "float32", batch=len(ids),
+                                  seq_len=check_cfg["seq_len"],
+                                  decode_kernel=True, output_logits=True,
+                                  graphs=False)
+        init_weights(one, 0)
+        r1 = one.generate(ids, attention_mask=mask, max_new_tokens=check_new,
+                          return_logits=True)
+        heads = [one.spec.gqa.num_q_heads // len(ranks),
+                 one.spec.gqa.num_kv_heads // len(ranks)]
+    del one
+    if on_card:
+        free_card()
+    want_counts = {"paged_decode_attention": 0,
+                   "decode_attention_stacked": (layers * (check_new - 1)
+                                                if on_card else 0),
+                   "flash_attention": layers if on_card else 0}
+    got_t, want_t = lead["fp32_tokens"], np.asarray(r1["generated"])
+    lens = mask.sum(axis=1)
+    excess = max(float(np.max(np.abs(a - b) - TOL_TP_FP32["rtol"]
+                              * np.abs(b)))
+                 for a, b in zip(lead["fp32_logits"],
+                                 _step_logits(r1["logits"], lens)))
+    ring, flips = [], []
+    for j, (a, b) in enumerate(zip(lead["int8_logits"][1:],
+                                   lead["fp32_logits"][1:]), 1):
+        ring.append(float(np.abs(a - b).max() / np.abs(b).max()))
+        for i in np.nonzero(a.argmax(-1) != b.argmax(-1))[0]:
+            top2 = np.sort(b[i])[-2:]
+            dev = float(np.abs(a[i] - b[i]).max())
+            flips.append((int(i), j, float(top2[1] - top2[0]), dev))
+    emit({"phase": phase, "tp": len(ranks), "layers": layers,
+          "counts_ranks": [r["fp32_counts"] for r in ranks],
+          "expected_counts": want_counts,
+          "flash_calls": lead["flash_calls"][:1],
+          "tokens_equal_tp1": bool((got_t == want_t).all()),
+          "max_logit_excess_over_rtol": excess, "tol": TOL_TP_FP32,
+          "int8_decode_rel": ring, "int8_tol": TOL_TP_RING_INT8,
+          "int8_argmax_flips": flips})
+    for r in ranks:
+        if r["fp32_counts"] != want_counts:
+            raise AssertionError(f"{phase}: rank {r['rank']} launches "
+                                 f"{r['fp32_counts']} != {want_counts}")
+    if on_card:
+        q_shape, k_shape = lead["flash_calls"][0]
+        if [q_shape[2], k_shape[2]] != heads:
+            raise AssertionError(f"{phase}: flash at {q_shape} / {k_shape}, "
+                                 f"want heads {heads}")
+    if not (got_t == want_t).all():
+        raise AssertionError(f"{phase}: tokens at tp 2 differ from tp 1")
+    if not excess <= TOL_TP_FP32["atol"]:
+        raise AssertionError(f"{phase}: logits off tp 1 by {excess} over "
+                             "the relative tolerance")
+    if max(ring) >= TOL_TP_RING_INT8:
+        raise AssertionError(f"{phase}: int8 ring decode logits {ring}")
+    far = [f for f in flips if not f[2] <= 2 * f[3]]
+    if far:
+        raise AssertionError(f"{phase}: int8 ring parts from greedy beyond "
+                             f"a near-tie: {far[:4]}")
+    if not on_card:
+        return []
+    counts = lead["fp32_counts"]
+    return contiguous_kernel_entries(
+        lead["fp32_times"], counts["decode_attention_stacked"],
+        counts["flash_attention"], phase)
+
+
+def phase_tp(device, hf=None, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
+             cut=None, check_cfg=DENSE_CHECK, check_new=DENSE_CHECK_TOKENS):
+    """Group ``tp`` (phase 28 (a)-(c)); returns its kernels-line entries:
+    the paged kernel at (a)'s shapes (world size 1) and at (b)'s per-rank
+    shapes, each with its run's launches, and the contiguous decode and
+    flash kernels at (c)'s per-rank shapes with (c)'s launches. ``hf``,
+    ``cut`` (default: Qwen2.5-72B at TP_SERVE_LAYERS and TP_CHECK_LAYERS),
+    ``cfg``, ``check_cfg`` and the token counts let a CPU rehearsal run
+    it at tiny widths."""
+    import tempfile
+
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import \
+        spawn_world
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    if on_card:
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+    hf = hf or dict(QWEN25_72B, num_hidden_layers=TP_SERVE_LAYERS)
+    cut = cut or dict(QWEN25_72B, num_hidden_layers=TP_CHECK_LAYERS)
+    prompts = tp_prompts(hf, cfg)
+    tmpdir = tempfile.mkdtemp(prefix="nxdi-tp-")
+    ref, want_a, entry_a = tp_world1(hf, device, cfg, prompts, new_tokens,
+                                     tmpdir)
+    if on_card:
+        memory_note("tp_world1")
+    ids, mask = prompts_of(check_cfg["lens"], cut["vocab_size"], seed=28)
+    t_spawn = time.perf_counter()
+    # both ranks on this process's card (or the CPU in a rehearsal)
+    rank_dev = f"cuda:{device.index or 0}" if on_card else "cpu"
+    ranks = spawn_world(tp_rank, 2, "gloo", rank_dev, tmpdir,
+                        TP_WORLD_TIMEOUT_S,
+                        (hf, cfg, prompts, new_tokens, cut, check_cfg, ids,
+                         mask, check_new))
+    emit({"phase": "tp_world2_seconds",
+          "seconds": time.perf_counter() - t_spawn})
+    entry_b = tp_two_ranks_check(ref, hf, cfg, prompts, want_a, ranks)
+    del ref
+    if on_card:
+        free_card()
+    entries = [e for e in (entry_a, entry_b) if e is not None]
+    entries += tp_fp32_check(device, cut, check_cfg, ids, mask, check_new,
+                             ranks)
+    if on_card:
+        memory_note("tp")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "tp_done", "seconds": seconds, "budget_s": TP_BUDGET_S})
+    if on_card and seconds > TP_BUDGET_S:
+        raise AssertionError(f"tp group took {seconds:.1f} s, over its "
+                             f"budget of {TP_BUDGET_S} s")
+    return entries
+
+
 GROUPS = ("kernels", "paged", "pipeline", "contig", "ragged", "tier",
           "spec", "moe", "oss", "long", "mla", "quant", "dense",
           "moe_families", "contrib_moe", "lora", "contrib_dense",
-          "contrib_dense2")
+          "contrib_dense2", "tp")
 
 
 def main(argv=None) -> int:
@@ -11180,6 +11724,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_contrib_dense2(device)
         mark("contrib_dense2")
+    if "tp" in only:
+        free_card()
+        kernels += phase_tp(device)
+        mark("tp")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

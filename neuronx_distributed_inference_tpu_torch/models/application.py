@@ -83,11 +83,35 @@ nothing waits.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed; a missing
 card raises (``device.resolve_device``).
+
+Tensor parallelism (``mesh=``, reference ``mesh=`` :57-67 and
+``_mesh_ctx`` :366-371): one process a rank (``parallel/mesh``). The app
+builds the full spec at ``tp_degree = mesh.tp`` (:attr:`full_spec`, the
+layout the converters and the JAX package's tp-N tree use) and runs on the
+rank's own spec (:attr:`spec`: local heads, MLP columns, vocabulary rows;
+``model_base.local_spec``). Every rank loads or draws the full weights and
+keeps its slice (``utils/checkpoint.device_put_params``,
+``model_base.init_params``) and makes its own cache of local heads. Host
+decisions are made once, on rank 0: the scheduler, the planner, the block
+allocator and prefix cache, the SLO tracker and the degradation
+controller run there only, and each ``_run_*`` step rank 0 makes sends its
+record (the method and its inputs: one frame of a header and the host
+arrays, and the device tensors device to device; ``parallel/dispatch``)
+to the other ranks before it runs. The other ranks run :meth:`~CausalLMApplication.follow`,
+which makes the same call with the same inputs, until rank 0's
+:meth:`~CausalLMApplication.stop_followers`; every rank samples the same
+token from the gathered logits (greedy, the seeded coupled draw, or the
+app's generator, seeded from ``TpuConfig.seed`` alike on every rank and
+drawn in the same order). A gloo group cannot be captured into CUDA
+graphs (the app refuses ``cuda_graphs=True`` with one on the card); an
+NCCL group's collectives are captured with the T = 1 steps, the
+communicator made by one collective before the first capture.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Type
@@ -104,12 +128,12 @@ from ..modules.block_kv_cache import (BlockKVCacheManager, BlockKVSpec,
                                       slots_from_table)
 from ..ops import decode_attention
 from ..ops.sampling import prepare_sampling_params, sample
+from ..parallel import collectives, dispatch
 from ..resilience.errors import CapacityError, ConfigurationError
 from ..telemetry import get_registry
 from ..telemetry import metrics as tmetrics
 from ..telemetry import trace as trace_mod
 from ..utils import checkpoint as ckpt
-from ..utils.jax_params import tensor_from_numpy
 from . import model_base
 from .cuda_graphs import StepGraphs
 from .family import DecoderFamily, family_for_config
@@ -154,22 +178,74 @@ def _unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _dispatched(fn):
+    """A device step of the app. On rank 0 of a mesh over several ranks
+    the outermost call first sends its record (name and inputs,
+    ``parallel/dispatch``) to the other ranks, which run the same call in
+    :meth:`follow`."""
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        m = self.mesh
+        if (m is not None and m.tp > 1 and m.rank == 0
+                and not self._dispatch_depth):
+            t0 = time.perf_counter()
+            self._channel.send(fn.__name__, args, kw)
+            self.dispatch_stats["records"] += 1
+            self.dispatch_stats["broadcast_s"] += time.perf_counter() - t0
+        self._dispatch_depth += 1
+        try:
+            return fn(self, *args, **kw)
+        finally:
+            self._dispatch_depth -= 1
+    _DISPATCHED.add(fn.__name__)
+    return run
+
+
+_DISPATCHED: set = set()
+
+
 class CausalLMApplication:
-    """Contiguous-KV causal LM on one card: the cache holds
-    ``kv_cache_batch_size`` rows of ``seq_len`` slots."""
+    """Contiguous-KV causal LM on one card, or on one rank of a mesh: the
+    cache holds ``kv_cache_batch_size`` rows of ``seq_len`` slots (of the
+    rank's KV heads)."""
 
     # per-row keys of a generate() result (the repad shim slices them)
     _row_keys = ("sequences", "generated", "seq_lens")
 
     def __init__(self, model_path: Optional[str], config: InferenceConfig,
                  family: Optional[Type[DecoderFamily]] = None,
-                 device: DeviceLike = None, cuda_graphs: bool = True):
+                 device: DeviceLike = None, cuda_graphs: bool = True,
+                 mesh=None):
+        if mesh is not None and (device is None or torch.device(
+                device) == torch.device(mesh.device.type)):
+            device = mesh.device          # "cuda": the rank's own card
         self.device = resolve_device(device)
         self.model_path = model_path
         self.config = config
         self.tpu_config: TpuConfig = config.tpu_config
         self.family = family or family_for_config(config)
-        self.spec = self.family.build_spec(config, tp_degree=1)
+        self.mesh = mesh
+        if mesh is None and self.tpu_config.tp_degree > 1:
+            raise ConfigurationError(
+                f"tp_degree={self.tpu_config.tp_degree} needs mesh= "
+                "(parallel.mesh.mesh_from_config on every rank)")
+        if mesh is not None:
+            if self.device != mesh.device:
+                raise ConfigurationError(
+                    f"device {self.device} is not the mesh's {mesh.device}")
+            if (cuda_graphs and self.device.type == "cuda"
+                    and mesh.backend != "nccl"):
+                raise ConfigurationError(
+                    f"a {mesh.backend} group cannot be captured into CUDA "
+                    "graphs: pass cuda_graphs=False, or use an NCCL group")
+        # the full layout at the mesh's degree (the rank's spec follows it)
+        self.full_spec = self.family.build_spec(
+            config, tp_degree=mesh.tp if mesh is not None else 1)
+        # rank 0's dispatch records (tp > 1): count and host seconds
+        self.dispatch_stats = {"records": 0, "broadcast_s": 0.0}
+        self._channel = (dispatch.Channel(mesh)
+                         if mesh is not None and mesh.tp > 1 else None)
+        self._dispatch_depth = 0
         # T = 1 steps replay captured CUDA graphs on the card
         # (``cuda_graphs=False``: every step eager)
         self.graphs: Optional[StepGraphs] = (
@@ -198,6 +274,36 @@ class CausalLMApplication:
             self.tpu_config)
         self.batch_buckets = autobucketing.batch_buckets(self.tpu_config)
         self._inv_freq = model_base.rope_inv_freq(self.spec, self.device)
+
+    @property
+    def full_spec(self):
+        """The spec of the whole model, laid out for the mesh's degree: the
+        layout the converters and the weights' draw use, and the one place
+        a caller replaces the model's spec. :attr:`spec` is derived from
+        it."""
+        return self._full_spec
+
+    @full_spec.setter
+    def full_spec(self, spec):
+        self._full_spec = spec
+        self._spec = (spec if self.mesh is None
+                      else model_base.local_spec(spec, self.mesh))
+
+    @property
+    def spec(self):
+        """The spec each step runs on: :attr:`full_spec` without a mesh,
+        the rank's own cut of it (``model_base.local_spec``) with one.
+        Assigning it assigns :attr:`full_spec`, which a rank's cut cannot
+        stand for: over a mesh that raises."""
+        return self._spec
+
+    @spec.setter
+    def spec(self, spec):
+        if self.mesh is not None:
+            raise ConfigurationError(
+                "over a mesh replace full_spec (the rank's spec is cut "
+                "from it)")
+        self.full_spec = spec
 
     # -- tensors the captured graphs read ------------------------------------
     @property
@@ -384,7 +490,10 @@ class CausalLMApplication:
 
     def _reserve_graphs(self):
         """Pin the decode kernels' merge counters at the largest batch
-        bucket before the first capture."""
+        bucket before the first capture; over an NCCL mesh, make its
+        communicator first (a capture cannot)."""
+        if self.mesh is not None and self.mesh.backend == "nccl":
+            self.mesh.warm()
         if self.graphs is not None:
             self.graphs.reserve(
                 max(self.batch_buckets
@@ -394,39 +503,33 @@ class CausalLMApplication:
 
     # -- weights -----------------------------------------------------------
     def load_weights(self, model_path: Optional[str] = None):
-        """Load + convert a HF safetensors checkpoint onto the device."""
+        """Load + convert a HF safetensors checkpoint onto the device (over
+        a mesh: the rank's slice of each converted leaf)."""
         sd = ckpt.load_state_dict(model_path or self.model_path)
-        self._put_params(self.family.convert_hf_state_dict(sd, self.spec))
+        self._put_params(self.family.convert_hf_state_dict(sd,
+                                                           self.full_spec))
         return self
 
     def init_random_weights(self, seed: int = 0):
         """Synthetic weights made on the device from ``seed``, each leaf in
         its spec's dtype (an MoE router in fp32), factorized and quantized
-        on the device as the config asks (``model_base.init_params``)."""
-        self.params = model_base.init_params(self.spec, seed, self.device)
+        on the device as the config asks (``model_base.init_params``);
+        over a mesh each rank keeps its slice of every full leaf."""
+        self.params = model_base.init_params(self.full_spec, seed,
+                                             self.device, self.mesh)
         return self
 
     def _put_params(self, host: Dict[str, Any]):
-        """A host tree onto the device in the reference's order (reference
-        :127-151): fuse q/k/v, stack the zero adapter factors a
-        checkpoint never carries (``stack_lora_host``, :135), cast each
-        leaf to its spec's dtype (the
-        model dtype, fp32 for an MoE router; the reference casts every
-        leaf to the model dtype, ROADMAP C), then factorize and quantize
-        on the device, leaf by leaf (``model_base.convert_leaf``).
-        Quantized leaf-groups keep their own dtypes."""
+        """A host tree (laid out for :attr:`full_spec`) onto the device in
+        the reference's order (reference :127-151): fuse q/k/v, stack the
+        zero adapter factors a checkpoint never carries
+        (``stack_lora_host``, :135), then ``utils/checkpoint.
+        device_put_params`` (cast, factorize and quantize leaf by leaf;
+        over a mesh, keep the rank's slice)."""
         host = model_base.fuse_qkv_host(host)
-        host = model_base.stack_lora_host(self.spec, host)
-        specs = model_base.decoder_param_specs(self.spec)
-
-        def put(node, spec, name):
-            if isinstance(node, dict):
-                return {k: put(v, (spec or {}).get(k), k)
-                        for k, v in node.items()}
-            dt = getattr(spec, "dtype", self.spec.dtype)
-            t = tensor_from_numpy(np.asarray(node), self.device).to(dt)
-            return model_base.convert_leaf(self.spec, name, t)
-        self.params = put(host, specs, "")
+        host = model_base.stack_lora_host(self.full_spec, host)
+        self.params = ckpt.device_put_params(host, self.full_spec,
+                                             self.device, self.mesh)
 
     def save_quantized_state_dict(self, path: str):
         """Save the quantized (and factorized) weights flat, under the
@@ -436,6 +539,10 @@ class CausalLMApplication:
         same files."""
         if self.spec.quant is None:
             raise ValueError("config.tpu_config.quantized must be set")
+        if self.mesh is not None and self.mesh.tp > 1:
+            raise ConfigurationError(
+                "a rank holds a slice of the tree: save the quantized "
+                "checkpoint from a tp = 1 app (ROADMAP A13b)")
         if self.params is None:
             raise RuntimeError("load_weights() first")
         ckpt.save_state_dict_safetensors(_flatten_tree(self.params), path)
@@ -446,8 +553,12 @@ class CausalLMApplication:
         or the JAX application's) onto the device, every tensor in its
         stored dtype (reference :169-176)."""
         sd = ckpt.load_state_dict(path, keep_dtypes=True)
-        self.params = _unflatten_tree({name: t.to(self.device)
-                                       for name, t in sd.items()})
+        params = _unflatten_tree({name: t.to(self.device)
+                                  for name, t in sd.items()})
+        if self.mesh is not None:
+            params = model_base.shard_params(self.full_spec, params,
+                                             self.mesh)
+        self.params = params
         return self
 
     # -- cache -------------------------------------------------------------
@@ -554,6 +665,7 @@ class CausalLMApplication:
         return inputs
 
     # -- device steps ------------------------------------------------------
+    @_dispatched
     def _run_prefill(self, input_ids, seq_lens, seq_ids=None,
                      sampling_params=None, adapter_ids=None):
         """Prefill of a (B, bucket) right-padded window
@@ -578,6 +690,7 @@ class CausalLMApplication:
         self._tel_end("prefill", t0, out, b)
         return out
 
+    @_dispatched
     def _run_prefill_windowed(self, input_ids, seq_lens, window: int,
                               sampling_params=None):
         """Windowed context encoding (reference application.py:557-599): a
@@ -619,6 +732,7 @@ class CausalLMApplication:
         self._tel_end("prefill", t0, out, b)
         return out
 
+    @_dispatched
     def _run_decode(self, input_ids, position_ids, seq_ids=None,
                     sampling_params=None, adapter_ids=None):
         """One decode step (``model_base.token_generation_step``):
@@ -630,6 +744,7 @@ class CausalLMApplication:
                                  self._kv_bucket(needed), sampling_params,
                                  adapter_ids)
 
+    @_dispatched
     def _decode_call(self, input_ids, position_ids, seq_ids, kv_view,
                      sampling_params=None, adapter_ids=None):
         """The decode step at an explicit ``kv_view`` bucket (the warm-up
@@ -680,6 +795,7 @@ class CausalLMApplication:
                 and model_base.use_contiguous_decode_kernel(
                     self.spec, t, b, self.cache, True))
 
+    @_dispatched
     def _run_decode_loop(self, first_tokens, positions, num_steps: int,
                          seq_ids=None, sampling_params=None,
                          adapter_ids=None):
@@ -1006,6 +1122,32 @@ class CausalLMApplication:
         ``slot`` (reference :1077-1080)."""
         return self.write_lora_slot(slot, self.lora_adapter_arrays(path))
 
+    def follow(self):
+        """The loop of a rank > 0 of a mesh: receive each step rank 0
+        dispatches and make the same call with the same host inputs, until
+        rank 0's :meth:`stop_followers`. Set-up (weights, cache) is each
+        rank's own, made before it."""
+        m = self.mesh
+        if m is None or m.rank == 0:
+            raise ConfigurationError("follow() runs on the ranks > 0 of a "
+                                     "mesh; rank 0 plans the steps")
+        while True:
+            rec = self._channel.recv()
+            if rec is None:
+                return self
+            name, args, kw = rec
+            if name not in _DISPATCHED:
+                raise ConfigurationError(f"not a dispatched step: {name!r}")
+            getattr(self, name)(*args, **kw)
+
+    def stop_followers(self):
+        """Rank 0: end the other ranks' :meth:`follow` loops."""
+        m = self.mesh
+        if m is not None and m.tp > 1 and m.rank == 0:
+            self._channel.stop()
+        return self
+
+    @_dispatched
     def reset(self):
         """Clear the KV cache between requests (zeroed in place, so the
         captured graphs stay valid)."""
@@ -1017,17 +1159,22 @@ class CausalLMApplication:
 
 
 class PagedCausalLMApplication(CausalLMApplication):
-    """Paged-KV (block layout) causal LM with prefix caching on one card."""
+    """Paged-KV (block layout) causal LM with prefix caching on one card,
+    or on one rank of a mesh (the pages hold the rank's KV heads; the block
+    allocator and the prefix cache that rank 0 uses plan every rank's
+    writes)."""
 
     _row_keys = CausalLMApplication._row_keys + ("cached_tokens",)
 
     def __init__(self, model_path: Optional[str], config: InferenceConfig,
                  family: Optional[Type[DecoderFamily]] = None,
-                 device: DeviceLike = None, cuda_graphs: bool = True):
+                 device: DeviceLike = None, cuda_graphs: bool = True,
+                 mesh=None):
         if not config.tpu_config.is_block_kv_layout:
             raise ConfigurationError("the paged application needs "
                                      "is_block_kv_layout=True")
-        super().__init__(model_path, config, family, device, cuda_graphs)
+        super().__init__(model_path, config, family, device, cuda_graphs,
+                         mesh)
         if self.spec.mla is not None:
             # the block cache holds one head width; MLA's K and V differ
             # (the reference would fail inside its first write)
@@ -1102,6 +1249,7 @@ class PagedCausalLMApplication(CausalLMApplication):
         return self._with_aids(inputs, aids)
 
     # -- device steps ------------------------------------------------------
+    @_dispatched
     def _run_paged(self, input_ids, position_ids, slot_mapping, block_table,
                    last_idx, sampling_params=None, row_seeds=None,
                    adapter_ids=None):
@@ -1131,6 +1279,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                                "last": last_idx}, seeds, aids),
                           b, sampling_params)
 
+    @_dispatched
     def _run_ragged(self, input_ids, position_ids, slot_mapping,
                     block_table, widths, emit_modes, sampling_params=None,
                     row_seeds=None, want_hidden: bool = False,
@@ -1176,6 +1325,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                                "wid": wid, "emit": emit}, seeds, aids),
                           b, sampling_params)
 
+    @_dispatched
     def _run_paged_loop(self, first_tokens, positions, block_table,
                         num_steps: int, sampling_params=None,
                         row_seeds=None, adapter_ids=None):
@@ -1204,6 +1354,7 @@ class PagedCausalLMApplication(CausalLMApplication):
         return out
 
     # -- speculative serving steps (serving/speculation/) ------------------
+    @_dispatched
     def _run_spec_draft(self, first_tokens, positions, block_table, widths,
                         num_steps: int, sampling_params=None,
                         row_seeds=None, adapter_ids=None):
@@ -1236,6 +1387,7 @@ class PagedCausalLMApplication(CausalLMApplication):
                                "bt": block_table, "wid": wid}, seeds, aids),
                           b * num_steps, sampling_params)
 
+    @_dispatched
     def _run_spec_verify(self, input_ids, position_ids, slot_mapping,
                          block_table, widths, sampling_params=None,
                          row_seeds=None, want_hidden: bool = False,

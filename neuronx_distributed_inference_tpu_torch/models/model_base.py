@@ -16,7 +16,11 @@ the MoE block),
 ``paged_spec_draft_loop`` :2091, ``paged_spec_verify`` :2141,
 ``paged_ragged_step`` :2222, ``spec_from_config`` :2346, its cache-layout
 decisions :2513-2554; ``MLASpec`` :78, ``_mla_qkv`` :686;
-``_add_lora_specs`` :431, ``stack_lora_host`` :641).
+``_add_lora_specs`` :431, ``stack_lora_host`` :641; tensor parallelism:
+the spec fields ``vocab_parallel`` :234, ``collective_dtype`` /
+``collective_block`` :285-286, ``param_shardings`` :661 (here each
+``ParamSpec``'s ``split`` and :func:`shard_params`), ``_row_parallel_out``
+:869-885, ``_embed`` :1656, ``_lm_head`` :1671).
 
 The MLP slot is a dense GLU MLP or a routed mixture of experts
 (``spec.moe``, ``modules/moe.py``). A mixed stack (DeepSeek's
@@ -101,6 +105,24 @@ tree converts by renaming (``utils/jax_params.py``). The JAX ``lax.scan``
 loops (over layers, over decode steps) are Python loops; the KV cache is
 written IN PLACE (the JAX graphs donated it).
 
+Tensor parallelism (SPMD, one process a rank): the application keeps
+the full spec (the layout the converters and the JAX package's tp-N tree
+use) and runs each step on the rank's own spec (:func:`local_spec`): its
+``num_q_heads / tp`` and ``num_kv_heads / tp`` heads, ``intermediate_size
+/ tp`` MLP columns and ``padded_vocab / tp`` vocabulary rows, with the
+:class:`~..parallel.mesh.Mesh` whose group runs the collectives. Every
+kernel gate and cache then reads local heads. Where GSPMD puts the
+JAX package's collectives, the steps call ``parallel/collectives``: the
+row-parallel o_proj and down_proj outputs are summed over the group
+(``_row_out``; the quantized ring in the decode and paged phases under
+``collective_dtype``), their biases added once after the sum; a parallel
+block sums its attention and MLP outputs each where it is made, then adds
+them; the vocabulary-parallel embedding looks up the rank's rows (zero
+elsewhere) and sums; the logits are gathered over the vocabulary before
+the divide, the soft-cap and the padded-vocabulary mask; OLMo-2's
+full-width q/k norm sums its squares over the group. A spec with a mesh
+calls the collectives at any tp, one included (an identity over one rank).
+
 Attention, by phase:
 
   * ``prefill`` (contiguous): the causal flash kernel when the spec asks
@@ -146,7 +168,12 @@ from ..ops import sampling as sampling_ops
 from ..ops.normalization import layer_norm, rms_norm
 from ..ops.rope import (SUPPORTED_SCALING, RopeConfig, apply_rope,
                         compute_inv_freq, rope_cos_sin)
-from ..parallel.layers import GQASharding, ParamSpec, resolve_gqa_sharding
+from ..parallel import collectives
+from ..parallel.layers import (GQASharding, ParamSpec, column_parallel,
+                               expert_column_parallel, expert_row_parallel,
+                               replicated_param, resolve_gqa_sharding,
+                               row_parallel, row_parallel_output,
+                               vocab_parallel_embedding)
 from ..resilience.errors import ConfigurationError
 
 def xielu(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
@@ -344,6 +371,16 @@ class DecoderSpec:
     # (Persimmon)
     qk_norm_after_rope: bool = False
     qk_norm_type: str = "rms"
+    # tensor parallelism (model_base.py:234, :285-286): the embedding cut on
+    # its vocabulary (False: replicated); the quantized ring's wire dtype
+    # ("int8" / "fp8", the decode and paged phases' row-parallel sums;
+    # None: the plain all-reduce) and block
+    vocab_parallel: bool = True
+    collective_dtype: Optional[str] = None
+    collective_block: int = 32
+
+    # no mesh: one card (a rank's own spec, RankSpec, carries its mesh)
+    mesh = None
 
     @property
     def scale(self) -> float:
@@ -375,6 +412,15 @@ class DecoderSpec:
         return 0
 
 
+@dataclass(frozen=True)
+class RankSpec(DecoderSpec):
+    """One rank's own spec over a mesh (:func:`local_spec`): its heads,
+    MLP columns and vocabulary rows, and the mesh whose group runs the
+    step's collectives. ``gqa.tp`` is the degree the layout is cut for."""
+
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+
 def pad_vocab(vocab: int, tp: int = 1, multiple: int = 128) -> int:
     m = max(tp, 1) * multiple
     return -(-vocab // m) * m
@@ -393,9 +439,9 @@ def _moe_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     E, Ie = m.num_experts, m.intermediate_size
     layers: Dict[str, ParamSpec] = {
         "router": ParamSpec((L, H, E), torch.float32),
-        "expert_gate": ParamSpec((L, E, H, Ie), dt),
-        "expert_up": ParamSpec((L, E, H, Ie), dt),
-        "expert_down": ParamSpec((L, E, Ie, H), dt),
+        "expert_gate": expert_column_parallel((L, E, H, Ie), dt),
+        "expert_up": expert_column_parallel((L, E, H, Ie), dt),
+        "expert_down": expert_row_parallel((L, E, Ie, H), dt),
     }
     if m.has_router_bias:
         layers["router_bias"] = ParamSpec((L, E), torch.float32, "zeros")
@@ -445,43 +491,50 @@ def _attn_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     fused q/k/v and o projections (or the MLA projections), and the
     optional norm biases, q/k norms (per head, or full width; a per-head
     LayerNorm with its biases), biases (zeros), sandwich norms, fp32 sinks
-    and fp32 ALiBi slopes (zeros)."""
+    and fp32 ALiBi slopes (zeros). Tensor parallelism cuts the fused q/k/v
+    and its bias part by part by heads, o_proj by its input rows, the
+    full-width q/k norms, the sinks and the ALiBi slopes by heads; the
+    o_proj bias is replicated and added after the sum."""
     H, dt = spec.hidden_size, spec.dtype
     layers = {
-        "input_norm": ParamSpec((L, H), dt, "ones"),
-        "post_norm": ParamSpec((L, H), dt, "ones"),
+        "input_norm": replicated_param((L, H), dt),
+        "post_norm": replicated_param((L, H), dt),
     }
     if spec.norm_bias:
-        layers["input_norm_b"] = ParamSpec((L, H), dt, "zeros")
-        layers["post_norm_b"] = ParamSpec((L, H), dt, "zeros")
+        layers["input_norm_b"] = replicated_param((L, H), dt, "zeros")
+        layers["post_norm_b"] = replicated_param((L, H), dt, "zeros")
+    parts = (spec.q_size, spec.kv_size, spec.kv_size)
     if spec.mla is not None:
         layers.update(_mla_param_specs(spec, L))
     else:
-        qkv = spec.q_size + 2 * spec.kv_size
-        layers["qkv_proj"] = ParamSpec((L, H, qkv), dt)
-        layers["o_proj"] = ParamSpec((L, spec.q_size, H), dt)
+        layers["qkv_proj"] = column_parallel((L, H, sum(parts)), dt,
+                                             parts=parts)
+        layers["o_proj"] = row_parallel((L, spec.q_size, H), dt)
     if spec.qkv_bias:
-        layers["qkv_bias"] = ParamSpec((L, qkv), dt, "zeros")
+        layers["qkv_bias"] = column_parallel((L, sum(parts)), dt, "zeros",
+                                             parts)
     if spec.qk_norm:
-        layers["q_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
-        layers["k_norm"] = ParamSpec((L, spec.head_dim), dt, "ones")
+        layers["q_norm"] = replicated_param((L, spec.head_dim), dt)
+        layers["k_norm"] = replicated_param((L, spec.head_dim), dt)
     if spec.qk_norm_full:
-        layers["q_norm"] = ParamSpec((L, spec.q_size), dt, "ones")
-        layers["k_norm"] = ParamSpec((L, spec.kv_size), dt, "ones")
+        layers["q_norm"] = column_parallel((L, spec.q_size), dt, "ones")
+        layers["k_norm"] = column_parallel((L, spec.kv_size), dt, "ones")
     if spec.qk_norm and spec.qk_norm_type == "layernorm":
-        layers["q_norm_b"] = ParamSpec((L, spec.head_dim), dt, "zeros")
-        layers["k_norm_b"] = ParamSpec((L, spec.head_dim), dt, "zeros")
+        layers["q_norm_b"] = replicated_param((L, spec.head_dim), dt,
+                                              "zeros")
+        layers["k_norm_b"] = replicated_param((L, spec.head_dim), dt,
+                                              "zeros")
     if spec.o_bias:
-        layers["o_bias"] = ParamSpec((L, H), dt, "zeros")
+        layers["o_bias"] = replicated_param((L, H), dt, "zeros")
     if spec.sandwich_norm:
-        layers["post_attn_norm"] = ParamSpec((L, H), dt, "ones")
-        layers["post_ff_norm"] = ParamSpec((L, H), dt, "ones")
+        layers["post_attn_norm"] = replicated_param((L, H), dt)
+        layers["post_ff_norm"] = replicated_param((L, H), dt)
     if spec.attn_sink:
-        layers["sink"] = ParamSpec((L, spec.gqa.num_q_heads), torch.float32,
-                                   "zeros")
+        layers["sink"] = column_parallel((L, spec.gqa.num_q_heads),
+                                         torch.float32, "zeros")
     if spec.alibi:
-        layers["alibi_slopes"] = ParamSpec((L, spec.gqa.num_q_heads),
-                                           torch.float32, "zeros")
+        layers["alibi_slopes"] = column_parallel((L, spec.gqa.num_q_heads),
+                                                 torch.float32, "zeros")
     if spec.lora is not None and spec.mla is None:
         _add_lora_specs(spec, layers, L, {
             "q_proj": (H, spec.q_size), "k_proj": (H, spec.kv_size),
@@ -511,19 +564,21 @@ def _dense_mlp_param_specs(spec: DecoderSpec,
     ``intermediate_size`` (a plain MLP has no up: its fc1 / fc2 sit in the
     gate / down slots), their biases (zeros) under ``mlp_bias``, xIELU's
     fp32 (L, 4) [alpha_p_raw, alpha_n_raw, beta, eps] (ones), and the
-    adapter factors under LoRA (:470-474; an MoE layer takes none)."""
+    adapter factors under LoRA (:470-474; an MoE layer takes none).
+    Tensor parallelism cuts gate / up and their biases by columns and down
+    by rows; the down bias is replicated, added after the sum."""
     H, I, dt = spec.hidden_size, spec.intermediate_size, spec.dtype
-    layers = {"gate_proj": ParamSpec((L, H, I), dt),
-              "down_proj": ParamSpec((L, I, H), dt)}
+    layers = {"gate_proj": column_parallel((L, H, I), dt),
+              "down_proj": row_parallel((L, I, H), dt)}
     if spec.mlp_glu:
-        layers["up_proj"] = ParamSpec((L, H, I), dt)
+        layers["up_proj"] = column_parallel((L, H, I), dt)
     if spec.mlp_bias:
-        layers["gate_bias"] = ParamSpec((L, I), dt, "zeros")
-        layers["down_bias"] = ParamSpec((L, H), dt, "zeros")
+        layers["gate_bias"] = column_parallel((L, I), dt, "zeros")
+        layers["down_bias"] = replicated_param((L, H), dt, "zeros")
         if spec.mlp_glu:
-            layers["up_bias"] = ParamSpec((L, I), dt, "zeros")
+            layers["up_bias"] = column_parallel((L, I), dt, "zeros")
     if spec.act == "xielu":
-        layers["xielu"] = ParamSpec((L, 4), torch.float32, "ones")
+        layers["xielu"] = replicated_param((L, 4), torch.float32)
     if spec.lora is not None:
         dims = {"gate_proj": (H, I), "down_proj": (I, H)}
         if spec.mlp_glu:
@@ -541,18 +596,28 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     529, :579-580); the ``learned_pos`` table ``pos_embed``, BLOOM's
     ``embed_norm`` / ``embed_norm_b``; with ``medusa_heads`` M the heads'
     ``medusa_blocks`` (M, H, H), ``medusa_bias`` (M, H) and ``medusa_lm``
-    (M, H, padded vocab) (:582-587)."""
+    (M, H, padded vocab) (:582-587).
+
+    On a rank's own spec (:func:`local_spec`) the shapes are the rank's
+    slices: heads, MLP columns and, cut on the vocabulary, the embedding
+    (under ``vocab_parallel``) and the untied head. The head's bias stays
+    whole, added after the logits are gathered."""
     H, dt = spec.hidden_size, spec.dtype
-    out: Dict[str, Any] = {"embed": ParamSpec((spec.padded_vocab, H), dt)}
+    vocab = spec.padded_vocab // (spec.mesh.tp if spec.mesh is not None
+                                  else 1)
+    out: Dict[str, Any] = {
+        "embed": (vocab_parallel_embedding(vocab, H, dt)
+                  if spec.vocab_parallel
+                  else ParamSpec((spec.padded_vocab, H), dt))}
     if not spec.skip_final_norm:
-        out["final_norm"] = ParamSpec((H,), dt, "ones")
+        out["final_norm"] = replicated_param((H,), dt)
         if spec.norm_bias:
-            out["final_norm_b"] = ParamSpec((H,), dt, "zeros")
+            out["final_norm_b"] = replicated_param((H,), dt, "zeros")
     if spec.learned_pos:
         out["pos_embed"] = ParamSpec((spec.learned_pos, H), dt)
     if spec.embed_norm:
-        out["embed_norm"] = ParamSpec((H,), dt, "ones")
-        out["embed_norm_b"] = ParamSpec((H,), dt, "zeros")
+        out["embed_norm"] = replicated_param((H,), dt)
+        out["embed_norm_b"] = replicated_param((H,), dt, "zeros")
     plan = layer_plan(spec)
     kinds = {key: kind for key, _, _, kind in plan}
     for key, kind in kinds.items():
@@ -561,7 +626,7 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
         out[key].update(_dense_mlp_param_specs(spec, n) if kind == "dense"
                         else _moe_param_specs(spec, n))
     if not spec.tie_word_embeddings:
-        out["lm_head"] = ParamSpec((H, spec.padded_vocab), dt)
+        out["lm_head"] = column_parallel((H, vocab), dt)
         if spec.lm_head_bias:
             out["lm_head_b"] = ParamSpec((spec.padded_vocab,), dt, "zeros")
     if spec.medusa_heads > 0:
@@ -589,19 +654,70 @@ def convert_leaf(spec: DecoderSpec, name: str, w: torch.Tensor) -> Any:
     return tree[name]
 
 
-def init_params(spec: DecoderSpec, seed: int,
-                device: torch.device) -> Dict[str, Any]:
+def init_params(spec: DecoderSpec, seed: int, device: torch.device,
+                mesh=None) -> Dict[str, Any]:
     """Random weights made on ``device`` from one ``torch.Generator``
     seeded with ``seed`` (normal(0, 0.02) matrices, unit norms), each
     converted (:func:`convert_leaf`) as soon as it is drawn. They are not
-    the JAX package's values for the same seed."""
+    the JAX package's values for the same seed. With a ``mesh`` (``spec``
+    the full spec) every rank draws each full leaf, converts it and keeps
+    its slice, one leaf at a time: a rank's shard is the slice of the
+    tp = 1 draw wherever the tp layout pads nothing."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
 
     def build(node, name):
         if isinstance(node, ParamSpec):
-            return convert_leaf(spec, name, node.initializer(gen, device))
+            leaf = convert_leaf(spec, name, node.initializer(gen, device))
+            return quant_mod.shard_leaf(leaf, node.split, node.parts, tp,
+                                        rank)
         return {k: build(v, k) for k, v in sorted(node.items())}
     return build(decoder_param_specs(spec), "")
+
+
+def _leaf_group(node) -> bool:
+    return isinstance(node, dict) and ("qweight" in node or "lr_u" in node)
+
+
+def shard_params(spec: DecoderSpec, params: Dict[str, Any],
+                 mesh) -> Dict[str, Any]:
+    """Rank ``mesh.rank``'s slice of every leaf of a converted tree laid
+    out for the full ``spec`` (the counterpart's ``param_shardings`` :661
+    with ``device_put``): each leaf cut on its ``ParamSpec.split``, a
+    quantized or low-rank leaf-group by ``quantization.shard_leaf``."""
+    def walk(node, ps):
+        if isinstance(node, dict) and not _leaf_group(node):
+            return {k: walk(v, (ps or {}).get(k)) for k, v in node.items()}
+        if not isinstance(ps, ParamSpec):
+            return node
+        return quant_mod.shard_leaf(node, ps.split, ps.parts, mesh.tp,
+                                    mesh.rank)
+    return walk(params, decoder_param_specs(spec))
+
+
+def local_spec(spec: DecoderSpec, mesh) -> RankSpec:
+    """A rank's own spec: ``spec`` (laid out for ``mesh.tp``) with its
+    ``num_q_heads / tp`` and ``num_kv_heads / tp`` heads, its
+    ``intermediate_size / tp`` MLP columns and the mesh. Raises
+    :class:`ConfigurationError` for a layout the degree does not cut."""
+    tp, g = mesh.tp, spec.gqa
+    if g.tp != tp:
+        raise ConfigurationError(f"the spec is laid out for tp={g.tp}, "
+                                 f"the mesh has tp={tp}")
+    bad = [f"{what} {n}" for what, n in (
+        ("query heads", g.num_q_heads), ("KV heads", g.num_kv_heads),
+        ("intermediate_size", spec.intermediate_size),
+        ("padded vocabulary", spec.padded_vocab)) if n % tp]
+    if bad:
+        raise ConfigurationError(f"tp={tp} does not divide the "
+                                 + ", ".join(bad))
+    fields = {f.name: getattr(spec, f.name)
+              for f in dataclasses.fields(DecoderSpec)}
+    fields.update(
+        gqa=dataclasses.replace(g, num_q_heads=g.num_q_heads // tp,
+                                num_kv_heads=g.num_kv_heads // tp),
+        intermediate_size=spec.intermediate_size // tp)
+    return RankSpec(**fields, mesh=mesh)
 
 
 def stack_lora_host(spec: DecoderSpec, host: Dict[str, Any]) -> Dict[str, Any]:
@@ -750,8 +866,8 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
     if spec.qk_norm_full:
         # RMSNorm over the whole projection, before the head split
         # (model_base.py:998-1001)
-        q = rms_norm(q, layer_w["q_norm"], spec.rms_eps, off)
-        k = rms_norm(k, layer_w["k_norm"], spec.rms_eps, off)
+        q = _full_width_norm(spec, q, layer_w["q_norm"])
+        k = _full_width_norm(spec, k, layer_w["k_norm"])
     if spec.qkv_clip is not None:
         # DBRX's clip_qkv (model_base.py:1002-1005)
         c = spec.qkv_clip
@@ -777,6 +893,35 @@ def _qkv(spec: DecoderSpec, h, layer_w, ai, is_local: bool = False):
                                        or not is_local):
         q = (q.float() * ai["temp"]).to(q.dtype)
     return q, k, v.reshape(b, t, g.num_kv_heads, spec.head_dim)
+
+
+def _full_width_norm(spec: DecoderSpec, x, w):
+    """OLMo-2's RMSNorm over a whole q or k projection. Over a mesh a rank
+    holds its heads' slice of it: the sum of squares is summed over the
+    group and divided by the full width."""
+    if spec.mesh is None:
+        return rms_norm(x, w, spec.rms_eps, spec.norm_offset)
+    xf = x.float()
+    ss = collectives.all_reduce((xf * xf).sum(dim=-1, keepdim=True),
+                                spec.mesh)
+    xf = xf * torch.reciprocal(torch.sqrt(ss / (x.shape[-1] * spec.mesh.tp)
+                                          + spec.rms_eps))
+    return (xf * (w.float() + spec.norm_offset)).to(x.dtype)
+
+
+def _row_out(spec: DecoderSpec, x, w, phase: str):
+    """An o_proj or down_proj product (model_base.py:869-885). Over a mesh
+    ``x`` and ``w`` are the rank's slice of the contraction and the
+    product is summed over the group: by the quantized ring in the decode
+    and paged phases under ``collective_dtype``, else (prefill, or no
+    wire dtype) by the plain all-reduce; a low-rank leaf sums its rank-r
+    intermediate."""
+    if spec.mesh is None:
+        return qlinear(x, w)
+    wire = (spec.collective_dtype if phase in ("decode", "paged")
+            else None)
+    return row_parallel_output(x, w, spec.mesh, collective_dtype=wire,
+                               collective_block=spec.collective_block)
 
 
 def _mla_qkv(spec: DecoderSpec, h, layer_w, ai):
@@ -976,7 +1121,8 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str,
     else:
         inter = act(gate)
     y = apply_lora(lo, layer_w, "down_proj", inter,
-                   qlinear(inter, layer_w["down_proj"]), adapter_ids)
+                   _row_out(spec, inter, layer_w["down_proj"], phase),
+                   adapter_ids)
     if spec.mlp_bias:
         y = y + layer_w["down_bias"]
     return y
@@ -1037,7 +1183,7 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     attn = attn.reshape(b, t, -1)
     aids = ai.get("adapter_ids")
     o = apply_lora(spec.lora, layer_w, "o_proj", attn,
-                   qlinear(attn, layer_w["o_proj"]), aids)
+                   _row_out(spec, attn, layer_w["o_proj"], phase), aids)
     if spec.o_bias:
         o = o + layer_w["o_bias"]
     if spec.sandwich_norm:
@@ -1181,8 +1327,19 @@ def _embed(spec: DecoderSpec, params, input_ids, position_ids=None):
     LayerNorm, then with ``learned_pos`` the position table's rows at
     ``position_ids`` clamped to [0, learned_pos - 1]. A learned-position
     spec without ``position_ids`` raises, where the reference adds no row
-    (the position-less calls in its speculation)."""
-    h = params["embed"][input_ids.long()]
+    (the position-less calls in its speculation). Over a mesh with
+    ``vocab_parallel`` each rank looks up the ids in its rows (zero
+    elsewhere) and the rows are summed over the group, before the scale,
+    the norm and the positions."""
+    if spec.mesh is not None and spec.vocab_parallel:
+        table = params["embed"]
+        rows = table.shape[0]
+        local = input_ids.long() - spec.mesh.rank * rows
+        hit = (local >= 0) & (local < rows)
+        h = table[local.clamp(0, rows - 1)].masked_fill(~hit[..., None], 0)
+        h = collectives.all_reduce(h, spec.mesh)
+    else:
+        h = params["embed"][input_ids.long()]
     if spec.embed_scale is not None:
         h = (h.float() * spec.embed_scale).to(h.dtype)
     if spec.embed_norm:
@@ -1201,13 +1358,18 @@ def _lm_head(spec: DecoderSpec, params, hidden):
     (:func:`_norm`, with ``final_norm_b`` where the tree has it; none with
     ``skip_final_norm``), the product, the ``lm_head_b`` bias in fp32,
     ``logits_divide``, the ``logits_soft_cap``, then the padded vocabulary
-    masked."""
+    masked. Over a mesh the product is the rank's vocabulary columns,
+    gathered over the group (in the model dtype) before the rest."""
     h = (hidden if spec.skip_final_norm else
          _norm(spec, hidden, params["final_norm"],
                params.get("final_norm_b")))
     w = (params["embed"].t() if spec.tie_word_embeddings
          else params["lm_head"])
-    logits = (h @ w).float()
+    y = h @ w
+    if spec.mesh is not None and (spec.vocab_parallel
+                                  or not spec.tie_word_embeddings):
+        y = collectives.all_gather(y, spec.mesh)
+    logits = y.float()
     if spec.lm_head_bias and "lm_head_b" in params:
         logits = logits + params["lm_head_b"].float()
     if spec.logits_divide:
@@ -1812,13 +1974,13 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 
 def _unported_knobs(tcfg: TpuConfig, act: str):
     checks = [
-        (tcfg.tp_degree > 1 or tcfg.cp_degree > 1 or tcfg.ep_degree > 1
-         or tcfg.attention_dp_degree > 1, "parallelism degrees > 1"),
-        (tcfg.sequence_parallel_enabled, "sequence parallelism"),
-        (tcfg.flash_decoding_enabled, "flash decoding"),
-        (tcfg.collective_config is not None
-         and tcfg.collective_config.dtype is not None,
-         "quantized collectives"),
+        (tcfg.cp_degree > 1 or tcfg.ep_degree > 1
+         or tcfg.attention_dp_degree > 1,
+         "context, attention-data or expert parallelism > 1 (ROADMAP "
+         "A13b)"),
+        (tcfg.sequence_parallel_enabled,
+         "sequence parallelism (ROADMAP A13b)"),
+        (tcfg.flash_decoding_enabled, "flash decoding (ROADMAP A13b)"),
         (tcfg.tensor_capture_config is not None
          or tcfg.tensor_replacement_config is not None,
          "tensor capture/replacement"),
@@ -1835,10 +1997,10 @@ MOE_DEGREES = ("moe_tp_degree", "moe_ep_degree", "moe_cte_tp_degree",
 def _moe_degree_refusals(mc) -> List[str]:
     """An MoEConfig runs on one card when each of its degrees is None or 1
     (the reference's ``MoETpuConfig`` at tp = 1); a degree above 1 needs
-    the mesh (ROADMAP A13)."""
+    the mesh (ROADMAP A13b)."""
     if mc is None:
         return []
-    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13)"
+    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13b)"
             for knob in MOE_DEGREES if (getattr(mc, knob, None) or 1) > 1]
 
 
@@ -1846,12 +2008,24 @@ def _moe_layout_refusals(tcfg: TpuConfig) -> List[str]:
     """The expert-layout knobs the reference reads once the model has an
     MoE block (model_base.py:2455-2487): it refuses every CTE / TKG degree
     but ``moe_tkg_ep_degree=1``, which turns on ``tkg_experts_local``, a
-    re-layout across a mesh (ROADMAP A13)."""
+    re-layout across a mesh (ROADMAP A13b)."""
     mc = tcfg.moe_config
     if mc is None:
         return []
-    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13)"
+    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13b)"
             for knob in MOE_DEGREES[2:] if getattr(mc, knob, None) is not None]
+
+
+def _tp_refusals(tcfg: TpuConfig, moe, mla, knobs) -> List[str]:
+    """What tensor parallelism does not serve in the port yet (each waits
+    for ROADMAP A13b): MoE blocks, MLA, multi-LoRA, speculation (fused,
+    served or Medusa)."""
+    return [f"{what} at tp > 1 (ROADMAP A13b)" for bad, what in (
+        (moe is not None, "MoE blocks"),
+        (mla is not None, "multi-head latent attention"),
+        (tcfg.lora_config is not None, "multi-LoRA"),
+        (_has_speculation(tcfg) or knobs.get("medusa_heads", 0) > 0,
+         "speculation")) if bad]
 
 
 def _has_speculation(tcfg: TpuConfig) -> bool:
@@ -1982,8 +2156,12 @@ def spec_from_config(config: InferenceConfig,
             bad.append(f"{knob} {knobs[knob]!r}")
     if knobs.get("block_style", "sequential") not in BLOCK_STYLES:
         bad.append(f"block_style {knobs['block_style']!r}")
-    if tp != 1:
-        bad.append(f"tp_degree={tp}")
+    if tp > 1:
+        bad += _tp_refusals(tcfg, moe, mla, knobs)
+    cc = tcfg.collective_config
+    wire = cc.dtype if cc is not None else None
+    if wire is not None:
+        collectives.require_supported_dtype(wire)
     if moe is not None:
         bad += [b for b in _moe_layout_refusals(tcfg) if b not in bad]
     if mla is not None and (rolling or mixed):
@@ -2079,6 +2257,9 @@ def spec_from_config(config: InferenceConfig,
         rolling_window=rolling,
         mixed_kv=mixed,
         lora=lora_spec_from_config(tcfg),
+        vocab_parallel=bool(tcfg.vocab_parallel),
+        collective_dtype=wire,
+        collective_block=int(cc.block) if cc is not None else 32,
         **knobs,
     )
 

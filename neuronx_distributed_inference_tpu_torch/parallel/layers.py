@@ -1,12 +1,24 @@
-"""Parameter declarations and GQA head layout (counterpart:
-``neuronx_distributed_inference_tpu/parallel/layers.py`` — ``ParamSpec``
-:34, ``GQASharding`` / ``resolve_gqa_sharding`` :127-196 and the host-side
-head placement helpers after them).
+"""Parameter declarations, their tensor-parallel cut and the GQA head
+layout (counterpart: ``neuronx_distributed_inference_tpu/parallel/
+layers.py`` — ``ParamSpec`` :34, ``column_parallel`` :51, ``row_parallel``
+:61, ``row_parallel_output`` :70, ``vocab_parallel_embedding`` :88, the
+expert variants :94-117, ``replicated_param`` :118, ``GQASharding`` /
+``resolve_gqa_sharding`` :127-196 and the host-side head placement helpers
+after them).
 
-The port runs on one card (tp = 1), where the head layout is the
-identity; the math is kept because the parameter layout, and so the
-conversion of checkpoints and of the JAX package's parameter trees,
-depends on it. A ``ParamSpec`` here has no sharding."""
+A ``ParamSpec``'s ``split`` is the counterpart of its ``pspec``: the axis
+(negative, from the last) that tensor parallelism cuts into ``tp``
+contiguous slices, rank r keeping slice r, or None for a replicated leaf.
+``parts`` cuts a fused axis part by part: the fused ``qkv_proj``'s global
+``[q | k | v]`` becomes ``[q_r | k_r | v_r]`` on rank r, each part cut by
+heads (a contiguous chunk of the fused axis is not a rank's heads).
+:func:`shard_tensor` makes the cut; ``modules/quantization.shard_leaf``
+extends it to quantized and low-rank leaf-groups.
+
+The head layout pads and replicates heads so the KV heads divide tp
+(the conversion of checkpoints and of the JAX package's trees places them
+so); each rank then holds ``num_q_heads / tp`` query heads and
+``num_kv_heads / tp`` KV heads."""
 
 from __future__ import annotations
 
@@ -19,11 +31,14 @@ import torch
 
 @dataclass(frozen=True)
 class ParamSpec:
-    """Shape + dtype + random-init rule of one weight tensor."""
+    """Shape + dtype + random-init rule of one weight tensor, and the axis
+    tensor parallelism cuts (``split``, with the fused ``parts``)."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"   # "normal" | "zeros" | "ones"
+    split: Optional[int] = None
+    parts: Optional[Tuple[int, ...]] = None
 
     def initializer(self, generator: Optional[torch.Generator],
                     device: torch.device, scale: float = 0.02
@@ -37,6 +52,89 @@ class ParamSpec:
             return torch.ones(self.shape, dtype=self.dtype, device=device)
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
         return out.normal_(0.0, scale, generator=generator)
+
+
+def column_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16,
+                    init: str = "normal",
+                    parts: Optional[Tuple[int, ...]] = None) -> ParamSpec:
+    """A weight (…, in, out) or bias (…, out) cut on its output dim (the
+    analog of ColumnParallelLinear, gather_output=False)."""
+    return ParamSpec(tuple(shape), dtype, init, -1, parts)
+
+
+def row_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16,
+                 init: str = "normal") -> ParamSpec:
+    """A weight (…, in, out) cut on its input dim (RowParallelLinear,
+    input_is_parallel=True); its output is summed over the group
+    (:func:`row_parallel_output`)."""
+    return ParamSpec(tuple(shape), dtype, init, -2)
+
+
+def vocab_parallel_embedding(vocab: int, hidden: int,
+                             dtype=torch.bfloat16) -> ParamSpec:
+    """The (V, H) table cut on V (ParallelEmbedding with vocab_parallel)."""
+    return ParamSpec((vocab, hidden), dtype, "normal", -2)
+
+
+def expert_column_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16
+                           ) -> ParamSpec:
+    """An expert weight (…, E, in, out): a declaration only; MoE blocks at
+    tp > 1 are refused (ROADMAP A13b), so it is never cut."""
+    return ParamSpec(tuple(shape), dtype)
+
+
+def expert_row_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16
+                        ) -> ParamSpec:
+    """An expert weight (…, E, in, out): a declaration only (A13b)."""
+    return ParamSpec(tuple(shape), dtype)
+
+
+def replicated_param(shape: Tuple[int, ...], dtype=torch.bfloat16,
+                     init: str = "ones") -> ParamSpec:
+    return ParamSpec(tuple(shape), dtype, init)
+
+
+def shard_tensor(t: torch.Tensor, axis: int,
+                 parts: Optional[Tuple[int, ...]], tp: int,
+                 rank: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``t`` along ``axis``, in a storage of its
+    own (the full tensor can go): each of ``parts`` (when they tile the
+    axis) cut into ``tp`` chunks, or the whole axis. An axis of extent 1
+    (a per-channel scale across the contraction) is replicated."""
+    n = t.shape[axis]
+    if tp == 1 or n == 1:
+        return t
+    sizes = parts if parts is not None and sum(parts) == n else (n,)
+    pieces, off = [], 0
+    for p in sizes:
+        if p % tp:
+            raise ValueError(f"axis {axis} of {tuple(t.shape)} (part of "
+                             f"{p}) does not split over tp={tp}")
+        c = p // tp
+        pieces.append(t.narrow(axis, off + rank * c, c))
+        off += p
+    out = torch.cat(pieces, dim=axis) if len(pieces) > 1 else pieces[0]
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def row_parallel_output(x: torch.Tensor, w, mesh, *,
+                        collective_dtype: Optional[str] = None,
+                        collective_block: int = 32) -> torch.Tensor:
+    """A row-parallel layer's output summed over ``mesh``'s group: ``x``
+    (…, K / tp) the rank's slice of the contraction, ``w`` its rows. With
+    ``collective_dtype`` None the plain all-reduce; "int8" / "fp8" the
+    quantized ring (``parallel/collectives``). A low-rank leaf-group
+    reduces its rank-r intermediate (x @ U) instead: its V half is
+    replicated, so the product after it needs no collective."""
+    from ..modules.quantization import qlinear
+    from . import collectives
+    if isinstance(w, dict) and "lr_u" in w:
+        t = collectives.all_reduce(qlinear(x, w["lr_u"]), mesh)
+        return qlinear(t, w["lr_v"])
+    if collective_dtype is None:
+        return collectives.all_reduce(qlinear(x, w), mesh)
+    return collectives.quantized_row_parallel(
+        x, w, mesh, dtype=collective_dtype, block=collective_block)
 
 
 @dataclass(frozen=True)

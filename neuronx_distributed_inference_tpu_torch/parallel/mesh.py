@@ -1,0 +1,316 @@
+"""The tensor-parallel mesh as ``torch.distributed`` process groups
+(counterpart: ``neuronx_distributed_inference_tpu/parallel/mesh.py`` —
+``MeshConfig`` :58, ``Topology`` :73, ``topology_from_env`` :99,
+``initialize_distributed`` :112, ``build_mesh`` :131,
+``mesh_from_config`` :152).
+
+The JAX package is a single controller: one process owns every device of
+a ``jax.sharding.Mesh`` and XLA inserts the collectives. The port runs one
+process per card (SPMD): each rank holds its slice of every sharded
+weight and cache, runs the same step on it, and the model code calls the
+collectives of :mod:`.collectives` where GSPMD inserted them. A
+:class:`Mesh` is what a rank knows of that world: its rank, the world, the
+tensor-parallel group, the group's backend and the rank's device.
+
+Only the ``tp`` axis runs in the port. Context parallelism, attention data
+parallelism and expert parallelism (``cp``, ``dp``, ``ep`` > 1) are
+refused with :class:`ConfigurationError` (ROADMAP A13b).
+
+A rank's device is ``cuda:{local_rank}`` unless the caller names another;
+the backend is NCCL unless the caller names gloo. Nothing here picks the
+CPU or gloo on its own: the tests ask for both, and so does the card's
+two-process check, which runs two ranks on one card over gloo.
+
+Launching: under ``torchrun`` each process calls
+:func:`initialize_distributed` (it reads ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and torchrun's rendezvous) and then
+:func:`mesh_from_config`; :func:`spawn_world` starts a world of processes
+from one parent over a ``FileStore`` (the tests and ``chip_smoke.py``),
+with time limits on the init and the join, so a rank that hangs fails its
+caller instead of hanging it.
+"""
+
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import queue as queue_mod
+import time
+import traceback
+import uuid
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..resilience.errors import ConfigurationError
+
+AXIS_DP = "dp"
+AXIS_CP = "cp"
+AXIS_TP = "tp"
+AXIS_EP = "ep"
+MESH_AXES = (AXIS_DP, AXIS_CP, AXIS_EP, AXIS_TP)
+
+A13B = "ROADMAP A13b"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    tp: int = 1
+    cp: int = 1
+    dp: int = 1
+    ep: int = 1
+
+
+@dataclass(frozen=True)
+class Topology:
+    """Which mesh axes cross the data-center network (the observatory
+    prices their traffic at ``dcn_gbps`` instead of ``ici_gbps``)."""
+
+    dcn_axes: Tuple[str, ...] = ()
+
+    def is_dcn(self, comm_axes) -> bool:
+        return any(a in self.dcn_axes for a in comm_axes)
+
+
+DP_OVER_DCN = Topology(dcn_axes=(AXIS_DP,))
+
+
+def topology_from_env() -> Topology:
+    """``NXDI_TPU_DCN_AXES`` (comma separated axis names; default "dp")."""
+    raw = os.environ.get("NXDI_TPU_DCN_AXES", AXIS_DP)
+    axes = tuple(a for a in (s.strip() for s in raw.split(",")) if a)
+    bad = [a for a in axes if a not in MESH_AXES]
+    if bad:
+        raise ValueError(f"NXDI_TPU_DCN_AXES names unknown mesh axes {bad}; "
+                         f"expected a subset of {MESH_AXES}")
+    return Topology(dcn_axes=axes)
+
+
+class Mesh:
+    """One rank's view of the tensor-parallel world.
+
+    ``group`` is the tp process group (``None`` = the default group),
+    ``rank`` this process's rank in it, ``tp`` its size, ``backend``
+    "nccl" or "gloo", ``device`` the rank's device. ``src`` is the global
+    rank of the group's rank 0, the host that plans every dispatch."""
+
+    def __init__(self, group, backend: str, device: torch.device,
+                 rank: int, tp: int, src: int = 0):
+        self.group = group
+        self.backend = backend
+        self.device = torch.device(device)
+        self.rank = rank
+        self.tp = tp
+        self.src = src
+
+    @property
+    def host_route(self) -> bool:
+        """True when a collective gloo cannot run on the device's tensors
+        (all-gather, send and receive of CUDA tensors) moves them through
+        the host: a gloo group over CUDA tensors, which the caller chose.
+        An NCCL group never takes it."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def warm(self) -> None:
+        """One collective on the device, so an NCCL communicator exists
+        before any CUDA graph captures the model's collectives."""
+        x = torch.ones((1,), device=self.device)
+        dist.all_reduce(x, group=self.group)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __repr__(self) -> str:
+        return (f"Mesh(tp={self.tp}, rank={self.rank}, "
+                f"backend={self.backend!r}, device={self.device})")
+
+
+def refuse_over_mesh(app, what: str) -> None:
+    """Raise :class:`ConfigurationError` naming ROADMAP A13b when ``app``
+    runs over a mesh of more than one rank (what this slice does not
+    serve at tp > 1)."""
+    m = getattr(app, "mesh", None)
+    if m is not None and m.tp > 1:
+        raise ConfigurationError(f"{what} at tp > 1 waits for {A13B}")
+
+
+def initialize_distributed(backend: str = "nccl", store=None,
+                           rank: Optional[int] = None,
+                           world_size: Optional[int] = None,
+                           timeout_s: float = 600.0) -> Tuple[int, int, int]:
+    """Join the process group once (a no-op when this process already
+    has): torchrun's env (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT``) or the given ``store`` / ``rank`` /
+    ``world_size``. Returns (rank, world size, local rank)."""
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), local
+    if rank is None:
+        rank = int(os.environ.get("RANK", "0"))
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    kw = {"timeout": datetime.timedelta(seconds=timeout_s)}
+    if store is not None:
+        kw["store"] = store
+    dist.init_process_group(backend, rank=rank, world_size=world_size, **kw)
+    return rank, world_size, local
+
+
+def _refuse_axes(cfg: MeshConfig) -> None:
+    bad = [f"{name}={v}" for name, v in (("cp", cfg.cp), ("dp", cfg.dp),
+                                         ("ep", cfg.ep)) if v > 1]
+    if bad:
+        raise ConfigurationError(
+            "the PyTorch port runs tensor parallelism only: "
+            + ", ".join(bad) + f" waits for {A13B}")
+
+
+def build_mesh(cfg: MeshConfig, device=None,
+               ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """The tp mesh over the joined process group: ``ranks`` (default
+    0 .. tp - 1; a world larger than ``tp`` leaves the rest out of it).
+    Every process of the world must call it (a new group is a collective
+    call); those outside ``ranks`` get None. ``device``: the rank's
+    device (default ``cuda:{LOCAL_RANK}``)."""
+    _refuse_axes(cfg)
+    if not dist.is_initialized():
+        raise RuntimeError("initialize_distributed() first")
+    world = dist.get_world_size()
+    ranks = list(range(cfg.tp)) if ranks is None else list(ranks)
+    if len(ranks) != cfg.tp or max(ranks) >= world:
+        raise ConfigurationError(
+            f"a tp={cfg.tp} mesh needs {cfg.tp} of the world's {world} "
+            f"ranks, got {ranks}")
+    group = (None if ranks == list(range(world))
+             else dist.new_group(ranks))
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return Mesh(group, dist.get_backend(group), device, ranks.index(me),
+                cfg.tp, src=ranks[0])
+
+
+def mesh_from_config(tpu_config, device=None) -> Mesh:
+    """The mesh of a TpuConfig's parallelism degrees: ``tp_degree`` ranks
+    of tensor parallelism; cp, dp and ep above 1 are refused (A13b)."""
+    cfg = MeshConfig(tp=max(int(tpu_config.tp_degree), 1),
+                     cp=max(int(tpu_config.cp_degree), 1),
+                     dp=max(int(tpu_config.attention_dp_degree), 1),
+                     ep=max(int(tpu_config.ep_degree), 1))
+    return build_mesh(cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# spawned worlds (tests and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+# seconds a rank that has handed back its result has to exit
+EXIT_GRACE_S = 5.0
+
+
+def _rank_device(device: str, rank: int) -> str:
+    return f"cuda:{rank}" if device == "cuda" else device
+
+
+def _rank_main(fn, rank, world, backend, device, store_path, timeout_s,
+               args, results):
+    try:
+        torch.set_num_threads(1)
+        store = dist.FileStore(store_path, world)
+        initialize_distributed(backend, store=store, rank=rank,
+                               world_size=world, timeout_s=timeout_s)
+        try:
+            mesh = build_mesh(MeshConfig(tp=world),
+                              _rank_device(device, rank))
+            results.put((rank, True, fn(mesh, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:            # the parent re-raises it
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _failures(results, world: int, rank: int, tb: str) -> str:
+    """The first failed rank's traceback and those of the ranks that fail
+    within a second after it (a rank's crash often shows first as a
+    closed connection on another rank)."""
+    fails = {rank: tb}
+    end = time.monotonic() + 1.0
+    while time.monotonic() < end:
+        try:
+            r, ok, val = results.get(timeout=0.2)
+        except queue_mod.Empty:
+            continue
+        if not ok:
+            fails[r] = val
+    return "\n".join(f"rank {r} of {world} failed:\n{t}"
+                     for r, t in sorted(fails.items()))
+
+
+def spawn_world(fn: Callable[..., Any], world: int, backend: str,
+                device: str, tmpdir: str, timeout_s: float = 120.0,
+                args: tuple = ()) -> List[Any]:
+    """Run ``fn(mesh, *args)`` on ``world`` spawned ranks and return each
+    rank's result, in rank order. ``fn`` must be importable by name (a
+    module-level function); ``device`` "cpu", "cuda" (``cuda:{rank}``) or
+    one device for every rank ("cuda:0": two ranks on one card). The ranks
+    meet over a ``FileStore`` under ``tmpdir``. Raises ``RuntimeError``
+    with the rank's traceback when a rank fails, and when the world has
+    not finished within ``timeout_s`` (init included). A rank that has
+    handed back its result gets ``EXIT_GRACE_S`` to exit (an NCCL group's
+    teardown can hang), then it is stopped; every rank is stopped before
+    this returns or raises."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store_path = os.path.join(tmpdir, f"nxdi-store-{uuid.uuid4().hex}")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, backend, device, store_path,
+                               timeout_s, args, results), daemon=True)
+             for r in range(world)]
+    out: dict = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.start()
+        while len(out) < world:
+            try:
+                rank, ok, val = results.get(timeout=0.5)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in out]
+                if dead:
+                    raise RuntimeError(
+                        f"rank {dead[0]} of {world} exited with code "
+                        f"{procs[dead[0]].exitcode} without a result")
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"the world of {world} ranks did not finish "
+                        f"within {timeout_s} s (results from ranks "
+                        f"{sorted(out)})")
+                continue
+            if not ok:
+                raise RuntimeError(_failures(results, world, rank, val))
+            out[rank] = val
+        grace = time.monotonic() + EXIT_GRACE_S
+        for p in procs:
+            p.join(timeout=max(grace - time.monotonic(), 0.0))
+        return [out[r] for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(timeout=5.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        results.close()
+        if os.path.exists(store_path):
+            os.remove(store_path)

@@ -108,6 +108,7 @@ from ..modules import autobucketing
 from ..modules.block_kv_cache import (_hash_block, cut_cached_at_unwritten,
                                       slots_from_table,
                                       slots_from_table_into)
+from ..parallel.mesh import refuse_over_mesh
 from ..resilience.errors import (AdmissionError, CapacityError,
                                  ConfigurationError, DeadlineExceeded,
                                  KVCacheStateError, SequenceStateError,
@@ -1051,6 +1052,8 @@ class ContinuousBatchingAdapter(_EngineAdapterBase):
 
     def __init__(self, app, telemetry=None, pipeline_depth: int = 0):
         cfg = app.tpu_config
+        if pipeline_depth:
+            refuse_over_mesh(app, "pipeline_depth=1")
         if not cfg.is_continuous_batching:
             raise ConfigurationError("app must be built with "
                                      "is_continuous_batching=True")
@@ -1213,6 +1216,12 @@ class PagedEngineAdapter(_EngineAdapterBase):
         if not cfg.is_block_kv_layout:
             raise ConfigurationError("app must be built with "
                                      "is_block_kv_layout=True")
+        for bad, what in ((pipeline_depth, "pipeline_depth=1"),
+                          (speculation is not None, "speculation"),
+                          (kv_spill_tier is not None, "the KV spill tier"),
+                          (lora_pool is not None, "multi-LoRA")):
+            if bad:
+                refuse_over_mesh(app, what)
         if (preemption_policy is not None
                 and preemption_policy not in PREEMPTION_POLICIES):
             raise ConfigurationError(

@@ -65,6 +65,7 @@ import asyncio
 import json
 from typing import Any, Dict, Optional, Tuple
 
+from ...parallel.mesh import refuse_over_mesh
 from ...resilience.errors import (AdmissionError, ConfigurationError,
                                   QueueOverflow, ServingError)
 from ...telemetry import get_registry
@@ -122,6 +123,8 @@ class ServingFrontend:
             raise ConfigurationError(
                 "the PyTorch port does not run a fleet router yet: "
                 "fleet= (ROADMAP queue item 12)")
+        refuse_over_mesh(getattr(engine.adapter, "app", None),
+                         "the HTTP front door")
         self.engine = engine
         self.host = host
         self.port = port

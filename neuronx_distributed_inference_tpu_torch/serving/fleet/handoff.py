@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ...parallel.mesh import refuse_over_mesh
 from ...resilience.errors import HandoffError, ServingError
 from ...resilience.faults import FAULTS as _FAULTS
 from ...resilience.preemption import Preempted
@@ -120,6 +121,7 @@ def capture_handoff(adapter, seq_id: int,
     every fully written block (positions ``[0, position)``). Raises
     :class:`HandoffError` for a pending or unknown seq_id, or a row whose
     KV is keyed to this engine, leaving the adapter unchanged."""
+    refuse_over_mesh(adapter.app, "the prefill -> decode handoff")
     record, pre = _capture(adapter, seq_id, reason="handoff", now=now)
     adapter.release([seq_id])
     rec = _get_recorder()
@@ -144,6 +146,7 @@ def admit_handoff(adapter, record: Dict[str, Any], seq_id: int,
     malformed record, a decode adapter without a spill tier, or payloads
     whose dtype or block shape differ from its cache; admission failures
     propagate typed with the decode engine rolled back."""
+    refuse_over_mesh(adapter.app, "the prefill -> decode handoff")
     tier = getattr(adapter, "_kv_tier", None)
     if tier is None:
         raise HandoffError(

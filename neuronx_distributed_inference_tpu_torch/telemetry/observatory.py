@@ -56,17 +56,29 @@ model dtype's rate; the keyword arguments override them. On the CPU or an
 unknown card ``roofline`` is None; a zero figure means an unknown chip,
 as in the reference.
 
-The multi-device census (``census_collectives``, ``mesh_comm_labels``,
-the comm leg of the roofline, ``capture_compiler_stderr``) reads XLA's
-partitioned HLO and waits for a mesh in the port: ``collectives``,
-``collective_count`` and ``collective_bytes`` are None. The single-device
-guard stays: a ``c10d`` / ``_c10d_functional`` op seen while counting
-raises ``RuntimeError``, as the reference raises on a collective in an
-unsharded graph.
+The collective census (reference ``mesh_comm_labels`` :269,
+``census_collectives`` :319, ``aggregate_census`` :361, ``_wire_factor``
+/ ``_wire_bytes`` / ``_wire_bytes_saved`` :379-412,
+``comm_roofline_seconds`` :414): over an app with a mesh every collective
+of ``parallel/collectives`` the step makes on the fake copies is heard
+(``collectives.collective_listener``) and recorded as the reference's
+census entry {"kind", "comm", "dtype", "bytes", "elems", "elem_bytes",
+"group_size"} (``comm`` the mesh axis, "tp"; the quantized ring's hops
+``collective_permute``s of s8 / f8e4m3fn codes and f32 scales). Each
+graph reports ``collectives`` (by "kind@comm@dtype"), ``collective_count``
+and ``collective_bytes``, and the roofline's comm leg prices the ring
+model's wire bytes at ``ici_gbps`` (the card's link figure: NVLink's 450
+GB/s a direction on the H100 SXM) or, on an axis the topology marks,
+``dcn_gbps``. Without a mesh they are None, and the single-device guard
+stays: a ``c10d`` / ``_c10d_functional`` op seen while counting raises
+``RuntimeError``, as the reference raises on a collective in an unsharded
+graph. ``capture_compiler_stderr`` reads XLA's log and has no
+counterpart here.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -78,9 +90,12 @@ from torch.utils.flop_counter import flop_registry
 from . import metrics as tmetrics
 from .registry import get_registry
 from ..ops import decode_attention
+from ..parallel import collectives as coll_mod
+from ..parallel.mesh import Topology, topology_from_env
 
 __all__ = ["analyze_app", "device_peaks", "DEVICE_PEAKS",
-           "GRAPH_REPORT_SCHEMA"]
+           "GRAPH_REPORT_SCHEMA", "aggregate_census", "census_collectives",
+           "comm_roofline_seconds", "mesh_comm_labels"]
 
 GRAPH_REPORT_SCHEMA = "nxdi-graph-report-v1"
 
@@ -89,7 +104,7 @@ GRAPH_REPORT_SCHEMA = "nxdi-graph-report-v1"
 #: HBM3, 989 TFLOP/s dense bf16 (tensor cores), 67 TFLOP/s fp32 (CUDA
 #: cores). ``chip_smoke.py``'s kernel bounds read them from here.
 DEVICE_PEAKS: Dict[str, Dict[str, Any]] = {
-    "H100": {"hbm_gbps": 3350.0,
+    "H100": {"hbm_gbps": 3350.0, "link_gbps": 450.0,
              "peak_tflops": {"bfloat16": 989.0, "float32": 67.0}},
 }
 
@@ -196,6 +211,94 @@ def _op_bytes(func, packet, args, kwargs, out) -> int:
         return 2 * _nbytes([v for k, v in named.items()
                             if k not in written])
     return _nbytes(list(named.values())) + _nbytes(out)
+
+
+# -- the collective census (reference :269-431) ------------------------------
+
+# torch dtype names -> the reference's HLO element type names
+_HLO_DTYPES = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+               "int8": "s8", "uint8": "u8", "float8_e4m3fn": "f8e4m3fn",
+               "int32": "s32", "int64": "s64", "bool": "pred"}
+
+
+def mesh_comm_labels(mesh) -> Dict[frozenset, str]:
+    """Replica-group signatures -> the mesh axis they ride (reference
+    :269): the port's one live axis, tp, over ranks 0 .. tp - 1."""
+    if mesh is None or mesh.tp <= 1:
+        return {}
+    return {frozenset([frozenset(range(mesh.tp))]): "tp"}
+
+
+def census_collectives(heard: List[Dict[str, Any]], mesh
+                       ) -> List[Dict[str, Any]]:
+    """The census entries (reference :319) of the collectives heard on
+    the fake copies: each op's kind, the axis it rides, its wire dtype,
+    elements, element bytes, result bytes and group size."""
+    labels = mesh_comm_labels(mesh)
+    comm = labels.get(frozenset([frozenset(range(mesh.tp))]), "other")
+    return [{"kind": e["kind"], "comm": comm,
+             "dtype": _HLO_DTYPES.get(e["dtype"], e["dtype"]),
+             "bytes": e["elems"] * e["elem_bytes"], "elems": e["elems"],
+             "elem_bytes": e["elem_bytes"], "group_size": e["group_size"]}
+            for e in heard]
+
+
+def aggregate_census(entries) -> Dict[str, Dict[str, Any]]:
+    """``{"kind@comm@dtype": {"count", "bytes"}}`` (reference :361)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for e in entries:
+        key = f"{e['kind']}@{e['comm']}@{e.get('dtype', 'f32')}"
+        slot = out.setdefault(key, {"count": 0, "bytes": 0})
+        slot["count"] += 1
+        slot["bytes"] += e["bytes"]
+    return out
+
+
+def _wire_factor(kind: str, group_size: int) -> float:
+    """How many times an op's result bytes cross the wire a device under
+    the ring model (reference :379)."""
+    g = max(group_size, 2)
+    if kind == "all_reduce":
+        return 2.0 * (g - 1) / g
+    if kind == "reduce_scatter":
+        return float(g - 1)
+    if kind == "collective_permute":
+        return 1.0
+    return (g - 1) / g
+
+
+def _wire_bytes(entry: Dict[str, Any]) -> float:
+    if "elems" in entry and "elem_bytes" in entry:
+        b = float(entry["elems"] * entry["elem_bytes"])
+    else:
+        b = float(entry["bytes"])
+    return _wire_factor(entry["kind"], entry["group_size"]) * b
+
+
+def _wire_bytes_saved(entry: Dict[str, Any]) -> float:
+    """Wire bytes a sub-fp32 numeric payload avoids against fp32 of the
+    same shape (reference :400)."""
+    eb = entry.get("elem_bytes", 4)
+    if eb >= 4 or entry.get("dtype") == "pred" or "elems" not in entry:
+        return 0.0
+    return (_wire_factor(entry["kind"], entry["group_size"])
+            * entry["elems"] * (4 - eb))
+
+
+def comm_roofline_seconds(entries, ici_gbps: float, dcn_gbps: float,
+                          topology: Optional[Topology] = None) -> float:
+    """Wire time of one invocation's collectives (reference :414): an
+    axis the ``topology`` marks as DCN-crossing at ``dcn_gbps``, every
+    other at ``ici_gbps``."""
+    if topology is None:
+        topology = topology_from_env()
+    total = 0.0
+    for e in entries:
+        axes = set(e["comm"].split("+"))
+        bw = dcn_gbps if topology.is_dcn(axes) else ici_gbps
+        if bw > 0:
+            total += _wire_bytes(e) / (bw * 1e9)
+    return total
 
 
 # -- the graph list (reference _graph_entries :475-583) ---------------------
@@ -321,8 +424,10 @@ def _graph_entries(app) -> List[Tuple[str, str, Optional[tuple],
     return entries
 
 
-def _count(run) -> Tuple[int, int]:
-    """(flops, bytes) of one step function over fake copies."""
+def _count(run, heard: Optional[List[Dict[str, Any]]] = None
+           ) -> Tuple[int, int]:
+    """(flops, bytes) of one step function over fake copies; the
+    collectives it makes are appended to ``heard``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     mode = FakeTensorMode(allow_non_fake_inputs=True)
 
@@ -336,8 +441,9 @@ def _count(run) -> Tuple[int, int]:
         return x
 
     counter = _WorkCounter()
-    with decode_attention.kernel_work_listener(counter.kernel), mode, \
-            counter:
+    heard = [] if heard is None else heard
+    with decode_attention.kernel_work_listener(counter.kernel), \
+            coll_mod.collective_listener(heard.append), mode, counter:
         run(fake)
     return counter.flops, counter.bytes
 
@@ -351,8 +457,9 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
     ``registry`` (default: the process-global one) when it is enabled.
     ``hbm_gbps`` / ``peak_tflops`` override the card's figures;
     ``ici_gbps`` / ``dcn_gbps`` are recorded for the comm leg a mesh will
-    price. Touches no device state: the parameters and the cache are read
-    for their shapes only."""
+    price (default: the card's link figure, else ``NXDI_TPU_ICI_GBPS`` /
+    ``NXDI_TPU_DCN_GBPS``, 200 / 25). Touches no device state: the
+    parameters and the cache are read for their shapes only."""
     reg = registry if registry is not None else get_registry()
     if app.params is None:
         raise ValueError("load_weights() or init_random_weights() first")
@@ -364,12 +471,24 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
         hbm_gbps = float(peaks.get("hbm_gbps", 0.0))
     if peak_tflops is None:
         peak_tflops = float(peaks.get("peak_tflops", {}).get(dtype, 0.0))
+    if ici_gbps is None:
+        ici_gbps = float(peaks.get("link_gbps") or os.environ.get(
+            "NXDI_TPU_ICI_GBPS", "200"))
+    if dcn_gbps is None:
+        dcn_gbps = float(os.environ.get("NXDI_TPU_DCN_GBPS", "25"))
+    mesh = getattr(app, "mesh", None)
+    app_census: List[Dict[str, Any]] = []
     argument_bytes = _nbytes(app.params) + _nbytes(app.cache)
     graphs_cache = app.graphs
     captured = set(graphs_cache.signatures()) if graphs_cache else set()
     graphs: List[Dict[str, Any]] = []
     for kind, bucket, key, run in _graph_entries(app):
-        flops, bytes_acc = _count(run)
+        heard: List[Dict[str, Any]] = []
+        flops, bytes_acc = _count(run, heard)
+        census = (census_collectives(heard, mesh) if mesh is not None
+                  else None)
+        if census:
+            app_census.extend(census)
         compile_s, mem = 0.0, None
         if key in captured:
             compile_s = graphs_cache.capture_seconds(key)
@@ -381,14 +500,19 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
             # a zero figure means "unknown chip": the counts stay valid
             t_compute = flops / (peak_tflops * 1e12)
             t_memory = bytes_acc / (hbm_gbps * 1e9)
-            legs = {"compute": t_compute, "memory": t_memory, "comm": 0.0}
+            t_comm = (comm_roofline_seconds(census, ici_gbps, dcn_gbps)
+                      if census else 0.0)
+            saved = (sum(_wire_bytes_saved(e) for e in census)
+                     if census else 0.0)
+            legs = {"compute": t_compute, "memory": t_memory,
+                    "comm": t_comm}
             roofline = {
                 "est_step_ms": round(max(legs.values()) * 1e3, 6),
                 "bound": max(legs, key=legs.get),
                 "t_compute_ms": round(t_compute * 1e3, 6),
                 "t_memory_ms": round(t_memory * 1e3, 6),
-                "t_comm_ms": 0.0,
-                "comm_bytes_saved": 0,
+                "t_comm_ms": round(t_comm * 1e3, 6),
+                "comm_bytes_saved": int(round(saved)),
             }
         graphs.append({
             "kind": kind,
@@ -400,9 +524,12 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
             "memory": mem,
             "arithmetic_intensity": (round(flops / bytes_acc, 3)
                                      if bytes_acc else None),
-            "collectives": None,
-            "collective_count": None,
-            "collective_bytes": None,
+            "collectives": (aggregate_census(census)
+                            if census is not None else None),
+            "collective_count": (len(census) if census is not None
+                                 else None),
+            "collective_bytes": (sum(e["bytes"] for e in census)
+                                 if census is not None else None),
             "roofline": roofline,
         })
         if reg.enabled:
@@ -415,12 +542,22 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
                                                 bucket=bucket)
             tmetrics.graph_peak_bytes_gauge(reg).set(peak, kind=kind,
                                                      bucket=bucket)
+    if reg.enabled and mesh is not None:
+        coll_g = tmetrics.graph_collectives_gauge(reg)
+        bytes_g = tmetrics.graph_collective_bytes_gauge(reg)
+        for ckey, slot in aggregate_census(app_census).items():
+            ckind, comm, cdtype = ckey.split("@", 2)
+            coll_g.set(slot["count"], kind=ckind, comm=comm, dtype=cdtype)
+            bytes_g.set(slot["bytes"], kind=ckind, comm=comm, dtype=cdtype)
+    has_mesh = mesh is not None
     return {
         "schema": GRAPH_REPORT_SCHEMA,
         "backend": app.device.type,
         "device": (torch.cuda.get_device_name(app.device)
                    if app.device.type == "cuda" else str(app.device)),
-        "mesh": {"devices": 1, "axes": {}},
+        "mesh": ({"devices": mesh.tp,
+                  "axes": {"tp": mesh.tp} if mesh.tp > 1 else {}}
+                 if has_mesh else {"devices": 1, "axes": {}}),
         "assumptions": {"hbm_gbps": hbm_gbps, "peak_tflops": peak_tflops,
                         "ici_gbps": ici_gbps, "dcn_gbps": dcn_gbps},
         "graphs": graphs,
@@ -430,8 +567,11 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
                                          for g in graphs), 4),
             "flops": sum(g["flops"] for g in graphs),
             "bytes_accessed": sum(g["bytes_accessed"] for g in graphs),
-            "collectives": None,
-            "collective_bytes": None,
-            "comm_bytes_saved": None,
+            "collectives": len(app_census) if has_mesh else None,
+            "collective_bytes": (sum(e["bytes"] for e in app_census)
+                                 if has_mesh else None),
+            "comm_bytes_saved": (int(round(sum(
+                _wire_bytes_saved(e) for e in app_census)))
+                if has_mesh else None),
         },
     }

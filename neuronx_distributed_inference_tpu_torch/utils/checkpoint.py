@@ -1,6 +1,7 @@
 """Checkpoint reading and writing (counterpart:
 ``neuronx_distributed_inference_tpu/utils/checkpoint.py`` —
-``load_state_dict`` :26-90, ``save_state_dict_safetensors`` :90-116).
+``load_state_dict`` :26-90, ``save_state_dict_safetensors`` :90-116,
+``device_put_params`` :118).
 
 HF safetensors checkpoints, single or sharded through the index json,
 load into a host dict of numpy arrays; bf16 and fp8 tensors come back as
@@ -93,3 +94,29 @@ def save_state_dict_safetensors(state_dict: Dict[str, Any], path: str,
             weight_map[k] = name
     with open(os.path.join(path, SAFETENSORS_INDEX), "w") as f:
         json.dump({"metadata": {}, "weight_map": weight_map}, f)
+
+
+def device_put_params(host: Dict[str, Any], spec, device, mesh=None
+                      ) -> Dict[str, Any]:
+    """A converted host tree (fused q/k/v, laid out for the full ``spec``)
+    onto ``device``, leaf by leaf: cast to its ``ParamSpec`` dtype (the
+    model dtype, fp32 for an MoE router), factorized and quantized as the
+    spec asks (``model_base.convert_leaf``), and over a ``mesh`` cut to
+    the rank's slice (``quantization.shard_leaf``), so only one full leaf
+    is on the device beside the kept slices. Quantized leaf-groups keep
+    their own dtypes."""
+    from ..models.model_base import convert_leaf, decoder_param_specs
+    from ..modules.quantization import shard_leaf
+    from .jax_params import tensor_from_numpy
+    tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
+
+    def put(node, ps, name):
+        if isinstance(node, dict):
+            return {k: put(v, (ps or {}).get(k), k)
+                    for k, v in node.items()}
+        dt = getattr(ps, "dtype", spec.dtype)
+        leaf = convert_leaf(spec, name, tensor_from_numpy(
+            np.asarray(node), device).to(dt))
+        return shard_leaf(leaf, getattr(ps, "split", None),
+                          getattr(ps, "parts", None), tp, rank)
+    return put(host, decoder_param_specs(spec), "")

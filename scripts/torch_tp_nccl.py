@@ -1,0 +1,202 @@
+"""Tensor parallelism over NCCL across cards, one spawned rank a card:
+Qwen2.5-72B's widths (``chip_smoke.QWEN25_72B``) cut to ``--layers``
+layers and served at each tp of ``--tp`` by phase 9's ragged engine and
+mix, the T = 1 steps replayed from CUDA graphs that hold their NCCL
+collectives. Each tp's streams are held to the same weights at tp 1 on
+card 0 by ``chip_smoke``'s teacher-deficit gate with its shifted control
+(as phase 28 (b) holds its gloo ranks).
+
+Prints one JSON line a measurement, each world's as soon as it returns:
+each tp's rank 0 dispatch records
+(count, schemas, host us each), all-decode and mixed host ms, TTFT, the
+collectives each rank captured, each rank's weight bytes and paged
+launches, and the paged kernel's time at a rank's heads (rank 0, the
+other ranks idle between two barriers) against its bound and SDPA; then
+the card's name and power limit.
+
+    python3 scripts/torch_tp_nccl.py --tp 2,4          # on 4 cards
+    python3 scripts/torch_tp_nccl.py --device cpu --tiny --tp 2,4
+                                                       # CPU rehearsal
+
+The CPU rehearsal runs gloo ranks at tiny widths (no graphs, no kernel).
+Exits 1 when a gate fails, 2 without enough cards.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+TINY = dict(cs.QWEN25_72B, hidden_size=256, num_attention_heads=8,
+            num_key_value_heads=4, intermediate_size=512, vocab_size=1024,
+            num_hidden_layers=2)
+TINY_CFG = dict(cs.RAGGED, lens=(37, 100, 60, 150), seq_len=256, chunk=64,
+                block=32)
+WORLD_TIMEOUT_S = 300         # a world of the 8-layer cut: ~1 min
+
+
+def rank_serve(mesh, hf, cfg, prompts, new_tokens):
+    """One rank: the ragged app over ``mesh`` (graphs on the card), the
+    weights drawn whole and cut to the rank's slice; rank 0 warms and
+    serves phase 9's mix and times the paged kernel, the others follow.
+    Returns the rank's numbers (rank 0's with the streams)."""
+    import torch
+    import torch.distributed as dist
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    app = cs.make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
+                             graphs=on_card)
+    cs.init_weights(app, 0)
+    out = {"rank": mesh.rank, "weight_bytes": cs.param_bytes(app.params),
+           "heads": [app.spec.gqa.num_q_heads, app.spec.gqa.num_kv_heads]}
+    with cs.CollectiveSpy() as spy:
+        if mesh.rank == 0:
+            cs.warm(app, f"tp{mesh.tp}_nccl", chunk_tokens=cfg["chunk"])
+            snap = {}
+            with cs.PagedArgsSpy() as pspy:
+                streams, recs, ttft, launches, steps = cs.tp_serve(
+                    app, prompts, cfg, new_tokens, f"tp{mesh.tp}_nccl",
+                    cs._sync(dev), snap=snap)
+            app.stop_followers()
+        else:
+            cs.reset_launches([app])
+            app.follow()
+            launches = cs.kernel_counts([app])["paged_decode_attention"]
+    out.update(launches=launches, captured=spy.captured, eager=spy.eager)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    dist.barrier(group=mesh.group)
+    if mesh.rank == 0:
+        out.update(streams=streams, steps=steps, groups=sorted(pspy.groups),
+                   host_ms_decode=cs.pass_summary(recs, "decode"),
+                   host_ms_mixed=cs.pass_summary(recs, "mixed"),
+                   ttft_s=[ttft.get(i) for i in range(len(prompts))],
+                   dispatch=dict(app.dispatch_stats,
+                                 schemas=app._channel.schemas,
+                                 broadcasts=app._channel.broadcasts))
+        if on_card:
+            out["kernel"] = cs.time_paged_kernel(app, snap["table"],
+                                                 snap["pos"], dev, seed=9)
+    dist.barrier(group=mesh.group)
+    return out
+
+
+def gate(phase, tp, ranks, teacher, prompts, layers, a_bytes, on_card):
+    """Emit one world's numbers and hold them to the gates: launches =
+    layers x the all-decode steps on every rank, each rank's steps holding
+    the embedding's sum, two sums a layer and the logits' gather (captured
+    on the card), the streams within the teacher-deficit bound with the
+    control beyond it. Returns [phase] when a gate fails, else []."""
+    lead = ranks[0]
+    d = lead["dispatch"]
+    want_launches = layers * lead["steps"] if on_card else 0
+    cs.emit({"phase": phase, "backend": "nccl" if on_card else "gloo",
+             "tp": tp, "layers": layers, "weight_gb_tp1": a_bytes / 1e9,
+             "weight_gb_ranks": [r["weight_bytes"] / 1e9 for r in ranks],
+             "heads_ranks": [r["heads"] for r in ranks],
+             "launches_ranks": [r["launches"] for r in ranks],
+             "expected_launches": want_launches, "groups": lead["groups"],
+             "collectives_captured_ranks": [r["captured"] for r in ranks],
+             "collectives_eager_ranks": [r["eager"] for r in ranks],
+             "host_ms_decode": lead["host_ms_decode"],
+             "host_ms_mixed": lead["host_ms_mixed"],
+             "ttft_s": lead["ttft_s"], "dispatch_records": d["records"],
+             "dispatch_schemas": d["schemas"],
+             "dispatch_broadcasts": d["broadcasts"],
+             "dispatch_broadcast_us_each":
+                 1e6 * d["broadcast_s"] / max(d["records"], 1)})
+    try:
+        for r in ranks:
+            if r["launches"] != want_launches:
+                raise AssertionError(f"{phase}: rank {r['rank']} launched "
+                                     f"{r['launches']}, want "
+                                     f"{want_launches}")
+            made = r["captured"] if on_card else r["eager"]
+            if not (made["all_reduce"] >= 1 + 2 * layers
+                    and made["all_gather"] >= 1):
+                raise AssertionError(f"{phase}: rank {r['rank']} "
+                                     f"collectives {made}")
+        cs.deficit_gate(phase, cs.teacher_deficits(
+            teacher, prompts, lead["streams"]), exact=False)
+        if on_card:
+            t = lead["kernel"]
+            cs.emit({"phase": phase + "_kernel_timings", **t["report"],
+                     "launches": lead["launches"]})
+            cs.emit({"phase": phase + "_kernel_entry",
+                     **cs.paged_kernel_entry(t, lead["launches"], phase)})
+    except AssertionError as e:
+        cs.emit({"phase": phase + "_failed", "error": str(e)})
+        return [phase]
+    return []
+
+
+def main(argv=None) -> int:
+    import torch
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import \
+        spawn_world
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--tp", default="2,4")
+    p.add_argument("--layers", type=int, default=cs.TP_SERVE_LAYERS)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny widths (a CPU rehearsal)")
+    args = p.parse_args(argv)
+    tps = [int(t) for t in args.tp.split(",")]
+    on_card = args.device == "cuda"
+    if on_card and (not torch.cuda.is_available()
+                    or torch.cuda.device_count() < max(tps)):
+        print(f"torch_tp_nccl: needs {max(tps)} cards", file=sys.stderr)
+        return 2
+    hf = dict(TINY if args.tiny else cs.QWEN25_72B,
+              num_hidden_layers=args.layers)
+    cfg = TINY_CFG if args.tiny else cs.RAGGED
+    new_tokens = 6 if args.tiny else cs.RAGGED_TOKENS
+    if on_card:
+        cs.emit({"phase": "env", "build_s": cs.build_kernels(),
+                 "torch": torch.__version__, "cuda": torch.version.cuda,
+                 "cards": torch.cuda.device_count()})
+    prompts = cs.tp_prompts(hf, cfg)
+    tmpdir = tempfile.mkdtemp(prefix="nxdi-tp-nccl-")
+    # tp 1 on card 0: the weights every world's streams are held to
+    device = torch.device("cuda:0" if on_card else "cpu")
+    ref = cs.make_ragged_app(hf, device, "bfloat16", cfg, graphs=False)
+    cs.init_weights(ref, 0)
+    a_bytes = cs.param_bytes(ref.params)
+    teacher = cs.make_contiguous_app(hf, device, "bfloat16", batch=8,
+                                     seq_len=cfg["seq_len"],
+                                     output_logits=True, graphs=on_card)
+    teacher.params = ref.params
+    layers = hf["num_hidden_layers"]
+    failed = []
+    for tp in tps:
+        phase = f"tp{tp}_nccl"
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_world(rank_serve, tp,
+                                "nccl" if on_card else "gloo", args.device,
+                                tmpdir, WORLD_TIMEOUT_S,
+                                (hf, cfg, prompts, new_tokens))
+        except RuntimeError as e:
+            cs.emit({"phase": phase + "_failed", "error": str(e)[-4000:]})
+            failed.append(phase)
+            continue
+        cs.emit({"phase": phase + "_world_seconds",
+                 "seconds": time.perf_counter() - t0})
+        failed += gate(phase, tp, ranks, teacher, prompts, layers, a_bytes,
+                       on_card)
+    if on_card:
+        print(cs.nvidia_smi())
+    print(json.dumps({"ok": not failed, "failed": failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

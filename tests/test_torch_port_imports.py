@@ -42,7 +42,9 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.llama4.modeling_llama4", "models.dbrx",
     "models.dbrx.modeling_dbrx", "ops.normalization", "ops.attention",
     "models.contrib", "models.contrib2", "models.contrib3",
-    "models.speculation", "modules.token_tree", "utils.hf_adapter")]
+    "models.speculation", "modules.token_tree", "utils.hf_adapter",
+    "parallel.mesh", "parallel.collectives", "parallel.layers",
+    "parallel.dispatch")]
 
 
 def _port_modules():
@@ -99,6 +101,26 @@ def test_source_has_no_jax_import(root):
                 if FORBIDDEN.match(line):
                     hits.append(f"{path}:{i}: {line.strip()}")
     assert not hits, hits
+
+
+def test_spawned_rank_modules_import_no_jax():
+    """What a spawned rank imports — the port's mesh (whose ``_rank_main``
+    each rank runs) and the tests' rank functions
+    (``tests/torch_tp_ranks.py``) — pulls in neither jax nor the JAX
+    package, so the reference runs in the test's own process only."""
+    code = (
+        "import sys\n"
+        "import neuronx_distributed_inference_tpu_torch.parallel.mesh\n"
+        "import torch_tp_ranks\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'jaxlib'\n"
+        "             or m.startswith('neuronx_distributed_inference_tpu.'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_default_device_raises_without_cuda():
