@@ -42,7 +42,8 @@ nvcc per source, all started together), then:
      a torch.profiler trace of the decode steps (device time by kernel,
      device idle share);
   6. the contiguous path (the README's entry point), bf16, Mistral-7B-v0.1
-     geometry at full width and depth with random weights from seed 0:
+     geometry at full width cut to 16 of its 32 layers with random
+     weights from seed 0:
      ``CausalLMApplication.generate`` of 64 new tokens for 4 prompts with
      ``attn_kernel_enabled=True``, after ``precompile`` (decode replays a
      graph); the flash kernel's launches must equal layers x prefill calls
@@ -125,10 +126,11 @@ nvcc per source, all started together), then:
      (ragged), fp32 (TF32 off) and bf16, held to a straightforward fp32
      loop over each token's selected experts with its own routing, dense
      and ragged held to each other, and the device time of each path;
-     (c) phase 9's engine, schedule and prompts at full width and depth
-     (61 GB of bf16 weights, built only once earlier groups freed the
-     card) with phase 9's gates (one dispatch and one fetch a pass, paged
-     launches = 48 x all-decode steps, no incident, full streams) and the
+     (c) phase 9's engine, schedule and prompts at full width, 24 of the
+     48 layers (31 GB of bf16 weights, built only once earlier groups
+     freed the card) with phase 9's gates (one dispatch and one fetch a
+     pass, paged launches = 24 x all-decode steps, no incident, full
+     streams) and the
      MoE blocks' share of the traced passes; (d) phase 10 at 4 layers
      (fp32, TF32 off: ragged == graphs == two-phase == ``generate``) and
      the bf16 4-layer app's prefill and decode logits against the fp32
@@ -514,16 +516,16 @@ nvcc per source, all started together), then:
 
  28. tensor parallelism (group ``tp``), Qwen2.5-72B widths (hidden 8192,
      64 q / 8 KV heads of 128, intermediate 29568, vocab 152064, q/k/v
-     biases) cut to 8 of 80 layers, random weights from seed 0: (a) world
+     biases) cut to 4 of 80 layers, random weights from seed 0: (a) world
      size 1 over NCCL in this process: phase 9's ragged engine and mix on
      the app over the mesh (its T = 1 graphs captured with the model's
      collectives inside) and on the same weights without a process group:
-     streams bit for bit equal, paged launches = 8 x the all-decode steps;
+     streams bit for bit equal, paged launches = 4 x the all-decode steps;
      host and device ms, idle share; (b) two ranks spawned on the one card
      over gloo (``parallel.mesh.spawn_world``, every step eager; rank 0
      plans, rank 1 follows its dispatch records): each rank's weight bytes
      at most 0.51 of (a)'s plus its replicated leaves, Hq 32 / Hkv 4 a
-     rank (its cache and every paged launch at group 8), launches = 8 x
+     rank (its cache and every paged launch at group 8), launches = 4 x
      the all-decode steps on both ranks, the streams held to (a)'s weights
      by the teacher-deficit gate with its shifted control; the paged
      kernel at the ranks' shapes; (c) an fp32 2-layer cut on the
@@ -532,9 +534,27 @@ nvcc per source, all started together), then:
      decode kernel at every layer of every step on each rank's local heads
      (timed there), and the int8 ring's stream holds the fp32 collectives'
      tokens with decode logits within 3% of theirs.
+ 29. expert parallelism (group ``ep``), Qwen3-235B-A22B widths (hidden
+     4096, 64 q / 4 KV heads of 128, 128 experts of 1536 of which 8 per
+     token, vocab 151936) cut to 4 of 94 layers, random weights from seed
+     0, two ranks spawned on the one card over gloo, every step eager:
+     (a) ep 2 (``tp_degree=2, ep_degree=2``): phase 9's ragged engine and
+     mix; each rank's expert bytes at most 0.51 of the model's, Hq 32 /
+     Hkv 2 a rank (every paged launch at group 16), launches = 4 x the
+     all-decode steps on both ranks, one all-reduce a MoE block, the
+     streams held to a one-process app of the same weights by the
+     teacher-deficit gate with its shifted control; the paged kernel at
+     the ranks' shapes (rank 1 idle between two barriers); (b) the same
+     with ``moe_tkg_ep_degree=1``: each rank's hybrid copy (every expert,
+     half the intermediate) as many bytes as its stored experts, the same
+     gates; (c) fp32 2-layer cuts at tp 2 (ep 1): Qwen3-235B-A22B with
+     both kernels asked for and Moonlight-16B-A3B (MLA): tokens equal tp
+     1, logits within atol 2e-3 / rtol 1e-3; on Qwen3-235B-A22B flash once
+     a layer and the contiguous decode kernel at every layer of every
+     step on each rank's local heads (timed there), Moonlight no launch.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22, 23, 24, 26, 27, 28 and the fp32 app of 6)
+21, 22, 23, 24, 26, 27, 28, 29 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -546,7 +566,7 @@ pipeline: 25; contig: 6-8; ragged: 9, 11, 10; tier: 24 — alone, it
 builds phase 9's app; spec: 12, 13, 22 — alone, 12 (a) builds its own
 app; moe: 14; oss: 15; long: 16; mla: 17; quant: 18; dense: 19;
 moe_families: 20; contrib_moe: 21; lora: 23; contrib_dense: 26;
-contrib_dense2: 27; tp: 28) and then prints no ``ok`` line.
+contrib_dense2: 27; tp: 28; ep: 29) and then prints no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -630,6 +650,15 @@ MOE_TOKENS = (64, 4096)        # phase 14 (b): B·T at the dense threshold
 # 14 (e): the cut whose fp32 twin runs phase 6's rule (8 layers fit; 4
 #   keep the whole script's time with phase 21 in it)
 MOE_CONTIG_CHECK_LAYERS = 4
+# depth cuts for phase 29's room (the whole script took 1121.8 s with it
+#   on an H100 before them, moe 135.4 s of it, contig 81.0, tp 61.3;
+#   PERF.md §4), each keeping its phase's per-layer shapes and gates:
+#   14 (c) Qwen3-30B-A3B served at 24 of 48 layers; phases 6 and 7
+#   Mistral-7B-v0.1 at 16 of 32; 28 (a), (b) Qwen2.5-72B at 4 of 80
+#   (TP_SERVE_LAYERS). 14 (e) at 16 layers saved 3 s (logits-bound) and
+#   stays at 48.
+MOE_SERVE_LAYERS = 24
+CONTIG_MAIN_LAYERS = 16
 # depth cuts for the room of phases 23, 24, 26 and 27, each keeping its
 # phase's per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 8 of
 # 32 layers; 17 (b), (c) Moonlight at 4 of 27 (the dense layer and 3
@@ -1700,7 +1729,8 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      on_device_sampling_config=(
                          OnDeviceSamplingConfig(**sampling) if sampling
                          else None),
-                     tp_degree=mesh.tp if mesh is not None else 1,
+                     tp_degree=mesh.mp if mesh is not None else 1,
+                     ep_degree=mesh.ep if mesh is not None else 1,
                      **tcfg_over)
     app = PagedCausalLMApplication(None, family.config_cls(tcfg, **hf),
                                    family, device=device, cuda_graphs=graphs,
@@ -1730,41 +1760,43 @@ def init_weights(app, seed):
     (zeros in the random tree, as in the reference's) are the model's
     published ones. A model without such leaves keeps
     ``init_random_weights``' values. On a rank of a mesh each redrawn leaf
-    is drawn whole and cut to the rank's slice, so every rank holds the
-    slice of the tp = 1 draw."""
+    is drawn whole and cut to the rank's slice (and its hybrid decode
+    copy), so every rank holds the slice of the tp = 1 draw."""
     import torch
     from neuronx_distributed_inference_tpu_torch.models import model_base
-    from neuronx_distributed_inference_tpu_torch.modules.quantization import \
-        shard_leaf
     from neuronx_distributed_inference_tpu_torch.ops.attention import \
         alibi_slopes
     app.init_random_weights(seed)
     gen = torch.Generator(device=app.device).manual_seed(seed + 1)
-    tp, rank = ((app.mesh.tp, app.mesh.rank) if app.mesh is not None
-                else (1, 0))
-    specs = (model_base.decoder_param_specs(app.full_spec) if tp > 1
-             else {})
+    mesh = app.mesh if app.mesh is not None and app.mesh.mp > 1 else None
+    specs = model_base.decoder_param_specs(app.full_spec) if mesh else {}
 
-    def redraw(leaf, ps, std):
-        if tp == 1:
+    def redraw(leaf, ps, std, name=None, node=None):
+        if mesh is None:
             leaf.normal_(0.0, std, generator=gen)
             return
         full = torch.empty(ps.shape, dtype=leaf.dtype, device=leaf.device)
         full.normal_(0.0, std, generator=gen)
-        leaf.copy_(shard_leaf(full, ps.split, ps.parts, tp, rank))
+        # the rank's slice, and its hybrid decode copy where it has one
+        for k, v in model_base.rank_leaves(app.full_spec, name, ps, full,
+                                           mesh).items():
+            (node[k] if node is not None else leaf).copy_(v)
     for stack in ("layers", "moe_layers"):
         layers = app.params.get(stack, {})
         for name in sorted(layers):
             if name == "sink":
-                redraw(layers[name], specs.get(stack, {}).get(name), 1.0)
+                redraw(layers[name], specs.get(stack, {}).get(name), 1.0,
+                       name, layers)
             elif name.endswith(("bias", "norm_b")):
-                redraw(layers[name], specs.get(stack, {}).get(name), 0.02)
+                redraw(layers[name], specs.get(stack, {}).get(name), 0.02,
+                       name, layers)
             elif name == "alibi_slopes":
                 layers[name].copy_(torch.from_numpy(alibi_slopes(
                     layers[name].shape[1])).expand_as(layers[name]))
     for name in ("final_norm_b", "embed_norm_b", "lm_head_b"):
         if name in app.params:
-            redraw(app.params[name], specs.get(name), 0.02)
+            redraw(app.params[name], specs.get(name), 0.02, name,
+                   app.params)
     return app
 
 
@@ -2263,7 +2295,8 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                      rolling_kv_cache=rolling, output_logits=output_logits,
                      is_continuous_batching=cb,
                      windowed_context_encoding=wcte,
-                     tp_degree=mesh.tp if mesh is not None else 1,
+                     tp_degree=mesh.mp if mesh is not None else 1,
+                     ep_degree=mesh.ep if mesh is not None else 1,
                      **tcfg_over)
     app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
                               device=device, cuda_graphs=graphs, mesh=mesh)
@@ -2705,13 +2738,22 @@ def check_streams(phase, streams, new_tokens, vocab):
 def check_ragged_passes(phase, recs, launches, layers):
     """Gates (a) and (b): at most one ragged dispatch and one blocking
     fetch a pass, no standalone prefill dispatch, and the paged kernel
-    launched ``layers`` times per all-decode ragged step."""
+    launched ``layers`` times per single-token ragged step (width 1:
+    every all-decode pass, and a mixed pass whose prefill rows are one
+    token each, as a late request's fully cached prompt leaves it).
+    Returns (those steps, the launches they make)."""
     for r in recs:
         d = r["delta"]
         if (d["ragged_dispatches"] > 1 or d["blocking_fetches"] > 1
                 or d["prefill_dispatches"] != 0):
             raise AssertionError(f"{phase}: pass {r['pass']} made {d}")
-    decode_steps = sum(1 for r in recs if r["kind"] == "decode")
+
+    def single_token(d):
+        rows = (d["ragged_rows_decode"] + d["ragged_rows_verify"]
+                + d["ragged_rows_prefill"] + d["ragged_pad_rows"])
+        return (d["ragged_dispatches"] == 1 and rows > 0
+                and d["ragged_padded_tokens"] == rows)
+    decode_steps = sum(1 for r in recs if single_token(r["delta"]))
     return decode_steps, layers * decode_steps
 
 
@@ -3968,13 +4010,15 @@ class MoETimer:
 
 
 def phase_moe_serving(device, layer_times):
-    """14 (c): the ragged engine serving Qwen3-30B-A3B at full width and
-    depth, bf16, phase 9's schedule, with the MoE blocks' share
-    (:func:`serve_with_moe_share`, all-decode passes estimated from 14
-    (b)'s dense 8-token block). Returns the paged kernel's entry."""
+    """14 (c): the ragged engine serving Qwen3-30B-A3B at full width
+    (MOE_SERVE_LAYERS of its 48 layers), bf16, phase 9's schedule, with
+    the MoE blocks' share (:func:`serve_with_moe_share`, all-decode
+    passes estimated from 14 (b)'s dense 8-token block). Returns the
+    paged kernel's entry."""
     dense = layer_times.get("dense_8_tokens_ms")
-    return serve_with_moe_share(QWEN3_30B_A3B, device, "moe_serving",
-                                lambda app: dense)
+    return serve_with_moe_share(
+        dict(QWEN3_30B_A3B, num_hidden_layers=MOE_SERVE_LAYERS), device,
+        "moe_serving", lambda app: dense)
 
 
 def serve_with_moe_share(hf, device, phase, dense_ms_of, kernel_layers=(-1,),
@@ -11093,7 +11137,8 @@ QWEN25_72B = dict(
     vocab_size=152064, rms_norm_eps=1e-6, rope_theta=1000000.0,
     max_position_embeddings=32768, hidden_act="silu",
     tie_word_embeddings=False)
-TP_SERVE_LAYERS = 8        # 80 -> 8: ~19 GB of bf16 weights at tp 1
+TP_SERVE_LAYERS = 4        # 80 -> 4: ~12 GB of bf16
+#                            weights at tp 1
 TP_CHECK_LAYERS = 2        # (c): the fp32 cut
 TP_WORLD_TIMEOUT_S = 400   # the two spawned ranks, init and join
 TP_BUDGET_S = 90
@@ -11305,7 +11350,7 @@ def tp_rank(mesh, hf, cfg, prompts, new_tokens, cut, check_cfg, ids, mask,
     for key, node in specs.items():
         for name, ps in (node.items() if isinstance(node, dict)
                          else [(None, node)]):
-            if ps.split is None:
+            if not ps.cuts:
                 repl += param_bytes(app.params[key][name] if name
                                     else app.params[key])
     out.update(weight_bytes=param_bytes(app.params), replicated_bytes=repl,
@@ -11590,10 +11635,367 @@ def phase_tp(device, hf=None, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: expert parallelism
+# ---------------------------------------------------------------------------
+
+# Qwen3-235B-A22B (HF config.json of Qwen/Qwen3-235B-A22B, written by
+# hand; least certain: rms_norm_eps and max_position_embeddings): 94
+# layers, every one MoE, 128 experts of 1536 of which 8 route per token
+QWEN3_235B_A22B = dict(
+    model_type="qwen3_moe", hidden_size=4096, intermediate_size=12288,
+    moe_intermediate_size=1536, num_hidden_layers=94, num_attention_heads=64,
+    num_key_value_heads=4, head_dim=128, vocab_size=151936,
+    num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+    decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
+    rope_theta=1000000.0, max_position_embeddings=40960, hidden_act="silu",
+    sliding_window=None, tie_word_embeddings=False)
+EP_SERVE_LAYERS = 4        # 94 -> 4: 19.33 GB of bf16 experts, 2.49 GB of
+#                            embedding and head
+EP_CHECK_LAYERS = 2        # (c): the fp32 cuts
+EP_WORLD_TIMEOUT_S = 600   # the two spawned ranks, init and join
+EP_BUDGET_S = 90
+# (a), (b): a rank's share of the expert bytes at ep 2
+EP_EXPERT_SHARE = 0.51
+
+
+def pad_vocab_to(app, mp):
+    """``app``'s full spec with the vocabulary padded as at ``mp`` ranks:
+    a one-process app then draws the same weights from a seed as the
+    ranks of that mesh (the padded rows shift every later draw)."""
+    import dataclasses
+    from neuronx_distributed_inference_tpu_torch.models import model_base
+    app.full_spec = dataclasses.replace(
+        app.full_spec, padded_vocab=model_base.pad_vocab(
+            app.full_spec.vocab_size, mp))
+    return app
+
+
+def expert_bytes(params, suffix=""):
+    """Bytes of a tree's expert weights (``expert_gate`` / ``_up`` /
+    ``_down``; ``suffix`` "_tkg": their hybrid decode copies)."""
+    from neuronx_distributed_inference_tpu_torch.modules.moe import \
+        EXPERT_LEAVES
+    return sum(param_bytes(node[name + suffix])
+               for node in params.values() if isinstance(node, dict)
+               for name in EXPERT_LEAVES if name + suffix in node)
+
+
+def ep_serve_rank(mesh, hf, cfg, prompts, new_tokens, tkg):
+    """29 (a) or, with ``tkg``, (b) on one rank of the ep-2 mesh (two
+    ranks on one card over gloo, every step eager): rank 0 serves phase
+    9's engine and mix, the other follows; the rank's expert bytes (and
+    its hybrid copy's). In (a) rank 0 then times the paged kernel at its
+    heads while the other rank waits between two barriers, its card
+    idle."""
+    import torch
+    import torch.distributed as dist
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    lead = mesh.rank == 0
+    over = ({} if not tkg else
+            {"moe_config": MoEConfig(moe_tkg_ep_degree=1)})
+    app = make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
+                          graphs=False, **over)
+    init_weights(app, 0)
+    out = {"rank": mesh.rank, "expert_bytes": expert_bytes(app.params),
+           "tkg_bytes": expert_bytes(app.params, "_tkg"),
+           "weight_bytes": param_bytes(app.params),
+           "heads": [app.spec.gqa.num_q_heads, app.spec.gqa.num_kv_heads],
+           "tkg_experts_local": app.spec.moe.tkg_experts_local}
+    reset_launches([app])
+    if lead:
+        snap = {}
+        with PagedArgsSpy() as spy, CollectiveSpy() as cspy:
+            streams, recs, ttft, launches, steps = tp_serve(
+                app, prompts, cfg, new_tokens,
+                "ep_hybrid" if tkg else "ep_two_ranks", _sync(dev),
+                snap=snap)
+        app.stop_followers()
+        dist.barrier(group=mesh.group)
+        out.update(streams=streams, launches=launches, steps=steps,
+                   groups=sorted(spy.groups), collectives=cspy.eager,
+                   passes_by_kind={k: sum(1 for r in recs if r["kind"] == k)
+                                   for k in ("mixed", "decode", "idle")},
+                   host_ms_decode=pass_summary(recs, "decode"),
+                   host_ms_mixed=pass_summary(recs, "mixed"),
+                   ttft_s=[ttft.get(i) for i in range(len(prompts))])
+        if on_card and not tkg:
+            out["kernel"] = time_paged_kernel(app, snap["table"],
+                                              snap["pos"], dev, seed=9)
+        dist.barrier(group=mesh.group)
+    else:
+        app.follow()
+        out["launches"] = kernel_counts([app])["paged_decode_attention"]
+        if on_card:
+            torch.cuda.synchronize(dev)
+        dist.barrier(group=mesh.group)
+        dist.barrier(group=mesh.group)
+    del app
+    if on_card:
+        free_card()
+    return out
+
+
+def ep_fp32_rank(mesh, model, check_cfg, ids, mask, check_new, kernels):
+    """29 (c) on one rank of the tp-2 mesh: the fp32 cut ``model`` on the
+    contiguous app with both kernels asked for, ``generate`` of ``ids``
+    (rank 0 drives); the kernels' launches and, on rank 0 where
+    ``kernels``, the flash calls' shapes and the two kernels timed at the
+    launches' shapes."""
+    import numpy as np
+    dev = mesh.device
+    lead = mesh.rank == 0
+    lens = [int(n) for n in mask.sum(axis=1)]
+    out = {}
+    with fp32_exact():
+        capp = make_contiguous_app(model, dev, "float32", batch=len(lens),
+                                   seq_len=check_cfg["seq_len"],
+                                   decode_kernel=True, output_logits=True,
+                                   graphs=False, mesh=mesh)
+        init_weights(capp, 0)
+        reset_launches()
+        with ContiguousArgsSpy() as cspy, FlashShapes() as flash:
+            if lead:
+                r = capp.generate(ids, attention_mask=mask,
+                                  max_new_tokens=check_new,
+                                  return_logits=True)
+                capp.stop_followers()
+            else:
+                capp.follow()
+        out["counts"] = kernel_counts()
+        out["heads"] = [capp.spec.gqa.num_q_heads,
+                        capp.spec.gqa.num_kv_heads]
+        if lead:
+            out.update(tokens=np.asarray(r["generated"]),
+                       logits=_step_logits(r["logits"], lens),
+                       flash_calls=[[list(c[0]), list(c[1])]
+                                    for c in flash.calls])
+            if kernels and dev.type == "cuda":
+                spec = capp.spec
+                out["times"] = dbrx_fp32_kernels(
+                    dev, cspy.ints, flash.calls,
+                    [n + check_new - 2 for n in lens],
+                    dict(scale=spec.scale, window=spec.sliding_window,
+                         soft_cap=spec.attn_soft_cap), phase="ep_fp32_cut")
+    del capp
+    return out
+
+
+def ep_rank(mesh, hf, cfg, prompts, new_tokens, cuts, check_cfg, ids,
+            mask, check_new):
+    """Phase 29 on one spawned rank (the world's mesh is tp 2): (a) and
+    (b) over the ep-2 mesh of the same two ranks (``MeshConfig(tp=1,
+    ep=2)``: one expert half a rank), then (c)'s fp32 cuts over the tp-2
+    mesh. Returns the rank's numbers."""
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import (
+        MeshConfig, build_mesh)
+    ep_mesh = build_mesh(MeshConfig(tp=1, ep=2), mesh.device,
+                         ranks=range(2))
+    out = {"rank": mesh.rank, "mesh": [ep_mesh.ep, ep_mesh.tp]}
+    for key, tkg in (("a", False), ("b", True)):
+        out[key] = ep_serve_rank(ep_mesh, hf, cfg, prompts, new_tokens, tkg)
+    for name, (model, kernels) in cuts.items():
+        out[name] = ep_fp32_rank(mesh, model, check_cfg, ids, mask,
+                                 check_new, kernels)
+        if mesh.device.type == "cuda":
+            free_card()
+    return out
+
+
+def ep_serving_check(hf, cfg, prompts, ranks, device):
+    """29 (a), (b) gates: each rank's expert bytes at most EP_EXPERT_SHARE
+    of the model's, (b)'s hybrid copy every expert at half the
+    intermediate, half the heads a rank, launches = layers x the
+    all-decode steps on both ranks at group 16, and both runs' streams
+    held to a one-process app of the same weights by the teacher-deficit
+    gate with its shifted control. Returns the paged kernel's entry at
+    the ranks' shapes (None off the card)."""
+    on_card = device.type == "cuda"
+    layers = hf["num_hidden_layers"]
+    whole = (3 * layers * hf["num_experts"] * hf["hidden_size"]
+             * hf["moe_intermediate_size"] * 2)
+    heads = [hf["num_attention_heads"] // 2, hf["num_key_value_heads"] // 2]
+    teacher = pad_vocab_to(make_contiguous_app(
+        hf, device, "bfloat16", batch=8, seq_len=cfg["seq_len"],
+        output_logits=True), 2)
+    init_weights(teacher, 0)
+    entry = None
+    for key, phase in (("a", "ep_two_ranks"), ("b", "ep_hybrid")):
+        rk = [r[key] for r in ranks]
+        lead = rk[0]
+        want_launches = layers * lead["steps"] if on_card else 0
+        emit({"phase": phase, "backend": "gloo", "mesh_ep_tp": ranks[0][
+                  "mesh"], "layers": layers,
+              "expert_gb_whole": whole / 1e9,
+              "expert_gb_ranks": [r["expert_bytes"] / 1e9 for r in rk],
+              "hybrid_copy_gb_ranks": [r["tkg_bytes"] / 1e9 for r in rk],
+              "weight_gb_ranks": [r["weight_bytes"] / 1e9 for r in rk],
+              "heads_ranks": [r["heads"] for r in rk],
+              "launches_ranks": [r["launches"] for r in rk],
+              "expected_launches": want_launches, "groups": lead["groups"],
+              "collectives_rank0": lead["collectives"],
+              "passes_by_kind": lead["passes_by_kind"],
+              "host_ms_decode": lead["host_ms_decode"],
+              "host_ms_mixed": lead["host_ms_mixed"],
+              "ttft_s": lead["ttft_s"]})
+        for r in rk:
+            if r["expert_bytes"] > EP_EXPERT_SHARE * whole:
+                raise AssertionError(f"{phase}: rank {r['rank']} holds "
+                                     f"{r['expert_bytes']} expert bytes "
+                                     f"of {whole}")
+            if r["tkg_experts_local"] != (key == "b") or (
+                    r["tkg_bytes"] != (r["expert_bytes"] if key == "b"
+                                       else 0)):
+                raise AssertionError(f"{phase}: rank {r['rank']} hybrid "
+                                     f"copy of {r['tkg_bytes']} bytes")
+            if r["heads"] != heads or r["launches"] != want_launches:
+                raise AssertionError(f"{phase}: rank {r['rank']} heads "
+                                     f"{r['heads']}, {r['launches']} paged "
+                                     f"launches, want {want_launches}")
+        if lead["groups"] != [heads[0] // heads[1]]:
+            raise AssertionError(f"{phase}: paged launches at groups "
+                                 f"{lead['groups']}")
+        # the embedding's sum, then o_proj's and the MoE block's a layer
+        n_red = lead["collectives"]["all_reduce"]
+        if n_red % (1 + 2 * layers):
+            raise AssertionError(f"{phase}: {n_red} all-reduces are not "
+                                 f"whole steps of {1 + 2 * layers}")
+        deficit_gate(phase, teacher_deficits(teacher, prompts,
+                                             lead["streams"]), exact=False)
+        if on_card and key == "a":
+            t = lead["kernel"]
+            emit({"phase": phase + "_kernel_timings", **t["report"],
+                  "launches": lead["launches"]})
+            entry = paged_kernel_entry(t, lead["launches"], phase)
+    del teacher
+    return entry
+
+
+def ep_fp32_check(device, cuts, check_cfg, ids, mask, check_new, ranks):
+    """29 (c) gates for each cut: tokens at tp 2 equal the same weights'
+    at tp 1 (this process), logits within the suite's tolerance;
+    Qwen3-235B-A22B launched flash once a layer and the contiguous decode
+    kernel at every layer of every decode step on each rank's local
+    heads, Moonlight (MLA) no kernel. Returns the decode and flash
+    kernels' entries at the ranks' shapes (none off the card)."""
+    import numpy as np
+    on_card = device.type == "cuda"
+    entries = []
+    lens = mask.sum(axis=1)
+    for name, (model, kernels) in cuts.items():
+        phase = f"ep_fp32_{name}"
+        rk = [r[name] for r in ranks]
+        lead = rk[0]
+        layers = model["num_hidden_layers"]
+        with fp32_exact():
+            one = pad_vocab_to(make_contiguous_app(
+                model, device, "float32", batch=len(ids),
+                seq_len=check_cfg["seq_len"], decode_kernel=True,
+                output_logits=True, graphs=False), 2)
+            init_weights(one, 0)
+            r1 = one.generate(ids, attention_mask=mask,
+                              max_new_tokens=check_new, return_logits=True)
+            heads = [one.spec.gqa.num_q_heads // 2,
+                     one.spec.gqa.num_kv_heads // 2]
+        del one
+        if on_card:
+            free_card()
+        on = on_card and kernels
+        want = {"paged_decode_attention": 0,
+                "decode_attention_stacked": (layers * (check_new - 1)
+                                             if on else 0),
+                "flash_attention": layers if on else 0}
+        got_t, want_t = lead["tokens"], np.asarray(r1["generated"])
+        excess = max(float(np.max(np.abs(a - b) - TOL_TP_FP32["rtol"]
+                                  * np.abs(b)))
+                     for a, b in zip(lead["logits"],
+                                     _step_logits(r1["logits"], lens)))
+        emit({"phase": phase, "tp": 2, "layers": layers,
+              "counts_ranks": [r["counts"] for r in rk],
+              "expected_counts": want, "heads_ranks": [r["heads"]
+                                                       for r in rk],
+              "flash_calls": lead["flash_calls"][:1],
+              "tokens_equal_tp1": bool((got_t == want_t).all()),
+              "max_logit_excess_over_rtol": excess, "tol": TOL_TP_FP32})
+        for r in rk:
+            if r["counts"] != want or r["heads"] != heads:
+                raise AssertionError(f"{phase}: launches {r['counts']} != "
+                                     f"{want}, heads {r['heads']}")
+        if on:
+            q_shape, k_shape = lead["flash_calls"][0]
+            if [q_shape[2], k_shape[2]] != heads:
+                raise AssertionError(f"{phase}: flash at {q_shape} / "
+                                     f"{k_shape}, want heads {heads}")
+        if not (got_t == want_t).all():
+            raise AssertionError(f"{phase}: tokens at tp 2 differ from "
+                                 "tp 1")
+        if not excess <= TOL_TP_FP32["atol"]:
+            raise AssertionError(f"{phase}: logits off tp 1 by {excess} "
+                                 "over the relative tolerance")
+        if on:
+            c = lead["counts"]
+            entries += contiguous_kernel_entries(
+                lead["times"], c["decode_attention_stacked"],
+                c["flash_attention"], phase)
+    return entries
+
+
+def phase_ep(device, hf=None, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
+             cuts=None, check_cfg=DENSE_CHECK, check_new=DENSE_CHECK_TOKENS):
+    """Group ``ep`` (phase 29 (a)-(c)); returns its kernels-line entries:
+    the paged kernel at (a)'s per-rank shapes with (a)'s launches, and the
+    contiguous decode and flash kernels at (c)'s per-rank shapes with
+    (c)'s launches. ``hf`` (default Qwen3-235B-A22B at EP_SERVE_LAYERS),
+    ``cuts`` ({name: (model, kernels)}: Qwen3-235B-A22B and
+    Moonlight-16B-A3B at EP_CHECK_LAYERS), ``cfg``, ``check_cfg`` and the
+    token counts let a CPU rehearsal run it at tiny widths."""
+    import tempfile
+
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import \
+        spawn_world
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    if on_card:
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+    hf = hf or dict(QWEN3_235B_A22B, num_hidden_layers=EP_SERVE_LAYERS)
+    cuts = cuts or {
+        "qwen3_235b": (dict(QWEN3_235B_A22B,
+                            num_hidden_layers=EP_CHECK_LAYERS), True),
+        "moonlight": (dict(MOONLIGHT_16B, num_hidden_layers=EP_CHECK_LAYERS),
+                      False)}
+    prompts = tp_prompts(hf, cfg)
+    ids, mask = prompts_of(check_cfg["lens"], min(
+        m["vocab_size"] for m, _ in cuts.values()), seed=29)
+    tmpdir = tempfile.mkdtemp(prefix="nxdi-ep-")
+    rank_dev = f"cuda:{device.index or 0}" if on_card else "cpu"
+    ranks = spawn_world(ep_rank, 2, "gloo", rank_dev, tmpdir,
+                        EP_WORLD_TIMEOUT_S,
+                        (hf, cfg, prompts, new_tokens, cuts, check_cfg, ids,
+                         mask, check_new))
+    emit({"phase": "ep_world2_seconds", "seconds": time.perf_counter() - t0})
+    entry = ep_serving_check(hf, cfg, prompts, ranks, device)
+    if on_card:
+        free_card()
+    entries = [entry] if entry is not None else []
+    entries += ep_fp32_check(device, cuts, check_cfg, ids, mask, check_new,
+                             ranks)
+    if on_card:
+        memory_note("ep")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "ep_done", "seconds": seconds, "budget_s": EP_BUDGET_S})
+    if on_card and seconds > EP_BUDGET_S:
+        raise AssertionError(f"ep group took {seconds:.1f} s, over its "
+                             f"budget of {EP_BUDGET_S} s")
+    return entries
+
+
 GROUPS = ("kernels", "paged", "pipeline", "contig", "ragged", "tier",
           "spec", "moe", "oss", "long", "mla", "quant", "dense",
           "moe_families", "contrib_moe", "lora", "contrib_dense",
-          "contrib_dense2", "tp")
+          "contrib_dense2", "tp", "ep")
 
 
 def main(argv=None) -> int:
@@ -11642,9 +12044,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         mark("pipeline")
     if "contig" in only:
-        app, ids, mask, counts = phase_contiguous(MISTRAL_7B, device,
+        mistral = dict(MISTRAL_7B, num_hidden_layers=CONTIG_MAIN_LAYERS)
+        app, ids, mask, counts = phase_contiguous(mistral, device,
                                                   "contiguous_main_path")
-        kernels += phase_contiguous_timings(MISTRAL_7B, device, app, ids,
+        kernels += phase_contiguous_timings(mistral, device, app, ids,
                                             mask, counts)
         del app
         torch.cuda.empty_cache()
@@ -11728,6 +12131,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_tp(device)
         mark("tp")
+    if "ep" in only:
+        free_card()
+        kernels += phase_ep(device)
+        mark("ep")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

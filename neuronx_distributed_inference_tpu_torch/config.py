@@ -351,6 +351,17 @@ class TpuConfig:
 NeuronConfig = TpuConfig
 
 
+@dataclass
+class MoETpuConfig(TpuConfig):
+    """A TpuConfig that always carries an MoEConfig (counterpart:
+    config.py:519; the reference's ``MoENeuronConfig``)."""
+
+    def __post_init__(self):
+        if self.moe_config is None:
+            self.moe_config = MoEConfig()
+        super().__post_init__()
+
+
 class InferenceConfig:
     """A HF-style model config paired with a :class:`TpuConfig`
     (counterpart: config.py:529). HF attributes live directly on the

@@ -84,14 +84,18 @@ nothing waits.
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed; a missing
 card raises (``device.resolve_device``).
 
-Tensor parallelism (``mesh=``, reference ``mesh=`` :57-67 and
+Tensor and expert parallelism (``mesh=``, reference ``mesh=`` :57-67 and
 ``_mesh_ctx`` :366-371): one process a rank (``parallel/mesh``). The app
-builds the full spec at ``tp_degree = mesh.tp`` (:attr:`full_spec`, the
-layout the converters and the JAX package's tp-N tree use) and runs on the
-rank's own spec (:attr:`spec`: local heads, MLP columns, vocabulary rows;
-``model_base.local_spec``). Every rank loads or draws the full weights and
-keeps its slice (``utils/checkpoint.device_put_params``,
-``model_base.init_params``) and makes its own cache of local heads. Host
+builds the full spec at ``tp_degree = mesh.mp`` (:attr:`full_spec`, the
+layout the converters and the JAX package's tree at that mesh use; heads
+and vocabulary resolve against every rank, ep·tp) and runs on the rank's
+own spec (:attr:`spec`: local heads, MLP columns, vocabulary rows, its
+experts; ``model_base.local_spec``). Every rank loads or draws the full
+weights and keeps its slice (``utils/checkpoint.device_put_params``,
+``model_base.init_params``; a checkpoint's tensors of experts another
+rank holds are not read), with ``moe_tkg_ep_degree=1`` also the hybrid
+decode copy of its expert leaves (every expert, a slice of the
+intermediate), and makes its own cache of local heads. Host
 decisions are made once, on rank 0: the scheduler, the planner, the block
 allocator and prefix cache, the SLO tracker and the degradation
 controller run there only, and each ``_run_*`` step rank 0 makes sends its
@@ -186,7 +190,7 @@ def _dispatched(fn):
     @functools.wraps(fn)
     def run(self, *args, **kw):
         m = self.mesh
-        if (m is not None and m.tp > 1 and m.rank == 0
+        if (m is not None and m.mp > 1 and m.rank == 0
                 and not self._dispatch_depth):
             t0 = time.perf_counter()
             self._channel.send(fn.__name__, args, kw)
@@ -240,11 +244,11 @@ class CausalLMApplication:
                     "graphs: pass cuda_graphs=False, or use an NCCL group")
         # the full layout at the mesh's degree (the rank's spec follows it)
         self.full_spec = self.family.build_spec(
-            config, tp_degree=mesh.tp if mesh is not None else 1)
+            config, tp_degree=mesh.mp if mesh is not None else 1)
         # rank 0's dispatch records (tp > 1): count and host seconds
         self.dispatch_stats = {"records": 0, "broadcast_s": 0.0}
         self._channel = (dispatch.Channel(mesh)
-                         if mesh is not None and mesh.tp > 1 else None)
+                         if mesh is not None and mesh.mp > 1 else None)
         self._dispatch_depth = 0
         # T = 1 steps replay captured CUDA graphs on the card
         # (``cuda_graphs=False``: every step eager)
@@ -504,8 +508,15 @@ class CausalLMApplication:
     # -- weights -----------------------------------------------------------
     def load_weights(self, model_path: Optional[str] = None):
         """Load + convert a HF safetensors checkpoint onto the device (over
-        a mesh: the rank's slice of each converted leaf)."""
-        sd = ckpt.load_state_dict(model_path or self.model_path)
+        a mesh: the rank's slice of each converted leaf; the tensors of
+        experts another rank holds are not read, unless the hybrid decode
+        copy needs every expert)."""
+        spec = self.full_spec
+        skip = (ckpt.expert_skip(spec.moe.num_experts, self.mesh)
+                if spec.moe is not None
+                and not model_base.wants_tkg_copy(spec, self.mesh)
+                else None)
+        sd = ckpt.load_state_dict(model_path or self.model_path, skip=skip)
         self._put_params(self.family.convert_hf_state_dict(sd,
                                                            self.full_spec))
         return self
@@ -539,10 +550,10 @@ class CausalLMApplication:
         same files."""
         if self.spec.quant is None:
             raise ValueError("config.tpu_config.quantized must be set")
-        if self.mesh is not None and self.mesh.tp > 1:
+        if self.mesh is not None and self.mesh.mp > 1:
             raise ConfigurationError(
                 "a rank holds a slice of the tree: save the quantized "
-                "checkpoint from a tp = 1 app (ROADMAP A13b)")
+                "checkpoint from a tp = 1 app (ROADMAP A13c)")
         if self.params is None:
             raise RuntimeError("load_weights() first")
         ckpt.save_state_dict_safetensors(_flatten_tree(self.params), path)
@@ -1143,7 +1154,7 @@ class CausalLMApplication:
     def stop_followers(self):
         """Rank 0: end the other ranks' :meth:`follow` loops."""
         m = self.mesh
-        if m is not None and m.tp > 1 and m.rank == 0:
+        if m is not None and m.mp > 1 and m.rank == 0:
             self._channel.stop()
         return self
 

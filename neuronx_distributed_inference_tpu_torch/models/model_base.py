@@ -105,23 +105,29 @@ tree converts by renaming (``utils/jax_params.py``). The JAX ``lax.scan``
 loops (over layers, over decode steps) are Python loops; the KV cache is
 written IN PLACE (the JAX graphs donated it).
 
-Tensor parallelism (SPMD, one process a rank): the application keeps
-the full spec (the layout the converters and the JAX package's tp-N tree
-use) and runs each step on the rank's own spec (:func:`local_spec`): its
-``num_q_heads / tp`` and ``num_kv_heads / tp`` heads, ``intermediate_size
-/ tp`` MLP columns and ``padded_vocab / tp`` vocabulary rows, with the
-:class:`~..parallel.mesh.Mesh` whose group runs the collectives. Every
-kernel gate and cache then reads local heads. Where GSPMD puts the
-JAX package's collectives, the steps call ``parallel/collectives``: the
-row-parallel o_proj and down_proj outputs are summed over the group
-(``_row_out``; the quantized ring in the decode and paged phases under
-``collective_dtype``), their biases added once after the sum; a parallel
+Tensor and expert parallelism (SPMD, one process a rank): the
+application keeps the full spec (the layout the converters and the JAX
+package's tree at the mesh use, resolved at ``mp = ep·tp``, every rank)
+and runs each step on the rank's own spec (:func:`local_spec`): its
+``num_q_heads / mp`` and ``num_kv_heads / mp`` heads, ``intermediate_size
+/ mp`` MLP columns and ``padded_vocab / mp`` vocabulary rows, its experts
+(``E / ep`` of them, their intermediate cut over tp) and shared-expert
+columns, with the :class:`~..parallel.mesh.Mesh` whose group (all mp
+ranks) runs the collectives. Every kernel gate and cache then reads local
+heads. Where GSPMD puts the JAX package's collectives, the steps call
+``parallel/collectives``: the row-parallel o_proj and down_proj outputs
+are summed over the group (``_row_out``; the quantized ring in the decode
+and paged phases under ``collective_dtype``), their biases added once
+after the sum; an MoE block's partial sum (its experts and its
+shared-expert slice) is summed once, by the plain all-reduce; a parallel
 block sums its attention and MLP outputs each where it is made, then adds
 them; the vocabulary-parallel embedding looks up the rank's rows (zero
 elsewhere) and sums; the logits are gathered over the vocabulary before
-the divide, the soft-cap and the padded-vocabulary mask; OLMo-2's
-full-width q/k norm sums its squares over the group. A spec with a mesh
-calls the collectives at any tp, one included (an identity over one rank).
+the divide, the soft-cap and the padded-vocabulary mask; a full-width q/k
+norm (OLMo-2, OLMoE) sums its squares over the group. MLA runs on the
+rank's heads (``q_b_proj`` / ``q_proj`` and ``kv_b_proj`` cut by heads,
+the latent replicated). A spec with a mesh calls the collectives at any
+degree, one included (an identity over one rank).
 
 Attention, by phase:
 
@@ -147,6 +153,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -169,12 +176,15 @@ from ..ops.normalization import layer_norm, rms_norm
 from ..ops.rope import (SUPPORTED_SCALING, RopeConfig, apply_rope,
                         compute_inv_freq, rope_cos_sin)
 from ..parallel import collectives
-from ..parallel.layers import (GQASharding, ParamSpec, column_parallel,
-                               expert_column_parallel, expert_row_parallel,
+from ..parallel.layers import (EP, TP_EP, GQASharding, ParamSpec,
+                               column_parallel, expert_column_parallel,
+                               expert_row_parallel, resolve_cuts,
                                replicated_param, resolve_gqa_sharding,
                                row_parallel, row_parallel_output,
                                vocab_parallel_embedding)
 from ..resilience.errors import ConfigurationError
+
+logger = logging.getLogger("nxdi_torch")
 
 def xielu(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """Apertus's xIELU with learned alphas (model_base.py:894-909):
@@ -432,56 +442,103 @@ def pad_vocab(vocab: int, tp: int = 1, multiple: int = 128) -> int:
 
 def _moe_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     """The MoE MLP slot (model_base.py:478-505): an fp32 router (L, H, E),
-    expert stacks (L, E, H, I) / (L, E, I, H) in the model dtype, and the
-    optional biases and shared experts."""
+    replicated; expert stacks (L, E, H, I) / (L, E, I, H) in the model
+    dtype, experts cut over ep and the intermediate over tp; the optional
+    biases (gate / up cut as their weights, down by experts) and shared
+    experts (cut over every rank, as a dense MLP). On a rank's own spec
+    the shapes are the rank's slices."""
     m = spec.moe
     H, dt = spec.hidden_size, spec.dtype
-    E, Ie = m.num_experts, m.intermediate_size
+    E, Ie, Is = m.num_experts, m.intermediate_size, m.shared_intermediate
+    if spec.mesh is not None:
+        E, Ie, Is = E // spec.mesh.ep, Ie // spec.mesh.tp, Is // spec.mesh.mp
     layers: Dict[str, ParamSpec] = {
-        "router": ParamSpec((L, H, E), torch.float32),
+        "router": ParamSpec((L, H, m.num_experts), torch.float32),
         "expert_gate": expert_column_parallel((L, E, H, Ie), dt),
         "expert_up": expert_column_parallel((L, E, H, Ie), dt),
         "expert_down": expert_row_parallel((L, E, Ie, H), dt),
     }
     if m.has_router_bias:
-        layers["router_bias"] = ParamSpec((L, E), torch.float32, "zeros")
+        layers["router_bias"] = ParamSpec((L, m.num_experts), torch.float32,
+                                          "zeros")
     if m.expert_bias:
-        layers["expert_gate_bias"] = ParamSpec((L, E, Ie), dt, "zeros")
-        layers["expert_up_bias"] = ParamSpec((L, E, Ie), dt, "zeros")
-        layers["expert_down_bias"] = ParamSpec((L, E, H), dt, "zeros")
-    if m.shared_intermediate > 0:
-        Is = m.shared_intermediate
+        layers["expert_gate_bias"] = expert_column_parallel(
+            (L, E, Ie), dt, "zeros", bias=True)
+        layers["expert_up_bias"] = expert_column_parallel(
+            (L, E, Ie), dt, "zeros", bias=True)
+        layers["expert_down_bias"] = ParamSpec((L, E, H), dt, "zeros",
+                                               ((-2, EP),))
+    if Is > 0:
         layers.update({
-            "shared_gate": ParamSpec((L, H, Is), dt),
-            "shared_up": ParamSpec((L, H, Is), dt),
-            "shared_down": ParamSpec((L, Is, H), dt),
+            "shared_gate": column_parallel((L, H, Is), dt),
+            "shared_up": column_parallel((L, H, Is), dt),
+            "shared_down": row_parallel((L, Is, H), dt),
         })
     return layers
+
+
+# the hybrid decode copy's cut of each expert leaf (moe_tkg_ep_degree=1;
+# the counterpart's moe.py:326-333): every expert, the intermediate over
+# (tp, ep) tp-major; the down bias whole
+TKG_CUTS = {"expert_gate": ((-1, TP_EP),), "expert_up": ((-1, TP_EP),),
+            "expert_down": ((-2, TP_EP),),
+            "expert_gate_bias": ((-1, TP_EP),),
+            "expert_up_bias": ((-1, TP_EP),), "expert_down_bias": ()}
+
+
+def wants_tkg_copy(spec: DecoderSpec, mesh) -> bool:
+    """Whether a rank keeps the hybrid decode copy of its expert leaves:
+    ``tkg_experts_local`` over a mesh with ep > 1 (at ep 1 the stored
+    layout is that copy), for plain expert weights (quantized ones keep
+    the stored layout, biases included)."""
+    return (mesh is not None and mesh.ep > 1 and spec.moe is not None
+            and spec.moe.tkg_experts_local
+            and (spec.quant is None
+                 or not spec.quant.converts("expert_gate")))
+
+
+def rank_leaves(spec: DecoderSpec, name: str, ps, leaf, mesh,
+                cuts=None) -> Dict[str, Any]:
+    """``{name: the rank's slice of a converted leaf}`` (``cuts``: the
+    spec's, resolved for ``mesh``, unless given), and where
+    :func:`wants_tkg_copy` a plain expert leaf's hybrid decode copy
+    under ``name + "_tkg"``, cut from the same full leaf once, at load."""
+    if cuts is None:
+        cuts = (resolve_cuts(ps.cuts, ps.parts, mesh)
+                if isinstance(ps, ParamSpec) else [])
+    out = {name: quant_mod.shard_leaf(leaf, cuts)}
+    if wants_tkg_copy(spec, mesh) and name in TKG_CUTS:
+        out[name + moe_mod.TKG] = quant_mod.shard_leaf(
+            leaf, resolve_cuts(TKG_CUTS[name], None, mesh))
+    return out
 
 
 def _mla_param_specs(spec: DecoderSpec, L: int) -> Dict[str, ParamSpec]:
     """The MLA projections (model_base.py:370-385): ``q_proj``, or
     ``q_a_proj`` / ``q_a_norm`` / ``q_b_proj`` through the q-LoRA, then
     ``kv_a_proj`` (latent + rope head), ``kv_a_norm``, ``kv_b_proj`` (every
-    head's nope K and V) and ``o_proj`` from the V heads."""
+    head's nope K and V) and ``o_proj`` from the V heads. Tensor
+    parallelism cuts ``q_b_proj`` (or ``q_proj``) and ``kv_b_proj`` by
+    heads (their output axis is head-major) and o_proj by its input rows;
+    the latent projections and norms are replicated."""
     m, H, dt = spec.mla, spec.hidden_size, spec.dtype
     nh = spec.gqa.num_q_heads
     layers: Dict[str, ParamSpec] = {}
     if m.q_lora_rank:
         layers["q_a_proj"] = ParamSpec((L, H, m.q_lora_rank), dt)
         layers["q_a_norm"] = ParamSpec((L, m.q_lora_rank), dt, "ones")
-        layers["q_b_proj"] = ParamSpec(
+        layers["q_b_proj"] = column_parallel(
             (L, m.q_lora_rank, nh * m.qk_head_dim), dt)
     else:
-        layers["q_proj"] = ParamSpec((L, H, nh * m.qk_head_dim), dt)
+        layers["q_proj"] = column_parallel((L, H, nh * m.qk_head_dim), dt)
     layers.update({
         "kv_a_proj": ParamSpec(
             (L, H, m.kv_lora_rank + m.qk_rope_head_dim), dt),
         "kv_a_norm": ParamSpec((L, m.kv_lora_rank), dt, "ones"),
-        "kv_b_proj": ParamSpec(
+        "kv_b_proj": column_parallel(
             (L, m.kv_lora_rank, nh * (m.qk_nope_head_dim + m.v_head_dim)),
             dt),
-        "o_proj": ParamSpec((L, nh * m.v_head_dim, H), dt),
+        "o_proj": row_parallel((L, nh * m.v_head_dim, H), dt),
     })
     return layers
 
@@ -603,7 +660,7 @@ def decoder_param_specs(spec: DecoderSpec) -> Dict[str, Any]:
     (under ``vocab_parallel``) and the untied head. The head's bias stays
     whole, added after the logits are gathered."""
     H, dt = spec.hidden_size, spec.dtype
-    vocab = spec.padded_vocab // (spec.mesh.tp if spec.mesh is not None
+    vocab = spec.padded_vocab // (spec.mesh.mp if spec.mesh is not None
                                   else 1)
     out: Dict[str, Any] = {
         "embed": (vocab_parallel_embedding(vocab, H, dt)
@@ -661,18 +718,21 @@ def init_params(spec: DecoderSpec, seed: int, device: torch.device,
     converted (:func:`convert_leaf`) as soon as it is drawn. They are not
     the JAX package's values for the same seed. With a ``mesh`` (``spec``
     the full spec) every rank draws each full leaf, converts it and keeps
-    its slice, one leaf at a time: a rank's shard is the slice of the
-    tp = 1 draw wherever the tp layout pads nothing."""
+    its slice (and its hybrid decode copy, :func:`rank_leaves`), one leaf
+    at a time: a rank's shard is the slice of the tp = 1 draw wherever the
+    layout pads nothing."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
 
-    def build(node, name):
-        if isinstance(node, ParamSpec):
-            leaf = convert_leaf(spec, name, node.initializer(gen, device))
-            return quant_mod.shard_leaf(leaf, node.split, node.parts, tp,
-                                        rank)
-        return {k: build(v, k) for k, v in sorted(node.items())}
-    return build(decoder_param_specs(spec), "")
+    def build(node):
+        out: Dict[str, Any] = {}
+        for k, v in sorted(node.items()):
+            if isinstance(v, ParamSpec):
+                out.update(rank_leaves(spec, k, v, convert_leaf(
+                    spec, k, v.initializer(gen, device)), mesh))
+            else:
+                out[k] = build(v)
+        return out
+    return build(decoder_param_specs(spec))
 
 
 def _leaf_group(node) -> bool:
@@ -683,40 +743,51 @@ def shard_params(spec: DecoderSpec, params: Dict[str, Any],
                  mesh) -> Dict[str, Any]:
     """Rank ``mesh.rank``'s slice of every leaf of a converted tree laid
     out for the full ``spec`` (the counterpart's ``param_shardings`` :661
-    with ``device_put``): each leaf cut on its ``ParamSpec.split``, a
-    quantized or low-rank leaf-group by ``quantization.shard_leaf``."""
+    with ``device_put``): each leaf cut on its ``ParamSpec.cuts``, a
+    quantized or low-rank leaf-group by ``quantization.shard_leaf``, plus
+    the hybrid decode copies (:func:`rank_leaves`)."""
     def walk(node, ps):
-        if isinstance(node, dict) and not _leaf_group(node):
-            return {k: walk(v, (ps or {}).get(k)) for k, v in node.items()}
-        if not isinstance(ps, ParamSpec):
-            return node
-        return quant_mod.shard_leaf(node, ps.split, ps.parts, mesh.tp,
-                                    mesh.rank)
+        out: Dict[str, Any] = {}
+        for k, v in node.items():
+            sub = (ps or {}).get(k)
+            if isinstance(v, dict) and not _leaf_group(v):
+                out[k] = walk(v, sub)
+            else:
+                out.update(rank_leaves(spec, k, sub, v, mesh))
+        return out
     return walk(params, decoder_param_specs(spec))
 
 
 def local_spec(spec: DecoderSpec, mesh) -> RankSpec:
-    """A rank's own spec: ``spec`` (laid out for ``mesh.tp``) with its
-    ``num_q_heads / tp`` and ``num_kv_heads / tp`` heads, its
-    ``intermediate_size / tp`` MLP columns and the mesh. Raises
-    :class:`ConfigurationError` for a layout the degree does not cut."""
-    tp, g = mesh.tp, spec.gqa
-    if g.tp != tp:
+    """A rank's own spec: ``spec`` (laid out for ``mesh.mp``, every rank)
+    with its ``num_q_heads / mp`` and ``num_kv_heads / mp`` heads, its
+    ``intermediate_size / mp`` MLP columns and the mesh (its experts'
+    shapes follow from the mesh, :func:`_moe_param_specs`). Raises
+    :class:`ConfigurationError` for a layout the degrees do not cut."""
+    mp, g = mesh.mp, spec.gqa
+    if g.tp != mp:
         raise ConfigurationError(f"the spec is laid out for tp={g.tp}, "
-                                 f"the mesh has tp={tp}")
-    bad = [f"{what} {n}" for what, n in (
-        ("query heads", g.num_q_heads), ("KV heads", g.num_kv_heads),
-        ("intermediate_size", spec.intermediate_size),
-        ("padded vocabulary", spec.padded_vocab)) if n % tp]
+                                 f"the mesh has tp={mp}")
+    cuts = [("query heads", g.num_q_heads, mp), ("KV heads", g.num_kv_heads,
+                                                 mp),
+            ("intermediate_size", spec.intermediate_size, mp),
+            ("padded vocabulary", spec.padded_vocab, mp)]
+    if spec.moe is not None:
+        cuts += [("num_experts", spec.moe.num_experts, mesh.ep),
+                 ("the expert intermediate", spec.moe.intermediate_size,
+                  mesh.tp),
+                 ("the shared-expert intermediate",
+                  spec.moe.shared_intermediate, mp)]
+    bad = [f"{what} {n} (over {d})" for what, n, d in cuts if n % d]
     if bad:
-        raise ConfigurationError(f"tp={tp} does not divide the "
-                                 + ", ".join(bad))
+        raise ConfigurationError(f"the mesh (ep={mesh.ep}, tp={mesh.tp}) "
+                                 "does not divide the " + ", ".join(bad))
     fields = {f.name: getattr(spec, f.name)
               for f in dataclasses.fields(DecoderSpec)}
     fields.update(
-        gqa=dataclasses.replace(g, num_q_heads=g.num_q_heads // tp,
-                                num_kv_heads=g.num_kv_heads // tp),
-        intermediate_size=spec.intermediate_size // tp)
+        gqa=dataclasses.replace(g, num_q_heads=g.num_q_heads // mp,
+                                num_kv_heads=g.num_kv_heads // mp),
+        intermediate_size=spec.intermediate_size // mp)
     return RankSpec(**fields, mesh=mesh)
 
 
@@ -904,7 +975,7 @@ def _full_width_norm(spec: DecoderSpec, x, w):
     xf = x.float()
     ss = collectives.all_reduce((xf * xf).sum(dim=-1, keepdim=True),
                                 spec.mesh)
-    xf = xf * torch.reciprocal(torch.sqrt(ss / (x.shape[-1] * spec.mesh.tp)
+    xf = xf * torch.reciprocal(torch.sqrt(ss / (x.shape[-1] * spec.mesh.mp)
                                           + spec.rms_eps))
     return (xf * (w.float() + spec.norm_offset)).to(x.dtype)
 
@@ -1103,7 +1174,14 @@ def _mlp_block(spec: DecoderSpec, x, layer_w, phase: str, kind: str,
     layer's (:func:`layer_plan`), a Python value, so a captured graph
     holds each layer's own branch."""
     if kind == "moe":
-        return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
+        if spec.mesh is None:
+            return moe_mod.moe_block(spec.moe, x, layer_w, phase=phase)
+        # the rank's partial sum (its experts, its shared-expert slice),
+        # reduced once over the group: a plain fp all-reduce, never the
+        # quantized ring (model_base.py:869-885 sends only o_proj and the
+        # dense down_proj through it)
+        return collectives.all_reduce(moe_mod.moe_block(
+            spec.moe, x, layer_w, phase=phase, mesh=spec.mesh), spec.mesh)
     lo = spec.lora
     act = ACT_FNS[spec.act]
     if spec.act == "xielu":
@@ -1972,57 +2050,91 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 # Spec resolution from InferenceConfig
 # ---------------------------------------------------------------------------
 
+A13C = "ROADMAP A13c"
+
+
 def _unported_knobs(tcfg: TpuConfig, act: str):
     checks = [
-        (tcfg.cp_degree > 1 or tcfg.ep_degree > 1
-         or tcfg.attention_dp_degree > 1,
-         "context, attention-data or expert parallelism > 1 (ROADMAP "
-         "A13b)"),
-        (tcfg.sequence_parallel_enabled,
-         "sequence parallelism (ROADMAP A13b)"),
-        (tcfg.flash_decoding_enabled, "flash decoding (ROADMAP A13b)"),
+        (tcfg.cp_degree > 1 or tcfg.attention_dp_degree > 1,
+         f"context or attention-data parallelism > 1 ({A13C})"),
+        (tcfg.sequence_parallel_enabled, f"sequence parallelism ({A13C})"),
+        (tcfg.flash_decoding_enabled, f"flash decoding ({A13C})"),
         (tcfg.tensor_capture_config is not None
          or tcfg.tensor_replacement_config is not None,
          "tensor capture/replacement"),
         (act not in ACT_FNS, f"hidden_act {act!r}"),
     ]
     return [name for bad, name in checks if bad] + _moe_degree_refusals(
-        tcfg.moe_config)
+        tcfg)
 
 
 MOE_DEGREES = ("moe_tp_degree", "moe_ep_degree", "moe_cte_tp_degree",
                "moe_cte_ep_degree", "moe_tkg_tp_degree", "moe_tkg_ep_degree")
 
 
-def _moe_degree_refusals(mc) -> List[str]:
-    """An MoEConfig runs on one card when each of its degrees is None or 1
-    (the reference's ``MoETpuConfig`` at tp = 1); a degree above 1 needs
-    the mesh (ROADMAP A13b)."""
+def _moe_degree_refusals(tcfg: TpuConfig) -> List[str]:
+    """``moe_tp_degree`` / ``moe_ep_degree`` (the reference's
+    ``MoETpuConfig``) name the mesh's own tp and ep extents (the
+    counterpart reads neither: its mesh fixes them); a value the mesh
+    does not have is refused (ROADMAP A13c)."""
+    mc = tcfg.moe_config
     if mc is None:
         return []
-    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13b)"
-            for knob in MOE_DEGREES if (getattr(mc, knob, None) or 1) > 1]
+    ep = max(int(tcfg.ep_degree), 1)
+    have = {"moe_tp_degree": max(int(tcfg.tp_degree), 1) // ep,
+            "moe_ep_degree": ep}
+    return [f"MoE {knob}={getattr(mc, knob)} on a mesh of {knob[4:6]} "
+            f"{want} ({A13C})" for knob, want in have.items()
+            if getattr(mc, knob, None) not in (None, want)]
 
 
 def _moe_layout_refusals(tcfg: TpuConfig) -> List[str]:
     """The expert-layout knobs the reference reads once the model has an
-    MoE block (model_base.py:2455-2487): it refuses every CTE / TKG degree
-    but ``moe_tkg_ep_degree=1``, which turns on ``tkg_experts_local``, a
-    re-layout across a mesh (ROADMAP A13b)."""
+    MoE block (model_base.py:2455-2470), refused in its own words: every
+    CTE / TKG degree but ``moe_tkg_ep_degree=1`` (the hybrid decode
+    layout, ``tkg_experts_local``)."""
     mc = tcfg.moe_config
     if mc is None:
         return []
-    return [f"MoE {knob}={getattr(mc, knob)} (ROADMAP A13b)"
-            for knob in MOE_DEGREES[2:] if getattr(mc, knob, None) is not None]
+    bad = [f"MoE {knob}={getattr(mc, knob)}: the mesh fixes the CTE expert "
+           "layout and the TKG tp extent; only moe_tkg_ep_degree=1 "
+           "(all-experts-local decode) reshards per phase"
+           for knob in MOE_DEGREES[2:5] if getattr(mc, knob, None) is not None]
+    tkg_ep = getattr(mc, "moe_tkg_ep_degree", None)
+    if tkg_ep not in (None, 1):
+        bad.append(f"MoE moe_tkg_ep_degree={tkg_ep}: hybrid MoE sharding "
+                   "supports moe_tkg_ep_degree=1 (all-experts-local decode) "
+                   "only")
+    return bad
 
 
-def _tp_refusals(tcfg: TpuConfig, moe, mla, knobs) -> List[str]:
-    """What tensor parallelism does not serve in the port yet (each waits
-    for ROADMAP A13b): MoE blocks, MLA, multi-LoRA, speculation (fused,
-    served or Medusa)."""
-    return [f"{what} at tp > 1 (ROADMAP A13b)" for bad, what in (
-        (moe is not None, "MoE blocks"),
-        (mla is not None, "multi-head latent attention"),
+def _hybrid_moe(tcfg: TpuConfig, moe, quantized: bool):
+    """``moe`` with ``tkg_experts_local`` under ``moe_tkg_ep_degree=1``.
+    Quantized expert leaves keep the stored layout through decode: the
+    reference's warning, and ``nxdi_moe_tkg_local_quant_degraded_total``
+    counted when telemetry is on (model_base.py:2471-2487)."""
+    mc = tcfg.moe_config
+    if moe is None or mc is None or getattr(mc, "moe_tkg_ep_degree",
+                                            None) != 1:
+        return moe
+    if quantized:
+        logger.warning(
+            "moe_tkg_ep_degree=1 (tkg_experts_local) has no effect on "
+            "quantized MoE expert weights: decode keeps the prefill expert "
+            "sharding (quantized leaves are not re-laid out). Drop the knob "
+            "or the quantization.")
+        from ..telemetry import get_registry
+        reg = get_registry()
+        if reg.enabled:
+            from ..telemetry.metrics import moe_tkg_degraded_counter
+            moe_tkg_degraded_counter(reg).inc()
+    return dataclasses.replace(moe, tkg_experts_local=True)
+
+
+def _tp_refusals(tcfg: TpuConfig, knobs) -> List[str]:
+    """What the port does not serve at tp > 1 yet (each waits for ROADMAP
+    A13c): multi-LoRA, speculation (fused, served or Medusa)."""
+    return [f"{what} at tp > 1 ({A13C})" for bad, what in (
         (tcfg.lora_config is not None, "multi-LoRA"),
         (_has_speculation(tcfg) or knobs.get("medusa_heads", 0) > 0,
          "speculation")) if bad]
@@ -2157,7 +2269,7 @@ def spec_from_config(config: InferenceConfig,
     if knobs.get("block_style", "sequential") not in BLOCK_STYLES:
         bad.append(f"block_style {knobs['block_style']!r}")
     if tp > 1:
-        bad += _tp_refusals(tcfg, moe, mla, knobs)
+        bad += _tp_refusals(tcfg, knobs)
     cc = tcfg.collective_config
     wire = cc.dtype if cc is not None else None
     if wire is not None:
@@ -2170,6 +2282,8 @@ def spec_from_config(config: InferenceConfig,
     if bad:
         raise ConfigurationError(
             "the PyTorch port does not run these yet: " + ", ".join(bad))
+    quant = quant_mod.quant_spec_from_config(tcfg)
+    moe = _hybrid_moe(tcfg, moe, quant is not None)
     if knobs.get("learned_pos") and tcfg.seq_len > knobs["learned_pos"]:
         raise ValueError(
             f"seq_len {tcfg.seq_len} exceeds the learned position table "
@@ -2240,7 +2354,7 @@ def spec_from_config(config: InferenceConfig,
         dtype=tcfg.torch_dtype,
         kv_dtype=tcfg.torch_kv_dtype,
         kv_scale=(tcfg.kv_cache_scale if tcfg.kv_cache_quant else None),
-        quant=quant_mod.quant_spec_from_config(tcfg),
+        quant=quant,
         low_rank=low_rank_mod.low_rank_spec_from_config(tcfg),
         qk_norm=bool(qk_norm),
         moe=moe,

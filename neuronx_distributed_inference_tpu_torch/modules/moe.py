@@ -29,9 +29,28 @@ The reference's design, on one card:
     dequantized first); the ragged path dequantizes every expert weight
     before its grouped product; shared experts go through ``qlinear``.
 
-The reference's mesh constraints (``shard_constraint``) have no
-counterpart on one card. ``tkg_experts_local`` (an expert re-layout for
-decode across a mesh, ROADMAP A13) raises :class:`ConfigurationError`.
+Across a mesh (``mesh=``, ``parallel/mesh.Mesh``; the counterpart's
+``shard_constraint`` calls) a rank holds the experts
+``[ep_rank·E/ep, (ep_rank + 1)·E/ep)`` with their intermediate axis cut
+over tp, and its slice of the shared experts' intermediate (cut over
+every rank). The router is replicated and routes every token on every
+rank (the same fp32 input, the same stable sorts). Each path computes the
+rank's experts only: the dense path takes the combine matrix's local
+columns, the ragged path sends only the token copies routed to local
+experts into the grouped products (group ends over the local experts;
+the other copies sort after them and add nothing). The block returns the
+rank's PARTIAL sum (routed plus shared); the caller reduces it once over
+the whole model-parallel group (``models/model_base._mlp_block``), as
+GSPMD's psum over ``("ep", "tp")`` does. Per-expert down biases are added
+on the ranks of tp index 0 only (every tp rank of an expert would add
+them otherwise). With ``tkg_experts_local`` (``moe_tkg_ep_degree=1``) a
+decode step on the dense path reads the hybrid copy made once at load
+(``expert_*_tkg``: every expert, the intermediate cut tp-major over
+``(tp, ep)``, index ``tp_rank·ep + ep_rank``; the counterpart's
+moe.py:305-336): the copy is taken by T = 1 steps of the contiguous
+decode and of the paged path alike (the counterpart re-lays out the
+contiguous decode only; the layout changes no value). Quantized expert
+leaves have no such copy and keep the stored layout.
 """
 
 from __future__ import annotations
@@ -42,8 +61,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.sampling import top_k
-from ..resilience.errors import ConfigurationError
 from .quantization import dequantize, is_quantized_leaf, qlinear, qmatmul
+
+# the hybrid decode copy of an expert leaf (moe_tkg_ep_degree=1)
+TKG = "_tkg"
 
 
 @dataclass(frozen=True)
@@ -77,7 +98,8 @@ class MoESpec:
     input_scaled: bool = False
     # B*T threshold at or below which the dense all-experts path runs
     dense_max_tokens: int = 64
-    # decode re-layout of the experts across a mesh (not ported: A13)
+    # the hybrid decode layout across a mesh (moe_tkg_ep_degree=1): T = 1
+    # steps on the dense path read the every-expert copy ``expert_*_tkg``
     tkg_experts_local: bool = False
 
 
@@ -180,17 +202,24 @@ def _glu(moe: MoESpec, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return _act_fn(moe.act)(gate) * up
 
 
+def _num_experts(w) -> int:
+    """The experts a plain or quantized (…, E, K, N) stack holds."""
+    return (w["qweight"] if is_quantized_leaf(w) else w).shape[-3]
+
+
 def experts_dense(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
                   top_idx: torch.Tensor, wg, wu, wd, bg=None, bu=None,
-                  bd=None) -> torch.Tensor:
-    """All-experts dense compute. x (B, T, H); wg / wu (E, H, I); wd
-    (E, I, H), plain or quantized; b* optional (E, ·) biases.
-    Intermediates are laid out (E, B·T, ·), the reference's (B, T, E, ·)
+                  bd=None, start: int = 0) -> torch.Tensor:
+    """All-experts dense compute. x (B, T, H); wg / wu (E', H, I); wd
+    (E', I, H), plain or quantized; b* optional (E', ·) biases: the
+    experts ``[start, start + E')`` (every expert on one card).
+    Intermediates are laid out (E', B·T, ·), the reference's (B, T, E, ·)
     transposed."""
     b, t, h = x.shape
     dt = x.dtype
+    n = _num_experts(wd)
     combine = combine_matrix(moe.num_experts, top_vals, top_idx)
-    combine = combine.reshape(b * t, moe.num_experts)            # (BT,E)
+    combine = combine.reshape(b * t, moe.num_experts)[:, start:start + n]
     if moe.input_scaled:
         # llama4: scale the expert INPUT by the affinity, combine with 1s
         xe = (x.reshape(b * t, 1, h).float()
@@ -232,29 +261,39 @@ def grouped_mm(a: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
 
 def experts_ragged(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
                    top_idx: torch.Tensor, wg, wu, wd, bg=None, bu=None,
-                   bd=None) -> torch.Tensor:
+                   bd=None, start: int = 0) -> torch.Tensor:
     """Dropless grouped-product path: sort the B·T·k token copies by
     expert (stable), one grouped product per projection, unsort and
     combine in fp32. Shapes are static: N = B·T·k rows. Quantized expert
     weights are dequantized to the activation dtype first (the grouped
-    product takes plain weights)."""
+    product takes plain weights). With E' < E local experts ``[start,
+    start + E')`` the copies routed elsewhere sort after the local groups
+    (key E'), lie past the last group end and add nothing."""
     b, t, h = x.shape
     k = moe.top_k
     dt = x.dtype
     wg, wu, wd = (dequantize(w, dt) if is_quantized_leaf(w) else w
                   for w in (wg, wu, wd))
+    n = wd.shape[0]
     flat_x = x.reshape(b * t, h)
     flat_expert = top_idx.reshape(-1)                         # (N,)
     flat_weight = top_vals.reshape(-1)                        # (N,) fp32
+    local = None
+    if n < moe.num_experts:
+        key = flat_expert - start
+        local = (key >= 0) & (key < n)
+        flat_expert = torch.where(local, key, torch.full_like(key, n))
     order = torch.argsort(flat_expert, stable=True)
     inv = torch.argsort(order)
     sorted_expert = flat_expert[order]
     sorted_tokens = flat_x[order // k]                        # (N, H)
-    ends = group_ends(sorted_expert, moe.num_experts)
+    ends = group_ends(sorted_expert, n)
     if moe.input_scaled:
         sorted_tokens = (sorted_tokens.float()
                          * flat_weight[order][:, None]).to(dt)
         flat_weight = torch.ones_like(flat_weight)
+    if local is not None:
+        sorted_expert = sorted_expert.clamp(max=n - 1)
     gate = grouped_mm(sorted_tokens, wg, ends)
     up = grouped_mm(sorted_tokens, wu, ends)
     if bg is not None:
@@ -263,36 +302,56 @@ def experts_ragged(moe: MoESpec, x: torch.Tensor, top_vals: torch.Tensor,
     outs = grouped_mm(_glu(moe, gate, up), wd, ends)          # (N, H)
     if bd is not None:
         outs = outs + bd[sorted_expert]
-    outs = outs[inv].float() * flat_weight[:, None]
+    outs = outs[inv].float()
+    if local is not None:
+        # rows past the last group end are not computed: select, never
+        # multiply (their contents are undefined)
+        outs = torch.where(local[:, None], outs, torch.zeros_like(outs))
+    outs = outs * flat_weight[:, None]
     y = outs.reshape(b * t, k, h).sum(dim=1).reshape(b, t, h)
     return y.to(dt)
 
 
+EXPERT_LEAVES = ("expert_gate", "expert_up", "expert_down")
+EXPERT_BIASES = ("expert_gate_bias", "expert_up_bias", "expert_down_bias")
+
+
 def moe_block(moe: MoESpec, x: torch.Tensor, layer_w: Dict[str, Any],
-              phase: str = "prefill") -> torch.Tensor:
+              phase: str = "prefill", mesh=None) -> torch.Tensor:
     """Route + experts (+ shared experts). x (B, T, H). The dense path
     runs when B·T is at most ``dense_max_tokens``, else the ragged one.
-    ``phase`` is the reference's; it mattered only for
-    ``tkg_experts_local``."""
-    if moe.tkg_experts_local:
-        raise ConfigurationError(
-            "tkg_experts_local (moe_tkg_ep_degree=1) re-lays the experts "
-            "across a mesh; the port runs on one card (ROADMAP A13)")
+    Over a ``mesh`` the result is the rank's partial sum (its experts and
+    its shared-expert slice), to be reduced over the group by the
+    caller."""
     router_bias = layer_w.get("router_bias") if moe.has_router_bias else None
     top_vals, top_idx = route(moe, x, layer_w["router"], router_bias)
     experts = (experts_dense if x.shape[0] * x.shape[1] <= moe.dense_max_tokens
                else experts_ragged)
-    biases = ((layer_w["expert_gate_bias"], layer_w["expert_up_bias"],
-               layer_w["expert_down_bias"]) if moe.expert_bias
-              else (None, None, None))
-    y = experts(moe, x, top_vals, top_idx, layer_w["expert_gate"],
-                layer_w["expert_up"], layer_w["expert_down"], *biases)
+    # the hybrid decode copy: a T = 1 step of the contiguous decode or the
+    # paged path on the dense path, the copy made at load over the mesh
+    tkg = (mesh is not None and moe.tkg_experts_local
+           and phase in ("decode", "paged") and x.shape[1] == 1
+           and experts is experts_dense and "expert_gate" + TKG in layer_w)
+    suffix = TKG if tkg else ""
+    ws = [layer_w[n + suffix] for n in EXPERT_LEAVES]
+    biases = ([layer_w[n + suffix] for n in EXPERT_BIASES]
+              if moe.expert_bias else [None, None, None])
+    start = 0
+    if mesh is not None:
+        # the down bias is added once over the group: on tp index 0 of
+        # each expert's ranks, or on the hybrid copy's index 0 (rank 0)
+        if not (mesh.rank == 0 if tkg else mesh.tp_rank == 0):
+            biases[2] = None
+        if not tkg:
+            start = mesh.ep_rank * _num_experts(ws[2])
+    y = experts(moe, x, top_vals, top_idx, *ws, *biases, start=start)
     return _shared_experts(moe, x, y, layer_w)
 
 
 def _shared_experts(moe: MoESpec, x: torch.Tensor, y: torch.Tensor,
                     layer_w: Dict[str, Any]) -> torch.Tensor:
-    """Add the always-on shared-expert branch (DeepSeek / GLM style)."""
+    """Add the always-on shared-expert branch (DeepSeek / GLM style); over
+    a mesh the rank's slice of its intermediate (a partial sum too)."""
     if moe.shared_intermediate > 0:
         act = _act_fn(moe.act)
         s = (act(qlinear(x, layer_w["shared_gate"]))

@@ -7,7 +7,7 @@ constants and ``DEFAULT_QUANT_MODULES`` :40-66, ``QuantSpec`` :69,
 ``dequantize`` :232, ``qlinear`` :258, ``qeinsum`` :286, the mesh
 shardings of quantized and low-rank trees ``_qleaf_shardings`` :312,
 ``_low_rank_leaf_shardings`` :328, ``quantized_shardings`` :352, here
-:func:`shard_leaf`, one rank's cut).
+:func:`shard_leaf`, one rank's cuts).
 
 A quantized weight is a dict leaf-group
 
@@ -225,30 +225,32 @@ def quantize_params(params: Dict[str, Any], spec: QuantSpec
     return convert(params)
 
 
-def shard_leaf(leaf: Any, split: Optional[int], parts, tp: int,
-               rank: int) -> Any:
-    """Rank ``rank``'s slice of a converted leaf whose fp weight is cut on
-    axis ``split`` (``parallel/layers.ParamSpec``). A quantized
-    leaf-group is quantized whole, then cut: the codes as the weight, the
-    scale on the same axis where it has extent there (a column weight's
-    per-channel scale follows its columns, a blockwise scale its row
-    blocks) and replicated where it has one row (a row-parallel weight's
-    per-output scale). A low-rank pair keeps the contraction's cut on U
-    (…, K, r) and the output's on V (…, r, N): a column weight cuts V, a
-    row weight cuts U, the other factor is replicated, so a row weight's
-    sum lands on the rank-r intermediate."""
+def shard_leaf(leaf: Any, cuts) -> Any:
+    """A rank's slice of a converted leaf, its fp weight cut as ``cuts``
+    say (``parallel/layers.resolve_cuts``: (axis, parts, degree, index)
+    each, applied one after the other). A quantized leaf-group is
+    quantized whole, then cut: the codes as the weight, the scale on the
+    same axes where it has extent there (a column weight's per-channel
+    scale follows its columns, a blockwise or MXFP4 scale its row blocks,
+    so a cut of the contraction falls on a block edge) and replicated
+    where it has one row (a row-parallel weight's per-output scale). A
+    low-rank pair keeps the contraction's cut on U (…, K, r) and the
+    output's on V (…, r, N): a column weight cuts V, a row weight cuts U,
+    the other factor is replicated, so a row weight's sum lands on the
+    rank-r intermediate."""
     from ..parallel.layers import shard_tensor
-    if split is None or tp == 1:
+    if not cuts:
         return leaf
     if isinstance(leaf, dict) and "lr_u" in leaf:
-        return {"lr_u": (shard_leaf(leaf["lr_u"], -2, None, tp, rank)
-                         if split == -2 else leaf["lr_u"]),
-                "lr_v": (shard_leaf(leaf["lr_v"], -1, parts, tp, rank)
-                         if split == -1 else leaf["lr_v"])}
+        return {"lr_u": shard_leaf(leaf["lr_u"],
+                                   [c for c in cuts if c[0] != -1]),
+                "lr_v": shard_leaf(leaf["lr_v"],
+                                   [c for c in cuts if c[0] != -2])}
     if is_quantized_leaf(leaf):
-        return {k: shard_tensor(v, split, parts, tp, rank)
-                for k, v in leaf.items()}
-    return shard_tensor(leaf, split, parts, tp, rank)
+        return {k: shard_leaf(v, cuts) for k, v in leaf.items()}
+    for axis, parts, degree, index in cuts:
+        leaf = shard_tensor(leaf, axis, parts, degree, index)
+    return leaf
 
 
 def dequant_oai_mxfp4_blocks(blocks: np.ndarray,

@@ -128,7 +128,7 @@ def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     """Sum over the group (in place on a contiguous ``x``, returned)."""
     x = x.contiguous()
     if _is_fake(x):
-        _tell("all_reduce", mesh.tp, x)
+        _tell("all_reduce", mesh.mp, x)
         return x
     dist.all_reduce(x, group=mesh.group)
     return x
@@ -137,7 +137,7 @@ def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     """Concatenate every rank's ``x`` (…, n) along the last dim, in rank
     order: (…, tp * n)."""
-    g = mesh.tp
+    g = mesh.mp
     *lead, n = x.shape
     x = x.contiguous()
     if _is_fake(x):
@@ -170,7 +170,7 @@ def broadcast_object(obj: Any, mesh) -> Any:
 def _ring_pass(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     """Send each tensor to rank + 1 and receive its counterpart from rank
     - 1 (one ``batch_isend_irecv``). fp8 payloads travel as bytes."""
-    g, r = mesh.tp, mesh.rank
+    g, r = mesh.mp, mesh.rank
     group = mesh.group
     nxt = dist.get_global_rank(group, (r + 1) % g) if group else (r + 1) % g
     prv = dist.get_global_rank(group, (r - 1) % g) if group else (r - 1) % g
@@ -195,7 +195,7 @@ def _ring_pass(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
 
 
 def _ring_reduce_scatter(x, mesh, dtype, blk):
-    g, r = mesh.tp, mesh.rank
+    g, r = mesh.mp, mesh.rank
     blocks = list(torch.chunk(x, g, dim=-1))
     cur = blocks[(r - 1) % g]
     for step in range(g - 1):
@@ -231,7 +231,7 @@ def quantized_all_reduce(x: torch.Tensor, mesh, *, dtype: str = "int8",
     over ``mesh``'s group; the last dim is split into ``tp`` ring chunks
     (it must divide). The group of one returns ``x``."""
     require_supported_dtype(dtype)
-    g, r = mesh.tp, mesh.rank
+    g, r = mesh.mp, mesh.rank
     if g <= 1:
         return x
     n = _check_ring(x, g, "all-reduce")
@@ -253,7 +253,7 @@ def quantized_reduce_scatter(x: torch.Tensor, mesh, *, dtype: str = "int8",
     """Quantized ring reduce-scatter over the last dim: rank r returns the
     fully reduced chunk r, (…, n // tp)."""
     require_supported_dtype(dtype)
-    g = mesh.tp
+    g = mesh.mp
     if g <= 1:
         return x
     n = _check_ring(x, g, "reduce-scatter")
@@ -275,13 +275,13 @@ def quantized_row_parallel(x: torch.Tensor, w: Any, mesh, *, dtype: str,
     y = qlinear(x, w)
     if isinstance(w, dict) and w["qweight"].dtype == torch.uint8:
         return all_reduce(y, mesh)
-    if mesh.tp > 1:
+    if mesh.mp > 1:
         n = y.shape[-1]
-        if n % mesh.tp:
+        if n % mesh.mp:
             raise ConfigurationError(
                 f"quantized collectives need the output dim ({n}) divisible "
-                f"by the model-parallel extent ({mesh.tp})")
-        _resolve_block(n // mesh.tp, block)
+                f"by the model-parallel extent ({mesh.mp})")
+        _resolve_block(n // mesh.mp, block)
     return quantized_all_reduce(y, mesh, dtype=dtype, block=block)
 
 

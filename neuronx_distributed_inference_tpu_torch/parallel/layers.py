@@ -6,39 +6,57 @@ expert variants :94-117, ``replicated_param`` :118, ``GQASharding`` /
 ``resolve_gqa_sharding`` :127-196 and the host-side head placement helpers
 after them).
 
-A ``ParamSpec``'s ``split`` is the counterpart of its ``pspec``: the axis
-(negative, from the last) that tensor parallelism cuts into ``tp``
-contiguous slices, rank r keeping slice r, or None for a replicated leaf.
-``parts`` cuts a fused axis part by part: the fused ``qkv_proj``'s global
-``[q | k | v]`` becomes ``[q_r | k_r | v_r]`` on rank r, each part cut by
-heads (a contiguous chunk of the fused axis is not a rank's heads).
-:func:`shard_tensor` makes the cut; ``modules/quantization.shard_leaf``
-extends it to quantized and low-rank leaf-groups.
+A ``ParamSpec``'s ``cuts`` are the counterpart of its ``pspec``: one
+``(axis, mesh axis)`` pair for each axis the mesh cuts (the axis negative,
+from the last; the mesh axis ``"mp"`` for the combined model-parallel
+axis, ``"ep"`` or ``"tp"``), each into contiguous slices, rank r keeping
+its index's (``parallel/mesh.Mesh.cut``); no cut is a replicated leaf. An
+expert leaf ``(L, E, in, out)`` has two: E over ep, then its intermediate
+over tp. ``parts`` cuts a fused axis part by part: the fused
+``qkv_proj``'s global ``[q | k | v]`` becomes ``[q_r | k_r | v_r]`` on
+rank r, each part cut by heads (a contiguous chunk of the fused axis is
+not a rank's heads). :func:`shard_tensor` makes one cut, :func:`resolve_cuts`
+turns a spec's cuts into a rank's (axis, parts, degree, index) list, and
+``modules/quantization.shard_leaf`` applies such a list to plain,
+quantized and low-rank leaves.
 
-The head layout pads and replicates heads so the KV heads divide tp
-(the conversion of checkpoints and of the JAX package's trees places them
-so); each rank then holds ``num_q_heads / tp`` query heads and
-``num_kv_heads / tp`` KV heads."""
+The head layout pads and replicates heads so the KV heads divide the
+model-parallel degree (the conversion of checkpoints and of the JAX
+package's trees places them so); each rank then holds ``num_q_heads /
+mp`` query heads and ``num_kv_heads / mp`` KV heads."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .mesh import (AXIS_EP as EP, AXIS_MP as MP, AXIS_TP as TP,
+                   AXIS_TP_EP as TP_EP)
+
+# (axis, parts, degree, index): one cut of one leaf for one rank
+Cut = Tuple[int, Optional[Tuple[int, ...]], int, int]
+
 
 @dataclass(frozen=True)
 class ParamSpec:
-    """Shape + dtype + random-init rule of one weight tensor, and the axis
-    tensor parallelism cuts (``split``, with the fused ``parts``)."""
+    """Shape + dtype + random-init rule of one weight tensor, and the axes
+    the mesh cuts (``cuts``: (axis, mesh axis) pairs; ``parts`` the fused
+    parts of the ``"mp"`` cut)."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"   # "normal" | "zeros" | "ones"
-    split: Optional[int] = None
+    cuts: Tuple[Tuple[int, str], ...] = ()
     parts: Optional[Tuple[int, ...]] = None
+
+    @property
+    def split(self) -> Optional[int]:
+        """The model-parallel axis of a leaf cut over every rank (None for
+        a replicated leaf or an expert leaf)."""
+        return next((a for a, name in self.cuts if name == MP), None)
 
     def initializer(self, generator: Optional[torch.Generator],
                     device: torch.device, scale: float = 0.02
@@ -57,36 +75,53 @@ class ParamSpec:
 def column_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16,
                     init: str = "normal",
                     parts: Optional[Tuple[int, ...]] = None) -> ParamSpec:
-    """A weight (…, in, out) or bias (…, out) cut on its output dim (the
-    analog of ColumnParallelLinear, gather_output=False)."""
-    return ParamSpec(tuple(shape), dtype, init, -1, parts)
+    """A weight (…, in, out) or bias (…, out) cut on its output dim over
+    every rank (the analog of ColumnParallelLinear, gather_output=False)."""
+    return ParamSpec(tuple(shape), dtype, init, ((-1, MP),), parts)
 
 
 def row_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16,
                  init: str = "normal") -> ParamSpec:
-    """A weight (…, in, out) cut on its input dim (RowParallelLinear,
-    input_is_parallel=True); its output is summed over the group
-    (:func:`row_parallel_output`)."""
-    return ParamSpec(tuple(shape), dtype, init, -2)
+    """A weight (…, in, out) cut on its input dim over every rank
+    (RowParallelLinear, input_is_parallel=True); its output is summed
+    over the group (:func:`row_parallel_output`)."""
+    return ParamSpec(tuple(shape), dtype, init, ((-2, MP),))
 
 
 def vocab_parallel_embedding(vocab: int, hidden: int,
                              dtype=torch.bfloat16) -> ParamSpec:
     """The (V, H) table cut on V (ParallelEmbedding with vocab_parallel)."""
-    return ParamSpec((vocab, hidden), dtype, "normal", -2)
+    return ParamSpec((vocab, hidden), dtype, "normal", ((-2, MP),))
 
 
-def expert_column_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16
-                           ) -> ParamSpec:
-    """An expert weight (…, E, in, out): a declaration only; MoE blocks at
-    tp > 1 are refused (ROADMAP A13b), so it is never cut."""
-    return ParamSpec(tuple(shape), dtype)
+def expert_column_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16,
+                           init: str = "normal",
+                           bias: bool = False) -> ParamSpec:
+    """An expert weight (…, E, in, out), or with ``bias`` a bias (…, E,
+    out): experts cut over ep, the output (intermediate) dim over tp (the
+    counterpart's ``P(None, "ep", None, "tp")``, layers.py:94-105)."""
+    return ParamSpec(tuple(shape), dtype, init,
+                     ((-2 if bias else -3, EP), (-1, TP)))
 
 
 def expert_row_parallel(shape: Tuple[int, ...], dtype=torch.bfloat16
                         ) -> ParamSpec:
-    """An expert weight (…, E, in, out): a declaration only (A13b)."""
-    return ParamSpec(tuple(shape), dtype)
+    """An expert weight (…, E, in, out): experts over ep, the input
+    (intermediate) dim over tp (``P(None, "ep", "tp", None)``, :108-117)."""
+    return ParamSpec(tuple(shape), dtype, "normal", ((-3, EP), (-2, TP)))
+
+
+def resolve_cuts(cuts, parts, mesh) -> List[Cut]:
+    """A spec's ``cuts`` as this rank's (axis, parts, degree, index) list
+    (``parts`` go with the ``"mp"`` cut); none without a mesh."""
+    if mesh is None:
+        return []
+    out = []
+    for axis, name in cuts:
+        degree, index = mesh.cut(name)
+        if degree > 1:
+            out.append((axis, parts if name == MP else None, degree, index))
+    return out
 
 
 def replicated_param(shape: Tuple[int, ...], dtype=torch.bfloat16,

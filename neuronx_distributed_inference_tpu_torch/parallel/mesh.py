@@ -12,9 +12,18 @@ collectives of :mod:`.collectives` where GSPMD inserted them. A
 :class:`Mesh` is what a rank knows of that world: its rank, the world, the
 tensor-parallel group, the group's backend and the rank's device.
 
-Only the ``tp`` axis runs in the port. Context parallelism, attention data
-parallelism and expert parallelism (``cp``, ``dp``, ``ep`` > 1) are
-refused with :class:`ConfigurationError` (ROADMAP A13b).
+The port runs the ``ep`` and ``tp`` axes, ``ep`` outside ``tp`` as in the
+counterpart's ``(dp, cp, ep, tp)`` mesh: rank ``r`` of a world of
+``ep·tp`` ranks is ``(ep_rank, tp_rank) = divmod(r, tp)``, the JAX
+package's device ``r`` of the same mesh. Attention, dense MLPs, the
+vocabulary and shared experts are cut over the combined model-parallel
+axis (``AXIS_MP``: every rank, index ``r``); routed experts over ``ep``
+(the expert axis) and ``tp`` (their intermediate axis). One process group
+spans the ``mp = ep·tp`` ranks: the MoE block's partial sums are reduced
+over all of it, as GSPMD's psum over ``("ep", "tp")`` is, so no step needs
+an ep or tp subgroup. Context parallelism and attention data parallelism
+(``cp``, ``dp`` > 1) are refused with :class:`ConfigurationError`
+(ROADMAP A13c).
 
 A rank's device is ``cuda:{local_rank}`` unless the caller names another;
 the backend is NCCL unless the caller names gloo. Nothing here picks the
@@ -52,8 +61,13 @@ AXIS_CP = "cp"
 AXIS_TP = "tp"
 AXIS_EP = "ep"
 MESH_AXES = (AXIS_DP, AXIS_CP, AXIS_EP, AXIS_TP)
+# the combined model-parallel axis: heads, dense MLP columns, vocabulary
+AXIS_MP = "mp"
+# a hybrid decode copy's cut: the intermediate axis over (tp, ep),
+# tp-major (the counterpart's moe.py:326-333)
+AXIS_TP_EP = "tp_ep"
 
-A13B = "ROADMAP A13b"
+A13C = "ROADMAP A13c"
 
 
 @dataclass(frozen=True)
@@ -62,6 +76,10 @@ class MeshConfig:
     cp: int = 1
     dp: int = 1
     ep: int = 1
+
+    @property
+    def world_size(self) -> int:
+        return self.dp * self.cp * self.ep * self.tp
 
 
 @dataclass(frozen=True)
@@ -90,21 +108,51 @@ def topology_from_env() -> Topology:
 
 
 class Mesh:
-    """One rank's view of the tensor-parallel world.
+    """One rank's view of the model-parallel world.
 
-    ``group`` is the tp process group (``None`` = the default group),
-    ``rank`` this process's rank in it, ``tp`` its size, ``backend``
-    "nccl" or "gloo", ``device`` the rank's device. ``src`` is the global
-    rank of the group's rank 0, the host that plans every dispatch."""
+    ``group`` is the process group of the ``mp = ep·tp`` ranks (``None`` =
+    the default group), ``rank`` this process's rank in it, ``tp`` and
+    ``ep`` the two axes' extents, ``backend`` "nccl" or "gloo", ``device``
+    the rank's device. ``src`` is the global rank of the group's rank 0,
+    the host that plans every dispatch."""
 
     def __init__(self, group, backend: str, device: torch.device,
-                 rank: int, tp: int, src: int = 0):
+                 rank: int, tp: int, src: int = 0, ep: int = 1):
         self.group = group
         self.backend = backend
         self.device = torch.device(device)
         self.rank = rank
         self.tp = tp
+        self.ep = ep
         self.src = src
+
+    @property
+    def mp(self) -> int:
+        """Ranks of the model-parallel group: heads, dense MLP columns and
+        the vocabulary are cut over all of them."""
+        return self.tp * self.ep
+
+    @property
+    def ep_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    def cut(self, axis_name: str) -> Tuple[int, int]:
+        """(degree, index) of this rank along a mesh axis: ``"mp"`` (the
+        rank), ``"ep"``, ``"tp"``, or ``"tp_ep"`` (the hybrid decode
+        copy's index ``tp_rank·ep + ep_rank`` of ``mp``)."""
+        if axis_name == AXIS_MP:
+            return self.mp, self.rank
+        if axis_name == AXIS_EP:
+            return self.ep, self.ep_rank
+        if axis_name == AXIS_TP:
+            return self.tp, self.tp_rank
+        if axis_name == AXIS_TP_EP:
+            return self.mp, self.tp_rank * self.ep + self.ep_rank
+        raise ValueError(f"unknown mesh axis {axis_name!r}")
 
     @property
     def host_route(self) -> bool:
@@ -123,17 +171,17 @@ class Mesh:
             torch.cuda.synchronize(self.device)
 
     def __repr__(self) -> str:
-        return (f"Mesh(tp={self.tp}, rank={self.rank}, "
+        return (f"Mesh(ep={self.ep}, tp={self.tp}, rank={self.rank}, "
                 f"backend={self.backend!r}, device={self.device})")
 
 
 def refuse_over_mesh(app, what: str) -> None:
-    """Raise :class:`ConfigurationError` naming ROADMAP A13b when ``app``
-    runs over a mesh of more than one rank (what this slice does not
-    serve at tp > 1)."""
+    """Raise :class:`ConfigurationError` naming ROADMAP A13c when ``app``
+    runs over a mesh of more than one rank (what the port does not serve
+    at tp > 1 yet)."""
     m = getattr(app, "mesh", None)
-    if m is not None and m.tp > 1:
-        raise ConfigurationError(f"{what} at tp > 1 waits for {A13B}")
+    if m is not None and m.mp > 1:
+        raise ConfigurationError(f"{what} at tp > 1 waits for {A13C}")
 
 
 def initialize_distributed(backend: str = "nccl", store=None,
@@ -159,18 +207,19 @@ def initialize_distributed(backend: str = "nccl", store=None,
 
 
 def _refuse_axes(cfg: MeshConfig) -> None:
-    bad = [f"{name}={v}" for name, v in (("cp", cfg.cp), ("dp", cfg.dp),
-                                         ("ep", cfg.ep)) if v > 1]
+    bad = [f"{name}={v}" for name, v in (("cp", cfg.cp), ("dp", cfg.dp))
+           if v > 1]
     if bad:
         raise ConfigurationError(
-            "the PyTorch port runs tensor parallelism only: "
-            + ", ".join(bad) + f" waits for {A13B}")
+            "the PyTorch port runs the ep and tp axes only: "
+            + ", ".join(bad) + f" waits for {A13C}")
 
 
 def build_mesh(cfg: MeshConfig, device=None,
                ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
-    """The tp mesh over the joined process group: ``ranks`` (default
-    0 .. tp - 1; a world larger than ``tp`` leaves the rest out of it).
+    """The (ep, tp) mesh over the joined process group: ``ranks``
+    (default 0 .. ep·tp - 1; a world larger than that leaves the rest out
+    of it), ``ranks[i]`` the mesh's rank ``i = ep_rank·tp + tp_rank``.
     Every process of the world must call it (a new group is a collective
     call); those outside ``ranks`` get None. ``device``: the rank's
     device (default ``cuda:{LOCAL_RANK}``)."""
@@ -178,11 +227,12 @@ def build_mesh(cfg: MeshConfig, device=None,
     if not dist.is_initialized():
         raise RuntimeError("initialize_distributed() first")
     world = dist.get_world_size()
-    ranks = list(range(cfg.tp)) if ranks is None else list(ranks)
-    if len(ranks) != cfg.tp or max(ranks) >= world:
+    n = cfg.ep * cfg.tp
+    ranks = list(range(n)) if ranks is None else list(ranks)
+    if len(ranks) != n or max(ranks) >= world:
         raise ConfigurationError(
-            f"a tp={cfg.tp} mesh needs {cfg.tp} of the world's {world} "
-            f"ranks, got {ranks}")
+            f"an ep={cfg.ep} x tp={cfg.tp} mesh needs {n} of the world's "
+            f"{world} ranks, got {ranks}")
     group = (None if ranks == list(range(world))
              else dist.new_group(ranks))
     me = dist.get_rank()
@@ -195,17 +245,23 @@ def build_mesh(cfg: MeshConfig, device=None,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     return Mesh(group, dist.get_backend(group), device, ranks.index(me),
-                cfg.tp, src=ranks[0])
+                cfg.tp, src=ranks[0], ep=cfg.ep)
 
 
 def mesh_from_config(tpu_config, device=None) -> Mesh:
-    """The mesh of a TpuConfig's parallelism degrees: ``tp_degree`` ranks
-    of tensor parallelism; cp, dp and ep above 1 are refused (A13b)."""
-    cfg = MeshConfig(tp=max(int(tpu_config.tp_degree), 1),
-                     cp=max(int(tpu_config.cp_degree), 1),
-                     dp=max(int(tpu_config.attention_dp_degree), 1),
-                     ep=max(int(tpu_config.ep_degree), 1))
-    return build_mesh(cfg, device)
+    """The mesh of a TpuConfig's parallelism degrees, as the counterpart
+    reads them (mesh.py:152-167): ``tp_degree`` counts every rank, and
+    ``ep_degree`` groups them, so the mesh is ep x (tp_degree / ep); cp
+    and dp above 1 are refused (A13c)."""
+    tp = max(int(tpu_config.tp_degree), 1)
+    cp = max(int(tpu_config.cp_degree), 1)
+    dp = max(int(tpu_config.attention_dp_degree), 1)
+    ep = max(int(tpu_config.ep_degree), 1)
+    _refuse_axes(MeshConfig(cp=cp, dp=dp))
+    if tp % ep:
+        raise ConfigurationError(f"tp_degree {tp} is not divisible by "
+                                 f"ep_degree {ep}")
+    return build_mesh(MeshConfig(tp=tp // ep, ep=ep), device)
 
 
 # ---------------------------------------------------------------------------

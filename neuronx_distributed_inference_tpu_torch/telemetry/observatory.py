@@ -222,11 +222,25 @@ _HLO_DTYPES = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
 
 
 def mesh_comm_labels(mesh) -> Dict[frozenset, str]:
-    """Replica-group signatures -> the mesh axis they ride (reference
-    :269): the port's one live axis, tp, over ranks 0 .. tp - 1."""
-    if mesh is None or mesh.tp <= 1:
+    """Replica-group signatures -> the mesh axes they ride (reference
+    :269) over the port's live axes, ep outside tp (rank r = ep_rank·tp +
+    tp_rank): ``{{0,1},{2,3}} -> "tp"``, ``{{0,2},{1,3}} -> "ep"``, the
+    whole group ``"ep+tp"`` at ep 2 x tp 2. Only axes with extent > 1
+    participate."""
+    if mesh is None or mesh.mp <= 1:
         return {}
-    return {frozenset([frozenset(range(mesh.tp))]): "tp"}
+    shape, names = (mesh.ep, mesh.tp), ("ep", "tp")
+    logical = np.arange(mesh.mp).reshape(shape)
+    live = [i for i, n in enumerate(shape) if n > 1]
+    out: Dict[frozenset, str] = {}
+    for bits in range(1, 1 << len(live)):
+        subset = [live[i] for i in range(len(live)) if bits & (1 << i)]
+        rest = [i for i in range(2) if i not in subset]
+        grouped = logical.transpose(rest + subset).reshape(
+            -1, int(np.prod([shape[i] for i in subset])))
+        sig = frozenset(frozenset(int(x) for x in row) for row in grouped)
+        out.setdefault(sig, "+".join(names[i] for i in subset))
+    return out
 
 
 def census_collectives(heard: List[Dict[str, Any]], mesh
@@ -235,7 +249,8 @@ def census_collectives(heard: List[Dict[str, Any]], mesh
     the fake copies: each op's kind, the axis it rides, its wire dtype,
     elements, element bytes, result bytes and group size."""
     labels = mesh_comm_labels(mesh)
-    comm = labels.get(frozenset([frozenset(range(mesh.tp))]), "other")
+    # every collective of a step rides the whole model-parallel group
+    comm = labels.get(frozenset([frozenset(range(mesh.mp))]), "other")
     return [{"kind": e["kind"], "comm": comm,
              "dtype": _HLO_DTYPES.get(e["dtype"], e["dtype"]),
              "bytes": e["elems"] * e["elem_bytes"], "elems": e["elems"],
@@ -555,8 +570,9 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
         "backend": app.device.type,
         "device": (torch.cuda.get_device_name(app.device)
                    if app.device.type == "cuda" else str(app.device)),
-        "mesh": ({"devices": mesh.tp,
-                  "axes": {"tp": mesh.tp} if mesh.tp > 1 else {}}
+        "mesh": ({"devices": mesh.mp,
+                  "axes": {a: n for a, n in (("ep", mesh.ep),
+                                             ("tp", mesh.tp)) if n > 1}}
                  if has_mesh else {"devices": 1, "axes": {}}),
         "assumptions": {"hbm_gbps": hbm_gbps, "peak_tflops": peak_tflops,
                         "ici_gbps": ici_gbps, "dcn_gbps": dcn_gbps},

@@ -9,23 +9,26 @@ float32 (numpy has no such dtypes) and are cast to the model dtype on
 placement. ``keep_dtypes=True`` returns the stored torch tensors instead,
 so a quantized checkpoint keeps its int8, uint8, ``float8_e4m3fn`` codes
 and fp32 scales (an fp8 code read as float32 would look like an int8 leaf
-to ``quantization._leaf_scheme``)."""
+to ``quantization._leaf_scheme``). ``skip`` names tensors not to read:
+each stands as zeros of its shape (an expert another rank holds)."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict
+import re
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
 SAFETENSORS_INDEX = "model.safetensors.index.json"
 
 
-def load_state_dict(model_path: str, keep_dtypes: bool = False
+def load_state_dict(model_path: str, keep_dtypes: bool = False,
+                    skip: Optional[Callable[[str], bool]] = None
                     ) -> Dict[str, Any]:
     if os.path.isfile(model_path):
-        return _load_one(model_path, keep_dtypes)
+        return _load_one(model_path, keep_dtypes, skip)
     idx = os.path.join(model_path, SAFETENSORS_INDEX)
     if os.path.exists(idx):
         with open(idx) as f:
@@ -33,15 +36,17 @@ def load_state_dict(model_path: str, keep_dtypes: bool = False
         out: Dict[str, Any] = {}
         for shard in sorted(set(index["weight_map"].values())):
             out.update(_load_one(os.path.join(model_path, shard),
-                                 keep_dtypes))
+                                 keep_dtypes, skip))
         return out
     st = os.path.join(model_path, "model.safetensors")
     if os.path.exists(st):
-        return _load_one(st, keep_dtypes)
+        return _load_one(st, keep_dtypes, skip)
     raise FileNotFoundError(f"no safetensors checkpoint under {model_path}")
 
 
-def _load_one(path: str, keep_dtypes: bool = False) -> Dict[str, Any]:
+def _load_one(path: str, keep_dtypes: bool = False,
+              skip: Optional[Callable[[str], bool]] = None
+              ) -> Dict[str, Any]:
     import torch
     from safetensors import safe_open
     if not path.endswith(".safetensors"):
@@ -49,6 +54,10 @@ def _load_one(path: str, keep_dtypes: bool = False) -> Dict[str, Any]:
     out = {}
     with safe_open(path, framework="pt") as f:
         for k in f.keys():
+            if skip is not None and skip(k):
+                out[k] = np.broadcast_to(np.zeros((), np.float32),
+                                         f.get_slice(k).get_shape())
+                continue
             t = f.get_tensor(k)
             if keep_dtypes:
                 out[k] = t
@@ -96,27 +105,81 @@ def save_state_dict_safetensors(state_dict: Dict[str, Any], path: str,
         json.dump({"metadata": {}, "weight_map": weight_map}, f)
 
 
+def expert_skip(num_experts: int, mesh) -> Optional[Callable[[str],
+                                                               bool]]:
+    """The checkpoint tensors a rank of ``mesh`` does not read: those of
+    an ``experts.{e}.`` outside its expert slice ``[ep_rank·E/ep,
+    (ep_rank + 1)·E/ep)``. None when the rank holds every expert."""
+    if mesh is None or mesh.ep == 1:
+        return None
+    n = num_experts // mesh.ep
+    lo = mesh.ep_rank * n
+    pat = re.compile(r"\.experts\.(\d+)\.")
+
+    def skip(name: str) -> bool:
+        m = pat.search(name)
+        return m is not None and not lo <= int(m.group(1)) < lo + n
+    return skip
+
+
+def _host_tensor(a):
+    """A host numpy array as a CPU tensor, without a copy where torch can
+    view it."""
+    import torch
+
+    from .jax_params import _BITCAST, tensor_from_numpy
+    a = np.asarray(a)
+    if a.dtype.name in _BITCAST or 0 in a.strides or not a.flags.writeable:
+        return tensor_from_numpy(a, torch.device("cpu"))
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
 def device_put_params(host: Dict[str, Any], spec, device, mesh=None
                       ) -> Dict[str, Any]:
     """A converted host tree (fused q/k/v, laid out for the full ``spec``)
     onto ``device``, leaf by leaf: cast to its ``ParamSpec`` dtype (the
     model dtype, fp32 for an MoE router), factorized and quantized as the
     spec asks (``model_base.convert_leaf``), and over a ``mesh`` cut to
-    the rank's slice (``quantization.shard_leaf``), so only one full leaf
-    is on the device beside the kept slices. Quantized leaf-groups keep
-    their own dtypes."""
-    from ..models.model_base import convert_leaf, decoder_param_specs
+    the rank's slice (``model_base.rank_leaves``). The cuts are made on
+    the host where conversion allows: every cut of a leaf that is not
+    converted, and the expert cut of one that is (quantization is per
+    expert), so the card holds the rank's slices and at most one
+    converted leaf of the rank's experts beside them; a rank never holds
+    another rank's experts. Quantized leaf-groups keep their own
+    dtypes."""
+    from ..models.model_base import (convert_leaf, decoder_param_specs,
+                                     rank_leaves)
     from ..modules.quantization import shard_leaf
-    from .jax_params import tensor_from_numpy
-    tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
+    from ..parallel.layers import EP, ParamSpec, resolve_cuts
 
-    def put(node, ps, name):
-        if isinstance(node, dict):
-            return {k: put(v, (ps or {}).get(k), k)
-                    for k, v in node.items()}
+    def converted(name):
+        return ((spec.quant is not None and spec.quant.converts(name))
+                or (spec.low_rank is not None
+                    and spec.low_rank.converts(name)))
+
+    def put_leaf(node, ps, name):
         dt = getattr(ps, "dtype", spec.dtype)
-        leaf = convert_leaf(spec, name, tensor_from_numpy(
-            np.asarray(node), device).to(dt))
-        return shard_leaf(leaf, getattr(ps, "split", None),
-                          getattr(ps, "parts", None), tp, rank)
-    return put(host, decoder_param_specs(spec), "")
+        cuts = ps.cuts if isinstance(ps, ParamSpec) else ()
+        parts = ps.parts if isinstance(ps, ParamSpec) else None
+        t = _host_tensor(node)
+        if mesh is None:
+            return {name: convert_leaf(spec, name, t.to(device).to(dt))}
+        if not converted(name):
+            return {k: v.to(device).to(dt) for k, v in rank_leaves(
+                spec, name, ps, t, mesh).items()}
+        t = shard_leaf(t, resolve_cuts([c for c in cuts if c[1] == EP],
+                                       None, mesh))
+        leaf = convert_leaf(spec, name, t.to(device).to(dt))
+        return rank_leaves(spec, name, ps, leaf, mesh, cuts=resolve_cuts(
+            [c for c in cuts if c[1] != EP], parts, mesh))
+
+    def put(node, ps):
+        out: Dict[str, Any] = {}
+        for k, v in node.items():
+            sub = (ps or {}).get(k)
+            if isinstance(v, dict):
+                out[k] = put(v, sub)
+            else:
+                out.update(put_leaf(v, sub, k))
+        return out
+    return put(host, decoder_param_specs(spec))

@@ -1,10 +1,13 @@
-"""Tensor parallelism over NCCL across cards, one spawned rank a card:
-Qwen2.5-72B's widths (``chip_smoke.QWEN25_72B``) cut to ``--layers``
-layers and served at each tp of ``--tp`` by phase 9's ragged engine and
-mix, the T = 1 steps replayed from CUDA graphs that hold their NCCL
-collectives. Each tp's streams are held to the same weights at tp 1 on
-card 0 by ``chip_smoke``'s teacher-deficit gate with its shifted control
-(as phase 28 (b) holds its gloo ranks).
+"""Tensor and expert parallelism over NCCL across cards, one spawned rank
+a card: Qwen2.5-72B's widths (``chip_smoke.QWEN25_72B``) cut to
+``--layers`` layers, or with ``--ep N`` Qwen3-235B-A22B's
+(``chip_smoke.QWEN3_235B_A22B``, experts cut over ep N and their
+intermediate over tp_degree / N), served at each tp_degree of ``--tp``
+(the world's size) by phase 9's ragged engine and mix, the T = 1 steps
+replayed from CUDA graphs that hold their NCCL collectives. Each world's
+streams are held to the same weights at tp 1 on card 0 by
+``chip_smoke``'s teacher-deficit gate with its shifted control (as
+phases 28 (b) and 29 (a) hold their gloo ranks).
 
 Prints one JSON line a measurement, each world's as soon as it returns:
 each tp's rank 0 dispatch records
@@ -15,7 +18,8 @@ other ranks idle between two barriers) against its bound and SDPA; then
 the card's name and power limit.
 
     python3 scripts/torch_tp_nccl.py --tp 2,4          # on 4 cards
-    python3 scripts/torch_tp_nccl.py --device cpu --tiny --tp 2,4
+    python3 scripts/torch_tp_nccl.py --tp 4 --ep 2     # ep 2 x tp 2
+    python3 scripts/torch_tp_nccl.py --device cpu --tiny --tp 2,4 [--ep 2]
                                                        # CPU rehearsal
 
 The CPU rehearsal runs gloo ranks at tiny widths (no graphs, no kernel).
@@ -38,18 +42,28 @@ import chip_smoke as cs  # noqa: E402
 TINY = dict(cs.QWEN25_72B, hidden_size=256, num_attention_heads=8,
             num_key_value_heads=4, intermediate_size=512, vocab_size=1024,
             num_hidden_layers=2)
+TINY_MOE = dict(cs.QWEN3_235B_A22B, hidden_size=256, num_attention_heads=8,
+                num_key_value_heads=4, head_dim=32, moe_intermediate_size=64,
+                num_experts=8, num_experts_per_tok=2, vocab_size=1024,
+                num_hidden_layers=2)
 TINY_CFG = dict(cs.RAGGED, lens=(37, 100, 60, 150), seq_len=256, chunk=64,
                 block=32)
 WORLD_TIMEOUT_S = 300         # a world of the 8-layer cut: ~1 min
 
 
-def rank_serve(mesh, hf, cfg, prompts, new_tokens):
-    """One rank: the ragged app over ``mesh`` (graphs on the card), the
-    weights drawn whole and cut to the rank's slice; rank 0 warms and
-    serves phase 9's mix and times the paged kernel, the others follow.
-    Returns the rank's numbers (rank 0's with the streams)."""
+def rank_serve(mesh, hf, cfg, prompts, new_tokens, ep=1):
+    """One rank: the ragged app over the world's mesh cut into ep x
+    (world / ep) (graphs on the card), the weights drawn whole and cut to
+    the rank's slice; rank 0 warms and serves phase 9's mix and times the
+    paged kernel, the others follow. Returns the rank's numbers (rank
+    0's with the streams)."""
     import torch
     import torch.distributed as dist
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import (
+        MeshConfig, build_mesh)
+    if ep > 1:
+        mesh = build_mesh(MeshConfig(tp=mesh.tp // ep, ep=ep), mesh.device,
+                          ranks=range(mesh.tp))
     dev = mesh.device
     on_card = dev.type == "cuda"
     app = cs.make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
@@ -58,15 +72,19 @@ def rank_serve(mesh, hf, cfg, prompts, new_tokens):
     out = {"rank": mesh.rank, "weight_bytes": cs.param_bytes(app.params),
            "heads": [app.spec.gqa.num_q_heads, app.spec.gqa.num_kv_heads]}
     with cs.CollectiveSpy() as spy:
+        # the warm-up ends the followers' first loop, so every rank counts
+        # the served launches only
         if mesh.rank == 0:
-            cs.warm(app, f"tp{mesh.tp}_nccl", chunk_tokens=cfg["chunk"])
+            cs.warm(app, f"tp{mesh.mp}_nccl", chunk_tokens=cfg["chunk"])
+            app.stop_followers()
             snap = {}
             with cs.PagedArgsSpy() as pspy:
                 streams, recs, ttft, launches, steps = cs.tp_serve(
-                    app, prompts, cfg, new_tokens, f"tp{mesh.tp}_nccl",
+                    app, prompts, cfg, new_tokens, f"tp{mesh.mp}_nccl",
                     cs._sync(dev), snap=snap)
             app.stop_followers()
         else:
+            app.follow()
             cs.reset_launches([app])
             app.follow()
             launches = cs.kernel_counts([app])["paged_decode_attention"]
@@ -144,7 +162,12 @@ def main(argv=None) -> int:
         spawn_world
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--tp", default="2,4")
-    p.add_argument("--layers", type=int, default=cs.TP_SERVE_LAYERS)
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert parallelism: Qwen3-235B-A22B's widths, "
+                        "experts over ep, each world ep x (tp / ep)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="depth cut (default: phase 28's, or phase 29's "
+                        "with --ep)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--tiny", action="store_true",
                    help="tiny widths (a CPU rehearsal)")
@@ -155,8 +178,15 @@ def main(argv=None) -> int:
                     or torch.cuda.device_count() < max(tps)):
         print(f"torch_tp_nccl: needs {max(tps)} cards", file=sys.stderr)
         return 2
-    hf = dict(TINY if args.tiny else cs.QWEN25_72B,
-              num_hidden_layers=args.layers)
+    moe = args.ep > 1
+    layers = args.layers or (cs.EP_SERVE_LAYERS if moe
+                             else cs.TP_SERVE_LAYERS)
+    if moe:
+        hf = dict(TINY_MOE if args.tiny else cs.QWEN3_235B_A22B,
+                  num_hidden_layers=layers)
+    else:
+        hf = dict(TINY if args.tiny else cs.QWEN25_72B,
+                  num_hidden_layers=layers)
     cfg = TINY_CFG if args.tiny else cs.RAGGED
     new_tokens = 6 if args.tiny else cs.RAGGED_TOKENS
     if on_card:
@@ -168,22 +198,31 @@ def main(argv=None) -> int:
     # tp 1 on card 0: the weights every world's streams are held to
     device = torch.device("cuda:0" if on_card else "cpu")
     ref = cs.make_ragged_app(hf, device, "bfloat16", cfg, graphs=False)
-    cs.init_weights(ref, 0)
+    # the vocabulary padded as the worlds pad it: the same draw as their
+    # ranks' (every world here must pad alike)
+    from neuronx_distributed_inference_tpu_torch.models.model_base import \
+        pad_vocab
+    pads = {pad_vocab(hf["vocab_size"], tp) for tp in tps}
+    if len(pads) != 1:
+        print(f"torch_tp_nccl: the worlds pad the vocabulary to {pads}",
+              file=sys.stderr)
+        return 2
+    cs.init_weights(cs.pad_vocab_to(ref, max(tps)), 0)
     a_bytes = cs.param_bytes(ref.params)
     teacher = cs.make_contiguous_app(hf, device, "bfloat16", batch=8,
                                      seq_len=cfg["seq_len"],
                                      output_logits=True, graphs=on_card)
+    cs.pad_vocab_to(teacher, max(tps))
     teacher.params = ref.params
-    layers = hf["num_hidden_layers"]
     failed = []
     for tp in tps:
-        phase = f"tp{tp}_nccl"
+        phase = f"tp{tp}_ep{args.ep}_nccl" if moe else f"tp{tp}_nccl"
         t0 = time.perf_counter()
         try:
             ranks = spawn_world(rank_serve, tp,
                                 "nccl" if on_card else "gloo", args.device,
                                 tmpdir, WORLD_TIMEOUT_S,
-                                (hf, cfg, prompts, new_tokens))
+                                (hf, cfg, prompts, new_tokens, args.ep))
         except RuntimeError as e:
             cs.emit({"phase": phase + "_failed", "error": str(e)[-4000:]})
             failed.append(phase)

@@ -199,18 +199,25 @@ def test_group_ends_and_grouped_mm_match_a_loop():
 
 @pytest.mark.parametrize("case", ["tkg_experts_local", "quantized_leaf"])
 def test_unported_expert_layouts_raise(case):
-    """``tkg_experts_local`` (ROADMAP A13) raises ConfigurationError
-    instead of running, on both expert paths. A quantized expert leaf
-    (int8 per-channel ``expert_up``, the reference's quantizer) no longer
-    raises: both paths match the JAX block on the same leaf."""
+    """``tkg_experts_local`` (the hybrid decode layout, a layout across a
+    mesh, ROADMAP A13b) no longer raises: on one card it keeps the stored
+    layout and both paths match the JAX block with the knob on. A
+    quantized expert leaf (int8 per-channel ``expert_up``, the
+    reference's quantizer) does not raise either: both paths match the
+    JAX block on the same leaf."""
     w = {k: torch.from_numpy(v) for k, v in _weights(12).items()}
     x = torch.from_numpy(_x(13))
     if case == "tkg_experts_local":
         for dense_max in (64, 0):
-            with pytest.raises(ConfigurationError, match="A13"):
-                tmoe.moe_block(_spec(tmoe, dense_max_tokens=dense_max,
-                                     tkg_experts_local=True),
-                               x, w, phase="decode")
+            want = jmoe.moe_block(
+                _spec(jmoe, dense_max_tokens=dense_max,
+                      tkg_experts_local=True), jnp.asarray(x.numpy()),
+                jax.tree.map(jnp.asarray, _weights(12)), phase="decode")
+            got = tmoe.moe_block(_spec(tmoe, dense_max_tokens=dense_max,
+                                       tkg_experts_local=True),
+                                 x, w, phase="decode")
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **EXPERT_TOL)
         return
     host = _weights(12)
     host["expert_up"] = jq.quantize_tensor(host["expert_up"], jq.QuantSpec())

@@ -340,10 +340,11 @@ def test_reference_refusals_hold(case):
 
 def test_port_only_refusals_and_accepted_moe_configs():
     """The port runs an MoEConfig whose degrees are all None or 1 (the
-    reference's ``MoETpuConfig`` at tp = 1); ``moe_tkg_ep_degree=1``
-    (``tkg_experts_local``, a mesh re-layout) and a degree above 1 (the
-    reference ignores ``moe_ep_degree`` at tp = 1; the port has no mesh to
-    honour it) raise ConfigurationError naming ROADMAP A13; a mixed stack
+    reference's ``MoETpuConfig`` at tp = 1) and ``moe_tkg_ep_degree=1``
+    (``tkg_experts_local``: the hybrid decode layout, the stored one on
+    one card); a degree the mesh does not have (the reference ignores
+    ``moe_ep_degree``; the port holds it to the mesh's ep) raises
+    ConfigurationError naming ROADMAP A13; a mixed stack
     of leading dense layers (``first_dense``) builds, and so does an
     interleaved dense / MoE stack (``moe_pattern``), whose layer stacks
     follow the pattern's runs. Mixtral's window below ``seq_len`` takes
@@ -354,7 +355,11 @@ def test_port_only_refusals_and_accepted_moe_configs():
         **QWEN3_MOE), device="cpu")
     assert ok.spec.moe.num_experts == 4 and ok.spec.qk_norm
     assert ok.spec.intermediate_size == 48 and ok.spec.q_size == 64
-    for mc in (MoEConfig(moe_tkg_ep_degree=1), MoEConfig(moe_ep_degree=2)):
+    hybrid = TpuQwen3MoeForCausalLM(None, cls(TpuConfig(
+        batch_size=1, seq_len=32, moe_config=MoEConfig(
+            moe_tkg_ep_degree=1)), **QWEN3_MOE), device="cpu")
+    assert hybrid.spec.moe.tkg_experts_local
+    for mc in (MoEConfig(moe_ep_degree=2),):
         with pytest.raises(ConfigurationError, match="A13"):
             TpuQwen3MoeForCausalLM(None, cls(TpuConfig(
                 batch_size=1, seq_len=32, moe_config=mc), **QWEN3_MOE),

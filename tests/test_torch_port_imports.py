@@ -44,7 +44,8 @@ SERVING_MODULES = [port.__name__ + "." + m for m in (
     "models.contrib", "models.contrib2", "models.contrib3",
     "models.speculation", "modules.token_tree", "utils.hf_adapter",
     "parallel.mesh", "parallel.collectives", "parallel.layers",
-    "parallel.dispatch")]
+    "parallel.dispatch", "config", "telemetry.observatory",
+    "models.deepseek", "models.deepseek.modeling_deepseek")]
 
 
 def _port_modules():

@@ -9,7 +9,7 @@ At tp 4 the two KV heads are replicated, at tp 8 the four query heads are
 padded to 8 (tests/test_gqa_sharding.py:25-37), so a wrong cut of the
 fused q/k/v or of the padded heads parts the streams. Port tp N also
 equals port tp 1 token for token. The refusals of the slice (ROADMAP
-A13b) raise ``ConfigurationError`` without a world."""
+A13c) raise ``ConfigurationError`` without a world."""
 
 import numpy as np
 import pytest
@@ -113,11 +113,19 @@ def _tiny_config(**tcfg):
     "moe_degree", "lora", "speculation", "bad_wire"])
 def test_a13b_refusals_raise(case):
     """What tensor parallelism does not serve yet raises
-    ConfigurationError (ROADMAP A13b): the cp / dp / ep degrees, sequence
-    parallelism, flash decoding, an MoE degree, multi-LoRA and speculation
-    at tp > 1; a wire dtype outside int8 / fp8 is refused at any tp."""
+    ConfigurationError (ROADMAP A13c since expert parallelism landed):
+    the cp / dp degrees, sequence parallelism, flash decoding, an MoE
+    degree the mesh does not have, multi-LoRA and speculation at tp > 1;
+    a wire dtype outside int8 / fp8 is refused at any tp. The ep degree
+    runs now: an ep that does not divide tp_degree is refused."""
+    if case == "ep":
+        model_base.spec_from_config(_tiny_config(ep_degree=2), tp_degree=2)
+        with pytest.raises(ConfigurationError, match="not divisible"):
+            mesh_from_config(TpuConfig(**dict(TCFG, tp_degree=2,
+                                              ep_degree=3)))
+        return
     over = {"cp": dict(cp_degree=2), "attention_dp":
-            dict(attention_dp_degree=2), "ep": dict(ep_degree=2),
+            dict(attention_dp_degree=2),
             "sequence_parallel": dict(sequence_parallel_enabled=True),
             "flash_decoding": dict(flash_decoding_enabled=True),
             "moe_degree": dict(moe_config=MoEConfig(moe_tp_degree=2)),
@@ -128,12 +136,11 @@ def test_a13b_refusals_raise(case):
                 dtype="int4"))}[case]
     with pytest.raises(ConfigurationError):
         model_base.spec_from_config(_tiny_config(**over), tp_degree=2)
-    if case in ("cp", "attention_dp", "ep"):
-        with pytest.raises(ConfigurationError, match="A13b"):
+    if case in ("cp", "attention_dp"):
+        with pytest.raises(ConfigurationError, match="A13c"):
             build_mesh(MeshConfig(tp=2, **{
-                "cp": dict(cp=2), "attention_dp": dict(dp=2),
-                "ep": dict(ep=2)}[case]))
-        with pytest.raises(ConfigurationError, match="A13b"):
+                "cp": dict(cp=2), "attention_dp": dict(dp=2)}[case]))
+        with pytest.raises(ConfigurationError, match="A13c"):
             mesh_from_config(TpuConfig(**dict(TCFG, **over)))
 
 

@@ -168,7 +168,7 @@ def equal_ring_copies():
     ring = collectives.quantized_all_reduce
 
     def equal(x, mesh, *, dtype="int8", block=collectives.DEFAULT_BLOCK):
-        g, r = mesh.tp, mesh.rank
+        g, r = mesh.mp, mesh.rank
         blk = collectives._resolve_block(x.shape[-1] // g, block)
         cur = collectives._ring_reduce_scatter(x, mesh, dtype, blk)
         q, scale = collectives._quantize_wire(cur, dtype, blk)
