@@ -42,7 +42,7 @@ nvcc per source, all started together), then:
      a torch.profiler trace of the decode steps (device time by kernel,
      device idle share);
   6. the contiguous path (the README's entry point), bf16, Mistral-7B-v0.1
-     geometry at full width cut to 16 of its 32 layers with random
+     geometry at full width cut to 8 of its 32 layers with random
      weights from seed 0:
      ``CausalLMApplication.generate`` of 64 new tokens for 4 prompts with
      ``attn_kernel_enabled=True``, after ``precompile`` (decode replays a
@@ -126,10 +126,10 @@ nvcc per source, all started together), then:
      (ragged), fp32 (TF32 off) and bf16, held to a straightforward fp32
      loop over each token's selected experts with its own routing, dense
      and ragged held to each other, and the device time of each path;
-     (c) phase 9's engine, schedule and prompts at full width, 24 of the
-     48 layers (31 GB of bf16 weights, built only once earlier groups
+     (c) phase 9's engine, schedule and prompts at full width, 12 of the
+     48 layers (built only once earlier groups
      freed the card) with phase 9's gates (one dispatch and one fetch a
-     pass, paged launches = 24 x all-decode steps, no incident, full
+     pass, paged launches = 12 x all-decode steps, no incident, full
      streams) and the
      MoE blocks' share of the traced passes; (d) phase 10 at 4 layers
      (fp32, TF32 off: ragged == graphs == two-phase == ``generate``) and
@@ -168,7 +168,7 @@ nvcc per source, all started together), then:
      the flash kernel at Mistral-7B-v0.1's heads at window 4096 over S
      8192, B 2, each against its twin, timed beside the twin, SDPA and its
      bound; (b) gpt-oss-20b through ``TpuGptOssForCausalLM`` (the
-     contiguous app) at full width cut to LONG_OSS_LAYERS (8) layers,
+     contiguous app) at full width cut to LONG_OSS_LAYERS (4) layers,
      ``seq_len`` 32768, so the
      mixed per-layer cache (global rows of 32768 slots, local rows rolling
      at 128), batch 4, prompts of 200-2000 tokens, 128 new tokens, after
@@ -229,8 +229,8 @@ nvcc per source, all started together), then:
      ``dequantize``, ``qlinear``, ``qmatmul`` and ``qeinsum`` on the card held
      to the fp64 product of the dequantized weight (TF32 off), each with a
      control that applies the scales along the wrong axis; (b) gpt-oss-20b with
-     in-graph MXFP4 experts at full width cut to 8 layers on
-     phase 15's engine (its gates; paged launches = 8 x all-decode steps;
+     in-graph MXFP4 experts at full width cut to 4 layers on
+     phase 15's engine (its gates; paged launches = 4 x all-decode steps;
      weight bytes equal to the geometry's; the MoE blocks' share); (c)
      Llama-3.1-8B cut to 16 layers with int8 per-channel weights and the
      scaled fp8 KV cache on phase 9's engine (its gates, paged launches = 16
@@ -245,8 +245,8 @@ nvcc per source, all started together), then:
      the dequantized weights give the same streams, its logits within
      TOL_QUANT_TWIN_REL and the control beyond TOL_QUANT_CONTROL_REL; (e)
      Llama-3.2-1B with ``mlp_low_rank`` 512 and int8 factors at full width cut
-     to 8 layers on the paged app (``generate`` after
-     ``precompile``, paged launches = 8 x 63, MLP bytes against
+     to 4 layers on the paged app (``generate`` after
+     ``precompile``, paged launches = 4 x 63, MLP bytes against
      ``compression_report``), and at a 4-layer fp32 cut full rank against the
      dense app (streams equal, logits within TOL_LOW_RANK_FULL_REL, the
      half-rank control parting).
@@ -320,8 +320,8 @@ nvcc per source, all started together), then:
      each timed beside its twin, SDPA and the bound; (b) GLM-4.5-Air
      (zai-org/GLM-4.5-Air: hidden 4096, partial rotary 0.5, q/k/v bias,
      128 experts of 1408, top 8, one shared, sigmoid router with the
-     correction bias, the first layer dense) cut to 10 layers (45.13 GB
-     of bf16 weights, gated equal to the geometry's) on 20 (d)'s engine
+     correction bias, the first layer dense) cut to 6 layers (bf16
+     weights gated equal to the geometry's) on 20 (d)'s engine
      and schedule: phase 9's gates, every paged launch at G 12 and window
      0, the streams held to ``generate`` as in 20 (b); (c) Phi-3.5-MoE
      (microsoft/Phi-3.5-MoE-instruct: 16 experts of 6400, top 2,
@@ -516,16 +516,16 @@ nvcc per source, all started together), then:
 
  28. tensor parallelism (group ``tp``), Qwen2.5-72B widths (hidden 8192,
      64 q / 8 KV heads of 128, intermediate 29568, vocab 152064, q/k/v
-     biases) cut to 4 of 80 layers, random weights from seed 0: (a) world
+     biases) cut to 2 of 80 layers, random weights from seed 0: (a) world
      size 1 over NCCL in this process: phase 9's ragged engine and mix on
      the app over the mesh (its T = 1 graphs captured with the model's
      collectives inside) and on the same weights without a process group:
-     streams bit for bit equal, paged launches = 4 x the all-decode steps;
+     streams bit for bit equal, paged launches = 2 x the all-decode steps;
      host and device ms, idle share; (b) two ranks spawned on the one card
      over gloo (``parallel.mesh.spawn_world``, every step eager; rank 0
      plans, rank 1 follows its dispatch records): each rank's weight bytes
      at most 0.51 of (a)'s plus its replicated leaves, Hq 32 / Hkv 4 a
-     rank (its cache and every paged launch at group 8), launches = 4 x
+     rank (its cache and every paged launch at group 8), launches = 2 x
      the all-decode steps on both ranks, the streams held to (a)'s weights
      by the teacher-deficit gate with its shifted control; the paged
      kernel at the ranks' shapes; (c) an fp32 2-layer cut on the
@@ -536,11 +536,11 @@ nvcc per source, all started together), then:
      tokens with decode logits within 3% of theirs.
  29. expert parallelism (group ``ep``), Qwen3-235B-A22B widths (hidden
      4096, 64 q / 4 KV heads of 128, 128 experts of 1536 of which 8 per
-     token, vocab 151936) cut to 4 of 94 layers, random weights from seed
+     token, vocab 151936) cut to 2 of 94 layers, random weights from seed
      0, two ranks spawned on the one card over gloo, every step eager:
      (a) ep 2 (``tp_degree=2, ep_degree=2``): phase 9's ragged engine and
      mix; each rank's expert bytes at most 0.51 of the model's, Hq 32 /
-     Hkv 2 a rank (every paged launch at group 16), launches = 4 x the
+     Hkv 2 a rank (every paged launch at group 16), launches = 2 x the
      all-decode steps on both ranks, one all-reduce a MoE block, the
      streams held to a one-process app of the same weights by the
      teacher-deficit gate with its shifted control; the paged kernel at
@@ -552,9 +552,31 @@ nvcc per source, all started together), then:
      1, logits within atol 2e-3 / rtol 1e-3; on Qwen3-235B-A22B flash once
      a layer and the contiguous decode kernel at every layer of every
      step on each rank's local heads (timed there), Moonlight no launch.
+ 30. attention data parallelism and the cp axis (group ``dp``),
+     Qwen2.5-72B widths, random weights from seed 0, every rank on the
+     one card over gloo, every step eager: (a) dp 2 x tp 2
+     (``tp_degree=4, attention_dp_degree=2``, four ranks), 4 of 80 layers:
+     phase 9's ragged engine and mix, each replica running its 4 rows of
+     a step and writing every row's K/V into its pages; Hq 32 / Hkv 4 a
+     rank, paged launches = 4 x the all-decode steps on every rank, each
+     at a replica's rows, the streams held to a one-process app of the
+     same weights by the teacher-deficit gate with its shifted control;
+     the paged kernel at a replica's rows (the other ranks idle between
+     two barriers) beside its bound and SDPA; (b) ``tp_degree=4,
+     cp_degree=2`` with SP and flash decoding on the contiguous app, one
+     8192-token prompt: no kernel launch on any rank, half of the slots a
+     rank, the stream held to the one-process app by the deficit gate and
+     printed beside ``tp_degree=2``'s, time to the first token at both,
+     the cp gathers' bytes; (c) fp32 2-layer cuts with both kernels asked
+     for: at dp 2 x tp 2 flash once a layer and the contiguous decode
+     kernel at every layer of every step on each replica's 2 rows (timed
+     there), and the reference's combined mesh (``tp_degree=8`` with cp
+     2, dp 2, SP and flash decoding; eight ranks, Qwen2.5-7B's widths) with
+     no launch; tokens equal tp 1 and logits within atol 2e-3 / rtol 1e-3
+     in both.
 
 The fp32 comparisons (phases 2, 4, 8, 10, 13, 14, 15, 16, 17, 18, 19, 20,
-21, 22, 23, 24, 26, 27, 28, 29 and the fp32 app of 6)
+21, 22, 23, 24, 26, 27, 28, 29, 30 and the fp32 app of 6)
 turn TF32 off inside :func:`fp32_exact`, which restores the previous
 flags.
 
@@ -656,9 +678,13 @@ MOE_CONTIG_CHECK_LAYERS = 4
 #   14 (c) Qwen3-30B-A3B served at 24 of 48 layers; phases 6 and 7
 #   Mistral-7B-v0.1 at 16 of 32; 28 (a), (b) Qwen2.5-72B at 4 of 80
 #   (TP_SERVE_LAYERS). 14 (e) at 16 layers saved 3 s (logits-bound) and
-#   stays at 48.
-MOE_SERVE_LAYERS = 24
-CONTIG_MAIN_LAYERS = 16
+#   stays at 48. For phase 30's room (the whole script at 928.85 s before
+#   it, its group 92.85 s: PERF.md §4), each again keeping its phase's
+#   shapes and gates: 14 (c) at 12 layers, phases 6 and 7 at 8, 16 (b),
+#   (c) gpt-oss-20b at 4, 18 (b), (d) at 4, 18 (e) at 4, 21 (b)
+#   GLM-4.5-Air at 6, 28 (a), (b) and 29 (a), (b) at 2.
+MOE_SERVE_LAYERS = 12
+CONTIG_MAIN_LAYERS = 8
 # depth cuts for the room of phases 23, 24, 26 and 27, each keeping its
 # phase's per-layer shapes and gates: 16 (d), (e) Mistral-7B-v0.1 at 8 of
 # 32 layers; 17 (b), (c) Moonlight at 4 of 27 (the dense layer and 3
@@ -667,8 +693,8 @@ CONTIG_MAIN_LAYERS = 16
 # global pairs)
 LONG_MISTRAL_LAYERS = 8
 MLA_CUT = 4
-QUANT_OSS_LAYERS = 8
-QUANT_LOW_RANK_LAYERS = 8
+QUANT_OSS_LAYERS = 4
+QUANT_LOW_RANK_LAYERS = 4
 GEMMA2_CUT = 8
 # for phase 24's room: Llama-3.1-8B at 16 of its 32 layers in 18 (c), the
 #   Llama reading of 18 (d), 22 (a)-(d) and 23 (a)-(c), (e), each phase's
@@ -686,9 +712,9 @@ SPEC_K = 3                              # phases 12-13: drafts per step
 # (the mixed per-layer cache), Mistral-7B-v0.1 past its 4096-token window
 # (the rolling cache) and windowed context encoding
 OSS_LONG = dict(seq_len=32768, lens=(200, 700, 1300, 2000), new_tokens=128)
-# 16 (b), (c): gpt-oss-20b cut to 8 layers (4 global, 4 local) of its
-#   24, to keep the whole script's time with phases 21 and 27 in it
-LONG_OSS_LAYERS = 8
+# 16 (b), (c): gpt-oss-20b cut to 4 layers (2 global, 2 local) of its
+#   24, to keep the whole script's time with phases 21, 27 and 30 in it
+LONG_OSS_LAYERS = 4
 MISTRAL_ROLL = dict(seq_len=16384, lens=(5000, 6000), new_tokens=64)
 MISTRAL_WCTE = dict(seq_len=16384, window=2048, len=12000, new_tokens=32,
                     one_shot_len=4000)
@@ -960,9 +986,9 @@ DOTS_LLM1 = dict(
     routed_scaling_factor=2.5, attention_bias=False, vocab_size=152064,
     rms_norm_eps=1e-5, rope_theta=10000000.0, max_position_embeddings=32768,
     hidden_act="silu", tie_word_embeddings=False)
-# 21 (b): GLM-4.5-Air cut to 10 layers (1 dense + 9 MoE: 45.1 GB of bf16
-#   weights), on 20 (d)'s schedule (batch 4, 8192 slots a row)
-GLM_CUT = 10
+# 21 (b): GLM-4.5-Air cut to 6 layers (1 dense + 5 MoE), on 20 (d)'s
+#   schedule (batch 4, 8192 slots a row)
+GLM_CUT = 6
 GLM_SERVE = DBRX_SERVE
 # 21 (c): Phi-3.5-MoE cut to 4 layers (for phase 26's room), batch 4,
 #   4096 slots
@@ -1707,12 +1733,22 @@ def _phase_kernels(device):
 # Phase 3: main path
 # ---------------------------------------------------------------------------
 
+def mesh_degrees(mesh):
+    """The TpuConfig degrees of ``mesh``: ``tp_degree`` counts every rank
+    (dp·cp·ep·tp, as ``mesh_from_config`` reads it), and the cp, dp and ep
+    extents; one rank without a mesh."""
+    if mesh is None:
+        return dict(tp_degree=1)
+    return dict(tp_degree=mesh.size, ep_degree=mesh.ep, cp_degree=mesh.cp,
+                attention_dp_degree=mesh.dp)
+
+
 def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
              prefix_caching=True, output_logits=False, num_blocks=None,
              graphs=True, sampling=None, mesh=None, **tcfg_over):
     """A paged app of ``hf``'s geometry (``tcfg_over``: more TpuConfig
     fields, e.g. quantization or the KV cache dtype; ``mesh``: one rank of
-    a tensor-parallel mesh, at ``tp_degree`` = its size)."""
+    a mesh, at its degrees: :func:`mesh_degrees`)."""
     from neuronx_distributed_inference_tpu_torch.config import (
         OnDeviceSamplingConfig, TpuConfig)
     from neuronx_distributed_inference_tpu_torch.models.application import \
@@ -1729,9 +1765,7 @@ def make_app(hf, device, dtype, *, batch, seq_len, kernel=None,
                      on_device_sampling_config=(
                          OnDeviceSamplingConfig(**sampling) if sampling
                          else None),
-                     tp_degree=mesh.mp if mesh is not None else 1,
-                     ep_degree=mesh.ep if mesh is not None else 1,
-                     **tcfg_over)
+                     **mesh_degrees(mesh), **tcfg_over)
     app = PagedCausalLMApplication(None, family.config_cls(tcfg, **hf),
                                    family, device=device, cuda_graphs=graphs,
                                    mesh=mesh)
@@ -2295,9 +2329,7 @@ def make_contiguous_app(hf, device, dtype, *, batch, seq_len, kernels=True,
                      rolling_kv_cache=rolling, output_logits=output_logits,
                      is_continuous_batching=cb,
                      windowed_context_encoding=wcte,
-                     tp_degree=mesh.mp if mesh is not None else 1,
-                     ep_degree=mesh.ep if mesh is not None else 1,
-                     **tcfg_over)
+                     **mesh_degrees(mesh), **tcfg_over)
     app = CausalLMApplication(None, family.config_cls(tcfg, **hf), family,
                               device=device, cuda_graphs=graphs, mesh=mesh)
     return app.init_cache()
@@ -11137,7 +11169,7 @@ QWEN25_72B = dict(
     vocab_size=152064, rms_norm_eps=1e-6, rope_theta=1000000.0,
     max_position_embeddings=32768, hidden_act="silu",
     tie_word_embeddings=False)
-TP_SERVE_LAYERS = 4        # 80 -> 4: ~12 GB of bf16
+TP_SERVE_LAYERS = 2        # 80 -> 2: ~8.5 GB of bf16
 #                            weights at tp 1
 TP_CHECK_LAYERS = 2        # (c): the fp32 cut
 TP_WORLD_TIMEOUT_S = 400   # the two spawned ranks, init and join
@@ -11340,7 +11372,7 @@ def tp_rank(mesh, hf, cfg, prompts, new_tokens, cut, check_cfg, ids, mask,
     from neuronx_distributed_inference_tpu_torch.models import model_base
     dev = mesh.device
     on_card = dev.type == "cuda"
-    lead = mesh.rank == 0
+    lead = mesh.leads
     out = {"rank": mesh.rank}
     app = make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
                           graphs=False)
@@ -11650,7 +11682,7 @@ QWEN3_235B_A22B = dict(
     decoder_sparse_step=1, mlp_only_layers=[], rms_norm_eps=1e-6,
     rope_theta=1000000.0, max_position_embeddings=40960, hidden_act="silu",
     sliding_window=None, tie_word_embeddings=False)
-EP_SERVE_LAYERS = 4        # 94 -> 4: 19.33 GB of bf16 experts, 2.49 GB of
+EP_SERVE_LAYERS = 2        # 94 -> 2: 9.66 GB of bf16 experts, 2.49 GB of
 #                            embedding and head
 EP_CHECK_LAYERS = 2        # (c): the fp32 cuts
 EP_WORLD_TIMEOUT_S = 600   # the two spawned ranks, init and join
@@ -11693,7 +11725,7 @@ def ep_serve_rank(mesh, hf, cfg, prompts, new_tokens, tkg):
     from neuronx_distributed_inference_tpu_torch.config import MoEConfig
     dev = mesh.device
     on_card = dev.type == "cuda"
-    lead = mesh.rank == 0
+    lead = mesh.leads
     over = ({} if not tkg else
             {"moe_config": MoEConfig(moe_tkg_ep_degree=1)})
     app = make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
@@ -11746,7 +11778,7 @@ def ep_fp32_rank(mesh, model, check_cfg, ids, mask, check_new, kernels):
     launches' shapes."""
     import numpy as np
     dev = mesh.device
-    lead = mesh.rank == 0
+    lead = mesh.leads
     lens = [int(n) for n in mask.sum(axis=1)]
     out = {}
     with fp32_exact():
@@ -11992,10 +12024,469 @@ def phase_ep(device, hf=None, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: attention data parallelism and the cp axis
+# ---------------------------------------------------------------------------
+
+DP_SERVE_LAYERS = 4        # (a), (b): phase 28's Qwen2.5-72B cut
+DP_CHECK_LAYERS = 2        # (c): the fp32 cuts
+# (b): one long prompt, context-parallel prefill with SP, flash decoding
+DP_LONG = dict(len=8192, new_tokens=8, seq_len=8448)
+# (c2): the reference's combined mesh at world 8 (eight ranks on the one
+#   card: Qwen2.5-7B's widths, as Qwen2.5-72B's fp32 cut takes ~8.5 GB a
+#   rank at mp 2)
+DP_WORLD_TIMEOUT_S = 600   # each spawned world, init and join
+DP_BUDGET_S = 150
+
+
+def dp_mesh(mesh, tp_degree, dp=1, cp=1):
+    """The dp x cp x (tp_degree / (dp·cp)) mesh over the world's first
+    ``tp_degree`` ranks (every rank calls it; the others get None)."""
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import (
+        MeshConfig, build_mesh)
+    return build_mesh(MeshConfig(tp=tp_degree // (dp * cp), dp=dp, cp=cp),
+                      mesh.device, ranks=range(tp_degree))
+
+
+class GatherSpy:
+    """The dp and cp gathers (``collectives.gather_dim`` over "dp" or "cp",
+    which the steps call by module attribute): each one's output bytes,
+    in order, by axis."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.parallel import \
+            collectives as coll
+        self._coll, self._orig = coll, coll.gather_dim
+        self.calls = {}
+
+        def spy(x, mesh, axis="mp", dim=-1):
+            out = self._orig(x, mesh, axis, dim)
+            self.calls.setdefault(axis, []).append(
+                out.numel() * out.element_size())
+            return out
+        coll.gather_dim = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._coll.gather_dim = self._orig
+
+
+def _lead_generate(app, mesh, ids, mask, new, **kw):
+    """The mesh's rank 0 runs ``generate`` and stops the followers, the
+    others follow; returns rank 0's result (None elsewhere)."""
+    if mesh.leads:
+        r = app.generate(ids, attention_mask=mask, max_new_tokens=new, **kw)
+        app.stop_followers()
+        return r
+    app.follow()
+    return None
+
+
+def dp_serve_rank(mesh, hf, cfg, prompts, new_tokens):
+    """30 (a) on one rank of dp 2 x tp 2 (four ranks on the one card over
+    gloo, every step eager): the mesh's rank 0 serves phase 9's engine and
+    mix, each dp replica running its rows of every step, the others
+    follow; then rank 0 times the paged kernel at its replica's rows and
+    its heads while the others wait between two barriers."""
+    import torch
+    import torch.distributed as dist
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    app = make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh, graphs=False)
+    init_weights(app, 0)
+    out = {"index": mesh.index, "dp_rank": mesh.dp_rank,
+           "weight_bytes": param_bytes(app.params),
+           "heads": [app.spec.gqa.num_q_heads, app.spec.gqa.num_kv_heads]}
+    reset_launches([app])
+    with PagedArgsSpy() as spy, GatherSpy() as gat:
+        if mesh.leads:
+            snap = {}
+            streams, recs, ttft, _, steps = tp_serve(
+                app, prompts, cfg, new_tokens, "dp_serving", _sync(dev),
+                snap=snap)
+            app.stop_followers()
+        else:
+            app.follow()
+    out.update(launches=kernel_counts([app])["paged_decode_attention"],
+               rows=sorted({i[0] for i in spy.ints}), gathers=gat.calls)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    dist.barrier(group=mesh.world_group)
+    if mesh.leads:
+        out.update(streams=streams, steps=steps, groups=sorted(spy.groups),
+                   passes_by_kind={k: sum(1 for r in recs if r["kind"] == k)
+                                   for k in ("mixed", "decode", "idle")},
+                   host_ms_decode=pass_summary(recs, "decode"),
+                   host_ms_mixed=pass_summary(recs, "mixed"),
+                   ttft_s=[ttft.get(i) for i in range(len(prompts))],
+                   dispatch=dict(app.dispatch_stats))
+        if on_card:
+            # the replica's own rows of the served snapshot
+            half = len(snap["pos"]) // mesh.dp
+            out["kernel"] = time_paged_kernel(
+                app, snap["table"][:half], snap["pos"][:half], dev, seed=9)
+    dist.barrier(group=mesh.world_group)
+    del app
+    if on_card:
+        free_card()
+    return out
+
+
+def dp_long_rank(mesh, hf, ids, new, seq_len):
+    """30 (b) on one rank: the contiguous app (bf16, eager) at tp_degree 4
+    with cp 2, SP and flash decoding over the four ranks: each cp rank
+    embeds, norms and runs the MLP on its half of the prompt, attends its
+    queries against the K/V gathered over cp, and holds half of every
+    row's cache slots; then tp_degree 2 (cp 1) over the first two ranks
+    on the same weights. Returns each run's tokens and time to the first
+    token (rank 0), the kernels' launches and the cp gathers on every
+    rank."""
+    import numpy as np
+    import torch
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    out = {"index": mesh.index}
+    mask = np.ones_like(ids)
+    for name, sub in (("cp2", dp_mesh(mesh, 4, cp=2)),
+                      ("tp2", dp_mesh(mesh, 2))):
+        if sub is None:
+            continue
+        over = (dict(sequence_parallel_enabled=True,
+                     flash_decoding_enabled=True) if sub.cp > 1 else {})
+        app = make_contiguous_app(hf, dev, "bfloat16", batch=1,
+                                  seq_len=seq_len, graphs=False, mesh=sub,
+                                  **over)
+        init_weights(app, 0)
+        reset_launches()
+        with GatherSpy() as gat:
+            r = _lead_generate(app, sub, ids, mask, new)
+        out[name] = {"counts": kernel_counts(), "gathers": gat.calls,
+                     "slots": int(app.cache["v"].shape[3])}
+        if r is not None:
+            out[name].update(tokens=np.asarray(r["generated"])[0].tolist(),
+                             ttft_s=r["ttft_s"])
+        del app
+        if on_card:
+            torch.cuda.synchronize(dev)
+            free_card()
+    return out
+
+
+def dp_fp32_rank(mesh, cut, ids, mask, new):
+    """30 (c1) on one rank of dp 2 x tp 2: the fp32 contiguous cut with
+    both kernels asked for: each replica prefills its two rows (the flash
+    kernel on its heads) and decodes them (the contiguous decode kernel
+    over its two cache rows). Rank 0 returns the tokens and each step's
+    logits and, on the card, the kernels' timings at its shapes; every
+    rank its launches and the kernels' row counts."""
+    import numpy as np
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    lens = [int(n) for n in mask.sum(axis=1)]
+    out = {"index": mesh.index}
+    with fp32_exact():
+        app = make_contiguous_app(cut, dev, "float32", batch=len(lens),
+                                  seq_len=DENSE_CHECK["seq_len"],
+                                  decode_kernel=True, output_logits=True,
+                                  graphs=False, mesh=mesh)
+        init_weights(app, 0)
+        reset_launches()
+        with ContiguousArgsSpy() as cspy, FlashShapes() as flash:
+            r = _lead_generate(app, mesh, ids, mask, new,
+                               return_logits=True)
+        out.update(counts=kernel_counts(),
+                   decode_rows=sorted({i[0] for i in cspy.ints}),
+                   flash_rows=sorted({c[0][0] for c in flash.calls}))
+        if r is not None:
+            out.update(tokens=np.asarray(r["generated"]),
+                       logits=_step_logits(r["logits"], lens))
+            if on_card:
+                spec = app.spec
+                half = len(lens) // mesh.dp
+                out["times"] = dbrx_fp32_kernels(
+                    dev, cspy.ints, flash.calls,
+                    [n + new - 2 for n in lens[:half]],
+                    dict(scale=spec.scale, window=spec.sliding_window,
+                         soft_cap=spec.attn_soft_cap), phase="dp_fp32_cut")
+    del app
+    if on_card:
+        free_card()
+    return out
+
+
+def dp_world4(mesh, hf, cfg, prompts, new_tokens, long_ids, long_new,
+              long_seq, cut, ids, mask, new):
+    """The four-rank world of 30 (a), (b) and (c1), in that order; (a)
+    and (c1) over its dp 2 x tp 2 mesh."""
+    dp2 = dp_mesh(mesh, 4, dp=2)
+    return (dp_serve_rank(dp2, hf, cfg, prompts, new_tokens),
+            dp_long_rank(mesh, hf, long_ids, long_new, long_seq),
+            dp_fp32_rank(dp2, cut, ids, mask, new))
+
+
+def dp_world8(mesh, cut, ids, mask, new):
+    """30 (c2) on one rank of the reference's combined mesh (tp_degree 8:
+    dp 2 x cp 2 x tp 2, the world's mesh) with SP and flash decoding,
+    eight ranks on the one card: the fp32 cut with both kernels asked for
+    (the gates keep both off)."""
+    import numpy as np
+    dev = mesh.device
+    lens = [int(n) for n in mask.sum(axis=1)]
+    out = {"index": mesh.index}
+    with fp32_exact():
+        app = make_contiguous_app(
+            cut, dev, "float32", batch=len(lens),
+            seq_len=DENSE_CHECK["seq_len"], decode_kernel=True,
+            output_logits=True, graphs=False, mesh=mesh,
+            sequence_parallel_enabled=True, flash_decoding_enabled=True)
+        init_weights(app, 0)
+        reset_launches()
+        r = _lead_generate(app, mesh, ids, mask, new, return_logits=True)
+        out["counts"] = kernel_counts()
+        if r is not None:
+            out.update(tokens=np.asarray(r["generated"]),
+                       logits=_step_logits(r["logits"], lens))
+    return out
+
+
+def _fp32_tp1(cut, device, ids, mask, new):
+    """The fp32 cut in this process, no mesh: (tokens, each step's
+    logits)."""
+    import numpy as np
+    with fp32_exact():
+        one = make_contiguous_app(cut, device, "float32", batch=len(ids),
+                                  seq_len=DENSE_CHECK["seq_len"],
+                                  decode_kernel=True, output_logits=True,
+                                  graphs=False)
+        init_weights(one, 0)
+        r = one.generate(ids, attention_mask=mask, max_new_tokens=new,
+                         return_logits=True)
+    del one
+    return (np.asarray(r["generated"]),
+            _step_logits(r["logits"], mask.sum(axis=1)))
+
+
+def _fp32_excess(got, want):
+    import numpy as np
+    return max(float(np.max(np.abs(a - b) - TOL_TP_FP32["rtol"]
+                            * np.abs(b))) for a, b in zip(got, want))
+
+
+def dp_serving_check(hf, cfg, prompts, ranks, device, seq_len):
+    """30 (a)'s gates: every rank at half the heads (Qwen2.5-72B: Hq 32 /
+    Hkv 4, G 8; the replicas hold the same slice), the
+    paged kernel launched layers x the all-decode steps on every rank, on
+    a replica's 4 rows; the streams held to a one-process run of the same
+    weights by the teacher-deficit gate with its shifted control (the
+    teacher: ``seq_len`` slots a row, (b)'s prompt's too). Returns (the
+    paged kernel's entry or None, the teacher app)."""
+    phase = "dp_serving"
+    on_card = device.type == "cuda"
+    lead = next(r for r in ranks if r["index"] == 0)
+    layers = hf["num_hidden_layers"]
+    want_launches = layers * lead["steps"] if on_card else 0
+    emit({"phase": phase, "backend": "gloo", "dp": 2, "tp": 2,
+          "layers": layers,
+          "weight_gb_ranks": [r["weight_bytes"] / 1e9 for r in ranks],
+          "heads_ranks": [r["heads"] for r in ranks],
+          "launches_ranks": [r["launches"] for r in ranks],
+          "kernel_rows_ranks": [r["rows"] for r in ranks],
+          "expected_launches": want_launches, "groups": lead["groups"],
+          "gathers_rank0": {k: [len(v), sum(v)]
+                            for k, v in lead["gathers"].items()},
+          "passes_by_kind": lead["passes_by_kind"],
+          "host_ms_decode": lead["host_ms_decode"],
+          "host_ms_mixed": lead["host_ms_mixed"],
+          "ttft_s": lead["ttft_s"],
+          "dispatch_records": lead["dispatch"]["records"]})
+    heads = [hf["num_attention_heads"] // 2, hf["num_key_value_heads"] // 2]
+    for r in ranks:
+        if r["heads"] != heads:
+            raise AssertionError(f"{phase}: rank {r['index']} heads "
+                                 f"{r['heads']}")
+        if r["launches"] != want_launches:
+            raise AssertionError(f"{phase}: rank {r['index']} launched the "
+                                 f"paged kernel {r['launches']} times, "
+                                 f"want {want_launches}")
+        if on_card and max(r["rows"]) > len(prompts) // 2:
+            raise AssertionError(f"{phase}: rank {r['index']} launched at "
+                                 f"{r['rows']} rows")
+    if on_card and lead["groups"] != [heads[0] // heads[1]]:
+        raise AssertionError(f"{phase}: paged launches at groups "
+                             f"{lead['groups']}")
+    teacher = make_contiguous_app(hf, device, "bfloat16", batch=8,
+                                  seq_len=seq_len, output_logits=True)
+    init_weights(teacher, 0)
+    deficit_gate(phase, teacher_deficits(teacher, prompts, lead["streams"]),
+                 exact=False)
+    if not on_card:
+        return None, teacher
+    t = lead["kernel"]
+    emit({"phase": phase + "_kernel_timings", **t["report"],
+          "launches": lead["launches"]})
+    return paged_kernel_entry(t, lead["launches"], phase), teacher
+
+
+def dp_long_check(hf, teacher, long_prompt, ranks, seq_len):
+    """30 (b)'s gates: no kernel launched on any rank under cp prefill,
+    SP and flash decoding (the reference's gates); every cp rank holds
+    half of the slots; the cp-2 stream held to the one-process teacher by
+    the deficit gate (and printed beside the tp-2 run's); prefill ms at
+    cp 2 against cp 1 and the cp gathers' bytes a layer."""
+    phase = "dp_long_prefill"
+    lead = next(r for r in ranks if r["index"] == 0)
+    cp2, tp2 = lead["cp2"], lead["tp2"]
+    layers = hf["num_hidden_layers"]
+    # under SP: K and V a layer, then the last hidden states once
+    cp = cp2["gathers"].get("cp", [])
+    emit({"phase": phase, "prompt_tokens": len(long_prompt),
+          "new_tokens": len(cp2["tokens"]),
+          "ttft_ms_cp2": 1e3 * cp2["ttft_s"], "ttft_ms_tp2": 1e3 *
+          tp2["ttft_s"],
+          "counts_ranks": [r["cp2"]["counts"] for r in ranks],
+          "slots_ranks": [r["cp2"]["slots"] for r in ranks],
+          "cp_gathers_rank0": len(cp),
+          "cp_gather_mb_rank0": sum(cp) / 1e6,
+          "cp_kv_gather_mb_a_layer": sum(cp[:-1]) / 1e6 / max(layers, 1),
+          "cp_hidden_gather_mb": cp[-1] / 1e6 if cp else 0.0,
+          "tokens_equal_tp2": cp2["tokens"] == tp2["tokens"]})
+    for r in ranks:
+        if any(r["cp2"]["counts"].values()):
+            raise AssertionError(f"{phase}: rank {r['index']} launched "
+                                 f"{r['cp2']['counts']} under cp")
+        if r["cp2"]["slots"] != seq_len // 2:
+            raise AssertionError(f"{phase}: rank {r['index']} holds "
+                                 f"{r['cp2']['slots']} slots")
+    per = teacher_deficits(teacher, [long_prompt, long_prompt],
+                           [cp2["tokens"], tp2["tokens"]])
+    deficit_gate(phase, per[:1], exact=False)
+    emit({"phase": phase + "_tp2_vs_greedy",
+          "max_deficit": float(per[1][0].max()),
+          "argmax_equal": int(per[1][3].sum())})
+
+
+def dp_fp32_check(device, cut, cut8, ids, mask, new, ranks4, ranks8):
+    """30 (c)'s gates: at dp 2 x tp 2 (c1) the tokens equal the cut's at
+    tp 1 and the logits within the suite's tolerance, each rank launched
+    flash once a layer and the contiguous decode kernel each layer of
+    each decode step, on its replica's 2 rows; at the combined mesh (c2)
+    the same against tp 1 with no kernel on any rank. Returns the decode
+    and flash kernels' entries at (c1)'s shapes (none off the card)."""
+    phase = "dp_fp32_cut"
+    on_card = device.type == "cuda"
+    layers = cut["num_hidden_layers"]
+    rows = len(ids) // 2
+    out = []
+    for name, model, ranks, kernels in (("dp2_tp2", cut, ranks4, True),
+                                        ("tp8_cp2_dp2", cut8, ranks8,
+                                         False)):
+        lead = next(r for r in ranks if r["index"] == 0)
+        want_t, want_l = _fp32_tp1(model, device, ids, mask, new)
+        excess = _fp32_excess(lead["logits"], want_l)
+        want = {"paged_decode_attention": 0,
+                "decode_attention_stacked": (layers * (new - 1)
+                                             if on_card and kernels else 0),
+                "flash_attention": layers if on_card and kernels else 0}
+        emit({"phase": f"{phase}_{name}", "layers": layers,
+              "counts_ranks": [r["counts"] for r in ranks],
+              "expected_counts": want,
+              "kernel_rows_ranks": [[r.get("decode_rows"),
+                                     r.get("flash_rows")] for r in ranks],
+              "tokens_equal_tp1": bool((lead["tokens"] == want_t).all()),
+              "max_logit_excess_over_rtol": excess, "tol": TOL_TP_FP32})
+        for r in ranks:
+            if r["counts"] != want:
+                raise AssertionError(f"{phase}_{name}: rank {r['index']} "
+                                     f"launches {r['counts']} != {want}")
+            if on_card and kernels and (r["decode_rows"] != [rows]
+                                        or r["flash_rows"] != [rows]):
+                raise AssertionError(f"{phase}_{name}: rank {r['index']} "
+                                     f"kernels at rows {r['decode_rows']}, "
+                                     f"{r['flash_rows']}")
+        if not (lead["tokens"] == want_t).all():
+            raise AssertionError(f"{phase}_{name}: tokens differ from tp 1")
+        if not excess <= TOL_TP_FP32["atol"]:
+            raise AssertionError(f"{phase}_{name}: logits off tp 1 by "
+                                 f"{excess} over the relative tolerance")
+        if on_card and kernels:
+            c = lead["counts"]
+            out += contiguous_kernel_entries(
+                lead["times"], c["decode_attention_stacked"],
+                c["flash_attention"], f"{phase}_{name}")
+        if on_card:
+            free_card()
+    return out
+
+
+def phase_dp(device, hf=None, cfg=RAGGED, new_tokens=RAGGED_TOKENS,
+             cut=None, cut8=None, long=DP_LONG, check_cfg=DENSE_CHECK,
+             check_new=DENSE_CHECK_TOKENS):
+    """Group ``dp`` (phase 30 (a)-(c)); returns its kernels-line entries:
+    the paged kernel at (a)'s per-rank shapes (a replica's rows, a rank's
+    heads) with (a)'s launches, and the contiguous decode and flash
+    kernels at (c1)'s per-rank shapes with (c1)'s launches. ``hf``,
+    ``cut`` (default: Qwen2.5-72B at DP_SERVE_LAYERS and
+    DP_CHECK_LAYERS), ``cut8`` (Qwen2.5-7B at DP_CHECK_LAYERS), ``cfg``,
+    ``long``, ``check_cfg`` and the token counts let a CPU rehearsal run
+    it at tiny widths."""
+    import tempfile
+
+    import numpy as np
+    from neuronx_distributed_inference_tpu_torch.parallel.mesh import (
+        MeshConfig, spawn_world)
+    on_card = device.type == "cuda"
+    t0 = time.perf_counter()
+    if on_card:
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+    hf = hf or dict(QWEN25_72B, num_hidden_layers=DP_SERVE_LAYERS)
+    cut = cut or dict(QWEN25_72B, num_hidden_layers=DP_CHECK_LAYERS)
+    cut8 = cut8 or dict(QWEN2_5_7B, num_hidden_layers=DP_CHECK_LAYERS)
+    prompts = tp_prompts(hf, cfg)
+    long_prompt = np.random.default_rng(30).integers(
+        1, hf["vocab_size"], size=long["len"]).tolist()
+    long_ids = np.asarray([long_prompt], np.int64)
+    ids, mask = prompts_of(check_cfg["lens"], min(
+        cut["vocab_size"], cut8["vocab_size"]), seed=30)
+    tmpdir = tempfile.mkdtemp(prefix="nxdi-dp-")
+    rank_dev = f"cuda:{device.index or 0}" if on_card else "cpu"
+    ranks = spawn_world(dp_world4, 4, "gloo", rank_dev, tmpdir,
+                        DP_WORLD_TIMEOUT_S,
+                        (hf, cfg, prompts, new_tokens, long_ids,
+                         long["new_tokens"], long["seq_len"], cut, ids,
+                         mask, check_new))
+    t4 = time.perf_counter()
+    emit({"phase": "dp_world4_seconds", "seconds": t4 - t0})
+    ranks8 = spawn_world(dp_world8, 8, "gloo", rank_dev, tmpdir,
+                         DP_WORLD_TIMEOUT_S, (cut8, ids, mask, check_new),
+                         mesh_cfg=MeshConfig(tp=2, dp=2, cp=2))
+    emit({"phase": "dp_world8_seconds",
+          "seconds": time.perf_counter() - t4})
+    entry, teacher = dp_serving_check(
+        hf, cfg, prompts, [r[0] for r in ranks], device,
+        max(cfg["seq_len"], long["seq_len"]))
+    dp_long_check(hf, teacher, long_prompt, [r[1] for r in ranks],
+                  long["seq_len"])
+    del teacher
+    if on_card:
+        free_card()
+    entries = [entry] if entry is not None else []
+    entries += dp_fp32_check(device, cut, cut8, ids, mask, check_new,
+                             [r[2] for r in ranks], ranks8)
+    if on_card:
+        memory_note("dp")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "dp_done", "seconds": seconds, "budget_s": DP_BUDGET_S})
+    if on_card and seconds > DP_BUDGET_S:
+        raise AssertionError(f"dp group took {seconds:.1f} s, over its "
+                             f"budget of {DP_BUDGET_S} s")
+    return entries
+
+
 GROUPS = ("kernels", "paged", "pipeline", "contig", "ragged", "tier",
           "spec", "moe", "oss", "long", "mla", "quant", "dense",
           "moe_families", "contrib_moe", "lora", "contrib_dense",
-          "contrib_dense2", "tp", "ep")
+          "contrib_dense2", "tp", "ep", "dp")
 
 
 def main(argv=None) -> int:
@@ -12135,6 +12626,10 @@ def main(argv=None) -> int:
         free_card()
         kernels += phase_ep(device)
         mark("ep")
+    if "dp" in only:
+        free_card()
+        kernels += phase_dp(device)
+        mark("dp")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "group_seconds": group_s})
     emit({"kernels": kernels})

@@ -289,8 +289,27 @@ class TpuConfig:
             raise ValueError(
                 f"max_context_length ({self.max_context_length}) cannot "
                 f"exceed seq_len ({self.seq_len})")
+        # the parallel degrees as the counterpart checks them
+        # (config.py:410-431)
+        if self.cp_degree > 1 and self.tp_degree % self.cp_degree != 0:
+            raise ValueError("cp_degree must divide tp_degree (cp shards "
+                             "the tp axis during prefill)")
+        if self.attention_dp_degree > 1:
+            if self.tp_degree % self.attention_dp_degree != 0:
+                raise ValueError("attention_dp_degree must divide tp_degree")
+            if self.tkg_batch_size % self.attention_dp_degree != 0:
+                raise ValueError("tkg_batch_size must be divisible by "
+                                 "attention_dp_degree")
         if self.pp_degree > 1:
             raise ValueError("pp_degree > 1 is not supported")
+        if self.mlp_cp_degree > 1 and (
+                not self.sequence_parallel_enabled
+                or self.mlp_cp_degree != max(self.cp_degree, 1)):
+            raise ValueError(
+                "mlp_cp_degree requires sequence_parallel_enabled and "
+                "mlp_cp_degree == cp_degree: MLP context parallelism is "
+                "realized as sequence-sharded MLP activations over the cp "
+                "axis")
         if self.is_chunked_prefill and not self.is_block_kv_layout:
             raise ValueError("chunked prefill requires block KV layout")
         if self.is_prefix_caching and not self.is_block_kv_layout:

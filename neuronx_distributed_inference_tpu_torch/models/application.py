@@ -131,7 +131,7 @@ from ..modules.block_kv_cache import (BlockKVCacheManager, BlockKVSpec,
                                       cut_cached_at_unwritten,
                                       slots_from_table)
 from ..ops import decode_attention
-from ..ops.sampling import prepare_sampling_params, sample
+from ..ops.sampling import prepare_sampling_params, sample, sampling_seed
 from ..parallel import collectives, dispatch
 from ..resilience.errors import CapacityError, ConfigurationError
 from ..telemetry import get_registry
@@ -139,6 +139,7 @@ from ..telemetry import metrics as tmetrics
 from ..telemetry import trace as trace_mod
 from ..utils import checkpoint as ckpt
 from . import model_base
+from .model_base import rows_of
 from .cuda_graphs import StepGraphs
 from .family import DecoderFamily, family_for_config
 
@@ -190,7 +191,7 @@ def _dispatched(fn):
     @functools.wraps(fn)
     def run(self, *args, **kw):
         m = self.mesh
-        if (m is not None and m.mp > 1 and m.rank == 0
+        if (m is not None and m.size > 1 and m.leads
                 and not self._dispatch_depth):
             t0 = time.perf_counter()
             self._channel.send(fn.__name__, args, kw)
@@ -248,7 +249,7 @@ class CausalLMApplication:
         # rank 0's dispatch records (tp > 1): count and host seconds
         self.dispatch_stats = {"records": 0, "broadcast_s": 0.0}
         self._channel = (dispatch.Channel(mesh)
-                         if mesh is not None and mesh.mp > 1 else None)
+                         if mesh is not None and mesh.size > 1 else None)
         self._dispatch_depth = 0
         # T = 1 steps replay captured CUDA graphs on the card
         # (``cuda_graphs=False``: every step eager)
@@ -270,8 +271,12 @@ class CausalLMApplication:
         self._steady_incidents: List[Dict[str, Any]] = []
         self._trace_ctx: Tuple[str, ...] = ()
         self._warmup_report: Optional[Dict[str, Any]] = None
+        # each dp replica samples its own rows: its generator draws its own
+        # noise (the counterpart folds the dp index into its key,
+        # ops/sampling.py:198-237)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            self.tpu_config.seed)
+            sampling_seed(self.tpu_config.seed,
+                          mesh.dp_rank if mesh is not None else 0))
         self.ctx_buckets = autobucketing.context_encoding_buckets(
             self.tpu_config)
         self.tkg_buckets = autobucketing.token_generation_buckets(
@@ -550,10 +555,10 @@ class CausalLMApplication:
         same files."""
         if self.spec.quant is None:
             raise ValueError("config.tpu_config.quantized must be set")
-        if self.mesh is not None and self.mesh.mp > 1:
+        if self.mesh is not None and self.mesh.size > 1:
             raise ConfigurationError(
                 "a rank holds a slice of the tree: save the quantized "
-                "checkpoint from a tp = 1 app (ROADMAP A13c)")
+                "checkpoint from a tp = 1 app (ROADMAP A13d)")
         if self.params is None:
             raise RuntimeError("load_weights() first")
         ckpt.save_state_dict_safetensors(_flatten_tree(self.params), path)
@@ -579,10 +584,11 @@ class CausalLMApplication:
         global layers, ``k_l``/``v_l`` for the local ones)."""
         cfg = self.tpu_config
         spec = self.spec
+        rows, slots = self._cache_cut()
         kspec = kvc.KVCacheSpec(
             num_layers=spec.num_layers,
-            batch_size=cfg.kv_cache_batch_size,
-            max_seq_len=cfg.seq_len,
+            batch_size=rows,
+            max_seq_len=slots,
             num_kv_heads=spec.gqa.num_kv_heads,
             head_dim=spec.head_dim,
             dtype=spec.kv_dtype,
@@ -596,6 +602,64 @@ class CausalLMApplication:
         else:
             self.cache = kvc.init_cache(kspec, self.device)
         return self
+
+    def _cache_cut(self) -> Tuple[int, int]:
+        """(rows, slots) of this rank's contiguous cache: the rows over dp
+        (``kv_cache.py:91-101``, ``P(dp)`` on the batch) and, under flash
+        decoding over cp, the slots over cp; the whole cache otherwise."""
+        cfg, m = self.tpu_config, self.mesh
+        rows, slots = cfg.kv_cache_batch_size, cfg.seq_len
+        if m is None:
+            return rows, slots
+        if rows % m.dp:
+            raise ConfigurationError(
+                f"kv_cache_batch_size {rows} is not divisible by "
+                f"attention_dp_degree {m.dp}")
+        rows //= m.dp
+        if self.spec.flash_decoding and m.cp > 1:
+            if slots % m.cp:
+                raise ConfigurationError(
+                    f"flash decoding cuts seq_len {slots} over cp_degree "
+                    f"{m.cp}: it must divide")
+            slots //= m.cp
+        return rows, slots
+
+    # -- the dp replicas' rows of a contiguous step ------------------------
+    def _dp_plan(self, sid: np.ndarray):
+        """None without a dp axis; else (each replica's indices into the
+        step's rows, this replica's indices, their local cache rows): a
+        row runs on the replica that holds its cache row, ``seq_id //
+        (B / dp)``, at cache row ``seq_id % (B / dp)`` there. Every rank
+        computes the same plan from the record's host ``seq_ids``."""
+        m = self.mesh
+        if m is None or m.dp == 1:
+            return None
+        sid = np.asarray(sid, np.int64)
+        per = self.cache["k"].shape[1]
+        owner = sid // per
+        idx = [np.nonzero(owner == i)[0] for i in range(m.dp)]
+        mine = idx[m.dp_rank]
+        return idx, mine, (sid[mine] - m.dp_rank * per).astype(np.int32)
+
+    def _dp_run(self, plan, fn):
+        """Run ``fn(mine, local cache rows)`` on this replica's rows (none:
+        nothing runs) and gather every replica's outputs over dp, back in
+        the step's row order: one all-gather a tensor when the replicas
+        ran the same row count, padded to the largest otherwise."""
+        idx, mine, local = plan
+        counts = [len(i) for i in idx]
+        out = fn(mine, local) if len(mine) else None
+        if len(set(counts)) == 1:
+            out = {k: collectives.gather_dim(v, self.mesh, "dp", 0)
+                   for k, v in out.items()}
+        else:
+            out = collectives.gather_rows_uneven(out, counts, self.mesh,
+                                                 self.device)
+        order = np.concatenate(idx)
+        if (order != np.arange(len(order))).any():
+            inv = torch.as_tensor(np.argsort(order), device=self.device)
+            out = {k: v[inv] for k, v in out.items()}
+        return out
 
     # -- helpers -----------------------------------------------------------
     def _check_decode_fits(self, needed: int):
@@ -678,13 +742,23 @@ class CausalLMApplication:
     # -- device steps ------------------------------------------------------
     @_dispatched
     def _run_prefill(self, input_ids, seq_lens, seq_ids=None,
-                     sampling_params=None, adapter_ids=None):
+                     sampling_params=None, adapter_ids=None,
+                     _local: bool = False):
         """Prefill of a (B, bucket) right-padded window
         (``model_base.context_encoding_step``, eager); the cache is
         written in place. ``adapter_ids`` (B,): the rows' LoRA slots.
         Returns {"tokens", "last_hidden", ["logits"], ["hidden_states"]}
-        on the device."""
+        on the device. Over dp each replica prefills the rows whose cache
+        rows it holds (:meth:`_dp_plan`)."""
         b, s = np.shape(input_ids)
+        plan = None if _local else self._dp_plan(
+            self._host_seq_ids(b, seq_ids))
+        if plan is not None:
+            return self._dp_run(plan, lambda mine, local: self._run_prefill(
+                rows_of(np.asarray(input_ids), mine, b),
+                rows_of(np.asarray(seq_lens), mine, b), local,
+                rows_of(sampling_params, mine, b),
+                rows_of(adapter_ids, mine, b), _local=True))
         t0 = self._tel_start()
         sid = self._seq_ids(b, seq_ids)
         aids = self._lora_adapter_ids(adapter_ids)
@@ -703,7 +777,7 @@ class CausalLMApplication:
 
     @_dispatched
     def _run_prefill_windowed(self, input_ids, seq_lens, window: int,
-                              sampling_params=None):
+                              sampling_params=None, _local: bool = False):
         """Windowed context encoding (reference application.py:557-599): a
         (B, n x window) right-padded prompt walks the cache in fixed
         windows through ``model_base.token_generation_multi`` (eager), so
@@ -716,6 +790,13 @@ class CausalLMApplication:
                 "windowed_context_encoding is incompatible with rolling / "
                 "mixed per-layer KV caches (slot != position)")
         b, s = np.shape(input_ids)
+        plan = None if _local else self._dp_plan(np.arange(b))
+        if plan is not None:
+            return self._dp_run(plan, lambda mine, local: (
+                self._run_prefill_windowed(
+                    rows_of(np.asarray(input_ids), mine, b),
+                    rows_of(np.asarray(seq_lens), mine, b), window,
+                    rows_of(sampling_params, mine, b), _local=True)))
         t0 = self._tel_start()
         lens = np.asarray(seq_lens, np.int64)
         sid = self._seq_ids(b, None)
@@ -757,7 +838,8 @@ class CausalLMApplication:
 
     @_dispatched
     def _decode_call(self, input_ids, position_ids, seq_ids, kv_view,
-                     sampling_params=None, adapter_ids=None):
+                     sampling_params=None, adapter_ids=None,
+                     _local: bool = False):
         """The decode step at an explicit ``kv_view`` bucket (the warm-up
         plane reaches every bucket with positions past the cache, which
         write nothing). Its signature: batch, width, identity rows,
@@ -765,6 +847,13 @@ class CausalLMApplication:
         greedy, logits, LoRA ids."""
         b, t = tuple(input_ids.shape)
         sid = self._host_seq_ids(b, seq_ids)
+        plan = None if _local else self._dp_plan(sid)
+        if plan is not None:
+            return self._dp_run(plan, lambda mine, local: self._decode_call(
+                rows_of(input_ids, mine, b),
+                rows_of(np.asarray(position_ids), mine, b), local,
+                kv_view, rows_of(sampling_params, mine, b),
+                rows_of(adapter_ids, mine, b), _local=True))
         aids = self._lora_adapter_ids(adapter_ids)
         if sampling_params is None:
             sampling_params = self._default_sampling_params(b)
@@ -809,10 +898,20 @@ class CausalLMApplication:
     @_dispatched
     def _run_decode_loop(self, first_tokens, positions, num_steps: int,
                          seq_ids=None, sampling_params=None,
-                         adapter_ids=None):
+                         adapter_ids=None, _local: bool = False):
         """``num_steps`` decode steps with the tokens on the device
         (``model_base.decode_loop``, eager)."""
         b = np.shape(first_tokens)[0]
+        plan = None if _local else self._dp_plan(
+            self._host_seq_ids(b, seq_ids))
+        if plan is not None:
+            return self._dp_run(plan, lambda mine, local: (
+                self._run_decode_loop(
+                    rows_of(first_tokens, mine, b),
+                    rows_of(np.asarray(positions), mine, b),
+                    num_steps, local,
+                    rows_of(sampling_params, mine, b),
+                    rows_of(adapter_ids, mine, b), _local=True)))
         t0 = self._tel_start()
         sid = self._seq_ids(b, seq_ids)
         aids = self._lora_adapter_ids(adapter_ids)
@@ -1139,7 +1238,7 @@ class CausalLMApplication:
         rank 0's :meth:`stop_followers`. Set-up (weights, cache) is each
         rank's own, made before it."""
         m = self.mesh
-        if m is None or m.rank == 0:
+        if m is None or m.leads:
             raise ConfigurationError("follow() runs on the ranks > 0 of a "
                                      "mesh; rank 0 plans the steps")
         while True:
@@ -1154,7 +1253,7 @@ class CausalLMApplication:
     def stop_followers(self):
         """Rank 0: end the other ranks' :meth:`follow` loops."""
         m = self.mesh
-        if m is not None and m.mp > 1 and m.rank == 0:
+        if m is not None and m.size > 1 and m.leads:
             self._channel.stop()
         return self
 

@@ -388,6 +388,15 @@ class DecoderSpec:
     vocab_parallel: bool = True
     collective_dtype: Optional[str] = None
     collective_block: int = 32
+    # the cp axis (model_base.py:260-271): SP keeps the prefill's residual
+    # stream cut on the sequence over cp between blocks; CP prefill cuts
+    # the queries on the sequence over cp against the whole K/V (the
+    # reference's all-gather-KV strategy); flash decoding cuts the
+    # contiguous cache's slots over cp and merges each rank's partial
+    # softmax. Each acts over a mesh with cp > 1 only.
+    seq_parallel: bool = False
+    cp_prefill: bool = False
+    flash_decoding: bool = False
 
     # no mesh: one card (a rank's own spec, RankSpec, carries its mesh)
     mesh = None
@@ -1038,6 +1047,108 @@ def _alibi_for(slopes, n_kv: int, device):
     return slopes, torch.arange(n_kv, device=device)[None, :]
 
 
+# ---------------------------------------------------------------------------
+# The dp and cp axes (model_base.py:700-708, :814-861, :1006-1013)
+# ---------------------------------------------------------------------------
+
+def _cp_on(spec: DecoderSpec) -> bool:
+    """True over a mesh whose cp axis has more than one rank."""
+    return spec.mesh is not None and spec.mesh.cp > 1
+
+
+def cp_bounds(spec: DecoderSpec, t: int) -> Tuple[int, int, List[int]]:
+    """(lo, hi, sizes): this cp rank's sequence chunk [lo, hi) of ``t``
+    and every rank's chunk size (rank i takes [i·t // cp, (i+1)·t // cp):
+    a ``t`` that cp does not divide gives chunks one apart, as GSPMD pads
+    an uneven cut)."""
+    cp, c = spec.mesh.cp, spec.mesh.cp_rank
+    edges = [i * t // cp for i in range(cp + 1)]
+    return edges[c], edges[c + 1], [edges[i + 1] - edges[i]
+                                     for i in range(cp)]
+
+
+def gather_seq(spec: DecoderSpec, x: torch.Tensor, t: int) -> torch.Tensor:
+    """Every cp rank's sequence chunk of ``x`` (B, chunk, ...) -> the
+    whole sequence (B, t, ...), in cp order (one all-gather over the cp
+    group; uneven chunks travel padded to the largest)."""
+    _, _, sizes = cp_bounds(spec, t)
+    top = max(sizes)
+    if x.shape[1] < top:
+        x = torch.cat([x, x.new_zeros((x.shape[0], top - x.shape[1],
+                                       *x.shape[2:]))], dim=1)
+    every = collectives.gather_dim(x, spec.mesh, "cp", 1)
+    if all(n == top for n in sizes):
+        return every
+    return torch.cat([every[:, i * top:i * top + n]
+                      for i, n in enumerate(sizes)], dim=1)
+
+
+def _fd_on(spec: DecoderSpec) -> bool:
+    """Flash decoding over a cp axis of more than one rank: the
+    contiguous cache holds this rank's share of every row's slots."""
+    return spec.flash_decoding and _cp_on(spec)
+
+
+def _fd_local(spec: DecoderSpec, positions: torch.Tensor,
+              slots: int) -> torch.Tensor:
+    """Positions -> this cp rank's slots under flash decoding: a position
+    in [cp_rank·slots, (cp_rank + 1)·slots) lands at its offset, every
+    other at ``slots`` (dropped by the cache writes)."""
+    local = positions.long() - spec.mesh.cp_rank * slots
+    return torch.where((local >= 0) & (local < slots), local,
+                       torch.full_like(local, slots))
+
+
+def _fd_merge(spec: DecoderSpec, o, m, l_sum, sink, dtype):
+    """The flash-decoding merge over the cp ranks by log-sum-exp: the
+    global max M, each shard's output and sum rescaled by exp(m - M) and
+    summed over cp, the sink (once, not once a shard) added to the
+    denominator (model_base.py:1157-1272 under ``k_pspec``'s cp cut)."""
+    mesh = spec.mesh
+    big = collectives.all_reduce(m.clone(), mesh, "cp", op="max")
+    if sink is not None:
+        big = torch.maximum(big, sink.float())
+    w = torch.exp(m - big)
+    both = collectives.all_reduce(
+        torch.cat([o * w[..., None], (l_sum * w)[..., None]], dim=-1),
+        mesh, "cp")
+    den = both[..., -1]
+    if sink is not None:
+        den = den + torch.exp(sink.float() - big)
+    return (both[..., :-1] / den[..., None]).to(dtype)
+
+
+def dp_rows(spec: DecoderSpec, b: int) -> Optional[slice]:
+    """This dp replica's rows of a paged step of ``b`` rows, as the
+    reference's mesh wrappers cut them (``b % dp == 0``, decode_attention
+    :296-298): [dp_rank·b/dp, (dp_rank+1)·b/dp). None = the whole batch
+    on every replica (no dp axis, or a batch dp does not divide)."""
+    m = spec.mesh
+    if m is None or m.dp == 1 or b % m.dp:
+        return None
+    n = b // m.dp
+    return slice(m.dp_rank * n, (m.dp_rank + 1) * n)
+
+
+def rows_of(x, rows, b: int):
+    """A per-row input's ``rows`` (a slice or an index array) of a tensor
+    or numpy array with ``b`` leading rows; None and shared inputs pass
+    through."""
+    if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == b:
+        return x[rows if isinstance(rows, slice)
+                 else torch.as_tensor(rows, device=x.device)]
+    if isinstance(x, np.ndarray) and x.ndim and x.shape[0] == b:
+        return x[rows]
+    return x
+
+
+def _gather_rows(spec: DecoderSpec, out: Dict[str, Any]) -> Dict[str, Any]:
+    """A step's outputs over the dp replicas' rows, concatenated in
+    replica order (one all-gather over dp each)."""
+    return {k: collectives.gather_dim(v, spec.mesh, "dp", 0)
+            for k, v in out.items()}
+
+
 def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
                 is_local: bool, slopes=None):
     """Paged branch (model_base.py:1058-1103): write at ``slot_mapping``,
@@ -1045,10 +1156,19 @@ def _paged_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
     soft-cap, the sink) or the block-table gather + ``mha`` (with the
     ALiBi ``slopes`` over the gathered positions, :1100-1103)."""
     kc, vc = cache["k"], cache["v"]
-    bkv.write_slots_at_layer(kc, kv.quantize_kv(k, kc.dtype, spec.kv_scale),
-                             li, ai["slot_mapping"])
-    bkv.write_slots_at_layer(vc, kv.quantize_kv(v, vc.dtype, spec.kv_scale),
-                             li, ai["slot_mapping"])
+    kw, vw, slots = k, v, ai["slot_mapping"]
+    if ai.get("dp_slots") is not None:
+        # the pages are the same on every dp replica (the block cache has
+        # no dp axis, block_kv_cache.py:64-65) and the host's allocator
+        # and prefix cache are global: every replica writes every row's
+        # K/V, gathered over dp
+        kw = collectives.gather_dim(k, spec.mesh, "dp", 0)
+        vw = collectives.gather_dim(v, spec.mesh, "dp", 0)
+        slots = ai["dp_slots"]
+    bkv.write_slots_at_layer(kc, kv.quantize_kv(kw, kc.dtype, spec.kv_scale),
+                             li, slots)
+    bkv.write_slots_at_layer(vc, kv.quantize_kv(vw, vc.dtype, spec.kv_scale),
+                             li, slots)
     if ai["use_kernel"]:
         # the step's own token was just written, but the kernel masks
         # kpos < lens strictly and folds the token in from new_k/new_v
@@ -1093,6 +1213,12 @@ def _prefill_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
         keep = (pos >= lens - w) & (pos < lens)
         eff = torch.where(keep, torch.remainder(pos, w),
                           torch.full_like(pos, w + 1))
+    if _fd_on(spec):
+        # flash decoding: this cp rank's slots hold positions
+        # [cp_rank·S_c, (cp_rank + 1)·S_c) of every row
+        sc = cache["v"].shape[3]
+        lo = spec.mesh.cp_rank * sc
+        k, v = k[:, lo:lo + sc], v[:, lo:lo + sc]
     for name, x, kt in (("k", k, True), ("v", v, False)):
         c = cache[name]
         x = kv.quantize_kv(x, c.dtype, spec.kv_scale)
@@ -1120,13 +1246,14 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
     side = ai.get("side")
     if side is None:
         roll_w = kc.shape[4] if (spec.rolling_window or mixed_local) else 0
+        pos = ai.get("fd_positions", ai["positions"])
         kv.write_tokens_at_layer(kc, kv.quantize_kv(k, kc.dtype,
                                                     spec.kv_scale),
-                                 li, ai["seq_ids"], ai["positions"],
+                                 li, ai["seq_ids"], pos,
                                  window=roll_w, k_transposed=True)
         kv.write_tokens_at_layer(vc, kv.quantize_kv(v, vc.dtype,
                                                     spec.kv_scale),
-                                 li, ai["seq_ids"], ai["positions"],
+                                 li, ai["seq_ids"], pos,
                                  window=roll_w)
     if ai["use_kernel"] and not mixed_local:
         # the cache row just written is masked out (kpos < pos); the
@@ -1154,6 +1281,16 @@ def _decode_attn(spec: DecoderSpec, q, k, v, cache, li: int, ai, sink,
             ai["mask_side"], k.to(q.dtype), v.to(q.dtype), spec.scale,
             logits_soft_cap=spec.attn_soft_cap, sink=sink)
         return out, (k, v)
+    if "fd_positions" in ai:
+        # flash decoding: this shard's partial softmax, merged over cp
+        n = v_all.shape[2]
+        al = (None if slopes is None else
+              (slopes, torch.arange(ai["fd_offset"], ai["fd_offset"] + n,
+                                    device=q.device)[None, :]))
+        o, m, l_sum = attn_ops.mha_hl_partial(
+            q, k_all, v_all, _layer_mask(ai, is_local), spec.scale,
+            logits_soft_cap=spec.attn_soft_cap, alibi=al)
+        return _fd_merge(spec, o, m, l_sum, sink, q.dtype), None
     return attn_ops.mha_hl(q, k_all, v_all, _layer_mask(ai, is_local),
                            spec.scale, logits_soft_cap=spec.attn_soft_cap,
                            sink=sink,
@@ -1237,7 +1374,13 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     from its own ``post_norm`` over the block input ("parallel_dual");
     ``norm_position`` "post_residual" (GPT-1) normalises after each
     residual add, ``input_norm`` after the attention's and ``post_norm``
-    after the MLP's (:820-849)."""
+    after the MLP's (:820-849).
+
+    Under CP prefill (``ai["cp_seq"]`` = this cp rank's query chunk
+    [lo, hi) of t) the rank attends its chunk's queries against the whole
+    K/V and the output is gathered over cp on the sequence; under SP
+    ``hidden`` is the chunk itself (norms, residuals and the MLP run on
+    it; its K/V are gathered over cp before attention)."""
     pre = spec.norm_position == "pre"
     is_local = spec.is_local(li if layer is None else layer)
     h = (_norm(spec, hidden, layer_w["input_norm"],
@@ -1249,6 +1392,15 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
     else:
         q, k, v = _qkv(spec, h, layer_w, ai, is_local)
     pending = None
+    cp_seq = ai.get("cp_seq") if phase == "prefill" else None
+    if cp_seq is not None:
+        # CP prefill: this rank's query chunk against the whole K/V; under
+        # SP the chunk's K/V are gathered over cp (model_base.py:1006-1013)
+        lo, hi, t_all = cp_seq
+        if spec.seq_parallel:
+            k, v = gather_seq(spec, k, t_all), gather_seq(spec, v, t_all)
+        else:
+            q = q[:, lo:hi]
     args = (spec, q, k, v, cache, li, ai, _sink(spec, layer_w), is_local,
             layer_w["alibi_slopes"] if spec.alibi else None)
     if phase == "decode":
@@ -1257,6 +1409,8 @@ def _layer_body(spec: DecoderSpec, hidden, layer_w, cache, li: int, ai,
         attn = _prefill_attn(*args)
     else:
         attn = _paged_attn(*args)
+    if cp_seq is not None and not spec.seq_parallel:
+        attn = gather_seq(spec, attn, cp_seq[2])
     b, t = h.shape[:2]
     attn = attn.reshape(b, t, -1)
     aids = ai.get("adapter_ids")
@@ -1473,10 +1627,11 @@ def use_flash_prefill(spec: DecoderSpec, bucket: int) -> bool:
     layer pattern, no sink (the kernel takes one static window and no
     sink), no ALiBi (the kernel has no position bias), no MLA (its K and V
     differ in width) and no chunked attention (the kernel masks by window,
-    not by chunk); the CP and SP conditions are refused at spec time, and
-    the contiguous prefill always feeds arange positions."""
+    not by chunk), and neither CP prefill nor SP (:1115-1116); the
+    contiguous prefill always feeds arange positions."""
     return (spec.flash_prefill and spec.layer_pattern is None
             and not spec.attn_sink and not spec.alibi and spec.mla is None
+            and not spec.cp_prefill and not spec.seq_parallel
             and flash_attention.supports(bucket, spec.head_dim,
                                          has_sink=False,
                                          chunk=spec.attn_chunk))
@@ -1489,7 +1644,8 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
     """The decode branch's kernel admission, model_base.py:1175-1197: no
     side buffer, no ALiBi, not disabled, supported geometry, not the
     rolling cache,
-    static batch over the whole cache, a cache dtype the kernel streams.
+    static batch over the whole cache, a cache dtype the kernel streams,
+    no flash decoding (:1186).
     On the mixed cache it admits the global stack's layers (``cache["k"]``);
     the rolling local layers keep the gather path.
 
@@ -1502,7 +1658,7 @@ def use_contiguous_decode_kernel(spec: DecoderSpec, phase_t: int,
     gather + ``mha_hl`` path, both replaying CUDA graphs (PERF.md)."""
     return (not side and not spec.alibi and spec.decode_kernel is not False
             and decode_attention.supports(spec, phase_t)
-            and not spec.rolling_window
+            and not spec.rolling_window and not spec.flash_decoding
             and identity_seq_ids and batch == cache["k"].shape[1]
             and _cache_ok(spec, cache["k"].dtype))
 
@@ -1547,9 +1703,21 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
     (identity rows), which :func:`fold_mixed_prefill` then folds into the
     two stacks at the real rows (:1747-1769)."""
     b, s = input_ids.shape
-    ai = attn_inputs(spec, position_ids, inv_freq)
-    ai["flash"] = use_flash_prefill(spec, s)
-    if not ai["flash"]:
+    sp = spec.seq_parallel and _cp_on(spec)
+    if _cp_on(spec):
+        # CP prefill / SP: this cp rank's chunk [lo, hi) of the queries
+        # (model_base.py:1009-1011, :1730-1733)
+        lo, hi, _ = cp_bounds(spec, s)
+        q_pos = position_ids[:, lo:hi]
+        ai = attn_inputs(spec, q_pos if sp else position_ids, inv_freq)
+        ai["flash"] = False
+        ai["cp_seq"] = (lo, hi, s)
+        _add_masks(spec, ai, lambda w, c: attn_ops.causal_mask(
+            q_pos, position_ids, w, c))
+    else:
+        ai = attn_inputs(spec, position_ids, inv_freq)
+        ai["flash"] = use_flash_prefill(spec, s)
+    if not ai["flash"] and "mask" not in ai:
         # padded positions attend causally to themselves: harmless, their
         # outputs are discarded
         _add_masks(spec, ai, lambda w, c: attn_ops.prefill_causal_mask(
@@ -1568,9 +1736,16 @@ def context_encoding_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
                                    spec.v_head_dim), dtype=kdt,
                                   device=input_ids.device)}
         ai["identity"] = True
-    hidden = run_layers(spec, params, cache,
-                        _embed(spec, params, input_ids, position_ids), ai,
-                        "prefill")
+    if sp:
+        # SP: the residual stream is this rank's sequence chunk from the
+        # embedding to the last block, then gathered for the lm head
+        hidden = gather_seq(spec, run_layers(
+            spec, params, cache, _embed(spec, params, input_ids[:, lo:hi],
+                                        q_pos), ai, "prefill"), s)
+    else:
+        hidden = run_layers(spec, params, cache,
+                            _embed(spec, params, input_ids, position_ids),
+                            ai, "prefill")
     if spec.mixed_kv:
         fold_mixed_prefill(spec, cache, persistent, seq_lens,
                            seq_ids if tpu_cfg.is_continuous_batching
@@ -1600,13 +1775,23 @@ def _decode_inputs(spec: DecoderSpec, tpu_cfg: TpuConfig, cache,
     if identity is None:
         identity = not tpu_cfg.is_continuous_batching
     ai = attn_inputs(spec, position_ids, inv_freq)
+    fd = _fd_on(spec)
+    if fd:
+        # flash decoding reads every slot of this rank's shard
+        kv_view = None
     ai.update(seq_ids=seq_ids, positions=position_ids, identity=identity,
               kv_view=kv_view, side=side, adapter_ids=adapter_ids)
     ai["use_kernel"] = use_contiguous_decode_kernel(
         spec, position_ids.shape[1], position_ids.shape[0], cache, identity,
         side is not None)
     cache_len = kv_view or kv.cache_len_of(cache)
-    if ai["use_kernel"]:
+    if fd:
+        off = spec.mesh.cp_rank * cache_len
+        ai["fd_offset"] = off
+        ai["fd_positions"] = _fd_local(spec, position_ids, cache_len)
+        _add_masks(spec, ai, lambda w, c: attn_ops.decode_mask(
+            position_ids, cache_len, w, c, offset=off))
+    elif ai["use_kernel"]:
         ai["lens"] = position_ids[:, 0].to(torch.int32).contiguous()
     elif spec.rolling_window:
         ai["mask"] = attn_ops.rolling_decode_mask(position_ids, cache_len)
@@ -1696,6 +1881,7 @@ def decode_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     chunkable = (num_steps > 1 and not tpu_cfg.is_continuous_batching
                  and b == cache["k"].shape[1]
                  and not spec.rolling_window
+                 and not spec.flash_decoding
                  and spec.decode_kernel is not True
                  and not spec.alibi
                  and not (spec.attn_sink or spec.sliding_window > 0
@@ -1769,14 +1955,18 @@ def use_decode_kernel(spec: DecoderSpec, phase_t: int,
 
 
 def _paged_hidden(spec: DecoderSpec, params, cache, input_ids, position_ids,
-                  slot_mapping, block_table, inv_freq, adapter_ids=None):
+                  slot_mapping, block_table, inv_freq, adapter_ids=None,
+                  dp_slots=None):
     """The layer stack over the paged cache: the step's K/V land at
     ``slot_mapping``; a T = 1 step runs the paged kernel, a wider one the
     block-table gather + ``mha`` (model_base.py:1071-1077); with
-    ``adapter_ids`` each row adds its LoRA slot's deltas."""
+    ``adapter_ids`` each row adds its LoRA slot's deltas. ``dp_slots``:
+    this dp replica's rows are a part of the step, whose every row's K/V
+    land at these slots on every replica."""
     t = input_ids.shape[1]
     ai = attn_inputs(spec, position_ids, inv_freq)
     ai["adapter_ids"] = adapter_ids
+    ai["dp_slots"] = dp_slots
     ai["use_kernel"] = use_decode_kernel(spec, t, cache["k"].dtype)
     ai["slot_mapping"] = slot_mapping
     ai["block_table"] = block_table
@@ -1811,7 +2001,7 @@ def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                        input_ids, position_ids, slot_mapping, block_table,
                        last_idx, sampling_params=None, generator=None,
                        inv_freq: Optional[torch.Tensor] = None,
-                       row_seeds=None, adapter_ids=None):
+                       row_seeds=None, adapter_ids=None, dp_slots=None):
     """One paged step: paged prefill, prefix-cached or chunked prefill
     (T = window at arbitrary positions) and paged decode (T = 1).
 
@@ -1823,9 +2013,25 @@ def paged_forward_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     sampled token. adapter_ids (B,): the rows' LoRA slots (model_base.py:
     1905-1909), None for a LoRA-free step. Writes the cache in place;
     returns {"tokens": (B,) int32} plus {"logits": (B, T, vocab)} when
-    ``tpu_cfg.output_logits``."""
+    ``tpu_cfg.output_logits``.
+
+    Over a mesh with dp > 1 and a batch dp divides, each replica runs
+    its rows (:func:`dp_rows`) and samples them (``sample_dp``), every
+    replica writes every row's K/V, and the outputs are gathered over
+    dp; any other batch runs whole on every replica."""
+    b = input_ids.shape[0]
+    rows = None if dp_slots is not None else dp_rows(spec, b)
+    if rows is not None:
+        sub = [rows_of(x, rows, b) for x in (
+            input_ids, position_ids, slot_mapping, block_table, last_idx,
+            sampling_params)]
+        return _gather_rows(spec, paged_forward_step(
+            spec, tpu_cfg, params, cache, *sub, generator,
+            inv_freq, rows_of(row_seeds, rows, b),
+            rows_of(adapter_ids, rows, b), dp_slots=slot_mapping))
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
-                           slot_mapping, block_table, inv_freq, adapter_ids)
+                           slot_mapping, block_table, inv_freq, adapter_ids,
+                           dp_slots)
     coupled = None
     if _coupled_mode(tpu_cfg, row_seeds):
         pos_last = torch.gather(position_ids, 1,
@@ -1869,7 +2075,8 @@ def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       input_ids, position_ids, slot_mapping, block_table,
                       widths, sampling_params=None, row_seeds=None,
                       inv_freq: Optional[torch.Tensor] = None,
-                      want_hidden: bool = False, adapter_ids=None):
+                      want_hidden: bool = False, adapter_ids=None,
+                      dp_slots=None):
     """The speculative verify step (model_base.py:2141-2220): every
     candidate of a (B, W) window in one paged forward, then exact-match
     acceptance. input_ids (B, W): column 0 each row's last accepted token,
@@ -1881,9 +2088,22 @@ def paged_spec_verify(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
     (B,) int32}, plus {"hidden": (B, W, H)} with ``want_hidden`` (the
     verified features the Medusa and EAGLE proposers read, :2217).
-    ``adapter_ids`` (B,): the rows' LoRA slots or None."""
+    ``adapter_ids`` (B,): the rows' LoRA slots or None. Rows over dp as
+    :func:`paged_forward_step` takes them."""
+    b = input_ids.shape[0]
+    rows = None if dp_slots is not None else dp_rows(spec, b)
+    if rows is not None:
+        sub = [rows_of(x, rows, b) for x in (
+            input_ids, position_ids, slot_mapping, block_table, widths,
+            sampling_params, row_seeds)]
+        return _gather_rows(spec, paged_spec_verify(
+            spec, tpu_cfg, params, cache, *sub, inv_freq=inv_freq,
+            want_hidden=want_hidden,
+            adapter_ids=rows_of(adapter_ids, rows, b),
+            dp_slots=slot_mapping))
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
-                           slot_mapping, block_table, inv_freq, adapter_ids)
+                           slot_mapping, block_table, inv_freq, adapter_ids,
+                           dp_slots)
     target = _verify_target(spec, tpu_cfg, params, hidden, position_ids,
                             sampling_params, row_seeds)
     n_acc = _accepted(input_ids, target, widths)
@@ -1901,7 +2121,8 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
                       widths, emit_modes, sampling_params=None,
                       generator=None, inv_freq: Optional[torch.Tensor] = None,
                       verify: bool = False, row_seeds=None,
-                      want_hidden: bool = False, adapter_ids=None):
+                      want_hidden: bool = False, adapter_ids=None,
+                      dp_slots=None):
     """The ragged unified step (model_base.py:2222-2328): one paged
     forward whose rows mix decode steps (width 1), prefill chunks (width
     n at the row's own offset) and verify windows (width k+1).
@@ -1929,10 +2150,24 @@ def paged_ragged_step(spec: DecoderSpec, tpu_cfg: TpuConfig, params, cache,
     {"tokens": (B, W) int32 (0 past ``num_emitted``), "num_emitted":
     (B,) int32}, plus {"hidden": (B, W, H)} with ``want_hidden``
     (:2326-2327). ``adapter_ids`` (B,): each row gathers its own LoRA
-    slot's factors (:2261-2265); None keeps the step LoRA-free."""
+    slot's factors (:2261-2265); None keeps the step LoRA-free. Rows over
+    dp as :func:`paged_forward_step` takes them (a mixed step of prefill
+    chunks and decode rows takes the same rule)."""
     b, w = input_ids.shape
+    rows = None if dp_slots is not None else dp_rows(spec, b)
+    if rows is not None:
+        sub = [rows_of(x, rows, b) for x in (
+            input_ids, position_ids, slot_mapping, block_table, widths,
+            emit_modes, sampling_params)]
+        return _gather_rows(spec, paged_ragged_step(
+            spec, tpu_cfg, params, cache, *sub, generator=generator,
+            inv_freq=inv_freq, verify=verify,
+            row_seeds=rows_of(row_seeds, rows, b), want_hidden=want_hidden,
+            adapter_ids=rows_of(adapter_ids, rows, b),
+            dp_slots=slot_mapping))
     hidden = _paged_hidden(spec, params, cache, input_ids, position_ids,
-                           slot_mapping, block_table, inv_freq, adapter_ids)
+                           slot_mapping, block_table, inv_freq, adapter_ids,
+                           dp_slots)
     emit = emit_modes.to(torch.int32)
     last = (widths.long() - 1).clamp(min=0)
     coupled = _coupled_mode(tpu_cfg, row_seeds)
@@ -2050,15 +2285,11 @@ def paged_spec_draft_loop(spec: DecoderSpec, tpu_cfg: TpuConfig, params,
 # Spec resolution from InferenceConfig
 # ---------------------------------------------------------------------------
 
-A13C = "ROADMAP A13c"
+A13D = "ROADMAP A13d"
 
 
 def _unported_knobs(tcfg: TpuConfig, act: str):
     checks = [
-        (tcfg.cp_degree > 1 or tcfg.attention_dp_degree > 1,
-         f"context or attention-data parallelism > 1 ({A13C})"),
-        (tcfg.sequence_parallel_enabled, f"sequence parallelism ({A13C})"),
-        (tcfg.flash_decoding_enabled, f"flash decoding ({A13C})"),
         (tcfg.tensor_capture_config is not None
          or tcfg.tensor_replacement_config is not None,
          "tensor capture/replacement"),
@@ -2075,16 +2306,19 @@ MOE_DEGREES = ("moe_tp_degree", "moe_ep_degree", "moe_cte_tp_degree",
 def _moe_degree_refusals(tcfg: TpuConfig) -> List[str]:
     """``moe_tp_degree`` / ``moe_ep_degree`` (the reference's
     ``MoETpuConfig``) name the mesh's own tp and ep extents (the
-    counterpart reads neither: its mesh fixes them); a value the mesh
-    does not have is refused (ROADMAP A13c)."""
+    counterpart reads neither: its mesh fixes them; the tp axis is
+    ``tp_degree / (cp·dp·ep)``); a value the mesh does not have is
+    refused."""
     mc = tcfg.moe_config
     if mc is None:
         return []
     ep = max(int(tcfg.ep_degree), 1)
-    have = {"moe_tp_degree": max(int(tcfg.tp_degree), 1) // ep,
+    shrink = (ep * max(int(tcfg.cp_degree), 1)
+              * max(int(tcfg.attention_dp_degree), 1))
+    have = {"moe_tp_degree": max(int(tcfg.tp_degree), 1) // shrink,
             "moe_ep_degree": ep}
     return [f"MoE {knob}={getattr(mc, knob)} on a mesh of {knob[4:6]} "
-            f"{want} ({A13C})" for knob, want in have.items()
+            f"{want}" for knob, want in have.items()
             if getattr(mc, knob, None) not in (None, want)]
 
 
@@ -2132,9 +2366,10 @@ def _hybrid_moe(tcfg: TpuConfig, moe, quantized: bool):
 
 
 def _tp_refusals(tcfg: TpuConfig, knobs) -> List[str]:
-    """What the port does not serve at tp > 1 yet (each waits for ROADMAP
-    A13c): multi-LoRA, speculation (fused, served or Medusa)."""
-    return [f"{what} at tp > 1 ({A13C})" for bad, what in (
+    """What the port does not serve over a mesh of more than one rank
+    yet (each waits for ROADMAP A13d): multi-LoRA, speculation (fused,
+    served or Medusa)."""
+    return [f"{what} at tp > 1 ({A13D})" for bad, what in (
         (tcfg.lora_config is not None, "multi-LoRA"),
         (_has_speculation(tcfg) or knobs.get("medusa_heads", 0) > 0,
          "speculation")) if bad]
@@ -2268,7 +2503,7 @@ def spec_from_config(config: InferenceConfig,
             bad.append(f"{knob} {knobs[knob]!r}")
     if knobs.get("block_style", "sequential") not in BLOCK_STYLES:
         bad.append(f"block_style {knobs['block_style']!r}")
-    if tp > 1:
+    if max(tp, int(tcfg.tp_degree)) > 1:
         bad += _tp_refusals(tcfg, knobs)
     cc = tcfg.collective_config
     wire = cc.dtype if cc is not None else None
@@ -2374,6 +2609,9 @@ def spec_from_config(config: InferenceConfig,
         vocab_parallel=bool(tcfg.vocab_parallel),
         collective_dtype=wire,
         collective_block=int(cc.block) if cc is not None else 32,
+        seq_parallel=bool(tcfg.sequence_parallel_enabled),
+        cp_prefill=tcfg.cp_degree > 1,
+        flash_decoding=bool(tcfg.flash_decoding_enabled),
         **knobs,
     )
 

@@ -22,7 +22,7 @@ takes ALiBi (the model's gates keep such layers on these cores).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import math
 
@@ -193,6 +193,46 @@ def mha_hl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  logits_soft_cap, sink, q.dtype, alibi)
 
 
+def mha_hl_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor], scale: float,
+                   logits_soft_cap: Optional[float] = None, alibi=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's share of :func:`mha_hl` (flash decoding: the cache's
+    slots cut over the cp ranks): the fp32 scores of q (B, T, Hq, D)
+    against this shard's keys k (B, Hkv, D, S) take the scale, ALiBi, the
+    soft-cap and the mask (masked scores at ``NEG_INF``) as :func:`_core`
+    gives them, without the softmax. Returns the unnormalised output
+    ``sum_s exp(score - m) v`` (B, T, Hq, Dv) fp32, the row max ``m`` and
+    the sum ``l = sum_s exp(score - m)`` (B, T, Hq) fp32. A shard whose
+    keys are all masked has ``m = NEG_INF``: merged with a live shard its
+    weight ``exp(NEG_INF - M)`` is 0, and when every shard is dead the
+    merge spreads over every slot as :func:`_core`'s softmax does."""
+    b, t, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[3]
+    g = hq // hkv
+    n = b * hkv
+    qg = (q.reshape(b, t, hkv, g, d).permute(0, 2, 3, 1, 4)
+          .reshape(n, g * t, d))
+    scores = _bmm_f32(qg, k.reshape(n, d, s), scale)
+    view = scores.view(b, hkv, g, t, s)
+    if alibi is not None:
+        view.add_(_alibi_bias(alibi, hkv, g))
+    _softcap_(scores, logits_soft_cap)
+    if mask is not None:
+        view.masked_fill_(~mask[:, None, None, :, :], NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l_sum = p.sum(dim=-1)
+    o = _bmm_f32(p.to(v.dtype), v.reshape(n, s, v.shape[-1]))
+    dv = v.shape[-1]
+
+    def heads(x, w):
+        return (x.view(b, hkv, g, t, w).permute(0, 3, 1, 2, 4)
+                .reshape(b, t, hq, w))
+    return heads(o, dv), heads(m, 1)[..., 0], heads(l_sum[..., None],
+                                                    1)[..., 0]
+
+
 def mha_decode_merged(q: torch.Tensor, k_prior: torch.Tensor,
                       v_prior: torch.Tensor, mask_prior: torch.Tensor,
                       k_side: torch.Tensor, v_side: torch.Tensor,
@@ -291,10 +331,13 @@ def rolling_decode_mask(position_ids: torch.Tensor,
 
 
 def decode_mask(position_ids: torch.Tensor, cache_len: int,
-                window: int = 0, chunk: int = 0) -> torch.Tensor:
+                window: int = 0, chunk: int = 0,
+                offset: int = 0) -> torch.Tensor:
     """Mask over a contiguous (or gathered) view of ``cache_len`` slots
-    whose slot i holds position i. position_ids (B, T)."""
-    kv_pos = torch.arange(cache_len, dtype=position_ids.dtype,
+    whose slot i holds position ``offset + i`` (``offset``: a flash-decoding
+    shard's first position). position_ids (B, T)."""
+    kv_pos = torch.arange(offset, offset + cache_len,
+                          dtype=position_ids.dtype,
                           device=position_ids.device)[None, :]
     kv_pos = kv_pos.expand(position_ids.shape[0], cache_len)
     return causal_mask(position_ids, kv_pos, window, chunk)

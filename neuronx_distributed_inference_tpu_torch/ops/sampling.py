@@ -282,3 +282,84 @@ def sample(logits: torch.Tensor, config: Optional[OnDeviceSamplingConfig],
             config.global_topk if config else 256,
             config.deterministic if config else False)
     return toks.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# data-parallel sampling (counterpart ops/sampling.py:198-237)
+# ---------------------------------------------------------------------------
+
+def sampling_seed(seed: int, dp_index: int = 0) -> int:
+    """The generator seed of dp replica ``dp_index``: ``seed`` on replica
+    0 (a one-replica app draws as before), another seed on every other
+    replica, so that no two replicas draw the same noise."""
+    return (int(seed) + dp_index * 0x9E3779B97F4A7C15) % (1 << 63)
+
+
+def _key_tensor(key, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(key, dtype=np.int64) & _M32,
+                           device=device).reshape(2)
+
+
+def keyed_sample(logits: torch.Tensor,
+                 config: Optional[OnDeviceSamplingConfig],
+                 sampling_params: Optional[torch.Tensor] = None,
+                 key=None) -> torch.Tensor:
+    """The counterpart's :func:`sample` with its PRNG ``key`` (the two
+    uint32 words of ``jax.random.PRNGKey``): greedy, or the gumbel-max
+    draw over the truncated distribution with the noise of
+    ``jax.random.gumbel(key, probs.shape)`` bit for bit."""
+    shape = logits.shape[:-1]
+    logits = logits.reshape(-1, logits.shape[-1])
+    if sampling_params is None and (config is None or not config.do_sample):
+        return greedy_sample(logits).reshape(shape)
+    if sampling_params is None:
+        sampling_params = _config_params(config, logits.shape[0],
+                                         logits.device)
+    elif sampling_params.shape[0] != logits.shape[0]:
+        sampling_params = torch.repeat_interleave(
+            sampling_params, logits.shape[0] // sampling_params.shape[0],
+            dim=0)
+    probs, top_idx = truncated_probs(
+        logits, sampling_params, config.global_topk if config else 256)
+    if config is not None and config.deterministic:
+        choice = torch.argmax(probs, dim=-1)
+    else:
+        g = gumbel(_key_tensor(key, logits.device)[None],
+                   probs.numel()).reshape(probs.shape)
+        choice = torch.argmax(torch.where(
+            probs > 0, torch.log(probs) + g,
+            torch.full_like(probs, float("-inf"))), dim=-1)
+    return torch.gather(top_idx, 1, choice[:, None])[:, 0].to(
+        torch.int32).reshape(shape)
+
+
+def sample_replica(logits: torch.Tensor, config, sampling_params, key,
+                   dp_index: int) -> torch.Tensor:
+    """Replica ``dp_index``'s share of :func:`sample_dp`: its rows'
+    logits and sampling params, the key folded with its index
+    (``jax.random.fold_in(key, axis_index("dp"))``)."""
+    if key is not None:
+        dev = logits.device
+        key = fold_in(_key_tensor(key, dev), torch.tensor(
+            dp_index, dtype=torch.int64, device=dev))
+    return keyed_sample(logits, config, sampling_params, key)
+
+
+def sample_dp(logits: torch.Tensor, config, sampling_params=None, key=None,
+              mesh=None) -> torch.Tensor:
+    """Batch-sharded sampling (counterpart :198-237, the reference's
+    ``DataParallelSampler``): replica ``mesh.dp_rank`` samples its rows
+    [i·B/dp, (i+1)·B/dp) with the key folded with its index, and the
+    tokens are gathered over dp. Without a dp axis, or with a batch dp
+    does not divide, every replica samples the whole batch with the key
+    as given."""
+    b = logits.shape[0]
+    if mesh is None or mesh.dp <= 1 or b % mesh.dp:
+        return keyed_sample(logits, config, sampling_params, key)
+    from ..parallel import collectives
+    n = b // mesh.dp
+    rows = slice(mesh.dp_rank * n, (mesh.dp_rank + 1) * n)
+    sp = (sampling_params[rows] if sampling_params is not None
+          and sampling_params.shape[0] == b else sampling_params)
+    toks = sample_replica(logits[rows], config, sp, key, mesh.dp_rank)
+    return collectives.gather_dim(toks, mesh, "dp", 0)

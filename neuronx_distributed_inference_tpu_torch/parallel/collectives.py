@@ -11,8 +11,16 @@ model code calls one of these over the :class:`~.mesh.Mesh`'s group:
     the vocabulary-parallel embedding, the full-width q/k norm's sum of
     squares;
   * :func:`all_gather` — the vocabulary-parallel logits;
+  * :func:`gather_dim` — over the dp group, a step's rows (each replica
+    runs its own, ``models/model_base`` and ``models/application``); over
+    the cp group, a prefill's sequence chunks (context-parallel prefill
+    and sequence parallelism);
+  * :func:`all_reduce` with ``axis="cp"`` — the flash-decoding merge of
+    each cp rank's partial softmax (a max, then sums);
+  * :func:`gather_rows_uneven` — a step's rows over dp when the replicas
+    ran different row counts (the contiguous cache's rows);
   * :func:`broadcast_object` — a new schema of rank 0's dispatch records
-    (``parallel/dispatch``), pickled once;
+    (``parallel/dispatch``), pickled once, over the world;
   * :func:`quantized_all_reduce` / :func:`quantized_reduce_scatter` — the
     EQuARX-style two-phase ring with an int8 or fp8 wire payload
     (blockwise absmax scales, the JAX ring's rounding): g - 1 hops of
@@ -35,7 +43,7 @@ element bytes, then returns a fake result of the right shape.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -56,7 +64,8 @@ _LISTENERS: List[Callable[[dict], None]] = []
 @contextlib.contextmanager
 def collective_listener(fn: Callable[[dict], None]):
     """While open, ``fn(entry)`` hears every collective made on fake
-    tensors: {"kind", "group_size", "elems", "elem_bytes", "dtype"}."""
+    tensors: {"kind", "group_size", "elems", "elem_bytes", "dtype",
+    "axis"} (``axis`` the mesh axis it rides: "mp", "dp" or "cp")."""
     _LISTENERS.append(fn)
     try:
         yield fn
@@ -69,11 +78,12 @@ def _is_fake(x: torch.Tensor) -> bool:
     return isinstance(x, FakeTensor)
 
 
-def _tell(kind: str, g: int, x: torch.Tensor, elems: int = None) -> None:
+def _tell(kind: str, g: int, x: torch.Tensor, elems: int = None,
+          axis: str = "mp") -> None:
     entry = {"kind": kind, "group_size": int(g),
              "elems": int(x.numel() if elems is None else elems),
              "elem_bytes": int(x.element_size()),
-             "dtype": str(x.dtype).replace("torch.", "")}
+             "dtype": str(x.dtype).replace("torch.", ""), "axis": axis}
     for fn in list(_LISTENERS):
         fn(entry)
 
@@ -124,42 +134,99 @@ def _resolve_block(chunk: int, block: int) -> int:
 # plain collectives
 # ---------------------------------------------------------------------------
 
-def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum over the group (in place on a contiguous ``x``, returned)."""
+def _extent(mesh, axis: str) -> int:
+    return {"mp": mesh.mp, "dp": mesh.dp, "cp": mesh.cp}[axis]
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str = "mp",
+               op: str = "sum") -> torch.Tensor:
+    """Sum (or with ``op="max"`` the max) over the ``axis`` group (in
+    place on a contiguous ``x``, returned). A dp or cp axis of one rank
+    returns ``x``."""
     x = x.contiguous()
+    g = _extent(mesh, axis)
     if _is_fake(x):
-        _tell("all_reduce", mesh.mp, x)
+        _tell("all_reduce", g, x, axis=axis)
         return x
-    dist.all_reduce(x, group=mesh.group)
+    if axis != "mp" and g == 1:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=mesh.axis_group(axis))
     return x
+
+
+def gather_dim(x: torch.Tensor, mesh, axis: str = "mp",
+               dim: int = -1) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, in the ``axis``
+    group's rank order (every rank's ``x`` of one shape). A dp or cp axis
+    of one rank returns ``x``."""
+    g = _extent(mesh, axis)
+    dim = dim % x.dim()
+    x = x.contiguous()
+    shape = list(x.shape)
+    shape[dim] *= g
+    if _is_fake(x):
+        _tell("all_gather", g, x, x.numel() * g, axis=axis)
+        return x.new_empty(shape)
+    if g == 1:
+        return x
+    group = mesh.axis_group(axis)
+    if mesh.backend == "nccl":
+        out = x.new_empty((g, *x.shape))
+        dist.all_gather_into_tensor(out, x, group=group)
+    else:
+        src = x.cpu() if mesh.host_route else x
+        parts = [torch.empty_like(src) for _ in range(g)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.stack(parts).to(x.device)
+    return torch.movedim(out, 0, dim).reshape(shape)
 
 
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     """Concatenate every rank's ``x`` (…, n) along the last dim, in rank
     order: (…, tp * n)."""
-    g = mesh.mp
-    *lead, n = x.shape
-    x = x.contiguous()
-    if _is_fake(x):
-        _tell("all_gather", g, x, x.numel() * g)
-        return x.new_empty((*lead, g * n))
-    if mesh.backend == "nccl":
-        out = x.new_empty((g, *lead, n))
-        dist.all_gather_into_tensor(out, x, group=mesh.group)
-    else:
-        src = x.cpu() if mesh.host_route else x
-        parts = [torch.empty_like(src) for _ in range(g)]
-        dist.all_gather(parts, src, group=mesh.group)
-        out = torch.stack(parts).to(x.device)
-    return torch.movedim(out, 0, -2).reshape(*lead, g * n)
+    return gather_dim(x, mesh, "mp", -1)
 
 
-def broadcast_object(obj: Any, mesh) -> Any:
-    """Rank 0's ``obj`` on every rank of the group (pickled)."""
+def gather_rows_uneven(out: Optional[Dict[str, torch.Tensor]],
+                       counts: Sequence[int], mesh,
+                       device) -> Dict[str, torch.Tensor]:
+    """Every replica's rows of a step's outputs, over the dp group, when
+    the replicas ran ``counts[i]`` rows each (a replica of no rows passes
+    ``out`` None): each tensor (counts[i], …) comes back as (sum(counts),
+    …), replica after replica. The first replica with rows sends the
+    outputs' keys, shapes and dtypes (one pickled broadcast), each tensor
+    travels padded to max(counts) rows (one all-gather each)."""
+    src = next(i for i, n in enumerate(counts) if n)
+    meta = None
+    if mesh.dp_rank == src:
+        meta = {k: (tuple(v.shape[1:]), v.dtype) for k, v in out.items()}
+    meta = broadcast_object(meta, mesh, axis="dp", src_index=src)
+    top = max(counts)
+    res = {}
+    for k in sorted(meta):
+        tail, dtype = meta[k]
+        pad = torch.zeros((top, *tail), dtype=dtype, device=device)
+        if out is not None and counts[mesh.dp_rank]:
+            pad[:counts[mesh.dp_rank]] = out[k]
+        every = gather_dim(pad, mesh, "dp", 0).reshape(
+            mesh.dp, top, *tail)
+        res[k] = torch.cat([every[i, :n] for i, n in enumerate(counts)])
+    return res
+
+
+def broadcast_object(obj: Any, mesh, axis: str = "world",
+                     src_index: int = 0) -> Any:
+    """``obj`` of the ``axis`` group's rank ``src_index`` (by default the
+    mesh's rank 0 over the world) on every rank of the group
+    (pickled)."""
     box = [obj]
     dev = mesh.device if mesh.backend == "nccl" else None
-    dist.broadcast_object_list(box, src=mesh.src, group=mesh.group,
-                               device=dev)
+    group = mesh.axis_group(axis)
+    src = (mesh.src if axis == "world" else
+           dist.get_global_rank(group, src_index) if group is not None
+           else src_index)
+    dist.broadcast_object_list(box, src=src, group=group, device=dev)
     return box[0]
 
 
@@ -287,5 +354,6 @@ def quantized_row_parallel(x: torch.Tensor, w: Any, mesh, *, dtype: str,
 
 __all__ = ["WIRE_DTYPES", "SUPPORTED_DTYPES", "DEFAULT_BLOCK",
            "collective_listener", "require_supported_dtype", "all_reduce",
-           "all_gather", "broadcast_object", "quantized_all_reduce",
+           "all_gather", "gather_dim", "gather_rows_uneven",
+           "broadcast_object", "quantized_all_reduce",
            "quantized_reduce_scatter", "quantized_row_parallel"]

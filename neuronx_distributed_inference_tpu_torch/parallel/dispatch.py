@@ -110,7 +110,12 @@ def _bytes_of(x) -> torch.Tensor:
         except TypeError as e:
             raise ConfigurationError(
                 f"a dispatch record cannot carry a {x.dtype} array") from e
-    b = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    flat = x.detach().contiguous().reshape(-1)
+    if flat.numel() and flat.stride(0) != 1:
+        # a one-element view keeps a broadcast stride through
+        # ``contiguous()``: a byte view needs stride 1
+        flat = flat.clone(memory_format=torch.contiguous_format)
+    b = flat.view(torch.uint8)
     pad = -b.numel() % _ALIGN
     if pad:
         b = torch.cat([b, b.new_zeros(pad)])
@@ -122,10 +127,12 @@ def _np_dtype_to_torch(dtype_str: str) -> torch.dtype:
 
 
 class Channel:
-    """One rank's end of the dispatch records of ``mesh``'s group: rank 0
-    sends (:meth:`send`, :meth:`stop`), the others receive
-    (:meth:`recv`). ``schemas`` counts the schemas sent (each pickled
-    once), ``broadcasts`` the frames and payloads."""
+    """One rank's end of the dispatch records over every rank of
+    ``mesh`` (its world group: every dp and cp replica receives rank 0's
+    frame, and takes its own rows from the record): rank 0 sends
+    (:meth:`send`, :meth:`stop`), the others receive (:meth:`recv`).
+    ``schemas`` counts the schemas sent (each pickled once),
+    ``broadcasts`` the frames and payloads."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -141,7 +148,7 @@ class Channel:
 
     # -- the wire ----------------------------------------------------------
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
-        dist.broadcast(t, src=self.mesh.src, group=self.mesh.group)
+        dist.broadcast(t, src=self.mesh.src, group=self.mesh.world_group)
         self.broadcasts += 1
         return t
 

@@ -12,18 +12,22 @@ collectives of :mod:`.collectives` where GSPMD inserted them. A
 :class:`Mesh` is what a rank knows of that world: its rank, the world, the
 tensor-parallel group, the group's backend and the rank's device.
 
-The port runs the ``ep`` and ``tp`` axes, ``ep`` outside ``tp`` as in the
-counterpart's ``(dp, cp, ep, tp)`` mesh: rank ``r`` of a world of
-``ep·tp`` ranks is ``(ep_rank, tp_rank) = divmod(r, tp)``, the JAX
-package's device ``r`` of the same mesh. Attention, dense MLPs, the
-vocabulary and shared experts are cut over the combined model-parallel
-axis (``AXIS_MP``: every rank, index ``r``); routed experts over ``ep``
-(the expert axis) and ``tp`` (their intermediate axis). One process group
-spans the ``mp = ep·tp`` ranks: the MoE block's partial sums are reduced
-over all of it, as GSPMD's psum over ``("ep", "tp")`` is, so no step needs
-an ep or tp subgroup. Context parallelism and attention data parallelism
-(``cp``, ``dp`` > 1) are refused with :class:`ConfigurationError`
-(ROADMAP A13c).
+The port runs the counterpart's four axes ``(dp, cp, ep, tp)`` in its
+order: rank ``r`` of a world of ``dp·cp·ep·tp`` ranks is
+``r = ((dp_rank·cp + cp_rank)·ep + ep_rank)·tp + tp_rank``, the JAX
+package's device ``r`` of the same mesh (``jax.devices()`` reshaped
+``(dp, cp, ep, tp)``). Attention, dense MLPs, the vocabulary and shared
+experts are cut over the combined model-parallel axis (``AXIS_MP``, the
+``mp = ep·tp`` ranks of one (dp, cp) replica, index ``ep_rank·tp +
+tp_rank``: :attr:`Mesh.rank`); routed experts over ``ep`` (the expert
+axis) and ``tp`` (their intermediate axis). Every weight is replicated
+over ``dp`` and ``cp``. One process group spans each replica's mp ranks:
+the MoE block's partial sums are reduced over all of it, as GSPMD's psum
+over ``("ep", "tp")`` is. A dp group joins the ranks of one mp index and
+one cp index across the replicas (the gathers of a step's rows), a cp
+group those of one mp index and one dp index (the sequence gathers of
+context-parallel prefill and the flash-decoding merge); the world group
+carries rank 0's dispatch records.
 
 A rank's device is ``cuda:{local_rank}`` unless the caller names another;
 the backend is NCCL unless the caller names gloo. Nothing here picks the
@@ -51,6 +55,7 @@ import uuid
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -67,7 +72,7 @@ AXIS_MP = "mp"
 # tp-major (the counterpart's moe.py:326-333)
 AXIS_TP_EP = "tp_ep"
 
-A13C = "ROADMAP A13c"
+A13D = "ROADMAP A13d"
 
 
 @dataclass(frozen=True)
@@ -108,29 +113,61 @@ def topology_from_env() -> Topology:
 
 
 class Mesh:
-    """One rank's view of the model-parallel world.
+    """One rank's view of the world.
 
-    ``group`` is the process group of the ``mp = ep·tp`` ranks (``None`` =
-    the default group), ``rank`` this process's rank in it, ``tp`` and
-    ``ep`` the two axes' extents, ``backend`` "nccl" or "gloo", ``device``
-    the rank's device. ``src`` is the global rank of the group's rank 0,
-    the host that plans every dispatch."""
+    ``group`` is the process group of its replica's ``mp = ep·tp`` ranks
+    (``None`` = the default group), ``rank`` this process's index in it
+    (the index every weight cut reads), ``tp`` and ``ep`` the two axes'
+    extents, ``backend`` "nccl" or "gloo", ``device`` the rank's device.
+    ``dp`` / ``cp`` are the data- and context-parallel extents and
+    ``dp_rank`` / ``cp_rank`` this rank's replica on each;
+    ``dp_group`` / ``cp_group`` the groups across them (None where the
+    axis is 1: nothing runs over it) and ``world_group`` the group of
+    every rank of the mesh (None = the default group). ``src`` is the global rank of the mesh's
+    rank 0, the host that plans every dispatch; ``index`` this rank's
+    place in the mesh, ``((dp_rank·cp + cp_rank)·mp + rank)``."""
 
     def __init__(self, group, backend: str, device: torch.device,
-                 rank: int, tp: int, src: int = 0, ep: int = 1):
+                 rank: int, tp: int, src: int = 0, ep: int = 1,
+                 dp: int = 1, cp: int = 1, dp_rank: int = 0,
+                 cp_rank: int = 0, world_group=None, dp_group=None,
+                 cp_group=None):
         self.group = group
         self.backend = backend
         self.device = torch.device(device)
         self.rank = rank
         self.tp = tp
         self.ep = ep
+        self.dp = dp
+        self.cp = cp
+        self.dp_rank = dp_rank
+        self.cp_rank = cp_rank
         self.src = src
+        self.world_group = world_group
+        self.dp_group = dp_group
+        self.cp_group = cp_group
 
     @property
     def mp(self) -> int:
         """Ranks of the model-parallel group: heads, dense MLP columns and
         the vocabulary are cut over all of them."""
         return self.tp * self.ep
+
+    @property
+    def size(self) -> int:
+        """Every rank of the mesh: dp·cp·ep·tp."""
+        return self.dp * self.cp * self.mp
+
+    @property
+    def index(self) -> int:
+        return (self.dp_rank * self.cp + self.cp_rank) * self.mp + self.rank
+
+    @property
+    def leads(self) -> bool:
+        """True on the mesh's rank 0: the one that plans every step, owns
+        the host allocator and prints (not the rank 0 of a replica's mp
+        group)."""
+        return self.index == 0
 
     @property
     def ep_rank(self) -> int:
@@ -142,7 +179,7 @@ class Mesh:
 
     def cut(self, axis_name: str) -> Tuple[int, int]:
         """(degree, index) of this rank along a mesh axis: ``"mp"`` (the
-        rank), ``"ep"``, ``"tp"``, or ``"tp_ep"`` (the hybrid decode
+        rank), ``"ep"``, ``"tp"``, ``"tp_ep"`` (the hybrid decode
         copy's index ``tp_rank·ep + ep_rank`` of ``mp``)."""
         if axis_name == AXIS_MP:
             return self.mp, self.rank
@@ -154,6 +191,12 @@ class Mesh:
             return self.mp, self.tp_rank * self.ep + self.ep_rank
         raise ValueError(f"unknown mesh axis {axis_name!r}")
 
+    def axis_group(self, axis_name: str):
+        """The process group of ``"mp"``, ``"dp"``, ``"cp"`` or
+        ``"world"``."""
+        return {AXIS_MP: self.group, AXIS_DP: self.dp_group,
+                AXIS_CP: self.cp_group, "world": self.world_group}[axis_name]
+
     @property
     def host_route(self) -> bool:
         """True when a collective gloo cannot run on the device's tensors
@@ -163,25 +206,32 @@ class Mesh:
         return self.backend == "gloo" and self.device.type == "cuda"
 
     def warm(self) -> None:
-        """One collective on the device, so an NCCL communicator exists
-        before any CUDA graph captures the model's collectives."""
-        x = torch.ones((1,), device=self.device)
-        dist.all_reduce(x, group=self.group)
+        """One collective on the device over each group of the rank, so
+        every NCCL communicator exists before any CUDA graph captures the
+        model's collectives."""
+        for g, n in ((self.group, self.mp), (self.dp_group, self.dp),
+                     (self.cp_group, self.cp)):
+            if n > 1 or g is self.group:
+                dist.all_reduce(torch.ones((1,), device=self.device),
+                                group=g)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def __repr__(self) -> str:
-        return (f"Mesh(ep={self.ep}, tp={self.tp}, rank={self.rank}, "
-                f"backend={self.backend!r}, device={self.device})")
+        return (f"Mesh(dp={self.dp}, cp={self.cp}, ep={self.ep}, "
+                f"tp={self.tp}, dp_rank={self.dp_rank}, "
+                f"cp_rank={self.cp_rank}, rank={self.rank}, "
+                f"index={self.index}, backend={self.backend!r}, "
+                f"device={self.device})")
 
 
 def refuse_over_mesh(app, what: str) -> None:
-    """Raise :class:`ConfigurationError` naming ROADMAP A13c when ``app``
+    """Raise :class:`ConfigurationError` naming ROADMAP A13d when ``app``
     runs over a mesh of more than one rank (what the port does not serve
     at tp > 1 yet)."""
     m = getattr(app, "mesh", None)
-    if m is not None and m.mp > 1:
-        raise ConfigurationError(f"{what} at tp > 1 waits for {A13C}")
+    if m is not None and m.size > 1:
+        raise ConfigurationError(f"{what} at tp > 1 waits for {A13D}")
 
 
 def initialize_distributed(backend: str = "nccl", store=None,
@@ -206,62 +256,84 @@ def initialize_distributed(backend: str = "nccl", store=None,
     return rank, world_size, local
 
 
-def _refuse_axes(cfg: MeshConfig) -> None:
-    bad = [f"{name}={v}" for name, v in (("cp", cfg.cp), ("dp", cfg.dp))
-           if v > 1]
-    if bad:
-        raise ConfigurationError(
-            "the PyTorch port runs the ep and tp axes only: "
-            + ", ".join(bad) + f" waits for {A13C}")
+def rank_coords(cfg: MeshConfig, index: int) -> Tuple[int, int, int, int]:
+    """(dp_rank, cp_rank, ep_rank, tp_rank) of mesh index ``index``: the
+    position of the JAX package's device ``index`` in ``jax.devices()``
+    reshaped ``(dp, cp, ep, tp)`` (mesh.py:144)."""
+    coords = np.unravel_index(index, (cfg.dp, cfg.cp, cfg.ep, cfg.tp))
+    return tuple(int(c) for c in coords)
 
 
 def build_mesh(cfg: MeshConfig, device=None,
                ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
-    """The (ep, tp) mesh over the joined process group: ``ranks``
-    (default 0 .. ep·tp - 1; a world larger than that leaves the rest out
-    of it), ``ranks[i]`` the mesh's rank ``i = ep_rank·tp + tp_rank``.
-    Every process of the world must call it (a new group is a collective
-    call); those outside ``ranks`` get None. ``device``: the rank's
-    device (default ``cuda:{LOCAL_RANK}``)."""
-    _refuse_axes(cfg)
+    """The (dp, cp, ep, tp) mesh over the joined process group: ``ranks``
+    (default 0 .. dp·cp·ep·tp - 1; a world larger than that leaves the
+    rest out of it), ``ranks[i]`` the mesh's index ``i = ((dp_rank·cp +
+    cp_rank)·ep + ep_rank)·tp + tp_rank``. Every process of the world must
+    call it (a new group is a collective call, and every rank makes each
+    in the same order: the mesh's group, then each replica's mp group,
+    each dp group and each cp group); those outside ``ranks`` get None.
+    ``device``: the rank's device (default ``cuda:{LOCAL_RANK}``)."""
     if not dist.is_initialized():
         raise RuntimeError("initialize_distributed() first")
     world = dist.get_world_size()
-    n = cfg.ep * cfg.tp
+    n = cfg.world_size
     ranks = list(range(n)) if ranks is None else list(ranks)
     if len(ranks) != n or max(ranks) >= world:
         raise ConfigurationError(
-            f"an ep={cfg.ep} x tp={cfg.tp} mesh needs {n} of the world's "
-            f"{world} ranks, got {ranks}")
-    group = (None if ranks == list(range(world))
-             else dist.new_group(ranks))
+            f"a dp={cfg.dp} x cp={cfg.cp} x ep={cfg.ep} x tp={cfg.tp} "
+            f"mesh needs {n} of the world's {world} ranks, got {ranks}")
+    whole = ranks == list(range(world))
+    world_group = None if whole else dist.new_group(ranks)
+    grid = np.asarray(ranks).reshape(cfg.dp, cfg.cp, cfg.ep * cfg.tp)
     me = dist.get_rank()
+    mine = {}
+
+    def groups(rows, key):
+        # a dp or cp axis of extent 1 has no group (nothing runs over it);
+        # the mp group always exists, of one rank too
+        for row in rows:
+            row = [int(r) for r in row]
+            g = (world_group if len(row) == n
+                 else dist.new_group(row) if len(row) > 1 or key == "mp"
+                 else None)
+            if me in row:
+                mine[key] = g
+
+    groups(grid.reshape(-1, cfg.ep * cfg.tp), "mp")
+    groups(grid.transpose(1, 2, 0).reshape(-1, cfg.dp), "dp")
+    groups(grid.transpose(0, 2, 1).reshape(-1, cfg.cp), "cp")
     if me not in ranks:
         return None
+    dp_rank, cp_rank, ep_rank, tp_rank = rank_coords(cfg, ranks.index(me))
     local = int(os.environ.get("LOCAL_RANK", "0"))
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", local)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return Mesh(group, dist.get_backend(group), device, ranks.index(me),
-                cfg.tp, src=ranks[0], ep=cfg.ep)
+    return Mesh(mine["mp"], dist.get_backend(mine["mp"]), device,
+                ep_rank * cfg.tp + tp_rank, cfg.tp, src=ranks[0],
+                ep=cfg.ep, dp=cfg.dp, cp=cfg.cp, dp_rank=dp_rank,
+                cp_rank=cp_rank, world_group=world_group,
+                dp_group=mine["dp"], cp_group=mine["cp"])
 
 
 def mesh_from_config(tpu_config, device=None) -> Mesh:
     """The mesh of a TpuConfig's parallelism degrees, as the counterpart
     reads them (mesh.py:152-167): ``tp_degree`` counts every rank, and
-    ``ep_degree`` groups them, so the mesh is ep x (tp_degree / ep); cp
-    and dp above 1 are refused (A13c)."""
+    ``cp_degree``, ``attention_dp_degree`` and ``ep_degree`` group them,
+    so the tp axis is ``tp_degree / (cp·dp·ep)``."""
     tp = max(int(tpu_config.tp_degree), 1)
     cp = max(int(tpu_config.cp_degree), 1)
     dp = max(int(tpu_config.attention_dp_degree), 1)
     ep = max(int(tpu_config.ep_degree), 1)
-    _refuse_axes(MeshConfig(cp=cp, dp=dp))
-    if tp % ep:
+    shrink = cp * dp * ep
+    if tp % shrink:
         raise ConfigurationError(f"tp_degree {tp} is not divisible by "
-                                 f"ep_degree {ep}")
-    return build_mesh(MeshConfig(tp=tp // ep, ep=ep), device)
+                                 f"cp*dp*ep = {shrink}")
+    return build_mesh(MeshConfig(tp=tp // shrink, cp=cp, dp=dp, ep=ep),
+                      device)
 
 
 # ---------------------------------------------------------------------------
@@ -276,15 +348,26 @@ def _rank_device(device: str, rank: int) -> str:
     return f"cuda:{rank}" if device == "cuda" else device
 
 
+def _all_joined(store, world: int) -> None:
+    """Wait until every rank has joined the group: a rank that is done
+    first must not tear its group down while another is still connecting
+    to it (gloo's full-mesh connect then fails on the closed peer). No
+    limit of its own: the parent stops every rank at the world's."""
+    store.add("nxdi-joined", 1)
+    while store.add("nxdi-joined", 0) < world:
+        time.sleep(0.01)
+
+
 def _rank_main(fn, rank, world, backend, device, store_path, timeout_s,
-               args, results):
+               args, results, mesh_cfg=None):
     try:
         torch.set_num_threads(1)
         store = dist.FileStore(store_path, world)
         initialize_distributed(backend, store=store, rank=rank,
                                world_size=world, timeout_s=timeout_s)
+        _all_joined(store, world)
         try:
-            mesh = build_mesh(MeshConfig(tp=world),
+            mesh = build_mesh(mesh_cfg or MeshConfig(tp=world),
                               _rank_device(device, rank))
             results.put((rank, True, fn(mesh, *args)))
         finally:
@@ -312,9 +395,12 @@ def _failures(results, world: int, rank: int, tb: str) -> str:
 
 def spawn_world(fn: Callable[..., Any], world: int, backend: str,
                 device: str, tmpdir: str, timeout_s: float = 120.0,
-                args: tuple = ()) -> List[Any]:
+                args: tuple = (), mesh_cfg: Optional[MeshConfig] = None
+                ) -> List[Any]:
     """Run ``fn(mesh, *args)`` on ``world`` spawned ranks and return each
-    rank's result, in rank order. ``fn`` must be importable by name (a
+    rank's result, in rank order. ``mesh`` is the world's mesh:
+    ``mesh_cfg`` (its ``world_size`` must be ``world``), by default tp over
+    every rank. ``fn`` must be importable by name (a
     module-level function); ``device`` "cpu", "cuda" (``cuda:{rank}``) or
     one device for every rank ("cuda:0": two ranks on one card). The ranks
     meet over a ``FileStore`` under ``tmpdir``. Raises ``RuntimeError``
@@ -328,7 +414,8 @@ def spawn_world(fn: Callable[..., Any], world: int, backend: str,
     store_path = os.path.join(tmpdir, f"nxdi-store-{uuid.uuid4().hex}")
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, world, backend, device, store_path,
-                               timeout_s, args, results), daemon=True)
+                               timeout_s, args, results, mesh_cfg),
+                         daemon=True)
              for r in range(world)]
     out: dict = {}
     deadline = time.monotonic() + timeout_s

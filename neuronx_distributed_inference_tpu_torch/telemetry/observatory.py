@@ -221,37 +221,59 @@ _HLO_DTYPES = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
                "int32": "s32", "int64": "s64", "bool": "pred"}
 
 
+_AXES = ("dp", "cp", "ep", "tp")
+
+
+def _mesh_shape(mesh) -> Tuple[int, ...]:
+    return (mesh.dp, mesh.cp, mesh.ep, mesh.tp)
+
+
 def mesh_comm_labels(mesh) -> Dict[frozenset, str]:
     """Replica-group signatures -> the mesh axes they ride (reference
-    :269) over the port's live axes, ep outside tp (rank r = ep_rank·tp +
+    :269) over the port's live axes, in the counterpart's order (dp, cp,
+    ep, tp; rank r = ((dp_rank·cp + cp_rank)·ep + ep_rank)·tp +
     tp_rank): ``{{0,1},{2,3}} -> "tp"``, ``{{0,2},{1,3}} -> "ep"``, the
-    whole group ``"ep+tp"`` at ep 2 x tp 2. Only axes with extent > 1
-    participate."""
-    if mesh is None or mesh.mp <= 1:
+    whole group ``"ep+tp"`` at ep 2 x tp 2, ``{{0,2},{1,3}} -> "dp"`` at dp
+    2 x tp 2. Only axes with extent > 1 participate."""
+    if mesh is None or mesh.size <= 1:
         return {}
-    shape, names = (mesh.ep, mesh.tp), ("ep", "tp")
-    logical = np.arange(mesh.mp).reshape(shape)
-    live = [i for i, n in enumerate(shape) if n > 1]
+    live = [i for i, n in enumerate(_mesh_shape(mesh)) if n > 1]
     out: Dict[frozenset, str] = {}
     for bits in range(1, 1 << len(live)):
         subset = [live[i] for i in range(len(live)) if bits & (1 << i)]
-        rest = [i for i in range(2) if i not in subset]
-        grouped = logical.transpose(rest + subset).reshape(
-            -1, int(np.prod([shape[i] for i in subset])))
-        sig = frozenset(frozenset(int(x) for x in row) for row in grouped)
-        out.setdefault(sig, "+".join(names[i] for i in subset))
+        out.setdefault(_signature(mesh, subset),
+                       "+".join(_AXES[i] for i in subset))
     return out
+
+
+def _signature(mesh, subset: List[int]) -> frozenset:
+    """The replica groups of the mesh axes ``subset`` (indices into
+    ``_AXES``): the sets of ranks that differ only along them."""
+    shape = _mesh_shape(mesh)
+    rest = [i for i in range(len(shape)) if i not in subset]
+    grouped = np.arange(mesh.size).reshape(shape).transpose(
+        rest + subset).reshape(-1, int(np.prod([shape[i] for i in subset])))
+    return frozenset(frozenset(int(x) for x in row) for row in grouped)
+
+
+def _group_sig(mesh, axis: str) -> frozenset:
+    """The replica-group signature of the port's ``axis`` group ("mp":
+    each replica's ep·tp ranks; "dp" / "cp": one axis)."""
+    return _signature(mesh, [2, 3] if axis == "mp"
+                      else [_AXES.index(axis)])
 
 
 def census_collectives(heard: List[Dict[str, Any]], mesh
                        ) -> List[Dict[str, Any]]:
     """The census entries (reference :319) of the collectives heard on
-    the fake copies: each op's kind, the axis it rides, its wire dtype,
-    elements, element bytes, result bytes and group size."""
+    the fake copies: each op's kind, the axis it rides (the replica's
+    model-parallel group, or the dp or cp group: the label of its
+    replica-group signature), its wire dtype, elements, element bytes,
+    result bytes and group size."""
     labels = mesh_comm_labels(mesh)
-    # every collective of a step rides the whole model-parallel group
-    comm = labels.get(frozenset([frozenset(range(mesh.mp))]), "other")
-    return [{"kind": e["kind"], "comm": comm,
+    comms = {axis: labels.get(_group_sig(mesh, axis), "other")
+             for axis in ("mp", "dp", "cp")}
+    return [{"kind": e["kind"], "comm": comms[e.get("axis", "mp")],
              "dtype": _HLO_DTYPES.get(e["dtype"], e["dtype"]),
              "bytes": e["elems"] * e["elem_bytes"], "elems": e["elems"],
              "elem_bytes": e["elem_bytes"], "group_size": e["group_size"]}
@@ -570,9 +592,9 @@ def analyze_app(app, registry=None, hbm_gbps: Optional[float] = None,
         "backend": app.device.type,
         "device": (torch.cuda.get_device_name(app.device)
                    if app.device.type == "cuda" else str(app.device)),
-        "mesh": ({"devices": mesh.mp,
-                  "axes": {a: n for a, n in (("ep", mesh.ep),
-                                             ("tp", mesh.tp)) if n > 1}}
+        "mesh": ({"devices": mesh.size,
+                  "axes": {a: n for a, n in zip(_AXES, _mesh_shape(mesh))
+                           if n > 1}}
                  if has_mesh else {"devices": 1, "axes": {}}),
         "assumptions": {"hbm_gbps": hbm_gbps, "peak_tflops": peak_tflops,
                         "ici_gbps": ici_gbps, "dcn_gbps": dcn_gbps},

@@ -1,9 +1,12 @@
-"""Tensor and expert parallelism over NCCL across cards, one spawned rank
-a card: Qwen2.5-72B's widths (``chip_smoke.QWEN25_72B``) cut to
-``--layers`` layers, or with ``--ep N`` Qwen3-235B-A22B's
-(``chip_smoke.QWEN3_235B_A22B``, experts cut over ep N and their
-intermediate over tp_degree / N), served at each tp_degree of ``--tp``
-(the world's size) by phase 9's ragged engine and mix, the T = 1 steps
+"""Tensor, expert, attention-data and context parallelism over NCCL
+across cards, one spawned rank a card: Qwen2.5-72B's widths
+(``chip_smoke.QWEN25_72B``) cut to ``--layers`` layers, or with ``--ep
+N`` Qwen3-235B-A22B's (``chip_smoke.QWEN3_235B_A22B``, experts cut over
+ep N and their intermediate over the tp axis), served at each tp_degree
+of ``--tp`` (the world's size; ``--dp`` and ``--cp`` group it as
+``attention_dp_degree`` and ``cp_degree`` do: each dp replica runs its
+rows of a step, every replica writes every row's K/V into its pages) by
+phase 9's ragged engine and mix, the T = 1 steps
 replayed from CUDA graphs that hold their NCCL collectives. Each world's
 streams are held to the same weights at tp 1 on card 0 by
 ``chip_smoke``'s teacher-deficit gate with its shifted control (as
@@ -19,7 +22,9 @@ the card's name and power limit.
 
     python3 scripts/torch_tp_nccl.py --tp 2,4          # on 4 cards
     python3 scripts/torch_tp_nccl.py --tp 4 --ep 2     # ep 2 x tp 2
-    python3 scripts/torch_tp_nccl.py --device cpu --tiny --tp 2,4 [--ep 2]
+    python3 scripts/torch_tp_nccl.py --tp 4 --dp 2     # dp 2 x tp 2
+    python3 scripts/torch_tp_nccl.py --device cpu --tiny --tp 2,4 \
+        [--ep 2] [--dp 2] [--cp 2]
                                                        # CPU rehearsal
 
 The CPU rehearsal runs gloo ranks at tiny widths (no graphs, no kernel).
@@ -51,36 +56,37 @@ TINY_CFG = dict(cs.RAGGED, lens=(37, 100, 60, 150), seq_len=256, chunk=64,
 WORLD_TIMEOUT_S = 300         # a world of the 8-layer cut: ~1 min
 
 
-def rank_serve(mesh, hf, cfg, prompts, new_tokens, ep=1):
-    """One rank: the ragged app over the world's mesh cut into ep x
-    (world / ep) (graphs on the card), the weights drawn whole and cut to
-    the rank's slice; rank 0 warms and serves phase 9's mix and times the
-    paged kernel, the others follow. Returns the rank's numbers (rank
-    0's with the streams)."""
+def rank_serve(mesh, hf, cfg, prompts, new_tokens, ep=1, dp=1, cp=1):
+    """One rank: the ragged app over the world's mesh cut into dp x cp x
+    ep x (world / (dp·cp·ep)) (graphs on the card), the weights drawn
+    whole and cut to the rank's slice; the mesh's rank 0 warms and serves
+    phase 9's mix and times the paged kernel, the others follow. Returns
+    the rank's numbers (rank 0's with the streams)."""
     import torch
     import torch.distributed as dist
     from neuronx_distributed_inference_tpu_torch.parallel.mesh import (
         MeshConfig, build_mesh)
-    if ep > 1:
-        mesh = build_mesh(MeshConfig(tp=mesh.tp // ep, ep=ep), mesh.device,
+    if ep * dp * cp > 1:
+        mesh = build_mesh(MeshConfig(tp=mesh.tp // (ep * dp * cp), ep=ep,
+                                     dp=dp, cp=cp), mesh.device,
                           ranks=range(mesh.tp))
     dev = mesh.device
     on_card = dev.type == "cuda"
     app = cs.make_ragged_app(hf, dev, "bfloat16", cfg, mesh=mesh,
                              graphs=on_card)
     cs.init_weights(app, 0)
-    out = {"rank": mesh.rank, "weight_bytes": cs.param_bytes(app.params),
+    out = {"rank": mesh.index, "weight_bytes": cs.param_bytes(app.params),
            "heads": [app.spec.gqa.num_q_heads, app.spec.gqa.num_kv_heads]}
     with cs.CollectiveSpy() as spy:
         # the warm-up ends the followers' first loop, so every rank counts
         # the served launches only
-        if mesh.rank == 0:
-            cs.warm(app, f"tp{mesh.mp}_nccl", chunk_tokens=cfg["chunk"])
+        if mesh.leads:
+            cs.warm(app, f"tp{mesh.size}_nccl", chunk_tokens=cfg["chunk"])
             app.stop_followers()
             snap = {}
             with cs.PagedArgsSpy() as pspy:
                 streams, recs, ttft, launches, steps = cs.tp_serve(
-                    app, prompts, cfg, new_tokens, f"tp{mesh.mp}_nccl",
+                    app, prompts, cfg, new_tokens, f"tp{mesh.size}_nccl",
                     cs._sync(dev), snap=snap)
             app.stop_followers()
         else:
@@ -91,8 +97,8 @@ def rank_serve(mesh, hf, cfg, prompts, new_tokens, ep=1):
     out.update(launches=launches, captured=spy.captured, eager=spy.eager)
     if on_card:
         torch.cuda.synchronize(dev)
-    dist.barrier(group=mesh.group)
-    if mesh.rank == 0:
+    dist.barrier(group=mesh.world_group)
+    if mesh.leads:
         out.update(streams=streams, steps=steps, groups=sorted(pspy.groups),
                    host_ms_decode=cs.pass_summary(recs, "decode"),
                    host_ms_mixed=cs.pass_summary(recs, "mixed"),
@@ -103,7 +109,7 @@ def rank_serve(mesh, hf, cfg, prompts, new_tokens, ep=1):
         if on_card:
             out["kernel"] = cs.time_paged_kernel(app, snap["table"],
                                                  snap["pos"], dev, seed=9)
-    dist.barrier(group=mesh.group)
+    dist.barrier(group=mesh.world_group)
     return out
 
 
@@ -165,6 +171,12 @@ def main(argv=None) -> int:
     p.add_argument("--ep", type=int, default=1,
                    help="expert parallelism: Qwen3-235B-A22B's widths, "
                         "experts over ep, each world ep x (tp / ep)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="attention data parallelism: each world dp x "
+                        "(tp / dp), a step's rows over the dp replicas")
+    p.add_argument("--cp", type=int, default=1,
+                   help="context parallelism: each world cp x (tp / cp) "
+                        "(the paged steps run whole on every cp rank)")
     p.add_argument("--layers", type=int, default=None,
                    help="depth cut (default: phase 28's, or phase 29's "
                         "with --ep)")
@@ -202,27 +214,31 @@ def main(argv=None) -> int:
     # ranks' (every world here must pad alike)
     from neuronx_distributed_inference_tpu_torch.models.model_base import \
         pad_vocab
-    pads = {pad_vocab(hf["vocab_size"], tp) for tp in tps}
+    mp = [tp // (args.ep * args.dp * args.cp) * args.ep for tp in tps]
+    pads = {pad_vocab(hf["vocab_size"], m) for m in mp}
     if len(pads) != 1:
         print(f"torch_tp_nccl: the worlds pad the vocabulary to {pads}",
               file=sys.stderr)
         return 2
-    cs.init_weights(cs.pad_vocab_to(ref, max(tps)), 0)
+    cs.init_weights(cs.pad_vocab_to(ref, max(mp)), 0)
     a_bytes = cs.param_bytes(ref.params)
     teacher = cs.make_contiguous_app(hf, device, "bfloat16", batch=8,
                                      seq_len=cfg["seq_len"],
                                      output_logits=True, graphs=on_card)
-    cs.pad_vocab_to(teacher, max(tps))
+    cs.pad_vocab_to(teacher, max(mp))
     teacher.params = ref.params
     failed = []
     for tp in tps:
-        phase = f"tp{tp}_ep{args.ep}_nccl" if moe else f"tp{tp}_nccl"
+        phase = (f"tp{tp}" + "".join(f"_{a}{n}" for a, n in (
+            ("ep", args.ep), ("dp", args.dp), ("cp", args.cp)) if n > 1)
+            + "_nccl")
         t0 = time.perf_counter()
         try:
             ranks = spawn_world(rank_serve, tp,
                                 "nccl" if on_card else "gloo", args.device,
                                 tmpdir, WORLD_TIMEOUT_S,
-                                (hf, cfg, prompts, new_tokens, args.ep))
+                                (hf, cfg, prompts, new_tokens, args.ep,
+                                 args.dp, args.cp))
         except RuntimeError as e:
             cs.emit({"phase": phase + "_failed", "error": str(e)[-4000:]})
             failed.append(phase)

@@ -483,9 +483,9 @@ def test_chip_smoke_contrib_moe_helpers(capsys):
     assert '"contrib_moe_specs"' in capsys.readouterr().out
     cut = cs.moe_families_cut(cs.GLM_45_AIR, cs.GLM_CUT)
     spec = cs.family_spec(cut)
-    assert spec.num_layers == 10 and cs.GLM_45_AIR["num_hidden_layers"] == 46
+    assert spec.num_layers == 6 and cs.GLM_45_AIR["num_hidden_layers"] == 46
     assert [k for *_, k in model_base.layer_plan(spec)] == (
-        ["dense"] + ["moe"] * 9)
+        ["dense"] + ["moe"] * 5)
     rng = np.random.default_rng(3)
     logits = torch.from_numpy(rng.standard_normal((2, 5, 16)).astype(
         np.float32))

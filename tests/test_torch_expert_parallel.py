@@ -1,6 +1,6 @@
 """Expert parallelism in the port without a world: every leaf a rank
 keeps against the JAX package's shard on the same device, the refusals
-that wait for ROADMAP A13c, and the quantized hybrid layout's warning.
+that wait for ROADMAP A13d, and the quantized hybrid layout's warning.
 
 Layout: for every MoE family of the port, at tp_degree 2, at tp_degree 4
 with ep_degree 2, and at tp_degree 4 with ep_degree 2 and
@@ -244,12 +244,14 @@ def test_rank_spec_and_mesh_axes():
     "sample_dp", "moe_ep_mismatch", "moe_cte_degree", "lora",
     "speculation", "pipeline", "spill_tier", "save_quantized"])
 def test_a13c_refusals_raise(case):
-    """What waits for ROADMAP A13c raises ConfigurationError naming it:
-    cp, attention dp (and with it ``sample_dp``), sequence parallelism,
-    flash decoding, an MoE degree the mesh does not have, multi-LoRA,
+    """The cp and attention-dp degrees (and with them ``sample_dp``),
+    sequence parallelism and flash decoding run since ROADMAP A13c: an
+    ep 2 x tp 2 rank's app builds with its spec's field set. What waits
+    for ROADMAP A13d raises ConfigurationError naming it: multi-LoRA,
     speculation, the pipelined adapter, the spill tier and saving a
-    rank's quantized tree; a CTE / TKG expert degree is refused in the
-    reference's own words."""
+    rank's quantized tree; an MoE degree the mesh does not have is
+    refused as such, a CTE / TKG expert degree in the reference's own
+    words."""
     cfg = {"cp": dict(cp_degree=2), "attention_dp":
            dict(attention_dp_degree=2),
            "sample_dp": dict(attention_dp_degree=2),
@@ -260,19 +262,24 @@ def test_a13c_refusals_raise(case):
            "lora": dict(lora_config=LoraServingConfig(max_loras=2)),
            "speculation": dict(speculation_config=SpeculationConfig(
                speculation_length=3))}.get(case)
+    runs = {"cp": "cp_prefill", "attention_dp": None, "sample_dp": None,
+            "sequence_parallel": "seq_parallel",
+            "flash_decoding": "flash_decoding"}
+    if case in runs:
+        app = _rank_app(2, 2, **cfg)
+        if runs[case]:
+            assert getattr(app.spec, runs[case])
+        return
     if cfg is not None:
-        match = "mesh fixes" if case == "moe_cte_degree" else "A13c"
+        match = {"moe_cte_degree": "mesh fixes",
+                 "moe_ep_mismatch": "on a mesh of"}.get(case, "A13d")
         with pytest.raises(ConfigurationError, match=match):
             _rank_app(2, 2, **cfg)
-        if case in ("cp", "attention_dp"):
-            with pytest.raises(ConfigurationError, match="A13c"):
-                build_mesh(MeshConfig(tp=2, ep=2, **{
-                    "cp": dict(cp=2), "attention_dp": dict(dp=2)}[case]))
         return
     app = _rank_app(2, 2, **({"quantized": True}
                              if case == "save_quantized" else {}))
     app.init_random_weights(0).init_cache()
-    with pytest.raises(ConfigurationError, match="A13c"):
+    with pytest.raises(ConfigurationError, match="A13d"):
         if case == "pipeline":
             PagedEngineAdapter(app, pipeline_depth=1)
         elif case == "spill_tier":

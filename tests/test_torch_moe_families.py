@@ -344,7 +344,7 @@ def test_port_only_refusals_and_accepted_moe_configs():
     (``tkg_experts_local``: the hybrid decode layout, the stored one on
     one card); a degree the mesh does not have (the reference ignores
     ``moe_ep_degree``; the port holds it to the mesh's ep) raises
-    ConfigurationError naming ROADMAP A13; a mixed stack
+    ConfigurationError naming the mesh's extent; a mixed stack
     of leading dense layers (``first_dense``) builds, and so does an
     interleaved dense / MoE stack (``moe_pattern``), whose layer stacks
     follow the pattern's runs. Mixtral's window below ``seq_len`` takes
@@ -360,7 +360,7 @@ def test_port_only_refusals_and_accepted_moe_configs():
             moe_tkg_ep_degree=1)), **QWEN3_MOE), device="cpu")
     assert hybrid.spec.moe.tkg_experts_local
     for mc in (MoEConfig(moe_ep_degree=2),):
-        with pytest.raises(ConfigurationError, match="A13"):
+        with pytest.raises(ConfigurationError, match="on a mesh of ep 1"):
             TpuQwen3MoeForCausalLM(None, cls(TpuConfig(
                 batch_size=1, seq_len=32, moe_config=mc), **QWEN3_MOE),
                 device="cpu")

@@ -9,7 +9,7 @@ At tp 4 the two KV heads are replicated, at tp 8 the four query heads are
 padded to 8 (tests/test_gqa_sharding.py:25-37), so a wrong cut of the
 fused q/k/v or of the padded heads parts the streams. Port tp N also
 equals port tp 1 token for token. The refusals of the slice (ROADMAP
-A13c) raise ``ConfigurationError`` without a world."""
+A13d) raise ``ConfigurationError`` without a world."""
 
 import numpy as np
 import pytest
@@ -112,12 +112,13 @@ def _tiny_config(**tcfg):
     "cp", "attention_dp", "ep", "sequence_parallel", "flash_decoding",
     "moe_degree", "lora", "speculation", "bad_wire"])
 def test_a13b_refusals_raise(case):
-    """What tensor parallelism does not serve yet raises
-    ConfigurationError (ROADMAP A13c since expert parallelism landed):
-    the cp / dp degrees, sequence parallelism, flash decoding, an MoE
-    degree the mesh does not have, multi-LoRA and speculation at tp > 1;
-    a wire dtype outside int8 / fp8 is refused at any tp. The ep degree
-    runs now: an ep that does not divide tp_degree is refused."""
+    """The cp / dp degrees, sequence parallelism and flash decoding run
+    since ROADMAP A13c: their spec builds with its field set, and
+    ``mesh_from_config`` divides tp_degree by cp·dp·ep as the reference
+    does. An MoE degree the mesh does not have, multi-LoRA and
+    speculation at tp > 1 (ROADMAP A13d) raise ConfigurationError; a
+    wire dtype outside int8 / fp8 is refused at any tp. The ep degree
+    runs: an ep that does not divide tp_degree is refused."""
     if case == "ep":
         model_base.spec_from_config(_tiny_config(ep_degree=2), tp_degree=2)
         with pytest.raises(ConfigurationError, match="not divisible"):
@@ -134,14 +135,23 @@ def test_a13b_refusals_raise(case):
                 speculation_length=3)),
             "bad_wire": dict(collective_config=CollectiveConfig(
                 dtype="int4"))}[case]
-    with pytest.raises(ConfigurationError):
+    runs = {"cp": "cp_prefill", "attention_dp": None,
+            "sequence_parallel": "seq_parallel",
+            "flash_decoding": "flash_decoding"}
+    if case in runs:
+        spec = model_base.spec_from_config(
+            _tiny_config(tp_degree=4, **over), tp_degree=2)
+        if runs[case]:
+            assert getattr(spec, runs[case])
+        if case in ("cp", "attention_dp"):
+            with pytest.raises(ConfigurationError, match="not divisible"):
+                mesh_from_config(TpuConfig(**dict(TCFG, tp_degree=4,
+                                                  ep_degree=4, **over)))
+        return
+    with pytest.raises(ConfigurationError,
+                       match="A13d" if case in ("lora", "speculation")
+                       else None):
         model_base.spec_from_config(_tiny_config(**over), tp_degree=2)
-    if case in ("cp", "attention_dp"):
-        with pytest.raises(ConfigurationError, match="A13c"):
-            build_mesh(MeshConfig(tp=2, **{
-                "cp": dict(cp=2), "attention_dp": dict(dp=2)}[case]))
-        with pytest.raises(ConfigurationError, match="A13c"):
-            mesh_from_config(TpuConfig(**dict(TCFG, **over)))
 
 
 def test_app_refusals_raise():

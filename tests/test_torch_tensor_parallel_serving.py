@@ -7,7 +7,7 @@ the ragged engine at tp 2 (the world's first two ranks) against the
 port's tp 1, stream for stream. Rank 0 plans every dispatch (scheduler,
 planner, block allocator, prefix cache) and the other ranks follow its
 records. What this slice does not serve at tp > 1 raises
-``ConfigurationError`` naming ROADMAP A13c."""
+``ConfigurationError`` naming ROADMAP A13d."""
 
 import numpy as np
 import pytest
@@ -113,7 +113,7 @@ def test_ragged_engine_at_tp2_equals_tp1(ckpt, served):
 def test_serving_refusals_at_tp_over_1(case):
     """At tp > 1 the pipelined dispatch, served speculation, the KV spill
     tier, the HTTP front door and the handoff raise ConfigurationError
-    (ROADMAP A13c). An app over a mesh needs no collective to be built,
+    (ROADMAP A13d). An app over a mesh needs no collective to be built,
     so a rank's view without a process group stands in."""
     mesh = Mesh(None, "gloo", "cpu", rank=0, tp=2)
     app = PagedCausalLMApplication(None, LlamaInferenceConfig(
@@ -121,7 +121,7 @@ def test_serving_refusals_at_tp_over_1(case):
             num_hidden_layers=2)), device="cpu", mesh=mesh)
     app.init_random_weights(0).init_cache()
     assert app.cache["k"].shape[3] == 1           # one KV head a rank
-    with pytest.raises(ConfigurationError, match="A13c"):
+    with pytest.raises(ConfigurationError, match="A13d"):
         if case == "pipeline":
             PagedEngineAdapter(app, pipeline_depth=1)
         elif case == "speculation":

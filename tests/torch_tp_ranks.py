@@ -39,9 +39,9 @@ def build_app(ckpt, model_type, tcfg, mesh=None, paged=False):
 
 
 def _leader(mesh, app, drive):
-    """Rank 0 runs ``drive(app)`` and stops the followers; the others
-    follow. Returns rank 0's result (None elsewhere)."""
-    if mesh.rank == 0:
+    """The mesh's rank 0 runs ``drive(app)`` and stops the followers; the
+    others follow. Returns rank 0's result (None elsewhere)."""
+    if mesh.leads:
         try:
             return drive(app)
         finally:
